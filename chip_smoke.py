@@ -1,0 +1,810 @@
+"""Drive the PyTorch port (parallax_tpu_torch) on one NVIDIA H100.
+
+    python3 chip_smoke.py            # every phase, one card
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. env      the card's name and power limit, torch and CUDA versions; TF32
+            is switched off so the float32 checks mean what they say.
+2. build    nvcc builds the kernels from parallax_tpu_torch/csrc.
+3. kernels  each hand-written kernel against its plain PyTorch version on
+            the card at the shapes Qwen2.5-7B gives it (Hq 28, Hkv 4, D 128,
+            page 64, bf16 cache, vocab 152064), plus a small float32 case
+            with sinks, a sliding window and a soft cap; then times each
+            (CUDA events, median, L2 flushed) beside its plain version, a
+            PyTorch library call where one computes the same function, and
+            its bound.
+4. serve    a single-stage StageEngine on cuda:0 serving full-width,
+            all-28-layer Qwen2.5-7B (random bf16 weights from a seeded
+            torch.Generator on the card) to 8 concurrent requests; every
+            kernel must have launched, and the greedy streams must agree
+            with the plain path's logits (tie-tolerant).
+5. pipeline the same requests through a 14 + 14 layer InProcessPipeline on
+            the same card, sharing the weight tensors.
+6. profile  the serve phase once more under torch.profiler: device time by
+            kernel group and the device's busy share of the wall.
+
+One JSON object per line; the ``kernels`` line and the card line come just
+before the last line, which is ``{"ok": true, "device": {...}}``.
+``--only kernels`` (comma-separated phase names) runs a subset and prints
+no result line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+BF16_TOL = (2e-2, 2e-2)            # atol, rtol: bf16 outputs, two roundings
+F32_TOL = (1e-4, 1e-4)             # float32 outputs, summation order only
+GREEDY_TOL = 0.1                   # bf16 logit gap accepted at a near-tie
+
+QWEN25_7B = dict(
+    architectures=["Qwen2ForCausalLM"], hidden_size=3584,
+    num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+    intermediate_size=18944, vocab_size=152064,
+    max_position_embeddings=32768, rope_theta=1000000.0, rms_norm_eps=1e-6,
+    tie_word_embeddings=False, attention_bias=True,
+)
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=30,
+    ).stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Timing and bounds
+# ---------------------------------------------------------------------------
+
+
+def time_ms(torch, fn, iters: int, flush=None) -> float:
+    """Median device time of ``fn`` over ``iters`` calls (CUDA events), with
+    the L2 cache flushed before each call when ``flush`` is given."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(bytes_moved: float, ops: float, dtype: str) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _decode_case(torch, gen, dev, dtype, hq, hkv, d, page, lens, frozen):
+    s = len(lens)
+    pps = max(1, max((n + page - 1) // page for n in lens))
+    pages = torch.zeros((s, pps), dtype=torch.int32)
+    used = 1
+    for i, n in enumerate(lens):
+        npg = (n + page - 1) // page
+        pages[i, :npg] = torch.arange(used, used + npg, dtype=torch.int32)
+        used += npg
+    slots = torch.full((s,), -1, dtype=torch.int32)
+    for i, n in enumerate(lens):
+        if n > 0 and i not in frozen:
+            slots[i] = int(pages[i, (n - 1) // page]) * page + (n - 1) % page
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    return dict(
+        q=rnd(s, hq, d), k=rnd(s, hkv, d), v=rnd(s, hkv, d),
+        cache=rnd(used + 2, page, 2 * hkv, d),
+        lens=torch.tensor(lens, dtype=torch.int32, device=dev),
+        pages=pages.to(dev), slots=slots.to(dev),
+    )
+
+
+def _prefill_case(torch, gen, dev, dtype, hq, hkv, d, page, q_lens, cached,
+                  pps):
+    s = len(q_lens)
+    cu = [0]
+    for q in q_lens:
+        cu.append(cu[-1] + q)
+    t_real = cu[-1]
+    t = 1 << (t_real - 1).bit_length()          # token bucket (padding)
+    pages = (torch.arange(s * pps, dtype=torch.int32).reshape(s, pps) + 1)
+    slots = torch.full((t,), -1, dtype=torch.int32)
+    for i in range(s):
+        pos = torch.arange(cached[i], cached[i] + q_lens[i])
+        slots[cu[i]:cu[i + 1]] = (
+            pages[i, pos // page] * page + pos % page
+        ).to(torch.int32)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    return dict(
+        q=rnd(t, hq, d), k=rnd(t, hkv, d), v=rnd(t, hkv, d),
+        cache=rnd(s * pps + 1, page, 2 * hkv, d),
+        kv_lens=torch.tensor([c + q for c, q in zip(cached, q_lens)],
+                             dtype=torch.int32, device=dev),
+        pages=pages.to(dev), cu=torch.tensor(cu, dtype=torch.int32,
+                                             device=dev),
+        nseq=torch.tensor([s], dtype=torch.int32, device=dev),
+        slots=slots.to(dev), t_real=t_real, q_lens=q_lens, cached=cached,
+    )
+
+
+def _close(torch, got, ref, tol) -> float:
+    atol, rtol = tol
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    if not bool((err <= atol + rtol * ref.abs()).all()):
+        raise AssertionError(
+            f"kernel disagrees with its plain version: max abs err "
+            f"{float(err.max())} beyond atol {atol} + rtol {rtol}·|ref|"
+        )
+    return float(err.max())
+
+
+def check_decode(torch, gen, dev, dtype, hq, hkv, d, page, lens, frozen,
+                 window=None, cap=None, sinks=None):
+    from parallax_tpu_torch.ops.decode_fused import (
+        gqa_fused_decode,
+        gqa_fused_decode_plain,
+    )
+
+    c = _decode_case(torch, gen, dev, dtype, hq, hkv, d, page, lens, frozen)
+    kw = dict(sm_scale=d ** -0.5, sliding_window=window, soft_cap=cap)
+    cache_k, cache_p = c["cache"].clone(), c["cache"].clone()
+    out_k, _ = gqa_fused_decode(c["q"], c["k"], c["v"], cache_k, c["lens"],
+                                c["pages"], c["slots"], sinks, **kw)
+    out_p, _ = gqa_fused_decode_plain(c["q"], c["k"], c["v"], cache_p,
+                                      c["lens"], c["pages"], c["slots"],
+                                      sinks, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(cache_k, cache_p):
+        raise AssertionError("gqa_decode: cache after the append differs")
+    zero_rows = [i for i, n in enumerate(lens) if n == 0]
+    if zero_rows and bool(out_k[zero_rows].any()):
+        raise AssertionError("gqa_decode: kv_len 0 rows are not zero")
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    return _close(torch, out_k, out_p, tol), c, kw
+
+
+def check_prefill(torch, gen, dev, dtype, hq, hkv, d, page, q_lens, cached,
+                  pps, window=None, cap=None, sinks=None):
+    from parallax_tpu_torch.ops.prefill_fused import (
+        gqa_fused_prefill,
+        gqa_fused_prefill_plain,
+    )
+
+    c = _prefill_case(torch, gen, dev, dtype, hq, hkv, d, page, q_lens,
+                      cached, pps)
+    kw = dict(sm_scale=d ** -0.5, sliding_window=window, soft_cap=cap)
+    cache_k, cache_p = c["cache"].clone(), c["cache"].clone()
+    args = (c["kv_lens"], c["pages"], c["cu"], c["nseq"], c["slots"], sinks)
+    out_k, _ = gqa_fused_prefill(c["q"], c["k"], c["v"], cache_k, *args, **kw)
+    out_p, _ = gqa_fused_prefill_plain(c["q"], c["k"], c["v"], cache_p,
+                                       *args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(cache_k, cache_p):
+        raise AssertionError("kv_append/gqa_prefill: cache differs")
+    if bool(out_k[c["t_real"]:].any()):
+        raise AssertionError("gqa_prefill: padding tokens are not zero")
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    cache_err = float((cache_k.float() - cache_p.float()).abs().max())
+    return _close(torch, out_k, out_p, tol), cache_err, c, kw
+
+
+def _sampler_batch(torch, gen, dev, v):
+    from parallax_tpu_torch.ops.sampling import row_gumbel
+
+    s = 8
+    logits = torch.randn((s, v), generator=gen, device=dev) * 3.0
+    # Forced ties: a duplicated maximum on a greedy row, and ties at and
+    # around the k-th value of top-k rows.
+    logits[1, 77] = logits[1].max() + 1.0
+    logits[1, 90000] = logits[1, 77]
+    for row, k in ((6, 5), (7, 64)):
+        top = logits[row].max() + 2.0
+        logits[row, 1000:1000 + k + 3] = top
+    temp = torch.tensor([0.0, 0.0, 0.8, 1.0, 0.7, 1.3, 1.0, 0.5],
+                        device=dev)
+    top_k = torch.tensor([0, 0, 20, 64, 1, 0, 5, 64], dtype=torch.int32,
+                         device=dev)
+    gumbel = row_gumbel(s, v, base_seed=0, step=3,
+                        seeds=[-1, -1, 11, -1, 5, -1, 9, 2],
+                        out_steps=[0, 0, 4, 0, 1, 0, 7, 3], device=dev)
+    return logits, gumbel, temp, top_k
+
+
+def phase_kernels(torch, dev) -> list[dict]:
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.ops.decode_fused import (
+        gqa_fused_decode,
+        gqa_fused_decode_plain,
+    )
+    from parallax_tpu_torch.ops.kv_cache_ops import kv_append, reshape_and_cache
+    from parallax_tpu_torch.ops.prefill_fused import (
+        gqa_prefill_attend,
+        gqa_prefill_attend_plain,
+    )
+    from parallax_tpu_torch.ops.sampling import (
+        fused_sample_topk,
+        fused_sample_topk_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    bf16 = torch.bfloat16
+    hq, hkv, d, page = 28, 4, 128, 64
+    # Decode: S = 8 ragged rows with a page-exact row (320), a kv_len 0
+    # padding row and a frozen slot -1 row (450).
+    dec_lens = [700, 320, 0, 450, 129, 33, 511, 256]
+    err_dec, dc, dkw = check_decode(torch, gen, dev, bf16, hq, hkv, d, page,
+                                    dec_lens, frozen={3})
+    # Prefill: a ragged chunked batch over cached prefixes, padded from 749
+    # to a 1024-token bucket.
+    pre_q, pre_cached = [256, 256, 200, 37], [0, 256, 192, 100]
+    err_pre, err_app, pc, pkw = check_prefill(torch, gen, dev, bf16, hq, hkv,
+                                              d, page, pre_q, pre_cached,
+                                              pps=16)
+    # Sinks + sliding window + soft cap, float32, G = 3.
+    sinks = torch.randn((6,), generator=gen, device=dev)
+    err_dec_s, *_ = check_decode(torch, gen, dev, torch.float32, 6, 2, 64, 16,
+                                 [5, 17, 48, 0, 9, 16], frozen={4}, window=16,
+                                 cap=30.0, sinks=sinks)
+    err_pre_s, err_app_s, *_ = check_prefill(torch, gen, dev, torch.float32,
+                                             6, 2, 64, 16, [17, 8, 33],
+                                             [3, 16, 5], pps=12, window=11,
+                                             cap=30.0, sinks=sinks)
+    # Other head geometries the kernels take: G = 4 (Llama-3-8B), G = 1
+    # with D = 64, and G = 20 (the decode kernel's 64-row variant).
+    others = {}
+    for name, dt, ghq, ghkv, gd, gpage in (
+        ("g4_d128_bf16", bf16, 32, 8, 128, 64),
+        ("g1_d64_bf16", bf16, 16, 16, 64, 32),
+        ("g20_d128_f32", torch.float32, 40, 2, 128, 16),
+    ):
+        e_d, *_ = check_decode(torch, gen, dev, dt, ghq, ghkv, gd, gpage,
+                               [300, 64, 0, 77], frozen={1})
+        e_p, *_ = check_prefill(torch, gen, dev, dt, ghq, ghkv, gd, gpage,
+                                [70, 1, 33], [0, 64, 9],
+                                pps=(140 + gpage - 1) // gpage)
+        others[name] = {"decode": e_d, "prefill": e_p}
+    emit({"phase": "kernels", "check": "attention",
+          "decode_bf16_max_abs_err": err_dec,
+          "prefill_bf16_max_abs_err": err_pre,
+          "decode_f32_sinks_window_softcap_max_abs_err": err_dec_s,
+          "prefill_f32_sinks_window_softcap_max_abs_err": err_pre_s,
+          "bf16_tol_atol_rtol": BF16_TOL, "f32_tol_atol_rtol": F32_TOL,
+          "other_geometries_max_abs_err": others,
+          "cache_bitwise_equal": True,
+          "append_max_abs_err": max(err_app, err_app_s)})
+
+    v = QWEN25_7B["vocab_size"]
+    logits, gumbel, temp, top_k = _sampler_batch(torch, gen, dev, v)
+    tok_k = fused_sample_topk(logits, gumbel, temp, top_k)
+    tok_p = fused_sample_topk_plain(logits, gumbel, temp, top_k)
+    err_tok = float((tok_k - tok_p).abs().max())
+    if not torch.equal(tok_k, tok_p):
+        raise AssertionError(
+            f"sample_topk: {tok_k.tolist()} != plain {tok_p.tolist()}"
+        )
+    if int(tok_k[1]) != 77:
+        raise AssertionError("sample_topk: greedy tie must take index 77")
+    emit({"phase": "kernels", "check": "sampler", "tokens": tok_k.tolist(),
+          "exact": True})
+
+    # -- timing at the main path's shapes --------------------------------
+    flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device=dev)
+    out = []
+    esz = 2
+    # A0: the prefill batch's append.
+    t_real = pc["t_real"]
+    n_app = t_real
+    cache = pc["cache"].clone()
+    ms = time_ms(torch, lambda: kv_append(cache, pc["k"], pc["v"],
+                                          pc["slots"]), 50, flush)
+    plain = time_ms(torch, lambda: reshape_and_cache(cache, pc["k"], pc["v"],
+                                                     pc["slots"]), 20, flush)
+    flat = cache.view(-1, 2 * hkv, d)
+    from parallax_tpu_torch.ops.kv_cache_ops import interleave_kv
+
+    rows = interleave_kv(pc["k"], pc["v"])[:t_real].contiguous()
+    idx = pc["slots"][:t_real].long()
+    lib = time_ms(torch, lambda: flat.index_copy_(0, idx, rows), 50, flush)
+    b_ms, b_by = bound(2 * n_app * 2 * hkv * d * esz, 0, "bfloat16")
+    out.append(dict(
+        name="kv_append", route="cuda",
+        source="parallax_tpu_torch/csrc/kv_append.cu",
+        replaces="parallax_tpu/ops/prefill_fused_pallas.py:142",
+        max_abs_err=err_app, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib,
+    ))
+
+    # A1: attend-only prefill over the same batch (its append done above).
+    args = (pc["q"], cache, pc["kv_lens"], pc["pages"], pc["cu"],
+            pc["nseq"], None)
+    ms = time_ms(torch, lambda: gqa_prefill_attend(*args, **pkw), 30, flush)
+    plain = time_ms(torch, lambda: gqa_prefill_attend_plain(*args, **pkw),
+                    10, flush)
+    ctx_tokens = sum(c + q for c, q in zip(pre_q, pre_cached))
+    causal_pairs = sum(sum(c + j + 1 for j in range(q))
+                       for c, q in zip(pre_cached, pre_q))
+    b_ms, b_by = bound(
+        2 * t_real * hq * d * esz + ctx_tokens * 2 * hkv * d * esz,
+        4 * hq * d * causal_pairs, "bfloat16",
+    )
+    lib = time_ms(torch, _sdpa_prefill(torch, dict(pc, cache=cache), hq, hkv,
+                                       d, page), 30, flush)
+    out.append(dict(
+        name="gqa_prefill", route="cuda",
+        source="parallax_tpu_torch/csrc/gqa_prefill.cu",
+        replaces="parallax_tpu/ops/prefill_fused_pallas.py:70",
+        max_abs_err=err_pre, ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib,
+    ))
+
+    # A2: fused decode over the S = 8 rows.
+    cache_k = dc["cache"].clone()
+    dargs = (dc["q"], dc["k"], dc["v"], cache_k, dc["lens"], dc["pages"],
+             dc["slots"], None)
+    ms = time_ms(torch, lambda: gqa_fused_decode(*dargs, **dkw), 50, flush)
+    plain = time_ms(torch, lambda: gqa_fused_decode_plain(*dargs, **dkw), 20,
+                    flush)
+    ctx = sum(dec_lens)
+    b_ms, b_by = bound(
+        2 * len(dec_lens) * hq * d * esz
+        + 2 * len(dec_lens) * 2 * hkv * d * esz + ctx * 2 * hkv * d * esz,
+        4 * hq * d * ctx, "bfloat16",
+    )
+    lib = time_ms(torch, _sdpa_decode(torch, dict(dc, cache=cache_k), hq,
+                                      hkv, d, page), 50, flush)
+    out.append(dict(
+        name="gqa_decode", route="cuda",
+        source="parallax_tpu_torch/csrc/gqa_decode.cu",
+        replaces="parallax_tpu/ops/decode_fused_pallas.py:314",
+        max_abs_err=err_dec, ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib,
+    ))
+
+    # A3: the sampler over the 8-row batch.
+    ms = time_ms(torch, lambda: fused_sample_topk(logits, gumbel, temp,
+                                                  top_k), 30, flush)
+    plain = time_ms(torch, lambda: fused_sample_topk_plain(
+        logits, gumbel, temp, top_k), 10, flush)
+    s = logits.shape[0]
+    b_ms, b_by = bound(2 * s * v * 4 + s * 12, 3 * s * v, "float32")
+    out.append(dict(
+        name="sample_topk", route="cuda",
+        source="parallax_tpu_torch/csrc/sample_topk.cu",
+        replaces="parallax_tpu/ops/decode_fused_pallas.py:604",
+        max_abs_err=err_tok, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
+    ))
+    del flush
+    assert set(k["name"] for k in out) == set(ck.KERNELS)
+    emit({"phase": "kernels", "timed": [
+        {k: e[k] for k in ("name", "ms", "plain_ms", "bound_ms",
+                           "library_ms")} for e in out]})
+    return out
+
+
+def _dense_kv(torch, pages_row, n, cache, hkv, d, page):
+    """Gather one sequence's first ``n`` K and V rows: [Hkv, n, D] each."""
+    npg = (n + page - 1) // page
+    rows = cache[pages_row[:npg].long()].reshape(npg * page, 2 * hkv, d)[:n]
+    return rows[:, 0::2].transpose(0, 1), rows[:, 1::2].transpose(0, 1)
+
+
+def _sdpa_decode(torch, c, hq, hkv, d, page):
+    """The yardstick: one scaled_dot_product_attention call over the
+    gathered, padded dense K/V of the decode rows (masking the padding)."""
+    import torch.nn.functional as F
+
+    lens = c["lens"].tolist()
+    s, lmax = len(lens), max(lens)
+    k = torch.zeros((s, hkv, lmax, d), dtype=c["q"].dtype, device=c["q"].device)
+    v = torch.zeros_like(k)
+    mask = torch.zeros((s, 1, 1, lmax), dtype=torch.bool, device=k.device)
+    for i, n in enumerate(lens):
+        if n:
+            k[i, :, :n], v[i, :, :n] = _dense_kv(torch, c["pages"][i], n,
+                                                 c["cache"], hkv, d, page)
+            mask[i, :, :, :n] = True
+        else:
+            mask[i, :, :, 0] = True
+    q = c["q"][:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def _sdpa_prefill(torch, c, hq, hkv, d, page):
+    """The yardstick for prefill: one SDPA call over padded per-sequence
+    queries and dense K/V with a causal, ragged mask."""
+    import torch.nn.functional as F
+
+    q_lens, cached = c["q_lens"], c["cached"]
+    s = len(q_lens)
+    qmax = max(q_lens)
+    lmax = max(a + b for a, b in zip(q_lens, cached))
+    dev, dt = c["q"].device, c["q"].dtype
+    q = torch.zeros((s, hq, qmax, d), dtype=dt, device=dev)
+    k = torch.zeros((s, hkv, lmax, d), dtype=dt, device=dev)
+    v = torch.zeros_like(k)
+    mask = torch.zeros((s, 1, qmax, lmax), dtype=torch.bool, device=dev)
+    cu = c["cu"].tolist()
+    for i in range(s):
+        n = q_lens[i] + cached[i]
+        q[i, :, :q_lens[i]] = c["q"][cu[i]:cu[i + 1]].transpose(0, 1)
+        k[i, :, :n], v[i, :, :n] = _dense_kv(torch, c["pages"][i], n,
+                                             c["cache"], hkv, d, page)
+        qpos = torch.arange(cached[i], n, device=dev)
+        mask[i, 0, :q_lens[i], :n] = (
+            torch.arange(n, device=dev)[None, :] <= qpos[:, None]
+        )
+        mask[i, 0, q_lens[i]:, 0] = True
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+# ---------------------------------------------------------------------------
+# Phases 4 and 5: serving
+# ---------------------------------------------------------------------------
+
+
+def make_requests(vocab: int):
+    import random
+
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    rng = random.Random(2024)
+    prefix = [rng.randrange(1, vocab) for _ in range(256)]
+    # r0 donates the shared 256-token prefix (its prefill finishes no later
+    # than any other admitted row's); r7 waits for a batch slot
+    # (max_batch_size 7) and is admitted once r0 released, so it must hit.
+    lens = [260, 300, 450, 700, 512, 380, 640]
+    prompts = [prefix + [rng.randrange(1, vocab) for _ in range(4)]]
+    prompts += [[rng.randrange(1, vocab) for _ in range(n)] for n in lens[1:]]
+    prompts.append(prefix + [rng.randrange(1, vocab) for _ in range(150)])
+    sampled = {2: (0.8, 20, 11), 4: (1.0, 64, 5), 6: (0.7, 8, 9)}
+    reqs = []
+    for i, p in enumerate(prompts):
+        temp, top_k, seed = sampled.get(i, (0.0, 0, None))
+        reqs.append(Request(
+            f"r{i}", prompt_ids=p,
+            sampling_params=SamplingParams(
+                temperature=temp, top_k=top_k, seed=seed, max_new_tokens=32,
+                ignore_eos=True,
+            ),
+        ))
+    return reqs, sampled
+
+
+def engine_config(fused: bool):
+    from parallax_tpu_torch.runtime.engine import EngineConfig
+
+    return EngineConfig(
+        page_size=64, num_pages=192, max_batch_size=7,
+        max_num_tokens_per_batch=2048, prefill_chunk_size=256,
+        max_model_len=1024, kv_dtype="bfloat16", enable_prefix_cache=True,
+        decode_fused=fused, prefill_fused=fused,
+    )
+
+
+def serve(torch, bounds, params, cfg, dev, fused: bool):
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.runtime.engine import StageEngine
+    from parallax_tpu_torch.runtime.pipeline import InProcessPipeline
+
+    engines = []
+    for s, e in bounds:
+        p = {"layers": params["layers"][s:e]}
+        if s == 0:
+            p["embed_tokens"] = params["embed_tokens"]
+        if e == cfg.num_hidden_layers:
+            p["norm"] = params["norm"]
+            p["lm_head"] = params["lm_head"]
+        engines.append(StageEngine(create_stage_model(cfg, s, e), p,
+                                   engine_config(fused), device=dev))
+    pipe = InProcessPipeline(engines)
+    reqs, sampled = make_requests(cfg.vocab_size)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival_time = t0
+        pipe.submit(r)
+    pipe.run_until_complete()
+    torch.cuda.synchronize()
+    return reqs, sampled, engines, t0, time.monotonic()
+
+
+def stream_metrics(reqs, t0: float, t1: float) -> dict:
+    """TTFT per request (submit to first committed token), and decode
+    throughput: tokens committed after each request's first token over the
+    span from the first first-token to the end of the run."""
+    ttft = [r.first_token_time - t0 for r in reqs]
+    first = min(r.first_token_time for r in reqs)
+    decode_tokens = sum(len(r.output_ids) - 1 for r in reqs)
+    return {"ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
+            "wall_s": t1 - t0,
+            "output_tok_per_s": sum(len(r.output_ids) for r in reqs)
+            / (t1 - t0),
+            "decode_tok_per_s": decode_tokens / (t1 - first)}
+
+
+def greedy_check(torch, model_full, params, reqs, sampled, dev) -> float:
+    """Tie-tolerant check of every greedy stream against the plain path:
+    one forward per row over prompt + outputs with logits at every
+    position; each token must be within GREEDY_TOL of that position's
+    argmax. Returns the largest gap seen."""
+    from parallax_tpu_torch.runtime.batch import BucketSpec, assemble
+    from parallax_tpu_torch.runtime.request import Request
+    from parallax_tpu_torch.runtime.scheduler import BatchPlan, ScheduledSeq
+
+    page = 64
+    worst = 0.0
+    for i, r in enumerate(reqs):
+        if i in sampled:
+            continue
+        ctx = r.prompt_ids + r.output_ids[:-1]
+        n = len(ctx)
+        npg = (n + page - 1) // page
+        ref_req = Request("ref", prompt_ids=list(ctx))
+        ref_req.page_ids = list(range(1, npg + 1))
+        plan = BatchPlan([ScheduledSeq(request=ref_req, num_new_tokens=n,
+                                       token_ids=list(ctx), context_len=n)])
+        spec = BucketSpec.build(1024, 1, 1024, page)
+        inputs = assemble(plan, spec, page, dev, gather_all_logits=True)
+        kv = model_full.new_kv_caches(npg + 1, page, torch.bfloat16, dev)
+        with torch.no_grad():
+            logits, _ = model_full(params, kv, inputs)
+        p0 = len(r.prompt_ids) - 1
+        rows = logits[p0:p0 + len(r.output_ids)]
+        toks = torch.tensor(r.output_ids, device=dev)
+        best = rows.max(dim=-1).values
+        gaps = best - rows.gather(1, toks[:, None])[:, 0]
+        g = float(gaps.max())
+        worst = max(worst, g)
+        if g >= GREEDY_TOL:
+            raise AssertionError(
+                f"{r.request_id}: greedy token off the plain path's argmax "
+                f"by {g} (tolerance {GREEDY_TOL})"
+            )
+        del logits, kv
+    return worst
+
+
+def phase_serve(torch, dev, card: str):
+    from parallax_tpu_torch.config import normalize_config
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    cfg = normalize_config(QWEN25_7B)
+    model_full = create_stage_model(cfg, 0, cfg.num_hidden_layers)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.monotonic()
+    params = model_full.init_params(gen, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    n_params = sum(
+        t.numel() for t in _leaves(params)
+    )
+    emit({"phase": "serve", "weights": "random bf16", "params": n_params,
+          "init_s": round(time.monotonic() - t0, 3),
+          "layers": cfg.num_hidden_layers})
+
+    ck.reset_launches()
+    reqs, sampled, engines, t0, t1 = serve(torch, [(0, 28)], params, cfg,
+                                           dev, fused=True)
+    launches = ck.launches()
+    for r in reqs:
+        if r.status.value != "finished_length" or len(r.output_ids) != 32:
+            raise AssertionError(f"{r.request_id}: {r.status.value}, "
+                                 f"{len(r.output_ids)} tokens")
+    sharer = reqs[-1]
+    if sharer.num_cached_tokens <= 0:
+        raise AssertionError("the sharer did not hit the prefix cache")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing}")
+    emit({"phase": "serve", "requests": len(reqs), "launches": launches,
+          "dispatch": engines[0].kernel_dispatch_summary(),
+          "sharer_cached_tokens": sharer.num_cached_tokens,
+          "cache": engines[0].cache_stats(),
+          **stream_metrics(reqs, t0, t1), "card": card})
+    worst = greedy_check(torch, model_full, params, reqs, sampled, dev)
+    emit({"phase": "serve", "greedy_vs_plain": "pass",
+          "largest_logit_gap": worst, "tolerance": GREEDY_TOL})
+
+    plain_reqs, *_ = serve(torch, [(0, 28)], params, cfg, dev, fused=False)
+    agree = {}
+    for i in sorted(sampled):
+        a, b = reqs[i].output_ids, plain_reqs[i].output_ids
+        same = 0
+        while same < len(a) and a[same] == b[same]:
+            same += 1
+        agree[reqs[i].request_id] = same
+    greedy_same = sum(
+        reqs[i].output_ids == plain_reqs[i].output_ids
+        for i in range(len(reqs)) if i not in sampled
+    )
+    emit({"phase": "serve", "sampled_rows_common_prefix_vs_plain": agree,
+          "greedy_rows_identical_to_plain": greedy_same})
+    return cfg, model_full, params, reqs, sampled, launches
+
+
+def phase_pipeline(torch, dev, cfg, model_full, params, single, sampled):
+    reqs, _, engines, t0, t1 = serve(torch, [(0, 14), (14, 28)], params,
+                                     cfg, dev, fused=True)
+    for r in reqs:
+        if r.status.value != "finished_length":
+            raise AssertionError(f"pipeline {r.request_id}: {r.status.value}")
+    worst = greedy_check(torch, model_full, params, reqs, sampled, dev)
+    identical = sum(
+        a == b for r, s in zip(reqs, single)
+        for a, b in zip(r.output_ids, s.output_ids)
+    )
+    total = sum(len(r.output_ids) for r in reqs)
+    emit({"phase": "pipeline", "stages": [[0, 14], [14, 28]],
+          "greedy_vs_plain": "pass", "largest_logit_gap": worst,
+          "tokens_identical_to_single_stage": identical,
+          "tokens": total, **stream_metrics(reqs, t0, t1),
+          "dispatch": [e.kernel_dispatch_summary() for e in engines]})
+
+
+def _kernel_group(name: str) -> str:
+    for key, group in (("gqa_decode", "gqa_decode"),
+                       ("gqa_prefill", "gqa_prefill"),
+                       ("kv_append", "kv_append"),
+                       ("sample_topk", "sample_topk")):
+        if key in name:
+            return group
+    low = name.lower()
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "gemv")):
+        return "matmul (cuBLAS)"
+    if "memcpy" in low or "memset" in low:
+        return "memcpy/memset"
+    return "other (elementwise, reductions, indexing)"
+
+
+def phase_profile(torch, dev, cfg, params):
+    """Where the serve phase's device time goes: the same 8 requests under
+    torch.profiler, device time summed by kernel group, and the share of
+    the run's wall time the device was busy. The profiler's own host
+    overhead lengthens the wall, so the busy share is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        reqs, _, _, t0, t1 = serve(torch, [(0, 28)], params, cfg, dev,
+                                   fused=True)
+    groups: dict[str, float] = {}
+    top = []
+    for evt in prof.key_averages():
+        # Kernel events only: a CPU op's device time repeats its kernels'.
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = float(evt.self_device_time_total)
+        if us <= 0.0:
+            continue
+        g = _kernel_group(evt.key)
+        groups[g] = groups.get(g, 0.0) + us
+        top.append((us, evt.key[:80], evt.count))
+    busy_s = sum(groups.values()) / 1e6
+    if busy_s <= 0.0:
+        raise AssertionError("torch.profiler recorded no device time")
+    top.sort(reverse=True)
+    emit({"phase": "profile", "wall_s": t1 - t0, "device_busy_s": busy_s,
+          "device_busy_share": busy_s / (t1 - t0),
+          "device_ms_by_group": {k: v / 1e3 for k, v in sorted(
+              groups.items(), key=lambda kv: -kv[1])},
+          "top_kernels": [{"name": n, "ms": us / 1e3, "calls": c}
+                          for us, n, c in top[:8]],
+          "tokens": sum(len(r.output_ids) for r in reqs)})
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases (build,kernels,serve,"
+                         "pipeline,profile); prints no result line")
+    only = set(filter(None, ap.parse_args().only.split(",")))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    import parallax_tpu_torch  # noqa: F401  (fails outside the repo)
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    def want(p):
+        return not only or p in only
+
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    emit({"phase": "env", "card": card,
+          "device": torch.cuda.get_device_name(0),
+          "capability": list(torch.cuda.get_device_capability(0)),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0],
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+
+    t0 = time.monotonic()
+    ck.build(verbose="build" in only)
+    ck.lib()
+    emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
+          "nvcc_seconds": round(ck.last_build_seconds, 3)})
+
+    kernels = phase_kernels(torch, dev) if want("kernels") else None
+    launches = None
+    if want("serve") or want("pipeline") or want("profile"):
+        cfg, model_full, params, single, sampled, launches = phase_serve(
+            torch, dev, card)
+        if want("pipeline"):
+            phase_pipeline(torch, dev, cfg, model_full, params, single,
+                           sampled)
+        if want("profile"):
+            phase_profile(torch, dev, cfg, params)
+    if only:
+        return 0
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [{k: e[k] for k in keys} for e in kernels]})
+    print(card_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,112 @@
+"""Functional building blocks of the dense decoder (port of
+``parallax_tpu/models/layers.py``).
+
+All blocks operate on a flattened ragged token batch ``x: [T, hidden]``.
+Params are plain dicts of tensors keyed with HF weight names and the HF
+``[out, in]`` weight layout, so ``F.linear`` applies directly (the matrix
+products outside the kernels go to PyTorch, as the JAX package left them to
+XLA). Rounding follows the JAX package: products accumulate in f32 and
+round once to the activation dtype; norms compute in f32; logits are f32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from parallax_tpu_torch.config import ModelConfig
+from parallax_tpu_torch.ops.attention import append_and_attend
+from parallax_tpu_torch.ops.rope import apply_rope
+
+
+def rms_norm(
+    x: torch.Tensor, weight: torch.Tensor, eps: float, offset: float = 0.0
+) -> torch.Tensor:
+    """RMSNorm in f32, cast back; ``offset=1.0`` gives the zero-init
+    ``x_hat * (1 + w)`` convention."""
+    orig_dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (weight.float() + offset)).to(orig_dtype)
+
+
+def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """``x @ W^T + b`` with the HF ``[out, in]`` weight; the bias is added
+    after the product is rounded to ``x``'s dtype, as in the JAX package."""
+    out = F.linear(x, p["weight"])
+    if "bias" in p:
+        out = out + p["bias"].to(out.dtype)
+    return out
+
+
+def embed_lookup(embed, token_ids: torch.Tensor) -> torch.Tensor:
+    """Token embedding rows."""
+    w = embed["weight"] if isinstance(embed, dict) else embed
+    return w[token_ids.long()]
+
+
+def lm_head_logits(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """Final projection with f32 logits. On the card a bf16 product keeps
+    its f32 accumulator as the output (``torch.mm(..., out_dtype=f32)``)
+    instead of rounding the logits to bf16."""
+    w = p["weight"]
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return F.linear(x, w)
+    if x.is_cuda:
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+    return F.linear(x.float(), w.float())
+
+
+def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """SwiGLU FFN (gate/up/down)."""
+    gate = linear(x, p["gate_proj"])
+    up = linear(x, p["up_proj"])
+    return linear(F.silu(gate) * up, p["down_proj"])
+
+
+def paged_attention_block(
+    x: torch.Tensor,
+    p: dict,
+    kv_pages: torch.Tensor,
+    *,
+    config: ModelConfig,
+    positions: torch.Tensor,
+    kv_lens: torch.Tensor,
+    page_indices: torch.Tensor,
+    cu_q_lens: torch.Tensor,
+    num_seqs: torch.Tensor,
+    slot_mapping: torch.Tensor,
+    cos_table: torch.Tensor,
+    sin_table: torch.Tensor,
+    sliding_window: int | None = None,
+    decode_only: bool = False,
+    decode_fused: bool = False,
+    prefill_fused: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """GQA attention over the paged cache: project, qk-norm, rope, append,
+    attend, project out. New K/V always enter the cache first (in place)
+    and attention always reads the cache, so prefix hits and chunked
+    prefill need no separate path."""
+    t = x.shape[0]
+    d = config.head_dim
+    q = linear(x, p["q_proj"]).reshape(t, -1, d)
+    k = linear(x, p["k_proj"]).reshape(t, -1, d)
+    v = linear(x, p["v_proj"]).reshape(t, -1, d)
+    hq = q.shape[1]
+    if config.use_qk_norm and "q_norm" in p:
+        q = rms_norm(q, p["q_norm"]["weight"], config.rms_norm_eps)
+        k = rms_norm(k, p["k_norm"]["weight"], config.rms_norm_eps)
+    q = apply_rope(q, positions, cos_table, sin_table).contiguous()
+    k = apply_rope(k, positions, cos_table, sin_table)
+    out, kv_pages = append_and_attend(
+        q, k, v, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
+        slot_mapping,
+        sm_scale=d ** -0.5,
+        sliding_window=sliding_window,
+        sinks=p.get("sinks"),
+        decode_only=decode_only,
+        decode_fused=decode_fused,
+        prefill_fused=prefill_fused,
+    )
+    return linear(out.reshape(t, hq * d), p["o_proj"]), kv_pages

@@ -1,0 +1,101 @@
+"""Paged KV cache layout and the cache-scatter op (port of
+``parallax_tpu/ops/kv_cache_ops.py``).
+
+Layout (one tensor per attention layer), identical to the JAX package's so
+KV images carry over unchanged:
+
+    kv_pages: [num_pages, page_size, 2 * num_kv_heads, head_dim]
+
+with K at even combined-head indices and V at odd ones. ``slot_mapping`` is a
+flat ``page * page_size + offset`` index per token; a negative slot marks a
+padding token that must not be written. Where the JAX package donates the
+cache buffer and gets a new array back, the port writes the cache IN PLACE
+and returns the same tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def new_kv_pages(
+    num_pages: int,
+    page_size: int,
+    num_kv_heads: int,
+    head_dim: int,
+    dtype=torch.bfloat16,
+    device=None,
+) -> torch.Tensor:
+    """Allocate one layer's empty paged KV cache."""
+    return torch.zeros(
+        (num_pages, page_size, 2 * num_kv_heads, head_dim),
+        dtype=dtype, device=device,
+    )
+
+
+def interleave_kv(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[T, H, D] x 2 -> [T, 2H, D] with K at even, V at odd combined heads."""
+    t, h, d = k.shape
+    return torch.stack([k, v], dim=2).reshape(t, 2 * h, d)
+
+
+def reshape_and_cache(
+    kv_pages: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    slot_mapping: torch.Tensor,
+) -> torch.Tensor:
+    """Scatter new K/V token vectors into the paged cache, in place.
+
+    ``slot_mapping`` i32[T]: flat slot per token; negative (padding) and
+    out-of-range slots are dropped, as the JAX scatter's ``mode="drop"``.
+    Returns ``kv_pages`` (the same tensor, updated).
+    """
+    p, page, h2, d = kv_pages.shape
+    kv_new = interleave_kv(k, v).to(kv_pages.dtype)
+    flat = kv_pages.view(p * page, h2, d)
+    slots = slot_mapping.long()
+    keep = (slots >= 0) & (slots < p * page)
+    flat[slots[keep]] = kv_new[keep]
+    return kv_pages
+
+
+def kv_append(
+    kv_pages: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    slot_mapping: torch.Tensor,
+) -> torch.Tensor:
+    """The A0 kernel wrapper (``csrc/kv_append.cu``): the same in-place
+    scatter as :func:`reshape_and_cache`, which is its plain version and
+    what runs for CPU tensors. On CUDA tensors it launches the kernel or
+    raises. Returns ``kv_pages``."""
+    if kv_pages.device.type == "cpu":
+        return reshape_and_cache(kv_pages, k, v, slot_mapping)
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    p, page, h2, d = kv_pages.shape
+    t = k.shape[0]
+    k = k.to(kv_pages.dtype).contiguous()
+    v = v.to(kv_pages.dtype).contiguous()
+    ck.require_cuda("kv_append", kv_pages, k, v, slot_mapping)
+    if kv_pages.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(
+            f"kv_append: cache dtype {kv_pages.dtype} not supported "
+            "(bfloat16 or float32)"
+        )
+    if k.shape != (t, h2 // 2, d) or v.shape != k.shape:
+        raise ValueError(
+            f"kv_append: k/v {tuple(k.shape)}/{tuple(v.shape)} do not match "
+            f"the cache's [T, {h2 // 2}, {d}]"
+        )
+    if slot_mapping.dtype != torch.int32 or slot_mapping.shape != (t,):
+        raise ValueError("kv_append: slot_mapping must be i32[T]")
+    code = ck.lib().pk_kv_append(
+        k.data_ptr(), v.data_ptr(), kv_pages.data_ptr(),
+        slot_mapping.data_ptr(), t, h2 // 2, d, p * page,
+        ck.dtype_code(kv_pages), ck.stream_of(kv_pages),
+    )
+    ck.check(code, "kv_append")
+    ck.LAUNCHES["kv_append"] += 1
+    return kv_pages

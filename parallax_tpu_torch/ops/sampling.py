@@ -1,0 +1,181 @@
+"""Batched sampling: greedy, temperature / top-k / top-p / min-p, and the
+fused sort-free top-k sampler (port of ``parallax_tpu/ops/sampling.py`` and
+of ``decode_fused_pallas.fused_sample_topk_pallas``).
+
+Gumbel noise is indexed by TOKEN ID and made outside the samplers, so the
+split sampler (:func:`sample_tokens`) and the fused kernel
+(:func:`fused_sample_topk`) pick the same token on the same logits and
+noise. The port draws the noise from explicit ``torch.Generator``s
+(:func:`row_gumbel`): unseeded rows from one generator seeded from
+``(engine seed, step)``, each seeded row from a generator seeded from
+``(seed, output step)`` — so a seeded stream is reproducible within the port
+whatever the batch. It does not reproduce JAX's threefry bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e10
+# The fused kernel's removed-maximum marker (decode_fused_pallas._NEG).
+_NEG = -1e30
+# Largest per-row top_k the fused sampler accepts (its k-th value costs
+# k - 1 passes over the vocabulary); larger rows take the split sampler.
+FUSED_SAMPLE_TOPK_MAX = 64
+
+_MASK64 = (1 << 64) - 1
+
+
+def mix_seed(a: int, b: int) -> int:
+    """A 63-bit generator seed from an ordered pair (splitmix64 finalizer),
+    so ``(seed, step)`` pairs map to well-separated streams."""
+    z = (int(a) * 0x9E3779B97F4A7C15 + int(b) + 0x632BE59BD9B4E019) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) & ((1 << 63) - 1)
+
+
+def _generator(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """``-log(-log(u))`` with ``u`` floored at the smallest normal f32, as
+    ``jax.random.gumbel`` does."""
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(torch.clamp_min(u, tiny)))
+
+
+def row_gumbel(
+    b: int,
+    v: int,
+    *,
+    base_seed: int,
+    step: int,
+    seeds=None,       # sequence of ints per row; < 0 = unseeded
+    out_steps=None,   # sequence of ints per row: output index of the draw
+    device="cpu",
+) -> torch.Tensor:
+    """Per-row gumbel noise indexed by token id: f32[b, v]."""
+    u = torch.rand(
+        (b, v), generator=_generator(mix_seed(base_seed, step), device),
+        device=device, dtype=torch.float32,
+    )
+    if seeds is not None:
+        for i in range(b):
+            seed = int(seeds[i])
+            if seed >= 0:
+                u[i] = torch.rand(
+                    (v,), device=device, dtype=torch.float32,
+                    generator=_generator(mix_seed(seed, int(out_steps[i])),
+                                         device),
+                )
+    return gumbel_from_uniform(u)
+
+
+def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
+    """All-greedy fast path: a single argmax (first index on ties)."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def sample_tokens(
+    logits: torch.Tensor,       # [B, V] float
+    temperature: torch.Tensor,  # f32[B]; <= 0 means greedy
+    top_k: torch.Tensor,        # i32[B]; <= 0 disables
+    top_p: torch.Tensor,        # f32[B] in (0, 1]; 1 disables
+    min_p: torch.Tensor,        # f32[B] in [0, 1); 0 disables
+    gumbel: torch.Tensor,       # f32[B, V] token-id-indexed noise
+) -> torch.Tensor:
+    """Sample one token per row: i32[B]. The filter masks are built in
+    sorted space (one stable descending sort powers top-k, top-p and
+    min-p) and the gumbel-max draw happens in token-id space. Top-k keeps
+    by value threshold (ties at the k-th value included); ``top_p >= 1`` is
+    an exact no-op."""
+    b, v = logits.shape
+    logits = logits.float()
+    greedy_ids = torch.argmax(logits, dim=-1)
+    temp = torch.clamp_min(temperature.float(), 1e-6)[:, None]
+    scaled = logits / temp
+
+    neg_sorted, sorted_idx = torch.sort(-scaled, dim=-1, stable=True)
+    sorted_logits = -neg_sorted
+    probs = torch.softmax(sorted_logits, dim=-1)
+
+    k = torch.clamp(torch.where(top_k <= 0, v, top_k).long(), 1, v)
+    kth = torch.gather(sorted_logits, 1, (k - 1)[:, None])
+    keep = sorted_logits >= kth
+    cum = torch.cumsum(probs, dim=-1)
+    tp = top_p.float()[:, None]
+    keep &= ((cum - probs) < tp) | (tp >= 1.0)
+    keep &= probs >= min_p.float()[:, None] * probs[:, 0:1]
+
+    keep_tok = torch.zeros_like(keep).scatter(1, sorted_idx, keep)
+    filtered = torch.where(keep_tok, scaled, NEG_INF)
+    sampled = torch.argmax(filtered + gumbel.float(), dim=-1)
+    return torch.where(temperature <= 0.0, greedy_ids, sampled).to(torch.int32)
+
+
+def fused_sample_topk_plain(
+    logits: torch.Tensor,       # [S, V] float
+    gumbel: torch.Tensor,       # f32[S, V]
+    temperature: torch.Tensor,  # f32[S]; <= 0 = greedy
+    top_k: torch.Tensor,        # i32[S]; <= 0 disables the filter
+) -> torch.Tensor:
+    """The plain version of the A3 kernel: the TPU kernel's arithmetic,
+    vectorised over rows. The k-th value comes from k - 1 single-occurrence
+    removals of the current maximum (first index), ties kept by the value
+    threshold."""
+    s, v = logits.shape
+    lg = logits.float()
+    greedy = torch.argmax(lg, dim=-1)
+    t = temperature.float()
+    k = top_k.long()
+    scaled = lg / torch.clamp_min(t, 1e-6)[:, None]
+    need = (k > 0) & (k < v)
+    iters = torch.where(need, torch.clamp_min(k - 1, 0), 0)
+    red = scaled.clone()
+    rows = torch.arange(s, device=lg.device)
+    for it in range(int(iters.max()) if s else 0):
+        idx = torch.argmax(red, dim=-1)
+        active = it < iters
+        red[rows[active], idx[active]] = _NEG
+    kth = red.amax(dim=-1)
+    thresh = torch.where(need, kth, _NEG)
+    filtered = torch.where(scaled >= thresh[:, None], scaled, NEG_INF)
+    choice = torch.argmax(filtered + gumbel.float(), dim=-1)
+    return torch.where(t <= 0.0, greedy, choice).to(torch.int32)
+
+
+def fused_sample_topk(
+    logits: torch.Tensor,
+    gumbel: torch.Tensor,
+    temperature: torch.Tensor,
+    top_k: torch.Tensor,
+) -> torch.Tensor:
+    """The A3 wrapper (``csrc/sample_topk.cu``): one token per row, i32[S].
+    CPU tensors take :func:`fused_sample_topk_plain`; CUDA tensors launch
+    the kernel or raise. Rows need ``top_k <= FUSED_SAMPLE_TOPK_MAX``."""
+    if logits.device.type == "cpu":
+        return fused_sample_topk_plain(logits, gumbel, temperature, top_k)
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    s, v = logits.shape
+    if logits.dtype != torch.float32 or gumbel.dtype != torch.float32:
+        raise TypeError("sample_topk: logits and gumbel must be float32")
+    if gumbel.shape != (s, v):
+        raise ValueError("sample_topk: gumbel must match logits [S, V]")
+    if temperature.dtype != torch.float32 or temperature.shape != (s,):
+        raise ValueError(f"sample_topk: temperature must be f32[{s}]")
+    if top_k.dtype != torch.int32 or top_k.shape != (s,):
+        raise ValueError(f"sample_topk: top_k must be i32[{s}]")
+    ck.require_cuda("sample_topk", logits, gumbel, temperature, top_k)
+    out = torch.empty((s,), dtype=torch.int32, device=logits.device)
+    code = ck.lib().pk_sample_topk(
+        logits.data_ptr(), gumbel.data_ptr(), temperature.data_ptr(),
+        top_k.data_ptr(), out.data_ptr(), s, v, ck.stream_of(logits),
+    )
+    ck.check(code, "sample_topk")
+    ck.LAUNCHES["sample_topk"] += 1
+    return out

@@ -1,0 +1,237 @@
+"""Local continuous-batching scheduler for one pipeline stage.
+
+A copy of ``parallax_tpu/runtime/scheduler.py`` for the port's first slice:
+FCFS admission with radix prefix matching, prefill-first batch formation
+under token and batch-size budgets, chunked prefill, and prefix-aware chunk
+skipping. Not ported yet (the JAX package's ``qos``, LoRA adapter grouping,
+preemption to the host tier, sequence-parallel prefill planning and
+multi-step window planning): without a host tier a decode that cannot grow
+its pages aborts with ``kv_oom``, exactly as the JAX package does with
+``host_cache_bytes=0``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import OrderedDict
+
+from parallax_tpu_torch.runtime.cache_manager import CacheManager
+from parallax_tpu_torch.runtime.request import Request, RequestStatus
+from parallax_tpu_torch.utils import get_logger
+
+logger = get_logger(__name__)
+
+
+@dataclasses.dataclass
+class ScheduledSeq:
+    """One ragged segment of the step batch."""
+
+    request: Request
+    num_new_tokens: int          # query tokens this step
+    token_ids: list[int]         # the new tokens (head node fills these)
+    context_len: int             # total KV length after this step
+    is_last_prefill_chunk: bool = True
+
+
+@dataclasses.dataclass
+class BatchPlan:
+    """Everything the executor needs to build device inputs for one step."""
+
+    seqs: list[ScheduledSeq]
+
+    @property
+    def total_new_tokens(self) -> int:
+        return sum(s.num_new_tokens for s in self.seqs)
+
+    @property
+    def is_empty(self) -> bool:
+        return not self.seqs
+
+
+class Scheduler:
+    """Continuous batching over a wait queue and a running set."""
+
+    def __init__(
+        self,
+        cache_manager: CacheManager,
+        max_batch_size: int = 64,
+        max_num_tokens_per_batch: int = 2048,
+        prefill_chunk_size: int = 1024,
+        max_queue_size: int = 1024,
+        request_timeout_s: float = 600.0,
+    ):
+        self.cache = cache_manager
+        self.max_batch_size = max_batch_size
+        self.max_num_tokens_per_batch = max_num_tokens_per_batch
+        self.prefill_chunk_size = prefill_chunk_size
+        self.max_queue_size = max_queue_size
+        self.request_timeout_s = request_timeout_s
+        self.wait_queue: OrderedDict[str, Request] = OrderedDict()
+        self.running: OrderedDict[str, Request] = OrderedDict()
+
+    # -- intake -----------------------------------------------------------
+
+    def enqueue(self, request: Request) -> bool:
+        if len(self.wait_queue) >= self.max_queue_size:
+            return False
+        self.wait_queue[request.request_id] = request
+        return True
+
+    def num_requests(self) -> int:
+        return len(self.wait_queue) + len(self.running)
+
+    # -- admission (phase 1) ---------------------------------------------
+
+    def admit_requests(self) -> None:
+        """Move wait-queue requests into the running set with KV allocated:
+        FCFS, stopping at the first request that does not fit."""
+        while self.wait_queue and len(self.running) < self.max_batch_size:
+            rid, req = next(iter(self.wait_queue.items()))
+            if not self._admit_one(rid, req):
+                break
+
+    def _admit_one(self, rid: str, req: Request) -> bool:
+        if req.status.is_finished:
+            # Aborted while queued: route it through the running set so the
+            # normal finish collection releases its state.
+            del self.wait_queue[rid]
+            self.running[rid] = req
+            return True
+        if not self.cache.allocate_for_prompt(req):
+            return False
+        del self.wait_queue[rid]
+        head_cached = getattr(req, "mirror_head_cached", None)
+        if head_cached is not None:
+            # Mirror of a head-side prefix hit: the head only forwards
+            # hidden rows from ``head_cached`` on. A shorter local match
+            # would need rows that never arrive — abort loudly; a longer
+            # one is clamped down (the overlap rows recompute into the
+            # shared pages with the same values).
+            if req.num_computed_tokens < head_cached:
+                logger.warning(
+                    "%s: downstream prefix-cache miss (head skipped %d, "
+                    "local match %d) — aborting", rid, head_cached,
+                    req.num_computed_tokens,
+                )
+                req.abort("downstream_prefix_cache_miss")
+                self.running[rid] = req
+                return True
+            req.num_computed_tokens = head_cached
+        req.set_status(RequestStatus.PREFILLING, "admission")
+        self.running[rid] = req
+        return True
+
+    # -- batch formation (phase 2) ---------------------------------------
+
+    def form_batch(self) -> BatchPlan:
+        """Prefill-first batch under token and batch-size budgets. A long
+        prompt contributes at most ``prefill_chunk_size`` tokens per step
+        and keeps its place in the running set between chunks."""
+        self.check_timeouts()
+        self.admit_requests()
+        seqs: list[ScheduledSeq] = []
+        token_budget = self.max_num_tokens_per_batch
+        for req in list(self.running.values()):
+            if len(seqs) >= self.max_batch_size or token_budget <= 0:
+                break
+            if req.status is not RequestStatus.PREFILLING:
+                continue
+            # Prefix-aware chunk skipping: before the FIRST chunk ships,
+            # re-consult the radix tree — a donor that released after
+            # admission may now cover more of the prompt.
+            if req.num_computed_tokens == req.num_cached_tokens:
+                self.cache.extend_prefix_match(req)
+            remaining = req.remaining_prompt_tokens()
+            if remaining <= 0:
+                continue
+            n = min(remaining, self.prefill_chunk_size, token_budget)
+            if n < remaining and n < self.cache.page_size:
+                break  # not worth a degenerate chunk; wait for budget
+            start = req.num_computed_tokens
+            # Mirror requests grow their prompt incrementally (chunks arrive
+            # over the ring), so page capacity may lag the prompt length.
+            if not self._ensure_capacity_or_abort(req, start + n):
+                continue
+            seqs.append(
+                ScheduledSeq(
+                    request=req,
+                    num_new_tokens=n,
+                    token_ids=req.prompt_ids[start : start + n],
+                    context_len=start + n,
+                    is_last_prefill_chunk=(start + n >= req.num_prompt_tokens),
+                )
+            )
+            token_budget -= n
+
+        # Then ready decodes.
+        for req in list(self.running.values()):
+            if len(seqs) >= self.max_batch_size or token_budget <= 0:
+                break
+            if req.status is not RequestStatus.DECODING or not req.ready_for_step:
+                continue
+            ctx = req.total_len
+            if not self._ensure_capacity_or_abort(req, ctx):
+                continue
+            seqs.append(
+                ScheduledSeq(
+                    request=req,
+                    num_new_tokens=1,
+                    token_ids=[req.all_token_ids[-1]],
+                    context_len=ctx,
+                )
+            )
+            token_budget -= 1
+        return BatchPlan(seqs)
+
+    # -- step feedback ----------------------------------------------------
+
+    def on_batch_computed(self, plan: BatchPlan) -> None:
+        """Advance prefill progress; mark decodes in-flight until the ring
+        (or the local resolve) delivers the sampled token."""
+        for s in plan.seqs:
+            req = s.request
+            if req.status is RequestStatus.PREFILLING:
+                req.num_computed_tokens += s.num_new_tokens
+                if req.is_prefill_done:
+                    req.set_status(RequestStatus.DECODING, "prefill-complete")
+                    req.ready_for_step = False
+            elif req.status is RequestStatus.DECODING:
+                # The fed token's KV was written this step; release() relies
+                # on the computed count to know which pages hold real KV.
+                req.num_computed_tokens += s.num_new_tokens
+                req.ready_for_step = False
+
+    def on_token_committed(self, request: Request) -> None:
+        """The ring (or the local resolve) delivered a sampled token."""
+        request.ready_for_step = request.num_computed_tokens < request.total_len
+
+    # -- completion -------------------------------------------------------
+
+    def finished_requests(self) -> list[Request]:
+        return [r for r in self.running.values() if r.status.is_finished]
+
+    def release_request(self, request: Request) -> None:
+        self.running.pop(request.request_id, None)
+        self.wait_queue.pop(request.request_id, None)
+        self.cache.release(request)
+
+    def _ensure_capacity_or_abort(self, req: Request, new_total_tokens: int) -> bool:
+        if self.cache.ensure_capacity(req, new_total_tokens):
+            return True
+        logger.warning("KV pages exhausted: aborting %s", req.request_id)
+        req.abort("kv_oom")
+        self.cache.stats.kv_oom_aborts += 1
+        return False
+
+    def check_timeouts(self) -> list[Request]:
+        """Abort requests exceeding the wall-clock budget."""
+        now = time.monotonic()
+        timed_out = []
+        for req in list(self.running.values()) + list(self.wait_queue.values()):
+            if req.status.is_finished:
+                continue
+            if now - req.arrival_time > self.request_timeout_s:
+                req.abort("timeout")
+                timed_out.append(req)
+        return timed_out

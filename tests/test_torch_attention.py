@@ -1,0 +1,229 @@
+"""The port's attention against parallax_tpu's on the same inputs.
+
+The plain versions of the fused decode kernel (K2) and the fused prefill
+pair (K1) — what the wrappers run on CPU tensors — against the TPU kernels
+in Pallas interpret mode, and the split path against the XLA reference.
+Ragged lengths, page-exact boundaries, cached prefixes (chunked prefill),
+padding rows and tokens, slot -1 rows, attend-only mode, sinks, sliding
+windows, soft caps and a non-power-of-two group. Outputs: f32 allclose
+(atol = rtol = 2e-5); the cache after the append: bitwise equal."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from parallax_tpu.ops.attention import _ragged_paged_attention_xla
+from parallax_tpu.ops.decode_fused_pallas import gqa_fused_decode_pallas
+from parallax_tpu.ops.kv_cache_ops import reshape_and_cache as j_scatter
+from parallax_tpu.ops.prefill_fused_pallas import gqa_fused_prefill_pallas
+from parallax_tpu_torch.ops.attention import append_and_attend
+from parallax_tpu_torch.ops.decode_fused import gqa_fused_decode
+from parallax_tpu_torch.ops.prefill_fused import gqa_fused_prefill
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# ---------------------------------------------------------------------------
+# Decode: one query token per row (K2).
+# ---------------------------------------------------------------------------
+
+PAGE = 8
+LENS = np.array([5, 17, 48, 0, 9, 16], np.int32)   # 48, 16: page-exact
+FROZEN_ROW = 4                                     # live row, slot -1
+
+
+def _decode_case(hq, hkv, d, sinks_on, seed=0):
+    rng = np.random.default_rng(seed)
+    s, pps = len(LENS), 6
+    pages = np.zeros((s, pps), np.int32)
+    used = 1
+    for i, n in enumerate(LENS):
+        npg = (int(n) + PAGE - 1) // PAGE
+        pages[i, :npg] = np.arange(used, used + npg)
+        used += npg
+    slot = np.full((s,), -1, np.int32)
+    for i, n in enumerate(LENS):
+        if n > 0 and i != FROZEN_ROW:
+            slot[i] = pages[i, (int(n) - 1) // PAGE] * PAGE + (int(n) - 1) % PAGE
+    f = np.float32
+    return dict(
+        q=rng.standard_normal((s, hq, d)).astype(f),
+        k=rng.standard_normal((s, hkv, d)).astype(f),
+        v=rng.standard_normal((s, hkv, d)).astype(f),
+        cache=rng.standard_normal((used, PAGE, 2 * hkv, d)).astype(f),
+        lens=LENS.copy(), pages=pages, slot=slot,
+        sinks=rng.standard_normal((hq,)).astype(f) if sinks_on else None,
+    )
+
+
+@pytest.mark.parametrize("hq,hkv,window,sinks_on,cap", [
+    (4, 2, None, False, None),
+    (4, 2, 16, False, None),
+    (4, 2, None, True, None),
+    (4, 2, None, False, 30.0),
+    (6, 2, 16, True, 30.0),          # G = 3 with sinks + window + soft cap
+], ids=["plain", "window", "sinks", "softcap", "g3-sinks-window-softcap"])
+def test_decode_plain_matches_pallas_kernel(hq, hkv, window, sinks_on, cap):
+    d = 16
+    c = _decode_case(hq, hkv, d, sinks_on)
+    kw = dict(sm_scale=d ** -0.5, sliding_window=window, soft_cap=cap)
+    ref_out, ref_cache = gqa_fused_decode_pallas(
+        jnp.asarray(c["q"]), jnp.asarray(c["k"]), jnp.asarray(c["v"]),
+        jnp.asarray(c["cache"]), jnp.asarray(c["lens"]),
+        jnp.asarray(c["pages"]), jnp.asarray(c["slot"]),
+        None if c["sinks"] is None else jnp.asarray(c["sinks"]),
+        use_sinks=sinks_on, interpret=True, **kw,
+    )
+    cache = _t(c["cache"])
+    out, cache_out = gqa_fused_decode(
+        _t(c["q"]), _t(c["k"]), _t(c["v"]), cache, _t(c["lens"]),
+        _t(c["pages"]), _t(c["slot"]),
+        None if c["sinks"] is None else _t(c["sinks"]), **kw,
+    )
+    assert cache_out is cache
+    np.testing.assert_array_equal(cache.numpy(), np.asarray(ref_cache))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), **TOL)
+    assert np.all(out.numpy()[3] == 0.0)          # kv_len 0: exact zeros
+
+    # The facade routes a decode-only batch to the same wrapper.
+    cache2 = _t(c["cache"])
+    s = len(LENS)
+    out2, _ = append_and_attend(
+        _t(c["q"]), _t(c["k"]), _t(c["v"]), cache2, _t(c["lens"]),
+        _t(c["pages"]), torch.arange(s + 1, dtype=torch.int32),
+        torch.tensor([s], dtype=torch.int32), _t(c["slot"]),
+        sinks=None if c["sinks"] is None else _t(c["sinks"]),
+        decode_only=True, decode_fused=True, **kw,
+    )
+    np.testing.assert_array_equal(out2.numpy(), out.numpy())
+
+
+# ---------------------------------------------------------------------------
+# Prefill: ragged chunks over cached prefixes (K1), and the split path.
+# ---------------------------------------------------------------------------
+
+PPS = 12
+
+
+def _prefill_case(q_lens, cached, hq, hkv, d, sinks_on, seed=0):
+    rng = np.random.default_rng(seed)
+    s = len(q_lens)
+    kv_lens = np.array([c + q for c, q in zip(cached, q_lens)], np.int32)
+    cu = np.concatenate([[0], np.cumsum(q_lens)]).astype(np.int32)
+    t = int(cu[-1])
+    tp = max(64, 1 << (t - 1).bit_length())     # token-bucket padding
+    f = np.float32
+    pages = np.arange(s * PPS, dtype=np.int32).reshape(s, PPS) + 1
+    slots = np.full((tp,), -1, np.int32)
+    for i in range(s):
+        for j in range(q_lens[i]):
+            pos = cached[i] + j
+            slots[cu[i] + j] = pages[i, pos // PAGE] * PAGE + pos % PAGE
+    return dict(
+        q=rng.standard_normal((tp, hq, d)).astype(f),
+        k=rng.standard_normal((tp, hkv, d)).astype(f),
+        v=rng.standard_normal((tp, hkv, d)).astype(f),
+        cache=rng.standard_normal((s * PPS + 1, PAGE, 2 * hkv, d)).astype(f),
+        kv_lens=kv_lens, pages=pages, cu=cu,
+        nseq=np.array([s], np.int32), slots=slots, t=t,
+        sinks=rng.standard_normal((hq,)).astype(f) if sinks_on else None,
+    )
+
+
+def _jargs(c, names):
+    return [None if c[n] is None else jnp.asarray(c[n]) for n in names]
+
+
+def _targs(c, names):
+    return [None if c[n] is None else _t(c[n]) for n in names]
+
+
+PREFILL_CASES = [
+    ([17, 8, 33], [0, 0, 0], 4, 2, False, None, None),
+    ([17, 8, 33], [0, 16, 5], 4, 2, False, None, None),
+    ([16, 8, 8], [8, 0, 24], 4, 2, False, None, None),
+    ([17, 8, 33], [3, 16, 5], 4, 2, True, 11, 30.0),
+    ([1, 1, 1], [40, 7, 0], 4, 2, False, None, None),
+    ([17, 8, 33], [3, 16, 5], 6, 2, True, 11, 30.0),
+]
+PREFILL_IDS = ["ragged", "cached", "page-aligned", "sinks-window-softcap",
+               "decode-shaped", "g3-sinks-window-softcap"]
+
+
+@pytest.mark.parametrize("q_lens,cached,hq,hkv,sinks_on,window,cap",
+                         PREFILL_CASES, ids=PREFILL_IDS)
+def test_prefill_plain_matches_pallas_kernel(q_lens, cached, hq, hkv,
+                                             sinks_on, window, cap):
+    d = 32
+    c = _prefill_case(q_lens, cached, hq, hkv, d, sinks_on)
+    kw = dict(sm_scale=d ** -0.5, sliding_window=window, soft_cap=cap)
+    names = ["q", "k", "v", "cache", "kv_lens", "pages", "cu", "nseq",
+             "slots", "sinks"]
+    ref_out, ref_cache = gqa_fused_prefill_pallas(
+        *_jargs(c, names), use_sinks=sinks_on, q_block=32, interpret=True,
+        **kw,
+    )
+    targs = _targs(c, names)
+    out, cache = gqa_fused_prefill(*targs, **kw)
+    assert cache is targs[3]
+    np.testing.assert_array_equal(cache.numpy(), np.asarray(ref_cache))
+    t = c["t"]
+    np.testing.assert_allclose(out.numpy()[:t], np.asarray(ref_out)[:t],
+                               **TOL)
+    assert np.all(out.numpy()[t:] == 0.0)          # padding tokens: zeros
+
+
+def test_prefill_attend_only_mode():
+    d = 32
+    c = _prefill_case([17, 8, 33], [0, 16, 5], 4, 2, 32, True)
+    cache_j = j_scatter(jnp.asarray(c["cache"]), jnp.asarray(c["k"]),
+                        jnp.asarray(c["v"]), jnp.asarray(c["slots"]))
+    no_slots = np.full_like(c["slots"], -1)
+    ref_out, _ = gqa_fused_prefill_pallas(
+        jnp.asarray(c["q"]), None, None, cache_j, jnp.asarray(c["kv_lens"]),
+        jnp.asarray(c["pages"]), jnp.asarray(c["cu"]),
+        jnp.asarray(c["nseq"]), jnp.asarray(no_slots),
+        jnp.asarray(c["sinks"]), sm_scale=d ** -0.5, use_sinks=True,
+        q_block=32, interpret=True,
+    )
+    cache = _t(np.asarray(cache_j))
+    before = cache.clone()
+    out, cache_out = gqa_fused_prefill(
+        _t(c["q"]), None, None, cache, _t(c["kv_lens"]), _t(c["pages"]),
+        _t(c["cu"]), _t(c["nseq"]), _t(no_slots), _t(c["sinks"]),
+        sm_scale=d ** -0.5,
+    )
+    assert torch.equal(cache_out, before)          # untouched
+    t = c["t"]
+    np.testing.assert_allclose(out.numpy()[:t], np.asarray(ref_out)[:t],
+                               **TOL)
+
+
+@pytest.mark.parametrize("q_lens,cached,hq,hkv,sinks_on,window,cap",
+                         [PREFILL_CASES[1], PREFILL_CASES[5]],
+                         ids=["cached", "g3-sinks-window-softcap"])
+def test_split_path_matches_xla_reference(q_lens, cached, hq, hkv,
+                                          sinks_on, window, cap):
+    d = 32
+    c = _prefill_case(q_lens, cached, hq, hkv, d, sinks_on)
+    kw = dict(sm_scale=d ** -0.5, sliding_window=window, soft_cap=cap)
+    cache_j = j_scatter(jnp.asarray(c["cache"]), jnp.asarray(c["k"]),
+                        jnp.asarray(c["v"]), jnp.asarray(c["slots"]))
+    ref = _ragged_paged_attention_xla(
+        jnp.asarray(c["q"]), cache_j, jnp.asarray(c["kv_lens"]),
+        jnp.asarray(c["pages"]), jnp.asarray(c["cu"]),
+        jnp.asarray(c["nseq"]),
+        sinks=None if c["sinks"] is None else jnp.asarray(c["sinks"]), **kw,
+    )
+    targs = _targs(c, ["q", "k", "v", "cache", "kv_lens", "pages", "cu",
+                       "nseq", "slots"])
+    out, cache = append_and_attend(*targs, sinks=_targs(c, ["sinks"])[0],
+                                   **kw)
+    np.testing.assert_array_equal(cache.numpy(), np.asarray(cache_j))
+    t = c["t"]
+    np.testing.assert_allclose(out.numpy()[:t], np.asarray(ref)[:t], **TOL)

@@ -1,0 +1,114 @@
+"""The PyTorch port imports neither jax nor anything of parallax_tpu, and its
+entry points refuse to fall back to the CPU when no device was asked for."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import parallax_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKER = r"""
+import importlib.abc, sys
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "parallax_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+for mod in list(sys.modules):
+    if mod.split(".")[0] in ("jax", "jaxlib", "parallax_tpu"):
+        del sys.modules[mod]
+sys.meta_path.insert(0, _Block())
+"""
+
+
+def _port_modules() -> list[str]:
+    names = ["parallax_tpu_torch"]
+    for info in pkgutil.walk_packages(
+        parallax_tpu_torch.__path__, prefix="parallax_tpu_torch."
+    ):
+        names.append(info.name)
+    return sorted(names)
+
+
+def test_port_imports_without_jax_or_parallax_tpu():
+    modules = _port_modules()
+    # Every layer of the slice is there.
+    for must in ("runtime.engine", "runtime.pipeline", "ops.attention",
+                 "ops.decode_fused", "ops.prefill_fused", "ops.sampling",
+                 "ops.cuda_kernels", "models.base", "config"):
+        assert f"parallax_tpu_torch.{must}" in modules
+    code = _BLOCKER + (
+        "import importlib\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'parallax_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_blocker_blocks_parallax_tpu_but_not_the_port():
+    code = _BLOCKER + (
+        "import parallax_tpu_torch.config\n"
+        "try:\n"
+        "    import parallax_tpu.config\n"
+        "except ImportError:\n"
+        "    print('blocked')\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=60, env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "blocked"
+
+
+def test_engine_without_device_needs_cuda():
+    from parallax_tpu_torch.config import normalize_config
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.runtime.engine import EngineConfig, StageEngine
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = normalize_config(dict(
+        architectures=["Qwen2ForCausalLM"], hidden_size=32,
+        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
+        intermediate_size=64, vocab_size=50,
+    ))
+    model = create_stage_model(cfg, 0, 1)
+    params = model.init_params(torch.Generator().manual_seed(0),
+                               torch.float32, "cpu")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        StageEngine(model, params, EngineConfig(num_pages=16))
+    # Asking for the CPU explicitly works; asking for kernels on it raises.
+    StageEngine(model, params, EngineConfig(num_pages=16), device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        StageEngine(model, params, EngineConfig(num_pages=16,
+                                                decode_fused=True),
+                    device="cpu")
+
+
+def test_kernel_wrappers_build_nothing_at_import():
+    from parallax_tpu_torch.ops import cuda_kernels
+
+    assert cuda_kernels._lib is None
+    assert set(cuda_kernels.LAUNCHES) == {
+        "kv_append", "gqa_prefill", "gqa_decode", "sample_topk"
+    }
