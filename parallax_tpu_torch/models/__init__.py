@@ -3,6 +3,8 @@ from parallax_tpu_torch.models.registry import (
     create_stage_model,
     params_from_numpy,
 )
+# Importing a model family registers its architectures.
+from parallax_tpu_torch.models.qwen3_moe import MoEStageModel
 
-__all__ = ["BatchInputs", "StageModel", "create_stage_model",
-           "params_from_numpy"]
+__all__ = ["BatchInputs", "MoEStageModel", "StageModel",
+           "create_stage_model", "params_from_numpy"]

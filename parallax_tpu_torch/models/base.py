@@ -50,6 +50,10 @@ class BatchInputs:
 class StageModel:
     """A contiguous range ``[start_layer, end_layer)`` of decoder blocks."""
 
+    # Whether this block runs a config's MoE layers (model families that
+    # do override ``_mlp``).
+    runs_moe = False
+
     def __init__(self, config: ModelConfig, start_layer: int, end_layer: int):
         self.config = config
         self.start_layer = start_layer
@@ -125,7 +129,7 @@ class StageModel:
 
         h, d = cfg.hidden_size, cfg.head_dim
         params: dict = {"layers": []}
-        for _ in range(self.num_local_layers):
+        for li in range(self.num_local_layers):
             layer = {
                 "input_layernorm": ones(h),
                 "post_attention_layernorm": ones(h),
@@ -138,11 +142,7 @@ class StageModel:
                                     cfg.attention_bias),
                     "o_proj": dense(h, cfg.num_attention_heads * d),
                 },
-                "mlp": {
-                    "gate_proj": dense(cfg.intermediate_size, h),
-                    "up_proj": dense(cfg.intermediate_size, h),
-                    "down_proj": dense(h, cfg.intermediate_size),
-                },
+                "mlp": self._init_mlp(self.start_layer + li, normal, dense),
             }
             if cfg.use_qk_norm:
                 layer["self_attn"]["q_norm"] = ones(d)
@@ -159,6 +159,18 @@ class StageModel:
             if not cfg.tie_word_embeddings:
                 params["lm_head"] = {"weight": normal((cfg.vocab_size, h), 0.02)}
         return params
+
+    def _init_mlp(self, layer_idx: int, normal, dense) -> dict:
+        """The FFN params of global layer ``layer_idx``, drawn with
+        ``init_params``'s helpers (``normal(shape, scale)``, ``dense(out,
+        in)``) in its draw order; model families override it."""
+        cfg = self.config
+        h = cfg.hidden_size
+        return {
+            "gate_proj": dense(cfg.intermediate_size, h),
+            "up_proj": dense(cfg.intermediate_size, h),
+            "down_proj": dense(h, cfg.intermediate_size),
+        }
 
     # -- forward ----------------------------------------------------------
 
@@ -203,13 +215,17 @@ class StageModel:
             )
             x = x + attn
             h = self._rms(x, lp["post_attention_layernorm"]["weight"])
-            x = x + L.swiglu_mlp(h, lp["mlp"])
+            x = x + self._mlp(lp, h)
         if not self.is_last:
             return x, kv_caches
         x = self._rms(x, params["norm"]["weight"])
         x = x[inputs.logits_indices.long()]
         head = params.get("lm_head") or params["embed_tokens"]
         return L.lm_head_logits(x, head), kv_caches
+
+    def _mlp(self, lp: dict, h: torch.Tensor) -> torch.Tensor:
+        """The FFN of one decoder layer; model families override it."""
+        return L.swiglu_mlp(h, lp["mlp"])
 
     def _rms(self, x, weight):
         return L.rms_norm(x, weight, self.config.rms_norm_eps)

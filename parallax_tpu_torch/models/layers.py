@@ -47,10 +47,15 @@ def embed_lookup(embed, token_ids: torch.Tensor) -> torch.Tensor:
 
 
 def lm_head_logits(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """Final projection with f32 logits. On the card a bf16 product keeps
-    its f32 accumulator as the output (``torch.mm(..., out_dtype=f32)``)
-    instead of rounding the logits to bf16."""
-    w = p["weight"]
+    """Final projection with f32 logits."""
+    return linear_f32(x, p["weight"])
+
+
+def linear_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w^T`` with an f32 output (``preferred_element_type=f32`` in the
+    JAX package). On the card a bf16 product keeps its f32 accumulator as
+    the output (``torch.mm(..., out_dtype=f32)``) instead of rounding to
+    bf16."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return F.linear(x, w)
     if x.is_cuda:

@@ -1,9 +1,11 @@
 """Architecture registry and weight carry-over (port of
 ``parallax_tpu/models/registry.py``).
 
-Only the dense llama-family architectures are ported; they share one block
-(config flags drive qk-norm / bias / sliding-window differences). Anything
-else raises "not ported yet".
+HF ``architectures[0]`` name -> StageModel class. The dense llama-family
+architectures share the base block (config flags drive qk-norm / bias /
+sliding-window differences); model families register their class with
+:func:`register_model` (``models/qwen3_moe.py``). Anything else, and any
+feature a registered class does not run, raises "not ported yet".
 """
 
 from __future__ import annotations
@@ -14,21 +16,34 @@ import torch
 from parallax_tpu_torch.config import ModelConfig
 from parallax_tpu_torch.models.base import StageModel
 
-DENSE_ARCHITECTURES = (
+MODEL_REGISTRY: dict[str, type[StageModel]] = {}
+
+
+def register_model(*architectures: str):
+    def deco(cls: type[StageModel]):
+        for a in architectures:
+            MODEL_REGISTRY[a] = cls
+        return cls
+    return deco
+
+
+for _arch in (
     "LlamaForCausalLM",
     "MistralForCausalLM",
     "Qwen2ForCausalLM",
     "Qwen3ForCausalLM",
-)
+):
+    MODEL_REGISTRY[_arch] = StageModel
 
 
 def unported_features(config: ModelConfig) -> list[str]:
     """Model features of ``config`` that the port does not run yet."""
     feats = []
-    if config.architecture not in DENSE_ARCHITECTURES:
+    cls = MODEL_REGISTRY.get(config.architecture)
+    if cls is None:
         feats.append(f"architecture {config.architecture}")
     for name, on in (
-        ("MoE", config.moe is not None),
+        ("MoE", config.moe is not None and not (cls and cls.runs_moe)),
         ("MLA", config.mla is not None),
         ("DSA", config.dsa is not None),
         ("MSA", config.msa is not None),
@@ -41,14 +56,15 @@ def unported_features(config: ModelConfig) -> list[str]:
 
 
 def create_stage_model(config: ModelConfig, start_layer: int,
-                       end_layer: int) -> StageModel:
+                       end_layer: int, **kw) -> StageModel:
     feats = unported_features(config)
     if feats:
         raise NotImplementedError(
             f"{', '.join(feats)}: not ported yet to parallax_tpu_torch "
-            f"(dense {', '.join(DENSE_ARCHITECTURES)} only)"
+            f"(have {', '.join(sorted(MODEL_REGISTRY))})"
         )
-    return StageModel(config, start_layer, end_layer)
+    return MODEL_REGISTRY[config.architecture](config, start_layer,
+                                               end_layer, **kw)
 
 
 def _leaf_to_torch(arr, device, dtype) -> torch.Tensor:
@@ -67,8 +83,10 @@ def _leaf_to_torch(arr, device, dtype) -> torch.Tensor:
 def params_from_numpy(tree, device="cpu", dtype: torch.dtype | None = None):
     """The JAX package's param tree, given as nested dicts/lists of numpy
     arrays (e.g. ``jax.tree.map(np.asarray, params)``), as the port's tree
-    of tensors on ``device``. Keys are unchanged; ``dtype`` casts every
-    leaf (None keeps each leaf's own type)."""
+    of tensors on ``device``. Keys and layouts are unchanged, stacked MoE
+    experts included (``[E, I, H]`` gate/up, ``[E, H, I]`` down), so one
+    weight tree serves both packages; ``dtype`` casts every leaf (None keeps
+    each leaf's own type)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

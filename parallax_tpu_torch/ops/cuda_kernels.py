@@ -32,7 +32,8 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-lineinfo",
 ]
 
-KERNELS = ("kv_append", "gqa_prefill", "gqa_decode", "sample_topk")
+KERNELS = ("kv_append", "gqa_prefill", "gqa_decode", "sample_topk",
+           "grouped_gemm")
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib = None
@@ -59,6 +60,8 @@ _SIGNATURES = {
                       _I, _I, _I, _I, _I, _I, _L, _I, _F, _F, _I, _P],
     # logits, gumbel, temperature, top_k, out, s, v, stream
     "pk_sample_topk": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # lhs, rhs, group_offsets, out, m, n, k, e, stream
+    "pk_grouped_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

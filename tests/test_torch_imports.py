@@ -44,7 +44,9 @@ def test_port_imports_without_jax_or_parallax_tpu():
     # Every layer of the slice is there.
     for must in ("runtime.engine", "runtime.pipeline", "ops.attention",
                  "ops.decode_fused", "ops.prefill_fused", "ops.sampling",
-                 "ops.cuda_kernels", "models.base", "config"):
+                 "ops.cuda_kernels", "ops.grouped_matmul", "models.base",
+                 "models.moe", "models.qwen3_moe", "models.presets",
+                 "config"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"
@@ -110,5 +112,6 @@ def test_kernel_wrappers_build_nothing_at_import():
 
     assert cuda_kernels._lib is None
     assert set(cuda_kernels.LAUNCHES) == {
-        "kv_append", "gqa_prefill", "gqa_decode", "sample_topk"
+        "kv_append", "gqa_prefill", "gqa_decode", "sample_topk",
+        "grouped_gemm",
     }

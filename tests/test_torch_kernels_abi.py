@@ -51,7 +51,9 @@ def test_every_source_names_the_tpu_kernel_it_replaces():
         if name.endswith(".cu"):
             with open(os.path.join(ck.CSRC, name)) as f:
                 head = f.read(2000)
-            assert "Replaces:" in head and "parallax_tpu/ops/" in head, name
+            # A Pallas kernel of parallax_tpu/ops/, or the library kernel
+            # a parallax_tpu module calls (megablox gmm in models/moe.py).
+            assert "Replaces:" in head and "parallax_tpu/" in head, name
             assert "Bound on the H100" in head, name
 
 

@@ -157,10 +157,13 @@ def test_params_from_numpy_bf16_bits_and_unported_models():
     assert out["b"].dtype == torch.float32
     assert params_from_numpy(tree, "cpu", torch.float32)["layers"][0][
         "w"].dtype == torch.float32
-    moe = normalize_config(dict(
-        architectures=["Qwen3MoeForCausalLM"], hidden_size=32,
-        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
-        intermediate_size=64, vocab_size=50, num_experts=4,
+    # DeepSeek-V3 (MLA attention, sigmoid-routed experts) is not ported yet.
+    mla = normalize_config(dict(
+        architectures=["DeepseekV3ForCausalLM"], hidden_size=32,
+        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=2,
+        kv_lora_rank=16, q_lora_rank=0, qk_nope_head_dim=8,
+        qk_rope_head_dim=8, v_head_dim=8, intermediate_size=64,
+        vocab_size=50, n_routed_experts=4, scoring_func="sigmoid",
     ))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_stage_model(moe, 0, 1)
+        create_stage_model(mla, 0, 1)
