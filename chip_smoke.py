@@ -16,10 +16,18 @@ Phases, in order; any failure raises and the script exits non-zero:
                Qwen3-30B-A3B gives it (a 2048-token prefill step, M = 16384
                rows over 128 experts with empty and 1-row groups, and a
                7-row decode step, M = 56; gate/up N 768 K 2048, down N 2048 K
-               768) and a small case with N and K tails. Then it times each
-               (CUDA events, median, L2 flushed) beside its plain version, a
-               PyTorch library call where one computes the same function, and
-               its bound.
+               768), at DeepSeek-V3's (256 experts, gate/up N 2048 K 7168,
+               down N 7168 K 2048: an expert tensor past 2**31 elements) and
+               a small case with N and K tails; the MLA decode kernels (A5
+               fused, A6 split) at DeepSeek-V3's shapes (7 rows, Hq 128,
+               R 512, Dr 64, page 64, contexts 292-732, bf16) and the
+               indexer kernels (A7 fused, A8 split; DSA and MSA reductions)
+               at DeepSeek-V3.2's (Hi 64, D 128), each plus a small float32
+               case with a kv_len 0 row, a frozen slot -1 row, kv_len 1 and
+               a context ending mid-page. Then it times each (CUDA events,
+               median, L2 flushed) beside its plain version, a PyTorch
+               library call where one computes the same function, and its
+               bound.
 4. serve       a single-stage StageEngine on cuda:0 serving full-width,
                all-28-layer Qwen2.5-7B (random bf16 weights from a seeded
                torch.Generator on the card) to 8 concurrent requests; every
@@ -32,17 +40,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                by kernel group and the device's busy share of the wall.
 7. moe_serve   Qwen3-30B-A3B at full width and all 48 layers (random bf16
                weights, about 61 GB; the dense phases' tensors are freed
-               first) serving the same 8-request mix; all five kernels must
-               have launched, the grouped GEMM 3 x 48 times per step, and the
-               greedy streams must agree with the plain path (plain grouped
-               product and plain attention).
+               first) serving the same 8-request mix; all five kernels of
+               its path must have launched, the grouped GEMM 3 x 48 times
+               per step, and the greedy streams must agree with the plain
+               path (plain grouped product and plain attention).
 8. moe_profile moe_serve once more under torch.profiler.
+9. mla_serve   DeepSeek-V3 at full width and 5 layers (3 dense + 2 MoE; one
+               random bf16 tree of 26.7 B params, the MoE model freed first)
+               serving the same mix three times: fused decode (A5 once per
+               layer and decode step), split decode (A6 the same, A5
+               never) and the plain path (no kernel launched). The kernel
+               runs' greedy rows must be identical and agree with the
+               plain path's one-shot logits (tie-tolerant; the plain run's
+               own gaps are printed beside them).
+10. mla_profile mla_serve's fused run once more under torch.profiler.
+11. dsa_serve  DeepSeek-V3.2 at the same width and depth, on the same tree
+               plus the indexer, with one more request of 2,400 prompt ids
+               so that sparse top-k selection runs: fused (A7), split (A8)
+               and plain, the same checks.
+12. dsa_profile dsa_serve's fused run once more under torch.profiler.
 
 One JSON object per line; the ``kernels`` line and the card line come just
-before the last line, which is ``{"ok": true, "device": {...}}``. The
-``kernels`` line's launches are moe_serve's, the path that runs all five.
-``--only kernels`` (comma-separated phase names) runs a subset and prints
-no result line.
+before the last line, which is ``{"ok": true, "device": {...}}``. Each
+kernel's launches in the ``kernels`` line come from the path that runs it:
+A0-A4 from moe_serve, A5 and A6 from mla_serve's fused and split runs, A7
+and A8 from dsa_serve's. ``--only kernels`` (comma-separated phase names)
+runs a subset and prints no result line.
 """
 
 from __future__ import annotations
@@ -70,8 +93,37 @@ GREEDY_TOL = 0.1                   # bf16 logit gap accepted at a near-tie
 # expert products in another order. A broken kernel is off by whole logits
 # (their spread is about 0.9).
 MOE_GREEDY_TOL = 0.25
+# DeepSeek's router is far touchier on random weights: sigmoid scores with
+# group-limited selection (top 4 of 8 groups) and a routed scaling of 2.5,
+# so one bf16 rounding can swap a whole group's experts, and each routed
+# expert carries about 2.5 / 8 of the FFN output. The one-shot reference
+# and a served run round differently (other GEMM shapes, chunked prefill),
+# so even the plain path served step by step, with no kernel at all, lands
+# over a logit away from the reference's argmax at a few tokens; the
+# deepseek phases serve it and print its gaps beside the kernels'. The
+# limit is set above that noise and below what a broken kernel gives: a
+# wrong token sits about 7 logits under the argmax (logit spread 1.7 over
+# 129,280 entries). The second test is by count: the kernel runs may hold
+# at most DEEPSEEK_OFF_MARGIN more tokens off by GREEDY_TOL or more than
+# the plain run, which a kernel that is off by a few percent would break.
+DEEPSEEK_GREEDY_TOL = 2.0
+DEEPSEEK_OFF_MARGIN = 8
 DENSE_MODEL = "qwen2.5-7b"         # parallax_tpu_torch/models/presets.py
 MOE_MODEL = "Qwen/Qwen3-30B-A3B"
+DSV3_MODEL = "deepseek-ai/DeepSeek-V3"           # presets.py MODEL_DB
+DSV32_MODEL = "deepseek-ai/DeepSeek-V3.2-Exp"
+# DeepSeek's three dense layers plus two MoE layers: 26.7 B params (53 GB in
+# bf16). A third MoE layer (11.3 B params) would leave no room for the
+# caches, the activations and the plain reference on an 80 GB card.
+DEEPSEEK_LAYERS = 5
+# dsa_serve adds one request longer than index_topk (2048), so the indexer
+# selects a sparse top-k on the card.
+DSA_LONG_PROMPT = 2400
+DSA_MAX_MODEL_LEN = 3072
+# The kernels of the dense GQA path (serve); the MoE path adds grouped_gemm.
+DENSE_KERNELS = ("kv_append", "gqa_prefill", "gqa_decode", "sample_topk")
+# Indexer scores: f32 sums of the same exact products, in another order.
+SCORE_TOL = (1e-4, 1e-4)
 
 
 T_START = time.monotonic()
@@ -127,9 +179,12 @@ def bound(bytes_moved: float, ops: float, dtype: str) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 
-def _decode_case(torch, gen, dev, dtype, hq, hkv, d, page, lens, frozen):
+def _paged_rows(torch, lens, page, frozen, pps=None):
+    """Pages of ``lens``-long contexts, allocated in order from page 1,
+    and each row's append slot (its position kv_len - 1; -1 for padding
+    and for the ``frozen`` rows)."""
     s = len(lens)
-    pps = max(1, max((n + page - 1) // page for n in lens))
+    pps = pps or max(1, max((n + page - 1) // page for n in lens))
     pages = torch.zeros((s, pps), dtype=torch.int32)
     used = 1
     for i, n in enumerate(lens):
@@ -140,6 +195,12 @@ def _decode_case(torch, gen, dev, dtype, hq, hkv, d, page, lens, frozen):
     for i, n in enumerate(lens):
         if n > 0 and i not in frozen:
             slots[i] = int(pages[i, (n - 1) // page]) * page + (n - 1) % page
+    return pages, slots, used
+
+
+def _decode_case(torch, gen, dev, dtype, hq, hkv, d, page, lens, frozen):
+    s = len(lens)
+    pages, slots, used = _paged_rows(torch, lens, page, frozen)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -436,6 +497,9 @@ def phase_kernels(torch, dev) -> list[dict]:
         library_ms=None,
     ))
     out.append(kernels_grouped_gemm(torch, gen, dev, flush))
+    kernels_grouped_gemm(torch, gen, dev, flush, model=DSV3_MODEL,
+                         label="grouped_gemm_deepseek")
+    out.extend(kernels_deepseek(torch, gen, dev, flush))
     del flush
     assert set(k["name"] for k in out) == set(ck.KERNELS)
     emit({"phase": "kernels", "timed": [
@@ -495,10 +559,11 @@ def _grouped_mm_library(torch, lhs, rhs, offsets):
                                      out_dtype=torch.bfloat16)
 
 
-def kernels_grouped_gemm(torch, gen, dev, flush) -> dict:
-    """A4 against its plain version at the Qwen3-30B-A3B shapes, then
-    timed. Tolerance: F32_TOL, since both sum exact bf16 products in f32,
-    in another order."""
+def kernels_grouped_gemm(torch, gen, dev, flush, model=MOE_MODEL,
+                         label="grouped_gemm") -> dict:
+    """A4 against its plain version at the shapes ``model``'s MoE layers
+    give it, then timed. Tolerance: F32_TOL, since both sum exact bf16
+    products in f32, in another order."""
     from parallax_tpu_torch.models.presets import get_preset
     from parallax_tpu_torch.ops.grouped_matmul import (
         grouped_matmul,
@@ -506,15 +571,19 @@ def kernels_grouped_gemm(torch, gen, dev, flush) -> dict:
     )
 
     bf16 = torch.bfloat16
-    cfg = get_preset(MOE_MODEL)
+    cfg = get_preset(model)
     e, hid = cfg.moe.num_experts, cfg.hidden_size
     inter, k_top = cfg.moe.moe_intermediate_size, cfg.moe.num_experts_per_tok
 
     def operands(offs, n, k):
         m = offs[-1]
         lhs = torch.randn((m, k), generator=gen, device=dev).to(bf16)
-        rhs = (torch.randn((len(offs) - 1, n, k), generator=gen, device=dev)
-               * k ** -0.5).to(bf16)
+        # One expert at a time: DeepSeek's [256, 2048, 7168] drawn whole
+        # would be a 15 GB float32 transient.
+        rhs = torch.empty((len(offs) - 1, n, k), dtype=bf16, device=dev)
+        for g in range(len(offs) - 1):
+            rhs[g] = (torch.randn((n, k), generator=gen, device=dev)
+                      * k ** -0.5).to(bf16)
         return lhs, rhs, torch.tensor(offs, dtype=torch.int32, device=dev)
 
     def check(offs, n, k):
@@ -529,8 +598,9 @@ def kernels_grouped_gemm(torch, gen, dev, flush) -> dict:
         "decode": _decode_offsets(7, k_top, e, seed=8),
     }
     errs, timed = {}, {}
-    # Tails: N and K below and between tiles, empty and 1-row groups.
-    errs["tails_n37_k40"], _ = check([0, 0, 1, 21, 37, 37], 37, 40)
+    if model == MOE_MODEL:
+        # Tails: N and K below and between tiles, empty and 1-row groups.
+        errs["tails_n37_k40"], _ = check([0, 0, 1, 21, 37, 37], 37, 40)
     for shape, offs in shapes.items():
         m = offs[-1]
         touched = sum(1 for g in range(e) if offs[g + 1] > offs[g])
@@ -549,8 +619,8 @@ def kernels_grouped_gemm(torch, gen, dev, flush) -> dict:
                 m=m, n=n, k=k, groups_touched=touched, ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib)
             del lhs, rhs, offsets
-    emit({"phase": "kernels", "check": "grouped_gemm",
-          "max_abs_err": errs, "f32_tol_atol_rtol": F32_TOL,
+    emit({"phase": "kernels", "check": label, "model": model,
+          "experts": e, "max_abs_err": errs, "f32_tol_atol_rtol": F32_TOL,
           "group_sizes_prefill": [b - a for a, b in zip(
               shapes["prefill"], shapes["prefill"][1:])],
           "decode_rows": shapes["decode"][-1], "timed": timed})
@@ -563,6 +633,247 @@ def kernels_grouped_gemm(torch, gen, dev, flush) -> dict:
         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
     )
+
+
+def check_mla(torch, gen, dev, dtype, hq, r, dr, page, lens, frozen,
+              pps=None):
+    """A5 (append + attend) and A6 (attend) against their plain versions on
+    the same inputs: the cache bitwise, kv_len 0 rows exactly zero, the
+    outputs within BF16_TOL / F32_TOL; A6 on A5's cache gives A5's bits."""
+    from parallax_tpu_torch.ops.decode_fused import (
+        mla_fused_decode,
+        mla_fused_decode_plain,
+    )
+    from parallax_tpu_torch.ops.mla_decode import (
+        mla_decode_attention,
+        mla_decode_attention_plain,
+    )
+
+    pages, slots, used = _paged_rows(torch, lens, page, frozen, pps)
+    s = len(lens)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    c = dict(ql=rnd(s, hq, r), qp=rnd(s, hq, dr), lat=rnd(s, r),
+             kpe=rnd(s, dr), cache=rnd(used + 2, page, 1, r + dr),
+             lens=torch.tensor(lens, dtype=torch.int32, device=dev),
+             pages=pages.to(dev), slots=slots.to(dev))
+    kw = dict(sm_scale=(128 + dr) ** -0.5, kv_lora_rank=r)
+    cache_k, cache_p = c["cache"].clone(), c["cache"].clone()
+    args = (c["ql"], c["qp"], c["lat"], c["kpe"])
+    out_k, _ = mla_fused_decode(*args, cache_k, c["lens"], c["pages"],
+                                c["slots"], **kw)
+    out_p, _ = mla_fused_decode_plain(*args, cache_p, c["lens"], c["pages"],
+                                      c["slots"], **kw)
+    out_6 = mla_decode_attention(c["ql"], c["qp"], cache_k, c["lens"],
+                                 c["pages"], **kw)
+    ref_6 = mla_decode_attention_plain(c["ql"], c["qp"], cache_p, c["lens"],
+                                       c["pages"], **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(cache_k, cache_p):
+        raise AssertionError("mla_decode: cache after the append differs")
+    zero_rows = [i for i, n in enumerate(lens) if n == 0]
+    if zero_rows and (bool(out_k[zero_rows].any())
+                      or bool(out_6[zero_rows].any())):
+        raise AssertionError("mla_decode/mla_attend: kv_len 0 rows not zero")
+    if not torch.equal(out_k, out_6):
+        raise AssertionError("mla_attend on mla_decode's cache differs")
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    return (_close(torch, out_k, out_p, tol), _close(torch, out_6, ref_6, tol),
+            c, kw)
+
+
+def _close_scores(torch, got, ref, tol) -> float:
+    """Scores: the -inf positions identical, the rest within ``tol``."""
+    if not torch.equal(torch.isneginf(got), torch.isneginf(ref)):
+        raise AssertionError("indexer: -inf positions differ from plain")
+    if not bool(torch.isfinite(got[~torch.isneginf(got)]).all()):
+        raise AssertionError("indexer: NaN or +inf scores")
+    live = torch.isfinite(ref)
+    return _close(torch, got[live], ref[live], tol)
+
+
+def check_indexer(torch, gen, dev, dtype, hi, d, page, lens, frozen, kind,
+                  pps=None):
+    """A7 (append + score) and A8 (score) against their plain versions: the
+    cache bitwise, the -inf positions identical, the scores within
+    SCORE_TOL; A8 on A7's cache gives A7's bits."""
+    from parallax_tpu_torch.ops.decode_fused import (
+        indexer_scores_fused,
+        indexer_scores_fused_plain,
+    )
+    from parallax_tpu_torch.ops.dsa_decode import (
+        paged_token_scores_decode,
+        paged_token_scores_decode_plain,
+    )
+
+    pages, slots, used = _paged_rows(torch, lens, page, frozen, pps)
+    s = len(lens)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    c = dict(q=rnd(s, hi, d), k=rnd(s, d), cache=rnd(used + 2, page, 1, d),
+             w=(torch.rand((s, hi), generator=gen, device=dev)
+                if kind == "dsa" else None),
+             lens=torch.tensor(lens, dtype=torch.int32, device=dev),
+             pages=pages.to(dev), slots=slots.to(dev))
+    kw = dict(reduce_kind=kind, sm_scale=d ** -0.5)
+    cache_k, cache_p = c["cache"].clone(), c["cache"].clone()
+    sc_k, _ = indexer_scores_fused(c["q"], c["w"], c["k"], cache_k,
+                                   c["lens"], c["pages"], c["slots"], **kw)
+    sc_p, _ = indexer_scores_fused_plain(c["q"], c["w"], c["k"], cache_p,
+                                         c["lens"], c["pages"], c["slots"],
+                                         **kw)
+    sc_8 = paged_token_scores_decode(c["q"], c["w"], cache_k, c["lens"],
+                                     c["pages"], **kw)
+    ref_8 = paged_token_scores_decode_plain(c["q"], c["w"], cache_p,
+                                            c["lens"], c["pages"], **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(cache_k, cache_p):
+        raise AssertionError("indexer_fused: cache after the append differs")
+    if not torch.equal(sc_k, sc_8):
+        raise AssertionError("indexer_scores on indexer_fused's cache "
+                             "differs")
+    return (_close_scores(torch, sc_k, sc_p, SCORE_TOL),
+            _close_scores(torch, sc_8, ref_8, SCORE_TOL), c, kw)
+
+
+def _sdpa_mla(torch, c, r, page, sm_scale):
+    """The MLA yardstick: one scaled_dot_product_attention call over the
+    densely gathered rows, q = [q_lat ‖ q_pe], k = [latent ‖ rope],
+    v = latent, one key head shared by all query heads."""
+    import torch.nn.functional as F
+
+    lens = c["lens"].tolist()
+    s, lmax = len(lens), max(lens)
+    w = c["cache"].shape[-1]
+    dt, dv = c["ql"].dtype, c["ql"].device
+    k = torch.zeros((s, 1, lmax, w), dtype=dt, device=dv)
+    mask = torch.zeros((s, 1, 1, lmax), dtype=torch.bool, device=dv)
+    for i, n in enumerate(lens):
+        npg = (n + page - 1) // page
+        if n:
+            k[i, 0, :n] = c["cache"][c["pages"][i, :npg].long()].reshape(
+                npg * page, w)[:n]
+            mask[i, :, :, :n] = True
+        else:
+            mask[i, :, :, 0] = True
+    v = k[..., :r]
+    q = torch.cat([c["ql"], c["qp"]], dim=-1)[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=sm_scale, enable_gqa=True)
+
+
+def kernels_deepseek(torch, gen, dev, flush) -> list[dict]:
+    """A5-A8: the checks at DeepSeek-V3 / V3.2's decode shapes and the
+    small float32 edge cases, then the main shapes timed."""
+    from parallax_tpu_torch.models.presets import get_preset
+    from parallax_tpu_torch.ops.decode_fused import (
+        indexer_scores_fused,
+        indexer_scores_fused_plain,
+        mla_fused_decode,
+        mla_fused_decode_plain,
+    )
+    from parallax_tpu_torch.ops.dsa_decode import (
+        paged_token_scores_decode,
+        paged_token_scores_decode_plain,
+    )
+    from parallax_tpu_torch.ops.mla_decode import (
+        mla_decode_attention,
+        mla_decode_attention_plain,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_preset(DSV32_MODEL)
+    hq, m = cfg.num_attention_heads, cfg.mla
+    r, dr = m.kv_lora_rank, m.qk_rope_head_dim
+    hi, di = cfg.dsa.index_n_heads, cfg.dsa.index_head_dim
+    page = 64
+    # The serve mix's seven decode rows at their last step (prompt + 32).
+    lens = [292, 332, 482, 732, 544, 412, 672]
+    edge = dict(lens=[37, 0, 1, 16, 50, 9], frozen={3})
+    e5, e6, mc, mkw = check_mla(torch, gen, dev, bf16, hq, r, dr, page, lens,
+                                set(), pps=1024 // page)
+    e5s, e6s, *_ = check_mla(torch, gen, dev, f32, 16, 64, 16, 16,
+                             **edge)
+    emit({"phase": "kernels", "check": "mla", "hq": hq, "r": r, "dr": dr,
+          "lens": lens, "mla_decode_bf16_max_abs_err": e5,
+          "mla_attend_bf16_max_abs_err": e6,
+          "f32_edge_cases": edge["lens"], "mla_decode_f32_max_abs_err": e5s,
+          "mla_attend_f32_max_abs_err": e6s,
+          "bf16_tol_atol_rtol": BF16_TOL, "f32_tol_atol_rtol": F32_TOL,
+          "cache_bitwise_equal": True, "a6_equals_a5": True})
+    errs = {}
+    for kind in ("dsa", "msa"):
+        e7, e8, ic, ikw = check_indexer(torch, gen, dev, bf16, hi, di, page,
+                                        lens, set(), kind,
+                                        pps=DSA_MAX_MODEL_LEN // page)
+        e7s, e8s, *_ = check_indexer(torch, gen, dev, f32, 8, 32, 16, kind=kind,
+                                     **edge)
+        errs[kind] = dict(indexer_fused_bf16=e7, indexer_scores_bf16=e8,
+                          indexer_fused_f32=e7s, indexer_scores_f32=e8s)
+        if kind == "dsa":
+            dsa_case, dsa_kw, e_dsa = ic, ikw, (max(e7, e7s), max(e8, e8s))
+    emit({"phase": "kernels", "check": "indexer", "hi": hi, "d": di,
+          "lens": lens, "max_abs_err": errs, "score_tol_atol_rtol": SCORE_TOL,
+          "cache_bitwise_equal": True, "neg_inf_positions_identical": True,
+          "a8_equals_a7": True})
+
+    out = []
+    s, ctx, esz = len(lens), sum(lens), 2
+    w = r + dr
+    # A5 / A6 at the main shapes.
+    cache = mc["cache"].clone()
+    fargs = (mc["ql"], mc["qp"], mc["lat"], mc["kpe"], cache, mc["lens"],
+             mc["pages"], mc["slots"])
+    aargs = (mc["ql"], mc["qp"], cache, mc["lens"], mc["pages"])
+    lib = time_ms(torch, _sdpa_mla(torch, dict(mc, cache=cache), r, page,
+                                   mkw["sm_scale"]), 30, flush)
+    ops = 2 * hq * ctx * (w + r)
+    for name, fn, plain_fn, args, app, err, src in (
+        ("mla_decode", mla_fused_decode, mla_fused_decode_plain, fargs, True,
+         max(e5, e5s), "parallax_tpu/ops/decode_fused_pallas.py:421"),
+        ("mla_attend", mla_decode_attention, mla_decode_attention_plain,
+         aargs, False, max(e6, e6s), "parallax_tpu/ops/mla_pallas.py:114"),
+    ):
+        ms = time_ms(torch, lambda: fn(*args, **mkw), 50, flush)
+        plain = time_ms(torch, lambda: plain_fn(*args, **mkw), 10, flush)
+        moved = (s * hq * w + ctx * w + s * hq * r + (2 * s * w if app else 0)
+                 ) * esz
+        b_ms, b_by = bound(moved, ops, "bfloat16")
+        out.append(dict(
+            name=name, route="cuda", source="parallax_tpu_torch/csrc/mla_decode.cu",
+            replaces=src, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        ))
+    # A7 / A8 at the main shapes (DSA reduction).
+    ic = dsa_case
+    cache = ic["cache"].clone()
+    cap = ic["pages"].shape[1] * page
+    fargs = (ic["q"], ic["w"], ic["k"], cache, ic["lens"], ic["pages"],
+             ic["slots"])
+    sargs = (ic["q"], ic["w"], cache, ic["lens"], ic["pages"])
+    for name, fn, plain_fn, args, app, err, src in (
+        ("indexer_fused", indexer_scores_fused, indexer_scores_fused_plain,
+         fargs, True, e_dsa[0], "parallax_tpu/ops/decode_fused_pallas.py:505"),
+        ("indexer_scores", paged_token_scores_decode,
+         paged_token_scores_decode_plain, sargs, False, e_dsa[1],
+         "parallax_tpu/ops/dsa_pallas.py:39"),
+    ):
+        ms = time_ms(torch, lambda: fn(*args, **dsa_kw), 50, flush)
+        plain = time_ms(torch, lambda: plain_fn(*args, **dsa_kw), 10, flush)
+        moved = ((s * hi * di + ctx * di + (2 * s * di if app else 0)) * esz
+                 + s * hi * 4 + s * cap * 4)
+        b_ms, b_by = bound(moved, 2 * hi * di * ctx, "bfloat16")
+        out.append(dict(
+            name=name, route="cuda",
+            source="parallax_tpu_torch/csrc/indexer_scores.cu",
+            replaces=src, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ))
+    return out
 
 
 def _dense_kv(torch, pages_row, n, cache, hkv, d, page):
@@ -628,7 +939,7 @@ def _sdpa_prefill(torch, c, hq, hkv, d, page):
 # ---------------------------------------------------------------------------
 
 
-def make_requests(vocab: int):
+def make_requests(vocab: int, long_prompt: int = 0):
     import random
 
     from parallax_tpu_torch.runtime.request import Request, SamplingParams
@@ -643,6 +954,9 @@ def make_requests(vocab: int):
     prompts += [[rng.randrange(1, vocab) for _ in range(n)] for n in lens[1:]]
     prompts.append(prefix + [rng.randrange(1, vocab) for _ in range(150)])
     sampled = {2: (0.8, 20, 11), 4: (1.0, 64, 5), 6: (0.7, 8, 9)}
+    if long_prompt:
+        # r8, greedy, past the DSA indexer's top-k budget.
+        prompts.append([rng.randrange(1, vocab) for _ in range(long_prompt)])
     reqs = []
     for i, p in enumerate(prompts):
         temp, top_k, seed = sampled.get(i, (0.0, 0, None))
@@ -656,18 +970,19 @@ def make_requests(vocab: int):
     return reqs, sampled
 
 
-def engine_config(fused: bool):
+def engine_config(fused: bool, max_model_len: int = 1024):
     from parallax_tpu_torch.runtime.engine import EngineConfig
 
     return EngineConfig(
         page_size=64, num_pages=192, max_batch_size=7,
         max_num_tokens_per_batch=2048, prefill_chunk_size=256,
-        max_model_len=1024, kv_dtype="bfloat16", enable_prefix_cache=True,
-        decode_fused=fused, prefill_fused=fused,
+        max_model_len=max_model_len, kv_dtype="bfloat16",
+        enable_prefix_cache=True, decode_fused=fused, prefill_fused=fused,
     )
 
 
-def serve(torch, bounds, params, cfg, dev, fused: bool):
+def serve(torch, bounds, params, cfg, dev, fused: bool, long_prompt: int = 0,
+          max_model_len: int = 1024, model_kw=None):
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.runtime.engine import StageEngine
     from parallax_tpu_torch.runtime.pipeline import InProcessPipeline
@@ -682,10 +997,12 @@ def serve(torch, bounds, params, cfg, dev, fused: bool):
             p["norm"] = params["norm"]
             if "lm_head" in params:
                 p["lm_head"] = params["lm_head"]
-        engines.append(StageEngine(create_stage_model(cfg, s, e), p,
-                                   engine_config(fused), device=dev))
+        engines.append(StageEngine(create_stage_model(cfg, s, e,
+                                                      **(model_kw or {})), p,
+                                   engine_config(fused, max_model_len),
+                                   device=dev))
     pipe = InProcessPipeline(engines)
-    reqs, sampled = make_requests(cfg.vocab_size)
+    reqs, sampled = make_requests(cfg.vocab_size, long_prompt)
     torch.cuda.synchronize()
     t0 = time.monotonic()
     for r in reqs:
@@ -711,7 +1028,7 @@ def stream_metrics(reqs, t0: float, t1: float) -> dict:
 
 
 def greedy_check(torch, model_full, params, reqs, sampled, dev,
-                 tol=GREEDY_TOL) -> tuple[float, int]:
+                 tol=GREEDY_TOL, max_len=1024) -> tuple[float, int]:
     """Tie-tolerant check of every greedy stream against the plain path
     (``model_full`` with the plain attention, and for an MoE model the
     plain grouped product): one forward per row over prompt + outputs with
@@ -734,7 +1051,7 @@ def greedy_check(torch, model_full, params, reqs, sampled, dev,
         ref_req.page_ids = list(range(1, npg + 1))
         plan = BatchPlan([ScheduledSeq(request=ref_req, num_new_tokens=n,
                                        token_ids=list(ctx), context_len=n)])
-        spec = BucketSpec.build(1024, 1, 1024, page)
+        spec = BucketSpec.build(max_len, 1, max_len, page)
         inputs = assemble(plan, spec, page, dev, gather_all_logits=True)
         kv = model_full.new_kv_caches(npg + 1, page,
                                       params["norm"]["weight"].dtype, dev)
@@ -787,8 +1104,7 @@ def phase_serve(torch, dev, card: str):
     sharer = reqs[-1]
     if sharer.num_cached_tokens <= 0:
         raise AssertionError("the sharer did not hit the prefix cache")
-    missing = [k for k, n in launches.items()
-               if n <= 0 and k != "grouped_gemm"]
+    missing = [k for k in DENSE_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
@@ -842,7 +1158,9 @@ def _kernel_group(name: str) -> str:
                        ("gqa_prefill", "gqa_prefill"),
                        ("kv_append", "kv_append"),
                        ("sample_topk", "sample_topk"),
-                       ("grouped_gemm", "grouped_gemm")):
+                       ("grouped_gemm", "grouped_gemm"),
+                       ("mla_decode_kernel", "mla_decode"),
+                       ("indexer_kernel", "indexer")):
         if key in name:
             return group
     low = name.lower()
@@ -853,7 +1171,7 @@ def _kernel_group(name: str) -> str:
     return "other (elementwise, reductions, indexing)"
 
 
-def phase_profile(torch, dev, cfg, params, phase="profile"):
+def phase_profile(torch, dev, cfg, params, phase="profile", **serve_kw):
     """Where the serve phase's device time goes: the same 8 requests under
     torch.profiler, device time summed by kernel group, and the share of
     the run's wall time the device was busy. The profiler's own host
@@ -864,7 +1182,7 @@ def phase_profile(torch, dev, cfg, params, phase="profile"):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         reqs, _, _, t0, t1 = serve(torch, [(0, cfg.num_hidden_layers)],
-                                   params, cfg, dev, fused=True)
+                                   params, cfg, dev, fused=True, **serve_kw)
     groups: dict[str, float] = {}
     top = []
     for evt in prof.key_averages():
@@ -928,7 +1246,8 @@ def phase_moe_serve(torch, dev, card: str, want) -> dict:
         if r.status.value != "finished_length" or len(r.output_ids) != 32:
             raise AssertionError(f"moe {r.request_id}: {r.status.value}, "
                                  f"{len(r.output_ids)} tokens")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in DENSE_KERNELS + ("grouped_gemm",)
+               if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the MoE path: "
                              f"{missing}")
@@ -959,6 +1278,174 @@ def phase_moe_serve(torch, dev, card: str, want) -> dict:
     if want("moe_profile"):
         phase_profile(torch, dev, cfg, params, phase="moe_profile")
     return launches
+
+
+def _deepseek_config(name: str):
+    """``name``'s preset at full width, cut to DEEPSEEK_LAYERS layers through
+    the raw dict, so per-layer lists (V3.2's indexer_types) follow the cut."""
+    from parallax_tpu_torch.config import normalize_config
+    from parallax_tpu_torch.models.presets import MODEL_DB
+
+    return normalize_config(dict(MODEL_DB[name],
+                                 num_hidden_layers=DEEPSEEK_LAYERS),
+                            model_name=name)
+
+
+# Decode kernels of the DeepSeek paths; each path must launch only its own.
+DEEPSEEK_DECODE_KERNELS = ("mla_decode", "mla_attend", "indexer_fused",
+                           "indexer_scores")
+
+
+def deepseek_serve(torch, dev, card, phase, cfg, params, kernels,
+                   long_prompt=0, max_model_len=1024) -> dict:
+    """Serve the mix on ``cfg`` with fused decode, then with split decode.
+    ``kernels`` names each run's decode kernel, which must launch once per
+    (MLA or full-indexer) layer and decode step; the other decode kernels
+    and the GQA kernels never; the grouped GEMM 3 times per MoE layer and
+    forward step. The two runs' greedy rows must be identical and agree
+    with the plain path. Returns each run's launches."""
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    n = cfg.num_hidden_layers
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(n))
+    plain_kw = dict(moe_kernel=False, use_kernels=False)
+    runs, out = {}, {}
+    for mode, fused, model_kw in (("fused", True, None),
+                                  ("split", False, None),
+                                  ("plain", False, plain_kw)):
+        ck.reset_launches()
+        reqs, sampled, engines, t0, t1 = serve(
+            torch, [(0, n)], params, cfg, dev, fused=fused,
+            long_prompt=long_prompt, max_model_len=max_model_len,
+            model_kw=model_kw)
+        launches = ck.launches()
+        for r in reqs:
+            if r.status.value != "finished_length" or len(r.output_ids) != 32:
+                raise AssertionError(f"{phase} {mode} {r.request_id}: "
+                                     f"{r.status.value}, "
+                                     f"{len(r.output_ids)} tokens")
+        summary = engines[0].kernel_dispatch_summary()
+        totals = summary["dispatch_total"]
+        decode_steps = totals.get(f"{summary['impl']}/decode", 0)
+        steps = sum(c for key, c in totals.items()
+                    if not key.endswith("/sample"))
+        want = {k: 0 for k in DEEPSEEK_DECODE_KERNELS + (
+            "kv_append", "gqa_prefill", "gqa_decode", "grouped_gemm")}
+        if mode in kernels:
+            want[kernels[mode]] = n * decode_steps
+            want["grouped_gemm"] = 3 * moe_layers * steps
+        bad = {k: (launches[k], v) for k, v in want.items()
+               if launches[k] != v}
+        if decode_steps <= 0 or bad:
+            raise AssertionError(f"{phase} {mode}: launches (got, want) "
+                                 f"{bad}, {decode_steps} decode steps")
+        if (launches["sample_topk"] > 0) != fused:
+            raise AssertionError(f"{phase} {mode}: sample_topk launched "
+                                 f"{launches['sample_topk']} times")
+        emit({"phase": phase, "run": mode, "requests": len(reqs),
+              "launches": launches, "steps": steps,
+              "decode_steps": decode_steps, "dispatch": summary,
+              "sharer_cached_tokens": reqs[7].num_cached_tokens,
+              "mem_free_gb_after_serve": torch.cuda.mem_get_info()[0] / 1e9,
+              "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+              **stream_metrics(reqs, t0, t1), "card": card})
+        runs[mode] = reqs
+        out[mode] = launches
+        del engines
+    greedy = [i for i in range(len(runs["fused"])) if i not in sampled]
+    differ = [runs["fused"][i].request_id for i in greedy
+              if runs["fused"][i].output_ids != runs["split"][i].output_ids]
+    if differ:
+        raise AssertionError(f"{phase}: fused and split greedy rows differ: "
+                             f"{differ}")
+    sampled_same = sum(runs["fused"][i].output_ids
+                       == runs["split"][i].output_ids for i in sampled)
+    model_plain = create_stage_model(cfg, 0, n, **plain_kw)
+    # The split run's greedy rows are the fused run's, so one check holds
+    # both; the plain run is checked the same way, without a limit, to
+    # show how far the path without kernels lands from the reference.
+    worst, over = greedy_check(torch, model_plain, params, runs["fused"],
+                               sampled, dev, tol=DEEPSEEK_GREEDY_TOL,
+                               max_len=max_model_len)
+    worst_p, over_p = greedy_check(torch, model_plain, params, runs["plain"],
+                                   sampled, dev, tol=float("inf"),
+                                   max_len=max_model_len)
+    if over > over_p + DEEPSEEK_OFF_MARGIN:
+        raise AssertionError(
+            f"{phase}: {over} greedy tokens off by {GREEDY_TOL} or more with "
+            f"the kernels, {over_p} without them (margin "
+            f"{DEEPSEEK_OFF_MARGIN})"
+        )
+    emit({"phase": phase, "greedy_fused_equals_split": True,
+          "sampled_rows_identical": sampled_same,
+          "greedy_vs_plain": "pass", "largest_logit_gap": worst,
+          "tolerance": DEEPSEEK_GREEDY_TOL,
+          f"tokens_off_by_{GREEDY_TOL}_or_more": over,
+          "plain_run_largest_logit_gap": worst_p,
+          f"plain_run_tokens_off_by_{GREEDY_TOL}_or_more": over_p,
+          "greedy_tokens": sum(len(runs["fused"][i].output_ids)
+                               for i in greedy),
+          "plain": "moe_ffn(kernel=False) + plain MLA / indexer"})
+    return out
+
+
+def run_deepseek(torch, dev, card: str, want) -> dict:
+    """Phases 9-12: one random DeepSeek-V3.2 tree at full width and
+    DEEPSEEK_LAYERS layers serves V3 (which ignores the indexer weights) and
+    V3.2. Returns the launches of each path's runs."""
+    from parallax_tpu_torch.models import create_stage_model
+
+    cfg32 = _deepseek_config(DSV32_MODEL)
+    free0, total = torch.cuda.mem_get_info()
+    emit({"phase": "mla_serve", "model": DSV3_MODEL, "and": DSV32_MODEL,
+          "layers": DEEPSEEK_LAYERS, "mem_free_gb_before_init": free0 / 1e9,
+          "mem_total_gb": total / 1e9})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.monotonic()
+    params = create_stage_model(cfg32, 0, DEEPSEEK_LAYERS).init_params(
+        gen, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_indexer = sum(t.numel() for lp in params["layers"]
+                    for t in _leaves(lp["self_attn"]["indexer"]))
+    emit({"phase": "mla_serve", "weights": "random bf16",
+          "params_v32": n_params, "params_v3": n_params - n_indexer,
+          "init_s": round(time.monotonic() - t0, 3),
+          "moe_layers": sum(cfg32.is_moe_layer(i)
+                            for i in range(DEEPSEEK_LAYERS)),
+          "experts": cfg32.moe.num_experts,
+          "mem_free_gb_after_load": torch.cuda.mem_get_info()[0] / 1e9})
+    paths = {}
+    cfg3 = _deepseek_config(DSV3_MODEL)
+    dsa_kw = dict(long_prompt=DSA_LONG_PROMPT, max_model_len=DSA_MAX_MODEL_LEN)
+    if want("mla_serve"):
+        runs = deepseek_serve(torch, dev, card, "mla_serve", cfg3, params,
+                              {"fused": "mla_decode", "split": "mla_attend"})
+        paths["mla_serve/fused"] = runs["fused"]
+        paths["mla_serve/split"] = runs["split"]
+    if want("mla_profile"):
+        phase_profile(torch, dev, cfg3, params, phase="mla_profile")
+    if want("dsa_serve"):
+        runs = deepseek_serve(torch, dev, card, "dsa_serve", cfg32, params,
+                              {"fused": "indexer_fused",
+                               "split": "indexer_scores"}, **dsa_kw)
+        paths["dsa_serve/fused"] = runs["fused"]
+        paths["dsa_serve/split"] = runs["split"]
+    if want("dsa_profile"):
+        phase_profile(torch, dev, cfg32, params, phase="dsa_profile", **dsa_kw)
+    return paths
+
+
+# The run whose launches each kernel's entry in the kernels line reports.
+KERNEL_PATH = {
+    "kv_append": "moe_serve", "gqa_prefill": "moe_serve",
+    "gqa_decode": "moe_serve", "sample_topk": "moe_serve",
+    "grouped_gemm": "moe_serve", "mla_decode": "mla_serve/fused",
+    "mla_attend": "mla_serve/split", "indexer_fused": "dsa_serve/fused",
+    "indexer_scores": "dsa_serve/split",
+}
 
 
 def run_dense(torch, dev, card: str, want) -> None:
@@ -993,8 +1480,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="",
                     help="comma-separated phases (build,kernels,serve,"
-                         "pipeline,profile,moe_serve,moe_profile); prints "
-                         "no result line")
+                         "pipeline,profile,moe_serve,moe_profile,mla_serve,"
+                         "mla_profile,dsa_serve,dsa_profile); prints no "
+                         "result line")
     only = set(filter(None, ap.parse_args().only.split(",")))
 
     import torch
@@ -1034,13 +1522,20 @@ def main() -> int:
     # Qwen2.5-7B's tensors (about 15 GB) are gone before the MoE model's
     # 61 GB are made.
     free_device_memory(torch)
-    launches = None
+    paths = {}
     if want("moe_serve") or want("moe_profile"):
-        launches = phase_moe_serve(torch, dev, card, want)
+        paths["moe_serve"] = phase_moe_serve(torch, dev, card, want)
+    # Qwen3-30B-A3B's 61 GB are gone before DeepSeek's 53 GB are made.
+    free_device_memory(torch)
+    if any(want(p) for p in ("mla_serve", "mla_profile", "dsa_serve",
+                             "dsa_profile")):
+        paths.update(run_deepseek(torch, dev, card, want))
     if only:
         return 0
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = paths[KERNEL_PATH[k["name"]]][k["name"]]
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']}: not launched on its path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: e[k] for k in keys} for e in kernels]})

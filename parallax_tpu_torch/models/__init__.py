@@ -5,6 +5,9 @@ from parallax_tpu_torch.models.registry import (
 )
 # Importing a model family registers its architectures.
 from parallax_tpu_torch.models.qwen3_moe import MoEStageModel
+from parallax_tpu_torch.models.deepseek_v3 import DeepseekStageModel
+from parallax_tpu_torch.models.deepseek_v32 import DeepseekV32StageModel
 
-__all__ = ["BatchInputs", "MoEStageModel", "StageModel",
-           "create_stage_model", "params_from_numpy"]
+__all__ = ["BatchInputs", "DeepseekStageModel", "DeepseekV32StageModel",
+           "MoEStageModel", "StageModel", "create_stage_model",
+           "params_from_numpy"]

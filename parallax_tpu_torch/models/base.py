@@ -13,6 +13,7 @@ the device explicitly.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -20,6 +21,9 @@ from parallax_tpu_torch.config import LAYER_SLIDING, ModelConfig
 from parallax_tpu_torch.models import layers as L
 from parallax_tpu_torch.ops.kv_cache_ops import new_kv_pages
 from parallax_tpu_torch.ops.rope import rope_frequencies, rope_table, yarn_mscale
+
+# init_params draws a tensor of up to this many elements in one call.
+_WHOLE_DRAW = 1 << 30
 
 
 @dataclasses.dataclass
@@ -51,15 +55,22 @@ class StageModel:
     """A contiguous range ``[start_layer, end_layer)`` of decoder blocks."""
 
     # Whether this block runs a config's MoE layers (model families that
-    # do override ``_mlp``).
+    # do override ``_mlp``), its MLA attention and its DSA indexer.
     runs_moe = False
+    runs_mla = False
+    runs_dsa = False
 
-    def __init__(self, config: ModelConfig, start_layer: int, end_layer: int):
+    def __init__(self, config: ModelConfig, start_layer: int, end_layer: int,
+                 use_kernels: bool | None = None):
         self.config = config
         self.start_layer = start_layer
         self.end_layer = end_layer
         self.is_first = start_layer == 0
         self.is_last = end_layer == config.num_hidden_layers
+        # Per-op choice of the split decode kernels (the JAX package's
+        # ``use_pallas``): None = kernels when the tensors are on CUDA,
+        # False = the plain path on any device (the card's reference).
+        self.use_kernels = use_kernels
         self._rope_tables: dict[torch.device, tuple] = {}
 
     def rope_tables(self, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -114,9 +125,18 @@ class StageModel:
         cfg = self.config
 
         def normal(shape, scale):
-            w = torch.randn(shape, generator=generator, device=device,
-                            dtype=torch.float32)
-            return (w * scale).to(dtype)
+            if math.prod(shape) <= _WHOLE_DRAW:
+                w = torch.randn(shape, generator=generator, device=device,
+                                dtype=torch.float32)
+                return (w * scale).to(dtype)
+            # One leading slice at a time, so the f32 transient stays small
+            # (DeepSeek-V3's stacked experts hold 3.76 G elements).
+            out = torch.empty(shape, dtype=dtype, device=device)
+            for i in range(shape[0]):
+                out[i] = (torch.randn(shape[1:], generator=generator,
+                                      device=device, dtype=torch.float32)
+                          * scale).to(dtype)
+            return out
 
         def dense(out_dim, in_dim, bias=False):
             p = {"weight": normal((out_dim, in_dim), in_dim ** -0.5)}
@@ -127,27 +147,16 @@ class StageModel:
         def ones(n):
             return {"weight": torch.ones((n,), dtype=dtype, device=device)}
 
-        h, d = cfg.hidden_size, cfg.head_dim
+        h = cfg.hidden_size
         params: dict = {"layers": []}
         for li in range(self.num_local_layers):
-            layer = {
+            gi = self.start_layer + li
+            params["layers"].append({
                 "input_layernorm": ones(h),
                 "post_attention_layernorm": ones(h),
-                "self_attn": {
-                    "q_proj": dense(cfg.num_attention_heads * d, h,
-                                    cfg.attention_bias),
-                    "k_proj": dense(cfg.num_key_value_heads * d, h,
-                                    cfg.attention_bias),
-                    "v_proj": dense(cfg.num_key_value_heads * d, h,
-                                    cfg.attention_bias),
-                    "o_proj": dense(h, cfg.num_attention_heads * d),
-                },
-                "mlp": self._init_mlp(self.start_layer + li, normal, dense),
-            }
-            if cfg.use_qk_norm:
-                layer["self_attn"]["q_norm"] = ones(d)
-                layer["self_attn"]["k_norm"] = ones(d)
-            params["layers"].append(layer)
+                "self_attn": self._init_attention(gi, normal, dense, ones),
+                "mlp": self._init_mlp(gi, normal, dense),
+            })
         # The last stage of a tied-embedding model also needs the embedding
         # matrix (it IS the lm_head).
         if self.is_first or (self.is_last and cfg.tie_word_embeddings):
@@ -159,6 +168,23 @@ class StageModel:
             if not cfg.tie_word_embeddings:
                 params["lm_head"] = {"weight": normal((cfg.vocab_size, h), 0.02)}
         return params
+
+    def _init_attention(self, layer_idx: int, normal, dense, ones) -> dict:
+        """The attention params of global layer ``layer_idx``, drawn with
+        ``init_params``'s helpers in its draw order (``ones(n)`` draws
+        nothing); model families override it."""
+        cfg = self.config
+        h, d = cfg.hidden_size, cfg.head_dim
+        attn = {
+            "q_proj": dense(cfg.num_attention_heads * d, h, cfg.attention_bias),
+            "k_proj": dense(cfg.num_key_value_heads * d, h, cfg.attention_bias),
+            "v_proj": dense(cfg.num_key_value_heads * d, h, cfg.attention_bias),
+            "o_proj": dense(h, cfg.num_attention_heads * d),
+        }
+        if cfg.use_qk_norm:
+            attn["q_norm"] = ones(d)
+            attn["k_norm"] = ones(d)
+        return attn
 
     def _init_mlp(self, layer_idx: int, normal, dense) -> dict:
         """The FFN params of global layer ``layer_idx``, drawn with
@@ -188,40 +214,52 @@ class StageModel:
             x = L.embed_lookup(params["embed_tokens"], inputs.token_ids)
         else:
             x = inputs.hidden_states
-        cos, sin = self.rope_tables(x.device)
         for li in range(self.num_local_layers):
-            lp = params["layers"][li]
             window = (
                 cfg.sliding_window
                 if cfg.layer_type(self.start_layer + li) == LAYER_SLIDING
                 else None
             )
-            h = self._rms(x, lp["input_layernorm"]["weight"])
-            attn, kv_caches[li] = L.paged_attention_block(
-                h, lp["self_attn"], kv_caches[li],
-                config=cfg,
-                positions=inputs.positions,
-                kv_lens=inputs.kv_lens,
-                page_indices=inputs.page_indices,
-                cu_q_lens=inputs.cu_q_lens,
-                num_seqs=inputs.num_seqs,
-                slot_mapping=inputs.slot_mapping,
-                cos_table=cos,
-                sin_table=sin,
-                sliding_window=window,
-                decode_only=inputs.decode_only,
-                decode_fused=inputs.decode_fused,
-                prefill_fused=inputs.prefill_fused,
+            x, kv_caches[li] = self._decoder_layer(
+                params["layers"][li], x, kv_caches[li], inputs, window
             )
-            x = x + attn
-            h = self._rms(x, lp["post_attention_layernorm"]["weight"])
-            x = x + self._mlp(lp, h)
         if not self.is_last:
             return x, kv_caches
         x = self._rms(x, params["norm"]["weight"])
         x = x[inputs.logits_indices.long()]
         head = params.get("lm_head") or params["embed_tokens"]
         return L.lm_head_logits(x, head), kv_caches
+
+    def _decoder_layer(self, lp: dict, x: torch.Tensor, kv, inputs: BatchInputs,
+                       window: int | None):
+        """One pre-norm decoder block; returns ``(x, kv)``. Model families
+        with their own attention override it (``kv`` is whatever their
+        ``new_kv_caches`` made for the layer)."""
+        h = self._rms(x, lp["input_layernorm"]["weight"])
+        attn, kv = self._attention(lp, h, kv, inputs, window)
+        x = x + attn
+        h = self._rms(x, lp["post_attention_layernorm"]["weight"])
+        return x + self._mlp(lp, h), kv
+
+    def _attention(self, lp: dict, h: torch.Tensor, kv: torch.Tensor,
+                   inputs: BatchInputs, window: int | None):
+        cos, sin = self.rope_tables(h.device)
+        return L.paged_attention_block(
+            h, lp["self_attn"], kv,
+            config=self.config,
+            positions=inputs.positions,
+            kv_lens=inputs.kv_lens,
+            page_indices=inputs.page_indices,
+            cu_q_lens=inputs.cu_q_lens,
+            num_seqs=inputs.num_seqs,
+            slot_mapping=inputs.slot_mapping,
+            cos_table=cos,
+            sin_table=sin,
+            sliding_window=window,
+            decode_only=inputs.decode_only,
+            decode_fused=inputs.decode_fused,
+            prefill_fused=inputs.prefill_fused,
+        )
 
     def _mlp(self, lp: dict, h: torch.Tensor) -> torch.Tensor:
         """The FFN of one decoder layer; model families override it."""

@@ -31,6 +31,19 @@ def rms_norm(
     return (x * (weight.float() + offset)).to(orig_dtype)
 
 
+def layer_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
+    """LayerNorm (mean-centred, optional bias) in f32, cast back; the DSA
+    indexer's key norm (every other norm in the zoo is RMSNorm)."""
+    orig_dtype = x.dtype
+    x = x.float()
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mean), dim=-1, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + eps) * p["weight"].float()
+    if "bias" in p:
+        out = out + p["bias"].float()
+    return out.to(orig_dtype)
+
+
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     """``x @ W^T + b`` with the HF ``[out, in]`` weight; the bias is added
     after the product is rounded to ``x``'s dtype, as in the JAX package."""

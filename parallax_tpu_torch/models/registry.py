@@ -4,8 +4,10 @@
 HF ``architectures[0]`` name -> StageModel class. The dense llama-family
 architectures share the base block (config flags drive qk-norm / bias /
 sliding-window differences); model families register their class with
-:func:`register_model` (``models/qwen3_moe.py``). Anything else, and any
-feature a registered class does not run, raises "not ported yet".
+:func:`register_model` (``models/qwen3_moe.py``, ``models/deepseek_v3.py``,
+``models/deepseek_v32.py``). Anything else, and any feature a registered
+class does not run (its ``runs_moe`` / ``runs_mla`` / ``runs_dsa`` flags),
+raises "not ported yet".
 """
 
 from __future__ import annotations
@@ -44,8 +46,8 @@ def unported_features(config: ModelConfig) -> list[str]:
         feats.append(f"architecture {config.architecture}")
     for name, on in (
         ("MoE", config.moe is not None and not (cls and cls.runs_moe)),
-        ("MLA", config.mla is not None),
-        ("DSA", config.dsa is not None),
+        ("MLA", config.mla is not None and not (cls and cls.runs_mla)),
+        ("DSA", config.dsa is not None and not (cls and cls.runs_dsa)),
         ("MSA", config.msa is not None),
         ("hybrid linear attention", config.linear_attn is not None),
         ("attention sinks", config.use_attention_sinks),

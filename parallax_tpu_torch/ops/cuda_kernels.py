@@ -33,7 +33,8 @@ NVCC_FLAGS = [
 ]
 
 KERNELS = ("kv_append", "gqa_prefill", "gqa_decode", "sample_topk",
-           "grouped_gemm")
+           "grouped_gemm", "mla_decode", "mla_attend", "indexer_fused",
+           "indexer_scores")
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib = None
@@ -62,6 +63,22 @@ _SIGNATURES = {
     "pk_sample_topk": [_P, _P, _P, _P, _P, _I, _I, _P],
     # lhs, rhs, group_offsets, out, m, n, k, e, stream
     "pk_grouped_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q_latent, q_pe, new_rows, cache, out, kv_lens, page_indices, slots,
+    # s, hq, r, dr, page, pps, total_slots, sm_scale, dtype, stream
+    "pk_mla_decode": [_P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _L, _F, _I, _P],
+    # q_latent, q_pe, cache, out, kv_lens, page_indices,
+    # s, hq, r, dr, page, pps, sm_scale, dtype, stream
+    "pk_mla_attend": [_P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, weights, k_new, cache, scores, kv_lens, page_indices, slots,
+    # s, hi, d, page, pps, total_slots, reduce, sm_scale, dtype, stream
+    "pk_indexer_fused": [_P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _L, _I, _F, _I, _P],
+    # q, weights, cache, scores, kv_lens, page_indices,
+    # s, hi, d, page, pps, reduce, sm_scale, dtype, stream
+    "pk_indexer_scores": [_P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 
 

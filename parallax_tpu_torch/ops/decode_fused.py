@@ -1,10 +1,17 @@
-"""Fused GQA decode: KV append + flash decode in one kernel (A2,
-``csrc/gqa_decode.cu``), the port of
-``parallax_tpu/ops/decode_fused_pallas.py::gqa_fused_decode_pallas``.
+"""Fused decode kernels, each a cache append plus the step's attention or
+scoring in one launch (the ports of
+``parallax_tpu/ops/decode_fused_pallas.py``):
 
-:func:`gqa_fused_decode` is the wrapper: CPU tensors take the plain PyTorch
-version beside it (:func:`gqa_fused_decode_plain`); CUDA tensors launch the
-kernel or raise. The cache is updated in place (the JAX package donates it).
+- :func:`gqa_fused_decode`: KV append + GQA flash decode (A2,
+  ``csrc/gqa_decode.cu``; ``gqa_fused_decode_pallas``);
+- :func:`mla_fused_decode`: latent append + MLA flash decode (A5,
+  ``csrc/mla_decode.cu``; ``mla_fused_decode_pallas``);
+- :func:`indexer_scores_fused`: index-key append + DSA / MSA indexer scores
+  (A7, ``csrc/indexer_scores.cu``; ``indexer_scores_fused_pallas``).
+
+Each wrapper takes the plain PyTorch version beside it for CPU tensors;
+CUDA tensors launch the kernel or raise. Caches are updated in place (the
+JAX package donates them).
 """
 
 from __future__ import annotations
@@ -141,3 +148,152 @@ def gqa_fused_decode(
     ck.check(code, "gqa_decode")
     ck.LAUNCHES["gqa_decode"] += 1
     return out, kv_pages
+
+
+# -- MLA: latent append + flash decode (A5) ---------------------------------
+
+
+def mla_fused_decode_plain(
+    q_latent, q_pe, latent_new, k_pe_new, cache, kv_lens, page_indices,
+    slot_mapping, *, sm_scale: float, kv_lora_rank: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of A5: scatter each row's ``[latent ‖ k_pe]``
+    (slot < 0 skipped), then MLA decode over the row's context."""
+    from parallax_tpu_torch.ops.mla import store_mla_cache
+    from parallax_tpu_torch.ops.mla_decode import mla_decode_attention_plain
+
+    store_mla_cache(cache, latent_new, k_pe_new, slot_mapping)
+    out = mla_decode_attention_plain(
+        q_latent, q_pe, cache, kv_lens, page_indices,
+        sm_scale=sm_scale, kv_lora_rank=kv_lora_rank,
+    )
+    return out, cache
+
+
+def mla_fused_decode(
+    q_latent: torch.Tensor,      # [S, Hq, R] — ONE query token per row
+    q_pe: torch.Tensor,          # [S, Hq, Dr]
+    latent_new: torch.Tensor,    # [S, R] this step's compressed latent
+    k_pe_new: torch.Tensor,      # [S, Dr] this step's rope key
+    cache: torch.Tensor,         # [P, page, 1, R + Dr], updated in place
+    kv_lens: torch.Tensor,       # i32[S] INCLUDING the new token
+    page_indices: torch.Tensor,  # i32[S, pages_per_seq]
+    slot_mapping: torch.Tensor,  # i32[S]; < 0 = no append
+    *,
+    sm_scale: float,
+    kv_lora_rank: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The A5 wrapper (``csrc/mla_decode.cu``), the port of
+    ``mla_fused_decode_pallas``: latent append + MLA flash decode. Returns
+    ``(out [S, Hq, R], cache)``."""
+    if q_latent.device.type == "cpu":
+        return mla_fused_decode_plain(
+            q_latent, q_pe, latent_new, k_pe_new, cache, kv_lens,
+            page_indices, slot_mapping, sm_scale=sm_scale,
+            kv_lora_rank=kv_lora_rank,
+        )
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.ops.mla_decode import check_mla_args
+
+    s, hq, r, dr = check_mla_args("mla_decode", q_latent, q_pe, cache,
+                                  kv_lens, page_indices, kv_lora_rank)
+    rows = torch.cat([latent_new, k_pe_new], dim=-1).to(cache.dtype)
+    if rows.shape != (s, r + dr):
+        raise ValueError("mla_decode: latent_new/k_pe_new must be [S, R] / "
+                         "[S, Dr]")
+    if slot_mapping.dtype != torch.int32 or slot_mapping.shape != (s,):
+        raise ValueError(f"mla_decode: slot_mapping must be i32[{s}]")
+    q_latent, q_pe, rows = (q_latent.contiguous(), q_pe.contiguous(),
+                            rows.contiguous())
+    ck.require_cuda("mla_decode", q_latent, q_pe, rows, cache, kv_lens,
+                    page_indices, slot_mapping)
+    num_pages, page = cache.shape[:2]
+    out = torch.empty_like(q_latent)
+    code = ck.lib().pk_mla_decode(
+        q_latent.data_ptr(), q_pe.data_ptr(), rows.data_ptr(),
+        cache.data_ptr(), out.data_ptr(), kv_lens.data_ptr(),
+        page_indices.data_ptr(), slot_mapping.data_ptr(),
+        s, hq, r, dr, page, page_indices.shape[1], num_pages * page,
+        float(sm_scale), ck.dtype_code(cache), ck.stream_of(q_latent),
+    )
+    ck.check(code, "mla_decode")
+    ck.LAUNCHES["mla_decode"] += 1
+    return out, cache
+
+
+# -- DSA / MSA indexer: index-key append + scores (A7) ----------------------
+
+
+def indexer_scores_fused_plain(
+    q, weights, k_new, index_cache, kv_lens, page_indices, slot_mapping, *,
+    reduce_kind: str, sm_scale: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of A7: scatter each row's index key (slot < 0
+    skipped), then score every page slot of the row."""
+    from parallax_tpu_torch.ops.dsa import store_index_cache
+    from parallax_tpu_torch.ops.dsa_decode import (
+        paged_token_scores_decode_plain,
+    )
+
+    store_index_cache(index_cache, k_new, slot_mapping)
+    scores = paged_token_scores_decode_plain(
+        q, weights, index_cache, kv_lens, page_indices,
+        reduce_kind=reduce_kind, sm_scale=sm_scale,
+    )
+    return scores, index_cache
+
+
+def indexer_scores_fused(
+    q: torch.Tensor,             # [S, Hi, D] — ONE query token per row
+    weights: torch.Tensor | None,  # f32[S, Hi] (DSA) or None (MSA)
+    k_new: torch.Tensor,         # [S, D] this step's index key
+    index_cache: torch.Tensor,   # [P, page, 1, D], updated in place
+    kv_lens: torch.Tensor,       # i32[S]
+    page_indices: torch.Tensor,  # i32[S, pages_per_seq]
+    slot_mapping: torch.Tensor,  # i32[S]; < 0 = no append
+    *,
+    reduce_kind: str,            # "dsa" | "msa"
+    sm_scale: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The A7 wrapper (``csrc/indexer_scores.cu``), the port of
+    ``indexer_scores_fused_pallas``: index-key append + per-token scores.
+    Returns ``(scores f32[S, pages_per_seq * page], index_cache)`` with
+    exact ``-inf`` at and past each row's ``kv_len``."""
+    if q.device.type == "cpu":
+        return indexer_scores_fused_plain(
+            q, weights, k_new, index_cache, kv_lens, page_indices,
+            slot_mapping, reduce_kind=reduce_kind, sm_scale=sm_scale,
+        )
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.ops.dsa_decode import (
+        REDUCE_KINDS,
+        check_indexer_args,
+    )
+
+    s, hi, d = check_indexer_args("indexer_fused", q, weights, index_cache,
+                                  kv_lens, page_indices, reduce_kind)
+    k_new = k_new.to(index_cache.dtype).contiguous()
+    if k_new.shape != (s, d):
+        raise ValueError(f"indexer_fused: k_new must be [{s}, {d}]")
+    if slot_mapping.dtype != torch.int32 or slot_mapping.shape != (s,):
+        raise ValueError(f"indexer_fused: slot_mapping must be i32[{s}]")
+    q = q.contiguous()
+    tensors = [q, k_new, index_cache, kv_lens, page_indices, slot_mapping]
+    if weights is not None:
+        weights = weights.contiguous()
+        tensors.append(weights)
+    ck.require_cuda("indexer_fused", *tensors)
+    num_pages, page = index_cache.shape[:2]
+    pps = page_indices.shape[1]
+    scores = torch.empty((s, pps * page), dtype=torch.float32,
+                         device=q.device)
+    code = ck.lib().pk_indexer_fused(
+        q.data_ptr(), weights.data_ptr() if weights is not None else None,
+        k_new.data_ptr(), index_cache.data_ptr(), scores.data_ptr(),
+        kv_lens.data_ptr(), page_indices.data_ptr(), slot_mapping.data_ptr(),
+        s, hi, d, page, pps, num_pages * page, REDUCE_KINDS[reduce_kind],
+        float(sm_scale), ck.dtype_code(index_cache), ck.stream_of(q),
+    )
+    ck.check(code, "indexer_fused")
+    ck.LAUNCHES["indexer_fused"] += 1
+    return scores, index_cache

@@ -8,6 +8,9 @@
   ``None`` = kernels when the engine's device is CUDA; ``True`` = kernels,
   and an error on a CPU device; ``False`` = the split plain-PyTorch path.
   There is no silent downgrade: a CUDA device that is not Hopper raises.
+- ``resolve_use_kernels(flag, device)`` — the per-op choice of a split
+  kernel (the JAX package's ``resolve_use_pallas``): an explicit flag wins,
+  ``None`` means kernels when the op's tensors are on CUDA.
 
 The impl labels are the canonical names in ``kernel_dispatch_summary()``.
 """
@@ -19,6 +22,7 @@ import torch
 # Canonical impl labels (the JAX package's are pallas-fused / pallas-split /
 # xla).
 IMPL_FUSED = "cuda-fused"
+IMPL_SPLIT = "cuda-split"
 IMPL_TORCH = "torch"
 
 HOPPER = (9, 0)
@@ -66,6 +70,22 @@ def resolve_prefill_fused(flag: bool | None, device) -> bool:
     return _resolve(flag, device, "prefill_fused")
 
 
+def resolve_use_kernels(flag: bool | None, device) -> bool:
+    """Per-op split-kernel choice: an explicit flag wins, None = kernels
+    when the tensors are on CUDA."""
+    if flag is None:
+        return torch.device(device).type == "cuda"
+    return bool(flag)
+
+
 def attn_impl(fused: bool) -> str:
     """The canonical impl label for a stage's decode or prefill path."""
     return IMPL_FUSED if fused else IMPL_TORCH
+
+
+def decode_attn_impl(fused: bool, split_kernels: bool) -> str:
+    """The decode label: the fused kernels, a split decode kernel (models
+    that have one, with kernels on), or the plain PyTorch path."""
+    if fused:
+        return IMPL_FUSED
+    return IMPL_SPLIT if split_kernels else IMPL_TORCH

@@ -14,6 +14,11 @@ import torch.nn.functional as F
 # KV rows per online-softmax chunk in the plain paths: bounds each op's
 # gather transient at O(T * chunk) instead of O(T * context).
 KV_CHUNK_ROWS = 512
+# Sparse (top-k) attention: above SPARSE_CHUNK_THRESHOLD selected positions
+# the single-pass gather's [T, K, width] transient dominates, so the op runs
+# an online softmax over SPARSE_CHUNK-position slices with the same math.
+SPARSE_CHUNK_THRESHOLD = 512
+SPARSE_CHUNK = 256
 
 
 def ragged_token_positions(

@@ -208,7 +208,22 @@ class StageEngine:
         self._prefill_fused = kernel_select.resolve_prefill_fused(
             self.cfg.prefill_fused, self.device
         )
-        self._attn_impl = kernel_select.attn_impl(self._decode_fused)
+        # The fused prefill kernels are GQA's; MLA families keep their
+        # split prefill chain, as in the JAX package.
+        is_mla = model.config.is_mla
+        if is_mla:
+            self._prefill_fused = False
+        # Models with a decode-specialized split kernel (MLA: A6; the DSA
+        # indexer: A8) mark one-token batches decode_only even when fused
+        # decode is off, so the split path reaches those kernels; fused
+        # decode marks them for every model.
+        self._use_decode_flag = is_mla or self._decode_fused
+        self._attn_impl = kernel_select.decode_attn_impl(
+            self._decode_fused,
+            self._use_decode_flag and kernel_select.resolve_use_kernels(
+                model.use_kernels, self.device
+            ),
+        )
         self._prefill_impl = kernel_select.attn_impl(self._prefill_fused)
         self._kernel_counts: dict[tuple[str, str], int] = {}
         self._step_count = 0
@@ -320,7 +335,8 @@ class StageEngine:
 
     def kernel_dispatch_summary(self) -> dict:
         """The active impls and per-(impl, path) dispatch counts, so a run
-        shows which path served it (``cuda-fused`` or ``torch``)."""
+        shows which path served it (``cuda-fused``, ``cuda-split`` or
+        ``torch``)."""
         return {
             "impl": self._attn_impl,
             "decode_fused": self._decode_fused,
@@ -357,7 +373,7 @@ class StageEngine:
                 for s in plan.seqs
             ], dim=0)
         one_token = all(s.num_new_tokens == 1 for s in plan.seqs)
-        decode_only = self._decode_fused and one_token
+        decode_only = self._use_decode_flag and one_token
         inputs = assemble(
             plan, self.spec, self.cfg.page_size, self.device,
             hidden_states=hidden, decode_only=decode_only,

@@ -247,12 +247,8 @@ def test_unported_model_families_refused(weights):
     """The engine refuses a config it does not run even when the model was
     built without the registry's check."""
     _, _, full_np = weights
-    # DeepSeek-V3: multi-head latent attention (MLA) is not ported yet.
-    mla = normalize_config(dict(
-        TINY_QWEN2, architectures=["DeepseekV3ForCausalLM"],
-        kv_lora_rank=32, q_lora_rank=0, qk_nope_head_dim=16,
-        qk_rope_head_dim=8, v_head_dim=16,
-    ))
-    with pytest.raises(NotImplementedError, match="MLA"):
-        StageEngine(StageModel(mla, 0, 4), params_from_numpy(full_np, "cpu"),
+    # gpt-oss: attention sinks are not ported yet.
+    sinks = normalize_config(dict(TINY_QWEN2, attention_sinks=True))
+    with pytest.raises(NotImplementedError, match="attention sinks"):
+        StageEngine(StageModel(sinks, 0, 4), params_from_numpy(full_np, "cpu"),
                     EngineConfig(**ENGINE), device="cpu")

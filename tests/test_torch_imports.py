@@ -46,7 +46,8 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "ops.decode_fused", "ops.prefill_fused", "ops.sampling",
                  "ops.cuda_kernels", "ops.grouped_matmul", "models.base",
                  "models.moe", "models.qwen3_moe", "models.presets",
-                 "config"):
+                 "ops.mla", "ops.mla_decode", "ops.dsa", "ops.dsa_decode",
+                 "models.deepseek_v3", "models.deepseek_v32", "config"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"
@@ -113,5 +114,6 @@ def test_kernel_wrappers_build_nothing_at_import():
     assert cuda_kernels._lib is None
     assert set(cuda_kernels.LAUNCHES) == {
         "kv_append", "gqa_prefill", "gqa_decode", "sample_topk",
-        "grouped_gemm",
+        "grouped_gemm", "mla_decode", "mla_attend", "indexer_fused",
+        "indexer_scores",
     }

@@ -80,3 +80,62 @@ def test_launch_counters_reset():
     assert ck.launches()["gqa_decode"] >= 3
     ck.reset_launches()
     assert set(ck.launches().values()) == {0}
+
+
+def test_mla_and_indexer_entries():
+    """A5-A8: one C entry and one counter each; the fused entries take the
+    cache's slot count in 64 bits (DeepSeek-size caches pass 2**31 rows x
+    width elements)."""
+    entries = _c_entries()
+    for name in ("mla_decode", "mla_attend", "indexer_fused",
+                 "indexer_scores"):
+        assert f"pk_{name}" in entries and name in ck.LAUNCHES
+    for name in ("pk_mla_decode", "pk_indexer_fused"):
+        assert entries[name].count("long long") == 1
+        assert ck._SIGNATURES[name].count(ctypes.c_longlong) == 1
+
+
+def test_mla_and_indexer_argument_checks():
+    """The wrappers' checks (run before a launch) refuse what the kernels
+    do not take."""
+    import torch
+
+    from parallax_tpu_torch.ops.dsa_decode import check_indexer_args
+    from parallax_tpu_torch.ops.mla_decode import check_mla_args
+
+    def mla(r=512, dr=64, dtype=torch.bfloat16, q_dtype=None):
+        q = torch.zeros((2, 16, r), dtype=q_dtype or dtype)
+        qp = torch.zeros((2, 16, dr), dtype=q_dtype or dtype)
+        cache = torch.zeros((4, 64, 1, r + dr), dtype=dtype)
+        return check_mla_args("mla", q, qp, cache,
+                              torch.zeros(2, dtype=torch.int32),
+                              torch.zeros((2, 3), dtype=torch.int32), r)
+
+    assert mla() == (2, 16, 512, 64)
+    assert mla(64, 16, torch.float32) == (2, 16, 64, 16)
+    with pytest.raises(TypeError):
+        mla(dtype=torch.float16)
+    with pytest.raises(TypeError):
+        mla(q_dtype=torch.float32)
+    with pytest.raises(ValueError, match="kv_lora_rank"):
+        mla(r=1024)
+    with pytest.raises(ValueError, match="16 bytes"):
+        mla(r=60, dr=2)
+
+    def idx(page=64, weights=True, kind="dsa"):
+        q = torch.zeros((3, 64, 128), dtype=torch.bfloat16)
+        w = torch.zeros((3, 64)) if weights else None
+        cache = torch.zeros((4, page, 1, 128), dtype=torch.bfloat16)
+        return check_indexer_args("idx", q, w, cache,
+                                  torch.zeros(3, dtype=torch.int32),
+                                  torch.zeros((3, 2), dtype=torch.int32),
+                                  kind)
+
+    assert idx() == (3, 64, 128)
+    assert idx(weights=False, kind="msa") == (3, 64, 128)
+    with pytest.raises(ValueError, match="weights"):
+        idx(weights=False)
+    with pytest.raises(ValueError, match="page size"):
+        idx(page=48)
+    with pytest.raises(ValueError, match="reduce_kind"):
+        idx(kind="max")

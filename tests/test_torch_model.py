@@ -157,13 +157,12 @@ def test_params_from_numpy_bf16_bits_and_unported_models():
     assert out["b"].dtype == torch.float32
     assert params_from_numpy(tree, "cpu", torch.float32)["layers"][0][
         "w"].dtype == torch.float32
-    # DeepSeek-V3 (MLA attention, sigmoid-routed experts) is not ported yet.
-    mla = normalize_config(dict(
-        architectures=["DeepseekV3ForCausalLM"], hidden_size=32,
-        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=2,
-        kv_lora_rank=16, q_lora_rank=0, qk_nope_head_dim=8,
-        qk_rope_head_dim=8, v_head_dim=8, intermediate_size=64,
-        vocab_size=50, n_routed_experts=4, scoring_func="sigmoid",
+    # gpt-oss (attention sinks, alternating windows) is not ported yet.
+    sinks = normalize_config(dict(
+        architectures=["GptOssForCausalLM"], hidden_size=32,
+        num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+        head_dim=16, intermediate_size=64, vocab_size=50,
+        num_local_experts=4, num_experts_per_tok=2, sliding_window=8,
     ))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_stage_model(mla, 0, 1)
+        create_stage_model(sinks, 0, 2)
