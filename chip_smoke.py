@@ -24,18 +24,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                indexer kernels (A7 fused, A8 split; DSA and MSA reductions)
                at DeepSeek-V3.2's (Hi 64, D 128), each plus a small float32
                case with a kv_len 0 row, a frozen slot -1 row, kv_len 1 and
-               a context ending mid-page. Then it times each (CUDA events,
-               median, L2 flushed) beside its plain version, a PyTorch
-               library call where one computes the same function, and its
-               bound.
+               a context ending mid-page; the split decode kernel (A9) and
+               the fused one (A2) at gpt-oss-20b's decode shapes (7 rows,
+               Hq 64, Hkv 8, D 64, random sinks, window 128 and none) plus a
+               small float32 case (a kv_len 0 row, kv_len 1, mid-page ends,
+               windows shorter than and spanning a page); A1 attend-only at
+               the dense split path's decode shape (7 rows x 1 token). Then
+               it times each (CUDA events, median, L2 flushed) beside its
+               plain version, a PyTorch library call where one computes the
+               same function, and its bound.
 4. serve       a single-stage StageEngine on cuda:0 serving full-width,
                all-28-layer Qwen2.5-7B (random bf16 weights from a seeded
-               torch.Generator on the card) to 8 concurrent requests; every
-               kernel of the dense path must have launched, and the greedy
-               streams must agree with the plain path's logits
-               (tie-tolerant).
-5. pipeline    the same requests through a 14 + 14 layer InProcessPipeline
-               on the same card, sharing the weight tensors.
+               torch.Generator on the card) to 8 concurrent requests, three
+               times: fused (every kernel of the dense path must launch),
+               split (A1 attend-only once per layer and forward step, the
+               counterpart of the bundled ragged_paged_attention, and no
+               other kernel) and plain (use_kernels=False: no kernel). The
+               kernel runs' greedy streams must agree with the plain
+               model's logits (tie-tolerant).
+5. pipeline    the fused run through a 14 + 14 layer InProcessPipeline on
+               the same card, sharing the weight tensors.
 6. profile     the serve phase once more under torch.profiler: device time
                by kernel group and the device's busy share of the wall.
 7. moe_serve   Qwen3-30B-A3B at full width and all 48 layers (random bf16
@@ -59,13 +67,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                so that sparse top-k selection runs: fused (A7), split (A8)
                and plain, the same checks.
 12. dsa_profile dsa_serve's fused run once more under torch.profiler.
+13. gptoss_serve gpt-oss-20b at full width and all 24 layers (20.9 B params,
+               42 GB in bf16, each layer's sinks drawn N(0, 1); DeepSeek's
+               tree freed first) serving the mix three times with
+               mla_serve's checks: fused (A2 per layer and decode step, A0 +
+               A1 per layer and prefill step), split (A9 per layer and decode
+               step, A1 attend-only per layer and prefill step, nothing
+               else) and plain.
 
 One JSON object per line; the ``kernels`` line and the card line come just
 before the last line, which is ``{"ok": true, "device": {...}}``. Each
 kernel's launches in the ``kernels`` line come from the path that runs it:
 A0-A4 from moe_serve, A5 and A6 from mla_serve's fused and split runs, A7
-and A8 from dsa_serve's. ``--only kernels`` (comma-separated phase names)
-runs a subset and prints no result line.
+and A8 from dsa_serve's, A9 from gptoss_serve's split run and K9's route
+(A1 attend-only, entry ``ragged_attend``) from serve's split run. ``--only
+kernels`` (comma-separated phase names) runs a subset and prints no result
+line.
 """
 
 from __future__ import annotations
@@ -108,10 +125,26 @@ MOE_GREEDY_TOL = 0.25
 # the plain run, which a kernel that is off by a few percent would break.
 DEEPSEEK_GREEDY_TOL = 2.0
 DEEPSEEK_OFF_MARGIN = 8
+# gpt-oss picks 4 of 32 experts per layer over router logits rounded to
+# bf16, where ties are common and the tie goes to the lower index: a
+# rounding difference between the one-shot reference and a served run
+# (other GEMM shapes, chunked prefill, the kernels' summation order) swaps
+# an expert carrying a quarter of the FFN, in each of 24 layers. On an H100
+# the kernel runs' largest gap was 1.19 with 52 of the 160 greedy tokens
+# off by GREEDY_TOL or more, and the plain path served step by step (no
+# kernel) 1.23 with 22. A decode that drops the sinks lands at 1.93 with
+# 55: at these contexts an N(0, 1) sink is one logit among hundreds of
+# keys (128 in the windowed layers), so the count cannot tell it apart and
+# the gap limit sits between 1.23 and 1.93; the margin only bounds the
+# count's own noise. A wrong
+# token sits about 4.9 logits under the argmax (the median of the row).
+GPTOSS_GREEDY_TOL = 1.5
+GPTOSS_OFF_MARGIN = 48
 DENSE_MODEL = "qwen2.5-7b"         # parallax_tpu_torch/models/presets.py
 MOE_MODEL = "Qwen/Qwen3-30B-A3B"
 DSV3_MODEL = "deepseek-ai/DeepSeek-V3"           # presets.py MODEL_DB
 DSV32_MODEL = "deepseek-ai/DeepSeek-V3.2-Exp"
+GPTOSS_MODEL = "openai/gpt-oss-20b"
 # DeepSeek's three dense layers plus two MoE layers: 26.7 B params (53 GB in
 # bf16). A third MoE layer (11.3 B params) would leave no room for the
 # caches, the activations and the plain reference on an 80 GB card.
@@ -500,8 +533,9 @@ def phase_kernels(torch, dev) -> list[dict]:
     kernels_grouped_gemm(torch, gen, dev, flush, model=DSV3_MODEL,
                          label="grouped_gemm_deepseek")
     out.extend(kernels_deepseek(torch, gen, dev, flush))
+    out.extend(kernels_split(torch, gen, dev, flush))
     del flush
-    assert set(k["name"] for k in out) == set(ck.KERNELS)
+    assert set(k["name"] for k in out) == set(ck.KERNELS) | {"ragged_attend"}
     emit({"phase": "kernels", "timed": [
         {k: e[k] for k in ("name", "ms", "plain_ms", "bound_ms",
                            "library_ms")} for e in out]})
@@ -876,6 +910,216 @@ def kernels_deepseek(torch, gen, dev, flush) -> list[dict]:
     return out
 
 
+def check_split_decode(torch, gen, dev, dtype, hq, hkv, d, page, lens,
+                       window, sinks, pps=None):
+    """A9 (split decode, no append) against its plain version, and A2 (the
+    fused decode) against its own at the same shapes, sinks and window: the
+    cache after A2's append bitwise, kv_len 0 rows exactly zero, outputs
+    within BF16_TOL / F32_TOL; A9 on A2's cache gives A2's bits."""
+    from parallax_tpu_torch.ops.decode_fused import (
+        gqa_fused_decode,
+        gqa_fused_decode_plain,
+    )
+    from parallax_tpu_torch.ops.gqa_decode import (
+        gqa_decode_attention,
+        gqa_decode_attention_plain,
+    )
+
+    c = _decode_case(torch, gen, dev, dtype, hq, hkv, d, page, lens,
+                     frozen=set())
+    if pps is not None:
+        pages = torch.zeros((len(lens), pps), dtype=torch.int32, device=dev)
+        pages[:, :c["pages"].shape[1]] = c["pages"]
+        c["pages"] = pages
+    kw = dict(sm_scale=d ** -0.5, sliding_window=window)
+    cache_k, cache_p = c["cache"].clone(), c["cache"].clone()
+    out_2, _ = gqa_fused_decode(c["q"], c["k"], c["v"], cache_k, c["lens"],
+                                c["pages"], c["slots"], sinks, **kw)
+    ref_2, _ = gqa_fused_decode_plain(c["q"], c["k"], c["v"], cache_p,
+                                      c["lens"], c["pages"], c["slots"],
+                                      sinks, **kw)
+    out_9 = gqa_decode_attention(c["q"], cache_k, c["lens"], c["pages"],
+                                 sinks, **kw)
+    ref_9 = gqa_decode_attention_plain(c["q"], cache_p, c["lens"],
+                                       c["pages"], sinks, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(cache_k, cache_p):
+        raise AssertionError("gqa_decode: cache after the append differs")
+    zero_rows = [i for i, n in enumerate(lens) if n == 0]
+    if zero_rows and (bool(out_9[zero_rows].any())
+                      or bool(out_2[zero_rows].any())):
+        raise AssertionError("gqa_attend/gqa_decode: kv_len 0 rows not zero")
+    if not torch.equal(out_9, out_2):
+        raise AssertionError("gqa_attend on gqa_decode's cache differs")
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    return (_close(torch, out_9, ref_9, tol), _close(torch, out_2, ref_2, tol),
+            dict(c, cache=cache_k), kw)
+
+
+def _sdpa_sinks(torch, c, hq, hkv, d, page, sinks, sm_scale):
+    """The yardstick for A9: one scaled_dot_product_attention call over the
+    densely gathered rows plus one zero key / zero value column whose
+    additive mask is the head's sink (a logit of 0 + sink, no value), which
+    computes the same function."""
+    import torch.nn.functional as F
+
+    lens = c["lens"].tolist()
+    s, lmax = len(lens), max(lens)
+    dt, dv = c["q"].dtype, c["q"].device
+    k = torch.zeros((s, hkv, lmax + 1, d), dtype=dt, device=dv)
+    v = torch.zeros_like(k)
+    mask = torch.full((s, hq, 1, lmax + 1), float("-inf"), dtype=dt,
+                      device=dv)
+    mask[:, :, 0, lmax] = sinks.to(dt)
+    for i, n in enumerate(lens):
+        if n:
+            k[i, :, :n], v[i, :, :n] = _dense_kv(torch, c["pages"][i], n,
+                                                 c["cache"], hkv, d, page)
+            mask[i, :, :, :n] = 0.0
+    q = c["q"][:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=sm_scale, enable_gqa=True)
+
+
+def kernels_split(torch, gen, dev, flush) -> list[dict]:
+    """The split path's kernels: A9 (K6) at gpt-oss-20b's decode shapes (7
+    rows, Hq 64, Hkv 8, D 64, page 64, contexts 292-732, random sinks,
+    window 128 and none) and a small float32 case, A2 beside it at the same
+    shapes, A0 + A1 at gpt-oss-20b's prefill shapes; A1 attend-only (K9's
+    route) at the split path's decode shape (Qwen2.5-7B, 7 rows x 1 token,
+    one padding token) against the plain split path, real tokens only.
+    Then each timed."""
+    from parallax_tpu_torch.models.presets import get_preset
+    from parallax_tpu_torch.ops.attention import ragged_paged_attention
+    from parallax_tpu_torch.ops.decode_fused import gqa_fused_decode
+    from parallax_tpu_torch.ops.gqa_decode import (
+        gqa_decode_attention,
+        gqa_decode_attention_plain,
+    )
+    from parallax_tpu_torch.ops.kv_cache_ops import reshape_and_cache
+    from parallax_tpu_torch.ops.prefill_fused import gqa_prefill_attend
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_preset(GPTOSS_MODEL)
+    hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    page = 64
+    lens = [292, 332, 482, 732, 544, 412, 672]
+    sinks = torch.randn((hq,), generator=gen, device=dev)
+    errs, cases = {}, {}
+    for label, window in (("full", None), ("window", cfg.sliding_window)):
+        e9, e2, c, kw = check_split_decode(torch, gen, dev, bf16, hq, hkv, d,
+                                           page, lens, window, sinks,
+                                           pps=1024 // page)
+        errs[f"gqa_attend_bf16_{label}"] = e9
+        errs[f"gqa_decode_bf16_{label}"] = e2
+        cases[label] = (c, kw)
+    # float32 edge cases, G = 3: a kv_len 0 row, kv_len 1, contexts ending
+    # mid-page, windows shorter than a page (5) and spanning pages (20).
+    sinks_s = torch.randn((6,), generator=gen, device=dev)
+    edge = [37, 0, 1, 16, 50, 9]
+    for window in (None, 5, 20):
+        e9, e2, *_ = check_split_decode(torch, gen, dev, f32, 6, 2, 64, 16,
+                                        edge, window, sinks_s)
+        errs[f"gqa_attend_f32_window_{window}"] = e9
+        errs[f"gqa_decode_f32_window_{window}"] = e2
+    e9, _, *_ = check_split_decode(torch, gen, dev, f32, 6, 2, 64, 16, edge,
+                                   None, None)
+    errs["gqa_attend_f32_no_sinks"] = e9
+    # A0 + A1 at gpt-oss-20b's prefill shapes: G = 8, D = 64, the sinks,
+    # windowed and full layers, a ragged chunk over cached prefixes.
+    for label, window in (("full", None), ("window", cfg.sliding_window)):
+        e1, _, *_ = check_prefill(torch, gen, dev, bf16, hq, hkv, d, page,
+                                  [256, 256, 200, 37], [0, 256, 192, 100],
+                                  pps=16, window=window, sinks=sinks)
+        errs[f"gqa_prefill_gptoss_bf16_{label}"] = e1
+
+    # A1 attend-only at the dense split path's decode shape.
+    dcfg = get_preset(DENSE_MODEL)
+    dhq, dhkv, dd = (dcfg.num_attention_heads, dcfg.num_key_value_heads,
+                     dcfg.head_dim)
+    rc = _prefill_case(torch, gen, dev, bf16, dhq, dhkv, dd, page, [1] * 7,
+                       [n - 1 for n in lens], pps=1024 // page)
+    if rc["q"].shape[0] != 8:
+        raise AssertionError("the decode-shaped batch must pad 7 rows to 8")
+    reshape_and_cache(rc["cache"], rc["k"], rc["v"], rc["slots"])
+    rargs = (rc["q"], rc["cache"], rc["kv_lens"], rc["pages"], rc["cu"],
+             rc["nseq"])
+    rkw = dict(sm_scale=dd ** -0.5)
+    out_1 = gqa_prefill_attend(*rargs, None, **rkw)
+    ref_1 = ragged_paged_attention(*rargs, use_kernels=False, **rkw)
+    torch.cuda.synchronize()
+    if bool(out_1[7:].any()):
+        raise AssertionError("gqa_prefill: padding token is not zero")
+    errs["gqa_prefill_decode_shape_bf16"] = _close(torch, out_1[:7],
+                                                   ref_1[:7], BF16_TOL)
+    emit({"phase": "kernels", "check": "split", "hq": hq, "hkv": hkv, "d": d,
+          "lens": lens, "window": cfg.sliding_window, "f32_edge_cases": edge,
+          "max_abs_err": errs, "bf16_tol_atol_rtol": BF16_TOL,
+          "f32_tol_atol_rtol": F32_TOL, "cache_bitwise_equal": True,
+          "a9_equals_a2": True})
+
+    out = []
+    s, ctx, esz = len(lens), sum(lens), 2
+    # A9 at the main shape (a full-attention layer), the windowed layer
+    # timed beside it.
+    c, kw = cases["full"]
+    args = (c["q"], c["cache"], c["lens"], c["pages"], sinks)
+    ms = time_ms(torch, lambda: gqa_decode_attention(*args, **kw), 50, flush)
+    plain = time_ms(torch, lambda: gqa_decode_attention_plain(*args, **kw),
+                    10, flush)
+    lib = time_ms(torch, _sdpa_sinks(torch, c, hq, hkv, d, page, sinks,
+                                     kw["sm_scale"]), 50, flush)
+    b_ms, b_by = bound(2 * s * hq * d * esz + ctx * 2 * hkv * d * esz
+                       + hq * 4, 4 * hq * d * ctx, "bfloat16")
+    cw, kww = cases["window"]
+    wargs = (cw["q"], cw["cache"], cw["lens"], cw["pages"], sinks)
+    ms_w = time_ms(torch, lambda: gqa_decode_attention(*wargs, **kww), 50,
+                   flush)
+    # A2 at the same shape (its append included), for comparison.
+    dargs = (c["q"], c["k"], c["v"], c["cache"].clone(), c["lens"],
+             c["pages"], c["slots"], sinks)
+    ms_2 = time_ms(torch, lambda: gqa_fused_decode(*dargs, **kw), 50, flush)
+    out.append(dict(
+        name="gqa_attend", route="cuda",
+        source="parallax_tpu_torch/csrc/gqa_decode.cu",
+        replaces="parallax_tpu/ops/attention_pallas.py:130",
+        max_abs_err=max(v for k, v in errs.items()
+                        if k.startswith("gqa_attend")),
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+    ))
+    # K9's route: A1 attend-only at the dense decode shape.
+    ms_1 = time_ms(torch, lambda: gqa_prefill_attend(*rargs, None, **rkw), 50,
+                   flush)
+    plain_1 = time_ms(torch, lambda: ragged_paged_attention(
+        *rargs, use_kernels=False, **rkw), 10, flush)
+    dc = dict(q=rc["q"][:7], cache=rc["cache"], lens=rc["kv_lens"],
+              pages=rc["pages"])
+    lib_1 = time_ms(torch, _sdpa_decode(torch, dc, dhq, dhkv, dd, page), 50,
+                    flush)
+    dctx = int(rc["kv_lens"].sum())
+    b1_ms, b1_by = bound(2 * 7 * dhq * dd * esz + dctx * 2 * dhkv * dd * esz,
+                         4 * dhq * dd * dctx, "bfloat16")
+    # A2 at the same dense decode shape.
+    dcase = _decode_case(torch, gen, dev, bf16, dhq, dhkv, dd, page, lens,
+                         frozen=set())
+    a2args = (dcase["q"], dcase["k"], dcase["v"], dcase["cache"],
+              dcase["lens"], dcase["pages"], dcase["slots"], None)
+    ms_a2 = time_ms(torch, lambda: gqa_fused_decode(
+        *a2args, sm_scale=dd ** -0.5), 50, flush)
+    out.append(dict(
+        name="ragged_attend", route="cuda",
+        source="parallax_tpu_torch/csrc/gqa_prefill.cu",
+        replaces="parallax_tpu/ops/attention.py:211",
+        max_abs_err=errs["gqa_prefill_decode_shape_bf16"], ms=ms_1,
+        plain_ms=plain_1, bound_ms=b1_ms, bound_by=b1_by, library_ms=lib_1,
+    ))
+    emit({"phase": "kernels", "check": "split_timed",
+          "gqa_attend_window_ms": ms_w, "gqa_decode_at_gptoss_shape_ms": ms_2,
+          "gqa_decode_at_dense_decode_shape_ms": ms_a2,
+          "ragged_attend_ms": ms_1, "ragged_attend_library_ms": lib_1})
+    return out
+
+
 def _dense_kv(torch, pages_row, n, cache, hkv, d, page):
     """Gather one sequence's first ``n`` K and V rows: [Hkv, n, D] each."""
     npg = (n + page - 1) // page
@@ -1028,19 +1272,21 @@ def stream_metrics(reqs, t0: float, t1: float) -> dict:
 
 
 def greedy_check(torch, model_full, params, reqs, sampled, dev,
-                 tol=GREEDY_TOL, max_len=1024) -> tuple[float, int]:
+                 tol=None, max_len=1024) -> tuple[float, int, float]:
     """Tie-tolerant check of every greedy stream against the plain path
     (``model_full`` with the plain attention, and for an MoE model the
     plain grouped product): one forward per row over prompt + outputs with
     logits at every position; each token must be within ``tol`` of that
-    position's argmax. Returns the largest gap seen and how many tokens
-    were off by GREEDY_TOL or more."""
+    position's argmax (no limit when ``tol`` is None). Returns the largest
+    gap seen, how many tokens were off by GREEDY_TOL or more, and the median
+    over positions of the argmax minus the row's median logit (how far
+    below the argmax a wrong token typically sits)."""
     from parallax_tpu_torch.runtime.batch import BucketSpec, assemble
     from parallax_tpu_torch.runtime.request import Request
     from parallax_tpu_torch.runtime.scheduler import BatchPlan, ScheduledSeq
 
     page = 64
-    worst, over = 0.0, 0
+    worst, over, spreads = 0.0, 0, []
     for i, r in enumerate(reqs):
         if i in sampled:
             continue
@@ -1062,25 +1308,33 @@ def greedy_check(torch, model_full, params, reqs, sampled, dev,
         toks = torch.tensor(r.output_ids, device=dev)
         best = rows.max(dim=-1).values
         gaps = best - rows.gather(1, toks[:, None])[:, 0]
+        spreads.append(best - rows.median(dim=-1).values)
         g = float(gaps.max())
         worst = max(worst, g)
         over += int((gaps >= GREEDY_TOL).sum())
-        if g >= tol:
+        if tol is not None and g >= tol:
             raise AssertionError(
                 f"{r.request_id}: greedy token off the plain path's argmax "
                 f"by {g} (tolerance {tol})"
             )
         del logits, kv
-    return worst, over
+    return worst, over, float(torch.cat(spreads).median())
 
 
 def phase_serve(torch, dev, card: str):
+    """Qwen2.5-7B served three times: fused (A0-A3), split (A1 attend-only
+    once per layer and forward step, the counterpart of the bundled
+    ragged_paged_attention, and no other kernel) and plain (no kernel).
+    The kernel runs' greedy streams must agree with the plain model's
+    logits. Returns the fused run and each run's launches."""
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.models.presets import get_preset
     from parallax_tpu_torch.ops import cuda_kernels as ck
 
     cfg = get_preset(DENSE_MODEL)
-    model_full = create_stage_model(cfg, 0, cfg.num_hidden_layers)
+    n = cfg.num_hidden_layers
+    # The reference: the plain split path even on the card.
+    model_full = create_stage_model(cfg, 0, n, use_kernels=False)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.monotonic()
@@ -1090,48 +1344,72 @@ def phase_serve(torch, dev, card: str):
         t.numel() for t in _leaves(params)
     )
     emit({"phase": "serve", "weights": "random bf16", "params": n_params,
-          "init_s": round(time.monotonic() - t0, 3),
-          "layers": cfg.num_hidden_layers})
+          "init_s": round(time.monotonic() - t0, 3), "layers": n})
 
-    ck.reset_launches()
-    reqs, sampled, engines, t0, t1 = serve(torch, [(0, 28)], params, cfg,
-                                           dev, fused=True)
-    launches = ck.launches()
-    for r in reqs:
-        if r.status.value != "finished_length" or len(r.output_ids) != 32:
-            raise AssertionError(f"{r.request_id}: {r.status.value}, "
-                                 f"{len(r.output_ids)} tokens")
-    sharer = reqs[-1]
-    if sharer.num_cached_tokens <= 0:
-        raise AssertionError("the sharer did not hit the prefix cache")
-    missing = [k for k in DENSE_KERNELS if launches[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
-    emit({"phase": "serve", "requests": len(reqs), "launches": launches,
-          "dispatch": engines[0].kernel_dispatch_summary(),
-          "sharer_cached_tokens": sharer.num_cached_tokens,
-          "cache": engines[0].cache_stats(),
-          **stream_metrics(reqs, t0, t1), "card": card})
-    worst, _ = greedy_check(torch, model_full, params, reqs, sampled, dev)
-    emit({"phase": "serve", "greedy_vs_plain": "pass",
-          "largest_logit_gap": worst, "tolerance": GREEDY_TOL})
-
-    plain_reqs, *_ = serve(torch, [(0, 28)], params, cfg, dev, fused=False)
-    agree = {}
-    for i in sorted(sampled):
-        a, b = reqs[i].output_ids, plain_reqs[i].output_ids
-        same = 0
-        while same < len(a) and a[same] == b[same]:
-            same += 1
-        agree[reqs[i].request_id] = same
-    greedy_same = sum(
-        reqs[i].output_ids == plain_reqs[i].output_ids
-        for i in range(len(reqs)) if i not in sampled
-    )
-    emit({"phase": "serve", "sampled_rows_common_prefix_vs_plain": agree,
-          "greedy_rows_identical_to_plain": greedy_same})
-    return cfg, model_full, params, reqs, sampled
+    runs, launches_of = {}, {}
+    for mode, fused, model_kw in (("fused", True, None),
+                                  ("split", False, None),
+                                  ("plain", False, dict(use_kernels=False))):
+        ck.reset_launches()
+        reqs, sampled, engines, t0, t1 = serve(torch, [(0, n)], params, cfg,
+                                               dev, fused=fused,
+                                               model_kw=model_kw)
+        launches = ck.launches()
+        for r in reqs:
+            if r.status.value != "finished_length" or len(r.output_ids) != 32:
+                raise AssertionError(f"{mode} {r.request_id}: "
+                                     f"{r.status.value}, "
+                                     f"{len(r.output_ids)} tokens")
+        sharer = reqs[-1]
+        if sharer.num_cached_tokens <= 0:
+            raise AssertionError("the sharer did not hit the prefix cache")
+        summary = engines[0].kernel_dispatch_summary()
+        steps = sum(c for key, c in summary["dispatch_total"].items()
+                    if not key.endswith("/sample"))
+        if mode == "fused":
+            missing = [k for k in DENSE_KERNELS if launches[k] <= 0]
+            if missing or launches["gqa_attend"]:
+                raise AssertionError(f"fused: kernels not launched on the "
+                                     f"main path: {missing}, or gqa_attend "
+                                     f"{launches['gqa_attend']}")
+        else:
+            want = {k: 0 for k in ck.KERNELS}
+            if mode == "split":
+                want["gqa_prefill"] = n * steps
+            bad = {k: (launches[k], v) for k, v in want.items()
+                   if launches[k] != v}
+            if bad:
+                raise AssertionError(f"serve {mode}: launches (got, want) "
+                                     f"{bad}, {steps} forward steps")
+        emit({"phase": "serve", "run": mode, "requests": len(reqs),
+              "launches": launches, "steps": steps, "dispatch": summary,
+              "sharer_cached_tokens": sharer.num_cached_tokens,
+              "cache": engines[0].cache_stats(),
+              **stream_metrics(reqs, t0, t1), "card": card})
+        del engines
+        if mode != "plain":
+            worst, *_ = greedy_check(torch, model_full, params, reqs,
+                                     sampled, dev, tol=GREEDY_TOL)
+            emit({"phase": "serve", "run": mode, "greedy_vs_plain": "pass",
+                  "largest_logit_gap": worst, "tolerance": GREEDY_TOL})
+        runs[mode] = reqs
+        launches_of[mode] = launches
+    for mode in ("split", "plain"):
+        agree = {}
+        for i in sorted(sampled):
+            a, b = runs["fused"][i].output_ids, runs[mode][i].output_ids
+            same = 0
+            while same < len(a) and a[same] == b[same]:
+                same += 1
+            agree[runs["fused"][i].request_id] = same
+        greedy_same = sum(
+            runs["fused"][i].output_ids == runs[mode][i].output_ids
+            for i in range(len(runs["fused"])) if i not in sampled
+        )
+        emit({"phase": "serve", "run": mode,
+              "sampled_rows_common_prefix_vs_fused": agree,
+              "greedy_rows_identical_to_fused": greedy_same})
+    return cfg, model_full, params, runs["fused"], sampled, launches_of
 
 
 def phase_pipeline(torch, dev, cfg, model_full, params, single, sampled):
@@ -1140,7 +1418,8 @@ def phase_pipeline(torch, dev, cfg, model_full, params, single, sampled):
     for r in reqs:
         if r.status.value != "finished_length":
             raise AssertionError(f"pipeline {r.request_id}: {r.status.value}")
-    worst, _ = greedy_check(torch, model_full, params, reqs, sampled, dev)
+    worst, *_ = greedy_check(torch, model_full, params, reqs, sampled, dev,
+                             tol=GREEDY_TOL)
     identical = sum(
         a == b for r, s in zip(reqs, single)
         for a, b in zip(r.output_ids, s.output_ids)
@@ -1266,9 +1545,10 @@ def phase_moe_serve(torch, dev, card: str, want) -> dict:
           "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
           **stream_metrics(reqs, t0, t1), "card": card})
     del engines
-    model_plain = create_stage_model(cfg, 0, n_layers, moe_kernel=False)
-    worst, over = greedy_check(torch, model_plain, params, reqs, sampled,
-                               dev, tol=MOE_GREEDY_TOL)
+    model_plain = create_stage_model(cfg, 0, n_layers, moe_kernel=False,
+                                     use_kernels=False)
+    worst, over, _ = greedy_check(torch, model_plain, params, reqs, sampled,
+                                  dev, tol=MOE_GREEDY_TOL)
     emit({"phase": "moe_serve", "greedy_vs_plain": "pass",
           "largest_logit_gap": worst, "tolerance": MOE_GREEDY_TOL,
           f"tokens_off_by_{GREEDY_TOL}_or_more": over,
@@ -1291,25 +1571,21 @@ def _deepseek_config(name: str):
                             model_name=name)
 
 
-# Decode kernels of the DeepSeek paths; each path must launch only its own.
-DEEPSEEK_DECODE_KERNELS = ("mla_decode", "mla_attend", "indexer_fused",
-                           "indexer_scores")
-
-
-def deepseek_serve(torch, dev, card, phase, cfg, params, kernels,
-                   long_prompt=0, max_model_len=1024) -> dict:
-    """Serve the mix on ``cfg`` with fused decode, then with split decode.
-    ``kernels`` names each run's decode kernel, which must launch once per
-    (MLA or full-indexer) layer and decode step; the other decode kernels
-    and the GQA kernels never; the grouped GEMM 3 times per MoE layer and
-    forward step. The two runs' greedy rows must be identical and agree
-    with the plain path. Returns each run's launches."""
+def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
+                margin, plain_kw, plain_note, long_prompt=0,
+                max_model_len=1024) -> dict:
+    """Serve the mix on ``cfg`` three times: fused decode, split decode (its
+    kernels) and the plain path (``plain_kw``: no kernel). ``expected(mode,
+    dispatch_total, impl, prefill_impl)`` gives each run's exact launches
+    of every kernel but the sampler, which must launch on the fused run
+    only. The kernel runs' greedy rows must be identical and agree with the
+    plain model's one-shot logits within ``tol``, with at most ``margin``
+    more tokens off by GREEDY_TOL or more than the plain run, served the
+    same way, shows. Returns each run's launches."""
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.ops import cuda_kernels as ck
 
     n = cfg.num_hidden_layers
-    moe_layers = sum(cfg.is_moe_layer(i) for i in range(n))
-    plain_kw = dict(moe_kernel=False, use_kernels=False)
     runs, out = {}, {}
     for mode, fused, model_kw in (("fused", True, None),
                                   ("split", False, None),
@@ -1330,11 +1606,9 @@ def deepseek_serve(torch, dev, card, phase, cfg, params, kernels,
         decode_steps = totals.get(f"{summary['impl']}/decode", 0)
         steps = sum(c for key, c in totals.items()
                     if not key.endswith("/sample"))
-        want = {k: 0 for k in DEEPSEEK_DECODE_KERNELS + (
-            "kv_append", "gqa_prefill", "gqa_decode", "grouped_gemm")}
-        if mode in kernels:
-            want[kernels[mode]] = n * decode_steps
-            want["grouped_gemm"] = 3 * moe_layers * steps
+        want = {k: 0 for k in ck.KERNELS if k != "sample_topk"}
+        want.update(expected(mode, totals, summary["impl"],
+                             summary["prefill_impl"]))
         bad = {k: (launches[k], v) for k, v in want.items()
                if launches[k] != v}
         if decode_steps <= 0 or bad:
@@ -1365,29 +1639,56 @@ def deepseek_serve(torch, dev, card, phase, cfg, params, kernels,
     # The split run's greedy rows are the fused run's, so one check holds
     # both; the plain run is checked the same way, without a limit, to
     # show how far the path without kernels lands from the reference.
-    worst, over = greedy_check(torch, model_plain, params, runs["fused"],
-                               sampled, dev, tol=DEEPSEEK_GREEDY_TOL,
-                               max_len=max_model_len)
-    worst_p, over_p = greedy_check(torch, model_plain, params, runs["plain"],
-                                   sampled, dev, tol=float("inf"),
-                                   max_len=max_model_len)
-    if over > over_p + DEEPSEEK_OFF_MARGIN:
-        raise AssertionError(
-            f"{phase}: {over} greedy tokens off by {GREEDY_TOL} or more with "
-            f"the kernels, {over_p} without them (margin "
-            f"{DEEPSEEK_OFF_MARGIN})"
-        )
+    worst, over, spread = greedy_check(torch, model_plain, params,
+                                       runs["fused"], sampled, dev,
+                                       max_len=max_model_len)
+    worst_p, over_p, _ = greedy_check(torch, model_plain, params,
+                                      runs["plain"], sampled, dev,
+                                      max_len=max_model_len)
+    ok = worst < tol and over <= over_p + margin
     emit({"phase": phase, "greedy_fused_equals_split": True,
           "sampled_rows_identical": sampled_same,
-          "greedy_vs_plain": "pass", "largest_logit_gap": worst,
-          "tolerance": DEEPSEEK_GREEDY_TOL,
+          "greedy_vs_plain": "pass" if ok else "FAIL",
+          "largest_logit_gap": worst, "tolerance": tol,
           f"tokens_off_by_{GREEDY_TOL}_or_more": over,
           "plain_run_largest_logit_gap": worst_p,
           f"plain_run_tokens_off_by_{GREEDY_TOL}_or_more": over_p,
+          "off_margin": margin, "argmax_minus_median_logit": spread,
           "greedy_tokens": sum(len(runs["fused"][i].output_ids)
                                for i in greedy),
-          "plain": "moe_ffn(kernel=False) + plain MLA / indexer"})
+          "plain": plain_note})
+    if not ok:
+        raise AssertionError(
+            f"{phase}: greedy gap {worst} (tolerance {tol}); {over} tokens "
+            f"off by {GREEDY_TOL} or more with the kernels, {over_p} "
+            f"without them (margin {margin})"
+        )
     return out
+
+
+def deepseek_serve(torch, dev, card, phase, cfg, params, kernels,
+                   long_prompt=0, max_model_len=1024) -> dict:
+    """The DeepSeek paths' three runs. ``kernels`` names each kernel run's
+    decode kernel, which must launch once per (MLA or full-indexer) layer
+    and decode step; the other decode kernels and the GQA kernels never;
+    the grouped GEMM 3 times per MoE layer and forward step."""
+    n = cfg.num_hidden_layers
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(n))
+
+    def expected(mode, totals, impl, prefill_impl):
+        if mode not in kernels:
+            return {}
+        steps = sum(c for key, c in totals.items()
+                    if not key.endswith("/sample"))
+        return {kernels[mode]: n * totals.get(f"{impl}/decode", 0),
+                "grouped_gemm": 3 * moe_layers * steps}
+
+    return serve_three(
+        torch, dev, card, phase, cfg, params, expected,
+        tol=DEEPSEEK_GREEDY_TOL, margin=DEEPSEEK_OFF_MARGIN,
+        plain_kw=dict(moe_kernel=False, use_kernels=False),
+        plain_note="moe_ffn(kernel=False) + plain MLA / indexer",
+        long_prompt=long_prompt, max_model_len=max_model_len)
 
 
 def run_deepseek(torch, dev, card: str, want) -> dict:
@@ -1438,6 +1739,84 @@ def run_deepseek(torch, dev, card: str, want) -> dict:
     return paths
 
 
+def run_gptoss(torch, dev, card: str) -> dict:
+    """Phase 13: gpt-oss-20b at full width and all 24 layers (random bf16
+    weights; each layer's sinks drawn N(0, 1) so that they matter) served
+    three times: fused (A2 once per layer and decode step, A0 + A1 per layer
+    and prefill step), split (A9 per layer and decode step, A1 attend-only
+    per layer and prefill step, nothing else) and plain. Returns the
+    launches of each run."""
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.models.presets import get_preset
+
+    cfg = get_preset(GPTOSS_MODEL)
+    n = cfg.num_hidden_layers
+    free0, total = torch.cuda.mem_get_info()
+    emit({"phase": "gptoss_serve", "model": GPTOSS_MODEL, "layers": n,
+          "mem_free_gb_before_init": free0 / 1e9, "mem_total_gb": total / 1e9})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.monotonic()
+    params = create_stage_model(cfg, 0, n).init_params(gen, torch.bfloat16,
+                                                       dev)
+    for lp in params["layers"]:
+        lp["self_attn"]["sinks"] = torch.randn(
+            (cfg.num_attention_heads,), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "gptoss_serve", "weights": "random bf16, sinks N(0, 1)",
+          "params": sum(t.numel() for t in _leaves(params)),
+          "init_s": round(time.monotonic() - t0, 3),
+          "experts": cfg.moe.num_experts,
+          "top_k": cfg.moe.num_experts_per_tok,
+          "sliding_window": cfg.sliding_window,
+          "mem_free_gb_after_load": torch.cuda.mem_get_info()[0] / 1e9})
+
+    # Where a step's MoE time goes: one layer's dense expert loop at a
+    # decode step's 7 rows (CUDA events around the whole call, so host
+    # gaps count), and one expert's gate/up product with the f32 output the
+    # port keeps (as the JAX package does) beside the same product rounded
+    # to bf16, at 7 rows and at a 2048-token prefill step.
+    from parallax_tpu_torch.models.gpt_oss import gpt_oss_moe_ffn
+    from parallax_tpu_torch.models.layers import linear_f32
+
+    mlp = params["layers"][0]["mlp"]
+    w = mlp["experts"]["gate_up_proj"][0]                    # [H, 2I]
+    probe = {}
+    for m in (7, 2048):
+        x = torch.randn((m, cfg.hidden_size), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        probe[f"gate_up_f32_out_m{m}_ms"] = time_ms(
+            torch, lambda: linear_f32(x, w.t()), 20)
+        probe[f"gate_up_bf16_out_m{m}_ms"] = time_ms(
+            torch, lambda: torch.mm(x, w), 20)
+        probe[f"gate_up_bound_m{m}_ms"] = bound(
+            w.numel() * 2 + x.numel() * 2 + m * w.shape[1] * 4,
+            2 * m * w.numel(), "bfloat16")[0]
+        if m == 7:
+            probe["moe_ffn_layer_m7_ms"] = time_ms(
+                torch, lambda: gpt_oss_moe_ffn(
+                    x, mlp, cfg.moe.num_experts_per_tok), 5)
+    emit({"phase": "gptoss_serve", "moe_probe": probe})
+
+    def expected(mode, totals, impl, prefill_impl):
+        decode = n * totals.get(f"{impl}/decode", 0)
+        prefill = n * totals.get(f"{prefill_impl}/prefill", 0)
+        if mode == "fused":
+            return {"gqa_decode": decode, "kv_append": prefill,
+                    "gqa_prefill": prefill}
+        if mode == "split":
+            return {"gqa_attend": decode, "gqa_prefill": prefill}
+        return {}
+
+    runs = serve_three(
+        torch, dev, card, "gptoss_serve", cfg, params, expected,
+        tol=GPTOSS_GREEDY_TOL, margin=GPTOSS_OFF_MARGIN,
+        plain_kw=dict(use_kernels=False),
+        plain_note="plain split attention + the plain MoE loop")
+    return {f"gptoss_serve/{mode}": launches
+            for mode, launches in runs.items()}
+
+
 # The run whose launches each kernel's entry in the kernels line reports.
 KERNEL_PATH = {
     "kv_append": "moe_serve", "gqa_prefill": "moe_serve",
@@ -1445,16 +1824,23 @@ KERNEL_PATH = {
     "grouped_gemm": "moe_serve", "mla_decode": "mla_serve/fused",
     "mla_attend": "mla_serve/split", "indexer_fused": "dsa_serve/fused",
     "indexer_scores": "dsa_serve/split",
+    "gqa_attend": "gptoss_serve/split", "ragged_attend": "serve/split",
 }
+# The launch counter of an entry that is not a kernel of its own: K9's
+# route is A1 (gqa_prefill) in attend-only mode.
+KERNEL_COUNTER = {"ragged_attend": "gqa_prefill"}
 
 
-def run_dense(torch, dev, card: str, want) -> None:
-    """Phases 4-6 on Qwen2.5-7B; its tensors die with this frame."""
-    cfg, model_full, params, single, sampled = phase_serve(torch, dev, card)
+def run_dense(torch, dev, card: str, want) -> dict:
+    """Phases 4-6 on Qwen2.5-7B; its tensors die with this frame. Returns
+    the split run's launches."""
+    cfg, model_full, params, single, sampled, launches = phase_serve(
+        torch, dev, card)
     if want("pipeline"):
         phase_pipeline(torch, dev, cfg, model_full, params, single, sampled)
     if want("profile"):
         phase_profile(torch, dev, cfg, params)
+    return {"serve/split": launches["split"]}
 
 
 def free_device_memory(torch) -> None:
@@ -1481,8 +1867,8 @@ def main() -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated phases (build,kernels,serve,"
                          "pipeline,profile,moe_serve,moe_profile,mla_serve,"
-                         "mla_profile,dsa_serve,dsa_profile); prints no "
-                         "result line")
+                         "mla_profile,dsa_serve,dsa_profile,gptoss_serve); "
+                         "prints no result line")
     only = set(filter(None, ap.parse_args().only.split(",")))
 
     import torch
@@ -1517,12 +1903,12 @@ def main() -> int:
 
     kernels = phase_kernels(torch, dev) if want("kernels") else None
     free_device_memory(torch)
+    paths = {}
     if want("serve") or want("pipeline") or want("profile"):
-        run_dense(torch, dev, card, want)
+        paths.update(run_dense(torch, dev, card, want))
     # Qwen2.5-7B's tensors (about 15 GB) are gone before the MoE model's
     # 61 GB are made.
     free_device_memory(torch)
-    paths = {}
     if want("moe_serve") or want("moe_profile"):
         paths["moe_serve"] = phase_moe_serve(torch, dev, card, want)
     # Qwen3-30B-A3B's 61 GB are gone before DeepSeek's 53 GB are made.
@@ -1530,10 +1916,15 @@ def main() -> int:
     if any(want(p) for p in ("mla_serve", "mla_profile", "dsa_serve",
                              "dsa_profile")):
         paths.update(run_deepseek(torch, dev, card, want))
+    # DeepSeek's 53 GB are gone before gpt-oss-20b's 42 GB are made.
+    free_device_memory(torch)
+    if want("gptoss_serve"):
+        paths.update(run_gptoss(torch, dev, card))
     if only:
         return 0
     for k in kernels:
-        k["launches"] = paths[KERNEL_PATH[k["name"]]][k["name"]]
+        counter = KERNEL_COUNTER.get(k["name"], k["name"])
+        k["launches"] = paths[KERNEL_PATH[k["name"]]][counter]
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: not launched on its path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -7,7 +7,8 @@ from parallax_tpu_torch.models.registry import (
 from parallax_tpu_torch.models.qwen3_moe import MoEStageModel
 from parallax_tpu_torch.models.deepseek_v3 import DeepseekStageModel
 from parallax_tpu_torch.models.deepseek_v32 import DeepseekV32StageModel
+from parallax_tpu_torch.models.gpt_oss import GptOssStageModel
 
 __all__ = ["BatchInputs", "DeepseekStageModel", "DeepseekV32StageModel",
-           "MoEStageModel", "StageModel", "create_stage_model",
-           "params_from_numpy"]
+           "GptOssStageModel", "MoEStageModel", "StageModel",
+           "create_stage_model", "params_from_numpy"]

@@ -67,7 +67,7 @@ class StageModel:
         self.end_layer = end_layer
         self.is_first = start_layer == 0
         self.is_last = end_layer == config.num_hidden_layers
-        # Per-op choice of the split decode kernels (the JAX package's
+        # Per-op choice of the split path's kernels (the JAX package's
         # ``use_pallas``): None = kernels when the tensors are on CUDA,
         # False = the plain path on any device (the card's reference).
         self.use_kernels = use_kernels
@@ -256,6 +256,7 @@ class StageModel:
             cos_table=cos,
             sin_table=sin,
             sliding_window=window,
+            use_kernels=self.use_kernels,
             decode_only=inputs.decode_only,
             decode_fused=inputs.decode_fused,
             prefill_fused=inputs.prefill_fused,

@@ -98,6 +98,7 @@ def paged_attention_block(
     cos_table: torch.Tensor,
     sin_table: torch.Tensor,
     sliding_window: int | None = None,
+    use_kernels: bool | None = None,
     decode_only: bool = False,
     decode_fused: bool = False,
     prefill_fused: bool = False,
@@ -105,7 +106,9 @@ def paged_attention_block(
     """GQA attention over the paged cache: project, qk-norm, rope, append,
     attend, project out. New K/V always enter the cache first (in place)
     and attention always reads the cache, so prefix hits and chunked
-    prefill need no separate path."""
+    prefill need no separate path. ``p["sinks"]`` (gpt-oss), when present,
+    joins every head's softmax; ``use_kernels`` picks the split path's
+    kernels or plain PyTorch."""
     t = x.shape[0]
     d = config.head_dim
     q = linear(x, p["q_proj"]).reshape(t, -1, d)
@@ -123,6 +126,7 @@ def paged_attention_block(
         sm_scale=d ** -0.5,
         sliding_window=sliding_window,
         sinks=p.get("sinks"),
+        use_kernels=use_kernels,
         decode_only=decode_only,
         decode_fused=decode_fused,
         prefill_fused=prefill_fused,

@@ -3,11 +3,12 @@
 
 HF ``architectures[0]`` name -> StageModel class. The dense llama-family
 architectures share the base block (config flags drive qk-norm / bias /
-sliding-window differences); model families register their class with
+sliding-window differences; a ``sinks`` leaf in a layer's attention params
+joins its softmax); model families register their class with
 :func:`register_model` (``models/qwen3_moe.py``, ``models/deepseek_v3.py``,
-``models/deepseek_v32.py``). Anything else, and any feature a registered
-class does not run (its ``runs_moe`` / ``runs_mla`` / ``runs_dsa`` flags),
-raises "not ported yet".
+``models/deepseek_v32.py``, ``models/gpt_oss.py``). Anything else, and any
+feature a registered class does not run (its ``runs_moe`` / ``runs_mla`` /
+``runs_dsa`` flags), raises "not ported yet".
 """
 
 from __future__ import annotations
@@ -50,7 +51,6 @@ def unported_features(config: ModelConfig) -> list[str]:
         ("DSA", config.dsa is not None and not (cls and cls.runs_dsa)),
         ("MSA", config.msa is not None),
         ("hybrid linear attention", config.linear_attn is not None),
-        ("attention sinks", config.use_attention_sinks),
     ):
         if on:
             feats.append(name)
@@ -88,9 +88,12 @@ def params_from_numpy(tree, device="cpu", dtype: torch.dtype | None = None):
     of tensors on ``device``. Keys and layouts are unchanged, stacked MoE
     experts included (``[E, I, H]`` gate/up, ``[E, H, I]`` down), so one
     weight tree serves both packages; ``dtype`` casts every leaf (None keeps
-    each leaf's own type)."""
+    each leaf's own type) except attention sinks, which stay float32
+    whatever the tree holds: the kernels take them as f32[Hq]."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+        return {k: params_from_numpy(
+                    v, device, torch.float32 if k == "sinks" else dtype)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device, dtype) for v in tree]
     return _leaf_to_torch(tree, device, dtype)

@@ -5,14 +5,16 @@ Queries of every sequence in the step are flattened into one
 ``[num_tokens, num_q_heads, head_dim]`` tensor; keys/values are always read
 from the paged cache, so prefix-cache hits and chunked prefill need no
 special path. ``append_and_attend`` routes a batch to the fused decode
-kernel, the fused prefill kernel, or the split plain-PyTorch path (cache
-scatter, then :func:`ragged_paged_attention`).
+kernel, the fused prefill kernel, or the split path (cache scatter, then
+:func:`ragged_paged_attention`, which runs a split kernel or plain PyTorch
+by the JAX package's branch table).
 """
 
 from __future__ import annotations
 
 import torch
 
+from parallax_tpu_torch.ops import kernel_select
 from parallax_tpu_torch.ops.kv_cache_ops import reshape_and_cache
 from parallax_tpu_torch.ops.ragged import page_chunks, ragged_token_positions
 
@@ -36,6 +38,7 @@ def append_and_attend(
     sliding_window: int | None = None,
     soft_cap: float | None = None,
     sinks: torch.Tensor | None = None,
+    use_kernels: bool | None = None,
     decode_only: bool = False,
     decode_fused: bool = False,
     prefill_fused: bool = False,
@@ -46,7 +49,8 @@ def append_and_attend(
     runs the fused decode kernel (append inside the attention kernel);
     ``prefill_fused`` runs the prefill kernel pair (append, then ragged
     flash attention) for every multi-token shape. With both off: the split
-    path. Returns ``(out, kv_pages)``.
+    path, whose attention takes a split kernel per ``use_kernels``.
+    Returns ``(out, kv_pages)``.
     """
     kw = dict(sm_scale=sm_scale, sliding_window=sliding_window,
               soft_cap=soft_cap)
@@ -67,7 +71,7 @@ def append_and_attend(
     reshape_and_cache(kv_pages, k, v, slot_mapping)
     out = ragged_paged_attention(
         q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
-        sinks=sinks, **kw,
+        sinks=sinks, use_kernels=use_kernels, decode_only=decode_only, **kw,
     )
     return out, kv_pages
 
@@ -84,8 +88,20 @@ def ragged_paged_attention(
     sliding_window: int | None = None,
     soft_cap: float | None = None,
     sinks: torch.Tensor | None = None,
+    use_kernels: bool | None = None,
+    decode_only: bool = False,
 ) -> torch.Tensor:
-    """The split path: plain twin of ``_ragged_paged_attention_xla``.
+    """The split path's attention, routed as the JAX package routes it
+    (``parallax_tpu/ops/attention.py:175-239``). With kernels on
+    (``use_kernels``; None = when the tensors are on CUDA):
+    - sinks on a decode-only batch: the split decode kernel (A9, the
+      counterpart of ``gqa_decode_attention_pallas``), which takes no soft
+      cap, as the JAX branch passes none;
+    - anything else (sinks on a multi-token batch, and every batch without
+      sinks, the bundled ``ragged_paged_attention``'s share): the prefill
+      kernel in attend-only mode (A1), exact zeros on bucket padding.
+    With kernels off: :func:`paged_attention_plain`, the plain twin of
+    ``_ragged_paged_attention_xla``.
 
     Args:
       q: [T, num_q_heads, head_dim] — all sequences' query tokens.
@@ -99,7 +115,22 @@ def ragged_paged_attention(
       sinks: optional f32[num_q_heads] sink logits, joining the softmax at
         the end with no value payload.
     """
-    del num_seqs
+    if kernel_select.resolve_use_kernels(use_kernels, q.device):
+        one_per_row = decode_only and q.shape[0] == kv_lens.shape[0]
+        if sinks is not None and one_per_row:
+            from parallax_tpu_torch.ops.gqa_decode import gqa_decode_attention
+
+            return gqa_decode_attention(
+                q, kv_pages, kv_lens, page_indices, sinks, sm_scale=sm_scale,
+                sliding_window=sliding_window,
+            )
+        from parallax_tpu_torch.ops.prefill_fused import gqa_prefill_attend
+
+        return gqa_prefill_attend(
+            q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, sinks,
+            sm_scale=sm_scale, sliding_window=sliding_window,
+            soft_cap=soft_cap,
+        )
     return paged_attention_plain(
         q, kv_pages, kv_lens, page_indices, cu_q_lens,
         sm_scale=sm_scale, sliding_window=sliding_window, soft_cap=soft_cap,

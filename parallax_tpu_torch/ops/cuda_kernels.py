@@ -32,9 +32,9 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-lineinfo",
 ]
 
-KERNELS = ("kv_append", "gqa_prefill", "gqa_decode", "sample_topk",
-           "grouped_gemm", "mla_decode", "mla_attend", "indexer_fused",
-           "indexer_scores")
+KERNELS = ("kv_append", "gqa_prefill", "gqa_decode", "gqa_attend",
+           "sample_topk", "grouped_gemm", "mla_decode", "mla_attend",
+           "indexer_fused", "indexer_scores")
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib = None
@@ -59,6 +59,10 @@ _SIGNATURES = {
     # dtype, stream
     "pk_gqa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _L, _I, _F, _F, _I, _P],
+    # q, cache, out, kv_lens, page_indices, sinks,
+    # s, hq, hkv, d, page, pps, window, sm_scale, dtype, stream
+    "pk_gqa_attend": [_P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # logits, gumbel, temperature, top_k, out, s, v, stream
     "pk_sample_topk": [_P, _P, _P, _P, _P, _I, _I, _P],
     # lhs, rhs, group_offsets, out, m, n, k, e, stream

@@ -82,6 +82,23 @@ def check_attention_shapes(name, q, kv_pages, sinks) -> tuple[int, int, int]:
     return hq, hkv, d
 
 
+def check_decode_args(name, q, kv_pages, kv_lens, page_indices,
+                      sinks) -> tuple[int, int, int]:
+    """The checks shared by the two decode kernels (A2, A9; grid (S, Hkv),
+    one query token per row); returns ``(hq, hkv, d)``."""
+    hq, hkv, d = check_attention_shapes(name, q, kv_pages, sinks)
+    s = q.shape[0]
+    if kv_lens.dtype != torch.int32 or kv_lens.shape != (s,):
+        raise ValueError(f"{name}: kv_lens must be i32[{s}]")
+    if page_indices.dtype != torch.int32 or page_indices.shape[0] != s:
+        raise ValueError(f"{name}: page_indices must be i32[S, pps]")
+    maxr = 16 if hq // hkv <= 16 else 64
+    if smem_bytes(hq // hkv, maxr, d, kv_pages.shape[1],
+                  kv_pages.element_size()) > SMEM_LIMIT:
+        raise ValueError(f"{name}: page size {kv_pages.shape[1]} too large")
+    return hq, hkv, d
+
+
 def smem_bytes(rows: int, maxr: int, d: int, page: int, elem: int) -> int:
     """Dynamic shared memory of the streaming core (csrc/attend.cuh)."""
     def a16(n):
@@ -116,21 +133,16 @@ def gqa_fused_decode(
         )
     from parallax_tpu_torch.ops import cuda_kernels as ck
 
-    hq, hkv, d = check_attention_shapes("gqa_decode", q, kv_pages, sinks)
+    hq, hkv, d = check_decode_args("gqa_decode", q, kv_pages, kv_lens,
+                                   page_indices, sinks)
     s = q.shape[0]
     num_pages, page, _, _ = kv_pages.shape
     k_new = k_new.to(kv_pages.dtype).contiguous()
     v_new = v_new.to(kv_pages.dtype).contiguous()
     if k_new.shape != (s, hkv, d) or v_new.shape != (s, hkv, d):
         raise ValueError("gqa_decode: k_new/v_new must be [S, Hkv, D]")
-    for name, t in (("kv_lens", kv_lens), ("slot_mapping", slot_mapping)):
-        if t.dtype != torch.int32 or t.shape != (s,):
-            raise ValueError(f"gqa_decode: {name} must be i32[{s}]")
-    if page_indices.dtype != torch.int32 or page_indices.shape[0] != s:
-        raise ValueError("gqa_decode: page_indices must be i32[S, pps]")
-    maxr = 16 if hq // hkv <= 16 else 64
-    if smem_bytes(hq // hkv, maxr, d, page, kv_pages.element_size()) > SMEM_LIMIT:
-        raise ValueError(f"gqa_decode: page size {page} too large")
+    if slot_mapping.dtype != torch.int32 or slot_mapping.shape != (s,):
+        raise ValueError(f"gqa_decode: slot_mapping must be i32[{s}]")
     tensors = [q, k_new, v_new, kv_pages, kv_lens, page_indices, slot_mapping]
     if sinks is not None:
         tensors.append(sinks)

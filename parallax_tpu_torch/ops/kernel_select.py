@@ -3,14 +3,16 @@
 - ``cuda_available()`` — is there a CUDA device of compute capability 9.0
   (Hopper, the only target the ``sm_90a`` kernels are built for)?
 - ``resolve_decode_fused(flag, device)`` / ``resolve_prefill_fused`` — the
-  engine-level choice between the hand-written CUDA kernels and the split
-  plain-PyTorch path, with the JAX package's tri-state:
-  ``None`` = kernels when the engine's device is CUDA; ``True`` = kernels,
-  and an error on a CPU device; ``False`` = the split plain-PyTorch path.
+  engine-level choice between the fused CUDA kernels and the split path,
+  with the JAX package's tri-state: ``None`` = fused kernels when the
+  engine's device is CUDA; ``True`` = fused kernels, and an error on a CPU
+  device; ``False`` = the split path.
   There is no silent downgrade: a CUDA device that is not Hopper raises.
-- ``resolve_use_kernels(flag, device)`` — the per-op choice of a split
-  kernel (the JAX package's ``resolve_use_pallas``): an explicit flag wins,
-  ``None`` means kernels when the op's tensors are on CUDA.
+- ``resolve_use_kernels(flag, device)`` — the split path's per-op choice
+  between its kernels and plain PyTorch (the JAX package's
+  ``resolve_use_pallas``): an explicit flag wins, ``None`` means kernels
+  when the op's tensors are on CUDA. ``False`` is the only way to get the
+  plain split path on the card.
 
 The impl labels are the canonical names in ``kernel_dispatch_summary()``.
 """
@@ -78,14 +80,17 @@ def resolve_use_kernels(flag: bool | None, device) -> bool:
     return bool(flag)
 
 
-def attn_impl(fused: bool) -> str:
-    """The canonical impl label for a stage's decode or prefill path."""
-    return IMPL_FUSED if fused else IMPL_TORCH
-
-
-def decode_attn_impl(fused: bool, split_kernels: bool) -> str:
-    """The decode label: the fused kernels, a split decode kernel (models
-    that have one, with kernels on), or the plain PyTorch path."""
+def decode_attn_impl(fused: bool, use_kernels: bool | None, device) -> str:
+    """The canonical impl label for a stage's decode attention path: the
+    fused kernels, the split kernels (``use_kernels`` resolved against the
+    engine's device), or the plain PyTorch path."""
     if fused:
         return IMPL_FUSED
-    return IMPL_SPLIT if split_kernels else IMPL_TORCH
+    if resolve_use_kernels(use_kernels, device):
+        return IMPL_SPLIT
+    return IMPL_TORCH
+
+
+def prefill_attn_impl(fused: bool, use_kernels: bool | None, device) -> str:
+    """The canonical impl label for a stage's prefill attention path."""
+    return decode_attn_impl(fused, use_kernels, device)

@@ -214,17 +214,21 @@ class StageEngine:
         if is_mla:
             self._prefill_fused = False
         # Models with a decode-specialized split kernel (MLA: A6; the DSA
-        # indexer: A8) mark one-token batches decode_only even when fused
-        # decode is off, so the split path reaches those kernels; fused
-        # decode marks them for every model.
-        self._use_decode_flag = is_mla or self._decode_fused
-        self._attn_impl = kernel_select.decode_attn_impl(
-            self._decode_fused,
-            self._use_decode_flag and kernel_select.resolve_use_kernels(
-                model.use_kernels, self.device
-            ),
+        # indexer: A8; sinks: A9) mark one-token batches decode_only even
+        # when fused decode is off, as the JAX package does
+        # (``is_mla or msa or use_attention_sinks``); fused decode marks
+        # them for every model.
+        cfg_m = model.config
+        self._use_decode_flag = (
+            is_mla or cfg_m.msa is not None or cfg_m.use_attention_sinks
+            or self._decode_fused
         )
-        self._prefill_impl = kernel_select.attn_impl(self._prefill_fused)
+        self._attn_impl = kernel_select.decode_attn_impl(
+            self._decode_fused, model.use_kernels, self.device
+        )
+        self._prefill_impl = kernel_select.prefill_attn_impl(
+            self._prefill_fused, model.use_kernels, self.device
+        )
         self._kernel_counts: dict[tuple[str, str], int] = {}
         self._step_count = 0
         # Non-head stages: hidden rows waiting per request id (tensors on

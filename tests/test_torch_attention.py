@@ -227,3 +227,149 @@ def test_split_path_matches_xla_reference(q_lens, cached, hq, hkv,
     np.testing.assert_array_equal(cache.numpy(), np.asarray(cache_j))
     t = c["t"]
     np.testing.assert_allclose(out.numpy()[:t], np.asarray(ref)[:t], **TOL)
+
+
+# ---------------------------------------------------------------------------
+# The split path's kernels: K6 (sinks decode) and K9's route (A1 attend-only).
+# ---------------------------------------------------------------------------
+
+K6_LENS = np.array([5, 17, 48, 0, 1, 13], np.int32)   # 48: page-exact
+
+
+def _k6_case(sinks_on, seed=1):
+    rng = np.random.default_rng(seed)
+    hq, hkv, d, s, pps = 6, 2, 16, len(K6_LENS), 6
+    pages = np.zeros((s, pps), np.int32)
+    used = 1
+    for i, n in enumerate(K6_LENS):
+        npg = (int(n) + PAGE - 1) // PAGE
+        pages[i, :npg] = np.arange(used, used + npg)
+        used += npg
+    f = np.float32
+    return dict(
+        q=rng.standard_normal((s, hq, d)).astype(f),
+        cache=rng.standard_normal((used, PAGE, 2 * hkv, d)).astype(f),
+        lens=K6_LENS.copy(), pages=pages,
+        sinks=rng.standard_normal((hq,)).astype(f) if sinks_on else None,
+    ), d
+
+
+@pytest.mark.parametrize("window", [None, 5, 11],
+                         ids=["full", "window-in-page", "window-spans-pages"])
+@pytest.mark.parametrize("sinks_on", [True, False], ids=["sinks", "no-sinks"])
+def test_split_decode_plain_matches_pallas_kernel(sinks_on, window):
+    """K6's plain version (what A9's wrapper runs on CPU tensors) against
+    ``gqa_decode_attention_pallas`` in interpret mode: kv_len 0 and 1 rows,
+    contexts ending mid-page and page-exact, G = 3; f32 within 1e-5."""
+    from parallax_tpu.ops.attention_pallas import gqa_decode_attention_pallas
+    from parallax_tpu_torch.ops.gqa_decode import gqa_decode_attention
+
+    c, d = _k6_case(sinks_on)
+    kw = dict(sm_scale=d ** -0.5, sliding_window=window)
+    ref = gqa_decode_attention_pallas(
+        jnp.asarray(c["q"]), jnp.asarray(c["cache"]), jnp.asarray(c["lens"]),
+        jnp.asarray(c["pages"]),
+        None if c["sinks"] is None else jnp.asarray(c["sinks"]),
+        use_sinks=sinks_on, interpret=True, **kw,
+    )
+    out = gqa_decode_attention(
+        _t(c["q"]), _t(c["cache"]), _t(c["lens"]), _t(c["pages"]),
+        None if c["sinks"] is None else _t(c["sinks"]), **kw,
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+    assert np.all(out.numpy()[3] == 0.0)          # kv_len 0: exact zeros
+
+
+def _route_case(decode_only, sinks_on):
+    """A batch of 3 rows: one token each (decode-shaped) or a ragged
+    prefill over cached prefixes; the step's K/V already scattered."""
+    q_lens = [1, 1, 1] if decode_only else [9, 1, 6]
+    c = _prefill_case(q_lens, [12, 3, 0], 4, 2, 16, sinks_on, seed=3)
+    cache = j_scatter(jnp.asarray(c["cache"]), jnp.asarray(c["k"]),
+                      jnp.asarray(c["v"]), jnp.asarray(c["slots"]))
+    c["cache"] = np.asarray(cache)
+    if decode_only:      # exactly one token per row, no bucket padding
+        for k in ("q", "k", "v", "slots"):
+            c[k] = c[k][:3]
+    return c
+
+
+@pytest.mark.parametrize("use_kernels", [None, False, True])
+@pytest.mark.parametrize("decode_only", [True, False],
+                         ids=["decode-only", "multi-token"])
+@pytest.mark.parametrize("sinks_on", [True, False], ids=["sinks", "no-sinks"])
+def test_split_route_table(monkeypatch, sinks_on, decode_only, use_kernels):
+    """``ragged_paged_attention``'s branches, as
+    ``parallax_tpu/ops/attention.py:175-239`` takes them: with kernels on,
+    sinks + decode-only go to the split decode kernel (K6 -> A9) without
+    the soft cap, everything else to A1 attend-only (K9's counterpart, and
+    the sinks prefill); with kernels off (``None`` on CPU tensors, or
+    ``False``), the plain path. Every branch gives the plain path's
+    numbers."""
+    from parallax_tpu_torch.ops import gqa_decode, prefill_fused
+    from parallax_tpu_torch.ops.attention import ragged_paged_attention
+
+    calls = []
+
+    def spy(module, name):
+        real = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            calls.append((name, sorted(kwargs)))
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, wrapped)
+
+    spy(gqa_decode, "gqa_decode_attention")
+    spy(prefill_fused, "gqa_prefill_attend")
+    c = _route_case(decode_only, sinks_on)
+    d = 16
+    args = _targs(c, ["q", "cache", "kv_lens", "pages", "cu", "nseq"])
+    kw = dict(sm_scale=d ** -0.5, sliding_window=5,
+              sinks=_targs(c, ["sinks"])[0])
+    out = ragged_paged_attention(*args, use_kernels=use_kernels,
+                                 decode_only=decode_only, **kw)
+    ref = ragged_paged_attention(*args, use_kernels=False,
+                                 decode_only=decode_only, **kw)
+    if not use_kernels:
+        want = []
+    elif sinks_on and decode_only:
+        want = [("gqa_decode_attention", ["sliding_window", "sm_scale"])]
+    else:
+        want = [("gqa_prefill_attend",
+                 ["sliding_window", "sm_scale", "soft_cap"])]
+    assert calls == want
+    t = c["t"]
+    np.testing.assert_allclose(out.numpy()[:t], ref.numpy()[:t], **TOL)
+    # A sinks decode-only flag on a batch that is not one token per row
+    # takes A1, as in the JAX package.
+    if use_kernels and sinks_on and not decode_only:
+        calls.clear()
+        ragged_paged_attention(*args, use_kernels=True, decode_only=True, **kw)
+        assert [n for n, _ in calls] == ["gqa_prefill_attend"]
+
+
+def test_prefill_attend_on_decode_steps_matches_xla():
+    """K9's route on a dense model's decode step: A1's plain version on a
+    one-token-per-row batch (cu_q_lens = arange, bucket padding past the
+    live rows, no sinks) against ``_ragged_paged_attention_xla``, real
+    tokens only (A1 writes zeros on the padding, the XLA path does not)."""
+    from parallax_tpu_torch.ops.prefill_fused import gqa_prefill_attend
+
+    c = _prefill_case([1] * 5, [40, 7, 0, 16, 23], 7, 1, 32, False, seed=5)
+    cache = j_scatter(jnp.asarray(c["cache"]), jnp.asarray(c["k"]),
+                      jnp.asarray(c["v"]), jnp.asarray(c["slots"]))
+    assert c["t"] == 5 and c["q"].shape[0] == 64
+    kw = dict(sm_scale=32 ** -0.5, sliding_window=None, soft_cap=None)
+    ref = _ragged_paged_attention_xla(
+        jnp.asarray(c["q"]), cache, jnp.asarray(c["kv_lens"]),
+        jnp.asarray(c["pages"]), jnp.asarray(c["cu"]),
+        jnp.asarray(c["nseq"]), sinks=None, **kw,
+    )
+    out = gqa_prefill_attend(
+        _t(c["q"]), _t(np.asarray(cache)),
+        *_targs(c, ["kv_lens", "pages", "cu", "nseq"]), None, **kw,
+    )
+    np.testing.assert_allclose(out.numpy()[:5], np.asarray(ref)[:5], **TOL)
+    assert np.all(out.numpy()[5:] == 0.0)

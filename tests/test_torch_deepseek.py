@@ -241,13 +241,13 @@ def test_registry_builds_deepseek_families_and_refuses_the_rest():
     mla_on_qwen = normalize_config(dict(TINY_V3, n_routed_experts=0,
                                         architectures=["Qwen3ForCausalLM"]))
     assert unported_features(mla_on_qwen) == ["MLA"]
-    # Still refused: sinks (gpt-oss), linear attention and MSA.
+    # Sinks run in the base block now (gpt-oss); still refused: linear
+    # attention and MSA.
     dense = dict(architectures=["Qwen3ForCausalLM"], hidden_size=32,
                  num_hidden_layers=1, num_attention_heads=2,
                  num_key_value_heads=1, intermediate_size=64, vocab_size=50)
-    with pytest.raises(NotImplementedError, match="attention sinks"):
-        create_stage_model(normalize_config(dict(dense, attention_sinks=True)),
-                           0, 1)
+    sinks = normalize_config(dict(dense, attention_sinks=True))
+    assert sinks.use_attention_sinks and unported_features(sinks) == []
     with pytest.raises(NotImplementedError, match="hybrid linear attention"):
         create_stage_model(normalize_config(dict(
             dense, linear_conv_kernel_dim=4)), 0, 1)

@@ -247,8 +247,11 @@ def test_unported_model_families_refused(weights):
     """The engine refuses a config it does not run even when the model was
     built without the registry's check."""
     _, _, full_np = weights
-    # gpt-oss: attention sinks are not ported yet.
-    sinks = normalize_config(dict(TINY_QWEN2, attention_sinks=True))
-    with pytest.raises(NotImplementedError, match="attention sinks"):
-        StageEngine(StageModel(sinks, 0, 4), params_from_numpy(full_np, "cpu"),
+    # MiniMax-M3: the MSA block indexer is not ported yet.
+    msa = normalize_config(dict(TINY_QWEN2,
+                                architectures=["MiniMaxM3ForCausalLM"],
+                                index_n_heads=2, index_head_dim=16))
+    assert msa.msa is not None
+    with pytest.raises(NotImplementedError, match="MSA"):
+        StageEngine(StageModel(msa, 0, 4), params_from_numpy(full_np, "cpu"),
                     EngineConfig(**ENGINE), device="cpu")

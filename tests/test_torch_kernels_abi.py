@@ -139,3 +139,40 @@ def test_mla_and_indexer_argument_checks():
         idx(page=48)
     with pytest.raises(ValueError, match="reduce_kind"):
         idx(kind="max")
+
+
+def test_split_decode_entry_and_argument_checks():
+    """A9 (``pk_gqa_attend``): one C entry beside A2's in gqa_decode.cu, one
+    counter, no append arguments and no soft cap (K6 takes none); its
+    wrapper refuses what the kernel does not take before any launch."""
+    import torch
+
+    from parallax_tpu_torch.ops.decode_fused import check_decode_args
+
+    entries = _c_entries()
+    assert "gqa_attend" in ck.LAUNCHES
+    assert entries["pk_gqa_attend"].count("float") == 1   # sm_scale only
+    assert entries["pk_gqa_attend"].count("long long") == 0
+    with open(os.path.join(ck.CSRC, "gqa_decode.cu")) as f:
+        head = f.read(2000)
+    assert "attention_pallas.py::gqa_decode_attention_pallas" in head
+    def check(q_dtype=torch.bfloat16, sinks_dtype=torch.float32, s=7,
+              page=64, lens_dtype=torch.int32):
+        q = torch.zeros((7, 64, 64), dtype=q_dtype)
+        cache = torch.zeros((4, page, 16, 64), dtype=torch.bfloat16)
+        return check_decode_args(
+            "gqa_attend", q, cache, torch.zeros(s, dtype=lens_dtype),
+            torch.zeros((7, 12), dtype=torch.int32),
+            torch.zeros(64, dtype=sinks_dtype))
+
+    assert check() == (64, 8, 64)
+    with pytest.raises(ValueError, match="sinks"):
+        check(sinks_dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        check(q_dtype=torch.float32)
+    with pytest.raises(ValueError, match="kv_lens"):
+        check(s=6)
+    with pytest.raises(ValueError, match="kv_lens"):
+        check(lens_dtype=torch.int64)
+    with pytest.raises(ValueError, match="page size"):
+        check(page=1024)

@@ -157,12 +157,16 @@ def test_params_from_numpy_bf16_bits_and_unported_models():
     assert out["b"].dtype == torch.float32
     assert params_from_numpy(tree, "cpu", torch.float32)["layers"][0][
         "w"].dtype == torch.float32
-    # gpt-oss (attention sinks, alternating windows) is not ported yet.
-    sinks = normalize_config(dict(
+    # gpt-oss (attention sinks, alternating windows) builds; MiniMax-M3
+    # (MSA) is not ported yet.
+    raw = dict(
         architectures=["GptOssForCausalLM"], hidden_size=32,
         num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
         head_dim=16, intermediate_size=64, vocab_size=50,
         num_local_experts=4, num_experts_per_tok=2, sliding_window=8,
-    ))
+    )
+    assert create_stage_model(normalize_config(raw), 0, 2).runs_moe
+    msa = normalize_config(dict(raw, architectures=["MiniMaxM3ForCausalLM"],
+                                index_n_heads=2, index_head_dim=16))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_stage_model(sinks, 0, 2)
+        create_stage_model(msa, 0, 2)
