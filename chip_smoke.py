@@ -28,11 +28,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                the fused one (A2) at gpt-oss-20b's decode shapes (7 rows,
                Hq 64, Hkv 8, D 64, random sinks, window 128 and none) plus a
                small float32 case (a kv_len 0 row, kv_len 1, mid-page ends,
-               windows shorter than and spanning a page); A1 attend-only at
-               the dense split path's decode shape (7 rows x 1 token). Then
-               it times each (CUDA events, median, L2 flushed) beside its
-               plain version, a PyTorch library call where one computes the
-               same function, and its bound.
+               windows shorter than and spanning a page) and the same in
+               bf16, and at contexts over several decode splits (up to
+               8,192 tokens, a window starting inside a split); A1
+               attend-only on the same rows as one-token sequences must give
+               A2's bits; A1's per-sequence tiles (one-token rows among long
+               chunks, a chunk of several tiles, bucket padding at exact
+               zeros); A1 attend-only at the dense split path's decode shape
+               (7 rows x 1 token). Then it times each (CUDA events, median,
+               L2 flushed) beside its plain version, a PyTorch library call
+               where one computes the same function, and its bound, and A2 /
+               A9 once more at 7 rows of 2,048-8,192 tokens.
 4. serve       a single-stage StageEngine on cuda:0 serving full-width,
                all-28-layer Qwen2.5-7B (random bf16 weights from a seeded
                torch.Generator on the card) to 8 concurrent requests, three
@@ -153,6 +159,8 @@ DEEPSEEK_LAYERS = 5
 # selects a sparse top-k on the card.
 DSA_LONG_PROMPT = 2400
 DSA_MAX_MODEL_LEN = 3072
+# Decode contexts over several splits (kernels phase), one past 4096.
+LONG_LENS = [8192, 4500, 300, 1, 0, 2049, 640]
 # The kernels of the dense GQA path (serve); the MoE path adds grouped_gemm.
 DENSE_KERNELS = ("kv_append", "gqa_prefill", "gqa_decode", "sample_topk")
 # Indexer scores: f32 sums of the same exact products, in another order.
@@ -182,15 +190,21 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, iters: int, flush=None) -> float:
+def time_ms(torch, fn, iters: int, flush=None, hide_host=False) -> float:
     """Median device time of ``fn`` over ``iters`` calls (CUDA events), with
-    the L2 cache flushed before each call when ``flush`` is given."""
+    the L2 cache flushed before each call when ``flush`` is given. The
+    interval also holds any time the device waits for the host to enqueue
+    the call; ``hide_host`` first queues a spin kernel (``_sleep``, about
+    0.5 ms) that keeps the device busy meanwhile, so the interval is the
+    call's device time alone."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        if hide_host:
+            torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -482,8 +496,14 @@ def phase_kernels(torch, dev) -> list[dict]:
         2 * t_real * hq * d * esz + ctx_tokens * 2 * hkv * d * esz,
         4 * hq * d * causal_pairs, "bfloat16",
     )
-    lib = time_ms(torch, _sdpa_prefill(torch, dict(pc, cache=cache), hq, hkv,
-                                       d, page), 30, flush)
+    sdpa_pre = _sdpa_prefill(torch, dict(pc, cache=cache), hq, hkv, d, page)
+    lib = time_ms(torch, sdpa_pre, 30, flush)
+    device_only = {
+        "gqa_prefill": time_ms(torch, lambda: gqa_prefill_attend(*args, **pkw),
+                               30, flush, hide_host=True),
+        "gqa_prefill_library": time_ms(torch, sdpa_pre, 30, flush,
+                                       hide_host=True),
+    }
     out.append(dict(
         name="gqa_prefill", route="cuda",
         source="parallax_tpu_torch/csrc/gqa_prefill.cu",
@@ -505,8 +525,13 @@ def phase_kernels(torch, dev) -> list[dict]:
         + 2 * len(dec_lens) * 2 * hkv * d * esz + ctx * 2 * hkv * d * esz,
         4 * hq * d * ctx, "bfloat16",
     )
-    lib = time_ms(torch, _sdpa_decode(torch, dict(dc, cache=cache_k), hq,
-                                      hkv, d, page), 50, flush)
+    sdpa_dec = _sdpa_decode(torch, dict(dc, cache=cache_k), hq, hkv, d, page)
+    lib = time_ms(torch, sdpa_dec, 50, flush)
+    device_only["gqa_decode"] = time_ms(
+        torch, lambda: gqa_fused_decode(*dargs, **dkw), 50, flush,
+        hide_host=True)
+    device_only["gqa_decode_library"] = time_ms(torch, sdpa_dec, 50, flush,
+                                                hide_host=True)
     out.append(dict(
         name="gqa_decode", route="cuda",
         source="parallax_tpu_torch/csrc/gqa_decode.cu",
@@ -533,7 +558,13 @@ def phase_kernels(torch, dev) -> list[dict]:
     kernels_grouped_gemm(torch, gen, dev, flush, model=DSV3_MODEL,
                          label="grouped_gemm_deepseek")
     out.extend(kernels_deepseek(torch, gen, dev, flush))
-    out.extend(kernels_split(torch, gen, dev, flush))
+    split_out, split_device_only = kernels_split(torch, gen, dev, flush)
+    out.extend(split_out)
+    emit({"phase": "kernels", "check": "device_only_ms",
+          "note": "time_ms(hide_host=True): the call's device time, a spin "
+                  "kernel covering the host's enqueue",
+          **device_only, **split_device_only})
+    emit(attention_breakdown(torch, gen, dev, flush))
     del flush
     assert set(k["name"] for k in out) == set(ck.KERNELS) | {"ragged_attend"}
     emit({"phase": "kernels", "timed": [
@@ -915,7 +946,9 @@ def check_split_decode(torch, gen, dev, dtype, hq, hkv, d, page, lens,
     """A9 (split decode, no append) against its plain version, and A2 (the
     fused decode) against its own at the same shapes, sinks and window: the
     cache after A2's append bitwise, kv_len 0 rows exactly zero, outputs
-    within BF16_TOL / F32_TOL; A9 on A2's cache gives A2's bits."""
+    within BF16_TOL / F32_TOL; A9 on A2's cache gives A2's bits, and so
+    does A1 attend-only on the same rows as one-token sequences (its decode
+    role: the same split partition, device function and combine)."""
     from parallax_tpu_torch.ops.decode_fused import (
         gqa_fused_decode,
         gqa_fused_decode_plain,
@@ -924,6 +957,7 @@ def check_split_decode(torch, gen, dev, dtype, hq, hkv, d, page, lens,
         gqa_decode_attention,
         gqa_decode_attention_plain,
     )
+    from parallax_tpu_torch.ops.prefill_fused import gqa_prefill_attend
 
     c = _decode_case(torch, gen, dev, dtype, hq, hkv, d, page, lens,
                      frozen=set())
@@ -942,6 +976,11 @@ def check_split_decode(torch, gen, dev, dtype, hq, hkv, d, page, lens,
                                  sinks, **kw)
     ref_9 = gqa_decode_attention_plain(c["q"], cache_p, c["lens"],
                                        c["pages"], sinks, **kw)
+    s = len(lens)
+    out_1 = gqa_prefill_attend(
+        c["q"], cache_k, c["lens"], c["pages"],
+        torch.arange(s + 1, dtype=torch.int32, device=dev),
+        torch.tensor([s], dtype=torch.int32, device=dev), sinks, **kw)
     torch.cuda.synchronize()
     if not torch.equal(cache_k, cache_p):
         raise AssertionError("gqa_decode: cache after the append differs")
@@ -951,6 +990,9 @@ def check_split_decode(torch, gen, dev, dtype, hq, hkv, d, page, lens,
         raise AssertionError("gqa_attend/gqa_decode: kv_len 0 rows not zero")
     if not torch.equal(out_9, out_2):
         raise AssertionError("gqa_attend on gqa_decode's cache differs")
+    if not torch.equal(out_1, out_2):
+        raise AssertionError("gqa_prefill's one-token rows on gqa_decode's "
+                             "cache differ from gqa_decode")
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     return (_close(torch, out_9, ref_9, tol), _close(torch, out_2, ref_2, tol),
             dict(c, cache=cache_k), kw)
@@ -1025,6 +1067,32 @@ def kernels_split(torch, gen, dev, flush) -> list[dict]:
     e9, _, *_ = check_split_decode(torch, gen, dev, f32, 6, 2, 64, 16, edge,
                                    None, None)
     errs["gqa_attend_f32_no_sinks"] = e9
+    # The same edge cases in bf16.
+    for window in (None, 5, 20):
+        e9, e2, *_ = check_split_decode(torch, gen, dev, bf16, 6, 2, 64, 16,
+                                        edge, window, sinks_s)
+        errs[f"gqa_attend_bf16_edge_window_{window}"] = e9
+        errs[f"gqa_decode_bf16_edge_window_{window}"] = e2
+    # Contexts over several splits (8192: 32 splits of 4 pages; 4500: 24 of
+    # 3), with kv_len 0 and 1; window 1000 starts inside a page of the first
+    # split (8192 - 1000 = 7192 = 112 pages + 24).
+    for label, window in (("full", None), ("window_1000", 1000)):
+        e9, e2, *_ = check_split_decode(torch, gen, dev, bf16, hq, hkv, d,
+                                        page, LONG_LENS, window, sinks)
+        errs[f"gqa_attend_bf16_long_{label}"] = e9
+        errs[f"gqa_decode_bf16_long_{label}"] = e2
+    # A1's per-sequence tiles: one-token rows among long chunks, a chunk of
+    # several tiles (300 tokens, 18 a tile at G = 7), bucket padding (489
+    # live tokens of 512), at the dense shape and at gpt-oss-20b's with
+    # sinks and its window.
+    for label, shape, window, tile_sinks in (
+        ("dense", (28, 4, 128), None, None),
+        ("gptoss_window", (hq, hkv, d), cfg.sliding_window, sinks),
+    ):
+        e1, _, *_ = check_prefill(torch, gen, dev, bf16, *shape, page,
+                                  [300, 1, 150, 1, 37], [0, 500, 64, 31, 0],
+                                  pps=16, window=window, sinks=tile_sinks)
+        errs[f"gqa_prefill_tiles_bf16_{label}"] = e1
     # A0 + A1 at gpt-oss-20b's prefill shapes: G = 8, D = 64, the sinks,
     # windowed and full layers, a ragged chunk over cached prefixes.
     for label, window in (("full", None), ("window", cfg.sliding_window)):
@@ -1056,7 +1124,8 @@ def kernels_split(torch, gen, dev, flush) -> list[dict]:
           "lens": lens, "window": cfg.sliding_window, "f32_edge_cases": edge,
           "max_abs_err": errs, "bf16_tol_atol_rtol": BF16_TOL,
           "f32_tol_atol_rtol": F32_TOL, "cache_bitwise_equal": True,
-          "a9_equals_a2": True})
+          "a9_equals_a2": True, "a1_one_token_rows_equal_a2": True,
+          "long_lens": LONG_LENS})
 
     out = []
     s, ctx, esz = len(lens), sum(lens), 2
@@ -1067,8 +1136,8 @@ def kernels_split(torch, gen, dev, flush) -> list[dict]:
     ms = time_ms(torch, lambda: gqa_decode_attention(*args, **kw), 50, flush)
     plain = time_ms(torch, lambda: gqa_decode_attention_plain(*args, **kw),
                     10, flush)
-    lib = time_ms(torch, _sdpa_sinks(torch, c, hq, hkv, d, page, sinks,
-                                     kw["sm_scale"]), 50, flush)
+    sdpa_9 = _sdpa_sinks(torch, c, hq, hkv, d, page, sinks, kw["sm_scale"])
+    lib = time_ms(torch, sdpa_9, 50, flush)
     b_ms, b_by = bound(2 * s * hq * d * esz + ctx * 2 * hkv * d * esz
                        + hq * 4, 4 * hq * d * ctx, "bfloat16")
     cw, kww = cases["window"]
@@ -1094,8 +1163,8 @@ def kernels_split(torch, gen, dev, flush) -> list[dict]:
         *rargs, use_kernels=False, **rkw), 10, flush)
     dc = dict(q=rc["q"][:7], cache=rc["cache"], lens=rc["kv_lens"],
               pages=rc["pages"])
-    lib_1 = time_ms(torch, _sdpa_decode(torch, dc, dhq, dhkv, dd, page), 50,
-                    flush)
+    sdpa_1 = _sdpa_decode(torch, dc, dhq, dhkv, dd, page)
+    lib_1 = time_ms(torch, sdpa_1, 50, flush)
     dctx = int(rc["kv_lens"].sum())
     b1_ms, b1_by = bound(2 * 7 * dhq * dd * esz + dctx * 2 * dhkv * dd * esz,
                          4 * dhq * dd * dctx, "bfloat16")
@@ -1117,7 +1186,133 @@ def kernels_split(torch, gen, dev, flush) -> list[dict]:
           "gqa_attend_window_ms": ms_w, "gqa_decode_at_gptoss_shape_ms": ms_2,
           "gqa_decode_at_dense_decode_shape_ms": ms_a2,
           "ragged_attend_ms": ms_1, "ragged_attend_library_ms": lib_1})
-    return out
+    device_only = {
+        "gqa_attend": time_ms(torch, lambda: gqa_decode_attention(*args, **kw),
+                              50, flush, hide_host=True),
+        "gqa_attend_library": time_ms(torch, sdpa_9, 50, flush,
+                                      hide_host=True),
+        "gqa_decode_at_gptoss_shape": time_ms(
+            torch, lambda: gqa_fused_decode(*dargs, **kw), 50, flush,
+            hide_host=True),
+        "ragged_attend": time_ms(
+            torch, lambda: gqa_prefill_attend(*rargs, None, **rkw), 50, flush,
+            hide_host=True),
+        "ragged_attend_library": time_ms(torch, sdpa_1, 50, flush,
+                                         hide_host=True),
+    }
+    emit(long_context_timed(torch, gen, dev, flush, sinks))
+    return out, device_only
+
+
+def attention_breakdown(torch, gen, dev, flush) -> dict:
+    """Device microseconds per call of each launch of A1, A2 and A9 (split,
+    combine, tile kernels) under torch.profiler, 20 calls with the L2
+    flushed before each: A1 on the 749-token chunk and on the dense decode
+    shape, A2 on 8 rows and on 7 rows of 2,048-8,192 tokens, A9 at
+    gpt-oss-20b's decode shape."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from parallax_tpu_torch.ops.decode_fused import gqa_fused_decode
+    from parallax_tpu_torch.ops.gqa_decode import gqa_decode_attention
+    from parallax_tpu_torch.ops.kv_cache_ops import reshape_and_cache
+    from parallax_tpu_torch.ops.prefill_fused import gqa_prefill_attend
+
+    bf16, page = torch.bfloat16, 64
+
+    def a1(q_lens, cached):
+        c = _prefill_case(torch, gen, dev, bf16, 28, 4, 128, page, q_lens,
+                          cached, 1024 // page)
+        reshape_and_cache(c["cache"], c["k"], c["v"], c["slots"])
+        return lambda: gqa_prefill_attend(
+            c["q"], c["cache"], c["kv_lens"], c["pages"], c["cu"], c["nseq"],
+            None, sm_scale=128 ** -0.5)
+
+    def a2(lens):
+        c = _decode_case(torch, gen, dev, bf16, 28, 4, 128, page, lens, set())
+        return lambda: gqa_fused_decode(
+            c["q"], c["k"], c["v"], c["cache"], c["lens"], c["pages"],
+            c["slots"], None, sm_scale=128 ** -0.5)
+
+    sinks = torch.randn((64,), generator=gen, device=dev)
+    c9 = _decode_case(torch, gen, dev, bf16, 64, 8, 64, page,
+                      [292, 332, 482, 732, 544, 412, 672], set())
+    calls = {
+        "gqa_prefill": a1([256, 256, 200, 37], [0, 256, 192, 100]),
+        "ragged_attend": a1([1] * 7, [291, 331, 481, 731, 543, 411, 671]),
+        "gqa_decode": a2([700, 320, 0, 450, 129, 33, 511, 256]),
+        "gqa_decode_long": a2([2048, 3000, 4096, 5000, 6144, 7000, 8192]),
+        "gqa_attend": lambda: gqa_decode_attention(
+            c9["q"], c9["cache"], c9["lens"], c9["pages"], sinks,
+            sm_scale=64 ** -0.5),
+    }
+    line = {"phase": "kernels", "check": "attention_breakdown_us"}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for evt in prof.key_averages():
+            m = re.search(r"gqa_\w+_kernel", evt.key)
+            if m and evt.device_type == DeviceType.CUDA:
+                per[m.group(0)] = float(evt.self_device_time_total) / 20
+        if not per:
+            raise AssertionError(f"{name}: the profiler saw no kernel")
+        line[name] = per
+    return line
+
+
+def long_context_timed(torch, gen, dev, flush, sinks) -> dict:
+    """A2 at the dense shape and A9 at gpt-oss-20b's with 7 rows of
+    2,048-8,192 tokens, each beside its byte bound and SDPA (both timed as
+    the kernels line times, and device-only)."""
+    from parallax_tpu_torch.models.presets import get_preset
+    from parallax_tpu_torch.ops.decode_fused import gqa_fused_decode
+    from parallax_tpu_torch.ops.gqa_decode import gqa_decode_attention
+
+    lens = [2048, 3000, 4096, 5000, 6144, 7000, 8192]
+    ctx, s, page, esz = sum(lens), len(lens), 64, 2
+    line = {"phase": "kernels", "check": "long_context_timed", "lens": lens}
+    for name, model in (("gqa_decode", DENSE_MODEL),
+                        ("gqa_attend", GPTOSS_MODEL)):
+        cfg = get_preset(model)
+        hq, hkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                      cfg.head_dim)
+        c = _decode_case(torch, gen, dev, torch.bfloat16, hq, hkv, d, page,
+                         lens, frozen=set())
+        if name == "gqa_decode":
+            def call():
+                gqa_fused_decode(c["q"], c["k"], c["v"], c["cache"],
+                                 c["lens"], c["pages"], c["slots"], None,
+                                 sm_scale=d ** -0.5)
+            sdpa = _sdpa_decode(torch, c, hq, hkv, d, page)
+            extra = 2 * s * hkv * d * esz
+        else:
+            def call():
+                gqa_decode_attention(c["q"], c["cache"], c["lens"],
+                                     c["pages"], sinks, sm_scale=d ** -0.5)
+            sdpa = _sdpa_sinks(torch, c, hq, hkv, d, page, sinks, d ** -0.5)
+            extra = hq * 4
+        b_ms, b_by = bound(2 * s * hq * d * esz + extra
+                           + ctx * 2 * hkv * d * esz, 4 * hq * d * ctx,
+                           "bfloat16")
+        line.update({
+            f"{name}_ms": time_ms(torch, call, 30, flush),
+            f"{name}_bound_ms": b_ms, f"{name}_bound_by": b_by,
+            f"{name}_library_ms": time_ms(torch, sdpa, 30, flush),
+            f"{name}_device_only_ms": time_ms(torch, call, 30, flush,
+                                              hide_host=True),
+            f"{name}_library_device_only_ms": time_ms(torch, sdpa, 30, flush,
+                                                      hide_host=True),
+        })
+        del c, sdpa
+    return line
 
 
 def _dense_kv(torch, pages_row, n, cache, hkv, d, page):
@@ -1433,6 +1628,9 @@ def phase_pipeline(torch, dev, cfg, model_full, params, single, sampled):
 
 
 def _kernel_group(name: str) -> str:
+    # By kernel name: A2 / A9's split and combine launches
+    # (gqa_decode_{split,combine}_kernel) fall under gqa_decode, A1's three
+    # (gqa_prefill_{tile,split,combine}_kernel) under gqa_prefill.
     for key, group in (("gqa_decode", "gqa_decode"),
                        ("gqa_prefill", "gqa_prefill"),
                        ("kv_append", "kv_append"),

@@ -6,135 +6,120 @@
 // parallax_tpu/ops/attention_pallas.py::gqa_decode_attention_pallas (:130,
 // kernel :40), the split path's sink decode, with A9.
 // Bound on the H100: bytes. A decode step reads each row's valid pages of
-// K and V once per KV head and does only G * D multiply-adds per key.
-// Design: grid (S, Hkv); block (s, h) streams row s's valid pages of head h
-// through the shared core in attend.cuh. A2's block first writes row s's
-// new K and V of head h into its slot (skipped for slot < 0), then
-// __syncthreads(), so the new token attends to itself. The TPU program
-// reads its appended row back through the aliased cache; here the barrier
-// gives the same visibility inside the block, and no other block touches
-// that head of that slot in the launch (a row's tail slot is private to
-// the row). A9 has no append and no barrier before its pages: the split
-// path scattered the step's K/V before the launch. The TPU split kernel
-// visits every page slot of the row on a (S, pages_per_seq) grid and masks;
-// A9 visits only the valid ones, which gives the same sums (a skipped page
-// would fold in nothing). The first page is max(kv_len - W, 0) / page under
-// a sliding window. Sinks seed the running max and denominator. Rows with
-// kv_len = 0 (bucket padding) write zeros. A9 takes no soft cap, as K6.
+// K and V once per KV head and does only G * D multiply-adds per key; at 7
+// rows and contexts of a few hundred tokens the bytes take 2 us, so what
+// bounds the kernel in practice is latency: how many blocks stream pages
+// at once, and whether each keeps a copy in flight while it computes.
+// Design: split-KV (flash-decoding) over the core in attend.cuh. Grid
+// (S, Hkv, splits): block (s, h, k) streams split k of row s's valid pages
+// of head h (split_range: runs of at least kSplitKeys keys, at most
+// kMaxSplits of them, from the window's first page max(kv_len - W, 0) /
+// page) through a two-stage cp.async ring, with the G query heads as the
+// M of bf16 m16n8k16 tensor-core tiles (padded to 16 or 32 rows) for both
+// Q K^T and P V, four warps dividing each 64-key tile. It writes the
+// split's partial (m, l, o) to f32 scratch; a second launch on the same
+// stream, grid (S, Hq), merges each row's splits per query head in split
+// order, the sink folded in once, and writes o / l (zeros for kv_len = 0).
+// Blocks past a row's last split exit. A2's append is done by the split that owns the row's
+// last page: it writes row s's new K and V of head h into the slot
+// (skipped for slot < 0), reaches a barrier, then reads the page; no other
+// split reads that slot, and no other block writes it (a row's tail slot
+// is private to the row). A9 has no append: the split path scattered the
+// step's K/V before the launch. A9 takes no soft cap, as K6. The TPU split
+// kernel visits every page slot of the row on a (S, pages_per_seq) grid and
+// masks; A9 visits only the valid ones, which gives the same sums.
 
 #include "attend.cuh"
 
 namespace {
 
-template <typename T, int MAXR, bool kAppend>
-__global__ void __launch_bounds__(256)
-    gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
-                      const T* __restrict__ v_new, T* cache, T* out,
-                      const int* __restrict__ kv_lens,
-                      const int* __restrict__ page_indices,
-                      const int* __restrict__ slots,
-                      const float* __restrict__ sinks, int pps,
-                      long long total_slots, pk::AttendParams ap) {
+struct DecodeArgs {
+  const void* q;
+  const void* k_new;
+  const void* v_new;
+  void* cache;
+  void* out;
+  const int* kv_lens;
+  const int* page_indices;
+  const int* slots;
+  const float* sinks;
+  float* scratch;
+  int s, num_splits;
+  long long total_slots;
+  pk::AttnParams ap;
+};
+
+template <typename T, int D, int MT, bool kAppend>
+__global__ void __launch_bounds__(pk::kDecodeThreads)
+    gqa_decode_split_kernel(const DecodeArgs a) {
   extern __shared__ __align__(16) char smem[];
   const int s = blockIdx.x;
-  const int h = blockIdx.y;
-  if constexpr (kAppend) {
-    const int slot = slots[s];
-    if (slot >= 0 && slot < total_slots) {
-      T* dst = cache + (long long)slot * 2 * ap.hkv * ap.d + 2LL * h * ap.d;
-      const long long src = ((long long)s * ap.hkv + h) * ap.d;
-      for (int i = threadIdx.x; i < ap.d; i += blockDim.x) {
-        dst[i] = k_new[src + i];
-        dst[ap.d + i] = v_new[src + i];
-      }
-    }
-    __syncthreads();  // the append is visible to this block's page loads
-  }
-  pk::AttendSmem sm = pk::attend_carve<T>(smem, ap.g, MAXR, ap.d, ap.page);
-  float acc[MAXR];
-  pk::attend_init<T, MAXR>(sm, q, sinks, s, 1, h, ap, acc);
-  pk::attend_fold_seq<T, MAXR>(sm, cache, page_indices + (long long)s * pps,
-                               s, 1, s, s + 1, kv_lens[s], h, ap, acc);
-  pk::attend_finish<T, MAXR>(sm, out, s, 1, s + 1, h, ap, acc);
+  pk::decode_split<T, D, MT, kAppend>(
+      smem, static_cast<const T*>(a.q), s, static_cast<const T*>(a.k_new),
+      static_cast<const T*>(a.v_new), kAppend ? a.slots[s] : -1,
+      a.total_slots, static_cast<T*>(a.cache),
+      a.page_indices + (long long)s * a.ap.pps, a.kv_lens[s], s, blockIdx.y,
+      blockIdx.z, a.num_splits, a.scratch, a.ap);
 }
 
-template <typename T, int MAXR, bool kAppend>
-int launch(const void* q, const void* k_new, const void* v_new, void* cache,
-           void* out, const void* kv_lens, const void* page_indices,
-           const void* slots, const void* sinks, int s, int pps,
-           long long total_slots, const pk::AttendParams& ap,
-           cudaStream_t st) {
-  const int threads = max(64, (ap.d + 31) / 32 * 32);
-  const size_t smem = pk::attend_smem_bytes<T>(ap.g, MAXR, ap.d, ap.page);
-  auto kern = gqa_decode_kernel<T, MAXR, kAppend>;
-  cudaError_t err = pk::allow_smem(kern, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(s, ap.hkv);
-  kern<<<grid, threads, smem, st>>>(
-      (const T*)q, (const T*)k_new, (const T*)v_new, (T*)cache, (T*)out,
-      (const int*)kv_lens, (const int*)page_indices, (const int*)slots,
-      (const float*)sinks, pps, total_slots, ap);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, bool kAppend>
-int launch_g(const void* q, const void* k_new, const void* v_new,
-             void* cache, void* out, const void* kv_lens,
-             const void* page_indices, const void* slots, const void* sinks,
-             int s, int pps, long long total_slots,
-             const pk::AttendParams& ap, cudaStream_t st) {
-  if (ap.g <= 16) {
-    return launch<T, 16, kAppend>(q, k_new, v_new, cache, out, kv_lens,
-                                  page_indices, slots, sinks, s, pps,
-                                  total_slots, ap, st);
-  }
-  return launch<T, 64, kAppend>(q, k_new, v_new, cache, out, kv_lens,
-                                page_indices, slots, sinks, s, pps,
-                                total_slots, ap, st);
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+    gqa_decode_combine_kernel(const DecodeArgs a) {
+  const int s = blockIdx.x;
+  pk::combine_head<T, D>(a.scratch, a.sinks, static_cast<T*>(a.out), s,
+                         a.kv_lens[s], s, blockIdx.y, a.num_splits, a.ap);
 }
 
 template <bool kAppend>
-int launch_t(const void* q, const void* k_new, const void* v_new,
-             void* cache, void* out, const void* kv_lens,
-             const void* page_indices, const void* slots, const void* sinks,
-             int s, int pps, long long total_slots,
-             const pk::AttendParams& ap, int dtype, cudaStream_t st) {
-  if (dtype == pk::kBF16) {
-    return launch_g<__nv_bfloat16, kAppend>(q, k_new, v_new, cache, out,
-                                            kv_lens, page_indices, slots,
-                                            sinks, s, pps, total_slots, ap,
-                                            st);
+struct Launch {
+  template <typename T, int D, int MT>
+  static int run(const DecodeArgs& a, cudaStream_t st) {
+    const size_t smem = pk::attn_smem_bytes<T, D>(16 * MT);
+    auto split = gqa_decode_split_kernel<T, D, MT, kAppend>;
+    cudaError_t err = pk::allow_smem(split, smem);
+    if (err != cudaSuccess) return (int)err;
+    split<<<dim3(a.s, a.ap.hkv, a.num_splits), pk::kDecodeThreads, smem,
+            st>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    gqa_decode_combine_kernel<T, D><<<dim3(a.s, a.ap.hq), D, 0, st>>>(a);
+    return (int)cudaGetLastError();
   }
-  return launch_g<float, kAppend>(q, k_new, v_new, cache, out, kv_lens,
-                                  page_indices, slots, sinks, s, pps,
-                                  total_slots, ap, st);
-}
+};
 
 }  // namespace
 
 extern "C" int pk_gqa_decode(const void* q, const void* k_new,
                              const void* v_new, void* cache, void* out,
                              const void* kv_lens, const void* page_indices,
-                             const void* slots, const void* sinks, int s,
-                             int hq, int hkv, int d, int page, int pps,
+                             const void* slots, const void* sinks,
+                             void* scratch, int s, int hq, int hkv, int d,
+                             int page, int pps, int num_splits,
                              long long total_slots, int window,
                              float sm_scale, float soft_cap, int dtype,
                              void* stream) {
   if (s <= 0) return 0;
-  pk::AttendParams ap{hq, hkv, hq / hkv, d, page, window, sm_scale, soft_cap};
-  return launch_t<true>(q, k_new, v_new, cache, out, kv_lens, page_indices,
-                        slots, sinks, s, pps, total_slots, ap, dtype,
-                        (cudaStream_t)stream);
+  const DecodeArgs a{q, k_new, v_new, cache, out,
+                     (const int*)kv_lens, (const int*)page_indices,
+                     (const int*)slots, (const float*)sinks, (float*)scratch,
+                     s, num_splits, total_slots,
+                     {hq, hkv, hq / hkv, page, pps, window, sm_scale,
+                      soft_cap}};
+  return pk::dispatch_attn<Launch<true>>(dtype, d, hq / hkv, a,
+                                         (cudaStream_t)stream);
 }
 
 extern "C" int pk_gqa_attend(const void* q, const void* cache, void* out,
                              const void* kv_lens, const void* page_indices,
-                             const void* sinks, int s, int hq, int hkv, int d,
-                             int page, int pps, int window, float sm_scale,
+                             const void* sinks, void* scratch, int s, int hq,
+                             int hkv, int d, int page, int pps,
+                             int num_splits, int window, float sm_scale,
                              int dtype, void* stream) {
   if (s <= 0) return 0;
-  pk::AttendParams ap{hq, hkv, hq / hkv, d, page, window, sm_scale, 0.f};
-  return launch_t<false>(q, nullptr, nullptr, const_cast<void*>(cache), out,
-                         kv_lens, page_indices, nullptr, sinks, s, pps, 0,
-                         ap, dtype, (cudaStream_t)stream);
+  const DecodeArgs a{q, nullptr, nullptr, const_cast<void*>(cache), out,
+                     (const int*)kv_lens, (const int*)page_indices, nullptr,
+                     (const float*)sinks, (float*)scratch, s, num_splits, 0,
+                     {hq, hkv, hq / hkv, page, pps, window, sm_scale, 0.f}};
+  return pk::dispatch_attn<Launch<false>>(dtype, d, hq / hkv, a,
+                                          (cudaStream_t)stream);
 }

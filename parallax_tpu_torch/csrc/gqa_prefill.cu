@@ -1,110 +1,143 @@
 // A1 gqa_prefill: ragged chunked-prefill GQA flash attention over the paged
 // cache, attend-only (the chunk's K/V were appended by kv_append.cu, which
-// the wrapper launches first on the same stream).
+// the wrapper launches first on the same stream). Also the split path's
+// ragged attention for every batch without sinks (K9's route), decode
+// steps included.
 //
 // Replaces: parallax_tpu/ops/prefill_fused_pallas.py::gqa_fused_prefill_pallas
 // (its attention part; its in-kernel append is kv_append.cu).
 // Bound on the H100: bytes at the shapes the engine gives it (Hq = 28,
-// Hkv = 4, D = 128, bf16 cache): each (query tile, KV head) block reads its
-// sequences' valid pages once and does G * tile * D multiply-adds per key.
-// Design: grid (ceil(T / tile), Hkv), tile = 64 / G query tokens so a block
-// holds at most 64 (token, head) rows in registers. A block finds the
-// sequences its tokens belong to by binary search over cu_q_lens, then
-// streams for each one the pages [lo_page, ceil((qmax + 1) / page)) with
-// lo_page = max(qmin - W + 1, 0) / page under a sliding window, through the
-// shared core in attend.cuh. kv_lens carries each row's FULL context
-// (cached prefix + this chunk), so prefix-cache hits and chunked prefill
-// need no special case. Tokens at or past cu_q_lens[num_seqs] (bucket
-// padding) get exact zeros.
+// Hkv = 4, D = 128, bf16 cache): a tile reads its sequence's causal
+// context once per KV head for all G heads of the group; a 749-token chunk
+// over cached prefixes is 3.6 GFLOP against 13 MB. On one-token rows it is
+// a decode step, bound by latency as gqa_decode.cu says.
+// Design: per-sequence tiles, no tile straddles two sequences. Three
+// launches on one stream, no host sync:
+// 1. Multi-token tiles, grid (tile bound, Hkv). A tile is up to kTileRows
+//    (token, head) rows of one sequence (q_tile = kTileRows / G tokens),
+//    eight warps of 16 rows, with bf16 m16n8k16 tensor-core products for
+//    Q K^T and P V and the online softmax in registers, over pages streamed
+//    through a two-stage cp.async ring (attend.cuh). Each block finds its
+//    (sequence, tile) from cu_q_lens / num_seqs on the device: warp 0
+//    prefix-sums the sequences' tile counts with one shuffle scan. The
+//    grid is the static bound (t + (min(S, t / 2) + 1) (q_tile - 1)) /
+//    q_tile; surplus blocks exit. The bucket padding [cu[num_seqs], t) is
+//    one more entry whose tiles write exact zeros. Pages visited: [lo,
+//    ceil((qmax + 1) / page)) with lo = max(qmin - W + 1, 0) / page under a
+//    sliding window; a warp skips a page tile that starts past its rows.
+// 2. One-token sequences take the decode role: grid (S, Hkv, splits) over
+//    the same decode_split device function, split partition and scratch
+//    layout as A2 / A9 (gqa_decode.cu), so a decode row through A1 gives
+//    A2's bits.
+// 3. The same combine as A2 / A9 for the one-token sequences.
+// kv_lens carries each row's FULL context (cached prefix + this chunk), so
+// prefix-cache hits and chunked prefill need no special case.
 
 #include "attend.cuh"
 
 namespace {
 
-// The sequence that owns token ``tok`` (< cu[nseq]): the largest s with
-// cu[s] <= tok, i.e. searchsorted(cu[1:], tok, side="right").
-__device__ inline int seq_of(const int* cu, int nseq, int tok) {
-  int lo = 0, hi = nseq - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (cu[mid] <= tok) {
-      lo = mid;
-    } else {
-      hi = mid - 1;
-    }
-  }
-  return lo;
-}
+struct PrefillArgs {
+  const void* q;
+  const void* cache;
+  void* out;
+  const int* kv_lens;
+  const int* page_indices;
+  const int* cu;
+  const int* num_seqs;
+  const float* sinks;
+  float* scratch;
+  int t, s, q_tile, num_splits;
+  pk::AttnParams ap;
+};
 
-template <typename T, int MAXR>
-__global__ void __launch_bounds__(256)
-    gqa_prefill_kernel(const T* __restrict__ q, const T* cache, T* out,
-                       const int* __restrict__ kv_lens,
-                       const int* __restrict__ page_indices,
-                       const int* __restrict__ cu,
-                       const int* __restrict__ num_seqs,
-                       const float* __restrict__ sinks, int t, int pps,
-                       int q_tile, pk::AttendParams ap) {
+// Two bf16 blocks fit an SM (104 KB of shared memory each at D = 128) when
+// each thread keeps to 128 registers; an f32 block takes 198 KB.
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * pk::kTileWarps, sizeof(T) == 2 ? 2 : 1)
+    gqa_prefill_tile_kernel(const PrefillArgs a) {
   extern __shared__ __align__(16) char smem[];
-  const int h = blockIdx.y;
-  const int tok0 = blockIdx.x * q_tile;
-  const int ntok = min(q_tile, t - tok0);
-  pk::AttendSmem sm =
-      pk::attend_carve<T>(smem, q_tile * ap.g, MAXR, ap.d, ap.page);
-  const int nseq = num_seqs[0];
-  const int live_end = nseq > 0 ? cu[nseq] : 0;
-  float acc[MAXR];
-  pk::attend_init<T, MAXR>(sm, q, sinks, tok0, ntok, h, ap, acc);
-  if (tok0 < live_end) {
-    const int s_lo = seq_of(cu, nseq, tok0);
-    const int s_hi = seq_of(cu, nseq, min(tok0 + ntok, live_end) - 1);
-    for (int s = s_lo; s <= s_hi; ++s) {
-      pk::attend_fold_seq<T, MAXR>(sm, cache,
-                                   page_indices + (long long)s * pps, tok0,
-                                   ntok, cu[s], cu[s + 1], kv_lens[s], h, ap,
-                                   acc);
-    }
-  }
-  pk::attend_finish<T, MAXR>(sm, out, tok0, ntok, live_end, h, ap, acc);
+  pk::prefill_tile<T, D>(smem, static_cast<const T*>(a.q),
+                         static_cast<const T*>(a.cache),
+                         static_cast<T*>(a.out), a.kv_lens, a.page_indices,
+                         a.cu, a.num_seqs[0], a.t, a.q_tile, a.sinks,
+                         blockIdx.x, blockIdx.y, a.ap);
 }
 
-template <typename T>
-int launch(const void* q, const void* cache, void* out, const void* kv_lens,
-           const void* page_indices, const void* cu, const void* num_seqs,
-           const void* sinks, int t, int pps, int q_tile,
-           const pk::AttendParams& ap, cudaStream_t st) {
-  constexpr int kMaxRows = 64;
-  const int threads = max(64, (ap.d + 31) / 32 * 32);
-  const size_t smem =
-      pk::attend_smem_bytes<T>(q_tile * ap.g, kMaxRows, ap.d, ap.page);
-  auto kern = gqa_prefill_kernel<T, kMaxRows>;
-  cudaError_t err = pk::allow_smem(kern, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((t + q_tile - 1) / q_tile, ap.hkv);
-  kern<<<grid, threads, smem, st>>>(
-      (const T*)q, (const T*)cache, (T*)out, (const int*)kv_lens,
-      (const int*)page_indices, (const int*)cu, (const int*)num_seqs,
-      (const float*)sinks, t, pps, q_tile, ap);
-  return (int)cudaGetLastError();
+// Sequence s's one token is cu[s]; sequences of other lengths exit.
+__device__ inline bool one_token(const PrefillArgs& a, int s) {
+  return s < a.num_seqs[0] && a.cu[s + 1] - a.cu[s] == 1;
 }
+
+template <typename T, int D, int MT>
+__global__ void __launch_bounds__(pk::kDecodeThreads)
+    gqa_prefill_split_kernel(const PrefillArgs a) {
+  extern __shared__ __align__(16) char smem[];
+  const int s = blockIdx.x;
+  if (!one_token(a, s)) return;
+  pk::decode_split<T, D, MT, false>(
+      smem, static_cast<const T*>(a.q), a.cu[s], nullptr, nullptr, -1, 0,
+      const_cast<T*>(static_cast<const T*>(a.cache)),
+      a.page_indices + (long long)s * a.ap.pps, a.kv_lens[s], s, blockIdx.y,
+      blockIdx.z, a.num_splits, a.scratch, a.ap);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+    gqa_prefill_combine_kernel(const PrefillArgs a) {
+  const int s = blockIdx.x;
+  if (!one_token(a, s)) return;
+  pk::combine_head<T, D>(a.scratch, a.sinks, static_cast<T*>(a.out),
+                         a.cu[s], a.kv_lens[s], s, blockIdx.y, a.num_splits,
+                         a.ap);
+}
+
+struct Launch {
+  template <typename T, int D, int MT>
+  static int run(const PrefillArgs& a, cudaStream_t st) {
+    // Every multi-token sequence, and the padding, wastes less than one
+    // tile; at most min(S, t / 2) sequences hold two tokens or more.
+    const long long multi = a.s < a.t / 2 ? a.s : a.t / 2;
+    const long long tiles =
+        ((long long)a.t + (multi + 1) * (a.q_tile - 1)) / a.q_tile;
+    const size_t tile_smem = pk::attn_smem_bytes<T, D>(pk::kTileRows);
+    auto tile = gqa_prefill_tile_kernel<T, D>;
+    cudaError_t err = pk::allow_smem(tile, tile_smem);
+    if (err != cudaSuccess) return (int)err;
+    tile<<<dim3((unsigned)tiles, a.ap.hkv), 32 * pk::kTileWarps,
+           tile_smem, st>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || a.s == 0) return (int)err;
+    const size_t split_smem = pk::attn_smem_bytes<T, D>(16 * MT);
+    auto split = gqa_prefill_split_kernel<T, D, MT>;
+    err = pk::allow_smem(split, split_smem);
+    if (err != cudaSuccess) return (int)err;
+    split<<<dim3(a.s, a.ap.hkv, a.num_splits), pk::kDecodeThreads,
+            split_smem, st>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    gqa_prefill_combine_kernel<T, D><<<dim3(a.s, a.ap.hq), D, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+};
 
 }  // namespace
 
 extern "C" int pk_gqa_prefill(const void* q, const void* cache, void* out,
                               const void* kv_lens, const void* page_indices,
                               const void* cu_q_lens, const void* num_seqs,
-                              const void* sinks, int t, int hq, int hkv,
-                              int d, int page, int pps, int q_tile,
-                              int window, float sm_scale, float soft_cap,
-                              int dtype, void* stream) {
+                              const void* sinks, void* scratch, int t, int s,
+                              int hq, int hkv, int d, int page, int pps,
+                              int q_tile, int num_splits, int window,
+                              float sm_scale, float soft_cap, int dtype,
+                              void* stream) {
   if (t <= 0) return 0;
-  pk::AttendParams ap{hq, hkv, hq / hkv, d, page, window, sm_scale, soft_cap};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == pk::kBF16) {
-    return launch<__nv_bfloat16>(q, cache, out, kv_lens, page_indices,
-                                 cu_q_lens, num_seqs, sinks, t, pps, q_tile,
-                                 ap, st);
-  }
-  return launch<float>(q, cache, out, kv_lens, page_indices, cu_q_lens,
-                       num_seqs, sinks, t, pps, q_tile, ap, st);
+  const PrefillArgs a{q, cache, out, (const int*)kv_lens,
+                      (const int*)page_indices, (const int*)cu_q_lens,
+                      (const int*)num_seqs, (const float*)sinks,
+                      (float*)scratch, t, s, q_tile, num_splits,
+                      {hq, hkv, hq / hkv, page, pps, window, sm_scale,
+                       soft_cap}};
+  return pk::dispatch_attn<Launch>(dtype, d, hq / hkv, a,
+                                   (cudaStream_t)stream);
 }

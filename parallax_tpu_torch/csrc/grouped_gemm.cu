@@ -46,32 +46,6 @@ constexpr int MT = WM / 16;     // m16 tiles per warp
 constexpr int NT = WN / 8;      // n8 tiles per warp
 constexpr int CHUNKS = BK / 8;  // 16-byte chunks per smem row
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  // src_bytes = 0 reads nothing and fills the 16 bytes with zeros.
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // The (group, first row, group end) of row tile ``tile``; false when the
 // tile is past the last one. Warp 0 gives each lane a run of consecutive
 // groups, sums their tile counts, and scans the sums across the warp; the
@@ -141,7 +115,7 @@ __global__ void __launch_bounds__(THREADS)
       const bool ok = row0 + r < row_end && k0 + kc < k;
       const __nv_bfloat16* src =
           ok ? lhs + (long long)(row0 + r) * k + k0 + kc : lhs;
-      cp_async16(As + (stage * BM + r) * LDS + kc, src, ok ? 16 : 0);
+      pk::cp_async16(As + (stage * BM + r) * LDS + kc, src, ok ? 16 : 0);
     }
     for (int c = threadIdx.x; c < BN * CHUNKS; c += THREADS) {
       const int r = c / CHUNKS;
@@ -149,7 +123,7 @@ __global__ void __launch_bounds__(THREADS)
       const bool ok = n0 + r < n && k0 + kc < k;
       const __nv_bfloat16* src =
           ok ? W + (long long)(n0 + r) * k + k0 + kc : W;
-      cp_async16(Bs + (stage * BN + r) * LDS + kc, src, ok ? 16 : 0);
+      pk::cp_async16(Bs + (stage * BN + r) * LDS + kc, src, ok ? 16 : 0);
     }
   };
 
@@ -165,7 +139,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < ktiles) load(s, s);
-    cp_async_commit();
+    pk::cp_async_commit();
   }
 
   const int warp = threadIdx.x >> 5;
@@ -179,11 +153,11 @@ __global__ void __launch_bounds__(THREADS)
   const bool active = row0 + wm < row_end && n0 + wn < n;
 
   for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
+    pk::cp_async_wait<STAGES - 2>();
     __syncthreads();
     const int nk = kt + STAGES - 1;
     if (nk < ktiles) load(nk % STAGES, nk);
-    cp_async_commit();
+    pk::cp_async_commit();
     if (!active) continue;
     const __nv_bfloat16* A = As + (kt % STAGES) * BM * LDS;
     const __nv_bfloat16* B = Bs + (kt % STAGES) * BN * LDS;
@@ -208,10 +182,10 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+        for (int j = 0; j < NT; ++j) pk::mma_bf16(acc[i][j], a[i], b[j]);
     }
   }
-  cp_async_wait<0>();
+  pk::cp_async_wait<0>();
   if (!active) return;
 
 #pragma unroll

@@ -50,19 +50,20 @@ _SIGNATURES = {
     # k, v, cache, slots, t, hkv, d, total_slots, dtype, stream
     "pk_kv_append": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _P],
     # q, cache, out, kv_lens, page_indices, cu_q_lens, num_seqs, sinks,
-    # t, hq, hkv, d, page, pps, q_tile, window, sm_scale, soft_cap,
-    # dtype, stream
-    "pk_gqa_prefill": [_P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    # scratch, t, s, hq, hkv, d, page, pps, q_tile, num_splits, window,
+    # sm_scale, soft_cap, dtype, stream
+    "pk_gqa_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _F, _I, _P],
     # q, k_new, v_new, cache, out, kv_lens, page_indices, slots, sinks,
-    # s, hq, hkv, d, page, pps, total_slots, window, sm_scale, soft_cap,
-    # dtype, stream
-    "pk_gqa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _L, _I, _F, _F, _I, _P],
-    # q, cache, out, kv_lens, page_indices, sinks,
-    # s, hq, hkv, d, page, pps, window, sm_scale, dtype, stream
-    "pk_gqa_attend": [_P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # scratch, s, hq, hkv, d, page, pps, num_splits, total_slots, window,
+    # sm_scale, soft_cap, dtype, stream
+    "pk_gqa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _L, _I, _F, _F, _I, _P],
+    # q, cache, out, kv_lens, page_indices, sinks, scratch,
+    # s, hq, hkv, d, page, pps, num_splits, window, sm_scale, dtype, stream
+    "pk_gqa_attend": [_P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # logits, gumbel, temperature, top_k, out, s, v, stream
     "pk_sample_topk": [_P, _P, _P, _P, _P, _I, _I, _P],
     # lhs, rhs, group_offsets, out, m, n, k, e, stream

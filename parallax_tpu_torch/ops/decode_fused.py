@@ -21,8 +21,13 @@ import torch
 from parallax_tpu_torch.ops.attention import KERNEL_NEG, paged_attention_plain
 from parallax_tpu_torch.ops.kv_cache_ops import reshape_and_cache
 
-MAX_HEAD_DIM = 256
+# Shapes the GQA attention kernels (csrc/attend.cuh) take.
+HEAD_DIMS = (64, 128)
+MAX_GROUP = 32
 SMEM_LIMIT = 227 * 1024
+# The decode split partition of csrc/attend.cuh (kSplitKeys, kMaxSplits).
+SPLIT_KEYS = 128
+MAX_SPLITS = 32
 
 
 def gqa_fused_decode_plain(
@@ -43,6 +48,106 @@ def gqa_fused_decode_plain(
         sinks=sinks, seed_sinks=True, mask_value=KERNEL_NEG,
     )
     return out, kv_pages
+
+
+def split_ranges(kv_len: int, page: int,
+                 window: int | None = None) -> list[tuple[int, int]]:
+    """The page ranges ``[lo, hi)`` of one row's decode splits, as
+    ``split_range`` in csrc/attend.cuh cuts them: runs of at least
+    ``SPLIT_KEYS`` keys and at most ``MAX_SPLITS`` runs, from the window's
+    first page ``max(kv_len - W, 0) // page`` to the row's last page. They
+    depend on the page size, the window and ``kv_len`` alone, never on the
+    batch, so a row's bits do not depend on its batch-mates."""
+    if kv_len <= 0:
+        return []
+    hi_page = -(-kv_len // page)
+    lo_page = max(kv_len - window, 0) // page if window else 0
+    n = hi_page - lo_page
+    per = max(-(-SPLIT_KEYS // page), -(-n // MAX_SPLITS))
+    return [(lo, min(lo + per, hi_page)) for lo in range(lo_page, hi_page, per)]
+
+
+def num_splits_bound(pages_per_seq: int, page: int) -> int:
+    """The most splits a row of ``pages_per_seq`` pages can have: the
+    decode grid's third dimension."""
+    return max(1, min(MAX_SPLITS, -(-pages_per_seq // -(-SPLIT_KEYS // page))))
+
+
+def split_scratch(rows: int, hkv: int, group: int, d: int, page_indices,
+                  page: int) -> tuple[torch.Tensor, int]:
+    """The f32 scratch of the split partials, ``[rows, hkv, splits, group,
+    d + 2]`` flattened (o, then (m, l) per head), and the split count."""
+    splits = num_splits_bound(page_indices.shape[1], page)
+    scratch = torch.empty(rows * hkv * splits * group * (d + 2),
+                          dtype=torch.float32, device=page_indices.device)
+    return scratch, splits
+
+
+def gqa_split_decode_plain(
+    q, kv_pages, kv_lens, page_indices, sinks, *, sm_scale: float,
+    sliding_window: int | None = None, soft_cap: float | None = None,
+    pad_splits: bool = False,
+) -> torch.Tensor:
+    """The split-KV form of the decode kernels' arithmetic, for the tests:
+    per row and split (:func:`split_ranges`), an online softmax over
+    64-position key tiles (numerators rounded to the value dtype before the
+    PV product), then the splits combined in order with the sinks folded in
+    once, as a virtual key of logit ``sink`` and no value. ``pad_splits``
+    appends empty splits up to the grid's bound, which must fold in
+    nothing. Returns ``[S, Hq, D]``."""
+    s_rows, hq, d = q.shape
+    _, page, combined, _ = kv_pages.shape
+    hkv = combined // 2
+    g = hq // hkv
+    bound = num_splits_bound(page_indices.shape[1], page)
+    out = torch.zeros((s_rows, hkv, g, d), dtype=torch.float32)
+    for s in range(s_rows):
+        n = int(kv_lens[s])
+        qs = q[s].float().reshape(hkv, g, d)
+        rows = kv_pages[page_indices[s].long()].reshape(-1, combined, d)
+        parts = []
+        for lo, hi in split_ranges(n, page, sliding_window):
+            m = torch.full((hkv, g), KERNEL_NEG)
+            l = torch.zeros((hkv, g))
+            o = torch.zeros((hkv, g, d))
+            end = min(hi * page, n)
+            for p0 in range(lo * page, end, 64):
+                pos = torch.arange(p0, min(p0 + 64, end))
+                k = rows[pos, 0::2].float()                 # [L, Hkv, D]
+                v = rows[pos, 1::2]
+                x = torch.einsum("hgd,lhd->hgl", qs, k) * sm_scale
+                if soft_cap is not None:
+                    x = soft_cap * torch.tanh(x / soft_cap)
+                valid = torch.ones_like(pos, dtype=torch.bool)
+                if sliding_window is not None:
+                    valid = pos > n - 1 - sliding_window
+                x = torch.where(valid, x, -torch.inf)
+                m_new = torch.maximum(m, x.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.where(valid, torch.exp(x - m_new[..., None]), 0.0)
+                l = l * alpha + p.sum(-1)
+                o = o * alpha[..., None] + torch.einsum(
+                    "hgl,lhd->hgd", p.to(v.dtype).float(), v.float())
+                m = m_new
+            parts.append((m, l, o))
+        while pad_splits and len(parts) < bound:
+            parts.append((torch.full((hkv, g), KERNEL_NEG),
+                          torch.zeros((hkv, g)), torch.zeros((hkv, g, d))))
+        # The combine: m the largest of the splits' maxima and the sink,
+        # each split weighed by e_k = exp(m_k - m), summed in split order.
+        sink = (sinks.float().reshape(hkv, g) if sinks is not None
+                else torch.full((hkv, g), -torch.inf))
+        m = sink
+        for mk, _, _ in parts:
+            m = torch.maximum(m, mk)
+        l = torch.exp(sink - m) if sinks is not None else torch.zeros((hkv, g))
+        o = torch.zeros((hkv, g, d))
+        for mk, lk, ok in parts:
+            e = torch.exp(mk - m)
+            l = l + lk * e
+            o = o + ok * e[..., None]
+        out[s] = o / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(s_rows, hq, d).to(q.dtype)
 
 
 def check_attention_shapes(name, q, kv_pages, sinks) -> tuple[int, int, int]:
@@ -66,15 +171,16 @@ def check_attention_shapes(name, q, kv_pages, sinks) -> tuple[int, int, int]:
             f"{name}: q {tuple(q.shape)} does not fit the cache "
             f"{tuple(kv_pages.shape)}"
         )
-    if d > MAX_HEAD_DIM or (d * kv_pages.element_size()) % 16:
+    if d not in HEAD_DIMS:
         raise ValueError(
-            f"{name}: head_dim {d} must be <= 256 with rows a multiple of "
-            "16 bytes (the kernel stages pages with 16-byte loads)"
+            f"{name}: head_dim {d} not taken; the kernels are built for "
+            f"head dims {HEAD_DIMS}"
         )
-    if kv_pages.data_ptr() % 16:
-        raise ValueError(f"{name}: the cache must be 16-byte aligned")
-    if hq // hkv > 64:
-        raise ValueError(f"{name}: group size {hq // hkv} > 64")
+    if kv_pages.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError(f"{name}: q and the cache must be 16-byte aligned "
+                         "(the kernel stages them with 16-byte copies)")
+    if hq // hkv > MAX_GROUP:
+        raise ValueError(f"{name}: group size {hq // hkv} > {MAX_GROUP}")
     if sinks is not None and (
         sinks.dtype != torch.float32 or sinks.shape != (hq,)
     ):
@@ -84,29 +190,23 @@ def check_attention_shapes(name, q, kv_pages, sinks) -> tuple[int, int, int]:
 
 def check_decode_args(name, q, kv_pages, kv_lens, page_indices,
                       sinks) -> tuple[int, int, int]:
-    """The checks shared by the two decode kernels (A2, A9; grid (S, Hkv),
-    one query token per row); returns ``(hq, hkv, d)``."""
+    """The checks shared by the two decode kernels (A2, A9; grid (S, Hkv,
+    splits), one query token per row); returns ``(hq, hkv, d)``."""
     hq, hkv, d = check_attention_shapes(name, q, kv_pages, sinks)
     s = q.shape[0]
     if kv_lens.dtype != torch.int32 or kv_lens.shape != (s,):
         raise ValueError(f"{name}: kv_lens must be i32[{s}]")
     if page_indices.dtype != torch.int32 or page_indices.shape[0] != s:
         raise ValueError(f"{name}: page_indices must be i32[S, pps]")
-    maxr = 16 if hq // hkv <= 16 else 64
-    if smem_bytes(hq // hkv, maxr, d, kv_pages.shape[1],
-                  kv_pages.element_size()) > SMEM_LIMIT:
-        raise ValueError(f"{name}: page size {kv_pages.shape[1]} too large")
     return hq, hkv, d
 
 
-def smem_bytes(rows: int, maxr: int, d: int, page: int, elem: int) -> int:
-    """Dynamic shared memory of the streaming core (csrc/attend.cuh)."""
-    def a16(n):
-        return (n + 15) // 16 * 16
-
-    kw = d * elem // 4
-    return (a16(page * (kw + 1) * 4) + a16(page * kw * 4) + a16(rows * d * 4)
-            + a16(rows * (page + 1) * 4) + 3 * a16(maxr * 4))
+def smem_bytes(rows: int, d: int, elem: int) -> int:
+    """Dynamic shared memory of a block of the attention core
+    (csrc/attend.cuh ``attn_smem_bytes``): ``rows`` query rows, then two
+    ring stages of a 64-key K tile and V tile, every row padded by 16
+    bytes. Decode blocks hold 16 or 32 rows, multi-token tiles 128."""
+    return (rows + 2 * 2 * 64) * (d * elem + 16)
 
 
 def gqa_fused_decode(
@@ -123,8 +223,8 @@ def gqa_fused_decode(
     sliding_window: int | None = None,
     soft_cap: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused KV append + GQA flash decode. Returns ``(out [S, Hq, D],
-    kv_pages)``."""
+    """Fused KV append + GQA flash decode (A2: split-KV, then the ordered
+    combine; one count per call). Returns ``(out [S, Hq, D], kv_pages)``."""
     if q.device.type == "cpu":
         return gqa_fused_decode_plain(
             q, k_new, v_new, kv_pages, kv_lens, page_indices, slot_mapping,
@@ -148,12 +248,13 @@ def gqa_fused_decode(
         tensors.append(sinks)
     ck.require_cuda("gqa_decode", *tensors)
     out = torch.empty_like(q)
+    scratch, splits = split_scratch(s, hkv, hq // hkv, d, page_indices, page)
     code = ck.lib().pk_gqa_decode(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kv_pages.data_ptr(),
         out.data_ptr(), kv_lens.data_ptr(), page_indices.data_ptr(),
         slot_mapping.data_ptr(),
-        sinks.data_ptr() if sinks is not None else None,
-        s, hq, hkv, d, page, page_indices.shape[1], num_pages * page,
+        sinks.data_ptr() if sinks is not None else None, scratch.data_ptr(),
+        s, hq, hkv, d, page, page_indices.shape[1], splits, num_pages * page,
         sliding_window or 0, float(sm_scale), float(soft_cap or 0.0),
         ck.dtype_code(kv_pages), ck.stream_of(q),
     )

@@ -19,7 +19,10 @@ from __future__ import annotations
 import torch
 
 from parallax_tpu_torch.ops.attention import KERNEL_NEG, paged_attention_plain
-from parallax_tpu_torch.ops.decode_fused import check_decode_args
+from parallax_tpu_torch.ops.decode_fused import (
+    check_decode_args,
+    split_scratch,
+)
 
 
 def gqa_decode_attention_plain(
@@ -47,8 +50,9 @@ def gqa_decode_attention(
     sm_scale: float,
     sliding_window: int | None = None,
 ) -> torch.Tensor:
-    """The A9 wrapper: split GQA flash decode. Returns ``out [S, Hq, D]`` in
-    q's dtype."""
+    """The A9 wrapper: split GQA flash decode (split-KV over the row's pages,
+    then the ordered combine; one count per call). Returns ``out [S, Hq,
+    D]`` in q's dtype."""
     if q.device.type == "cpu":
         return gqa_decode_attention_plain(
             q, kv_pages, kv_lens, page_indices, sinks, sm_scale=sm_scale,
@@ -65,12 +69,14 @@ def gqa_decode_attention(
         tensors.append(sinks)
     ck.require_cuda("gqa_attend", *tensors)
     out = torch.empty_like(q)
+    scratch, splits = split_scratch(s, hkv, hq // hkv, d, page_indices, page)
     code = ck.lib().pk_gqa_attend(
         q.data_ptr(), kv_pages.data_ptr(), out.data_ptr(), kv_lens.data_ptr(),
         page_indices.data_ptr(),
-        sinks.data_ptr() if sinks is not None else None,
-        s, hq, hkv, d, page, page_indices.shape[1], sliding_window or 0,
-        float(sm_scale), ck.dtype_code(kv_pages), ck.stream_of(q),
+        sinks.data_ptr() if sinks is not None else None, scratch.data_ptr(),
+        s, hq, hkv, d, page, page_indices.shape[1], splits,
+        sliding_window or 0, float(sm_scale), ck.dtype_code(kv_pages),
+        ck.stream_of(q),
     )
     ck.check(code, "gqa_attend")
     ck.LAUNCHES["gqa_attend"] += 1

@@ -20,18 +20,18 @@ import torch
 
 from parallax_tpu_torch.ops.attention import KERNEL_NEG, paged_attention_plain
 from parallax_tpu_torch.ops.decode_fused import (
-    SMEM_LIMIT,
     check_attention_shapes,
-    smem_bytes,
+    split_scratch,
 )
 from parallax_tpu_torch.ops.kv_cache_ops import kv_append, reshape_and_cache
 
-MAX_TILE_ROWS = 64
+# (token, head) rows of a multi-token tile: eight warps of 16 (csrc/attend.cuh
+# kTileRows).
+MAX_TILE_ROWS = 128
 
 
 def q_tile_for(group: int) -> int:
-    """Query tokens per block: as many as keep the block's (token, head)
-    rows within the kernel's 64 register accumulators."""
+    """Query tokens per multi-token tile: as many as fill its 128 rows."""
     return max(1, MAX_TILE_ROWS // group)
 
 
@@ -81,7 +81,10 @@ def gqa_prefill_attend(
     sliding_window: int | None = None,
     soft_cap: float | None = None,
 ) -> torch.Tensor:
-    """The A1 wrapper: attend-only ragged prefill attention."""
+    """The A1 wrapper: attend-only ragged prefill attention. Multi-token
+    sequences run per-sequence tensor-core tiles; one-token sequences run
+    A2's split-KV decode and combine (so a decode row gives A2's bits).
+    One count per call."""
     if q.device.type == "cpu":
         return gqa_prefill_attend_plain(
             q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, sinks,
@@ -100,22 +103,21 @@ def gqa_prefill_attend(
         raise ValueError(f"gqa_prefill: cu_q_lens must be i32[{s + 1}]")
     if num_seqs.dtype != torch.int32 or num_seqs.numel() != 1:
         raise ValueError("gqa_prefill: num_seqs must be i32[1]")
-    q_tile = q_tile_for(hq // hkv)
-    rows = q_tile * (hq // hkv)
-    if smem_bytes(rows, MAX_TILE_ROWS, d, page,
-                  kv_pages.element_size()) > SMEM_LIMIT:
-        raise ValueError(f"gqa_prefill: page size {page} too large")
+    if page_indices.shape[0] != s:
+        raise ValueError("gqa_prefill: page_indices must be i32[S, pps]")
     tensors = [q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs]
     if sinks is not None:
         tensors.append(sinks)
     ck.require_cuda("gqa_prefill", *tensors)
     out = torch.empty_like(q)
+    g = hq // hkv
+    scratch, splits = split_scratch(s, hkv, g, d, page_indices, page)
     code = ck.lib().pk_gqa_prefill(
         q.data_ptr(), kv_pages.data_ptr(), out.data_ptr(),
         kv_lens.data_ptr(), page_indices.data_ptr(), cu_q_lens.data_ptr(),
         num_seqs.data_ptr(),
-        sinks.data_ptr() if sinks is not None else None,
-        t, hq, hkv, d, page, page_indices.shape[1], q_tile,
+        sinks.data_ptr() if sinks is not None else None, scratch.data_ptr(),
+        t, s, hq, hkv, d, page, page_indices.shape[1], q_tile_for(g), splits,
         sliding_window or 0, float(sm_scale), float(soft_cap or 0.0),
         ck.dtype_code(kv_pages), ck.stream_of(q),
     )

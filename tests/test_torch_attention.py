@@ -373,3 +373,141 @@ def test_prefill_attend_on_decode_steps_matches_xla():
     )
     np.testing.assert_allclose(out.numpy()[:5], np.asarray(ref)[:5], **TOL)
     assert np.all(out.numpy()[5:] == 0.0)
+
+
+# ---------------------------------------------------------------------------
+# The decode kernels' split-KV arithmetic (A2, A9 and A1's one-token rows):
+# the split partition and the plain split form, against the TPU kernels.
+# ---------------------------------------------------------------------------
+
+SPLIT_PAGE = 16
+# 300 and 200: several splits of 8 pages; 45, 129: mid-page ends; 0, 1.
+SPLIT_LENS = np.array([300, 0, 1, 45, 129, 200], np.int32)
+
+
+def _split_case(hq, hkv, sinks_on, seed=7):
+    rng = np.random.default_rng(seed)
+    d, s = 16, len(SPLIT_LENS)
+    pps = int(SPLIT_LENS.max() + SPLIT_PAGE - 1) // SPLIT_PAGE + 1
+    pages = np.zeros((s, pps), np.int32)
+    used = 1
+    for i, n in enumerate(SPLIT_LENS):
+        npg = (int(n) + SPLIT_PAGE - 1) // SPLIT_PAGE
+        pages[i, :npg] = np.arange(used, used + npg)
+        used += npg
+    slot = np.full((s,), -1, np.int32)
+    for i, n in enumerate(SPLIT_LENS):
+        if n > 0:
+            p = int(n) - 1
+            slot[i] = pages[i, p // SPLIT_PAGE] * SPLIT_PAGE + p % SPLIT_PAGE
+    f = np.float32
+    return dict(
+        q=rng.standard_normal((s, hq, d)).astype(f),
+        k=rng.standard_normal((s, hkv, d)).astype(f),
+        v=rng.standard_normal((s, hkv, d)).astype(f),
+        cache=rng.standard_normal((used, SPLIT_PAGE, 2 * hkv, d)).astype(f),
+        lens=SPLIT_LENS.copy(), pages=pages, slot=slot,
+        sinks=rng.standard_normal((hq,)).astype(f) if sinks_on else None,
+    ), d
+
+
+# window 40: the window's first key (260 of 300) sits inside the first
+# split's first page; window 150: a clipped range of several splits.
+SPLIT_CASES = [
+    ("fused", 6, 2, True, None, False),
+    ("fused", 7, 1, True, 40, False),
+    ("fused", 6, 2, False, 150, True),
+    ("split", 7, 1, True, None, True),
+    ("split", 6, 2, True, 40, False),
+    ("split", 7, 1, False, 150, False),
+    ("split", 6, 2, True, 150, True),
+]
+SPLIT_IDS = ["a2-g3-sinks", "a2-g7-sinks-window-in-split",
+             "a2-g3-window-splits-empty", "a9-g7-sinks-empty",
+             "a9-g3-sinks-window-in-split", "a9-g7-window-splits",
+             "a9-g3-sinks-window-empty"]
+
+
+@pytest.mark.parametrize("kernel,hq,hkv,sinks_on,window,pad", SPLIT_CASES,
+                         ids=SPLIT_IDS)
+def test_split_decode_form_matches_pallas_kernels(kernel, hq, hkv, sinks_on,
+                                                  window, pad):
+    """The plain split-KV form (per-split online softmax over 64-key tiles,
+    then the ordered combine with the sinks folded in once; ``pad`` adds
+    empty splits up to the grid's bound) against
+    ``gqa_fused_decode_pallas`` (after the same append) and
+    ``gqa_decode_attention_pallas`` in interpret mode: f32 within 1e-5,
+    kv_len 0 rows exactly zero."""
+    from parallax_tpu.ops.attention_pallas import gqa_decode_attention_pallas
+    from parallax_tpu_torch.ops.decode_fused import (
+        gqa_split_decode_plain,
+        split_ranges,
+    )
+    from parallax_tpu_torch.ops.kv_cache_ops import reshape_and_cache
+
+    c, d = _split_case(hq, hkv, sinks_on)
+    assert len(split_ranges(300, SPLIT_PAGE, None)) == 3
+    sinks_j = None if c["sinks"] is None else jnp.asarray(c["sinks"])
+    kw = dict(sm_scale=d ** -0.5, sliding_window=window)
+    cache = _t(c["cache"])
+    if kernel == "fused":
+        ref, ref_cache = gqa_fused_decode_pallas(
+            jnp.asarray(c["q"]), jnp.asarray(c["k"]), jnp.asarray(c["v"]),
+            jnp.asarray(c["cache"]), jnp.asarray(c["lens"]),
+            jnp.asarray(c["pages"]), jnp.asarray(c["slot"]), sinks_j,
+            use_sinks=sinks_on, interpret=True, soft_cap=None, **kw,
+        )
+        reshape_and_cache(cache, _t(c["k"]), _t(c["v"]), _t(c["slot"]))
+        np.testing.assert_array_equal(cache.numpy(), np.asarray(ref_cache))
+    else:
+        ref = gqa_decode_attention_pallas(
+            jnp.asarray(c["q"]), jnp.asarray(c["cache"]),
+            jnp.asarray(c["lens"]), jnp.asarray(c["pages"]), sinks_j,
+            use_sinks=sinks_on, interpret=True, **kw,
+        )
+    out = gqa_split_decode_plain(
+        _t(c["q"]), cache, _t(c["lens"]), _t(c["pages"]),
+        None if c["sinks"] is None else _t(c["sinks"]), pad_splits=pad,
+        **kw,
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+    assert np.all(out.numpy()[1] == 0.0)          # kv_len 0: exact zeros
+
+
+@pytest.mark.parametrize("page", [8, 16, 64])
+@pytest.mark.parametrize("window", [None, 5, 200, 3000],
+                         ids=["full", "w5", "w200", "w3000"])
+def test_split_partition_covers_each_row_once(page, window):
+    """``split_ranges`` (the Python twin of the kernels' partition) covers
+    each row's valid pages ``[max(kv_len - W, 0) // page, ceil(kv_len /
+    page))`` exactly once, in order, with non-empty runs of at least 128
+    keys (all but the last) and at most ``MAX_SPLITS`` of them; a row's
+    ranges are the same whatever the batch (page-table width, batch-mates),
+    and fit the grid bound of every batch that holds the row."""
+    from parallax_tpu_torch.ops.decode_fused import (
+        MAX_SPLITS,
+        SPLIT_KEYS,
+        num_splits_bound,
+        split_ranges,
+    )
+
+    rng = np.random.default_rng(page)
+    lens = [0, 1, page - 1, page, page + 1, 127, 128, 129, 4096, 4097,
+            8192, 16000] + [int(x) for x in rng.integers(1, 20000, 40)]
+    for n in lens:
+        ranges = split_ranges(n, page, window)
+        if n == 0:
+            assert ranges == []
+            continue
+        lo_page = max(n - window, 0) // page if window else 0
+        hi_page = -(-n // page)
+        covered = [p for lo, hi in ranges for p in range(lo, hi)]
+        assert covered == list(range(lo_page, hi_page))
+        assert all(hi > lo for lo, hi in ranges)
+        assert all((hi - lo) * page >= SPLIT_KEYS for lo, hi in ranges[:-1])
+        assert len(ranges) <= MAX_SPLITS
+        for extra in (0, 1, 37):          # wider page tables: other batches
+            pps = hi_page + extra
+            assert len(ranges) <= num_splits_bound(pps, page)
+            assert split_ranges(n, page, window) == ranges

@@ -157,9 +157,9 @@ def test_split_decode_entry_and_argument_checks():
         head = f.read(2000)
     assert "attention_pallas.py::gqa_decode_attention_pallas" in head
     def check(q_dtype=torch.bfloat16, sinks_dtype=torch.float32, s=7,
-              page=64, lens_dtype=torch.int32):
-        q = torch.zeros((7, 64, 64), dtype=q_dtype)
-        cache = torch.zeros((4, page, 16, 64), dtype=torch.bfloat16)
+              page=64, lens_dtype=torch.int32, d=64, hkv=8):
+        q = torch.zeros((7, 64, d), dtype=q_dtype)
+        cache = torch.zeros((4, page, 2 * hkv, d), dtype=torch.bfloat16)
         return check_decode_args(
             "gqa_attend", q, cache, torch.zeros(s, dtype=lens_dtype),
             torch.zeros((7, 12), dtype=torch.int32),
@@ -174,5 +174,58 @@ def test_split_decode_entry_and_argument_checks():
         check(s=6)
     with pytest.raises(ValueError, match="kv_lens"):
         check(lens_dtype=torch.int64)
-    with pytest.raises(ValueError, match="page size"):
-        check(page=1024)
+    # Any page size: each key position finds its own page. Head dims and
+    # group sizes are what the kernels are instantiated for.
+    assert check(page=1024) == (64, 8, 64)
+    assert check(d=128, hkv=2) == (64, 2, 128)
+    with pytest.raises(ValueError, match="head_dim"):
+        check(d=96)
+    with pytest.raises(ValueError, match="group size"):
+        check(hkv=1)
+
+
+def _header_constants() -> dict[str, int]:
+    with open(os.path.join(ck.CSRC, "attend.cuh")) as f:
+        src = f.read()
+    return {m.group(1): int(m.group(2)) for m in
+            re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def test_split_kv_entries_take_scratch_and_split_count():
+    """A1, A2 and A9 take the f32 scratch of the split partials and the
+    grid's split count; the Python twins of the partition and the tile
+    carve use the header's constants."""
+    from parallax_tpu_torch.ops import decode_fused, prefill_fused
+
+    entries = _c_entries()
+    for name in ("pk_gqa_prefill", "pk_gqa_decode", "pk_gqa_attend"):
+        names = [p.split()[-1].lstrip("*") for p in
+                 re.search(name + r"\(([^)]*)\)", open(os.path.join(
+                     ck.CSRC, "gqa_prefill.cu" if "prefill" in name
+                     else "gqa_decode.cu")).read()).group(1).split(",")]
+        assert "scratch" in names and "num_splits" in names, name
+        assert len(entries[name]) == len(ck._SIGNATURES[name])
+    c = _header_constants()
+    assert c["kSplitKeys"] == decode_fused.SPLIT_KEYS
+    assert c["kMaxSplits"] == decode_fused.MAX_SPLITS
+    assert 16 * c["kTileWarps"] == prefill_fused.MAX_TILE_ROWS
+    assert c["kKT"] == 64 and c["kStages"] == 2   # decode_fused.smem_bytes
+
+
+@pytest.mark.parametrize("elem", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_attention_smem_carve_fits(d, elem):
+    """Every block the attention kernels launch fits the H100's shared
+    memory: decode blocks of 16 or 32 rows, multi-token tiles of 128 rows
+    (plus the tile map's 16 static bytes)."""
+    from parallax_tpu_torch.ops.decode_fused import SMEM_LIMIT, smem_bytes
+    from parallax_tpu_torch.ops.prefill_fused import q_tile_for
+
+    for rows in (16, 32, 128):
+        assert smem_bytes(rows, d, elem) + 16 <= SMEM_LIMIT
+    # The decode merge reuses the block's memory: WK warps' rows x (D + 2)
+    # f32 values.
+    for rows, wk in ((16, 4), (32, 2)):
+        assert wk * rows * (d + 2) * 4 <= smem_bytes(rows, d, elem)
+    assert [q_tile_for(g) for g in (1, 3, 7, 8, 20, 32)] == [
+        128, 42, 18, 16, 6, 4]
