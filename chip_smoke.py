@@ -12,13 +12,18 @@ Phases, in order; any failure raises and the script exits non-zero:
                the card: the attention kernels and the sampler at the shapes
                Qwen2.5-7B gives them (Hq 28, Hkv 4, D 128, page 64, bf16
                cache, vocab 152064), plus a small float32 case with sinks, a
-               sliding window and a soft cap; the grouped GEMM at the shapes
-               Qwen3-30B-A3B gives it (a 2048-token prefill step, M = 16384
-               rows over 128 experts with empty and 1-row groups, and a
-               7-row decode step, M = 56; gate/up N 768 K 2048, down N 2048 K
-               768), at DeepSeek-V3's (256 experts, gate/up N 2048 K 7168,
-               down N 7168 K 2048: an expert tensor past 2**31 elements) and
-               a small case with N and K tails; the MLA decode kernels (A5
+               sliding window and a soft cap; the KV append (A0) bitwise at
+               one token, token counts off its 8-token blocks, dropped
+               slots and a float32 cache, with its wrapper's host
+               microseconds by part; the grouped GEMM (A4), both variants
+               forced and the one M picks, at the shapes Qwen3-30B-A3B
+               gives it (a 2048-token prefill step, M = 16384 rows over 128
+               experts with empty and 1-row groups, and a 7-row decode
+               step, M = 56; gate/up N 768 K 2048, down N 2048 K 768), at
+               DeepSeek-V3's (256 experts, gate/up N 2048 K 7168, down N
+               7168 K 2048: an expert tensor past 2**31 elements) and small
+               cases with N and K tails, M < E, E = 1 and a 20-row group at
+               decode M, each deterministic; the MLA decode kernels (A5
                fused, A6 split) at DeepSeek-V3's shapes (7 rows, Hq 128,
                R 512, Dr 64, page 64, contexts 292-732, bf16) and the
                indexer kernels (A7 fused, A8 split; DSA and MSA reductions)
@@ -38,7 +43,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                (7 rows x 1 token). Then it times each (CUDA events, median,
                L2 flushed) beside its plain version, a PyTorch library call
                where one computes the same function, and its bound, and A2 /
-               A9 once more at 7 rows of 2,048-8,192 tokens.
+               A9 once more at 7 rows of 2,048-8,192 tokens; the
+               device_only_ms line times A0, A1, A2, A9 and A4 (each shape)
+               and their library calls with the host's enqueue hidden.
 4. serve       a single-stage StageEngine on cuda:0 serving full-width,
                all-28-layer Qwen2.5-7B (random bf16 weights from a seeded
                torch.Generator on the card) to 8 concurrent requests, three
@@ -57,7 +64,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                first) serving the same 8-request mix; all five kernels of
                its path must have launched, the grouped GEMM 3 x 48 times
                per step, and the greedy streams must agree with the plain
-               path (plain grouped product and plain attention).
+               path (plain grouped product and plain attention); the same
+               one-shot forward with A4 in place of the plain grouped
+               product reports its logit difference (no limit).
 8. moe_profile moe_serve once more under torch.profiler.
 9. mla_serve   DeepSeek-V3 at full width and 5 layers (3 dense + 2 MoE; one
                random bf16 tree of 26.7 B params, the MoE model freed first)
@@ -190,18 +199,23 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, iters: int, flush=None, hide_host=False) -> float:
+def time_ms(torch, fn, iters: int, flush=None, hide_host=False,
+            clean=False) -> float:
     """Median device time of ``fn`` over ``iters`` calls (CUDA events), with
-    the L2 cache flushed before each call when ``flush`` is given. The
-    interval also holds any time the device waits for the host to enqueue
-    the call; ``hide_host`` first queues a spin kernel (``_sleep``, about
-    0.5 ms) that keeps the device busy meanwhile, so the interval is the
-    call's device time alone."""
+    the L2 cache flushed before each call when ``flush`` is given: by
+    zeroing the 64 MB buffer, which leaves L2 full of dirty lines that the
+    call then writes back, or with ``clean`` by reading it. The interval
+    also holds any time the device waits for the host to enqueue the call;
+    ``hide_host`` first queues a spin kernel (``_sleep``, about 0.5 ms)
+    that keeps the device busy meanwhile, so the interval is the call's
+    device time alone."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(iters):
-        if flush is not None:
+        if flush is not None and clean:
+            flush.sum()
+        elif flush is not None:
             flush.zero_()
         if hide_host:
             torch.cuda._sleep(1_000_000)
@@ -375,6 +389,85 @@ def _sampler_batch(torch, gen, dev, v):
     return logits, gumbel, temp, top_k
 
 
+def check_kv_append_edges(torch, gen, dev) -> dict:
+    """A0 against reshape_and_cache, bitwise: one token, token counts that
+    are not a multiple of the kernel's 8 tokens a block, negative and
+    out-of-range slots, a float32 cache, and the head geometries of the
+    registered GQA models (D 64 and 128)."""
+    from parallax_tpu_torch.ops.kv_cache_ops import kv_append, reshape_and_cache
+
+    cases = {}
+    for name, dtype, hkv, d, t in (
+        ("t1_bf16", torch.bfloat16, 4, 128, 1),
+        ("t13_bf16", torch.bfloat16, 4, 128, 13),
+        ("t21_f32_d64", torch.float32, 2, 64, 21),
+        ("t749_bf16_hkv8_d64", torch.bfloat16, 8, 64, 749),
+        ("t100_f32_d128", torch.float32, 4, 128, 100),
+    ):
+        p, page = (t + 63) // 64 + 2, 64
+        cache = torch.randn((p, page, 2 * hkv, d), generator=gen,
+                            device=dev).to(dtype)
+        k = torch.randn((t, hkv, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((t, hkv, d), generator=gen, device=dev).to(dtype)
+        slots = torch.randperm(p * page, generator=gen, device=dev)[:t]
+        slots = slots.to(torch.int32)
+        if t > 2:
+            slots[1] = -1               # padding
+            slots[-1] = p * page + 5    # out of range: dropped
+        got, ref = cache.clone(), cache.clone()
+        kv_append(got, k, v, slots)
+        reshape_and_cache(ref, k, v, slots)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"kv_append {name}: cache differs from "
+                                 "reshape_and_cache")
+        cases[name] = "bitwise"
+    return cases
+
+
+def kv_append_host_us(torch, cache, k, v, slots, calls: int = 300) -> dict:
+    """Host microseconds per A0 wrapper call, by part, over ``calls``
+    calls each (time.perf_counter; the launches queue behind each other)."""
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.ops.kv_cache_ops import (
+        check_kv_append_args,
+        kv_append,
+    )
+
+    lib = ck.lib()
+    t, hkv, d = check_kv_append_args(cache, k, v, slots)
+    total = cache.shape[0] * cache.shape[1]
+    code = ck.dtype_code(cache)
+
+    def launch():
+        ck.check(lib.pk_kv_append(k.data_ptr(), v.data_ptr(),
+                                  cache.data_ptr(), slots.data_ptr(), t, hkv,
+                                  d, total, code, ck.stream_of(cache)),
+                 "kv_append")
+
+    parts = {
+        "arg_checks": lambda: check_kv_append_args(cache, k, v, slots),
+        "require_cuda": lambda: ck.require_cuda("kv_append", cache, k, v,
+                                                slots),
+        "lib_lookup": ck.lib,
+        "stream_of": lambda: ck.stream_of(cache),
+        "data_ptrs": lambda: (k.data_ptr(), v.data_ptr(), cache.data_ptr(),
+                              slots.data_ptr()),
+        "ctypes_launch": launch,
+        "whole_wrapper": lambda: kv_append(cache, k, v, slots),
+    }
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
 def phase_kernels(torch, dev) -> list[dict]:
     from parallax_tpu_torch.ops import cuda_kernels as ck
     from parallax_tpu_torch.ops.decode_fused import (
@@ -474,6 +567,18 @@ def phase_kernels(torch, dev) -> list[dict]:
     rows = interleave_kv(pc["k"], pc["v"])[:t_real].contiguous()
     idx = pc["slots"][:t_real].long()
     lib = time_ms(torch, lambda: flat.index_copy_(0, idx, rows), 50, flush)
+    device_only = {
+        "kv_append": time_ms(torch, lambda: kv_append(
+            cache, pc["k"], pc["v"], pc["slots"]), 50, flush, hide_host=True),
+        "kv_append_library": time_ms(
+            torch, lambda: flat.index_copy_(0, idx, rows), 50, flush,
+            hide_host=True),
+    }
+    emit({"phase": "kernels", "check": "kv_append",
+          "edge_cases": check_kv_append_edges(torch, gen, dev),
+          "wrapper_host_us": kv_append_host_us(torch, cache, pc["k"],
+                                               pc["v"], pc["slots"]),
+          "tokens": t_real})
     b_ms, b_by = bound(2 * n_app * 2 * hkv * d * esz, 0, "bfloat16")
     out.append(dict(
         name="kv_append", route="cuda",
@@ -498,12 +603,11 @@ def phase_kernels(torch, dev) -> list[dict]:
     )
     sdpa_pre = _sdpa_prefill(torch, dict(pc, cache=cache), hq, hkv, d, page)
     lib = time_ms(torch, sdpa_pre, 30, flush)
-    device_only = {
-        "gqa_prefill": time_ms(torch, lambda: gqa_prefill_attend(*args, **pkw),
-                               30, flush, hide_host=True),
-        "gqa_prefill_library": time_ms(torch, sdpa_pre, 30, flush,
-                                       hide_host=True),
-    }
+    device_only["gqa_prefill"] = time_ms(
+        torch, lambda: gqa_prefill_attend(*args, **pkw), 30, flush,
+        hide_host=True)
+    device_only["gqa_prefill_library"] = time_ms(torch, sdpa_pre, 30, flush,
+                                                 hide_host=True)
     out.append(dict(
         name="gqa_prefill", route="cuda",
         source="parallax_tpu_torch/csrc/gqa_prefill.cu",
@@ -554,9 +658,9 @@ def phase_kernels(torch, dev) -> list[dict]:
         max_abs_err=err_tok, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=None,
     ))
-    out.append(kernels_grouped_gemm(torch, gen, dev, flush))
-    kernels_grouped_gemm(torch, gen, dev, flush, model=DSV3_MODEL,
-                         label="grouped_gemm_deepseek")
+    out.append(kernels_grouped_gemm(torch, gen, dev, flush, device_only))
+    kernels_grouped_gemm(torch, gen, dev, flush, device_only,
+                         model=DSV3_MODEL, label="grouped_gemm_deepseek")
     out.extend(kernels_deepseek(torch, gen, dev, flush))
     split_out, split_device_only = kernels_split(torch, gen, dev, flush)
     out.extend(split_out)
@@ -624,15 +728,21 @@ def _grouped_mm_library(torch, lhs, rhs, offsets):
                                      out_dtype=torch.bfloat16)
 
 
-def kernels_grouped_gemm(torch, gen, dev, flush, model=MOE_MODEL,
-                         label="grouped_gemm") -> dict:
+def kernels_grouped_gemm(torch, gen, dev, flush, device_only,
+                         model=MOE_MODEL, label="grouped_gemm") -> dict:
     """A4 against its plain version at the shapes ``model``'s MoE layers
-    give it, then timed. Tolerance: F32_TOL, since both sum exact bf16
-    products in f32, in another order."""
+    give it, then timed; each shape's device-only time and
+    ``torch._grouped_mm``'s go into ``device_only`` as
+    ``grouped_gemm_<model>_<shape>_<proj>[_library]``. Each shape runs both
+    variants, forced, and the one M picks: each within F32_TOL of the plain
+    version (both sum exact bf16 products in f32, in another order), the
+    same bits on two calls, and the picked one's bits equal to its forced
+    run's. Whether the bits also equal the plain version's is reported."""
     from parallax_tpu_torch.models.presets import get_preset
     from parallax_tpu_torch.ops.grouped_matmul import (
         grouped_matmul,
         grouped_matmul_plain,
+        variant_for,
     )
 
     bf16 = torch.bfloat16
@@ -651,44 +761,108 @@ def kernels_grouped_gemm(torch, gen, dev, flush, model=MOE_MODEL,
                       * k ** -0.5).to(bf16)
         return lhs, rhs, torch.tensor(offs, dtype=torch.int32, device=dev)
 
-    def check(offs, n, k):
+    bitwise = {}
+
+    def check(name, offs, n, k):
         lhs, rhs, offsets = operands(offs, n, k)
-        got = grouped_matmul(lhs, rhs, offsets)
         ref = grouped_matmul_plain(lhs, rhs, offsets)
+        got = {}
+        for v in ("prefill", "decode"):
+            got[v] = grouped_matmul(lhs, rhs, offsets, _variant=v)
+            again = grouped_matmul(lhs, rhs, offsets, _variant=v)
+            torch.cuda.synchronize()
+            if not torch.equal(got[v], again):
+                raise AssertionError(f"{label} {name} {v}: two calls differ")
+            errs[f"{name}_{v}"] = _close(torch, got[v], ref, F32_TOL)
+            bitwise[f"{name}_{v}"] = bool(torch.equal(got[v], ref))
+        picked = grouped_matmul(lhs, rhs, offsets)
         torch.cuda.synchronize()
-        return _close(torch, got, ref, F32_TOL), (lhs, rhs, offsets)
+        if not torch.equal(picked, got[variant_for(offs[-1])]):
+            raise AssertionError(f"{label} {name}: the picked variant's bits "
+                                 "differ from its forced run's")
+        del got, picked, ref
+        return lhs, rhs, offsets
 
     shapes = {
         "prefill": _skewed_offsets(2048 * k_top, e, seed=7),
         "decode": _decode_offsets(7, k_top, e, seed=8),
     }
     errs, timed = {}, {}
+    tag = "qwen3" if model == MOE_MODEL else "deepseek"
     if model == MOE_MODEL:
-        # Tails: N and K below and between tiles, empty and 1-row groups.
-        errs["tails_n37_k40"], _ = check([0, 0, 1, 21, 37, 37], 37, 40)
+        # Tails: N and K below and between tiles (K not a multiple of the
+        # 64-wide stage), empty and 1-row groups, M < E, E = 1 with every
+        # row in one group (above and below the variant threshold), and a
+        # 20-row group at decode M (more rows than one decode tile).
+        one_20 = [0] * 4 + [20] + [1] * 36 + [0] * (e - 41)
+        for name, offs, n, k in (
+            ("tails_n37_k40", [0, 0, 1, 21, 37, 37], 37, 40),
+            ("tails_n200_k72", [0, 1, 1, 21, 24, 160, 160, 300], 200, 72),
+            ("m5_lt_e", [0] + [min(g, 5) for g in range(1, e + 1)], inter,
+             hid),
+            ("e1_m600", [0, 600], 200, 72),
+            ("e1_m40", [0, 40], 37, 40),
+            ("group_of_20_at_decode_m", [0] + [sum(one_20[:g + 1])
+                                               for g in range(e)], inter,
+             hid),
+        ):
+            check(name, offs, n, k)
     for shape, offs in shapes.items():
         m = offs[-1]
         touched = sum(1 for g in range(e) if offs[g + 1] > offs[g])
         for proj, n, k in (("gate_up", inter, hid), ("down", hid, inter)):
-            err, (lhs, rhs, offsets) = check(offs, n, k)
-            errs[f"{shape}_{proj}"] = err
+            lhs, rhs, offsets = check(f"{shape}_{proj}", offs, n, k)
             ms = time_ms(torch, lambda: grouped_matmul(lhs, rhs, offsets),
                          30, flush)
             plain = time_ms(torch, lambda: grouped_matmul_plain(
                 lhs, rhs, offsets), 5, flush)
             lib_fn = _grouped_mm_library(torch, lhs, rhs, offsets)
             lib = time_ms(torch, lib_fn, 30, flush) if lib_fn else None
+            key = f"grouped_gemm_{tag}_{shape}_{proj}"
+            device_only[key] = time_ms(
+                torch, lambda: grouped_matmul(lhs, rhs, offsets), 30, flush,
+                hide_host=True)
+            device_only[key + "_library"] = time_ms(
+                torch, lib_fn, 30, flush, hide_host=True) if lib_fn else None
+            if shape == "decode":
+                # The write-back of the zeroing flush is a sizeable share
+                # of a decode call's bytes: the same times after a clean
+                # flush.
+                device_only[key + "_clean_l2"] = time_ms(
+                    torch, lambda: grouped_matmul(lhs, rhs, offsets), 30,
+                    flush, hide_host=True, clean=True)
+                device_only[key + "_library_clean_l2"] = time_ms(
+                    torch, lib_fn, 30, flush, hide_host=True,
+                    clean=True) if lib_fn else None
             b_ms, b_by = bound(touched * n * k * 2 + m * k * 2 + m * n * 4,
                                2 * m * n * k, "bfloat16")
             timed[f"{shape}_{proj}"] = dict(
                 m=m, n=n, k=k, groups_touched=touched, ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib)
             del lhs, rhs, offsets
+    # Where the variants cross: both, forced, device-only at decode steps
+    # of 7-256 rows (M = top_k x rows; the engine's default max_batch_size
+    # is 64). kDecodeMaxRows is set from these readings.
+    crossover = {}
+    for rows in (7, 16, 32, 64, 128, 256):
+        offs = _decode_offsets(rows, k_top, e, seed=9 + rows)
+        for proj, n, k in (("gate_up", inter, hid), ("down", hid, inter)):
+            lhs, rhs, offsets = check(f"rows{rows}_{proj}", offs, n, k)
+            crossover[f"m{offs[-1]}_{proj}"] = {
+                v: time_ms(torch, lambda v=v: grouped_matmul(
+                    lhs, rhs, offsets, _variant=v), 30, flush,
+                    hide_host=True)
+                for v in ("prefill", "decode")}
+            del lhs, rhs, offsets
     emit({"phase": "kernels", "check": label, "model": model,
           "experts": e, "max_abs_err": errs, "f32_tol_atol_rtol": F32_TOL,
+          "deterministic": True, "bitwise_equal_to_plain": bitwise,
+          "variant_by_shape": {sh: variant_for(o[-1])
+                               for sh, o in shapes.items()},
           "group_sizes_prefill": [b - a for a, b in zip(
               shapes["prefill"], shapes["prefill"][1:])],
-          "decode_rows": shapes["decode"][-1], "timed": timed})
+          "decode_rows": shapes["decode"][-1], "timed": timed,
+          "crossover_device_ms": crossover})
     main = timed["prefill_gate_up"]
     return dict(
         name="grouped_gemm", route="cuda",
@@ -1467,21 +1641,27 @@ def stream_metrics(reqs, t0: float, t1: float) -> dict:
 
 
 def greedy_check(torch, model_full, params, reqs, sampled, dev,
-                 tol=None, max_len=1024) -> tuple[float, int, float]:
+                 tol=None, max_len=1024, model_alt=None):
     """Tie-tolerant check of every greedy stream against the plain path
     (``model_full`` with the plain attention, and for an MoE model the
     plain grouped product): one forward per row over prompt + outputs with
     logits at every position; each token must be within ``tol`` of that
     position's argmax (no limit when ``tol`` is None). Returns the largest
-    gap seen, how many tokens were off by GREEDY_TOL or more, and the median
+    gap seen, how many tokens were off by GREEDY_TOL or more, the median
     over positions of the argmax minus the row's median logit (how far
-    below the argmax a wrong token typically sits)."""
+    below the argmax a wrong token typically sits), and, when ``model_alt``
+    is given, the same one-shot forward teacher-forced through it: the
+    largest logit difference from ``model_full``'s at any output position
+    and how many positions share their argmax (no limit; None without
+    ``model_alt``)."""
     from parallax_tpu_torch.runtime.batch import BucketSpec, assemble
     from parallax_tpu_torch.runtime.request import Request
     from parallax_tpu_torch.runtime.scheduler import BatchPlan, ScheduledSeq
 
     page = 64
     worst, over, spreads = 0.0, 0, []
+    alt = None if model_alt is None else {
+        "largest_logit_diff": 0.0, "positions": 0, "argmax_equal": 0}
     for i, r in enumerate(reqs):
         if i in sampled:
             continue
@@ -1513,7 +1693,20 @@ def greedy_check(torch, model_full, params, reqs, sampled, dev,
                 f"by {g} (tolerance {tol})"
             )
         del logits, kv
-    return worst, over, float(torch.cat(spreads).median())
+        if alt is not None:
+            kv = model_alt.new_kv_caches(npg + 1, page,
+                                         params["norm"]["weight"].dtype, dev)
+            with torch.no_grad():
+                logits, _ = model_alt(params, kv, inputs)
+            rows_alt = logits[p0:p0 + len(r.output_ids)]
+            alt["largest_logit_diff"] = max(
+                alt["largest_logit_diff"],
+                float((rows_alt.float() - rows.float()).abs().max()))
+            alt["positions"] += rows.shape[0]
+            alt["argmax_equal"] += int(
+                (rows_alt.argmax(-1) == rows.argmax(-1)).sum())
+            del logits, kv, rows_alt
+    return worst, over, float(torch.cat(spreads).median()), alt
 
 
 def phase_serve(torch, dev, card: str):
@@ -1745,14 +1938,21 @@ def phase_moe_serve(torch, dev, card: str, want) -> dict:
     del engines
     model_plain = create_stage_model(cfg, 0, n_layers, moe_kernel=False,
                                      use_kernels=False)
-    worst, over, _ = greedy_check(torch, model_plain, params, reqs, sampled,
-                                  dev, tol=MOE_GREEDY_TOL)
+    # The same one-shot forward with A4 in place of the plain grouped
+    # product (attention plain in both): what A4 alone does to the logits,
+    # apart from the compounding of the served greedy streams.
+    model_a4 = create_stage_model(cfg, 0, n_layers, moe_kernel=True,
+                                  use_kernels=False)
+    worst, over, _, tf = greedy_check(torch, model_plain, params, reqs,
+                                      sampled, dev, tol=MOE_GREEDY_TOL,
+                                      model_alt=model_a4)
     emit({"phase": "moe_serve", "greedy_vs_plain": "pass",
           "largest_logit_gap": worst, "tolerance": MOE_GREEDY_TOL,
           f"tokens_off_by_{GREEDY_TOL}_or_more": over,
           "greedy_tokens": sum(len(r.output_ids) for i, r in enumerate(reqs)
                                if i not in sampled),
-          "plain": "moe_ffn(kernel=False) + split attention"})
+          "plain": "moe_ffn(kernel=False) + split attention",
+          "teacher_forced_a4_vs_plain": tf})
     if want("moe_profile"):
         phase_profile(torch, dev, cfg, params, phase="moe_profile")
     return launches
@@ -1837,10 +2037,10 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
     # The split run's greedy rows are the fused run's, so one check holds
     # both; the plain run is checked the same way, without a limit, to
     # show how far the path without kernels lands from the reference.
-    worst, over, spread = greedy_check(torch, model_plain, params,
+    worst, over, spread, _ = greedy_check(torch, model_plain, params,
                                        runs["fused"], sampled, dev,
                                        max_len=max_model_len)
-    worst_p, over_p, _ = greedy_check(torch, model_plain, params,
+    worst_p, over_p, *_ = greedy_check(torch, model_plain, params,
                                       runs["plain"], sampled, dev,
                                       max_len=max_model_len)
     ok = worst < tol and over <= over_p + margin

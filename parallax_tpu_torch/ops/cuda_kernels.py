@@ -66,8 +66,8 @@ _SIGNATURES = {
                       _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # logits, gumbel, temperature, top_k, out, s, v, stream
     "pk_sample_topk": [_P, _P, _P, _P, _P, _I, _I, _P],
-    # lhs, rhs, group_offsets, out, m, n, k, e, stream
-    "pk_grouped_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # lhs, rhs, group_offsets, out, m, n, k, e, variant, stream
+    "pk_grouped_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q_latent, q_pe, new_rows, cache, out, kv_lens, page_indices, slots,
     # s, hq, r, dr, page, pps, total_slots, sm_scale, dtype, stream
     "pk_mla_decode": [_P, _P, _P, _P, _P, _P, _P, _P,
@@ -162,8 +162,11 @@ def build(verbose: bool = False) -> str:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call). Once loaded it is
+    returned without taking the lock."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(build())
@@ -181,7 +184,18 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
 
 
+# torch's private raw-stream getter, looked up once: torch._inductor's
+# launchers read the stream through it. Builds without it (CPU-only ones,
+# or a torch that renames it) take the public lookup in ``stream_of``.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s device, read
+    without building a ``torch.cuda.Stream`` object where torch allows it
+    (that costs a few microseconds of every wrapper's enqueue)."""
+    if _raw_stream is not None:
+        return _raw_stream(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

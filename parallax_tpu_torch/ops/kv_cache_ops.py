@@ -60,6 +60,42 @@ def reshape_and_cache(
     return kv_pages
 
 
+def check_kv_append_args(
+    kv_pages: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    slot_mapping: torch.Tensor,
+) -> tuple[int, int, int]:
+    """The A0 wrapper's checks, run before a launch: what the kernel's
+    16-byte copies do not take raises. ``k`` and ``v`` must already have
+    the cache's dtype and be contiguous. Returns ``(T, Hkv, D)``."""
+    if kv_pages.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(
+            f"kv_append: cache dtype {kv_pages.dtype} not supported "
+            "(bfloat16 or float32)"
+        )
+    _, _, h2, d = kv_pages.shape
+    t = k.shape[0]
+    if k.shape != (t, h2 // 2, d) or v.shape != k.shape:
+        raise ValueError(
+            f"kv_append: k/v {tuple(k.shape)}/{tuple(v.shape)} do not match "
+            f"the cache's [T, {h2 // 2}, {d}]"
+        )
+    if k.dtype != kv_pages.dtype or v.dtype != kv_pages.dtype:
+        raise TypeError("kv_append: k and v must have the cache's dtype")
+    if slot_mapping.dtype != torch.int32 or slot_mapping.shape != (t,):
+        raise ValueError("kv_append: slot_mapping must be i32[T]")
+    per = 16 // kv_pages.element_size()
+    if d % per:
+        raise ValueError(
+            f"kv_append: head_dim {d} must be a multiple of {per} for "
+            f"{kv_pages.dtype} (16-byte copies)"
+        )
+    if any(x.data_ptr() % 16 for x in (kv_pages, k, v)):
+        raise ValueError("kv_append: cache, k and v must be 16-byte aligned")
+    return t, h2 // 2, d
+
+
 def kv_append(
     kv_pages: torch.Tensor,
     k: torch.Tensor,
@@ -69,31 +105,23 @@ def kv_append(
     """The A0 kernel wrapper (``csrc/kv_append.cu``): the same in-place
     scatter as :func:`reshape_and_cache`, which is its plain version and
     what runs for CPU tensors. On CUDA tensors it launches the kernel or
-    raises. Returns ``kv_pages``."""
+    raises. ``k`` and ``v`` are cast and made contiguous only when they are
+    not already. Returns ``kv_pages``."""
     if kv_pages.device.type == "cpu":
         return reshape_and_cache(kv_pages, k, v, slot_mapping)
     from parallax_tpu_torch.ops import cuda_kernels as ck
 
-    p, page, h2, d = kv_pages.shape
-    t = k.shape[0]
-    k = k.to(kv_pages.dtype).contiguous()
-    v = v.to(kv_pages.dtype).contiguous()
+    dt = kv_pages.dtype
+    if k.dtype != dt or not k.is_contiguous():
+        k = k.to(dt).contiguous()
+    if v.dtype != dt or not v.is_contiguous():
+        v = v.to(dt).contiguous()
+    t, hkv, d = check_kv_append_args(kv_pages, k, v, slot_mapping)
     ck.require_cuda("kv_append", kv_pages, k, v, slot_mapping)
-    if kv_pages.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(
-            f"kv_append: cache dtype {kv_pages.dtype} not supported "
-            "(bfloat16 or float32)"
-        )
-    if k.shape != (t, h2 // 2, d) or v.shape != k.shape:
-        raise ValueError(
-            f"kv_append: k/v {tuple(k.shape)}/{tuple(v.shape)} do not match "
-            f"the cache's [T, {h2 // 2}, {d}]"
-        )
-    if slot_mapping.dtype != torch.int32 or slot_mapping.shape != (t,):
-        raise ValueError("kv_append: slot_mapping must be i32[T]")
+    p, page = kv_pages.shape[:2]
     code = ck.lib().pk_kv_append(
         k.data_ptr(), v.data_ptr(), kv_pages.data_ptr(),
-        slot_mapping.data_ptr(), t, h2 // 2, d, p * page,
+        slot_mapping.data_ptr(), t, hkv, d, p * page,
         ck.dtype_code(kv_pages), ck.stream_of(kv_pages),
     )
     ck.check(code, "kv_append")

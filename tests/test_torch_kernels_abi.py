@@ -229,3 +229,124 @@ def test_attention_smem_carve_fits(d, elem):
         assert wk * rows * (d + 2) * 4 <= smem_bytes(rows, d, elem)
     assert [q_tile_for(g) for g in (1, 3, 7, 8, 20, 32)] == [
         128, 42, 18, 16, 6, 4]
+
+
+def test_kv_append_argument_checks():
+    """A0 copies 16-byte vectors: its wrapper refuses a head dim that is not
+    a multiple of 8 bf16 (4 f32) values, a misaligned tensor, and k / v of
+    another dtype than the cache (the wrapper casts them before the
+    checks)."""
+    import torch
+
+    from parallax_tpu_torch.ops.kv_cache_ops import check_kv_append_args
+
+    def check(d=128, dtype=torch.bfloat16, kv_dtype=None, t=5, hkv=4,
+              slots_dtype=torch.int32, offset=0):
+        cache = torch.zeros((3, 16, 2 * hkv, d), dtype=dtype)
+        flat = torch.zeros(t * hkv * d + offset, dtype=kv_dtype or dtype)
+        k = flat[offset:].view(t, hkv, d)
+        v = torch.zeros((t, hkv, d), dtype=kv_dtype or dtype)
+        return check_kv_append_args(cache, k, v,
+                                    torch.zeros(t, dtype=slots_dtype))
+
+    assert check() == (5, 4, 128)
+    assert check(d=64, dtype=torch.float32) == (5, 4, 64)
+    assert check(d=8) == (5, 4, 8)
+    assert check(d=4, dtype=torch.float32) == (5, 4, 4)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        check(d=60)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        check(d=6, dtype=torch.float32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        check(offset=1)
+    with pytest.raises(TypeError, match="cache's dtype"):
+        check(kv_dtype=torch.float32)
+    with pytest.raises(TypeError, match="not supported"):
+        check(dtype=torch.float16)
+    with pytest.raises(ValueError, match="slot_mapping"):
+        check(slots_dtype=torch.int64)
+
+
+def test_grouped_gemm_argument_checks_and_variant_entry():
+    """A4's C entry takes the forced variant (0 = by M, 1 = prefill, 2 =
+    decode); the wrapper's checks refuse what the kernel does not take and
+    any other variant, on the CPU as on the card."""
+    import torch
+
+    from parallax_tpu_torch.ops.grouped_matmul import (
+        VARIANTS,
+        check_grouped_args,
+        grouped_matmul,
+    )
+
+    with open(os.path.join(ck.CSRC, "grouped_gemm.cu")) as f:
+        src = f.read()
+    params = re.search(r"pk_grouped_gemm\(([^)]*)\)", src).group(1)
+    names = [p.split()[-1].lstrip("*") for p in params.split(",")]
+    assert names[-2:] == ["variant", "stream"]
+    assert VARIANTS == {None: 0, "prefill": 1, "decode": 2}
+
+    def check(dtype=torch.bfloat16, off_dtype=torch.int32, k=64,
+              variant=None, offset=0):
+        flat = torch.zeros(6 * k + offset, dtype=dtype)
+        lhs = flat[offset:].view(6, k)
+        rhs = torch.zeros((2, 24, k), dtype=dtype)
+        offs = torch.tensor([0, 2, 6], dtype=off_dtype)
+        return check_grouped_args(lhs, rhs, offs, variant)
+
+    assert check() == (6, 24, 64, 2)
+    assert check(k=40, variant="decode") == (6, 24, 40, 2)
+    assert check(variant="prefill") == (6, 24, 64, 2)
+    with pytest.raises(TypeError, match="bf16"):
+        check(dtype=torch.float32)
+    with pytest.raises(TypeError, match="int32"):
+        check(off_dtype=torch.int64)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        check(k=12)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        check(offset=1)
+    for bad in ("fast", 1, "Decode"):
+        with pytest.raises(ValueError, match="variant"):
+            check(variant=bad)
+    lhs, rhs = torch.ones((6, 8)), torch.ones((2, 3, 8))
+    offs = torch.tensor([0, 2, 6], dtype=torch.int32)
+    with pytest.raises(ValueError, match="variant"):
+        grouped_matmul(lhs, rhs, offs, _variant="fast")
+    # On CPU tensors a forced variant still takes the plain version.
+    assert torch.equal(grouped_matmul(lhs, rhs, offs, _variant="decode"),
+                       torch.full((6, 3), 8.0))
+
+
+def test_kernel_library_is_returned_without_the_lock(monkeypatch):
+    """Once loaded, ``lib()`` returns the library without taking the build
+    lock (every wrapper calls it on every launch)."""
+    sentinel = object()
+
+    class NoLock:
+        def __enter__(self):
+            raise AssertionError("lib() took the lock")
+
+        def __exit__(self, *a):
+            return False
+
+    monkeypatch.setattr(ck, "_lib", sentinel)
+    monkeypatch.setattr(ck, "_lock", NoLock())
+    assert ck.lib() is sentinel
+
+
+def test_stream_of_reads_the_raw_handle_or_the_public_stream(monkeypatch):
+    """``stream_of`` uses torch's raw-stream getter where the build has it
+    and the public ``torch.cuda.current_stream`` where it does not (a
+    CPU-only build, or a torch that renamed the private function)."""
+    import types
+
+    import torch
+
+    t = types.SimpleNamespace(device=torch.device("cuda", 3))
+    monkeypatch.setattr(ck, "_raw_stream", lambda index: 1000 + index)
+    assert ck.stream_of(t) == 1003
+    monkeypatch.setattr(ck, "_raw_stream", None)
+    monkeypatch.setattr(
+        torch.cuda, "current_stream",
+        lambda device: types.SimpleNamespace(cuda_stream=2000 + device.index))
+    assert ck.stream_of(t) == 2003

@@ -11,18 +11,29 @@ same numpy inputs, in float32 on the CPU.
 - ``moe_ffn`` against the JAX ``moe_ffn`` on its masked-loop path and on
   its megablox path (``gmm`` run in interpret mode by a test-side patch),
   with and without a Qwen2-MoE shared expert and gate: within 1e-5.
+- the A4 kernel's tiling (csrc/grouped_gemm.cu) through its Python twins:
+  each variant's tile map covers every row once without straddling a group
+  and within the launch's static bound, a product computed tile by tile
+  along it equals megablox ``gmm`` (1e-5), and each ring fits the H100's
+  shared memory. The kernel itself runs only on the card (chip_smoke.py).
 """
+
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import example, given, settings
+from hypothesis import strategies as st
 from jax.experimental.pallas.ops.tpu import megablox
 
 from parallax_tpu.config import MoEConfig as JMoEConfig
 from parallax_tpu.models import moe as jmoe
 from parallax_tpu_torch.config import MoEConfig
 from parallax_tpu_torch.models import moe as tmoe
+from parallax_tpu_torch.ops import grouped_matmul as gm
 from parallax_tpu_torch.ops.grouped_matmul import (
     grouped_matmul,
     grouped_matmul_plain,
@@ -169,6 +180,129 @@ def test_grouped_matmul_plain_rejects_bad_shapes(bad, match):
                            dtype=torch.int32)
     with pytest.raises(ValueError, match=match):
         grouped_matmul_plain(lhs, rhs, offsets)
+
+
+VARIANTS = ["prefill", "decode"]
+
+
+def _offsets(sizes) -> list[int]:
+    return [0] + np.cumsum(np.asarray(sizes, np.int64)).tolist()
+
+
+# Group sizes: skewed, with empty and 1-row groups, M < E, E = 1 and every
+# row in one group; either side of both tile heights and of the variant
+# threshold.
+_SIZES = st.lists(
+    st.one_of(st.just(0), st.just(1), st.integers(0, 20),
+              st.integers(100, 400)),
+    min_size=1, max_size=40,
+)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@settings(max_examples=60, deadline=None, database=None, derandomize=True)
+@given(sizes=_SIZES)
+@example(sizes=[0, 5, 0, 1, 1, 0])              # M < E
+@example(sizes=[7])                             # E = 1
+@example(sizes=[0, 0, 300, 0])                  # every row in one group
+@example(sizes=[128, 129, 1, 16, 17, 0, 256])   # tile-height edges
+@example(sizes=[0, 0, 0])                       # M = 0
+def test_grouped_gemm_tile_map_covers_every_row_once(variant, sizes):
+    offs = _offsets(sizes)
+    m, e = offs[-1], len(sizes)
+    bm = gm.TILE_ROWS[variant]
+    tiles = gm.tile_map(offs, variant)
+    seen = np.zeros(m, np.int64)
+    for g, r0, end in tiles:
+        # No tile straddles two groups: it starts inside group g and its
+        # stored rows end with the group.
+        assert offs[g] <= r0 < end == offs[g + 1]
+        seen[r0:min(r0 + bm, end)] += 1
+    assert (seen == 1).all()
+    assert [t[0] for t in tiles] == sorted(t[0] for t in tiles)
+    assert len(tiles) <= gm.grid_tiles(m, e, variant)
+
+
+def _tiled_plain(lhs, rhs, offsets, variant):
+    """The product as the kernel cuts it: per tile of the twin's map and
+    per column tile, all BM rows multiplied (rows past the group's end are
+    the next group's, or zeros past M, as TMA loads them) and only the
+    group's rows stored; the N tail is a shorter weight slice."""
+    m, k = lhs.shape
+    n = rhs.shape[1]
+    bm, bn = gm.TILE_ROWS[variant], gm.TILE_COLS[variant]
+    rows = torch.cat([lhs, torch.zeros((bm, k), dtype=lhs.dtype)])
+    out = torch.full((m, n), float("nan"))
+    for g, r0, end in gm.tile_map(offsets.tolist(), variant):
+        keep = min(r0 + bm, end) - r0
+        for c0 in range(0, n, bn):
+            y = rows[r0:r0 + bm] @ rhs[g, c0:c0 + bn].t()
+            out[r0:r0 + keep, c0:c0 + bn] = y[:keep]
+    return out
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_grouped_gemm_tiles_match_megablox_gmm(variant):
+    rng = np.random.default_rng(3)
+    # Empty and 1-row groups, groups of 17 and 150 rows (two decode /
+    # prefill tiles), N over two 256-column tiles, K not a multiple of 64.
+    sizes = np.array([5, 0, 1, 17, 0, 150, 1, 10], np.int32)   # M 184: gmm takes M in 8s
+    m, k, n = int(sizes.sum()), 40, 300
+    lhs = rng.standard_normal((m, k)).astype(np.float32)
+    rhs = rng.standard_normal((len(sizes), n, k)).astype(np.float32)
+    ref = np.asarray(_interpret_gmm()(
+        jnp.asarray(lhs), jnp.swapaxes(jnp.asarray(rhs), 1, 2),
+        jnp.asarray(sizes),
+    ))
+    offsets = torch.tensor(_offsets(sizes), dtype=torch.int32)
+    got = _tiled_plain(torch.from_numpy(lhs), torch.from_numpy(rhs), offsets,
+                       variant)
+    assert not torch.isnan(got).any()
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+def _source_constants() -> dict[str, int]:
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    with open(os.path.join(ck.CSRC, "grouped_gemm.cu")) as f:
+        src = f.read()
+    return {m.group(1): int(m.group(2)) for m in
+            re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def test_grouped_gemm_twins_use_the_kernel_constants():
+    c = _source_constants()
+    assert c["kDecodeMaxRows"] == gm.DECODE_MAX_ROWS
+    assert c["kBK"] == gm.BK
+    for v, p in (("prefill", "kP"), ("decode", "kD")):
+        assert c[p + "BM"] == gm.TILE_ROWS[v]
+        assert c[p + "BN"] == gm.TILE_COLS[v]
+        assert c[p + "Stages"] == gm.STAGES[v]
+    assert gm.variant_for(56) == "decode"          # a 7-row decode step
+    assert gm.variant_for(64 * 8) == "decode"      # max_batch_size 64, top-8
+    assert gm.variant_for(gm.DECODE_MAX_ROWS + 1) == "prefill"
+    assert gm.variant_for(2048 * 8) == "prefill"   # a prefill step
+    assert gm.variant_for(56, "prefill") == "prefill"
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_grouped_gemm_ring_fits_shared_memory(variant):
+    """Each variant's ring fits the 227 KB a block may use; the decode
+    variant's blocks are small enough that three share an SM (228 KB, 1 KB
+    reserved a block), keeping 32 KB or more of weights in flight there."""
+    from parallax_tpu_torch.ops.decode_fused import SMEM_LIMIT
+
+    smem = gm.smem_bytes(variant)
+    assert smem <= SMEM_LIMIT
+    # TMA writes whole 1024-byte swizzle atoms: every tile of a stage.
+    for rows in (gm.TILE_ROWS[variant], gm.TILE_COLS[variant], 64):
+        assert rows * gm.BK * 2 % 1024 == 0
+    if variant == "decode":
+        assert 3 * (smem + 1024 + 16) <= 228 * 1024
+        weights = gm.STAGES[variant] * gm.TILE_COLS[variant] * gm.BK * 2
+        assert 3 * weights >= 32 * 1024
+    else:
+        assert gm.STAGES[variant] >= 4
 
 
 def _moe_params(e, i, shared, seed=2):
