@@ -40,12 +40,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                A2's bits; A1's per-sequence tiles (one-token rows among long
                chunks, a chunk of several tiles, bucket padding at exact
                zeros); A1 attend-only at the dense split path's decode shape
-               (7 rows x 1 token). Then it times each (CUDA events, median,
-               L2 flushed) beside its plain version, a PyTorch library call
-               where one computes the same function, and its bound, and A2 /
-               A9 once more at 7 rows of 2,048-8,192 tokens; the
-               device_only_ms line times A0, A1, A2, A9 and A4 (each shape)
-               and their library calls with the host's enqueue hidden.
+               (7 rows x 1 token); A5 / A6 once more at 7 rows of 8,192
+               keys (66 MB of latent cache); A3 at 64 rows of DeepSeek-V3's
+               and gpt-oss-20b's vocabularies with ties forced over its
+               chunk boundaries; A3, A5 and A6 twice, the same bits. Then it
+               times each (CUDA events, median, L2 flushed) beside its plain
+               version, a PyTorch library call where one computes the same
+               function, and its bound, and A2 / A9 once more at 7 rows of
+               2,048-8,192 tokens; the device_only_ms line times A0, A1, A2,
+               A9, A3, A4 (each shape), A5 and A6 (both shapes) and their
+               library calls with the host's enqueue hidden.
 4. serve       a single-stage StageEngine on cuda:0 serving full-width,
                all-28-layer Qwen2.5-7B (random bf16 weights from a seeded
                torch.Generator on the card) to 8 concurrent requests, three
@@ -75,7 +79,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                never) and the plain path (no kernel launched). The kernel
                runs' greedy rows must be identical and agree with the
                plain path's one-shot logits (tie-tolerant; the plain run's
-               own gaps are printed beside them).
+               own gaps are printed beside them). One greedy stream is
+               decoded again step by step, A5 against the plain MLA decode
+               on the same cache, and the largest logit difference printed
+               (no limit).
 10. mla_profile mla_serve's fused run once more under torch.profiler.
 11. dsa_serve  DeepSeek-V3.2 at the same width and depth, on the same tree
                plus the indexer, with one more request of 2,400 prompt ids
@@ -170,6 +177,8 @@ DSA_LONG_PROMPT = 2400
 DSA_MAX_MODEL_LEN = 3072
 # Decode contexts over several splits (kernels phase), one past 4096.
 LONG_LENS = [8192, 4500, 300, 1, 0, 2049, 640]
+# A5 / A6's long-context shape: 7 rows of this many keys each.
+MLA_LONG_KEYS = 8192
 # The kernels of the dense GQA path (serve); the MoE path adds grouped_gemm.
 DENSE_KERNELS = ("kv_append", "gqa_prefill", "gqa_decode", "sample_topk")
 # Indexer scores: f32 sums of the same exact products, in another order.
@@ -389,6 +398,75 @@ def _sampler_batch(torch, gen, dev, v):
     return logits, gumbel, temp, top_k
 
 
+def _sampler_wide_batch(torch, gen, dev, s, v):
+    """``s`` rows over a ``v`` vocabulary for A3: greedy rows with their
+    maximum in two chunks, and top-k rows (k 1, 2, 5, 20, 63, 64, 0, V)
+    whose k-th value is tied over one of A3's chunk boundaries
+    (sample_chunks)."""
+    from parallax_tpu_torch.ops.sampling import row_gumbel, sample_chunks
+
+    chunks, length = sample_chunks(s, v)
+    logits = torch.randn((s, v), generator=gen, device=dev) * 3.0
+    ks = [0, 1, 2, 5, 20, 63, 64, 0, v]
+    top_k = torch.tensor([ks[i % len(ks)] for i in range(s)],
+                         dtype=torch.int32, device=dev)
+    temp = torch.tensor([0.0 if i % len(ks) == 0 else 0.5 + (i % 5) * 0.25
+                         for i in range(s)], device=dev)
+    for i in range(s):
+        b = length * (1 + i % max(chunks - 1, 1))
+        b = min(b, v - 1)
+        top = float(logits[i].max())
+        k = int(top_k[i])
+        if float(temp[i]) == 0.0:
+            logits[i, [b - 1, min(b + length, v - 1)]] = top + 1.0
+        elif 0 < k < v:
+            lo = max(b - k // 2, 0)
+            logits[i, lo:lo + max(k - 2, 0)] = top + 3.0
+            logits[i, lo + max(k - 2, 0):lo + k + 3] = top + 1.0
+    gumbel = row_gumbel(s, v, base_seed=5, step=1, device=dev)
+    return logits, gumbel, temp, top_k, chunks
+
+
+def check_sampler_wide(torch, gen, dev, flush) -> dict:
+    """A3 at 64 rows over DeepSeek-V3's and gpt-oss-20b's vocabularies:
+    exactly the plain version's tokens, the same bits on two calls, timed
+    beside the plain version and the bound."""
+    from parallax_tpu_torch.models.presets import get_preset
+    from parallax_tpu_torch.ops.sampling import (
+        fused_sample_topk,
+        fused_sample_topk_plain,
+    )
+
+    line = {"phase": "kernels", "check": "sampler_wide", "rows": 64}
+    for label, model in (("deepseek_v3", DSV3_MODEL),
+                         ("gpt_oss", GPTOSS_MODEL)):
+        v = get_preset(model).vocab_size
+        logits, gumbel, temp, top_k, chunks = _sampler_wide_batch(
+            torch, gen, dev, 64, v)
+        args = (logits, gumbel, temp, top_k)
+        tok_k = fused_sample_topk(*args)
+        tok_2 = fused_sample_topk(*args)
+        tok_p = fused_sample_topk_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(tok_k, tok_p):
+            bad = (tok_k != tok_p).nonzero().flatten().tolist()
+            raise AssertionError(f"sample_topk {label}: rows {bad} differ "
+                                 "from the plain version")
+        if not torch.equal(tok_k, tok_2):
+            raise AssertionError(f"sample_topk {label}: two calls differ")
+        b_ms, b_by = bound(2 * 64 * v * 4 + 64 * 12, 3 * 64 * v, "float32")
+        line[label] = {
+            "vocab": v, "chunks": chunks, "exact": True,
+            "two_calls_bitwise_equal": True,
+            "ms": time_ms(torch, lambda: fused_sample_topk(*args), 30, flush),
+            "device_only_ms": time_ms(torch, lambda: fused_sample_topk(*args),
+                                      30, flush, hide_host=True),
+            "plain_ms": time_ms(torch, lambda: fused_sample_topk_plain(*args),
+                                5, flush),
+            "bound_ms": b_ms, "bound_by": b_by}
+    return line
+
+
 def check_kv_append_edges(torch, gen, dev) -> dict:
     """A0 against reshape_and_cache, bitwise: one token, token counts that
     are not a multiple of the kernel's 8 tokens a block, negative and
@@ -537,16 +615,19 @@ def phase_kernels(torch, dev) -> list[dict]:
     v = get_preset(DENSE_MODEL).vocab_size
     logits, gumbel, temp, top_k = _sampler_batch(torch, gen, dev, v)
     tok_k = fused_sample_topk(logits, gumbel, temp, top_k)
+    tok_2 = fused_sample_topk(logits, gumbel, temp, top_k)
     tok_p = fused_sample_topk_plain(logits, gumbel, temp, top_k)
     err_tok = float((tok_k - tok_p).abs().max())
     if not torch.equal(tok_k, tok_p):
         raise AssertionError(
             f"sample_topk: {tok_k.tolist()} != plain {tok_p.tolist()}"
         )
+    if not torch.equal(tok_k, tok_2):
+        raise AssertionError("sample_topk: two calls differ")
     if int(tok_k[1]) != 77:
         raise AssertionError("sample_topk: greedy tie must take index 77")
     emit({"phase": "kernels", "check": "sampler", "tokens": tok_k.tolist(),
-          "exact": True})
+          "exact": True, "two_calls_bitwise_equal": True})
 
     # -- timing at the main path's shapes --------------------------------
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32,
@@ -649,6 +730,14 @@ def phase_kernels(torch, dev) -> list[dict]:
                                                   top_k), 30, flush)
     plain = time_ms(torch, lambda: fused_sample_topk_plain(
         logits, gumbel, temp, top_k), 10, flush)
+    device_only["sample_topk"] = time_ms(
+        torch, lambda: fused_sample_topk(logits, gumbel, temp, top_k), 30,
+        flush, hide_host=True)
+    # A diagnosis, as for A4: the same after a reading L2 flush, which
+    # leaves no dirty lines for the timed call to write back.
+    device_only["sample_topk_clean_l2"] = time_ms(
+        torch, lambda: fused_sample_topk(logits, gumbel, temp, top_k), 30,
+        flush, hide_host=True, clean=True)
     s = logits.shape[0]
     b_ms, b_by = bound(2 * s * v * 4 + s * 12, 3 * s * v, "float32")
     out.append(dict(
@@ -658,10 +747,11 @@ def phase_kernels(torch, dev) -> list[dict]:
         max_abs_err=err_tok, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=None,
     ))
+    emit(check_sampler_wide(torch, gen, dev, flush))
     out.append(kernels_grouped_gemm(torch, gen, dev, flush, device_only))
     kernels_grouped_gemm(torch, gen, dev, flush, device_only,
                          model=DSV3_MODEL, label="grouped_gemm_deepseek")
-    out.extend(kernels_deepseek(torch, gen, dev, flush))
+    out.extend(kernels_deepseek(torch, gen, dev, flush, device_only))
     split_out, split_device_only = kernels_split(torch, gen, dev, flush)
     out.extend(split_out)
     emit({"phase": "kernels", "check": "device_only_ms",
@@ -874,6 +964,23 @@ def kernels_grouped_gemm(torch, gen, dev, flush, device_only,
     )
 
 
+def _mla_case(torch, gen, dev, dtype, hq, r, dr, page, lens, frozen,
+              pps=None):
+    """Random A5 / A6 inputs over ``lens``-long contexts (_paged_rows) and
+    the wrappers' keywords."""
+    pages, slots, used = _paged_rows(torch, lens, page, frozen, pps)
+    s = len(lens)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    c = dict(ql=rnd(s, hq, r), qp=rnd(s, hq, dr), lat=rnd(s, r),
+             kpe=rnd(s, dr), cache=rnd(used + 2, page, 1, r + dr),
+             lens=torch.tensor(lens, dtype=torch.int32, device=dev),
+             pages=pages.to(dev), slots=slots.to(dev))
+    return c, dict(sm_scale=(128 + dr) ** -0.5, kv_lora_rank=r)
+
+
 def check_mla(torch, gen, dev, dtype, hq, r, dr, page, lens, frozen,
               pps=None):
     """A5 (append + attend) and A6 (attend) against their plain versions on
@@ -888,17 +995,8 @@ def check_mla(torch, gen, dev, dtype, hq, r, dr, page, lens, frozen,
         mla_decode_attention_plain,
     )
 
-    pages, slots, used = _paged_rows(torch, lens, page, frozen, pps)
-    s = len(lens)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
-
-    c = dict(ql=rnd(s, hq, r), qp=rnd(s, hq, dr), lat=rnd(s, r),
-             kpe=rnd(s, dr), cache=rnd(used + 2, page, 1, r + dr),
-             lens=torch.tensor(lens, dtype=torch.int32, device=dev),
-             pages=pages.to(dev), slots=slots.to(dev))
-    kw = dict(sm_scale=(128 + dr) ** -0.5, kv_lora_rank=r)
+    c, kw = _mla_case(torch, gen, dev, dtype, hq, r, dr, page, lens, frozen,
+                      pps)
     cache_k, cache_p = c["cache"].clone(), c["cache"].clone()
     args = (c["ql"], c["qp"], c["lat"], c["kpe"])
     out_k, _ = mla_fused_decode(*args, cache_k, c["lens"], c["pages"],
@@ -909,7 +1007,17 @@ def check_mla(torch, gen, dev, dtype, hq, r, dr, page, lens, frozen,
                                  c["pages"], **kw)
     ref_6 = mla_decode_attention_plain(c["ql"], c["qp"], cache_p, c["lens"],
                                        c["pages"], **kw)
+    # Two calls give the same bits: A5 again on a fresh copy of the cache,
+    # A6 again on A5's.
+    cache_2 = c["cache"].clone()
+    out_k2, _ = mla_fused_decode(*args, cache_2, c["lens"], c["pages"],
+                                 c["slots"], **kw)
+    out_62 = mla_decode_attention(c["ql"], c["qp"], cache_k, c["lens"],
+                                  c["pages"], **kw)
     torch.cuda.synchronize()
+    if not (torch.equal(out_k, out_k2) and torch.equal(cache_k, cache_2)
+            and torch.equal(out_6, out_62)):
+        raise AssertionError("mla_decode/mla_attend: two calls differ")
     if not torch.equal(cache_k, cache_p):
         raise AssertionError("mla_decode: cache after the append differs")
     zero_rows = [i for i, n in enumerate(lens) if n == 0]
@@ -1005,23 +1113,98 @@ def _sdpa_mla(torch, c, r, page, sm_scale):
         q, k, v, attn_mask=mask, scale=sm_scale, enable_gqa=True)
 
 
-def kernels_deepseek(torch, gen, dev, flush) -> list[dict]:
-    """A5-A8: the checks at DeepSeek-V3 / V3.2's decode shapes and the
-    small float32 edge cases, then the main shapes timed."""
-    from parallax_tpu_torch.models.presets import get_preset
+def time_mla(torch, mc, mkw, lens, page, flush, device_only,
+             suffix="") -> list[dict]:
+    """A5 and A6 on ``mc``'s rows (a check_mla case) timed as the kernels
+    line times them, beside their plain versions, SDPA over the gathered
+    rows and the bound; each one's device time (and SDPA's as
+    ``mla_library``) goes into ``device_only``, keyed with ``suffix``."""
     from parallax_tpu_torch.ops.decode_fused import (
-        indexer_scores_fused,
-        indexer_scores_fused_plain,
         mla_fused_decode,
         mla_fused_decode_plain,
-    )
-    from parallax_tpu_torch.ops.dsa_decode import (
-        paged_token_scores_decode,
-        paged_token_scores_decode_plain,
     )
     from parallax_tpu_torch.ops.mla_decode import (
         mla_decode_attention,
         mla_decode_attention_plain,
+    )
+
+    s, hq, r = mc["ql"].shape
+    w, ctx, esz = mc["cache"].shape[-1], sum(lens), 2
+    cache = mc["cache"].clone()
+    fargs = (mc["ql"], mc["qp"], mc["lat"], mc["kpe"], cache, mc["lens"],
+             mc["pages"], mc["slots"])
+    aargs = (mc["ql"], mc["qp"], cache, mc["lens"], mc["pages"])
+    sdpa = _sdpa_mla(torch, dict(mc, cache=cache), r, page, mkw["sm_scale"])
+    lib = time_ms(torch, sdpa, 30, flush)
+    device_only["mla_library" + suffix] = time_ms(torch, sdpa, 30, flush,
+                                                  hide_host=True)
+    del sdpa
+    ops = 2 * hq * ctx * (w + r)
+    out = []
+    for name, fn, plain_fn, args, app, src in (
+        ("mla_decode", mla_fused_decode, mla_fused_decode_plain, fargs, True,
+         "parallax_tpu/ops/decode_fused_pallas.py:421"),
+        ("mla_attend", mla_decode_attention, mla_decode_attention_plain,
+         aargs, False, "parallax_tpu/ops/mla_pallas.py:114"),
+    ):
+        ms = time_ms(torch, lambda: fn(*args, **mkw), 50, flush)
+        plain = time_ms(torch, lambda: plain_fn(*args, **mkw), 10, flush)
+        device_only[name + suffix] = time_ms(
+            torch, lambda: fn(*args, **mkw), 50, flush, hide_host=True)
+        device_only[name + suffix + "_clean_l2"] = time_ms(
+            torch, lambda: fn(*args, **mkw), 50, flush, hide_host=True,
+            clean=True)
+        moved = (s * hq * w + ctx * w + s * hq * r + (2 * s * w if app else 0)
+                 ) * esz
+        b_ms, b_by = bound(moved, ops, "bfloat16")
+        out.append(dict(
+            name=name, route="cuda",
+            source="parallax_tpu_torch/csrc/mla_decode.cu", replaces=src,
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib,
+        ))
+    return out
+
+
+def mla_long_context(torch, gen, dev, flush, device_only) -> dict:
+    """A5 and A6 at 7 rows of 8,192 keys at DeepSeek-V3's widths (66 MB of
+    latent cache, past the 50 MB L2): checked as check_mla checks, then
+    timed as time_mla times them."""
+    from parallax_tpu_torch.models.presets import get_preset
+
+    cfg = get_preset(DSV3_MODEL)
+    hq, r, dr, page = (cfg.num_attention_heads, cfg.mla.kv_lora_rank,
+                       cfg.mla.qk_rope_head_dim, 64)
+    lens = [MLA_LONG_KEYS] * 7
+    e5, e6, mc, mkw = check_mla(torch, gen, dev, torch.bfloat16, hq, r, dr,
+                                page, lens, set())
+    timed = time_mla(torch, mc, mkw, lens, page, flush, device_only,
+                     suffix="_long")
+    line = {"phase": "kernels", "check": "mla_long_context", "lens": lens,
+            "mla_decode_bf16_max_abs_err": e5,
+            "mla_attend_bf16_max_abs_err": e6,
+            "bf16_tol_atol_rtol": BF16_TOL, "cache_bitwise_equal": True,
+            "a6_equals_a5": True, "two_calls_bitwise_equal": True}
+    for e in timed:
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+            line[f"{e['name']}_{key}"] = e[key]
+        line[f"{e['name']}_device_only_ms"] = device_only[e["name"] + "_long"]
+    line["library_device_only_ms"] = device_only["mla_library_long"]
+    return line
+
+
+def kernels_deepseek(torch, gen, dev, flush, device_only) -> list[dict]:
+    """A5-A8: the checks at DeepSeek-V3 / V3.2's decode shapes and the
+    small float32 edge cases, then the main shapes timed; A5 / A6 also at
+    long contexts."""
+    from parallax_tpu_torch.models.presets import get_preset
+    from parallax_tpu_torch.ops.decode_fused import (
+        indexer_scores_fused,
+        indexer_scores_fused_plain,
+    )
+    from parallax_tpu_torch.ops.dsa_decode import (
+        paged_token_scores_decode,
+        paged_token_scores_decode_plain,
     )
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1043,7 +1226,8 @@ def kernels_deepseek(torch, gen, dev, flush) -> list[dict]:
           "f32_edge_cases": edge["lens"], "mla_decode_f32_max_abs_err": e5s,
           "mla_attend_f32_max_abs_err": e6s,
           "bf16_tol_atol_rtol": BF16_TOL, "f32_tol_atol_rtol": F32_TOL,
-          "cache_bitwise_equal": True, "a6_equals_a5": True})
+          "cache_bitwise_equal": True, "a6_equals_a5": True,
+          "two_calls_bitwise_equal": True})
     errs = {}
     for kind in ("dsa", "msa"):
         e7, e8, ic, ikw = check_indexer(torch, gen, dev, bf16, hi, di, page,
@@ -1060,33 +1244,13 @@ def kernels_deepseek(torch, gen, dev, flush) -> list[dict]:
           "cache_bitwise_equal": True, "neg_inf_positions_identical": True,
           "a8_equals_a7": True})
 
-    out = []
-    s, ctx, esz = len(lens), sum(lens), 2
-    w = r + dr
     # A5 / A6 at the main shapes.
-    cache = mc["cache"].clone()
-    fargs = (mc["ql"], mc["qp"], mc["lat"], mc["kpe"], cache, mc["lens"],
-             mc["pages"], mc["slots"])
-    aargs = (mc["ql"], mc["qp"], cache, mc["lens"], mc["pages"])
-    lib = time_ms(torch, _sdpa_mla(torch, dict(mc, cache=cache), r, page,
-                                   mkw["sm_scale"]), 30, flush)
-    ops = 2 * hq * ctx * (w + r)
-    for name, fn, plain_fn, args, app, err, src in (
-        ("mla_decode", mla_fused_decode, mla_fused_decode_plain, fargs, True,
-         max(e5, e5s), "parallax_tpu/ops/decode_fused_pallas.py:421"),
-        ("mla_attend", mla_decode_attention, mla_decode_attention_plain,
-         aargs, False, max(e6, e6s), "parallax_tpu/ops/mla_pallas.py:114"),
-    ):
-        ms = time_ms(torch, lambda: fn(*args, **mkw), 50, flush)
-        plain = time_ms(torch, lambda: plain_fn(*args, **mkw), 10, flush)
-        moved = (s * hq * w + ctx * w + s * hq * r + (2 * s * w if app else 0)
-                 ) * esz
-        b_ms, b_by = bound(moved, ops, "bfloat16")
-        out.append(dict(
-            name=name, route="cuda", source="parallax_tpu_torch/csrc/mla_decode.cu",
-            replaces=src, max_abs_err=err, ms=ms, plain_ms=plain,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-        ))
+    out = time_mla(torch, mc, mkw, lens, page, flush, device_only)
+    out[0]["max_abs_err"] = max(e5, e5s)
+    out[1]["max_abs_err"] = max(e6, e6s)
+    del mc
+    emit(mla_long_context(torch, gen, dev, flush, device_only))
+    s, ctx, esz = len(lens), sum(lens), 2
     # A7 / A8 at the main shapes (DSA reduction).
     ic = dsa_case
     cache = ic["cache"].clone()
@@ -1379,20 +1543,26 @@ def kernels_split(torch, gen, dev, flush) -> list[dict]:
 
 
 def attention_breakdown(torch, gen, dev, flush) -> dict:
-    """Device microseconds per call of each launch of A1, A2 and A9 (split,
-    combine, tile kernels) under torch.profiler, 20 calls with the L2
-    flushed before each: A1 on the 749-token chunk and on the dense decode
-    shape, A2 on 8 rows and on 7 rows of 2,048-8,192 tokens, A9 at
-    gpt-oss-20b's decode shape."""
+    """Device microseconds per call of each launch of A1, A2, A9, A5 and A3
+    (split, combine, tile, candidate and pick kernels) under
+    torch.profiler, 20 calls with the L2 flushed before each: A1 on the
+    749-token chunk and on the dense decode shape, A2 on 8 rows and on 7
+    rows of 2,048-8,192 tokens, A9 at gpt-oss-20b's decode shape, A5 at
+    DeepSeek-V3's smoke and long shapes, A3 on the 8-row batch."""
     import re
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from parallax_tpu_torch.ops.decode_fused import gqa_fused_decode
+    from parallax_tpu_torch.models.presets import get_preset
+    from parallax_tpu_torch.ops.decode_fused import (
+        gqa_fused_decode,
+        mla_fused_decode,
+    )
     from parallax_tpu_torch.ops.gqa_decode import gqa_decode_attention
     from parallax_tpu_torch.ops.kv_cache_ops import reshape_and_cache
     from parallax_tpu_torch.ops.prefill_fused import gqa_prefill_attend
+    from parallax_tpu_torch.ops.sampling import fused_sample_topk
 
     bf16, page = torch.bfloat16, 64
 
@@ -1410,6 +1580,16 @@ def attention_breakdown(torch, gen, dev, flush) -> dict:
             c["q"], c["k"], c["v"], c["cache"], c["lens"], c["pages"],
             c["slots"], None, sm_scale=128 ** -0.5)
 
+    def a5(lens):
+        m = get_preset(DSV3_MODEL).mla
+        c, kw = _mla_case(torch, gen, dev, bf16, 128, m.kv_lora_rank,
+                          m.qk_rope_head_dim, page, lens, set())
+        return lambda: mla_fused_decode(
+            c["ql"], c["qp"], c["lat"], c["kpe"], c["cache"], c["lens"],
+            c["pages"], c["slots"], **kw)
+
+    sampler = _sampler_batch(torch, gen, dev,
+                             get_preset(DENSE_MODEL).vocab_size)
     sinks = torch.randn((64,), generator=gen, device=dev)
     c9 = _decode_case(torch, gen, dev, bf16, 64, 8, 64, page,
                       [292, 332, 482, 732, 544, 412, 672], set())
@@ -1421,6 +1601,9 @@ def attention_breakdown(torch, gen, dev, flush) -> dict:
         "gqa_attend": lambda: gqa_decode_attention(
             c9["q"], c9["cache"], c9["lens"], c9["pages"], sinks,
             sm_scale=64 ** -0.5),
+        "mla_decode": a5([292, 332, 482, 732, 544, 412, 672]),
+        "mla_decode_long": a5([MLA_LONG_KEYS] * 7),
+        "sample_topk": lambda: fused_sample_topk(*sampler),
     }
     line = {"phase": "kernels", "check": "attention_breakdown_us"}
     for name, fn in calls.items():
@@ -1433,7 +1616,7 @@ def attention_breakdown(torch, gen, dev, flush) -> dict:
             torch.cuda.synchronize()
         per = {}
         for evt in prof.key_averages():
-            m = re.search(r"gqa_\w+_kernel", evt.key)
+            m = re.search(r"(gqa|mla|sample)_\w+_kernel", evt.key)
             if m and evt.device_type == DeviceType.CUDA:
                 per[m.group(0)] = float(evt.self_device_time_total) / 20
         if not per:
@@ -1823,13 +2006,17 @@ def phase_pipeline(torch, dev, cfg, model_full, params, single, sampled):
 def _kernel_group(name: str) -> str:
     # By kernel name: A2 / A9's split and combine launches
     # (gqa_decode_{split,combine}_kernel) fall under gqa_decode, A1's three
-    # (gqa_prefill_{tile,split,combine}_kernel) under gqa_prefill.
+    # (gqa_prefill_{tile,split,combine}_kernel) under gqa_prefill, A5 / A6's
+    # two (mla_{split,combine}_kernel) under mla_decode and A3's two
+    # (sample_{candidates,pick}_kernel) under sample_topk.
     for key, group in (("gqa_decode", "gqa_decode"),
                        ("gqa_prefill", "gqa_prefill"),
                        ("kv_append", "kv_append"),
-                       ("sample_topk", "sample_topk"),
+                       ("sample_candidates_kernel", "sample_topk"),
+                       ("sample_pick_kernel", "sample_topk"),
                        ("grouped_gemm", "grouped_gemm"),
-                       ("mla_decode_kernel", "mla_decode"),
+                       ("mla_split_kernel", "mla_decode"),
+                       ("mla_combine_kernel", "mla_decode"),
                        ("indexer_kernel", "indexer")):
         if key in name:
             return group
@@ -1969,9 +2156,65 @@ def _deepseek_config(name: str):
                             model_name=name)
 
 
+def teacher_forced_decode(torch, model, params, req, dev, kernel,
+                          max_len=1024) -> dict:
+    """One served greedy stream decoded again, step by step, through the
+    stage ``model``: its prompt prefilled once, then each output token fed
+    as a one-token decode step twice on the same cache, through the fused
+    decode kernel (``decode_fused``; it must launch ``kernel`` once per
+    layer) on a copy of the cache and through the plain path on the cache
+    itself, which goes on to the next step. Returns the largest logit
+    difference of any step and how many steps share their argmax (no
+    limit): the fused kernel's effect on one step's logits, free of the
+    compounding that a served stream adds."""
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.runtime.batch import BucketSpec, assemble
+    from parallax_tpu_torch.runtime.request import Request
+    from parallax_tpu_torch.runtime.scheduler import BatchPlan, ScheduledSeq
+
+    page = 64
+    prompt, outs = list(req.prompt_ids), list(req.output_ids)
+    npg = (len(prompt) + len(outs) + page - 1) // page
+    ref = Request("teacher_forced", prompt_ids=prompt)
+    ref.page_ids = list(range(1, npg + 1))
+    spec = BucketSpec.build(max_len, 1, max_len, page)
+
+    def plan(tokens, ctx):
+        return BatchPlan([ScheduledSeq(request=ref, num_new_tokens=len(tokens),
+                                       token_ids=tokens, context_len=ctx)])
+
+    kv = model.new_kv_caches(npg + 1, page, params["norm"]["weight"].dtype,
+                             dev)
+    diff, same, steps = 0.0, 0, 0
+    ck.reset_launches()
+    with torch.no_grad():
+        _, kv = model(params, kv, assemble(plan(prompt, len(prompt)), spec,
+                                           page, dev))
+        for j, tok in enumerate(outs[:-1]):
+            p = plan([tok], len(prompt) + j + 1)
+            kv_f = [c.clone() for c in kv]
+            lf, _ = model(params, kv_f, assemble(p, spec, page, dev,
+                                                 decode_only=True,
+                                                 decode_fused=True))
+            lp, kv = model(params, kv, assemble(p, spec, page, dev,
+                                                decode_only=True))
+            diff = max(diff, float((lf[0].float() - lp[0].float()).abs().max()))
+            same += int(lf[0].argmax() == lp[0].argmax())
+            steps += 1
+            del kv_f, lf, lp
+    torch.cuda.synchronize()
+    n = model.num_local_layers
+    if ck.launches()[kernel] != n * steps:
+        raise AssertionError(f"teacher-forced {kernel}: "
+                             f"{ck.launches()[kernel]} launches, want "
+                             f"{n * steps}")
+    return {"request": req.request_id, "steps": steps,
+            "largest_logit_diff": diff, "argmax_equal": same}
+
+
 def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
                 margin, plain_kw, plain_note, long_prompt=0,
-                max_model_len=1024) -> dict:
+                max_model_len=1024, teacher_forced=None) -> dict:
     """Serve the mix on ``cfg`` three times: fused decode, split decode (its
     kernels) and the plain path (``plain_kw``: no kernel). ``expected(mode,
     dispatch_total, impl, prefill_impl)`` gives each run's exact launches
@@ -1979,7 +2222,9 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
     only. The kernel runs' greedy rows must be identical and agree with the
     plain model's one-shot logits within ``tol``, with at most ``margin``
     more tokens off by GREEDY_TOL or more than the plain run, served the
-    same way, shows. Returns each run's launches."""
+    same way, shows. ``teacher_forced``, a decode kernel's name, adds
+    teacher_forced_decode of the first greedy stream on the plain model.
+    Returns each run's launches."""
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.ops import cuda_kernels as ck
 
@@ -2043,6 +2288,12 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
     worst_p, over_p, *_ = greedy_check(torch, model_plain, params,
                                       runs["plain"], sampled, dev,
                                       max_len=max_model_len)
+    if teacher_forced is not None:
+        emit({"phase": phase, "check": f"teacher_forced_{teacher_forced}"
+                                       "_vs_plain",
+              **teacher_forced_decode(torch, model_plain, params,
+                                      runs["fused"][greedy[0]], dev,
+                                      teacher_forced, max_model_len)})
     ok = worst < tol and over <= over_p + margin
     emit({"phase": phase, "greedy_fused_equals_split": True,
           "sampled_rows_identical": sampled_same,
@@ -2065,7 +2316,8 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
 
 
 def deepseek_serve(torch, dev, card, phase, cfg, params, kernels,
-                   long_prompt=0, max_model_len=1024) -> dict:
+                   long_prompt=0, max_model_len=1024,
+                   teacher_forced=None) -> dict:
     """The DeepSeek paths' three runs. ``kernels`` names each kernel run's
     decode kernel, which must launch once per (MLA or full-indexer) layer
     and decode step; the other decode kernels and the GQA kernels never;
@@ -2086,7 +2338,8 @@ def deepseek_serve(torch, dev, card, phase, cfg, params, kernels,
         tol=DEEPSEEK_GREEDY_TOL, margin=DEEPSEEK_OFF_MARGIN,
         plain_kw=dict(moe_kernel=False, use_kernels=False),
         plain_note="moe_ffn(kernel=False) + plain MLA / indexer",
-        long_prompt=long_prompt, max_model_len=max_model_len)
+        long_prompt=long_prompt, max_model_len=max_model_len,
+        teacher_forced=teacher_forced)
 
 
 def run_deepseek(torch, dev, card: str, want) -> dict:
@@ -2121,7 +2374,8 @@ def run_deepseek(torch, dev, card: str, want) -> dict:
     dsa_kw = dict(long_prompt=DSA_LONG_PROMPT, max_model_len=DSA_MAX_MODEL_LEN)
     if want("mla_serve"):
         runs = deepseek_serve(torch, dev, card, "mla_serve", cfg3, params,
-                              {"fused": "mla_decode", "split": "mla_attend"})
+                              {"fused": "mla_decode", "split": "mla_attend"},
+                              teacher_forced="mla_decode")
         paths["mla_serve/fused"] = runs["fused"]
         paths["mla_serve/split"] = runs["split"]
     if want("mla_profile"):

@@ -175,6 +175,69 @@ __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
+// d[64 x 32] += A[64 x 16] @ B[32 x 16]^T, both K-major in shared memory
+// (the fragment layout of wgmma_m64n256k16).
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : PK_F8(0), PK_F8(8)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64 x 256] += A[64 x 16] @ B[16 x 256]: A in registers (each warp its 16
+// rows, laid out as mma.m16n8k16's A fragment), B in shared memory
+// MN-major (its 256 columns contiguous in 64-element swizzled atoms; see
+// desc_sw128_mn).
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
+                                                    const unsigned (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : PK_F8(0), PK_F8(8), PK_F8(16), PK_F8(24), PK_F8(32), PK_F8(40),
+        PK_F8(48), PK_F8(56), PK_F8(64), PK_F8(72), PK_F8(80), PK_F8(88),
+        PK_F8(96), PK_F8(104), PK_F8(112), PK_F8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef PK_F8
+
+// The descriptor of an MN-major bf16 operand in 128-byte swizzled atoms of
+// 64 MN-contiguous elements x 8 K rows (1024 bytes, 1024-byte aligned):
+// ``lbo`` bytes from one 64-element MN block to the next, ``sbo`` bytes
+// from one 8-row K group to the next.
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t smem_addr,
+                                                  uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// Makes this thread's generic-proxy writes to shared memory (plain stores,
+// cp.async) visible to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 }  // namespace pk

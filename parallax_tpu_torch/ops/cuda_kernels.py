@@ -64,18 +64,20 @@ _SIGNATURES = {
     # s, hq, hkv, d, page, pps, num_splits, window, sm_scale, dtype, stream
     "pk_gqa_attend": [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    # logits, gumbel, temperature, top_k, out, s, v, stream
-    "pk_sample_topk": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # logits, gumbel, temperature, top_k, out, workspace, s, v, chunks,
+    # chunk_len, stream
+    "pk_sample_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # lhs, rhs, group_offsets, out, m, n, k, e, variant, stream
     "pk_grouped_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q_latent, q_pe, new_rows, cache, out, kv_lens, page_indices, slots,
-    # s, hq, r, dr, page, pps, total_slots, sm_scale, dtype, stream
-    "pk_mla_decode": [_P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _L, _F, _I, _P],
-    # q_latent, q_pe, cache, out, kv_lens, page_indices,
-    # s, hq, r, dr, page, pps, sm_scale, dtype, stream
-    "pk_mla_attend": [_P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q_latent, q_pe, latent_new, k_pe_new, cache, out, kv_lens,
+    # page_indices, slots, scratch, s, hq, r, dr, page, pps, num_splits,
+    # total_slots, sm_scale, dtype, stream
+    "pk_mla_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _L, _F, _I, _P],
+    # q_latent, q_pe, cache, out, kv_lens, page_indices, scratch,
+    # s, hq, r, dr, page, pps, num_splits, sm_scale, dtype, stream
+    "pk_mla_attend": [_P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, weights, k_new, cache, scores, kv_lens, page_indices, slots,
     # s, hi, d, page, pps, total_slots, reduce, sm_scale, dtype, stream
     "pk_indexer_fused": [_P, _P, _P, _P, _P, _P, _P, _P,

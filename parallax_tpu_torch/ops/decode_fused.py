@@ -306,27 +306,29 @@ def mla_fused_decode(
             kv_lora_rank=kv_lora_rank,
         )
     from parallax_tpu_torch.ops import cuda_kernels as ck
-    from parallax_tpu_torch.ops.mla_decode import check_mla_args
+    from parallax_tpu_torch.ops.mla_decode import check_mla_args, mla_scratch
 
     s, hq, r, dr = check_mla_args("mla_decode", q_latent, q_pe, cache,
                                   kv_lens, page_indices, kv_lora_rank)
-    rows = torch.cat([latent_new, k_pe_new], dim=-1).to(cache.dtype)
-    if rows.shape != (s, r + dr):
+    if latent_new.shape != (s, r) or k_pe_new.shape != (s, dr):
         raise ValueError("mla_decode: latent_new/k_pe_new must be [S, R] / "
                          "[S, Dr]")
     if slot_mapping.dtype != torch.int32 or slot_mapping.shape != (s,):
         raise ValueError(f"mla_decode: slot_mapping must be i32[{s}]")
-    q_latent, q_pe, rows = (q_latent.contiguous(), q_pe.contiguous(),
-                            rows.contiguous())
-    ck.require_cuda("mla_decode", q_latent, q_pe, rows, cache, kv_lens,
-                    page_indices, slot_mapping)
+    latent_new = latent_new.to(cache.dtype).contiguous()
+    k_pe_new = k_pe_new.to(cache.dtype).contiguous()
+    q_latent, q_pe = q_latent.contiguous(), q_pe.contiguous()
+    ck.require_cuda("mla_decode", q_latent, q_pe, latent_new, k_pe_new,
+                    cache, kv_lens, page_indices, slot_mapping)
     num_pages, page = cache.shape[:2]
     out = torch.empty_like(q_latent)
+    scratch, splits = mla_scratch(s, hq, r, page_indices, page)
     code = ck.lib().pk_mla_decode(
-        q_latent.data_ptr(), q_pe.data_ptr(), rows.data_ptr(),
-        cache.data_ptr(), out.data_ptr(), kv_lens.data_ptr(),
-        page_indices.data_ptr(), slot_mapping.data_ptr(),
-        s, hq, r, dr, page, page_indices.shape[1], num_pages * page,
+        q_latent.data_ptr(), q_pe.data_ptr(), latent_new.data_ptr(),
+        k_pe_new.data_ptr(), cache.data_ptr(), out.data_ptr(),
+        kv_lens.data_ptr(), page_indices.data_ptr(), slot_mapping.data_ptr(),
+        scratch.data_ptr(), s, hq, r, dr, page, page_indices.shape[1],
+        splits, num_pages * page,
         float(sm_scale), ck.dtype_code(cache), ck.stream_of(q_latent),
     )
     ck.check(code, "mla_decode")

@@ -19,9 +19,15 @@ import torch
 NEG_INF = -1e10
 # The fused kernel's removed-maximum marker (decode_fused_pallas._NEG).
 _NEG = -1e30
-# Largest per-row top_k the fused sampler accepts (its k-th value costs
-# k - 1 passes over the vocabulary); larger rows take the split sampler.
+# Largest per-row top_k the fused sampler accepts (A3 keeps each chunk's k
+# largest values as candidates); larger rows take the split sampler.
 FUSED_SAMPLE_TOPK_MAX = 64
+# A3's chunking of a row (csrc/sample_topk.cu): about two waves of the H100's
+# 132 SMs, chunks of at most 8,192 and at least 1,024 logits, at most 128.
+SAMPLE_SMS = 132
+SAMPLE_MAX_CHUNK = 8192
+SAMPLE_MIN_CHUNK = 1024
+SAMPLE_MAX_CHUNKS = 128
 
 _MASK64 = (1 << 64) - 1
 
@@ -148,6 +154,61 @@ def fused_sample_topk_plain(
     return torch.where(t <= 0.0, greedy, choice).to(torch.int32)
 
 
+def sample_chunks(s: int, v: int, chunks: int | None = None
+                  ) -> tuple[int, int]:
+    """A3's chunking of an ``[s, v]`` batch: ``(C, L)``, C chunks of L
+    logits (the last one shorter), from S and V alone; ``chunks`` forces C
+    (the tests)."""
+    if chunks is None:
+        chunks = max(-(-2 * SAMPLE_SMS // max(s, 1)), -(-v // SAMPLE_MAX_CHUNK))
+        chunks = max(1, min(chunks, SAMPLE_MAX_CHUNKS,
+                            v // SAMPLE_MIN_CHUNK))
+    length = -(-v // chunks)
+    return -(-v // length), length
+
+
+def fused_sample_topk_chunked(
+    logits: torch.Tensor,       # [S, V] float
+    gumbel: torch.Tensor,       # f32[S, V]
+    temperature: torch.Tensor,  # f32[S]; <= 0 = greedy
+    top_k: torch.Tensor,        # i32[S]; <= 0 disables the filter
+    chunks: int | None = None,
+) -> torch.Tensor:
+    """The A3 kernel's decomposition, for the tests: per chunk of
+    :func:`sample_chunks`, the min(k, L) largest scaled values (with
+    multiplicity) as candidates; v_k the k-th largest candidate; thresh =
+    ``max(v_k, -1e30)`` for k >= 2, ``v_1`` for k = 1; then each chunk's
+    argmax (first index) of filtered + gumbel, or of the logits for greedy
+    rows, merged in chunk order keeping the first of equal values. Gives
+    :func:`fused_sample_topk_plain`'s tokens; nothing on the card runs it."""
+    s, v = logits.shape
+    _, length = sample_chunks(s, v, chunks)
+    bounds = [(x0, min(x0 + length, v)) for x0 in range(0, v, length)]
+    lg = logits.float()
+    out = torch.empty((s,), dtype=torch.int32)
+    for row in range(s):
+        t, k = temperature[row:row + 1].float(), int(top_k[row])
+        if float(t) <= 0.0:
+            vals = lg[row]
+        else:
+            scaled = lg[row] / torch.clamp_min(t, 1e-6)
+            thresh = torch.tensor(_NEG, dtype=torch.float32)
+            if 0 < k < v:
+                cand = torch.cat([torch.topk(scaled[a:b], min(k, b - a)).values
+                                  for a, b in bounds])
+                vk = torch.topk(cand, k).values[k - 1]
+                thresh = torch.clamp_min(vk, _NEG) if k >= 2 else vk
+            vals = (torch.where(scaled >= thresh, scaled, NEG_INF)
+                    + gumbel[row].float())
+        best_v, best_i = None, None
+        for a, b in bounds:
+            i = a + int(torch.argmax(vals[a:b]))
+            if best_v is None or vals[i] > best_v:
+                best_v, best_i = vals[i], i
+        out[row] = best_i
+    return out
+
+
 def fused_sample_topk(
     logits: torch.Tensor,
     gumbel: torch.Tensor,
@@ -156,7 +217,9 @@ def fused_sample_topk(
 ) -> torch.Tensor:
     """The A3 wrapper (``csrc/sample_topk.cu``): one token per row, i32[S].
     CPU tensors take :func:`fused_sample_topk_plain`; CUDA tensors launch
-    the kernel or raise. Rows need ``top_k <= FUSED_SAMPLE_TOPK_MAX``."""
+    the kernel (two launches, one count) or raise. Rows need ``top_k <=
+    FUSED_SAMPLE_TOPK_MAX``: the kernel gives a sampled row with a larger
+    ``top_k < V`` the token -1."""
     if logits.device.type == "cpu":
         return fused_sample_topk_plain(logits, gumbel, temperature, top_k)
     from parallax_tpu_torch.ops import cuda_kernels as ck
@@ -172,9 +235,14 @@ def fused_sample_topk(
         raise ValueError(f"sample_topk: top_k must be i32[{s}]")
     ck.require_cuda("sample_topk", logits, gumbel, temperature, top_k)
     out = torch.empty((s,), dtype=torch.int32, device=logits.device)
+    chunks, length = sample_chunks(s, v)
+    workspace = torch.empty(
+        (s * (chunks * (FUSED_SAMPLE_TOPK_MAX + 2) + 1),), dtype=torch.int32,
+        device=logits.device)
     code = ck.lib().pk_sample_topk(
         logits.data_ptr(), gumbel.data_ptr(), temperature.data_ptr(),
-        top_k.data_ptr(), out.data_ptr(), s, v, ck.stream_of(logits),
+        top_k.data_ptr(), out.data_ptr(), workspace.data_ptr(), s, v, chunks,
+        length, ck.stream_of(logits),
     )
     ck.check(code, "sample_topk")
     ck.LAUNCHES["sample_topk"] += 1

@@ -350,3 +350,59 @@ def test_stream_of_reads_the_raw_handle_or_the_public_stream(monkeypatch):
         torch.cuda, "current_stream",
         lambda device: types.SimpleNamespace(cuda_stream=2000 + device.index))
     assert ck.stream_of(t) == 2003
+
+
+def _source_constants(name: str) -> dict[str, int]:
+    with open(os.path.join(ck.CSRC, name)) as f:
+        src = f.read()
+    return {m.group(1): int(m.group(2)) for m in
+            re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def _entry_params(name: str, source: str) -> list[str]:
+    with open(os.path.join(ck.CSRC, source)) as f:
+        src = f.read()
+    return [p.split()[-1].lstrip("*") for p in
+            re.search(name + r"\(([^)]*)\)", src).group(1).split(",")]
+
+
+def test_mla_split_entries_constants_and_carve():
+    """A5 / A6 take the f32 scratch of their split partials and the grid's
+    split count; the Python twins use the source's constants; the split
+    block's carve fits 227 KB for both cache dtypes at DeepSeek's widths
+    (R 512 + Dr 64) and at the widest row the wrappers take."""
+    from parallax_tpu_torch.ops import mla_decode as md
+
+    for name in ("pk_mla_decode", "pk_mla_attend"):
+        params = _entry_params(name, "mla_decode.cu")
+        assert "scratch" in params and "num_splits" in params, name
+    c = _source_constants("mla_decode.cu")
+    assert c["kKT"] == md.KEY_TILE
+    assert c["kSplitKeys"] == md.SPLIT_KEYS
+    assert c["kMaxSplits"] == md.MAX_SPLITS <= 32   # one combine lane each
+    assert 2 * c["kHalfCols"] == md.MAX_LATENT
+    for elem in (2, 4):
+        assert md.mla_smem_bytes(576, elem) <= md.SMEM_LIMIT
+    assert md.mla_smem_bytes(576, 2) == 201728     # bf16: 64 heads, 3 stages
+    assert md.mla_smem_bytes(576, 4) == 190720     # f32: 16 heads, 2 stages
+    # The partial's staging reuses the query tile and the ring.
+    for elem in (2, 4):
+        heads = md.HEADS_PER_BLOCK[elem]
+        assert (heads * md.mla_part_stride(512) * 4
+                <= md.mla_smem_bytes(576, elem) - 1024 - heads // 8 * 2048)
+    # The grid bound: 16 splits at 1,024 tokens of page 64 (the smoke's
+    # page table) and at 8,192; one split a page under 64 keys.
+    assert md.mla_num_splits_bound(16, 64) == 16
+    assert md.mla_num_splits_bound(128, 64) == 16
+    assert md.mla_num_splits_bound(1, 64) == 1
+    assert md.mla_num_splits_bound(8, 16) == 2
+    assert len(md.mla_split_ranges(732, 64)) == 12
+    assert len(md.mla_split_ranges(8192, 64)) == 16
+
+
+def test_sample_topk_entry_takes_workspace_and_chunking():
+    """A3's entry takes its workspace and the host's chunking (C, L); its
+    wrapper sizes the workspace S x (C x (64 + 2) + 1) words."""
+    params = _entry_params("pk_sample_topk", "sample_topk.cu")
+    assert params[5:10] == ["workspace", "s", "vocab", "chunks", "chunk_len"]
+    assert len(ck._SIGNATURES["pk_sample_topk"]) == len(params)

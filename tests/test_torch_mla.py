@@ -39,8 +39,13 @@ from parallax_tpu_torch.ops.mla import (
     store_mla_cache,
 )
 from parallax_tpu_torch.ops.mla_decode import (
+    MAX_SPLITS,
+    SPLIT_KEYS,
     mla_decode_attention,
     mla_decode_attention_plain,
+    mla_num_splits_bound,
+    mla_split_decode_plain,
+    mla_split_ranges,
 )
 
 TOL = 2e-5
@@ -243,3 +248,96 @@ def test_append_and_attend_routes_match_jax(route):
     assert np.array_equal(cache.numpy(), np.asarray(ref_cache))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=TOL,
                                rtol=TOL)
+
+
+# A5 / A6's split-KV form: lengths across split and page boundaries at
+# each page size (one split: <= 64 keys; the 16-split cap: 1,100 keys at
+# page 8), kv_len 0 and 1.
+SPLIT_LENS = [0, 1, 63, 64, 65, 130, 520, 1100]
+
+
+def _split_case(seed, lens, page, hq=HQ):
+    rng = np.random.default_rng(seed)
+    s = len(lens)
+    pps = max(-(-n // page) for n in lens) + 1
+    pages = np.zeros((s, pps), np.int32)
+    used = 1
+    for i, n in enumerate(lens):
+        npg = -(-n // page)
+        pages[i, :npg] = np.arange(used, used + npg)
+        used += npg
+    slot = np.full((s,), -1, np.int32)
+    for i, n in enumerate(lens):
+        if n > 0 and i != 2:                  # row 2 is frozen (slot -1)
+            slot[i] = pages[i, (n - 1) // page] * page + (n - 1) % page
+    f = np.float32
+    return dict(
+        ql=rng.normal(size=(s, hq, R)).astype(f),
+        qp=rng.normal(size=(s, hq, DR)).astype(f),
+        lat=rng.normal(size=(s, R)).astype(f),
+        kpe=rng.normal(size=(s, DR)).astype(f),
+        cache=rng.normal(size=(used + 1, page, 1, R + DR)).astype(f),
+        lens=np.array(lens, np.int32), pages=pages, slot=slot,
+    )
+
+
+@pytest.mark.parametrize("page", [8, 16, 64])
+def test_mla_split_form_matches_pallas(page):
+    """A6's split-KV decomposition (split ranges, 32-key tiles, the ordered
+    combine) in f32 against mla_decode_attention_pallas in interpret mode;
+    rows with kv_len 0 give exact zeros."""
+    c = _split_case(7, SPLIT_LENS, page)
+    ref = np.asarray(mla_decode_attention_pallas(
+        jnp.asarray(c["ql"]), jnp.asarray(c["qp"]), jnp.asarray(c["cache"]),
+        jnp.asarray(c["lens"]), jnp.asarray(c["pages"]), sm_scale=0.2,
+        kv_lora_rank=R, interpret=True,
+    ))
+    got = mla_split_decode_plain(
+        t(c["ql"]), t(c["qp"]), t(c["cache"]), t(c["lens"]), t(c["pages"]),
+        sm_scale=0.2, kv_lora_rank=R,
+    ).numpy()
+    np.testing.assert_allclose(got, ref, atol=TOL, rtol=TOL)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("page", [8, 64])
+def test_mla_fused_split_form_matches_pallas(page):
+    """A5's form: the append (a frozen row appends nothing), then the split
+    decode, against mla_fused_decode_pallas in interpret mode."""
+    c = _split_case(8, SPLIT_LENS, page)
+    ref_out, ref_cache = mla_fused_decode_pallas(
+        jnp.asarray(c["ql"]), jnp.asarray(c["qp"]), jnp.asarray(c["lat"]),
+        jnp.asarray(c["kpe"]), jnp.asarray(c["cache"]), jnp.asarray(c["lens"]),
+        jnp.asarray(c["pages"]), jnp.asarray(c["slot"]), sm_scale=0.13,
+        kv_lora_rank=R, interpret=True,
+    )
+    cache = t(c["cache"].copy())
+    store_mla_cache(cache, t(c["lat"]), t(c["kpe"]), t(c["slot"]))
+    assert np.array_equal(cache.numpy(), np.asarray(ref_cache))
+    got = mla_split_decode_plain(
+        t(c["ql"]), t(c["qp"]), cache, t(c["lens"]), t(c["pages"]),
+        sm_scale=0.13, kv_lora_rank=R,
+    ).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref_out), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("page", [1, 8, 16, 64, 128])
+def test_mla_split_ranges_cover_each_row(page):
+    """The splits of a row tile its pages [0, ceil(kv_len / page)) in
+    order, each of at least SPLIT_KEYS keys but the last, at most
+    MAX_SPLITS of them, and never more than the grid bound of the row's
+    page table."""
+    for n in [0, 1, 2, 63, 64, 65, 127, 300, 1024, 1100, 8192, 32768]:
+        ranges = mla_split_ranges(n, page)
+        pages = -(-n // page)
+        assert len(ranges) <= MAX_SPLITS
+        if not ranges:
+            assert n == 0
+            continue
+        assert [lo for lo, _ in ranges] == [0] + [hi for _, hi in ranges][:-1]
+        assert ranges[-1][1] == pages
+        for lo, hi in ranges[:-1]:
+            assert (hi - lo) * page >= SPLIT_KEYS
+        for pps in (pages, pages + 3):
+            if pps:
+                assert len(ranges) <= mla_num_splits_bound(pps, page)

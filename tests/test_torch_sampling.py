@@ -19,10 +19,13 @@ from parallax_tpu.ops.decode_fused_pallas import fused_sample_topk_pallas
 from parallax_tpu.ops.sampling import row_gumbel as j_row_gumbel
 from parallax_tpu.ops.sampling import sample_tokens as j_sample_tokens
 from parallax_tpu_torch.ops.sampling import (
+    FUSED_SAMPLE_TOPK_MAX,
     fused_sample_topk,
+    fused_sample_topk_chunked,
     fused_sample_topk_plain,
     greedy_tokens,
     row_gumbel,
+    sample_chunks,
     sample_tokens,
 )
 
@@ -175,3 +178,116 @@ def test_seeded_rows_reproducible_across_batch_compositions():
     big = row_gumbel(64, 1024, base_seed=1, step=2)
     assert torch.isfinite(big).all()
     assert abs(float(big.mean()) - 0.5772) < 0.02
+
+
+def _chunked_case(v: int, chunks: int, seed: int):
+    """Rows whose k-th values are tied across A3's chunk boundaries (chunks
+    of sample_chunks(., v, chunks)), for k in {0, 1, 2, 63, 64, >= V}; a row
+    with fewer than k finite logits; greedy rows with their maximum in two
+    chunks."""
+    rng = np.random.default_rng(seed)
+    _, length = sample_chunks(12, v, chunks)
+    last = (v - 1) // length * length          # first index of the last chunk
+    b = min(length, v - 1)                     # a boundary (or the last index)
+    logits = (rng.standard_normal((12, v)) * 2.0).astype(np.float32)
+    temp = np.array([0.0, 0.0, 1.0, 0.7, 1.3, 0.9, 1.0, 0.6, 1.1, 0.8, 1.0,
+                     1.0], np.float32)
+    top_k = np.array([0, 5, 1, 2, 63, 64, 0, v, v + 9, 10, 64, 2], np.int32)
+    # Greedy: one maximum in chunk 0 and the last chunk (first index wins).
+    for row in (0, 1):
+        logits[row, [3, last]] = logits[row].max() + 1.0
+    # k = 1: the top value twice, across the first boundary.
+    logits[2, [b - 1, b]] = logits[2].max() + 0.5
+    # k = 2: one top value, then the 2nd value tied across the boundary.
+    top = logits[3].max()
+    logits[3, 0] = top + 2.0
+    logits[3, [b - 1, b, last]] = top + 1.0
+    # k = 63 / 64: a run of equal values around rank k over a boundary.
+    for row, k in ((4, 63), (5, 64), (10, 64)):
+        top = logits[row].max()
+        lo = max(b - k // 2, 0)
+        logits[row, lo:lo + k - 3] = top + 3.0
+        logits[row, lo + k - 3:lo + k + 4] = top + 1.0   # ranks k-2 .. k+4
+    # Fewer than k finite logits: 4 finite, k = 10.
+    logits[9, :] = -np.inf
+    logits[9, [1, b, last, v - 1]] = [0.5, 2.0, 2.0, -1.0]
+    # k = 2 where the row's two largest values sit in the last chunk.
+    logits[11, [last, v - 1]] = logits[11].max() + 1.0
+    g = rng.gumbel(size=(12, v)).astype(np.float32)
+    return logits, g, temp, top_k
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 5, 8])
+def test_chunked_sampler_matches_plain_and_pallas(chunks):
+    """A3's decomposition (per-chunk top-k candidates, their merge, the
+    threshold rule, the chunk-ordered argmax merge) picks exactly the plain
+    version's and the TPU kernel's tokens at several chunk counts."""
+    v = 300
+    logits, g, temp, top_k = _chunked_case(v, chunks, seed=chunks)
+    args = (_t(logits), _t(g), _t(temp), _t(top_k))
+    ref = np.asarray(fused_sample_topk_pallas(
+        jnp.asarray(logits), jnp.asarray(g), jnp.asarray(temp),
+        jnp.asarray(top_k), interpret=True,
+    ))
+    plain = fused_sample_topk_plain(*args).numpy()
+    got = fused_sample_topk_chunked(*args, chunks=chunks).numpy()
+    assert np.array_equal(plain, ref)
+    assert np.array_equal(got, ref)
+    first = min(3, (v - 1) // sample_chunks(12, v, chunks)[1]
+                * sample_chunks(12, v, chunks)[1])
+    assert got[0] == first and got[1] == first   # greedy ties: first index
+
+
+def test_chunked_sampler_ties_decide_the_draw():
+    """Noise that favours one tied token at the k-th value: the tie is kept
+    in every chunking (value threshold, multiplicity across chunks), and a
+    token just below it is not."""
+    v, k = 96, 4
+    row = np.full((v,), -3.0, np.float32)
+    row[[0, 1, 2]] = 5.0
+    row[[31, 32, 64]] = 4.0                    # k-th value, three chunks
+    row[40] = 3.9
+    logits = np.stack([row, row])
+    g = np.zeros((2, v), np.float32)
+    g[0, 64] = 2.0                             # a tied token: kept
+    g[1, 40] = 50.0                            # just below: filtered
+    temp = np.ones((2,), np.float32)
+    top_k = np.full((2,), k, np.int32)
+    ref = fused_sample_topk_plain(_t(logits), _t(g), _t(temp), _t(top_k))
+    assert ref.tolist() == [64, 0]
+    for chunks in (1, 2, 3, 4, 7):
+        got = fused_sample_topk_chunked(_t(logits), _t(g), _t(temp),
+                                        _t(top_k), chunks=chunks)
+        assert got.tolist() == ref.tolist(), chunks
+
+
+def test_sample_chunks_follow_the_kernel_rule():
+    """A3's chunking: about two waves of 132 SMs, chunks of at most 8,192
+    and at least 1,024 logits, at most 128; C chunks of L cover V exactly
+    (the C entry refuses anything else); FUSED_SAMPLE_TOPK_MAX is the
+    kernel's candidate count."""
+    import os
+    import re
+
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.ops import sampling
+
+    with open(os.path.join(ck.CSRC, "sample_topk.cu")) as f:
+        src = f.read()
+    consts = {m.group(1): int(m.group(2)) for m in
+              re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kMaxK"] == FUSED_SAMPLE_TOPK_MAX
+    assert consts["kMaxChunks"] == sampling.SAMPLE_MAX_CHUNKS
+    assert sample_chunks(8, 152064) == (33, 4608)
+    assert sample_chunks(64, 152064) == (19, 8004)
+    assert sample_chunks(1, 201088) == (128, 1571)
+    assert sample_chunks(64, 129280) == (16, 8080)
+    assert sample_chunks(8, 300) == (1, 300)
+    for s in (1, 3, 8, 33, 64, 256):
+        for v in (5, 1000, 4097, 129280, 151936, 152064, 201088):
+            c, length = sample_chunks(s, v)
+            assert 1 <= c <= sampling.SAMPLE_MAX_CHUNKS
+            assert c * length >= v > (c - 1) * length
+            assert length <= sampling.SAMPLE_MAX_CHUNK
+            if v >= sampling.SAMPLE_MIN_CHUNK:
+                assert length >= sampling.SAMPLE_MIN_CHUNK
