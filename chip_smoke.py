@@ -41,7 +41,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                chunks, a chunk of several tiles, bucket padding at exact
                zeros); A1 attend-only at the dense split path's decode shape
                (7 rows x 1 token); A5 / A6 once more at 7 rows of 8,192
-               keys (66 MB of latent cache); A3 at 64 rows of DeepSeek-V3's
+               keys (66 MB of latent cache); A7 / A8 once more at 7 rows
+               of 32,768 keys (58.7 MB of index keys), with the MSA
+               reduction at MiniMax-M3's indexer (Hi 16, D 64) and in bf16
+               at pages of 16, 24 and 12 positions, each twice, the same
+               bits; A3 at 64 rows of DeepSeek-V3's
                and gpt-oss-20b's vocabularies with ties forced over its
                chunk boundaries; A3, A5 and A6 twice, the same bits. Then it
                times each (CUDA events, median, L2 flushed) beside its plain
@@ -49,7 +53,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                function, and its bound, and A2 / A9 once more at 7 rows of
                2,048-8,192 tokens; the device_only_ms line times A0, A1, A2,
                A9, A3, A4 (each shape), A5 and A6 (both shapes) and their
-               library calls with the host's enqueue hidden.
+               library calls with the host's enqueue hidden, and A7 / A8
+               (both shapes).
 4. serve       a single-stage StageEngine on cuda:0 serving full-width,
                all-28-layer Qwen2.5-7B (random bf16 weights from a seeded
                torch.Generator on the card) to 8 concurrent requests, three
@@ -87,7 +92,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. dsa_serve  DeepSeek-V3.2 at the same width and depth, on the same tree
                plus the indexer, with one more request of 2,400 prompt ids
                so that sparse top-k selection runs: fused (A7), split (A8)
-               and plain, the same checks.
+               and plain, the same checks; the long greedy stream is
+               decoded again step by step, A7 against the plain indexer
+               (the logit difference, argmax and top-k set agreement).
 12. dsa_profile dsa_serve's fused run once more under torch.profiler.
 13. gptoss_serve gpt-oss-20b at full width and all 24 layers (20.9 B params,
                42 GB in bf16, each layer's sinks drawn N(0, 1); DeepSeek's
@@ -175,6 +182,9 @@ DEEPSEEK_LAYERS = 5
 # selects a sparse top-k on the card.
 DSA_LONG_PROMPT = 2400
 DSA_MAX_MODEL_LEN = 3072
+MSA_MODEL = "MiniMaxAI/MiniMax-M3"               # its indexer: Hi 16, D 64
+# A7 / A8's long-context shape: 7 rows of this many keys each.
+INDEXER_LONG_KEYS = 32768
 # Decode contexts over several splits (kernels phase), one past 4096.
 LONG_LENS = [8192, 4500, 300, 1, 0, 2049, 640]
 # A5 / A6's long-context shape: 7 rows of this many keys each.
@@ -1041,20 +1051,10 @@ def _close_scores(torch, got, ref, tol) -> float:
     return _close(torch, got[live], ref[live], tol)
 
 
-def check_indexer(torch, gen, dev, dtype, hi, d, page, lens, frozen, kind,
+def _indexer_case(torch, gen, dev, dtype, hi, d, page, lens, frozen, kind,
                   pps=None):
-    """A7 (append + score) and A8 (score) against their plain versions: the
-    cache bitwise, the -inf positions identical, the scores within
-    SCORE_TOL; A8 on A7's cache gives A7's bits."""
-    from parallax_tpu_torch.ops.decode_fused import (
-        indexer_scores_fused,
-        indexer_scores_fused_plain,
-    )
-    from parallax_tpu_torch.ops.dsa_decode import (
-        paged_token_scores_decode,
-        paged_token_scores_decode_plain,
-    )
-
+    """Random A7 / A8 inputs over ``lens``-long contexts (_paged_rows) and
+    the wrappers' keywords."""
     pages, slots, used = _paged_rows(torch, lens, page, frozen, pps)
     s = len(lens)
 
@@ -1066,7 +1066,26 @@ def check_indexer(torch, gen, dev, dtype, hi, d, page, lens, frozen, kind,
                 if kind == "dsa" else None),
              lens=torch.tensor(lens, dtype=torch.int32, device=dev),
              pages=pages.to(dev), slots=slots.to(dev))
-    kw = dict(reduce_kind=kind, sm_scale=d ** -0.5)
+    return c, dict(reduce_kind=kind, sm_scale=d ** -0.5)
+
+
+def check_indexer(torch, gen, dev, dtype, hi, d, page, lens, frozen, kind,
+                  pps=None):
+    """A7 (append + score) and A8 (score) against their plain versions: the
+    cache bitwise, the -inf positions identical, the scores within
+    SCORE_TOL; A8 on A7's cache gives A7's bits, and two calls of each
+    give the same bits."""
+    from parallax_tpu_torch.ops.decode_fused import (
+        indexer_scores_fused,
+        indexer_scores_fused_plain,
+    )
+    from parallax_tpu_torch.ops.dsa_decode import (
+        paged_token_scores_decode,
+        paged_token_scores_decode_plain,
+    )
+
+    c, kw = _indexer_case(torch, gen, dev, dtype, hi, d, page, lens, frozen,
+                          kind, pps)
     cache_k, cache_p = c["cache"].clone(), c["cache"].clone()
     sc_k, _ = indexer_scores_fused(c["q"], c["w"], c["k"], cache_k,
                                    c["lens"], c["pages"], c["slots"], **kw)
@@ -1077,12 +1096,20 @@ def check_indexer(torch, gen, dev, dtype, hi, d, page, lens, frozen, kind,
                                      c["pages"], **kw)
     ref_8 = paged_token_scores_decode_plain(c["q"], c["w"], cache_p,
                                             c["lens"], c["pages"], **kw)
+    cache_2 = c["cache"].clone()
+    sc_k2, _ = indexer_scores_fused(c["q"], c["w"], c["k"], cache_2,
+                                    c["lens"], c["pages"], c["slots"], **kw)
+    sc_82 = paged_token_scores_decode(c["q"], c["w"], cache_k, c["lens"],
+                                      c["pages"], **kw)
     torch.cuda.synchronize()
     if not torch.equal(cache_k, cache_p):
         raise AssertionError("indexer_fused: cache after the append differs")
     if not torch.equal(sc_k, sc_8):
         raise AssertionError("indexer_scores on indexer_fused's cache "
                              "differs")
+    if not (torch.equal(sc_k, sc_k2) and torch.equal(cache_k, cache_2)
+            and torch.equal(sc_8, sc_82)):
+        raise AssertionError("indexer_fused/indexer_scores: two calls differ")
     return (_close_scores(torch, sc_k, sc_p, SCORE_TOL),
             _close_scores(torch, sc_8, ref_8, SCORE_TOL), c, kw)
 
@@ -1198,14 +1225,6 @@ def kernels_deepseek(torch, gen, dev, flush, device_only) -> list[dict]:
     small float32 edge cases, then the main shapes timed; A5 / A6 also at
     long contexts."""
     from parallax_tpu_torch.models.presets import get_preset
-    from parallax_tpu_torch.ops.decode_fused import (
-        indexer_scores_fused,
-        indexer_scores_fused_plain,
-    )
-    from parallax_tpu_torch.ops.dsa_decode import (
-        paged_token_scores_decode,
-        paged_token_scores_decode_plain,
-    )
 
     bf16, f32 = torch.bfloat16, torch.float32
     cfg = get_preset(DSV32_MODEL)
@@ -1250,26 +1269,52 @@ def kernels_deepseek(torch, gen, dev, flush, device_only) -> list[dict]:
     out[1]["max_abs_err"] = max(e6, e6s)
     del mc
     emit(mla_long_context(torch, gen, dev, flush, device_only))
-    s, ctx, esz = len(lens), sum(lens), 2
     # A7 / A8 at the main shapes (DSA reduction).
-    ic = dsa_case
+    out.extend(time_indexer(torch, dsa_case, dsa_kw, lens, page, flush,
+                            device_only, e_dsa))
+    del dsa_case
+    emit(indexer_long_context(torch, dev, flush, device_only))
+    return out
+
+
+def time_indexer(torch, ic, kw, lens, page, flush, device_only, errs=None,
+                 suffix="") -> list[dict]:
+    """A7 and A8 on ``ic``'s rows (a check_indexer case) timed as the
+    kernels line times them, beside their plain versions and the bound;
+    each one's device time goes into ``device_only``, keyed with
+    ``suffix``. ``errs``: (A7, A8) max abs errors for the kernels line."""
+    from parallax_tpu_torch.ops.decode_fused import (
+        indexer_scores_fused,
+        indexer_scores_fused_plain,
+    )
+    from parallax_tpu_torch.ops.dsa_decode import (
+        paged_token_scores_decode,
+        paged_token_scores_decode_plain,
+    )
+
+    s, hi, d = ic["q"].shape
+    ctx, esz = sum(lens), ic["cache"].element_size()
     cache = ic["cache"].clone()
     cap = ic["pages"].shape[1] * page
     fargs = (ic["q"], ic["w"], ic["k"], cache, ic["lens"], ic["pages"],
              ic["slots"])
     sargs = (ic["q"], ic["w"], cache, ic["lens"], ic["pages"])
+    errs = errs or (None, None)
+    out = []
     for name, fn, plain_fn, args, app, err, src in (
         ("indexer_fused", indexer_scores_fused, indexer_scores_fused_plain,
-         fargs, True, e_dsa[0], "parallax_tpu/ops/decode_fused_pallas.py:505"),
+         fargs, True, errs[0], "parallax_tpu/ops/decode_fused_pallas.py:505"),
         ("indexer_scores", paged_token_scores_decode,
-         paged_token_scores_decode_plain, sargs, False, e_dsa[1],
+         paged_token_scores_decode_plain, sargs, False, errs[1],
          "parallax_tpu/ops/dsa_pallas.py:39"),
     ):
-        ms = time_ms(torch, lambda: fn(*args, **dsa_kw), 50, flush)
-        plain = time_ms(torch, lambda: plain_fn(*args, **dsa_kw), 10, flush)
-        moved = ((s * hi * di + ctx * di + (2 * s * di if app else 0)) * esz
-                 + s * hi * 4 + s * cap * 4)
-        b_ms, b_by = bound(moved, 2 * hi * di * ctx, "bfloat16")
+        ms = time_ms(torch, lambda: fn(*args, **kw), 50, flush)
+        plain = time_ms(torch, lambda: plain_fn(*args, **kw), 10, flush)
+        device_only[name + suffix] = time_ms(
+            torch, lambda: fn(*args, **kw), 50, flush, hide_host=True)
+        moved = ((s * hi * d + ctx * d + (2 * s * d if app else 0)) * esz
+                 + (s * hi * 4 if ic["w"] is not None else 0) + s * cap * 4)
+        b_ms, b_by = bound(moved, 2 * hi * d * ctx, "bfloat16")
         out.append(dict(
             name=name, route="cuda",
             source="parallax_tpu_torch/csrc/indexer_scores.cu",
@@ -1277,6 +1322,82 @@ def kernels_deepseek(torch, gen, dev, flush, device_only) -> list[dict]:
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
         ))
     return out
+
+
+def indexer_long_context(torch, dev, flush, device_only) -> dict:
+    """A7 and A8 at 7 rows of INDEXER_LONG_KEYS keys at DeepSeek-V3.2's
+    indexer widths (Hi 64, D 128, bf16: 58.7 MB of index keys, past the
+    50 MB L2), checked as check_indexer checks, then timed as
+    time_indexer times them; and the MSA reduction at MiniMax-M3's indexer
+    geometry (Hi 16, D 64) on the smoke rows, and bf16 at page sizes 16,
+    24 and 12 on edge rows. Its own generator, so the other checks' inputs
+    stay as they were."""
+    from parallax_tpu_torch.models.presets import get_preset
+    from parallax_tpu_torch.ops.decode_fused import indexer_scores_fused
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    bf16, page = torch.bfloat16, 64
+    m3 = get_preset(MSA_MODEL).msa
+    smoke = [292, 332, 482, 732, 544, 412, 672]
+    e7m, e8m, *_ = check_indexer(torch, gen, dev, bf16, m3.index_n_heads,
+                                 m3.index_head_dim, page, smoke, set(),
+                                 "msa", pps=DSA_MAX_MODEL_LEN // page)
+    cfg = get_preset(DSV32_MODEL).dsa
+    # bf16 at other page sizes, with the f32 cases' rows: 16 and 24 (the
+    # tensor-core body's copies in boxes of 16 and 8 positions) and 12
+    # (the CUDA-core body).
+    edge = {}
+    for epage in (16, 24, 12):
+        e7e, e8e, *_ = check_indexer(
+            torch, gen, dev, bf16, cfg.index_n_heads, cfg.index_head_dim,
+            epage, [37, 0, 1, 16, 50, 9, 100], {3}, "dsa")
+        edge[f"page_{epage}"] = {"indexer_fused_bf16_max_abs_err": e7e,
+                                 "indexer_scores_bf16_max_abs_err": e8e}
+    lens = [INDEXER_LONG_KEYS] * 7
+    e7, e8, ic, kw = check_indexer(torch, gen, dev, bf16, cfg.index_n_heads,
+                                   cfg.index_head_dim, page, lens, set(),
+                                   "dsa")
+    timed = time_indexer(torch, ic, kw, lens, page, flush, device_only,
+                         suffix="_long")
+    # Diagnoses, as for A4 / A5: A7 after a reading L2 flush, which leaves
+    # no dirty lines for the call to write back, and one PyTorch reduction
+    # reading the same live index keys (58.7 MB) after either flush: what
+    # the card's reads reach under the same harness.
+    cache = ic["cache"].clone()
+    fused = lambda: indexer_scores_fused(ic["q"], ic["w"], ic["k"], cache,
+                                         ic["lens"], ic["pages"],
+                                         ic["slots"], **kw)
+    device_only["indexer_fused_long_clean_l2"] = time_ms(
+        torch, fused, 30, flush, hide_host=True, clean=True)
+    keys = cache[1:1 + sum(-(-n // page) for n in lens)]
+    read = lambda: keys.sum(dtype=torch.float32)
+    device_only["indexer_keys_read_long"] = time_ms(torch, read, 30, flush,
+                                                    hide_host=True)
+    device_only["indexer_keys_read_long_clean_l2"] = time_ms(
+        torch, read, 30, flush, hide_host=True, clean=True)
+    del cache, keys
+    line = {"phase": "kernels", "check": "indexer_long_context",
+            "lens": lens, "hi": cfg.index_n_heads, "d": cfg.index_head_dim,
+            "pps": ic["pages"].shape[1],
+            "indexer_fused_bf16_max_abs_err": e7,
+            "indexer_scores_bf16_max_abs_err": e8,
+            "msa_minimax_m3": {"hi": m3.index_n_heads,
+                               "d": m3.index_head_dim, "lens": smoke,
+                               "indexer_fused_bf16_max_abs_err": e7m,
+                               "indexer_scores_bf16_max_abs_err": e8m},
+            "bf16_page_sizes": edge,
+            "score_tol_atol_rtol": SCORE_TOL, "cache_bitwise_equal": True,
+            "neg_inf_positions_identical": True, "a8_equals_a7": True,
+            "two_calls_bitwise_equal": True}
+    for e in timed:
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+            line[f"{e['name']}_{key}"] = e[key]
+        line[f"{e['name']}_device_only_ms"] = device_only[e["name"] + "_long"]
+    for key in ("indexer_fused_long_clean_l2", "indexer_keys_read_long",
+                "indexer_keys_read_long_clean_l2"):
+        line[f"{key}_device_only_ms"] = device_only[key]
+    return line
 
 
 def check_split_decode(torch, gen, dev, dtype, hq, hkv, d, page, lens,
@@ -1543,12 +1664,13 @@ def kernels_split(torch, gen, dev, flush) -> list[dict]:
 
 
 def attention_breakdown(torch, gen, dev, flush) -> dict:
-    """Device microseconds per call of each launch of A1, A2, A9, A5 and A3
-    (split, combine, tile, candidate and pick kernels) under
-    torch.profiler, 20 calls with the L2 flushed before each: A1 on the
-    749-token chunk and on the dense decode shape, A2 on 8 rows and on 7
-    rows of 2,048-8,192 tokens, A9 at gpt-oss-20b's decode shape, A5 at
-    DeepSeek-V3's smoke and long shapes, A3 on the 8-row batch."""
+    """Device microseconds per call of each launch of A1, A2, A9, A5, A3,
+    A7 and A8 (split, combine, tile, candidate, pick and indexer kernels)
+    under torch.profiler, 20 calls with the L2 flushed before each: A1 on
+    the 749-token chunk and on the dense decode shape, A2 on 8 rows and on
+    7 rows of 2,048-8,192 tokens, A9 at gpt-oss-20b's decode shape, A5 at
+    DeepSeek-V3's smoke and long shapes, A3 on the 8-row batch, A7 and A8
+    at DeepSeek-V3.2's smoke shape and A7 at its long one."""
     import re
 
     from torch.autograd import DeviceType
@@ -1557,8 +1679,10 @@ def attention_breakdown(torch, gen, dev, flush) -> dict:
     from parallax_tpu_torch.models.presets import get_preset
     from parallax_tpu_torch.ops.decode_fused import (
         gqa_fused_decode,
+        indexer_scores_fused,
         mla_fused_decode,
     )
+    from parallax_tpu_torch.ops.dsa_decode import paged_token_scores_decode
     from parallax_tpu_torch.ops.gqa_decode import gqa_decode_attention
     from parallax_tpu_torch.ops.kv_cache_ops import reshape_and_cache
     from parallax_tpu_torch.ops.prefill_fused import gqa_prefill_attend
@@ -1588,6 +1712,19 @@ def attention_breakdown(torch, gen, dev, flush) -> dict:
             c["ql"], c["qp"], c["lat"], c["kpe"], c["cache"], c["lens"],
             c["pages"], c["slots"], **kw)
 
+    def a7(lens, pps, fused):
+        di = get_preset(DSV32_MODEL).dsa
+        c, kw = _indexer_case(torch, gen, dev, bf16, di.index_n_heads,
+                              di.index_head_dim, page, lens, set(), "dsa",
+                              pps)
+        if fused:
+            return lambda: indexer_scores_fused(
+                c["q"], c["w"], c["k"], c["cache"], c["lens"], c["pages"],
+                c["slots"], **kw)
+        return lambda: paged_token_scores_decode(
+            c["q"], c["w"], c["cache"], c["lens"], c["pages"], **kw)
+
+    smoke = [292, 332, 482, 732, 544, 412, 672]
     sampler = _sampler_batch(torch, gen, dev,
                              get_preset(DENSE_MODEL).vocab_size)
     sinks = torch.randn((64,), generator=gen, device=dev)
@@ -1604,6 +1741,9 @@ def attention_breakdown(torch, gen, dev, flush) -> dict:
         "mla_decode": a5([292, 332, 482, 732, 544, 412, 672]),
         "mla_decode_long": a5([MLA_LONG_KEYS] * 7),
         "sample_topk": lambda: fused_sample_topk(*sampler),
+        "indexer_fused": a7(smoke, DSA_MAX_MODEL_LEN // page, fused=True),
+        "indexer_scores": a7(smoke, DSA_MAX_MODEL_LEN // page, fused=False),
+        "indexer_fused_long": a7([INDEXER_LONG_KEYS] * 7, None, fused=True),
     }
     line = {"phase": "kernels", "check": "attention_breakdown_us"}
     for name, fn in calls.items():
@@ -1616,7 +1756,7 @@ def attention_breakdown(torch, gen, dev, flush) -> dict:
             torch.cuda.synchronize()
         per = {}
         for evt in prof.key_averages():
-            m = re.search(r"(gqa|mla|sample)_\w+_kernel", evt.key)
+            m = re.search(r"(gqa|mla|sample|indexer)\w*_kernel", evt.key)
             if m and evt.device_type == DeviceType.CUDA:
                 per[m.group(0)] = float(evt.self_device_time_total) / 20
         if not per:
@@ -2007,8 +2147,9 @@ def _kernel_group(name: str) -> str:
     # By kernel name: A2 / A9's split and combine launches
     # (gqa_decode_{split,combine}_kernel) fall under gqa_decode, A1's three
     # (gqa_prefill_{tile,split,combine}_kernel) under gqa_prefill, A5 / A6's
-    # two (mla_{split,combine}_kernel) under mla_decode and A3's two
-    # (sample_{candidates,pick}_kernel) under sample_topk.
+    # two (mla_{split,combine}_kernel) under mla_decode, A3's two
+    # (sample_{candidates,pick}_kernel) under sample_topk and A7 / A8's
+    # (indexer_*_kernel) under indexer.
     for key, group in (("gqa_decode", "gqa_decode"),
                        ("gqa_prefill", "gqa_prefill"),
                        ("kv_append", "kv_append"),
@@ -2017,7 +2158,7 @@ def _kernel_group(name: str) -> str:
                        ("grouped_gemm", "grouped_gemm"),
                        ("mla_split_kernel", "mla_decode"),
                        ("mla_combine_kernel", "mla_decode"),
-                       ("indexer_kernel", "indexer")):
+                       ("indexer_", "indexer")):
         if key in name:
             return group
     low = name.lower()
@@ -2166,7 +2307,8 @@ def teacher_forced_decode(torch, model, params, req, dev, kernel,
     itself, which goes on to the next step. Returns the largest logit
     difference of any step and how many steps share their argmax (no
     limit): the fused kernel's effect on one step's logits, free of the
-    compounding that a served stream adds."""
+    compounding that a served stream adds. On a DSA model also how many
+    steps select the same top-k sets in every layer."""
     from parallax_tpu_torch.ops import cuda_kernels as ck
     from parallax_tpu_torch.runtime.batch import BucketSpec, assemble
     from parallax_tpu_torch.runtime.request import Request
@@ -2185,31 +2327,57 @@ def teacher_forced_decode(torch, model, params, req, dev, kernel,
 
     kv = model.new_kv_caches(npg + 1, page, params["norm"]["weight"].dtype,
                              dev)
-    diff, same, steps = 0.0, 0, 0
+    # A DSA model's top-k rows of each layer (the row of this stream).
+    topk = []
+    dsa = hasattr(model, "_indexer_topk")
+    if dsa:
+        indexer_topk = model._indexer_topk
+
+        def recorded(*args, **kwargs):
+            idx, cache = indexer_topk(*args, **kwargs)
+            topk.append(idx[0].sort().values)
+            return idx, cache
+
+        model._indexer_topk = recorded
+    diff, same, same_topk, steps = 0.0, 0, 0, 0
     ck.reset_launches()
-    with torch.no_grad():
-        _, kv = model(params, kv, assemble(plan(prompt, len(prompt)), spec,
-                                           page, dev))
-        for j, tok in enumerate(outs[:-1]):
-            p = plan([tok], len(prompt) + j + 1)
-            kv_f = [c.clone() for c in kv]
-            lf, _ = model(params, kv_f, assemble(p, spec, page, dev,
-                                                 decode_only=True,
-                                                 decode_fused=True))
-            lp, kv = model(params, kv, assemble(p, spec, page, dev,
-                                                decode_only=True))
-            diff = max(diff, float((lf[0].float() - lp[0].float()).abs().max()))
-            same += int(lf[0].argmax() == lp[0].argmax())
-            steps += 1
-            del kv_f, lf, lp
+    try:
+        with torch.no_grad():
+            _, kv = model(params, kv, assemble(plan(prompt, len(prompt)),
+                                               spec, page, dev))
+            for j, tok in enumerate(outs[:-1]):
+                p = plan([tok], len(prompt) + j + 1)
+                kv_f = [tuple(x if x is None else x.clone() for x in c)
+                        if isinstance(c, tuple) else c.clone() for c in kv]
+                topk.clear()
+                lf, _ = model(params, kv_f, assemble(p, spec, page, dev,
+                                                     decode_only=True,
+                                                     decode_fused=True))
+                topk_f = list(topk)
+                topk.clear()
+                lp, kv = model(params, kv, assemble(p, spec, page, dev,
+                                                    decode_only=True))
+                diff = max(diff,
+                           float((lf[0].float() - lp[0].float()).abs().max()))
+                same += int(lf[0].argmax() == lp[0].argmax())
+                same_topk += int(len(topk_f) == len(topk) and all(
+                    torch.equal(a, b) for a, b in zip(topk_f, topk)))
+                steps += 1
+                del kv_f, lf, lp
+    finally:
+        if dsa:
+            del model._indexer_topk
     torch.cuda.synchronize()
     n = model.num_local_layers
     if ck.launches()[kernel] != n * steps:
         raise AssertionError(f"teacher-forced {kernel}: "
                              f"{ck.launches()[kernel]} launches, want "
                              f"{n * steps}")
-    return {"request": req.request_id, "steps": steps,
-            "largest_logit_diff": diff, "argmax_equal": same}
+    out = {"request": req.request_id, "prompt_ids": len(prompt),
+           "steps": steps, "largest_logit_diff": diff, "argmax_equal": same}
+    if dsa:
+        out["topk_sets_equal_steps"] = same_topk
+    return out
 
 
 def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
@@ -2223,7 +2391,8 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
     plain model's one-shot logits within ``tol``, with at most ``margin``
     more tokens off by GREEDY_TOL or more than the plain run, served the
     same way, shows. ``teacher_forced``, a decode kernel's name, adds
-    teacher_forced_decode of the first greedy stream on the plain model.
+    teacher_forced_decode of the first greedy stream on the plain model,
+    or with ``long_prompt`` of the long one (the last request).
     Returns each run's launches."""
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.ops import cuda_kernels as ck
@@ -2291,9 +2460,10 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
     if teacher_forced is not None:
         emit({"phase": phase, "check": f"teacher_forced_{teacher_forced}"
                                        "_vs_plain",
-              **teacher_forced_decode(torch, model_plain, params,
-                                      runs["fused"][greedy[0]], dev,
-                                      teacher_forced, max_model_len)})
+              **teacher_forced_decode(
+                  torch, model_plain, params,
+                  runs["fused"][greedy[-1] if long_prompt else greedy[0]],
+                  dev, teacher_forced, max_model_len)})
     ok = worst < tol and over <= over_p + margin
     emit({"phase": phase, "greedy_fused_equals_split": True,
           "sampled_rows_identical": sampled_same,
@@ -2383,7 +2553,8 @@ def run_deepseek(torch, dev, card: str, want) -> dict:
     if want("dsa_serve"):
         runs = deepseek_serve(torch, dev, card, "dsa_serve", cfg32, params,
                               {"fused": "indexer_fused",
-                               "split": "indexer_scores"}, **dsa_kw)
+                               "split": "indexer_scores"},
+                              teacher_forced="indexer_fused", **dsa_kw)
         paths["dsa_serve/fused"] = runs["fused"]
         paths["dsa_serve/split"] = runs["split"]
     if want("dsa_profile"):
@@ -2549,9 +2720,10 @@ def main() -> int:
 
     t0 = time.monotonic()
     ck.build(verbose="build" in only)
+    nvcc_s = ck.last_build_seconds
     ck.lib()
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
-          "nvcc_seconds": round(ck.last_build_seconds, 3)})
+          "nvcc_seconds": round(nvcc_s, 3)})
 
     kernels = phase_kernels(torch, dev) if want("kernels") else None
     free_device_memory(torch)

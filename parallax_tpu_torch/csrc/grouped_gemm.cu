@@ -45,8 +45,6 @@
 //   result is the same bits on every run. K must be a multiple of 8 (TMA's
 //   16-byte row stride) and the operands 16-byte aligned.
 
-#include <dlfcn.h>
-
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -320,30 +318,11 @@ __global__ void __launch_bounds__(kDThreads)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the process has loaded.
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* h = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_LOCAL);
-    if (h != nullptr) {
-      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-    }
-  }
-  return fn;
-}
-
 // A bf16 tensor map over ``rank`` dims (innermost first) with boxes of
 // ``box`` elements, 128-byte swizzled; out-of-range elements load as 0.
 int encode(CUtensorMap* map, const void* ptr, int rank,
            const cuuint64_t* dims, const cuuint32_t* box) {
-  const EncodeTiled fn = encode_fn();
+  const pk::EncodeTiled fn = pk::encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
   cuuint64_t strides[2];
   strides[0] = dims[0] * 2;

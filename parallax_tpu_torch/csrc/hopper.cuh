@@ -5,9 +5,30 @@
 #pragma once
 
 #include <cuda.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace pk {
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda the process has loaded (null
+// when there is none).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* h = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_LOCAL);
+    if (h != nullptr) {
+      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
+    }
+  }
+  return fn;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -186,6 +207,22 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a,
       "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
       : PK_F8(0), PK_F8(8)
       : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64 x 64] (+)= A[64 x 16] @ B[64 x 16]^T, both K-major in shared memory
+// (the fragment layout of wgmma_m64n256k16). With ``accumulate`` 0 the
+// product overwrites d, so a first k step needs no zeroed accumulators.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : PK_F8(0), PK_F8(8), PK_F8(16), PK_F8(24)
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // d[64 x 256] += A[64 x 16] @ B[16 x 256]: A in registers (each warp its 16

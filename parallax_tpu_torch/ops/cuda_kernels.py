@@ -79,13 +79,15 @@ _SIGNATURES = {
     "pk_mla_attend": [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, weights, k_new, cache, scores, kv_lens, page_indices, slots,
-    # s, hi, d, page, pps, total_slots, reduce, sm_scale, dtype, stream
+    # s, hi, d, page, pps, blocks, total_slots, reduce, sm_scale, dtype,
+    # stream
     "pk_indexer_fused": [_P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _L, _I, _F, _I, _P],
+                         _I, _I, _I, _I, _I, _I, _L, _I, _F, _I, _P],
     # q, weights, cache, scores, kv_lens, page_indices,
-    # s, hi, d, page, pps, reduce, sm_scale, dtype, stream
+    # s, hi, d, page, pps, blocks, total_slots, reduce, sm_scale, dtype,
+    # stream
     "pk_indexer_scores": [_P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _F, _I, _P],
+                          _I, _I, _I, _I, _I, _I, _L, _I, _F, _I, _P],
 }
 
 

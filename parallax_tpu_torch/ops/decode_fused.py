@@ -382,17 +382,19 @@ def indexer_scores_fused(
     from parallax_tpu_torch.ops import cuda_kernels as ck
     from parallax_tpu_torch.ops.dsa_decode import (
         REDUCE_KINDS,
+        aligned_rows,
         check_indexer_args,
+        indexer_blocks,
     )
 
     s, hi, d = check_indexer_args("indexer_fused", q, weights, index_cache,
                                   kv_lens, page_indices, reduce_kind)
-    k_new = k_new.to(index_cache.dtype).contiguous()
+    k_new = aligned_rows("indexer_fused", k_new.to(index_cache.dtype))
     if k_new.shape != (s, d):
         raise ValueError(f"indexer_fused: k_new must be [{s}, {d}]")
     if slot_mapping.dtype != torch.int32 or slot_mapping.shape != (s,):
         raise ValueError(f"indexer_fused: slot_mapping must be i32[{s}]")
-    q = q.contiguous()
+    q = aligned_rows("indexer_fused", q)
     tensors = [q, k_new, index_cache, kv_lens, page_indices, slot_mapping]
     if weights is not None:
         weights = weights.contiguous()
@@ -406,7 +408,8 @@ def indexer_scores_fused(
         q.data_ptr(), weights.data_ptr() if weights is not None else None,
         k_new.data_ptr(), index_cache.data_ptr(), scores.data_ptr(),
         kv_lens.data_ptr(), page_indices.data_ptr(), slot_mapping.data_ptr(),
-        s, hi, d, page, pps, num_pages * page, REDUCE_KINDS[reduce_kind],
+        s, hi, d, page, pps, indexer_blocks(s, pps), num_pages * page,
+        REDUCE_KINDS[reduce_kind],
         float(sm_scale), ck.dtype_code(index_cache), ck.stream_of(q),
     )
     ck.check(code, "indexer_fused")

@@ -10,6 +10,13 @@ Checked:
 - K8: ``paged_token_scores_decode_plain`` (A8's plain version) against
   ``dsa_indexer_scores_decode_pallas`` and
   ``msa_token_scores_decode_pallas``, the same way;
+- the A7 / A8 grid's partition twin ``indexer_runs``: every page slot of
+  a row in exactly one block's run, live or dead, at kv_len 0, a full
+  row, a mid-page end, more blocks than live pages and one block;
+- ``paged_token_scores_runs_plain`` (the kernels' walk: runs, 64-position
+  tiles, heads padded to 64 rows) against the K5 and K8 Pallas kernels,
+  DSA and MSA at Hi 16 and 64, and against the plain version at several
+  block counts;
 - ``dsa_indexer_scores_plain`` against ``dsa_indexer_scores_xla`` on a
   mixed prefill / decode batch spanning several chunks;
 - ``dsa_topk_indices``: the same indices, forced ties and dense rows
@@ -45,8 +52,12 @@ from parallax_tpu_torch.ops.dsa import (
     store_index_cache,
 )
 from parallax_tpu_torch.ops.dsa_decode import (
+    HEAD_TILE,
+    indexer_blocks,
+    indexer_runs,
     paged_token_scores_decode,
     paged_token_scores_decode_plain,
+    paged_token_scores_runs_plain,
 )
 
 TOL = 2e-5
@@ -60,26 +71,26 @@ def t(a):
     return torch.from_numpy(np.asarray(a))
 
 
-def _decode_inputs(seed):
+def _decode_inputs(seed, hi=HI, lens=LENS, page=PAGE, pps=6):
     rng = np.random.default_rng(seed)
-    s, pps = len(LENS), 6
+    s = len(lens)
     pages = np.zeros((s, pps), np.int32)
     used = 1
-    for i, n in enumerate(LENS):
-        npg = (int(n) + PAGE - 1) // PAGE
+    for i, n in enumerate(lens):
+        npg = (int(n) + page - 1) // page
         pages[i, :npg] = np.arange(used, used + npg)
         used += npg
     slot = np.full((s,), -1, np.int32)
-    for i, n in enumerate(LENS):
+    for i, n in enumerate(lens):
         if n > 0 and i != FROZEN_ROW:
-            slot[i] = pages[i, (n - 1) // PAGE] * PAGE + (n - 1) % PAGE
+            slot[i] = pages[i, (n - 1) // page] * page + (n - 1) % page
     f = np.float32
     return dict(
-        q=rng.normal(size=(s, HI, DI)).astype(f),
-        w=np.abs(rng.normal(size=(s, HI))).astype(f),
+        q=rng.normal(size=(s, hi, DI)).astype(f),
+        w=np.abs(rng.normal(size=(s, hi))).astype(f),
         k=rng.normal(size=(s, DI)).astype(f),
-        cache=rng.normal(size=(used + 1, PAGE, 1, DI)).astype(f),
-        lens=LENS, pages=pages, slot=slot,
+        cache=rng.normal(size=(used + 1, page, 1, DI)).astype(f),
+        lens=lens, pages=pages, slot=slot,
     )
 
 
@@ -148,6 +159,102 @@ def test_k8_split_scores_match_pallas(kind):
     )
     _assert_scores(plain.numpy(), np.asarray(ref))
     assert torch.equal(got, plain)             # CPU tensors: the plain version
+
+
+# Rows for the runs: a frozen kv_len 1 row (4), kv_len 0, a page-exact row,
+# mid-page ends and a full row (13 pages of 16).
+RUN_LENS = np.array([150, 0, 64, 97, 1, 208], np.int32)
+RUN_PAGE, RUN_PPS = 16, 13
+
+
+@pytest.mark.parametrize("n,blocks", [(0, 5), (13 * 16, 5), (150, 5),
+                                      (40, 9), (150, 1)],
+                         ids=["kv_len_0", "full_row", "mid_page",
+                              "blocks_past_live", "one_block"])
+def test_indexer_runs_cover_every_slot_once(n, blocks):
+    page, pps = RUN_PAGE, RUN_PPS
+    runs = indexer_runs(n, page, pps, blocks)
+    assert len(runs) == blocks
+    live = -(-n // page)
+    seen = np.zeros(pps * page, np.int32)
+    live_pages, dead_pages = [], []
+    for lo, hi, dead_lo, dead_hi in runs:
+        assert 0 <= lo <= hi <= live <= dead_lo <= dead_hi <= pps
+        live_pages += range(lo, hi)
+        dead_pages += range(dead_lo, dead_hi)
+        seen[lo * page:hi * page] += 1
+        seen[dead_lo * page:dead_hi * page] += 1
+    assert live_pages == list(range(live))         # in order, once each
+    assert dead_pages == list(range(live, pps))
+    assert (seen == 1).all()
+    # Equal shares: runs differ by at most one page.
+    sizes = [hi - lo for lo, hi, _, _ in runs]
+    assert max(sizes) - min(sizes) <= 1
+    dead = [dh - dl for _, _, dl, dh in runs]
+    assert max(dead) - min(dead) <= 1
+
+
+def _runs_inputs(seed, hi):
+    return _decode_inputs(seed, hi=hi, lens=RUN_LENS, page=RUN_PAGE,
+                          pps=RUN_PPS)
+
+
+@pytest.mark.parametrize("hi", [16, HEAD_TILE])
+@pytest.mark.parametrize("kind", ["dsa", "msa"])
+def test_k8_runs_plain_matches_pallas(kind, hi):
+    """The kernels' walk against K8's wrappers in interpret mode, with the
+    grid's block count at these rows and with 3 blocks (runs of several
+    pages and tiles); Hi 16 pads the 64-row head tile."""
+    c = _runs_inputs(7, hi)
+    q, cache, lens, pages = (jnp.asarray(c[k]) for k in
+                             ("q", "cache", "lens", "pages"))
+    if kind == "dsa":
+        ref = dsa_indexer_scores_decode_pallas(
+            q, jnp.asarray(c["w"]), cache, lens, pages, interpret=True)
+    else:
+        ref = msa_token_scores_decode_pallas(q, cache, lens, pages,
+                                             sm_scale=0.3, interpret=True)
+    assert indexer_blocks(len(RUN_LENS), RUN_PPS) == -(-RUN_PPS // 2)
+    for blocks in (None, 3):
+        got = paged_token_scores_runs_plain(
+            t(c["q"]), t(c["w"]) if kind == "dsa" else None, t(c["cache"]),
+            t(c["lens"]), t(c["pages"]), reduce_kind=kind, sm_scale=0.3,
+            blocks=blocks)
+        _assert_scores(got.numpy(), np.asarray(ref))
+    assert np.isneginf(got[1].numpy()).all()           # kv_len 0 row
+
+
+@pytest.mark.parametrize("hi", [16, HEAD_TILE])
+@pytest.mark.parametrize("kind", ["dsa", "msa"])
+def test_k5_runs_plain_matches_pallas(kind, hi):
+    """The append then the kernels' walk against K5 in interpret mode (A7
+    reads the append slot's key from k_new, which equals the cache after
+    the append)."""
+    c = _runs_inputs(8, hi)
+    w = c["w"] if kind == "dsa" else None
+    ref_sc, ref_cache = indexer_scores_fused_pallas(
+        jnp.asarray(c["q"]), None if w is None else jnp.asarray(w),
+        jnp.asarray(c["k"]), jnp.asarray(c["cache"]), jnp.asarray(c["lens"]),
+        jnp.asarray(c["pages"]), jnp.asarray(c["slot"]), reduce_kind=kind,
+        sm_scale=0.25, interpret=True,
+    )
+    cache = store_index_cache(t(c["cache"].copy()), t(c["k"]), t(c["slot"]))
+    assert np.array_equal(cache.numpy(), np.asarray(ref_cache))
+    got = paged_token_scores_runs_plain(
+        t(c["q"]), None if w is None else t(w), cache, t(c["lens"]),
+        t(c["pages"]), reduce_kind=kind, sm_scale=0.25, blocks=3)
+    _assert_scores(got.numpy(), np.asarray(ref_sc))
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 7, RUN_PPS])
+def test_runs_plain_matches_plain_at_any_block_count(blocks):
+    c = _runs_inputs(9, 64)
+    args = (t(c["q"]), t(c["w"]), t(c["cache"]), t(c["lens"]),
+            t(c["pages"]))
+    ref = paged_token_scores_decode_plain(*args, reduce_kind="dsa")
+    got = paged_token_scores_runs_plain(*args, reduce_kind="dsa",
+                                        blocks=blocks)
+    _assert_scores(got.numpy(), ref.numpy())
 
 
 def _ragged_case(seed):

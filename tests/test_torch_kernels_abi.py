@@ -135,8 +135,8 @@ def test_mla_and_indexer_argument_checks():
     assert idx(weights=False, kind="msa") == (3, 64, 128)
     with pytest.raises(ValueError, match="weights"):
         idx(weights=False)
-    with pytest.raises(ValueError, match="page size"):
-        idx(page=48)
+    # Each key tile position finds its own page: any page size is taken.
+    assert idx(page=48) == (3, 64, 128)
     with pytest.raises(ValueError, match="reduce_kind"):
         idx(kind="max")
 
@@ -406,3 +406,112 @@ def test_sample_topk_entry_takes_workspace_and_chunking():
     params = _entry_params("pk_sample_topk", "sample_topk.cu")
     assert params[5:10] == ["workspace", "s", "vocab", "chunks", "chunk_len"]
     assert len(ck._SIGNATURES["pk_sample_topk"]) == len(params)
+
+
+def test_indexer_entries_take_the_block_count():
+    """A7 / A8 take the grid's blocks per row, which the wrappers pick from
+    the row count alone (indexer_blocks), and the Python twins use the
+    source's constants."""
+    from parallax_tpu_torch.ops import dsa_decode as dd
+
+    for name in ("pk_indexer_fused", "pk_indexer_scores"):
+        params = _entry_params(name, "indexer_scores.cu")
+        assert params[params.index("pps") + 1] == "blocks", name
+        assert len(ck._SIGNATURES[name]) == len(params), name
+    c = _source_constants("indexer_scores.cu")
+    assert c["kKeyTile"] == dd.KEY_TILE
+    assert c["kHeadTile"] == dd.HEAD_TILE
+    assert c["kStages"] == dd.STAGES
+    assert c["kFmaStages"] == dd.FMA_STAGES
+    assert c["kMaxTcDepth"] == dd.MAX_TC_DEPTH
+    assert c["kThreads"] == dd.THREADS == 128   # one warpgroup
+    # At most three blocks an SM at the smoke shape's 7 rows, at most half
+    # the page slots (no block per slot), one per row at least.
+    assert dd.indexer_blocks(7, 48) == 24
+    assert dd.indexer_blocks(7, 512) == 56
+    assert 7 * 56 <= 3 * 132
+    assert dd.indexer_blocks(7, 8) == 4
+    assert dd.indexer_blocks(7, 7) == 4
+    assert dd.indexer_blocks(1000, 2560) == 1
+    assert dd.indexer_blocks(1, 1) == 1
+    assert dd.indexer_blocks(1, 2) == 1
+    # Both entries take the cache's slot count in 64 bits (A8's for the
+    # tensor map of its cache).
+    for name in ("pk_indexer_fused", "pk_indexer_scores"):
+        params = _entry_params(name, "indexer_scores.cu")
+        assert params[params.index("blocks") + 1] == "total_slots", name
+
+
+@pytest.mark.parametrize("hi,d", [(64, 128), (16, 64)],
+                         ids=["dsa_v32", "msa_minimax_m3"])
+@pytest.mark.parametrize("elem", [2, 4], ids=["bf16", "f32"])
+def test_indexer_smem_carve_fits(hi, d, elem):
+    """Every registered indexer geometry (DeepSeek-V3.2's DSA, MiniMax-M3's
+    MSA) fits 227 KB in either cache dtype and at the engine's page sizes;
+    bf16 takes the tensor-core body, whose carve is 1 KB of alignment, the
+    64-row query tile, the ring, each warp's 16 staged scores and each
+    stage's mbarrier and append row."""
+    from parallax_tpu_torch.ops import dsa_decode as dd
+
+    for page in (16, 64, 128):
+        smem = dd.indexer_smem_bytes(hi, d, elem, page)
+        assert smem <= dd.SMEM_LIMIT
+        assert dd.indexer_uses_tensor_cores(hi, d, elem, page) == (elem == 2)
+        if elem == 2:
+            assert smem == (1024 + 64 * d * 2 + dd.STAGES * 64 * d * 2
+                            + 4 * 16 * 4 + 12 * dd.STAGES)
+            # TARGET_BLOCKS / 132 blocks of it share an SM (228 KB, 1 KB
+            # reserved a block).
+            assert (dd.TARGET_BLOCKS // 132) * (smem + 1024) <= 228 * 1024
+    # The presets hold these geometries.
+    from parallax_tpu_torch.models.presets import get_preset
+
+    geoms = {(c.index_n_heads, c.index_head_dim) for c in (
+        get_preset("deepseek-ai/DeepSeek-V3.2-Exp").dsa,
+        get_preset("MiniMaxAI/MiniMax-M3").msa)}
+    assert (hi, d) in geoms
+
+
+def test_indexer_argument_checks_follow_the_kernel():
+    """check_indexer_args refuses exactly what the kernel does not take: a
+    query or cache row that is not whole 16-byte units, a misaligned
+    cache, and a carve past 227 KB (only the CUDA-core body at large Hi x
+    D); it takes any page size, and bf16 shapes outside the tensor-core
+    body (Hi > 64, D not a multiple of 64, pages not a multiple of 8)."""
+    import torch
+
+    from parallax_tpu_torch.ops import dsa_decode as dd
+
+    def idx(hi=64, d=128, page=64, dtype=torch.bfloat16, offset=0):
+        q = torch.zeros((2, hi, d), dtype=dtype)
+        buf = torch.zeros(4 * page * d + offset, dtype=dtype)
+        cache = buf[offset:].view(4, page, 1, d)
+        return dd.check_indexer_args("idx", q, torch.zeros((2, hi)), cache,
+                                     torch.zeros(2, dtype=torch.int32),
+                                     torch.zeros((2, 3), dtype=torch.int32),
+                                     "dsa")
+
+    for page in (1, 3, 16, 48, 64, 256, 1024):
+        assert idx(page=page) == (2, 64, 128)
+    assert idx(hi=128) == (2, 128, 128)                 # CUDA-core body
+    assert idx(d=32) == (2, 64, 32)
+    assert idx(hi=8, d=32, page=16, dtype=torch.float32) == (2, 8, 32)
+    assert not dd.indexer_uses_tensor_cores(128, 128, 2, 64)
+    assert not dd.indexer_uses_tensor_cores(64, 96, 2, 64)
+    assert not dd.indexer_uses_tensor_cores(64, 128, 2, 12)
+    assert dd.indexer_uses_tensor_cores(64, 256, 2, 64)
+    assert dd.indexer_uses_tensor_cores(64, 128, 2, 8)
+    assert dd.indexer_uses_tensor_cores(64, 128, 2, 48)
+    with pytest.raises(ValueError, match="16 bytes"):
+        idx(d=12)
+    with pytest.raises(ValueError, match="16 bytes"):
+        idx(offset=1)
+    with pytest.raises(ValueError, match="too large"):
+        idx(hi=256, d=256, dtype=torch.float32)
+    with pytest.raises(TypeError):
+        idx(dtype=torch.float16)
+    # The wrappers' 16-byte copies of q and k_new: a misaligned view raises.
+    buf = torch.zeros(2 * 128 + 1, dtype=torch.bfloat16)
+    assert dd.aligned_rows("idx", buf[:256].view(2, 128)).data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dd.aligned_rows("idx", buf[1:].view(2, 128))
