@@ -54,62 +54,82 @@ Phases, in order; any failure raises and the script exits non-zero:
                2,048-8,192 tokens; the device_only_ms line times A0, A1, A2,
                A9, A3, A4 (each shape), A5 and A6 (both shapes) and their
                library calls with the host's enqueue hidden, and A7 / A8
-               (both shapes).
+               (both shapes); the noise kernel (gumbel_rows) against its
+               twin (words equal, noise within 1 ulp, two calls bitwise) at
+               the sampler's 8 rows of Qwen2.5's vocabulary and a
+               vocabulary that is not a multiple of 4.
 4. serve       a single-stage StageEngine on cuda:0 serving full-width,
                all-28-layer Qwen2.5-7B (random bf16 weights from a seeded
-               torch.Generator on the card) to 8 concurrent requests, three
-               times: fused (every kernel of the dense path must launch),
-               split (A1 attend-only once per layer and forward step, the
-               counterpart of the bundled ragged_paged_attention, and no
-               other kernel) and plain (use_kernels=False: no kernel). The
-               kernel runs' greedy streams must agree with the plain
-               model's logits (tie-tolerant).
+               torch.Generator on the card) to 8 concurrent requests
+               through the one-in-flight drive_step loop, five times:
+               fused with the engine's defaults (the K-step window,
+               adaptive K = 8, overlapped, each window step a replayed CUDA
+               graph), the same with graphs off (greedy and seeded rows
+               bitwise the graphs run's), the same kernels in the parent's
+               configuration (K1_SYNC: K = 1, synchronous), split (A1
+               attend-only once per layer and forward step, the
+               counterpart of the bundled ragged_paged_attention) and plain
+               (use_kernels=False, K1_SYNC). Every kernel's launches are
+               exact, graph replays included (layers x forward steps, m x
+               k forward steps a window chain). The kernel runs' greedy
+               streams must agree with the plain model's logits
+               (tie-tolerant).
 5. pipeline    the fused run through a 14 + 14 layer InProcessPipeline on
-               the same card, sharing the weight tensors.
-6. profile     the serve phase once more under torch.profiler: device time
-               by kernel group and the device's busy share of the wall.
+               the same card (step_round; windows stay inert there),
+               sharing the weight tensors.
+6. profile     the serve phase once more under torch.profiler, with the
+               engine's defaults and with K1_SYNC: device time by kernel
+               group and the device's busy share of the wall.
 7. moe_serve   Qwen3-30B-A3B at full width and all 48 layers (random bf16
                weights, about 61 GB; the dense phases' tensors are freed
-               first) serving the same 8-request mix; all five kernels of
-               its path must have launched, the grouped GEMM 3 x 48 times
-               per step, and the greedy streams must agree with the plain
-               path (plain grouped product and plain attention); the same
-               one-shot forward with A4 in place of the plain grouped
-               product reports its logit difference (no limit).
-8. moe_profile moe_serve once more under torch.profiler.
+               first) serving the same 8-request mix with the defaults and
+               with K1_SYNC; every kernel's launches exact (the grouped
+               GEMM 3 x 48 times per forward step), and the greedy streams
+               must agree with the plain path (plain grouped product and
+               plain attention); the same one-shot forward with A4 in
+               place of the plain grouped product reports its logit
+               difference (no limit).
+8. moe_profile moe_serve once more under torch.profiler, both configs.
 9. mla_serve   DeepSeek-V3 at full width and 5 layers (3 dense + 2 MoE; one
                random bf16 tree of 26.7 B params, the MoE model freed first)
-               serving the same mix three times: fused decode (A5 once per
-               layer and decode step), split decode (A6 the same, A5
-               never) and the plain path (no kernel launched). The kernel
-               runs' greedy rows must be identical and agree with the
-               plain path's one-shot logits (tie-tolerant; the plain run's
-               own gaps are printed beside them). One greedy stream is
-               decoded again step by step, A5 against the plain MLA decode
-               on the same cache, and the largest logit difference printed
-               (no limit).
-10. mla_profile mla_serve's fused run once more under torch.profiler.
+               serving the same mix four times: fused decode (A5 once per
+               layer and decode step) and split decode (A6 the same, A5
+               never) with the defaults, fused with K1_SYNC, and the plain
+               path (no kernel but the noise; K1_SYNC). The default runs'
+               greedy rows must be identical and agree with the plain
+               path's one-shot logits (tie-tolerant; the plain run's own
+               gaps are printed beside them). One greedy stream is decoded
+               again step by step, A5 against the plain MLA decode on the
+               same cache, and the largest logit difference printed (no
+               limit).
+10. mla_profile mla_serve's fused run once more under torch.profiler, both
+               configs.
 11. dsa_serve  DeepSeek-V3.2 at the same width and depth, on the same tree
                plus the indexer, with one more request of 2,400 prompt ids
                so that sparse top-k selection runs: fused (A7), split (A8)
                and plain, the same checks; the long greedy stream is
                decoded again step by step, A7 against the plain indexer
                (the logit difference, argmax and top-k set agreement).
-12. dsa_profile dsa_serve's fused run once more under torch.profiler.
+12. dsa_profile dsa_serve's fused run once more under torch.profiler, both
+               configs.
 13. gptoss_serve gpt-oss-20b at full width and all 24 layers (20.9 B params,
                42 GB in bf16, each layer's sinks drawn N(0, 1); DeepSeek's
-               tree freed first) serving the mix three times with
-               mla_serve's checks: fused (A2 per layer and decode step, A0 +
-               A1 per layer and prefill step), split (A9 per layer and decode
-               step, A1 attend-only per layer and prefill step, nothing
-               else) and plain.
+               tree freed first) serving the mix four times with
+               mla_serve's runs and checks: fused (A2 per layer and decode
+               step, A0 + A1 per layer and prefill step), split (A9 per
+               layer and decode step, A1 attend-only per layer and prefill
+               step, nothing else but the sampler's noise), fused with
+               K1_SYNC and plain.
+14. gptoss_profile gptoss_serve's fused run once more under torch.profiler,
+               both configs.
 
 One JSON object per line; the ``kernels`` line and the card line come just
 before the last line, which is ``{"ok": true, "device": {...}}``. Each
 kernel's launches in the ``kernels`` line come from the path that runs it:
 A0-A4 from moe_serve, A5 and A6 from mla_serve's fused and split runs, A7
-and A8 from dsa_serve's, A9 from gptoss_serve's split run and K9's route
-(A1 attend-only, entry ``ragged_attend``) from serve's split run. ``--only
+and A8 from dsa_serve's, A9 from gptoss_serve's split run, K9's route (A1
+attend-only, entry ``ragged_attend``) from serve's split run and the noise
+kernel from serve's fused run. ``--only
 kernels`` (comma-separated phase names) runs a subset and prints no result
 line.
 """
@@ -189,8 +209,12 @@ INDEXER_LONG_KEYS = 32768
 LONG_LENS = [8192, 4500, 300, 1, 0, 2049, 640]
 # A5 / A6's long-context shape: 7 rows of this many keys each.
 MLA_LONG_KEYS = 8192
-# The kernels of the dense GQA path (serve); the MoE path adds grouped_gemm.
-DENSE_KERNELS = ("kv_append", "gqa_prefill", "gqa_decode", "sample_topk")
+# The parent's engine configuration: one decode step a host visit, each step
+# resolved before the next (K = 1, synchronous). The plain reference runs
+# keep it; the kernel runs take the engine's defaults (the K-step window on
+# the one-in-flight loop, replayed from CUDA graphs) and, for the rates,
+# this one once more.
+K1_SYNC = dict(decode_lookahead=1, overlap_steps=False)
 # Indexer scores: f32 sums of the same exact products, in another order.
 SCORE_TOL = (1e-4, 1e-4)
 
@@ -758,6 +782,7 @@ def phase_kernels(torch, dev) -> list[dict]:
         library_ms=None,
     ))
     emit(check_sampler_wide(torch, gen, dev, flush))
+    out.append(kernels_gumbel(torch, dev, flush, device_only, v))
     out.append(kernels_grouped_gemm(torch, gen, dev, flush, device_only))
     kernels_grouped_gemm(torch, gen, dev, flush, device_only,
                          model=DSV3_MODEL, label="grouped_gemm_deepseek")
@@ -775,6 +800,77 @@ def phase_kernels(torch, dev) -> list[dict]:
         {k: e[k] for k in ("name", "ms", "plain_ms", "bound_ms",
                            "library_ms")} for e in out]})
     return out
+
+
+def _ulps(torch, got, ref):
+    """Largest distance of ``got`` from ``ref`` in units of ``ref``'s last
+    place (float32)."""
+    ulp = torch.nextafter(ref.abs(), torch.full_like(ref, float("inf"))) \
+        - ref.abs()
+    return float(((got - ref).abs() / ulp).max())
+
+
+def kernels_gumbel(torch, dev, flush, device_only, v) -> dict:
+    """The noise kernel against its twin: the dense serve's 8 sampled-batch
+    rows (seeded ones at their output steps, unseeded ones at an engine
+    step and in the window's step range) over Qwen2.5's vocabulary, plus a
+    vocabulary that is not a multiple of 4 (the scalar tail). The random
+    words must be equal, the noise within 1 ulp, two calls bitwise equal.
+    Times it at 8 and 64 rows beside the yardstick ``torch.rand`` plus the
+    log-log transform (a different generator: timed only)."""
+    from parallax_tpu_torch.ops.sampling import (
+        gumbel_bits_plain,
+        gumbel_from_bits,
+        gumbel_rows,
+        gumbel_rows_plain,
+    )
+
+    i64 = dict(dtype=torch.int64, device=dev)
+    seeds = torch.tensor([-1, -1, 11, -1, 5, -1, 9, 2], **i64)
+    steps = torch.tensor([3, 3, 4, (1 << 40) + (7 << 20) + 5, 1, 3, 7, 31],
+                         **i64)
+    worst, err = 0.0, 0.0
+    for vv in (v, 1001):
+        bits = torch.empty((8, vv), dtype=torch.int32, device=dev)
+        g = gumbel_rows(seeds, steps, 0, vv, bits=bits)
+        g2 = gumbel_rows(seeds, steps, 0, vv)
+        torch.cuda.synchronize()
+        ref_bits = gumbel_bits_plain(seeds, steps, 0, vv)
+        if not torch.equal(bits.long() & 0xFFFFFFFF, ref_bits):
+            raise AssertionError(f"gumbel_rows: random words differ (V {vv})")
+        ref = gumbel_from_bits(ref_bits)
+        worst = max(worst, _ulps(torch, g, ref))
+        err = max(err, float((g - ref).abs().max()))
+        if worst > 1.0:
+            raise AssertionError(f"gumbel_rows: noise {worst} ulps from the "
+                                 f"twin (V {vv})")
+        if not torch.equal(g, g2):
+            raise AssertionError("gumbel_rows: two calls differ")
+    emit({"phase": "kernels", "check": "gumbel_rows", "vocabs": [v, 1001],
+          "words_equal": True, "noise_max_ulps": worst, "max_abs_err": err,
+          "two_calls_bitwise_equal": True})
+    ms = time_ms(torch, lambda: gumbel_rows(seeds, steps, 0, v), 50, flush)
+    plain = time_ms(torch, lambda: gumbel_rows_plain(seeds, steps, 0, v), 10,
+                    flush)
+    for rows in (8, 64):
+        sd, st = seeds.repeat(rows // 8), steps.repeat(rows // 8)
+        device_only[f"gumbel_rows_s{rows}"] = time_ms(
+            torch, lambda: gumbel_rows(sd, st, 0, v), 50, flush,
+            hide_host=True)
+        device_only[f"gumbel_rows_s{rows}_bound"] = bound(rows * v * 4 + 16
+                                                          * rows, 0,
+                                                          "float32")[0]
+        device_only[f"gumbel_rows_s{rows}_yardstick_rand_loglog"] = time_ms(
+            torch, lambda: torch.rand((rows, v), device=dev).log_().neg_()
+            .log_().neg_(), 50, flush, hide_host=True)
+    b_ms, b_by = bound(8 * v * 4 + 16 * 8, 0, "float32")
+    return dict(
+        name="gumbel_rows", route="cuda",
+        source="parallax_tpu_torch/csrc/gumbel.cu",
+        replaces="parallax_tpu/ops/sampling.py:34",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
+    )
 
 
 def _skewed_offsets(m: int, e: int, seed: int) -> list[int]:
@@ -1906,21 +2002,27 @@ def make_requests(vocab: int, long_prompt: int = 0):
     return reqs, sampled
 
 
-def engine_config(fused: bool, max_model_len: int = 1024):
+def engine_config(fused: bool, max_model_len: int = 1024, **over):
     from parallax_tpu_torch.runtime.engine import EngineConfig
 
-    return EngineConfig(
-        page_size=64, num_pages=192, max_batch_size=7,
-        max_num_tokens_per_batch=2048, prefill_chunk_size=256,
-        max_model_len=max_model_len, kv_dtype="bfloat16",
-        enable_prefix_cache=True, decode_fused=fused, prefill_fused=fused,
-    )
+    return EngineConfig(**{
+        **dict(page_size=64, num_pages=192, max_batch_size=7,
+               max_num_tokens_per_batch=2048, prefill_chunk_size=256,
+               max_model_len=max_model_len, kv_dtype="bfloat16",
+               enable_prefix_cache=True, decode_fused=fused,
+               prefill_fused=fused),
+        **over})
 
 
 def serve(torch, bounds, params, cfg, dev, fused: bool, long_prompt: int = 0,
-          max_model_len: int = 1024, model_kw=None):
+          max_model_len: int = 1024, model_kw=None, engine_kw=None,
+          cuda_graphs=None):
+    """Serve the request mix: a single stage through the one-in-flight
+    ``drive_step`` loop, a pipeline through ``step_round``. ``engine_kw``
+    overrides the engine config (e.g. ``K1_SYNC``); ``cuda_graphs`` is the
+    engine's switch (None = on, on the card)."""
     from parallax_tpu_torch.models import create_stage_model
-    from parallax_tpu_torch.runtime.engine import StageEngine
+    from parallax_tpu_torch.runtime.engine import StageEngine, drive_step
     from parallax_tpu_torch.runtime.pipeline import InProcessPipeline
 
     engines = []
@@ -1933,10 +2035,10 @@ def serve(torch, bounds, params, cfg, dev, fused: bool, long_prompt: int = 0,
             p["norm"] = params["norm"]
             if "lm_head" in params:
                 p["lm_head"] = params["lm_head"]
-        engines.append(StageEngine(create_stage_model(cfg, s, e,
-                                                      **(model_kw or {})), p,
-                                   engine_config(fused, max_model_len),
-                                   device=dev))
+        engines.append(StageEngine(
+            create_stage_model(cfg, s, e, **(model_kw or {})), p,
+            engine_config(fused, max_model_len, **(engine_kw or {})),
+            device=dev, cuda_graphs=cuda_graphs))
     pipe = InProcessPipeline(engines)
     reqs, sampled = make_requests(cfg.vocab_size, long_prompt)
     torch.cuda.synchronize()
@@ -1944,7 +2046,12 @@ def serve(torch, bounds, params, cfg, dev, fused: bool, long_prompt: int = 0,
     for r in reqs:
         r.arrival_time = t0
         pipe.submit(r)
-    pipe.run_until_complete()
+    if len(engines) == 1:
+        pending = None
+        while engines[0].has_work() or pending is not None:
+            _, pending = drive_step(engines[0], pending)
+    else:
+        pipe.run_until_complete()
     torch.cuda.synchronize()
     return reqs, sampled, engines, t0, time.monotonic()
 
@@ -1957,7 +2064,8 @@ def stream_metrics(reqs, t0: float, t1: float) -> dict:
     first = min(r.first_token_time for r in reqs)
     decode_tokens = sum(len(r.output_ids) - 1 for r in reqs)
     return {"ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
-            "wall_s": t1 - t0,
+            # r7 waits for a batch slot: a window in flight delays it.
+            "ttft_s_r7": ttft[7], "wall_s": t1 - t0,
             "output_tok_per_s": sum(len(r.output_ids) for r in reqs)
             / (t1 - t0),
             "decode_tok_per_s": decode_tokens / (t1 - first)}
@@ -2032,10 +2140,85 @@ def greedy_check(torch, model_full, params, reqs, sampled, dev,
     return worst, over, float(torch.cat(spreads).median()), alt
 
 
+def forward_steps(summary) -> tuple[int, int]:
+    """A run's forward steps from the engine's dispatch counts: (decode
+    steps, the single ones and the decode windows' m * k each, prefill
+    steps)."""
+    totals = summary["dispatch_total"]
+    decode = sum(totals.get(f"{summary['impl']}/{path}", 0)
+                 for path in ("decode", "multistep"))
+    return decode, totals.get(f"{summary['prefill_impl']}/prefill", 0)
+
+
+def sampler_launches(summary) -> dict:
+    """A3 launches once a fused sampler call; the noise kernel once a
+    sampler call of either kind (an all-greedy step draws no noise)."""
+    totals = summary["dispatch_total"]
+    return {"sample_topk": totals.get("cuda-fused/sample", 0),
+            "gumbel_rows": sum(n for key, n in totals.items()
+                               if key.endswith("/sample"))}
+
+
+def check_launches(phase, mode, launches, want, summary) -> None:
+    """Every kernel's launches exactly as ``want`` says (0 where it says
+    nothing), graph replays included, plus the launches of the graphs'
+    warm-up steps (one eager step a captured graph, from the engine's
+    summary)."""
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    want = {**{k: 0 for k in ck.KERNELS}, **want}
+    for k, n in summary.get("graphs", {}).get("warmup_launches", {}).items():
+        want[k] += n
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if bad:
+        raise AssertionError(f"{phase} {mode}: launches (got, want) {bad}")
+
+
+def check_windows(phase, mode, summary, graphs: bool) -> None:
+    """The run served decode windows, each step a graph replay when
+    ``graphs``, else the eager loop."""
+    windows = summary["dispatch_total"].get(f"{summary['impl']}/multistep", 0)
+    replays = summary.get("graphs", {}).get("replays", 0)
+    if windows <= 0 or summary["cuda_graphs"] != graphs or (
+            graphs and replays != windows):
+        raise AssertionError(f"{phase} {mode}: {windows} window steps, "
+                             f"graphs {summary['cuda_graphs']}, {replays} "
+                             f"replays")
+
+
+def gqa_expected(mode, summary, n) -> dict:
+    """The dense GQA path's launches: fused runs A2 once per layer and
+    decode step and A0 + A1 per layer and prefill step; split runs A1
+    attend-only (K9's route) per layer and step; each run's sampler
+    launches as ``sampler_launches`` says; plain runs nothing else."""
+    decode, prefill = forward_steps(summary)
+    want = sampler_launches(summary)
+    if mode.startswith("fused"):
+        want.update(gqa_decode=n * decode, kv_append=n * prefill,
+                    gqa_prefill=n * prefill)
+    elif mode == "split":
+        want["gqa_prefill"] = n * (decode + prefill)
+    return want
+
+
+# serve's runs: (mode, fused kernels, model kwargs, engine kwargs, graphs).
+DENSE_RUNS = (
+    ("fused", True, None, None, None),
+    ("fused_eager", True, None, None, False),
+    ("fused_k1_sync", True, None, K1_SYNC, None),
+    ("split", False, None, None, None),
+    ("plain", False, dict(use_kernels=False), K1_SYNC, None),
+)
+
+
 def phase_serve(torch, dev, card: str):
-    """Qwen2.5-7B served three times: fused (A0-A3), split (A1 attend-only
-    once per layer and forward step, the counterpart of the bundled
-    ragged_paged_attention, and no other kernel) and plain (no kernel).
+    """Qwen2.5-7B served five times: fused with the engine's defaults (the
+    K-step window on the one-in-flight loop, replayed from CUDA graphs),
+    the same with graphs off (its greedy and seeded rows must be bitwise
+    the graphs run's), the same kernels in the parent's configuration (K=1,
+    synchronous), split (A1 attend-only once per layer and forward step,
+    the counterpart of the bundled ragged_paged_attention) and plain (no
+    kernel but the sampler's noise). Every kernel's launches are exact.
     The kernel runs' greedy streams must agree with the plain model's
     logits. Returns the fused run and each run's launches."""
     from parallax_tpu_torch.models import create_stage_model
@@ -2058,13 +2241,11 @@ def phase_serve(torch, dev, card: str):
           "init_s": round(time.monotonic() - t0, 3), "layers": n})
 
     runs, launches_of = {}, {}
-    for mode, fused, model_kw in (("fused", True, None),
-                                  ("split", False, None),
-                                  ("plain", False, dict(use_kernels=False))):
+    for mode, fused, model_kw, engine_kw, graphs in DENSE_RUNS:
         ck.reset_launches()
-        reqs, sampled, engines, t0, t1 = serve(torch, [(0, n)], params, cfg,
-                                               dev, fused=fused,
-                                               model_kw=model_kw)
+        reqs, sampled, engines, t0, t1 = serve(
+            torch, [(0, n)], params, cfg, dev, fused=fused,
+            model_kw=model_kw, engine_kw=engine_kw, cuda_graphs=graphs)
         launches = ck.launches()
         for r in reqs:
             if r.status.value != "finished_length" or len(r.output_ids) != 32:
@@ -2075,37 +2256,32 @@ def phase_serve(torch, dev, card: str):
         if sharer.num_cached_tokens <= 0:
             raise AssertionError("the sharer did not hit the prefix cache")
         summary = engines[0].kernel_dispatch_summary()
-        steps = sum(c for key, c in summary["dispatch_total"].items()
-                    if not key.endswith("/sample"))
-        if mode == "fused":
-            missing = [k for k in DENSE_KERNELS if launches[k] <= 0]
-            if missing or launches["gqa_attend"]:
-                raise AssertionError(f"fused: kernels not launched on the "
-                                     f"main path: {missing}, or gqa_attend "
-                                     f"{launches['gqa_attend']}")
-        else:
-            want = {k: 0 for k in ck.KERNELS}
-            if mode == "split":
-                want["gqa_prefill"] = n * steps
-            bad = {k: (launches[k], v) for k, v in want.items()
-                   if launches[k] != v}
-            if bad:
-                raise AssertionError(f"serve {mode}: launches (got, want) "
-                                     f"{bad}, {steps} forward steps")
+        check_launches("serve", mode, launches,
+                       gqa_expected(mode, summary, n), summary)
+        if engine_kw is None:
+            check_windows("serve", mode, summary, graphs is not False)
         emit({"phase": "serve", "run": mode, "requests": len(reqs),
-              "launches": launches, "steps": steps, "dispatch": summary,
+              "engine": engine_kw or "defaults", "launches": launches,
+              "steps": sum(forward_steps(summary)), "dispatch": summary,
               "sharer_cached_tokens": sharer.num_cached_tokens,
               "cache": engines[0].cache_stats(),
               **stream_metrics(reqs, t0, t1), "card": card})
         del engines
-        if mode != "plain":
+        if mode in ("fused", "split"):
             worst, *_ = greedy_check(torch, model_full, params, reqs,
                                      sampled, dev, tol=GREEDY_TOL)
             emit({"phase": "serve", "run": mode, "greedy_vs_plain": "pass",
                   "largest_logit_gap": worst, "tolerance": GREEDY_TOL})
         runs[mode] = reqs
         launches_of[mode] = launches
-    for mode in ("split", "plain"):
+    differ = [r.request_id for r, e in zip(runs["fused"], runs["fused_eager"])
+              if r.output_ids != e.output_ids]
+    if differ:
+        raise AssertionError(f"serve: graphs on and off differ at {differ}")
+    emit({"phase": "serve", "run": "fused_eager",
+          "rows_bitwise_identical_to_graphs": len(runs["fused"]),
+          "of_which_seeded": len(sampled)})
+    for mode in ("fused_k1_sync", "split", "plain"):
         agree = {}
         for i in sorted(sampled):
             a, b = runs["fused"][i].output_ids, runs[mode][i].output_ids
@@ -2170,48 +2346,62 @@ def _kernel_group(name: str) -> str:
 
 
 def phase_profile(torch, dev, cfg, params, phase="profile", **serve_kw):
-    """Where the serve phase's device time goes: the same 8 requests under
-    torch.profiler, device time summed by kernel group, and the share of
-    the run's wall time the device was busy. The profiler's own host
-    overhead lengthens the wall, so the busy share is a lower bound."""
+    """Where a serve phase's device time goes, in the engine's defaults and
+    in the parent's configuration (K1_SYNC): the same 8 requests under
+    torch.profiler (device activity only), device time summed by kernel
+    group, and the share of the run's wall time the device was busy. The
+    device events are read straight from the trace (no per-op tables),
+    which keeps the post-processing short. The profiler's own overhead
+    lengthens the wall, so the busy share is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        reqs, _, _, t0, t1 = serve(torch, [(0, cfg.num_hidden_layers)],
-                                   params, cfg, dev, fused=True, **serve_kw)
-    groups: dict[str, float] = {}
-    top = []
-    for evt in prof.key_averages():
-        # Kernel events only: a CPU op's device time repeats its kernels'.
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = float(evt.self_device_time_total)
-        if us <= 0.0:
-            continue
-        g = _kernel_group(evt.key)
-        groups[g] = groups.get(g, 0.0) + us
-        top.append((us, evt.key[:80], evt.count))
-    busy_s = sum(groups.values()) / 1e6
-    if busy_s <= 0.0:
-        raise AssertionError("torch.profiler recorded no device time")
-    top.sort(reverse=True)
-    emit({"phase": phase, "wall_s": t1 - t0, "device_busy_s": busy_s,
-          "device_busy_share": busy_s / (t1 - t0),
-          "device_ms_by_group": {k: v / 1e3 for k, v in sorted(
-              groups.items(), key=lambda kv: -kv[1])},
-          "top_kernels": [{"name": n, "ms": us / 1e3, "calls": c}
-                          for us, n, c in top[:8]],
-          "tokens": sum(len(r.output_ids) for r in reqs)})
+    for config, engine_kw in (("defaults", None), ("k1_sync", K1_SYNC)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            reqs, _, _, t0, t1 = serve(
+                torch, [(0, cfg.num_hidden_layers)], params, cfg, dev,
+                fused=True, engine_kw=engine_kw, **serve_kw)
+        t_post = time.monotonic()
+        by_name: dict[str, list] = {}
+        for evt in prof.profiler.kineto_results.events():
+            # Device events only: kernels, copies and fills.
+            if evt.device_type() != DeviceType.CUDA:
+                continue
+            acc = by_name.setdefault(evt.name(), [0.0, 0])
+            acc[0] += evt.duration_ns() / 1e3
+            acc[1] += 1
+        groups: dict[str, float] = {}
+        top = []
+        for name, (us, count) in by_name.items():
+            if us <= 0.0:
+                continue
+            g = _kernel_group(name)
+            groups[g] = groups.get(g, 0.0) + us
+            top.append((us, name[:80], count))
+        busy_s = sum(groups.values()) / 1e6
+        if busy_s <= 0.0:
+            raise AssertionError("torch.profiler recorded no device time")
+        top.sort(reverse=True)
+        emit({"phase": phase, "config": config, "wall_s": t1 - t0,
+              "device_busy_s": busy_s,
+              "device_busy_share": busy_s / (t1 - t0),
+              "device_ms_by_group": {k: v / 1e3 for k, v in sorted(
+                  groups.items(), key=lambda kv: -kv[1])},
+              "top_kernels": [{"name": n, "ms": us / 1e3, "calls": c}
+                              for us, n, c in top[:8]],
+              "tokens": sum(len(r.output_ids) for r in reqs),
+              "post_processing_s": round(time.monotonic() - t_post, 1),
+              **stream_metrics(reqs, t0, t1)})
+        del prof
 
 
 def phase_moe_serve(torch, dev, card: str, want) -> dict:
     """Qwen3-30B-A3B at full width and depth on one card: serve the
-    8-request mix with the kernels, check every kernel launched (the
-    grouped GEMM 3 x 48 times per step) and the greedy streams against the
+    8-request mix with the kernels, with the engine's defaults and with
+    K1_SYNC, check every kernel's launches (the grouped GEMM 3 x 48 times
+    per forward step) and the default run's greedy streams against the
     plain path; then, if asked, profile the same serve. Returns the
-    launches of the kernel run."""
+    launches of the default run."""
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.models.presets import get_preset
     from parallax_tpu_torch.ops import cuda_kernels as ck
@@ -2236,34 +2426,33 @@ def phase_moe_serve(torch, dev, card: str, want) -> dict:
           "top_k": cfg.moe.num_experts_per_tok,
           "mem_free_gb_after_load": free1 / 1e9})
 
-    ck.reset_launches()
-    reqs, sampled, engines, t0, t1 = serve(torch, [(0, n_layers)], params,
-                                           cfg, dev, fused=True)
-    launches = ck.launches()
-    for r in reqs:
-        if r.status.value != "finished_length" or len(r.output_ids) != 32:
-            raise AssertionError(f"moe {r.request_id}: {r.status.value}, "
-                                 f"{len(r.output_ids)} tokens")
-    missing = [k for k in DENSE_KERNELS + ("grouped_gemm",)
-               if launches[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the MoE path: "
-                             f"{missing}")
-    # Forward steps: the prefill and decode dispatches (not the sampler's).
-    steps = sum(n for key, n in engines[0].kernel_dispatch_summary()[
-        "dispatch_total"].items() if not key.endswith("/sample"))
-    if launches["grouped_gemm"] != 3 * moe_layers * steps:
-        raise AssertionError(
-            f"grouped_gemm launched {launches['grouped_gemm']} times, want "
-            f"3 x {moe_layers} layers x {steps} steps"
-        )
-    emit({"phase": "moe_serve", "requests": len(reqs), "launches": launches,
-          "steps": steps, "dispatch": engines[0].kernel_dispatch_summary(),
-          "sharer_cached_tokens": reqs[-1].num_cached_tokens,
-          "mem_free_gb_after_serve": torch.cuda.mem_get_info()[0] / 1e9,
-          "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-          **stream_metrics(reqs, t0, t1), "card": card})
-    del engines
+    for mode, engine_kw in (("fused", None), ("fused_k1_sync", K1_SYNC)):
+        ck.reset_launches()
+        reqs_m, sampled, engines, t0, t1 = serve(
+            torch, [(0, n_layers)], params, cfg, dev, fused=True,
+            engine_kw=engine_kw)
+        launches_m = ck.launches()
+        for r in reqs_m:
+            if r.status.value != "finished_length" or len(r.output_ids) != 32:
+                raise AssertionError(f"moe {mode} {r.request_id}: "
+                                     f"{r.status.value}, "
+                                     f"{len(r.output_ids)} tokens")
+        summary = engines[0].kernel_dispatch_summary()
+        steps = sum(forward_steps(summary))
+        check_launches("moe_serve", mode, launches_m, {
+            **gqa_expected(mode, summary, n_layers),
+            "grouped_gemm": 3 * moe_layers * steps}, summary)
+        if engine_kw is None:
+            check_windows("moe_serve", mode, summary, True)
+            reqs, launches = reqs_m, launches_m
+        emit({"phase": "moe_serve", "run": mode, "requests": len(reqs_m),
+              "engine": engine_kw or "defaults", "launches": launches_m,
+              "steps": steps, "dispatch": summary,
+              "sharer_cached_tokens": reqs_m[-1].num_cached_tokens,
+              "mem_free_gb_after_serve": torch.cuda.mem_get_info()[0] / 1e9,
+              "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+              **stream_metrics(reqs_m, t0, t1), "card": card})
+        del engines
     model_plain = create_stage_model(cfg, 0, n_layers, moe_kernel=False,
                                      use_kernels=False)
     # The same one-shot forward with A4 in place of the plain grouped
@@ -2383,14 +2572,16 @@ def teacher_forced_decode(torch, model, params, req, dev, kernel,
 def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
                 margin, plain_kw, plain_note, long_prompt=0,
                 max_model_len=1024, teacher_forced=None) -> dict:
-    """Serve the mix on ``cfg`` three times: fused decode, split decode (its
-    kernels) and the plain path (``plain_kw``: no kernel). ``expected(mode,
-    dispatch_total, impl, prefill_impl)`` gives each run's exact launches
-    of every kernel but the sampler, which must launch on the fused run
-    only. The kernel runs' greedy rows must be identical and agree with the
-    plain model's one-shot logits within ``tol``, with at most ``margin``
-    more tokens off by GREEDY_TOL or more than the plain run, served the
-    same way, shows. ``teacher_forced``, a decode kernel's name, adds
+    """Serve the mix on ``cfg``: fused decode and split decode (its kernels)
+    with the engine's defaults (the window replayed from CUDA graphs), the
+    fused kernels once more in the parent's configuration (K1_SYNC, for the
+    rates) and the plain path (``plain_kw``: no kernel but the sampler's
+    noise; K1_SYNC). ``expected(mode, summary)`` gives each run's exact
+    launches of the attention kernels and the grouped GEMM; the sampler's
+    are ``sampler_launches``. The kernel runs' greedy rows must be
+    identical and agree with the plain model's one-shot logits within
+    ``tol``, with at most ``margin`` more tokens off by GREEDY_TOL or more
+    than the plain run, served the same way, shows. ``teacher_forced``, a decode kernel's name, adds
     teacher_forced_decode of the first greedy stream on the plain model,
     or with ``long_prompt`` of the long one (the last request).
     Returns each run's launches."""
@@ -2399,14 +2590,15 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
 
     n = cfg.num_hidden_layers
     runs, out = {}, {}
-    for mode, fused, model_kw in (("fused", True, None),
-                                  ("split", False, None),
-                                  ("plain", False, plain_kw)):
+    for mode, fused, model_kw, engine_kw in (
+            ("fused", True, None, None), ("split", False, None, None),
+            ("fused_k1_sync", True, None, K1_SYNC),
+            ("plain", False, plain_kw, K1_SYNC)):
         ck.reset_launches()
         reqs, sampled, engines, t0, t1 = serve(
             torch, [(0, n)], params, cfg, dev, fused=fused,
             long_prompt=long_prompt, max_model_len=max_model_len,
-            model_kw=model_kw)
+            model_kw=model_kw, engine_kw=engine_kw)
         launches = ck.launches()
         for r in reqs:
             if r.status.value != "finished_length" or len(r.output_ids) != 32:
@@ -2414,23 +2606,17 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
                                      f"{r.status.value}, "
                                      f"{len(r.output_ids)} tokens")
         summary = engines[0].kernel_dispatch_summary()
-        totals = summary["dispatch_total"]
-        decode_steps = totals.get(f"{summary['impl']}/decode", 0)
-        steps = sum(c for key, c in totals.items()
-                    if not key.endswith("/sample"))
-        want = {k: 0 for k in ck.KERNELS if k != "sample_topk"}
-        want.update(expected(mode, totals, summary["impl"],
-                             summary["prefill_impl"]))
-        bad = {k: (launches[k], v) for k, v in want.items()
-               if launches[k] != v}
-        if decode_steps <= 0 or bad:
-            raise AssertionError(f"{phase} {mode}: launches (got, want) "
-                                 f"{bad}, {decode_steps} decode steps")
-        if (launches["sample_topk"] > 0) != fused:
-            raise AssertionError(f"{phase} {mode}: sample_topk launched "
-                                 f"{launches['sample_topk']} times")
+        decode_steps, prefill_steps = forward_steps(summary)
+        if decode_steps <= 0:
+            raise AssertionError(f"{phase} {mode}: no decode step")
+        check_launches(phase, mode, launches, {
+            **sampler_launches(summary), **expected(mode, summary)},
+            summary)
+        if engine_kw is None:
+            check_windows(phase, mode, summary, True)
         emit({"phase": phase, "run": mode, "requests": len(reqs),
-              "launches": launches, "steps": steps,
+              "engine": engine_kw or "defaults",
+              "launches": launches, "steps": decode_steps + prefill_steps,
               "decode_steps": decode_steps, "dispatch": summary,
               "sharer_cached_tokens": reqs[7].num_cached_tokens,
               "mem_free_gb_after_serve": torch.cuda.mem_get_info()[0] / 1e9,
@@ -2495,13 +2681,13 @@ def deepseek_serve(torch, dev, card, phase, cfg, params, kernels,
     n = cfg.num_hidden_layers
     moe_layers = sum(cfg.is_moe_layer(i) for i in range(n))
 
-    def expected(mode, totals, impl, prefill_impl):
-        if mode not in kernels:
+    def expected(mode, summary):
+        decode, prefill = forward_steps(summary)
+        kernel = kernels.get("fused" if mode.startswith("fused") else mode)
+        if kernel is None:
             return {}
-        steps = sum(c for key, c in totals.items()
-                    if not key.endswith("/sample"))
-        return {kernels[mode]: n * totals.get(f"{impl}/decode", 0),
-                "grouped_gemm": 3 * moe_layers * steps}
+        return {kernel: n * decode,
+                "grouped_gemm": 3 * moe_layers * (decode + prefill)}
 
     return serve_three(
         torch, dev, card, phase, cfg, params, expected,
@@ -2562,7 +2748,7 @@ def run_deepseek(torch, dev, card: str, want) -> dict:
     return paths
 
 
-def run_gptoss(torch, dev, card: str) -> dict:
+def run_gptoss(torch, dev, card: str, want) -> dict:
     """Phase 13: gpt-oss-20b at full width and all 24 layers (random bf16
     weights; each layer's sinks drawn N(0, 1) so that they matter) served
     three times: fused (A2 once per layer and decode step, A0 + A1 per layer
@@ -2621,14 +2807,13 @@ def run_gptoss(torch, dev, card: str) -> dict:
                     x, mlp, cfg.moe.num_experts_per_tok), 5)
     emit({"phase": "gptoss_serve", "moe_probe": probe})
 
-    def expected(mode, totals, impl, prefill_impl):
-        decode = n * totals.get(f"{impl}/decode", 0)
-        prefill = n * totals.get(f"{prefill_impl}/prefill", 0)
-        if mode == "fused":
-            return {"gqa_decode": decode, "kv_append": prefill,
-                    "gqa_prefill": prefill}
+    def expected(mode, summary):
+        decode, prefill = forward_steps(summary)
+        if mode.startswith("fused"):
+            return {"gqa_decode": n * decode, "kv_append": n * prefill,
+                    "gqa_prefill": n * prefill}
         if mode == "split":
-            return {"gqa_attend": decode, "gqa_prefill": prefill}
+            return {"gqa_attend": n * decode, "gqa_prefill": n * prefill}
         return {}
 
     runs = serve_three(
@@ -2636,6 +2821,8 @@ def run_gptoss(torch, dev, card: str) -> dict:
         tol=GPTOSS_GREEDY_TOL, margin=GPTOSS_OFF_MARGIN,
         plain_kw=dict(use_kernels=False),
         plain_note="plain split attention + the plain MoE loop")
+    if want("gptoss_profile"):
+        phase_profile(torch, dev, cfg, params, phase="gptoss_profile")
     return {f"gptoss_serve/{mode}": launches
             for mode, launches in runs.items()}
 
@@ -2648,6 +2835,7 @@ KERNEL_PATH = {
     "mla_attend": "mla_serve/split", "indexer_fused": "dsa_serve/fused",
     "indexer_scores": "dsa_serve/split",
     "gqa_attend": "gptoss_serve/split", "ragged_attend": "serve/split",
+    "gumbel_rows": "serve/fused",
 }
 # The launch counter of an entry that is not a kernel of its own: K9's
 # route is A1 (gqa_prefill) in attend-only mode.
@@ -2663,7 +2851,7 @@ def run_dense(torch, dev, card: str, want) -> dict:
         phase_pipeline(torch, dev, cfg, model_full, params, single, sampled)
     if want("profile"):
         phase_profile(torch, dev, cfg, params)
-    return {"serve/split": launches["split"]}
+    return {"serve/split": launches["split"], "serve/fused": launches["fused"]}
 
 
 def free_device_memory(torch) -> None:
@@ -2690,8 +2878,8 @@ def main() -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated phases (build,kernels,serve,"
                          "pipeline,profile,moe_serve,moe_profile,mla_serve,"
-                         "mla_profile,dsa_serve,dsa_profile,gptoss_serve); "
-                         "prints no result line")
+                         "mla_profile,dsa_serve,dsa_profile,gptoss_serve,"
+                         "gptoss_profile); prints no result line")
     only = set(filter(None, ap.parse_args().only.split(",")))
 
     import torch
@@ -2742,8 +2930,8 @@ def main() -> int:
         paths.update(run_deepseek(torch, dev, card, want))
     # DeepSeek's 53 GB are gone before gpt-oss-20b's 42 GB are made.
     free_device_memory(torch)
-    if want("gptoss_serve"):
-        paths.update(run_gptoss(torch, dev, card))
+    if want("gptoss_serve") or want("gptoss_profile"):
+        paths.update(run_gptoss(torch, dev, card, want))
     if only:
         return 0
     for k in kernels:

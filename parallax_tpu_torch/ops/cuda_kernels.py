@@ -10,7 +10,10 @@ raises on a non-zero code.
 
 ``LAUNCHES`` holds one plain integer per kernel; a wrapper adds one exactly
 where it launches its kernel, so a run can show that the main path went
-through the kernels (``reset_launches`` / ``launches``).
+through the kernels (``reset_launches`` / ``launches``). A CUDA graph
+launches its captured kernels without running the wrappers, so the engine
+records each graph's count delta at capture and adds it at every replay
+(``add_launches``).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ NVCC_FLAGS = [
 
 KERNELS = ("kv_append", "gqa_prefill", "gqa_decode", "gqa_attend",
            "sample_topk", "grouped_gemm", "mla_decode", "mla_attend",
-           "indexer_fused", "indexer_scores")
+           "indexer_fused", "indexer_scores", "gumbel_rows")
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib = None
@@ -88,6 +91,8 @@ _SIGNATURES = {
     # stream
     "pk_indexer_scores": [_P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _L, _I, _F, _I, _P],
+    # seeds, steps, out, bits, base_seed, s, v, stream
+    "pk_gumbel_rows": [_P, _P, _P, _P, _L, _I, _I, _P],
 }
 
 
@@ -215,6 +220,13 @@ def reset_launches() -> None:
 
 def launches() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def add_launches(delta: dict[str, int], times: int = 1) -> None:
+    """Count ``times`` replays of a CUDA graph whose capture ran the
+    wrappers ``delta`` times each."""
+    for k, n in delta.items():
+        LAUNCHES[k] += n * times
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -52,12 +52,29 @@ def reshape_and_cache(
     Returns ``kv_pages`` (the same tensor, updated).
     """
     p, page, h2, d = kv_pages.shape
-    kv_new = interleave_kv(k, v).to(kv_pages.dtype)
-    flat = kv_pages.view(p * page, h2, d)
-    slots = slot_mapping.long()
-    keep = (slots >= 0) & (slots < p * page)
-    flat[slots[keep]] = kv_new[keep]
+    scatter_drop(kv_pages.view(p * page, h2, d),
+                 interleave_kv(k, v).to(kv_pages.dtype), slot_mapping)
     return kv_pages
+
+
+def scatter_drop(flat: torch.Tensor, rows: torch.Tensor,
+                 slots: torch.Tensor) -> None:
+    """``flat[slots[i]] = rows[i]`` in place for every slot in range;
+    negative and out-of-range slots are dropped (the JAX scatter's
+    ``mode="drop"``). No shape depends on the data, so it runs inside a
+    CUDA graph: a dropped row writes what the first kept row writes (with
+    none kept, slot 0's own value back), so the duplicates agree."""
+    if slots.numel() == 0:
+        return
+    slots = slots.long()
+    keep = (slots >= 0) & (slots < flat.shape[0])
+    first = torch.argmax(keep.to(torch.int32)).view(1)
+    any_keep = keep.any()
+    anchor_slot = torch.where(any_keep, slots.index_select(0, first), 0)
+    anchor_row = torch.where(any_keep, rows.index_select(0, first), flat[:1])
+    wide = keep.view(-1, *([1] * (rows.dim() - 1)))
+    flat.index_copy_(0, torch.where(keep, slots, anchor_slot),
+                     torch.where(wide, rows, anchor_row))
 
 
 def check_kv_append_args(

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from parallax_tpu_torch.ops import kernel_select
+from parallax_tpu_torch.ops.kv_cache_ops import scatter_drop
 from parallax_tpu_torch.ops.ragged import page_chunks, ragged_token_positions
 
 _MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -42,10 +43,8 @@ def scatter_rows(cache: torch.Tensor, rows: torch.Tensor,
     W]`` at the flat slots, in place; negative and out-of-range slots are
     dropped (the JAX scatter's ``mode="drop"``). Returns ``cache``."""
     p, page, _, width = cache.shape
-    flat = cache.view(p * page, width)
-    slots = slot_mapping.long()
-    keep = (slots >= 0) & (slots < p * page)
-    flat[slots[keep]] = rows.to(cache.dtype)[keep]
+    scatter_drop(cache.view(p * page, width), rows.to(cache.dtype),
+                 slot_mapping)
     return cache
 
 

@@ -5,11 +5,13 @@ of ``decode_fused_pallas.fused_sample_topk_pallas``).
 Gumbel noise is indexed by TOKEN ID and made outside the samplers, so the
 split sampler (:func:`sample_tokens`) and the fused kernel
 (:func:`fused_sample_topk`) pick the same token on the same logits and
-noise. The port draws the noise from explicit ``torch.Generator``s
-(:func:`row_gumbel`): unseeded rows from one generator seeded from
-``(engine seed, step)``, each seeded row from a generator seeded from
-``(seed, output step)`` — so a seeded stream is reproducible within the port
-whatever the batch. It does not reproduce JAX's threefry bits.
+noise. The port makes the noise from tensors (:func:`gumbel_rows`, the
+``csrc/gumbel.cu`` kernel on the card): a counter-based Philox4x32-10 draw
+keyed per row by ``(seed, output step)`` for a seeded row and by ``(engine
+seed, step, row)`` for an unseeded one, so a seeded stream is reproducible
+within the port whatever the batch, the step or the decode window it rides
+in, and the noise can be made inside a replayed CUDA graph. It does not
+reproduce JAX's threefry bits.
 """
 
 from __future__ import annotations
@@ -30,28 +32,121 @@ SAMPLE_MIN_CHUNK = 1024
 SAMPLE_MAX_CHUNKS = 128
 
 _MASK64 = (1 << 64) - 1
+# Philox4x32-10 (Salmon et al., SC 2011; Random123's constants).
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
 
 
 def mix_seed(a: int, b: int) -> int:
-    """A 63-bit generator seed from an ordered pair (splitmix64 finalizer),
-    so ``(seed, step)`` pairs map to well-separated streams."""
+    """A 63-bit key from an ordered pair (splitmix64 finalizer), so
+    ``(seed, step)`` pairs map to well-separated streams. The noise kernel
+    computes the same function on the device."""
     z = (int(a) * 0x9E3779B97F4A7C15 + int(b) + 0x632BE59BD9B4E019) & _MASK64
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return (z ^ (z >> 31)) & ((1 << 63) - 1)
 
 
-def _generator(seed: int, device) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return gen
+def _mulhilo32(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) 32-bit words of ``a * b`` for ``a`` and int64 ``b`` in
+    [0, 2^32), without leaving int64: ``b`` is split into 16-bit halves so
+    every partial product stays below 2^49 (and non-negative, so each shift
+    is logical)."""
+    x = a * (b >> 16)                          # < 2^48
+    z = ((x & 0xFFFF) << 16) + a * (b & 0xFFFF)  # < 2^49
+    return ((x >> 16) + (z >> 32)) & _U32, z & _U32
 
 
-def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
-    """``-log(-log(u))`` with ``u`` floored at the smallest normal f32, as
-    ``jax.random.gumbel`` does."""
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors (or ints) holding 32-bit words:
+    counter ``(c0, c1, c2, c3)``, key ``(k0, k1)``; returns the 4 output
+    words. Gives Random123's known answers (tests/test_torch_sampling.py)."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _U32
+            k1 = (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _row_keys(seeds: torch.Tensor, steps: torch.Tensor,
+              base_seed: int) -> list[int]:
+    """Each row's 64-bit noise key: ``mix_seed(seed, step)`` for a seeded
+    row, ``mix_seed(mix_seed(base_seed, step), row)`` for an unseeded one."""
+    return [
+        mix_seed(seed, step) if seed >= 0
+        else mix_seed(mix_seed(base_seed, step), row)
+        for row, (seed, step) in enumerate(zip(seeds.tolist(),
+                                               steps.tolist()))
+    ]
+
+
+def gumbel_bits_plain(seeds: torch.Tensor, steps: torch.Tensor,
+                      base_seed: int, v: int) -> torch.Tensor:
+    """The noise kernel's random words, int64[S, V] in [0, 2^32): token t of
+    row r is word ``t % 4`` of Philox4x32-10 at counter ``(t // 4, 0, 0,
+    0)`` under row r's key (low word, high word)."""
+    dev = seeds.device
+    keys = torch.tensor(_row_keys(seeds, steps, base_seed),
+                        dtype=torch.int64, device=dev)[:, None]
+    groups = torch.arange((v + 3) // 4, dtype=torch.int64, device=dev)[None]
+    zero = torch.zeros_like(groups)
+    words = philox4x32_10(groups, zero, zero, zero, keys & _U32,
+                          (keys >> 32) & _U32)
+    return torch.stack(words, dim=-1).reshape(keys.shape[0], -1)[:, :v]
+
+
+def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``-log(-log(u))`` with ``u = (bits >> 8) * 2^-24`` floored at the
+    smallest normal f32, as ``jax.random.gumbel`` floors its uniform."""
+    u = (bits >> 8).to(torch.float32) * 2.0 ** -24
     tiny = torch.finfo(torch.float32).tiny
     return -torch.log(-torch.log(torch.clamp_min(u, tiny)))
+
+
+def gumbel_rows_plain(seeds: torch.Tensor, steps: torch.Tensor,
+                      base_seed: int, v: int) -> torch.Tensor:
+    """The plain version of the noise kernel: f32[S, V]."""
+    return gumbel_from_bits(gumbel_bits_plain(seeds, steps, base_seed, v))
+
+
+def gumbel_rows(
+    seeds: torch.Tensor,   # i64[S]; < 0 = unseeded row
+    steps: torch.Tensor,   # i64[S]; the output step (seeded) or engine step
+    base_seed: int,
+    v: int,
+    bits: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Per-row gumbel noise indexed by token id, f32[S, V], from tensors
+    (``csrc/gumbel.cu``). CPU tensors take :func:`gumbel_rows_plain`; CUDA
+    tensors launch the kernel or raise. ``bits`` (i32[S, V], CUDA only)
+    also receives the random words, for the card's check."""
+    if seeds.device.type == "cpu":
+        return gumbel_rows_plain(seeds, steps, base_seed, v)
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    s = seeds.shape[0]
+    if seeds.dtype != torch.int64 or steps.dtype != torch.int64:
+        raise TypeError("gumbel_rows: seeds and steps must be int64")
+    if steps.shape != (s,) or seeds.dim() != 1:
+        raise ValueError(f"gumbel_rows: seeds and steps must be [{s}]")
+    if bits is not None and (bits.dtype != torch.int32
+                             or bits.shape != (s, v)):
+        raise ValueError(f"gumbel_rows: bits must be i32[{s}, {v}]")
+    ck.require_cuda("gumbel_rows", seeds, steps,
+                    *(() if bits is None else (bits,)))
+    out = torch.empty((s, v), dtype=torch.float32, device=seeds.device)
+    code = ck.lib().pk_gumbel_rows(
+        seeds.data_ptr(), steps.data_ptr(), out.data_ptr(),
+        None if bits is None else bits.data_ptr(), int(base_seed), s, v,
+        ck.stream_of(seeds),
+    )
+    ck.check(code, "gumbel_rows")
+    ck.LAUNCHES["gumbel_rows"] += 1
+    return out
 
 
 def row_gumbel(
@@ -64,21 +159,18 @@ def row_gumbel(
     out_steps=None,   # sequence of ints per row: output index of the draw
     device="cpu",
 ) -> torch.Tensor:
-    """Per-row gumbel noise indexed by token id: f32[b, v]."""
-    u = torch.rand(
-        (b, v), generator=_generator(mix_seed(base_seed, step), device),
-        device=device, dtype=torch.float32,
-    )
+    """Per-row gumbel noise indexed by token id, f32[b, v], from host
+    lists: a seeded row keyed by ``(seed, its output step)``, an unseeded
+    row by ``(base_seed, step, row)`` (:func:`gumbel_rows`)."""
+    seeds_t = torch.full((b,), -1, dtype=torch.int64)
+    steps_t = torch.full((b,), int(step), dtype=torch.int64)
     if seeds is not None:
-        for i in range(b):
-            seed = int(seeds[i])
-            if seed >= 0:
-                u[i] = torch.rand(
-                    (v,), device=device, dtype=torch.float32,
-                    generator=_generator(mix_seed(seed, int(out_steps[i])),
-                                         device),
-                )
-    return gumbel_from_uniform(u)
+        seeds_t = torch.tensor([int(x) for x in seeds], dtype=torch.int64)
+        steps_t = torch.where(
+            seeds_t >= 0,
+            torch.tensor([int(x) for x in out_steps], dtype=torch.int64),
+            steps_t)
+    return gumbel_rows(seeds_t.to(device), steps_t.to(device), base_seed, v)
 
 
 def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,12 @@
 
 Token and sequence counts are padded up to a small lattice of power-of-two
 buckets, as in the JAX package, where the lattice bounds recompiles; here it
-will key CUDA graphs. Occupancy within a bucket is dynamic (``num_seqs``).
+keys the decode window's CUDA graphs (``runtime/step_graph.py``). Occupancy
+within a bucket is dynamic (``num_seqs``).
+
+Host arrays reach the device through :class:`HostStaging`: pinned buffers
+and ``non_blocking`` copies, so a dispatch never waits for the step in
+flight.
 """
 
 from __future__ import annotations
@@ -15,6 +20,57 @@ import torch
 
 from parallax_tpu_torch.models.base import BatchInputs
 from parallax_tpu_torch.runtime.scheduler import BatchPlan
+
+
+class HostStaging:
+    """Pinned host buffers for the H2D copies of a dispatch.
+
+    A copy from pageable memory may wait for the stream to drain, which
+    would stop the overlapped loop; a pinned source with ``non_blocking``
+    does not. At most two tickets exist at once (the one-in-flight loop),
+    so two sets of buffers alternate: :meth:`begin` starts a dispatch on
+    the set the dispatch before last used, after waiting for that set's
+    copies (an event recorded behind them), so the host never writes a
+    buffer a pending copy still reads. On a CPU device :meth:`put` is
+    ``torch.from_numpy``.
+    """
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._pinned = self.device.type == "cuda"
+        self._sets: list[dict[str, torch.Tensor]] = [{}, {}]
+        self._events: list = [None, None]
+        self._cur = 0
+
+    def begin(self) -> None:
+        """Start a dispatch's copies on the other buffer set."""
+        self._cur ^= 1
+        ev = self._events[self._cur]
+        if ev is not None:
+            ev.synchronize()
+            self._events[self._cur] = None
+
+    def put(self, name: str, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the device, copied through this set's buffer ``name``."""
+        src = torch.from_numpy(np.ascontiguousarray(a))
+        if not self._pinned:
+            return src
+        bufs = self._sets[self._cur]
+        buf = bufs.get(name)
+        if (buf is None or buf.dtype != src.dtype
+                or buf.numel() < src.numel()):
+            buf = torch.empty((max(src.numel(), 64),), dtype=src.dtype,
+                              pin_memory=True)
+            bufs[name] = buf
+        view = buf[: src.numel()].view(src.shape)
+        view.copy_(src)
+        out = view.to(self.device, non_blocking=True)
+        if self._events[self._cur] is None:
+            self._events[self._cur] = torch.cuda.Event()
+        # Re-recorded behind each copy: the set is free once the last
+        # copy of its dispatch has run.
+        self._events[self._cur].record()
+        return out
 
 
 def next_bucket(n: int, buckets: list[int]) -> int:
@@ -71,11 +127,14 @@ def assemble(
     gather_all_logits: bool = False,
     decode_fused: bool = False,
     prefill_fused: bool = False,
+    staging: HostStaging | None = None,
 ) -> BatchInputs:
     """Build fixed-shape tensors on ``device`` from a ragged plan.
 
     ``hidden_states`` replaces token ids on non-first stages; rows are
     ordered as the plan's segments and padded here to the token bucket.
+    ``staging`` (the engine's) copies through pinned buffers without
+    blocking; without it the copies are plain ``.to(device)``.
     """
     seqs = plan.seqs
     t_real = plan.total_new_tokens
@@ -118,7 +177,9 @@ def assemble(
         # stream in one forward); its length is the token bucket.
         logits_indices = np.arange(t, dtype=np.int32)
 
-    def dev(a: np.ndarray) -> torch.Tensor:
+    def dev(a: np.ndarray, name: str) -> torch.Tensor:
+        if staging is not None:
+            return staging.put(name, a)
         return torch.from_numpy(a).to(device)
 
     hidden = None
@@ -128,16 +189,42 @@ def assemble(
             pad = hidden.new_zeros((t - hidden.shape[0], hidden.shape[1]))
             hidden = torch.cat([hidden, pad], dim=0)
     return BatchInputs(
-        token_ids=dev(token_ids),
+        token_ids=dev(token_ids, "token_ids"),
         hidden_states=hidden,
-        positions=dev(positions),
-        kv_lens=dev(kv_lens),
-        page_indices=dev(page_indices),
-        cu_q_lens=dev(cu_q_lens),
-        num_seqs=dev(np.asarray([s_real], np.int32)),
-        slot_mapping=dev(slot_mapping),
-        logits_indices=dev(logits_indices),
+        positions=dev(positions, "positions"),
+        kv_lens=dev(kv_lens, "kv_lens"),
+        page_indices=dev(page_indices, "page_indices"),
+        cu_q_lens=dev(cu_q_lens, "cu_q_lens"),
+        num_seqs=dev(np.asarray([s_real], np.int32), "num_seqs"),
+        slot_mapping=dev(slot_mapping, "slot_mapping"),
+        logits_indices=dev(logits_indices, "logits_indices"),
         decode_only=decode_only,
         decode_fused=decode_fused and decode_only,
         prefill_fused=prefill_fused and not decode_only,
     )
+
+
+def _gather_feed(token_ids: torch.Tensor, last_tokens: torch.Tensor,
+                 slots: torch.Tensor) -> torch.Tensor:
+    """Rows with a slot >= 0 take ``last_tokens[slot]``; the rest keep
+    ``token_ids`` (a gather on the device)."""
+    fed = last_tokens[torch.clamp(slots, 0, last_tokens.shape[0] - 1).long()]
+    return torch.where(slots >= 0, fed, token_ids)
+
+
+def substitute_device_tokens(
+    inputs: BatchInputs, last_tokens: torch.Tensor, feed_slots: torch.Tensor
+) -> BatchInputs:
+    """Overlapped decode's on-device token feedback: replace the
+    placeholder token ids of device-fed rows with a gather from the
+    engine's device-resident last-token array.
+
+    ``feed_slots`` is i32[T] with the row's token slot at its first token
+    position and -1 everywhere else (host rows keep their assembled ids).
+    The gather is enqueued between the sampler that produced
+    ``last_tokens`` and the forward that consumes the result, so the
+    sampled token never round-trips through the host.
+    """
+    return dataclasses.replace(
+        inputs, token_ids=_gather_feed(inputs.token_ids, last_tokens,
+                                       feed_slots))

@@ -1,12 +1,24 @@
 """StageEngine: the per-node execution engine around one stage (port of
-``parallax_tpu/runtime/engine.py``, its K=1 synchronous configuration).
+``parallax_tpu/runtime/engine.py``).
 
 Continuous batching, paged KV with the radix prefix cache, chunked prefill,
 per-step sampling and the pipeline ring protocol (head commits, mirrors on
-later stages). ``step()`` is ``resolve(dispatch())`` exactly as the JAX
-package's synchronous step; the overlapped loop and the K-step decode window
-are not ported yet, so this ``EngineConfig`` defaults to
-``decode_lookahead=1`` and ``overlap_steps=False`` and refuses the others.
+later stages), with the JAX package's two-phase step and K-step decode
+window:
+
+- ``dispatch()`` forms the plan, assembles device inputs through pinned
+  staging buffers and enqueues the forward and the sampler; ``resolve()``
+  waits on an event behind the pinned copy of the sampled tokens, then
+  commits. ``drive_step`` keeps one step in flight, and a single-stage
+  engine feeds each decode row's sampled token back on the device (a
+  slot-indexed last-token array), so the host builds step N+1 while the
+  card computes step N. ``step()`` is ``resolve(dispatch())``.
+- A decode-only batch on a single-stage engine runs a chain of windows of
+  K steps (``decode_lookahead``; None = adaptive, K = 8) with an on-device
+  stop mask, one D2H pass a chain and commits bounded by each row's
+  produced count. On a CUDA device each window step is a replayed CUDA
+  graph (``runtime/step_graph.py``; ``cuda_graphs``); elsewhere the same
+  step function runs in an eager loop.
 
 Construction raises on every configuration the port does not run yet, and
 ``submit`` raises on every per-request feature it does not run yet — nothing
@@ -28,10 +40,15 @@ from parallax_tpu_torch.ops.sampling import (
     FUSED_SAMPLE_TOPK_MAX,
     fused_sample_topk,
     greedy_tokens,
-    row_gumbel,
+    gumbel_rows,
     sample_tokens,
 )
-from parallax_tpu_torch.runtime.batch import BucketSpec, assemble
+from parallax_tpu_torch.runtime.batch import (
+    BucketSpec,
+    HostStaging,
+    assemble,
+    substitute_device_tokens,
+)
 from parallax_tpu_torch.runtime.cache_manager import make_cache_manager
 from parallax_tpu_torch.runtime.request import (
     IntermediateRequest,
@@ -43,16 +60,26 @@ from parallax_tpu_torch.runtime.scheduler import BatchPlan, Scheduler
 
 _KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
+# Adaptive multi-step decode: K used per host visit when
+# ``EngineConfig.decode_lookahead`` is None and the batch qualifies.
+ADAPTIVE_DECODE_LOOKAHEAD = 8
+# Unseeded rows of a window draw their noise at steps of a range of their
+# own, (1 << 40) + (engine step << 20) + window step, apart from the K=1
+# path's engine steps.
+_WINDOW_NOISE_STEPS = 1 << 40
+
 
 @dataclasses.dataclass
 class EngineConfig:
-    """The JAX package's ``EngineConfig`` field names. Live in this slice:
-    page/batch/bucket sizing, the prefix cache, chunked prefill and chunk
-    skipping, ``kv_dtype``, ``seed``, ``request_timeout_s`` and the
-    ``decode_fused`` / ``prefill_fused`` kernel switches. The fields listed
-    in ``_UNPORTED`` must keep their defaults (construction raises
-    otherwise); ``linear_*``, ``speculative_ngram``, ``constrained_window``
-    and ``slow_request_ms`` only tune features that are refused elsewhere."""
+    """The JAX package's ``EngineConfig`` field names and defaults. Live in
+    the port: page/batch/bucket sizing, the prefix cache, chunked prefill
+    and chunk skipping, ``kv_dtype``, ``seed``, ``request_timeout_s``, the
+    overlapped step (``overlap_steps``), the K-step decode window
+    (``decode_lookahead``, ``decode_pipeline``) and the ``decode_fused`` /
+    ``prefill_fused`` kernel switches. The fields listed in ``_UNPORTED``
+    must keep their defaults (construction raises otherwise);
+    ``linear_*``, ``speculative_ngram``, ``constrained_window`` and
+    ``slow_request_ms`` only tune features that are refused elsewhere."""
 
     page_size: int = 64
     num_pages: int = 1024
@@ -68,15 +95,21 @@ class EngineConfig:
     seed: int = 0
     request_timeout_s: float = 600.0
     sp_threshold: int | None = None
-    # The JAX default is None (adaptive K = 8); the port runs K = 1 until
-    # the K-step window is ported.
-    decode_lookahead: int | None = 1
+    # Decode steps per host visit: None = adaptive
+    # (ADAPTIVE_DECODE_LOOKAHEAD whenever the batch qualifies), an int pins
+    # K, 1 = off. Pages for the whole window are reserved up front; the
+    # engine falls back to K=1 when they cannot be.
+    decode_lookahead: int | None = None
+    # Windows chained per host visit off the device-resident state, before
+    # any of their tokens is read back. 1 = off.
     decode_pipeline: int = 1
     speculative_tokens: int = 0
     speculative_ngram: int = 3
     constrained_window: bool = True
-    # The JAX default is True; the port's step is synchronous for now.
-    overlap_steps: bool = False
+    # Overlapped decode: dispatch() enqueues, resolve() commits, and the
+    # step loops keep one step in flight. False = every ticket resolves at
+    # once (the synchronous engine).
+    overlap_steps: bool = True
     wire_dtype: str | None = None
     trace_sample_rate: float = 0.0
     slow_request_ms: float = 30_000.0
@@ -93,9 +126,6 @@ class EngineConfig:
 
 # Engine features not ported yet: field -> the only value accepted.
 _UNPORTED = {
-    "decode_lookahead": 1,
-    "decode_pipeline": 1,
-    "overlap_steps": False,
     "speculative_tokens": 0,
     "host_cache_bytes": 0,
     "sp_threshold": None,
@@ -119,19 +149,119 @@ class StepOutputs:
     finished: list[Request]
     num_tokens: int = 0
     step_time_ms: float = 0.0
+    # Two-phase step telemetry: ms the host spent on this step (plan,
+    # assembly, enqueue, commit and any wait for the device), the wait
+    # for the device's results within it, and whether the step's resolve
+    # came after a later dispatch.
+    host_ms: float = 0.0
+    device_ms: float = 0.0
+    overlapped: bool = False
 
 
 @dataclasses.dataclass(eq=False)
 class StepTicket:
-    """A dispatched step: the plan plus its forward outputs; ``resolve``
-    completes it. ``outputs`` is pre-filled for empty plans."""
+    """A dispatched step: the plan plus what its dispatch enqueued;
+    ``resolve`` completes it. ``outputs`` is pre-filled for empty plans;
+    ``sync_only`` marks tickets the step loop must resolve before dispatching
+    again."""
 
     plan: BatchPlan
     step_idx: int
     t0: float
+    host_ms: float = 0.0
+    sync_only: bool = False
+    # Dispatch-entry stamp: resolve compares it with the engine's counter
+    # to report whether a later dispatch ran while this one was in flight.
+    dispatch_seq: int = 0
     inputs: BatchInputs | None = None
     out: torch.Tensor | None = None
+    # The sampled tokens on the device (enqueued at dispatch) and their
+    # pinned host copy, started at dispatch.
+    tokens_dev: torch.Tensor | None = None
+    tokens_host: torch.Tensor | None = None
+    # Window chain: pinned host copies, started at dispatch, of its
+    # [rows, S] token buffer (row j = chain step j) and of the final
+    # per-row produced counts, which bound the commits.
+    ms_windows: torch.Tensor | None = None
+    ms_state: torch.Tensor | None = None
+    # The event behind the ticket's host copies (None on a CPU device).
+    ready: object = None
     outputs: StepOutputs | None = None
+
+
+def drive_step(
+    engine: "StageEngine", pending: StepTicket | None
+) -> tuple[list[StepOutputs], StepTicket | None]:
+    """One iteration of the overlapped step loop (the one-in-flight
+    pattern every step loop uses): dispatch step N+1 FIRST — its host work
+    runs while the device still computes step N — then resolve step N.
+    Tickets that resolved inside dispatch or that are ``sync_only``
+    resolve at once; with ``overlap_steps`` off every ticket does.
+
+    Returns (resolved StepOutputs in completion order, the new in-flight
+    ticket or None)."""
+    outs: list[StepOutputs] = []
+    ticket = engine.dispatch() if engine.has_work() else None
+    if pending is not None:
+        try:
+            outs.append(engine.resolve(pending))
+        except Exception:
+            # The just-dispatched ticket would otherwise be orphaned in
+            # the engine's in-flight list, wedging every later dispatch
+            # on the one-in-flight invariant.
+            if ticket is not None:
+                engine.discard(ticket)
+            raise
+    if ticket is not None:
+        if (
+            ticket.outputs is not None
+            or ticket.sync_only
+            or not engine.cfg.overlap_steps
+        ):
+            outs.append(engine.resolve(ticket))
+            ticket = None
+    return outs, ticket
+
+
+@dataclasses.dataclass(eq=False)
+class WindowState:
+    """Everything a decode window's step reads and writes, as tensors: the
+    per-dispatch batch fields, the carry (fed token, context, stop mask,
+    produced count, step counter) and the token buffer the step writes at
+    the counter's row. Sampler fields are None on an all-greedy window."""
+
+    page_indices: torch.Tensor     # i32[S, pages_per_seq]
+    cu_q_lens: torch.Tensor        # i32[S+1]
+    num_seqs: torch.Tensor         # i32[1]
+    logits_indices: torch.Tensor   # i32[S]
+    feed: torch.Tensor             # i32[S] token fed at the next step
+    ctx: torch.Tensor              # i32[S] context after the next step
+    stopped: torch.Tensor          # bool[S]
+    produced: torch.Tensor         # i32[S]
+    counter: torch.Tensor          # i64[1] steps taken in the chain
+    tokens: torch.Tensor           # i32[R, S] sampled token per step
+    stop_tokens: torch.Tensor      # i32[S, J] (-1 padded)
+    limit: torch.Tensor            # i32[S] tokens left before a length stop
+    min_req: torch.Tensor          # i32[S] min_new_tokens left
+    temp: torch.Tensor | None = None
+    top_k: torch.Tensor | None = None
+    top_p: torch.Tensor | None = None
+    min_p: torch.Tensor | None = None
+    seeds: torch.Tensor | None = None   # i64[S]; < 0 = unseeded
+    steps0: torch.Tensor | None = None  # i64[S] noise step at counter 0
+
+    def _tensors(self):
+        return [(f.name, getattr(self, f.name))
+                for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None]
+
+    def clone(self) -> "WindowState":
+        return dataclasses.replace(
+            self, **{name: t.clone() for name, t in self._tensors()})
+
+    def copy_(self, other: "WindowState") -> None:
+        for name, t in self._tensors():
+            t.copy_(getattr(other, name))
 
 
 def _default_device() -> torch.device:
@@ -144,8 +274,20 @@ def _default_device() -> torch.device:
     return torch.device("cuda:0")
 
 
+def _fit(x: torch.Tensor, t: int, fill: int) -> torch.Tensor:
+    """``x [S]`` cut or padded with ``fill`` to ``t`` rows."""
+    s = x.shape[0]
+    if t <= s:
+        return x[:t]
+    return torch.cat([x, x.new_full((t - s,), fill)])
+
+
 class StageEngine:
-    """Continuous-batching engine for one pipeline stage."""
+    """Continuous-batching engine for one pipeline stage.
+
+    ``cuda_graphs`` follows ``decode_fused``'s rule: None = the decode
+    window's steps replay CUDA graphs when the device is CUDA, True = they
+    do (raises on another device), False = the eager loop."""
 
     def __init__(
         self,
@@ -153,6 +295,7 @@ class StageEngine:
         params: dict,
         config: EngineConfig | None = None,
         device=None,
+        cuda_graphs: bool | None = None,
     ):
         self.cfg = config or EngineConfig()
         for name, want in _UNPORTED.items():
@@ -175,6 +318,12 @@ class StageEngine:
         self.device = torch.device(device) if device is not None else (
             _default_device()
         )
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        elif cuda_graphs and self.device.type != "cuda":
+            raise ValueError(
+                f"cuda_graphs=True needs a CUDA device, got {self.device}"
+            )
         self.model = model
         self.params = params_to(params, self.device)
         # One paged cache per local layer, updated in place by every step.
@@ -234,6 +383,26 @@ class StageEngine:
         # Non-head stages: hidden rows waiting per request id (tensors on
         # this engine's device, in the model's dtype).
         self._pending_hidden: dict[str, torch.Tensor] = {}
+        # Overlapped two-phase stepping: at most ONE unresolved ticket may
+        # be outstanding when dispatch() is entered (the one-in-flight
+        # invariant); the device-resident last-token array feeds decode
+        # rows whose sampled token has not reached the host yet. Its last
+        # entry takes the scatter's dropped rows.
+        self._inflight: list[StepTicket] = []
+        self._dispatch_seq = 0
+        self._last_token_dev = torch.zeros(
+            (self.cfg.max_batch_size + 1,), dtype=torch.int32,
+            device=self.device,
+        )
+        self._token_slots: dict[str, int] = {}
+        self._free_token_slots = list(range(self.cfg.max_batch_size))
+        self._staging = HostStaging(self.device)
+        self._graphs = None
+        if cuda_graphs:
+            from parallax_tpu_torch.runtime.step_graph import WindowGraphs
+
+            self._graphs = WindowGraphs(self.device)
+        self._last_fused_steps = 0
 
     # -- intake -----------------------------------------------------------
 
@@ -315,7 +484,9 @@ class StageEngine:
             self.scheduler.wait_queue.get(request_id)
         )
         self._pending_hidden.pop(request_id, None)
+        self._free_token_slot(request_id)
         if req is not None:
+            req.device_feed_ready = False
             if not req.status.is_finished:
                 if abort:
                     req.abort("released")
@@ -333,24 +504,40 @@ class StageEngine:
 
     # -- kernel accounting -------------------------------------------------
 
-    def _count_kernel_dispatch(self, path: str, impl: str) -> None:
+    def _count_kernel_dispatch(self, path: str, impl: str, n: int = 1) -> None:
         key = (impl, path)
-        self._kernel_counts[key] = self._kernel_counts.get(key, 0) + 1
+        self._kernel_counts[key] = self._kernel_counts.get(key, 0) + n
 
     def kernel_dispatch_summary(self) -> dict:
         """The active impls and per-(impl, path) dispatch counts, so a run
         shows which path served it (``cuda-fused``, ``cuda-split`` or
-        ``torch``)."""
-        return {
+        ``torch``). Paths: ``prefill`` and ``decode`` count forward steps
+        of the single-step path, ``multistep`` the forward steps of decode
+        windows (m * k a chain), ``sample`` the sampler's calls. With CUDA
+        graphs on, ``graphs`` counts the captured graphs, the window steps
+        they replayed, the host seconds their warm-up, recording and
+        instantiation took and the kernel launches of the warm-up steps
+        (one eager step a graph)."""
+        out = {
             "impl": self._attn_impl,
             "decode_fused": self._decode_fused,
             "prefill_impl": self._prefill_impl,
             "prefill_fused": self._prefill_fused,
+            "cuda_graphs": self._graphs is not None,
             "dispatch_total": {
                 f"{impl}/{path}": n
                 for (impl, path), n in sorted(self._kernel_counts.items())
             },
         }
+        if self._graphs is not None:
+            out["graphs"] = {
+                "captured": self._graphs.captured,
+                "replays": self._graphs.replays,
+                "capture_s": self._graphs.capture_s,
+                "capture_parts_s": dict(self._graphs.capture_parts_s),
+                "warmup_launches": dict(self._graphs.warmup_launches),
+            }
+        return out
 
     # -- stepping ---------------------------------------------------------
 
@@ -360,9 +547,22 @@ class StageEngine:
 
     @torch.no_grad()
     def dispatch(self) -> StepTicket:
-        """Form the plan, assemble device inputs and run the stage forward.
-        Bookkeeping advances only after the forward ran."""
+        """Phase 1: form the plan, assemble device inputs and ENQUEUE the
+        forward (and, on the last stage, the sampler); returns without
+        waiting for the device. At most one unresolved ticket may be
+        outstanding when dispatch is entered.
+
+        A failure anywhere in here leaves the scheduler consistent: no
+        bookkeeping advances until the forward is enqueued, so the same
+        rows are re-schedulable on the next call."""
+        if len(self._inflight) > 1:
+            raise RuntimeError(
+                "dispatch() with two steps already in flight — resolve() "
+                "the oldest ticket first (one-in-flight invariant)"
+            )
         t0 = time.perf_counter()
+        self._dispatch_seq += 1
+        self._staging.begin()
         plan = self._form_plan()
         if plan.is_empty:
             return StepTicket(
@@ -370,6 +570,9 @@ class StageEngine:
                 outputs=StepOutputs(forward=[],
                                     finished=self._collect_finished()),
             )
+        ticket = self._dispatch_multistep(plan, t0)
+        if ticket is not None:
+            return ticket
         hidden = None
         if not self.model.is_first:
             hidden = torch.cat([
@@ -382,37 +585,507 @@ class StageEngine:
             plan, self.spec, self.cfg.page_size, self.device,
             hidden_states=hidden, decode_only=decode_only,
             decode_fused=self._decode_fused,
-            prefill_fused=self._prefill_fused,
+            prefill_fused=self._prefill_fused, staging=self._staging,
         )
+        if any(seg.device_token for seg in plan.seqs):
+            inputs = self._substitute_feed(plan, inputs)
+        out = self._forward(inputs)
         self._count_kernel_dispatch(
             "decode" if one_token else "prefill",
             self._attn_impl if decode_only else self._prefill_impl,
         )
-        out, self.kv = self.model(self.params, self.kv, inputs)
         self.scheduler.on_batch_computed(plan)
         step_idx = self._step_count
         self._step_count += 1
-        return StepTicket(plan=plan, step_idx=step_idx, t0=t0,
-                          inputs=inputs, out=out)
+        ticket = StepTicket(plan=plan, step_idx=step_idx, t0=t0,
+                            inputs=inputs, out=out,
+                            dispatch_seq=self._dispatch_seq)
+        if self.model.is_last:
+            ticket.tokens_dev = self._enqueue_sample(plan, inputs, out,
+                                                     step_idx)
+            (ticket.tokens_host,), ticket.ready = self._to_host(
+                ticket.tokens_dev)
+            if not self._overlap_sample_ok(plan):
+                ticket.sync_only = True
+            elif self.model.is_first and self.cfg.overlap_steps:
+                # Park the sampled tokens in the last-token array so the
+                # NEXT dispatch can feed eligible rows before they reach
+                # the host.
+                self._mark_device_feed(plan, ticket.tokens_dev)
+        ticket.host_ms = (time.perf_counter() - t0) * 1000.0
+        self._inflight.append(ticket)
+        return ticket
 
     @torch.no_grad()
     def resolve(self, ticket: StepTicket) -> StepOutputs:
-        """Sample (last stage) or forward hidden states, then collect
-        finished requests."""
+        """Phase 2: wait for the ticket's tokens (an event behind their
+        pinned copy), emit tokens or hidden states, and collect finished
+        requests. Tickets resolve in dispatch order."""
+        if ticket in self._inflight:
+            self._inflight.remove(ticket)
         if ticket.outputs is not None:
             return ticket.outputs
+        if ticket.ms_windows is not None:
+            return self._resolve_multistep(ticket)
         plan = ticket.plan
-        if not self.model.is_last:
-            forwards = self._emit_hidden(plan, ticket.out)
-        else:
-            tokens = self._sample(ticket.out, ticket.inputs, plan,
-                                  ticket.step_idx)
-            forwards = self._emit_tokens(plan, tokens)
+        t_r0 = time.perf_counter()
+        device_ms = 0.0
+        try:
+            if not self.model.is_last:
+                forwards = self._emit_hidden(plan, ticket.out)
+            else:
+                tb = time.perf_counter()
+                self._wait(ticket.ready)
+                device_ms = (time.perf_counter() - tb) * 1000.0
+                forwards = self._emit_tokens(plan,
+                                             ticket.tokens_host.numpy())
+        except Exception:
+            self._abandon(plan)
+            raise
+        now = time.perf_counter()
         return StepOutputs(
             forward=forwards,
             finished=self._collect_finished(),
             num_tokens=plan.total_new_tokens,
-            step_time_ms=(time.perf_counter() - ticket.t0) * 1000.0,
+            step_time_ms=(now - ticket.t0) * 1000.0,
+            host_ms=ticket.host_ms + (now - t_r0) * 1000.0,
+            device_ms=device_ms,
+            overlapped=self._dispatch_seq != ticket.dispatch_seq,
+        )
+
+    def is_inflight(self, ticket: StepTicket) -> bool:
+        """True while the ticket has been dispatched but not resolved
+        (nor discarded). A failed resolve() removes the ticket, so error
+        handlers can use this to tell whether a retry is meaningful."""
+        return ticket in self._inflight
+
+    def discard(self, ticket: StepTicket) -> None:
+        """Drop an in-flight ticket that can no longer be resolved (e.g. an
+        earlier ticket's resolve failed mid-loop): its rows' pending tokens
+        are lost, so abort them to keep the scheduler consistent."""
+        if ticket in self._inflight:
+            self._inflight.remove(ticket)
+        if ticket.outputs is None:
+            self._abandon(ticket.plan)
+
+    # -- the overlapped step ----------------------------------------------
+
+    def _forward(self, inputs: BatchInputs) -> torch.Tensor:
+        out, self.kv = self.model(self.params, self.kv, inputs)
+        return out
+
+    def _overlap_sample_ok(self, plan: BatchPlan) -> bool:
+        """May this batch's rows be fed from the device and its ticket stay
+        in flight? Not with rows that need host-synchronous logits
+        processing (penalties, logprobs, grammar masks, logit_bias:
+        refused at ``submit`` until their slice) nor with teacher-forced
+        replay rows, whose next step must be fed from the host commit."""
+        for seg in plan.seqs:
+            sp = seg.request.sampling_params
+            if (
+                sp.presence_penalty
+                or sp.frequency_penalty
+                or sp.repetition_penalty != 1.0
+                or sp.logprobs
+                or sp.json_schema
+                or sp.logit_bias
+                or seg.request.replay_ids
+            ):
+                return False
+        return True
+
+    def _to_host(self, *tensors: torch.Tensor) -> tuple:
+        """Start pinned, non-blocking D2H copies of ``tensors``; returns
+        them and an event recorded behind them (on a CPU device the
+        tensors themselves and None)."""
+        if self.device.type != "cuda":
+            return tensors, None
+        host = tuple(
+            torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                t, non_blocking=True)
+            for t in tensors
+        )
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    @staticmethod
+    def _wait(event) -> None:
+        """Wait for a ticket's host copies (never the whole device)."""
+        if event is not None:
+            event.synchronize()
+
+    def _enqueue_sample(self, plan: BatchPlan, inputs: BatchInputs,
+                        logits: torch.Tensor, step_idx: int) -> torch.Tensor:
+        """Sample one token per row on the device: i32[S]. Seeded rows'
+        noise is keyed by (seed, output step), unseeded rows' by (engine
+        seed, step_idx, row)."""
+        s = int(inputs.kv_lens.shape[0])
+        temp, top_k, top_p, min_p, seeds, steps = self._pack_base_sampling(
+            plan, s)
+        if not np.any(temp > 0.0):
+            # All-greedy batch (padding rows are greedy): argmax only, no
+            # noise.
+            return greedy_tokens(logits)
+        put = self._staging.put
+        gumbel = gumbel_rows(
+            put("seeds", seeds), put("steps", np.where(seeds >= 0, steps,
+                                                       step_idx)),
+            self.cfg.seed, logits.shape[-1],
+        )
+        temp_t, top_k_t = put("temp", temp), put("top_k", top_k)
+        if self._fused_sample_ok(plan):
+            self._count_kernel_dispatch("sample", kernel_select.IMPL_FUSED)
+            return fused_sample_topk(logits, gumbel, temp_t, top_k_t)
+        self._count_kernel_dispatch("sample", kernel_select.IMPL_TORCH)
+        return sample_tokens(logits, temp_t, top_k_t, put("top_p", top_p),
+                             put("min_p", min_p), gumbel)
+
+    def _fused_sample_ok(self, plan: BatchPlan) -> bool:
+        """The fused sampler (A3) covers greedy and plain temperature /
+        top-k rows with a bounded k; a top-p, min-p or large-top-k row
+        sends the batch to the split sampler."""
+        return self._decode_fused and all(
+            seg.request.sampling_params.top_p >= 1.0
+            and seg.request.sampling_params.min_p <= 0.0
+            and seg.request.sampling_params.top_k <= FUSED_SAMPLE_TOPK_MAX
+            for seg in plan.seqs
+        )
+
+    def _mark_device_feed(self, plan: BatchPlan,
+                          tokens_dev: torch.Tensor) -> None:
+        """Single-stage overlap: scatter this step's sampled tokens into
+        the slot-indexed last-token array and mark the rows device-feed
+        ready, so the NEXT dispatch can schedule them before these tokens
+        ever reach the host."""
+        s = int(tokens_dev.shape[0])
+        # The out-of-range slot: the scatter drops the row there.
+        slots = np.full((s,), self.cfg.max_batch_size, np.int32)
+        marked = False
+        for i, seg in enumerate(plan.seqs):
+            req = seg.request
+            if not self._needs_token(seg) or req.status.is_finished:
+                continue
+            # A row whose NEXT commit ends it (max_new reached) never
+            # needs the device round trip; skipping it also bounds every
+            # device-fed position strictly inside max_model_len.
+            pending = 1 if seg.device_token else 0
+            if (
+                req.num_generated + pending + 1
+                >= req.sampling_params.max_new_tokens
+            ):
+                continue
+            slot = self._token_slots.get(req.request_id)
+            if slot is None:
+                if not self._free_token_slots:
+                    continue
+                slot = self._free_token_slots.pop()
+                self._token_slots[req.request_id] = slot
+            slots[i] = slot
+            req.device_feed_ready = True
+            marked = True
+        if marked:
+            self._last_token_dev.index_copy_(
+                0, self._staging.put("mark_slots", slots).long(),
+                tokens_dev)
+
+    def _substitute_feed(self, plan: BatchPlan,
+                         inputs: BatchInputs) -> BatchInputs:
+        """Swap device-fed rows' placeholder token ids for a gather from
+        the last-token array (enqueued between the previous step's sampler
+        and this step's forward — no host round trip)."""
+        feed_slots = np.full((int(inputs.token_ids.shape[0]),), -1, np.int32)
+        row = 0
+        for seg in plan.seqs:
+            if seg.device_token:
+                feed_slots[row] = self._token_slots[seg.request.request_id]
+            row += seg.num_new_tokens
+        return substitute_device_tokens(
+            inputs, self._last_token_dev,
+            self._staging.put("feed_slots", feed_slots))
+
+    def _abandon(self, plan: BatchPlan) -> None:
+        """A resolve failed mid-step: the sampled tokens (and any pending
+        device-feed state) for these rows are lost — abort them so the
+        scheduler never re-schedules rows whose token stream has a
+        hole."""
+        for seg in plan.seqs:
+            req = seg.request
+            if not req.status.is_finished:
+                req.abort("step_resolve_failed")
+            req.device_feed_ready = False
+
+    def _free_token_slot(self, request_id: str) -> None:
+        slot = self._token_slots.pop(request_id, None)
+        if slot is not None:
+            self._free_token_slots.append(slot)
+
+    # -- the K-step decode window -----------------------------------------
+
+    def _effective_lookahead(self) -> int:
+        """Resolved K for this dispatch: an explicit config value wins; the
+        adaptive default (None/0) runs ADAPTIVE_DECODE_LOOKAHEAD whenever
+        the batch qualifies (``_fused_common_ok``)."""
+        k = self.cfg.decode_lookahead
+        if not k:
+            k = ADAPTIVE_DECODE_LOOKAHEAD
+        return max(1, int(k))
+
+    def _fused_common_ok(self, plan: BatchPlan) -> bool:
+        """A window needs a single-stage engine (the ring is local) and
+        decode rows only. Rows with sampling features never reach here
+        (``submit`` refuses them)."""
+        if not (self.model.is_first and self.model.is_last):
+            return False
+        return all(
+            seg.num_new_tokens == 1
+            # A 1-token PROMPT's first forward also has num_new == 1; it
+            # stays on the normal path (prefill bookkeeping differs).
+            and seg.request.status is RequestStatus.DECODING
+            # Replay rows commit RECORDED tokens; an on-device window
+            # would feed its own samples forward instead.
+            and not seg.request.replay_ids
+            for seg in plan.seqs
+        )
+
+    def _pack_stop_state(self, plan: BatchPlan, s: int):
+        """Per-row stop state for a window chain: the combined EOS +
+        stop-token set (-1 padded; empty under ``ignore_eos``, matching
+        commit_token which ignores both then), the remaining generation
+        budget before a length freeze, and the min_new_tokens gate.
+        Budgets count the pending device-fed token of overlap-fed rows.
+        Padded bucket rows keep limit 0 and freeze at step one."""
+        limits = np.zeros((s,), np.int32)
+        min_req = np.zeros((s,), np.int32)
+        sets: list[tuple[int, ...]] = []
+        jmax = 1
+        for i, seg in enumerate(plan.seqs):
+            req = seg.request
+            sp = req.sampling_params
+            pending = int(
+                seg.device_token and req.total_len < seg.context_len
+            )
+            n_out = req.num_generated + pending
+            limits[i] = max(0, sp.max_new_tokens - n_out)
+            min_req[i] = max(0, sp.min_new_tokens - n_out)
+            stop: tuple[int, ...] = ()
+            if not sp.ignore_eos:
+                stop = tuple(dict.fromkeys(
+                    tuple(req.eos_token_ids) + tuple(sp.stop_token_ids)
+                ))
+            sets.append(stop)
+            jmax = max(jmax, len(stop))
+        j = 1
+        while j < jmax:     # pow2 lattice bounds the graph keys
+            j *= 2
+        stop_tokens = np.full((s, j), -1, np.int32)
+        for i, stop in enumerate(sets):
+            stop_tokens[i, : len(stop)] = stop
+        return stop_tokens, limits, min_req
+
+    def _window_step(self, st: WindowState, t: int, sampled: bool,
+                     fused_sample: bool, flags: dict) -> None:
+        """One step of a decode window, on tensors only (the scan body of
+        the JAX package's ``_build_multistep``): build the step's inputs
+        from the carry, forward, sample, freeze stopped rows (they repeat
+        their fed token and write no KV), update the stop mask, advance
+        the context and the counter, and write the tokens at the counter's
+        row. ``t`` is the token bucket and ``flags`` the inputs'
+        decode_only / decode_fused / prefill_fused."""
+        page = self.cfg.page_size
+        live = ~st.stopped
+        pos = torch.clamp_min(st.ctx - 1, 0)
+        phys = torch.gather(st.page_indices, 1,
+                            (pos // page)[:, None].long())[:, 0]
+        slots = torch.where((st.ctx > 0) & live, phys * page + pos % page,
+                            -1).to(torch.int32)
+        inputs = BatchInputs(
+            token_ids=_fit(st.feed, t, 0), hidden_states=None,
+            positions=_fit(pos, t, 0), kv_lens=st.ctx,
+            page_indices=st.page_indices, cu_q_lens=st.cu_q_lens,
+            num_seqs=st.num_seqs, slot_mapping=_fit(slots, t, -1),
+            logits_indices=st.logits_indices, **flags,
+        )
+        logits = self._forward(inputs)
+        if sampled:
+            gumbel = gumbel_rows(st.seeds, st.steps0 + st.counter,
+                                 self.cfg.seed, logits.shape[-1])
+            if fused_sample:
+                nxt = fused_sample_topk(logits, gumbel, st.temp, st.top_k)
+            else:
+                nxt = sample_tokens(logits, st.temp, st.top_k, st.top_p,
+                                    st.min_p, gumbel)
+        else:
+            nxt = greedy_tokens(logits)
+        nxt = torch.where(live, nxt, st.feed)
+        st.tokens.index_copy_(0, st.counter, nxt[None])
+        live_i = live.to(torch.int32)
+        st.produced.add_(live_i)
+        # The predicate commit_token applies on the host: a stop/EOS token
+        # only finishes a row once min_new_tokens is met; the length
+        # budget always does.
+        hit_stop = (nxt[:, None] == st.stop_tokens).any(dim=1) & (
+            st.produced >= st.min_req)
+        st.stopped.logical_or_(live & (hit_stop | (st.produced >= st.limit)))
+        st.ctx.add_(live_i)
+        st.feed.copy_(nxt)
+        st.counter.add_(1)
+
+    def _dispatch_multistep(self, plan: BatchPlan,
+                            t0: float) -> StepTicket | None:
+        """ENQUEUE a chain of k-step decode windows over ``plan`` and
+        return its in-flight ticket, or None to use the single-step path.
+        Nothing waits for the device here: the window tokens and the final
+        produced counts come back in resolve()'s one D2H pass.
+
+        Qualification (``_fused_common_ok``) and scheduler-guaranteed KV
+        pages for the whole chain (``plan_decode_window``; page pressure
+        falls back to K=1 rather than evict for lookahead). Device-fed
+        rows (overlap loop one step ahead) join through the on-device
+        last-token gather. Rows may finish mid-window: the stop mask
+        freezes them — no KV, context or state advances past a row's stop
+        point — and resolve() commits at most each row's produced
+        count."""
+        k = self._effective_lookahead()
+        if k <= 1 or not self._fused_common_ok(plan):
+            return None
+        m = self.scheduler.plan_decode_window(
+            plan, k, max_windows=max(1, self.cfg.decode_pipeline),
+            max_model_len=self.cfg.max_model_len,
+        )
+        if m <= 0:
+            # Soft fallback to K=1: the normal path probes +1 token itself
+            # and owns the kv_oom decision.
+            return None
+        sampled = any(
+            seg.request.sampling_params.temperature > 0.0
+            or seg.request.sampling_params.seed is not None
+            for seg in plan.seqs
+        )
+        fused_sample = sampled and self._fused_sample_ok(plan)
+        # The window's batch has the K=1 decode step's shapes and flags,
+        # so its first step is that step, bit for bit.
+        decode_only = self._use_decode_flag
+        inputs = assemble(
+            plan, self.spec, self.cfg.page_size, self.device,
+            decode_only=decode_only, decode_fused=self._decode_fused,
+            prefill_fused=self._prefill_fused, staging=self._staging,
+        )
+        if any(seg.device_token for seg in plan.seqs):
+            inputs = self._substitute_feed(plan, inputs)
+        s = int(inputs.kv_lens.shape[0])
+        t = int(inputs.token_ids.shape[0])
+        put = self._staging.put
+        stop_tokens, limits, min_req = self._pack_stop_state(plan, s)
+        rows = max(1, self.cfg.decode_pipeline) * k
+        limit = put("ms_limit", limits)
+        st = WindowState(
+            page_indices=inputs.page_indices, cu_q_lens=inputs.cu_q_lens,
+            num_seqs=inputs.num_seqs, logits_indices=inputs.logits_indices,
+            feed=_fit(inputs.token_ids, s, 0).clone(),
+            ctx=inputs.kv_lens.clone(),
+            stopped=limit <= 0,
+            produced=torch.zeros((s,), dtype=torch.int32, device=self.device),
+            counter=torch.zeros((1,), dtype=torch.int64, device=self.device),
+            tokens=torch.zeros((rows, s), dtype=torch.int32,
+                               device=self.device),
+            stop_tokens=put("ms_stop_tokens", stop_tokens), limit=limit,
+            min_req=put("ms_min_req", min_req),
+        )
+        step_idx = self._step_count
+        if sampled:
+            temp, top_k, top_p, min_p, seeds, steps0 = (
+                self._pack_base_sampling(plan, s))
+            steps0 = np.where(seeds >= 0, steps0,
+                              _WINDOW_NOISE_STEPS + (step_idx << 20))
+            st.temp, st.top_k = put("ms_temp", temp), put("ms_top_k", top_k)
+            st.top_p, st.min_p = put("ms_top_p", top_p), put("ms_min_p",
+                                                             min_p)
+            st.seeds, st.steps0 = put("ms_seeds", seeds), put("ms_steps0",
+                                                             steps0)
+        flags = dict(decode_only=inputs.decode_only,
+                     decode_fused=inputs.decode_fused,
+                     prefill_fused=inputs.prefill_fused)
+
+        def step(state: WindowState) -> None:
+            self._window_step(state, t, sampled, fused_sample, flags)
+
+        n = m * k
+        if self._graphs is not None:
+            key = (s, t, inputs.page_indices.shape[1], sampled, fused_sample,
+                   stop_tokens.shape[1], rows)
+            st = self._graphs.run(key, st, step, n)
+        else:
+            for _ in range(n):
+                step(st)
+        self._count_kernel_dispatch("multistep", self._attn_impl, n)
+        if sampled:
+            self._count_kernel_dispatch(
+                "sample", kernel_select.IMPL_FUSED if fused_sample
+                else kernel_select.IMPL_TORCH, n)
+        self._last_fused_steps = n
+        # Advance scheduler bookkeeping exactly like a single decode step
+        # (+1 computed per row, rows un-ready until their tokens resolve);
+        # resolve() adds the remaining commits.
+        self.scheduler.on_batch_computed(plan)
+        self._step_count += 1
+        (toks, produced), ready = self._to_host(st.tokens, st.produced)
+        ticket = StepTicket(
+            plan=plan, step_idx=step_idx, t0=t0, ms_windows=toks,
+            ms_state=produced, ready=ready, dispatch_seq=self._dispatch_seq,
+        )
+        ticket.host_ms = (time.perf_counter() - t0) * 1000.0
+        self._inflight.append(ticket)
+        return ticket
+
+    def _resolve_multistep(self, ticket: StepTicket) -> StepOutputs:
+        """Complete a window chain: ONE D2H pass for all its tokens and the
+        final produced counts (copies started at dispatch), then per-token
+        commits. The device's per-row ``produced`` count bounds them —
+        tokens past a row's stop point are feed repeats, never committed —
+        and ``num_computed_tokens`` only ever advances by the commit count,
+        so prefix-cache donation can never expose phantom KV. A row an
+        abort raced mid-window commits nothing and its dispatch-time +1
+        computed advance is rolled back too."""
+        plan = ticket.plan
+        t_r0 = time.perf_counter()
+        try:
+            tb = time.perf_counter()
+            self._wait(ticket.ready)
+            device_ms = (time.perf_counter() - tb) * 1000.0
+            toks = ticket.ms_windows.numpy()
+            produced = ticket.ms_state.numpy()
+            total = 0
+            for i, seg in enumerate(plan.seqs):
+                req = seg.request
+                committed = 0
+                quota = int(produced[i])
+                while committed < quota and not req.status.is_finished:
+                    req.commit_token(int(toks[committed, i]))
+                    committed += 1
+                # Every committed token's predecessor was fed, so computed
+                # KV advances by the commit count; dispatch already counted
+                # one step (computed == len(all_token_ids) - 1 while
+                # generating).
+                req.num_computed_tokens += committed - 1
+                req.ready_for_step = not req.status.is_finished
+                total += committed
+        except Exception:
+            self._abandon(plan)
+            raise
+        return self._multistep_outputs(ticket, total, t_r0, device_ms)
+
+    def _multistep_outputs(self, ticket: StepTicket, total: int,
+                           t_r0: float, device_ms: float) -> StepOutputs:
+        now = time.perf_counter()
+        return StepOutputs(
+            forward=[],
+            finished=self._collect_finished(),
+            num_tokens=total,
+            step_time_ms=(now - ticket.t0) * 1000.0,
+            host_ms=ticket.host_ms + (now - t_r0) * 1000.0,
+            device_ms=device_ms,
+            overlapped=self._dispatch_seq != ticket.dispatch_seq,
         )
 
     # -- internals --------------------------------------------------------
@@ -458,7 +1131,8 @@ class StageEngine:
 
     def _pack_base_sampling(self, plan: BatchPlan, s: int):
         """Per-row sampling vectors (numpy): (temp, top_k, top_p, min_p,
-        seeds, steps, any_seed); padding rows are greedy."""
+        seeds, steps); padding rows are greedy. ``steps`` is each row's
+        output index of this draw."""
         temp = np.zeros((s,), np.float32)
         top_k = np.zeros((s,), np.int32)
         top_p = np.ones((s,), np.float32)
@@ -468,43 +1142,12 @@ class StageEngine:
         for i, seg in enumerate(plan.seqs):
             (temp[i], top_k[i], top_p[i], min_p[i], seeds[i],
              steps[i]) = self._row_sampling_fields(seg.request)
-        return temp, top_k, top_p, min_p, seeds, steps, bool((seeds >= 0).any())
-
-    def _sample(self, logits: torch.Tensor, inputs: BatchInputs,
-                plan: BatchPlan, step_idx: int) -> np.ndarray:
-        s = int(inputs.kv_lens.shape[0])
-        temp, top_k, top_p, min_p, seeds, steps, any_seed = (
-            self._pack_base_sampling(plan, s)
-        )
-        if not np.any(temp > 0.0):
-            # All-greedy batch (padding rows are greedy): argmax only, no
-            # noise.
-            return greedy_tokens(logits).cpu().numpy()
-        v = logits.shape[-1]
-        gumbel = row_gumbel(
-            s, v, base_seed=self.cfg.seed, step=step_idx,
-            seeds=seeds if any_seed else None, out_steps=steps,
-            device=self.device,
-        )
-        dev = self.device
-        temp_t = torch.from_numpy(temp).to(dev)
-        top_k_t = torch.from_numpy(top_k).to(dev)
-        fused = self._decode_fused and all(
-            seg.request.sampling_params.top_p >= 1.0
-            and seg.request.sampling_params.min_p <= 0.0
-            and seg.request.sampling_params.top_k <= FUSED_SAMPLE_TOPK_MAX
-            for seg in plan.seqs
-        )
-        if fused:
-            self._count_kernel_dispatch("sample", kernel_select.IMPL_FUSED)
-            tokens = fused_sample_topk(logits, gumbel, temp_t, top_k_t)
-        else:
-            self._count_kernel_dispatch("sample", kernel_select.IMPL_TORCH)
-            tokens = sample_tokens(
-                logits, temp_t, top_k_t, torch.from_numpy(top_p).to(dev),
-                torch.from_numpy(min_p).to(dev), gumbel,
-            )
-        return tokens.cpu().numpy()
+            # A device-fed row's fed token is still uncommitted at
+            # dispatch: the host-visible generated count runs one behind
+            # the output index this step samples.
+            if seg.device_token and seg.request.total_len < seg.context_len:
+                steps[i] += 1
+        return temp, top_k, top_p, min_p, seeds, steps
 
     def _needs_token(self, seg) -> bool:
         """Does this segment's sequence produce a sampled token this step?"""
@@ -589,6 +1232,8 @@ class StageEngine:
         for req in finished:
             self.scheduler.release_request(req)
             self._pending_hidden.pop(req.request_id, None)
+            self._free_token_slot(req.request_id)
+            req.device_feed_ready = False
         return finished
 
 

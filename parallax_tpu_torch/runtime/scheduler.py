@@ -1,12 +1,13 @@
 """Local continuous-batching scheduler for one pipeline stage.
 
-A copy of ``parallax_tpu/runtime/scheduler.py`` for the port's first slice:
-FCFS admission with radix prefix matching, prefill-first batch formation
-under token and batch-size budgets, chunked prefill, and prefix-aware chunk
-skipping. Not ported yet (the JAX package's ``qos``, LoRA adapter grouping,
-preemption to the host tier, sequence-parallel prefill planning and
-multi-step window planning): without a host tier a decode that cannot grow
-its pages aborts with ``kv_oom``, exactly as the JAX package does with
+A copy of ``parallax_tpu/runtime/scheduler.py``: FCFS admission with radix
+prefix matching, prefill-first batch formation under token and batch-size
+budgets, chunked prefill, prefix-aware chunk skipping, the overlapped
+loop's device-fed decode rows and the K-step window's page planning
+(``plan_decode_window``). Not ported yet (the JAX package's ``qos``, LoRA
+adapter grouping, preemption to the host tier and sequence-parallel
+prefill planning): without a host tier a decode that cannot grow its pages
+aborts with ``kv_oom``, exactly as the JAX package does with
 ``host_cache_bytes=0``.
 """
 
@@ -32,6 +33,11 @@ class ScheduledSeq:
     token_ids: list[int]         # the new tokens (head node fills these)
     context_len: int             # total KV length after this step
     is_last_prefill_chunk: bool = True
+    # Overlapped decode: this row's fed token is the one an in-flight
+    # step sampled — it lives only in the engine's device-resident
+    # last-token array; ``token_ids`` holds a placeholder the engine
+    # replaces with an on-device gather (batch.substitute_device_tokens).
+    device_token: bool = False
 
 
 @dataclasses.dataclass
@@ -164,25 +170,100 @@ class Scheduler:
             )
             token_budget -= n
 
-        # Then ready decodes.
+        seqs.extend(self._fill_decode(self.max_batch_size - len(seqs),
+                                      token_budget))
+        return BatchPlan(seqs)
+
+    def _fill_decode(self, max_seqs: int,
+                     token_budget: int) -> list[ScheduledSeq]:
+        """Ready decode rows: host-fed (``ready_for_step``) or device-fed
+        (``device_feed_ready``: the in-flight step sampled the row's next
+        token, which lives only on the device)."""
+        seqs: list[ScheduledSeq] = []
         for req in list(self.running.values()):
-            if len(seqs) >= self.max_batch_size or token_budget <= 0:
+            if len(seqs) >= max_seqs or token_budget <= 0:
                 break
-            if req.status is not RequestStatus.DECODING or not req.ready_for_step:
+            if req.status is not RequestStatus.DECODING or not (
+                req.ready_for_step or req.device_feed_ready
+            ):
                 continue
-            ctx = req.total_len
+            # A device-fed row's next token was sampled by the in-flight
+            # step: it occupies one more context slot than the
+            # host-committed total.
+            fed = req.device_feed_ready and not req.ready_for_step
+            ctx = req.total_len + 1 if fed else req.total_len
             if not self._ensure_capacity_or_abort(req, ctx):
                 continue
             seqs.append(
                 ScheduledSeq(
                     request=req,
                     num_new_tokens=1,
-                    token_ids=[req.all_token_ids[-1]],
+                    token_ids=[0] if fed else [req.all_token_ids[-1]],
                     context_len=ctx,
+                    device_token=fed,
                 )
             )
+            if fed:
+                req.device_feed_ready = False
             token_budget -= 1
-        return BatchPlan(seqs)
+        return seqs
+
+    # -- multi-step decode planning ---------------------------------------
+
+    def plan_decode_window(
+        self, plan: BatchPlan, k: int, max_windows: int, max_model_len: int,
+    ) -> int:
+        """K-step window planning: pre-allocate KV pages for a chain of up
+        to ``max_windows`` k-token decode windows over ``plan``'s rows,
+        all-or-nothing.
+
+        Returns the number of windows (>= 1) whose pages are guaranteed
+        now, or 0 when the allocator cannot guarantee even one — the
+        caller then falls back to single-step decode, whose normal path
+        owns the kv_oom decision. The probe never aborts or preempts, and
+        the chain is sized against pages free right now, so a failed probe
+        leaves no allocation behind; only the final ``ensure_capacity``
+        may evict from the prefix tree, exactly as a single-step +1 probe
+        would.
+
+        The chain is clamped to every row's context room below
+        ``max_model_len`` and to the largest remaining generation budget
+        (windows past every row's ``max_new_tokens`` are pure waste);
+        device-fed rows count their pending uncommitted token.
+        """
+        m = max(1, max_windows)
+        want = 1
+        for seg in plan.seqs:
+            room = (max_model_len - seg.context_len) // k
+            if room < 1:
+                return 0
+            m = min(m, room)
+            pending = int(
+                seg.device_token
+                and seg.request.total_len < seg.context_len
+            )
+            want = max(
+                want,
+                seg.request.sampling_params.max_new_tokens
+                - seg.request.num_generated - pending,
+            )
+        m = min(m, max(1, -(-want // k)))
+
+        def _extra_pages(mm: int) -> int:
+            return sum(
+                max(0, self.cache.pages_needed(seg.context_len + mm * k)
+                    - len(seg.request.page_ids))
+                for seg in plan.seqs
+            )
+
+        while m > 1 and _extra_pages(m) > self.cache.num_free_pages:
+            m -= 1
+        if not all(
+            self.cache.ensure_capacity(seg.request, seg.context_len + m * k)
+            for seg in plan.seqs
+        ):
+            return 0
+        return m
 
     # -- step feedback ----------------------------------------------------
 
@@ -203,8 +284,19 @@ class Scheduler:
                 req.ready_for_step = False
 
     def on_token_committed(self, request: Request) -> None:
-        """The ring (or the local resolve) delivered a sampled token."""
-        request.ready_for_step = request.num_computed_tokens < request.total_len
+        """The ring (or the local resolve) delivered a sampled token.
+
+        A token that was already fed from the device-resident array (the
+        overlapped step loop ran one dispatch ahead) must NOT re-arm
+        ``ready_for_step`` — feeding it again would recompute its
+        position and resample its logits, duplicating a token.
+        """
+        fed_ahead = request.num_computed_tokens >= request.total_len
+        request.ready_for_step = not fed_ahead
+        if not fed_ahead:
+            # The committed token is host-known and unfed: the normal
+            # host-fed path takes over (sync tail / overlap off).
+            request.device_feed_ready = False
 
     # -- completion -------------------------------------------------------
 

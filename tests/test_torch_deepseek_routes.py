@@ -66,8 +66,10 @@ def test_fused_and_split_streams_identical(name, monkeypatch):
     assert streams["fused"] == streams["split-kernel"] == streams["plain"]
     n_layers = N_LAYERS
     for route, (c, flags, summary) in seen.items():
-        decode_steps = summary["dispatch_total"].get(
-            f"{summary['impl']}/decode", 0)
+        # Single steps and the decode windows' forward steps.
+        decode_steps = sum(summary["dispatch_total"].get(
+            f"{summary['impl']}/{path}", 0) for path in ("decode",
+                                                         "multistep"))
         assert decode_steps > 0
         # Every one-token step is marked decode_only, on the split path too.
         assert sum(f[1] for f in flags) == decode_steps

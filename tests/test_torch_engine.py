@@ -213,13 +213,36 @@ def test_engine_streams_match_jax(raw, bounds):
     ("host_cache_bytes", 1 << 20), ("sp_threshold", 64), ("qos", "on"),
 ])
 def test_engine_config_refuses_unported(weights, field, value):
+    """Unported fields raise. The overlapped step and the K-step window are
+    ported: their values construct and serve (a window ran, and the
+    stream equals the K=1 synchronous engine's)."""
     _, _, full_np = weights
     cfg = normalize_config(TINY_QWEN2)
     kw = dict(ENGINE, **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        StageEngine(create_stage_model(cfg, 0, 4),
-                    params_from_numpy(full_np, "cpu"), EngineConfig(**kw),
-                    device="cpu")
+
+    def engine(**over):
+        return StageEngine(create_stage_model(cfg, 0, 4),
+                           params_from_numpy(full_np, "cpu"),
+                           EngineConfig(**dict(kw, **over)), device="cpu")
+
+    if field not in ("decode_lookahead", "overlap_steps"):
+        with pytest.raises(NotImplementedError, match=field):
+            engine()
+        return
+    streams, engines = [], (engine(),
+                            engine(decode_lookahead=1, overlap_steps=False))
+    for eng in engines:
+        req = Request("x", prompt_ids=_prompts()[1],
+                      sampling_params=SamplingParams(temperature=0.0,
+                                                     max_new_tokens=N_NEW))
+        pipe = InProcessPipeline([eng])
+        pipe.submit(req)
+        pipe.run_until_complete()
+        assert req.status.value == "finished_length"
+        streams.append(req.output_ids)
+    assert streams[0] == streams[1]
+    assert engines[0].kernel_dispatch_summary()["dispatch_total"][
+        "torch/multistep"] > 0
 
 
 @pytest.mark.parametrize("sp,lora,feature", [

@@ -342,7 +342,9 @@ def test_fused_split_and_plain_streams_identical(monkeypatch):
     assert streams["fused"] == streams["split-kernel"] == streams["plain"]
     for route, (c, summary) in seen.items():
         totals = summary["dispatch_total"]
-        decode = totals.get(f"{summary['impl']}/decode", 0)
+        # Single steps and the decode windows' forward steps.
+        decode = sum(totals.get(f"{summary['impl']}/{path}", 0)
+                     for path in ("decode", "multistep"))
         prefill = totals.get(f"{summary['prefill_impl']}/prefill", 0)
         assert decode > 0 and prefill > 0
         # Sink models mark every one-token step decode_only: all decode

@@ -48,7 +48,8 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "models.moe", "models.qwen3_moe", "models.presets",
                  "ops.mla", "ops.mla_decode", "ops.dsa", "ops.dsa_decode",
                  "models.deepseek_v3", "models.deepseek_v32",
-                 "ops.gqa_decode", "models.gpt_oss", "config"):
+                 "ops.gqa_decode", "models.gpt_oss", "runtime.step_graph",
+                 "config"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"
@@ -116,5 +117,5 @@ def test_kernel_wrappers_build_nothing_at_import():
     assert set(cuda_kernels.LAUNCHES) == {
         "kv_append", "gqa_prefill", "gqa_decode", "gqa_attend",
         "sample_topk", "grouped_gemm", "mla_decode", "mla_attend",
-        "indexer_fused", "indexer_scores",
+        "indexer_fused", "indexer_scores", "gumbel_rows",
     }

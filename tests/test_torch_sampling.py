@@ -291,3 +291,120 @@ def test_sample_chunks_follow_the_kernel_rule():
             assert length <= sampling.SAMPLE_MAX_CHUNK
             if v >= sampling.SAMPLE_MIN_CHUNK:
                 assert length >= sampling.SAMPLE_MIN_CHUNK
+
+
+# -- the noise kernel's twin (gumbel_rows, csrc/gumbel.cu) --------------------
+
+
+@pytest.mark.parametrize("counter,key,want", [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+], ids=["zero", "ones", "pi"])
+def test_philox4x32_10_known_answers(counter, key, want):
+    """Random123's known answers for Philox4x32-10, through the int64 torch
+    arithmetic the noise twin uses (also vectorized: the same answer in
+    every lane of a batch)."""
+    from parallax_tpu_torch.ops.sampling import philox4x32_10
+
+    lanes = [torch.full((3,), c, dtype=torch.int64) for c in counter]
+    keys = [torch.full((3,), k, dtype=torch.int64) for k in key]
+    out = philox4x32_10(*lanes, *keys)
+    for word, w in zip(out, want):
+        assert word.tolist() == [w] * 3
+
+
+def _noise(seeds, steps, base_seed, v):
+    from parallax_tpu_torch.ops.sampling import gumbel_rows
+
+    return gumbel_rows(torch.tensor(seeds, dtype=torch.int64),
+                       torch.tensor(steps, dtype=torch.int64), base_seed, v)
+
+
+def test_gumbel_rows_seeded_row_independent_of_row_and_batch():
+    """Bitwise: a seeded row's noise is a function of (seed, output step)
+    alone: not of its row, its batch, the engine seed or the engine
+    step."""
+    v = 1001
+    alone = _noise([7], [3], 0, v)
+    batch = _noise([-1, 2, 7, -1], [55, 9, 3, 55], 123, v)
+    other = _noise([7, -1], [3, 1 << 40], 9, v)
+    assert torch.equal(alone[0], batch[2])
+    assert torch.equal(alone[0], other[0])
+
+
+def test_gumbel_rows_differ_across_steps_and_rows():
+    v = 4096
+    g = _noise([-1, -1, 5, 5], [10, 10, 0, 1], 0, v)
+    assert not torch.equal(g[0], g[1])       # unseeded rows: by row
+    assert not torch.equal(g[2], g[3])       # seeded rows: by output step
+    h = _noise([-1, -1], [11, 11], 0, v)
+    assert not torch.equal(g[0], h[0])       # unseeded rows: by step
+    assert not torch.equal(_noise([-1], [10], 1, v)[0], g[0])  # engine seed
+    # The engine's unseeded window steps sit apart from the K = 1 steps.
+    assert not torch.equal(_noise([-1], [(1 << 40) + 10], 0, v)[0], g[0])
+
+
+def test_gumbel_rows_mean_is_euler_gamma():
+    """A standard Gumbel's mean is Euler's constant (0.5772); over 65,536
+    tokens the standard error is 0.005, so 0.03 is about 6 of them."""
+    g = _noise([3], [0], 0, 65536)
+    assert torch.isfinite(g).all()
+    assert abs(float(g.mean()) - 0.5772) < 0.03
+
+
+def test_gumbel_rows_words_and_transform():
+    """The twin's words are 32-bit and token t takes word t % 4 of counter
+    t // 4; the noise is -log(-log(u)) of their top 24 bits (a vocabulary
+    that is not a multiple of 4 cuts the last group)."""
+    from parallax_tpu_torch.ops.sampling import (
+        gumbel_bits_plain,
+        gumbel_from_bits,
+        mix_seed,
+        philox4x32_10,
+    )
+
+    seeds = torch.tensor([-1, 4], dtype=torch.int64)
+    steps = torch.tensor([6, 2], dtype=torch.int64)
+    bits = gumbel_bits_plain(seeds, steps, 17, 10)
+    assert bits.shape == (2, 10)
+    assert int(bits.min()) >= 0 and int(bits.max()) < (1 << 32)
+    key = mix_seed(4, 2)
+    t = torch.tensor(2, dtype=torch.int64)       # tokens 8, 9: counter 2
+    zero = torch.tensor(0, dtype=torch.int64)
+    words = philox4x32_10(t, zero, zero, zero,
+                          torch.tensor(key & 0xFFFFFFFF),
+                          torch.tensor(key >> 32))
+    assert bits[1, 8:].tolist() == [int(words[0]), int(words[1])]
+    key0 = mix_seed(mix_seed(17, 6), 0)
+    w0 = philox4x32_10(zero, zero, zero, zero,
+                       torch.tensor(key0 & 0xFFFFFFFF),
+                       torch.tensor(key0 >> 32))
+    assert bits[0, :4].tolist() == [int(w) for w in w0]
+    u = (bits >> 8).float() * 2.0 ** -24
+    assert torch.equal(gumbel_from_bits(bits),
+                       -torch.log(-torch.log(u.clamp_min(
+                           torch.finfo(torch.float32).tiny))))
+    assert torch.equal(_noise([-1, 4], [6, 2], 17, 10),
+                       gumbel_from_bits(bits))
+
+
+def test_samplers_agree_on_the_twins_noise():
+    """A3's plain version and ``sample_tokens`` pick the same token from the
+    twin's noise (top-k rows, greedy rows, ties at the k-th value)."""
+    rng = np.random.default_rng(11)
+    b, v = 6, 257
+    logits = _t((rng.standard_normal((b, v)) * 2).astype(np.float32))
+    logits[2, [10, 20, 30]] = logits[2].max() + 1.0     # a tie at k = 2
+    temp = torch.tensor([0.0, 0.7, 1.0, 1.3, 0.9, 0.0])
+    top_k = torch.tensor([0, 5, 2, 64, 0, 3], dtype=torch.int32)
+    g = _noise([-1, 8, 9, -1, 3, -1], [4, 0, 1, 4, 2, 4], 5, v)
+    fused = fused_sample_topk_plain(logits, g, temp, top_k)
+    split = sample_tokens(logits, temp, top_k, torch.ones(b), torch.zeros(b),
+                          g)
+    assert fused.tolist() == split.tolist()
+    assert fused[0] == torch.argmax(logits[0])
