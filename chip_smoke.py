@@ -80,7 +80,24 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. profile     the serve phase once more under torch.profiler, with the
                engine's defaults and with K1_SYNC: device time by kernel
                group and the device's busy share of the wall.
-7. moe_serve   Qwen3-30B-A3B at full width and all 48 layers (random bf16
+7. http_serve  the front door on the same Qwen2.5-7B tree (its own, made
+               the same way, when run alone): written as an HF checkpoint
+               (bf16 shards of at most 5 GB, the index, config.json; a
+               writer of this script's own) into a temporary directory;
+               ``python -m parallax_tpu_torch generate`` on it in a
+               subprocess (exit 0, its summary line); loaded back with
+               load_stage_params, every leaf the written one's bits (the
+               random tree is dropped then); ``serve`` (the CLI's parser
+               and serve_main, on a free port in a thread, pages from the
+               addressable cap) answering the 8-request mix as text from 8
+               client threads (4 chat, 4 completions, half streamed; r7
+               sent once r0 is answered). Every reply 200 with finish
+               reason "length" and 32 tokens; the text the ids' decode;
+               launches exact with replays; impl cuda-fused; the greedy
+               rows within GREEDY_TOL of the plain path on the loaded
+               weights; the sharer hit the prefix cache. Then the same mix
+               through the library API with the server's page count.
+8. moe_serve   Qwen3-30B-A3B at full width and all 48 layers (random bf16
                weights, about 61 GB; the dense phases' tensors are freed
                first) serving the same 8-request mix with the defaults and
                with K1_SYNC; every kernel's launches exact (the grouped
@@ -89,8 +106,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                plain attention); the same one-shot forward with A4 in
                place of the plain grouped product reports its logit
                difference (no limit).
-8. moe_profile moe_serve once more under torch.profiler, both configs.
-9. mla_serve   DeepSeek-V3 at full width and 5 layers (3 dense + 2 MoE; one
+9. moe_profile moe_serve once more under torch.profiler, both configs.
+10. mla_serve  DeepSeek-V3 at full width and 5 layers (3 dense + 2 MoE; one
                random bf16 tree of 26.7 B params, the MoE model freed first)
                serving the same mix four times: fused decode (A5 once per
                layer and decode step) and split decode (A6 the same, A5
@@ -102,17 +119,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                again step by step, A5 against the plain MLA decode on the
                same cache, and the largest logit difference printed (no
                limit).
-10. mla_profile mla_serve's fused run once more under torch.profiler, both
+11. mla_profile mla_serve's fused run once more under torch.profiler, both
                configs.
-11. dsa_serve  DeepSeek-V3.2 at the same width and depth, on the same tree
+12. dsa_serve DeepSeek-V3.2 at the same width and depth, on the same tree
                plus the indexer, with one more request of 2,400 prompt ids
                so that sparse top-k selection runs: fused (A7), split (A8)
                and plain, the same checks; the long greedy stream is
                decoded again step by step, A7 against the plain indexer
                (the logit difference, argmax and top-k set agreement).
-12. dsa_profile dsa_serve's fused run once more under torch.profiler, both
+13. dsa_profile dsa_serve's fused run once more under torch.profiler, both
                configs.
-13. gptoss_serve gpt-oss-20b at full width and all 24 layers (20.9 B params,
+14. gptoss_serve gpt-oss-20b at full width and all 24 layers (20.9 B params,
                42 GB in bf16, each layer's sinks drawn N(0, 1); DeepSeek's
                tree freed first) serving the mix four times with
                mla_serve's runs and checks: fused (A2 per layer and decode
@@ -120,7 +137,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                layer and decode step, A1 attend-only per layer and prefill
                step, nothing else but the sampler's noise), fused with
                K1_SYNC and plain.
-14. gptoss_profile gptoss_serve's fused run once more under torch.profiler,
+15. gptoss_profile gptoss_serve's fused run once more under torch.profiler,
                both configs.
 
 One JSON object per line; the ``kernels`` line and the card line come just
@@ -1588,7 +1605,10 @@ def kernels_split(torch, gen, dev, flush) -> list[dict]:
     Then each timed."""
     from parallax_tpu_torch.models.presets import get_preset
     from parallax_tpu_torch.ops.attention import ragged_paged_attention
-    from parallax_tpu_torch.ops.decode_fused import gqa_fused_decode
+    from parallax_tpu_torch.ops.decode_fused import (
+        gqa_fused_decode,
+        gqa_fused_decode_plain,
+    )
     from parallax_tpu_torch.ops.gqa_decode import (
         gqa_decode_attention,
         gqa_decode_attention_plain,
@@ -1703,6 +1723,8 @@ def kernels_split(torch, gen, dev, flush) -> list[dict]:
     dargs = (c["q"], c["k"], c["v"], c["cache"].clone(), c["lens"],
              c["pages"], c["slots"], sinks)
     ms_2 = time_ms(torch, lambda: gqa_fused_decode(*dargs, **kw), 50, flush)
+    plain_2 = time_ms(torch, lambda: gqa_fused_decode_plain(*dargs, **kw), 10,
+                      flush)
     out.append(dict(
         name="gqa_attend", route="cuda",
         source="parallax_tpu_torch/csrc/gqa_decode.cu",
@@ -1739,6 +1761,7 @@ def kernels_split(torch, gen, dev, flush) -> list[dict]:
     ))
     emit({"phase": "kernels", "check": "split_timed",
           "gqa_attend_window_ms": ms_w, "gqa_decode_at_gptoss_shape_ms": ms_2,
+          "gqa_decode_at_gptoss_shape_plain_ms": plain_2,
           "gqa_decode_at_dense_decode_shape_ms": ms_a2,
           "ragged_attend_ms": ms_1, "ragged_attend_library_ms": lib_1})
     device_only = {
@@ -2211,23 +2234,15 @@ DENSE_RUNS = (
 )
 
 
-def phase_serve(torch, dev, card: str):
-    """Qwen2.5-7B served five times: fused with the engine's defaults (the
-    K-step window on the one-in-flight loop, replayed from CUDA graphs),
-    the same with graphs off (its greedy and seeded rows must be bitwise
-    the graphs run's), the same kernels in the parent's configuration (K=1,
-    synchronous), split (A1 attend-only once per layer and forward step,
-    the counterpart of the bundled ragged_paged_attention) and plain (no
-    kernel but the sampler's noise). Every kernel's launches are exact.
-    The kernel runs' greedy streams must agree with the plain model's
-    logits. Returns the fused run and each run's launches."""
+def dense_tree(torch, dev, phase: str):
+    """Qwen2.5-7B's random bf16 tree at full width and depth (a seeded
+    generator on the card), and the plain reference model (the plain split
+    path even on the card)."""
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.models.presets import get_preset
-    from parallax_tpu_torch.ops import cuda_kernels as ck
 
     cfg = get_preset(DENSE_MODEL)
     n = cfg.num_hidden_layers
-    # The reference: the plain split path even on the card.
     model_full = create_stage_model(cfg, 0, n, use_kernels=False)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -2237,9 +2252,24 @@ def phase_serve(torch, dev, card: str):
     n_params = sum(
         t.numel() for t in _leaves(params)
     )
-    emit({"phase": "serve", "weights": "random bf16", "params": n_params,
+    emit({"phase": phase, "weights": "random bf16", "params": n_params,
           "init_s": round(time.monotonic() - t0, 3), "layers": n})
+    return cfg, model_full, params
 
+
+def phase_serve(torch, dev, card: str, cfg, model_full, params):
+    """Qwen2.5-7B served five times: fused with the engine's defaults (the
+    K-step window on the one-in-flight loop, replayed from CUDA graphs),
+    the same with graphs off (its greedy and seeded rows must be bitwise
+    the graphs run's), the same kernels in the parent's configuration (K=1,
+    synchronous), split (A1 attend-only once per layer and forward step,
+    the counterpart of the bundled ragged_paged_attention) and plain (no
+    kernel but the sampler's noise). Every kernel's launches are exact.
+    The kernel runs' greedy streams must agree with the plain model's
+    logits. Returns the fused run and each run's launches."""
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    n = cfg.num_hidden_layers
     runs, launches_of = {}, {}
     for mode, fused, model_kw, engine_kw, graphs in DENSE_RUNS:
         ck.reset_launches()
@@ -2296,7 +2326,7 @@ def phase_serve(torch, dev, card: str):
         emit({"phase": "serve", "run": mode,
               "sampled_rows_common_prefix_vs_fused": agree,
               "greedy_rows_identical_to_fused": greedy_same})
-    return cfg, model_full, params, runs["fused"], sampled, launches_of
+    return runs["fused"], sampled, launches_of
 
 
 def phase_pipeline(torch, dev, cfg, model_full, params, single, sampled):
@@ -2393,6 +2423,382 @@ def phase_profile(torch, dev, cfg, params, phase="profile", **serve_kw):
               "post_processing_s": round(time.monotonic() - t_post, 1),
               **stream_metrics(reqs, t0, t1)})
         del prof
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: http_serve, the front door
+# ---------------------------------------------------------------------------
+
+# HF's default shard size (``max_shard_size="5GB"``).
+SHARD_BYTES = 5 * 10**9
+HTTP_TIMEOUT_S = 300
+_ST_DTYPES = {"bfloat16": "BF16", "float16": "F16", "float32": "F32"}
+GENERATE_SUMMARY = (r"(\d+) prompt \+ (\d+) generated tokens \| ttft "
+                    r"([\d.]+)s \| decode ([\d.]+) tok/s \| (\w+)")
+
+
+def hf_tensors(tree) -> dict:
+    """A dense stage tree under HF checkpoint names (``model.`` prefixed,
+    ``lm_head`` outside it), in the tree's order."""
+    out = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}.{k}" if prefix else k, v)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(f"{prefix}.{i}", v)
+        else:
+            out[prefix if prefix.startswith("lm_head.")
+                else f"model.{prefix}"] = node
+
+    walk("", tree)
+    return out
+
+
+def write_checkpoint(tensors: dict, raw_cfg: dict, path: str,
+                     shard_bytes: int = SHARD_BYTES) -> int:
+    """Write ``tensors`` (name -> torch tensor, on any device) as an HF
+    safetensors checkpoint under ``path``: shards of at most about
+    ``shard_bytes`` with ``model.safetensors.index.json``, and
+    ``config.json``. Each shard is an 8-byte little-endian header length, a
+    JSON header (dtype, shape, data_offsets from the end of the header;
+    padded with spaces to 8 bytes) and the raw bytes; one tensor at a time
+    is copied to the host. A writer of its own: the card may lack the
+    ``safetensors`` package. Returns the bytes of tensor data written."""
+    import os
+
+    import torch
+
+    groups, size = [[]], 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        if groups[-1] and size + n > shard_bytes:
+            groups.append([])
+            size = 0
+        groups[-1].append(name)
+        size += n
+    weight_map, total = {}, 0
+    for i, names in enumerate(groups):
+        fname = (f"model-{i + 1:05d}-of-{len(groups):05d}.safetensors"
+                 if len(groups) > 1 else "model.safetensors")
+        header, offset = {"__metadata__": {"format": "pt"}}, 0
+        for name in names:
+            t = tensors[name]
+            n = t.numel() * t.element_size()
+            header[name] = {"dtype": _ST_DTYPES[str(t.dtype).split(".")[-1]],
+                            "shape": list(t.shape),
+                            "data_offsets": [offset, offset + n]}
+            offset += n
+        blob = json.dumps(header).encode()
+        blob += b" " * (-(8 + len(blob)) % 8)
+        with open(os.path.join(path, fname), "wb") as f:
+            f.write(len(blob).to_bytes(8, "little"))
+            f.write(blob)
+            for name in names:
+                t = tensors[name].detach().contiguous().reshape(-1).cpu()
+                f.write(t.view(torch.uint8).numpy())
+                weight_map[name] = fname
+        total += offset
+    if len(groups) > 1:
+        with open(os.path.join(path, "model.safetensors.index.json"),
+                  "w") as f:
+            json.dump({"metadata": {"total_size": total},
+                       "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(raw_cfg, f)
+    return total
+
+
+def _text_mix():
+    """The serve phases' 8-request mix as text for the byte tokenizer:
+    prompts of 259-699 printable bytes (260-700 ids with BOS; chat adds its
+    template), r0 and r7 sharing a 256-byte prefix; r2, r4 and r6 seeded
+    top-k, the rest greedy; 32 tokens each; r0, r2, r4 and r7 through
+    /v1/chat/completions, the rest /v1/completions; r1, r2, r5 and r7
+    streamed."""
+    import string
+
+    rng = random.Random(2024)
+    chars = string.ascii_letters + string.digits + " .,;:!?-"
+
+    def text(n):
+        return "".join(rng.choice(chars) for _ in range(n))
+
+    prefix = text(256)
+    prompts = [prefix + text(3)] + [text(n - 1) for n in
+                                     (300, 450, 700, 512, 380, 640)]
+    prompts.append(prefix + text(149))
+    sampled = {2: (0.8, 20, 11), 4: (1.0, 64, 5), 6: (0.7, 8, 9)}
+    mix = []
+    for i, p in enumerate(prompts):
+        temp, top_k, seed = sampled.get(i, (0.0, -1, None))
+        body = {"max_tokens": 32, "temperature": temp, "top_k": top_k,
+                "ignore_eos": True, "stream": i in (1, 2, 5, 7)}
+        if seed is not None:
+            body["seed"] = seed
+        if i in (0, 2, 4, 7):
+            path = "/v1/chat/completions"
+            body["messages"] = [{"role": "user", "content": p}]
+        else:
+            path = "/v1/completions"
+            body["prompt"] = p
+        mix.append((path, body))
+    return mix, sampled
+
+
+def _http_client(port: int, path: str, body: dict, out: dict) -> None:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT_S)
+    try:
+        out["t_send"] = time.monotonic()
+        conn.request("POST", path, body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out["status"] = resp.status
+        out["raw"] = resp.read().decode()
+        out["t_done"] = time.monotonic()
+    finally:
+        conn.close()
+
+
+def _http_reply(out: dict, body: dict):
+    """(request id, finish reason, usage, text) of one client's reply."""
+    if out.get("status") != 200:
+        raise AssertionError(f"http_serve: status {out.get('status')}: "
+                             f"{out.get('raw', '')[:300]}")
+    chat = "messages" in body
+    if not body["stream"]:
+        reply = json.loads(out["raw"])
+        c = reply["choices"][0]
+        text = c["message"]["content"] if chat else c["text"]
+        return reply["id"], c["finish_reason"], reply["usage"], text
+    lines = out["raw"].splitlines()
+    if "data: [DONE]" not in lines:
+        raise AssertionError("http_serve: a stream without data: [DONE]")
+    chunks = [json.loads(x[6:]) for x in lines
+              if x.startswith("data: ") and x != "data: [DONE]"]
+    text = "".join(c["choices"][0]["delta"].get("content", "") if chat
+                   else c["choices"][0]["text"] for c in chunks)
+    last = chunks[-1]
+    return (last["id"], last["choices"][0]["finish_reason"], last["usage"],
+            text)
+
+
+def _serve_http(torch, dev, ckpt: str, mix):
+    """``serve`` through the CLI's parser and ``serve_main`` on a free port
+    in a thread; the mix from 8 client threads (r7 once r0 is answered, so
+    that it finds r0's prefix in the cache); then the server is stopped.
+    Returns the replies, the finished requests by id, the launches and
+    the engine's summary."""
+    import threading
+
+    from parallax_tpu_torch import cli
+    from parallax_tpu_torch.backend.serve import serve_main
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    args = cli.build_parser().parse_args([
+        "serve", "--model-path", ckpt, "--device", str(dev),
+        "--host", "127.0.0.1", "--port", "0", "--max-batch-size", "7",
+        "--page-size", "64", "--max-model-len", "1024"])
+    if cli.unported_flags(args):
+        raise AssertionError(f"http_serve: {cli.unported_flags(args)}")
+    box, started = [], threading.Event()
+
+    def on_start(frontend, runner):
+        box.append((frontend, runner))
+        started.set()
+
+    server = threading.Thread(target=serve_main, args=(args, on_start),
+                              name="http-serve", daemon=True)
+    t0 = time.monotonic()
+    server.start()
+    if not started.wait(HTTP_TIMEOUT_S):
+        raise AssertionError("http_serve: the server did not start")
+    startup_s = time.monotonic() - t0
+    frontend, runner = box[0]
+    engine = runner.pipeline.head
+    # Nothing runs on the card now; from here until the server stops this
+    # thread makes no CUDA call (a graph capture on the runner thread
+    # allows none from any other thread).
+    ck.reset_launches()
+    outs = [{} for _ in mix]
+    clients = [threading.Thread(target=_http_client, daemon=True,
+                                args=(frontend.port, path, body, out))
+               for (path, body), out in zip(mix, outs)]
+    try:
+        for c in clients[:-1]:
+            c.start()
+        clients[0].join(HTTP_TIMEOUT_S)
+        clients[-1].start()
+        for c in clients:
+            c.join(HTTP_TIMEOUT_S)
+        if any(c.is_alive() for c in clients):
+            raise AssertionError("http_serve: a client is still waiting")
+        launches = ck.launches()
+        summary = engine.kernel_dispatch_summary()
+        finished = {r.request_id: r for r in runner.pipeline.finished}
+        info = {"startup_s": startup_s, "num_pages": engine.cfg.num_pages,
+                "prefill_chunk_size": engine.cfg.prefill_chunk_size,
+                "cache": engine.cache_stats()}
+    finally:
+        frontend.shutdown()
+        server.join(HTTP_TIMEOUT_S)
+    if server.is_alive() or runner.error is not None:
+        raise AssertionError(f"http_serve: the server did not stop cleanly "
+                             f"({runner.error})")
+    return outs, finished, launches, summary, info
+
+
+def phase_http_serve(torch, dev, card: str, cfg, tree: list) -> None:
+    """The port's front door on Qwen2.5-7B at full width: the random tree
+    written as an HF checkpoint, the CLI's ``generate`` run on it in a
+    subprocess, the checkpoint loaded back bitwise, then ``serve`` (CLI
+    parser + ``serve_main``, pages from the addressable cap) answering the
+    8-request mix over HTTP; launches exact, greedy rows against the plain
+    path on the loaded weights, the prefix cache hit. ``tree`` holds the
+    only reference to the random tree, dropped once it loaded back."""
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.models.loader import load_stage_params
+    from parallax_tpu_torch.models.presets import PRESETS
+    from parallax_tpu_torch.utils.tokenizer import SimpleTokenizer
+
+    raw = dict(PRESETS[DENSE_MODEL])
+    tensors = hf_tensors(tree[0])
+    nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+    n = cfg.num_hidden_layers
+    with tempfile.TemporaryDirectory(prefix="http_serve_") as ckpt:
+        free = shutil.disk_usage(ckpt).free
+        emit({"phase": "http_serve", "checkpoint_bytes": nbytes,
+              "disk_free_bytes": free, "dir": ckpt, "layers": n})
+        if free < nbytes + (1 << 30):
+            raise AssertionError(f"http_serve: {free} bytes free under "
+                                 f"{ckpt}, the checkpoint needs {nbytes}")
+        t0 = time.monotonic()
+        write_checkpoint(tensors, raw, ckpt)
+        write_s = time.monotonic() - t0
+        shards = sorted(f for f in os.listdir(ckpt)
+                        if f.endswith(".safetensors"))
+        emit({"phase": "http_serve", "written_bytes": nbytes,
+              "shards": len(shards), "write_s": write_s,
+              "write_gb_per_s": nbytes / write_s / 1e9})
+        del tensors
+
+        # The CLI's generate in a process of its own.
+        repo = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.monotonic()
+        gen = subprocess.run(
+            [sys.executable, "-m", "parallax_tpu_torch", "generate",
+             "--model-path", ckpt, "--max-tokens", "16"],
+            cwd=repo, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": repo})
+        gen_s = time.monotonic() - t0
+        m = re.search(GENERATE_SUMMARY, gen.stderr)
+        if gen.returncode != 0 or m is None:
+            raise AssertionError(f"http_serve: generate exited "
+                                 f"{gen.returncode}: {gen.stderr[-2000:]}")
+        emit({"phase": "http_serve", "cli": "generate", "exit": 0,
+              "summary": m.group(0), "prompt_tokens": int(m.group(1)),
+              "generated_tokens": int(m.group(2)),
+              "ttft_s": float(m.group(3)),
+              "decode_tok_per_s": float(m.group(4)),
+              "process_wall_s": gen_s, "card": card})
+
+        # Load it back: every leaf the written one's bits.
+        model = create_stage_model(cfg, 0, n)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loaded = load_stage_params(model, ckpt, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        written, got = hf_tensors(tree[0]), hf_tensors(loaded)
+        if list(written) != list(got) or not all(
+                torch.equal(written[k], got[k]) for k in written):
+            raise AssertionError("http_serve: the loaded tree differs from "
+                                 "the written one")
+        emit({"phase": "http_serve", "load": "bitwise equal",
+              "leaves": len(got), "load_s": load_s,
+              "load_gb_per_s": nbytes / load_s / 1e9,
+              "page_cache": "warm (written just before)", "card": card})
+        del written, got
+        tree.clear()
+        free_device_memory(torch)
+
+        # serve over HTTP.
+        mix, sampled = _text_mix()
+        outs, finished, launches, summary, info = _serve_http(
+            torch, dev, ckpt, mix)
+    free_device_memory(torch)
+    tok = SimpleTokenizer()
+    reqs = []
+    for out, (_, body) in zip(outs, mix):
+        rid, reason, usage, text = _http_reply(out, body)
+        r = finished[rid]
+        if (reason != "length" or r.status.value != "finished_length"
+                or usage["completion_tokens"] != 32
+                or len(r.output_ids) != 32
+                or usage["prompt_tokens"] != len(r.prompt_ids)):
+            raise AssertionError(f"http_serve {rid}: {reason}, {usage}, "
+                                 f"{r.status.value}")
+        if text != tok.decode(r.output_ids):
+            raise AssertionError(f"http_serve {rid}: the text is not the "
+                                 "ids' decode")
+        r.t_send, r.t_done = out["t_send"], out["t_done"]
+        r.usage = usage
+        reqs.append(r)
+    if summary["impl"] != "cuda-fused":
+        raise AssertionError(f"http_serve: impl {summary['impl']}")
+    check_launches("http_serve", "fused", launches,
+                   gqa_expected("fused", summary, n), summary)
+    check_windows("http_serve", "fused", summary, True)
+    sharer = reqs[-1]
+    if sharer.num_cached_tokens <= 0:
+        raise AssertionError("http_serve: the sharer did not hit the "
+                             "prefix cache")
+    model_ref = create_stage_model(cfg, 0, n, use_kernels=False)
+    worst, *_ = greedy_check(torch, model_ref, loaded, reqs, sampled, dev,
+                             tol=GREEDY_TOL)
+    ttft = [r.first_token_time - r.t_send for r in reqs]
+    first = min(r.first_token_time for r in reqs)
+    t_end = max(r.t_done for r in reqs)
+    t_start = min(r.t_send for r in reqs)
+    emit({"phase": "http_serve", "run": "http", "requests": len(reqs),
+          "status": "8 x 200", "launches": launches,
+          "steps": sum(forward_steps(summary)), "dispatch": summary,
+          "sharer_cached_tokens": sharer.num_cached_tokens,
+          "greedy_vs_plain": "pass", "largest_logit_gap": worst,
+          "tolerance": GREEDY_TOL,
+          # Client send to the engine's first commit, in this process.
+          "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
+          "ttft_s_r7": ttft[7],
+          # The streams' own usage.ttft_ms: the handler's poll that first
+          # saw a token.
+          "stream_usage_ttft_ms": [r.usage["ttft_ms"] for r in reqs
+                                   if "ttft_ms" in r.usage],
+          "decode_tok_per_s": sum(len(r.output_ids) - 1 for r in reqs)
+          / (t_end - first),
+          "output_tok_per_s": sum(len(r.output_ids) for r in reqs)
+          / (t_end - t_start),
+          "wall_s": t_end - t_start, **info, "card": card})
+
+    # The same mix through the library API, the engine's defaults, on the
+    # loaded weights and the server's page count and chunk.
+    lib, _, engines, t0, t1 = serve(
+        torch, [(0, n)], loaded, cfg, dev, fused=True,
+        engine_kw=dict(num_pages=info["num_pages"],
+                       prefill_chunk_size=info["prefill_chunk_size"]))
+    emit({"phase": "http_serve", "run": "library_api",
+          "loop": "drive_step", "requests": len(lib),
+          "dispatch": engines[0].kernel_dispatch_summary(),
+          **stream_metrics(lib, t0, t1), "card": card})
 
 
 def phase_moe_serve(torch, dev, card: str, want) -> dict:
@@ -2843,15 +3249,28 @@ KERNEL_COUNTER = {"ragged_attend": "gqa_prefill"}
 
 
 def run_dense(torch, dev, card: str, want) -> dict:
-    """Phases 4-6 on Qwen2.5-7B; its tensors die with this frame. Returns
-    the split run's launches."""
-    cfg, model_full, params, single, sampled, launches = phase_serve(
-        torch, dev, card)
-    if want("pipeline"):
-        phase_pipeline(torch, dev, cfg, model_full, params, single, sampled)
-    if want("profile"):
-        phase_profile(torch, dev, cfg, params)
-    return {"serve/split": launches["split"], "serve/fused": launches["fused"]}
+    """Phases 4-7 on Qwen2.5-7B; its tensors die with this frame (the
+    http_serve phase drops the random tree once its checkpoint loaded
+    back). Returns the split and fused serve runs' launches."""
+    serving = any(want(p) for p in ("serve", "pipeline", "profile"))
+    cfg, model_full, params = dense_tree(
+        torch, dev, "serve" if serving else "http_serve")
+    paths = {}
+    if serving:
+        single, sampled, launches = phase_serve(torch, dev, card, cfg,
+                                                model_full, params)
+        paths = {"serve/split": launches["split"],
+                 "serve/fused": launches["fused"]}
+        if want("pipeline"):
+            phase_pipeline(torch, dev, cfg, model_full, params, single,
+                           sampled)
+        if want("profile"):
+            phase_profile(torch, dev, cfg, params)
+    if want("http_serve"):
+        tree = [params]
+        del params
+        phase_http_serve(torch, dev, card, cfg, tree)
+    return paths
 
 
 def free_device_memory(torch) -> None:
@@ -2877,9 +3296,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="",
                     help="comma-separated phases (build,kernels,serve,"
-                         "pipeline,profile,moe_serve,moe_profile,mla_serve,"
-                         "mla_profile,dsa_serve,dsa_profile,gptoss_serve,"
-                         "gptoss_profile); prints no result line")
+                         "pipeline,profile,http_serve,moe_serve,moe_profile,"
+                         "mla_serve,mla_profile,dsa_serve,dsa_profile,"
+                         "gptoss_serve,gptoss_profile); prints no result "
+                         "line")
     only = set(filter(None, ap.parse_args().only.split(",")))
 
     import torch
@@ -2916,7 +3336,7 @@ def main() -> int:
     kernels = phase_kernels(torch, dev) if want("kernels") else None
     free_device_memory(torch)
     paths = {}
-    if want("serve") or want("pipeline") or want("profile"):
+    if any(want(p) for p in ("serve", "pipeline", "profile", "http_serve")):
         paths.update(run_dense(torch, dev, card, want))
     # Qwen2.5-7B's tensors (about 15 GB) are gone before the MoE model's
     # 61 GB are made.

@@ -1,0 +1,204 @@
+"""Single-host serving: engine pipeline + OpenAI HTTP frontend in one process
+(port of ``parallax_tpu/backend/serve.py``).
+
+The stage engines and the HTTP frontend share the process; a runner thread
+steps the pipeline continuously with ``step_round`` (so the served path runs
+what the JAX package's serve runs: K-step decode windows inside
+``engine.step()``, replayed from CUDA graphs on a card, and no overlap).
+That thread is the only one that touches the engine's tensors.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from parallax_tpu_torch.backend.http_server import OpenAIFrontend
+from parallax_tpu_torch.runtime.engine import EngineConfig, StageEngine
+from parallax_tpu_torch.runtime.pipeline import InProcessPipeline
+from parallax_tpu_torch.runtime.request import Request
+from parallax_tpu_torch.utils import get_logger
+
+logger = get_logger(__name__)
+
+
+class LocalRunner:
+    """Steps an in-process pipeline on a background thread and completes
+    per-request events. A step that raises stops the runner: every request
+    it holds is aborted (its event set), and later submits raise."""
+
+    def __init__(self, pipeline: InProcessPipeline):
+        self.pipeline = pipeline
+        self._events: dict[str, threading.Event] = {}
+        self._requests: dict[str, Request] = {}
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self.error: BaseException | None = None
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="pipeline-runner"
+        )
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=30.0)
+
+    def submit(self, request: Request) -> threading.Event:
+        ev = threading.Event()
+        with self._lock:
+            if self.error is not None:
+                raise RuntimeError(f"the serving loop failed: {self.error}")
+            self._events[request.request_id] = ev
+            self._requests[request.request_id] = request
+            try:
+                accepted = self.pipeline.submit(request)
+            except Exception:
+                self._forget(request.request_id)
+                raise
+            if not accepted:
+                self._forget(request.request_id)
+                raise RuntimeError("engine queue full")
+        return ev
+
+    def stop_request(self, request_id: str) -> None:
+        """Gracefully finish a request early (stop-string match): the next
+        step round collects and releases it."""
+        with self._lock:
+            self.pipeline.head.stop_request(request_id)
+
+    def _forget(self, request_id: str) -> threading.Event | None:
+        self._requests.pop(request_id, None)
+        return self._events.pop(request_id, None)
+
+    def _loop(self) -> None:
+        device = self.pipeline.head.device
+        if device.type == "cuda":
+            # The current device is per thread.
+            torch.cuda.set_device(device)
+        while not self._stop.is_set():
+            if not self.pipeline.has_work():
+                self._stop.wait(0.002)
+                continue
+            with self._lock:
+                try:
+                    finished = self.pipeline.step_round()
+                except Exception as e:
+                    logger.exception("the serving loop failed")
+                    self._fail(e)
+                    return
+                for req in finished:
+                    ev = self._forget(req.request_id)
+                    if ev is not None:
+                        ev.set()
+
+    def _fail(self, error: BaseException) -> None:
+        self.error = error
+        for rid in list(self._events):
+            req = self._requests.get(rid)
+            if req is not None and not req.status.is_finished:
+                req.abort(f"serving loop failed: {error}")
+            self._forget(rid).set()
+
+
+def build_local_frontend(
+    engines: list[StageEngine],
+    tokenizer,
+    model_name: str = "parallax-tpu",
+) -> tuple[OpenAIFrontend, LocalRunner]:
+    """The frontend and a started runner over ``engines`` (a pipeline in
+    stage order). The JAX package's watchdog, SLO, QoS and grammar
+    vocabulary wait for their slices."""
+    pipeline = InProcessPipeline(engines)
+    runner = LocalRunner(pipeline)
+    runner.start()
+    frontend = OpenAIFrontend(
+        tokenizer,
+        submit_fn=runner.submit,
+        model_name=model_name,
+        stop_fn=runner.stop_request,
+    )
+    return frontend, runner
+
+
+def serve_main(args, on_start=None) -> int:
+    """``parallax-tpu-torch serve`` entry: load the checkpoint onto
+    ``args.device``, size the KV pages from its free memory (capped by
+    the pages the configured batch can address) and serve until the
+    frontend shuts down. ``on_start(frontend, runner)`` runs once the
+    socket is bound."""
+    from parallax_tpu_torch.config import load_config
+    from parallax_tpu_torch.models.loader import load_stage_params
+    from parallax_tpu_torch.models.registry import create_stage_model
+    from parallax_tpu_torch.runtime.cache_manager import derive_num_pages
+    from parallax_tpu_torch.utils.hw import (
+        device_free_memory_bytes,
+        resolve_device,
+    )
+    from parallax_tpu_torch.utils.tokenizer import load_tokenizer
+
+    device = resolve_device(args.device)
+    config = load_config(args.model_path)
+    start = args.start_layer or 0
+    end = args.end_layer or config.num_hidden_layers
+    model = create_stage_model(config, start, end)
+    params = load_stage_params(model, args.model_path, device=device)
+
+    page_size = args.page_size
+    # Device memory budget, capped by the most pages the configured batch
+    # can ever address (small models would otherwise derive absurd page
+    # counts).
+    addressable = (
+        ((args.max_model_len + page_size - 1) // page_size + 1)
+        * args.max_batch_size * 2
+    )
+    num_pages = min(
+        derive_num_pages(
+            device_free_memory_bytes(device, args.kv_utilization),
+            config, model.num_local_layers, page_size,
+        ),
+        addressable,
+    )
+    engine = StageEngine(
+        model,
+        params,
+        EngineConfig(
+            page_size=page_size,
+            num_pages=num_pages,
+            max_batch_size=args.max_batch_size,
+            max_model_len=args.max_model_len,
+            max_num_tokens_per_batch=args.max_num_tokens_per_batch,
+            prefill_chunk_size=args.prefill_chunk_size,
+            kv_dtype=args.kv_dtype,
+            enable_prefix_cache=not args.no_prefix_cache,
+            linear_prefix_slots=args.linear_prefix_slots,
+            # None/0 = adaptive multi-step decode (engine default).
+            decode_lookahead=args.decode_lookahead or None,
+            decode_pipeline=args.decode_pipeline or 1,
+            decode_fused=args.decode_fused,
+            prefill_fused=args.prefill_fused,
+            prefill_chunk_skip=args.prefill_chunk_skip,
+            slow_request_ms=args.slow_request_ms,
+        ),
+        device=device,
+    )
+    del params
+    tokenizer = load_tokenizer(args.model_path)
+    frontend, runner = build_local_frontend(
+        [engine], tokenizer, model_name=args.model_path,
+    )
+
+    def started(fe: OpenAIFrontend) -> None:
+        logger.info("serving %s layers [%d, %d) on %s (%d KV pages) at "
+                    "%s:%d", args.model_path, start, end, device, num_pages,
+                    args.host, fe.port)
+        if on_start is not None:
+            on_start(fe, runner)
+
+    try:
+        frontend.run(host=args.host, port=args.port, on_start=started)
+    finally:
+        runner.stop()
+    return 0

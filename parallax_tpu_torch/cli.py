@@ -1,0 +1,183 @@
+"""parallax-tpu-torch command line interface (port of
+``parallax_tpu/cli.py``'s ``serve`` and ``generate``).
+
+    python -m parallax_tpu_torch serve --model-path DIR [--port 8000]
+    python -m parallax_tpu_torch generate --model-path DIR --prompt "Hi"
+
+The flags keep the JAX package's names and defaults, plus ``--device``
+(default ``cuda:0``; ``--device cpu`` runs the plain PyTorch path). A flag
+whose feature the port does not run yet exits with code 2 and names the
+ROADMAP queue 1 item that ports it; so do the JAX CLI's other subcommands.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+# The JAX CLI's subcommands that wait for later slices -> ROADMAP item.
+UNPORTED_COMMANDS = {"run": 4, "join": 4, "chat": 4, "chat-host": 4,
+                     "bench": 5, "lora-merge": 11}
+
+
+def _add_engine_flags(p: argparse.ArgumentParser) -> None:
+    """Flags ``serve`` and ``generate`` share."""
+    p.add_argument("--model-path", required=True)
+    p.add_argument("--device", default="cuda:0",
+                   help="torch device to run on (default cuda:0; 'cpu' "
+                        "runs the plain PyTorch path)")
+    p.add_argument("--kv-dtype", choices=["bfloat16", "float32"],
+                   default="bfloat16")
+    p.add_argument("--tp-size", type=int, default=0,
+                   help="0 = all local devices (one card: unsharded)")
+    p.add_argument("--quantization", choices=["int8", "int4"], default=None,
+                   help="weight-only quantize an fp checkpoint on load")
+    p.add_argument("--lora-path", default=None,
+                   help="PEFT LoRA adapter directory to merge at load")
+    p.add_argument("--decode-lookahead", type=int, default=None,
+                   help="decode tokens per host visit (default: adaptive "
+                        "up to 8; 1 = off)")
+    p.add_argument("--decode-fused", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="fused decode kernels (default: on on a CUDA "
+                        "device; --no-decode-fused runs the split path)")
+    p.add_argument("--prefill-fused", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="fused prefill kernels (default: on on a CUDA "
+                        "device)")
+    p.add_argument("--compilation-cache-dir", default=None,
+                   help="persistent compilation cache directory")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="parallax-tpu-torch",
+        description="parallax serving on PyTorch + CUDA (NVIDIA Hopper)",
+    )
+    sub = p.add_subparsers(dest="command")
+
+    serve = sub.add_parser("serve", help="serve a model on this host")
+    _add_engine_flags(serve)
+    serve.add_argument("--start-layer", type=int, default=None)
+    serve.add_argument("--end-layer", type=int, default=None)
+    serve.add_argument("--port", type=int, default=8000)
+    serve.add_argument("--host", default="0.0.0.0")
+    serve.add_argument("--page-size", type=int, default=64)
+    serve.add_argument("--max-batch-size", type=int, default=64)
+    serve.add_argument("--max-model-len", type=int, default=8192)
+    serve.add_argument("--kv-utilization", type=float, default=0.9)
+    serve.add_argument("--max-num-tokens-per-batch", type=int, default=2048)
+    serve.add_argument("--prefill-chunk-size", type=int, default=1024)
+    serve.add_argument("--no-prefix-cache", action="store_true")
+    serve.add_argument("--host-cache-bytes", type=int, default=None,
+                       help="host-DRAM KV tier budget (0 or unset: off)")
+    serve.add_argument("--linear-prefix-slots", type=int, default=32)
+    serve.add_argument("--lora-adapters", default=None,
+                       help="per-request adapters: name=peft_dir[,...]")
+    serve.add_argument("--decode-pipeline", type=int, default=1,
+                       help="chained k-token decode windows per host "
+                            "round (1 = off)")
+    serve.add_argument("--prefill-chunk-skip",
+                       action=argparse.BooleanOptionalAction, default=True)
+    serve.add_argument("--prefill-seq-parallel", action="store_true")
+    serve.add_argument("--speculative-tokens", type=int, default=0)
+    serve.add_argument("--speculative-ngram", type=int, default=3)
+    serve.add_argument("--draft-model-path", default=None)
+    serve.add_argument("--sp-size", type=int, default=0)
+    serve.add_argument("--sp-threshold", type=int, default=2048)
+    serve.add_argument("--wire-dtype", default=None,
+                       choices=["bfloat16", "bf16", "fp8", "float8_e4m3fn"])
+    serve.add_argument("--trace-sample-rate", type=float, default=0.0)
+    serve.add_argument("--slow-request-ms", type=float, default=30000.0)
+    serve.add_argument("--watchdog", action="store_true")
+    serve.add_argument("--slo", default=None)
+    serve.add_argument("--slo-window-s", type=float, default=300.0)
+    serve.add_argument("--qos", default=None)
+    serve.add_argument("--lora-max-adapters", type=int, default=0)
+
+    gen = sub.add_parser("generate",
+                         help="offline one-shot generation, no server")
+    _add_engine_flags(gen)
+    gen.add_argument("--prompt", default="Hi")
+    gen.add_argument("--max-tokens", type=int, default=256)
+    gen.add_argument("--temperature", type=float, default=0.0)
+    gen.add_argument("--top-k", type=int, default=-1)
+    gen.add_argument("--top-p", type=float, default=1.0)
+
+    for name in UNPORTED_COMMANDS:
+        sub.add_parser(name, help="not ported yet", add_help=False)
+    return p
+
+
+def unported_flags(args) -> list[tuple[str, int]]:
+    """The flags of ``args`` whose feature the port does not run yet, each
+    with the ROADMAP queue 1 item that ports it."""
+    refused = []
+
+    def refuse(on: bool, flag: str, item: int) -> None:
+        if on:
+            refused.append((flag, item))
+
+    refuse(not os.path.isdir(args.model_path),
+           f"--model-path {args.model_path} (not a local directory: a hub "
+           "download)", 12)
+    refuse(args.tp_size > 1, f"--tp-size {args.tp_size}", 10)
+    refuse(args.quantization is not None,
+           f"--quantization {args.quantization}", 11)
+    refuse(args.lora_path is not None, "--lora-path", 11)
+    refuse(args.compilation_cache_dir is not None,
+           "--compilation-cache-dir", 12)
+    if args.command != "serve":
+        return refused
+    refuse(args.sp_size > 1, f"--sp-size {args.sp_size}", 10)
+    refuse(args.prefill_seq_parallel, "--prefill-seq-parallel", 10)
+    refuse(args.lora_adapters is not None, "--lora-adapters", 11)
+    refuse(args.lora_max_adapters > 0, "--lora-max-adapters", 11)
+    refuse(args.draft_model_path is not None, "--draft-model-path", 7)
+    refuse(args.speculative_tokens > 0, "--speculative-tokens", 7)
+    refuse(bool(args.host_cache_bytes), "--host-cache-bytes", 6)
+    refuse(args.wire_dtype is not None, "--wire-dtype", 4)
+    refuse(args.trace_sample_rate > 0, "--trace-sample-rate", 9)
+    refuse(args.watchdog, "--watchdog", 9)
+    refuse(args.slo is not None, "--slo", 9)
+    refuse(args.qos is not None, "--qos", 9)
+    if (args.start_layer or args.end_layer is not None) and not refused:
+        from parallax_tpu_torch.config import load_config
+
+        n = load_config(args.model_path).num_hidden_layers
+        if (args.start_layer or 0, args.end_layer or n) != (0, n):
+            refused.append((f"--start-layer {args.start_layer} "
+                            f"--end-layer {args.end_layer} (a partial "
+                            f"stage of {n} layers)", 4))
+    return refused
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.command is None:
+        parser.print_help()
+        return 1
+    item = UNPORTED_COMMANDS.get(args.command)
+    if item is not None:
+        print(f"parallax-tpu-torch {args.command}: not ported yet (ROADMAP "
+              f"queue 1 item {item})", file=sys.stderr)
+        return 2
+    refused = unported_flags(args)
+    if refused:
+        for flag, item in refused:
+            print(f"parallax-tpu-torch {args.command}: {flag}: not ported "
+                  f"yet (ROADMAP queue 1 item {item})", file=sys.stderr)
+        return 2
+    if args.command == "serve":
+        from parallax_tpu_torch.backend.serve import serve_main
+
+        return serve_main(args)
+    from parallax_tpu_torch.backend.generate import generate_main
+
+    return generate_main(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

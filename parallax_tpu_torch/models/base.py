@@ -116,6 +116,11 @@ class StageModel:
 
     # -- parameters -------------------------------------------------------
 
+    def finalize_params(self, tree: dict) -> dict:
+        """Loader hook: reshape/stack checkpoint weights into this model's
+        param layout (e.g. stacking MoE experts). Default: identity."""
+        return tree
+
     def init_params(self, generator: torch.Generator,
                     dtype=torch.bfloat16, device="cpu") -> dict:
         """Random init with the shapes and scales of the JAX package's

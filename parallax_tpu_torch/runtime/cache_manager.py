@@ -17,9 +17,35 @@ from __future__ import annotations
 import dataclasses
 import math
 
+from parallax_tpu_torch.config import ModelConfig
 from parallax_tpu_torch.runtime.allocator import OutOfPages, PageAllocator
 from parallax_tpu_torch.runtime.radix_cache import RadixPageCache
 from parallax_tpu_torch.runtime.request import Request
+
+
+def kv_bytes_per_page(
+    config: ModelConfig, num_local_layers: int, page_size: int, dtype_bytes: int = 2
+) -> int:
+    """Device bytes one page occupies across this shard's attention layers.
+
+    Uses the config's per-token accounting, which covers MLA latent+rope
+    and the DSA index-key cache.
+    """
+    per_token = config.kv_bytes_per_token_per_layer() * dtype_bytes // 2
+    return per_token * page_size * num_local_layers
+
+
+def derive_num_pages(
+    free_bytes: int,
+    config: ModelConfig,
+    num_local_layers: int,
+    page_size: int,
+    utilization: float = 0.9,
+    dtype_bytes: int = 2,
+) -> int:
+    """KV page budget from free device memory."""
+    per_page = kv_bytes_per_page(config, num_local_layers, page_size, dtype_bytes)
+    return max(8, int(free_bytes * utilization) // per_page)
 
 
 @dataclasses.dataclass

@@ -57,6 +57,7 @@ from parallax_tpu_torch.runtime.request import (
     SamplingParams,
 )
 from parallax_tpu_torch.runtime.scheduler import BatchPlan, Scheduler
+from parallax_tpu_torch.utils.hw import resolve_device
 
 _KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -264,16 +265,6 @@ class WindowState:
             t.copy_(getattr(other, name))
 
 
-def _default_device() -> torch.device:
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "parallax_tpu_torch runs on cuda:0 by default and no CUDA device "
-            "is available; pass device=\"cpu\" to run the plain PyTorch path "
-            "on the CPU"
-        )
-    return torch.device("cuda:0")
-
-
 def _fit(x: torch.Tensor, t: int, fill: int) -> torch.Tensor:
     """``x [S]`` cut or padded with ``fill`` to ``t`` rows."""
     s = x.shape[0]
@@ -315,9 +306,7 @@ class StageEngine:
                 f"kv_dtype {self.cfg.kv_dtype!r}: want one of "
                 f"{sorted(_KV_DTYPES)}"
             )
-        self.device = torch.device(device) if device is not None else (
-            _default_device()
-        )
+        self.device = resolve_device(device)
         if cuda_graphs is None:
             cuda_graphs = self.device.type == "cuda"
         elif cuda_graphs and self.device.type != "cuda":
@@ -1221,6 +1210,18 @@ class StageEngine:
         if req is None or req.status.is_finished:
             return
         self._commit(req, token, logprob)
+
+    def stop_request(self, request_id: str) -> None:
+        """Gracefully finish a request early (stop-string match). Unlike
+        abort, the generated text stands; the next step collects and
+        releases it through the normal finish flow. A row inside a decode
+        window already in flight commits none of the window's tokens
+        (``_resolve_multistep`` stops at a finished row)."""
+        req = self.scheduler.running.get(request_id) or (
+            self.scheduler.wait_queue.get(request_id)
+        )
+        if req is not None and not req.status.is_finished:
+            req.set_status(RequestStatus.FINISHED_STOP, "stop")
 
     def _commit(self, req: Request, token: int,
                 logprob: float | None = None) -> None:

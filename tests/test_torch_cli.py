@@ -1,0 +1,281 @@
+"""The port's command line (``python -m parallax_tpu_torch``, ``cli.py``)
+and its serving entry points on the CPU.
+
+- ``generate --device cpu`` on a checkpoint written here prints the same
+  text on stdout as ``python -m parallax_tpu.cli generate`` on it (greedy,
+  float32 KV cache), and the stderr summary line.
+- Every flag whose feature the port does not run yet, and every JAX
+  subcommand not ported, exits with code 2 naming its ROADMAP item; the
+  CLI is reachable as ``python -m parallax_tpu_torch`` and
+  ``python -m parallax_tpu_torch.cli``.
+- ``serve --device cpu`` on a thread answers a chat completion, its KV
+  pages capped by what the configured batch can address.
+- ``derive_num_pages`` / ``kv_bytes_per_page`` equal the JAX package's,
+  and ``finalize_params`` is the identity on the dense and gpt-oss blocks.
+"""
+
+import http.client
+import json
+import os
+import re
+import subprocess
+import sys
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from parallax_tpu.config import normalize_config as j_normalize
+from parallax_tpu.models.base import StageModel as JStageModel
+from parallax_tpu.models.presets import get_preset as j_get_preset
+from parallax_tpu.runtime import cache_manager as jcm
+from parallax_tpu_torch import cli
+from parallax_tpu_torch.backend.serve import serve_main
+from parallax_tpu_torch.config import normalize_config
+from parallax_tpu_torch.models import create_stage_model
+from parallax_tpu_torch.models.presets import get_preset
+from parallax_tpu_torch.runtime import cache_manager
+from parallax_tpu_torch.utils.hw import device_free_memory_bytes
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = dict(
+    architectures=["Qwen2ForCausalLM"], hidden_size=64, num_hidden_layers=2,
+    num_attention_heads=4, num_key_value_heads=2, intermediate_size=128,
+    vocab_size=266, max_position_embeddings=512, tie_word_embeddings=False,
+    torch_dtype="float32",
+)
+SUMMARY = re.compile(
+    r"(\d+) prompt \+ (\d+) generated tokens \| ttft [\d.]+s \| decode "
+    r"[\d.]+ tok/s \| (\w+)")
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    """The tiny model's JAX init tree as an HF checkpoint (f32)."""
+    from safetensors.numpy import save_file
+
+    path = tmp_path_factory.mktemp("ckpt")
+    params = JStageModel(j_normalize(TINY), 0, 2, use_pallas=False
+                         ).init_params(jax.random.key(0), dtype=jnp.float32)
+    tensors = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}.{k}" if prefix else k, v)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(f"{prefix}.{i}", v)
+        else:
+            tensors[prefix if prefix.startswith("lm_head")
+                    else f"model.{prefix}"] = np.asarray(node)
+
+    walk("", params)
+    save_file(tensors, str(path / "model.safetensors"))
+    (path / "config.json").write_text(json.dumps(TINY))
+    return str(path)
+
+
+def _run(args, **env):
+    return subprocess.run(
+        [sys.executable, "-m", *args], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu", **env},
+    )
+
+
+def test_generate_matches_jax_cli(checkpoint):
+    common = ["generate", "--model-path", checkpoint, "--kv-dtype",
+              "float32", "--max-tokens", "16", "--prompt", "Hello there",
+              "--tp-size", "1"]
+    port = _run(["parallax_tpu_torch", *common, "--device", "cpu"])
+    ref = _run(["parallax_tpu.cli", *common,
+                "--compilation-cache-dir", "off"])
+    assert port.returncode == 0, port.stderr
+    assert ref.returncode == 0, ref.stderr
+    assert port.stdout == ref.stdout
+    assert port.stdout.strip()
+    got, want = SUMMARY.search(port.stderr), SUMMARY.search(ref.stderr)
+    assert got and want, (port.stderr, ref.stderr)
+    assert got.groups() == want.groups()
+    assert got.group(2) == "16" and got.group(3) == "finished_length"
+
+
+def test_generate_needs_the_card_without_device_cpu(checkpoint):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    res = _run(["parallax_tpu_torch.cli", "generate", "--model-path",
+                checkpoint, "--max-tokens", "2"])
+    assert res.returncode != 0
+    assert 'device="cpu"' in res.stderr
+
+
+def test_refused_flag_exits_2_from_both_entry_points(checkpoint):
+    for module in ("parallax_tpu_torch", "parallax_tpu_torch.cli"):
+        res = _run([module, "serve", "--model-path", checkpoint,
+                    "--tp-size", "2"])
+        assert res.returncode == 2, res.stderr
+        assert "--tp-size 2: not ported yet" in res.stderr
+        assert "item 10" in res.stderr
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["serve", "--tp-size", "4"], 10),
+    (["serve", "--sp-size", "2"], 10),
+    (["serve", "--prefill-seq-parallel"], 10),
+    (["serve", "--quantization", "int8"], 11),
+    (["serve", "--lora-path", "/x"], 11),
+    (["serve", "--lora-adapters", "a=/x"], 11),
+    (["serve", "--lora-max-adapters", "2"], 11),
+    (["serve", "--draft-model-path", "/x"], 7),
+    (["serve", "--speculative-tokens", "4"], 7),
+    (["serve", "--host-cache-bytes", "1024"], 6),
+    (["serve", "--wire-dtype", "fp8"], 4),
+    (["serve", "--trace-sample-rate", "0.5"], 9),
+    (["serve", "--watchdog"], 9),
+    (["serve", "--slo", "ttft_p95_ms=500"], 9),
+    (["serve", "--qos", "on"], 9),
+    (["serve", "--compilation-cache-dir", "/x"], 12),
+    (["serve", "--start-layer", "1"], 4),
+    (["serve", "--end-layer", "1"], 4),
+    (["generate", "--tp-size", "2"], 10),
+    (["generate", "--quantization", "int4"], 11),
+    (["generate", "--lora-path", "/x"], 11),
+])
+def test_refused_flags_exit_2(checkpoint, capsys, argv, item):
+    assert cli.main([argv[0], "--model-path", checkpoint, *argv[1:]]) == 2
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and f"item {item})" in err
+
+
+def test_hub_model_path_and_unported_commands_exit_2(capsys):
+    assert cli.main(["serve", "--model-path", "Qwen/Qwen2.5-7B"]) == 2
+    assert "hub download" in capsys.readouterr().err
+    for command in cli.UNPORTED_COMMANDS:
+        assert cli.main([command]) == 2
+        assert "not ported yet" in capsys.readouterr().err
+    assert cli.main([]) == 1
+
+
+def test_full_layer_range_is_not_refused(checkpoint):
+    args = cli.build_parser().parse_args(
+        ["serve", "--model-path", checkpoint, "--start-layer", "0",
+         "--end-layer", "2", "--tp-size", "1"])
+    assert cli.unported_flags(args) == []
+
+
+def test_serve_on_a_thread_answers_a_chat_completion(checkpoint):
+    args = cli.build_parser().parse_args([
+        "serve", "--model-path", checkpoint, "--device", "cpu",
+        "--host", "127.0.0.1", "--port", "0", "--page-size", "8",
+        "--max-batch-size", "4", "--max-model-len", "256",
+        "--kv-dtype", "float32",
+    ])
+    assert cli.unported_flags(args) == []
+    box, started = [], threading.Event()
+
+    def on_start(frontend, runner):
+        box.append((frontend, runner))
+        started.set()
+
+    thread = threading.Thread(target=serve_main, args=(args, on_start),
+                              daemon=True)
+    thread.start()
+    assert started.wait(60)
+    frontend, runner = box[0]
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", frontend.port,
+                                          timeout=60)
+        conn.request("POST", "/v1/chat/completions", body=json.dumps({
+            "messages": [{"role": "user", "content": "hi"}],
+            "max_tokens": 6, "temperature": 0}),
+            headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        conn.close()
+    finally:
+        frontend.shutdown()
+        thread.join(30)
+    assert not thread.is_alive()
+    assert resp.status == 200, body
+    assert body["usage"]["completion_tokens"] == 6
+    assert body["model"] == checkpoint
+    engine = runner.pipeline.head
+    # The pages the batch can address: (256 / 8 + 1) x 4 rows x 2.
+    assert engine.cfg.num_pages == 264
+    assert engine.cfg.prefill_chunk_size == 1024
+    assert engine.kernel_dispatch_summary()["impl"] == "torch"
+    (req,) = runner.pipeline.finished
+    assert req.status.value == "finished_length"
+
+
+@pytest.mark.parametrize("name", ["qwen2.5-7b", "Qwen/Qwen3-30B-A3B",
+                                  "deepseek-ai/DeepSeek-V3.2",
+                                  "openai/gpt-oss-20b"])
+def test_page_budget_matches_jax(name):
+    cfg, jcfg = get_preset(name), j_get_preset(name)
+    for layers, page, free in ((cfg.num_hidden_layers, 64, 60 << 30),
+                               (5, 16, 3 << 30), (1, 64, 1 << 20)):
+        assert cache_manager.kv_bytes_per_page(cfg, layers, page) == (
+            jcm.kv_bytes_per_page(jcfg, layers, page))
+        assert cache_manager.derive_num_pages(free, cfg, layers, page) == (
+            jcm.derive_num_pages(free, jcfg, layers, page))
+    assert cache_manager.derive_num_pages(1, cfg, 1, 64) == 8
+    assert device_free_memory_bytes("cpu", 0.5) > 0
+
+
+@pytest.mark.parametrize("raw", [TINY, dict(
+    architectures=["GptOssForCausalLM"], hidden_size=64, num_hidden_layers=2,
+    num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+    intermediate_size=32, num_local_experts=4, num_experts_per_tok=2,
+    vocab_size=99)], ids=["dense", "gpt-oss"])
+def test_finalize_params_is_the_identity(raw):
+    import torch
+
+    model = create_stage_model(normalize_config(raw), 0, 2)
+    tree = model.init_params(torch.Generator().manual_seed(0),
+                             torch.float32, "cpu")
+    assert model.finalize_params(tree) is tree
+
+
+def test_load_tokenizer_matches_jax(tmp_path):
+    """The HF tokenizer when the checkpoint has tokenizer files (written
+    here, offline), the byte tokenizer otherwise, in both packages."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    from parallax_tpu.utils.tokenizer import load_tokenizer as j_load
+    from parallax_tpu_torch.utils.tokenizer import (
+        SimpleTokenizer,
+        load_tokenizer,
+    )
+
+    words = ["[UNK]", "</s>", "hello", "there", "user", ":", "assistant"]
+    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(words)},
+                                     unk_token="[UNK]"))
+    tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    fast = PreTrainedTokenizerFast(tokenizer_object=tok, eos_token="</s>",
+                                   unk_token="[UNK]")
+    fast.chat_template = (
+        "{% for m in messages %}{{ m['role'] }} : {{ m['content'] }} "
+        "{% endfor %}{% if add_generation_prompt %}assistant :{% endif %}")
+    fast.save_pretrained(str(tmp_path))
+    got, want = load_tokenizer(str(tmp_path)), j_load(str(tmp_path))
+    messages = [{"role": "user", "content": "hello there"}]
+    for text in ("hello there", "there hello unknown", ""):
+        assert got.encode(text) == want.encode(text)
+    assert got.decode([2, 3, 1]) == want.decode([2, 3, 1]) == "hello there"
+    assert got.eos_token_ids == want.eos_token_ids == (1,)
+    assert got.apply_chat_template(messages) == want.apply_chat_template(
+        messages)
+    assert got.vocab_size == want.vocab_size == len(words)
+    # No tokenizer files (or no path): the byte fallback.
+    for path in (str(tmp_path / "none"), None):
+        assert isinstance(load_tokenizer(path), SimpleTokenizer)
+    byte = load_tokenizer(None)
+    assert byte.encode("hé") == j_load(None).encode("hé") == [256, 104, 195,
+                                                              169]

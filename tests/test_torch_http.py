@@ -1,0 +1,505 @@
+"""The port's OpenAI HTTP plane (``parallax_tpu_torch/backend/http_server.py``
+on the standard library, behind ``backend/serve.py::build_local_frontend``
+on a real loopback socket) against the JAX frontend
+(``parallax_tpu.backend.serve.build_local_frontend``, aiohttp test client)
+serving the same tiny Qwen2 (float32, 2 layers, vocabulary 266, so the byte
+tokenizer's text is meaningful), carried across with ``params_from_numpy``.
+
+- Greedy chat and completions give equal text, finish reason and usage
+  token counts; ``n`` choices; streaming (joined deltas equal the
+  non-stream text, ``data: [DONE]``); the 400s; ``/health`` and
+  ``/v1/models``.
+- Stop strings (trimmed; held back while streaming) and whole UTF-8
+  characters only, on the JAX tests' scripted backend, equal to the JAX
+  frontend's output.
+- The features the engine refuses at ``submit`` answer 501 with the
+  refusal's text, and so do the endpoints of later slices; a client that
+  disconnects stops its request.
+- ``StageEngine.stop_request`` inside a K = 4 decode window already in
+  flight does what the JAX engine does.
+"""
+
+import http.client
+import json
+import socket
+import threading
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from parallax_tpu.backend.http_server import OpenAIFrontend as JFrontend
+from parallax_tpu.backend.serve import build_local_frontend as j_build
+from parallax_tpu.config import normalize_config as j_normalize
+from parallax_tpu.models.base import StageModel as JStageModel
+from parallax_tpu.runtime.engine import EngineConfig as JEngineConfig
+from parallax_tpu.runtime.engine import StageEngine as JStageEngine
+from parallax_tpu.runtime.request import Request as JRequest
+from parallax_tpu.runtime.request import SamplingParams as JSampling
+from parallax_tpu_torch.backend.http_server import (
+    OpenAIFrontend,
+    SimpleTokenizer,
+)
+from parallax_tpu_torch.backend.serve import build_local_frontend
+from parallax_tpu_torch.config import normalize_config
+from parallax_tpu_torch.models import create_stage_model, params_from_numpy
+from parallax_tpu_torch.runtime.engine import EngineConfig, StageEngine
+from parallax_tpu_torch.runtime.request import Request, SamplingParams
+from test_http_serving import JoinTokenizer, ScriptedBackend, with_client
+
+TINY = dict(
+    architectures=["Qwen2ForCausalLM"], hidden_size=64, num_hidden_layers=2,
+    num_attention_heads=4, num_key_value_heads=2, intermediate_size=128,
+    vocab_size=266, max_position_embeddings=512, torch_dtype="float32",
+)
+ENGINE = dict(page_size=8, num_pages=128, max_model_len=256,
+              kv_dtype="float32")
+CHAT = {"messages": [{"role": "user", "content": "hello there"}],
+        "max_tokens": 10, "temperature": 0, "ignore_eos": True}
+COMPLETION = {"prompt": "The quick brown fox", "max_tokens": 10,
+              "temperature": 0, "ignore_eos": True}
+BAD_BODIES = [
+    ("/v1/completions", {"prompt": "", "max_tokens": 4}),
+    ("/v1/completions", {"prompt": "p", "max_tokens": 4,
+                         "seed": "not-a-number"}),
+    ("/v1/completions", {"prompt": "p", "temperature": "hot"}),
+    ("/v1/chat/completions", {"messages": [{"role": "user",
+                                            "content": "x"}], "n": 0}),
+    ("/v1/chat/completions", {"messages": [{"role": "user",
+                                            "content": "x"}], "n": 9}),
+    ("/v1/chat/completions", {"messages": [{"role": "user",
+                                            "content": "x"}], "n": "two"}),
+    ("/v1/chat/completions", {"messages": [{"role": "user",
+                                            "content": "x"}],
+                              "n": 2, "stream": True}),
+    ("/v1/completions", {"prompt": "p", "response_format":
+                         {"type": "xml"}}),
+]
+
+
+def _jax_params():
+    cfg = j_normalize(TINY)
+    params = JStageModel(cfg, 0, 2, use_pallas=False).init_params(
+        jax.random.key(0), dtype=jnp.float32)
+    return cfg, params
+
+
+def _sse(raw: str) -> list[dict]:
+    return [json.loads(line[6:]) for line in raw.splitlines()
+            if line.startswith("data: ") and line != "data: [DONE]"]
+
+
+def _delta_text(chunks, chat: bool) -> str:
+    if chat:
+        return "".join(c["choices"][0]["delta"].get("content", "")
+                       for c in chunks)
+    return "".join(c["choices"][0].get("text", "") for c in chunks)
+
+
+# -- the two servers -----------------------------------------------------------
+
+
+class PortServer:
+    """The port's frontend served on a loopback port from a thread (the
+    production ``OpenAIFrontend.run``), with a small http.client."""
+
+    def __init__(self, frontend: OpenAIFrontend):
+        self.fe = frontend
+        started = threading.Event()
+        self.thread = threading.Thread(
+            target=frontend.run, daemon=True,
+            kwargs=dict(host="127.0.0.1", port=0,
+                        on_start=lambda fe: started.set()))
+        self.thread.start()
+        assert started.wait(10)
+        self.port = frontend.port
+
+    def request(self, method, path, body=None, raw_body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=60)
+        try:
+            data = raw_body if raw_body is not None else (
+                None if body is None else json.dumps(body).encode())
+            conn.request(method, path, body=data,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            text = resp.read().decode()
+            ctype = resp.getheader("Content-Type", "")
+            out = json.loads(text) if ctype.startswith(
+                "application/json") else text
+            return resp.status, out
+        finally:
+            conn.close()
+
+    def close(self):
+        self.fe.shutdown()
+        self.thread.join(10)
+        assert not self.thread.is_alive()
+
+
+@pytest.fixture(scope="module")
+def port_server():
+    _, jparams = _jax_params()
+    model = create_stage_model(normalize_config(TINY), 0, 2)
+    engine = StageEngine(
+        model, params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu"),
+        EngineConfig(**ENGINE), device="cpu")
+    fe, runner = build_local_frontend([engine], SimpleTokenizer(),
+                                      model_name="tiny")
+    server = PortServer(fe)
+    server.runner = runner
+    yield server
+    server.close()
+    runner.stop()
+
+
+@pytest.fixture(scope="module")
+def jax_replies():
+    """Every reply the comparisons need from the JAX frontend, taken on one
+    event loop (its app binds to the first loop it sees)."""
+    cfg, params = _jax_params()
+    engine = JStageEngine(JStageModel(cfg, 0, 2, use_pallas=False), params,
+                          JEngineConfig(**ENGINE))
+    fe, runner = j_build([engine], SimpleTokenizer(), model_name="tiny")
+
+    async def fn(client):
+        out = {}
+        for name, path, body in (
+            ("chat", "/v1/chat/completions", CHAT),
+            ("completion", "/v1/completions", COMPLETION),
+            ("n3", "/v1/chat/completions", {**CHAT, "n": 3}),
+        ):
+            resp = await client.post(path, json=body)
+            out[name] = (resp.status, await resp.json())
+        for name, path, body in (
+            ("chat_stream", "/v1/chat/completions", CHAT),
+            ("completion_stream", "/v1/completions", COMPLETION),
+        ):
+            resp = await client.post(path, json={**body, "stream": True})
+            out[name] = (resp.status, await resp.text())
+        out["bad"] = []
+        for path, body in BAD_BODIES:
+            resp = await client.post(path, json=body)
+            out["bad"].append(resp.status)
+        resp = await client.post("/v1/completions", data=b"{not json")
+        out["bad"].append(resp.status)
+        for path in ("/health", "/v1/models"):
+            resp = await client.get(path)
+            out[path] = (resp.status, await resp.json())
+        return out
+
+    try:
+        return with_client(fe.app, fn)
+    finally:
+        runner.stop()
+
+
+# -- parity with the JAX frontend ----------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["chat", "completion"])
+def test_greedy_replies_match_jax(port_server, jax_replies, kind):
+    path, body = (("/v1/chat/completions", CHAT) if kind == "chat"
+                  else ("/v1/completions", COMPLETION))
+    status, got = port_server.request("POST", path, body)
+    want_status, want = jax_replies[kind]
+    assert status == want_status == 200, got
+    assert got["object"] == want["object"]
+    gc, wc = got["choices"][0], want["choices"][0]
+    if kind == "chat":
+        assert gc["message"] == wc["message"]
+        assert gc["message"]["role"] == "assistant"
+    else:
+        assert gc["text"] == wc["text"]
+    assert gc["text" if kind != "chat" else "message"]
+    assert gc["finish_reason"] == wc["finish_reason"] == "length"
+    for key in ("prompt_tokens", "completion_tokens", "total_tokens"):
+        assert got["usage"][key] == want["usage"][key], key
+    assert got["model"] == "tiny" and got["id"].startswith("chatcmpl-")
+
+
+def test_n_choices(port_server, jax_replies):
+    status, got = port_server.request("POST", "/v1/chat/completions",
+                                      {**CHAT, "n": 3})
+    want = jax_replies["n3"][1]
+    assert status == 200, got
+    assert [c["index"] for c in got["choices"]] == [0, 1, 2]
+    # Greedy choices all equal the single greedy reply, as in JAX.
+    assert got["choices"] == want["choices"]
+    for key in ("prompt_tokens", "completion_tokens", "total_tokens"):
+        assert got["usage"][key] == want["usage"][key], key
+    assert got["usage"]["completion_tokens"] == 30
+    # Seeded sampled choices: seed + i each, all answered.
+    status, got = port_server.request(
+        "POST", "/v1/completions",
+        {**COMPLETION, "temperature": 0.9, "seed": 7, "n": 3})
+    assert status == 200
+    assert [c["index"] for c in got["choices"]] == [0, 1, 2]
+    assert got["usage"]["completion_tokens"] == 30
+
+
+@pytest.mark.parametrize("kind", ["chat", "completion"])
+def test_streaming_matches_non_stream_and_jax(port_server, jax_replies,
+                                              kind):
+    chat = kind == "chat"
+    path, body = (("/v1/chat/completions", CHAT) if chat
+                  else ("/v1/completions", COMPLETION))
+    status, raw = port_server.request("POST", path, {**body, "stream": True})
+    assert status == 200
+    assert raw.strip().endswith("data: [DONE]")
+    chunks = _sse(raw)
+    want_chunks = _sse(jax_replies[f"{kind}_stream"][1])
+    text = _delta_text(chunks, chat)
+    # Joined deltas equal the non-stream reply and the JAX stream.
+    want_text = jax_replies[kind][1]["choices"][0]
+    want_text = want_text["message"]["content"] if chat else want_text["text"]
+    assert text == want_text == _delta_text(want_chunks, chat)
+    last = chunks[-1]
+    assert last["object"] == want_chunks[-1]["object"]
+    assert last["choices"][0]["finish_reason"] == "length"
+    assert last["usage"]["completion_tokens"] == 10
+    assert last["usage"]["ttft_ms"] > 0
+    assert {c["id"] for c in chunks} == {last["id"]}
+
+
+def test_bad_requests_answer_400_as_jax(port_server, jax_replies):
+    got = [port_server.request("POST", path, body)[0]
+           for path, body in BAD_BODIES]
+    got.append(port_server.request("POST", "/v1/completions",
+                                   raw_body=b"{not json")[0])
+    assert got == jax_replies["bad"] == [400] * len(got)
+    status, body = port_server.request("POST", "/v1/completions",
+                                       {"prompt": ""})
+    assert body == {"error": {"message": "empty prompt",
+                              "type": "invalid_request_error"}}
+
+
+def test_health_and_models_match_jax(port_server, jax_replies):
+    for path in ("/health", "/v1/models"):
+        assert port_server.request("GET", path) == jax_replies[path]
+
+
+# -- refusals --------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("field,feature", [
+    ({"presence_penalty": 0.5}, "penalties"),
+    ({"repetition_penalty": 1.2}, "penalties"),
+    ({"logit_bias": {"90": 5.0}}, "logit_bias"),
+    ({"logprobs": True}, "logprobs"),
+    ({"response_format": {"type": "json_object"}}, "json_schema"),
+    ({"model": "tiny:adapter-a"}, "LoRA"),
+    ({"lora": "adapter-a"}, "LoRA"),
+])
+def test_refused_features_answer_501(port_server, field, feature):
+    for stream, n in ((False, 1), (True, 1), (False, 2)):
+        body = {**COMPLETION, **field, "n": n}
+        if stream:
+            body["stream"] = True
+        status, reply = port_server.request("POST", "/v1/completions", body)
+        assert status == 501, reply
+        message = reply["error"]["message"]
+        assert feature in message and "not ported yet" in message
+        assert reply["error"]["type"] == "invalid_request_error"
+    # Nothing is left running.
+    assert not port_server.runner.pipeline.has_work()
+
+
+@pytest.mark.parametrize("method,path,item", [
+    ("GET", "/metrics", 9), ("GET", "/healthz", 9),
+    ("GET", "/debug/flight", 9), ("GET", "/debug/trace/r1", 9),
+    ("GET", "/cluster/status", 9), ("GET", "/cluster/status_json", 9),
+    ("POST", "/profile/start", 9), ("POST", "/scheduler/init", 4),
+    ("POST", "/weight/refit", 12), ("GET", "/", 4), ("GET", "/ui", 4),
+    ("GET", "/chat", 4),
+])
+def test_later_endpoints_answer_501(port_server, method, path, item):
+    status, reply = port_server.request(method, path,
+                                        {} if method == "POST" else None)
+    assert status == 501
+    assert f"item {item}" in reply["error"]["message"]
+    assert "not ported yet" in reply["error"]["message"]
+
+
+def test_unknown_route_and_method(port_server):
+    assert port_server.request("GET", "/v2/nothing")[0] == 404
+    assert port_server.request("GET", "/v1/chat/completions")[0] == 405
+
+
+# -- stop strings, UTF-8 and disconnects on the scripted backend --------------
+
+
+def _scripted(tokens, tokenizer=None, interval_s=0.004, poll=0.002):
+    """(port server, JAX frontend, port backend, JAX backend) over the JAX
+    tests' scripted backend, which sets statuses both packages read."""
+    tokenizer = tokenizer or JoinTokenizer()
+    pb = ScriptedBackend(tokens, interval_s=interval_s)
+    jb = ScriptedBackend(tokens, interval_s=interval_s)
+    port = PortServer(OpenAIFrontend(tokenizer, submit_fn=pb.submit,
+                                     model_name="scripted",
+                                     stream_poll_s=poll, stop_fn=pb.stop))
+    jfe = JFrontend(tokenizer, submit_fn=jb.submit, model_name="scripted",
+                    stream_poll_s=poll, stop_fn=jb.stop)
+    return port, jfe, pb, jb
+
+
+def _jax_post(jfe, path, body, stream):
+    async def fn(client):
+        resp = await client.post(path, json=body)
+        return resp.status, (await resp.text() if stream
+                             else await resp.json())
+
+    return with_client(jfe.app, fn)
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["whole", "stream"])
+@pytest.mark.parametrize("stops", [["13"], ["15-16"], ["13", "12-1"], ["99"]])
+def test_stop_strings_match_jax(stream, stops):
+    port, jfe, pb, jb = _scripted(list(range(10, 30)))
+    body = {"prompt": "p", "max_tokens": 50, "stop": stops,
+            "stream": stream}
+    try:
+        status, got = port.request("POST", "/v1/completions", body)
+    finally:
+        port.close()
+    want_status, want = _jax_post(jfe, "/v1/completions", body, stream)
+    assert status == want_status == 200
+    if stream:
+        got, want = _sse(got), _sse(want)
+        text = _delta_text(got, chat=False)
+        assert text == _delta_text(want, chat=False)
+        # Held back while a stop could still match: no delta ever sent
+        # text past the stop (chunk boundaries follow the polls).
+        sent = ""
+        for c in got:
+            sent += c["choices"][0]["text"]
+            assert text.startswith(sent)
+        got, want = got[-1], want[-1]
+    gc, wc = got["choices"][0], want["choices"][0]
+    assert gc["finish_reason"] == wc["finish_reason"]
+    if not stream:
+        assert gc["text"] == wc["text"]
+        text = gc["text"]
+    assert text == {"13": "10-11-12-", "15-16": "10-11-12-13-14-",
+                    "12-1": "10-11-", "99": "-".join(
+                        str(i) for i in range(10, 30))}[stops[-1]]
+    matched = stops != ["99"]
+    assert gc["finish_reason"] == ("stop" if matched else "length")
+    assert bool(pb.stopped) == bool(jb.stopped) == matched
+
+
+def test_streaming_never_emits_partial_utf8():
+    # "é" = bytes C3 A9 split across two tokens: a poll landing between
+    # them must not emit U+FFFD; the final text is the real character.
+    port, _, _, _ = _scripted([0xC3, 0xA9, 0x41], SimpleTokenizer(),
+                              interval_s=0.02)
+    try:
+        status, raw = port.request("POST", "/v1/completions",
+                                   {"prompt": "p", "max_tokens": 50,
+                                    "stream": True})
+    finally:
+        port.close()
+    assert status == 200
+    deltas = [c["choices"][0]["text"] for c in _sse(raw)]
+    assert all("�" not in d for d in deltas), deltas
+    assert "".join(deltas) == "éA"
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["whole", "stream"])
+def test_client_disconnect_stops_its_request(stream):
+    port, _, pb, _ = _scripted(list(range(500)), interval_s=0.01)
+    try:
+        sock = socket.create_connection(("127.0.0.1", port.port), timeout=10)
+        body = json.dumps({"prompt": "p", "max_tokens": 600,
+                           "stream": stream}).encode()
+        sock.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: x\r\n"
+                     b"Content-Type: application/json\r\n"
+                     b"Content-Length: %d\r\n\r\n%s" % (len(body), body))
+        deadline = time.monotonic() + 10
+        while not pb.requests and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if stream:
+            assert sock.recv(15).startswith(b"HTTP/1.1 200")
+        sock.close()
+        while not pb.stopped and time.monotonic() < deadline:
+            time.sleep(0.01)
+    finally:
+        port.close()
+    (req,) = pb.requests.values()
+    assert pb.stopped == [req.request_id]
+    assert req.status.value == "finished_stop"
+    assert len(req.output_ids) < 500
+
+
+# -- stop_request inside a decode window ----------------------------------------
+
+
+def _stop_in_window(engine, request, sampling):
+    """Submit, run the prefill step, dispatch a K = 4 window, stop the
+    request while the window is in flight, resolve it; then one more step.
+    Returns what each phase left."""
+    engine.submit(request)
+    engine.step()
+    assert len(request.output_ids) == 1
+    ticket = engine.dispatch()
+    engine.stop_request(request.request_id)
+    out = engine.resolve(ticket)
+    seen = [r.request_id for r in out.finished]
+    after = (list(request.output_ids), request.status.value,
+             request.num_computed_tokens, engine.cache.num_free_pages)
+    engine.stop_request("no-such-request")
+    return seen, after, engine.has_work()
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["greedy", "seeded"])
+def test_stop_request_inside_a_window_matches_jax(seeded):
+    cfg, jparams = _jax_params()
+    prompt = [int(x) for x in np.random.default_rng(2).integers(1, 250, 21)]
+    kw = dict(ENGINE, decode_lookahead=4, overlap_steps=False)
+    sp = dict(temperature=0.8, top_k=5, seed=3) if seeded else dict(
+        temperature=0.0)
+    jengine = JStageEngine(JStageModel(cfg, 0, 2, use_pallas=False), jparams,
+                           JEngineConfig(**kw))
+    jseen, jafter, jwork = _stop_in_window(
+        jengine, JRequest("r", prompt_ids=list(prompt),
+                          sampling_params=JSampling(max_new_tokens=12, **sp)),
+        sp)
+    engine = StageEngine(
+        create_stage_model(normalize_config(TINY), 0, 2),
+        params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu"),
+        EngineConfig(**kw), device="cpu")
+    seen, after, work = _stop_in_window(
+        engine, Request("r", prompt_ids=list(prompt),
+                        sampling_params=SamplingParams(max_new_tokens=12,
+                                                       **sp)), sp)
+    assert engine.kernel_dispatch_summary()["dispatch_total"].get(
+        "torch/multistep") == 4
+    # The stopped row commits none of the window's tokens, is collected
+    # by the resolve and gives its pages back, as in JAX.
+    assert seen == jseen == ["r"]
+    assert after[1] == jafter[1] == "finished_stop"
+    if not seeded:
+        assert after[0] == jafter[0]
+    assert len(after[0]) == len(jafter[0]) == 1
+    assert after[2:] == jafter[2:]
+    assert work is jwork is False
+
+
+def test_keep_alive_connection_survives_refused_posts(port_server):
+    """One HTTP/1.1 connection: a POST answered 501 or 404 before its body
+    was needed leaves no bytes behind for the next request."""
+    conn = http.client.HTTPConnection("127.0.0.1", port_server.port,
+                                      timeout=60)
+    try:
+        for method, path, want in (
+            ("POST", "/weight/refit", 501), ("POST", "/nowhere", 404),
+            ("POST", "/v1/completions", 200), ("GET", "/health", 200),
+        ):
+            conn.request(method, path, body=json.dumps(
+                {**COMPLETION, "max_tokens": 2}).encode())
+            resp = conn.getresponse()
+            resp.read()
+            assert resp.status == want, (method, path)
+    finally:
+        conn.close()

@@ -1,5 +1,7 @@
-"""The PyTorch port imports neither jax nor anything of parallax_tpu, and its
-entry points refuse to fall back to the CPU when no device was asked for."""
+"""The PyTorch port imports neither jax nor anything of parallax_tpu, nor
+aiohttp or safetensors (its serving path needs neither on the card), keeps
+transformers unimported until a tokenizer is loaded, and its entry points
+refuse to fall back to the CPU when no device was asked for."""
 
 import os
 import pkgutil
@@ -19,12 +21,13 @@ import importlib.abc, sys
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "parallax_tpu"):
+        if top in BLOCKED:
             raise ImportError(f"blocked import of {name}")
         return None
 
+BLOCKED = ("jax", "jaxlib", "parallax_tpu", "aiohttp", "safetensors")
 for mod in list(sys.modules):
-    if mod.split(".")[0] in ("jax", "jaxlib", "parallax_tpu"):
+    if mod.split(".")[0] in BLOCKED:
         del sys.modules[mod]
 sys.meta_path.insert(0, _Block())
 """
@@ -49,14 +52,16 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "ops.mla", "ops.mla_decode", "ops.dsa", "ops.dsa_decode",
                  "models.deepseek_v3", "models.deepseek_v32",
                  "ops.gqa_decode", "models.gpt_oss", "runtime.step_graph",
-                 "config"):
+                 "config", "models.loader", "utils.tokenizer",
+                 "backend.http_server", "backend.serve", "backend.generate",
+                 "cli"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'parallax_tpu')]\n"
+        "       if m.split('.')[0] in BLOCKED + ('transformers',)]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -119,3 +124,59 @@ def test_kernel_wrappers_build_nothing_at_import():
         "sample_topk", "grouped_gemm", "mla_decode", "mla_attend",
         "indexer_fused", "indexer_scores", "gumbel_rows",
     }
+
+
+def test_serve_path_runs_without_aiohttp_or_safetensors(tmp_path):
+    """With jax, parallax_tpu, aiohttp and safetensors blocked: a checkpoint
+    written by chip_smoke.py's own writer loads, ``serve --device cpu``
+    answers a chat completion over HTTP, and transformers stays unimported
+    (the checkpoint has no tokenizer files)."""
+    code = _BLOCKER + f"""
+import http.client, importlib.util, json, threading
+import torch
+spec = importlib.util.spec_from_file_location("cs", {REPO!r} + "/chip_smoke.py")
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from parallax_tpu_torch import cli
+from parallax_tpu_torch.backend.serve import serve_main
+from parallax_tpu_torch.config import normalize_config
+from parallax_tpu_torch.models import create_stage_model
+
+raw = dict(architectures=["Qwen2ForCausalLM"], hidden_size=32,
+           num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+           intermediate_size=64, vocab_size=270)
+model = create_stage_model(normalize_config(raw), 0, 2)
+tree = model.init_params(torch.Generator().manual_seed(0), torch.bfloat16,
+                         "cpu")
+cs.write_checkpoint(cs.hf_tensors(tree), raw, {str(tmp_path)!r})
+args = cli.build_parser().parse_args([
+    "serve", "--model-path", {str(tmp_path)!r}, "--device", "cpu",
+    "--host", "127.0.0.1", "--port", "0", "--page-size", "8",
+    "--max-batch-size", "2", "--max-model-len", "128"])
+assert cli.unported_flags(args) == []
+box, started = [], threading.Event()
+thread = threading.Thread(
+    target=serve_main, args=(args, lambda fe, r: (box.append(fe),
+                                                  started.set())))
+thread.start()
+assert started.wait(60)
+conn = http.client.HTTPConnection("127.0.0.1", box[0].port, timeout=60)
+conn.request("POST", "/v1/chat/completions", body=json.dumps({{
+    "messages": [{{"role": "user", "content": "hi"}}], "max_tokens": 4,
+    "temperature": 0}}))
+resp = conn.getresponse()
+body = json.loads(resp.read())
+box[0].shutdown()
+thread.join(30)
+assert resp.status == 200 and body["usage"]["completion_tokens"] == 4, body
+bad = [m for m in sys.modules
+       if m.split(".")[0] in BLOCKED + ("transformers",)]
+assert not bad, bad
+print("ok")
+"""
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
