@@ -73,7 +73,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                exact, graph replays included (layers x forward steps, m x
                k forward steps a window chain). The kernel runs' greedy
                streams must agree with the plain model's logits
-               (tie-tolerant).
+               (tie-tolerant). One greedy stream is decoded again step
+               by step, A2 against the plain decode on the same cache, and
+               the largest logit difference printed (no limit).
 5. pipeline    the fused run through a 14 + 14 layer InProcessPipeline on
                the same card (step_round; windows stay inert there),
                sharing the weight tensors.
@@ -97,7 +99,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                rows within GREEDY_TOL of the plain path on the loaded
                weights; the sharer hit the prefix cache. Then the same mix
                through the library API with the server's page count.
-8. moe_serve   Qwen3-30B-A3B at full width and all 48 layers (random bf16
+8. swarm_serve the scheduler-less swarm on the same checkpoint, 14 + 14
+               layers (``--only swarm_serve`` runs http_serve first). (a)
+               Two WorkerNodes on TcpTransports in this process, on slices
+               of the loaded tree, serve the mix's prompt ids submitted at
+               the head: every request ends by length, each worker's
+               launches exact (A2 14 x its decode steps, A0 + A1 14 x its
+               prefill steps, A3 and the noise kernel on the tail only), no
+               window and no graph capture, the greedy rows within
+               GREEDY_TOL of the plain path; the streams counted against
+               the in-process 14 + 14 pipeline's on the same requests.
+               (b) Two ``python -m parallax_tpu_torch join`` processes
+               (each binds port 0 and logs its address; the tail takes
+               the head as its --peers; --advertise-addr 127.0.0.1) and
+               ``chat-host --head`` in a third; the http_serve mix from 8
+               client threads on the fresh processes, then a mix of the
+               same shape with other text on the warm ones (a 503 while no
+               route is retried): every reply 200 with 32 tokens; the
+               greedy rows of the first mix once more over the head's
+               chat RPCs, their ids against (a)'s and within GREEDY_TOL of
+               the plain path, the HTTP text their decode; no step loop
+               error and no traceback in any log; every process exits 0
+               within 30 s of SIGTERM; the workers' exit summaries show no
+               graph captured. TTFT, decode and output tok/s of both
+               mixes beside the pipeline and HTTP figures, spawn-to-route
+               time and the bytes each link carried.
+9. moe_serve   Qwen3-30B-A3B at full width and all 48 layers (random bf16
                weights, about 61 GB; the dense phases' tensors are freed
                first) serving the same 8-request mix with the defaults and
                with K1_SYNC; every kernel's launches exact (the grouped
@@ -106,8 +133,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                plain attention); the same one-shot forward with A4 in
                place of the plain grouped product reports its logit
                difference (no limit).
-9. moe_profile moe_serve once more under torch.profiler, both configs.
-10. mla_serve  DeepSeek-V3 at full width and 5 layers (3 dense + 2 MoE; one
+10. moe_profile moe_serve once more under torch.profiler, both configs.
+11. mla_serve  DeepSeek-V3 at full width and 5 layers (3 dense + 2 MoE; one
                random bf16 tree of 26.7 B params, the MoE model freed first)
                serving the same mix four times: fused decode (A5 once per
                layer and decode step) and split decode (A6 the same, A5
@@ -119,17 +146,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                again step by step, A5 against the plain MLA decode on the
                same cache, and the largest logit difference printed (no
                limit).
-11. mla_profile mla_serve's fused run once more under torch.profiler, both
+12. mla_profile mla_serve's fused run once more under torch.profiler, both
                configs.
-12. dsa_serve DeepSeek-V3.2 at the same width and depth, on the same tree
+13. dsa_serve DeepSeek-V3.2 at the same width and depth, on the same tree
                plus the indexer, with one more request of 2,400 prompt ids
                so that sparse top-k selection runs: fused (A7), split (A8)
                and plain, the same checks; the long greedy stream is
                decoded again step by step, A7 against the plain indexer
                (the logit difference, argmax and top-k set agreement).
-13. dsa_profile dsa_serve's fused run once more under torch.profiler, both
+14. dsa_profile dsa_serve's fused run once more under torch.profiler, both
                configs.
-14. gptoss_serve gpt-oss-20b at full width and all 24 layers (20.9 B params,
+15. gptoss_serve gpt-oss-20b at full width and all 24 layers (20.9 B params,
                42 GB in bf16, each layer's sinks drawn N(0, 1); DeepSeek's
                tree freed first) serving the mix four times with
                mla_serve's runs and checks: fused (A2 per layer and decode
@@ -137,7 +164,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                layer and decode step, A1 attend-only per layer and prefill
                step, nothing else but the sampler's noise), fused with
                K1_SYNC and plain.
-15. gptoss_profile gptoss_serve's fused run once more under torch.profiler,
+16. gptoss_profile gptoss_serve's fused run once more under torch.profiler,
                both configs.
 
 One JSON object per line; the ``kernels`` line and the card line come just
@@ -237,6 +264,8 @@ SCORE_TOL = (1e-4, 1e-4)
 
 
 T_START = time.monotonic()
+# Figures of earlier phases that a later phase reports beside its own.
+FIGURES: dict = {}
 
 
 def emit(obj: dict) -> None:
@@ -2326,6 +2355,14 @@ def phase_serve(torch, dev, card: str, cfg, model_full, params):
         emit({"phase": "serve", "run": mode,
               "sampled_rows_common_prefix_vs_fused": agree,
               "greedy_rows_identical_to_fused": greedy_same})
+    # The dense GQA decode kernel (A2) teacher-forced against the plain
+    # decode on the same cache, step by step (no limit: the one-step
+    # logit difference, free of a served stream's compounding).
+    greedy = [i for i in range(len(runs["fused"])) if i not in sampled]
+    emit({"phase": "serve", "check": "teacher_forced_gqa_decode_vs_plain",
+          **teacher_forced_decode(torch, model_full, params,
+                                  runs["fused"][greedy[0]], dev,
+                                  "gqa_decode")})
     return runs["fused"], sampled, launches_of
 
 
@@ -2342,10 +2379,11 @@ def phase_pipeline(torch, dev, cfg, model_full, params, single, sampled):
         for a, b in zip(r.output_ids, s.output_ids)
     )
     total = sum(len(r.output_ids) for r in reqs)
+    FIGURES["pipeline"] = stream_metrics(reqs, t0, t1)
     emit({"phase": "pipeline", "stages": [[0, 14], [14, 28]],
           "greedy_vs_plain": "pass", "largest_logit_gap": worst,
           "tokens_identical_to_single_stage": identical,
-          "tokens": total, **stream_metrics(reqs, t0, t1),
+          "tokens": total, **FIGURES["pipeline"],
           "dispatch": [e.kernel_dispatch_summary() for e in engines]})
 
 
@@ -2511,16 +2549,16 @@ def write_checkpoint(tensors: dict, raw_cfg: dict, path: str,
     return total
 
 
-def _text_mix():
+def _text_mix(seed: int = 2024):
     """The serve phases' 8-request mix as text for the byte tokenizer:
     prompts of 259-699 printable bytes (260-700 ids with BOS; chat adds its
     template), r0 and r7 sharing a 256-byte prefix; r2, r4 and r6 seeded
     top-k, the rest greedy; 32 tokens each; r0, r2, r4 and r7 through
     /v1/chat/completions, the rest /v1/completions; r1, r2, r5 and r7
-    streamed."""
+    streamed. Another ``seed`` draws other text of the same shape."""
     import string
 
-    rng = random.Random(2024)
+    rng = random.Random(seed)
     chars = string.ascii_letters + string.digits + " .,;:!?-"
 
     def text(n):
@@ -2653,14 +2691,17 @@ def _serve_http(torch, dev, ckpt: str, mix):
     return outs, finished, launches, summary, info
 
 
-def phase_http_serve(torch, dev, card: str, cfg, tree: list) -> None:
+def phase_http_serve(torch, dev, card: str, cfg, tree: list,
+                     swarm: bool = False) -> None:
     """The port's front door on Qwen2.5-7B at full width: the random tree
     written as an HF checkpoint, the CLI's ``generate`` run on it in a
     subprocess, the checkpoint loaded back bitwise, then ``serve`` (CLI
     parser + ``serve_main``, pages from the addressable cap) answering the
     8-request mix over HTTP; launches exact, greedy rows against the plain
     path on the loaded weights, the prefix cache hit. ``tree`` holds the
-    only reference to the random tree, dropped once it loaded back."""
+    only reference to the random tree, dropped once it loaded back. With
+    ``swarm``, phase_swarm_serve follows in the same checkpoint directory
+    (the checkpoint is written once)."""
     import os
     import re
     import shutil
@@ -2669,7 +2710,6 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list) -> None:
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.models.loader import load_stage_params
     from parallax_tpu_torch.models.presets import PRESETS
-    from parallax_tpu_torch.utils.tokenizer import SimpleTokenizer
 
     raw = dict(PRESETS[DENSE_MODEL])
     tensors = hf_tensors(tree[0])
@@ -2736,7 +2776,23 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list) -> None:
         mix, sampled = _text_mix()
         outs, finished, launches, summary, info = _serve_http(
             torch, dev, ckpt, mix)
-    free_device_memory(torch)
+        free_device_memory(torch)
+        reqs = http_results(torch, dev, card, cfg, loaded, mix, sampled,
+                            outs, finished, launches, summary, info)
+        if swarm:
+            phase_swarm_serve(torch, dev, card, cfg, loaded, ckpt, mix,
+                              sampled, reqs)
+
+
+def http_results(torch, dev, card, cfg, loaded, mix, sampled, outs,
+                 finished, launches, summary, info) -> list:
+    """http_serve's checks and figures: every reply against its request,
+    launches exact, greedy rows against the plain path; then the same mix
+    through the library API. Returns the served requests in mix order."""
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.utils.tokenizer import SimpleTokenizer
+
+    n = cfg.num_hidden_layers
     tok = SimpleTokenizer()
     reqs = []
     for out, (_, body) in zip(outs, mix):
@@ -2770,6 +2826,12 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list) -> None:
     first = min(r.first_token_time for r in reqs)
     t_end = max(r.t_done for r in reqs)
     t_start = min(r.t_send for r in reqs)
+    FIGURES["http"] = {
+        "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
+        "decode_tok_per_s": sum(len(r.output_ids) - 1 for r in reqs)
+        / (t_end - first),
+        "output_tok_per_s": sum(len(r.output_ids) for r in reqs)
+        / (t_end - t_start)}
     emit({"phase": "http_serve", "run": "http", "requests": len(reqs),
           "status": "8 x 200", "launches": launches,
           "steps": sum(forward_steps(summary)), "dispatch": summary,
@@ -2799,6 +2861,528 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list) -> None:
           "loop": "drive_step", "requests": len(lib),
           "dispatch": engines[0].kernel_dispatch_summary(),
           **stream_metrics(lib, t0, t1), "card": card})
+    return reqs
+
+
+SWARM_BOUNDS = ((0, 14), (14, 28))
+SWARM_TIMEOUT_S = 300
+SWARM_EXIT_S = 30
+
+
+def _stage_tree(params, s: int, e: int, n: int) -> dict:
+    """Stage [s, e) of a full tree: slices of its lists, no tensor
+    copied."""
+    p = {"layers": params["layers"][s:e]}
+    if s == 0 or (e == n and "lm_head" not in params):
+        p["embed_tokens"] = params["embed_tokens"]
+    if e == n:
+        p["norm"] = params["norm"]
+        if "lm_head" in params:
+            p["lm_head"] = params["lm_head"]
+    return p
+
+
+def _swarm_requests(served, sampled):
+    """Fresh requests for the served requests' prompt ids, with the mix's
+    sampling (32 tokens, EOS ignored)."""
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    out = []
+    for i, r in enumerate(served):
+        temp, top_k, seed = sampled.get(i, (0.0, -1, None))
+        out.append(Request(f"r{i}", prompt_ids=list(r.prompt_ids),
+                           sampling_params=SamplingParams(
+                               temperature=temp, top_k=top_k, seed=seed,
+                               max_new_tokens=32, ignore_eos=True)))
+    return out
+
+
+def _logged(path: str, pattern: str, proc, deadline: float) -> str:
+    """The first group of ``pattern`` once it shows in the log at
+    ``path`` (a process that binds port 0 logs the address it got)."""
+    import re
+
+    while True:
+        with open(path) as f:
+            m = re.search(pattern, f.read())
+        if m is not None:
+            return m.group(1)
+        if time.monotonic() > deadline or proc.poll() is not None:
+            raise AssertionError(f"swarm_serve (b): {path} never logged "
+                                 f"{pattern!r}")
+        time.sleep(0.05)
+
+
+def _common_tokens(a, b) -> int:
+    return sum(x == y for r, s in zip(a, b)
+               for x, y in zip(r.output_ids, s.output_ids))
+
+
+def _in_process_pipeline(cfg, params, reqs, dev):
+    """``reqs`` served by the in-process pipeline of SWARM_BOUNDS's stages
+    (sliced from ``params``); returns them."""
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.runtime.engine import StageEngine
+    from parallax_tpu_torch.runtime.pipeline import InProcessPipeline
+
+    n = cfg.num_hidden_layers
+    pipe = InProcessPipeline([
+        StageEngine(create_stage_model(cfg, s, e),
+                    _stage_tree(params, s, e, n), engine_config(True),
+                    device=dev)
+        for s, e in SWARM_BOUNDS])
+    for r in reqs:
+        pipe.submit(r)
+    pipe.run_until_complete()
+    for r in reqs:
+        if r.status.value != "finished_length":
+            raise AssertionError(f"swarm_serve (a) pipeline {r.request_id}: "
+                                 f"{r.status.value}")
+    return reqs
+
+
+def swarm_in_process(torch, dev, card, cfg, params, served, sampled):
+    """Part (a): two port WorkerNodes on TcpTransports in this process,
+    layers 0-14 and 14-28 of ``params`` (sliced, not copied), serving the
+    mix's prompts submitted at the head. Every request ends by length;
+    each worker's launches are exact (A2 14 x its decode steps, A0 / A1 14
+    x its prefill steps, A3 and the noise kernel on the tail only) and no
+    graph is captured; the greedy rows agree with the plain path. The
+    streams are counted against the in-process pipeline's on the same
+    requests. Returns the requests."""
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.p2p.node import WorkerNode
+    from parallax_tpu_torch.p2p.transport import TcpTransport
+
+    n = cfg.num_hidden_layers
+    transports = [TcpTransport("", "127.0.0.1") for _ in SWARM_BOUNDS]
+    workers = []
+    try:
+        for t in transports:
+            t.start()
+            t.peer_id = t.address
+        addrs = [t.address for t in transports]
+        t0 = time.monotonic()
+        for t, (s, e) in zip(transports, SWARM_BOUNDS):
+            workers.append(WorkerNode(
+                t, None, cfg, engine_config(True),
+                load_params=lambda m: _stage_tree(params, m.start_layer,
+                                                  m.end_layer, n),
+                heartbeat_interval_s=0.5,
+                static_peers=[a for a in addrs if a != t.address],
+                layers=(s, e), device=dev))
+        for w in workers:
+            w.start()
+        head, tail = workers
+        deadline = time.monotonic() + SWARM_TIMEOUT_S
+        while head.local_route() != addrs:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"swarm_serve (a): no route "
+                                     f"{head.local_route()}")
+            time.sleep(0.05)
+        route_s = time.monotonic() - t0
+        reqs = _swarm_requests(served, sampled)
+        ck.reset_launches()
+        t0 = time.monotonic()
+        events = []
+        for r in reqs:
+            r.arrival_time = t0
+            events.append(head.submit(r))
+        for r, ev in zip(reqs, events):
+            if not ev.wait(SWARM_TIMEOUT_S):
+                raise AssertionError(f"swarm_serve (a) {r.request_id}: "
+                                     f"{r.status.value}")
+        t1 = time.monotonic()
+        launches = ck.launches()
+        summaries = [w.engine.kernel_dispatch_summary() for w in workers]
+        links = {"head_to_tail": head.transport_stats()[tail.node_id],
+                 "tail_to_head": tail.transport_stats()[head.node_id]}
+    finally:
+        for w in workers:
+            w.stop()
+            w.engine = None
+        for t in transports:
+            t.stop()
+    del workers
+    for r in reqs:
+        if r.status.value != "finished_length" or len(r.output_ids) != 32:
+            raise AssertionError(f"swarm_serve (a) {r.request_id}: "
+                                 f"{r.status.value}, {len(r.output_ids)}")
+    want, per_stage = {}, []
+    for stage, summary in zip(("head", "tail"), summaries):
+        if summary["impl"] != "cuda-fused":
+            raise AssertionError(f"swarm_serve (a) {stage}: impl "
+                                 f"{summary['impl']}")
+        graphs = summary.get("graphs", {})
+        if graphs.get("captured", 0) or graphs.get("replays", 0) or \
+                summary["dispatch_total"].get("cuda-fused/multistep", 0):
+            raise AssertionError(f"swarm_serve (a) {stage}: windows ran "
+                                 f"{summary}")
+        mine = gqa_expected("fused", summary, 14)
+        if stage == "head" and (mine["sample_topk"] or mine["gumbel_rows"]):
+            raise AssertionError(f"swarm_serve (a): the head sampled "
+                                 f"{summary['dispatch_total']}")
+        for k, v in mine.items():
+            want[k] = want.get(k, 0) + v
+        decode, prefill = forward_steps(summary)
+        per_stage.append({"stage": stage, "decode_steps": decode,
+                          "prefill_steps": prefill, "launches": mine})
+    check_launches("swarm_serve", "in_process", launches, want, {})
+    # The in-process 14 + 14 pipeline (phase_pipeline's path) on the same
+    # requests: a fault of the swarm itself shows beside it.
+    free_device_memory(torch)
+    piped = _in_process_pipeline(cfg, params, _swarm_requests(served,
+                                                              sampled), dev)
+    free_device_memory(torch)
+    model_ref = create_plain_model(cfg)
+    worst, *_ = greedy_check(torch, model_ref, params, reqs, sampled, dev,
+                             tol=GREEDY_TOL)
+    del model_ref
+    FIGURES["swarm_in_process"] = stream_metrics(reqs, t0, t1)
+    emit({"phase": "swarm_serve", "part": "a_in_process",
+          "stages": [list(b) for b in SWARM_BOUNDS], "transport": "tcp",
+          "requests": len(reqs), "status": "8 x finished_length",
+          "route_ready_s": route_s, "launches": launches,
+          "launches_per_stage": per_stage, "graphs_captured": 0,
+          "greedy_vs_plain": "pass", "largest_logit_gap": worst,
+          "tolerance": GREEDY_TOL,
+          "tokens_identical_to_in_process_pipeline": _common_tokens(reqs,
+                                                                    piped),
+          "greedy_rows_identical_to_in_process_pipeline": sum(
+              r.output_ids == p.output_ids for i, (r, p) in enumerate(
+                  zip(reqs, piped)) if i not in sampled),
+          "tokens_identical_to_http_single_stage": _common_tokens(reqs,
+                                                                  served),
+          "tokens": sum(len(r.output_ids) for r in reqs),
+          "links": links, **FIGURES["swarm_in_process"],
+          "dispatch": summaries, "card": card})
+    return reqs
+
+
+def create_plain_model(cfg):
+    """The plain reference model over all layers (plain attention even on
+    the card)."""
+    from parallax_tpu_torch.models import create_stage_model
+
+    return create_stage_model(cfg, 0, cfg.num_hidden_layers,
+                              use_kernels=False)
+
+
+def _http_client_retry_503(port: int, path: str, body: dict, out: dict,
+                           deadline: float) -> None:
+    """``_http_client``, sent again while the reply is 503 (no serviceable
+    pipeline yet: the frontend's retryable answer) until ``deadline``;
+    ``t_send`` stays the first attempt's, ``retries`` counts the rest."""
+    t_send, retries = None, 0
+    while True:
+        _http_client(port, path, body, out)
+        t_send = t_send or out["t_send"]
+        if out.get("status") != 503 or time.monotonic() > deadline:
+            break
+        retries += 1
+        time.sleep(0.2)
+    out["t_send"], out["retries"] = t_send, retries
+
+
+def _swarm_http_figures(outs, mix) -> dict:
+    """One pass of the mix over HTTP: TTFT from the streamed replies'
+    usage.ttft_ms (the chat host's first sight of a token, from the
+    handler's start; the byte tokenizer shows no text for most ids, so a
+    first content chunk would come late), decode tok/s from the first of
+    those first tokens to the last reply, output tok/s over the wall."""
+    usages = [_http_reply(o, body)[2] for o, (_, body) in zip(outs, mix)]
+    streamed = [(o, u) for o, u in zip(outs, usages) if "ttft_ms" in u]
+    ttft = [u["ttft_ms"] / 1e3 for _, u in streamed]
+    t_start = min(o["t_send"] for o in outs)
+    t_end = max(o["t_done"] for o in outs)
+    first = min(o["t_send"] + u["ttft_ms"] / 1e3 for o, u in streamed)
+    total = sum(u["completion_tokens"] for u in usages)
+    return {"ttft_s": ttft, "ttft_s_median": statistics.median(ttft),
+            "ttft_s_max": max(ttft),
+            "decode_tok_per_s": (total - len(usages)) / (t_end - first),
+            "output_tok_per_s": total / (t_end - t_start),
+            "wall_s": t_end - t_start}
+
+
+def _emit_log_tails(names, procs, texts) -> None:
+    emit({"phase": "swarm_serve", "part": "b_processes", "failed": True,
+          "exits": {nm: p.poll() for nm, p in zip(names, procs)},
+          "log_tails": {nm: t[-3000:] for nm, t in zip(names, texts)}})
+
+
+def _swarm_http_checks(names, texts, exits, outs, mix, again) -> None:
+    """Part (b)'s checks of the logs, the exits and the replies."""
+    from parallax_tpu_torch.utils.tokenizer import SimpleTokenizer
+
+    for nm, text in zip(names, texts):
+        if "step loop error" in text or "Traceback" in text:
+            raise AssertionError(f"swarm_serve (b) {nm}: a step loop error "
+                                 "or a traceback in its log")
+    if any(code != 0 for code in exits.values()):
+        raise AssertionError(f"swarm_serve (b): exits {exits}")
+    tok = SimpleTokenizer()
+    for i, (out, (_, body)) in enumerate(zip(outs, mix)):
+        _rid, reason, usage, text = _http_reply(out, body)
+        if reason != "length" or usage["completion_tokens"] != 32:
+            raise AssertionError(f"swarm_serve (b) r{i}: {reason}, {usage}")
+        if i in again and text != tok.decode(again[i].output_ids):
+            raise AssertionError(f"swarm_serve (b) r{i}: the reply is not "
+                                 "the RPC stream's decode")
+    for r in again.values():
+        if r.status.value != "finished_length" or len(r.output_ids) != 32:
+            raise AssertionError(f"swarm_serve (b) {r.request_id}: "
+                                 f"{r.status.value}")
+
+
+def _ready_blocks(transport, addr: str) -> dict:
+    """A worker's own block from its announce reply (None while it has
+    not allocated)."""
+    reply = transport.call(addr, "__announce__", {"blocks": []}, timeout=5.0)
+    for b in (reply or {}).get("blocks", []):
+        if b["node_id"] == addr:
+            return b
+    return {}
+
+
+def swarm_processes(torch, dev, card, cfg, params, ckpt, mix, sampled,
+                    in_process):
+    """Part (b): two ``python -m parallax_tpu_torch join`` processes
+    (layers 0-14 and 14-28 of the checkpoint, each on the port 0 gave it,
+    the tail with the head as its --peers, --advertise-addr 127.0.0.1)
+    and ``chat-host --head`` in a third; the
+    http_serve mix from 8 client threads on the fresh processes, then a
+    mix of the same shape with other text on the warm ones. Every reply
+    200 with 32 completion tokens; the greedy rows' ids, read back over the head's
+    chat RPCs (the chat host's own path, minus HTTP), equal part (a)'s or
+    part only where the plain path's gap check allows; no step loop error
+    and no traceback in any log; every process exits 0 within 30 s of
+    SIGTERM, and the workers' exit summaries show no graph captured."""
+    import os
+    import re
+    import threading
+
+    from parallax_tpu_torch.backend.run import SwarmClient
+    from parallax_tpu_torch.p2p.transport import TcpTransport
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo}
+
+    def join_cmd(i: int, peers: list[str]) -> list[str]:
+        s, e = SWARM_BOUNDS[i]
+        return [sys.executable, "-m", "parallax_tpu_torch", "join",
+                "--model-path", ckpt, "--start-layer", str(s),
+                "--end-layer", str(e),
+                *(["--peers", ",".join(peers)] if peers else []),
+                "--advertise-addr", "127.0.0.1", "--port", "0",
+                "--device", str(dev)]
+
+    names = ("join_0_14", "join_14_28", "chat_host")
+    paths = [os.path.join(ckpt, f"{nm}.log") for nm in names]
+    logs = [open(path, "w+") for path in paths]
+    probe = TcpTransport("", "127.0.0.1")
+    procs, exits, failed = [], {}, True
+    try:
+        probe.start()
+        probe.peer_id = probe.address
+        t_spawn = time.monotonic()
+        deadline = t_spawn + SWARM_TIMEOUT_S
+
+        def spawn(cmd: list[str], i: int) -> None:
+            procs.append(subprocess.Popen(cmd, cwd=repo, env=env,
+                                          stdout=logs[i],
+                                          stderr=subprocess.STDOUT))
+
+        # Every process binds port 0 and logs the address it got: the head
+        # first, then the tail with the head as its peer (the head learns
+        # the tail from its announcements) and the chat host in front of
+        # the head.
+        spawn(join_cmd(0, []), 0)
+        addrs = [_logged(paths[0], r"worker (\S+) serving layers",
+                         procs[0], deadline)]
+        spawn(join_cmd(1, addrs), 1)
+        spawn([sys.executable, "-m", "parallax_tpu_torch", "chat-host",
+               "--head", addrs[0], "--model-path", ckpt, "--host",
+               "127.0.0.1", "--port", "0"], 2)
+        addrs.append(_logged(paths[1], r"worker (\S+) serving layers",
+                             procs[1], deadline))
+        host_port = int(_logged(paths[2], r"chat host on :(\d+)", procs[2],
+                                deadline))
+        # Each worker's own readiness, then the head's route.
+        ready, route_s = {}, None
+        while route_s is None:
+            if time.monotonic() > deadline or any(
+                    p.poll() is not None for p in procs):
+                raise AssertionError("swarm_serve (b): the swarm did not "
+                                     "come up")
+            for a in addrs:
+                if a not in ready:
+                    try:
+                        if _ready_blocks(probe, a).get("ready"):
+                            ready[a] = time.monotonic() - t_spawn
+                    except Exception:
+                        pass
+            if len(ready) == 2 and probe.call(
+                    addrs[0], "chat_ready", None, timeout=5.0).get("ready"):
+                route_s = time.monotonic() - t_spawn
+            else:
+                time.sleep(0.1)
+        # The chat host's HTTP socket.
+        while True:
+            try:
+                import http.client
+
+                conn = http.client.HTTPConnection("127.0.0.1", host_port,
+                                                  timeout=5)
+                conn.request("GET", "/health")
+                resp = conn.getresponse()
+                resp.read()
+                conn.close()
+                if resp.status == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline or procs[2].poll() is not None:
+                raise AssertionError("swarm_serve (b): no chat host")
+            time.sleep(0.1)
+        host_s = time.monotonic() - t_spawn
+
+        def send(m):
+            """The mix from 8 client threads (r7 once r0 is answered)."""
+            outs = [{} for _ in m]
+            retry_until = time.monotonic() + 60.0
+            clients = [threading.Thread(target=_http_client_retry_503,
+                                        daemon=True,
+                                        args=(host_port, path, body, out,
+                                              retry_until))
+                       for (path, body), out in zip(m, outs)]
+            for c in clients[:-1]:
+                c.start()
+            clients[0].join(HTTP_TIMEOUT_S)
+            clients[-1].start()
+            for c in clients:
+                c.join(HTTP_TIMEOUT_S)
+            if any(c.is_alive() for c in clients):
+                raise AssertionError("swarm_serve (b): a client is still "
+                                     "waiting")
+            return outs
+
+        # The mix on the fresh processes, then the same shape of mix with
+        # other text (no prefix shared with the first) on warm ones.
+        outs = send(mix)
+        warm_mix = _text_mix(2025)[0]
+        warm_outs = send(warm_mix)
+        # The greedy rows once more through the head's chat RPCs, to read
+        # their ids.
+        client = SwarmClient(probe, default_head=addrs[0])
+        greedy = [i for i in range(len(mix)) if i not in sampled]
+        again = {i: Request(f"ids-{i}",
+                            prompt_ids=list(in_process[i].prompt_ids),
+                            sampling_params=SamplingParams(
+                                temperature=0.0, max_new_tokens=32,
+                                ignore_eos=True))
+                 for i in greedy}
+        events = [client.submit(r) for r in again.values()]
+        for ev in events:
+            if not ev.wait(HTTP_TIMEOUT_S):
+                raise AssertionError("swarm_serve (b): an RPC request "
+                                     "hung")
+        # SIGTERM: every process exits 0 within SWARM_EXIT_S.
+        t_term = time.monotonic()
+        for p in procs:
+            p.send_signal(15)
+        for nm, p in zip(names, procs):
+            try:
+                exits[nm] = p.wait(SWARM_EXIT_S)
+            except subprocess.TimeoutExpired:
+                exits[nm] = "timeout"
+        exit_s = time.monotonic() - t_term
+    except BaseException:
+        failed = True
+        raise
+    else:
+        failed = False
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        probe.stop()
+        texts = []
+        for log in logs:
+            log.seek(0)
+            texts.append(log.read())
+            log.close()
+        if failed:
+            _emit_log_tails(names, procs, texts)
+    try:
+        _swarm_http_checks(names, texts, exits, outs + warm_outs,
+                           mix + warm_mix, again)
+    except AssertionError:
+        _emit_log_tails(names, procs, texts)
+        raise
+
+    greedy_reqs = [again[i] for i in greedy]
+    ref = [in_process[i] for i in greedy]
+    model_ref = create_plain_model(cfg)
+    worst, *_ = greedy_check(torch, model_ref, params, greedy_reqs, {}, dev,
+                             tol=GREEDY_TOL)
+    del model_ref
+    # The workers' exit lines: forward steps, no graph captured, and the
+    # bytes each link carried.
+    worker_dispatch, links = [], {}
+    for nm, text in zip(names[:2], texts[:2]):
+        m = re.search(r"kernel dispatch: (\{.*\})", text)
+        t = re.search(r"transport: (\{.*\}|null)", text)
+        if m is None or t is None:
+            raise AssertionError(f"swarm_serve (b) {nm}: no exit summary")
+        summary = json.loads(m.group(1))
+        if summary.get("graphs", {}).get("captured", 0):
+            raise AssertionError(f"swarm_serve (b) {nm}: graphs {summary}")
+        decode, prefill = forward_steps(summary)
+        worker_dispatch.append({"worker": nm, "impl": summary["impl"],
+                                "decode_steps": decode,
+                                "prefill_steps": prefill,
+                                "graphs_captured": 0})
+        links[nm] = json.loads(t.group(1))
+    FIGURES["swarm_http"] = _swarm_http_figures(outs, mix)
+    FIGURES["swarm_http_warm"] = _swarm_http_figures(warm_outs, warm_mix)
+    emit({"phase": "swarm_serve", "part": "b_processes",
+          "processes": list(names), "requests": len(outs) + len(warm_outs),
+          "status": "16 x 200", "retries_after_503": [
+              o["retries"] for o in outs + warm_outs],
+          "exits": exits,
+          "exit_after_sigterm_s": exit_s,
+          "spawn_to_worker_ready_s": [ready[a] for a in addrs],
+          "spawn_to_route_ready_s": route_s,
+          "spawn_to_chat_host_s": host_s,
+          "greedy_rows_via_rpc": len(greedy_reqs),
+          "greedy_tokens_identical_to_part_a": _common_tokens(greedy_reqs,
+                                                              ref),
+          "greedy_tokens": 32 * len(greedy_reqs),
+          "greedy_vs_plain": "pass", "largest_logit_gap": worst,
+          "tolerance": GREEDY_TOL,
+          "cold": FIGURES["swarm_http"],
+          "warm": FIGURES["swarm_http_warm"],
+          "links": links, "worker_dispatch": worker_dispatch,
+          "card": card})
+
+
+def phase_swarm_serve(torch, dev, card, cfg, params, ckpt, mix, sampled,
+                      served) -> None:
+    """The scheduler-less swarm on Qwen2.5-7B at full width, 14 + 14
+    layers: part (a) in this process, part (b) as processes through the
+    CLI; then both beside the in-process pipeline and the HTTP figures."""
+    free_device_memory(torch)
+    in_process = swarm_in_process(torch, dev, card, cfg, params, served,
+                                  sampled)
+    free_device_memory(torch)
+    swarm_processes(torch, dev, card, cfg, params, ckpt, mix, sampled,
+                    in_process)
+    emit({"phase": "swarm_serve", "compare": {
+        k: FIGURES.get(k) for k in ("pipeline", "http", "swarm_in_process",
+                                    "swarm_http", "swarm_http_warm")},
+        "card": card})
 
 
 def phase_moe_serve(torch, dev, card: str, want) -> dict:
@@ -3266,10 +3850,11 @@ def run_dense(torch, dev, card: str, want) -> dict:
                            sampled)
         if want("profile"):
             phase_profile(torch, dev, cfg, params)
-    if want("http_serve"):
+    if want("http_serve") or want("swarm_serve"):
         tree = [params]
         del params
-        phase_http_serve(torch, dev, card, cfg, tree)
+        phase_http_serve(torch, dev, card, cfg, tree,
+                         swarm=want("swarm_serve"))
     return paths
 
 
@@ -3296,7 +3881,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="",
                     help="comma-separated phases (build,kernels,serve,"
-                         "pipeline,profile,http_serve,moe_serve,moe_profile,"
+                         "pipeline,profile,http_serve,swarm_serve (runs "
+                         "http_serve too),moe_serve,moe_profile,"
                          "mla_serve,mla_profile,dsa_serve,dsa_profile,"
                          "gptoss_serve,gptoss_profile); prints no result "
                          "line")
@@ -3336,7 +3922,8 @@ def main() -> int:
     kernels = phase_kernels(torch, dev) if want("kernels") else None
     free_device_memory(torch)
     paths = {}
-    if any(want(p) for p in ("serve", "pipeline", "profile", "http_serve")):
+    if any(want(p) for p in ("serve", "pipeline", "profile", "http_serve",
+                             "swarm_serve")):
         paths.update(run_dense(torch, dev, card, want))
     # Qwen2.5-7B's tensors (about 15 GB) are gone before the MoE model's
     # 61 GB are made.

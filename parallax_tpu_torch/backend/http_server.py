@@ -47,17 +47,17 @@ UNPORTED_ENDPOINTS = {
     "/cluster/status": 9,
     "/cluster/status_json": 9,
     "/profile/": 9,
-    "/scheduler/init": 4,
+    "/scheduler/init": "4b",
     "/weight/refit": 12,
-    "/": 4,          # the web UI: setup / join / cluster / chat pages
-    "/ui": 4,
-    "/ui/": 4,
-    "/chat": 4,
+    "/": "4b",       # the web UI: setup / join / cluster / chat pages
+    "/ui": "4b",
+    "/ui/": "4b",
+    "/chat": "4b",
 }
 _POLL_DEADLINE_S = 600.0
 
 
-def _unported_item(path: str) -> int | None:
+def _unported_item(path: str) -> int | str | None:
     item = UNPORTED_ENDPOINTS.get(path)
     if item is not None:
         return item
@@ -301,19 +301,24 @@ class OpenAIFrontend:
     ``submit_fn(request) -> threading.Event`` hands a request to the
     backend (the event is set when it finishes) and raises ValueError (400),
     NotImplementedError (501: a feature the engine refuses) or RuntimeError
-    (429: queue full). ``stop_fn(rid)`` asks the backend to gracefully
-    finish a request early (stop-string match, client disconnect)."""
+    (429: queue full). ``route_fn(rid) -> list[str] | None``, where given,
+    picks the request's routing table first (None: 503, no serviceable
+    pipeline; a swarm's chat host probes its head there). ``stop_fn(rid)``
+    asks the backend to gracefully finish a request early (stop-string
+    match, client disconnect)."""
 
     def __init__(
         self,
         tokenizer,
         submit_fn,
+        route_fn=None,
         model_name: str = "parallax-tpu",
         stream_poll_s: float = 0.02,
         stop_fn=None,
     ):
         self.tokenizer = tokenizer
         self.submit_fn = submit_fn
+        self.route_fn = route_fn
         self.stop_fn = stop_fn
         self.model_name = model_name
         self.stream_poll_s = stream_poll_s
@@ -449,15 +454,22 @@ class OpenAIFrontend:
             raise _Reply(400, "n must be between 1 and 8")
         if n_choices > 1 and body.get("stream"):
             raise _Reply(400, "streaming with n > 1 is not supported")
+        routing_table: list[str] = []
+        if self.route_fn is not None:
+            path = self.route_fn(rid)
+            if path is None:
+                raise _Reply(503, "no serviceable pipeline")
+            routing_table = list(path)
         if n_choices > 1:
-            self._generate_n(h, rid, body, prompt_ids, sampling_params, chat,
-                             n_choices)
+            self._generate_n(h, rid, body, prompt_ids, sampling_params,
+                             routing_table, chat, n_choices)
             return
 
         req = Request(
             request_id=rid,
             prompt_ids=list(prompt_ids),
             sampling_params=sampling_params,
+            routing_table=routing_table,
             eos_token_ids=tuple(self.tokenizer.eos_token_ids),
             lora_id=self._request_lora(body),
         )
@@ -497,8 +509,8 @@ class OpenAIFrontend:
         except RuntimeError as e:
             raise _Reply(429, str(e)) from e
 
-    def _generate_n(self, h, rid, body, prompt_ids, sampling_params, chat,
-                    n_choices) -> None:
+    def _generate_n(self, h, rid, body, prompt_ids, sampling_params,
+                    routing_table, chat, n_choices) -> None:
         """OpenAI ``n`` > 1: n independent generations merged into one
         choices array. Seeded requests get seed+i per choice so the choices
         differ; greedy requests will legitimately all match."""
@@ -512,6 +524,7 @@ class OpenAIFrontend:
                     request_id=f"{rid}-{i}",
                     prompt_ids=list(prompt_ids),
                     sampling_params=sp,
+                    routing_table=list(routing_table),
                     eos_token_ids=tuple(self.tokenizer.eos_token_ids),
                     lora_id=self._request_lora(body),
                 )

@@ -1,13 +1,19 @@
 """parallax-tpu-torch command line interface (port of
-``parallax_tpu/cli.py``'s ``serve`` and ``generate``).
+``parallax_tpu/cli.py``'s ``serve``, ``generate``, ``join`` and
+``chat-host``).
 
     python -m parallax_tpu_torch serve --model-path DIR [--port 8000]
     python -m parallax_tpu_torch generate --model-path DIR --prompt "Hi"
+    python -m parallax_tpu_torch join --model-path DIR --start-layer 0 \
+        --end-layer 14 --peers HOST:PORT [--port 7000]
+    python -m parallax_tpu_torch chat-host --head HOST:PORT [--port 8000]
 
 The flags keep the JAX package's names and defaults, plus ``--device``
 (default ``cuda:0``; ``--device cpu`` runs the plain PyTorch path). A flag
 whose feature the port does not run yet exits with code 2 and names the
 ROADMAP queue 1 item that ports it; so do the JAX CLI's other subcommands.
+``join`` runs the scheduler-less worker only: ``--scheduler-addr`` and the
+flags that need a scheduler name item 4b.
 """
 
 from __future__ import annotations
@@ -17,8 +23,8 @@ import os
 import sys
 
 # The JAX CLI's subcommands that wait for later slices -> ROADMAP item.
-UNPORTED_COMMANDS = {"run": 4, "join": 4, "chat": 4, "chat-host": 4,
-                     "bench": 5, "lora-merge": 11}
+UNPORTED_COMMANDS = {"run": "4b", "chat": "4b", "bench": 5,
+                     "lora-merge": 11}
 
 
 def _add_engine_flags(p: argparse.ArgumentParser) -> None:
@@ -105,17 +111,140 @@ def build_parser() -> argparse.ArgumentParser:
     gen.add_argument("--top-k", type=int, default=-1)
     gen.add_argument("--top-p", type=float, default=1.0)
 
+    join = sub.add_parser("join", help="join a swarm as a worker")
+    _add_join_flags(join)
+
+    chost = sub.add_parser(
+        "chat-host",
+        help="OpenAI API host on a non-worker machine, proxying to a "
+             "scheduler-less swarm's head worker over RPC")
+    chost.add_argument("--head", required=True,
+                       help="head worker transport address (host:port)")
+    chost.add_argument("--port", type=int, default=8000)
+    chost.add_argument("--host", default="0.0.0.0")
+    chost.add_argument("--model-path", default=None,
+                       help="checkpoint dir for the tokenizer")
+    chost.add_argument("--model-name", default=None)
+
     for name in UNPORTED_COMMANDS:
         sub.add_parser(name, help="not ported yet", add_help=False)
     return p
 
 
-def unported_flags(args) -> list[tuple[str, int]]:
+def _add_join_flags(join: argparse.ArgumentParser) -> None:
+    """The JAX ``join``'s flags, plus ``--device``."""
+    join.add_argument("--scheduler-addr", default=None,
+                      help="scheduler RPC address (not ported yet: omit it "
+                           "for scheduler-less mode, which needs --peers "
+                           "and --start-layer / --end-layer)")
+    join.add_argument("--peers", default=None,
+                      help="comma-separated worker addresses to gossip "
+                           "block announcements with")
+    join.add_argument("--scheduler-standby", default=None)
+    join.add_argument("--start-layer", type=int, default=None,
+                      help="this worker's first layer; blocks chain only "
+                           "at EXACT boundaries: every worker's end layer "
+                           "must equal the next worker's start layer")
+    join.add_argument("--end-layer", type=int, default=None,
+                      help="one past the last layer")
+    join.add_argument("--model-path", default=None)
+    join.add_argument("--device", default="cuda:0",
+                      help="torch device to run on (default cuda:0; 'cpu' "
+                           "runs the plain PyTorch path)")
+    join.add_argument("--port", type=int, default=0)
+    join.add_argument("--refit-cache-dir", default=None)
+    join.add_argument("--advertise-addr", default=None,
+                      help="reachable host/IP peers dial for pp-forwards "
+                           "(default: the host's routed address; pass "
+                           "127.0.0.1 for a swarm on one host)")
+    join.add_argument("--relay", action="store_true")
+    join.add_argument("--relay-token", default=None)
+    join.add_argument("--role", default=None,
+                      choices=["prefill", "decode", "mixed"])
+    join.add_argument("--kv-transfer-chunk-bytes", type=int, default=None)
+    join.add_argument("--lora-adapters", default=None)
+    join.add_argument("--sp-size", type=int, default=0)
+    join.add_argument("--host-cache-bytes", type=int, default=None,
+                      help="host-DRAM KV tier budget (not ported yet: the "
+                           "tier is off, where the JAX join sizes one from "
+                           "the host's RAM)")
+    join.add_argument("--sp-threshold", type=int, default=2048)
+    join.add_argument("--wire-dtype", default=None,
+                      choices=["bfloat16", "bf16", "fp8", "float8_e4m3fn"],
+                      help="activation wire format of this worker's "
+                           "outbound links (default: native precision, "
+                           "bit-identical streams); negotiated per link")
+    join.add_argument("--trace-sample-rate", type=float, default=0.0)
+    join.add_argument("--slow-request-ms", type=float, default=30000.0)
+    join.add_argument("--decode-lookahead", type=int, default=None,
+                      help="decode tokens per host visit when this worker "
+                           "serves a full single stage (default: adaptive "
+                           "up to 8; 1 = off)")
+    join.add_argument("--speculative-tokens", type=int, default=0)
+    join.add_argument("--speculative-ngram", type=int, default=3)
+    join.add_argument("--decode-pipeline", type=int, default=1)
+    join.add_argument("--decode-fused", action=argparse.BooleanOptionalAction,
+                      default=None,
+                      help="fused decode kernels (default: on on a CUDA "
+                           "device)")
+    join.add_argument("--prefill-fused",
+                      action=argparse.BooleanOptionalAction, default=None,
+                      help="fused prefill kernels (default: on on a CUDA "
+                           "device)")
+    join.add_argument("--prefill-chunk-skip",
+                      action=argparse.BooleanOptionalAction, default=True)
+    join.add_argument("--compilation-cache-dir", default=None)
+    join.add_argument("--watchdog", action="store_true")
+    join.add_argument("--watchdog-degraded-s", type=float, default=5.0)
+    join.add_argument("--watchdog-stalled-s", type=float, default=15.0)
+    join.add_argument("--qos", default=None)
+    join.add_argument("--lora-max-adapters", type=int, default=0)
+
+
+def unported_join_flags(args) -> list[tuple[str, int | str]]:
+    """``join``'s flags whose feature the port does not run yet, each with
+    the ROADMAP queue 1 item that ports it."""
+    refused = []
+    for on, flag, item in (
+        (args.scheduler_addr is not None, "--scheduler-addr", "4b"),
+        (args.scheduler_standby is not None, "--scheduler-standby", "4b"),
+        (args.relay, "--relay", "4b"),
+        (args.relay_token is not None, "--relay-token", "4b"),
+        (args.role is not None, f"--role {args.role}", "4b"),
+        (args.model_path is not None and not os.path.isdir(args.model_path),
+         f"--model-path {args.model_path} (not a local directory: a hub "
+         "download)", 12),
+        (args.refit_cache_dir is not None, "--refit-cache-dir", 12),
+        (args.compilation_cache_dir is not None, "--compilation-cache-dir",
+         12),
+        (args.kv_transfer_chunk_bytes is not None,
+         "--kv-transfer-chunk-bytes", 6),
+        (bool(args.host_cache_bytes), "--host-cache-bytes", 6),
+        (args.lora_adapters is not None, "--lora-adapters", 11),
+        (args.lora_max_adapters > 0, "--lora-max-adapters", 11),
+        (args.wire_dtype in ("fp8", "float8_e4m3fn"),
+         f"--wire-dtype {args.wire_dtype}", 11),
+        (args.sp_size > 1, f"--sp-size {args.sp_size}", 10),
+        (args.speculative_tokens > 0, "--speculative-tokens", 7),
+        (args.trace_sample_rate > 0, "--trace-sample-rate", 9),
+        (args.watchdog, "--watchdog", 9),
+        (args.qos is not None, "--qos", 9),
+    ):
+        if on:
+            refused.append((flag, item))
+    return refused
+
+
+def unported_flags(args) -> list[tuple[str, int | str]]:
     """The flags of ``args`` whose feature the port does not run yet, each
     with the ROADMAP queue 1 item that ports it."""
+    if args.command == "join":
+        return unported_join_flags(args)
+    if args.command == "chat-host":
+        return []
     refused = []
 
-    def refuse(on: bool, flag: str, item: int) -> None:
+    def refuse(on: bool, flag: str, item: int | str) -> None:
         if on:
             refused.append((flag, item))
 
@@ -137,7 +266,7 @@ def unported_flags(args) -> list[tuple[str, int]]:
     refuse(args.draft_model_path is not None, "--draft-model-path", 7)
     refuse(args.speculative_tokens > 0, "--speculative-tokens", 7)
     refuse(bool(args.host_cache_bytes), "--host-cache-bytes", 6)
-    refuse(args.wire_dtype is not None, "--wire-dtype", 4)
+    refuse(args.wire_dtype is not None, "--wire-dtype", "4b")
     refuse(args.trace_sample_rate > 0, "--trace-sample-rate", 9)
     refuse(args.watchdog, "--watchdog", 9)
     refuse(args.slo is not None, "--slo", 9)
@@ -149,7 +278,7 @@ def unported_flags(args) -> list[tuple[str, int]]:
         if (args.start_layer or 0, args.end_layer or n) != (0, n):
             refused.append((f"--start-layer {args.start_layer} "
                             f"--end-layer {args.end_layer} (a partial "
-                            f"stage of {n} layers)", 4))
+                            f"stage of {n} layers)", "4b"))
     return refused
 
 
@@ -174,6 +303,14 @@ def main(argv: list[str] | None = None) -> int:
         from parallax_tpu_torch.backend.serve import serve_main
 
         return serve_main(args)
+    if args.command == "join":
+        from parallax_tpu_torch.p2p.join import join_main
+
+        return join_main(args)
+    if args.command == "chat-host":
+        from parallax_tpu_torch.backend.run import chat_host_main
+
+        return chat_host_main(args)
     from parallax_tpu_torch.backend.generate import generate_main
 
     return generate_main(args)

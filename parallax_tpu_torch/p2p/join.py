@@ -1,0 +1,112 @@
+"""``parallax-tpu-torch join`` entry: run a scheduler-less worker node until
+SIGINT / SIGTERM (port of ``parallax_tpu/p2p/join.py``).
+
+    python -m parallax_tpu_torch join --model-path DIR --start-layer 0 \\
+        --end-layer 14 --peers 10.0.0.2:7001 --port 7000
+
+The worker serves layers ``[--start-layer, --end-layer)`` of the
+checkpoint on ``--device`` (default ``cuda:0``) and gossips its block
+with ``--peers``; the one holding layer 0 routes requests itself. Its KV
+pages come from ``EngineConfig.num_pages``, as in the JAX join, so two
+workers share one card. The host KV tier is off (ROADMAP queue 1 item 6);
+the JAX join sizes one from the host's RAM on an accelerator.
+"""
+
+from __future__ import annotations
+
+import json
+import signal
+import socket
+import threading
+
+from parallax_tpu_torch.utils import get_logger
+
+logger = get_logger(__name__)
+
+
+def _default_route_ip() -> str:
+    """Best-effort externally reachable IP (the UDP-connect trick: no
+    packet is sent)."""
+    try:
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        s.connect(("10.255.255.255", 1))
+        ip = s.getsockname()[0]
+        s.close()
+        return ip
+    except Exception:
+        return "127.0.0.1"
+
+
+def build_worker(args):
+    """The worker node ``args`` describe, on a started transport (not yet
+    started itself)."""
+    from parallax_tpu_torch.config import load_config
+    from parallax_tpu_torch.models.loader import load_stage_params
+    from parallax_tpu_torch.p2p.node import WorkerNode
+    from parallax_tpu_torch.p2p.transport import TcpTransport
+    from parallax_tpu_torch.runtime.engine import EngineConfig
+    from parallax_tpu_torch.utils.hw import resolve_device
+
+    if args.start_layer is None or args.end_layer is None:
+        raise SystemExit(
+            "scheduler-less mode needs --start-layer/--end-layer "
+            "(and --peers unless one host serves every layer)"
+        )
+    if not args.model_path:
+        raise SystemExit("--model-path is required (checkpoint directory)")
+    device = resolve_device(args.device)
+    model_config = load_config(args.model_path)
+    transport = TcpTransport("", "0.0.0.0", args.port)
+    transport.start()
+    # The node id doubles as the dial address peers use for pp-forwards:
+    # it must be reachable, never the 0.0.0.0 bind address.
+    advertise_host = args.advertise_addr or _default_route_ip()
+    transport.peer_id = f"{advertise_host}:{transport.port}"
+    return WorkerNode(
+        transport=transport,
+        scheduler_peer=None,
+        model_config=model_config,
+        engine_config=EngineConfig(
+            # None/0 = adaptive multi-step decode (engine default; the
+            # window stays inert on a stage of a pipeline).
+            decode_lookahead=args.decode_lookahead or None,
+            decode_fused=args.decode_fused,
+            prefill_fused=args.prefill_fused,
+            prefill_chunk_skip=args.prefill_chunk_skip,
+            decode_pipeline=args.decode_pipeline or 1,
+            wire_dtype=args.wire_dtype,
+            slow_request_ms=args.slow_request_ms,
+        ),
+        load_params=lambda model: load_stage_params(
+            model, args.model_path, device=device),
+        static_peers=[
+            p.strip() for p in (args.peers or "").split(",") if p.strip()
+        ],
+        layers=(args.start_layer, args.end_layer),
+        device=device,
+    )
+
+
+def join_main(args, on_start=None) -> int:
+    """Run the worker until SIGINT / SIGTERM, then stop it, log its
+    engine's ``kernel_dispatch_summary()`` and its ``transport_stats()``
+    as JSON lines and return 0.
+    ``on_start(node)`` runs once the node started (its engine builds on
+    the step thread)."""
+    node = build_worker(args)
+    stop = threading.Event()
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    node.start()
+    logger.info("worker %s serving layers [%d, %d) scheduler-less, peers %s",
+                node.node_id, args.start_layer, args.end_layer,
+                node.static_peers)
+    if on_start is not None:
+        on_start(node)
+    stop.wait()
+    node.stop()
+    if node.engine is not None:
+        logger.info("kernel dispatch: %s",
+                    json.dumps(node.engine.kernel_dispatch_summary()))
+    logger.info("transport: %s", json.dumps(node.transport_stats()))
+    return 0

@@ -1,0 +1,886 @@
+"""WorkerNode: the per-host serving daemon of a scheduler-less swarm (port
+of ``parallax_tpu/p2p/node.py``).
+
+A worker self-assigns its layer range, gossips block announcements over
+its static peers, and — when it hosts layer 0 — computes its own
+fewest-hops routing table from the announcements (reference DHT announce +
+dijkstra routing, ``p2p/server.py:569-626``). One step thread owns the
+engine; an inbox queue decouples the transport's handler threads from it.
+Worker node ids are their transport addresses (``host:port``).
+
+Only the step thread touches CUDA: the engine is built there, and its
+``host_hidden`` mode hands each step's forwarded hidden rows over as CPU
+tensors (one pinned D2H copy a step, waited on there). The sender's
+workers, the gossip pool and the transport's threads serialize and
+deserialize CPU tensors only; ``_drain_inbox`` moves inbound rows to the
+device through ``submit_intermediate``. (One CUDA call from another
+thread breaks a global-mode graph capture.)
+
+Not ported yet, each refused by name with its ROADMAP queue 1 item: a
+scheduler (``scheduler_peer``, standbys, the relay, the model switch and
+roles: item 4b), live migration and the KV handoff (item 6), refit (item
+12), the watchdog, profiling, traces, metrics and goodput (item 9), LoRA
+(item 11), speculation (item 7), tensor parallelism (item 10) and the
+protobuf frames of the reference's nodes (``p2p/interop.py``, item 4b).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+import uuid
+from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import wait as _fwait
+
+import torch
+
+from parallax_tpu_torch.analysis.sanitizer import make_lock
+from parallax_tpu_torch.config import ModelConfig, resolve_wire_dtype
+from parallax_tpu_torch.models import create_stage_model
+from parallax_tpu_torch.models.base import StageModel
+from parallax_tpu_torch.p2p import proto
+from parallax_tpu_torch.p2p.transport import (
+    NO_HANDLER_MARK,
+    AsyncSender,
+    Transport,
+    make_ping_handler,
+)
+from parallax_tpu_torch.runtime.engine import (
+    EngineConfig,
+    StageEngine,
+    drive_step,
+)
+from parallax_tpu_torch.runtime.request import (
+    IntermediateRequest,
+    Request,
+    SamplingParams,
+)
+from parallax_tpu_torch.utils import get_logger
+
+logger = get_logger(__name__)
+
+
+def _unported(what: str, item) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: not ported yet to parallax_tpu_torch (ROADMAP queue 1 "
+        f"item {item})")
+
+
+def _refuse_wire_request(d: dict) -> None:
+    """FORWARD packet fields whose features the port does not run yet."""
+    if d.get("spec_len") or d.get("spec_accepted") is not None:
+        raise _unported("pipeline speculative decoding packets", 7)
+    if d.get("lora_id") is not None:
+        raise _unported("LoRA packets", 11)
+    if d.get("trace"):
+        raise _unported("traced packets", 9)
+    if d.get("qos") is not None:
+        raise _unported("QoS-tagged packets", 9)
+
+
+class WorkerNode:
+    """Serves its layer range in a scheduler-less swarm, forwards
+    activations to the next hop and, at the head, answers chat RPCs."""
+
+    def __init__(
+        self,
+        transport: Transport,
+        scheduler_peer: str | None,
+        model_config: ModelConfig,
+        engine_config: EngineConfig | None = None,
+        load_params=None,          # callable (StageModel) -> params
+        heartbeat_interval_s: float = 2.0,
+        static_peers: list[str] | None = None,
+        layers: tuple[int, int] | None = None,
+        device=None,
+    ):
+        """``scheduler_peer`` must be None (SCHEDULER-LESS mode, the only
+        one ported): the worker self-assigns ``layers``. ``device`` is the
+        engine's (None = ``cuda:0``, ``"cpu"`` for the plain path). The
+        JAX worker's other
+        arguments (mesh, refit cache, LoRA, watchdog, role, standbys) wait
+        for their items; ``join`` refuses their flags by name."""
+        if scheduler_peer is not None:
+            raise _unported("a scheduler (scheduler_peer)", "4b")
+        if layers is None:
+            raise ValueError(
+                "scheduler-less mode requires explicit layers=(start, end)"
+            )
+        self.transport = transport
+        self.model_config = model_config
+        # Own copy: callers may share one EngineConfig across workers.
+        self.engine_config = dataclasses.replace(
+            engine_config or EngineConfig())
+        self.load_params = load_params or self._random_params
+        self.heartbeat_interval_s = heartbeat_interval_s
+        self.static_peers = list(static_peers or [])
+        self.device = device
+        self._self_layers = layers
+        # Boot epoch: travels in gossip announcements so peers can tell a
+        # restarted process (possibly a different build — different wire
+        # caps) from a continuing one.
+        self._epoch = uuid.uuid4().hex[:12]
+        # Gossip registry: node_id -> block announcement.
+        self._peer_blocks: dict[str, dict] = {}
+        self._peer_lock = make_lock("node.peers")
+        self._gossip_pool: ThreadPoolExecutor | None = None
+        self.peer_ttl_s = max(10.0, 5 * heartbeat_interval_s)
+
+        self.node_id = transport.peer_id
+        self.engine: StageEngine | None = None
+        self.start_layer = -1
+        self.end_layer = -1
+        self._inbox: queue.Queue = queue.Queue()
+        # Set by every _post(): the step thread parks on it when idle.
+        self._wake = threading.Event()
+        self._stop = threading.Event()
+        self._threads: list[threading.Thread] = []
+        # Head-node bookkeeping: finished requests awaiting pickup.
+        self._finished: queue.Queue[Request] = queue.Queue()
+        self._request_events: dict[str, threading.Event] = {}
+        # Async sender pipeline: serialization + socket latency leave the
+        # step thread (per-peer bounded in-order queues); overflow or send
+        # failure feeds the abort path.
+        self.sender = AsyncSender(transport, on_failure=self._on_send_failure)
+        # Fail fast on a bad wire dtype (and on the float8 mode).
+        want = resolve_wire_dtype(self.engine_config.wire_dtype,
+                                  model_config.dtype)
+        if want == "float8_e4m3fn":
+            raise _unported("the float8 wire mode", proto.FP8_ITEM)
+        # Negotiated wire dtype per link: peer -> (dtype | None,
+        # expires_at); None ships native frames. Writes that follow a slow
+        # probe go through _wire_lock plus the per-peer forget generation,
+        # so an invalidated decision is never resurrected by a probe.
+        self._wire_dtypes: dict[str, tuple[str | None, float]] = {}
+        self._wire_lock = make_lock("node.wire_caps")
+        self._wire_forget_gen: dict[str, int] = {}
+        self._wire_warned_native: set[str] = set()
+        # Per-source receive counters, bumped from transport threads.
+        self._rx_stats: dict[str, dict] = {}
+        self._rx_lock = make_lock("node.rx_stats")
+
+        transport.register(proto.FORWARD, self._on_forward)
+        transport.register(proto.ABORT, self._on_abort)
+        transport.register(proto.RELEASE, self._on_release)
+        transport.register("__announce__", self._on_announce)
+        transport.register(proto.CHAT_READY, self._on_chat_ready)
+        transport.register(proto.CHAT_SUBMIT, self._on_chat_submit)
+        transport.register(proto.CHAT_POLL, self._on_chat_poll)
+        transport.register(proto.CHAT_STOP, self._on_chat_stop)
+        transport.register(proto.WIRE_CAPS, self._on_wire_caps)
+        transport.register("__ping__", make_ping_handler())
+        for method, what, item in (
+            (proto.CHECKPOINT, "live migration", 6),
+            (proto.KV_TRANSFER, "the KV handoff", 6),
+            (proto.KV_RESULT, "the KV handoff", 6),
+            (proto.PROFILE, "profiling", 9),
+        ):
+            transport.register(method, self._refusal(what, item))
+        # Head-node chat requests by id (polled by the chat host).
+        self._chat_requests: dict[str, Request] = {}
+
+    @staticmethod
+    def _refusal(what: str, item):
+        def handler(_peer, _payload):
+            raise _unported(what, item)
+
+        return handler
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> None:
+        """Serve. The (slow) engine build happens on the step thread, so
+        announcements flow from the first moment."""
+        self.transport.start()
+        s, e = self._self_layers
+        logger.info("%s: scheduler-less, self-assigned layers [%d, %d)",
+                    self.node_id, s, e)
+        for fn in (self._announcer_loop, self._step_loop):
+            t = threading.Thread(target=fn, daemon=True, name=fn.__name__)
+            t.start()
+            self._threads.append(t)
+        self._post(("reload", {"start_layer": s, "end_layer": e}))
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=3.0)
+        self.sender.close()
+        if self._gossip_pool is not None:
+            self._gossip_pool.shutdown(wait=False, cancel_futures=True)
+        self.transport.stop()
+
+    # -- allocation ---------------------------------------------------------
+
+    def _apply_allocation(self, alloc: dict) -> None:
+        start, end = alloc["start_layer"], alloc["end_layer"]
+        if (start, end) == (self.start_layer, self.end_layer):
+            return
+        logger.info("%s: (re)loading layers [%d, %d)", self.node_id,
+                    start, end)
+        self._abort_in_flight("node reallocated")
+        self.start_layer, self.end_layer = start, end
+        t0 = time.monotonic()
+        model = create_stage_model(self.model_config, start, end)
+        params = self.load_params(model)
+        self.engine = StageEngine(
+            model, params, self.engine_config, device=self.device,
+            host_hidden=True,
+        )
+        logger.info("%s: layers [%d, %d) ready on %s (%.2f s to load and "
+                    "build)", self.node_id, start, end, self.engine.device,
+                    time.monotonic() - t0)
+
+    def _abort_in_flight(self, reason: str) -> None:
+        eng = self.engine
+        if eng is None:
+            return
+        sched = eng.scheduler
+        reqs = list(sched.running.values()) + list(sched.wait_queue.values())
+        for req in reqs:
+            if not req.status.is_finished:
+                req.abort(reason)
+            sched.release_request(req)
+            self._finish(req)
+        if reqs:
+            logger.warning("%s: aborted %d in-flight requests (%s)",
+                           self.node_id, len(reqs), reason)
+
+    def _random_params(self, model: StageModel):
+        """Seeded random weights, deterministic per layer range (the JAX
+        package draws them from ``jax.random.key`` with the same seed)."""
+        dtype = (torch.bfloat16 if self.engine_config.kv_dtype == "bfloat16"
+                 else torch.float32)
+        device = torch.device(self.device or "cuda:0")
+        gen = torch.Generator(device=device)
+        gen.manual_seed(model.start_layer * 1000 + model.end_layer)
+        return model.init_params(gen, dtype, device)
+
+    # -- announcer: scheduler-less gossip -------------------------------------
+
+    def _announcer_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self._gossip_beat()
+                self._reap_rx_stats()
+            except Exception as e:
+                logger.warning("gossip beat failed: %s", e)
+            self._stop.wait(self.heartbeat_interval_s)
+
+    def _fresh_peer_ids(self, now: float) -> set[str]:
+        """Peers whose announcements are within the TTL (THE liveness
+        definition — routes, gossip fan-out and the sweep agree on it)."""
+        with self._peer_lock:
+            return {
+                nid for nid, b in self._peer_blocks.items()
+                if now - b["t"] <= self.peer_ttl_s
+            }
+
+    def _known_blocks(self) -> list[dict]:
+        """Fresh announcements incl. our own, with ages so receivers can
+        order third-party info correctly."""
+        now = time.monotonic()
+        out = []
+        if self.start_layer >= 0:
+            out.append({
+                "node_id": self.node_id, "start": self.start_layer,
+                "end": self.end_layer, "ready": self.engine is not None,
+                "age_s": 0.0, "epoch": self._epoch,
+            })
+        with self._peer_lock:
+            for nid, b in self._peer_blocks.items():
+                age = now - b["t"]
+                if age <= self.peer_ttl_s:
+                    out.append({
+                        "node_id": nid, "start": b["start"], "end": b["end"],
+                        "ready": b["ready"], "age_s": age,
+                        "epoch": b.get("epoch"),
+                    })
+        return out
+
+    def _merge_blocks(self, blocks: list[dict],
+                      from_peer: str | None = None) -> None:
+        now = time.monotonic()
+        with self._peer_lock:
+            for b in blocks or []:
+                nid = b.get("node_id")
+                if not nid or nid == self.node_id:
+                    continue
+                t = now - float(b.get("age_s", 0.0))
+                prev = self._peer_blocks.get(nid)
+                if prev is None or t > prev["t"]:
+                    new_ep = b.get("epoch")
+                    prev_ep = prev.get("epoch") if prev else None
+                    # A peer's OWN announcement is authoritative for its
+                    # boot epoch (an absent one too); a third party's
+                    # missing epoch keeps the known one.
+                    direct = nid == from_peer
+                    epoch = new_ep if direct else (new_ep or prev_ep)
+                    changed = (
+                        epoch != prev_ep if direct
+                        else bool(new_ep) and new_ep != prev_ep
+                    )
+                    # A restarted peer may be another build: its
+                    # negotiated wire dtype is stale.
+                    if prev is not None and changed:
+                        self._forget_wire_dtype(nid)
+                    self._peer_blocks[nid] = {
+                        "start": int(b["start"]), "end": int(b["end"]),
+                        "ready": bool(b.get("ready")), "t": t,
+                        "epoch": epoch,
+                    }
+
+    def _gossip_beat(self) -> None:
+        """Announce our block to every static peer and every FRESH known
+        peer; merge what they know back (transitive discovery). Expired
+        entries are pruned, so dead peers are not re-dialed forever."""
+        blocks = self._known_blocks()
+        now = time.monotonic()
+        with self._peer_lock:
+            for nid, b in list(self._peer_blocks.items()):
+                if now - b["t"] > 3 * self.peer_ttl_s:
+                    del self._peer_blocks[nid]
+                    self._forget_wire_dtype(nid)
+        known = self._fresh_peer_ids(now)
+        timeout = min(5.0, max(1.0, self.heartbeat_interval_s))
+
+        def announce(peer: str) -> None:
+            try:
+                reply = self.transport.call(
+                    peer, "__announce__", {"blocks": blocks},
+                    timeout=timeout,
+                )
+            except Exception as e:
+                logger.debug("announce to %s failed: %s", peer, e)
+                return
+            if isinstance(reply, dict):
+                self._merge_blocks(reply.get("blocks"), from_peer=peer)
+
+        # Concurrent dials off a persistent pool: dead static peers must
+        # not serialize connect timeouts past the TTL.
+        if self._gossip_pool is None:
+            self._gossip_pool = ThreadPoolExecutor(
+                max_workers=min(16, 4 + len(self.static_peers)),
+                thread_name_prefix="gossip",
+            )
+        futures = [
+            self._gossip_pool.submit(announce, p)
+            for p in set(self.static_peers) | known if p != self.node_id
+        ]
+        _fwait(futures, timeout=timeout + 1.0)
+
+        # The gossip TTL doubles as the liveness sweep: requests routed
+        # through an expired peer are aborted on the step thread.
+        if self.engine is not None:
+            fresh = self._fresh_peer_ids(time.monotonic())
+            fresh.add(self.node_id)
+            self._post(("liveness", fresh))
+
+    def _on_announce(self, peer: str, payload: dict):
+        self._merge_blocks((payload or {}).get("blocks"), from_peer=peer)
+        return {"blocks": self._known_blocks()}
+
+    def _on_chat_ready(self, _peer: str, _payload):
+        """Readiness probe for chat hosts: can this head serve a request
+        submitted with an EMPTY routing table right now?"""
+        if self.engine is None:
+            return {"ready": False}
+        return {"ready": self.local_route() is not None}
+
+    def local_route(self) -> list[str] | None:
+        """Head-side routing table: fewest-hops chain of announced READY
+        blocks from our end layer to num_layers (dijkstra over layer
+        boundaries with unit edge cost)."""
+        if self.start_layer != 0 or self.engine is None:
+            return None
+        num_layers = self.model_config.num_hidden_layers
+        fresh = self._fresh_peer_ids(time.monotonic())
+        by_start: dict[int, list[tuple[str, int]]] = {}
+        with self._peer_lock:
+            for nid, b in self._peer_blocks.items():
+                if nid not in fresh or not b["ready"]:
+                    continue
+                by_start.setdefault(b["start"], []).append((nid, b["end"]))
+
+        best: dict[int, list[str] | None] = {num_layers: []}
+
+        def chain(boundary: int) -> list[str] | None:
+            if boundary in best:
+                return best[boundary]
+            best[boundary] = None          # cycle guard
+            result = None
+            for nid, end in by_start.get(boundary, []):
+                if end <= boundary:
+                    continue
+                tail = chain(end)
+                if tail is not None and (
+                    result is None or 1 + len(tail) < len(result)
+                ):
+                    result = [nid] + tail
+            best[boundary] = result
+            return result
+
+        tail = chain(self.end_layer)
+        if tail is None:
+            # The common operator error: every layer hosted, but block
+            # boundaries that do not meet exactly.
+            covered = set(range(self.start_layer, self.end_layer))
+            for start, blocks in by_start.items():
+                for _nid, end in blocks:
+                    covered.update(range(start, end))
+            if covered >= set(range(num_layers)):
+                logger.warning(
+                    "no route: every layer is hosted but block boundaries "
+                    "do not meet exactly (blocks chain only when one "
+                    "worker's --end-layer equals the next's --start-layer)"
+                )
+            return None
+        return [self.node_id] + tail
+
+    # -- wire-format negotiation + transport telemetry -----------------------
+
+    # A cached link decision is re-confirmed after this long; a transient
+    # probe failure is retried after WIRE_PROBE_RETRY_S (frames ship
+    # native meanwhile).
+    WIRE_DTYPE_REFRESH_S = 300.0
+    WIRE_PROBE_RETRY_S = 30.0
+
+    def _on_wire_caps(self, _peer: str, _payload):
+        """The tensor dtypes this build decodes."""
+        return {"formats": list(proto.WIRE_DTYPES)}
+
+    def _wire_dtype_for(self, peer: str) -> str | None:
+        """Negotiated wire dtype for one link (cached). Runs on the sender
+        worker, never the step thread."""
+        want = resolve_wire_dtype(
+            self.engine_config.wire_dtype, self.model_config.dtype
+        )
+        if want is None:
+            return None
+        now = time.monotonic()
+        entry = self._wire_dtypes.get(peer)
+        if entry is not None and now < entry[1]:
+            return entry[0]
+        if entry is not None:
+            # Expired: serve the stale decision and revalidate off this
+            # worker (a blocking probe would stall the queue behind it).
+            with self._wire_lock:
+                entry = self._wire_dtypes.get(peer)
+                if entry is None:
+                    stale = None     # forgotten: ship native, re-probe
+                else:
+                    stale = entry[0]
+                    self._wire_dtypes[peer] = (
+                        stale, now + self.WIRE_PROBE_RETRY_S
+                    )
+            if entry is not None:
+                threading.Thread(
+                    target=self._negotiate_wire_dtype,
+                    args=(peer, want, 10.0),
+                    daemon=True, name=f"wirecaps-{peer}",
+                ).start()
+                return stale
+        # First contact, or a forget raced in: a short blocking probe only
+        # in front of a near-empty queue.
+        if self.sender.queue_depth(peer) <= 8:
+            self._negotiate_wire_dtype(peer, want, timeout=1.0)
+            entry = self._wire_dtypes.get(peer)
+            return entry[0] if entry is not None else None
+        now = time.monotonic()
+        with self._wire_lock:
+            if self._wire_dtypes.get(peer) is None:
+                self._wire_dtypes[peer] = (None, now + self.WIRE_PROBE_RETRY_S)
+        threading.Thread(
+            target=self._negotiate_wire_dtype, args=(peer, want, 10.0),
+            daemon=True, name=f"wirecaps-{peer}",
+        ).start()
+        return None
+
+    def _negotiate_wire_dtype(self, peer: str, want: str,
+                              timeout: float) -> None:
+        """Blocking capability probe + cache update; the answer is dropped
+        if the peer was invalidated while the probe was in flight."""
+        gen = self._wire_forget_gen.get(peer, 0)
+
+        def log_native(msg, *args):
+            if peer not in self._wire_warned_native:
+                self._wire_warned_native.add(peer)
+                logger.warning(msg, *args)
+            else:
+                logger.debug(msg, *args)
+
+        try:
+            caps = self.transport.call(
+                peer, proto.WIRE_CAPS, None, timeout=timeout
+            )
+        except Exception as e:
+            if NO_HANDLER_MARK in str(e):
+                # Definitive: a build without WIRE_CAPS will not grow one.
+                log_native(
+                    "%s: peer %s has no wire_caps handler (older build?); "
+                    "sending native frames on this link", self.node_id, peer,
+                )
+                self._cache_wire_dtype(
+                    peer, None, self.WIRE_DTYPE_REFRESH_S, gen)
+                return
+            log_native(
+                "%s: wire_caps probe to %s failed (%s); sending native "
+                "frames, retrying in %ds",
+                self.node_id, peer, e, int(self.WIRE_PROBE_RETRY_S),
+            )
+            self._cache_wire_dtype(peer, None, self.WIRE_PROBE_RETRY_S, gen)
+            return
+        got = None
+        formats = set((caps or {}).get("formats") or ())
+        if want in formats:
+            got = want
+            self._wire_warned_native.discard(peer)
+        else:
+            log_native(
+                "%s: peer %s cannot decode wire dtype %s; sending native "
+                "frames on this link", self.node_id, peer, want,
+            )
+        self._cache_wire_dtype(peer, got, self.WIRE_DTYPE_REFRESH_S, gen)
+
+    def _cache_wire_dtype(self, peer: str, dtype: str | None, ttl: float,
+                          gen: int) -> None:
+        with self._wire_lock:
+            if self._wire_forget_gen.get(peer, 0) == gen:
+                self._wire_dtypes[peer] = (dtype, time.monotonic() + ttl)
+
+    def _forget_wire_dtype(self, peer: str) -> None:
+        """Drop a link's negotiated wire dtype (the peer failed, restarted
+        or departed); the next frame re-probes."""
+        with self._wire_lock:
+            self._wire_forget_gen[peer] = (
+                self._wire_forget_gen.get(peer, 0) + 1
+            )
+            self._wire_dtypes.pop(peer, None)
+
+    def _on_send_failure(self, peer: str, reason: str) -> None:
+        """Sender failure (queue overflow or dead peer): abort the
+        requests routed through the peer, on the step thread."""
+        logger.error("%s: async send to %s failed: %s",
+                     self.node_id, peer, reason)
+        self._forget_wire_dtype(peer)
+        self._post(("abort_path", peer))
+
+    def _count_rx(self, peer: str, wire_req: dict) -> None:
+        nbytes = proto.tensor_nbytes(wire_req.get("hidden_states"))
+        with self._rx_lock:
+            rx = self._rx_stats.setdefault(
+                peer or "?", {"frames_in": 0, "bytes_in": 0}
+            )
+            rx["frames_in"] += 1
+            rx["bytes_in"] += nbytes
+            rx["t"] = time.monotonic()
+
+    def _reap_rx_stats(self, idle_s: float | None = None) -> None:
+        """Drop inbound counters of peers that stopped sending (the
+        sender's idle horizon, so tx and rx rows retire together)."""
+        if idle_s is None:
+            idle_s = self.sender.idle_reap_s
+        now = time.monotonic()
+        with self._rx_lock:
+            for peer in [
+                p for p, rx in self._rx_stats.items()
+                if now - rx.get("t", now) > idle_s
+            ]:
+                del self._rx_stats[peer]
+
+    def transport_stats(self) -> dict | None:
+        """Per-link telemetry: the sender's outbound counters merged with
+        inbound frame/byte counts per source peer."""
+        links = self.sender.stats()
+        with self._rx_lock:
+            rx_snapshot = {p: dict(rx) for p, rx in self._rx_stats.items()}
+        for peer, rx in rx_snapshot.items():
+            rx.pop("t", None)
+            links.setdefault(peer, {}).update(rx)
+        return links or None
+
+    # -- transport handlers (any thread) -------------------------------------
+
+    def _on_forward(self, peer: str, payload):
+        if isinstance(payload, (bytes, bytearray)):
+            raise _unported("protobuf FORWARD frames (p2p/interop.py)", "4b")
+        for wire_req in payload["reqs"]:
+            _refuse_wire_request(wire_req)
+        for wire_req in payload["reqs"]:
+            self._count_rx(peer, wire_req)
+            self._post(("forward", proto.ireq_from_wire(wire_req)))
+        return "ok"
+
+    def _on_abort(self, _peer: str, payload):
+        if isinstance(payload, (bytes, bytearray)):
+            raise _unported("protobuf ABORT frames (p2p/interop.py)", "4b")
+        for rid in payload["rids"]:
+            self._post(("release", rid, True))
+        return "ok"
+
+    def _on_release(self, _peer: str, payload: dict):
+        for rid in payload["rids"]:
+            self._post(("release", rid, payload.get("abort", False)))
+        return "ok"
+
+    def _on_chat_submit(self, _peer: str, payload: dict):
+        if payload.get("replay_ids"):
+            raise _unported("chat_submit with replay_ids (client resume)", 6)
+        if any(payload.get(k) is not None
+               for k in ("qos_class", "deadline_ms", "tenant")):
+            raise _unported("chat_submit with QoS fields (qos_class, "
+                            "deadline_ms, tenant)", 9)
+        req = Request(
+            request_id=payload["rid"],
+            prompt_ids=list(payload["prompt_ids"]),
+            sampling_params=SamplingParams.from_dict(
+                payload.get("sampling_params") or {}
+            ),
+            routing_table=list(payload.get("routing_table") or []),
+            eos_token_ids=tuple(payload.get("eos_token_ids") or ()),
+            lora_id=payload.get("lora_id"),
+        )
+        self._chat_requests[req.request_id] = req
+        self.submit(req)
+        return "ok"
+
+    def _on_chat_stop(self, _peer: str, payload: dict):
+        """Stop-string early finish (FINISHED_STOP; the text stands)."""
+        self._post(("stop", payload["rid"]))
+        return "ok"
+
+    def _on_chat_poll(self, _peer: str, payload: dict):
+        req = self._chat_requests.get(payload["rid"])
+        if req is None:
+            return {"error": "unknown request"}
+        out = {
+            "output_ids": list(req.full_output_ids),
+            "output_logprobs": list(req.full_output_logprobs),
+            "status": req.status.value,
+            "finished": req.status.is_finished,
+        }
+        if req.status.is_finished:
+            self._chat_requests.pop(payload["rid"], None)
+        return out
+
+    def submit(self, request: Request) -> threading.Event:
+        """Head-node API: enqueue a user request; the returned event fires
+        when it finishes."""
+        ev = threading.Event()
+        self._request_events[request.request_id] = ev
+        self._post(("submit", request))
+        return ev
+
+    def pop_finished(self) -> list[Request]:
+        out = []
+        while True:
+            try:
+                out.append(self._finished.get_nowait())
+            except queue.Empty:
+                return out
+
+    # -- step loop (owns the engine) -----------------------------------------
+
+    def _post(self, item: tuple) -> None:
+        """Enqueue work for the step thread and wake it."""
+        self._inbox.put(item)
+        self._wake.set()
+
+    def _step_loop(self) -> None:
+        # The overlapped two-phase loop keeps exactly ONE step in flight:
+        # drive_step dispatches step N+1 before resolving step N.
+        pending = None
+        pending_engine = None
+        while not self._stop.is_set():
+            try:
+                worked = self._drain_inbox()
+                eng = self.engine
+                if pending is not None and pending_engine is not eng:
+                    pending = None
+                if eng is None:
+                    self._wake.wait(0.01)
+                    self._wake.clear()
+                    continue
+                outs, pending = drive_step(eng, pending)
+                pending_engine = eng
+                for out in outs:
+                    self._route_outputs(out)
+                    worked = worked or out.num_tokens > 0
+                if not worked and pending is None:
+                    # Event-driven idle wait; the timeout only bounds
+                    # housekeeping (request-timeout sweeps).
+                    if self._inbox.empty():
+                        self._wake.wait(0.05)
+                    self._wake.clear()
+            except Exception:
+                # The step thread must survive: a dead step loop with a
+                # live announcer would look healthy forever.
+                logger.exception("step loop error")
+                if pending is not None:
+                    # Retry only a ticket that is still unresolved; one
+                    # whose own resolve failed was abandoned already.
+                    try:
+                        if pending_engine.is_inflight(pending):
+                            self._route_outputs(
+                                pending_engine.resolve(pending)
+                            )
+                    except Exception:
+                        logger.exception("in-flight step resolution failed")
+                    pending = None
+                time.sleep(0.1)
+
+    def _drain_inbox(self) -> bool:
+        worked = False
+        while True:
+            try:
+                item = self._inbox.get_nowait()
+            except queue.Empty:
+                return worked
+            worked = True
+            kind = item[0]
+            if kind == "forward":
+                ireq: IntermediateRequest = item[1]
+                if ireq.next_token_id is not None:
+                    self.engine.commit_token(
+                        ireq.request_id, ireq.next_token_id,
+                        ireq.token_logprob,
+                    )
+                else:
+                    self.engine.submit_intermediate(ireq)
+            elif kind == "submit":
+                req: Request = item[1]
+                try:
+                    if not req.routing_table:
+                        route = self.local_route()
+                        if route is None:
+                            raise RuntimeError(
+                                "no route to the last layer from gossip "
+                                "announcements"
+                            )
+                        req.routing_table = route
+                    self.engine.submit(req)
+                except Exception as e:
+                    req.abort(str(e))
+                    self._finish(req)
+            elif kind == "release":
+                rid, aborted = item[1], item[2]
+                eng = self.engine
+                req = None
+                if eng is not None:
+                    req = eng.scheduler.running.get(rid) or (
+                        eng.scheduler.wait_queue.get(rid)
+                    )
+                    eng.release(rid, abort=aborted)
+                # A release can end a request this HEAD still tracks for a
+                # client: complete it for the waiters.
+                if req is not None:
+                    ev = self._request_events.pop(rid, None)
+                    if ev is not None:
+                        self._finished.put(req)
+                        ev.set()
+            elif kind == "stop":
+                self.engine.stop_request(item[1])
+            elif kind == "abort_path":
+                # A next-hop peer is unreachable: abort what routes through
+                # it (a scheduler-less swarm has nobody to migrate to).
+                if self.engine is None:
+                    continue
+                peer = item[1]
+                self._forget_wire_dtype(peer)
+                sched = self.engine.scheduler
+                for req in (
+                    list(sched.running.values())
+                    + list(sched.wait_queue.values())
+                ):
+                    if peer in req.routing_table and not req.status.is_finished:
+                        req.abort(f"peer {peer} unreachable")
+            elif kind == "liveness":
+                # Abort requests routed through peers whose announcements
+                # expired — one scan per beat.
+                fresh = item[1]
+                sched = self.engine.scheduler
+                for req in (
+                    list(sched.running.values())
+                    + list(sched.wait_queue.values())
+                ):
+                    dead = [p for p in req.routing_table if p not in fresh]
+                    if dead and not req.status.is_finished:
+                        req.abort(f"peer {dead[0]} unreachable")
+            elif kind == "reload":
+                self._apply_allocation(item[1])
+
+    def _route_outputs(self, out) -> None:
+        """Group packets by next hop and hand them to the sender pipeline
+        (the step thread only enqueues; serialization runs on the
+        per-peer workers)."""
+        by_peer: dict[str, list] = {}
+        for ireq in out.forward:
+            table = ireq.routing_table
+            if ireq.next_token_id is not None:
+                target = table[0] if table else self.node_id
+            else:
+                try:
+                    idx = table.index(self.node_id)
+                    target = table[idx + 1]
+                except (ValueError, IndexError):
+                    logger.error(
+                        "%s: no next hop for %s (table=%s)",
+                        self.node_id, ireq.request_id, table,
+                    )
+                    continue
+            h = ireq.hidden_states
+            if h is not None and h.device.type != "cpu":
+                raise RuntimeError(
+                    f"{self.node_id}: a hidden state on {h.device} reached "
+                    "the sender (the engine's host_hidden mode is off)")
+            if target == self.node_id:
+                self._post(("forward", ireq))
+            else:
+                by_peer.setdefault(target, []).append(ireq)
+        for peer, ireqs in by_peer.items():
+            self.sender.send(
+                peer, proto.FORWARD, self._forward_payload(peer, ireqs)
+            )
+        for req in out.finished:
+            self._finish(req)
+
+    def _forward_payload(self, peer: str, ireqs: list):
+        """Lazy FORWARD serialization for the sender worker: negotiate the
+        link's wire dtype (first use only), pack the tensors, and report
+        raw vs wire bytes for the compression telemetry."""
+
+        def build():
+            wd = self._wire_dtype_for(peer)
+            raw = sum(
+                i.hidden_states.numel() * i.hidden_states.element_size()
+                for i in ireqs if i.hidden_states is not None
+            )
+            reqs = [proto.ireq_to_wire(i, wire_dtype=wd) for i in ireqs]
+            wire = sum(
+                proto.tensor_nbytes(r.get("hidden_states")) for r in reqs
+            )
+            return {"reqs": reqs}, raw, wire
+
+        return build
+
+    def _finish(self, req: Request) -> None:
+        # Broadcast release to the rest of the path through the async
+        # sender: these ride the same per-peer FIFO as the data frames, so
+        # a RELEASE never overtakes the request's final FORWARD.
+        aborted = req.status.value == "finished_abort"
+        for peer in req.routing_table:
+            if peer == self.node_id:
+                continue
+            # best_effort: a lost RELEASE leaks a mirror until its timeout;
+            # it must never abort live requests.
+            self.sender.send(
+                peer, proto.RELEASE,
+                {"rids": [req.request_id], "abort": aborted},
+                best_effort=True,
+            )
+        self._finished.put(req)
+        ev = self._request_events.pop(req.request_id, None)
+        if ev is not None:
+            ev.set()

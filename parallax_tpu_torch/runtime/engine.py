@@ -33,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from parallax_tpu_torch.config import resolve_wire_dtype
 from parallax_tpu_torch.models.base import BatchInputs, StageModel
 from parallax_tpu_torch.models.registry import params_to, unported_features
 from parallax_tpu_torch.ops import kernel_select
@@ -80,7 +81,9 @@ class EngineConfig:
     ``prefill_fused`` kernel switches. The fields listed in ``_UNPORTED``
     must keep their defaults (construction raises otherwise);
     ``linear_*``, ``speculative_ngram``, ``constrained_window`` and
-    ``slow_request_ms`` only tune features that are refused elsewhere."""
+    ``slow_request_ms`` only tune features that are refused elsewhere.
+    ``wire_dtype`` is read by the swarm worker (``p2p/node.py``), not the
+    engine, as in the JAX package; its float8 link mode raises here."""
 
     page_size: int = 64
     num_pages: int = 1024
@@ -133,7 +136,6 @@ _UNPORTED = {
     "qos": None,
     "prefill_seq_parallel": False,
     "cache_digests": False,
-    "wire_dtype": None,
     "trace_sample_rate": 0.0,
     "lora_max_adapters": 0,
 }
@@ -180,6 +182,9 @@ class StepTicket:
     # pinned host copy, started at dispatch.
     tokens_dev: torch.Tensor | None = None
     tokens_host: torch.Tensor | None = None
+    # A ``host_hidden`` stage's hidden rows: their pinned host copy,
+    # started at dispatch.
+    hidden_host: torch.Tensor | None = None
     # Window chain: pinned host copies, started at dispatch, of its
     # [rows, S] token buffer (row j = chain step j) and of the final
     # per-row produced counts, which bound the commits.
@@ -278,7 +283,14 @@ class StageEngine:
 
     ``cuda_graphs`` follows ``decode_fused``'s rule: None = the decode
     window's steps replay CUDA graphs when the device is CUDA, True = they
-    do (raises on another device), False = the eager loop."""
+    do (raises on another device), False = the eager loop.
+
+    ``host_hidden`` (a stage that is not the last): each step's hidden
+    rows leave the card in one pinned D2H copy started at dispatch, and
+    ``resolve`` hands the forwards CPU tensors of their own, as the JAX
+    engine hands back host arrays. The swarm worker sets it, so its sender
+    threads never touch a CUDA tensor; off, the forwards are views of the
+    step's output on the device (the in-process pipeline)."""
 
     def __init__(
         self,
@@ -287,6 +299,7 @@ class StageEngine:
         config: EngineConfig | None = None,
         device=None,
         cuda_graphs: bool | None = None,
+        host_hidden: bool = False,
     ):
         self.cfg = config or EngineConfig()
         for name, want in _UNPORTED.items():
@@ -296,6 +309,12 @@ class StageEngine:
                     f"EngineConfig.{name}={got!r}: not ported yet to "
                     f"parallax_tpu_torch (only {want!r})"
                 )
+        if resolve_wire_dtype(self.cfg.wire_dtype) == "float8_e4m3fn":
+            raise NotImplementedError(
+                f"EngineConfig.wire_dtype={self.cfg.wire_dtype!r}: the float8 "
+                "link mode is not ported yet to parallax_tpu_torch (ROADMAP "
+                "queue 1 item 11)"
+            )
         feats = unported_features(model.config)
         if feats:
             raise NotImplementedError(
@@ -314,6 +333,7 @@ class StageEngine:
                 f"cuda_graphs=True needs a CUDA device, got {self.device}"
             )
         self.model = model
+        self.host_hidden = host_hidden and not model.is_last
         self.params = params_to(params, self.device)
         # One paged cache per local layer, updated in place by every step.
         self.kv = model.new_kv_caches(
@@ -589,6 +609,9 @@ class StageEngine:
         ticket = StepTicket(plan=plan, step_idx=step_idx, t0=t0,
                             inputs=inputs, out=out,
                             dispatch_seq=self._dispatch_seq)
+        if self.host_hidden:
+            (ticket.hidden_host,), ticket.ready = self._to_host(
+                out[:plan.total_new_tokens])
         if self.model.is_last:
             ticket.tokens_dev = self._enqueue_sample(plan, inputs, out,
                                                      step_idx)
@@ -620,7 +643,17 @@ class StageEngine:
         t_r0 = time.perf_counter()
         device_ms = 0.0
         try:
-            if not self.model.is_last:
+            if self.host_hidden:
+                tb = time.perf_counter()
+                self._wait(ticket.ready)
+                device_ms = (time.perf_counter() - tb) * 1000.0
+                # Rows of their own in pageable memory: a queued frame
+                # pins no staging block, and dropping it makes no CUDA call.
+                host = torch.empty(ticket.hidden_host.shape,
+                                   dtype=ticket.hidden_host.dtype)
+                host.copy_(ticket.hidden_host)
+                forwards = self._emit_hidden(plan, host)
+            elif not self.model.is_last:
                 forwards = self._emit_hidden(plan, ticket.out)
             else:
                 tb = time.perf_counter()
@@ -1088,6 +1121,8 @@ class StageEngine:
         for s in plan.seqs:
             avail = self._pending_hidden.get(s.request.request_id)
             if avail is not None and s.num_new_tokens <= avail.shape[0]:
+                s.mirror_last_chunk = bool(
+                    getattr(s.request, "last_chunk_flag", True))
                 usable.append(s)
         return BatchPlan(usable)
 
@@ -1139,10 +1174,16 @@ class StageEngine:
         return temp, top_k, top_p, min_p, seeds, steps
 
     def _needs_token(self, seg) -> bool:
-        """Does this segment's sequence produce a sampled token this step?"""
-        req = seg.request
-        if getattr(req, "is_mirror", False):
-            return bool(getattr(req, "last_chunk_flag", True))
+        """Does this segment's sequence produce a sampled token this step?
+        A mirror's does when the head's last chunk had arrived when the
+        step was planned AND this segment reaches the end of what had
+        arrived: a stage of a swarm can receive several chunks before it
+        steps (and schedules them in chunks of its own), or the last chunk
+        while a step is in flight. (The JAX engine reads the request's flag
+        at resolve time alone, and samples mid-prompt in both cases;
+        ROADMAP queue 3.)"""
+        if getattr(seg.request, "is_mirror", False):
+            return seg.mirror_last_chunk and seg.is_last_prefill_chunk
         return seg.is_last_prefill_chunk
 
     def _emit_tokens(self, plan: BatchPlan, tokens: np.ndarray):
@@ -1192,11 +1233,16 @@ class StageEngine:
                 token_ids=list(seg.token_ids),
                 hidden_states=hidden[row : row + n],
                 sampling_params=req.sampling_params.to_dict(),
+                # The plan's own flag, as of dispatch: with a step in
+                # flight the request's status may already be the next
+                # chunk's (the JAX engine also ORs in ``status is
+                # DECODING`` here, which marks a non-last chunk last when
+                # the last one was dispatched before it resolved;
+                # ROADMAP queue 3).
                 is_last_chunk=(
                     self._needs_token(seg)
                     if not self.model.is_first
                     else seg.is_last_prefill_chunk
-                    or req.status is RequestStatus.DECODING
                 ),
                 cached_prefix_ids=prefix_ids,
             ))

@@ -33,6 +33,10 @@ class ScheduledSeq:
     token_ids: list[int]         # the new tokens (head node fills these)
     context_len: int             # total KV length after this step
     is_last_prefill_chunk: bool = True
+    # A mirror's (a later stage of a pipeline): the head's last chunk had
+    # arrived when the step was planned. The engine stamps it at dispatch;
+    # the request's own flag may move on before the step resolves.
+    mirror_last_chunk: bool = True
     # Overlapped decode: this row's fed token is the one an in-flight
     # step sampled — it lives only in the engine's device-resident
     # last-token array; ``token_ids`` holds a placeholder the engine

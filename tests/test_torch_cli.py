@@ -134,14 +134,14 @@ def test_refused_flag_exits_2_from_both_entry_points(checkpoint):
     (["serve", "--draft-model-path", "/x"], 7),
     (["serve", "--speculative-tokens", "4"], 7),
     (["serve", "--host-cache-bytes", "1024"], 6),
-    (["serve", "--wire-dtype", "fp8"], 4),
+    (["serve", "--wire-dtype", "fp8"], "4b"),
     (["serve", "--trace-sample-rate", "0.5"], 9),
     (["serve", "--watchdog"], 9),
     (["serve", "--slo", "ttft_p95_ms=500"], 9),
     (["serve", "--qos", "on"], 9),
     (["serve", "--compilation-cache-dir", "/x"], 12),
-    (["serve", "--start-layer", "1"], 4),
-    (["serve", "--end-layer", "1"], 4),
+    (["serve", "--start-layer", "1"], "4b"),
+    (["serve", "--end-layer", "1"], "4b"),
     (["generate", "--tp-size", "2"], 10),
     (["generate", "--quantization", "int4"], 11),
     (["generate", "--lora-path", "/x"], 11),

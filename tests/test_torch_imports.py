@@ -1,7 +1,8 @@
 """The PyTorch port imports neither jax nor anything of parallax_tpu, nor
-aiohttp or safetensors (its serving path needs neither on the card), keeps
-transformers unimported until a tokenizer is loaded, and its entry points
-refuse to fall back to the CPU when no device was asked for."""
+aiohttp, safetensors, msgpack or ml_dtypes (its serving and swarm paths
+need none of them on the card), keeps transformers unimported until a
+tokenizer is loaded, and its entry points refuse to fall back to the CPU
+when no device was asked for."""
 
 import os
 import pkgutil
@@ -25,7 +26,8 @@ class _Block(importlib.abc.MetaPathFinder):
             raise ImportError(f"blocked import of {name}")
         return None
 
-BLOCKED = ("jax", "jaxlib", "parallax_tpu", "aiohttp", "safetensors")
+BLOCKED = ("jax", "jaxlib", "parallax_tpu", "aiohttp", "safetensors",
+           "msgpack", "ml_dtypes")
 for mod in list(sys.modules):
     if mod.split(".")[0] in BLOCKED:
         del sys.modules[mod]
@@ -54,7 +56,8 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "ops.gqa_decode", "models.gpt_oss", "runtime.step_graph",
                  "config", "models.loader", "utils.tokenizer",
                  "backend.http_server", "backend.serve", "backend.generate",
-                 "cli"):
+                 "cli", "p2p.wire", "p2p.proto", "p2p.transport", "p2p.node",
+                 "p2p.join", "backend.run", "analysis.sanitizer"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"
@@ -169,6 +172,63 @@ body = json.loads(resp.read())
 box[0].shutdown()
 thread.join(30)
 assert resp.status == 200 and body["usage"]["completion_tokens"] == 4, body
+bad = [m for m in sys.modules
+       if m.split(".")[0] in BLOCKED + ("transformers",)]
+assert not bad, bad
+print("ok")
+"""
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_swarm_runs_without_msgpack_or_ml_dtypes():
+    """With jax, parallax_tpu, aiohttp, safetensors, msgpack and ml_dtypes
+    blocked: a 2-stage swarm of port workers over TCP on the loopback
+    interface gossips its route and serves a greedy request (the frames go
+    through the port's own msgpack codec)."""
+    code = _BLOCKER + """
+import threading, time
+import torch
+from parallax_tpu_torch.config import normalize_config
+from parallax_tpu_torch.p2p.node import WorkerNode
+from parallax_tpu_torch.p2p.transport import TcpTransport
+from parallax_tpu_torch.runtime.engine import EngineConfig
+from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+cfg = normalize_config(dict(
+    architectures=["Qwen2ForCausalLM"], hidden_size=32, num_hidden_layers=2,
+    num_attention_heads=2, num_key_value_heads=1, intermediate_size=64,
+    vocab_size=50))
+ts = [TcpTransport("", "127.0.0.1") for _ in range(2)]
+workers = []
+try:
+    for t in ts:
+        t.start()
+        t.peer_id = t.address
+    for i, t in enumerate(ts):
+        workers.append(WorkerNode(
+            t, None, cfg, EngineConfig(page_size=8, num_pages=16,
+                                       max_model_len=64, kv_dtype="float32"),
+            heartbeat_interval_s=0.2, static_peers=[ts[1 - i].address],
+            layers=(i, i + 1), device="cpu"))
+    for w in workers:
+        w.start()
+    deadline = time.monotonic() + 30
+    while workers[0].local_route() is None and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert workers[0].local_route() == [t.address for t in ts]
+    req = Request("r", prompt_ids=[1, 2, 3],
+                  sampling_params=SamplingParams(temperature=0.0,
+                                                 max_new_tokens=4))
+    assert workers[0].submit(req).wait(30), req.status
+    assert req.status.value == "finished_length" and len(req.output_ids) == 4
+finally:
+    for w in workers:
+        w.stop()
 bad = [m for m in sys.modules
        if m.split(".")[0] in BLOCKED + ("transformers",)]
 assert not bad, bad
