@@ -124,7 +124,36 @@ Phases, in order; any failure raises and the script exits non-zero:
                graph captured. TTFT, decode and output tok/s of both
                mixes beside the pipeline and HTTP figures, spawn-to-route
                time and the bytes each link carried.
-9. moe_serve   Qwen3-30B-A3B at full width and all 48 layers (random bf16
+9. sched_serve the swarm the global scheduler assigns, on the same
+               checkpoint (``--only sched_serve`` runs http_serve first).
+               (a) A GlobalScheduler and its SchedulerService on TCP
+               loopback in this process, with two WorkerNodes that join it
+               (``scheduler_peer``) and load slices of the loaded tree; the
+               roofline's memory bound patched to 14 layers a node, so the
+               scheduler lays out one 14 + 14 pipeline (checked). The mix's
+               prompts routed and polled through a SwarmClient on the
+               service: every request ends by length, each stage's launches
+               exact, the greedy rows within GREEDY_TOL of the plain path.
+               The tail then stops (node_leave): the pipeline dissolves and
+               the SwarmClient routes a new request to None (the HTTP
+               plane's 503); a new tail joins, a pipeline comes back and
+               serves one more request. (b) ``python -m parallax_tpu_torch
+               run --min-nodes 2 --routing cache_aware`` and two ``join
+               --scheduler-addr`` processes (spawned together): each worker
+               reports one H100, so the scheduler lays out two 28-layer
+               replicas (checked from /cluster/status_json). The HTTP mix:
+               r0-r6 from 7 client threads, then r7 (r0's prefix) once they
+               are answered and a heartbeat carried the heads' digests;
+               every reply 200 with 32 tokens; r7's replica, the router's
+               reason and its cached prompt tokens from the status's
+               routing section; the greedy rows once more through a
+               SwarmClient over the route_request RPC, their ids against
+               (a)'s and within GREEDY_TOL of the plain path; clean logs;
+               every process exits 0 within 30 s of SIGTERM (the workers
+               first: both node_leaves land). Spawn to route ready, route
+               ms, TTFT, decode and output tok/s beside the pipeline's and
+               swarm_serve's, and the seconds the phase took.
+10. moe_serve   Qwen3-30B-A3B at full width and all 48 layers (random bf16
                weights, about 61 GB; the dense phases' tensors are freed
                first) serving the same 8-request mix with the defaults and
                with K1_SYNC; every kernel's launches exact (the grouped
@@ -133,8 +162,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                plain attention); the same one-shot forward with A4 in
                place of the plain grouped product reports its logit
                difference (no limit).
-10. moe_profile moe_serve once more under torch.profiler, both configs.
-11. mla_serve  DeepSeek-V3 at full width and 5 layers (3 dense + 2 MoE; one
+11. moe_profile moe_serve once more under torch.profiler, both configs.
+12. mla_serve  DeepSeek-V3 at full width and 5 layers (3 dense + 2 MoE; one
                random bf16 tree of 26.7 B params, the MoE model freed first)
                serving the same mix four times: fused decode (A5 once per
                layer and decode step) and split decode (A6 the same, A5
@@ -146,17 +175,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                again step by step, A5 against the plain MLA decode on the
                same cache, and the largest logit difference printed (no
                limit).
-12. mla_profile mla_serve's fused run once more under torch.profiler, both
+13. mla_profile mla_serve's fused run once more under torch.profiler, both
                configs.
-13. dsa_serve DeepSeek-V3.2 at the same width and depth, on the same tree
+14. dsa_serve DeepSeek-V3.2 at the same width and depth, on the same tree
                plus the indexer, with one more request of 2,400 prompt ids
                so that sparse top-k selection runs: fused (A7), split (A8)
                and plain, the same checks; the long greedy stream is
                decoded again step by step, A7 against the plain indexer
                (the logit difference, argmax and top-k set agreement).
-14. dsa_profile dsa_serve's fused run once more under torch.profiler, both
+15. dsa_profile dsa_serve's fused run once more under torch.profiler, both
                configs.
-15. gptoss_serve gpt-oss-20b at full width and all 24 layers (20.9 B params,
+16. gptoss_serve gpt-oss-20b at full width and all 24 layers (20.9 B params,
                42 GB in bf16, each layer's sinks drawn N(0, 1); DeepSeek's
                tree freed first) serving the mix four times with
                mla_serve's runs and checks: fused (A2 per layer and decode
@@ -164,7 +193,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                layer and decode step, A1 attend-only per layer and prefill
                step, nothing else but the sampler's noise), fused with
                K1_SYNC and plain.
-16. gptoss_profile gptoss_serve's fused run once more under torch.profiler,
+17. gptoss_profile gptoss_serve's fused run once more under torch.profiler,
                both configs.
 
 One JSON object per line; the ``kernels`` line and the card line come just
@@ -2692,7 +2721,7 @@ def _serve_http(torch, dev, ckpt: str, mix):
 
 
 def phase_http_serve(torch, dev, card: str, cfg, tree: list,
-                     swarm: bool = False) -> None:
+                     swarm: bool = False, sched: bool = False) -> None:
     """The port's front door on Qwen2.5-7B at full width: the random tree
     written as an HF checkpoint, the CLI's ``generate`` run on it in a
     subprocess, the checkpoint loaded back bitwise, then ``serve`` (CLI
@@ -2701,7 +2730,8 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
     path on the loaded weights, the prefix cache hit. ``tree`` holds the
     only reference to the random tree, dropped once it loaded back. With
     ``swarm``, phase_swarm_serve follows in the same checkpoint directory
-    (the checkpoint is written once)."""
+    (the checkpoint is written once), and with ``sched``
+    phase_sched_serve."""
     import os
     import re
     import shutil
@@ -2781,6 +2811,9 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
                             outs, finished, launches, summary, info)
         if swarm:
             phase_swarm_serve(torch, dev, card, cfg, loaded, ckpt, mix,
+                              sampled, reqs)
+        if sched:
+            phase_sched_serve(torch, dev, card, cfg, loaded, ckpt, mix,
                               sampled, reqs)
 
 
@@ -3385,6 +3418,508 @@ def phase_swarm_serve(torch, dev, card, cfg, params, ckpt, mix, sampled,
         "card": card})
 
 
+# ---------------------------------------------------------------------------
+# sched_serve: the scheduler-assigned swarm (the control plane)
+# ---------------------------------------------------------------------------
+
+# Part (a) tells the scheduler that each node holds this many layers (the
+# roofline's memory bound, patched as tests/test_swarm_e2e.py:62-72 does),
+# so it lays out one 14 + 14 pipeline over the two workers.
+SCHED_CAPACITY = 14
+# Part (b)'s workers heartbeat every 2 s (the join's default): r7 goes out
+# once the other requests are done and a beat has carried their digests.
+SCHED_BEAT_WAIT_S = 2.5
+
+
+def _wait_for(cond, deadline: float, what: str) -> None:
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"sched_serve: {what}")
+        time.sleep(0.05)
+
+
+def _sched_nodes(status) -> list:
+    return [(x["node_id"], x["layers"], x["ready"])
+            for p in status["pipelines"] for x in p["nodes"]]
+
+
+def _stamp_first_tokens(reqs, stop, poll_s: float) -> None:
+    """Stamp each client-side request's first token as the SwarmClient's
+    poll mirrors it in (client-observed TTFT). It looks as often as the
+    client polls: more often sees nothing sooner, and only takes the GIL
+    from the step threads that share this process."""
+    while not stop.wait(poll_s):
+        now = time.monotonic()
+        for r in reqs:
+            if r.first_token_time is None and r.output_ids:
+                r.first_token_time = now
+
+
+def sched_in_process(torch, dev, card, cfg, params, served, sampled):
+    """Part (a): a port GlobalScheduler and its SchedulerService on TCP
+    loopback with two WorkerNodes that join it (``scheduler_peer``), each
+    stage's weights sliced from ``params``. The scheduler, told that a
+    node holds 14 layers, lays out one 14 + 14 pipeline; the mix's prompts
+    are routed and polled through a SwarmClient on the service. Every
+    request ends by length, launches are exact per stage, the greedy rows
+    agree with the plain path. Then the tail stops (node_leave): the
+    pipeline dissolves, routing answers None; a new tail joins, the
+    scheduler lays out a pipeline again and it serves one more request.
+    Returns the requests."""
+    import threading
+
+    from parallax_tpu_torch.backend.run import SwarmClient
+    from parallax_tpu_torch.backend.scheduler_service import SchedulerService
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.p2p.node import WorkerNode
+    from parallax_tpu_torch.p2p.transport import TcpTransport
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+    from parallax_tpu_torch.scheduling import node as sched_node
+    from parallax_tpu_torch.scheduling.scheduler import GlobalScheduler
+
+    n = cfg.num_hidden_layers
+    roofline = sched_node.RooflinePerformanceModel
+    real_capacity = roofline.max_layers_in_memory
+    roofline.max_layers_in_memory = (
+        lambda self, kv_fraction=0.35: SCHED_CAPACITY)
+    sched = GlobalScheduler(cfg, min_nodes_bootstrapping=2)
+    service = SchedulerService(sched, TcpTransport("scheduler", "127.0.0.1"),
+                               join_timeout_s=SWARM_TIMEOUT_S)
+    workers = []
+
+    def new_worker():
+        t = TcpTransport("", "127.0.0.1")
+        t.start()
+        t.peer_id = t.address
+        w = WorkerNode(t, service.transport.address, cfg, engine_config(True),
+                       load_params=lambda m: _stage_tree(
+                           params, m.start_layer, m.end_layer, n),
+                       heartbeat_interval_s=0.5, device=dev)
+        workers.append(w)
+        return w
+
+    def start(ws) -> None:
+        # Each join blocks until the scheduler bootstraps: start together.
+        threads = [threading.Thread(target=w.start, daemon=True) for w in ws]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SWARM_TIMEOUT_S)
+
+    stop_mon = threading.Event()
+    try:
+        service.start()
+        t_spawn = time.monotonic()
+        deadline = t_spawn + SWARM_TIMEOUT_S
+        start([new_worker(), new_worker()])
+        _wait_for(lambda: _sched_nodes(sched.cluster_status()) and all(
+            x[2] for x in _sched_nodes(sched.cluster_status())), deadline,
+            "(a) no ready pipeline")
+        route_s = time.monotonic() - t_spawn
+        status = sched.cluster_status()
+        allocation = _sched_nodes(status)
+        if status["num_pipelines"] != 1 or [x[1] for x in allocation] != [
+                [0, SCHED_CAPACITY], [SCHED_CAPACITY, n]]:
+            raise AssertionError(f"sched_serve (a): allocation {allocation}")
+        by_id = {w.node_id: w for w in workers}
+        head, tail = by_id[allocation[0][0]], by_id[allocation[1][0]]
+        client = SwarmClient(service.transport, service)
+        reqs = _swarm_requests(served, sampled)
+        ck.reset_launches()
+        mon = threading.Thread(target=_stamp_first_tokens,
+                               args=(reqs, stop_mon, client.poll_interval_s),
+                               daemon=True)
+        t0 = time.monotonic()
+        mon.start()
+        events, routes, route_ms = [], [], []
+        for r in reqs:
+            t_r = time.perf_counter()
+            r.routing_table = client.route(r.request_id,
+                                           prompt_ids=r.prompt_ids)
+            route_ms.append((time.perf_counter() - t_r) * 1e3)
+            routes.append(r.routing_table)
+            events.append(client.submit(r))
+        for r, ev in zip(reqs, events):
+            if not ev.wait(SWARM_TIMEOUT_S):
+                raise AssertionError(f"sched_serve (a) {r.request_id}: "
+                                     f"{r.status.value}")
+        t1 = time.monotonic()
+        stop_mon.set()
+        mon.join(10)
+        launches = ck.launches()
+        summaries = [head.engine.kernel_dispatch_summary(),
+                     tail.engine.kernel_dispatch_summary()]
+
+        # The tail leaves: its node_leave dissolves the pipeline.
+        t_leave = time.monotonic()
+        tail.stop()
+        _wait_for(lambda: not sched.manager.pipelines
+                  and sched.manager.get(tail.node_id) is None,
+                  t_leave + SWARM_TIMEOUT_S, "(a) the pipeline outlived "
+                  "the tail's leave")
+        dissolve_s = time.monotonic() - t_leave
+        t_r = time.monotonic()
+        gone = client.route("after-leave",
+                            prompt_ids=list(reqs[0].prompt_ids))
+        if gone is not None:
+            raise AssertionError(f"sched_serve (a): routed {gone} with no "
+                                 "pipeline")
+        none_s = time.monotonic() - t_r
+        # A new tail joins; the scheduler lays out a pipeline again.
+        t_join = time.monotonic()
+        start([new_worker()])
+        _wait_for(lambda: len(_sched_nodes(sched.cluster_status())) == 2
+                  and all(x[2] for x in _sched_nodes(sched.cluster_status())),
+                  t_join + SWARM_TIMEOUT_S, "(a) no pipeline after rejoin")
+        rejoin_s = time.monotonic() - t_join
+        allocation_after = _sched_nodes(sched.cluster_status())
+        again = Request("after-rejoin", prompt_ids=list(reqs[0].prompt_ids),
+                        sampling_params=SamplingParams(
+                            temperature=0.0, max_new_tokens=32,
+                            ignore_eos=True))
+        again.routing_table = client.route(again.request_id,
+                                           prompt_ids=again.prompt_ids)
+        if not client.submit(again).wait(SWARM_TIMEOUT_S) or \
+                again.status.value != "finished_length" or \
+                len(again.output_ids) != 32:
+            raise AssertionError(f"sched_serve (a) after rejoin: "
+                                 f"{again.status.value}")
+    finally:
+        stop_mon.set()
+        for w in workers:
+            w.stop()
+            w.engine = None
+        service.stop()
+        roofline.max_layers_in_memory = real_capacity
+    del workers
+    for r in reqs:
+        if r.status.value != "finished_length" or len(r.output_ids) != 32:
+            raise AssertionError(f"sched_serve (a) {r.request_id}: "
+                                 f"{r.status.value}, {len(r.output_ids)}")
+    want, per_stage = {}, []
+    for stage, summary, (_, (s, e), _) in zip(("head", "tail"), summaries,
+                                               allocation):
+        if summary["impl"] != "cuda-fused":
+            raise AssertionError(f"sched_serve (a) {stage}: impl "
+                                 f"{summary['impl']}")
+        mine = gqa_expected("fused", summary, e - s)
+        if stage == "head" and (mine["sample_topk"] or mine["gumbel_rows"]):
+            raise AssertionError(f"sched_serve (a): the head sampled "
+                                 f"{summary['dispatch_total']}")
+        for k, v in mine.items():
+            want[k] = want.get(k, 0) + v
+        decode, prefill = forward_steps(summary)
+        per_stage.append({"stage": stage, "decode_steps": decode,
+                          "prefill_steps": prefill, "launches": mine})
+    check_launches("sched_serve", "in_process", launches, want, {})
+    free_device_memory(torch)
+    model_ref = create_plain_model(cfg)
+    worst, *_ = greedy_check(torch, model_ref, params, reqs + [again],
+                             sampled, dev, tol=GREEDY_TOL)
+    del model_ref
+    FIGURES["sched_in_process"] = {"spawn_to_route_ready_s": route_s,
+                                   **stream_metrics(reqs, t0, t1)}
+    emit({"phase": "sched_serve", "part": "a_in_process",
+          "forced": f"RooflinePerformanceModel.max_layers_in_memory -> "
+                    f"{SCHED_CAPACITY}",
+          "allocation": allocation,
+          "routes": sorted({tuple(p) for p in routes}),
+          "requests": len(reqs), "status": "8 x finished_length",
+          "route_ms_median": statistics.median(route_ms),
+          "route_ms_max": max(route_ms), "launches": launches,
+          "launches_per_stage": per_stage,
+          "greedy_vs_plain": "pass", "largest_logit_gap": worst,
+          "tolerance": GREEDY_TOL,
+          "tokens_identical_to_http_single_stage": _common_tokens(reqs,
+                                                                  served),
+          "tokens": sum(len(r.output_ids) for r in reqs),
+          "leave": {"dissolve_s": dissolve_s, "route_after_leave": None,
+                    "route_none_s": none_s, "rejoin_to_ready_s": rejoin_s,
+                    "allocation_after": allocation_after,
+                    "served_after": again.status.value,
+                    "tokens_equal_to_r0": sum(
+                        x == y for x, y in zip(again.output_ids,
+                                               reqs[0].output_ids))},
+          **FIGURES["sched_in_process"], "card": card})
+    return reqs
+
+
+def _status_json(port: int) -> dict:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request("GET", "/cluster/status_json")
+        resp = conn.getresponse()
+        body = resp.read()
+        if resp.status != 200:
+            raise AssertionError(f"sched_serve (b): /cluster/status_json "
+                                 f"{resp.status}")
+        return json.loads(body)
+    finally:
+        conn.close()
+
+
+def _emit_sched_tails(names, procs, texts) -> None:
+    emit({"phase": "sched_serve", "part": "b_processes", "failed": True,
+          "exits": {nm: p.poll() for nm, p in zip(names, procs)},
+          "log_tails": {nm: t[-3000:] for nm, t in zip(names, texts)}})
+
+
+def sched_processes(torch, dev, card, cfg, params, ckpt, mix, sampled,
+                    in_process):
+    """Part (b): ``python -m parallax_tpu_torch run --min-nodes 2
+    --routing cache_aware`` and two ``join --scheduler-addr`` processes
+    on the checkpoint, both joins spawned before either is waited on.
+    Each worker reports one H100, so the scheduler lays out two 28-layer
+    replicas (printed from /cluster/status_json). The HTTP mix: r0-r6
+    from 7 client threads, then, once they are done and a heartbeat has
+    carried the heads' digests, r7 (r0's 256-byte prefix): its replica,
+    the router's reason and its cached prompt tokens come from the
+    status's routing section (the rates are r0-r6's, r7's TTFT its own). Every reply 200 with 32 tokens; the greedy
+    rows once more through a SwarmClient over the route_request RPC,
+    their ids counted against part (a)'s and checked against the plain
+    path; clean logs; every process exits 0 within 30 s of SIGTERM."""
+    import os
+    import re
+    import threading
+
+    from parallax_tpu_torch.backend.run import SwarmClient
+    from parallax_tpu_torch.p2p.transport import TcpTransport
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo}
+    names = ("run", "join_a", "join_b")
+    paths = [os.path.join(ckpt, f"sched_{nm}.log") for nm in names]
+    logs = [open(path, "w+") for path in paths]
+    probe = TcpTransport("", "127.0.0.1")
+    procs, exits, failed = [], {}, True
+    try:
+        probe.start()
+        probe.peer_id = probe.address
+        t_spawn = time.monotonic()
+        deadline = t_spawn + SWARM_TIMEOUT_S
+
+        def spawn(args: list[str], i: int) -> None:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "parallax_tpu_torch", *args],
+                cwd=repo, env=env, stdout=logs[i], stderr=subprocess.STDOUT))
+
+        # run binds both ports itself (--port 0) and logs them.
+        spawn(["run", "--model-name", ckpt, "--min-nodes", "2",
+               "--routing", "cache_aware", "--port", "0", "--host",
+               "127.0.0.1"], 0)
+        rpc = "127.0.0.1:" + _logged(paths[0], r"scheduler RPC on :(\d+)",
+                                     procs[0], deadline)
+        port = int(_logged(paths[0], r"scheduler RPC on :\d+, HTTP on "
+                           r":(\d+)", procs[0], deadline))
+        run_s = time.monotonic() - t_spawn
+        for i in (1, 2):
+            spawn(["join", "--scheduler-addr", rpc, "--model-path", ckpt,
+                   "--advertise-addr", "127.0.0.1", "--port", "0",
+                   "--device", str(dev)], i)
+
+        def ready() -> bool:
+            if any(p.poll() is not None for p in procs):
+                raise AssertionError("sched_serve (b): a process exited")
+            nodes = _sched_nodes(_status_json(port))
+            return len(nodes) == 2 and all(x[2] for x in nodes)
+
+        _wait_for(ready, deadline, "(b) the replicas did not come up")
+        route_s = time.monotonic() - t_spawn
+        status = _status_json(port)
+        decided = [[(x["node_id"], x["layers"]) for x in p["nodes"]]
+                   for p in status["pipelines"]]
+        if sorted(len(p) for p in decided) != [1, 1] or any(
+                p[0][1] != [0, cfg.num_hidden_layers] for p in decided):
+            raise AssertionError(f"sched_serve (b): allocation {decided}")
+
+        def send(items):
+            outs = [{} for _ in items]
+            clients = [threading.Thread(
+                target=_http_client_retry_503, daemon=True,
+                args=(port, path, body, out, time.monotonic() + 60.0))
+                for (path, body), out in zip(items, outs)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(HTTP_TIMEOUT_S)
+            if any(c.is_alive() for c in clients):
+                raise AssertionError("sched_serve (b): a client is still "
+                                     "waiting")
+            return outs
+
+        def completes(k: int) -> bool:
+            return _status_json(port)["routing"]["predicted_vs_actual"][
+                "requests"] >= k
+
+        outs = send(mix[:-1])
+        _wait_for(lambda: completes(len(mix) - 1), time.monotonic() + 30,
+                  "(b) request_complete reports missing")
+        time.sleep(SCHED_BEAT_WAIT_S)
+        before = _status_json(port)["routing"]
+        outs += send(mix[-1:])
+        _wait_for(lambda: completes(len(mix)), time.monotonic() + 30,
+                  "(b) r7's request_complete missing")
+        after = _status_json(port)["routing"]
+        pipe7 = [k for k, v in after["pipeline_dispatches"].items()
+                 if v != before["pipeline_dispatches"].get(k, 0)]
+        reason7 = [k for k, v in after["decisions"].items()
+                   if v != before["decisions"].get(k, 0)]
+        acc0, acc1 = before["predicted_vs_actual"], after["predicted_vs_actual"]
+        sharer = {"pipeline": pipe7, "reason": reason7,
+                  "cached_prompt_tokens": acc1["actual_tokens"]
+                  - acc0["actual_tokens"],
+                  "predicted_cached_tokens": acc1["predicted_tokens"]
+                  - acc0["predicted_tokens"]}
+        # The greedy rows once more, routed over the route_request RPC.
+        client = SwarmClient(probe, scheduler_peers=[rpc])
+        greedy = [i for i in range(len(mix)) if i not in sampled]
+        again = {i: Request(f"ids-{i}",
+                            prompt_ids=list(in_process[i].prompt_ids),
+                            sampling_params=SamplingParams(
+                                temperature=0.0, max_new_tokens=32,
+                                ignore_eos=True))
+                 for i in greedy}
+        events, route_rpc_ms = [], []
+        for r in again.values():
+            t_r = time.perf_counter()
+            r.routing_table = client.route(r.request_id,
+                                           prompt_ids=r.prompt_ids)
+            route_rpc_ms.append((time.perf_counter() - t_r) * 1e3)
+            events.append(client.submit(r))
+        for ev in events:
+            if not ev.wait(HTTP_TIMEOUT_S):
+                raise AssertionError("sched_serve (b): an RPC request hung")
+        status_end = _status_json(port)
+        # SIGTERM: the workers first (each says node_leave), then run.
+        t_term = time.monotonic()
+        for p in procs[1:]:
+            p.send_signal(15)
+        for nm, p in zip(names[1:], procs[1:]):
+            try:
+                exits[nm] = p.wait(SWARM_EXIT_S)
+            except subprocess.TimeoutExpired:
+                exits[nm] = "timeout"
+        _wait_for(lambda: _status_json(port)["num_nodes"] == 0,
+                  time.monotonic() + 10, "(b) a worker's node_leave missing")
+        procs[0].send_signal(15)
+        try:
+            exits[names[0]] = procs[0].wait(SWARM_EXIT_S)
+        except subprocess.TimeoutExpired:
+            exits[names[0]] = "timeout"
+        exit_s = time.monotonic() - t_term
+    except BaseException:
+        failed = True
+        raise
+    else:
+        failed = False
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        probe.stop()
+        texts = []
+        for log in logs:
+            log.seek(0)
+            texts.append(log.read())
+            log.close()
+        if failed:
+            _emit_sched_tails(names, procs, texts)
+    try:
+        for nm, text in zip(names, texts):
+            if "step loop error" in text or "Traceback" in text:
+                raise AssertionError(f"sched_serve (b) {nm}: an error in "
+                                     "its log")
+        if any(code != 0 for code in exits.values()):
+            raise AssertionError(f"sched_serve (b): exits {exits}")
+        for i, (out, (_, body)) in enumerate(zip(outs, mix)):
+            _rid, reason, usage, _text = _http_reply(out, body)
+            if reason != "length" or usage["completion_tokens"] != 32:
+                raise AssertionError(f"sched_serve (b) r{i}: {reason}, "
+                                     f"{usage}")
+        for r in again.values():
+            if r.status.value != "finished_length" or \
+                    len(r.output_ids) != 32:
+                raise AssertionError(f"sched_serve (b) {r.request_id}: "
+                                     f"{r.status.value}")
+    except AssertionError:
+        _emit_sched_tails(names, procs, texts)
+        raise
+    greedy_reqs = [again[i] for i in greedy]
+    ref = [in_process[i] for i in greedy]
+    model_ref = create_plain_model(cfg)
+    worst, *_ = greedy_check(torch, model_ref, params, greedy_reqs, {}, dev,
+                             tol=GREEDY_TOL)
+    del model_ref
+    # Each worker's exit lines: its engine's dispatch summary and the
+    # process's launches, exact for a 28-layer replica on the kernels.
+    worker_dispatch = []
+    for nm, text in zip(names[1:], texts[1:]):
+        m = re.search(r"kernel dispatch: (\{.*\})", text)
+        k = re.search(r"kernel launches: (\{.*\})", text)
+        if m is None or k is None:
+            raise AssertionError(f"sched_serve (b) {nm}: no exit summary")
+        summary, launches = json.loads(m.group(1)), json.loads(k.group(1))
+        if summary["impl"] != "cuda-fused":
+            raise AssertionError(f"sched_serve (b) {nm}: impl "
+                                 f"{summary['impl']}")
+        check_launches("sched_serve", f"b_{nm}", launches,
+                       gqa_expected("fused", summary, cfg.num_hidden_layers),
+                       summary)
+        decode, prefill = forward_steps(summary)
+        worker_dispatch.append({
+            "worker": nm, "impl": summary["impl"], "decode_steps": decode,
+            "prefill_steps": prefill, "launches": launches,
+            "graphs_captured": summary.get("graphs", {}).get("captured", 0),
+            "graph_replays": summary.get("graphs", {}).get("replays", 0)})
+    # The rates are the concurrent wave's (r0-r6); r7 went out alone.
+    FIGURES["sched_http"] = {"spawn_to_route_ready_s": route_s,
+                             **_swarm_http_figures(outs[:-1], mix[:-1])}
+    sharer["ttft_s"] = _http_reply(outs[-1], mix[-1][1])[2]["ttft_ms"] / 1e3
+    emit({"phase": "sched_serve", "part": "b_processes",
+          "processes": list(names), "routing": "cache_aware",
+          "allocation": decided, "requests": len(outs),
+          "status": f"{len(outs)} x 200",
+          "retries_after_503": [o["retries"] for o in outs],
+          "spawn_to_run_listening_s": run_s,
+          "sharer_r7": sharer,
+          "routing_end": status_end["routing"],
+          "greedy_rows_via_route_rpc": len(greedy_reqs),
+          "route_rpc_ms_median": statistics.median(route_rpc_ms),
+          "route_rpc_ms_max": max(route_rpc_ms),
+          "greedy_tokens_identical_to_part_a": _common_tokens(greedy_reqs,
+                                                              ref),
+          "greedy_tokens": 32 * len(greedy_reqs),
+          "greedy_vs_plain": "pass", "largest_logit_gap": worst,
+          "tolerance": GREEDY_TOL, "exits": exits,
+          "exit_after_sigterm_s": exit_s,
+          "worker_dispatch": worker_dispatch,
+          **FIGURES["sched_http"], "card": card})
+
+
+def phase_sched_serve(torch, dev, card, cfg, params, ckpt, mix, sampled,
+                      served) -> None:
+    """The scheduler-assigned swarm on Qwen2.5-7B at full width: part (a)
+    in this process (one 14 + 14 pipeline, leave and rejoin), part (b) as
+    ``run`` and two ``join --scheduler-addr`` processes (two replicas);
+    then both beside the in-process pipeline and swarm_serve."""
+    t0 = time.monotonic()
+    free_device_memory(torch)
+    in_process = sched_in_process(torch, dev, card, cfg, params, served,
+                                  sampled)
+    free_device_memory(torch)
+    sched_processes(torch, dev, card, cfg, params, ckpt, mix, sampled,
+                    in_process)
+    emit({"phase": "sched_serve", "compare": {
+        k: FIGURES.get(k) for k in ("pipeline", "http", "swarm_in_process",
+                                    "swarm_http", "swarm_http_warm",
+                                    "sched_in_process", "sched_http")},
+        "phase_s": time.monotonic() - t0, "card": card})
+
+
 def phase_moe_serve(torch, dev, card: str, want) -> dict:
     """Qwen3-30B-A3B at full width and depth on one card: serve the
     8-request mix with the kernels, with the engine's defaults and with
@@ -3850,11 +4385,11 @@ def run_dense(torch, dev, card: str, want) -> dict:
                            sampled)
         if want("profile"):
             phase_profile(torch, dev, cfg, params)
-    if want("http_serve") or want("swarm_serve"):
+    if want("http_serve") or want("swarm_serve") or want("sched_serve"):
         tree = [params]
         del params
         phase_http_serve(torch, dev, card, cfg, tree,
-                         swarm=want("swarm_serve"))
+                         swarm=want("swarm_serve"), sched=want("sched_serve"))
     return paths
 
 
@@ -3881,8 +4416,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="",
                     help="comma-separated phases (build,kernels,serve,"
-                         "pipeline,profile,http_serve,swarm_serve (runs "
-                         "http_serve too),moe_serve,moe_profile,"
+                         "pipeline,profile,http_serve,swarm_serve and "
+                         "sched_serve (each runs http_serve too),moe_serve,"
+                         "moe_profile,"
                          "mla_serve,mla_profile,dsa_serve,dsa_profile,"
                          "gptoss_serve,gptoss_profile); prints no result "
                          "line")
@@ -3923,7 +4459,7 @@ def main() -> int:
     free_device_memory(torch)
     paths = {}
     if any(want(p) for p in ("serve", "pipeline", "profile", "http_serve",
-                             "swarm_serve")):
+                             "swarm_serve", "sched_serve")):
         paths.update(run_dense(torch, dev, card, want))
     # Qwen2.5-7B's tensors (about 15 GB) are gone before the MoE model's
     # 61 GB are made.

@@ -12,8 +12,11 @@ host and read each request's committed ids (a Python list), while the
 backend's own thread steps the engine (whose CUDA-graph captures allow no
 CUDA call from another thread). A request asking for a feature the
 engine's ``submit`` refuses gets HTTP 501 with that refusal's text; the
-endpoints of later slices (metrics, debug, cluster status, profiling,
-scheduler init, weight refit, the web UI) answer 501 "not ported yet".
+endpoints of later slices (metrics, debug, profiling, scheduler init,
+weight refit, the web UI) answer 501 "not ported yet". ``/cluster/status``
+(an ndjson stream) and ``/cluster/status_json`` serve a ``status_fn`` where
+the frontend has one (the ``run`` frontend: the scheduler's core
+``cluster_status()``), and answer 501 elsewhere (item 9).
 """
 
 from __future__ import annotations
@@ -47,12 +50,12 @@ UNPORTED_ENDPOINTS = {
     "/cluster/status": 9,
     "/cluster/status_json": 9,
     "/profile/": 9,
-    "/scheduler/init": "4b",
+    "/scheduler/init": "4c",
     "/weight/refit": 12,
-    "/": "4b",       # the web UI: setup / join / cluster / chat pages
-    "/ui": "4b",
-    "/ui/": "4b",
-    "/chat": "4b",
+    "/": "4c",       # the web UI: setup / join / cluster / chat pages
+    "/ui": "4c",
+    "/ui/": "4c",
+    "/chat": "4c",
 }
 _POLL_DEADLINE_S = 600.0
 
@@ -265,10 +268,10 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(data)
 
-    def start_stream(self) -> None:
+    def start_stream(self, content_type: str = "text/event-stream") -> None:
         self.replied = True
         self.send_response(200)
-        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Content-Type", content_type)
         self.send_header("Cache-Control", "no-cache")
         self.send_header("Transfer-Encoding", "chunked")
         self.end_headers()
@@ -301,11 +304,15 @@ class OpenAIFrontend:
     ``submit_fn(request) -> threading.Event`` hands a request to the
     backend (the event is set when it finishes) and raises ValueError (400),
     NotImplementedError (501: a feature the engine refuses) or RuntimeError
-    (429: queue full). ``route_fn(rid) -> list[str] | None``, where given,
-    picks the request's routing table first (None: 503, no serviceable
-    pipeline; a swarm's chat host probes its head there). ``stop_fn(rid)``
-    asks the backend to gracefully finish a request early (stop-string
-    match, client disconnect)."""
+    (429: queue full). ``route_fn(rid, prompt_ids=, lora_id=) -> list[str]
+    | None``, where given, picks the request's routing table first from
+    the request's prompt ids and ``lora_id`` (its ``RequestMeta``, for
+    cache-aware routing; None: 503, no serviceable pipeline; a swarm's chat
+    host probes its head there), and a NotImplementedError from it answers
+    501. ``stop_fn(rid)`` asks the
+    backend to gracefully finish a request early (stop-string match,
+    client disconnect). ``status_fn() -> dict``, where given, serves
+    ``/cluster/status_json`` and the ``/cluster/status`` stream."""
 
     def __init__(
         self,
@@ -315,11 +322,13 @@ class OpenAIFrontend:
         model_name: str = "parallax-tpu",
         stream_poll_s: float = 0.02,
         stop_fn=None,
+        status_fn=None,
     ):
         self.tokenizer = tokenizer
         self.submit_fn = submit_fn
         self.route_fn = route_fn
         self.stop_fn = stop_fn
+        self.status_fn = status_fn
         self.model_name = model_name
         self.stream_poll_s = stream_poll_s
         self.server: http.server.ThreadingHTTPServer | None = None
@@ -329,6 +338,11 @@ class OpenAIFrontend:
             ("POST", "/v1/chat/completions"): self.chat_completions,
             ("POST", "/v1/completions"): self.completions,
         }
+        if status_fn is not None:
+            self._routes[("GET", "/cluster/status_json")] = (
+                self.cluster_status_json)
+            self._routes[("GET", "/cluster/status")] = (
+                self.cluster_status_stream)
 
     # -- serving -------------------------------------------------------------
 
@@ -398,6 +412,41 @@ class OpenAIFrontend:
             }],
         })
 
+    def cluster_status_json(self, h: _Handler) -> None:
+        h.send_json(self.status_fn())
+
+    def cluster_status_stream(self, h: _Handler) -> None:
+        """NDJSON status stream until the client leaves. ``?interval=<s>``
+        sets the cadence (default 2, floored at 0.25 s); a raising
+        ``status_fn`` emits an ``{"error": ...}`` record and the stream
+        goes on."""
+        from urllib.parse import parse_qs, urlsplit
+
+        query = parse_qs(urlsplit(h.path).query)
+        try:
+            interval = float((query.get("interval")
+                              or query.get("interval_s") or ["2.0"])[0])
+        except (TypeError, ValueError):
+            interval = 2.0
+        interval = max(0.25, interval)
+        h.start_stream("application/x-ndjson")
+        while True:
+            try:
+                status = self.status_fn()
+            except Exception as e:
+                logger.exception("status_fn failed")
+                status = {"error": str(e)}
+            try:
+                payload = json.dumps(status)
+            except (TypeError, ValueError) as e:
+                payload = json.dumps({"error": f"unserializable status: {e}"})
+            h.write_chunk((payload + "\n").encode())
+            deadline = time.monotonic() + interval
+            while time.monotonic() < deadline:
+                if h.client_gone():
+                    raise _ClientGone("status stream closed")
+                time.sleep(min(0.05, interval))
+
     def _request_lora(self, body: dict) -> str | None:
         """Adapter selection: explicit ``"lora"`` field, or the
         ``<model>:<adapter>`` model-name convention."""
@@ -455,8 +504,13 @@ class OpenAIFrontend:
         if n_choices > 1 and body.get("stream"):
             raise _Reply(400, "streaming with n > 1 is not supported")
         routing_table: list[str] = []
+        lora_id = self._request_lora(body)
         if self.route_fn is not None:
-            path = self.route_fn(rid)
+            try:
+                path = self.route_fn(rid, prompt_ids=list(prompt_ids),
+                                     lora_id=lora_id)
+            except NotImplementedError as e:
+                raise _Reply(501, str(e)) from e
             if path is None:
                 raise _Reply(503, "no serviceable pipeline")
             routing_table = list(path)
@@ -471,7 +525,7 @@ class OpenAIFrontend:
             sampling_params=sampling_params,
             routing_table=routing_table,
             eos_token_ids=tuple(self.tokenizer.eos_token_ids),
-            lora_id=self._request_lora(body),
+            lora_id=lora_id,
         )
         t_start = time.monotonic()
         done = self._submit(req)

@@ -1,22 +1,30 @@
-"""Swarm serving from a chat host (port of ``parallax_tpu/backend/run.py``'s
-``SwarmClient`` and ``chat-host``).
+"""Swarm serving: the global scheduler, its RPC service and the OpenAI
+HTTP frontend (``run``), and the chat host (``chat-host``) — port of
+``parallax_tpu/backend/run.py``.
 
+    python -m parallax_tpu_torch run --model-name DIR --min-nodes 2 \\
+        --port 3001 [--routing cache_aware]
     python -m parallax_tpu_torch chat-host --head 10.0.0.1:7000 --port 8000
 
-A chat host runs the OpenAI HTTP plane on a machine that is not a worker,
-hands each request to a scheduler-less swarm's head worker over RPC with
-an empty routing table (the head routes it from its gossip), and polls the
-head for the tokens the frontend streams. It touches no CUDA tensor.
+``run`` serves the HTTP API on ``--port`` and the scheduler's RPC on
+``--port + 1`` (``join --scheduler-addr HOST:PORT+1``): each request is
+routed to a pipeline, handed to its head worker over RPC, and its tokens
+are polled back for the frontend. A chat host fronts a scheduler-less
+swarm's head worker instead, with an empty routing table (the head routes
+it from its gossip). Neither touches the card.
 
-Not ported yet: ``run`` with its global scheduler, the scheduler's
-routing, the migration-following and re-routing rungs of the poll loop
-(they ask a scheduler where a request went), the HA failover and the web
-UI (ROADMAP queue 1 item 4b).
+Not ported yet, refused by name: the web UI and ``/scheduler/init`` with
+the model switch, scheduler HA (standbys, failover) and the relay (ROADMAP
+queue 1 item 4c); the migration-following rung of the poll loop and the
+resume of a request that already streamed tokens (``replay_ids``, item
+6); SLO, QoS, timeline, healthz, device and profile hooks (item 9).
 """
 
 from __future__ import annotations
 
+import os
 import random
+import signal
 import threading
 import time
 
@@ -24,41 +32,140 @@ from parallax_tpu_torch.backend.http_server import (
     OpenAIFrontend,
     load_tokenizer,
 )
+from parallax_tpu_torch.backend.scheduler_service import SchedulerService
 from parallax_tpu_torch.p2p import proto
 from parallax_tpu_torch.p2p.transport import TcpTransport, Transport
 from parallax_tpu_torch.runtime.request import Request, RequestStatus
-from parallax_tpu_torch.utils import get_logger
+from parallax_tpu_torch.scheduling.scheduler import GlobalScheduler
+from parallax_tpu_torch.utils import get_logger, unported
 
 logger = get_logger(__name__)
 
 
 class SwarmClient:
-    """Submits requests to a head node over the transport and mirrors
-    token progress back into the local Request (the HTTP frontend streams
-    from it). The scheduler-less form only: the JAX client's ``service``
-    (a scheduler to route through) waits for ROADMAP queue 1 item 4b."""
+    """Submits requests to head nodes over the transport and mirrors token
+    progress back into the local Request (the HTTP frontend streams from
+    it). Capability parity: reference RequestHandler forwarding + SSE relay
+    (request_handler.py:100-245).
 
-    def __init__(self, transport: Transport, poll_interval_s: float = 0.02,
-                 default_head: str | None = None):
+    Routing goes through ``service`` (an in-process scheduler), or over
+    the ``route_request`` RPC to ``scheduler_peers`` (one address: the
+    failover rotation over several waits for HA, item 4c), or — with
+    neither — to ``default_head`` with an empty routing table (a chat host
+    in front of a scheduler-less swarm)."""
+
+    def __init__(self, transport: Transport,
+                 service: SchedulerService | None = None,
+                 poll_interval_s: float = 0.02,
+                 default_head: str | None = None,
+                 scheduler_peers: list[str] | None = None):
+        if scheduler_peers and len(scheduler_peers) > 1:
+            raise unported("scheduler failover over several peers", "4c")
         self.transport = transport
+        self.service = service
         self.poll_interval_s = poll_interval_s
         self.default_head = default_head
+        self.scheduler_peer = scheduler_peers[0] if scheduler_peers else None
         # rid -> head node id, for stop-string early finish.
         self._heads: dict[str, str] = {}
+        # rid -> monotonic arrival at routing time: a path that dies
+        # before the first token is re-routed, and the re-enqueue carries
+        # the ORIGINAL arrival.
+        self._arrivals: dict[str, float] = {}
 
-    def route(self, request_id: str) -> list[str] | None:
-        """Probe the head's readiness: ``[]`` (the head routes) when it
-        can serve, None (the frontend's retryable 503) while the swarm is
-        still loading or has no route."""
-        if self.default_head is None:
-            return None
-        try:
-            r = self.transport.call(
-                self.default_head, proto.CHAT_READY, None, timeout=5.0
+    def route(self, request_id: str,
+              prompt_ids: list[int] | None = None,
+              lora_id: str | None = None) -> list[str] | None:
+        """The request's node path; None when no pipeline is serviceable
+        (the frontend's retryable 503)."""
+        if self.service is None and self.scheduler_peer is None:
+            # Chat-host mode: probe the head's readiness so a still-loading
+            # or route-less swarm maps to the frontend's 503.
+            if self.default_head is None:
+                return None
+            try:
+                r = self.transport.call(
+                    self.default_head, proto.CHAT_READY, None, timeout=5.0
+                )
+            except Exception:
+                return None
+            return [] if isinstance(r, dict) and r.get("ready") else None
+        if lora_id is not None:
+            raise unported("LoRA requests (lora_id)", 11)
+        self._arrivals[request_id] = time.monotonic()
+        path = self._route_any(request_id, prompt_ids=prompt_ids)
+        if not path:
+            # No submit will follow to retire the entry via _poll_loop.
+            self._arrivals.pop(request_id, None)
+        return path
+
+    def _route_any(self, request_id: str,
+                   prompt_ids: list[int] | None = None,
+                   arrival_time: float | None = None) -> list[str] | None:
+        """Route in-process when the scheduler is, over RPC otherwise."""
+        if self.service is not None:
+            return self.service.route_request(
+                request_id, timeout_s=10.0, prompt_ids=prompt_ids,
+                arrival_time=arrival_time,
             )
-        except Exception:
+        if self.scheduler_peer is None:
             return None
-        return [] if isinstance(r, dict) and r.get("ready") else None
+        age_ms = 0.0
+        if arrival_time is not None:
+            age_ms = max(0.0, (time.monotonic() - arrival_time) * 1e3)
+        try:
+            reply = self.transport.call(
+                self.scheduler_peer, proto.ROUTE_REQUEST,
+                {
+                    "rid": request_id,
+                    "prompt_ids": prompt_ids,
+                    "lora_id": None,
+                    "tenant_id": None,
+                    "qos_class": None,
+                    # Monotonic clocks do not survive the process hop:
+                    # ship the AGE so the scheduler re-anchors arrival.
+                    "arrival_age_ms": age_ms,
+                    "timeout_s": 10.0,
+                },
+                timeout=15.0,
+            )
+        except Exception as e:
+            logger.warning("route_request RPC failed: %s", e)
+            return None
+        path = (reply or {}).get("path")
+        return [str(x) for x in path] if path else None
+
+    def _release_path(self, path: list[str] | None) -> None:
+        """Release a routed path's load charge: in-process when the
+        scheduler is, over RPC otherwise."""
+        if not path:
+            return
+        if self.service is not None:
+            try:
+                self.service.scheduler.complete_request(list(path))
+            except Exception:
+                logger.exception("releasing path %s", path)
+            return
+        if self.scheduler_peer is None:
+            return
+        try:
+            self.transport.call(
+                self.scheduler_peer, proto.REQUEST_COMPLETE,
+                {"path": list(path)}, timeout=5.0,
+            )
+        except Exception as e:
+            logger.warning("request_complete RPC failed: %s", e)
+
+    @staticmethod
+    def _submit_payload(request: Request, path: list[str]) -> dict:
+        return {
+            "rid": request.request_id,
+            "prompt_ids": request.prompt_ids,
+            "sampling_params": request.sampling_params.to_dict(),
+            "routing_table": list(path),
+            "eos_token_ids": list(request.eos_token_ids),
+            "lora_id": request.lora_id,
+        }
 
     def submit(self, request: Request) -> threading.Event:
         if request.routing_table:
@@ -67,18 +174,15 @@ class SwarmClient:
             head = self.default_head
         else:
             raise RuntimeError("request has no routing table")
-        payload = {
-            "rid": request.request_id,
-            "prompt_ids": request.prompt_ids,
-            "sampling_params": request.sampling_params.to_dict(),
-            "routing_table": request.routing_table,
-            "eos_token_ids": list(request.eos_token_ids),
-            "lora_id": request.lora_id,
-        }
         try:
-            self.transport.call(head, proto.CHAT_SUBMIT, payload,
-                                timeout=30.0)
+            self.transport.call(
+                head, proto.CHAT_SUBMIT,
+                self._submit_payload(request, request.routing_table),
+                timeout=30.0)
         except Exception:
+            # The workers never saw this request; release the load the
+            # dispatcher charged for the path.
+            self._release_path(list(request.routing_table))
             raise RuntimeError(f"head node {head} unreachable")
         ev = threading.Event()
         self._heads[request.request_id] = head
@@ -106,11 +210,60 @@ class SwarmClient:
             self._poll_until_done(request, head, ev)
         finally:
             self._heads.pop(request.request_id, None)
+            self._arrivals.pop(request.request_id, None)
+
+    def _reroute(self, request: Request) -> str | None:
+        """The routed path died before the first token: release its load
+        charge, re-enqueue with the ORIGINAL arrival time and resubmit to
+        the new head. Returns the new head, or None when no pipeline is
+        serviceable (the caller then aborts)."""
+        rid = request.request_id
+        self._release_path(list(request.routing_table))
+        try:
+            path = self._route_any(rid, prompt_ids=list(request.prompt_ids),
+                                   arrival_time=self._arrivals.get(rid))
+        except Exception:
+            logger.exception("re-route for %s failed", rid)
+            path = None
+        if not path:
+            # Charge already released above; clear the table so the
+            # caller's abort does not release it again.
+            request.routing_table[:] = []
+            return None
+        request.routing_table[:] = path
+        head = path[0]
+        try:
+            self.transport.call(head, proto.CHAT_SUBMIT,
+                                self._submit_payload(request, path),
+                                timeout=30.0)
+        except Exception as e:
+            logger.warning("re-routed submit of %s to %s failed: %s",
+                           rid, head, e)
+            self._release_path(list(path))
+            request.routing_table[:] = []
+            return None
+        logger.info("re-routed %s onto %s (path death before first token)",
+                    rid, head)
+        return head
 
     def _poll_until_done(self, request: Request, head: str,
                          ev: threading.Event):
         rid = request.request_id
         failures = 0
+        reroutes = 0
+
+        def try_recover() -> str | None:
+            """Head unreachable or amnesiac: re-route (bounded attempts)
+            when no token has streamed yet. A request that streamed tokens
+            would resume with them as ``replay_ids``, which waits for
+            item 6: it aborts."""
+            nonlocal reroutes
+            if (self.service is None and self.scheduler_peer is None) \
+                    or reroutes >= 2 or request.output_ids:
+                return None
+            reroutes += 1
+            return self._reroute(request)
+
         while True:
             try:
                 r = self.transport.call(
@@ -120,7 +273,16 @@ class SwarmClient:
             except Exception as e:
                 failures += 1
                 if failures > 10:
+                    recovered = try_recover()
+                    if recovered:
+                        head = recovered
+                        self._heads[rid] = head
+                        failures = 0
+                        continue
                     request.abort(f"head node unreachable: {e}")
+                    # The worker cannot report completion anymore; release
+                    # the path's load charge here.
+                    self._release_path(list(request.routing_table))
                     ev.set()
                     return
                 # Jittered exponential backoff between failed polls (full
@@ -129,6 +291,12 @@ class SwarmClient:
                     0.0, min(2.0, 0.25 * 2 ** (failures - 1))))
                 continue
             if "error" in r:
+                recovered = try_recover()
+                if recovered:
+                    head = recovered
+                    self._heads[rid] = head
+                    failures = 0
+                    continue
                 request.abort(r["error"])
                 ev.set()
                 return
@@ -144,6 +312,29 @@ class SwarmClient:
                 ev.set()
                 return
             time.sleep(self.poll_interval_s)
+
+
+def build_swarm_frontend(
+    scheduler: GlobalScheduler,
+    transport: TcpTransport,
+    tokenizer,
+    model_name: str,
+) -> tuple[OpenAIFrontend, SchedulerService, SwarmClient]:
+    """The scheduler host's frontend: the RPC service over ``transport``
+    and the OpenAI API routing through it, with ``/cluster/status_json``
+    and ``/cluster/status`` serving the scheduler's core
+    ``cluster_status()``."""
+    service = SchedulerService(scheduler, transport)
+    client = SwarmClient(transport, service)
+    frontend = OpenAIFrontend(
+        tokenizer,
+        submit_fn=client.submit,
+        route_fn=client.route,
+        status_fn=lambda: service.scheduler.cluster_status(),
+        model_name=model_name,
+        stop_fn=client.stop,
+    )
+    return frontend, service, client
 
 
 def build_chat_host_frontend(
@@ -171,12 +362,25 @@ def build_chat_host_frontend(
     return frontend, client
 
 
+def _serve_until_signalled(frontend: OpenAIFrontend, host: str, port: int,
+                           started) -> None:
+    """Run ``frontend`` until SIGINT / SIGTERM (handlers are installed on
+    the main thread only) or :meth:`OpenAIFrontend.shutdown`."""
+    if threading.current_thread() is threading.main_thread():
+        # shutdown() blocks until serve_forever returns: call it off the
+        # serving thread.
+        def shutdown(*_):
+            threading.Thread(target=frontend.shutdown, daemon=True).start()
+
+        signal.signal(signal.SIGINT, shutdown)
+        signal.signal(signal.SIGTERM, shutdown)
+    frontend.run(host=host, port=port, on_start=started)
+
+
 def chat_host_main(args, on_start=None) -> int:
     """CLI ``chat-host``: serve the OpenAI API, proxying to a swarm head
     worker, until the frontend shuts down (SIGINT / SIGTERM).
     ``on_start(frontend)`` runs once the socket is bound."""
-    import signal
-
     tokenizer = load_tokenizer(args.model_path)
     frontend, client = build_chat_host_frontend(
         args.head, tokenizer, args.model_name or "parallax-tpu",
@@ -187,16 +391,67 @@ def chat_host_main(args, on_start=None) -> int:
         if on_start is not None:
             on_start(fe)
 
-    if threading.current_thread() is threading.main_thread():
-        # shutdown() blocks until serve_forever returns: call it off the
-        # serving thread.
-        def shutdown(*_):
-            threading.Thread(target=frontend.shutdown, daemon=True).start()
-
-        signal.signal(signal.SIGINT, shutdown)
-        signal.signal(signal.SIGTERM, shutdown)
     try:
-        frontend.run(host=args.host, port=args.port, on_start=started)
+        _serve_until_signalled(frontend, args.host, args.port, started)
     finally:
         client.transport.stop()
+    return 0
+
+
+def resolve_model(name: str):
+    """``run --model-name``: a checkpoint directory's config, or a preset
+    (``models/presets.py``)."""
+    from parallax_tpu_torch.config import load_config
+    from parallax_tpu_torch.models.presets import get_preset
+
+    if os.path.isdir(name):
+        return load_config(name)
+    try:
+        return get_preset(name)
+    except KeyError:
+        raise ValueError(f"unknown model {name}")
+
+
+def run_main(args, on_start=None) -> int:
+    """``run`` entry: the scheduler, its RPC service on ``--port + 1`` and
+    the HTTP frontend on ``--port``, until SIGINT / SIGTERM. ``--port 0``
+    binds both to free ports, logged once the HTTP socket is bound.
+    ``on_start(frontend, service)`` runs once the HTTP socket is bound.
+    Nothing here touches a device."""
+    try:
+        model = resolve_model(args.model_name)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    tokenizer = load_tokenizer(
+        args.model_name if os.path.isdir(args.model_name) else None
+    )
+    routing_kwargs = None
+    if args.routing in ("cache_aware", "cache-aware"):
+        routing_kwargs = {
+            "alpha": args.routing_alpha,
+            "beta": args.routing_beta,
+            "imbalance_threshold": args.routing_imbalance,
+            "gamma": args.routing_gamma or 0.0,
+        }
+    scheduler = GlobalScheduler(
+        model, min_nodes_bootstrapping=args.min_nodes,
+        routing=args.routing, routing_kwargs=routing_kwargs,
+    )
+    transport = TcpTransport("scheduler", args.host,
+                             args.port + 1 if args.port else 0)
+    frontend, service, _client = build_swarm_frontend(
+        scheduler, transport, tokenizer, args.model_name,
+    )
+    service.start()
+
+    def started(fe: OpenAIFrontend) -> None:
+        logger.info("scheduler RPC on :%d, HTTP on :%d (min_nodes=%d)",
+                    transport.port, fe.port, args.min_nodes)
+        if on_start is not None:
+            on_start(fe, service)
+
+    try:
+        _serve_until_signalled(frontend, args.host, args.port, started)
+    finally:
+        service.stop()
     return 0

@@ -1,0 +1,257 @@
+"""Control-plane RPC service: nodes <-> GlobalScheduler (port of
+``parallax_tpu/backend/scheduler_service.py``).
+
+Capability parity: reference ``src/backend/server/rpc_connection_handler.py``
+(node_join blocking until allocation <=300 s, node_update heartbeat with
+reallocation piggyback + auto-rejoin, node_leave) and the
+``SchedulerManage`` glue (scheduler_manage.py:185-200).
+
+The replies keep the JAX service's keys (``start_layer`` / ``end_layer``,
+``standby``, ``rejoin``, ``want_digests``, ``digests_resync``, ``drain``,
+``model_name``, ``epoch``); the epoch stays 1 until scheduler HA. The RPCs
+of planes the port does not run yet get no handler, so a worker asking for
+one gets the transport's "no handler" reply, as from a JAX scheduler built
+without them: ``migrate_target``, ``migration_done`` and ``where_is``
+(live migration, ROADMAP queue 1 item 6), ``disagg_target`` (roles, item
+4c) and ``ha_sync`` (HA, item 4c). Standby addresses and specialist roles
+are refused by name (item 4c).
+"""
+
+from __future__ import annotations
+
+import time
+
+from parallax_tpu_torch.p2p import proto
+from parallax_tpu_torch.p2p.transport import Transport
+from parallax_tpu_torch.scheduling.request_routing import RequestMeta
+from parallax_tpu_torch.scheduling.scheduler import GlobalScheduler
+from parallax_tpu_torch.utils import get_logger, unported
+from parallax_tpu_torch.utils.hw import HardwareInfo
+
+logger = get_logger(__name__)
+
+
+def _dict_or_none(payload: dict, key: str) -> dict | None:
+    value = payload.get(key)
+    return value if isinstance(value, dict) else None
+
+
+class SchedulerService:
+    """Exposes a GlobalScheduler over the transport RPC surface."""
+
+    def __init__(
+        self,
+        scheduler: GlobalScheduler,
+        transport: Transport,
+        join_timeout_s: float = 300.0,
+    ):
+        self.scheduler = scheduler
+        self.transport = transport
+        self.join_timeout_s = join_timeout_s
+        transport.register(proto.NODE_JOIN, self._on_join)
+        transport.register(proto.NODE_UPDATE, self._on_update)
+        transport.register(proto.NODE_LEAVE, self._on_leave)
+        transport.register(proto.REQUEST_COMPLETE, self._on_request_complete)
+        transport.register(proto.PEER_DOWN, self._on_peer_down)
+        transport.register(proto.ROUTE_REQUEST, self._on_route_request)
+        transport.register("__ping__", lambda *_: "pong")
+
+    def start(self) -> None:
+        self.transport.start()
+        self.scheduler.start()
+
+    def stop(self) -> None:
+        self.scheduler.stop()
+        self.transport.stop()
+
+    # -- handlers (run on transport worker threads) -------------------------
+
+    def _on_join(self, _peer: str, payload: dict) -> dict:
+        """Blocks until the node has an allocation, or returns a STANDBY
+        acknowledgement: once the swarm is bootstrapped, an unneeded
+        joiner goes to standby and receives layers via heartbeat replies
+        when the topology changes."""
+        node_id = payload["node_id"]
+        role = payload.get("role")
+        if isinstance(role, str) and role.lower() != "mixed":
+            raise unported(f"node_join with role {role!r}", "4c")
+        hw = HardwareInfo.from_dict(payload["hardware"])
+        self.scheduler.enqueue_join(
+            node_id, hw,
+            wire_formats=(
+                [str(f) for f in payload["wire_formats"]]
+                if isinstance(payload.get("wire_formats"), (list, tuple))
+                else None
+            ),
+            role=role if isinstance(role, str) else None,
+        )
+        deadline = time.monotonic() + self.join_timeout_s
+        while time.monotonic() < deadline:
+            alloc = self.scheduler.get_node_allocation(node_id)
+            if alloc is not None:
+                return self._with_model(alloc)
+            if self.scheduler.bootstrapped.is_set():
+                grace = time.monotonic() + 2.0
+                while time.monotonic() < grace:
+                    alloc = self.scheduler.get_node_allocation(node_id)
+                    if alloc is not None:
+                        return self._with_model(alloc)
+                    time.sleep(0.05)
+                return self._with_epoch({"standby": True})
+            time.sleep(0.05)
+        return {"error": "no allocation within timeout"}
+
+    def _with_model(self, alloc: dict) -> dict:
+        """Allocations carry the serving model's name."""
+        alloc = dict(alloc)
+        alloc["model_name"] = self.scheduler.model.model_name
+        return self._with_epoch(alloc)
+
+    def _with_epoch(self, reply: dict) -> dict:
+        reply["epoch"] = self.scheduler.epoch
+        return reply
+
+    def _on_update(self, _peer: str, payload: dict) -> dict:
+        node_id = payload["node_id"]
+        if self.scheduler.manager.get(node_id) is None:
+            # Auto-rejoin after scheduler restart/eviction (reference
+            # rpc_connection_handler.py:71-113).
+            if "hardware" in payload:
+                self.scheduler.enqueue_join(
+                    node_id, HardwareInfo.from_dict(payload["hardware"])
+                )
+            return self._with_epoch({"rejoin": True})
+        self.scheduler.enqueue_update(
+            node_id,
+            layer_latency_ms=payload.get("layer_latency_ms"),
+            load=payload.get("load"),
+            rtt_s=payload.get("rtt_s"),
+            is_ready=payload.get("is_ready"),
+            refit_version=payload.get("refit_version"),
+            lora_adapters=(
+                [str(a) for a in payload["lora_adapters"]]
+                if isinstance(payload.get("lora_adapters"), (list, tuple))
+                else None
+            ),
+            step_timing=_dict_or_none(payload, "step_timing"),
+            cache_stats=_dict_or_none(payload, "cache_stats"),
+            kernel=_dict_or_none(payload, "kernel"),
+            spec=_dict_or_none(payload, "spec"),
+            constrained=_dict_or_none(payload, "constrained"),
+            transport=_dict_or_none(payload, "transport"),
+            # Prefix-digest delta/snapshot (cache-aware routing): folded
+            # into the node's scheduler-side CacheIndex.
+            cache_digests=_dict_or_none(payload, "cache_digests"),
+            # Engine reload in progress: the sweep extends this node's
+            # grace instead of declaring a loading worker dead.
+            busy=bool(payload["busy"]) if "busy" in payload else None,
+            goodput=_dict_or_none(payload, "goodput"),
+            device=_dict_or_none(payload, "device"),
+            health=_dict_or_none(payload, "health"),
+        )
+        alloc = self._with_model(
+            self.scheduler.get_node_allocation(node_id) or {})
+        alloc["refit_version"] = self.scheduler.refit_version
+        alloc["refit_index"] = (
+            self.scheduler.refit_index
+            if (payload.get("refit_version") or 0)
+            < self.scheduler.refit_version
+            else None
+        )
+        if self.scheduler.digests_resync_requested(node_id):
+            # A delta arrived out of sequence: the worker's next beat
+            # must carry a full digest snapshot.
+            alloc["digests_resync"] = True
+        drain = self.scheduler.drain_requested(node_id)
+        if drain:
+            # A pipeline through these dead peers is dissolving.
+            alloc["drain"] = drain
+        return alloc
+
+    def _on_leave(self, _peer: str, payload: dict):
+        self.scheduler.enqueue_leave(payload["node_id"])
+        return "ok"
+
+    def _on_request_complete(self, _peer: str, payload: dict):
+        self.scheduler.complete_request(
+            payload.get("path") or [],
+            request_id=payload.get("rid"),
+            cached_tokens=payload.get("cached_tokens"),
+        )
+        return "ok"
+
+    def _on_peer_down(self, _peer: str, payload: dict):
+        """A worker's async sender declared a next-hop peer dead: mark
+        its CacheIndex stale immediately and accelerate its sweep."""
+        self.scheduler.enqueue_peer_down(
+            str(payload.get("reporter") or _peer or "?"),
+            str(payload["peer"]),
+            str(payload.get("reason") or ""),
+        )
+        return "ok"
+
+    def _on_route_request(self, _peer: str, payload: dict) -> dict:
+        """RPC twin of :meth:`route_request` for clients without an
+        in-process handle on this scheduler."""
+        rid = payload.get("rid")
+        if not isinstance(rid, str):
+            return {}
+        try:
+            age_ms = float(payload.get("arrival_age_ms") or 0.0)
+        except (TypeError, ValueError):
+            age_ms = 0.0
+        try:
+            timeout_s = float(payload.get("timeout_s") or 10.0)
+        except (TypeError, ValueError):
+            timeout_s = 10.0
+        prompt_ids = payload.get("prompt_ids")
+        path = self.route_request(
+            rid,
+            timeout_s=min(timeout_s, self.join_timeout_s),
+            prompt_ids=(
+                [int(t) for t in prompt_ids]
+                if isinstance(prompt_ids, (list, tuple)) else None
+            ),
+            lora_id=(
+                str(payload["lora_id"])
+                if isinstance(payload.get("lora_id"), str) else None
+            ),
+            arrival_time=time.monotonic() - age_ms / 1e3,
+            tenant_id=(
+                str(payload["tenant_id"])
+                if isinstance(payload.get("tenant_id"), str) else None
+            ),
+            qos_class=(
+                str(payload["qos_class"])
+                if isinstance(payload.get("qos_class"), str) else None
+            ),
+        )
+        if path is None:
+            return self._with_epoch({})
+        return self._with_epoch({"path": path})
+
+    # -- routing for the HTTP plane -----------------------------------------
+
+    def route_request(self, request_id: str, timeout_s: float = 5.0,
+                      prompt_ids: list[int] | None = None,
+                      lora_id: str | None = None,
+                      arrival_time: float | None = None,
+                      tenant_id: str | None = None,
+                      qos_class: str | None = None) -> list[str] | None:
+        """Block until the dispatcher assigns a node path (reference
+        scheduler_manage.get_routing_table, scheduler_manage.py:287-313).
+        ``prompt_ids`` (already tokenized by the HTTP frontend) feed the
+        cache-aware router."""
+        meta = RequestMeta(
+            request_id, prompt_ids=prompt_ids, lora_id=lora_id,
+            tenant_id=tenant_id, qos_class=qos_class,
+        ) if prompt_ids else None
+        pr = self.scheduler.receive_request(
+            request_id, meta=meta, arrival_time=arrival_time,
+        )
+        if not pr.event.wait(timeout_s):
+            # Caller gives up: mark cancelled so a late dispatch does not
+            # charge node load for a path nobody will use.
+            pr.cancelled = True
+            return None
+        return pr.path_ids

@@ -1,30 +1,36 @@
 """parallax-tpu-torch command line interface (port of
-``parallax_tpu/cli.py``'s ``serve``, ``generate``, ``join`` and
-``chat-host``).
+``parallax_tpu/cli.py``'s ``serve``, ``generate``, ``run``, ``join``,
+``chat`` and ``chat-host``).
 
     python -m parallax_tpu_torch serve --model-path DIR [--port 8000]
     python -m parallax_tpu_torch generate --model-path DIR --prompt "Hi"
+    python -m parallax_tpu_torch run --model-name DIR --min-nodes 2 \
+        [--port 3001] [--routing cache_aware]
+    python -m parallax_tpu_torch join --scheduler-addr HOST:3002 \
+        --model-path DIR
     python -m parallax_tpu_torch join --model-path DIR --start-layer 0 \
         --end-layer 14 --peers HOST:PORT [--port 7000]
+    python -m parallax_tpu_torch chat [--base-url http://127.0.0.1:8000]
     python -m parallax_tpu_torch chat-host --head HOST:PORT [--port 8000]
 
 The flags keep the JAX package's names and defaults, plus ``--device``
-(default ``cuda:0``; ``--device cpu`` runs the plain PyTorch path). A flag
-whose feature the port does not run yet exits with code 2 and names the
-ROADMAP queue 1 item that ports it; so do the JAX CLI's other subcommands.
-``join`` runs the scheduler-less worker only: ``--scheduler-addr`` and the
-flags that need a scheduler name item 4b.
+(default ``cuda:0``; ``--device cpu`` runs the plain PyTorch path) and the
+``--host`` the HTTP entry points bind. A flag whose feature the port does
+not run yet exits with code 2 and names the ROADMAP queue 1 item that
+ports it; so do the JAX CLI's other subcommands. ``run`` touches no
+device; its scheduler's RPC listens on ``--port + 1``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
+import time
 
 # The JAX CLI's subcommands that wait for later slices -> ROADMAP item.
-UNPORTED_COMMANDS = {"run": "4b", "chat": "4b", "bench": 5,
-                     "lora-merge": 11}
+UNPORTED_COMMANDS = {"bench": 5, "lora-merge": 11}
 
 
 def _add_engine_flags(p: argparse.ArgumentParser) -> None:
@@ -111,8 +117,16 @@ def build_parser() -> argparse.ArgumentParser:
     gen.add_argument("--top-k", type=int, default=-1)
     gen.add_argument("--top-p", type=float, default=1.0)
 
+    run = sub.add_parser("run", help="launch the scheduler + frontend")
+    _add_run_flags(run)
+
     join = sub.add_parser("join", help="join a swarm as a worker")
     _add_join_flags(join)
+
+    chat = sub.add_parser("chat", help="interactive chat against a server")
+    chat.add_argument("--base-url", default="http://127.0.0.1:8000")
+    chat.add_argument("--max-tokens", type=int, default=512)
+    chat.add_argument("--temperature", type=float, default=0.7)
 
     chost = sub.add_parser(
         "chat-host",
@@ -131,12 +145,66 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _add_run_flags(run: argparse.ArgumentParser) -> None:
+    """The JAX ``run``'s flags, plus ``--host``."""
+    run.add_argument("--model-name", required=True,
+                     help="checkpoint directory (its config and tokenizer) "
+                          "or a preset name")
+    run.add_argument("--min-nodes", type=int, default=1)
+    run.add_argument("--port", type=int, default=3001,
+                     help="HTTP port; the scheduler's RPC listens on "
+                          "port + 1 (0: both on free ports, logged)")
+    run.add_argument("--host", default="0.0.0.0")
+    run.add_argument("--routing", default="rr",
+                     choices=["rr", "dp", "random", "cache_aware"],
+                     help="request routing strategy: rr round-robins "
+                          "registered pipelines; dp shortest-latency over "
+                          "announced layer ranges; random latency-weighted; "
+                          "cache_aware scores pipelines by predicted "
+                          "prefix-cache hit plus load")
+    run.add_argument("--routing-alpha", type=float, default=1.0,
+                     help="cache_aware: cost per predicted UNCACHED prompt "
+                          "token")
+    run.add_argument("--routing-beta", type=float, default=256.0,
+                     help="cache_aware: cost per in-flight request on the "
+                          "head")
+    run.add_argument("--routing-imbalance", type=int, default=8,
+                     help="cache_aware: in-flight spread past which "
+                          "dispatch falls back to least-loaded")
+    run.add_argument("--routing-gamma", type=float, default=0.0)
+    run.add_argument("--relay-token", default=None)
+    run.add_argument("--slo", default=None)
+    run.add_argument("--slo-window-s", type=float, default=300.0)
+    run.add_argument("--qos", default=None)
+    run.add_argument("--scheduler-standby", default=None)
+    run.add_argument("--standby-of", default=None)
+    run.add_argument("--ha-lease-s", type=float, default=6.0)
+
+
+def unported_run_flags(args) -> list[tuple[str, int | str]]:
+    """``run``'s flags whose feature the port does not run yet, each with
+    the ROADMAP queue 1 item that ports it."""
+    refused = []
+    for on, flag, item in (
+        (args.routing_gamma > 0, f"--routing-gamma {args.routing_gamma}",
+         9),
+        (args.slo is not None, "--slo", 9),
+        (args.qos is not None, "--qos", 9),
+        (args.scheduler_standby is not None, "--scheduler-standby", "4c"),
+        (args.standby_of is not None, "--standby-of", "4c"),
+        (args.relay_token is not None, "--relay-token", "4c"),
+    ):
+        if on:
+            refused.append((flag, item))
+    return refused
+
+
 def _add_join_flags(join: argparse.ArgumentParser) -> None:
     """The JAX ``join``'s flags, plus ``--device``."""
     join.add_argument("--scheduler-addr", default=None,
-                      help="scheduler RPC address (not ported yet: omit it "
-                           "for scheduler-less mode, which needs --peers "
-                           "and --start-layer / --end-layer)")
+                      help="scheduler RPC address (run's --port + 1); omit "
+                           "it for scheduler-less mode, which needs --peers "
+                           "and --start-layer / --end-layer")
     join.add_argument("--peers", default=None,
                       help="comma-separated worker addresses to gossip "
                            "block announcements with")
@@ -206,11 +274,10 @@ def unported_join_flags(args) -> list[tuple[str, int | str]]:
     the ROADMAP queue 1 item that ports it."""
     refused = []
     for on, flag, item in (
-        (args.scheduler_addr is not None, "--scheduler-addr", "4b"),
-        (args.scheduler_standby is not None, "--scheduler-standby", "4b"),
-        (args.relay, "--relay", "4b"),
-        (args.relay_token is not None, "--relay-token", "4b"),
-        (args.role is not None, f"--role {args.role}", "4b"),
+        (args.scheduler_standby is not None, "--scheduler-standby", "4c"),
+        (args.relay, "--relay", "4c"),
+        (args.relay_token is not None, "--relay-token", "4c"),
+        (args.role is not None, f"--role {args.role}", "4c"),
         (args.model_path is not None and not os.path.isdir(args.model_path),
          f"--model-path {args.model_path} (not a local directory: a hub "
          "download)", 12),
@@ -240,7 +307,9 @@ def unported_flags(args) -> list[tuple[str, int | str]]:
     with the ROADMAP queue 1 item that ports it."""
     if args.command == "join":
         return unported_join_flags(args)
-    if args.command == "chat-host":
+    if args.command == "run":
+        return unported_run_flags(args)
+    if args.command in ("chat", "chat-host"):
         return []
     refused = []
 
@@ -266,7 +335,7 @@ def unported_flags(args) -> list[tuple[str, int | str]]:
     refuse(args.draft_model_path is not None, "--draft-model-path", 7)
     refuse(args.speculative_tokens > 0, "--speculative-tokens", 7)
     refuse(bool(args.host_cache_bytes), "--host-cache-bytes", 6)
-    refuse(args.wire_dtype is not None, "--wire-dtype", "4b")
+    refuse(args.wire_dtype is not None, "--wire-dtype", "4c")
     refuse(args.trace_sample_rate > 0, "--trace-sample-rate", 9)
     refuse(args.watchdog, "--watchdog", 9)
     refuse(args.slo is not None, "--slo", 9)
@@ -278,8 +347,88 @@ def unported_flags(args) -> list[tuple[str, int | str]]:
         if (args.start_layer or 0, args.end_layer or n) != (0, n):
             refused.append((f"--start-layer {args.start_layer} "
                             f"--end-layer {args.end_layer} (a partial "
-                            f"stage of {n} layers)", "4b"))
+                            f"stage of {n} layers)", "4c"))
     return refused
+
+
+def _usage(chunk: dict | None) -> dict | None:
+    usage = (chunk or {}).get("usage")
+    return usage if isinstance(usage, dict) else None
+
+
+def chat_main(args, input_fn=input) -> int:
+    """Interactive streaming chat REPL against an OpenAI endpoint
+    (reference ``parallax chat``; the JAX package's ``chat_main``), on the
+    standard library. ``/quit`` exits, ``/clear`` resets the history;
+    each turn prints its token count, rate and TTFT."""
+    import urllib.request
+
+    history: list[dict] = []
+    print(f"chatting with {args.base_url} — /quit to exit, /clear to reset")
+    while True:
+        try:
+            user = input_fn("you> ").strip()
+        except (EOFError, KeyboardInterrupt):
+            print()
+            return 0
+        if not user:
+            continue
+        if user == "/quit":
+            return 0
+        if user == "/clear":
+            history.clear()
+            continue
+        history.append({"role": "user", "content": user})
+        payload = json.dumps({
+            "model": "parallax-tpu",
+            "messages": history,
+            "max_tokens": args.max_tokens,
+            "temperature": args.temperature,
+            "stream": True,
+        }).encode()
+        req = urllib.request.Request(
+            f"{args.base_url}/v1/chat/completions", data=payload,
+            headers={"Content-Type": "application/json"},
+        )
+        reply = []
+        try:
+            t0 = time.monotonic()
+            t_first = t_last = None
+            final = None
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                for raw in resp:
+                    line = raw.decode().strip()
+                    if not line.startswith("data: ") or line == "data: [DONE]":
+                        continue
+                    chunk = json.loads(line[6:])
+                    if _usage(chunk):
+                        final = chunk
+                    delta = chunk["choices"][0].get("delta", {}).get(
+                        "content")
+                    if delta:
+                        t_last = time.monotonic()
+                        if t_first is None:
+                            t_first = t_last
+                        reply.append(delta)
+                        print(delta, end="", flush=True)
+            print()
+            usage = _usage(final)
+            if usage is not None and t_first is not None:
+                out_toks = int(usage["completion_tokens"])
+                span = (t_last or t_first) - t_first
+                rate = f" · {out_toks / span:.1f} tok/s" if span > 0 else ""
+                ttft_ms = int((t_first - t0) * 1000)
+                print(f"[{out_toks} tokens{rate} · ttft {ttft_ms} ms]")
+        except KeyboardInterrupt:
+            # Cancel the turn, keep the REPL alive.
+            print("\n[interrupted]")
+            history.pop()
+            continue
+        except Exception as e:
+            print(f"\n[error: {e}]")
+            history.pop()
+            continue
+        history.append({"role": "assistant", "content": "".join(reply)})
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -307,6 +456,12 @@ def main(argv: list[str] | None = None) -> int:
         from parallax_tpu_torch.p2p.join import join_main
 
         return join_main(args)
+    if args.command == "run":
+        from parallax_tpu_torch.backend.run import run_main
+
+        return run_main(args)
+    if args.command == "chat":
+        return chat_main(args)
     if args.command == "chat-host":
         from parallax_tpu_torch.backend.run import chat_host_main
 

@@ -1,15 +1,20 @@
-"""``parallax-tpu-torch join`` entry: run a scheduler-less worker node until
-SIGINT / SIGTERM (port of ``parallax_tpu/p2p/join.py``).
+"""``parallax-tpu-torch join`` entry: run a worker node until SIGINT /
+SIGTERM (port of ``parallax_tpu/p2p/join.py``).
 
+    python -m parallax_tpu_torch join --scheduler-addr 10.0.0.1:3002 \\
+        --model-path DIR --port 7000
     python -m parallax_tpu_torch join --model-path DIR --start-layer 0 \\
         --end-layer 14 --peers 10.0.0.2:7001 --port 7000
 
-The worker serves layers ``[--start-layer, --end-layer)`` of the
-checkpoint on ``--device`` (default ``cuda:0``) and gossips its block
-with ``--peers``; the one holding layer 0 routes requests itself. Its KV
-pages come from ``EngineConfig.num_pages``, as in the JAX join, so two
-workers share one card. The host KV tier is off (ROADMAP queue 1 item 6);
-the JAX join sizes one from the host's RAM on an accelerator.
+With ``--scheduler-addr`` (``run``'s ``--port + 1``) the worker joins the
+global scheduler, which assigns its layers; ``join`` blocks until the
+scheduler bootstraps (``run --min-nodes``). Without it, the worker serves
+layers ``[--start-layer, --end-layer)`` of the checkpoint and gossips its
+block with ``--peers``; the one holding layer 0 routes requests itself.
+Either way it runs on ``--device`` (default ``cuda:0``). Its KV pages come
+from ``EngineConfig.num_pages``, as in the JAX join, so two workers share
+one card. The host KV tier is off (ROADMAP queue 1 item 6); the JAX join
+sizes one from the host's RAM on an accelerator.
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ def build_worker(args):
     from parallax_tpu_torch.runtime.engine import EngineConfig
     from parallax_tpu_torch.utils.hw import resolve_device
 
-    if args.start_layer is None or args.end_layer is None:
+    standalone = args.scheduler_addr is None
+    if standalone and (args.start_layer is None or args.end_layer is None):
         raise SystemExit(
             "scheduler-less mode needs --start-layer/--end-layer "
             "(and --peers unless one host serves every layer)"
@@ -64,7 +70,7 @@ def build_worker(args):
     transport.peer_id = f"{advertise_host}:{transport.port}"
     return WorkerNode(
         transport=transport,
-        scheduler_peer=None,
+        scheduler_peer=args.scheduler_addr,
         model_config=model_config,
         engine_config=EngineConfig(
             # None/0 = adaptive multi-step decode (engine default; the
@@ -82,25 +88,32 @@ def build_worker(args):
         static_peers=[
             p.strip() for p in (args.peers or "").split(",") if p.strip()
         ],
-        layers=(args.start_layer, args.end_layer),
+        layers=(args.start_layer, args.end_layer) if standalone else None,
         device=device,
     )
 
 
 def join_main(args, on_start=None) -> int:
-    """Run the worker until SIGINT / SIGTERM, then stop it, log its
-    engine's ``kernel_dispatch_summary()`` and its ``transport_stats()``
-    as JSON lines and return 0.
+    """Run the worker until SIGINT / SIGTERM, then stop it (in scheduler
+    mode that sends ``node_leave``), log its engine's
+    ``kernel_dispatch_summary()``, the process's kernel launches and its
+    ``transport_stats()`` as JSON lines and return 0.
     ``on_start(node)`` runs once the node started (its engine builds on
     the step thread)."""
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
     node = build_worker(args)
     stop = threading.Event()
     signal.signal(signal.SIGINT, lambda *_: stop.set())
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     node.start()
-    logger.info("worker %s serving layers [%d, %d) scheduler-less, peers %s",
-                node.node_id, args.start_layer, args.end_layer,
-                node.static_peers)
+    if node.standalone:
+        logger.info("worker %s serving layers [%d, %d) scheduler-less, "
+                    "peers %s", node.node_id, args.start_layer,
+                    args.end_layer, node.static_peers)
+    else:
+        logger.info("worker %s joined scheduler %s", node.node_id,
+                    args.scheduler_addr)
     if on_start is not None:
         on_start(node)
     stop.wait()
@@ -108,5 +121,6 @@ def join_main(args, on_start=None) -> int:
     if node.engine is not None:
         logger.info("kernel dispatch: %s",
                     json.dumps(node.engine.kernel_dispatch_summary()))
+    logger.info("kernel launches: %s", json.dumps(ck.launches()))
     logger.info("transport: %s", json.dumps(node.transport_stats()))
     return 0

@@ -1,12 +1,25 @@
-"""WorkerNode: the per-host serving daemon of a scheduler-less swarm (port
-of ``parallax_tpu/p2p/node.py``).
+"""WorkerNode: the per-host serving daemon (port of
+``parallax_tpu/p2p/node.py``).
 
-A worker self-assigns its layer range, gossips block announcements over
-its static peers, and — when it hosts layer 0 — computes its own
-fewest-hops routing table from the announcements (reference DHT announce +
-dijkstra routing, ``p2p/server.py:569-626``). One step thread owns the
-engine; an inbox queue decouples the transport's handler threads from it.
-Worker node ids are their transport addresses (``host:port``).
+Two modes, as in the JAX package:
+
+- **Scheduler mode** (``scheduler_peer`` set): the worker joins the global
+  scheduler (``node_join`` with its ``detect_hardware()`` summary, its wire
+  formats and role ``mixed``), builds the layer range the scheduler
+  assigns, heartbeats (``node_update``), reloads when a reply moves its
+  range, rejoins when asked, reports each finished request
+  (``request_complete``) and each peer its sender found dead
+  (``peer_down``), and says ``node_leave`` on :meth:`stop`. The head
+  serves the routing table the scheduler chose.
+- **Scheduler-less mode** (``scheduler_peer=None``): the worker
+  self-assigns its layer range, gossips block announcements over its
+  static peers, and — when it hosts layer 0 — computes its own fewest-hops
+  routing table from the announcements (reference DHT announce + dijkstra
+  routing, ``p2p/server.py:569-626``).
+
+One step thread owns the engine; an inbox queue decouples the transport's
+handler threads from it. Worker node ids are their transport addresses
+(``host:port``).
 
 Only the step thread touches CUDA: the engine is built there, and its
 ``host_hidden`` mode hands each step's forwarded hidden rows over as CPU
@@ -14,20 +27,31 @@ tensors (one pinned D2H copy a step, waited on there). The sender's
 workers, the gossip pool and the transport's threads serialize and
 deserialize CPU tensors only; ``_drain_inbox`` moves inbound rows to the
 device through ``submit_intermediate``. (One CUDA call from another
-thread breaks a global-mode graph capture.)
+thread breaks a global-mode graph capture.) Every engine, the first
+allocation's too, is built on the step thread, and a reload drops the old
+engine's KV and weights before the new ones load. The heartbeat thread
+reads host state only.
 
-Not ported yet, each refused by name with its ROADMAP queue 1 item: a
-scheduler (``scheduler_peer``, standbys, the relay, the model switch and
-roles: item 4b), live migration and the KV handoff (item 6), refit (item
-12), the watchdog, profiling, traces, metrics and goodput (item 9), LoRA
-(item 11), speculation (item 7), tensor parallelism (item 10) and the
-protobuf frames of the reference's nodes (``p2p/interop.py``, item 4b).
+By design until live migration (item 6): a ``drain`` directive and a dead
+peer abort the affected head requests, naming the peer, where the JAX
+worker checkpoints them to another pipeline. The heartbeat sends None for
+the planes not ported yet (step timing, metrics, goodput, device, health,
+events, speculation, constrained decoding).
+
+Not ported yet, each refused by name with its ROADMAP queue 1 item:
+scheduler standbys, the relay, the model switch, roles and the protobuf
+frames of the reference's nodes (``p2p/interop.py``; item 4c), live
+migration and the KV handoff (item 6), refit (item 12), the watchdog,
+profiling, traces, metrics, goodput and QoS (item 9), LoRA (item 11),
+speculation (item 7) and tensor parallelism (item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import queue
+import random
 import threading
 import time
 import uuid
@@ -57,32 +81,44 @@ from parallax_tpu_torch.runtime.request import (
     Request,
     SamplingParams,
 )
-from parallax_tpu_torch.utils import get_logger
+from parallax_tpu_torch.utils import get_logger, unported
+from parallax_tpu_torch.utils.hw import detect_hardware
 
 logger = get_logger(__name__)
-
-
-def _unported(what: str, item) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: not ported yet to parallax_tpu_torch (ROADMAP queue 1 "
-        f"item {item})")
 
 
 def _refuse_wire_request(d: dict) -> None:
     """FORWARD packet fields whose features the port does not run yet."""
     if d.get("spec_len") or d.get("spec_accepted") is not None:
-        raise _unported("pipeline speculative decoding packets", 7)
+        raise unported("pipeline speculative decoding packets", 7)
     if d.get("lora_id") is not None:
-        raise _unported("LoRA packets", 11)
+        raise unported("LoRA packets", 11)
     if d.get("trace"):
-        raise _unported("traced packets", 9)
+        raise unported("traced packets", 9)
     if d.get("qos") is not None:
-        raise _unported("QoS-tagged packets", 9)
+        raise unported("QoS-tagged packets", 9)
+
+
+def _refuse_scheduler_reply(reply: dict) -> None:
+    """Scheduler reply keys whose planes the port does not run yet. Their
+    off values pass (a JAX scheduler always sends ``role`` and
+    ``refit_index``)."""
+    if reply.get("not_primary") or reply.get("standbys"):
+        raise unported("scheduler HA replies (not_primary, standbys)",
+                       "4c")
+    role = reply.get("role")
+    if role is not None and role != "mixed":
+        raise unported(f"a scheduler-assigned role {role!r}", "4c")
+    if reply.get("refit_index"):
+        raise unported("weight refit (refit_index)", 12)
+    if "qos_shed" in reply:
+        raise unported("the cluster QoS shed verdict (qos_shed)", 9)
 
 
 class WorkerNode:
-    """Serves its layer range in a scheduler-less swarm, forwards
-    activations to the next hop and, at the head, answers chat RPCs."""
+    """Serves its layer range (assigned by the scheduler, or self-assigned
+    in a scheduler-less swarm), forwards activations to the next hop and,
+    at the head, answers chat RPCs."""
 
     def __init__(
         self,
@@ -96,15 +132,15 @@ class WorkerNode:
         layers: tuple[int, int] | None = None,
         device=None,
     ):
-        """``scheduler_peer`` must be None (SCHEDULER-LESS mode, the only
-        one ported): the worker self-assigns ``layers``. ``device`` is the
-        engine's (None = ``cuda:0``, ``"cpu"`` for the plain path). The
-        JAX worker's other
-        arguments (mesh, refit cache, LoRA, watchdog, role, standbys) wait
-        for their items; ``join`` refuses their flags by name."""
-        if scheduler_peer is not None:
-            raise _unported("a scheduler (scheduler_peer)", "4b")
-        if layers is None:
+        """``scheduler_peer`` is the scheduler's RPC address; None enters
+        SCHEDULER-LESS mode, where the worker self-assigns ``layers``.
+        ``device`` is the engine's (None = ``cuda:0``, ``"cpu"`` for the
+        plain path). The JAX worker's other arguments (mesh, refit cache,
+        LoRA, watchdog, role, standbys, the model resolver) wait for their
+        items; ``join`` refuses their flags by name."""
+        self.scheduler_peer = scheduler_peer
+        self.standalone = scheduler_peer is None
+        if self.standalone and layers is None:
             raise ValueError(
                 "scheduler-less mode requires explicit layers=(start, end)"
             )
@@ -132,6 +168,25 @@ class WorkerNode:
         self.engine: StageEngine | None = None
         self.start_layer = -1
         self.end_layer = -1
+        # The step loop's in-flight ticket and its engine (a reload drops
+        # both before the new engine loads).
+        self._pending = None
+        self._pending_engine: StageEngine | None = None
+        # Prefix-digest publishing (cache-aware routing): a per-payload
+        # sequence number and the full-snapshot flag. A lost heartbeat
+        # leaves a seq gap the scheduler answers with digests_resync.
+        self._digests_seq = 0
+        self._digests_full_next = True
+        # Engine reload in progress: rides heartbeats so the scheduler's
+        # sweep extends this node's grace while it loads.
+        self._busy_reloading = False
+        # The model name of the first allocation (a later one naming
+        # another model is a model switch: item 4c).
+        self._served_model_name: str | None = None
+        # The highest scheduler epoch seen, echoed on heartbeats.
+        self._sched_epoch = 1
+        # detect_hardware()'s summary, read by the first join.
+        self._hardware: dict | None = None
         self._inbox: queue.Queue = queue.Queue()
         # Set by every _post(): the step thread parks on it when idle.
         self._wake = threading.Event()
@@ -148,7 +203,7 @@ class WorkerNode:
         want = resolve_wire_dtype(self.engine_config.wire_dtype,
                                   model_config.dtype)
         if want == "float8_e4m3fn":
-            raise _unported("the float8 wire mode", proto.FP8_ITEM)
+            raise unported("the float8 wire mode", proto.FP8_ITEM)
         # Negotiated wire dtype per link: peer -> (dtype | None,
         # expires_at); None ships native frames. Writes that follow a slow
         # probe go through _wire_lock plus the per-peer forget generation,
@@ -184,43 +239,135 @@ class WorkerNode:
     @staticmethod
     def _refusal(what: str, item):
         def handler(_peer, _payload):
-            raise _unported(what, item)
+            raise unported(what, item)
 
         return handler
 
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> None:
-        """Serve. The (slow) engine build happens on the step thread, so
-        announcements flow from the first moment."""
+        """Join (scheduler mode), then serve. The join RPC only fetches the
+        allocation: every engine is built on the step thread, so
+        heartbeats and announcements flow from the first moment. The join
+        blocks until the scheduler bootstraps (up to its join timeout)."""
         self.transport.start()
-        s, e = self._self_layers
-        logger.info("%s: scheduler-less, self-assigned layers [%d, %d)",
-                    self.node_id, s, e)
+        if self.standalone:
+            s, e = self._self_layers
+            alloc = {"start_layer": s, "end_layer": e}
+            logger.info("%s: scheduler-less, self-assigned layers [%d, %d)",
+                        self.node_id, s, e)
+        else:
+            alloc = self._join()
         for fn in (self._announcer_loop, self._step_loop):
             t = threading.Thread(target=fn, daemon=True, name=fn.__name__)
             t.start()
             self._threads.append(t)
-        self._post(("reload", {"start_layer": s, "end_layer": e}))
+        if "start_layer" in alloc:
+            self._post(("reload", alloc))
+        else:
+            logger.info("%s: joined as standby", self.node_id)
 
     def stop(self) -> None:
+        if self._stop.is_set():
+            return
         self._stop.set()
         for t in self._threads:
             t.join(timeout=3.0)
         self.sender.close()
         if self._gossip_pool is not None:
             self._gossip_pool.shutdown(wait=False, cancel_futures=True)
+        if not self.standalone:
+            try:
+                self.transport.call(
+                    self.scheduler_peer, proto.NODE_LEAVE,
+                    {"node_id": self.node_id}, timeout=5.0,
+                )
+            except Exception:
+                pass
         self.transport.stop()
 
-    # -- allocation ---------------------------------------------------------
+    # -- join + allocation ----------------------------------------------------
+
+    def _join(self, timeout_s: float = 300.0) -> dict:
+        """``node_join``: blocks until the scheduler allocates (or parks
+        this node as standby). A scheduler that does not accept
+        connections yet is dialed again, with jittered backoff, until
+        ``timeout_s`` (as the JAX worker's failover wrapper retries). The
+        hardware summary is read once, by the first join (on the thread
+        that calls :meth:`start`): a rejoin runs on the heartbeat thread,
+        which makes no CUDA call."""
+        if self._hardware is None:
+            self._hardware = detect_hardware(self.device).to_dict()
+        payload = {
+            "node_id": self.node_id,
+            "hardware": self._hardware,
+            # The dtype names this build decodes on activation frames.
+            "wire_formats": list(proto.WIRE_DTYPES),
+            # Roles wait for item 4c: every port worker serves both phases.
+            "role": "mixed",
+        }
+        deadline = time.monotonic() + timeout_s
+        backoff = 0.25
+        while True:
+            try:
+                reply = self.transport.call(
+                    self.scheduler_peer, proto.NODE_JOIN, payload,
+                    timeout=max(1.0, deadline - time.monotonic()),
+                )
+                break
+            except OSError as e:
+                if time.monotonic() + backoff > deadline:
+                    raise
+                logger.info("%s: scheduler %s not reachable yet (%s)",
+                            self.node_id, self.scheduler_peer, e)
+                time.sleep(random.uniform(backoff / 2, backoff))
+                backoff = min(2.0, backoff * 2)
+        if not reply or ("start_layer" not in reply
+                         and "standby" not in reply):
+            raise RuntimeError(f"join rejected: {reply}")
+        _refuse_scheduler_reply(reply)
+        self._sched_epoch = max(self._sched_epoch,
+                                int(reply.get("epoch") or 1))
+        return reply
 
     def _apply_allocation(self, alloc: dict) -> None:
+        if "start_layer" not in alloc:
+            return
+        self._busy_reloading = True
+        try:
+            self._apply_allocation_inner(alloc)
+        finally:
+            self._busy_reloading = False
+
+    def _apply_allocation_inner(self, alloc: dict) -> None:
+        """(Re)build the engine for ``alloc``'s range, on the step thread.
+        A ``want_digests`` flip forces a rebuild as a moved range does;
+        the old engine's requests abort ("node reallocated") and its KV
+        and weights are dropped before the new stage loads, so two
+        workers on one card never hold both."""
+        model_name = alloc.get("model_name")
+        if model_name:
+            if self._served_model_name is None:
+                # The first allocation's name is recorded, not compared:
+                # scheduler and worker may spell the same model
+                # differently.
+                self._served_model_name = model_name
+            elif model_name != self._served_model_name:
+                raise unported(f"a live model switch to {model_name!r}",
+                               "4c")
+        want_digests = bool(alloc.get("want_digests"))
+        digests_switched = want_digests != self.engine_config.cache_digests
+        if digests_switched:
+            self.engine_config.cache_digests = want_digests
         start, end = alloc["start_layer"], alloc["end_layer"]
-        if (start, end) == (self.start_layer, self.end_layer):
+        if not digests_switched and (start, end) == (
+            self.start_layer, self.end_layer
+        ):
             return
         logger.info("%s: (re)loading layers [%d, %d)", self.node_id,
                     start, end)
         self._abort_in_flight("node reallocated")
+        self._drop_engine()
         self.start_layer, self.end_layer = start, end
         t0 = time.monotonic()
         model = create_stage_model(self.model_config, start, end)
@@ -229,9 +376,33 @@ class WorkerNode:
             model, params, self.engine_config, device=self.device,
             host_hidden=True,
         )
+        # Fresh engine = empty radix tree: the scheduler's digest mirror
+        # for this node is stale; the next heartbeat ships a snapshot.
+        self._digests_full_next = True
         logger.info("%s: layers [%d, %d) ready on %s (%.2f s to load and "
                     "build)", self.node_id, start, end, self.engine.device,
                     time.monotonic() - t0)
+
+    def _drop_engine(self) -> None:
+        """Release the engine, its in-flight ticket and (on a card) the
+        cached blocks its KV and weights held."""
+        eng = self.engine
+        if eng is None:
+            return
+        self.engine = None
+        if self._pending is not None and self._pending_engine is eng:
+            try:
+                eng.discard(self._pending)
+            except Exception:
+                logger.exception("discarding the in-flight step")
+        self._pending = self._pending_engine = None
+        device = eng.device
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        del eng
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
 
     def _abort_in_flight(self, reason: str) -> None:
         eng = self.engine
@@ -263,11 +434,100 @@ class WorkerNode:
     def _announcer_loop(self) -> None:
         while not self._stop.is_set():
             try:
-                self._gossip_beat()
+                if self.standalone:
+                    self._gossip_beat()
+                else:
+                    self._heartbeat()
                 self._reap_rx_stats()
             except Exception as e:
-                logger.warning("gossip beat failed: %s", e)
+                logger.warning("%s failed: %s", "gossip beat"
+                               if self.standalone else "heartbeat", e)
             self._stop.wait(self.heartbeat_interval_s)
+
+    # -- announcer: scheduler heartbeats ----------------------------------------
+
+    def _heartbeat(self) -> None:
+        """One ``node_update`` and its reply. Host state only: the engine's
+        counters, dispatch summary, latency EWMA and digest log are Python
+        values, so this thread makes no CUDA call."""
+        eng = self.engine
+        reply = self.transport.call(
+            self.scheduler_peer,
+            proto.NODE_UPDATE,
+            {
+                "node_id": self.node_id,
+                "epoch": self._sched_epoch,
+                "cache_digests": self._digest_heartbeat(eng),
+                "is_ready": eng is not None,
+                "load": eng.scheduler.num_requests() if eng else 0,
+                "layer_latency_ms": (
+                    eng.layer_latency_ms_ewma if eng else None
+                ),
+                "cache_stats": eng.cache_stats() if eng else None,
+                "kernel": eng.kernel_dispatch_summary() if eng else None,
+                "transport": self.transport_stats(),
+                "refit_version": 0,
+                "lora_adapters": [],
+                "busy": self._busy_reloading,
+                # Planes not ported yet (item 9: step timing, metrics,
+                # goodput, device, health, events; item 7: speculation;
+                # item 8: constrained decoding).
+                "step_timing": None,
+                "spec": None,
+                "constrained": None,
+                "metrics": None,
+                "goodput": None,
+                "device": None,
+                "health": None,
+                "events": None,
+            },
+            timeout=10.0,
+        )
+        if not isinstance(reply, dict):
+            return
+        self._sched_epoch = max(self._sched_epoch,
+                                int(reply.get("epoch") or 1))
+        if reply.get("drain"):
+            # Pipelines through these dead peers are dissolving: posted
+            # before any reload below, so the step thread aborts them
+            # while their state still exists.
+            self._post(("drain", [str(x) for x in reply["drain"]]))
+        if reply.get("digests_resync"):
+            # The scheduler saw a sequence gap: a full snapshot next beat.
+            self._digests_full_next = True
+        _refuse_scheduler_reply(reply)
+        if reply.get("rejoin"):
+            # The scheduler lost us (restart or heartbeat eviction).
+            logger.warning("%s: scheduler asked for rejoin", self.node_id)
+            rejoin_alloc = self._join()
+            if "start_layer" in rejoin_alloc:
+                self._post(("reload", rejoin_alloc))
+        elif reply.get("start_layer") is not None:
+            want_digests = bool(reply.get("want_digests"))
+            if (reply["start_layer"], reply["end_layer"]) != (
+                self.start_layer, self.end_layer
+            ) or want_digests != self.engine_config.cache_digests:
+                # The scheduler moved us: reload on the step thread.
+                self._post(("reload", reply))
+
+    def _digest_heartbeat(self, eng) -> dict | None:
+        """Prefix-digest payload for one heartbeat: a delta normally, a
+        full snapshot after a (re)build or a resync request.
+        Sequence-numbered per payload. None unless the allocation asked
+        for digests."""
+        if eng is None or not self.engine_config.cache_digests:
+            return None
+        try:
+            payload = eng.cache_digest_payload(full=self._digests_full_next)
+        except Exception:
+            logger.exception("digest payload failed")
+            return None
+        if payload is None:
+            return None
+        self._digests_full_next = False
+        self._digests_seq += 1
+        payload["seq"] = self._digests_seq
+        return payload
 
     def _fresh_peer_ids(self, now: float) -> set[str]:
         """Peers whose announcements are within the TTL (THE liveness
@@ -384,9 +644,12 @@ class WorkerNode:
 
     def _on_chat_ready(self, _peer: str, _payload):
         """Readiness probe for chat hosts: can this head serve a request
-        submitted with an EMPTY routing table right now?"""
+        submitted with an EMPTY routing table right now? (In scheduler
+        mode the scheduler routes: ready once the engine is built.)"""
         if self.engine is None:
             return {"ready": False}
+        if not self.standalone:
+            return {"ready": True}
         return {"ready": self.local_route() is not None}
 
     def local_route(self) -> list[str] | None:
@@ -565,6 +828,14 @@ class WorkerNode:
         logger.error("%s: async send to %s failed: %s",
                      self.node_id, peer, reason)
         self._forget_wire_dtype(peer)
+        if not self.standalone and peer != self.scheduler_peer:
+            # Tell the scheduler now: it drops the peer's CacheIndex and
+            # accelerates its heartbeat sweep.
+            self.sender.send(
+                self.scheduler_peer, proto.PEER_DOWN,
+                {"reporter": self.node_id, "peer": peer, "reason": reason},
+                best_effort=True,
+            )
         self._post(("abort_path", peer))
 
     def _count_rx(self, peer: str, wire_req: dict) -> None:
@@ -605,7 +876,7 @@ class WorkerNode:
 
     def _on_forward(self, peer: str, payload):
         if isinstance(payload, (bytes, bytearray)):
-            raise _unported("protobuf FORWARD frames (p2p/interop.py)", "4b")
+            raise unported("protobuf FORWARD frames (p2p/interop.py)", "4c")
         for wire_req in payload["reqs"]:
             _refuse_wire_request(wire_req)
         for wire_req in payload["reqs"]:
@@ -615,7 +886,7 @@ class WorkerNode:
 
     def _on_abort(self, _peer: str, payload):
         if isinstance(payload, (bytes, bytearray)):
-            raise _unported("protobuf ABORT frames (p2p/interop.py)", "4b")
+            raise unported("protobuf ABORT frames (p2p/interop.py)", "4c")
         for rid in payload["rids"]:
             self._post(("release", rid, True))
         return "ok"
@@ -627,11 +898,11 @@ class WorkerNode:
 
     def _on_chat_submit(self, _peer: str, payload: dict):
         if payload.get("replay_ids"):
-            raise _unported("chat_submit with replay_ids (client resume)", 6)
+            raise unported("chat_submit with replay_ids (client resume)", 6)
         if any(payload.get(k) is not None
                for k in ("qos_class", "deadline_ms", "tenant")):
-            raise _unported("chat_submit with QoS fields (qos_class, "
-                            "deadline_ms, tenant)", 9)
+            raise unported("chat_submit with QoS fields (qos_class, "
+                           "deadline_ms, tenant)", 9)
         req = Request(
             request_id=payload["rid"],
             prompt_ids=list(payload["prompt_ids"]),
@@ -690,25 +961,25 @@ class WorkerNode:
 
     def _step_loop(self) -> None:
         # The overlapped two-phase loop keeps exactly ONE step in flight:
-        # drive_step dispatches step N+1 before resolving step N.
-        pending = None
-        pending_engine = None
+        # drive_step dispatches step N+1 before resolving step N. The
+        # ticket lives on the node so a reload can drop it with its
+        # engine.
         while not self._stop.is_set():
             try:
                 worked = self._drain_inbox()
                 eng = self.engine
-                if pending is not None and pending_engine is not eng:
-                    pending = None
+                if self._pending is not None and self._pending_engine is not eng:
+                    self._pending = None
                 if eng is None:
                     self._wake.wait(0.01)
                     self._wake.clear()
                     continue
-                outs, pending = drive_step(eng, pending)
-                pending_engine = eng
+                outs, self._pending = drive_step(eng, self._pending)
+                self._pending_engine = eng
                 for out in outs:
                     self._route_outputs(out)
                     worked = worked or out.num_tokens > 0
-                if not worked and pending is None:
+                if not worked and self._pending is None:
                     # Event-driven idle wait; the timeout only bounds
                     # housekeeping (request-timeout sweeps).
                     if self._inbox.empty():
@@ -718,17 +989,16 @@ class WorkerNode:
                 # The step thread must survive: a dead step loop with a
                 # live announcer would look healthy forever.
                 logger.exception("step loop error")
-                if pending is not None:
+                pending, eng = self._pending, self._pending_engine
+                if pending is not None and eng is not None:
                     # Retry only a ticket that is still unresolved; one
                     # whose own resolve failed was abandoned already.
                     try:
-                        if pending_engine.is_inflight(pending):
-                            self._route_outputs(
-                                pending_engine.resolve(pending)
-                            )
+                        if eng.is_inflight(pending):
+                            self._route_outputs(eng.resolve(pending))
                     except Exception:
                         logger.exception("in-flight step resolution failed")
-                    pending = None
+                self._pending = None
                 time.sleep(0.1)
 
     def _drain_inbox(self) -> bool:
@@ -752,7 +1022,7 @@ class WorkerNode:
             elif kind == "submit":
                 req: Request = item[1]
                 try:
-                    if not req.routing_table:
+                    if self.standalone and not req.routing_table:
                         route = self.local_route()
                         if route is None:
                             raise RuntimeError(
@@ -784,18 +1054,19 @@ class WorkerNode:
                 self.engine.stop_request(item[1])
             elif kind == "abort_path":
                 # A next-hop peer is unreachable: abort what routes through
-                # it (a scheduler-less swarm has nobody to migrate to).
+                # it (the JAX worker in scheduler mode migrates its head
+                # requests instead: item 6).
                 if self.engine is None:
                     continue
                 peer = item[1]
                 self._forget_wire_dtype(peer)
-                sched = self.engine.scheduler
-                for req in (
-                    list(sched.running.values())
-                    + list(sched.wait_queue.values())
-                ):
-                    if peer in req.routing_table and not req.status.is_finished:
-                        req.abort(f"peer {peer} unreachable")
+                self._abort_through({peer})
+            elif kind == "drain":
+                # Scheduler directive (heartbeat reply): these peers are
+                # dead and the pipelines through them are dissolving.
+                if self.engine is None or not self.engine.model.is_first:
+                    continue
+                self._abort_through(set(item[1]))
             elif kind == "liveness":
                 # Abort requests routed through peers whose announcements
                 # expired — one scan per beat.
@@ -810,6 +1081,17 @@ class WorkerNode:
                         req.abort(f"peer {dead[0]} unreachable")
             elif kind == "reload":
                 self._apply_allocation(item[1])
+
+    def _abort_through(self, dead: set) -> None:
+        """Abort the unfinished requests routed through ``dead`` peers,
+        naming the first of them."""
+        sched = self.engine.scheduler
+        for req in (
+            list(sched.running.values()) + list(sched.wait_queue.values())
+        ):
+            hit = dead & set(req.routing_table)
+            if hit and not req.status.is_finished:
+                req.abort(f"peer {sorted(hit)[0]} unreachable")
 
     def _route_outputs(self, out) -> None:
         """Group packets by next hop and hand them to the sender pipeline
@@ -878,6 +1160,18 @@ class WorkerNode:
             self.sender.send(
                 peer, proto.RELEASE,
                 {"rids": [req.request_id], "abort": aborted},
+                best_effort=True,
+            )
+        if not self.standalone:
+            # Fire-and-forget on the scheduler link's sender: the path's
+            # load charge and this head's admission-time prefix hit.
+            self.sender.send(
+                self.scheduler_peer, proto.REQUEST_COMPLETE,
+                {
+                    "path": req.routing_table or [self.node_id],
+                    "rid": req.request_id,
+                    "cached_tokens": req.num_cached_tokens,
+                },
                 best_effort=True,
             )
         self._finished.put(req)

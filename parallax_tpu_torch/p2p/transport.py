@@ -17,7 +17,7 @@ thread: one bounded FIFO and drain thread per peer.
 
 The frames are the JAX package's, so a port node and a JAX node talk to
 each other. Not ported yet: the relay mode for NAT'd workers (it needs a
-scheduler as the relay: ROADMAP queue 1 item 4b; a relay envelope gets the
+scheduler as the relay: ROADMAP queue 1 item 4c; a relay envelope gets the
 "no handler" error reply) and the conformance sanitizer's frame hooks
 (item 14). The transport's threads touch no CUDA tensor: frames carry CPU
 tensors only.

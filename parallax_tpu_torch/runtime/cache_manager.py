@@ -3,9 +3,11 @@
 A copy of the Python ``CacheManager`` in ``parallax_tpu/runtime/
 cache_manager.py`` for the port's first slice: radix prefix matching, pinning,
 eviction under pressure, prefix-aware chunk skipping and donation on release.
-The native C++ manager, the host-DRAM tier (preemption/swap-in), LoRA
-namespaces, linear-state snapshots and routing digests are not ported yet;
-``make_cache_manager`` therefore always returns this class.
+Its routing digests (``track_digests`` / ``digest_payload``, the delta log
+of cache-aware routing) are the JAX manager's. The native C++ manager, the
+host-DRAM tier (preemption/swap-in), LoRA namespaces and linear-state
+snapshots are not ported yet; ``make_cache_manager`` therefore always
+returns this class.
 
 Ownership model: every device page has one owner — an in-flight request or
 the radix tree. Prefix-cache hits share tree-owned pages read-only, pinned
@@ -67,12 +69,15 @@ def make_cache_manager(
     enable_prefix_cache: bool = True,
     max_model_len: int = 32768,
     prefill_chunk_skip: bool = True,
+    track_digests: bool = False,
 ) -> "CacheManager":
-    """CacheManager factory. The JAX package prefers its native C++ manager;
-    the port has only the Python one so far."""
+    """CacheManager factory. The JAX package prefers its native C++ manager
+    (and falls back to the Python one when ``track_digests`` asks for the
+    digest log); the port has only the Python one so far."""
     return CacheManager(
         page_size, num_pages, enable_prefix_cache=enable_prefix_cache,
         max_model_len=max_model_len, prefill_chunk_skip=prefill_chunk_skip,
+        track_digests=track_digests,
     )
 
 
@@ -86,6 +91,7 @@ class CacheManager:
         enable_prefix_cache: bool = True,
         max_model_len: int = 32768,
         prefill_chunk_skip: bool = True,
+        track_digests: bool = False,
     ):
         self.page_size = page_size
         self.num_pages = num_pages
@@ -95,7 +101,8 @@ class CacheManager:
         # and mid-prefill planning stop REUSING matches.
         self.prefill_chunk_skip = prefill_chunk_skip
         self.allocator = PageAllocator(num_pages)
-        self.prefix_cache = RadixPageCache(page_size)
+        self.prefix_cache = RadixPageCache(
+            page_size, track_digests=track_digests and enable_prefix_cache)
         self.stats = CacheStats()
         # rid -> (locked node path, number of shared tree-owned pages)
         self._locked: dict[str, tuple] = {}
@@ -243,3 +250,11 @@ class CacheManager:
         else:
             self.allocator.free(owned)
         request.page_ids = []
+
+    def digest_payload(self, full: bool = False) -> dict | None:
+        """Prefix-digest heartbeat payload for cache-aware routing (see
+        :meth:`RadixPageCache.digest_payload`); None when tracking is off
+        or the prefix cache is disabled."""
+        if not self.enable_prefix_cache:
+            return None
+        return self.prefix_cache.digest_payload(full=full)

@@ -77,8 +77,9 @@ class EngineConfig:
     the port: page/batch/bucket sizing, the prefix cache, chunked prefill
     and chunk skipping, ``kv_dtype``, ``seed``, ``request_timeout_s``, the
     overlapped step (``overlap_steps``), the K-step decode window
-    (``decode_lookahead``, ``decode_pipeline``) and the ``decode_fused`` /
-    ``prefill_fused`` kernel switches. The fields listed in ``_UNPORTED``
+    (``decode_lookahead``, ``decode_pipeline``), the ``decode_fused`` /
+    ``prefill_fused`` kernel switches and ``cache_digests`` (the radix
+    tree's digest log for cache-aware routing). The fields listed in ``_UNPORTED``
     must keep their defaults (construction raises otherwise);
     ``linear_*``, ``speculative_ngram``, ``constrained_window`` and
     ``slow_request_ms`` only tune features that are refused elsewhere.
@@ -135,7 +136,6 @@ _UNPORTED = {
     "sp_threshold": None,
     "qos": None,
     "prefill_seq_parallel": False,
-    "cache_digests": False,
     "trace_sample_rate": 0.0,
     "lora_max_adapters": 0,
 }
@@ -346,6 +346,7 @@ class StageEngine:
             enable_prefix_cache=self.cfg.enable_prefix_cache,
             max_model_len=self.cfg.max_model_len,
             prefill_chunk_skip=self.cfg.prefill_chunk_skip,
+            track_digests=self.cfg.cache_digests,
         )
         self.scheduler = Scheduler(
             self.cache,
@@ -398,6 +399,10 @@ class StageEngine:
         # rows whose sampled token has not reached the host yet. Its last
         # entry takes the scatter's dropped rows.
         self._inflight: list[StepTicket] = []
+        # EWMA per-layer decode latency published to the global scheduler
+        # (reference base_executor.py:716-732); host-side, read by the
+        # worker's heartbeat thread.
+        self.layer_latency_ms_ewma: float | None = None
         self._dispatch_seq = 0
         self._last_token_dev = torch.zeros(
             (self.cfg.max_batch_size + 1,), dtype=torch.int32,
@@ -510,6 +515,26 @@ class StageEngine:
         """Prefix-cache counters: tokens admitted, reused and skipped,
         pages evicted, KV-exhaustion aborts."""
         return dataclasses.asdict(self.cache.stats)
+
+    def cache_digest_payload(self, full: bool = False) -> dict | None:
+        """Prefix-digest delta / snapshot for cache-aware routing
+        heartbeats (None when ``cfg.cache_digests`` is off). Host state
+        only: a heartbeat thread may call it."""
+        return self.cache.digest_payload(full=full)
+
+    def _record_latency(self, plan: BatchPlan, ms: float) -> None:
+        """Per-layer decode latency EWMA published to the global
+        scheduler (reference base_executor.py:716-732); prefill steps and
+        empty plans do not count."""
+        if plan.has_prefill or plan.is_empty:
+            return
+        per_layer = ms / max(1, self.model.num_local_layers)
+        if self.layer_latency_ms_ewma is None:
+            self.layer_latency_ms_ewma = per_layer
+        else:
+            self.layer_latency_ms_ewma = (
+                0.8 * self.layer_latency_ms_ewma + 0.2 * per_layer
+            )
 
     # -- kernel accounting -------------------------------------------------
 
@@ -665,12 +690,17 @@ class StageEngine:
             self._abandon(plan)
             raise
         now = time.perf_counter()
+        host_ms = ticket.host_ms + (now - t_r0) * 1000.0
+        # An overlapped ticket's t0-to-resolve span covers the next
+        # dispatch too: the EWMA reads the host-blocking time, as the JAX
+        # engine's does.
+        self._record_latency(plan, host_ms)
         return StepOutputs(
             forward=forwards,
             finished=self._collect_finished(),
             num_tokens=plan.total_new_tokens,
             step_time_ms=(now - ticket.t0) * 1000.0,
-            host_ms=ticket.host_ms + (now - t_r0) * 1000.0,
+            host_ms=host_ms,
             device_ms=device_ms,
             overlapped=self._dispatch_seq != ticket.dispatch_seq,
         )
@@ -1100,12 +1130,18 @@ class StageEngine:
     def _multistep_outputs(self, ticket: StepTicket, total: int,
                            t_r0: float, device_ms: float) -> StepOutputs:
         now = time.perf_counter()
+        host_ms = ticket.host_ms + (now - t_r0) * 1000.0
+        # The EWMA amortizes over the steps delivered (the average
+        # committed depth per row), as the JAX engine's does.
+        plan = ticket.plan
+        steps_done = max(1, -(-total // max(1, len(plan.seqs))))
+        self._record_latency(plan, host_ms / steps_done)
         return StepOutputs(
             forward=[],
             finished=self._collect_finished(),
             num_tokens=total,
             step_time_ms=(now - ticket.t0) * 1000.0,
-            host_ms=ticket.host_ms + (now - t_r0) * 1000.0,
+            host_ms=host_ms,
             device_ms=device_ms,
             overlapped=self._dispatch_seq != ticket.dispatch_seq,
         )

@@ -58,6 +58,11 @@ class BatchPlan:
     def is_empty(self) -> bool:
         return not self.seqs
 
+    @property
+    def has_prefill(self) -> bool:
+        return any(s.num_new_tokens > 1 or not s.request.is_prefill_done
+                   for s in self.seqs)
+
 
 class Scheduler:
     """Continuous batching over a wait queue and a running set."""

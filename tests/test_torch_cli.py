@@ -134,14 +134,14 @@ def test_refused_flag_exits_2_from_both_entry_points(checkpoint):
     (["serve", "--draft-model-path", "/x"], 7),
     (["serve", "--speculative-tokens", "4"], 7),
     (["serve", "--host-cache-bytes", "1024"], 6),
-    (["serve", "--wire-dtype", "fp8"], "4b"),
+    (["serve", "--wire-dtype", "fp8"], "4c"),
     (["serve", "--trace-sample-rate", "0.5"], 9),
     (["serve", "--watchdog"], 9),
     (["serve", "--slo", "ttft_p95_ms=500"], 9),
     (["serve", "--qos", "on"], 9),
     (["serve", "--compilation-cache-dir", "/x"], 12),
-    (["serve", "--start-layer", "1"], "4b"),
-    (["serve", "--end-layer", "1"], "4b"),
+    (["serve", "--start-layer", "1"], "4c"),
+    (["serve", "--end-layer", "1"], "4c"),
     (["generate", "--tp-size", "2"], 10),
     (["generate", "--quantization", "int4"], 11),
     (["generate", "--lora-path", "/x"], 11),
@@ -279,3 +279,43 @@ def test_load_tokenizer_matches_jax(tmp_path):
     byte = load_tokenizer(None)
     assert byte.encode("hé") == j_load(None).encode("hé") == [256, 104, 195,
                                                               169]
+
+
+@pytest.mark.parametrize("argv", [
+    ["run", "--model-name", "qwen2.5-7b"],
+    ["run", "--model-name", "x", "--min-nodes", "2", "--port", "4001",
+     "--routing", "cache_aware", "--routing-alpha", "2",
+     "--routing-beta", "64", "--routing-imbalance", "3"],
+    ["join", "--scheduler-addr", "10.0.0.1:3002", "--model-path", "."],
+    ["join", "--scheduler-addr", "h:1", "--model-path", ".", "--port",
+     "7000", "--advertise-addr", "127.0.0.1", "--wire-dtype", "bf16"],
+    ["chat"],
+    ["chat", "--base-url", "http://h:1", "--max-tokens", "9"],
+], ids=["run-defaults", "run-cache-aware", "join-defaults", "join-flags",
+        "chat-defaults", "chat-flags"])
+def test_run_join_chat_parse_as_the_jax_cli(argv):
+    """``run``, ``join --scheduler-addr`` and ``chat`` take the JAX CLI's
+    flags with its defaults (the port adds ``--host`` and ``--device``),
+    and nothing of these is refused."""
+    from parallax_tpu import cli as jcli
+
+    want = vars(jcli.build_parser().parse_args(argv))
+    got = vars(cli.build_parser().parse_args(argv))
+    extra = set(got) - set(want)
+    assert extra <= {"host", "device"}, extra
+    assert {k: got[k] for k in want} == want
+    assert cli.unported_flags(cli.build_parser().parse_args(argv)) == []
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--routing-gamma", "0.5"], 9),
+    (["--slo", "ttft_p95_ms=500"], 9),
+    (["--qos", "on"], 9),
+    (["--scheduler-standby", "10.0.0.2:3002"], "4c"),
+    (["--standby-of", "10.0.0.1:3002"], "4c"),
+    (["--relay-token", "s"], "4c"),
+])
+def test_refused_run_flags_exit_2(capsys, argv, item):
+    assert cli.main(["run", "--model-name", "qwen2.5-7b", *argv]) == 2
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and f"item {item})" in err

@@ -310,9 +310,9 @@ def test_refused_features_answer_501(port_server, field, feature):
     ("GET", "/metrics", 9), ("GET", "/healthz", 9),
     ("GET", "/debug/flight", 9), ("GET", "/debug/trace/r1", 9),
     ("GET", "/cluster/status", 9), ("GET", "/cluster/status_json", 9),
-    ("POST", "/profile/start", 9), ("POST", "/scheduler/init", "4b"),
-    ("POST", "/weight/refit", 12), ("GET", "/", "4b"), ("GET", "/ui", "4b"),
-    ("GET", "/chat", "4b"),
+    ("POST", "/profile/start", 9), ("POST", "/scheduler/init", "4c"),
+    ("POST", "/weight/refit", 12), ("GET", "/", "4c"), ("GET", "/ui", "4c"),
+    ("GET", "/chat", "4c"),
 ])
 def test_later_endpoints_answer_501(port_server, method, path, item):
     status, reply = port_server.request(method, path,
@@ -503,3 +503,129 @@ def test_keep_alive_connection_survives_refused_posts(port_server):
             assert resp.status == want, (method, path)
     finally:
         conn.close()
+
+
+# -- the run frontend's cluster status and routing ------------------------------
+
+def _cluster_pair():
+    """A port and a JAX GlobalScheduler after the same events: two
+    Qwen2.5-7B-shaped nodes joined, beaten ready, one request routed."""
+    from parallax_tpu.scheduling.request_routing import RequestMeta as JMeta
+    from parallax_tpu.scheduling.scheduler import GlobalScheduler as JSched
+    from parallax_tpu.utils.hw import HardwareInfo as JHW
+    from parallax_tpu_torch.scheduling.request_routing import RequestMeta
+    from parallax_tpu_torch.scheduling.scheduler import GlobalScheduler
+    from parallax_tpu_torch.utils.hw import HardwareInfo
+
+    raw = dict(architectures=["Qwen2ForCausalLM"], hidden_size=3584,
+               num_hidden_layers=28, num_attention_heads=28,
+               num_key_value_heads=4, intermediate_size=18944,
+               vocab_size=152064)
+    out = []
+    for sched_cls, hw_cls, meta_cls, norm in (
+            (JSched, JHW, JMeta, j_normalize),
+            (GlobalScheduler, HardwareInfo, RequestMeta, normalize_config)):
+        sched = sched_cls(norm(raw), min_nodes_bootstrapping=2,
+                          routing="cache_aware")
+        for nid in ("n0", "n1"):
+            sched.enqueue_join(nid, hw_cls("v5e", 1, 197.0, 16.0, 819.0,
+                                           186.0))
+        sched.drain_events()
+        for nid in ("n0", "n1"):
+            sched.enqueue_update(nid, is_ready=True, load=0,
+                                 cache_stats={"tokens_admitted": 3})
+        sched.drain_events()
+        sched.receive_request("r", meta=meta_cls("r", prompt_ids=[1] * 40))
+        sched.dispatch_once()
+        out.append(sched)
+    return out
+
+
+def test_cluster_status_json_keys_match_jax_scheduler():
+    """``/cluster/status_json`` on a frontend with a status_fn serves the
+    port scheduler's core cluster_status: its pipelines, node entries and
+    routing section carry the JAX scheduler's keys (and values) for the
+    same events; ``/cluster/status`` streams it as ndjson."""
+    jsched, psched = _cluster_pair()
+    server = PortServer(OpenAIFrontend(
+        SimpleTokenizer(), submit_fn=None, model_name="tiny",
+        status_fn=psched.cluster_status))
+    try:
+        status, got = server.request("GET", "/cluster/status_json")
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=30)
+        conn.request("GET", "/cluster/status?interval=0.3")
+        resp = conn.getresponse()
+        ctype = resp.getheader("Content-Type")
+        first = json.loads(resp.readline())
+        conn.close()
+    finally:
+        server.close()
+    assert status == 200 and ctype == "application/x-ndjson"
+    want = json.loads(json.dumps(jsched.cluster_status()))
+    for doc in (got, first):
+        assert set(doc["routing"]) == set(want["routing"])
+        assert doc["routing"] == want["routing"]
+        assert len(doc["pipelines"]) == len(want["pipelines"]) == 1
+        assert set(doc["pipelines"][0]) == set(want["pipelines"][0])
+        for node, jnode in zip(doc["pipelines"][0]["nodes"],
+                               want["pipelines"][0]["nodes"]):
+            assert set(node) == set(jnode)
+            assert {k: node[k] for k in ("node_id", "layers", "load", "ready",
+                                         "role", "suspect", "cache_stats",
+                                         "cache_index")} == \
+                {k: jnode[k] for k in ("node_id", "layers", "load", "ready",
+                                       "role", "suspect", "cache_stats",
+                                       "cache_index")}
+        for key in ("num_nodes", "num_active", "num_pipelines",
+                    "bootstrapped", "max_concurrent_requests"):
+            assert doc[key] == want[key], key
+
+
+def test_route_fn_gets_the_prompt_ids():
+    """The route_fn gets the request's prompt ids (its
+    RequestMeta, for cache-aware routing) and ``lora_id``; a
+    NotImplementedError from it answers 501; None answers 503."""
+    seen = []
+
+    def route(rid, prompt_ids=None, lora_id=None):
+        seen.append((rid, prompt_ids, lora_id))
+        if lora_id is not None:
+            raise NotImplementedError("LoRA requests: not ported yet")
+        return None
+
+    tok = SimpleTokenizer()
+    server = PortServer(OpenAIFrontend(tok, submit_fn=None, route_fn=route,
+                                       model_name="tiny"))
+    try:
+        status, _ = server.request("POST", "/v1/completions",
+                                   {"prompt": "abc", "max_tokens": 2})
+        status_lora, reply = server.request(
+            "POST", "/v1/completions",
+            {"prompt": "abc", "max_tokens": 2, "lora": "a"})
+    finally:
+        server.close()
+    assert status == 503 and status_lora == 501
+    assert "not ported yet" in reply["error"]["message"]
+    assert seen[0][1] == tok.encode("abc") and seen[1][2] == "a"
+
+
+def test_chat_repl_streams_a_turn(capsys):
+    """``chat`` (the JAX CLI's chat_main, on the standard library): one
+    streamed turn against the HTTP API, its token count line, /clear and
+    /quit."""
+    from parallax_tpu_torch import cli
+
+    port, _jfe, pb, _jb = _scripted(list(range(10, 16)))
+    lines = iter(["hello", "/clear", "again", "/quit"])
+    try:
+        args = cli.build_parser().parse_args(
+            ["chat", "--base-url", f"http://127.0.0.1:{port.port}",
+             "--max-tokens", "6"])
+        assert cli.unported_flags(args) == []
+        assert cli.chat_main(args, input_fn=lambda _p: next(lines)) == 0
+    finally:
+        port.close()
+    out = capsys.readouterr().out
+    assert out.count("[6 tokens") == 2, out
+    assert "error" not in out

@@ -57,7 +57,12 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "config", "models.loader", "utils.tokenizer",
                  "backend.http_server", "backend.serve", "backend.generate",
                  "cli", "p2p.wire", "p2p.proto", "p2p.transport", "p2p.node",
-                 "p2p.join", "backend.run", "analysis.sanitizer"):
+                 "p2p.join", "backend.run", "analysis.sanitizer",
+                 "scheduling", "scheduling.node",
+                 "scheduling.node_management",
+                 "scheduling.layer_allocation",
+                 "scheduling.request_routing", "scheduling.scheduler",
+                 "backend.scheduler_service", "utils.hw"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"

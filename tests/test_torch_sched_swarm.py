@@ -1,0 +1,308 @@
+"""The port's scheduled swarm on the CPU: a port GlobalScheduler behind its
+SchedulerService and port WorkerNodes with ``scheduler_peer`` set, over
+real TCP sockets on localhost, at the tiny size of tests/test_swarm_e2e.py
+(4 layers, f32). Layer capacity is forced to 2 as that file does, so the
+scheduler lays out one [0, 2) + [2, 4) pipeline.
+
+- The greedy and seeded streams, routed and polled through a SwarmClient
+  on the service, equal the port's InProcessPipeline's bit for bit.
+- Reallocation aborts in-flight requests: the head's ("node
+  reallocated", tests/test_swarm_e2e.py:492) and, through the release
+  broadcast, the head's clients when the tail reloads (:523).
+- Leave: the tail's node_leave dissolves the pipeline, an in-flight
+  request aborts naming the tail, routing answers None, and a new tail
+  brings a pipeline back that serves.
+- Heartbeat eviction: a worker whose beats stop is evicted by the sweep;
+  when its beats resume the scheduler asks it to rejoin, and the swarm
+  serves again.
+- ``run`` on a thread and two ``join --scheduler-addr --device cpu``
+  processes answer a chat completion over HTTP, serve
+  ``/cluster/status_json``, and exit 0 on SIGTERM.
+
+Every wait has its own deadline and every transport stops in ``finally``.
+"""
+
+import contextlib
+import json
+import os
+import re
+import signal
+import subprocess
+import sys
+import threading
+
+import pytest
+
+import parallax_tpu.scheduling.node as j_node
+from parallax_tpu_torch import cli
+from parallax_tpu_torch.backend.run import SwarmClient, run_main
+from parallax_tpu_torch.backend.scheduler_service import SchedulerService
+from parallax_tpu_torch.p2p.node import WorkerNode
+from parallax_tpu_torch.p2p.transport import TcpTransport
+from parallax_tpu_torch.runtime.engine import EngineConfig
+from parallax_tpu_torch.runtime.request import Request, SamplingParams
+from parallax_tpu_torch.scheduling import node as p_node
+from parallax_tpu_torch.scheduling.scheduler import GlobalScheduler
+from tests.test_torch_swarm import (
+    CFG,
+    DEADLINE_S,
+    ENGINE,
+    N_NEW,
+    PROMPTS,
+    REPO,
+    _in_process,
+    _port_params,
+    _post,
+    _requests,
+    _wait,
+    _write_checkpoint,
+)
+
+
+@pytest.fixture(autouse=True)
+def two_layer_capacity(monkeypatch):
+    """Every node holds 2 of the 4 layers (both packages' roofline)."""
+    for mod in (j_node, p_node):
+        monkeypatch.setattr(mod.RooflinePerformanceModel,
+                            "max_layers_in_memory",
+                            lambda self, kv_fraction=0.35: 2)
+
+
+def _port_worker(sched_addr: str, engine=None) -> WorkerNode:
+    t = TcpTransport("", "127.0.0.1")
+    t.start()
+    t.peer_id = t.address
+    return WorkerNode(t, sched_addr, CFG, EngineConfig(**(engine or ENGINE)),
+                      load_params=_port_params, heartbeat_interval_s=0.2,
+                      device="cpu")
+
+
+def _start_all(workers) -> None:
+    """Start workers together: each join blocks until the scheduler has
+    bootstrapped."""
+    starters = [threading.Thread(target=w.start) for w in workers]
+    for s in starters:
+        s.start()
+    for s in starters:
+        s.join(DEADLINE_S)
+
+
+def _ready(service, n_nodes=2) -> bool:
+    st = service.scheduler.cluster_status()
+    nodes = [n for p in st["pipelines"] for n in p["nodes"]]
+    return len(nodes) == n_nodes and all(n["ready"] for n in nodes)
+
+
+@contextlib.contextmanager
+def sched_swarm(engine=None, heartbeat_timeout_s=30.0):
+    sched = GlobalScheduler(CFG, min_nodes_bootstrapping=2,
+                            heartbeat_timeout_s=heartbeat_timeout_s)
+    st = TcpTransport("scheduler", "127.0.0.1")
+    service = SchedulerService(sched, st, join_timeout_s=DEADLINE_S)
+    workers = []
+    try:
+        service.start()
+        workers = [_port_worker(st.address, engine) for _ in range(2)]
+        _start_all(workers)
+        assert _wait(lambda: _ready(service)), sched.cluster_status()
+        yield service, workers
+    finally:
+        for w in workers:
+            with contextlib.suppress(Exception):
+                w.stop()
+        service.stop()
+
+
+def _by_path(service, workers):
+    path = [n["node_id"] for n in
+            service.scheduler.cluster_status()["pipelines"][0]["nodes"]]
+    ids = {w.node_id: w for w in workers}
+    return path, ids[path[0]], ids[path[-1]]
+
+
+def test_scheduled_swarm_matches_in_process_pipeline():
+    with sched_swarm() as (service, workers):
+        path, head, tail = _by_path(service, workers)
+        assert [(w.start_layer, w.end_layer) for w in (head, tail)] == [
+            (0, 2), (2, 4)]
+        client = SwarmClient(service.transport, service)
+        reqs = _requests(Request, SamplingParams)
+        events = []
+        for r in reqs:
+            r.routing_table = client.route(r.request_id,
+                                           prompt_ids=r.prompt_ids)
+            assert r.routing_table == path
+            events.append(client.submit(r))
+        for r, ev in zip(reqs, events):
+            assert ev.wait(DEADLINE_S), f"{r.request_id}: {r.status}"
+            assert r.status.value == "finished_length"
+            assert len(r.output_ids) == N_NEW
+        # Every path's load charge came back through request_complete,
+        # and the tail's mirrors were released.
+        assert _wait(lambda: all(
+            n.load == 0 for n in service.scheduler.manager.nodes()))
+        assert _wait(lambda: tail.engine.scheduler.num_requests() == 0)
+        routing = service.scheduler.cluster_status()["routing"]
+        assert routing["pipeline_dispatches"] == {"0": len(reqs)}
+    ref = _in_process()
+    assert [r.output_ids for r in reqs] == [r.output_ids for r in ref]
+
+
+def _long_request(rid, path, prompt=(1, 2, 3)):
+    return Request(rid, prompt_ids=list(prompt),
+                   sampling_params=SamplingParams(
+                       temperature=0.0, max_new_tokens=10_000,
+                       ignore_eos=True),
+                   routing_table=list(path))
+
+
+LONG = dict(ENGINE, max_model_len=4096, num_pages=520)
+
+
+@pytest.mark.parametrize("stage", ["head", "tail"])
+def test_reallocation_aborts_in_flight_requests(stage):
+    """A worker forced to reload (as a rebalance would) aborts its
+    in-flight requests; a tail reload unblocks the head's client through
+    the release broadcast."""
+    with sched_swarm(engine=LONG) as (service, workers):
+        path, head, tail = _by_path(service, workers)
+        req = _long_request(f"inflight-{stage}", path)
+        ev = head.submit(req)
+        assert _wait(lambda: len(req.output_ids) > 2), req.status
+        if stage == "head":
+            head._post(("reload", {"start_layer": 0, "end_layer": 3}))
+        else:
+            tail._post(("reload", {"start_layer": 1, "end_layer": 4}))
+        assert ev.wait(DEADLINE_S), "in-flight request hung"
+        assert req.status.value == "finished_abort"
+        if stage == "head":
+            assert req.abort_reason == "node reallocated"
+
+
+def test_leave_dissolves_and_a_new_tail_recovers():
+    with sched_swarm(engine=LONG) as (service, workers):
+        path, head, tail = _by_path(service, workers)
+        req = _long_request("before-leave", path)
+        ev = head.submit(req)
+        assert _wait(lambda: len(req.output_ids) > 2)
+        tail.stop()
+        # node_leave: the pipeline dissolves; the head's request aborts
+        # naming the tail (its sender's failure or the drain directive).
+        assert ev.wait(DEADLINE_S), req.status
+        assert req.status.value == "finished_abort"
+        assert tail.node_id in (req.abort_reason or ""), req.abort_reason
+        assert _wait(lambda: not service.scheduler.manager.pipelines)
+        assert service.scheduler.manager.get(tail.node_id) is None
+        assert service.route_request("no-path", timeout_s=0.5) is None
+        new = _port_worker(service.transport.address, LONG)
+        workers.append(new)
+        _start_all([new])
+        assert _wait(lambda: _ready(service)), \
+            service.scheduler.cluster_status()
+        path, head, _ = _by_path(service, workers)
+        assert new.node_id in path
+        client = SwarmClient(service.transport, service)
+        r = Request("after-leave", prompt_ids=list(PROMPTS[0]),
+                    sampling_params=SamplingParams(temperature=0.0,
+                                                   max_new_tokens=N_NEW))
+        r.routing_table = client.route(r.request_id, prompt_ids=r.prompt_ids)
+        assert client.submit(r).wait(DEADLINE_S), r.status
+        assert r.status.value == "finished_length"
+    assert r.output_ids == _in_process(seeded=False)[0].output_ids
+
+
+def test_heartbeat_eviction_then_rejoin():
+    with sched_swarm(heartbeat_timeout_s=1.0) as (service, workers):
+        quiet = workers[1]
+        quiet._heartbeat = lambda: None
+        assert _wait(lambda: service.scheduler.manager.get(quiet.node_id)
+                     is None), service.scheduler.cluster_status()
+        assert not service.scheduler.manager.pipelines
+        del quiet._heartbeat
+        # The next beat gets {"rejoin": True}: the worker rejoins and the
+        # scheduler bootstraps again.
+        assert _wait(lambda: _ready(service)), \
+            service.scheduler.cluster_status()
+        path, head, _ = _by_path(service, workers)
+        r = Request("after-rejoin", prompt_ids=list(PROMPTS[1]),
+                    sampling_params=SamplingParams(temperature=0.0,
+                                                   max_new_tokens=N_NEW),
+                    routing_table=path)
+        assert head.submit(r).wait(DEADLINE_S), r.status
+        assert r.status.value == "finished_length"
+    assert r.output_ids == _in_process(seeded=False)[1].output_ids
+
+
+def test_run_and_join_processes_serve_over_http(tmp_path):
+    """The entry points as a user starts them: ``run`` (its parser and
+    run_main, on a thread) and two ``join --scheduler-addr --device cpu``
+    processes; one chat completion; ``/cluster/status_json`` shows the
+    pipeline; SIGTERM: each worker exits 0 with no step loop error."""
+    ckpt = str(tmp_path)
+    _write_checkpoint(ckpt)
+    args = cli.build_parser().parse_args(
+        ["run", "--model-name", ckpt, "--min-nodes", "2", "--port", "0",
+         "--host", "127.0.0.1"])
+    assert cli.unported_flags(args) == []
+    box, started = [], threading.Event()
+    server = threading.Thread(
+        target=run_main,
+        args=(args, lambda fe, svc: (box.extend((fe, svc)), started.set())),
+        daemon=True)
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "2"}
+    procs, logs = [], []
+    try:
+        server.start()
+        assert started.wait(DEADLINE_S)
+        fe, svc = box
+        for i in range(2):
+            log = open(os.path.join(ckpt, f"join{i}.log"), "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "parallax_tpu_torch", "join",
+                 "--scheduler-addr", svc.transport.address,
+                 "--model-path", ckpt, "--device", "cpu",
+                 "--advertise-addr", "127.0.0.1", "--port", "0"],
+                cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
+
+        def ready():
+            _, st = _post(fe.port, "/cluster/status_json", None, "GET")
+            nodes = [n for p in st["pipelines"] for n in p["nodes"]]
+            return len(nodes) == 2 and all(n["ready"] for n in nodes)
+
+        assert _wait(ready, 90.0)
+        status, st = _post(fe.port, "/cluster/status_json", None, "GET")
+        assert status == 200 and st["num_pipelines"] == 1
+        assert [n["layers"] for n in st["pipelines"][0]["nodes"]] == [
+            [0, 2], [2, 4]]
+        assert st["routing"]["strategy"] == "rr"
+        body = {"messages": [{"role": "user", "content": "hello"}],
+                "max_tokens": 5, "temperature": 0.0, "ignore_eos": True}
+        status, reply = _post(fe.port, "/v1/chat/completions", body,
+                              timeout=120.0)
+        assert status == 200, reply
+        assert reply["usage"]["completion_tokens"] == 5
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        for p in procs:
+            assert p.wait(30) == 0
+        # Both workers said node_leave.
+        assert _wait(lambda: _post(fe.port, "/cluster/status_json", None,
+                                   "GET")[1]["num_nodes"] == 0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+        if box:
+            box[0].shutdown()
+        server.join(DEADLINE_S)
+    for log in logs:
+        log.seek(0)
+        text = log.read()
+        log.close()
+        assert "step loop error" not in text and "Traceback" not in text, \
+            text[-3000:]
+        # The exit lines: the plain path launched no kernel.
+        m = re.search(r"kernel launches: (\{.*\})", text)
+        assert m is not None and not any(json.loads(m.group(1)).values())

@@ -407,7 +407,7 @@ def test_chat_host_fronts_port_swarm():
             assert body["usage"]["completion_tokens"] == 6
             assert body["choices"][0]["finish_reason"] == "length"
             status, body = _post(frontend.port, "/chat", None, "GET")
-            assert status == 501 and "item 4b)" in body["error"]["message"]
+            assert status == 501 and "item 4c)" in body["error"]["message"]
     finally:
         if frontend is not None and frontend.server is not None:
             frontend.shutdown()
@@ -449,11 +449,12 @@ def test_chat_host_answers_503_without_a_route():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--scheduler-addr", "10.0.0.1:3002"], "4b"),
-    (["--relay"], "4b"),
-    (["--relay-token", "s"], "4b"),
-    (["--role", "decode"], "4b"),
-    (["--scheduler-standby", "10.0.0.2:3002"], "4b"),
+    (["--scheduler-addr", "10.0.0.1:3002", "--scheduler-standby",
+      "10.0.0.2:3002"], "4c"),
+    (["--relay"], "4c"),
+    (["--relay-token", "s"], "4c"),
+    (["--role", "decode"], "4c"),
+    (["--scheduler-standby", "10.0.0.2:3002"], "4c"),
     (["--refit-cache-dir", "/x"], 12),
     (["--compilation-cache-dir", "/x"], 12),
     (["--kv-transfer-chunk-bytes", "1024"], 6),
@@ -490,7 +491,7 @@ _PACKET = {"rid": "q", "ctx": 3}
     (proto.FORWARD, {"reqs": [dict(_PACKET, qos="batch")]}, 9),
     (proto.FORWARD, {"reqs": [dict(_PACKET, lora_id="a")]}, 11),
     (proto.FORWARD, {"reqs": [dict(_PACKET, spec_len=2)]}, 7),
-    (proto.FORWARD, b"\x0a\x00", "4b"),
+    (proto.FORWARD, b"\x0a\x00", "4c"),
     (proto.CHECKPOINT, {}, 6),
     (proto.PROFILE, {}, 9),
 ], ids=["qos_class", "deadline_ms", "tenant", "replay_ids", "qos-packet",
