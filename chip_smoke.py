@@ -193,8 +193,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                layer and decode step, A1 attend-only per layer and prefill
                step, nothing else but the sampler's noise), fused with
                K1_SYNC and plain.
+               The fused run's first greedy stream is decoded again step
+               by step, A2 against the plain decode (the logit difference
+               and argmax agreement; no limit).
 17. gptoss_profile gptoss_serve's fused run once more under torch.profiler,
                both configs.
+18. msa_serve  MiniMax-M3 at full width and 5 of 62 layers (a dense
+               full-attention layer 0, then four MSA + MoE layers; one
+               random bf16 tree of 16.1 B params, gpt-oss's freed first)
+               serving the mix plus one greedy request of 4,600 ids (past
+               32 blocks of 64 tokens, so the indexer drops blocks) four
+               times: fused (A2 on layer 0 and A7 on each sparse layer per
+               decode step, both in MSA mode for A7), split (A1 attend-only
+               on layer 0 and A8 on each sparse layer), fused with K1_SYNC
+               and plain; prefill on the split chain (MSA turns fused
+               prefill off), A4 three times per MoE layer and forward
+               step; launches exact. The long stream is decoded again step
+               by step, A7 against the plain indexer: the logit
+               difference, argmax agreement, the steps whose selected block
+               sets agree in every sparse layer, and the selected and
+               causal blocks (fewer must be selected). The greedy limit
+               must pass and must be reached by at least one of two wrong
+               indexers serving the long request (every causal block
+               selected; DSA's head reduction).
+19. m2_serve   MiniMax-M2 at full width and 4 of 62 layers (15.9 B params,
+               M3's tree freed first): fused (A2, A0 + A1), split (A1
+               attend-only), fused with K1_SYNC and plain, A4 per MoE
+               layer and step, launches exact; the greedy check and a
+               teacher-forced A2 check as gpt-oss has.
 
 One JSON object per line; the ``kernels`` line and the card line come just
 before the last line, which is ``{"ok": true, "device": {...}}``. Each
@@ -202,7 +228,8 @@ kernel's launches in the ``kernels`` line come from the path that runs it:
 A0-A4 from moe_serve, A5 and A6 from mla_serve's fused and split runs, A7
 and A8 from dsa_serve's, A9 from gptoss_serve's split run, K9's route (A1
 attend-only, entry ``ragged_attend``) from serve's split run and the noise
-kernel from serve's fused run. ``--only
+kernel from serve's fused run; msa_serve prints A7's and A8's MSA-mode
+launches on a line of its own. ``--only
 kernels`` (comma-separated phase names) runs a subset and prints no result
 line.
 """
@@ -276,6 +303,30 @@ DEEPSEEK_LAYERS = 5
 DSA_LONG_PROMPT = 2400
 DSA_MAX_MODEL_LEN = 3072
 MSA_MODEL = "MiniMaxAI/MiniMax-M3"               # its indexer: Hi 16, D 64
+M2_MODEL = "MiniMaxAI/MiniMax-M2"
+# msa_serve: MiniMax-M3's dense full-attention layer 0 and four MSA + MoE
+# layers (16.1 B params, 32 GB in bf16), plus one greedy request of
+# MSA_LONG_PROMPT ids: past topk_blocks x block_size (32 x 64 = 2,048)
+# tokens the indexer drops blocks (the long request keeps 32 of its 72).
+MSA_LAYERS = 5
+MSA_LONG_PROMPT = 4600
+MSA_MAX_MODEL_LEN = 6144
+# m2_serve: MiniMax-M2's first four layers, all MoE (15.9 B params).
+M2_LAYERS = 4
+# MiniMax routes 8 of 256 experts by sigmoid scores on random weights, so a
+# bf16 rounding difference swaps experts as in DeepSeek and gpt-oss. On an
+# H100 the plain M3 path served step by step (no kernel) landed 1.69 from
+# the one-shot reference's argmax (15 tokens off by GREEDY_TOL or more), the
+# kernel runs 1.23 (25); a wrong block indexer that keeps every causal block
+# (dense attention) serving the long request lands at 1.95. The limit sits
+# between the two. M2's plain run landed 0.42 (1 token off) and its kernel
+# runs 0.93 (22), and a wrong token sits about 5.0 logits under the argmax,
+# as in M3. The margin bounds the count's own noise (M2's kernel runs held
+# 21 more off-tokens than its plain run); only the gap tells a wrong model
+# apart.
+MSA_GREEDY_TOL = 1.8
+M2_GREEDY_TOL = 1.5
+MINIMAX_OFF_MARGIN = 32
 # A7 / A8's long-context shape: 7 rows of this many keys each.
 INDEXER_LONG_KEYS = 32768
 # Decode contexts over several splits (kernels phase), one past 4096.
@@ -1511,9 +1562,13 @@ def indexer_long_context(torch, dev, flush, device_only) -> dict:
     bf16, page = torch.bfloat16, 64
     m3 = get_preset(MSA_MODEL).msa
     smoke = [292, 332, 482, 732, 544, 412, 672]
-    e7m, e8m, *_ = check_indexer(torch, gen, dev, bf16, m3.index_n_heads,
-                                 m3.index_head_dim, page, smoke, set(),
-                                 "msa", pps=DSA_MAX_MODEL_LEN // page)
+    e7m, e8m, icm, kwm = check_indexer(
+        torch, gen, dev, bf16, m3.index_n_heads, m3.index_head_dim, page,
+        smoke, set(), "msa", pps=MSA_MAX_MODEL_LEN // page)
+    # Timed at msa_serve's decode shape: the mix's rows over its page table.
+    timed_m3 = time_indexer(torch, icm, kwm, smoke, page, flush, device_only,
+                            suffix="_msa")
+    del icm
     cfg = get_preset(DSV32_MODEL).dsa
     # bf16 at other page sizes, with the f32 cases' rows: 16 and 24 (the
     # tensor-core body's copies in boxes of 16 and 8 positions) and 12
@@ -1555,8 +1610,16 @@ def indexer_long_context(torch, dev, flush, device_only) -> dict:
             "indexer_scores_bf16_max_abs_err": e8,
             "msa_minimax_m3": {"hi": m3.index_n_heads,
                                "d": m3.index_head_dim, "lens": smoke,
+                               "pps": MSA_MAX_MODEL_LEN // page,
                                "indexer_fused_bf16_max_abs_err": e7m,
-                               "indexer_scores_bf16_max_abs_err": e8m},
+                               "indexer_scores_bf16_max_abs_err": e8m,
+                               **{f"{e['name']}_{key}": e[key]
+                                  for e in timed_m3
+                                  for key in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by")},
+                               **{f"{e['name']}_device_only_ms":
+                                  device_only[e["name"] + "_msa"]
+                                  for e in timed_m3}},
             "bf16_page_sizes": edge,
             "score_tol_atol_rtol": SCORE_TOL, "cache_bitwise_equal": True,
             "neg_inf_positions_identical": True, "a8_equals_a7": True,
@@ -4000,15 +4063,18 @@ def phase_moe_serve(torch, dev, card: str, want) -> dict:
     return launches
 
 
-def _deepseek_config(name: str):
-    """``name``'s preset at full width, cut to DEEPSEEK_LAYERS layers through
-    the raw dict, so per-layer lists (V3.2's indexer_types) follow the cut."""
+def cut_config(name: str, layers: int):
+    """``name``'s preset at full width, cut to ``layers`` layers through the
+    raw dict, so per-layer lists (V3.2's indexer_types, MiniMax-M3's
+    layer_types and mlp_layer_types) follow the cut."""
     from parallax_tpu_torch.config import normalize_config
     from parallax_tpu_torch.models.presets import MODEL_DB
 
-    return normalize_config(dict(MODEL_DB[name],
-                                 num_hidden_layers=DEEPSEEK_LAYERS),
-                            model_name=name)
+    raw = dict(MODEL_DB[name], num_hidden_layers=layers)
+    for key in ("layer_types", "mlp_layer_types"):
+        if key in raw:
+            raw[key] = raw[key][:layers]
+    return normalize_config(raw, model_name=name)
 
 
 def teacher_forced_decode(torch, model, params, req, dev, kernel,
@@ -4021,8 +4087,18 @@ def teacher_forced_decode(torch, model, params, req, dev, kernel,
     itself, which goes on to the next step. Returns the largest logit
     difference of any step and how many steps share their argmax (no
     limit): the fused kernel's effect on one step's logits, free of the
-    compounding that a served stream adds. On a DSA model also how many
-    steps select the same top-k sets in every layer."""
+    compounding that a served stream adds. On a model with an indexer
+    (``_indexer_topk``: DSA's top-k tokens, MSA's selected blocks as token
+    positions) the kernel must launch once per indexer layer and step, and
+    the result says how many steps select the same sets in every indexer
+    layer (upstream rounding included: another attention kernel or a
+    swapped expert in an earlier layer moves the indexer's inputs), and
+    how many of the fused pass's indexer calls select what the plain
+    indexer selects on the same inputs (the kernel alone); on MSA also the
+    selected and causal blocks of the last step's first sparse layer,
+    which must be fewer (the selection drops blocks)."""
+    import dataclasses
+
     from parallax_tpu_torch.ops import cuda_kernels as ck
     from parallax_tpu_torch.runtime.batch import BucketSpec, assemble
     from parallax_tpu_torch.runtime.request import Request
@@ -4041,19 +4117,33 @@ def teacher_forced_decode(torch, model, params, req, dev, kernel,
 
     kv = model.new_kv_caches(npg + 1, page, params["norm"]["weight"].dtype,
                              dev)
-    # A DSA model's top-k rows of each layer (the row of this stream).
+    # An indexer model's top-k rows of each layer (the row of this stream).
     topk = []
-    dsa = hasattr(model, "_indexer_topk")
-    if dsa:
+    indexer = hasattr(model, "_indexer_topk")
+    layers_per_step = None if indexer else model.num_local_layers
+    if indexer:
         indexer_topk = model._indexer_topk
 
-        def recorded(*args, **kwargs):
-            idx, cache = indexer_topk(*args, **kwargs)
+        def recorded(*args):
+            # The index cache is the second-to-last argument, the batch
+            # the last (DeepSeek-V3.2's and MiniMax-M3's alike).
+            plain_args = None
+            if args[-1].decode_fused:
+                plain_args = (*args[:-2], args[-2].clone(),
+                              dataclasses.replace(args[-1],
+                                                  decode_fused=False))
+            idx, cache = indexer_topk(*args)
             topk.append(idx[0].sort().values)
+            if plain_args is not None:
+                idx_p, _ = indexer_topk(*plain_args)
+                same_input[0] += int(torch.equal(idx_p[0].sort().values,
+                                                 topk[-1]))
+                same_input[1] += 1
             return idx, cache
 
         model._indexer_topk = recorded
     diff, same, same_topk, steps = 0.0, 0, 0, 0
+    same_input = [0, 0]         # equal selections, fused indexer calls
     ck.reset_launches()
     try:
         with torch.no_grad():
@@ -4068,6 +4158,8 @@ def teacher_forced_decode(torch, model, params, req, dev, kernel,
                                                      decode_only=True,
                                                      decode_fused=True))
                 topk_f = list(topk)
+                if layers_per_step is None:
+                    layers_per_step = len(topk_f)
                 topk.clear()
                 lp, kv = model(params, kv, assemble(p, spec, page, dev,
                                                     decode_only=True))
@@ -4079,24 +4171,35 @@ def teacher_forced_decode(torch, model, params, req, dev, kernel,
                 steps += 1
                 del kv_f, lf, lp
     finally:
-        if dsa:
+        if indexer:
             del model._indexer_topk
     torch.cuda.synchronize()
-    n = model.num_local_layers
-    if ck.launches()[kernel] != n * steps:
+    want = (layers_per_step or 0) * steps
+    if want <= 0 or ck.launches()[kernel] != want:
         raise AssertionError(f"teacher-forced {kernel}: "
                              f"{ck.launches()[kernel]} launches, want "
-                             f"{n * steps}")
+                             f"{want}")
     out = {"request": req.request_id, "prompt_ids": len(prompt),
-           "steps": steps, "largest_logit_diff": diff, "argmax_equal": same}
-    if dsa:
+           "steps": steps, "kernel": kernel,
+           "kernel_layers": layers_per_step, "largest_logit_diff": diff,
+           "argmax_equal": same}
+    if indexer:
         out["topk_sets_equal_steps"] = same_topk
+        out["same_input_sets_equal"] = same_input[0]
+        out["same_input_calls"] = same_input[1]
+    if getattr(model, "runs_msa", False):
+        bs = model.config.msa.block_size
+        out["selected_blocks_last_step"] = int((topk[0] >= 0).sum()) // bs
+        out["causal_blocks_last_step"] = (len(prompt) + len(outs) - 2) // bs + 1
+        if out["selected_blocks_last_step"] >= out["causal_blocks_last_step"]:
+            raise AssertionError(f"teacher-forced {kernel}: the selection "
+                                 f"is not sparse: {out}")
     return out
 
 
 def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
                 margin, plain_kw, plain_note, long_prompt=0,
-                max_model_len=1024, teacher_forced=None) -> dict:
+                max_model_len=1024, teacher_forced=None, after=None) -> dict:
     """Serve the mix on ``cfg``: fused decode and split decode (its kernels)
     with the engine's defaults (the window replayed from CUDA graphs), the
     fused kernels once more in the parent's configuration (K1_SYNC, for the
@@ -4108,7 +4211,10 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
     ``tol``, with at most ``margin`` more tokens off by GREEDY_TOL or more
     than the plain run, served the same way, shows. ``teacher_forced``, a decode kernel's name, adds
     teacher_forced_decode of the first greedy stream on the plain model,
-    or with ``long_prompt`` of the long one (the last request).
+    or with ``long_prompt`` of the long one (the last request). ``after``,
+    if given, is called as ``after(model_plain, runs)`` (each run's
+    requests by mode) once the greedy line is out, for a phase's own
+    checks.
     Returns each run's launches."""
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.ops import cuda_kernels as ck
@@ -4187,6 +4293,8 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
           "greedy_tokens": sum(len(runs["fused"][i].output_ids)
                                for i in greedy),
           "plain": plain_note})
+    if after is not None:
+        after(model_plain, runs)
     if not ok:
         raise AssertionError(
             f"{phase}: greedy gap {worst} (tolerance {tol}); {over} tokens "
@@ -4229,7 +4337,7 @@ def run_deepseek(torch, dev, card: str, want) -> dict:
     V3.2. Returns the launches of each path's runs."""
     from parallax_tpu_torch.models import create_stage_model
 
-    cfg32 = _deepseek_config(DSV32_MODEL)
+    cfg32 = cut_config(DSV32_MODEL, DEEPSEEK_LAYERS)
     free0, total = torch.cuda.mem_get_info()
     emit({"phase": "mla_serve", "model": DSV3_MODEL, "and": DSV32_MODEL,
           "layers": DEEPSEEK_LAYERS, "mem_free_gb_before_init": free0 / 1e9,
@@ -4251,7 +4359,7 @@ def run_deepseek(torch, dev, card: str, want) -> dict:
           "experts": cfg32.moe.num_experts,
           "mem_free_gb_after_load": torch.cuda.mem_get_info()[0] / 1e9})
     paths = {}
-    cfg3 = _deepseek_config(DSV3_MODEL)
+    cfg3 = cut_config(DSV3_MODEL, DEEPSEEK_LAYERS)
     dsa_kw = dict(long_prompt=DSA_LONG_PROMPT, max_model_len=DSA_MAX_MODEL_LEN)
     if want("mla_serve"):
         runs = deepseek_serve(torch, dev, card, "mla_serve", cfg3, params,
@@ -4345,11 +4453,202 @@ def run_gptoss(torch, dev, card: str, want) -> dict:
         torch, dev, card, "gptoss_serve", cfg, params, expected,
         tol=GPTOSS_GREEDY_TOL, margin=GPTOSS_OFF_MARGIN,
         plain_kw=dict(use_kernels=False),
-        plain_note="plain split attention + the plain MoE loop")
+        plain_note="plain split attention + the plain MoE loop",
+        teacher_forced="gqa_decode")
     if want("gptoss_profile"):
         phase_profile(torch, dev, cfg, params, phase="gptoss_profile")
     return {f"gptoss_serve/{mode}": launches
             for mode, launches in runs.items()}
+
+
+def minimax_tree(torch, dev, phase: str, name: str, layers: int):
+    """``name`` at full width and ``layers`` layers (``cut_config``) with a
+    random bf16 tree from a seeded generator on the card."""
+    from parallax_tpu_torch.models import create_stage_model
+
+    cfg = cut_config(name, layers)
+    free0, total = torch.cuda.mem_get_info()
+    emit({"phase": phase, "model": name, "layers": layers,
+          "mem_free_gb_before_init": free0 / 1e9,
+          "mem_total_gb": total / 1e9})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.monotonic()
+    params = create_stage_model(cfg, 0, layers).init_params(
+        gen, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    emit({"phase": phase, "weights": "random bf16",
+          "params": sum(t.numel() for t in _leaves(params)),
+          "init_s": round(time.monotonic() - t0, 3),
+          "moe_layers": sum(cfg.is_moe_layer(i) for i in range(layers)),
+          "experts": cfg.moe.num_experts,
+          "top_k": cfg.moe.num_experts_per_tok,
+          "mem_free_gb_after_load": torch.cuda.mem_get_info()[0] / 1e9})
+    return cfg, params
+
+
+def serve_alone(torch, dev, cfg, params, req, max_model_len, **model_kw):
+    """Serve ``req`` alone through one engine (fused off, K1_SYNC)."""
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.runtime.engine import StageEngine, drive_step
+
+    engine = StageEngine(
+        create_stage_model(cfg, 0, cfg.num_hidden_layers, **model_kw),
+        params, engine_config(False, max_model_len, **K1_SYNC), device=dev)
+    engine.submit(req)
+    pending = None
+    while engine.has_work() or pending is not None:
+        _, pending = drive_step(engine, pending)
+    torch.cuda.synchronize()
+    return req
+
+
+def _dsa_reduction(idx_q, index_cache, kv_lens, page_indices, cu_q_lens, *,
+                   sm_scale, **kw):
+    """A wrong block indexer (the mutation): DSA's head reduction, the sum
+    over heads of the ReLU'd dots, in place of MSA's max."""
+    import torch
+
+    from parallax_tpu_torch.ops.dsa import dsa_indexer_scores_plain
+    from parallax_tpu_torch.ops.msa import topk_block_positions
+    from parallax_tpu_torch.ops.ragged import ragged_token_positions
+
+    t, hi, _ = idx_q.shape
+    weights = torch.full((t, hi), sm_scale, dtype=torch.float32,
+                         device=idx_q.device)
+    scores = dsa_indexer_scores_plain(idx_q, weights, index_cache, kv_lens,
+                                      page_indices, cu_q_lens)
+    _, q_pos = ragged_token_positions(kv_lens, cu_q_lens, t,
+                                      page_indices.shape[0])
+    return topk_block_positions(scores, q_pos, **kw)
+
+
+def msa_mutations(torch, dev, cfg, params, model_plain, runs) -> None:
+    """Whether MSA_GREEDY_TOL separates a wrong model: the long request
+    served alone by two mutants of the block indexer (every causal block
+    selected, i.e. dense attention; DSA's head reduction in place of MSA's
+    max), each checked as the served streams are, against the plain
+    model's one-shot logits, beside the correct fused run's long stream.
+    At least one mutant must land at or past the limit."""
+    import dataclasses
+
+    from parallax_tpu_torch.ops import msa as msa_ops
+
+    def gap(req):
+        worst, over, *_ = greedy_check(torch, model_plain, params, [req], {},
+                                       dev, max_len=MSA_MAX_MODEL_LEN)
+        return {"largest_logit_gap": worst,
+                f"tokens_off_by_{GREEDY_TOL}_or_more": over}
+
+    def long_request():
+        return make_requests(cfg.vocab_size, MSA_LONG_PROMPT)[0][-1]
+
+    t0 = time.monotonic()
+    out = {"correct_fused": gap(runs["fused"][-1])}
+    dense = dataclasses.replace(cfg, msa=dataclasses.replace(
+        cfg.msa, topk_blocks=MSA_MAX_MODEL_LEN // cfg.msa.block_size))
+    out["every_causal_block"] = gap(serve_alone(
+        torch, dev, dense, params, long_request(), MSA_MAX_MODEL_LEN,
+        use_kernels=False))
+    real = msa_ops.msa_sparse_positions_plain
+    msa_ops.msa_sparse_positions_plain = _dsa_reduction
+    try:
+        out["dsa_reduction"] = gap(serve_alone(
+            torch, dev, cfg, params, long_request(), MSA_MAX_MODEL_LEN,
+            use_kernels=False))
+    finally:
+        msa_ops.msa_sparse_positions_plain = real
+    caught = [k for k in ("every_causal_block", "dsa_reduction")
+              if out[k]["largest_logit_gap"] >= MSA_GREEDY_TOL]
+    emit({"phase": "msa_serve", "check": "greedy_limit_vs_mutations",
+          "request": runs["fused"][-1].request_id,
+          "tolerance": MSA_GREEDY_TOL, **out, "caught": caught,
+          "seconds": time.monotonic() - t0})
+    if not caught:
+        raise AssertionError(f"msa_serve: no mutant reaches the greedy "
+                             f"limit {MSA_GREEDY_TOL}: {out}")
+
+
+def phase_msa_serve(torch, dev, card: str) -> dict:
+    """MiniMax-M3 at full width and MSA_LAYERS layers serving the mix plus
+    the long request: fused (A2 on the dense layer, A7 on each sparse layer
+    and decode step), split (A1 attend-only on the dense layer, A8 on the
+    sparse ones), fused with K1_SYNC and plain; A4 three times per MoE
+    layer and forward step; prefill on the split chain (MSA turns fused
+    prefill off: A1 attend-only on the dense layer, no A0). Then A7
+    teacher-forced on the long stream and the greedy limit against two
+    mutants. Returns the fused and split runs' launches."""
+    cfg, params = minimax_tree(torch, dev, "msa_serve", MSA_MODEL,
+                               MSA_LAYERS)
+    n = cfg.num_hidden_layers
+    sparse = sum(cfg.msa.sparse_layer_mask[:n])
+    dense = n - sparse
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(n))
+
+    def expected(mode, summary):
+        decode, prefill = forward_steps(summary)
+        if mode == "plain":
+            return {}
+        want = {"grouped_gemm": 3 * moe_layers * (decode + prefill)}
+        if mode.startswith("fused"):
+            want.update(gqa_decode=dense * decode,
+                        gqa_prefill=dense * prefill,
+                        indexer_fused=sparse * decode)
+        else:
+            want.update(gqa_prefill=dense * (decode + prefill),
+                        indexer_scores=sparse * decode)
+        return want
+
+    runs = serve_three(
+        torch, dev, card, "msa_serve", cfg, params, expected,
+        tol=MSA_GREEDY_TOL, margin=MINIMAX_OFF_MARGIN,
+        plain_kw=dict(moe_kernel=False, use_kernels=False),
+        plain_note="moe_ffn(kernel=False) + plain attention and block "
+                   "indexer",
+        long_prompt=MSA_LONG_PROMPT, max_model_len=MSA_MAX_MODEL_LEN,
+        teacher_forced="indexer_fused",
+        after=lambda model_plain, served: msa_mutations(
+            torch, dev, cfg, params, model_plain, served))
+    emit({"phase": "msa_serve", "msa_launches": {
+        "indexer_fused (A7, fused run)": runs["fused"]["indexer_fused"],
+        "indexer_scores (A8, split run)": runs["split"]["indexer_scores"],
+        "sparse_layers": sparse, "reduce_kind": "msa"}, "card": card})
+    return {"msa_serve/fused": runs["fused"], "msa_serve/split": runs["split"]}
+
+
+def phase_m2_serve(torch, dev, card: str) -> dict:
+    """MiniMax-M2 at full width and M2_LAYERS layers (all MoE) serving the
+    mix: fused (A2, A0 + A1 fused prefill), split (A1 attend-only), fused
+    with K1_SYNC and plain, A4 three times per layer and forward step.
+    Returns each run's launches."""
+    cfg, params = minimax_tree(torch, dev, "m2_serve", M2_MODEL, M2_LAYERS)
+    n = cfg.num_hidden_layers
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(n))
+
+    def expected(mode, summary):
+        if mode == "plain":
+            return {}
+        return {**gqa_expected(mode, summary, n),
+                "grouped_gemm": 3 * moe_layers * sum(forward_steps(summary))}
+
+    runs = serve_three(
+        torch, dev, card, "m2_serve", cfg, params, expected,
+        tol=M2_GREEDY_TOL, margin=MINIMAX_OFF_MARGIN,
+        plain_kw=dict(moe_kernel=False, use_kernels=False),
+        plain_note="moe_ffn(kernel=False) + plain attention",
+        teacher_forced="gqa_decode")
+    return {f"m2_serve/{mode}": launches for mode, launches in runs.items()}
+
+
+def run_minimax(torch, dev, card: str, want) -> dict:
+    """Phases 18-19, each tree freed before the next is made."""
+    paths = {}
+    if want("msa_serve"):
+        paths.update(phase_msa_serve(torch, dev, card))
+        free_device_memory(torch)
+    if want("m2_serve"):
+        paths.update(phase_m2_serve(torch, dev, card))
+    return paths
 
 
 # The run whose launches each kernel's entry in the kernels line reports.
@@ -4420,8 +4719,8 @@ def main() -> int:
                          "sched_serve (each runs http_serve too),moe_serve,"
                          "moe_profile,"
                          "mla_serve,mla_profile,dsa_serve,dsa_profile,"
-                         "gptoss_serve,gptoss_profile); prints no result "
-                         "line")
+                         "gptoss_serve,gptoss_profile,msa_serve,m2_serve); "
+                         "prints no result line")
     only = set(filter(None, ap.parse_args().only.split(",")))
 
     import torch
@@ -4475,6 +4774,10 @@ def main() -> int:
     free_device_memory(torch)
     if want("gptoss_serve") or want("gptoss_profile"):
         paths.update(run_gptoss(torch, dev, card, want))
+    # gpt-oss-20b's 42 GB are gone before MiniMax-M3's 32 GB are made.
+    free_device_memory(torch)
+    if want("msa_serve") or want("m2_serve"):
+        paths.update(run_minimax(torch, dev, card, want))
     if only:
         return 0
     for k in kernels:

@@ -55,10 +55,15 @@ class StageModel:
     """A contiguous range ``[start_layer, end_layer)`` of decoder blocks."""
 
     # Whether this block runs a config's MoE layers (model families that
-    # do override ``_mlp``), its MLA attention and its DSA indexer.
+    # do override ``_mlp``), its MLA attention, its DSA indexer and its MSA
+    # block indexer.
     runs_moe = False
     runs_mla = False
     runs_dsa = False
+    runs_msa = False
+    # 0.0 = llama convention (ones-init weights); 1.0 = the Gemma zero-init
+    # ``x_hat * (1 + w)`` for the layer, final and qk norms.
+    norm_offset = 0.0
 
     def __init__(self, config: ModelConfig, start_layer: int, end_layer: int,
                  use_kernels: bool | None = None):
@@ -272,4 +277,5 @@ class StageModel:
         return L.swiglu_mlp(h, lp["mlp"])
 
     def _rms(self, x, weight):
-        return L.rms_norm(x, weight, self.config.rms_norm_eps)
+        return L.rms_norm(x, weight, self.config.rms_norm_eps,
+                          offset=self.norm_offset)

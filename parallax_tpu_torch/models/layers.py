@@ -31,6 +31,18 @@ def rms_norm(
     return (x * (weight.float() + offset)).to(orig_dtype)
 
 
+def full_proj_rms_norm(x: torch.Tensor, weight: torch.Tensor,
+                       eps: float) -> torch.Tensor:
+    """RMSNorm over a whole projection output ``[T, H * D]``, all heads
+    concatenated (MiniMax-M2's qk norms), in f32, cast back. The JAX
+    package's tensor-parallel statistic (``axis_name``) is not ported."""
+    orig_dtype = x.dtype
+    x = x.float()
+    ss = torch.sum(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(ss / x.shape[-1] + eps)
+    return (x * weight.float()).to(orig_dtype)
+
+
 def layer_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
     """LayerNorm (mean-centred, optional bias) in f32, cast back; the DSA
     indexer's key norm (every other norm in the zoo is RMSNorm)."""
@@ -81,6 +93,14 @@ def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
     gate = linear(x, p["gate_proj"])
     up = linear(x, p["up_proj"])
     return linear(F.silu(gate) * up, p["down_proj"])
+
+
+def glu_mlp(x: torch.Tensor, p: dict, act_fn) -> torch.Tensor:
+    """GLU FFN with a gating activation ``act_fn(gate, up)`` over f32
+    operands (MiniMax-M3's clamped swiglu-oai dense layer)."""
+    gate = linear(x, p["gate_proj"]).float()
+    up = linear(x, p["up_proj"]).float()
+    return linear(act_fn(gate, up).to(x.dtype), p["down_proj"])
 
 
 def paged_attention_block(

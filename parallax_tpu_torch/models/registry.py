@@ -39,17 +39,20 @@ for _arch in (
     MODEL_REGISTRY[_arch] = StageModel
 
 
-def unported_features(config: ModelConfig) -> list[str]:
-    """Model features of ``config`` that the port does not run yet."""
+def unported_features(config: ModelConfig,
+                      cls: type[StageModel] | None = None) -> list[str]:
+    """Model features of ``config`` that the port does not run yet, or,
+    given a model class ``cls``, that ``cls`` does not run (default: the
+    class registered for the config's architecture)."""
     feats = []
-    cls = MODEL_REGISTRY.get(config.architecture)
-    if cls is None:
+    if config.architecture not in MODEL_REGISTRY:
         feats.append(f"architecture {config.architecture}")
+    cls = cls or MODEL_REGISTRY.get(config.architecture)
     for name, on in (
         ("MoE", config.moe is not None and not (cls and cls.runs_moe)),
         ("MLA", config.mla is not None and not (cls and cls.runs_mla)),
         ("DSA", config.dsa is not None and not (cls and cls.runs_dsa)),
-        ("MSA", config.msa is not None),
+        ("MSA", config.msa is not None and not (cls and cls.runs_msa)),
         ("hybrid linear attention", config.linear_attn is not None),
     ):
         if on:

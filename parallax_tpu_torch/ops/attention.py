@@ -16,7 +16,11 @@ import torch
 
 from parallax_tpu_torch.ops import kernel_select
 from parallax_tpu_torch.ops.kv_cache_ops import reshape_and_cache
-from parallax_tpu_torch.ops.ragged import page_chunks, ragged_token_positions
+from parallax_tpu_torch.ops.ragged import (
+    page_chunks,
+    ragged_token_positions,
+    row_slices,
+)
 
 _MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # The kernels' (and the TPU kernels') running-max floor for masked scores.
@@ -160,16 +164,34 @@ def paged_attention_plain(
     denominator with the sink (the kernels' form) instead of adding it at
     the end (the XLA path's form); the two agree to rounding."""
     t, num_q_heads, head_dim = q.shape
-    _, page_size, combined, _ = kv_pages.shape
-    num_kv_heads = combined // 2
-    group = num_q_heads // num_kv_heads
+    num_kv_heads = kv_pages.shape[2] // 2
     s, _ = page_indices.shape
-    device = q.device
-
     seq_of_tok, q_pos = ragged_token_positions(kv_lens, cu_q_lens, t, s)
+    qg = q.float().reshape(t, num_kv_heads, num_q_heads // num_kv_heads,
+                           head_dim)
+    kw = dict(sm_scale=sm_scale, sliding_window=sliding_window,
+              soft_cap=soft_cap, sinks=sinks, seed_sinks=seed_sinks,
+              mask_value=mask_value)
+    out = torch.cat([
+        _attend_rows(qg[sl], kv_pages, kv_lens, page_indices,
+                     seq_of_tok[sl], q_pos[sl], **kw)
+        for sl in row_slices(t)
+    ])
+    return out.reshape(t, num_q_heads, head_dim).to(q.dtype)
+
+
+def _attend_rows(qg, kv_pages, kv_lens, page_indices, seq_of_tok, q_pos, *,
+                 sm_scale, sliding_window, soft_cap, sinks, seed_sinks,
+                 mask_value):
+    """:func:`paged_attention_plain` over a slice of query rows: ``qg``
+    f32[T, Hkv, G, D] with each row's sequence and position; returns f32
+    [T, Hkv, G, D]."""
+    t, num_kv_heads, group, head_dim = qg.shape
+    _, page_size, combined, _ = kv_pages.shape
+    s, _ = page_indices.shape
+    device = qg.device
     kv_len_tok = kv_lens.long()[seq_of_tok]
     padded, chunk_pages, lc, num_chunks = page_chunks(page_indices, page_size)
-    qg = q.float().reshape(t, num_kv_heads, group, head_dim)
 
     m = torch.full((t, num_kv_heads, group), mask_value, dtype=torch.float32,
                    device=device)
@@ -210,5 +232,4 @@ def paged_attention_plain(
         m = m_new
     if sink is not None and not seed_sinks:
         l = l + torch.exp(sink - m)
-    out = o / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(t, num_q_heads, head_dim).to(q.dtype)
+    return o / torch.clamp_min(l, 1e-30)[..., None]

@@ -19,6 +19,11 @@ KV_CHUNK_ROWS = 512
 # an online softmax over SPARSE_CHUNK-position slices with the same math.
 SPARSE_CHUNK_THRESHOLD = 512
 SPARSE_CHUNK = 256
+# Query rows per pass of the plain attention ops (dense and MSA's sparse):
+# each pass gathers its rows' keys, so a long prefill's transient stays at
+# O(rows * chunk) however many tokens the step holds. Rows are independent,
+# so the passes give one pass's result.
+QUERY_ROWS = 512
 
 
 def ragged_token_positions(
@@ -60,3 +65,8 @@ def page_chunks(page_indices: torch.Tensor, page_size: int,
     pad = num_chunks * chunk_pages - pages_per_seq
     padded = F.pad(page_indices, (0, pad)) if pad else page_indices
     return padded, chunk_pages, chunk_pages * page_size, num_chunks
+
+
+def row_slices(num_rows: int) -> list[slice]:
+    """The query-row passes of a batch of ``num_rows`` rows."""
+    return [slice(r, r + QUERY_ROWS) for r in range(0, num_rows, QUERY_ROWS)]

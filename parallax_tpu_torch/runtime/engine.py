@@ -315,7 +315,9 @@ class StageEngine:
                 "link mode is not ported yet to parallax_tpu_torch (ROADMAP "
                 "queue 1 item 11)"
             )
-        feats = unported_features(model.config)
+        # The model's own class decides: a base block built around an MSA
+        # config would serve dense attention in silence.
+        feats = unported_features(model.config, type(model))
         if feats:
             raise NotImplementedError(
                 f"{', '.join(feats)}: not ported yet to parallax_tpu_torch"
@@ -367,10 +369,10 @@ class StageEngine:
         self._prefill_fused = kernel_select.resolve_prefill_fused(
             self.cfg.prefill_fused, self.device
         )
-        # The fused prefill kernels are GQA's; MLA families keep their
-        # split prefill chain, as in the JAX package.
+        # The fused prefill kernels are GQA's; MLA and MSA families keep
+        # their split prefill chain, as in the JAX package.
         is_mla = model.config.is_mla
-        if is_mla:
+        if is_mla or model.config.msa is not None:
             self._prefill_fused = False
         # Models with a decode-specialized split kernel (MLA: A6; the DSA
         # indexer: A8; sinks: A9) mark one-token batches decode_only even

@@ -17,6 +17,7 @@ from parallax_tpu.ops.attention import _ragged_paged_attention_xla
 from parallax_tpu.ops.decode_fused_pallas import gqa_fused_decode_pallas
 from parallax_tpu.ops.kv_cache_ops import reshape_and_cache as j_scatter
 from parallax_tpu.ops.prefill_fused_pallas import gqa_fused_prefill_pallas
+from parallax_tpu_torch.ops import ragged
 from parallax_tpu_torch.ops.attention import append_and_attend
 from parallax_tpu_torch.ops.decode_fused import gqa_fused_decode
 from parallax_tpu_torch.ops.prefill_fused import gqa_fused_prefill
@@ -227,6 +228,15 @@ def test_split_path_matches_xla_reference(q_lens, cached, hq, hkv,
     np.testing.assert_array_equal(cache.numpy(), np.asarray(cache_j))
     t = c["t"]
     np.testing.assert_allclose(out.numpy()[:t], np.asarray(ref)[:t], **TOL)
+
+
+@pytest.mark.parametrize("rows", [1, 5], ids=["rows-1", "rows-5"])
+def test_plain_attention_row_passes_match_xla(rows, monkeypatch):
+    """The plain attention in passes of a few query rows (the bound on a
+    long prefill's transient; a pass of 5 crosses sequence boundaries)
+    matches the XLA reference as the single pass does."""
+    monkeypatch.setattr(ragged, "QUERY_ROWS", rows)
+    test_split_path_matches_xla_reference(*PREFILL_CASES[5])
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from parallax_tpu_torch.config import normalize_config
 from parallax_tpu_torch.models import (
     DeepseekStageModel,
     DeepseekV32StageModel,
+    MiniMaxM3StageModel,
     create_stage_model,
     params_from_numpy,
 )
@@ -241,8 +242,8 @@ def test_registry_builds_deepseek_families_and_refuses_the_rest():
     mla_on_qwen = normalize_config(dict(TINY_V3, n_routed_experts=0,
                                         architectures=["Qwen3ForCausalLM"]))
     assert unported_features(mla_on_qwen) == ["MLA"]
-    # Sinks run in the base block now (gpt-oss); still refused: linear
-    # attention and MSA.
+    # Sinks run in the base block now (gpt-oss) and MSA in MiniMax-M3's;
+    # still refused: linear attention, and MSA on a class without it.
     dense = dict(architectures=["Qwen3ForCausalLM"], hidden_size=32,
                  num_hidden_layers=1, num_attention_heads=2,
                  num_key_value_heads=1, intermediate_size=64, vocab_size=50)
@@ -252,10 +253,11 @@ def test_registry_builds_deepseek_families_and_refuses_the_rest():
         create_stage_model(normalize_config(dict(
             dense, linear_conv_kernel_dim=4)), 0, 1)
     msa = normalize_config(dict(dense, architectures=["MiniMaxM3ForCausalLM"],
-                                index_n_heads=2, index_head_dim=16))
-    assert msa.msa is not None
-    with pytest.raises(NotImplementedError, match="MSA"):
-        create_stage_model(msa, 0, 1)
+                                index_n_heads=2, index_head_dim=16,
+                                num_local_experts=4, num_experts_per_tok=2))
+    assert msa.msa is not None and unported_features(msa) == []
+    assert type(create_stage_model(msa, 0, 1)) is MiniMaxM3StageModel
+    assert unported_features(msa, DeepseekV32StageModel) == ["MSA"]
 
 
 def test_dsa_shard_rule_and_shared_layers():

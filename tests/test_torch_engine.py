@@ -267,10 +267,11 @@ def test_submit_refuses_unported_features(weights, sp, lora, feature):
 
 
 def test_unported_model_families_refused(weights):
-    """The engine refuses a config it does not run even when the model was
-    built without the registry's check."""
+    """The engine refuses a config its model's class does not run even when
+    the model was built without the registry's check: MiniMax-M3 is ported
+    (its own class runs MSA), but a base block holding an M3 config would
+    serve dense attention in its place."""
     _, _, full_np = weights
-    # MiniMax-M3: the MSA block indexer is not ported yet.
     msa = normalize_config(dict(TINY_QWEN2,
                                 architectures=["MiniMaxM3ForCausalLM"],
                                 index_n_heads=2, index_head_dim=16))

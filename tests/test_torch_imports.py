@@ -62,7 +62,8 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "scheduling.node_management",
                  "scheduling.layer_allocation",
                  "scheduling.request_routing", "scheduling.scheduler",
-                 "backend.scheduler_service", "utils.hw"):
+                 "backend.scheduler_service", "utils.hw", "ops.msa",
+                 "models.minimax_m2", "models.minimax_m3"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"

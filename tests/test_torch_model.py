@@ -17,7 +17,11 @@ from parallax_tpu.config import normalize_config as j_normalize
 from parallax_tpu.models.base import BatchInputs as JBatch
 from parallax_tpu.models.base import StageModel as JStageModel
 from parallax_tpu_torch.config import normalize_config
-from parallax_tpu_torch.models import create_stage_model, params_from_numpy
+from parallax_tpu_torch.models import (
+    MiniMaxM3StageModel,
+    create_stage_model,
+    params_from_numpy,
+)
 from parallax_tpu_torch.models.base import BatchInputs
 
 QWEN2 = dict(
@@ -157,8 +161,8 @@ def test_params_from_numpy_bf16_bits_and_unported_models():
     assert out["b"].dtype == torch.float32
     assert params_from_numpy(tree, "cpu", torch.float32)["layers"][0][
         "w"].dtype == torch.float32
-    # gpt-oss (attention sinks, alternating windows) builds; MiniMax-M3
-    # (MSA) is not ported yet.
+    # gpt-oss (attention sinks, alternating windows) and MiniMax-M3 (MSA)
+    # build; hybrid linear attention is not ported yet.
     raw = dict(
         architectures=["GptOssForCausalLM"], hidden_size=32,
         num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
@@ -168,5 +172,8 @@ def test_params_from_numpy_bf16_bits_and_unported_models():
     assert create_stage_model(normalize_config(raw), 0, 2).runs_moe
     msa = normalize_config(dict(raw, architectures=["MiniMaxM3ForCausalLM"],
                                 index_n_heads=2, index_head_dim=16))
+    model = create_stage_model(msa, 0, 2)
+    assert type(model) is MiniMaxM3StageModel and model.runs_msa
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_stage_model(msa, 0, 2)
+        create_stage_model(normalize_config(dict(
+            raw, linear_conv_kernel_dim=4)), 0, 2)
