@@ -57,7 +57,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                (both shapes); the noise kernel (gumbel_rows) against its
                twin (words equal, noise within 1 ulp, two calls bitwise) at
                the sampler's 8 rows of Qwen2.5's vocabulary and a
-               vocabulary that is not a multiple of 4.
+               vocabulary that is not a multiple of 4; A3 on grammar-masked
+               rows of Qwen2.5's vocabulary (sampler_masked: 1, 3 or 258
+               allowed tokens, the rest at -1e10, top-k 1 / 40 / 64,
+               temperature 0 / 0.8), exactly the plain version's tokens.
 4. serve       a single-stage StageEngine on cuda:0 serving full-width,
                all-28-layer Qwen2.5-7B (random bf16 weights from a seeded
                torch.Generator on the card) to 8 concurrent requests
@@ -82,7 +85,24 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. profile     the serve phase once more under torch.profiler, with the
                engine's defaults and with K1_SYNC: device time by kernel
                group and the device's busy share of the wall.
-7. http_serve  the front door on the same Qwen2.5-7B tree (its own, made
+6b. features_serve  sampling features on the same Qwen2.5-7B tree (its
+               own, made the same way, when run alone): serve's 8 prompts,
+               48 new tokens each, one feature set a row (r0 / r1 the
+               JSON schema of tests/test_constrained_window.py, greedy /
+               seeded top-k 40, EOS 257; r2 / r3 penalties; r4 logit_bias
+               and logprobs; r5 logprobs; r6 everything; r7 none), with the
+               byte tokenizer's grammar vocabulary (258 ids): the defaults
+               (K = 8 feature windows from CUDA graphs), graphs off (every
+               row's tokens and logprob bits equal), K1_SYNC and plain;
+               launches exact (A3 on the feature rows); the defaults ran
+               feature windows with no fallback; r0 / r2 / r4 within
+               GREEDY_TOL of the plain one-shot logits with their features
+               applied; grammar rows schema-valid JSON ending at EOS; one
+               logprob (<= 0) a token on logprob rows. Then the same mix
+               without features (its TTFT and decode rate beside), r0 with
+               EOS biased +20 (stops at the grammar's terminal state, under
+               its budget), and one window step's feature pass timed on the
+               device (S 8, V 152,064).  the front door on the same Qwen2.5-7B tree (its own, made
                the same way, when run alone): written as an HF checkpoint
                (bf16 shards of at most 5 GB, the index, config.json; a
                writer of this script's own) into a temporary directory;
@@ -99,6 +119,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                rows within GREEDY_TOL of the plain path on the loaded
                weights; the sharer hit the prefix cache. Then the same mix
                through the library API with the server's page count.
+               Before the server stops: JSON mode (json_schema and
+               json_object), logprobs streamed and not, logit_bias and
+               penalties on chat and completions, each 200 with a logprob
+               entry a completion token where asked and valid JSON where a
+               schema was; an unsupported schema 400.
 8. swarm_serve the scheduler-less swarm on the same checkpoint, 14 + 14
                layers (``--only swarm_serve`` runs http_serve first). (a)
                Two WorkerNodes on TcpTransports in this process, on slices
@@ -627,6 +652,71 @@ def check_sampler_wide(torch, gen, dev, flush) -> dict:
     return line
 
 
+def check_sampler_masked(torch, gen, dev, flush) -> dict:
+    """A3 on grammar-masked rows of Qwen2.5's vocabulary: 1, 3 or 258
+    allowed tokens (the byte grammar's width), every other logit at -1e10
+    (``ops/sampling.NEG_INF``, as the grammar mask leaves them), top-k 1,
+    40 and 64, temperature 0 and 0.8: 18 rows, each once in a batch of 8
+    (the serve shape) and all in one batch of 18. Fewer allowed tokens than
+    top-k ties the k-th value across the masked tail; A3 must pick exactly
+    the plain version's tokens, the same bits on two calls."""
+    from parallax_tpu_torch.models.presets import get_preset
+    from parallax_tpu_torch.ops.sampling import (
+        NEG_INF,
+        fused_sample_topk,
+        fused_sample_topk_plain,
+        row_gumbel,
+    )
+
+    v = get_preset(DENSE_MODEL).vocab_size
+    cases = [(n, k, t) for n in (1, 3, 258) for k in (1, 40, 64)
+             for t in (0.0, 0.8)]
+    s = len(cases)
+    logits = torch.full((s, v), NEG_INF, device=dev)
+    for row, (n, _, _) in enumerate(cases):
+        # The allowed ids: the first n byte ids, or n spread over the vocab.
+        ids = (torch.arange(n, device=dev) if n == 258 else
+               torch.randint(0, v, (n,), generator=gen, device=dev))
+        logits[row, ids] = torch.randn((n,), generator=gen, device=dev) * 3
+    temp = torch.tensor([t for *_, t in cases], device=dev)
+    top_k = torch.tensor([k for _, k, _ in cases], dtype=torch.int32,
+                         device=dev)
+    gumbel = row_gumbel(s, v, base_seed=0, step=5,
+                        seeds=list(range(s)), out_steps=[3] * s, device=dev)
+    checked = 0
+    for rows in [list(range(a, min(a + 8, s))) for a in range(0, s, 8)] + [
+            list(range(s))]:
+        args = (logits[rows], gumbel[rows], temp[rows], top_k[rows])
+        tok_k = fused_sample_topk(*args)
+        tok_2 = fused_sample_topk(*args)
+        tok_p = fused_sample_topk_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(tok_k, tok_p):
+            bad = [cases[rows[i]] for i in
+                   (tok_k != tok_p).nonzero().flatten().tolist()]
+            raise AssertionError(f"sample_topk masked rows {bad} differ "
+                                 "from the plain version")
+        if not torch.equal(tok_k, tok_2):
+            raise AssertionError("sample_topk masked: two calls differ")
+        if not bool((logits[rows].gather(
+                1, tok_k.long()[:, None]) > NEG_INF).all()):
+            raise AssertionError("sample_topk masked: a masked token won")
+        checked += len(rows)
+    args = (logits[:8], gumbel[:8], temp[:8], top_k[:8])
+    b_ms, b_by = bound(2 * 8 * v * 4 + 8 * 12, 3 * 8 * v, "float32")
+    return {"phase": "kernels", "check": "sampler_masked", "vocab": v,
+            "cases": s, "rows_checked": checked, "exact": True,
+            "two_calls_bitwise_equal": True,
+            "ms_8_rows": time_ms(torch, lambda: fused_sample_topk(*args),
+                                 30, flush),
+            "device_only_ms_8_rows": time_ms(
+                torch, lambda: fused_sample_topk(*args), 30, flush,
+                hide_host=True),
+            "plain_ms_8_rows": time_ms(
+                torch, lambda: fused_sample_topk_plain(*args), 5, flush),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def check_kv_append_edges(torch, gen, dev) -> dict:
     """A0 against reshape_and_cache, bitwise: one token, token counts that
     are not a multiple of the kernel's 8 tokens a block, negative and
@@ -908,6 +998,7 @@ def phase_kernels(torch, dev) -> list[dict]:
         library_ms=None,
     ))
     emit(check_sampler_wide(torch, gen, dev, flush))
+    emit(check_sampler_masked(torch, gen, dev, flush))
     out.append(kernels_gumbel(torch, dev, flush, device_only, v))
     out.append(kernels_grouped_gemm(torch, gen, dev, flush, device_only))
     kernels_grouped_gemm(torch, gen, dev, flush, device_only,
@@ -2160,11 +2251,13 @@ def engine_config(fused: bool, max_model_len: int = 1024, **over):
 
 def serve(torch, bounds, params, cfg, dev, fused: bool, long_prompt: int = 0,
           max_model_len: int = 1024, model_kw=None, engine_kw=None,
-          cuda_graphs=None):
+          cuda_graphs=None, requests=None):
     """Serve the request mix: a single stage through the one-in-flight
     ``drive_step`` loop, a pipeline through ``step_round``. ``engine_kw``
     overrides the engine config (e.g. ``K1_SYNC``); ``cuda_graphs`` is the
-    engine's switch (None = on, on the card)."""
+    engine's switch (None = on, on the card). ``requests`` = (requests,
+    sampled) serves another mix, with the byte tokenizer's grammar
+    vocabulary wired into the last stage."""
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.runtime.engine import StageEngine, drive_step
     from parallax_tpu_torch.runtime.pipeline import InProcessPipeline
@@ -2184,7 +2277,11 @@ def serve(torch, bounds, params, cfg, dev, fused: bool, long_prompt: int = 0,
             engine_config(fused, max_model_len, **(engine_kw or {})),
             device=dev, cuda_graphs=cuda_graphs))
     pipe = InProcessPipeline(engines)
-    reqs, sampled = make_requests(cfg.vocab_size, long_prompt)
+    if requests is None:
+        reqs, sampled = make_requests(cfg.vocab_size, long_prompt)
+    else:
+        reqs, sampled = requests
+        engines[-1].set_grammar_vocab(*GRAMMAR_VOCAB)
     torch.cuda.synchronize()
     t0 = time.monotonic()
     for r in reqs:
@@ -2215,6 +2312,32 @@ def stream_metrics(reqs, t0: float, t1: float) -> dict:
             "decode_tok_per_s": decode_tokens / (t1 - first)}
 
 
+def one_shot_rows(torch, model, params, r, dev, max_len=1024):
+    """``model``'s logits at each of ``r``'s output positions (a copy, so
+    the whole forward's logits are freed), from one forward over prompt +
+    outputs."""
+    from parallax_tpu_torch.runtime.batch import BucketSpec, assemble
+    from parallax_tpu_torch.runtime.request import Request
+    from parallax_tpu_torch.runtime.scheduler import BatchPlan, ScheduledSeq
+
+    page = 64
+    ctx = r.prompt_ids + r.output_ids[:-1]
+    n = len(ctx)
+    npg = (n + page - 1) // page
+    ref_req = Request("ref", prompt_ids=list(ctx))
+    ref_req.page_ids = list(range(1, npg + 1))
+    plan = BatchPlan([ScheduledSeq(request=ref_req, num_new_tokens=n,
+                                   token_ids=list(ctx), context_len=n)])
+    spec = BucketSpec.build(max_len, 1, max_len, page)
+    inputs = assemble(plan, spec, page, dev, gather_all_logits=True)
+    kv = model.new_kv_caches(npg + 1, page, params["norm"]["weight"].dtype,
+                             dev)
+    with torch.no_grad():
+        logits, _ = model(params, kv, inputs)
+    p0 = len(r.prompt_ids) - 1
+    return logits[p0:p0 + len(r.output_ids)].clone()
+
+
 def greedy_check(torch, model_full, params, reqs, sampled, dev,
                  tol=None, max_len=1024, model_alt=None):
     """Tie-tolerant check of every greedy stream against the plain path
@@ -2229,32 +2352,13 @@ def greedy_check(torch, model_full, params, reqs, sampled, dev,
     largest logit difference from ``model_full``'s at any output position
     and how many positions share their argmax (no limit; None without
     ``model_alt``)."""
-    from parallax_tpu_torch.runtime.batch import BucketSpec, assemble
-    from parallax_tpu_torch.runtime.request import Request
-    from parallax_tpu_torch.runtime.scheduler import BatchPlan, ScheduledSeq
-
-    page = 64
     worst, over, spreads = 0.0, 0, []
     alt = None if model_alt is None else {
         "largest_logit_diff": 0.0, "positions": 0, "argmax_equal": 0}
     for i, r in enumerate(reqs):
         if i in sampled:
             continue
-        ctx = r.prompt_ids + r.output_ids[:-1]
-        n = len(ctx)
-        npg = (n + page - 1) // page
-        ref_req = Request("ref", prompt_ids=list(ctx))
-        ref_req.page_ids = list(range(1, npg + 1))
-        plan = BatchPlan([ScheduledSeq(request=ref_req, num_new_tokens=n,
-                                       token_ids=list(ctx), context_len=n)])
-        spec = BucketSpec.build(max_len, 1, max_len, page)
-        inputs = assemble(plan, spec, page, dev, gather_all_logits=True)
-        kv = model_full.new_kv_caches(npg + 1, page,
-                                      params["norm"]["weight"].dtype, dev)
-        with torch.no_grad():
-            logits, _ = model_full(params, kv, inputs)
-        p0 = len(r.prompt_ids) - 1
-        rows = logits[p0:p0 + len(r.output_ids)]
+        rows = one_shot_rows(torch, model_full, params, r, dev, max_len)
         toks = torch.tensor(r.output_ids, device=dev)
         best = rows.max(dim=-1).values
         gaps = best - rows.gather(1, toks[:, None])[:, 0]
@@ -2267,20 +2371,16 @@ def greedy_check(torch, model_full, params, reqs, sampled, dev,
                 f"{r.request_id}: greedy token off the plain path's argmax "
                 f"by {g} (tolerance {tol})"
             )
-        del logits, kv
         if alt is not None:
-            kv = model_alt.new_kv_caches(npg + 1, page,
-                                         params["norm"]["weight"].dtype, dev)
-            with torch.no_grad():
-                logits, _ = model_alt(params, kv, inputs)
-            rows_alt = logits[p0:p0 + len(r.output_ids)]
+            rows_alt = one_shot_rows(torch, model_alt, params, r, dev,
+                                     max_len)
             alt["largest_logit_diff"] = max(
                 alt["largest_logit_diff"],
                 float((rows_alt.float() - rows.float()).abs().max()))
             alt["positions"] += rows.shape[0]
             alt["argmax_equal"] += int(
                 (rows_alt.argmax(-1) == rows.argmax(-1)).sum())
-            del logits, kv, rows_alt
+            del rows_alt
     return worst, over, float(torch.cat(spreads).median()), alt
 
 
@@ -2556,6 +2656,317 @@ def phase_profile(torch, dev, cfg, params, phase="profile", **serve_kw):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6b: features_serve, sampling features on the served path
+# ---------------------------------------------------------------------------
+
+# The schema of tests/test_constrained_window.py, and the byte tokenizer's
+# grammar vocabulary (258 entries over Qwen2.5's 152,064 ids; EOS 257).
+FEATURE_SCHEMA = json.dumps({"type": "object",
+                             "properties": {"v": {"enum": ["x", "y"]}},
+                             "required": ["v"]})
+GRAMMAR_VOCAB = ([bytes([i]) for i in range(256)] + [b"", b""], 257)
+FEATURE_NEW = 48
+PENALTIES = dict(repetition_penalty=1.3, presence_penalty=0.5,
+                 frequency_penalty=0.2)
+# r0-r7's feature sets: (sampling, the row's extra fields); seeded rows
+# take temperature 0.8 and top-k 40.
+FEATURE_SETS = (
+    ({}, dict(json_schema=FEATURE_SCHEMA)),
+    ({"seed": 21}, dict(json_schema=FEATURE_SCHEMA)),
+    ({}, PENALTIES),
+    ({"seed": 23}, PENALTIES),
+    ({}, dict(logit_bias={11: 4.0, 23: -6.0}, logprobs=True)),
+    ({"seed": 25}, dict(logprobs=True)),
+    ({"seed": 27}, dict(json_schema=FEATURE_SCHEMA, logprobs=True,
+                        logit_bias={ord("x"): 2.5}, **PENALTIES)),
+    ({}, {}),
+)
+FEATURE_RUNS = (
+    ("fused", True, None, None, None),
+    ("fused_eager", True, None, None, False),
+    ("fused_k1_sync", True, None, K1_SYNC, None),
+    ("plain", False, dict(use_kernels=False), K1_SYNC, None),
+)
+
+
+def feature_requests(vocab: int, features: bool = True):
+    """serve's 8 prompts, 48 new tokens each, with r0-r7's feature sets
+    (``FEATURE_SETS``); grammar rows stop at EOS 257, the rest run to
+    their budget. ``features=False`` keeps the sampling and drops the
+    features (the same mix without them)."""
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    base, _ = make_requests(vocab)
+    reqs, sampled = [], {}
+    for i, (r, (samp, feats)) in enumerate(zip(base, FEATURE_SETS)):
+        kw = dict(temperature=0.0, max_new_tokens=FEATURE_NEW,
+                  ignore_eos=True)
+        if samp:
+            kw.update(temperature=0.8, top_k=40, seed=samp["seed"])
+            sampled[i] = (0.8, 40, samp["seed"])
+        if features:
+            kw.update(feats)
+        grammar = "json_schema" in kw
+        if grammar:
+            kw["ignore_eos"] = False
+        reqs.append(Request(
+            r.request_id, prompt_ids=list(r.prompt_ids),
+            eos_token_ids=(GRAMMAR_VOCAB[1],) if grammar else (),
+            sampling_params=SamplingParams(**kw)))
+    return reqs, sampled
+
+
+def schema_json(ids) -> dict:
+    """The JSON a grammar row decoded to, which must match FEATURE_SCHEMA."""
+    obj = json.loads(bytes(t for t in ids if t < 256))
+    if set(obj) != {"v"} or obj["v"] not in ("x", "y"):
+        raise AssertionError(f"features_serve: {obj} does not match the "
+                             "schema")
+    return obj
+
+
+def feature_greedy_check(torch, model_full, params, reqs, rows, dev) -> dict:
+    """Each greedy feature row's committed tokens against the plain model's
+    one-shot logits with that row's features applied at every position:
+    the penalties from the tokens committed before it, the bias, and the
+    host DFA's mask (columns past the grammar vocabulary masked). Each
+    token must be within GREEDY_TOL of that argmax; returns each row's
+    largest gap."""
+    from parallax_tpu_torch.constrained import GrammarCompiler
+    from parallax_tpu_torch.ops.sampling import NEG_INF, apply_penalties
+
+    compiler = GrammarCompiler(*GRAMMAR_VOCAB)
+    gaps = {}
+    for i in rows:
+        r = reqs[i]
+        sp = r.sampling_params
+        logits = one_shot_rows(torch, model_full, params, r, dev).float()
+        v = logits.shape[1]
+        counts = torch.zeros((1, v), dtype=torch.int32, device=dev)
+        table = compiler.compile(sp.json_schema) if sp.json_schema else None
+        state, worst = 0, 0.0
+        for j, tok in enumerate(r.output_ids):
+            row = logits[j:j + 1]
+            if sp.presence_penalty or sp.frequency_penalty or (
+                    sp.repetition_penalty != 1.0):
+                row = apply_penalties(
+                    row, counts,
+                    torch.tensor([sp.presence_penalty], device=dev),
+                    torch.tensor([sp.frequency_penalty], device=dev),
+                    torch.tensor([sp.repetition_penalty], device=dev))
+            row = row[0].clone()
+            for tid, b in (sp.logit_bias or {}).items():
+                row[int(tid)] += float(b)
+            if table is not None:
+                mask = torch.zeros((v,), dtype=torch.bool, device=dev)
+                m = torch.from_numpy(table.allowed_mask(state)).to(dev)
+                mask[: m.shape[0]] = m
+                row = torch.where(mask, row, NEG_INF)
+                state = table.advance(state, tok)
+            gap = float(row.max() - row[tok])
+            worst = max(worst, gap)
+            if gap >= GREEDY_TOL:
+                raise AssertionError(
+                    f"features_serve {r.request_id} token {j}: {tok} sits "
+                    f"{gap} under the featured argmax (limit {GREEDY_TOL})")
+            counts[0, tok] += 1
+        gaps[r.request_id] = worst
+        del logits
+    return gaps
+
+
+def feature_pass_ms(torch, dev, v: int, s: int = 8) -> dict:
+    """Device time of one window step's feature pass at S rows of V logits,
+    every feature on (penalties from a count table, two bias rows, the
+    schema's packed mask, logprobs, the count and DFA advance; the
+    engine's own ``window_feature_logits`` / ``window_feature_advance``),
+    by CUDA events with the host's enqueue hidden."""
+    from parallax_tpu_torch.constrained import GrammarCompiler
+    from parallax_tpu_torch.runtime.engine import (
+        WindowState,
+        window_feature_advance,
+        window_feature_logits,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    dev_t = GrammarCompiler(*GRAMMAR_VOCAB).device_table(FEATURE_SCHEMA)[0]
+    i32 = dict(dtype=torch.int32, device=dev)
+    z = torch.zeros((s,), **i32)
+    st = WindowState(
+        page_indices=z[:, None], cu_q_lens=z, num_seqs=z[:1],
+        logits_indices=z, feed=z, ctx=z, stopped=z.bool(), produced=z,
+        counter=torch.zeros((1,), dtype=torch.int64, device=dev),
+        tokens=torch.zeros((8, s), **i32), stop_tokens=z[:, None],
+        limit=z, min_req=z,
+        pen_pres=torch.full((s,), 0.5, device=dev),
+        pen_freq=torch.full((s,), 0.2, device=dev),
+        pen_rep=torch.full((s,), 1.3, device=dev),
+        pen_counts=torch.randint(0, 2, (s, v), generator=gen, device=dev,
+                                 dtype=torch.int32),
+        bias_rows=torch.tensor([0, 1], **i32),
+        bias_vecs=torch.randn((2, v), generator=gen, device=dev),
+        g_trans=torch.from_numpy(dev_t.trans).to(dev),
+        g_allowed=torch.from_numpy(dev_t.allowed.view("int32")).to(dev),
+        g_constrained=torch.ones((s,), dtype=torch.bool, device=dev),
+        g_dead=torch.full((s,), dev_t.dead_state, **i32),
+        dfa=z.clone(),
+        lps=torch.zeros((8, s), dtype=torch.float32, device=dev),
+    )
+    logits = torch.randn((s, v), generator=gen, device=dev)
+    nxt = torch.full((s,), ord("{"), **i32)
+    live = torch.ones((s,), dtype=torch.bool, device=dev)
+
+    def step():
+        window_feature_advance(st, window_feature_logits(st, logits), nxt,
+                               live)
+
+    ms = time_ms(torch, step, 50, hide_host=True)
+    return {"device_ms": ms, "rows": s, "vocab": v,
+            "grammar_states": dev_t.n_states}
+
+
+def _common_prefix(a, b) -> int:
+    same = 0
+    while same < min(len(a), len(b)) and a[same] == b[same]:
+        same += 1
+    return same
+
+
+def _featured_stats(reqs) -> dict:
+    """Per-row finish, token count and logprob count of a features run."""
+    return {r.request_id: [r.status.value, len(r.output_ids),
+                           len(r.output_logprobs)] for r in reqs}
+
+
+def check_feature_run(mode, reqs) -> None:
+    """Every row of a features run: grammar rows (r0, r1, r6) stop at EOS
+    with schema-valid JSON, the others run to 48 tokens; a logprob row has
+    one logprob (<= 0) a token, any other row none."""
+    for r in reqs:
+        sp = r.sampling_params
+        if sp.json_schema:
+            if r.status.value != "finished_eos":
+                raise AssertionError(f"features_serve {mode} "
+                                     f"{r.request_id}: {r.status.value}")
+            schema_json(r.output_ids)
+        elif (r.status.value != "finished_length"
+              or len(r.output_ids) != FEATURE_NEW):
+            raise AssertionError(f"features_serve {mode} {r.request_id}: "
+                                 f"{r.status.value}, {len(r.output_ids)}")
+        want = len(r.output_ids) if sp.logprobs else 0
+        if len(r.output_logprobs) != want or any(
+                lp > 0.0 for lp in r.output_logprobs):
+            raise AssertionError(
+                f"features_serve {mode} {r.request_id}: "
+                f"{len(r.output_logprobs)} logprobs for "
+                f"{len(r.output_ids)} tokens, max "
+                f"{max(r.output_logprobs, default=None)}")
+
+
+def phase_features_serve(torch, dev, card: str, cfg, model_full, params):
+    """Qwen2.5-7B at full width serving serve's 8 prompts with one
+    sampling-feature set a row (``FEATURE_SETS``), four times: the
+    engine's defaults (K = 8 feature windows replayed from CUDA graphs),
+    the same with graphs off (every row's tokens and logprob bits equal),
+    K1_SYNC (the host-synchronous path) and plain; then the same mix
+    without features under the defaults, for its TTFT and decode rate,
+    and r0 with EOS biased +20, which must stop at the grammar's terminal
+    state. Launches exact (A3 on every feature step); the defaults ran
+    feature windows with no fallback; greedy feature rows within
+    GREEDY_TOL of the plain one-shot logits with their features applied;
+    the device time of one window step's feature pass."""
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    n = cfg.num_hidden_layers
+    runs = {}
+    for mode, fused, model_kw, engine_kw, graphs in FEATURE_RUNS + (
+            ("fused_nofeatures", True, None, None, None),):
+        ck.reset_launches()
+        reqs, sampled, engines, t0, t1 = serve(
+            torch, [(0, n)], params, cfg, dev, fused=fused,
+            model_kw=model_kw, engine_kw=engine_kw, cuda_graphs=graphs,
+            requests=feature_requests(cfg.vocab_size,
+                                      mode != "fused_nofeatures"))
+        launches = ck.launches()
+        summary = engines[0].kernel_dispatch_summary()
+        check_launches("features_serve", mode, launches,
+                       gqa_expected(mode, summary, n), summary)
+        if engine_kw is None:
+            check_windows("features_serve", mode, summary,
+                          graphs is not False)
+        constrained = engines[0].constrained_summary()
+        if mode == "fused_nofeatures":
+            emit({"phase": "features_serve", "run": mode,
+                  **stream_metrics(reqs, t0, t1), "card": card})
+            break
+        check_feature_run(mode, reqs)
+        if engine_kw is None and (
+                not constrained or constrained["window_rows"] <= 0
+                or constrained["mask_steps"] <= 0
+                or constrained["fallbacks"] != 0):
+            raise AssertionError(f"features_serve {mode}: feature windows "
+                                 f"{constrained}")
+        if fused and launches["sample_topk"] <= 0:
+            raise AssertionError(f"features_serve {mode}: A3 not launched")
+        emit({"phase": "features_serve", "run": mode,
+              "engine": engine_kw or "defaults", "launches": launches,
+              "steps": sum(forward_steps(summary)), "dispatch": summary,
+              "constrained": constrained,
+              "window_feature_sets": {
+                  "+".join(k) or "none": v for k, v in
+                  engines[0].window_feature_counts.items()},
+              "rows": _featured_stats(reqs),
+              "json": {reqs[i].request_id: schema_json(reqs[i].output_ids)
+                       for i in (0, 1, 6)},
+              **stream_metrics(reqs, t0, t1), "card": card})
+        del engines
+        if mode in ("fused", "plain"):
+            gaps = feature_greedy_check(torch, model_full, params, reqs,
+                                        (0, 2, 4), dev)
+            emit({"phase": "features_serve", "run": mode,
+                  "greedy_featured_vs_plain": "pass",
+                  "largest_logit_gap": gaps, "tolerance": GREEDY_TOL})
+        runs[mode] = reqs
+    differ = [r.request_id for r, e in zip(runs["fused"], runs["fused_eager"])
+              if r.output_ids != e.output_ids
+              or r.output_logprobs != e.output_logprobs]
+    if differ:
+        raise AssertionError(f"features_serve: graphs on and off differ at "
+                             f"{differ}")
+    for mode in ("fused_k1_sync", "plain"):
+        emit({"phase": "features_serve", "run": mode,
+              "common_prefix_vs_defaults": {
+                  a.request_id: _common_prefix(a.output_ids, b.output_ids)
+                  for a, b in zip(runs["fused"], runs[mode])}})
+    # r0 with EOS biased +20: EOS is the argmax wherever the grammar allows
+    # it, at the accepting states only.
+    r0 = runs["fused"][0]
+    stop = Request("r0_eos", prompt_ids=list(r0.prompt_ids),
+                   eos_token_ids=(GRAMMAR_VOCAB[1],),
+                   sampling_params=SamplingParams(
+                       temperature=0.0, max_new_tokens=FEATURE_NEW,
+                       json_schema=FEATURE_SCHEMA,
+                       logit_bias={GRAMMAR_VOCAB[1]: 20.0}))
+    reqs, _, engines, _, _ = serve(torch, [(0, n)], params, cfg, dev,
+                                   fused=True, requests=([stop], {}))
+    windows = engines[0].kernel_dispatch_summary()["dispatch_total"].get(
+        "cuda-fused/multistep", 0)
+    del engines
+    if (stop.status.value != "finished_eos"
+            or len(stop.output_ids) >= FEATURE_NEW or windows <= 0):
+        raise AssertionError(f"features_serve: terminal stop "
+                             f"{stop.status.value}, {stop.output_ids}, "
+                             f"{windows} window steps")
+    emit({"phase": "features_serve", "check": "terminal_state_stop",
+          "status": stop.status.value, "tokens": len(stop.output_ids),
+          "json": schema_json(stop.output_ids), "window_steps": windows})
+    emit({"phase": "features_serve", "check": "feature_pass",
+          **feature_pass_ms(torch, dev, cfg.vocab_size), "card": card})
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: http_serve, the front door
 # ---------------------------------------------------------------------------
 
@@ -2718,6 +3129,98 @@ def _http_reply(out: dict, body: dict):
             text)
 
 
+def http_feature_bodies():
+    """The feature requests sent after the mix: (name, path, body). JSON
+    mode both ways (the schema of features_serve, at most 21 bytes and EOS,
+    and json_object), on chat and completions; logprobs streamed and not;
+    logit_bias; penalties; a schema the compiler refuses (400)."""
+    prompt = "Reply with a JSON object naming one of x or y."
+    chat = {"messages": [{"role": "user", "content": prompt}],
+            "max_tokens": 32, "temperature": 0}
+    comp = {"prompt": prompt, "max_tokens": 32, "temperature": 0}
+    schema = {"type": "json_schema",
+              "json_schema": {"name": "v", "schema":
+                              json.loads(FEATURE_SCHEMA)}}
+    out = []
+    for kind, path, base in (("chat", "/v1/chat/completions", chat),
+                             ("completion", "/v1/completions", comp)):
+        out += [
+            (f"{kind}_json_schema", path,
+             {**base, "response_format": schema}),
+            # Any JSON value, unbounded on random weights: '{', '}' and
+            # EOS biased so the reply closes ({}) and stops there.
+            (f"{kind}_json_object", path,
+             {**base, "response_format": {"type": "json_object"},
+              "logit_bias": {"123": 10.0, "125": 10.0, "257": 20.0}}),
+            (f"{kind}_logprobs", path,
+             {**base, "logprobs": True, "ignore_eos": True}),
+            (f"{kind}_logprobs_stream", path,
+             {**base, "logprobs": True, "ignore_eos": True,
+              "stream": True}),
+            (f"{kind}_logit_bias", path,
+             {**base, "logit_bias": {"120": 6.0, "121": -3.0},
+              "ignore_eos": True}),
+            (f"{kind}_penalties", path,
+             {**base, "presence_penalty": 0.5, "frequency_penalty": 0.2,
+              "repetition_penalty": 1.3, "temperature": 0.8, "seed": 3,
+              "top_k": 40, "ignore_eos": True, "logprobs": True,
+              "stream": True}),
+        ]
+    out.append(("bad_schema", "/v1/chat/completions",
+                {**chat, "response_format": {
+                    "type": "json_schema",
+                    "json_schema": {"schema": {"type": "frobnicate"}}}}))
+    return out
+
+
+def http_feature_checks(features) -> dict:
+    """Each feature reply 200 (the bad schema 400) with one logprob entry
+    a completion token where logprobs were asked (each <= 0), and JSON
+    where a schema was (the schema's own where it was given)."""
+    got = {}
+    for name, path, body, out in features:
+        if name == "bad_schema":
+            if out.get("status") != 400:
+                raise AssertionError(f"http_serve {name}: {out}")
+            got[name] = 400
+            continue
+        chat = path.endswith("chat/completions")
+        if out.get("status") != 200:
+            raise AssertionError(f"http_serve {name}: {out}")
+        if body.get("stream"):
+            lines = out["raw"].splitlines()
+            chunks = [json.loads(x[6:]) for x in lines
+                      if x.startswith("data: ") and x != "data: [DONE]"]
+            choices = [c["choices"][0] for c in chunks]
+            usage = chunks[-1]["usage"]
+            text = "".join(c["delta"].get("content", "") if chat
+                           else c["text"] for c in choices)
+        else:
+            reply = json.loads(out["raw"])
+            choices = reply["choices"]
+            usage = reply["usage"]
+            text = (choices[0]["message"]["content"] if chat
+                    else choices[0]["text"])
+        lps = []
+        for c in choices:
+            lp = c.get("logprobs") or {}
+            lps += ([e["logprob"] for e in lp.get("content", [])] if chat
+                    else lp.get("token_logprobs", []))
+        want = usage["completion_tokens"] if body.get("logprobs") else 0
+        if len(lps) != want or any(x > 0.0 for x in lps):
+            raise AssertionError(f"http_serve {name}: {len(lps)} logprobs "
+                                 f"for {usage['completion_tokens']} tokens")
+        rf = body.get("response_format")
+        if rf:
+            obj = json.loads(text)
+            if rf["type"] == "json_schema":
+                schema_json(text.encode())
+            text = obj
+        got[name] = {"completion_tokens": usage["completion_tokens"],
+                     "logprobs": len(lps), "json": text if rf else None}
+    return got
+
+
 def _serve_http(torch, dev, ckpt: str, mix):
     """``serve`` through the CLI's parser and ``serve_main`` on a free port
     in a thread; the mix from 8 client threads (r7 once r0 is answered, so
@@ -2774,6 +3277,13 @@ def _serve_http(torch, dev, ckpt: str, mix):
         info = {"startup_s": startup_s, "num_pages": engine.cfg.num_pages,
                 "prefill_chunk_size": engine.cfg.prefill_chunk_size,
                 "cache": engine.cache_stats()}
+        # Then the sampling features, one request at a time.
+        info["features"] = []
+        for name, path, body in http_feature_bodies():
+            out = {}
+            _http_client(frontend.port, path, body, out)
+            info["features"].append((name, path, body, out))
+        info["constrained"] = engine.constrained_summary()
     finally:
         frontend.shutdown()
         server.join(HTTP_TIMEOUT_S)
@@ -2928,6 +3438,9 @@ def http_results(torch, dev, card, cfg, loaded, mix, sampled, outs,
         / (t_end - first),
         "output_tok_per_s": sum(len(r.output_ids) for r in reqs)
         / (t_end - t_start)}
+    emit({"phase": "http_serve", "check": "sampling_features",
+          "replies": http_feature_checks(info.pop("features")),
+          "constrained": info.pop("constrained"), "card": card})
     emit({"phase": "http_serve", "run": "http", "requests": len(reqs),
           "status": "8 x 200", "launches": launches,
           "steps": sum(forward_steps(summary)), "dispatch": summary,
@@ -4672,7 +5185,8 @@ def run_dense(torch, dev, card: str, want) -> dict:
     back). Returns the split and fused serve runs' launches."""
     serving = any(want(p) for p in ("serve", "pipeline", "profile"))
     cfg, model_full, params = dense_tree(
-        torch, dev, "serve" if serving else "http_serve")
+        torch, dev, "serve" if serving else "features_serve"
+        if want("features_serve") else "http_serve")
     paths = {}
     if serving:
         single, sampled, launches = phase_serve(torch, dev, card, cfg,
@@ -4684,6 +5198,8 @@ def run_dense(torch, dev, card: str, want) -> dict:
                            sampled)
         if want("profile"):
             phase_profile(torch, dev, cfg, params)
+    if want("features_serve"):
+        phase_features_serve(torch, dev, card, cfg, model_full, params)
     if want("http_serve") or want("swarm_serve") or want("sched_serve"):
         tree = [params]
         del params
@@ -4715,7 +5231,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="",
                     help="comma-separated phases (build,kernels,serve,"
-                         "pipeline,profile,http_serve,swarm_serve and "
+                         "pipeline,profile,features_serve,http_serve,"
+                         "swarm_serve and "
                          "sched_serve (each runs http_serve too),moe_serve,"
                          "moe_profile,"
                          "mla_serve,mla_profile,dsa_serve,dsa_profile,"
@@ -4757,8 +5274,8 @@ def main() -> int:
     kernels = phase_kernels(torch, dev) if want("kernels") else None
     free_device_memory(torch)
     paths = {}
-    if any(want(p) for p in ("serve", "pipeline", "profile", "http_serve",
-                             "swarm_serve", "sched_serve")):
+    if any(want(p) for p in ("serve", "pipeline", "profile", "features_serve",
+                             "http_serve", "swarm_serve", "sched_serve")):
         paths.update(run_dense(torch, dev, card, want))
     # Qwen2.5-7B's tensors (about 15 GB) are gone before the MoE model's
     # 61 GB are made.

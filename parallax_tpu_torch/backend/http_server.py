@@ -10,8 +10,12 @@ choices, stop strings with hold-back), served by
 Handler threads touch no CUDA tensor: they tokenize and detokenize on the
 host and read each request's committed ids (a Python list), while the
 backend's own thread steps the engine (whose CUDA-graph captures allow no
-CUDA call from another thread). A request asking for a feature the
-engine's ``submit`` refuses gets HTTP 501 with that refusal's text; the
+CUDA call from another thread). Sampling features ride the body as in the
+JAX frontend: penalties, ``logit_bias``, ``response_format`` (its schema
+compiled at admission, 400 if unsupported) and ``logprobs`` (chat
+``content`` entries, completions ``tokens`` / ``token_logprobs``, streamed
+and not). A request asking for a feature the engine's ``submit`` refuses
+(a LoRA adapter) gets HTTP 501 with that refusal's text; the
 endpoints of later slices (metrics, debug, profiling, scheduler init,
 weight refit, the web UI) answer 501 "not ported yet". ``/cluster/status``
 (an ndjson stream) and ``/cluster/status_json`` serve a ``status_fn`` where
@@ -29,6 +33,7 @@ import socket
 import time
 import uuid
 
+from parallax_tpu_torch.constrained import validate_schema
 from parallax_tpu_torch.runtime.request import Request, SamplingParams
 from parallax_tpu_torch.utils import get_logger
 
@@ -75,9 +80,8 @@ def _schema_from_body(body: dict) -> str | None:
 
     ``{"type": "json_object"}`` -> "{}" (any JSON); ``{"type":
     "json_schema", "json_schema": {"schema": {...}}}`` -> that schema.
-    Raises ValueError (mapped to 400 by the caller) on unknown types. The
-    engine refuses grammar-constrained rows at ``submit`` (501) until their
-    slice, so the schema is not compiled here.
+    Raises ValueError (mapped to 400 by the caller) on unknown types and
+    on schemas the grammar compiler does not support.
     """
     rf = body.get("response_format")
     if not rf:
@@ -86,8 +90,8 @@ def _schema_from_body(body: dict) -> str | None:
     if kind in (None, "text"):
         return None
     if kind == "json_object":
-        return "{}"
-    if kind == "json_schema":
+        schema = "{}"
+    elif kind == "json_schema":
         spec = rf.get("json_schema") or {}
         schema_keys = (
             "type", "enum", "const", "anyOf", "oneOf", "properties",
@@ -100,8 +104,13 @@ def _schema_from_body(body: dict) -> str | None:
             raise ValueError(
                 "response_format.json_schema needs a 'schema' object"
             )
-        return json.dumps(inner)
-    raise ValueError(f"unsupported response_format type: {kind!r}")
+        schema = json.dumps(inner)
+    else:
+        raise ValueError(f"unsupported response_format type: {kind!r}")
+    # Compile-check (cached on the schema string) so an unsupported schema
+    # answers 400 before any token runs.
+    validate_schema(schema)
+    return schema
 
 
 def _sampling_from_body(body: dict, default_max: int = 512) -> SamplingParams:
@@ -692,6 +701,7 @@ class OpenAIFrontend:
         scanner = _StopScanner(stops)
         seen_tokens = 0
         emitted = ""
+        lp_sent = 0
         ttft_ms = None
         stop_matched = False
         deadline = time.monotonic() + _POLL_DEADLINE_S
@@ -703,20 +713,24 @@ class OpenAIFrontend:
                 seen_tokens = n
                 full = dec.update(list(req.output_ids[:n]))
                 idx = scanner.find(full) if stops else None
+                lp_entries, lp_sent = self._stream_logprob_entries(
+                    req, lp_sent)
                 if idx is not None:
                     final = full[:idx]
-                    if len(final) > len(emitted):
+                    if len(final) > len(emitted) or lp_entries:
                         h.write_chunk(self._sse_chunk(
-                            req, final[len(emitted):], chat))
+                            req, final[len(emitted):], chat,
+                            lp_entries=lp_entries))
                         emitted = final
                     stop_matched = True
                     self._request_stop(req)
                     break
                 # Hold back any suffix that could become a stop match.
                 safe = len(full) - (_stop_holdback(full, stops) if stops else 0)
-                if safe > len(emitted):
+                if safe > len(emitted) or lp_entries:
                     h.write_chunk(self._sse_chunk(
-                        req, full[len(emitted):safe], chat))
+                        req, full[len(emitted):safe], chat,
+                        lp_entries=lp_entries))
                     emitted = full[:safe]
             if req.status.is_finished:
                 break
@@ -732,8 +746,10 @@ class OpenAIFrontend:
             if idx is not None:
                 full = full[:idx]
                 stop_matched = True
-            if len(full) > len(emitted):
-                h.write_chunk(self._sse_chunk(req, full[len(emitted):], chat))
+            lp_entries, lp_sent = self._stream_logprob_entries(req, lp_sent)
+            if len(full) > len(emitted) or lp_entries:
+                h.write_chunk(self._sse_chunk(
+                    req, full[len(emitted):], chat, lp_entries=lp_entries))
         usage = self._usage(req, t_start, ttft_ms)
         h.write_chunk(self._sse_chunk(
             req, "", chat, finish=True, usage=usage,
@@ -743,7 +759,7 @@ class OpenAIFrontend:
         h.write_chunk(b"")
 
     def _sse_chunk(self, req, delta_text, chat, finish=False, usage=None,
-                   finish_override=None) -> bytes:
+                   finish_override=None, lp_entries=None) -> bytes:
         reason = (
             (finish_override or self._finish_reason(req)) if finish else None
         )
@@ -754,6 +770,10 @@ class OpenAIFrontend:
                 "finish_reason": reason,
             }
             obj = "chat.completion.chunk"
+            if lp_entries:
+                choice["logprobs"] = {"content": [
+                    {"token": t, "logprob": lp} for t, lp in lp_entries
+                ]}
         else:
             choice = {
                 "index": 0,
@@ -761,6 +781,11 @@ class OpenAIFrontend:
                 "finish_reason": reason,
             }
             obj = "text_completion"
+            if lp_entries:
+                choice["logprobs"] = {
+                    "tokens": [t for t, _ in lp_entries],
+                    "token_logprobs": [lp for _, lp in lp_entries],
+                }
         payload = {
             "id": req.request_id,
             "object": obj,
@@ -772,8 +797,38 @@ class OpenAIFrontend:
             payload["usage"] = usage
         return f"data: {json.dumps(payload)}\n\n".encode()
 
+    def _stream_logprob_entries(self, req, lp_sent):
+        """New (token_text, logprob) pairs since the last chunk."""
+        if not req.sampling_params.logprobs:
+            return None, lp_sent
+        n = min(len(req.output_ids), len(req.output_logprobs))
+        if n <= lp_sent:
+            return None, lp_sent
+        entries = [
+            (self.tokenizer.decode([req.output_ids[i]]),
+             req.output_logprobs[i])
+            for i in range(lp_sent, n)
+        ]
+        return entries, n
+
+    def _logprobs_payload(self, req, chat):
+        """OpenAI-format logprobs for the committed tokens (chat: content
+        entries; completions: parallel token / logprob arrays)."""
+        if not req.sampling_params.logprobs or not req.output_logprobs:
+            return None
+        n = min(len(req.output_ids), len(req.output_logprobs))
+        toks = [self.tokenizer.decode([t]) for t in req.output_ids[:n]]
+        if chat:
+            return {"content": [
+                {"token": tok, "logprob": lp}
+                for tok, lp in zip(toks, req.output_logprobs[:n])
+            ]}
+        return {"tokens": toks,
+                "token_logprobs": list(req.output_logprobs[:n])}
+
     def _completion_body(self, req, text, chat, t_start, finish_override=None):
         reason = finish_override or self._finish_reason(req)
+        lp = self._logprobs_payload(req, chat)
         if chat:
             choice = {
                 "index": 0,
@@ -788,6 +843,8 @@ class OpenAIFrontend:
                 "finish_reason": reason,
             }
             obj = "text_completion"
+        if lp is not None:
+            choice["logprobs"] = lp
         return {
             "id": req.request_id,
             "object": obj,

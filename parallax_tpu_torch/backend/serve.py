@@ -15,6 +15,7 @@ import threading
 import torch
 
 from parallax_tpu_torch.backend.http_server import OpenAIFrontend
+from parallax_tpu_torch.constrained import grammar_vocab_from_tokenizer
 from parallax_tpu_torch.runtime.engine import EngineConfig, StageEngine
 from parallax_tpu_torch.runtime.pipeline import InProcessPipeline
 from parallax_tpu_torch.runtime.request import Request
@@ -109,9 +110,21 @@ def build_local_frontend(
     model_name: str = "parallax-tpu",
 ) -> tuple[OpenAIFrontend, LocalRunner]:
     """The frontend and a started runner over ``engines`` (a pipeline in
-    stage order). The JAX package's watchdog, SLO, QoS and grammar
-    vocabulary wait for their slices."""
+    stage order), with the tokenizer's grammar vocabulary wired into the
+    last stage. The JAX package's watchdog, SLO and QoS wait for their
+    slices."""
     pipeline = InProcessPipeline(engines)
+    # Grammar-constrained decoding lives on the LAST stage (where sampling
+    # happens): wire the tokenizer's raw byte vocabulary into it before
+    # the runner thread starts stepping.
+    last = engines[-1]
+    if last.model.is_last:
+        try:
+            vocab, eos = grammar_vocab_from_tokenizer(tokenizer)
+            last.set_grammar_vocab(vocab, eos)
+        except Exception as e:  # no EOS id / no recoverable vocab
+            logger.warning("grammar vocab unavailable (%s); "
+                           "json_schema requests will be rejected", e)
     runner = LocalRunner(pipeline)
     runner.start()
     frontend = OpenAIFrontend(

@@ -339,3 +339,109 @@ def fused_sample_topk(
     ck.check(code, "sample_topk")
     ck.LAUNCHES["sample_topk"] += 1
     return out
+
+
+# -- sampling features: penalties, logit_bias, grammar masks, logprobs ------
+#
+# Elementwise work the JAX package leaves to XLA outside any Pallas kernel,
+# so it stays as PyTorch ops (inside a window's CUDA graph too). Every one
+# runs without a host sync or a data-dependent shape, and a -1 padded row
+# or id is dropped, never wrapped to the last row or token as a negative
+# index would be.
+
+
+def output_token_counts(out_ids: torch.Tensor, v: int) -> torch.Tensor:
+    """Padded per-row generated-id lists (i32[B, L], -1 padded) -> a dense
+    i32[B, V] count matrix. The decode window also calls this once at
+    dispatch to seed the count table its steps advance."""
+    valid = out_ids >= 0
+    ids = torch.where(valid, out_ids, 0).long()
+    counts = torch.zeros((out_ids.shape[0], v), dtype=torch.int32,
+                         device=out_ids.device)
+    return counts.scatter_add_(1, ids, valid.to(torch.int32))
+
+
+def apply_penalties(
+    logits: torch.Tensor,               # [B, V]
+    counts: torch.Tensor,               # i32[B, V] generated-token counts
+    presence_penalty: torch.Tensor,     # f32[B]
+    frequency_penalty: torch.Tensor,    # f32[B]
+    repetition_penalty: torch.Tensor,   # f32[B]; 1.0 disables
+) -> torch.Tensor:
+    """OpenAI presence / frequency and HF repetition penalties, f32[B, V].
+    The multiplicative repetition penalty applies to the raw logits; the
+    additive shifts come after, so the penalties compose linearly."""
+    logits = logits.float()
+    present = (counts > 0).float()
+    rep = repetition_penalty.float()[:, None]
+    penalized = torch.where(logits > 0, logits / rep, logits * rep)
+    logits = torch.where(present > 0, penalized, logits)
+    logits = logits - presence_penalty.float()[:, None] * present
+    return logits - frequency_penalty.float()[:, None] * counts.float()
+
+
+def penalize_logits(logits, out_ids, presence_penalty, frequency_penalty,
+                    repetition_penalty) -> torch.Tensor:
+    """:func:`apply_penalties` with the counts built from padded id lists
+    (the host path's form)."""
+    counts = output_token_counts(out_ids, logits.shape[1])
+    return apply_penalties(logits, counts, presence_penalty,
+                           frequency_penalty, repetition_penalty)
+
+
+def bias_logits(logits: torch.Tensor, rows: torch.Tensor,
+                bias_rows: torch.Tensor) -> torch.Tensor:
+    """OpenAI logit_bias: add per-row bias vectors to the given rows.
+    ``rows`` i32[G] (-1 = padding, dropped), ``bias_rows`` f32[G, V]. A
+    padding row adds zeros to row 0, which leaves every value as it was."""
+    valid = rows >= 0
+    vecs = torch.where(valid[:, None], bias_rows.to(logits.dtype), 0.0)
+    return logits.index_add(0, torch.where(valid, rows, 0).long(), vecs)
+
+
+def apply_grammar_mask(logits: torch.Tensor, rows: torch.Tensor,
+                       allowed: torch.Tensor) -> torch.Tensor:
+    """Constrained decoding: disallowed tokens of the given rows go to
+    NEG_INF. ``rows`` i32[G] (-1 = padding, dropped), ``allowed``
+    bool[G, V]. Rows not listed pass through."""
+    b, v = logits.shape
+    full = torch.ones((b + 1, v), dtype=torch.bool, device=logits.device)
+    full.index_copy_(0, torch.where(rows >= 0, rows, b).long(), allowed)
+    return torch.where(full[:b], logits, NEG_INF)
+
+
+def unpack_token_masks(bits: torch.Tensor, v: int) -> torch.Tensor:
+    """Packed per-row token bitsets (i32[B, W] holding the u32 words of
+    ``constrained/device_table.pack_bool_rows``) -> bool[B, v]. Bit ``t %
+    32`` of word ``t // 32`` is token ``t``; tokens at or past the packed
+    width unpack to False, as the host sampler masks columns past the
+    token table."""
+    b, w = bits.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    unpacked = ((bits.to(torch.int32)[:, :, None] >> shifts) & 1).bool()
+    unpacked = unpacked.reshape(b, w * 32)
+    if w * 32 >= v:
+        return unpacked[:, :v]
+    pad = torch.zeros((b, v - w * 32), dtype=torch.bool, device=bits.device)
+    return torch.cat([unpacked, pad], dim=1)
+
+
+def mask_logits_packed(logits: torch.Tensor, bits: torch.Tensor,
+                       constrained: torch.Tensor) -> torch.Tensor:
+    """The decode window's grammar mask: disallowed tokens of constrained
+    rows go to NEG_INF, other rows pass through — the same ``where(allowed,
+    logits, NEG_INF)`` as :func:`apply_grammar_mask`, so streams stay bit
+    for bit those of the host path."""
+    allowed = unpack_token_masks(bits, logits.shape[1])
+    full = allowed | ~constrained[:, None]
+    return torch.where(full, logits, NEG_INF)
+
+
+def token_logprobs(logits: torch.Tensor, tokens: torch.Tensor
+                   ) -> torch.Tensor:
+    """Log-probability of the chosen token per row, f32[B]:
+    ``logits[token] - logsumexp(logits)``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    chosen = torch.gather(logits, 1, tokens.long()[:, None])[:, 0]
+    return chosen - lse

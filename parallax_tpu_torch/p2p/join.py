@@ -90,6 +90,7 @@ def build_worker(args):
         ],
         layers=(args.start_layer, args.end_layer) if standalone else None,
         device=device,
+        tokenizer_path=args.model_path,
     )
 
 

@@ -62,6 +62,7 @@ import torch
 
 from parallax_tpu_torch.analysis.sanitizer import make_lock
 from parallax_tpu_torch.config import ModelConfig, resolve_wire_dtype
+from parallax_tpu_torch.constrained import grammar_vocab_from_tokenizer
 from parallax_tpu_torch.models import create_stage_model
 from parallax_tpu_torch.models.base import StageModel
 from parallax_tpu_torch.p2p import proto
@@ -83,6 +84,7 @@ from parallax_tpu_torch.runtime.request import (
 )
 from parallax_tpu_torch.utils import get_logger, unported
 from parallax_tpu_torch.utils.hw import detect_hardware
+from parallax_tpu_torch.utils.tokenizer import SimpleTokenizer, load_tokenizer
 
 logger = get_logger(__name__)
 
@@ -131,11 +133,14 @@ class WorkerNode:
         static_peers: list[str] | None = None,
         layers: tuple[int, int] | None = None,
         device=None,
+        tokenizer_path: str | None = None,
     ):
         """``scheduler_peer`` is the scheduler's RPC address; None enters
         SCHEDULER-LESS mode, where the worker self-assigns ``layers``.
         ``device`` is the engine's (None = ``cuda:0``, ``"cpu"`` for the
-        plain path). The JAX worker's other arguments (mesh, refit cache,
+        plain path). ``tokenizer_path`` (the checkpoint directory) gives a
+        last-stage worker the grammar vocabulary for json_schema rows. The
+        JAX worker's other arguments (mesh, refit cache,
         LoRA, watchdog, role, standbys, the model resolver) wait for their
         items; ``join`` refuses their flags by name."""
         self.scheduler_peer = scheduler_peer
@@ -154,6 +159,10 @@ class WorkerNode:
         self.static_peers = list(static_peers or [])
         self.device = device
         self._self_layers = layers
+        self.tokenizer_path = tokenizer_path
+        # (vocab bytes, eos id) for grammar-constrained decoding, built
+        # once from the tokenizer files on the first last-stage engine.
+        self._grammar_vocab: tuple | None = None
         # Boot epoch: travels in gossip announcements so peers can tell a
         # restarted process (possibly a different build — different wire
         # caps) from a continuing one.
@@ -379,9 +388,36 @@ class WorkerNode:
         # Fresh engine = empty radix tree: the scheduler's digest mirror
         # for this node is stale; the next heartbeat ships a snapshot.
         self._digests_full_next = True
+        if model.is_last:
+            self._wire_grammar()
         logger.info("%s: layers [%d, %d) ready on %s (%.2f s to load and "
                     "build)", self.node_id, start, end, self.engine.device,
                     time.monotonic() - t0)
+
+    def _wire_grammar(self) -> None:
+        """Enable json_schema enforcement on a last-stage worker: build the
+        tokenizer's byte vocabulary once and hand it to the engine. Without
+        real tokenizer files, constrained requests abort with a clear
+        reason instead of being silently unenforced: the byte tokenizer's
+        ids are not a real model's vocabulary."""
+        if self._grammar_vocab is None:
+            if not self.tokenizer_path:
+                logger.warning(
+                    "%s: no tokenizer path; json_schema requests will be "
+                    "rejected", self.node_id)
+                return
+            try:
+                tok = load_tokenizer(self.tokenizer_path)
+                if isinstance(tok, SimpleTokenizer):
+                    raise ValueError(
+                        f"no tokenizer files at {self.tokenizer_path}")
+                self._grammar_vocab = grammar_vocab_from_tokenizer(tok)
+            except Exception as e:
+                logger.warning("%s: grammar vocab unavailable (%s); "
+                               "json_schema requests will be rejected",
+                               self.node_id, e)
+                return
+        self.engine.set_grammar_vocab(*self._grammar_vocab)
 
     def _drop_engine(self) -> None:
         """Release the engine, its in-flight ticket and (on a card) the

@@ -19,6 +19,13 @@ window:
   produced count. On a CUDA device each window step is a replayed CUDA
   graph (``runtime/step_graph.py``; ``cuda_graphs``); elsewhere the same
   step function runs in an eager loop.
+- Sampling features (presence / frequency / repetition penalties,
+  ``logit_bias``, ``logprobs`` and JSON-schema grammar masks) run in the
+  JAX engine's order — penalties, bias, grammar mask, sampler, logprob — on
+  the host-synchronous single-step path (``sync_only`` tickets) and inside
+  the window, where the per-row counts, DFA rows and logprobs are carried
+  state (``WindowState``), so a window commits the K = 1 stream bit for
+  bit.
 
 Construction raises on every configuration the port does not run yet, and
 ``submit`` raises on every per-request feature it does not run yet — nothing
@@ -28,10 +35,13 @@ is silently ignored.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 
 import numpy as np
 import torch
+
+from parallax_tpu_torch.analysis.sanitizer import make_lock
 
 from parallax_tpu_torch.config import resolve_wire_dtype
 from parallax_tpu_torch.models.base import BatchInputs, StageModel
@@ -39,10 +49,17 @@ from parallax_tpu_torch.models.registry import params_to, unported_features
 from parallax_tpu_torch.ops import kernel_select
 from parallax_tpu_torch.ops.sampling import (
     FUSED_SAMPLE_TOPK_MAX,
+    apply_grammar_mask,
+    apply_penalties,
+    bias_logits,
     fused_sample_topk,
     greedy_tokens,
     gumbel_rows,
+    mask_logits_packed,
+    output_token_counts,
+    penalize_logits,
     sample_tokens,
+    token_logprobs,
 )
 from parallax_tpu_torch.runtime.batch import (
     BucketSpec,
@@ -59,6 +76,8 @@ from parallax_tpu_torch.runtime.request import (
 )
 from parallax_tpu_torch.runtime.scheduler import BatchPlan, Scheduler
 from parallax_tpu_torch.utils.hw import resolve_device
+
+logger = logging.getLogger(__name__)
 
 _KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -78,11 +97,13 @@ class EngineConfig:
     and chunk skipping, ``kv_dtype``, ``seed``, ``request_timeout_s``, the
     overlapped step (``overlap_steps``), the K-step decode window
     (``decode_lookahead``, ``decode_pipeline``), the ``decode_fused`` /
-    ``prefill_fused`` kernel switches and ``cache_digests`` (the radix
-    tree's digest log for cache-aware routing). The fields listed in ``_UNPORTED``
+    ``prefill_fused`` kernel switches, ``cache_digests`` (the radix
+    tree's digest log for cache-aware routing) and ``constrained_window``
+    (grammar batches ride the decode window; off, they decode on the
+    host-synchronous path). The fields listed in ``_UNPORTED``
     must keep their defaults (construction raises otherwise);
-    ``linear_*``, ``speculative_ngram``, ``constrained_window`` and
-    ``slow_request_ms`` only tune features that are refused elsewhere.
+    ``linear_*``, ``speculative_ngram`` and ``slow_request_ms`` only tune
+    features that are refused elsewhere.
     ``wire_dtype`` is read by the swarm worker (``p2p/node.py``), not the
     engine, as in the JAX package; its float8 link mode raises here."""
 
@@ -190,6 +211,10 @@ class StepTicket:
     # per-row produced counts, which bound the commits.
     ms_windows: torch.Tensor | None = None
     ms_state: torch.Tensor | None = None
+    # Chosen-token logprobs: the single-step path's f32[S] and a window
+    # chain's f32[rows, S] pinned host copies (None when no row asked).
+    lp_host: torch.Tensor | None = None
+    ms_lp: torch.Tensor | None = None
     # The event behind the ticket's host copies (None on a CPU device).
     ready: object = None
     outputs: StepOutputs | None = None
@@ -234,7 +259,9 @@ class WindowState:
     """Everything a decode window's step reads and writes, as tensors: the
     per-dispatch batch fields, the carry (fed token, context, stop mask,
     produced count, step counter) and the token buffer the step writes at
-    the counter's row. Sampler fields are None on an all-greedy window."""
+    the counter's row. Sampler fields are None on an all-greedy window,
+    and each sampling feature's fields are None unless a row of the
+    window uses it (``StageEngine._pack_window_features``)."""
 
     page_indices: torch.Tensor     # i32[S, pages_per_seq]
     cu_q_lens: torch.Tensor        # i32[S+1]
@@ -255,6 +282,24 @@ class WindowState:
     min_p: torch.Tensor | None = None
     seeds: torch.Tensor | None = None   # i64[S]; < 0 = unseeded
     steps0: torch.Tensor | None = None  # i64[S] noise step at counter 0
+    # Penalties: per-row strengths (neutral 0 / 0 / 1.0) and the carried
+    # generated-token counts.
+    pen_pres: torch.Tensor | None = None    # f32[S]
+    pen_freq: torch.Tensor | None = None    # f32[S]
+    pen_rep: torch.Tensor | None = None     # f32[S]
+    pen_counts: torch.Tensor | None = None  # i32[S, V]
+    # logit_bias: the biased rows (-1 padded) and their dense vectors.
+    bias_rows: torch.Tensor | None = None   # i32[G]
+    bias_vecs: torch.Tensor | None = None   # f32[G, V]
+    # Grammar: the batch's combined dense tables, per-row flags and dead
+    # rows, and the carried DFA row of each row.
+    g_trans: torch.Tensor | None = None     # i32[R, Vg]
+    g_allowed: torch.Tensor | None = None   # i32[R, ceil(Vg / 32)] bits
+    g_constrained: torch.Tensor | None = None  # bool[S]
+    g_dead: torch.Tensor | None = None      # i32[S]
+    dfa: torch.Tensor | None = None         # i32[S]
+    # Logprobs: written at the counter's row, like ``tokens``.
+    lps: torch.Tensor | None = None         # f32[R, S]
 
     def _tensors(self):
         return [(f.name, getattr(self, f.name))
@@ -276,6 +321,62 @@ def _fit(x: torch.Tensor, t: int, fill: int) -> torch.Tensor:
     if t <= s:
         return x[:t]
     return torch.cat([x, x.new_full((t - s,), fill)])
+
+
+def window_feature_logits(st: WindowState,
+                          logits: torch.Tensor) -> torch.Tensor:
+    """A window step's feature pass before the sampler, in the host
+    sampler's order (``StageEngine._apply_features``): penalties from the
+    carried counts, then the bias rows, then the packed grammar mask at
+    each row's carried DFA row. Every feature the window carries applies to
+    every row, neutral rows with neutral values."""
+    if st.pen_counts is not None:
+        logits = apply_penalties(logits, st.pen_counts, st.pen_pres,
+                                 st.pen_freq, st.pen_rep)
+    if st.bias_rows is not None:
+        logits = bias_logits(logits, st.bias_rows, st.bias_vecs)
+    if st.dfa is not None:
+        logits = mask_logits_packed(logits, st.g_allowed[st.dfa.long()],
+                                    st.g_constrained)
+    return logits
+
+
+def window_feature_advance(st: WindowState, logits: torch.Tensor,
+                           nxt: torch.Tensor, live: torch.Tensor) -> None:
+    """A window step's feature pass after the sampler: the chosen token's
+    logprob off the FINAL logits (as the host path takes it) at the
+    counter's row, the live rows' counts, and each live constrained row's
+    DFA row, which goes to its dead row for a token at or past the grammar
+    vocabulary (``TokenTable.advance``; the mask keeps live constrained
+    rows from sampling one)."""
+    if st.lps is not None:
+        st.lps.index_copy_(0, st.counter, token_logprobs(logits, nxt)[None])
+    if st.pen_counts is not None:
+        st.pen_counts.scatter_add_(1, nxt.long()[:, None],
+                                   live.to(torch.int32)[:, None])
+    if st.dfa is not None:
+        vg = st.g_trans.shape[1]
+        adv = st.g_trans[st.dfa.long(), torch.clamp(nxt, 0, vg - 1).long()]
+        adv = torch.where(nxt < vg, adv, st.g_dead)
+        st.dfa.copy_(torch.where(st.g_constrained & live, adv, st.dfa))
+
+
+def _pow2(n: int) -> int:
+    """The smallest power of 2 >= n (the feature rows' bucket)."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def _pad_id_lists(gen: dict[int, list[int]], s: int) -> np.ndarray:
+    """Per-row id lists as i32[s, L], -1 padded, L a power of 2 >= 8 (the
+    JAX engine's lattice for penalty histories)."""
+    out = np.full((s, max(8, _pow2(max(map(len, gen.values()),
+                                       default=0)))), -1, np.int32)
+    for i, ids in gen.items():
+        out[i, : len(ids)] = ids
+    return out
 
 
 class StageEngine:
@@ -419,6 +520,20 @@ class StageEngine:
 
             self._graphs = WindowGraphs(self.device)
         self._last_fused_steps = 0
+        # Grammar-constrained decoding (json_schema): set by the serving
+        # layer on the LAST stage via set_grammar_vocab(); per-request
+        # (TokenTable, DFA state) entries keyed by request id.
+        self.grammar = None
+        self._grammar_states: dict[str, tuple] = {}
+        # Per-request dense logit_bias vectors (built once per request).
+        self._bias_cache: dict[str, np.ndarray] = {}
+        # Combined grammar tables on the device, per grammar combination.
+        self._gram_combo_cache: dict[tuple, tuple] = {}
+        self._constrained_stats: dict[str, int] = {}
+        self._constrained_lock = make_lock("engine.constrained")
+        self._warned_constrained_off = False
+        # Decode windows enqueued per sampling-feature set (() = none).
+        self.window_feature_counts: dict[tuple, int] = {}
 
     # -- intake -----------------------------------------------------------
 
@@ -500,6 +615,8 @@ class StageEngine:
             self.scheduler.wait_queue.get(request_id)
         )
         self._pending_hidden.pop(request_id, None)
+        self._grammar_states.pop(request_id, None)
+        self._bias_cache.pop(request_id, None)
         self._free_token_slot(request_id)
         if req is not None:
             req.device_feed_ready = False
@@ -523,6 +640,119 @@ class StageEngine:
         heartbeats (None when ``cfg.cache_digests`` is off). Host state
         only: a heartbeat thread may call it."""
         return self.cache.digest_payload(full=full)
+
+    # -- sampling features: grammar state and telemetry -------------------
+
+    def set_grammar_vocab(self, vocab: list[bytes], eos_token_id: int) -> None:
+        """Enable grammar-constrained decoding (json_schema) on this
+        stage. Call on the last stage with the tokenizer's raw token byte
+        strings; without it, constrained requests are aborted."""
+        from parallax_tpu_torch.constrained import GrammarCompiler
+
+        self.grammar = GrammarCompiler(vocab, eos_token_id)
+
+    def _grammar_entry(self, req: Request) -> tuple | None:
+        """(TokenTable, state) for a constrained request, created on first
+        sight; None for unconstrained. Aborts the request if no grammar
+        vocabulary is wired or the schema does not compile. The first
+        state is recomputed from the tokens already in the stream (the DFA
+        state is a function of the schema and the committed stream)."""
+        sp = req.sampling_params
+        if not sp.json_schema:
+            return None
+        ent = self._grammar_states.get(req.request_id)
+        if ent is None:
+            if self.grammar is None:
+                req.abort("json_schema requires a tokenizer-wired last "
+                          "stage (set_grammar_vocab)")
+                return None
+            try:
+                table = self.grammar.compile(sp.json_schema)
+            except ValueError as e:
+                req.abort(f"json_schema rejected: {e}")
+                return None
+            state = 0
+            for tok in self._generated_ids(req):
+                state = table.advance(state, int(tok))
+            ent = (table, state)
+            self._grammar_states[req.request_id] = ent
+        return ent
+
+    def _advance_grammar(self, req: Request, token: int) -> None:
+        """Advance a request's host DFA state by one committed token (no-op
+        for unconstrained requests). It must track the COMMITTED stream:
+        the host sampler and the next window's first row read it."""
+        ent = self._grammar_states.get(req.request_id)
+        if ent is not None:
+            table, state = ent
+            self._grammar_states[req.request_id] = (
+                table, table.advance(state, int(token)))
+
+    def _warn_constrained_off(self, reason: str) -> None:
+        """Warn once: a grammar batch cannot ride the decode window and
+        decodes on the host-synchronous path instead."""
+        if self._warned_constrained_off:
+            return
+        self._warned_constrained_off = True
+        logger.warning(
+            "constrained decode windows disabled: %s — grammar batches "
+            "decode on the host-synchronous path (config: "
+            "constrained_window / constrained.DEVICE_TABLE_MAX_CELLS)",
+            reason,
+        )
+
+    @staticmethod
+    def _row_has_features(req: Request) -> bool:
+        """Does this request sample with any sampling feature (penalties,
+        logprobs, grammar, logit_bias)?"""
+        sp = req.sampling_params
+        return bool(
+            sp.presence_penalty or sp.frequency_penalty
+            or sp.repetition_penalty != 1.0 or sp.logprobs
+            or sp.json_schema or sp.logit_bias
+        )
+
+    def _count_constrained(
+        self, *, rows: int = 0, mask_steps: int = 0, builds: int = 0,
+        cache_hits: int = 0, fallbacks: int = 0,
+    ) -> None:
+        """Bump the constrained-decoding ledger: ``rows`` / ``mask_steps``
+        at window dispatch (feature rows entering a window; grammar-mask
+        applications its steps will run), table builds / hits when a
+        grammar's device table is resolved, ``fallbacks`` when a feature
+        batch dropped to the host-synchronous sampler."""
+        with self._constrained_lock:
+            st = self._constrained_stats
+            for key, n in (
+                ("window_rows", rows), ("mask_steps", mask_steps),
+                ("table_builds", builds), ("table_cache_hits", cache_hits),
+                ("fallbacks", fallbacks),
+            ):
+                if n:
+                    st[key] = st.get(key, 0) + int(n)
+
+    def constrained_summary(self) -> dict | None:
+        """How much structured-output / penalised / logprob traffic rode
+        the decode window, and the grammar device-table cache's behaviour.
+        None until the stage has seen a feature row in a window or a
+        fallback. The JAX engine's payload, without its speculative
+        field."""
+        with self._constrained_lock:
+            if not self._constrained_stats:
+                return None
+            stats = dict(self._constrained_stats)
+        return {
+            "enabled": bool(self.cfg.constrained_window),
+            "active_rows": sum(
+                1 for rid in list(self._grammar_states)
+                if rid in self.scheduler.running
+            ),
+            "window_rows": stats.get("window_rows", 0),
+            "mask_steps": stats.get("mask_steps", 0),
+            "table_builds": stats.get("table_builds", 0),
+            "table_cache_hits": stats.get("table_cache_hits", 0),
+            "fallbacks": stats.get("fallbacks", 0),
+        }
 
     def _record_latency(self, plan: BatchPlan, ms: float) -> None:
         """Per-layer decode latency EWMA published to the global
@@ -640,10 +870,13 @@ class StageEngine:
             (ticket.hidden_host,), ticket.ready = self._to_host(
                 out[:plan.total_new_tokens])
         if self.model.is_last:
-            ticket.tokens_dev = self._enqueue_sample(plan, inputs, out,
-                                                     step_idx)
-            (ticket.tokens_host,), ticket.ready = self._to_host(
-                ticket.tokens_dev)
+            ticket.tokens_dev, lp_dev = self._enqueue_sample(
+                plan, inputs, out, step_idx)
+            host, ticket.ready = self._to_host(
+                ticket.tokens_dev, *(() if lp_dev is None else (lp_dev,)))
+            ticket.tokens_host = host[0]
+            if lp_dev is not None:
+                ticket.lp_host = host[1]
             if not self._overlap_sample_ok(plan):
                 ticket.sync_only = True
             elif self.model.is_first and self.cfg.overlap_steps:
@@ -686,8 +919,10 @@ class StageEngine:
                 tb = time.perf_counter()
                 self._wait(ticket.ready)
                 device_ms = (time.perf_counter() - tb) * 1000.0
-                forwards = self._emit_tokens(plan,
-                                             ticket.tokens_host.numpy())
+                forwards = self._emit_tokens(
+                    plan, ticket.tokens_host.numpy(),
+                    None if ticket.lp_host is None
+                    else ticket.lp_host.numpy())
         except Exception:
             self._abandon(plan)
             raise
@@ -731,22 +966,12 @@ class StageEngine:
     def _overlap_sample_ok(self, plan: BatchPlan) -> bool:
         """May this batch's rows be fed from the device and its ticket stay
         in flight? Not with rows that need host-synchronous logits
-        processing (penalties, logprobs, grammar masks, logit_bias:
-        refused at ``submit`` until their slice) nor with teacher-forced
-        replay rows, whose next step must be fed from the host commit."""
-        for seg in plan.seqs:
-            sp = seg.request.sampling_params
-            if (
-                sp.presence_penalty
-                or sp.frequency_penalty
-                or sp.repetition_penalty != 1.0
-                or sp.logprobs
-                or sp.json_schema
-                or sp.logit_bias
-                or seg.request.replay_ids
-            ):
-                return False
-        return True
+        processing (penalties read the committed stream, a grammar mask
+        the host DFA state; logprobs and logit_bias follow the JAX
+        engine) nor with teacher-forced replay rows, whose next step must
+        be fed from the host commit."""
+        return not any(self._row_has_features(seg.request)
+                       or seg.request.replay_ids for seg in plan.seqs)
 
     def _to_host(self, *tensors: torch.Tensor) -> tuple:
         """Start pinned, non-blocking D2H copies of ``tensors``; returns
@@ -770,30 +995,119 @@ class StageEngine:
             event.synchronize()
 
     def _enqueue_sample(self, plan: BatchPlan, inputs: BatchInputs,
-                        logits: torch.Tensor, step_idx: int) -> torch.Tensor:
-        """Sample one token per row on the device: i32[S]. Seeded rows'
-        noise is keyed by (seed, output step), unseeded rows' by (engine
-        seed, step_idx, row)."""
+                        logits: torch.Tensor, step_idx: int):
+        """Sample one token per row on the device, after the rows'
+        sampling features: (tokens i32[S], chosen-token logprobs f32[S] or
+        None when no row asked for them). Seeded rows' noise is keyed by
+        (seed, output step), unseeded rows' by (engine seed, step_idx,
+        row)."""
         s = int(inputs.kv_lens.shape[0])
         temp, top_k, top_p, min_p, seeds, steps = self._pack_base_sampling(
             plan, s)
+        logits = self._apply_features(plan, logits)
         if not np.any(temp > 0.0):
             # All-greedy batch (padding rows are greedy): argmax only, no
             # noise.
-            return greedy_tokens(logits)
+            tokens = greedy_tokens(logits)
+        else:
+            put = self._staging.put
+            gumbel = gumbel_rows(
+                put("seeds", seeds),
+                put("steps", np.where(seeds >= 0, steps, step_idx)),
+                self.cfg.seed, logits.shape[-1],
+            )
+            temp_t, top_k_t = put("temp", temp), put("top_k", top_k)
+            if self._fused_sample_ok(plan):
+                self._count_kernel_dispatch("sample",
+                                            kernel_select.IMPL_FUSED)
+                tokens = fused_sample_topk(logits, gumbel, temp_t, top_k_t)
+            else:
+                self._count_kernel_dispatch("sample",
+                                            kernel_select.IMPL_TORCH)
+                tokens = sample_tokens(logits, temp_t, top_k_t,
+                                       put("top_p", top_p),
+                                       put("min_p", min_p), gumbel)
+        if not any(seg.request.sampling_params.logprobs
+                   for seg in plan.seqs):
+            return tokens, None
+        return tokens, token_logprobs(logits, tokens)
+
+    def _apply_features(self, plan: BatchPlan,
+                        logits: torch.Tensor) -> torch.Tensor:
+        """The host path's feature pass, in the JAX engine's order and
+        packing: penalties from each penalised row's generated ids (-1
+        padded on a power-of-2 lattice), then logit_bias rows, then the
+        grammar mask of each constrained row's host DFA state (columns past
+        the token table masked). Rows without a feature pass through."""
+        s, v = logits.shape
         put = self._staging.put
-        gumbel = gumbel_rows(
-            put("seeds", seeds), put("steps", np.where(seeds >= 0, steps,
-                                                       step_idx)),
-            self.cfg.seed, logits.shape[-1],
-        )
-        temp_t, top_k_t = put("temp", temp), put("top_k", top_k)
-        if self._fused_sample_ok(plan):
-            self._count_kernel_dispatch("sample", kernel_select.IMPL_FUSED)
-            return fused_sample_topk(logits, gumbel, temp_t, top_k_t)
-        self._count_kernel_dispatch("sample", kernel_select.IMPL_TORCH)
-        return sample_tokens(logits, temp_t, top_k_t, put("top_p", top_p),
-                             put("min_p", min_p), gumbel)
+        pen = [i for i, seg in enumerate(plan.seqs)
+               if self._row_penalised(seg.request)]
+        if pen:
+            pres = np.zeros((s,), np.float32)
+            freq = np.zeros((s,), np.float32)
+            rep = np.ones((s,), np.float32)
+            gen = {}
+            for i in pen:
+                sp = plan.seqs[i].request.sampling_params
+                pres[i], freq[i] = sp.presence_penalty, sp.frequency_penalty
+                rep[i] = sp.repetition_penalty
+                gen[i] = self._generated_ids(plan.seqs[i].request)
+            logits = penalize_logits(
+                logits, put("pen_ids", _pad_id_lists(gen, s)),
+                put("pen_pres", pres), put("pen_freq", freq),
+                put("pen_rep", rep))
+        b_rows = [i for i, seg in enumerate(plan.seqs)
+                  if seg.request.sampling_params.logit_bias
+                  and self._needs_token(seg)]
+        if b_rows:
+            # Bias BEFORE the grammar mask so masked tokens stay masked.
+            rows, vecs = self._bias_pack(plan, b_rows, v)
+            logits = bias_logits(logits, put("bias_rows", rows),
+                                 put("bias_vecs", vecs))
+        g_rows, g_masks = [], []
+        for i, seg in enumerate(plan.seqs):
+            if not self._needs_token(seg):
+                continue
+            ent = self._grammar_entry(seg.request)
+            if ent is not None and not seg.request.status.is_finished:
+                g_rows.append(i)
+                g_masks.append(ent[0].allowed_mask(ent[1]))
+        if g_rows:
+            rows = np.full((_pow2(len(g_rows)),), -1, np.int32)
+            rows[: len(g_rows)] = g_rows
+            allowed = np.ones((rows.shape[0], v), bool)
+            for j, m in enumerate(g_masks):
+                allowed[j, : m.shape[0]] = m[:v]
+                allowed[j, m.shape[0]:] = False
+            logits = apply_grammar_mask(logits, put("gram_rows", rows),
+                                        put("gram_allowed", allowed))
+        return logits
+
+    @staticmethod
+    def _row_penalised(req: Request) -> bool:
+        sp = req.sampling_params
+        return bool(sp.presence_penalty or sp.frequency_penalty
+                    or sp.repetition_penalty != 1.0)
+
+    def _bias_pack(self, plan: BatchPlan, b_rows: list[int], v: int):
+        """The logit_bias rows (-1 padded to a power of 2) and their dense
+        f32[G, V] vectors, each built once per request."""
+        rows = np.full((_pow2(len(b_rows)),), -1, np.int32)
+        rows[: len(b_rows)] = b_rows
+        vecs = np.zeros((rows.shape[0], v), np.float32)
+        for j, i in enumerate(b_rows):
+            req = plan.seqs[i].request
+            vec = self._bias_cache.get(req.request_id)
+            if vec is None or vec.shape[0] != v:
+                vec = np.zeros((v,), np.float32)
+                for tid, bias in req.sampling_params.logit_bias.items():
+                    tid = int(tid)
+                    if 0 <= tid < v:
+                        vec[tid] = float(bias)
+                self._bias_cache[req.request_id] = vec
+            vecs[j] = vec
+        return rows, vecs
 
     def _fused_sample_ok(self, plan: BatchPlan) -> bool:
         """The fused sampler (A3) covers greedy and plain temperature /
@@ -885,10 +1199,12 @@ class StageEngine:
             k = ADAPTIVE_DECODE_LOOKAHEAD
         return max(1, int(k))
 
-    def _fused_common_ok(self, plan: BatchPlan) -> bool:
+    def _fused_common_ok(self, plan: BatchPlan,
+                         allow_features: bool = False) -> bool:
         """A window needs a single-stage engine (the ring is local) and
-        decode rows only. Rows with sampling features never reach here
-        (``submit`` refuses them)."""
+        decode rows only. ``allow_features`` (the window path) admits rows
+        with sampling features, which the window carries as state
+        (``_pack_window_features``)."""
         if not (self.model.is_first and self.model.is_last):
             return False
         return all(
@@ -899,8 +1215,153 @@ class StageEngine:
             # Replay rows commit RECORDED tokens; an on-device window
             # would feed its own samples forward instead.
             and not seg.request.replay_ids
+            and (allow_features or not self._row_has_features(seg.request))
             for seg in plan.seqs
         )
+
+    def _window_feature_flags(self, plan: BatchPlan) -> tuple | None:
+        """The batch's sampling-feature set as a sorted name tuple, part of
+        the window graph's key: ``()`` = none. None = this batch cannot
+        ride the window (constrained decoding off, no grammar vocabulary,
+        or a grammar too large for a dense device table) and falls back to
+        the host-synchronous sampler."""
+        feats = set()
+        for seg in plan.seqs:
+            sp = seg.request.sampling_params
+            if self._row_penalised(seg.request):
+                feats.add("pen")
+            if sp.logit_bias:
+                feats.add("bias")
+            if sp.logprobs:
+                feats.add("lp")
+            if sp.json_schema:
+                feats.add("gram")
+        if "gram" in feats:
+            if not self.cfg.constrained_window or self.grammar is None:
+                self._warn_constrained_off(
+                    "constrained_window is off" if self.grammar is not None
+                    else "no grammar vocabulary wired")
+                self._count_constrained(fallbacks=1)
+                return None
+            for seg in plan.seqs:
+                sp = seg.request.sampling_params
+                if not sp.json_schema:
+                    continue
+                # The host entry first (it aborts on a bad schema, and the
+                # single-step path then owns the finish).
+                if self._grammar_entry(seg.request) is None:
+                    return None
+                try:
+                    dev, built = self.grammar.device_table(sp.json_schema)
+                except ValueError:
+                    return None
+                self._count_constrained(builds=int(built),
+                                        cache_hits=int(not built))
+                if dev is None:
+                    self._warn_constrained_off(
+                        "grammar state x vocab exceeds the device-table "
+                        "budget")
+                    self._count_constrained(fallbacks=1)
+                    return None
+        return tuple(sorted(feats))
+
+    def _grammar_combined_tables(self, plan: BatchPlan):
+        """The batch's dense grammar tables on the device: distinct
+        grammars concatenate along the state axis (each one's row offset
+        baked into its rows and its transition values), so ONE [R, Vg]
+        gather serves every row whichever schema it decodes. Cached per
+        grammar combination (one H2D per new combination); a window copies
+        them into its graph's own buffers, so a cached tensor is only ever
+        read. Returns ({key: device table}, (trans, allowed, offsets))."""
+        from parallax_tpu_torch.constrained import grammar_cache_key
+
+        tables = {}
+        for seg in plan.seqs:
+            schema = seg.request.sampling_params.json_schema
+            if schema:
+                key = grammar_cache_key(schema)
+                if key not in tables:
+                    tables[key] = self.grammar.device_table(schema)[0]
+        combo = tuple(sorted(tables))
+        cached = self._gram_combo_cache.get(combo)
+        if cached is None:
+            trans, allowed, offsets, off = [], [], {}, 0
+            for key in combo:
+                dev = tables[key]
+                offsets[key] = off
+                trans.append(dev.trans + np.int32(off))
+                allowed.append(dev.allowed)
+                off += dev.trans.shape[0]
+            cached = (
+                torch.from_numpy(np.concatenate(trans)).to(self.device),
+                torch.from_numpy(
+                    np.concatenate(allowed).view(np.int32)).to(self.device),
+                offsets,
+            )
+            if len(self._gram_combo_cache) >= 16:
+                self._gram_combo_cache.pop(next(iter(self._gram_combo_cache)))
+            self._gram_combo_cache[combo] = cached
+        return tables, cached
+
+    def _pack_window_features(self, plan: BatchPlan, st: WindowState,
+                              feats: tuple) -> None:
+        """Fill a window's feature fields, packed as the host sampler
+        packs them: penalty strengths and the count table seeded from each
+        penalised row's committed stream, the bias rows, the combined
+        grammar tables with each constrained row's DFA row and dead row,
+        and the logprob buffer. Neutral rows carry neutral values (0 / 0 /
+        1.0 penalties, no bias row, unconstrained), which the feature math
+        leaves bit for bit unchanged."""
+        from parallax_tpu_torch.constrained import grammar_cache_key
+
+        s = int(st.feed.shape[0])
+        v = int(self.model.config.vocab_size)
+        put = self._staging.put
+        if "pen" in feats:
+            pres = np.zeros((s,), np.float32)
+            freq = np.zeros((s,), np.float32)
+            rep = np.ones((s,), np.float32)
+            gen = {}
+            for i, seg in enumerate(plan.seqs):
+                if self._row_penalised(seg.request):
+                    sp = seg.request.sampling_params
+                    pres[i], freq[i] = (sp.presence_penalty,
+                                        sp.frequency_penalty)
+                    rep[i] = sp.repetition_penalty
+                    gen[i] = self._generated_ids(seg.request)
+            st.pen_pres, st.pen_freq = put("ms_pres", pres), put("ms_freq",
+                                                                 freq)
+            st.pen_rep = put("ms_rep", rep)
+            st.pen_counts = output_token_counts(
+                put("ms_pen_ids", _pad_id_lists(gen, s)), v)
+        if "bias" in feats:
+            rows, vecs = self._bias_pack(
+                plan, [i for i, seg in enumerate(plan.seqs)
+                       if seg.request.sampling_params.logit_bias], v)
+            st.bias_rows = put("ms_bias_rows", rows)
+            st.bias_vecs = put("ms_bias_vecs", vecs)
+        if "gram" in feats:
+            tables, (trans, allowed, offsets) = (
+                self._grammar_combined_tables(plan))
+            dfa0 = np.zeros((s,), np.int32)
+            dead = np.zeros((s,), np.int32)
+            constrained = np.zeros((s,), bool)
+            for i, seg in enumerate(plan.seqs):
+                schema = seg.request.sampling_params.json_schema
+                ent = self._grammar_states.get(seg.request.request_id)
+                if not schema or ent is None:
+                    continue
+                key = grammar_cache_key(schema)
+                dev, off = tables[key], offsets[key]
+                dfa0[i] = off + dev.device_state(int(ent[1]))
+                dead[i] = off + dev.dead_state
+                constrained[i] = True
+            st.g_trans, st.g_allowed = trans, allowed
+            st.g_constrained = put("ms_constrained", constrained)
+            st.g_dead, st.dfa = put("ms_dead", dead), put("ms_dfa", dfa0)
+        if "lp" in feats:
+            st.lps = torch.zeros(tuple(st.tokens.shape), dtype=torch.float32,
+                                 device=self.device)
 
     def _pack_stop_state(self, plan: BatchPlan, s: int):
         """Per-row stop state for a window chain: the combined EOS +
@@ -960,7 +1421,7 @@ class StageEngine:
             num_seqs=st.num_seqs, slot_mapping=_fit(slots, t, -1),
             logits_indices=st.logits_indices, **flags,
         )
-        logits = self._forward(inputs)
+        logits = window_feature_logits(st, self._forward(inputs))
         if sampled:
             gumbel = gumbel_rows(st.seeds, st.steps0 + st.counter,
                                  self.cfg.seed, logits.shape[-1])
@@ -974,6 +1435,7 @@ class StageEngine:
         nxt = torch.where(live, nxt, st.feed)
         st.tokens.index_copy_(0, st.counter, nxt[None])
         live_i = live.to(torch.int32)
+        window_feature_advance(st, logits, nxt, live)
         st.produced.add_(live_i)
         # The predicate commit_token applies on the host: a stop/EOS token
         # only finishes a row once min_new_tokens is met; the length
@@ -999,9 +1461,14 @@ class StageEngine:
         last-token gather. Rows may finish mid-window: the stop mask
         freezes them — no KV, context or state advances past a row's stop
         point — and resolve() commits at most each row's produced
-        count."""
+        count. Rows with sampling features ride the window with their
+        feature state (``_window_feature_flags``); a batch that cannot
+        falls back to the host-synchronous sampler."""
         k = self._effective_lookahead()
-        if k <= 1 or not self._fused_common_ok(plan):
+        if k <= 1 or not self._fused_common_ok(plan, allow_features=True):
+            return None
+        feats = self._window_feature_flags(plan)
+        if feats is None:
             return None
         m = self.scheduler.plan_decode_window(
             plan, k, max_windows=max(1, self.cfg.decode_pipeline),
@@ -1057,6 +1524,18 @@ class StageEngine:
                                                              min_p)
             st.seeds, st.steps0 = put("ms_seeds", seeds), put("ms_steps0",
                                                              steps0)
+        n = m * k
+        if feats:
+            self._pack_window_features(plan, st, feats)
+            n_gram = sum(1 for seg in plan.seqs
+                         if seg.request.sampling_params.json_schema)
+            self._count_constrained(
+                rows=sum(1 for seg in plan.seqs
+                         if self._row_has_features(seg.request)),
+                mask_steps=n_gram * n if "gram" in feats else 0,
+            )
+        self.window_feature_counts[feats] = (
+            self.window_feature_counts.get(feats, 0) + 1)
         flags = dict(decode_only=inputs.decode_only,
                      decode_fused=inputs.decode_fused,
                      prefill_fused=inputs.prefill_fused)
@@ -1064,10 +1543,11 @@ class StageEngine:
         def step(state: WindowState) -> None:
             self._window_step(state, t, sampled, fused_sample, flags)
 
-        n = m * k
         if self._graphs is not None:
-            key = (s, t, inputs.page_indices.shape[1], sampled, fused_sample,
-                   stop_tokens.shape[1], rows)
+            # Every shape the step bakes in (batch, pages, stop-set width,
+            # chain rows, feature buffers) and every branch it takes.
+            key = (t, sampled, fused_sample, feats,
+                   tuple((name, tuple(x.shape)) for name, x in st._tensors()))
             st = self._graphs.run(key, st, step, n)
         else:
             for _ in range(n):
@@ -1083,19 +1563,22 @@ class StageEngine:
         # resolve() adds the remaining commits.
         self.scheduler.on_batch_computed(plan)
         self._step_count += 1
-        (toks, produced), ready = self._to_host(st.tokens, st.produced)
+        host, ready = self._to_host(
+            st.tokens, st.produced, *(() if st.lps is None else (st.lps,)))
         ticket = StepTicket(
-            plan=plan, step_idx=step_idx, t0=t0, ms_windows=toks,
-            ms_state=produced, ready=ready, dispatch_seq=self._dispatch_seq,
+            plan=plan, step_idx=step_idx, t0=t0, ms_windows=host[0],
+            ms_state=host[1], ready=ready, dispatch_seq=self._dispatch_seq,
+            ms_lp=host[2] if st.lps is not None else None,
         )
         ticket.host_ms = (time.perf_counter() - t0) * 1000.0
         self._inflight.append(ticket)
         return ticket
 
     def _resolve_multistep(self, ticket: StepTicket) -> StepOutputs:
-        """Complete a window chain: ONE D2H pass for all its tokens and the
-        final produced counts (copies started at dispatch), then per-token
-        commits. The device's per-row ``produced`` count bounds them —
+        """Complete a window chain: ONE D2H pass for all its tokens, the
+        final produced counts and any logprobs (copies started at
+        dispatch), then per-token commits, each advancing the row's host
+        DFA state. The device's per-row ``produced`` count bounds them —
         tokens past a row's stop point are feed repeats, never committed —
         and ``num_computed_tokens`` only ever advances by the commit count,
         so prefix-cache donation can never expose phantom KV. A row an
@@ -1109,13 +1592,18 @@ class StageEngine:
             device_ms = (time.perf_counter() - tb) * 1000.0
             toks = ticket.ms_windows.numpy()
             produced = ticket.ms_state.numpy()
+            lp = None if ticket.ms_lp is None else ticket.ms_lp.numpy()
             total = 0
             for i, seg in enumerate(plan.seqs):
                 req = seg.request
+                want_lp = lp is not None and req.sampling_params.logprobs
                 committed = 0
                 quota = int(produced[i])
                 while committed < quota and not req.status.is_finished:
-                    req.commit_token(int(toks[committed, i]))
+                    tok = int(toks[committed, i])
+                    req.commit_token(
+                        tok, float(lp[committed, i]) if want_lp else None)
+                    self._advance_grammar(req, tok)
                     committed += 1
                 # Every committed token's predecessor was fed, so computed
                 # KV advances by the commit count; dispatch already counted
@@ -1224,25 +1712,39 @@ class StageEngine:
             return seg.mirror_last_chunk and seg.is_last_prefill_chunk
         return seg.is_last_prefill_chunk
 
-    def _emit_tokens(self, plan: BatchPlan, tokens: np.ndarray):
+    def _emit_tokens(self, plan: BatchPlan, tokens: np.ndarray,
+                     logprobs: np.ndarray | None = None):
         forwards = []
         for i, seg in enumerate(plan.seqs):
             if not self._needs_token(seg):
                 continue
             req = seg.request
             if req.status.is_finished:
+                # Aborted mid-step (e.g. a grammar that failed to set up):
+                # a commit would clobber the abort status.
                 continue
             token = int(tokens[i])
+            lp = (float(logprobs[i])
+                  if logprobs is not None and req.sampling_params.logprobs
+                  else None)
             if self.model.is_first:
-                # Single stage: commit locally, ring closed trivially.
-                self._commit(req, token)
+                # Single stage: commit locally, ring closed trivially. The
+                # grammar advances by the token that landed in the stream
+                # (a teacher-forced replay commits its recorded id).
+                self._commit(req, token, lp)
+                if req.full_output_ids:
+                    self._advance_grammar(req, int(req.full_output_ids[-1]))
             else:
+                # A mirror never replays: the sampled token is the
+                # committed one.
+                self._advance_grammar(req, token)
                 forwards.append(IntermediateRequest(
                     request_id=req.request_id,
                     routing_table=req.routing_table,
                     context_len=seg.context_len + 1,
                     num_new_tokens=1,
                     next_token_id=token,
+                    token_logprob=lp,
                 ))
         return forwards
 
@@ -1317,27 +1819,18 @@ class StageEngine:
         for req in finished:
             self.scheduler.release_request(req)
             self._pending_hidden.pop(req.request_id, None)
+            self._grammar_states.pop(req.request_id, None)
+            self._bias_cache.pop(req.request_id, None)
             self._free_token_slot(req.request_id)
             req.device_feed_ready = False
         return finished
 
 
 def _refuse_unported(request: Request) -> None:
-    """``submit`` refuses per-request features the port does not run yet."""
-    sp = request.sampling_params
-    feats = []
-    if sp.presence_penalty or sp.frequency_penalty or sp.repetition_penalty != 1.0:
-        feats.append("penalties")
-    if sp.logit_bias:
-        feats.append("logit_bias")
-    if sp.logprobs:
-        feats.append("logprobs")
-    if sp.json_schema:
-        feats.append("json_schema (grammar)")
+    """``submit`` refuses per-request features the port does not run yet:
+    a LoRA adapter (ROADMAP queue 1 item 11)."""
     if request.lora_id is not None:
-        feats.append("LoRA")
-    if feats:
         raise NotImplementedError(
-            f"request {request.request_id}: {', '.join(feats)} not ported "
-            "yet to parallax_tpu_torch"
+            f"request {request.request_id}: LoRA not ported yet to "
+            "parallax_tpu_torch (ROADMAP queue 1 item 11)"
         )

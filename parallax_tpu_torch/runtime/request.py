@@ -75,6 +75,12 @@ class SamplingParams:
         d = dataclasses.asdict(self)
         d["stop_token_ids"] = list(self.stop_token_ids)
         d["stop_strings"] = list(self.stop_strings)
+        if self.logit_bias:
+            # String keys, as OpenAI sends them: a msgpack decoder refuses
+            # int map keys (strict_map_key), so the JAX package's frames
+            # cannot carry logit_bias between stages (ROADMAP queue 3).
+            # from_dict turns them back into ints.
+            d["logit_bias"] = {str(k): v for k, v in self.logit_bias.items()}
         return d
 
     @classmethod

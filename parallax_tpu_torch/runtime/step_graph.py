@@ -11,15 +11,18 @@ chain of windows ``m * k``: ``k`` is not unrolled into one graph (a gpt-oss
 step is about 10,752 ops, so 8 unrolled steps would be over 86,000 nodes).
 
 One graph per key, the key being every shape and branch the step bakes in
-(the state's shapes, the sampler variant, the stop-set width). At its first
-use the step runs once eagerly on a side stream, on a copy of the state:
-that fills what must not happen under capture (the kernel library's build,
+(the state's shapes, the sampler variant, the sampling-feature set). At its
+first use the step runs once eagerly on a side stream: that fills what must
+not happen under capture (the kernel library's build,
 ``cudaFuncSetAttribute``, cuBLAS workspaces, the indexer kernels' tensor-map
 table) and writes the same KV the first real step writes. Then the step is
-captured on the state's own tensors, which become the graph's static
-buffers; later windows of the key copy their state into them on the
-stream, after any replay still in flight. All graphs of an engine share one
-memory pool, released with the engine.
+captured on a copy of the state taken before the warm-up, whose tensors
+become the graph's static buffers; later windows of the key copy their
+state into them on the stream, after any replay still in flight. So a
+replay reads only buffers the graph owns, never a tensor the caller may
+free or reuse (a cached grammar table, a feature vector of another
+window). All graphs of an engine share one memory pool, released with the
+engine.
 
 Launch counts: a replay runs no wrapper, so each graph records the counts
 its capture added (``ops/cuda_kernels.py::LAUNCHES``) and every replay adds
@@ -93,6 +96,7 @@ class WindowGraphs:
         before = ck.launches()
         stream = torch.cuda.current_stream(self.device)
         side = self._stream
+        static = state.clone()
         side.wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         # Capture on the side stream behind the warm-up, without the
@@ -100,12 +104,12 @@ class WindowGraphs:
         # (emptying the allocator's cache would make the next eager steps
         # go back to cudaMalloc).
         with torch.cuda.stream(side):
-            step(state.clone())
+            step(state)
             warm = ck.launches()
             t.append(time.perf_counter())
             graph.capture_begin(pool=self.pool)
             try:
-                step(state)
+                step(static)
                 t.append(time.perf_counter())
             finally:
                 graph.capture_end()
@@ -120,4 +124,4 @@ class WindowGraphs:
         delta = {k: after[k] - warm[k] for k in after if after[k] != warm[k]}
         for part, a, b in zip(self.capture_parts_s, t, t[1:]):
             self.capture_parts_s[part] += b - a
-        return _Graph(graph, state, delta)
+        return _Graph(graph, static, delta)

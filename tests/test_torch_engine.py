@@ -8,7 +8,8 @@ Greedy streams pass the tie-tolerant rule of tests/test_engine_e2e.py
 position, the reference being the JAX StageModel's logits over the whole
 stream in one forward; where the two engines' streams part, they part at a
 near-tie. Also: the sharer hits the prefix cache, the dispatch summary shows
-the plain ``torch`` impl, and unported features raise."""
+the plain ``torch`` impl, unported features raise, and the sampling
+features serve with the JAX engine's streams."""
 
 import jax
 import jax.numpy as jnp
@@ -245,25 +246,66 @@ def test_engine_config_refuses_unported(weights, field, value):
         "torch/multistep"] > 0
 
 
-@pytest.mark.parametrize("sp,lora,feature", [
-    (dict(presence_penalty=0.5), None, "penalties"),
-    (dict(repetition_penalty=1.2), None, "penalties"),
-    (dict(logit_bias={3: 1.0}), None, "logit_bias"),
-    (dict(logprobs=True), None, "logprobs"),
-    (dict(json_schema="{}"), None, "json_schema"),
-    ({}, "adapter", "LoRA"),
-])
-def test_submit_refuses_unported_features(weights, sp, lora, feature):
+def test_submit_refuses_lora(weights):
+    """A LoRA adapter is still refused at ``submit``, with its item."""
     _, _, full_np = weights
     cfg = normalize_config(TINY_QWEN2)
     eng = StageEngine(create_stage_model(cfg, 0, 4),
                       params_from_numpy(full_np, "cpu"),
                       EngineConfig(**ENGINE), device="cpu")
-    req = Request("x", prompt_ids=[1, 2, 3],
-                  sampling_params=SamplingParams(**sp), lora_id=lora)
-    with pytest.raises(NotImplementedError, match=feature):
+    req = Request("x", prompt_ids=[1, 2, 3], lora_id="adapter")
+    with pytest.raises(NotImplementedError, match="LoRA.*item 11"):
         eng.submit(req)
     assert not eng.has_work()
+
+
+# The byte vocabulary over TINY_QWEN2's 199 ids, EOS last.
+_GRAMMAR_VOCAB = [bytes([i]) for i in range(197)] + [b"", b""]
+
+
+@pytest.mark.parametrize("sp", [
+    dict(presence_penalty=0.5),
+    dict(repetition_penalty=1.2),
+    dict(logit_bias={3: 1.0}),
+    dict(logprobs=True),
+    dict(json_schema="{}"),
+], ids=["presence", "repetition", "logit_bias", "logprobs", "json_schema"])
+def test_submit_accepts_sampling_features(weights, sp):
+    """The sampling features the engine once refused serve, K = 8 windows
+    by default, with the JAX engine's greedy stream (and logprobs) on the
+    same weights."""
+    cfg, full, full_np = weights
+    eng = StageEngine(create_stage_model(normalize_config(TINY_QWEN2), 0, 4),
+                      params_from_numpy(full_np, "cpu"),
+                      EngineConfig(**ENGINE), device="cpu")
+    jeng = JStageEngine(JStageModel(cfg, 0, 4, use_pallas=False), full,
+                        JEngineConfig(**ENGINE))
+    for e in (eng, jeng):
+        e.set_grammar_vocab(_GRAMMAR_VOCAB, 198)
+    req = Request("x", prompt_ids=_prompts()[1], eos_token_ids=(198,),
+                  sampling_params=SamplingParams(
+                      temperature=0.0, max_new_tokens=N_NEW, **sp))
+    jreq = JRequest("x", prompt_ids=_prompts()[1], eos_token_ids=(198,),
+                    sampling_params=JSampling(
+                        temperature=0.0, max_new_tokens=N_NEW, **sp))
+    pipe = InProcessPipeline([eng])
+    pipe.submit(req)
+    pipe.run_until_complete()
+    jpipe = JPipeline([jeng])
+    jpipe.submit(jreq)
+    jpipe.run_until_complete()
+    assert req.status.value == jreq.status.value
+    assert req.output_ids == jreq.output_ids
+    if sp.get("logprobs"):
+        assert len(req.output_logprobs) == len(req.output_ids)
+        np.testing.assert_allclose(req.output_logprobs,
+                                   jreq.output_logprobs, atol=1e-4)
+    else:
+        assert req.output_logprobs == []
+    if "json_schema" in sp:
+        assert eng.constrained_summary()["mask_steps"] > 0
+    assert eng.kernel_dispatch_summary()["dispatch_total"][
+        "torch/multistep"] > 0
 
 
 def test_unported_model_families_refused(weights):

@@ -12,7 +12,10 @@ tokenizer's text is meaningful), carried across with ``params_from_numpy``.
 - Stop strings (trimmed; held back while streaming) and whole UTF-8
   characters only, on the JAX tests' scripted backend, equal to the JAX
   frontend's output.
-- The features the engine refuses at ``submit`` answer 501 with the
+- Sampling features (penalties, ``logit_bias``, ``logprobs``,
+  ``response_format``) answer 200 with the JAX frontend's replies, streamed
+  and not; an unsupported schema answers 400 as in JAX.
+- LoRA, which the engine still refuses at ``submit``, answers 501 with the
   refusal's text, and so do the endpoints of later slices; a client that
   disconnects stops its request.
 - ``StageEngine.stop_request`` inside a K = 4 decode window already in
@@ -76,7 +79,24 @@ BAD_BODIES = [
                               "n": 2, "stream": True}),
     ("/v1/completions", {"prompt": "p", "response_format":
                          {"type": "xml"}}),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "x"}],
+                              "response_format": {
+                                  "type": "json_schema",
+                                  "json_schema": {"schema": {"type": "wat"}}}}),
+    ("/v1/completions", {"prompt": "p", "response_format": {
+        "type": "json_schema", "json_schema": {"name": "x",
+                                               "strict": True}}}),
 ]
+# Bodies with sampling features (once refused with 501): each answers 200
+# with the JAX frontend's reply.
+FEATURES = {
+    "presence": {"presence_penalty": 0.5},
+    "repetition": {"repetition_penalty": 1.2},
+    "logit_bias": {"logit_bias": {"90": 5.0}},
+    "logprobs": {"logprobs": True},
+    "json_object": {"response_format": {"type": "json_object"},
+                    "ignore_eos": False, "max_tokens": 24},
+}
 
 
 def _jax_params():
@@ -178,6 +198,17 @@ def jax_replies():
         ):
             resp = await client.post(path, json={**body, "stream": True})
             out[name] = (resp.status, await resp.text())
+        for name, field in FEATURES.items():
+            for kind, path, body in (
+                ("chat", "/v1/chat/completions", CHAT),
+                ("completion", "/v1/completions", COMPLETION),
+            ):
+                resp = await client.post(path, json={**body, **field})
+                out[f"{name}_{kind}"] = (resp.status, await resp.json())
+                resp = await client.post(
+                    path, json={**body, **field, "stream": True})
+                out[f"{name}_{kind}_stream"] = (resp.status,
+                                                await resp.text())
         out["bad"] = []
         for path, body in BAD_BODIES:
             resp = await client.post(path, json=body)
@@ -283,12 +314,97 @@ def test_health_and_models_match_jax(port_server, jax_replies):
 # -- refusals --------------------------------------------------------------------
 
 
+def _logprob_entries(choice, chat):
+    """(token texts, logprobs) of one choice's ``logprobs`` payload."""
+    lp = choice.get("logprobs")
+    if not lp:
+        return [], []
+    if chat:
+        return ([e["token"] for e in lp["content"]],
+                [e["logprob"] for e in lp["content"]])
+    return lp["tokens"], lp["token_logprobs"]
+
+
+@pytest.mark.parametrize("kind", ["chat", "completion"])
+@pytest.mark.parametrize("name", list(FEATURES))
+def test_feature_bodies_answer_200_as_jax(port_server, jax_replies, name,
+                                          kind):
+    """The bodies that once answered 501 answer 200 with the JAX
+    frontend's text, finish reason, usage and logprob entries, streamed
+    and not; a JSON-mode reply parses as JSON."""
+    chat = kind == "chat"
+    path, body = (("/v1/chat/completions", CHAT) if chat
+                  else ("/v1/completions", COMPLETION))
+    body = {**body, **FEATURES[name]}
+    status, got = port_server.request("POST", path, body)
+    want_status, want = jax_replies[f"{name}_{kind}"]
+    assert status == want_status == 200, got
+    gc, wc = got["choices"][0], want["choices"][0]
+    text = gc["message"]["content"] if chat else gc["text"]
+    want_text = wc["message"]["content"] if chat else wc["text"]
+    assert text == want_text
+    assert gc["finish_reason"] == wc["finish_reason"]
+    for key in ("prompt_tokens", "completion_tokens", "total_tokens"):
+        assert got["usage"][key] == want["usage"][key], key
+    toks, lps = _logprob_entries(gc, chat)
+    want_toks, want_lps = _logprob_entries(wc, chat)
+    assert toks == want_toks
+    np.testing.assert_allclose(lps, want_lps, atol=1e-4)
+    if name == "logprobs":
+        assert len(lps) == got["usage"]["completion_tokens"]
+        assert all(lp <= 0.0 for lp in lps)
+    if name == "json_object":
+        json.loads(text)
+    status, raw = port_server.request("POST", path, {**body, "stream": True})
+    assert status == 200
+    chunks = _sse(raw)
+    want_chunks = _sse(jax_replies[f"{name}_{kind}_stream"][1])
+    assert _delta_text(chunks, chat) == text == _delta_text(want_chunks,
+                                                            chat)
+    s_toks, s_lps = [], []
+    for c in chunks:
+        t, lp = _logprob_entries(c["choices"][0], chat)
+        s_toks += t
+        s_lps += lp
+    assert s_toks == toks and s_lps == lps
+    assert not port_server.runner.pipeline.has_work()
+
+
+def test_response_format_parsing_and_400():
+    """``_schema_from_body`` against the JAX frontend's on every form of
+    ``response_format``: the same schema strings, and a ValueError (400)
+    where JAX raises one."""
+    from parallax_tpu.backend.http_server import _schema_from_body as j_fn
+    from parallax_tpu_torch.backend.http_server import _schema_from_body
+
+    bodies = [
+        {}, {"response_format": {"type": "text"}},
+        {"response_format": {"type": "json_object"}},
+        {"response_format": {"type": "json_schema", "json_schema": {
+            "name": "t", "schema": {"type": "boolean"}}}},
+        {"response_format": {"type": "json_schema",
+                             "json_schema": {"type": "boolean"}}},
+    ]
+    for body in bodies:
+        assert _schema_from_body(body) == j_fn(body), body
+    assert _schema_from_body(bodies[2]) == "{}"
+    assert json.loads(_schema_from_body(bodies[3])) == {"type": "boolean"}
+    for body in (
+        {"response_format": {"type": "json_schema",
+                             "json_schema": {"name": "x", "strict": True}}},
+        {"response_format": {"type": "grammar"}},
+        {"response_format": {"type": "json_schema", "json_schema": {
+            "schema": {"type": "frobnicate"}}}},
+        {"response_format": {"type": "json_schema", "json_schema": {
+            "schema": {"type": "object", "required": ["ghost"]}}}},
+    ):
+        with pytest.raises(ValueError):
+            j_fn(body)
+        with pytest.raises(ValueError):
+            _schema_from_body(body)
+
+
 @pytest.mark.parametrize("field,feature", [
-    ({"presence_penalty": 0.5}, "penalties"),
-    ({"repetition_penalty": 1.2}, "penalties"),
-    ({"logit_bias": {"90": 5.0}}, "logit_bias"),
-    ({"logprobs": True}, "logprobs"),
-    ({"response_format": {"type": "json_object"}}, "json_schema"),
     ({"model": "tiny:adapter-a"}, "LoRA"),
     ({"lora": "adapter-a"}, "LoRA"),
 ])

@@ -63,7 +63,9 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "scheduling.layer_allocation",
                  "scheduling.request_routing", "scheduling.scheduler",
                  "backend.scheduler_service", "utils.hw", "ops.msa",
-                 "models.minimax_m2", "models.minimax_m3"):
+                 "models.minimax_m2", "models.minimax_m3", "constrained",
+                 "constrained.automaton", "constrained.json_schema",
+                 "constrained.vocab", "constrained.device_table"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"

@@ -408,3 +408,154 @@ def test_samplers_agree_on_the_twins_noise():
                           g)
     assert fused.tolist() == split.tolist()
     assert fused[0] == torch.argmax(logits[0])
+
+
+# -- sampling features: the port's ops against parallax_tpu.ops.sampling ------
+
+from parallax_tpu.ops import sampling as js  # noqa: E402
+from parallax_tpu_torch.ops import sampling as ps  # noqa: E402
+
+
+def _feature_inputs(b=6, v=50, seed=0):
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal((b, v)) * 3.0).astype(np.float32)
+    # Generated-id lists, -1 padded, one row empty and one with repeats.
+    ids = rng.integers(0, v, size=(b, 9)).astype(np.int32)
+    ids[1] = -1
+    ids[2, 4:] = -1
+    ids[3, :5] = 7
+    pres = rng.uniform(0.0, 1.0, b).astype(np.float32)
+    freq = rng.uniform(0.0, 0.5, b).astype(np.float32)
+    rep = rng.uniform(0.8, 1.5, b).astype(np.float32)
+    pres[0], freq[0], rep[0] = 0.0, 0.0, 1.0       # a neutral row
+    return rng, logits, ids, pres, freq, rep
+
+
+def test_output_token_counts_bitwise():
+    _, _, ids, *_ = _feature_inputs()
+    want = np.asarray(js.output_token_counts(jnp.asarray(ids), 50))
+    got = ps.output_token_counts(_t(ids), 50)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # -1 padding is dropped, never counted at the last token.
+    assert got[1].sum() == 0 and got[:, -1].sum() == (ids == 49).sum()
+
+
+def test_penalties_match_jax():
+    _, logits, ids, pres, freq, rep = _feature_inputs()
+    want = np.asarray(js.penalize_logits(
+        jnp.asarray(logits), jnp.asarray(ids), jnp.asarray(pres),
+        jnp.asarray(freq), jnp.asarray(rep)))
+    got = ps.penalize_logits(_t(logits), _t(ids), _t(pres), _t(freq),
+                             _t(rep))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    counts = js.output_token_counts(jnp.asarray(ids), 50)
+    want2 = np.asarray(js.apply_penalties(
+        jnp.asarray(logits), counts, jnp.asarray(pres), jnp.asarray(freq),
+        jnp.asarray(rep)))
+    got2 = ps.apply_penalties(_t(logits), _t(np.asarray(counts)), _t(pres),
+                              _t(freq), _t(rep))
+    np.testing.assert_allclose(got2.numpy(), want2, rtol=1e-6, atol=1e-6)
+    # The neutral row passes through bit for bit.
+    assert np.array_equal(got[0].numpy(), logits[0])
+
+
+def test_bias_logits_drops_padding_rows():
+    """Against JAX with the engine's padding (zero vectors); and padding
+    rows are dropped, not wrapped to the last row, whatever they hold (JAX
+    wraps -1 to the last row: ROADMAP queue 3)."""
+    rng, logits, *_ = _feature_inputs()
+    rows = np.array([4, -1, 0, -1], np.int32)
+    vecs = rng.standard_normal((4, 50)).astype(np.float32)
+    vecs[rows < 0] = 0.0
+    want = np.asarray(js.bias_logits(jnp.asarray(logits), jnp.asarray(rows),
+                                     jnp.asarray(vecs)))
+    got = ps.bias_logits(_t(logits), _t(rows), _t(vecs))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    vecs[rows < 0] = 5.0
+    got = ps.bias_logits(_t(logits), _t(rows), _t(vecs))
+    assert np.array_equal(got[-1].numpy(), logits[-1])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_apply_grammar_mask_drops_padding_rows():
+    """Against JAX with the engine's padding (all-True rows); and a padding
+    row never overwrites the last row's own mask. JAX wraps -1 to the last
+    row, so there the all-True padding unmasks a constrained last row of a
+    full batch (ROADMAP queue 3); the port keeps its mask."""
+    rng, logits, *_ = _feature_inputs()
+    rows = np.array([2, -1, 4, -1], np.int32)
+    allowed = rng.random((4, 50)) < 0.3
+    allowed[rows < 0] = True
+    want = np.asarray(js.apply_grammar_mask(
+        jnp.asarray(logits), jnp.asarray(rows), jnp.asarray(allowed)))
+    got = ps.apply_grammar_mask(_t(logits), _t(rows), _t(allowed))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy() == np.float32(ps.NEG_INF)).sum() == (
+        ~allowed[[0, 2]]).sum()
+    last = np.array([5, -1], np.int32)
+    pair = np.stack([allowed[2], allowed[1]])      # a mask, then padding
+    got = ps.apply_grammar_mask(_t(logits), _t(last), _t(pair))
+    masked = got[5].numpy() == np.float32(ps.NEG_INF)
+    np.testing.assert_array_equal(masked, ~allowed[2])
+    assert masked.any()
+    jax_last = np.asarray(js.apply_grammar_mask(
+        jnp.asarray(logits), jnp.asarray(last), jnp.asarray(pair)))
+    assert not (jax_last[5] == np.float32(ps.NEG_INF)).any()
+
+
+@pytest.mark.parametrize("v", [40, 64, 100, 130], ids=lambda v: f"v{v}")
+def test_unpack_and_packed_mask_bitwise(v):
+    """Packed width (3 words = 96 ids) above and below the vocab."""
+    from parallax_tpu.constrained.device_table import pack_bool_rows
+
+    rng, *_ = _feature_inputs()
+    mask = rng.random((5, 96)) < 0.5
+    bits = pack_bool_rows(mask)                    # u32[5, 3]
+    want = np.asarray(js.unpack_token_masks(jnp.asarray(bits), v))
+    got = ps.unpack_token_masks(_t(bits.view(np.int32)), v)
+    np.testing.assert_array_equal(got.numpy(), want)
+    logits = (rng.standard_normal((5, v)) * 2).astype(np.float32)
+    constrained = np.array([True, False, True, True, False])
+    want = np.asarray(js.mask_logits_packed(
+        jnp.asarray(logits), jnp.asarray(bits), jnp.asarray(constrained)))
+    got = ps.mask_logits_packed(_t(logits), _t(bits.view(np.int32)),
+                                _t(constrained))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_token_logprobs_match_jax():
+    rng, logits, *_ = _feature_inputs()
+    logits[2, 5:] = np.float32(ps.NEG_INF)         # a masked row
+    toks = rng.integers(0, 50, size=6).astype(np.int32)
+    toks[2] = 3
+    want = np.asarray(js.token_logprobs(jnp.asarray(logits),
+                                        jnp.asarray(toks)))
+    got = ps.token_logprobs(_t(logits), _t(toks))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    assert (got <= 0).all()
+
+
+@pytest.mark.parametrize("allowed", [1, 3, 20])
+def test_fused_sampler_on_masked_rows_matches_pallas(allowed):
+    """A3's plain version on grammar-masked rows (the k-th value tied
+    across the masked tail whenever fewer than top-k tokens are allowed)
+    picks what the Pallas kernel and the split sampler pick."""
+    rng = np.random.default_rng(allowed)
+    b, v = 6, 300
+    logits = np.full((b, v), np.float32(ps.NEG_INF))
+    for row in range(b):
+        ids = rng.choice(v, size=allowed, replace=False)
+        logits[row, ids] = rng.standard_normal(allowed) * 3
+    temp = np.array([0.0, 0.8, 0.8, 1.0, 0.0, 0.8], np.float32)
+    top_k = np.array([1, 1, 40, 64, 40, 0], np.int32)
+    key = jax.random.key(allowed)
+    ref, g = _both(logits, temp, top_k, np.ones(b, np.float32),
+                   np.zeros(b, np.float32), key)
+    pallas = np.asarray(fused_sample_topk_pallas(
+        jnp.asarray(logits), jnp.asarray(g), jnp.asarray(temp),
+        jnp.asarray(top_k), interpret=True))
+    plain = fused_sample_topk_plain(_t(logits), _t(g), _t(temp), _t(top_k))
+    np.testing.assert_array_equal(plain.numpy(), pallas)
+    np.testing.assert_array_equal(plain.numpy(), ref)
+    assert (logits[np.arange(b), plain.numpy()] > ps.NEG_INF).all()

@@ -39,7 +39,9 @@ from parallax_tpu_torch.backend.run import SwarmClient, run_main
 from parallax_tpu_torch.backend.scheduler_service import SchedulerService
 from parallax_tpu_torch.p2p.node import WorkerNode
 from parallax_tpu_torch.p2p.transport import TcpTransport
-from parallax_tpu_torch.runtime.engine import EngineConfig
+from parallax_tpu_torch.models import create_stage_model
+from parallax_tpu_torch.runtime.engine import EngineConfig, StageEngine
+from parallax_tpu_torch.runtime.pipeline import InProcessPipeline
 from parallax_tpu_torch.runtime.request import Request, SamplingParams
 from parallax_tpu_torch.scheduling import node as p_node
 from parallax_tpu_torch.scheduling.scheduler import GlobalScheduler
@@ -94,7 +96,7 @@ def _ready(service, n_nodes=2) -> bool:
 
 
 @contextlib.contextmanager
-def sched_swarm(engine=None, heartbeat_timeout_s=30.0):
+def sched_swarm(engine=None, heartbeat_timeout_s=30.0, grammar_vocab=None):
     sched = GlobalScheduler(CFG, min_nodes_bootstrapping=2,
                             heartbeat_timeout_s=heartbeat_timeout_s)
     st = TcpTransport("scheduler", "127.0.0.1")
@@ -103,6 +105,10 @@ def sched_swarm(engine=None, heartbeat_timeout_s=30.0):
     try:
         service.start()
         workers = [_port_worker(st.address, engine) for _ in range(2)]
+        for w in workers:
+            # No tokenizer files in this synthetic swarm: seed the grammar
+            # vocabulary the last stage's _wire_grammar hands its engine.
+            w._grammar_vocab = grammar_vocab
         _start_all(workers)
         assert _wait(lambda: _ready(service)), sched.cluster_status()
         yield service, workers
@@ -146,6 +152,67 @@ def test_scheduled_swarm_matches_in_process_pipeline():
         assert routing["pipeline_dispatches"] == {"0": len(reqs)}
     ref = _in_process()
     assert [r.output_ids for r in reqs] == [r.output_ids for r in ref]
+
+
+# The byte grammar vocabulary over the 270-id model, EOS last.
+GRAMMAR_VOCAB = ([bytes([i]) for i in range(256)] + [b""] * 14, 269)
+SCHEMA = json.dumps({"type": "object",
+                     "properties": {"v": {"enum": ["x", "y"]}},
+                     "required": ["v"]})
+
+
+def _feature_requests():
+    return [
+        Request("gram", prompt_ids=[1, 2, 3], eos_token_ids=(269,),
+                sampling_params=SamplingParams(
+                    temperature=0.0, max_new_tokens=30, json_schema=SCHEMA)),
+        Request("pen", prompt_ids=[9, 8, 7, 6], sampling_params=SamplingParams(
+            temperature=0.8, top_k=20, seed=7, max_new_tokens=N_NEW,
+            repetition_penalty=1.3, presence_penalty=0.5,
+            frequency_penalty=0.2, logprobs=True,
+            logit_bias={5: 3.0})),
+        Request("free", prompt_ids=[42, 43], sampling_params=SamplingParams(
+            temperature=0.0, max_new_tokens=N_NEW)),
+    ]
+
+
+def test_scheduled_swarm_samples_with_features():
+    """A grammar row (its vocabulary seeded into the workers, as the JAX
+    test does), a seeded penalised, biased logprob row and a free row
+    through the scheduled 2 + 2 swarm: the tail samples with the features
+    (penalties from its mirror's generated ids, the logprob back to the
+    head in ``token_logprob``), and every stream equals the in-process
+    pipeline's, logprobs included."""
+    with sched_swarm(grammar_vocab=GRAMMAR_VOCAB) as (service, workers):
+        path, head, tail = _by_path(service, workers)
+        assert tail.engine.grammar is not None and head.engine.grammar is None
+        client = SwarmClient(service.transport, service)
+        reqs = _feature_requests()
+        events = []
+        for r in reqs:
+            r.routing_table = client.route(r.request_id,
+                                           prompt_ids=r.prompt_ids)
+            events.append(client.submit(r))
+        for r, ev in zip(reqs, events):
+            assert ev.wait(DEADLINE_S), f"{r.request_id}: {r.status}"
+    engines = [StageEngine(create_stage_model(CFG, s, e),
+                           _port_params(create_stage_model(CFG, s, e)),
+                           EngineConfig(**ENGINE), device="cpu")
+               for s, e in ((0, 2), (2, 4))]
+    engines[-1].set_grammar_vocab(*GRAMMAR_VOCAB)
+    ref = _feature_requests()
+    pipe = InProcessPipeline(engines)
+    for r in ref:
+        pipe.submit(r)
+    pipe.run_until_complete()
+    for a, b in zip(reqs, ref):
+        assert a.status.value == b.status.value, a.request_id
+        assert a.output_ids == b.output_ids, a.request_id
+        assert a.output_logprobs == b.output_logprobs
+    obj = json.loads(bytes(t for t in reqs[0].output_ids if t < 256))
+    assert obj["v"] in ("x", "y")
+    assert reqs[0].status.value == "finished_eos"
+    assert len(reqs[1].output_logprobs) == N_NEW
 
 
 def _long_request(rid, path, prompt=(1, 2, 3)):
