@@ -102,7 +102,36 @@ Phases, in order; any failure raises and the script exits non-zero:
                without features (its TTFT and decode rate beside), r0 with
                EOS biased +20 (stops at the grammar's terminal state, under
                its budget), and one window step's feature pass timed on the
-               device (S 8, V 152,064).  the front door on the same Qwen2.5-7B tree (its own, made
+               device (S 8, V 152,064).
+6c. preempt_serve  the host KV tier on the same tree: serve's 8 prompts,
+               48 new tokens each, on a 35-page pool (PREEMPT_PAGES) with
+               a 4 GiB tier, with the defaults and with K1_SYNC: each
+               preempts and resumes at least twice, aborts nothing,
+               finishes every request at 48 tokens, launches exactly and
+               keeps its greedy rows within GREEDY_TOL of the plain path;
+               the defaults also fall back from windows to K = 1 steps.
+               TTFT and decode tok/s beside the same mix on serve's 192
+               pages; host ms a preemption and a resume. Then a live
+               request's 11 pages through the tier into other pages,
+               bitwise (D2H / H2D GB/s), 6 churn prompts of 512 ids, and
+               r0's and r7's prompts again, which must swap host-resident
+               prefix pages in (tokens_hit_host >= 256).
+6d. migrate_serve  live migration on the same tree. (a) r1 (greedy) and
+               r2 (seeded) alone: parked at 16 of 48 tokens on engine A,
+               the KV image harvested, the checkpoint through frame bytes,
+               adopted by engine B (same layout, A's weights): the
+               uninterrupted run's tokens, one resume, no prefill step
+               and no A0 / A1 on B; the same checkpoint without its image
+               by re-prefill and replay: the same tokens. (b) a
+               GlobalScheduler and four WorkerNodes in this process laid
+               out as two 14 + 14 pipelines; the mix routed round robin
+               through a SwarmClient; the tail of r0's pipeline stops
+               once its requests streamed 4 tokens: its head parks them,
+               they restore on the other pipeline by replay, the client
+               follows: zero aborts, greedy rows within GREEDY_TOL,
+               ``where_is`` answering each new head; park-to-restore
+               seconds.
+7. http_serve  the front door on the same Qwen2.5-7B tree (its own, made
                the same way, when run alone): written as an HF checkpoint
                (bf16 shards of at most 5 GB, the index, config.json; a
                writer of this script's own) into a temporary directory;
@@ -262,6 +291,7 @@ line.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import random
@@ -2967,6 +2997,490 @@ def phase_features_serve(torch, dev, card: str, cfg, model_full, params):
 
 
 # ---------------------------------------------------------------------------
+# Phases 6c and 6d: the host KV tier and live migration
+# ---------------------------------------------------------------------------
+
+PREEMPT_NEW = 48
+# The pool of preempt_serve's wave 1: 35 pages (34 after the null page).
+# Admission takes r0-r3 (29 prompt pages) at once and the other rows as
+# pages free; their decode growth does not fit. The scheduling reads
+# lengths, not weights, so the CPU shows what the card does: of the pools
+# of 30-63 pages this mix was run on there, 35 is one where both the
+# defaults and K1_SYNC preempt and resume at least twice and the defaults'
+# windows also fall back to K = 1.
+PREEMPT_PAGES = 35
+PREEMPT_HOST_BYTES = 4 << 30
+# Churn between the waves: prompts of 8 pages each, 8 new tokens, that
+# need more than the pool between them.
+CHURN_PROMPTS = 6
+CHURN_LEN = 512
+MIGRATE_AT = 16
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def preempt_mix(vocab: int, new: int = PREEMPT_NEW):
+    """serve's 8 prompts and sampling with ``new`` new tokens each."""
+    reqs, sampled = make_requests(vocab)
+    for r in reqs:
+        r.sampling_params.max_new_tokens = new
+    return reqs, sampled
+
+
+def _drain(engine) -> None:
+    from parallax_tpu_torch.runtime.engine import drive_step
+
+    pending = None
+    while engine.has_work() or pending is not None:
+        _, pending = drive_step(engine, pending)
+
+
+def _timed(target, name: str, log: list) -> None:
+    """Wrap ``target.name`` (an instance's bound method) so each call
+    appends (host seconds, result) to ``log``."""
+    fn = getattr(target, name)
+
+    def wrapper(*a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        log.append((time.perf_counter() - t, out))
+        return out
+
+    setattr(target, name, wrapper)
+
+
+def _wave(engine, reqs) -> tuple[float, float]:
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival_time = t0
+        engine.submit(r)
+    _drain(engine)
+    return t0, time.monotonic()
+
+
+def page_round_trip(torch, dev, engine, vocab: int, iters: int = 5) -> dict:
+    """A live request's pages through the tier and back: its prompt is
+    prefilled (and one token sampled), its pages demoted, then promoted
+    into as many other free pages; every layer's pages the same bits.
+    The D2H and H2D rates time the whole demote / promote calls (gather,
+    staging, copies) after a sync, the median of ``iters``."""
+    import random
+
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    rng = random.Random(7)
+    req = Request("rt", prompt_ids=[rng.randrange(1, vocab)
+                                    for _ in range(700)],
+                  sampling_params=SamplingParams(temperature=0.0,
+                                                 max_new_tokens=2,
+                                                 ignore_eos=True))
+    engine.submit(req)
+    while not req.output_ids:
+        engine.step()
+    pages = list(req.page_ids)
+    tier, cache = engine.host_tier, engine.cache
+    nbytes = len(pages) * tier.pool.page_nbytes
+    d2h, h2d, equal = [], [], True
+    for _ in range(iters):
+        # Free pages from the prefix tree (demoting its pages) first.
+        if not cache._reclaim(len(pages)):
+            raise AssertionError("preempt_serve: no pages for the round "
+                                 "trip")
+        fresh = cache.allocator.alloc(len(pages))
+        _sync(torch, dev)
+        t = time.perf_counter()
+        handles = tier.demote(pages)
+        d2h.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        tier.promote(handles, fresh)
+        _sync(torch, dev)
+        h2d.append(time.perf_counter() - t)
+        src = torch.tensor(pages, device=dev)
+        dst = torch.tensor(fresh, device=dev)
+        equal = equal and all(
+            torch.equal(layer.index_select(0, src), layer.index_select(0, dst))
+            for layer in engine.kv)
+        cache.allocator.free(fresh)
+    _drain(engine)
+    if not equal:
+        raise AssertionError("preempt_serve: a page round trip changed bits")
+    return {"pages": len(pages), "bytes": nbytes, "bitwise_equal": True,
+            "d2h_gb_per_s": nbytes / statistics.median(d2h) / 1e9,
+            "h2d_gb_per_s": nbytes / statistics.median(h2d) / 1e9,
+            "d2h_ms": statistics.median(d2h) * 1e3,
+            "h2d_ms": statistics.median(h2d) * 1e3}
+
+
+def phase_preempt_serve(torch, dev, card: str, cfg, model_full, params):
+    """The host KV tier on Qwen2.5-7B: serve's mix with PREEMPT_NEW new
+    tokens on a PREEMPT_PAGES pool with a PREEMPT_HOST_BYTES tier, with the
+    defaults and with K1_SYNC; each must preempt and resume at least twice,
+    abort nothing, finish every request at full length, fall back from
+    windows to K = 1 under pressure (defaults), launch exactly, and keep
+    its greedy rows within GREEDY_TOL of the plain path. The same mix on
+    serve's 192-page pool beside it (TTFT, decode tok/s; a discarded
+    serve first takes the process's set-up out of both). Host ms a
+    preemption and a resume. Then, on the defaults' engine: a page round
+    trip (bitwise, D2H / H2D GB/s), CHURN_PROMPTS other prompts, and r0's
+    and r7's prompts again, which must swap host-resident prefix pages in
+    (tokens_hit_host >= 256)."""
+    import random
+
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    n = cfg.num_hidden_layers
+    rates, kept = {}, {}
+    # A discarded serve first: the first one of a process pays one-time
+    # set-up (cuBLAS handles, the allocator's first blocks) inside its span.
+    serve(torch, [(0, n)], params, cfg, dev, fused=True,
+          requests=preempt_mix(cfg.vocab_size))
+    for config, engine_kw in (("defaults", {}), ("k1_sync", K1_SYNC)):
+        reqs, sampled, engines, t0, t1 = serve(
+            torch, [(0, n)], params, cfg, dev, fused=True,
+            engine_kw=engine_kw, requests=preempt_mix(cfg.vocab_size))
+        rates[f"{config}_192_pages"] = stream_metrics(reqs, t0, t1)
+        del engines
+        ck.reset_launches()
+        reqs, sampled = preempt_mix(cfg.vocab_size)
+        from parallax_tpu_torch.models import create_stage_model
+        from parallax_tpu_torch.runtime.engine import StageEngine
+
+        engine = StageEngine(
+            create_stage_model(cfg, 0, n), params,
+            engine_config(True, num_pages=PREEMPT_PAGES,
+                          host_cache_bytes=PREEMPT_HOST_BYTES, **engine_kw),
+            device=dev)
+        if engine.host_tier is None:
+            raise AssertionError("preempt_serve: no host tier")
+        swaps = {"preempt": [], "resume": []}
+        _timed(engine.cache, "preempt_to_host", swaps["preempt"])
+        _timed(engine.cache, "resume_from_host", swaps["resume"])
+        _sync(torch, dev)
+        t0, t1 = _wave(engine, reqs)
+        _sync(torch, dev)
+        launches = ck.launches()
+        stats = engine.cache_stats()
+        summary = engine.kernel_dispatch_summary()
+        bad = [(r.request_id, r.status.value, len(r.output_ids))
+               for r in reqs if r.status.value != "finished_length"
+               or len(r.output_ids) != PREEMPT_NEW]
+        if bad or stats["kv_oom_aborts"] or stats["preemptions"] < 2 \
+                or stats["resumes"] < 2:
+            raise AssertionError(f"preempt_serve {config}: {bad}, {stats}")
+        check_launches("preempt_serve", config, launches,
+                       gqa_expected("fused", summary, n), summary)
+        totals = summary["dispatch_total"]
+        fallback = totals.get(f"{summary['impl']}/decode", 0)
+        windows = totals.get(f"{summary['impl']}/multistep", 0)
+        if not engine_kw and (fallback <= 0 or windows <= 0):
+            raise AssertionError(f"preempt_serve {config}: no K = 1 "
+                                 f"fallback beside windows: {totals}")
+        worst, *_ = greedy_check(torch, model_full, params, reqs, sampled,
+                                 dev, tol=GREEDY_TOL)
+        preempt_ms = [s * 1e3 for s, ok in swaps["preempt"] if ok]
+        resume_ms = [s * 1e3 for s, ok in swaps["resume"] if ok]
+        rates[config] = stream_metrics(reqs, t0, t1)
+        emit({"phase": "preempt_serve", "run": config,
+              "engine": engine_kw or "defaults",
+              "num_pages": PREEMPT_PAGES,
+              "host_cache_bytes": PREEMPT_HOST_BYTES,
+              "cache": stats, "launches": launches,
+              "steps": sum(forward_steps(summary)),
+              "k1_steps_beside_windows": fallback if not engine_kw else None,
+              "window_steps": windows,
+              "greedy_vs_plain": "pass", "largest_logit_gap": worst,
+              "tolerance": GREEDY_TOL,
+              "host_ms_per_preemption_median": statistics.median(preempt_ms),
+              "host_ms_per_preemption_max": max(preempt_ms),
+              "host_ms_per_resume_median": statistics.median(resume_ms),
+              "host_ms_per_resume_max": max(resume_ms),
+              **rates[config],
+              "same_mix_192_pages": rates[f"{config}_192_pages"],
+              "card": card})
+        if engine_kw:
+            del engine
+            continue
+        kept = {"engine": engine, "reqs": reqs}
+    engine, wave1 = kept["engine"], kept["reqs"]
+    trip = page_round_trip(torch, dev, engine, cfg.vocab_size)
+    emit({"phase": "preempt_serve", "check": "page_round_trip", **trip,
+          "card": card})
+    rng = random.Random(11)
+    churn = [Request(f"c{i}", prompt_ids=[rng.randrange(1, cfg.vocab_size)
+                                          for _ in range(CHURN_LEN)],
+                     sampling_params=SamplingParams(
+                         temperature=0.0, max_new_tokens=8, ignore_eos=True))
+             for i in range(CHURN_PROMPTS)]
+    _wave(engine, churn)
+    before = engine.cache_stats()
+    again = [Request(f"w2_{r.request_id}", prompt_ids=list(r.prompt_ids),
+                     sampling_params=SamplingParams(
+                         temperature=0.0, max_new_tokens=8, ignore_eos=True))
+             for r in (wave1[0], wave1[7])]
+    _wave(engine, again)
+    after = engine.cache_stats()
+    hit_host = after["tokens_hit_host"] - before["tokens_hit_host"]
+    swapped = after["pages_swapped_in"] - before["pages_swapped_in"]
+    if hit_host < 256 or swapped <= 0 or any(
+            r.status.value != "finished_length" for r in churn + again):
+        raise AssertionError(f"preempt_serve second wave: {before} -> "
+                             f"{after}")
+    emit({"phase": "preempt_serve", "check": "second_wave",
+          "churn": f"{CHURN_PROMPTS} x {CHURN_LEN} ids, 8 new tokens",
+          "tokens_hit_host": hit_host, "pages_swapped_in": swapped,
+          "tokens_hit_device": after["tokens_hit_device"]
+          - before["tokens_hit_device"],
+          "host_pages": after["host_pages"],
+          "pages_demoted": after["pages_demoted"],
+          "host_evictions": after["host_evictions"],
+          "greedy_tokens_equal_to_wave1": [
+              sum(x == y for x, y in zip(a.output_ids, r.output_ids))
+              for a, r in zip(again, (wave1[0], wave1[7]))],
+          "card": card})
+    del engine, kept
+
+
+def _migrate_engine(cfg, params, dev, host: bool = True):
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.runtime.engine import StageEngine
+
+    return StageEngine(
+        create_stage_model(cfg, 0, cfg.num_hidden_layers), params,
+        engine_config(True, max_model_len=1024, host_cache_bytes=(
+            PREEMPT_HOST_BYTES if host else 0)), device=dev)
+
+
+def migrate_engines(torch, dev, card, cfg, params) -> dict:
+    """Part (a): engine to engine on the card. r1 (greedy) and r2 (seeded)
+    of preempt_serve's mix, each alone: the uninterrupted stream on one
+    engine; on engine A the same request runs to MIGRATE_AT tokens, is
+    preempted to A's tier, harvested, extracted and checkpointed; the
+    checkpoint goes through encode_frame / decode_frame bytes and
+    checkpoint_from_wire; engine B (same layout, A's parameter tensors)
+    adopts the image and resumes it: the same tokens, one resume, no
+    prefill step and no A0 / A1 launch on B. Then the checkpoint without
+    its image restores on a fresh engine by re-prefill and replay: the
+    same tokens again."""
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.p2p import proto
+    from parallax_tpu_torch.runtime.checkpoint import (
+        build_resumed_request,
+        checkpoint_from_request,
+        checkpoint_from_wire,
+        checkpoint_to_wire,
+    )
+    from parallax_tpu_torch.runtime.engine import drive_step
+    from parallax_tpu_torch.runtime.request import Request
+
+    mix, _sampled = preempt_mix(cfg.vocab_size)
+    out = {}
+    for label, src in (("greedy", mix[1]), ("seeded", mix[2])):
+        def fresh(rid):
+            return Request(rid, prompt_ids=list(src.prompt_ids),
+                           sampling_params=dataclasses.replace(
+                               src.sampling_params))
+
+        base = fresh("base")
+        engine = _migrate_engine(cfg, params, dev)
+        engine.submit(base)
+        _drain(engine)
+        del engine
+        mig = fresh("mig")
+        engine_a = _migrate_engine(cfg, params, dev)
+        engine_a.submit(mig)
+        pending = None
+        while len(mig.output_ids) < MIGRATE_AT:
+            _, pending = drive_step(engine_a, pending)
+        if pending is not None:
+            engine_a.resolve(pending)
+        at = len(mig.output_ids)
+        t_park = time.perf_counter()
+        if not engine_a.cache.preempt_to_host(mig):
+            raise AssertionError("migrate_serve (a): preemption refused")
+        image = engine_a.harvest_kv_image(mig)
+        if image is None or engine_a.extract("mig") is not mig:
+            raise AssertionError("migrate_serve (a): no image to harvest")
+        ckpt = checkpoint_from_request(mig, routing_table=[], kv=image)
+        engine_a.cache.release(mig)
+        data = proto.encode_frame(proto.CHECKPOINT, {"checkpoints": [
+            checkpoint_to_wire(ckpt)]})
+        park_ms = (time.perf_counter() - t_park) * 1e3
+        del engine_a
+        got = checkpoint_from_wire(proto.decode_frame(data)["p"]
+                                   ["checkpoints"][0])
+        runs = {}
+        for route in ("image", "replay"):
+            engine_b = _migrate_engine(cfg, params, dev,
+                                       host=route == "image")
+            ck.reset_launches()
+            t_restore = time.perf_counter()
+            res = build_resumed_request(got, replay=route == "replay")
+            if route == "image" and not engine_b.adopt_checkpoint_kv(
+                    res, got.kv):
+                raise AssertionError("migrate_serve (a): image refused")
+            engine_b.submit(res)
+            _drain(engine_b)
+            restore_s = time.perf_counter() - t_restore
+            launches = ck.launches()
+            summary = engine_b.kernel_dispatch_summary()
+            stats = engine_b.cache_stats()
+            del engine_b
+            totals = summary["dispatch_total"]
+            prefill = totals.get(f"{summary['prefill_impl']}/prefill", 0)
+            if res.full_output_ids != base.output_ids or len(
+                    res.full_output_ids) != PREEMPT_NEW:
+                raise AssertionError(
+                    f"migrate_serve (a) {label} {route}: "
+                    f"{res.full_output_ids} != {base.output_ids}")
+            if route == "image" and (stats["resumes"] != 1 or prefill
+                                     or launches["kv_append"]
+                                     or launches["gqa_prefill"]):
+                raise AssertionError(f"migrate_serve (a) {label}: B "
+                                     f"prefilled: {totals}, {stats}")
+            runs[route] = {"tokens_equal_to_uninterrupted": PREEMPT_NEW,
+                           "prefill_steps_on_b": prefill,
+                           "resumes_on_b": stats["resumes"],
+                           "restore_to_finish_s": restore_s,
+                           "launches_on_b": launches}
+        out[label] = {"parked_at_token": at, "frame_bytes": len(data),
+                      "image_pages": int(got.kv.layers[0].shape[0]),
+                      "park_harvest_frame_ms": park_ms, **runs}
+    emit({"phase": "migrate_serve", "part": "a_engines", **out,
+          "card": card})
+    return out
+
+
+def migrate_swarm(torch, dev, card, cfg, model_full, params) -> dict:
+    """Part (b): the swarm. A port GlobalScheduler and its SchedulerService
+    on TCP loopback with four WorkerNodes, the roofline's memory bound
+    patched to 14 layers a node, so the scheduler lays out two 14 + 14
+    pipelines (checked); its rebalance test is pinned off, so a leave
+    keeps the surviving pipeline (the test reads heartbeat-measured
+    latencies). preempt_serve's mix routed (round robin) and polled
+    through a SwarmClient; once the requests on r0's pipeline streamed 4
+    tokens, that pipeline's tail stops. Its head parks them, the scheduler
+    picks the other pipeline, they restore there by re-prefill and replay
+    (the target has two stages), and the client follows ``migrated``:
+    every request ends by length with zero aborts, the greedy rows within
+    GREEDY_TOL of the plain path; ``where_is`` (over the RPC) names each
+    moved request's new head. Park-to-restore seconds and routes."""
+    import threading
+
+    from parallax_tpu_torch.backend.run import SwarmClient
+    from parallax_tpu_torch.backend.scheduler_service import SchedulerService
+    from parallax_tpu_torch.p2p import proto
+    from parallax_tpu_torch.p2p.node import WorkerNode
+    from parallax_tpu_torch.p2p.transport import TcpTransport
+    from parallax_tpu_torch.scheduling import node as sched_node
+    from parallax_tpu_torch.scheduling.scheduler import GlobalScheduler
+
+    n = cfg.num_hidden_layers
+    roofline = sched_node.RooflinePerformanceModel
+    real_capacity = roofline.max_layers_in_memory
+    roofline.max_layers_in_memory = (
+        lambda self, kv_fraction=0.35: SCHED_CAPACITY)
+    sched = GlobalScheduler(cfg, min_nodes_bootstrapping=4)
+    sched.allocator.should_global_rebalance = (
+        lambda active, cv_threshold=0.5: False)
+    service = SchedulerService(sched, TcpTransport("scheduler", "127.0.0.1"),
+                               join_timeout_s=SWARM_TIMEOUT_S)
+    workers = []
+    try:
+        service.start()
+        for _ in range(4):
+            t = TcpTransport("", "127.0.0.1")
+            t.start()
+            t.peer_id = t.address
+            workers.append(WorkerNode(
+                t, service.transport.address, cfg, engine_config(True),
+                load_params=lambda m: _stage_tree(
+                    params, m.start_layer, m.end_layer, n),
+                heartbeat_interval_s=0.5, device=dev))
+        threads = [threading.Thread(target=w.start, daemon=True)
+                   for w in workers]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SWARM_TIMEOUT_S)
+        deadline = time.monotonic() + SWARM_TIMEOUT_S
+        _wait_for(lambda: len(_sched_nodes(sched.cluster_status())) == 4
+                  and all(x[2] for x in _sched_nodes(sched.cluster_status())),
+                  deadline, "migrate_serve (b): no two ready pipelines")
+        status = sched.cluster_status()
+        if status["num_pipelines"] != 2:
+            raise AssertionError(f"migrate_serve (b): allocation "
+                                 f"{_sched_nodes(status)}")
+        by_id = {w.node_id: w for w in workers}
+        client = SwarmClient(service.transport, service)
+        reqs, sampled = preempt_mix(cfg.vocab_size)
+        events = []
+        for r in reqs:
+            r.routing_table = client.route(r.request_id,
+                                           prompt_ids=r.prompt_ids)
+            events.append(client.submit(r))
+        doomed = list(reqs[0].routing_table)
+        head, tail = by_id[doomed[0]], by_id[doomed[-1]]
+        moved = [r for r in reqs if r.routing_table == doomed]
+        _wait_for(lambda: all(len(r.output_ids) >= 4 for r in moved),
+                  deadline, "migrate_serve (b): no tokens before the stop")
+        streamed = {r.request_id: len(r.output_ids) for r in moved}
+        t_stop = time.monotonic()
+        tail.stop()
+        for r, ev in zip(reqs, events):
+            if not ev.wait(SWARM_TIMEOUT_S):
+                raise AssertionError(f"migrate_serve (b) {r.request_id}: "
+                                     f"{r.status.value}")
+        wall_s = time.monotonic() - t_stop
+        restores, where = {}, {}
+        for r in moved:
+            target = sched.migrated_head(r.request_id)
+            reply = client.transport.call(
+                service.transport.address, proto.WHERE_IS,
+                {"rid": r.request_id}, timeout=10.0)
+            if target is None or target == head.node_id \
+                    or reply.get("head") != target:
+                raise AssertionError(f"migrate_serve (b) {r.request_id}: "
+                                     f"where_is {reply}, {target}")
+            route, park_s = by_id[target].restores[r.request_id]
+            restores[r.request_id] = {"route": route,
+                                      "park_to_restore_s": park_s,
+                                      "streamed_before_stop":
+                                          streamed[r.request_id]}
+            where[r.request_id] = target
+    finally:
+        for w in workers:
+            w.stop()
+            w.engine = None
+        service.stop()
+        roofline.max_layers_in_memory = real_capacity
+    del workers
+    bad = [(r.request_id, r.status.value, len(r.output_ids)) for r in reqs
+           if r.status.value != "finished_length"
+           or len(r.output_ids) != PREEMPT_NEW]
+    if bad:
+        raise AssertionError(f"migrate_serve (b): {bad}")
+    free_device_memory(torch)
+    worst, *_ = greedy_check(torch, model_full, params, reqs, sampled, dev,
+                             tol=GREEDY_TOL)
+    out = {"pipelines": 2, "moved": restores, "aborts": 0,
+           "requests": len(reqs), "stop_to_all_done_s": wall_s,
+           "where_is": "answers the new head", "greedy_vs_plain": "pass",
+           "largest_logit_gap": worst, "tolerance": GREEDY_TOL}
+    emit({"phase": "migrate_serve", "part": "b_swarm", **out, "card": card})
+    return out
+
+
+def phase_migrate_serve(torch, dev, card, cfg, model_full, params) -> None:
+    migrate_engines(torch, dev, card, cfg, params)
+    free_device_memory(torch)
+    migrate_swarm(torch, dev, card, cfg, model_full, params)
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: http_serve, the front door
 # ---------------------------------------------------------------------------
 
@@ -5179,14 +5693,20 @@ KERNEL_PATH = {
 KERNEL_COUNTER = {"ragged_attend": "gqa_prefill"}
 
 
+# The phases on the Qwen2.5-7B tree after serve, pipeline and profile, in
+# order; the first one asked for names the tree's line when serve is not.
+DENSE_PHASES = ("features_serve", "preempt_serve", "migrate_serve",
+                "http_serve", "swarm_serve", "sched_serve")
+
+
 def run_dense(torch, dev, card: str, want) -> dict:
     """Phases 4-7 on Qwen2.5-7B; its tensors die with this frame (the
     http_serve phase drops the random tree once its checkpoint loaded
     back). Returns the split and fused serve runs' launches."""
     serving = any(want(p) for p in ("serve", "pipeline", "profile"))
-    cfg, model_full, params = dense_tree(
-        torch, dev, "serve" if serving else "features_serve"
-        if want("features_serve") else "http_serve")
+    cfg, model_full, params = dense_tree(torch, dev, "serve" if serving else
+                                         next(p for p in DENSE_PHASES
+                                              if want(p)))
     paths = {}
     if serving:
         single, sampled, launches = phase_serve(torch, dev, card, cfg,
@@ -5200,6 +5720,12 @@ def run_dense(torch, dev, card: str, want) -> dict:
             phase_profile(torch, dev, cfg, params)
     if want("features_serve"):
         phase_features_serve(torch, dev, card, cfg, model_full, params)
+    if want("preempt_serve"):
+        phase_preempt_serve(torch, dev, card, cfg, model_full, params)
+        free_device_memory(torch)
+    if want("migrate_serve"):
+        phase_migrate_serve(torch, dev, card, cfg, model_full, params)
+        free_device_memory(torch)
     if want("http_serve") or want("swarm_serve") or want("sched_serve"):
         tree = [params]
         del params
@@ -5231,7 +5757,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="",
                     help="comma-separated phases (build,kernels,serve,"
-                         "pipeline,profile,features_serve,http_serve,"
+                         "pipeline,profile,features_serve,preempt_serve,"
+                         "migrate_serve,http_serve,"
                          "swarm_serve and "
                          "sched_serve (each runs http_serve too),moe_serve,"
                          "moe_profile,"
@@ -5274,8 +5801,7 @@ def main() -> int:
     kernels = phase_kernels(torch, dev) if want("kernels") else None
     free_device_memory(torch)
     paths = {}
-    if any(want(p) for p in ("serve", "pipeline", "profile", "features_serve",
-                             "http_serve", "swarm_serve", "sched_serve")):
+    if any(want(p) for p in ("serve", "pipeline", "profile") + DENSE_PHASES):
         paths.update(run_dense(torch, dev, card, want))
     # Qwen2.5-7B's tensors (about 15 GB) are gone before the MoE model's
     # 61 GB are made.

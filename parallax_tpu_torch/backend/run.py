@@ -15,9 +15,11 @@ it from its gossip). Neither touches the card.
 
 Not ported yet, refused by name: the web UI and ``/scheduler/init`` with
 the model switch, scheduler HA (standbys, failover) and the relay (ROADMAP
-queue 1 item 4c); the migration-following rung of the poll loop and the
-resume of a request that already streamed tokens (``replay_ids``, item
-6); SLO, QoS, timeline, healthz, device and profile hooks (item 9).
+queue 1 item 4c); SLO, QoS, timeline, healthz, device and profile hooks
+(item 9). The poll loop follows a live migration (``{"migrated": head}``
+from the old head, or the scheduler's ``where_is``) and resumes a request
+whose path died after it streamed tokens by resubmitting those tokens as
+``replay_ids``, as the JAX client does.
 """
 
 from __future__ import annotations
@@ -212,11 +214,33 @@ class SwarmClient:
             self._heads.pop(request.request_id, None)
             self._arrivals.pop(request.request_id, None)
 
+    def _migrated_head(self, request_id: str) -> str | None:
+        """The scheduler's where_is table: targets report restored
+        requests there, so a poller whose OLD head died after shipping
+        still finds the new one. In process when the scheduler is, over
+        the ``where_is`` RPC otherwise."""
+        if self.service is not None:
+            return self.service.scheduler.migrated_head(request_id)
+        if self.scheduler_peer is None:
+            return None
+        try:
+            reply = self.transport.call(
+                self.scheduler_peer, proto.WHERE_IS, {"rid": request_id},
+                timeout=5.0,
+            )
+        except Exception:
+            return None
+        head = (reply or {}).get("head")
+        return str(head) if head else None
+
     def _reroute(self, request: Request) -> str | None:
-        """The routed path died before the first token: release its load
-        charge, re-enqueue with the ORIGINAL arrival time and resubmit to
-        the new head. Returns the new head, or None when no pipeline is
-        serviceable (the caller then aborts)."""
+        """Post-dispatch rung of the retry ladder: the routed path died, so
+        release its load charge, re-enqueue with the ORIGINAL arrival time
+        and resubmit to the new head. A request that already streamed
+        tokens resubmits them as ``replay_ids``: teacher-forced through
+        decode steps on the new head, so the continuation is bit-identical
+        and no token is re-sampled. Returns the new head, or None when no
+        pipeline is serviceable (the caller then aborts)."""
         rid = request.request_id
         self._release_path(list(request.routing_table))
         try:
@@ -232,9 +256,14 @@ class SwarmClient:
             return None
         request.routing_table[:] = path
         head = path[0]
+        payload = self._submit_payload(request, path)
+        streamed = list(request.output_ids)
+        if streamed:
+            payload["replay_ids"] = streamed
+            if len(request.output_logprobs) == len(streamed):
+                payload["replay_logprobs"] = list(request.output_logprobs)
         try:
-            self.transport.call(head, proto.CHAT_SUBMIT,
-                                self._submit_payload(request, path),
+            self.transport.call(head, proto.CHAT_SUBMIT, payload,
                                 timeout=30.0)
         except Exception as e:
             logger.warning("re-routed submit of %s to %s failed: %s",
@@ -242,8 +271,11 @@ class SwarmClient:
             self._release_path(list(path))
             request.routing_table[:] = []
             return None
-        logger.info("re-routed %s onto %s (path death before first token)",
-                    rid, head)
+        logger.info(
+            "re-routed %s onto %s (%s)", rid, head,
+            f"replaying {len(streamed)} streamed tokens" if streamed
+            else "path death before first token",
+        )
         return head
 
     def _poll_until_done(self, request: Request, head: str,
@@ -252,14 +284,32 @@ class SwarmClient:
         failures = 0
         reroutes = 0
 
+        def follow_migration(new_head: str) -> str:
+            """Switch polling to the head that owns the request now. The
+            OLD path's load charge was released by the source head at
+            migrate-out and the NEW path's is owned by the target, so the
+            stale table must not feed a later abort-time release."""
+            request.routing_table[:] = []
+            self._heads[rid] = new_head
+            return new_head
+
         def try_recover() -> str | None:
-            """Head unreachable or amnesiac: re-route (bounded attempts)
-            when no token has streamed yet. A request that streamed tokens
-            would resume with them as ``replay_ids``, which waits for
-            item 6: it aborts."""
+            """Head unreachable or amnesiac: follow a recorded migration
+            first; failing that, re-route (bounded attempts). A request
+            that already streamed tokens resubmits them as
+            ``replay_ids``. Mid-stream re-routing also requires the
+            SCHEDULER to have lost the head: a client-side partition to a
+            head the scheduler still trusts must not fork the request onto
+            a second pipeline while the first keeps decoding it."""
             nonlocal reroutes
+            moved = self._migrated_head(rid)
+            if moved and moved != head:
+                return follow_migration(moved)
             if (self.service is None and self.scheduler_peer is None) \
-                    or reroutes >= 2 or request.output_ids:
+                    or reroutes >= 2:
+                return None
+            if request.output_ids and self.service is not None \
+                    and self.service.scheduler.manager.get(head) is not None:
                 return None
             reroutes += 1
             return self._reroute(request)
@@ -272,6 +322,15 @@ class SwarmClient:
                 failures = 0
             except Exception as e:
                 failures += 1
+                if failures % 4 == 0:
+                    # The old head may have shipped the request away before
+                    # dying: ask the scheduler's where_is table while the
+                    # unreachable count accumulates.
+                    moved = self._migrated_head(rid)
+                    if moved and moved != head:
+                        head = follow_migration(moved)
+                        failures = 0
+                        continue
                 if failures > 10:
                     recovered = try_recover()
                     if recovered:
@@ -281,7 +340,8 @@ class SwarmClient:
                         continue
                     request.abort(f"head node unreachable: {e}")
                     # The worker cannot report completion anymore; release
-                    # the path's load charge here.
+                    # the path's load charge here (empty after a migration
+                    # follow — the target owns that charge).
                     self._release_path(list(request.routing_table))
                     ev.set()
                     return
@@ -289,6 +349,11 @@ class SwarmClient:
                 # jitter, base 0.25 s, cap 2 s, as the JAX client's).
                 time.sleep(random.uniform(
                     0.0, min(2.0, 0.25 * 2 ** (failures - 1))))
+                continue
+            if r.get("migrated"):
+                # Live migration: the request now runs on another head;
+                # keep streaming from there.
+                head = follow_migration(str(r["migrated"]))
                 continue
             if "error" in r:
                 recovered = try_recover()

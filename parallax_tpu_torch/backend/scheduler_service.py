@@ -8,13 +8,15 @@ reallocation piggyback + auto-rejoin, node_leave) and the
 
 The replies keep the JAX service's keys (``start_layer`` / ``end_layer``,
 ``standby``, ``rejoin``, ``want_digests``, ``digests_resync``, ``drain``,
-``model_name``, ``epoch``); the epoch stays 1 until scheduler HA. The RPCs
-of planes the port does not run yet get no handler, so a worker asking for
-one gets the transport's "no handler" reply, as from a JAX scheduler built
-without them: ``migrate_target``, ``migration_done`` and ``where_is``
-(live migration, ROADMAP queue 1 item 6), ``disagg_target`` (roles, item
-4c) and ``ha_sync`` (HA, item 4c). Standby addresses and specialist roles
-are refused by name (item 4c).
+``model_name``, ``epoch``); the epoch stays 1 until scheduler HA. Live
+migration's RPCs are served: ``migrate_target`` (CacheIndex-scored
+destinations for a head's parked requests), ``migration_done`` (a target
+restored one) and ``where_is`` (where a migrated request lives now). The
+RPCs of planes the port does not run yet get no handler, so a worker asking
+for one gets the transport's "no handler" reply, as from a JAX scheduler
+built without them: ``disagg_target`` (roles and the KV handoff, ROADMAP
+queue 1 item 4c) and ``ha_sync`` (HA, item 4c). Standby addresses and
+specialist roles are refused by name (item 4c).
 """
 
 from __future__ import annotations
@@ -54,6 +56,9 @@ class SchedulerService:
         transport.register(proto.REQUEST_COMPLETE, self._on_request_complete)
         transport.register(proto.PEER_DOWN, self._on_peer_down)
         transport.register(proto.ROUTE_REQUEST, self._on_route_request)
+        transport.register(proto.MIGRATE_TARGET, self._on_migrate_target)
+        transport.register(proto.MIGRATION_DONE, self._on_migration_done)
+        transport.register(proto.WHERE_IS, self._on_where_is)
         transport.register("__ping__", lambda *_: "pong")
 
     def start(self) -> None:
@@ -189,6 +194,31 @@ class SchedulerService:
             str(payload.get("reason") or ""),
         )
         return "ok"
+
+    def _on_migrate_target(self, _peer: str, payload: dict) -> dict:
+        """Destinations for a head's parked requests, scored against each
+        surviving head's CacheIndex mirror."""
+        reqs = payload.get("requests")
+        if not isinstance(reqs, list):
+            return {"targets": {}}
+        exclude = {str(x) for x in (payload.get("exclude") or ())}
+        return {
+            "targets": self.scheduler.choose_migration_targets(
+                [r for r in reqs if isinstance(r, dict)], exclude
+            )
+        }
+
+    def _on_migration_done(self, _peer: str, payload: dict):
+        """A target head restored a migrated request: record where it lives
+        now so pollers that lost the old head can follow."""
+        rid, head = payload.get("rid"), payload.get("head")
+        if isinstance(rid, str) and isinstance(head, str):
+            self.scheduler.record_migration(rid, head)
+        return "ok"
+
+    def _on_where_is(self, _peer: str, payload: dict) -> dict:
+        head = self.scheduler.migrated_head(str(payload.get("rid") or ""))
+        return {"head": head} if head else {}
 
     def _on_route_request(self, _peer: str, payload: dict) -> dict:
         """RPC twin of :meth:`route_request` for clients without an

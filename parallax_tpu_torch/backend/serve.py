@@ -147,6 +147,7 @@ def serve_main(args, on_start=None) -> int:
     from parallax_tpu_torch.models.registry import create_stage_model
     from parallax_tpu_torch.runtime.cache_manager import derive_num_pages
     from parallax_tpu_torch.utils.hw import (
+        default_host_cache_bytes,
         device_free_memory_bytes,
         resolve_device,
     )
@@ -186,6 +187,10 @@ def serve_main(args, on_start=None) -> int:
             prefill_chunk_size=args.prefill_chunk_size,
             kv_dtype=args.kv_dtype,
             enable_prefix_cache=not args.no_prefix_cache,
+            # Host-DRAM KV tier: half of the host's available RAM on a
+            # card unless pinned by flag; off on the CPU.
+            host_cache_bytes=default_host_cache_bytes(
+                override=args.host_cache_bytes, device=device),
             linear_prefix_slots=args.linear_prefix_slots,
             # None/0 = adaptive multi-step decode (engine default).
             decode_lookahead=args.decode_lookahead or None,

@@ -83,7 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--prefill-chunk-size", type=int, default=1024)
     serve.add_argument("--no-prefix-cache", action="store_true")
     serve.add_argument("--host-cache-bytes", type=int, default=None,
-                       help="host-DRAM KV tier budget (0 or unset: off)")
+                       help="host-DRAM KV tier budget in bytes (unset: "
+                            "half of available RAM on a card, off on the "
+                            "CPU; 0: off)")
     serve.add_argument("--linear-prefix-slots", type=int, default=32)
     serve.add_argument("--lora-adapters", default=None,
                        help="per-request adapters: name=peft_dir[,...]")
@@ -233,9 +235,9 @@ def _add_join_flags(join: argparse.ArgumentParser) -> None:
     join.add_argument("--lora-adapters", default=None)
     join.add_argument("--sp-size", type=int, default=0)
     join.add_argument("--host-cache-bytes", type=int, default=None,
-                      help="host-DRAM KV tier budget (not ported yet: the "
-                           "tier is off, where the JAX join sizes one from "
-                           "the host's RAM)")
+                      help="host-DRAM KV tier budget in bytes (unset: "
+                           "half of available RAM on a card, off on the "
+                           "CPU; 0: off)")
     join.add_argument("--sp-threshold", type=int, default=2048)
     join.add_argument("--wire-dtype", default=None,
                       choices=["bfloat16", "bf16", "fp8", "float8_e4m3fn"],
@@ -285,8 +287,7 @@ def unported_join_flags(args) -> list[tuple[str, int | str]]:
         (args.compilation_cache_dir is not None, "--compilation-cache-dir",
          12),
         (args.kv_transfer_chunk_bytes is not None,
-         "--kv-transfer-chunk-bytes", 6),
-        (bool(args.host_cache_bytes), "--host-cache-bytes", 6),
+         "--kv-transfer-chunk-bytes", "4c"),
         (args.lora_adapters is not None, "--lora-adapters", 11),
         (args.lora_max_adapters > 0, "--lora-max-adapters", 11),
         (args.wire_dtype in ("fp8", "float8_e4m3fn"),
@@ -334,7 +335,6 @@ def unported_flags(args) -> list[tuple[str, int | str]]:
     refuse(args.lora_max_adapters > 0, "--lora-max-adapters", 11)
     refuse(args.draft_model_path is not None, "--draft-model-path", 7)
     refuse(args.speculative_tokens > 0, "--speculative-tokens", 7)
-    refuse(bool(args.host_cache_bytes), "--host-cache-bytes", 6)
     refuse(args.wire_dtype is not None, "--wire-dtype", "4c")
     refuse(args.trace_sample_rate > 0, "--trace-sample-rate", 9)
     refuse(args.watchdog, "--watchdog", 9)

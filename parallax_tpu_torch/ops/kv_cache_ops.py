@@ -39,6 +39,29 @@ def interleave_kv(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.stack([k, v], dim=2).reshape(t, 2 * h, d)
 
 
+def gather_pages(kv_pages: torch.Tensor,
+                 page_ids: torch.Tensor) -> torch.Tensor:
+    """Gather whole pages into a staging buffer for D2H demotion.
+
+    ``kv_pages`` [P, page, ...] is one layer's paged cache, ``page_ids``
+    i32[n] in-range device page ids (callers own validity). Returns a
+    contiguous [n, page, ...] copy, safe to copy to the host while later
+    steps keep writing ``kv_pages``."""
+    return kv_pages.index_select(0, page_ids.long())
+
+
+def scatter_pages(kv_pages: torch.Tensor, page_ids: torch.Tensor,
+                  data: torch.Tensor) -> torch.Tensor:
+    """Write host-promoted pages back into the paged cache (H2D swap-in),
+    IN PLACE: ``kv_pages[page_ids[i]] = data[i]``, cast to the cache's
+    dtype. Captured CUDA graphs hold the cache's pointer, so the tensor
+    is never reallocated. Returns ``kv_pages``."""
+    kv_pages.index_copy_(0, page_ids.long(),
+                         data.to(device=kv_pages.device,
+                                 dtype=kv_pages.dtype))
+    return kv_pages
+
+
 def reshape_and_cache(
     kv_pages: torch.Tensor,
     k: torch.Tensor,

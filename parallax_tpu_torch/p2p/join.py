@@ -13,8 +13,9 @@ layers ``[--start-layer, --end-layer)`` of the checkpoint and gossips its
 block with ``--peers``; the one holding layer 0 routes requests itself.
 Either way it runs on ``--device`` (default ``cuda:0``). Its KV pages come
 from ``EngineConfig.num_pages``, as in the JAX join, so two workers share
-one card. The host KV tier is off (ROADMAP queue 1 item 6); the JAX join
-sizes one from the host's RAM on an accelerator.
+one card. Its host KV tier gets ``--host-cache-bytes``, by default half of
+the host's available RAM on a card and none on the CPU, as the JAX join
+sizes it.
 """
 
 from __future__ import annotations
@@ -50,7 +51,10 @@ def build_worker(args):
     from parallax_tpu_torch.p2p.node import WorkerNode
     from parallax_tpu_torch.p2p.transport import TcpTransport
     from parallax_tpu_torch.runtime.engine import EngineConfig
-    from parallax_tpu_torch.utils.hw import resolve_device
+    from parallax_tpu_torch.utils.hw import (
+        default_host_cache_bytes,
+        resolve_device,
+    )
 
     standalone = args.scheduler_addr is None
     if standalone and (args.start_layer is None or args.end_layer is None):
@@ -82,6 +86,8 @@ def build_worker(args):
             decode_pipeline=args.decode_pipeline or 1,
             wire_dtype=args.wire_dtype,
             slow_request_ms=args.slow_request_ms,
+            host_cache_bytes=default_host_cache_bytes(
+                override=args.host_cache_bytes, device=device),
         ),
         load_params=lambda model: load_stage_params(
             model, args.model_path, device=device),

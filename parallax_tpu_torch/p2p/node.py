@@ -32,18 +32,30 @@ allocation's too, is built on the step thread, and a reload drops the old
 engine's KV and weights before the new ones load. The heartbeat thread
 reads host state only.
 
-By design until live migration (item 6): a ``drain`` directive and a dead
-peer abort the affected head requests, naming the peer, where the JAX
-worker checkpoints them to another pipeline. The heartbeat sends None for
-the planes not ported yet (step timing, metrics, goodput, device, health,
-events, speculation, constrained decoding).
+Live migration, as in the JAX worker: on a scheduled HEAD, a ``drain``
+directive or a dead next hop FLAGS the affected requests (``migrating``:
+the local scheduler stops scheduling them); once out of every in-flight
+step and window they are PARKED on the step thread — KV preempted to the
+host tier and harvested into a checkpoint image where possible, the
+request extracted, the old path's mirrors released — then a ship thread
+asks the scheduler for a target pipeline (``migrate_target``) and sends
+each checkpoint head to head (``rpc_checkpoint``). The target restores it
+on its step thread, by KV-image adoption or by re-prefill and
+teacher-forced replay, and reports ``migration_done``; pollers follow via
+``chat_poll``'s ``{"migrated": head}`` or the scheduler's ``where_is``. A
+request nobody takes within ``MIGRATION_PARK_TIMEOUT_S`` aborts with
+"migration: no serviceable pipeline". Mirrors and scheduler-less swarms
+abort instead (nobody picks a target). ``chat_submit`` with ``replay_ids``
+teacher-forces a client's already-streamed tokens. The heartbeat sends
+None for the planes not ported yet (step timing, metrics, goodput, device,
+health, events, speculation, constrained decoding).
 
 Not ported yet, each refused by name with its ROADMAP queue 1 item:
-scheduler standbys, the relay, the model switch, roles and the protobuf
-frames of the reference's nodes (``p2p/interop.py``; item 4c), live
-migration and the KV handoff (item 6), refit (item 12), the watchdog,
-profiling, traces, metrics, goodput and QoS (item 9), LoRA (item 11),
-speculation (item 7) and tensor parallelism (item 10).
+scheduler standbys, the relay, the model switch, roles, the KV handoff and
+the protobuf frames of the reference's nodes (``p2p/interop.py``; item
+4c), refit (item 12), the watchdog, profiling, traces, metrics, goodput and
+QoS (item 9), LoRA (item 11), speculation (item 7) and tensor parallelism
+(item 10).
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ import random
 import threading
 import time
 import uuid
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import wait as _fwait
 
@@ -77,9 +90,18 @@ from parallax_tpu_torch.runtime.engine import (
     StageEngine,
     drive_step,
 )
+from parallax_tpu_torch.runtime.checkpoint import (
+    CheckpointError,
+    build_resumed_request,
+    checkpoint_from_request,
+    checkpoint_from_wire,
+    checkpoint_to_wire,
+)
+from parallax_tpu_torch.runtime.radix_cache import block_hash_chain
 from parallax_tpu_torch.runtime.request import (
     IntermediateRequest,
     Request,
+    RequestStatus,
     SamplingParams,
 )
 from parallax_tpu_torch.utils import get_logger, unported
@@ -121,6 +143,14 @@ class WorkerNode:
     """Serves its layer range (assigned by the scheduler, or self-assigned
     in a scheduler-less swarm), forwards activations to the next hop and,
     at the head, answers chat RPCs."""
+
+    # Live migration: a request parked for checkpoint shipping that finds
+    # no target pipeline within this long is aborted (the client resume
+    # ladder is the rung below).
+    MIGRATION_PARK_TIMEOUT_S = 20.0
+    # Backoff between target-query attempts while no pipeline is
+    # serviceable (bootstrap/rebalance in flight).
+    MIGRATION_RETRY_S = 1.0
 
     def __init__(
         self,
@@ -204,6 +234,17 @@ class WorkerNode:
         # Head-node bookkeeping: finished requests awaiting pickup.
         self._finished: queue.Queue[Request] = queue.Queue()
         self._request_events: dict[str, threading.Event] = {}
+        # Live migration. Step-thread state except _migrated_to, which
+        # pollers read from transport threads (write-once strings).
+        # rid -> dead peer: flagged for parking, still draining out of the
+        # engine (in-flight steps must resolve first).
+        self._migration_pending: dict[str, str] = {}
+        # rid -> park entry (request, optional KV image, grammar fields,
+        # timestamps).
+        self._migration_parked: dict[str, dict] = {}
+        # rid -> target head: chat_poll redirects followers there after
+        # the request shipped away (bounded; see _record_migrated).
+        self._migrated_to: OrderedDict[str, str] = OrderedDict()
         # Async sender pipeline: serialization + socket latency leave the
         # step thread (per-peer bounded in-order queues); overflow or send
         # failure feeds the abort path.
@@ -234,16 +275,20 @@ class WorkerNode:
         transport.register(proto.CHAT_POLL, self._on_chat_poll)
         transport.register(proto.CHAT_STOP, self._on_chat_stop)
         transport.register(proto.WIRE_CAPS, self._on_wire_caps)
+        transport.register(proto.CHECKPOINT, self._on_checkpoint)
         transport.register("__ping__", make_ping_handler())
         for method, what, item in (
-            (proto.CHECKPOINT, "live migration", 6),
-            (proto.KV_TRANSFER, "the KV handoff", 6),
-            (proto.KV_RESULT, "the KV handoff", 6),
+            (proto.KV_TRANSFER, "the KV handoff", "4c"),
+            (proto.KV_RESULT, "the KV handoff", "4c"),
             (proto.PROFILE, "profiling", 9),
         ):
             transport.register(method, self._refusal(what, item))
         # Head-node chat requests by id (polled by the chat host).
         self._chat_requests: dict[str, Request] = {}
+        # rid -> (route, park-to-restore seconds on the wall clock) of each
+        # checkpoint this worker restored (the JAX worker counts them in
+        # its metrics plane, item 9).
+        self.restores: OrderedDict[str, tuple[str, float]] = OrderedDict()
 
     @staticmethod
     def _refusal(what: str, item):
@@ -446,14 +491,27 @@ class WorkerNode:
             return
         sched = eng.scheduler
         reqs = list(sched.running.values()) + list(sched.wait_queue.values())
+        aborted = 0
         for req in reqs:
+            if (
+                not req.status.is_finished
+                and req.request_id in self._migration_pending
+            ):
+                # Flagged for migration and the engine is going away: park
+                # the token-level state NOW (force: the engine and its KV
+                # are discarded wholesale, so no image and no in-flight
+                # hazard).
+                dead = self._migration_pending.pop(req.request_id)
+                self._park_request(eng, req, dead, force=True)
+                continue
             if not req.status.is_finished:
                 req.abort(reason)
             sched.release_request(req)
             self._finish(req)
-        if reqs:
+            aborted += 1
+        if aborted:
             logger.warning("%s: aborted %d in-flight requests (%s)",
-                           self.node_id, len(reqs), reason)
+                           self.node_id, aborted, reason)
 
     def _random_params(self, model: StageModel):
         """Seeded random weights, deterministic per layer range (the JAX
@@ -933,8 +991,6 @@ class WorkerNode:
         return "ok"
 
     def _on_chat_submit(self, _peer: str, payload: dict):
-        if payload.get("replay_ids"):
-            raise unported("chat_submit with replay_ids (client resume)", 6)
         if any(payload.get(k) is not None
                for k in ("qos_class", "deadline_ms", "tenant")):
             raise unported("chat_submit with QoS fields (qos_class, "
@@ -949,6 +1005,19 @@ class WorkerNode:
             eos_token_ids=tuple(payload.get("eos_token_ids") or ()),
             lora_id=payload.get("lora_id"),
         )
+        replay = payload.get("replay_ids")
+        if replay:
+            # Client resume rung: the submitting frontend mirrors tokens it
+            # already streamed from a head that died. Teacher-forcing them
+            # through ordinary decode steps makes the continuation
+            # bit-identical and no token is re-sampled — the replay
+            # machinery checkpoint restores use.
+            req.replay_ids = [int(x) for x in replay]
+            lps = payload.get("replay_logprobs") or []
+            req.replay_logprobs = (
+                [float(x) for x in lps]
+                if len(lps) == len(req.replay_ids) else []
+            )
         self._chat_requests[req.request_id] = req
         self.submit(req)
         return "ok"
@@ -961,6 +1030,11 @@ class WorkerNode:
     def _on_chat_poll(self, _peer: str, payload: dict):
         req = self._chat_requests.get(payload["rid"])
         if req is None:
+            # Shipped away in a live migration: redirect the poller to the
+            # head that owns the request now.
+            head = self._migrated_to.get(payload["rid"])
+            if head:
+                return {"migrated": head}
             return {"error": "unknown request"}
         out = {
             "output_ids": list(req.full_output_ids),
@@ -1006,6 +1080,10 @@ class WorkerNode:
                 eng = self.engine
                 if self._pending is not None and self._pending_engine is not eng:
                     self._pending = None
+                if self._migration_pending or self._migration_parked:
+                    # Park drained requests as checkpoints and ship the
+                    # parked ones to their target pipelines.
+                    self._migration_tick(eng)
                 if eng is None:
                     self._wake.wait(0.01)
                     self._wake.clear()
@@ -1089,20 +1167,51 @@ class WorkerNode:
             elif kind == "stop":
                 self.engine.stop_request(item[1])
             elif kind == "abort_path":
-                # A next-hop peer is unreachable: abort what routes through
-                # it (the JAX worker in scheduler mode migrates its head
-                # requests instead: item 6).
+                # A next-hop peer is unreachable. A scheduled head
+                # checkpoints its requests through it away (migration);
+                # mirrors own no restartable state and a scheduler-less
+                # swarm has nobody to pick a target: they abort.
                 if self.engine is None:
                     continue
                 peer = item[1]
                 self._forget_wire_dtype(peer)
-                self._abort_through({peer})
+                migratable = (
+                    not self.standalone and self.engine.model.is_first
+                )
+                sched = self.engine.scheduler
+                for req in (
+                    list(sched.running.values())
+                    + list(sched.wait_queue.values())
+                ):
+                    if peer not in req.routing_table or req.status.is_finished:
+                        continue
+                    if migratable and not getattr(req, "is_mirror", False):
+                        self._flag_for_migration(req, peer)
+                    else:
+                        req.abort(f"peer {peer} unreachable")
             elif kind == "drain":
                 # Scheduler directive (heartbeat reply): these peers are
-                # dead and the pipelines through them are dissolving.
+                # dead and the pipelines through them are dissolving —
+                # checkpoint every affected head request away.
                 if self.engine is None or not self.engine.model.is_first:
                     continue
-                self._abort_through(set(item[1]))
+                dead_peers = set(item[1])
+                sched = self.engine.scheduler
+                for req in (
+                    list(sched.running.values())
+                    + list(sched.wait_queue.values())
+                ):
+                    if req.status.is_finished or getattr(
+                        req, "is_mirror", False
+                    ):
+                        continue
+                    hit = dead_peers & set(req.routing_table)
+                    if hit:
+                        self._flag_for_migration(req, sorted(hit)[0])
+            elif kind == "restore":
+                self._restore_checkpoint(item[1], item[2])
+            elif kind == "migration_shipped":
+                self._on_migration_shipped(item[1])
             elif kind == "liveness":
                 # Abort requests routed through peers whose announcements
                 # expired — one scan per beat.
@@ -1118,16 +1227,366 @@ class WorkerNode:
             elif kind == "reload":
                 self._apply_allocation(item[1])
 
-    def _abort_through(self, dead: set) -> None:
-        """Abort the unfinished requests routed through ``dead`` peers,
-        naming the first of them."""
+    # -- live migration -------------------------------------------------------
+
+    def _flag_for_migration(self, req: Request, dead_peer: str) -> None:
+        rid = req.request_id
+        if rid in self._migration_pending or rid in self._migration_parked:
+            return
+        req.migrating = True
+        self._migration_pending[rid] = dead_peer
+
+    def _migration_tick(self, eng) -> None:
+        """One step-loop pass of the migration state machine: park flagged
+        requests that left every in-flight step and window, ship parked
+        ones, abort the ones nobody could take before the deadline."""
+        now = time.monotonic()
+        if self._migration_pending and eng is not None:
+            inflight = eng.inflight_rids()
+            for rid, dead in list(self._migration_pending.items()):
+                sched = eng.scheduler
+                req = sched.running.get(rid) or sched.wait_queue.get(rid)
+                if req is None or req.status.is_finished:
+                    self._migration_pending.pop(rid, None)
+                    continue
+                if rid in inflight:
+                    continue    # its pages are being written; next pass
+                self._migration_pending.pop(rid)
+                self._park_request(eng, req, dead)
+        ready = [
+            rid for rid, e in self._migration_parked.items()
+            if not e["shipping"] and now >= e["next_attempt"]
+        ]
+        if ready:
+            for rid in ready:
+                self._migration_parked[rid]["shipping"] = True
+            entries = {rid: self._migration_parked[rid] for rid in ready}
+            threading.Thread(
+                target=self._ship_checkpoints, args=(entries,),
+                daemon=True, name="migrate-ship",
+            ).start()
+        for rid, e in list(self._migration_parked.items()):
+            if not e["shipping"] and now > e["deadline"]:
+                self._migration_parked.pop(rid)
+                req = e["req"]
+                req.abort("migration: no serviceable pipeline")
+                self._finish(req)
+
+    @staticmethod
+    def _harvestable(req: Request) -> bool:
+        """Whether a park can carry this request's KV as a checkpoint
+        image: a decode row past prefill, or a MID-PREFILL row with
+        computed tokens of its own (the target resumes the chunked prefill
+        at the computed mark). PREEMPTED rows already live in the host
+        tier and restore via replay."""
+        return (
+            req.status is RequestStatus.DECODING and req.is_prefill_done
+        ) or (
+            req.status is RequestStatus.PREFILLING
+            and req.num_computed_tokens > 0
+        )
+
+    def _park_request(
+        self, eng, req: Request, dead_peer: str, force: bool = False
+    ) -> None:
+        """Checkpoint one request out of the engine, on the step thread.
+        The KV image and the grammar fields are harvested here, before
+        ``extract`` drops the engine's per-request state; the ship thread
+        reads only what this parks (CPU tensors and host values)."""
+        rid = req.request_id
+        image = None
+        grammar = None
+        if not force:
+            grammar = eng.grammar_checkpoint_fields(rid)
+        if not force and eng.host_tier is not None and self._harvestable(req):
+            # The committed KV image parks in the host tier exactly like a
+            # preemption; the checkpoint serializes it so a
+            # layout-compatible target swaps it in instead of recomputing.
+            # A mid-prefill park first trims the owned pages to the
+            # computed span. A failed preemption (tier full) means
+            # re-prefill at the target; a failed transfer raises.
+            if req.status is RequestStatus.PREFILLING:
+                eng.cache.trim_uncomputed_pages(req)
+            if eng.cache.preempt_to_host(req):
+                image = eng.harvest_kv_image(req)
+        extracted = eng.extract(rid, force=force)
+        if extracted is None:
+            # Raced back into flight; re-flag and retry next pass.
+            self._migration_pending[rid] = dead_peer
+            return
+        old_table = list(req.routing_table)
+        eng.cache.release(req)
+        # Old-path survivors drop their mirrors now, not at timeout.
+        for peer in old_table:
+            if peer != self.node_id and peer != dead_peer:
+                self.sender.send(
+                    peer, proto.RELEASE,
+                    {"rids": [rid], "abort": True}, best_effort=True,
+                )
+        now = time.monotonic()
+        self._migration_parked[rid] = {
+            "req": req,
+            "image": image,
+            "grammar": grammar,
+            "old_table": old_table,
+            "dead": dead_peer,
+            "parked_wall": time.time(),
+            "deadline": now + self.MIGRATION_PARK_TIMEOUT_S,
+            "next_attempt": now,
+            "shipping": False,
+        }
+
+    def _ship_checkpoints(self, entries: dict[str, dict]) -> None:
+        """Ship thread: ask the scheduler for CacheIndex-scored targets,
+        ship each checkpoint over an acknowledged RPC, report the outcomes
+        back to the step thread. Reads only parked (frozen) request state.
+        Every entry ALWAYS gets a result posted — an unexpected error maps
+        to "retry", never to a permanently ``shipping`` entry that the
+        park-timeout abort could no longer reach."""
+        results: dict[str, tuple] = {}
+        try:
+            self._ship_checkpoints_inner(entries, results)
+        except Exception:
+            logger.exception("%s: checkpoint ship failed", self.node_id)
+        finally:
+            for rid in entries:
+                results.setdefault(rid, ("retry", "ship error"))
+            self._post(("migration_shipped", results))
+
+    @staticmethod
+    def _target_descriptor(req: Request, page: int) -> dict:
+        """CacheIndex-scoring descriptor for one parked request: the FULL
+        token history (a resumed request's prompt already folds prior
+        outputs in, and outputs awaiting teacher-forced replay count too),
+        so the scheduler's chain prediction sees the tokens the restore
+        will re-prefill."""
+        history = list(req.all_token_ids) + list(req.replay_ids)
+        return {
+            "rid": req.request_id,
+            "prompt_tokens": len(history),
+            "lora_id": req.lora_id,
+            "chains": {str(page): block_hash_chain(history, page)},
+        }
+
+    def _ship_checkpoints_inner(
+        self, entries: dict[str, dict], results: dict[str, tuple]
+    ) -> None:
+        page = self.engine_config.page_size
+        descriptors = [
+            self._target_descriptor(e["req"], page) for e in entries.values()
+        ]
+        try:
+            reply = self.transport.call(
+                self.scheduler_peer, proto.MIGRATE_TARGET,
+                {
+                    "requests": descriptors,
+                    "exclude": sorted({e["dead"] for e in entries.values()}),
+                },
+                timeout=15.0,
+            )
+            targets = (reply or {}).get("targets") or {}
+        except Exception as exc:
+            logger.warning("%s: migrate_target query failed: %s",
+                           self.node_id, exc)
+            targets = {}
+        by_head: dict[str, list] = {}
+        for rid, e in entries.items():
+            t = targets.get(rid)
+            if not isinstance(t, dict) or not t.get("path"):
+                results[rid] = ("retry", "no serviceable pipeline")
+                continue
+            path = [str(x) for x in t["path"]]
+            image = e["image"]
+            # Raw-KV adoption only makes sense when the target head runs
+            # the exact same stage: a single-stage pipeline over our layer
+            # range. Anything else re-prefills (which also feeds downstream
+            # stages their chunks).
+            kv_ok = (
+                image is not None
+                and len(path) == 1
+                and list(t.get("head_layers") or [])
+                == [image.start_layer, image.end_layer]
+            )
+            ckpt = checkpoint_from_request(
+                e["req"], routing_table=path,
+                kv=image if kv_ok else None,
+                grammar=e["grammar"],
+            )
+            ckpt.parked_wall = e["parked_wall"]
+            by_head.setdefault(path[0], []).append(
+                (rid, path, checkpoint_to_wire(ckpt))
+            )
+        for head, batch in by_head.items():
+            try:
+                reply = self.transport.call(
+                    head, proto.CHECKPOINT,
+                    {"checkpoints": [w for _r, _p, w in batch]},
+                    timeout=30.0,
+                )
+            except Exception as exc:
+                # The chosen target died between choice and ship: the load
+                # charge must not leak, and the request retries against
+                # whatever pipeline the next query finds.
+                for rid, path, _w in batch:
+                    results[rid] = ("retry", f"target {head} unreachable")
+                    self.sender.send(
+                        self.scheduler_peer, proto.REQUEST_COMPLETE,
+                        {"path": path}, best_effort=True,
+                    )
+                logger.warning("%s: checkpoint ship to %s failed: %s",
+                               self.node_id, head, exc)
+                continue
+            accepted = set((reply or {}).get("accepted") or ())
+            rejected = (reply or {}).get("rejected") or {}
+            for rid, path, _w in batch:
+                if rid in accepted:
+                    results[rid] = ("ok", head)
+                else:
+                    results[rid] = (
+                        "failed",
+                        str(rejected.get(rid) or "target rejected"),
+                    )
+                    self.sender.send(
+                        self.scheduler_peer, proto.REQUEST_COMPLETE,
+                        {"path": path}, best_effort=True,
+                    )
+
+    def _on_migration_shipped(self, results: dict[str, tuple]) -> None:
+        for rid, (status, info) in results.items():
+            e = self._migration_parked.get(rid)
+            if e is None:
+                continue
+            if status == "ok":
+                self._migration_parked.pop(rid)
+                self._record_migrated(rid, info)
+                # The request lives on the target now: pollers get the
+                # {"migrated": head} redirect, and a direct submitter's
+                # done-event is retired unfired (chat_poll is the follow
+                # channel).
+                self._chat_requests.pop(rid, None)
+                self._request_events.pop(rid, None)
+                # Release the OLD path's load charge; the target's own
+                # request_complete covers the new path when it finishes.
+                self.sender.send(
+                    self.scheduler_peer, proto.REQUEST_COMPLETE,
+                    {"path": e["old_table"] or [self.node_id]},
+                    best_effort=True,
+                )
+                logger.info("%s: migrated %s to %s (%s)", self.node_id,
+                            rid, info, "KV image" if e["image"] is not None
+                            else "replay")
+            else:
+                # "retry" (target unreachable / no pipeline) and "failed"
+                # (target rejected) re-enter the park loop: the next query
+                # may pick another pipeline, and the park deadline bounds
+                # how long we keep trying before the abort.
+                if status == "failed":
+                    logger.warning(
+                        "%s: migration of %s rejected (%s); retrying until "
+                        "the park deadline", self.node_id, rid, info,
+                    )
+                e["shipping"] = False
+                e["next_attempt"] = time.monotonic() + self.MIGRATION_RETRY_S
+
+    def _record_migrated(self, rid: str, head: str) -> None:
+        self._migrated_to[rid] = head
+        while len(self._migrated_to) > 4096:
+            self._migrated_to.popitem(last=False)
+
+    def _admit_restore(self, ckpt, peer: str) -> tuple[bool, str]:
+        """Admission gate for migrated checkpoints: duplicate ships ack
+        WITHOUT a second submit, saturation rejects so the source retries
+        elsewhere, and the poll mirror registers BEFORE the ack so
+        redirected pollers never see "unknown request"."""
+        if self.engine is None:
+            return False, "no engine"
+        if ckpt.request_id in self._chat_requests:
+            # Duplicate ship (our previous ack was lost in flight): the
+            # request is already restoring or running here.
+            return True, "duplicate"
         sched = self.engine.scheduler
-        for req in (
-            list(sched.running.values()) + list(sched.wait_queue.values())
-        ):
-            hit = dead & set(req.routing_table)
-            if hit and not req.status.is_finished:
-                req.abort(f"peer {sorted(hit)[0]} unreachable")
+        if len(sched.wait_queue) >= sched.max_queue_size:
+            # Acceptance transfers ownership, so the later engine submit
+            # must be going to succeed: reject while saturated.
+            return False, "target queue full"
+        self._chat_requests[ckpt.request_id] = build_resumed_request(ckpt)
+        self._post(("restore", ckpt, peer))
+        return True, ""
+
+    def _on_checkpoint(self, peer: str, payload):
+        """Target side: validate and accept a batch of migrating requests.
+        Acceptance transfers ownership — the source releases its state
+        only for acknowledged rids; a malformed frame is rejected cleanly
+        (CheckpointError) and the source falls back."""
+        accepted: list[str] = []
+        rejected: dict[str, str] = {}
+        frames = (payload or {}).get("checkpoints")
+        if not isinstance(frames, list):
+            return {"accepted": [], "rejected": {"?": "no checkpoints"}}
+        for i, wire_ckpt in enumerate(frames):
+            rid = (
+                wire_ckpt.get("rid") if isinstance(wire_ckpt, dict) else None
+            ) or f"frame-{i}"
+            try:
+                ckpt = checkpoint_from_wire(wire_ckpt)
+            except CheckpointError as e:
+                logger.warning("%s: rejected checkpoint %s from %s: %s",
+                               self.node_id, rid, peer, e)
+                rejected[str(rid)] = str(e)
+                continue
+            ok, reason = self._admit_restore(ckpt, peer)
+            if ok:
+                accepted.append(ckpt.request_id)
+            else:
+                rejected[ckpt.request_id] = reason
+        return {"accepted": accepted, "rejected": rejected}
+
+    def _restore_checkpoint(self, ckpt, from_peer: str) -> None:
+        """Step thread: rebuild the request and resume it — KV-image
+        swap-in when the layouts match, else re-prefill of the ORIGINAL
+        prompt plus teacher-forced replay of the recorded outputs. Either
+        way the continuation is bit-identical."""
+        eng = self.engine
+        req = build_resumed_request(ckpt)
+        rid = req.request_id
+        if eng is None:
+            req.abort("migration target has no engine")
+            self._chat_requests[rid] = req
+            self._finish(req)
+            return
+        adopted = ckpt.kv is not None and eng.adopt_checkpoint_kv(req, ckpt.kv)
+        if not adopted:
+            # No image to swap in: restart from the original prompt and
+            # replay the recorded outputs through decode steps.
+            req = build_resumed_request(ckpt, replay=True)
+        self._chat_requests[rid] = req
+        try:
+            ok = eng.submit(req)
+        except Exception as e:
+            ok = False
+            req.abort(str(e))
+        if not ok:
+            if not req.status.is_finished:
+                req.abort("migration target queue full")
+            eng.cache.release(req)   # frees adopted handles, if any
+            self._finish(req)
+            return
+        logger.info(
+            "%s: restored migrated request %s from %s (%d prior tokens, "
+            "%s)", self.node_id, rid, from_peer, len(ckpt.output_ids),
+            "KV image adopted" if adopted else "re-prefill + replay",
+        )
+        self.restores[rid] = (
+            "kv_image" if adopted else "replay",
+            max(0.0, time.time() - ckpt.parked_wall),
+        )
+        while len(self.restores) > 4096:
+            self.restores.popitem(last=False)
+        if not self.standalone:
+            self.sender.send(
+                self.scheduler_peer, proto.MIGRATION_DONE,
+                {"rid": rid, "head": self.node_id}, best_effort=True,
+            )
 
     def _route_outputs(self, out) -> None:
         """Group packets by next hop and hand them to the sender pipeline

@@ -1,13 +1,18 @@
 """KV cache orchestration: page ownership, prefix reuse, memory budgeting.
 
 A copy of the Python ``CacheManager`` in ``parallax_tpu/runtime/
-cache_manager.py`` for the port's first slice: radix prefix matching, pinning,
-eviction under pressure, prefix-aware chunk skipping and donation on release.
-Its routing digests (``track_digests`` / ``digest_payload``, the delta log
-of cache-aware routing) are the JAX manager's. The native C++ manager, the
-host-DRAM tier (preemption/swap-in), LoRA namespaces and linear-state
-snapshots are not ported yet; ``make_cache_manager`` therefore always
-returns this class.
+cache_manager.py``: radix prefix matching, pinning, eviction under pressure,
+prefix-aware chunk skipping and donation on release, the routing digests
+(``track_digests`` / ``digest_payload``, the delta log of cache-aware
+routing), and the host-DRAM tier (``runtime/host_cache.py``): radix
+eviction demotes pages to host memory, a prefix hit on a host-resident node
+swaps it back in before admission, a decode short of pages preempts a
+request's KV image to host (``preempt_to_host`` / ``resume_from_host``),
+and a migrated-in image is adopted as if preempted here
+(``adopt_migrated``). The native C++ manager, LoRA namespaces and
+linear-state snapshots are not ported yet; ``make_cache_manager`` therefore
+always returns this class, which the JAX factory also picks whenever a
+tier is attached.
 
 Ownership model: every device page has one owner — an in-flight request or
 the radix tree. Prefix-cache hits share tree-owned pages read-only, pinned
@@ -56,11 +61,14 @@ class CacheStats:
     ``parallax_tpu/utils/request_metrics.CacheStats`` this slice moves)."""
 
     tokens_admitted: int = 0       # prompt tokens of admitted requests
-    tokens_hit_device: int = 0     # skipped via cached prefixes
-    tokens_chunk_skipped: int = 0  # of those, skipped by a mid-prefill
-    #                                radix re-consult
-    pages_evicted: int = 0         # pages reclaimed from the tree
-    kv_oom_aborts: int = 0         # decodes aborted for want of pages
+    tokens_hit_device: int = 0     # skipped via device-resident prefixes
+    tokens_hit_host: int = 0       # skipped via host-tier swap-ins
+    tokens_chunk_skipped: int = 0  # of hit_device, skipped by a
+    #                                mid-prefill radix re-consult
+    pages_evicted: int = 0         # device pages reclaimed from the tree
+    preemptions: int = 0           # decode-OOM swap-outs to host
+    resumes: int = 0               # preempted requests swapped back in
+    kv_oom_aborts: int = 0         # last-resort aborts (host tier full)
 
 
 def make_cache_manager(
@@ -70,14 +78,17 @@ def make_cache_manager(
     max_model_len: int = 32768,
     prefill_chunk_skip: bool = True,
     track_digests: bool = False,
+    host_tier=None,
 ) -> "CacheManager":
     """CacheManager factory. The JAX package prefers its native C++ manager
-    (and falls back to the Python one when ``track_digests`` asks for the
-    digest log); the port has only the Python one so far."""
+    and keeps the Python one when a ``host_tier`` is attached (tier
+    residency lives on radix nodes and in the preemption bookkeeping) or
+    ``track_digests`` asks for the digest log; the port has only the
+    Python one so far."""
     return CacheManager(
         page_size, num_pages, enable_prefix_cache=enable_prefix_cache,
         max_model_len=max_model_len, prefill_chunk_skip=prefill_chunk_skip,
-        track_digests=track_digests,
+        track_digests=track_digests, host_tier=host_tier,
     )
 
 
@@ -92,6 +103,7 @@ class CacheManager:
         max_model_len: int = 32768,
         prefill_chunk_skip: bool = True,
         track_digests: bool = False,
+        host_tier=None,
     ):
         self.page_size = page_size
         self.num_pages = num_pages
@@ -100,9 +112,21 @@ class CacheManager:
         # False keeps the radix tree populating on release but admission
         # and mid-prefill planning stop REUSING matches.
         self.prefill_chunk_skip = prefill_chunk_skip
+        # Host-DRAM second tier (runtime/host_cache.py): radix eviction
+        # demotes pages into it, matches can hit host-resident nodes
+        # (swap-in before admission), and decode OOM preempts whole
+        # requests into it instead of aborting.
+        self.host_tier = host_tier
         self.allocator = PageAllocator(num_pages)
         self.prefix_cache = RadixPageCache(
-            page_size, track_digests=track_digests and enable_prefix_cache)
+            page_size,
+            host_free=(
+                (lambda h: host_tier.pool.free(h))
+                if host_tier is not None else None
+            ),
+            track_digests=track_digests and enable_prefix_cache)
+        if host_tier is not None:
+            host_tier.set_evict_cb(self.prefix_cache.drop_host_page)
         self.stats = CacheStats()
         # rid -> (locked node path, number of shared tree-owned pages)
         self._locked: dict[str, tuple] = {}
@@ -117,12 +141,32 @@ class CacheManager:
         return math.ceil(num_tokens / self.page_size)
 
     def _reclaim(self, need: int) -> bool:
-        """Free pages from the prefix cache until ``need`` are available."""
+        """Free pages from the prefix cache until ``need`` are available.
+
+        With a host tier attached, evicted pages demote into it (one
+        batched D2H) instead of losing their KV; prefix reuse then extends
+        past device capacity. A demotion that fails raises once the
+        detached victims' pages are back in the allocator (the radix tree
+        has dropped them by then): no transfer fault is hidden."""
         if self.allocator.num_free >= need:
             return True
-        freed = self.prefix_cache.evict(need - self.allocator.num_free)
+        deficit = need - self.allocator.num_free
+        demoter = None
+        failure: list[BaseException] = []
+        if self.host_tier is not None:
+            def demoter(ids, _tier=self.host_tier):
+                # Partial mode: evict() orders victims coldest-first, so
+                # the kept suffix is the warmest, ancestor-closed subset.
+                try:
+                    return _tier.demote(ids, partial=True)
+                except BaseException as e:
+                    failure.append(e)
+                    raise
+        freed = self.prefix_cache.evict(deficit, demoter=demoter)
         self.allocator.free(freed)
         self.stats.pages_evicted += len(freed)
+        if failure:
+            raise failure[0]
         return self.allocator.num_free >= need
 
     # -- request lifecycle ------------------------------------------------
@@ -150,24 +194,42 @@ class CacheManager:
             path = self.prefix_cache.slice_path(full_path, usable)
 
         fresh_needed = self.pages_needed(prompt_len) - len(shared_pages)
+        # Host-resident nodes in the matched path need a device page each
+        # (swap-in) on top of the fresh tail.
+        host_nodes = [n for n in path if not n.on_device]
         # Pin the matched prefix BEFORE any eviction: reclaiming first could
         # evict the matched nodes and hand their pages back out as this
-        # very request's fresh pages.
+        # very request's fresh pages. The pin also shields host-resident
+        # nodes from the host pool's own watermark eviction meanwhile.
         self.prefix_cache.lock(path)
-        if not self._reclaim(fresh_needed):
+        if not self._reclaim(fresh_needed + len(host_nodes)):
             self.prefix_cache.unlock(path)
             return False
         try:
-            fresh = self.allocator.alloc(fresh_needed)
+            fresh = self.allocator.alloc(fresh_needed + len(host_nodes))
         except OutOfPages:
             self.prefix_cache.unlock(path)
             return False
+        if host_nodes:
+            # H2D scatter of the host-tier hits; the nodes are then
+            # ordinary device-resident tree pages shared with this request.
+            swap_pages = fresh[:len(host_nodes)]
+            fresh = fresh[len(host_nodes):]
+            handles = [
+                self.prefix_cache.promote_node(n, p)
+                for n, p in zip(host_nodes, swap_pages)
+            ]
+            self.host_tier.promote(handles, swap_pages)
+            shared_pages = [n.page_id for n in path]
         request.page_ids = shared_pages + fresh
         request.num_cached_tokens = len(shared_pages) * self.page_size
         request.num_computed_tokens = request.num_cached_tokens
         self._locked[request.request_id] = (path, len(shared_pages))
         self.stats.tokens_admitted += prompt_len
-        self.stats.tokens_hit_device += request.num_cached_tokens
+        self.stats.tokens_hit_host += len(host_nodes) * self.page_size
+        self.stats.tokens_hit_device += (
+            request.num_cached_tokens - len(host_nodes) * self.page_size
+        )
         return True
 
     def extend_prefix_match(self, request: Request) -> int:
@@ -191,12 +253,20 @@ class CacheManager:
             return 0
         pages, full_path = self.prefix_cache.match_prefix(request.prompt_ids)
         usable = min(len(pages), (prompt_len - 1) // self.page_size)
+        # Host-resident nodes in the extension would need a swap-in
+        # allocation; truncate the growth at the first one (the admission
+        # path owns swap-in).
+        new_path = self.prefix_cache.slice_path(full_path, usable)
+        for i, node in enumerate(new_path[num_shared:], start=num_shared):
+            if not node.on_device:
+                usable = i
+                new_path = self.prefix_cache.slice_path(full_path, usable)
+                break
         if usable <= num_shared:
             return 0
         new_shared = pages[:usable]
         if new_shared[:num_shared] != request.page_ids[:num_shared]:
             return 0
-        new_path = self.prefix_cache.slice_path(full_path, usable)
         # Lock the longer path before unlocking the old one so shared
         # ancestors never drop to zero refs in between.
         self.prefix_cache.lock(new_path)
@@ -224,12 +294,122 @@ class CacheManager:
             return False
         return True
 
+    def trim_uncomputed_pages(self, request: Request) -> int:
+        """Free a mid-prefill request's owned pages past its computed
+        span. ``allocate_for_prompt`` allocates the WHOLE prompt's pages
+        upfront, so a request parked mid-prefill owns pages holding no KV
+        yet; an image that demoted them would ship garbage and overrun the
+        checkpoint's bound (one page of slack past the computed tokens).
+        The prefill chunk loop re-grows the list through
+        ``ensure_capacity`` after resume. Returns the number of pages
+        freed."""
+        keep = max(
+            self.pages_needed(request.num_computed_tokens),
+            self._locked.get(request.request_id, ([], 0))[1],
+        )
+        tail = request.page_ids[keep:]
+        if not tail:
+            return 0
+        self.allocator.free(tail)
+        del request.page_ids[keep:]
+        return len(tail)
+
+    # -- preemption (decode OOM -> host tier, not abort) ------------------
+
+    def preempt_to_host(self, request: Request) -> bool:
+        """Park a running request's KV in the host tier (pinned — losing
+        it would corrupt the resumed stream) and free its device pages.
+
+        The shared prefix stays tree-owned and LOCKED on device (the
+        ``_locked`` entry survives preemption), so only the request's own
+        pages move. False (no side effects) when the tier is absent or
+        cannot hold the image — the caller then falls back to abort.
+        """
+        if self.host_tier is None:
+            return False
+        _path, num_shared = self._locked.get(request.request_id, ([], 0))
+        owned = request.page_ids[num_shared:]
+        if not owned:
+            return False   # nothing to reclaim; preemption is pointless
+        handles = self.host_tier.demote(owned, pinned=True)
+        if handles is None:
+            return False
+        request.host_page_handles = handles  # type: ignore[attr-defined]
+        self.allocator.free(owned)
+        del request.page_ids[num_shared:]
+        self.stats.preemptions += 1
+        return True
+
+    def shared_prefix_tokens(self, request_id: str) -> int:
+        """Tokens of the request's context covered by LOCKED tree-shared
+        pages (the part a preemption image does NOT carry)."""
+        _path, num_shared = self._locked.get(request_id, ([], 0))
+        return num_shared * self.page_size
+
+    def adopt_migrated(
+        self, request: Request, handles: list[int], prefix_tokens: int
+    ) -> bool:
+        """Register a migrated-in request's host-parked KV image as if THIS
+        manager had preempted it: lock a radix path covering exactly
+        ``prefix_tokens`` (the image starts right after them) and attach
+        the pinned handles; the request then resumes through the ordinary
+        ``resume_from_host`` admission. False (no side effects — the caller
+        frees the handles and falls back to re-prefill) when the local
+        radix does not cover the prefix with device-resident pages."""
+        pages_prefix = prefix_tokens // self.page_size
+        path: list = []
+        shared: list[int] = []
+        if pages_prefix:
+            if not self.enable_prefix_cache:
+                return False
+            pages, full_path = self.prefix_cache.match_prefix(
+                request.prompt_ids)
+            if len(pages) < pages_prefix:
+                return False
+            path = self.prefix_cache.slice_path(full_path, pages_prefix)
+            if any(not n.on_device for n in path):
+                # Host-resident twins would need their own swap-in
+                # orchestration; re-prefill is simpler and always right.
+                return False
+            shared = pages[:pages_prefix]
+            self.prefix_cache.lock(path)
+        request.page_ids = list(shared)
+        request.host_page_handles = list(handles)  # type: ignore[attr-defined]
+        self._locked[request.request_id] = (path, len(shared))
+        request.num_cached_tokens = prefix_tokens
+        self.stats.tokens_hit_device += prefix_tokens
+        return True
+
+    def resume_from_host(self, request: Request) -> bool:
+        """Swap a preempted request's KV image back into fresh device
+        pages. False (request stays parked) when pages are still short."""
+        handles = getattr(request, "host_page_handles", None)
+        if handles is None:
+            return True
+        if not self._reclaim(len(handles)):
+            return False
+        try:
+            fresh = self.allocator.alloc(len(handles))
+        except OutOfPages:
+            return False
+        self.host_tier.promote(handles, fresh)
+        request.page_ids.extend(fresh)
+        del request.host_page_handles
+        self.stats.resumes += 1
+        return True
+
     def release(self, request: Request) -> None:
         """Return a finished/aborted request's pages.
 
         Full pages of the final COMPUTED context are donated to the prefix
-        cache; duplicates and the ragged tail are freed.
+        cache; duplicates and the ragged tail are freed. A request released
+        while preempted (timeout, abort, a migration park) frees its parked
+        host image too.
         """
+        handles = getattr(request, "host_page_handles", None)
+        if handles is not None:
+            self.host_tier.free(handles)
+            del request.host_page_handles
         path, num_shared = self._locked.pop(request.request_id, ([], 0))
         self.prefix_cache.unlock(path)
         owned = request.page_ids[num_shared:]
@@ -250,6 +430,9 @@ class CacheManager:
         else:
             self.allocator.free(owned)
         request.page_ids = []
+
+    def reset_prefix_cache(self) -> None:
+        self.allocator.free(self.prefix_cache.reset())
 
     def digest_payload(self, full: bool = False) -> dict | None:
         """Prefix-digest heartbeat payload for cache-aware routing (see

@@ -26,6 +26,12 @@ window:
   the window, where the per-row counts, DFA rows and logprobs are carried
   state (``WindowState``), so a window commits the K = 1 stream bit for
   bit.
+- The host-DRAM KV tier (``host_cache_bytes``; ``runtime/host_cache.py``):
+  radix eviction demotes pages to host memory, a host prefix hit swaps
+  them back in, a decode short of pages preempts the latest arrival to
+  host instead of aborting it, and live migration extracts a request
+  (``extract``), harvests its parked image (``harvest_kv_image``) and
+  adopts a peer's (``adopt_checkpoint_kv``).
 
 Construction raises on every configuration the port does not run yet, and
 ``submit`` raises on every per-request feature it does not run yet — nothing
@@ -98,9 +104,10 @@ class EngineConfig:
     overlapped step (``overlap_steps``), the K-step decode window
     (``decode_lookahead``, ``decode_pipeline``), the ``decode_fused`` /
     ``prefill_fused`` kernel switches, ``cache_digests`` (the radix
-    tree's digest log for cache-aware routing) and ``constrained_window``
+    tree's digest log for cache-aware routing), ``constrained_window``
     (grammar batches ride the decode window; off, they decode on the
-    host-synchronous path). The fields listed in ``_UNPORTED``
+    host-synchronous path) and ``host_cache_bytes`` (the host KV tier's
+    budget; 0 = off). The fields listed in ``_UNPORTED``
     must keep their defaults (construction raises otherwise);
     ``linear_*``, ``speculative_ngram`` and ``slow_request_ms`` only tune
     features that are refused elsewhere.
@@ -153,7 +160,6 @@ class EngineConfig:
 # Engine features not ported yet: field -> the only value accepted.
 _UNPORTED = {
     "speculative_tokens": 0,
-    "host_cache_bytes": 0,
     "sp_threshold": None,
     "qos": None,
     "prefill_seq_parallel": False,
@@ -443,6 +449,24 @@ class StageEngine:
             self.cfg.num_pages, self.cfg.page_size,
             _KV_DTYPES[self.cfg.kv_dtype], self.device,
         )
+        # Host-DRAM KV tier: demotion target for radix eviction and
+        # preemption; its transfers read and write self.kv in place (the
+        # captured window graphs hold the cache tensors' pointers).
+        self.host_tier = None
+        if self.cfg.host_cache_bytes > 0:
+            from parallax_tpu_torch.runtime.host_cache import (
+                tier_from_paged_kv,
+            )
+
+            self.host_tier = tier_from_paged_kv(
+                self.cfg.host_cache_bytes, lambda: self.kv,
+                self.cfg.num_pages,
+            )
+            if self.host_tier is None:
+                logger.warning(
+                    "host KV tier disabled: unsupported KV layout or "
+                    "budget below one page",
+                )
         self.cache = make_cache_manager(
             self.cfg.page_size,
             self.cfg.num_pages,
@@ -450,6 +474,7 @@ class StageEngine:
             max_model_len=self.cfg.max_model_len,
             prefill_chunk_skip=self.cfg.prefill_chunk_skip,
             track_digests=self.cfg.cache_digests,
+            host_tier=self.host_tier,
         )
         self.scheduler = Scheduler(
             self.cache,
@@ -631,9 +656,138 @@ class StageEngine:
         return self.scheduler.num_requests() > 0
 
     def cache_stats(self) -> dict:
-        """Prefix-cache counters: tokens admitted, reused and skipped,
-        pages evicted, KV-exhaustion aborts."""
-        return dataclasses.asdict(self.cache.stats)
+        """Prefix-cache and memory-tier counters: tokens admitted, reused
+        (from device and host pages) and skipped, pages evicted,
+        preemptions, resumes, KV-exhaustion aborts; with a tier, its
+        occupancy and its demotion / swap-in / eviction counts (the JAX
+        ``cache_stats_summary``'s tier fields)."""
+        d = dataclasses.asdict(self.cache.stats)
+        tier = self.host_tier
+        if tier is not None:
+            d.update(
+                host_pages=tier.num_host_pages,
+                host_capacity_pages=tier.capacity_pages,
+                pages_demoted=tier.pages_demoted,
+                pages_swapped_in=tier.pages_swapped_in,
+                host_evictions=tier.host_evictions,
+            )
+        return d
+
+    # -- live migration (runtime/checkpoint.py) ----------------------------
+
+    def inflight_rids(self) -> set[str]:
+        """Request ids scheduled in a dispatched-but-unresolved step or
+        window chain — their KV pages are being written on the device."""
+        out: set[str] = set()
+        for t in self._inflight:
+            out.update(s.request.request_id for s in t.plan.seqs)
+        return out
+
+    def extract(self, request_id: str, force: bool = False) -> Request | None:
+        """Remove a request from this stage WITHOUT finishing it: the
+        migration flow parks it into a checkpoint instead. Refuses while
+        the request rides an in-flight step or window (its pages are being
+        written) unless ``force`` (the engine is being discarded
+        wholesale). Drops the same per-request state ``release`` does. The
+        caller owns the cache cleanup (harvest the KV image first, then
+        ``cache.release``)."""
+        if not force and request_id in self.inflight_rids():
+            return None
+        sched = self.scheduler
+        req = sched.running.pop(request_id, None) or sched.wait_queue.pop(
+            request_id, None
+        )
+        if req is None:
+            return None
+        self._pending_hidden.pop(request_id, None)
+        self._grammar_states.pop(request_id, None)
+        self._bias_cache.pop(request_id, None)
+        self._free_token_slot(request_id)
+        req.device_feed_ready = False
+        return req
+
+    def kv_page_signature(self) -> tuple | None:
+        """Shape/dtype identity of one KV page across this stage's layers,
+        in the JAX engine's form (dtype names included), so a port
+        signature equals a JAX one for the same layout. Two engines may
+        exchange raw KV images only when these match exactly; None when
+        the layout has no page-granular image (tuple caches)."""
+        from parallax_tpu_torch.p2p.proto import dtype_name
+
+        kv = self.kv
+        if not isinstance(kv, (list, tuple)) or not kv:
+            return None
+        sig = []
+        for a in kv:
+            if (
+                not isinstance(a, torch.Tensor)
+                or a.dim() < 2
+                or a.shape[0] != self.cfg.num_pages
+            ):
+                return None
+            sig.append((tuple(int(x) for x in a.shape[1:]),
+                        dtype_name(a.dtype)))
+        return (
+            self.cfg.page_size, self.model.start_layer,
+            self.model.end_layer, self.cfg.kv_dtype, tuple(sig),
+        )
+
+    def harvest_kv_image(self, request: Request):
+        """Serialize a just-preempted request's pinned host image into a
+        checkpoint :class:`KVImage` (live migration). The handles stay
+        owned by the request — ``cache.release`` frees them after the
+        checkpoint ships. None when the image is unavailable (no host
+        tier, partial demotion, unsupported layout)."""
+        from parallax_tpu_torch.runtime.checkpoint import KVImage
+
+        handles = getattr(request, "host_page_handles", None)
+        tier = self.host_tier
+        if not handles or tier is None or any(h is None for h in handles):
+            return None
+        if self.kv_page_signature() is None:
+            return None
+        datas = [tier.pool.load(h) for h in handles]
+        layers = [
+            torch.stack([d[i] for d in datas])
+            for i in range(len(datas[0]))
+        ]
+        return KVImage(
+            page_size=self.cfg.page_size,
+            start_layer=self.model.start_layer,
+            end_layer=self.model.end_layer,
+            kv_dtype=self.cfg.kv_dtype,
+            prefix_tokens=self.cache.shared_prefix_tokens(request.request_id),
+            computed_tokens=request.num_computed_tokens,
+            layers=layers,
+        )
+
+    def adopt_checkpoint_kv(self, request: Request, image) -> bool:
+        """Adopt a migrated-in KV image: park it pinned in the host tier and
+        register the request as PREEMPTED, so the ordinary
+        ``resume_from_host`` admission swaps it onto the device — no
+        re-prefill. False (request untouched, image dropped) when the
+        layouts mismatch or the local radix does not cover the image's
+        shared prefix; the caller then re-prefills, which is always
+        correct."""
+        tier = self.host_tier
+        if tier is None:
+            return False
+        if image.signature != self.kv_page_signature():
+            return False
+        total = request.num_prompt_tokens + request.num_output_tokens
+        computed = min(int(image.computed_tokens), total - 1)
+        if computed < image.prefix_tokens:
+            return False
+        handles = tier.store_image(image.layers)
+        if handles is None:
+            return False
+        if not self.cache.adopt_migrated(request, handles,
+                                         image.prefix_tokens):
+            tier.free(handles)
+            return False
+        request.num_computed_tokens = computed
+        request.set_status(RequestStatus.PREEMPTED, "restore-adopt")
+        return True
 
     def cache_digest_payload(self, full: bool = False) -> dict | None:
         """Prefix-digest delta / snapshot for cache-aware routing
@@ -671,12 +825,56 @@ class StageEngine:
             except ValueError as e:
                 req.abort(f"json_schema rejected: {e}")
                 return None
-            state = 0
-            for tok in self._generated_ids(req):
-                state = table.advance(state, int(tok))
-            ent = (table, state)
+            ent = (table, self._grammar_initial_state(req, table))
             self._grammar_states[req.request_id] = ent
         return ent
+
+    def _grammar_initial_state(self, req: Request, table) -> int:
+        """First-sight DFA state for a constrained request. Fresh requests
+        start at 0. A migrated-in request restores the checkpointed
+        ``dfa_state`` when its grammar hash matches the schema this stage
+        compiled (state numbering is schema-derived, so a match makes the
+        int portable); otherwise — stale hash, out-of-range state, or no
+        checkpointed state — it is recomputed by advancing from 0 through
+        the tokens already in the stream (adopt mode folds prior outputs
+        into ``full_output_ids``; replay mode starts empty and advances
+        per commit like any live request)."""
+        from parallax_tpu_torch.constrained import grammar_state_hash
+
+        ckpt_state = getattr(req, "grammar_dfa_state", None)
+        if ckpt_state is not None:
+            sp = req.sampling_params
+            if (
+                getattr(req, "grammar_hash", "")
+                == grammar_state_hash(sp.json_schema)
+                and -1 <= int(ckpt_state) < table.dfa.n_states
+            ):
+                return int(ckpt_state)
+        state = 0
+        for tok in self._generated_ids(req):
+            state = table.advance(state, int(tok))
+        return state
+
+    def grammar_checkpoint_fields(
+        self, request_id: str
+    ) -> tuple[int, str] | None:
+        """(dfa_state, grammar_hash) for a live constrained request, or
+        None when this stage holds no grammar state for it (not
+        constrained, or a multi-stage head whose grammar lives on the last
+        stage — the restoring side then recomputes from the token stream).
+        Read before ``extract``, which drops the state."""
+        ent = self._grammar_states.get(request_id)
+        if ent is None:
+            return None
+        from parallax_tpu_torch.constrained import grammar_state_hash
+
+        _table, state = ent
+        req = self.scheduler.running.get(request_id) or (
+            self.scheduler.wait_queue.get(request_id))
+        schema = req.sampling_params.json_schema if req is not None else None
+        if not schema:
+            return None
+        return int(state), grammar_state_hash(schema)
 
     def _advance_grammar(self, req: Request, token: int) -> None:
         """Advance a request's host DFA state by one committed token (no-op

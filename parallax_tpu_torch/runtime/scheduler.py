@@ -3,12 +3,15 @@
 A copy of ``parallax_tpu/runtime/scheduler.py``: FCFS admission with radix
 prefix matching, prefill-first batch formation under token and batch-size
 budgets, chunked prefill, prefix-aware chunk skipping, the overlapped
-loop's device-fed decode rows and the K-step window's page planning
-(``plan_decode_window``). Not ported yet (the JAX package's ``qos``, LoRA
-adapter grouping, preemption to the host tier and sequence-parallel
-prefill planning): without a host tier a decode that cannot grow its pages
-aborts with ``kv_oom``, exactly as the JAX package does with
-``host_cache_bytes=0``.
+loop's device-fed decode rows, the K-step window's page planning
+(``plan_decode_window``) and preemption to the host tier: a row that
+cannot grow its pages swaps the latest-arriving running decode out to host
+DRAM (``_ensure_capacity_or_preempt``), the parked request resumes at the
+wait queue's front by swap-in, and ``kv_oom`` is the last resort once the
+tier is full too (or absent: ``host_cache_bytes=0``). Rows flagged
+``migrating`` are neither scheduled, admitted nor preempted. Not ported
+yet: the JAX package's ``qos``, LoRA adapter grouping and
+sequence-parallel prefill planning.
 """
 
 from __future__ import annotations
@@ -107,10 +110,34 @@ class Scheduler:
                 break
 
     def _admit_one(self, rid: str, req: Request) -> bool:
+        """Try to admit one wait-queue request. Returns False when
+        admission must STOP (the request blocks: migrating, or capacity ran
+        out) — later queue entries must not leapfrog it."""
+        if req.migrating:
+            # About to be checkpointed away: admitting (or swapping it back
+            # in) would race the extraction. The park lands within a step
+            # or two; admission resumes then.
+            return False
         if req.status.is_finished:
-            # Aborted while queued: route it through the running set so the
-            # normal finish collection releases its state.
+            # Aborted while queued or parked: route it through the running
+            # set so the normal finish collection releases its state.
             del self.wait_queue[rid]
+            self.running[rid] = req
+            return True
+        if req.status is RequestStatus.PREEMPTED:
+            # Preempted to host: swap the KV image back in instead of
+            # allocating a prompt. A resume that does not fit blocks
+            # admission like any other head-of-queue request.
+            if not self.cache.resume_from_host(req):
+                return False
+            del self.wait_queue[rid]
+            # A mid-prefill park resumes into PREFILLING at its computed
+            # mark (the restored image covers exactly that span).
+            req.set_status(
+                RequestStatus.DECODING if req.is_prefill_done
+                else RequestStatus.PREFILLING,
+                "swap-in",
+            )
             self.running[rid] = req
             return True
         if not self.cache.allocate_for_prompt(req):
@@ -150,7 +177,7 @@ class Scheduler:
         for req in list(self.running.values()):
             if len(seqs) >= self.max_batch_size or token_budget <= 0:
                 break
-            if req.status is not RequestStatus.PREFILLING:
+            if req.status is not RequestStatus.PREFILLING or req.migrating:
                 continue
             # Prefix-aware chunk skipping: before the FIRST chunk ships,
             # re-consult the radix tree — a donor that released after
@@ -166,7 +193,7 @@ class Scheduler:
             start = req.num_computed_tokens
             # Mirror requests grow their prompt incrementally (chunks arrive
             # over the ring), so page capacity may lag the prompt length.
-            if not self._ensure_capacity_or_abort(req, start + n):
+            if not self._ensure_capacity_or_preempt(req, start + n):
                 continue
             seqs.append(
                 ScheduledSeq(
@@ -187,22 +214,26 @@ class Scheduler:
                      token_budget: int) -> list[ScheduledSeq]:
         """Ready decode rows: host-fed (``ready_for_step``) or device-fed
         (``device_feed_ready``: the in-flight step sampled the row's next
-        token, which lives only on the device)."""
+        token, which lives only on the device). A row preempted by an
+        earlier row of the same pass is skipped."""
         seqs: list[ScheduledSeq] = []
+        scheduled: set[str] = set()
         for req in list(self.running.values()):
             if len(seqs) >= max_seqs or token_budget <= 0:
                 break
-            if req.status is not RequestStatus.DECODING or not (
-                req.ready_for_step or req.device_feed_ready
-            ):
+            if req.status is not RequestStatus.DECODING or req.migrating \
+                    or not (req.ready_for_step or req.device_feed_ready):
                 continue
             # A device-fed row's next token was sampled by the in-flight
             # step: it occupies one more context slot than the
             # host-committed total.
             fed = req.device_feed_ready and not req.ready_for_step
             ctx = req.total_len + 1 if fed else req.total_len
-            if not self._ensure_capacity_or_abort(req, ctx):
+            if not self._ensure_capacity_or_preempt(
+                req, ctx, allow_self=True, exclude_scheduled=scheduled,
+            ):
                 continue
+            scheduled.add(req.request_id)
             seqs.append(
                 ScheduledSeq(
                     request=req,
@@ -317,13 +348,101 @@ class Scheduler:
         self.wait_queue.pop(request.request_id, None)
         self.cache.release(request)
 
-    def _ensure_capacity_or_abort(self, req: Request, new_total_tokens: int) -> bool:
-        if self.cache.ensure_capacity(req, new_total_tokens):
-            return True
-        logger.warning("KV pages exhausted: aborting %s", req.request_id)
+    def _abort_on_oom(self, req: Request) -> None:
+        logger.warning("decode OOM: aborting %s", req.request_id)
         req.abort("kv_oom")
         self.cache.stats.kv_oom_aborts += 1
+
+    # -- preemption to host -----------------------------------------------
+
+    def _ensure_capacity_or_preempt(
+        self,
+        req: Request,
+        new_total_tokens: int,
+        allow_self: bool = False,
+        exclude_scheduled: set[str] | None = None,
+    ) -> bool:
+        """``ensure_capacity`` with preemption-to-host behind it.
+
+        Under memory pressure, swap out the lowest-priority running decode
+        (latest arrival first) until ``req`` fits. When nothing is left to
+        preempt: park ``req`` itself if eligible (``allow_self``, decode
+        path), else abort it — ``kv_oom`` is the last resort once the host
+        tier is also exhausted, not the first response to pressure.
+        Returns True when ``req`` may be scheduled this step.
+        """
+        if self.cache.ensure_capacity(req, new_total_tokens):
+            return True
+        if self.cache.host_tier is not None:
+            preempt = self.cache.preempt_to_host
+            skip: set[str] = set(exclude_scheduled or ())
+            while True:
+                victim = self._preemption_victim(req, skip)
+                if victim is None:
+                    break
+                if not preempt(victim):
+                    # This victim's image does not fit the host tier; a
+                    # smaller (slightly older) victim still might — keep
+                    # walking before declaring the tier full.
+                    skip.add(victim.request_id)
+                    continue
+                self._park(victim)
+                if self.cache.ensure_capacity(req, new_total_tokens):
+                    return True
+            if (
+                allow_self
+                and req.status is RequestStatus.DECODING
+                and (req.ready_for_step or req.device_feed_ready)
+                and preempt(req)
+            ):
+                # req is itself the lowest priority: park it rather than
+                # abort — its pages unblock older requests at once.
+                self._park(req)
+                return False
+        self._abort_on_oom(req)
         return False
+
+    def _preemption_victim(
+        self, exclude: Request, exclude_ids: set[str] | None = None
+    ) -> Request | None:
+        """Latest-arrival running decode that is safe to swap out.
+
+        Safe: a committed row awaiting scheduling (``ready_for_step``), or
+        a row whose next token sits in the device last-token array
+        (``device_feed_ready``) — an in-flight step's writes to its pages
+        are ordered BEFORE the demotion gather on the device stream, and
+        its pending commit lands on the parked request object directly.
+        Unsafe: a row awaiting a ring / host token with nothing on the
+        device (including every row of an in-flight decode window), rows
+        already placed in the plan being formed (their segment would
+        reference freed pages), mirrors and migrating rows.
+        """
+        best: Request | None = None
+        for r in self.running.values():
+            if (
+                r is exclude
+                or r.migrating
+                or r.status is not RequestStatus.DECODING
+                or not (r.ready_for_step or r.device_feed_ready)
+                or (exclude_ids and r.request_id in exclude_ids)
+                or getattr(r, "is_mirror", False)
+            ):
+                continue
+            if best is None or r.arrival_time > best.arrival_time:
+                best = r
+        return best
+
+    def _park(self, req: Request) -> None:
+        """Move a preempted request to the wait-queue FRONT: preempted
+        requests carry the oldest arrivals among waiting work, so FCFS
+        resume order falls out of front insertion. ``ready_for_step`` is
+        preserved: a parked row with a commit still in flight is re-armed
+        by ``on_token_committed`` when it lands."""
+        self.running.pop(req.request_id, None)
+        req.set_status(RequestStatus.PREEMPTED, "preempt")
+        req.device_feed_ready = False
+        self.wait_queue[req.request_id] = req
+        self.wait_queue.move_to_end(req.request_id, last=False)
 
     def check_timeouts(self) -> list[Request]:
         """Abort requests exceeding the wall-clock budget."""

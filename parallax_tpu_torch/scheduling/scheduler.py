@@ -13,9 +13,10 @@ Nothing here touches a device.
 Not ported yet, refused by name with their ROADMAP queue 1 items: SLO
 objectives (``slo=``) and the QoS control plane (``qos=``; item 9),
 scheduler HA (``passive=``, :meth:`fence` and the state journal; item
-4c), weight refit (:meth:`begin_refit`; item 12) and live migration
-(:meth:`choose_migration_targets`, :meth:`record_migration`,
-:meth:`migrated_head`; item 6). The metrics registry, the cluster
+4c), weight refit (:meth:`begin_refit`; item 12) and the decode-pool
+branch of :meth:`choose_migration_targets` (``pool="decode"``, the KV
+handoff's; item 4c). Live migration's target choice, ``where_is`` table
+and drain counters are the JAX scheduler's. The metrics registry, the cluster
 timeline and the obs sections of ``cluster_status`` (merged histograms,
 goodput, device, health) wait for item 9. The epoch stays 1 until HA.
 """
@@ -158,6 +159,12 @@ class GlobalScheduler:
         self._lock = make_lock("scheduling.scheduler", reentrant=True)
         self.refit_version = 0
         self.refit_index: dict[str, str] = {}
+        # Live migration: rid -> the head now serving it (reported by
+        # targets via ``migration_done``); pollers that lost their head ask
+        # ``where_is`` here. Bounded — finished requests age out.
+        self._migrations: OrderedDict[str, str] = OrderedDict()
+        self.migration_stats = {"drains": 0, "targets_chosen": 0,
+                                "recorded": 0}
 
     # -- public API (thread-safe enqueues) --------------------------------
 
@@ -268,17 +275,100 @@ class GlobalScheduler:
         node.digests_need_resync = False
         return True
 
-    # -- planes not ported yet ----------------------------------------------
+    # -- live migration ------------------------------------------------------
 
-    def choose_migration_targets(self, requests, exclude=None, pool=None):
-        raise unported("live migration targets (choose_migration_targets)",
-                       6)
+    def choose_migration_targets(
+        self, requests: list[dict], exclude: "set[str] | None" = None,
+        pool: str | None = None,
+    ) -> dict:
+        """Pick a surviving pipeline per parked request, scored the
+        cache-aware way: ``predicted_uncached + 256 * head_load`` against
+        each head's heartbeat-fed CacheIndex mirror (``requests`` carry the
+        restored prompt's block-hash chains), so a migrating request lands
+        where its prefix is already cached and the restore re-prefills only
+        the uncovered suffix. Charges router load per chosen path
+        (released by the target head's eventual request_complete).
+        ``pool="decode"`` (the KV handoff's decode-pool targets) waits for
+        roles (item 4c)."""
+        if pool == "decode":
+            raise unported("decode-pool handoff targets (pool='decode')",
+                           "4c")
+        from parallax_tpu_torch.scheduling.request_routing import (
+            eligible_pipelines,
+        )
+
+        excl = set(exclude or ())
+        out: dict = {}
+        candidates = [
+            p for p in eligible_pipelines(self.manager, phase=pool)
+            if not (set(p.node_ids) & excl)
+        ]
+        if not candidates:
+            return out
+        for r in requests:
+            rid = r.get("rid")
+            if not isinstance(rid, str):
+                continue
+            lora = r.get("lora_id")
+            prompt_tokens = int(r.get("prompt_tokens") or 0)
+            chains = r.get("chains") or {}
+            best = best_score = None
+            best_hit = 0
+            for i, p in enumerate(candidates):
+                if lora and not all(
+                    lora in n.lora_adapters for n in p.nodes
+                ):
+                    continue
+                head = p.nodes[0]
+                hit = 0
+                idx = head.cache_index
+                chain = chains.get(idx.block) or chains.get(str(idx.block))
+                if idx.block > 0 and chain:
+                    try:
+                        hit = idx.predict_cached_tokens(
+                            [int(c) for c in chain], idx.block,
+                            prompt_tokens,
+                        )
+                    except (TypeError, ValueError):
+                        hit = 0
+                score = (
+                    max(0, prompt_tokens - hit) + 256.0 * head.load,
+                    (i + self.migration_stats["targets_chosen"])
+                    % len(candidates),
+                )
+                if best_score is None or score < best_score:
+                    best, best_score, best_hit = p, score, hit
+            if best is None:
+                continue
+            self.router.on_dispatch(best.nodes)
+            # The RPC lands on the service thread while the sweep and
+            # heartbeat threads read these stats for cluster_status.
+            with self._lock:
+                self.migration_stats["targets_chosen"] += 1
+            out[rid] = {
+                "path": list(best.node_ids),
+                "head_layers": [
+                    best.nodes[0].start_layer, best.nodes[0].end_layer,
+                ],
+                "predicted_cached_tokens": best_hit,
+            }
+        return out
 
     def record_migration(self, request_id: str, head: str) -> None:
-        raise unported("live migration (record_migration)", 6)
+        """A target head restored ``request_id``: pollers that lost the
+        old head find the new one via ``migrated_head``."""
+        with self._lock:
+            self._migrations[request_id] = head
+            self._migrations.move_to_end(request_id)
+            while len(self._migrations) > 4096:
+                self._migrations.popitem(last=False)
+            self.migration_stats["recorded"] += 1
 
-    def migrated_head(self, request_id: str):
-        raise unported("live migration (migrated_head)", 6)
+    def migrated_head(self, request_id: str) -> str | None:
+        with self._lock:
+            return self._migrations.get(request_id)
+
+    # -- planes not ported yet ----------------------------------------------
 
     def fence(self, epoch: int) -> None:
         raise unported("scheduler HA fencing (fence)", "4c")
@@ -493,9 +583,9 @@ class GlobalScheduler:
 
     def _handle_leave(self, node_id: str) -> None:
         # Every pipeline through the dying node has a head that owns full
-        # request state: flag it (consumed by its next heartbeat reply).
-        # The JAX head checkpoints the affected requests away; the port's
-        # aborts them until live migration (item 6).
+        # request state: flag it (consumed by its next heartbeat reply),
+        # and the head checkpoints the affected requests away. When the
+        # head IS the dying node, the client's resume ladder recovers.
         for p in self.manager.pipelines:
             if node_id not in p.node_ids:
                 continue
@@ -503,6 +593,7 @@ class GlobalScheduler:
             if head.node_id != node_id:
                 with self._lock:
                     head.pending_drain.add(node_id)
+                    self.migration_stats["drains"] += 1
         displaced = self.manager.remove(node_id)
         logger.info("node %s left; %d displaced", node_id, len(displaced))
         active = list(self.manager.nodes(NodeState.ACTIVE))
@@ -678,6 +769,10 @@ class GlobalScheduler:
             }
             for p in pipelines
         ]
+        # Node-churn robustness: drain directives issued, migration
+        # targets chosen, restores reported back by target heads.
+        with self._lock:
+            report["migrations"] = dict(self.migration_stats)
         return report
 
     def _log_allocation(self, event: str) -> None:

@@ -98,6 +98,37 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def host_available_memory_bytes() -> int:
+    """Host DRAM available for the KV offload tier (0 when unknown):
+    Linux ``MemAvailable`` rather than MemFree, so page cache the kernel
+    would drop under pressure counts toward the tier budget."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def default_host_cache_bytes(fraction: float = 0.5,
+                             override: int | None = None,
+                             device=None) -> int:
+    """Host-KV-tier budget: the operator's explicit value when given,
+    otherwise ``fraction`` of available DRAM when the engine runs on a
+    card (``device`` None = ``cuda:0``), so the tier never drives the
+    host into swap. 0 (tier off) on the CPU or when availability cannot
+    be read: CPU runs configure the budget explicitly. The single policy
+    point for serve and swarm workers."""
+    if override is not None:
+        return override
+    if torch.device(device if device is not None else "cuda:0").type \
+            != "cuda":
+        return 0
+    return int(host_available_memory_bytes() * fraction)
+
+
 def device_free_memory_bytes(device, fraction: float = 0.9) -> int:
     """Usable bytes on ``device`` for KV-cache budgeting: a fraction of what
     ``torch.cuda.mem_get_info`` reports free on a card (the JAX package

@@ -133,7 +133,6 @@ def test_refused_flag_exits_2_from_both_entry_points(checkpoint):
     (["serve", "--lora-max-adapters", "2"], 11),
     (["serve", "--draft-model-path", "/x"], 7),
     (["serve", "--speculative-tokens", "4"], 7),
-    (["serve", "--host-cache-bytes", "1024"], 6),
     (["serve", "--wire-dtype", "fp8"], "4c"),
     (["serve", "--trace-sample-rate", "0.5"], 9),
     (["serve", "--watchdog"], 9),
@@ -211,6 +210,46 @@ def test_serve_on_a_thread_answers_a_chat_completion(checkpoint):
     assert engine.kernel_dispatch_summary()["impl"] == "torch"
     (req,) = runner.pipeline.finished
     assert req.status.value == "finished_length"
+
+
+def test_serve_host_cache_bytes_builds_the_tier(checkpoint):
+    """``serve --host-cache-bytes`` is ported: the flag passes and the
+    served engine carries a host KV tier of that budget; without the flag
+    on the CPU the tier is off (the JAX serve's default there)."""
+    args = cli.build_parser().parse_args([
+        "serve", "--model-path", checkpoint, "--device", "cpu",
+        "--host", "127.0.0.1", "--port", "0", "--page-size", "8",
+        "--max-batch-size", "4", "--max-model-len", "256",
+        "--kv-dtype", "float32", "--host-cache-bytes", str(1 << 20),
+    ])
+    assert cli.unported_flags(args) == []
+    box, started = [], threading.Event()
+
+    def on_start(frontend, runner):
+        box.append((frontend, runner))
+        started.set()
+
+    thread = threading.Thread(target=serve_main, args=(args, on_start),
+                              daemon=True)
+    thread.start()
+    assert started.wait(60)
+    frontend, runner = box[0]
+    try:
+        engine = runner.pipeline.head
+        assert engine.cfg.host_cache_bytes == 1 << 20
+        tier = engine.host_tier
+        assert tier is not None
+        assert tier.capacity_pages == (1 << 20) // tier.pool.page_nbytes
+        assert engine.cache_stats()["host_capacity_pages"] == \
+            tier.capacity_pages
+    finally:
+        frontend.shutdown()
+        thread.join(30)
+    assert not thread.is_alive()
+    from parallax_tpu_torch.utils.hw import default_host_cache_bytes
+
+    assert default_host_cache_bytes(device="cpu") == 0
+    assert default_host_cache_bytes(override=5, device="cpu") == 5
 
 
 @pytest.mark.parametrize("name", ["qwen2.5-7b", "Qwen/Qwen3-30B-A3B",

@@ -211,7 +211,7 @@ def test_engine_streams_match_jax(raw, bounds):
 @pytest.mark.parametrize("field,value", [
     ("decode_lookahead", None), ("decode_lookahead", 8),
     ("overlap_steps", True), ("speculative_tokens", 2),
-    ("host_cache_bytes", 1 << 20), ("sp_threshold", 64), ("qos", "on"),
+    ("sp_threshold", 64), ("qos", "on"),
 ])
 def test_engine_config_refuses_unported(weights, field, value):
     """Unported fields raise. The overlapped step and the K-step window are
@@ -244,6 +244,36 @@ def test_engine_config_refuses_unported(weights, field, value):
     assert streams[0] == streams[1]
     assert engines[0].kernel_dispatch_summary()["dispatch_total"][
         "torch/multistep"] > 0
+
+
+def test_engine_config_host_cache_bytes_builds_the_tier(weights):
+    """``host_cache_bytes`` is ported: the engine builds its host KV tier
+    at the budget's page capacity (the JAX engine's page bytes), serves
+    the stream it serves without one, and reports the tier's counters."""
+    cfg_j, full, full_np = weights
+    budget = 1 << 20
+    eng = StageEngine(create_stage_model(normalize_config(TINY_QWEN2), 0, 4),
+                      params_from_numpy(full_np, "cpu"),
+                      EngineConfig(**ENGINE, host_cache_bytes=budget),
+                      device="cpu")
+    jeng = JStageEngine(JStageModel(cfg_j, 0, 4, use_pallas=False), full,
+                        JEngineConfig(**ENGINE, host_cache_bytes=budget))
+    assert eng.host_tier is not None
+    assert eng.host_tier.pool.page_nbytes == jeng.host_tier.pool.page_nbytes
+    assert eng.host_tier.capacity_pages == jeng.host_tier.capacity_pages
+    assert eng.cache.host_tier is eng.host_tier
+    req = Request("x", prompt_ids=_prompts()[1],
+                  sampling_params=SamplingParams(temperature=0.0,
+                                                 max_new_tokens=N_NEW))
+    pipe = InProcessPipeline([eng])
+    pipe.submit(req)
+    pipe.run_until_complete()
+    assert req.status.value == "finished_length"
+    stats = eng.cache_stats()
+    assert stats["host_capacity_pages"] == eng.host_tier.capacity_pages
+    assert stats["preemptions"] == stats["kv_oom_aborts"] == 0
+    off = _run_port(TINY_QWEN2, full_np, [(0, 4)])[0][1]
+    assert req.output_ids == off.output_ids
 
 
 def test_submit_refuses_lora(weights):

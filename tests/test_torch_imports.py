@@ -65,7 +65,8 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "backend.scheduler_service", "utils.hw", "ops.msa",
                  "models.minimax_m2", "models.minimax_m3", "constrained",
                  "constrained.automaton", "constrained.json_schema",
-                 "constrained.vocab", "constrained.device_table"):
+                 "constrained.vocab", "constrained.device_table",
+                 "runtime.host_cache", "runtime.checkpoint"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"

@@ -67,12 +67,13 @@ KINDS = {"port": (GlobalScheduler, SchedulerService, TcpTransport),
          "jax": (JScheduler, JSchedulerService, JTcpTransport)}
 
 
-def _worker(kind: str, sched_addr: str):
+def _worker(kind: str, sched_addr: str, engine=None):
+    engine = engine or ENGINE
     if kind == "port":
         t = TcpTransport("", "127.0.0.1")
         t.start()
         t.peer_id = t.address
-        return WorkerNode(t, sched_addr, CFG, EngineConfig(**ENGINE),
+        return WorkerNode(t, sched_addr, CFG, EngineConfig(**engine),
                           load_params=_port_params,
                           heartbeat_interval_s=0.2, device="cpu")
     t = JTcpTransport("", "127.0.0.1")
@@ -80,13 +81,13 @@ def _worker(kind: str, sched_addr: str):
     t.peer_id = t.address
     return JWorkerNode(transport=t, scheduler_peer=sched_addr,
                        model_config=JCFG,
-                       engine_config=JEngineConfig(**ENGINE),
+                       engine_config=JEngineConfig(**engine),
                        load_params=_jax_params, heartbeat_interval_s=0.2)
 
 
 @contextlib.contextmanager
 def swarm(sched_kind, worker_kinds, routing="rr", split=True,
-          monkeypatch=None):
+          monkeypatch=None, engine=None, extra=None):
     """A ``sched_kind`` scheduler service with ``worker_kinds`` workers;
     ``split`` forces 2 layers a node (one [0, 2) + [2, 4) pipeline),
     otherwise each node hosts all 4 layers (replicas)."""
@@ -104,7 +105,7 @@ def swarm(sched_kind, worker_kinds, routing="rr", split=True,
     workers = []
     try:
         service.start()
-        workers = [_worker(k, st.address) for k in worker_kinds]
+        workers = [_worker(k, st.address, engine) for k in worker_kinds]
         starters = [threading.Thread(target=w.start) for w in workers]
         for s in starters:
             s.start()
@@ -118,6 +119,10 @@ def swarm(sched_kind, worker_kinds, routing="rr", split=True,
                 n["ready"] for n in nodes)
 
         assert _wait(ready), sched.cluster_status()
+        if extra is not None:
+            # Workers the test starts later, stopped with the swarm.
+            extra.append(lambda kind: _worker(kind, st.address, engine))
+            extra.append(workers)
         yield service, {w.node_id: w for w in workers}
     finally:
         for w in workers:
@@ -267,3 +272,4 @@ def test_cache_aware_sends_the_follow_up_to_the_warm_replica(kind,
         decisions = service.scheduler.router.decision_counters
         assert follow == first, (follow, first)
         assert decisions.get("chosen_by_cache") == 1, decisions
+

@@ -9,9 +9,14 @@ scheduler lays out one [0, 2) + [2, 4) pipeline.
 - Reallocation aborts in-flight requests: the head's ("node
   reallocated", tests/test_swarm_e2e.py:492) and, through the release
   broadcast, the head's clients when the tail reloads (:523).
-- Leave: the tail's node_leave dissolves the pipeline, an in-flight
-  request aborts naming the tail, routing answers None, and a new tail
-  brings a pipeline back that serves.
+- Leave: the tail's node_leave dissolves the pipeline and routing
+  answers None; the head parks its in-flight request as a checkpoint
+  (live migration) instead of aborting it, retries the scheduler until a
+  pipeline exists, and once a new tail joins restores it there by
+  re-prefill and teacher-forced replay — the stream continues
+  bit-identically and ``where_is`` answers the head. With no new tail the
+  request aborts at the park deadline with "migration: no serviceable
+  pipeline". The new pipeline serves.
 - Heartbeat eviction: a worker whose beats stop is evicted by the sweep;
   when its beats resume the scheduler asks it to rejoin, and the swarm
   serves again.
@@ -246,21 +251,40 @@ def test_reallocation_aborts_in_flight_requests(stage):
             assert req.abort_reason == "node reallocated"
 
 
+def _reference_stream(prompt, n):
+    """The unchurned greedy stream of ``prompt`` through the in-process
+    [0, 2) + [2, 4) pipeline."""
+    engines = [StageEngine(create_stage_model(CFG, s, e),
+                           _port_params(create_stage_model(CFG, s, e)),
+                           EngineConfig(**LONG), device="cpu")
+               for s, e in ((0, 2), (2, 4))]
+    pipe = InProcessPipeline(engines)
+    r = Request("ref", prompt_ids=list(prompt), sampling_params=SamplingParams(
+        temperature=0.0, max_new_tokens=n, ignore_eos=True))
+    pipe.submit(r)
+    pipe.run_until_complete()
+    return r.output_ids
+
+
 def test_leave_dissolves_and_a_new_tail_recovers():
+    """What the JAX worker does under the same leave and rejoin
+    (tests/test_torch_sched_mixed.py runs it with JAX workers): park,
+    retry until a pipeline exists, restore by replay, continue."""
     with sched_swarm(engine=LONG) as (service, workers):
         path, head, tail = _by_path(service, workers)
         req = _long_request("before-leave", path)
         ev = head.submit(req)
         assert _wait(lambda: len(req.output_ids) > 2)
         tail.stop()
-        # node_leave: the pipeline dissolves; the head's request aborts
-        # naming the tail (its sender's failure or the drain directive).
-        assert ev.wait(DEADLINE_S), req.status
-        assert req.status.value == "finished_abort"
-        assert tail.node_id in (req.abort_reason or ""), req.abort_reason
+        # node_leave: the pipeline dissolves; the head parks the request
+        # (its sender's failure or the drain directive) and keeps asking
+        # the scheduler for a target.
+        assert _wait(lambda: "before-leave" in head._migration_parked)
+        assert not req.status.is_finished
         assert _wait(lambda: not service.scheduler.manager.pipelines)
         assert service.scheduler.manager.get(tail.node_id) is None
         assert service.route_request("no-path", timeout_s=0.5) is None
+        before = list(req.output_ids)
         new = _port_worker(service.transport.address, LONG)
         workers.append(new)
         _start_all([new])
@@ -268,6 +292,18 @@ def test_leave_dissolves_and_a_new_tail_recovers():
             service.scheduler.cluster_status()
         path, head, _ = _by_path(service, workers)
         assert new.node_id in path
+        # Restored on the new pipeline's head by re-prefill + replay, the
+        # stream continuing past what it had; where_is answers the head.
+        assert _wait(lambda: "before-leave" in head.restores), \
+            head._migration_parked
+        assert head.restores["before-leave"][0] == "replay"
+        moved = head._chat_requests["before-leave"]
+        assert _wait(lambda: len(moved.output_ids) > len(before) + 8)
+        assert not ev.is_set() and not moved.status.is_finished
+        assert service.scheduler.migrated_head("before-leave") == head.node_id
+        got = list(moved.output_ids[:len(before) + 8])
+        assert got[:len(before)] == before
+        assert got == _reference_stream((1, 2, 3), len(got))
         client = SwarmClient(service.transport, service)
         r = Request("after-leave", prompt_ids=list(PROMPTS[0]),
                     sampling_params=SamplingParams(temperature=0.0,
@@ -276,6 +312,20 @@ def test_leave_dissolves_and_a_new_tail_recovers():
         assert client.submit(r).wait(DEADLINE_S), r.status
         assert r.status.value == "finished_length"
     assert r.output_ids == _in_process(seeded=False)[0].output_ids
+
+
+def test_leave_without_a_new_tail_aborts_at_the_park_deadline():
+    with sched_swarm(engine=LONG) as (service, workers):
+        path, head, tail = _by_path(service, workers)
+        head.MIGRATION_PARK_TIMEOUT_S = 1.0
+        req = _long_request("stranded", path)
+        ev = head.submit(req)
+        assert _wait(lambda: len(req.output_ids) > 2)
+        tail.stop()
+        assert ev.wait(DEADLINE_S), req.status
+        assert req.status.value == "finished_abort"
+        assert req.abort_reason == "migration: no serviceable pipeline"
+        assert not head._migration_parked and not head._migration_pending
 
 
 def test_heartbeat_eviction_then_rejoin():

@@ -635,9 +635,7 @@ def test_refused_scheduler_options_name_their_items(kwargs, item):
 @pytest.mark.parametrize("call,item", [
     (lambda s: s.begin_refit({}), "12"),
     (lambda s: s.fence(2), "4c"),
-    (lambda s: s.choose_migration_targets([]), "6"),
-    (lambda s: s.record_migration("r", "h"), "6"),
-    (lambda s: s.migrated_head("r"), "6"),
+    (lambda s: s.choose_migration_targets([], pool="decode"), "4c"),
     (lambda s: p_routing.RequestMeta("r", prompt_ids=[1] * 9,
                                      lora_id="a").chain(8), "11"),
 ])
@@ -645,3 +643,68 @@ def test_refused_scheduler_calls_name_their_items(call, item):
     sched = p_sched.GlobalScheduler(normalize_config(RAW))
     with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
         call(sched)
+
+
+# -- live migration's scheduler calls ---------------------------------------------
+
+
+def _migration_scheduler(pkg):
+    """A scheduler over two registered 2-stage pipelines (``registered``),
+    the second pipeline's head warm for a 32-token chain."""
+    chain = pkg.Radix(4, track_digests=True)
+    chain.insert(list(range(32)), list(range(1, 9)))
+    sched = pkg.sched.GlobalScheduler(pkg.cfg, routing="cache_aware")
+    sched.manager = registered(pkg, 2)
+    sched.router = pkg.routing.make_router("cache_aware", sched.manager)
+    payload = chain.digest_payload(full=True)
+    payload["seq"] = 1
+    sched.manager.get("p1a").cache_index.apply(payload)
+    return sched
+
+
+def _descriptors():
+    from parallax_tpu_torch.runtime.radix_cache import block_hash_chain
+
+    chain = block_hash_chain(list(range(32)), 4)
+    desc = {"prompt_tokens": 40, "chains": {"4": chain}, "lora_id": None}
+    return [dict(desc, rid="m1"), dict(desc, rid="m2", chains={}),
+            {"rid": 7}]
+
+
+@pytest.mark.parametrize("case", ["warm", "excluded", "none", "loaded"])
+def test_choose_migration_targets_matches(case):
+    """The same pipelines, digests and descriptors pick the same targets
+    (path, head layers, predicted cached tokens), charge the same loads
+    and count the same choices in both packages."""
+    exclude = {"warm": {"nX"}, "excluded": {"p1b"}, "none": {"p0a", "p1b"},
+               "loaded": set()}[case]
+
+    def run(pkg):
+        sched = _migration_scheduler(pkg)
+        if case == "loaded":
+            sched.manager.get("p1a").load = 3
+        got = sched.choose_migration_targets(_descriptors(), exclude)
+        loads = {n.node_id: n.load for n in sched.manager.nodes()}
+        return got, loads, sched.migration_stats["targets_chosen"]
+
+    got, _loads, chosen = both(run)
+    assert chosen == len(got)
+    if case == "warm":
+        assert got["m1"] == {"path": ["p1a", "p1b"], "head_layers": [0, 14],
+                             "predicted_cached_tokens": 32}
+    if case == "none":
+        assert got == {}
+
+
+def test_record_migration_and_where_is_match():
+    def run(pkg):
+        sched = pkg.sched.GlobalScheduler(pkg.cfg)
+        assert sched.migrated_head("r1") is None
+        for i in range(4100):
+            sched.record_migration(f"r{i}", f"n{i % 2}")
+        sched.record_migration("r5", "n9")
+        return ([sched.migrated_head(r) for r in ("r0", "r4", "r5", "r4099")],
+                dict(sched.migration_stats))
+
+    heads, stats = both(run)
+    assert heads == [None, "n0", "n9", "n1"] and stats["recorded"] == 4101

@@ -27,6 +27,7 @@ Every wait has its own deadline and every transport stops in ``finally``.
 """
 
 import contextlib
+import dataclasses
 import http.client
 import json
 import os
@@ -56,6 +57,7 @@ from parallax_tpu_torch.backend.run import build_chat_host_frontend
 from parallax_tpu_torch.config import normalize_config
 from parallax_tpu_torch.models import create_stage_model, params_from_numpy
 from parallax_tpu_torch.p2p import proto
+from parallax_tpu_torch.p2p.join import build_worker
 from parallax_tpu_torch.p2p.node import WorkerNode
 from parallax_tpu_torch.p2p.transport import TcpTransport
 from parallax_tpu_torch.runtime.engine import EngineConfig, StageEngine
@@ -457,8 +459,7 @@ def test_chat_host_answers_503_without_a_route():
     (["--scheduler-standby", "10.0.0.2:3002"], "4c"),
     (["--refit-cache-dir", "/x"], 12),
     (["--compilation-cache-dir", "/x"], 12),
-    (["--kv-transfer-chunk-bytes", "1024"], 6),
-    (["--host-cache-bytes", "1024"], 6),
+    (["--kv-transfer-chunk-bytes", "1024"], "4c"),
     (["--lora-adapters", "a=/x"], 11),
     (["--lora-max-adapters", "2"], 11),
     (["--wire-dtype", "fp8"], 11),
@@ -487,15 +488,16 @@ _PACKET = {"rid": "q", "ctx": 3}
     (proto.CHAT_SUBMIT, dict(_SUBMIT, qos_class="interactive"), 9),
     (proto.CHAT_SUBMIT, dict(_SUBMIT, deadline_ms=500), 9),
     (proto.CHAT_SUBMIT, dict(_SUBMIT, tenant="t0"), 9),
-    (proto.CHAT_SUBMIT, dict(_SUBMIT, replay_ids=[4]), 6),
     (proto.FORWARD, {"reqs": [dict(_PACKET, qos="batch")]}, 9),
     (proto.FORWARD, {"reqs": [dict(_PACKET, lora_id="a")]}, 11),
     (proto.FORWARD, {"reqs": [dict(_PACKET, spec_len=2)]}, 7),
     (proto.FORWARD, b"\x0a\x00", "4c"),
-    (proto.CHECKPOINT, {}, 6),
+    (proto.KV_TRANSFER, {}, "4c"),
+    (proto.KV_RESULT, {}, "4c"),
     (proto.PROFILE, {}, 9),
-], ids=["qos_class", "deadline_ms", "tenant", "replay_ids", "qos-packet",
-        "lora-packet", "spec-packet", "protobuf", "checkpoint", "profile"])
+], ids=["qos_class", "deadline_ms", "tenant", "qos-packet",
+        "lora-packet", "spec-packet", "protobuf", "kv-transfer", "kv-result",
+        "profile"])
 def test_refused_rpcs_name_their_items(method, payload, item):
     """A worker refuses, by name and ROADMAP item, every RPC field it does
     not run; it accepts none of them to ignore it. Nothing reaches the
@@ -508,6 +510,36 @@ def test_refused_rpcs_name_their_items(method, payload, item):
     with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
         LoopbackTransport("c", reg).call("w", method, payload)
     assert node._inbox.empty() and not node._chat_requests
+
+
+def test_join_host_cache_bytes_builds_the_tier(tmp_path):
+    """``join --host-cache-bytes`` is ported: the flag passes, the worker's
+    engine config carries the budget, and an engine built from it has the
+    tier; without the flag on the CPU the tier is off, as the JAX join's
+    default is. (The worker is not started: its config is what ``join``
+    decides; only config.json is written.)"""
+    with open(os.path.join(tmp_path, "config.json"), "w") as f:
+        json.dump(RAW, f)
+    base = ["join", "--model-path", str(tmp_path), "--start-layer", "0",
+            "--end-layer", "4", "--device", "cpu", "--port", "0",
+            "--advertise-addr", "127.0.0.1"]
+    args = cli.build_parser().parse_args(base + ["--host-cache-bytes",
+                                                 str(1 << 20)])
+    assert cli.unported_flags(args) == []
+    configs = []
+    for argv in (args, cli.build_parser().parse_args(base)):
+        node = build_worker(argv)
+        node.transport.stop()
+        configs.append(node.engine_config)
+    assert configs[0].host_cache_bytes == 1 << 20
+    assert configs[1].host_cache_bytes == 0
+    model = create_stage_model(CFG, 0, 4)
+    eng = StageEngine(model, _port_params(model),
+                      dataclasses.replace(configs[0], **ENGINE),
+                      device="cpu")
+    tier = eng.host_tier
+    assert tier is not None and tier.capacity_pages == (
+        (1 << 20) // tier.pool.page_nbytes)
 
 
 def _write_checkpoint(path: str) -> None:
