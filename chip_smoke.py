@@ -131,6 +131,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                follows: zero aborts, greedy rows within GREEDY_TOL,
                ``where_is`` answering each new head; park-to-restore
                seconds.
+6e. disagg_serve  disaggregated prefill / decode on the same tree: a
+               GlobalScheduler (cache-aware) and its service on TCP
+               loopback with two WorkerNodes in this process, each serving
+               all 28 layers of the shared tree with the defaults and a
+               4 GiB tier; preempt_serve's mix (48 new tokens) routed and
+               polled through a SwarmClient, three times: both workers
+               mixed, then prefill + decode, then prefill + decode as two
+               processes (``--disagg-worker``, each on its own draw of
+               the tree). Every request ends by length with zero aborts,
+               launches exact (summed over the in-process pair, per
+               process for the pair of processes), greedy rows within
+               GREEDY_TOL of the plain path; the disaggregated runs hand
+               every request off by image (8 adopted, no fallback,
+               ``where_is`` the decode head, no A0 / A1 on the decode
+               head, the scheduler's disagg section active with 8 targets
+               chosen); r0's pages on the decode head right after its
+               swap-in are its harvested image bitwise. Per handoff: pages,
+               bytes, frames, flag -> park, the park's own, park -> result
+               and assembly ms, the transfer's GB/s and adopt ms; each
+               run's TTFT and decode tok/s.
 7. http_serve  the front door on the same Qwen2.5-7B tree (its own, made
                the same way, when run alone): written as an HF checkpoint
                (bf16 shards of at most 5 GB, the index, config.json; a
@@ -3481,6 +3501,430 @@ def phase_migrate_serve(torch, dev, card, cfg, model_full, params) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6e: disagg_serve, phase roles and the KV handoff
+# ---------------------------------------------------------------------------
+
+# (label, the two workers' roles, the workers in their own processes)
+DISAGG_RUNS = (("mixed", (None, None), False),
+               ("disagg", ("prefill", "decode"), False),
+               ("disagg_processes", ("prefill", "decode"), True))
+
+
+def _watch_handoff(torch, dev, prefill, decode, first: str,
+                   out: dict) -> None:
+    """Instrument the pair's engines, whose calls run on their step
+    threads: the image the prefill head harvests for ``first`` is kept,
+    the decode head's adopt is timed per request, and the pages the decode
+    head swaps ``first``'s adopted image into are compared with that image
+    bitwise, right after the swap-in, on the decode head's step thread."""
+    peng = prefill.engine if prefill is not None else None
+    deng = decode.engine
+    real_adopt = deng.adopt_checkpoint_kv
+    real_resume = deng.cache.resume_from_host
+
+    def adopt(req, image):
+        t = time.perf_counter()
+        ok = real_adopt(req, image)
+        out["adopt_ms"][req.request_id] = (time.perf_counter() - t) * 1e3
+        return ok
+
+    def resume(req):
+        n = len(getattr(req, "host_page_handles", None) or ())
+        ok = real_resume(req)
+        if ok and n and req.request_id == first and "pages_equal" not in out:
+            image = out.get("image")
+            fresh = torch.tensor(req.page_ids[-n:], device=dev)
+            out["swapped_in_pages"] = n
+            out["pages_equal"] = (
+                image is not None and len(image.layers) == len(deng.kv)
+                and all(int(img.shape[0]) == n and torch.equal(
+                    layer.index_select(0, fresh).cpu(), img)
+                    for layer, img in zip(deng.kv, image.layers)))
+        return ok
+
+    deng.adopt_checkpoint_kv = adopt
+    if peng is None:
+        return
+    real_harvest = peng.harvest_kv_image
+
+    def harvest(req):
+        image = real_harvest(req)
+        if image is not None and req.request_id == first:
+            out["image"] = image
+        return image
+
+    peng.harvest_kv_image = harvest
+    deng.cache.resume_from_host = resume
+
+
+def _disagg_worker(cfg, params, dev, service, role):
+    from parallax_tpu_torch.p2p.node import WorkerNode
+    from parallax_tpu_torch.p2p.transport import TcpTransport
+
+    n = cfg.num_hidden_layers
+    t = TcpTransport("", "127.0.0.1")
+    t.start()
+    t.peer_id = t.address
+    return WorkerNode(
+        t, service, cfg,
+        engine_config(True, host_cache_bytes=PREEMPT_HOST_BYTES),
+        load_params=lambda m: _stage_tree(params, m.start_layer,
+                                          m.end_layer, n),
+        heartbeat_interval_s=0.5, device=dev, role=role)
+
+
+def disagg_worker_main(role: str, scheduler: str) -> int:
+    """``chip_smoke.py --disagg-worker ROLE SCHEDULER``: one worker of
+    disagg_serve's process pair. It draws serve's Qwen2.5-7B tree on the
+    card (the same seed, so the same weights as the parent's), joins the
+    scheduler with ``role`` (``mixed`` for none), times its engine's adopt
+    per request, serves until SIGTERM, then prints one JSON line: its
+    node id, this process's kernel launches, its engine's dispatch
+    summary, its handoff counters and the adopt times."""
+    import signal
+    import threading
+
+    import torch
+
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    if not torch.cuda.is_available():
+        return 2
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, _model, params = dense_tree(torch, dev, "disagg_worker")
+    worker = _disagg_worker(cfg, params, dev, scheduler,
+                            None if role == "mixed" else role)
+    worker.start()
+    watch = {"adopt_ms": {}}
+    while worker.engine is None and not stop.wait(0.01):
+        pass
+    if worker.engine is not None:
+        _watch_handoff(torch, dev, None, worker, "", watch)
+    stop.wait()
+    eng = worker.engine
+    torch.cuda.synchronize(dev)
+    out = {"disagg_worker": role, "node_id": worker.node_id,
+           "launches": ck.launches(),
+           "summary": eng.kernel_dispatch_summary() if eng else None,
+           "handoffs": worker.handoff_stats.snapshot(),
+           "adopt_ms": watch["adopt_ms"]}
+    worker.stop()
+    print(json.dumps(out, default=str), flush=True)
+    return 0
+
+
+def disagg_pair(torch, dev, cfg, params, roles, processes: bool) -> dict:
+    """One run of disagg_serve: a port GlobalScheduler (cache-aware
+    routing; the rebalance test pinned off, as in migrate_serve) and its
+    SchedulerService on TCP loopback, and two workers joining with
+    ``roles``, each serving all the layers of Qwen2.5-7B with the engine's
+    defaults and a PREEMPT_HOST_BYTES tier: WorkerNodes in this process on
+    ``params`` (shared, not copied), or, with ``processes``, two
+    ``chip_smoke.py --disagg-worker`` processes, each on its own draw of
+    the same tree. preempt_serve's mix is routed and polled through a
+    SwarmClient on the service. Returns the requests, the launches (this
+    process's, or each worker process's), each worker's dispatch summary
+    and handoff counters, where_is per request, the scheduler's status,
+    the watched handoff figures and the serve span."""
+    import os
+    import tempfile
+    import threading
+
+    from parallax_tpu_torch.backend.run import SwarmClient
+    from parallax_tpu_torch.backend.scheduler_service import SchedulerService
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.p2p.transport import TcpTransport
+    from parallax_tpu_torch.scheduling.scheduler import GlobalScheduler
+
+    n = cfg.num_hidden_layers
+    sched = GlobalScheduler(cfg, min_nodes_bootstrapping=2,
+                            routing="cache_aware")
+    sched.allocator.should_global_rebalance = (
+        lambda active, cv_threshold=0.5: False)
+    service = SchedulerService(sched, TcpTransport("scheduler", "127.0.0.1"),
+                               join_timeout_s=SWARM_TIMEOUT_S)
+    workers, procs, logs = [], [], []
+    watch = {"adopt_ms": {}}
+    stop_mon = threading.Event()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    try:
+        service.start()
+        for role in roles:
+            if not processes:
+                workers.append(_disagg_worker(cfg, params, dev,
+                                              service.transport.address,
+                                              role))
+                continue
+            logs.append(tempfile.TemporaryFile("w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--disagg-worker", role or "mixed",
+                 service.transport.address],
+                cwd=repo, env={**os.environ, "PYTHONPATH": repo},
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        threads = [threading.Thread(target=w.start, daemon=True)
+                   for w in workers]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SWARM_TIMEOUT_S)
+        deadline = time.monotonic() + SWARM_TIMEOUT_S
+
+        def up() -> bool:
+            if any(p.poll() is not None for p in procs):
+                raise AssertionError("disagg_serve: a worker process "
+                                     "exited")
+            nodes = _sched_nodes(sched.cluster_status())
+            return len(nodes) == 2 and all(x[2] for x in nodes)
+
+        _wait_for(up, deadline, "disagg_serve: no two ready replicas")
+        allocation = _sched_nodes(sched.cluster_status())
+        if sorted(x[1] for x in allocation) != [[0, n], [0, n]]:
+            raise AssertionError(f"disagg_serve: allocation {allocation}")
+        reqs, sampled = preempt_mix(cfg.vocab_size)
+        if roles[0] == "prefill" and workers:
+            _watch_handoff(torch, dev, workers[0], workers[1],
+                           reqs[0].request_id, watch)
+        client = SwarmClient(service.transport, service)
+        _sync(torch, dev)
+        ck.reset_launches()
+        mon = threading.Thread(target=_stamp_first_tokens,
+                               args=(reqs, stop_mon, client.poll_interval_s),
+                               daemon=True)
+        t0 = time.monotonic()
+        mon.start()
+        events = []
+        for r in reqs:
+            r.arrival_time = t0
+            r.routing_table = client.route(r.request_id,
+                                           prompt_ids=r.prompt_ids)
+            events.append(client.submit(r))
+        for r, ev in zip(reqs, events):
+            if not ev.wait(SWARM_TIMEOUT_S):
+                raise AssertionError(f"disagg_serve {r.request_id}: "
+                                     f"{r.status.value}")
+        t1 = time.monotonic()
+        stop_mon.set()
+        mon.join(10)
+        _sync(torch, dev)
+        out = {
+            "reqs": reqs, "sampled": sampled, "t0": t0, "t1": t1,
+            "allocation": allocation,
+            "where_is": {r.request_id: sched.migrated_head(r.request_id)
+                         for r in reqs},
+            "status": sched.cluster_status(), "watch": watch,
+        }
+        if workers:
+            out.update(
+                launches=[ck.launches()],
+                workers=[w.node_id for w in workers],
+                summaries=[w.engine.kernel_dispatch_summary()
+                           for w in workers],
+                handoffs=[w.handoff_stats.snapshot() for w in workers])
+        else:
+            for p in procs:
+                p.send_signal(15)
+            reports = []
+            for p, log in zip(procs, logs):
+                if p.wait(SWARM_EXIT_S) != 0:
+                    raise AssertionError(f"disagg_serve: worker exit "
+                                         f"{p.returncode}")
+                log.seek(0)
+                lines = [x for x in log.read().splitlines()
+                         if x.startswith('{"disagg_worker"')]
+                if not lines:
+                    raise AssertionError("disagg_serve: no worker report")
+                reports.append(json.loads(lines[-1]))
+            by_id = {x[0]: i for i, x in enumerate(allocation)}
+            reports.sort(key=lambda rep: roles.index(rep["disagg_worker"]))
+            if sorted(by_id) != sorted(rep["node_id"] for rep in reports):
+                raise AssertionError(f"disagg_serve: reports {reports}")
+            watch["adopt_ms"] = reports[1]["adopt_ms"]
+            out.update(
+                launches=[rep["launches"] for rep in reports],
+                workers=[rep["node_id"] for rep in reports],
+                summaries=[rep["summary"] for rep in reports],
+                handoffs=[rep["handoffs"] for rep in reports])
+    finally:
+        stop_mon.set()
+        for w in workers:
+            w.stop()
+            w.engine = None
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        for log in logs:
+            log.close()
+        service.stop()
+    return out
+
+
+def _check_handoffs(label: str, run: dict) -> list[dict]:
+    """A disaggregated run's handoffs: all by image (adopted on the decode
+    head, no fallback, no re-prefill, no local restore), where_is the
+    decode head, no prefill step on the decode head, the scheduler's
+    disagg section active with a target chosen for each. Returns the
+    figures of each handoff."""
+    decode_id = run["workers"][1]
+    p_stats, d_stats = run["handoffs"]
+    rids = [r.request_id for r in run["reqs"]]
+    log = p_stats["log"]
+    if d_stats["handoffs"] != {"kv_image": len(rids)} \
+            or p_stats["fallbacks"] or d_stats["fallbacks"] \
+            or sorted(log) != sorted(rids) \
+            or any(e.get("outcome") != "image" for e in log.values()):
+        raise AssertionError(f"disagg_serve {label}: handoffs "
+                             f"{d_stats['handoffs']}, fallbacks "
+                             f"{p_stats['fallbacks']}, "
+                             f"{d_stats['fallbacks']}, log {log}")
+    if any(run["where_is"][rid] != decode_id for rid in rids):
+        raise AssertionError(f"disagg_serve {label}: where_is "
+                             f"{run['where_is']}")
+    decode = run["per_worker"][1]
+    if decode["prefill_steps"] or decode["launches"].get("kv_append") \
+            or decode["launches"].get("gqa_prefill"):
+        raise AssertionError(f"disagg_serve {label}: the decode head "
+                             f"prefilled: {decode}")
+    disagg = run["status"]["disagg"]
+    if not disagg["active"] or disagg["targets_chosen"] < len(rids):
+        raise AssertionError(f"disagg_serve {label}: status disagg "
+                             f"{disagg}")
+    figures = []
+    for rid in rids:
+        e = log[rid]
+        figures.append({
+            "rid": rid, "pages": e["pages"], "bytes": e["bytes"],
+            "frames": e["frames"],
+            "flag_to_park_ms": e["flag_to_park_ms"],
+            "park_own_ms": e["park_ms"],
+            "park_to_result_ms": e["park_to_result_ms"],
+            "ship_to_result_ms": e["ship_to_result_ms"],
+            "assemble_ms": d_stats["log"].get(rid, {}).get("assemble_ms"),
+            "transfer_gb_per_s": e["bytes"] / e["ship_to_result_ms"] / 1e6,
+            "adopt_ms": run["watch"]["adopt_ms"].get(rid)})
+    return figures
+
+
+def phase_disagg_serve(torch, dev, card, cfg, model_full, params) -> None:
+    """Qwen2.5-7B served by a pair of workers, three times: both mixed,
+    then prefill + decode, in this process (disagg_pair), then prefill +
+    decode once more as two processes. Each run: every request ends by
+    length with zero aborts; launches exact (this process's summed over
+    the in-process pair, each worker process's on its own; graph warm-ups
+    included); the greedy rows within GREEDY_TOL of the plain path. The
+    disaggregated runs also (_check_handoffs): every request handed off
+    by image, where_is the decode head, no prefill step and so no A0 / A1
+    on the decode head, the scheduler's disagg section; and, in process,
+    the first request's pages on the decode head right after its swap-in
+    bitwise its harvested image; each greedy row the mixed run's tokens
+    or within GREEDY_TOL of the plain path. Figures: per handoff, its
+    pages, bytes, frames, flag -> park ms (and the park's own), park ->
+    result ms, the decode head's assembly ms, the transfer's GB/s (bytes
+    over first frame enqueued -> result) and adopt ms; each run's TTFT
+    median and decode tok/s; the phase's wall."""
+    t_phase = time.monotonic()
+    n = cfg.num_hidden_layers
+    runs = {}
+    for label, roles, processes in DISAGG_RUNS:
+        run = disagg_pair(torch, dev, cfg, params, roles, processes)
+        free_device_memory(torch)
+        reqs = run["reqs"]
+        bad = [(r.request_id, r.status.value, len(r.output_ids))
+               for r in reqs if r.status.value != "finished_length"
+               or len(r.output_ids) != PREEMPT_NEW]
+        if bad:
+            raise AssertionError(f"disagg_serve {label}: {bad}")
+        want, per_worker = {}, []
+        for node, summary in zip(run["workers"], run["summaries"]):
+            if summary["impl"] != "cuda-fused":
+                raise AssertionError(f"disagg_serve {label} {node}: impl "
+                                     f"{summary['impl']}")
+            mine = gqa_expected("fused", summary, n)
+            for k, v in summary.get("graphs", {}).get(
+                    "warmup_launches", {}).items():
+                mine[k] = mine.get(k, 0) + v
+            decode, prefill = forward_steps(summary)
+            per_worker.append({"decode_steps": decode,
+                               "prefill_steps": prefill,
+                               "graph_replays": summary.get(
+                                   "graphs", {}).get("replays", 0),
+                               "launches": mine})
+            if processes:
+                check_launches("disagg_serve", f"{label} {node}",
+                               run["launches"][len(per_worker) - 1], mine,
+                               {})
+            for k, v in mine.items():
+                want[k] = want.get(k, 0) + v
+        if not processes:
+            check_launches("disagg_serve", label, run["launches"][0], want,
+                           {})
+        run["per_worker"] = per_worker
+        run["roles"] = [r or "mixed" for r in roles]
+        runs[label] = run
+    mixed = runs["mixed"]
+    if any(mixed["where_is"].values()):
+        raise AssertionError(f"disagg_serve mixed: handoffs "
+                             f"{mixed['where_is']}")
+    watch = runs["disagg"]["watch"]
+    if not watch.get("pages_equal"):
+        raise AssertionError(f"disagg_serve: {mixed['reqs'][0].request_id}"
+                             f"'s adopted pages are not its harvested "
+                             f"image ({watch.get('swapped_in_pages')} "
+                             "pages)")
+    # Greedy rows: the mixed run's against the plain path; each
+    # disaggregated row the mixed run's tokens, or within GREEDY_TOL.
+    worst, *_ = greedy_check(torch, model_full, params, mixed["reqs"],
+                             mixed["sampled"], dev, tol=GREEDY_TOL)
+    checks = {}
+    for label in ("disagg", "disagg_processes"):
+        run = runs[label]
+        figures = _check_handoffs(label, run)
+        same = {r.request_id: r.output_ids == m.output_ids
+                for r, m in zip(run["reqs"], mixed["reqs"])}
+        parted = [r for i, r in enumerate(run["reqs"])
+                  if i not in run["sampled"] and not same[r.request_id]]
+        gap = 0.0
+        if parted:
+            gap, *_ = greedy_check(torch, model_full, params, parted, {},
+                                   dev, tol=GREEDY_TOL)
+        p_stats = run["handoffs"][0]
+        checks[label] = {
+            "handoffs": figures, "mode": run["handoffs"][1]["handoffs"],
+            "fallbacks": p_stats["fallbacks"],
+            "transfer_bytes": p_stats["transfer_bytes"]["out"],
+            "transfer_frames": p_stats["transfer_frames"]["out"],
+            "greedy_rows_equal_to_mixed": sum(
+                same[r.request_id] for i, r in enumerate(run["reqs"])
+                if i not in run["sampled"]),
+            "greedy_rows_parted": [r.request_id for r in parted],
+            "largest_logit_gap_parted": gap,
+            "status_disagg": run["status"]["disagg"]}
+    for label, run in runs.items():
+        emit({"phase": "disagg_serve", "run": label, "roles": run["roles"],
+              "processes": label == "disagg_processes",
+              "allocation": run["allocation"], "launches": run["launches"],
+              "per_worker": run["per_worker"],
+              **stream_metrics(run["reqs"], run["t0"], run["t1"]),
+              "card": card})
+    for label, check in checks.items():
+        emit({"phase": "disagg_serve", "check": f"{label}_handoffs",
+              **check, "chunk_bytes": 4 << 20,
+              "where_is": "the decode head for each",
+              "decode_head_prefill_steps": 0, "tolerance": GREEDY_TOL,
+              "card": card})
+    emit({"phase": "disagg_serve", "check": "pages_and_greedy",
+          "first_request_pages_bitwise": watch["swapped_in_pages"],
+          "greedy_vs_plain": "pass", "largest_logit_gap_mixed": worst,
+          "tolerance": GREEDY_TOL, "wall_s": time.monotonic() - t_phase,
+          "card": card})
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: http_serve, the front door
 # ---------------------------------------------------------------------------
 
@@ -5696,7 +6140,7 @@ KERNEL_COUNTER = {"ragged_attend": "gqa_prefill"}
 # The phases on the Qwen2.5-7B tree after serve, pipeline and profile, in
 # order; the first one asked for names the tree's line when serve is not.
 DENSE_PHASES = ("features_serve", "preempt_serve", "migrate_serve",
-                "http_serve", "swarm_serve", "sched_serve")
+                "disagg_serve", "http_serve", "swarm_serve", "sched_serve")
 
 
 def run_dense(torch, dev, card: str, want) -> dict:
@@ -5725,6 +6169,9 @@ def run_dense(torch, dev, card: str, want) -> dict:
         free_device_memory(torch)
     if want("migrate_serve"):
         phase_migrate_serve(torch, dev, card, cfg, model_full, params)
+        free_device_memory(torch)
+    if want("disagg_serve"):
+        phase_disagg_serve(torch, dev, card, cfg, model_full, params)
         free_device_memory(torch)
     if want("http_serve") or want("swarm_serve") or want("sched_serve"):
         tree = [params]
@@ -5758,14 +6205,21 @@ def main() -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated phases (build,kernels,serve,"
                          "pipeline,profile,features_serve,preempt_serve,"
-                         "migrate_serve,http_serve,"
+                         "migrate_serve,disagg_serve,http_serve,"
                          "swarm_serve and "
                          "sched_serve (each runs http_serve too),moe_serve,"
                          "moe_profile,"
                          "mla_serve,mla_profile,dsa_serve,dsa_profile,"
                          "gptoss_serve,gptoss_profile,msa_serve,m2_serve); "
                          "prints no result line")
-    only = set(filter(None, ap.parse_args().only.split(",")))
+    ap.add_argument("--disagg-worker", nargs=2,
+                    metavar=("ROLE", "SCHEDULER"),
+                    help="run one worker of disagg_serve's process pair "
+                         "(the phase spawns it)")
+    args = ap.parse_args()
+    if args.disagg_worker:
+        return disagg_worker_main(*args.disagg_worker)
+    only = set(filter(None, args.only.split(",")))
 
     import torch
 

@@ -8,15 +8,16 @@ reallocation piggyback + auto-rejoin, node_leave) and the
 
 The replies keep the JAX service's keys (``start_layer`` / ``end_layer``,
 ``standby``, ``rejoin``, ``want_digests``, ``digests_resync``, ``drain``,
-``model_name``, ``epoch``); the epoch stays 1 until scheduler HA. Live
-migration's RPCs are served: ``migrate_target`` (CacheIndex-scored
+``model_name``, ``epoch``, ``role``); the epoch stays 1 until scheduler
+HA. ``node_join`` takes the worker's phase role (prefill, decode or mixed).
+Live migration's RPCs are served: ``migrate_target`` (CacheIndex-scored
 destinations for a head's parked requests), ``migration_done`` (a target
-restored one) and ``where_is`` (where a migrated request lives now). The
-RPCs of planes the port does not run yet get no handler, so a worker asking
-for one gets the transport's "no handler" reply, as from a JAX scheduler
-built without them: ``disagg_target`` (roles and the KV handoff, ROADMAP
-queue 1 item 4c) and ``ha_sync`` (HA, item 4c). Standby addresses and
-specialist roles are refused by name (item 4c).
+restored one) and ``where_is`` (where a migrated request lives now), and
+so is the KV handoff's ``disagg_target`` (decode-pool destinations for a
+prefill head's finished prompts). The RPC of a plane the port does not run
+yet gets no handler, so a worker asking for it gets the transport's "no
+handler" reply, as from a JAX scheduler built without it: ``ha_sync`` (HA,
+ROADMAP queue 1 item 4c).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from parallax_tpu_torch.p2p import proto
 from parallax_tpu_torch.p2p.transport import Transport
 from parallax_tpu_torch.scheduling.request_routing import RequestMeta
 from parallax_tpu_torch.scheduling.scheduler import GlobalScheduler
-from parallax_tpu_torch.utils import get_logger, unported
+from parallax_tpu_torch.utils import get_logger
 from parallax_tpu_torch.utils.hw import HardwareInfo
 
 logger = get_logger(__name__)
@@ -57,6 +58,7 @@ class SchedulerService:
         transport.register(proto.PEER_DOWN, self._on_peer_down)
         transport.register(proto.ROUTE_REQUEST, self._on_route_request)
         transport.register(proto.MIGRATE_TARGET, self._on_migrate_target)
+        transport.register(proto.DISAGG_TARGET, self._on_disagg_target)
         transport.register(proto.MIGRATION_DONE, self._on_migration_done)
         transport.register(proto.WHERE_IS, self._on_where_is)
         transport.register("__ping__", lambda *_: "pong")
@@ -77,9 +79,6 @@ class SchedulerService:
         joiner goes to standby and receives layers via heartbeat replies
         when the topology changes."""
         node_id = payload["node_id"]
-        role = payload.get("role")
-        if isinstance(role, str) and role.lower() != "mixed":
-            raise unported(f"node_join with role {role!r}", "4c")
         hw = HardwareInfo.from_dict(payload["hardware"])
         self.scheduler.enqueue_join(
             node_id, hw,
@@ -88,7 +87,12 @@ class SchedulerService:
                 if isinstance(payload.get("wire_formats"), (list, tuple))
                 else None
             ),
-            role=role if isinstance(role, str) else None,
+            # Phase role: prefill / decode / mixed; absent on older
+            # builds -> mixed.
+            role=(
+                str(payload["role"])
+                if isinstance(payload.get("role"), str) else None
+            ),
         )
         deadline = time.monotonic() + self.join_timeout_s
         while time.monotonic() < deadline:
@@ -205,6 +209,22 @@ class SchedulerService:
         return {
             "targets": self.scheduler.choose_migration_targets(
                 [r for r in reqs if isinstance(r, dict)], exclude
+            )
+        }
+
+    def _on_disagg_target(self, _peer: str, payload: dict) -> dict:
+        """Decode-pool destinations for a prefill head's finished prompts
+        (the KV handoff): migrate_target's CacheIndex scoring, restricted
+        to decode / mixed pipelines. An empty map tells the head to keep
+        the request local."""
+        reqs = payload.get("requests")
+        if not isinstance(reqs, list):
+            return {"targets": {}}
+        exclude = {str(x) for x in (payload.get("exclude") or ())}
+        return {
+            "targets": self.scheduler.choose_migration_targets(
+                [r for r in reqs if isinstance(r, dict)], exclude,
+                pool="decode",
             )
         }
 

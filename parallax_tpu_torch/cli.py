@@ -229,9 +229,18 @@ def _add_join_flags(join: argparse.ArgumentParser) -> None:
                            "127.0.0.1 for a swarm on one host)")
     join.add_argument("--relay", action="store_true")
     join.add_argument("--relay-token", default=None)
-    join.add_argument("--role", default=None,
-                      choices=["prefill", "decode", "mixed"])
-    join.add_argument("--kv-transfer-chunk-bytes", type=int, default=None)
+    join.add_argument(
+        "--role", default=None, choices=["prefill", "decode", "mixed"],
+        help="phase specialization for disaggregated serving: 'prefill' "
+             "computes prompts and hands finished requests to the decode "
+             "pool over the KV-transfer lane; 'decode' runs the decode "
+             "batches prompts never interrupt; default 'mixed' serves both "
+             "phases (no handoffs). Pipelines stay role-homogeneous")
+    join.add_argument(
+        "--kv-transfer-chunk-bytes", type=int, default=None,
+        help="target payload bytes per layer-chunked KV_TRANSFER frame on "
+             "the handoff lane (default 4 MiB): smaller frames overlap the "
+             "transfer more, larger frames amortize framing")
     join.add_argument("--lora-adapters", default=None)
     join.add_argument("--sp-size", type=int, default=0)
     join.add_argument("--host-cache-bytes", type=int, default=None,
@@ -279,15 +288,12 @@ def unported_join_flags(args) -> list[tuple[str, int | str]]:
         (args.scheduler_standby is not None, "--scheduler-standby", "4c"),
         (args.relay, "--relay", "4c"),
         (args.relay_token is not None, "--relay-token", "4c"),
-        (args.role is not None, f"--role {args.role}", "4c"),
         (args.model_path is not None and not os.path.isdir(args.model_path),
          f"--model-path {args.model_path} (not a local directory: a hub "
          "download)", 12),
         (args.refit_cache_dir is not None, "--refit-cache-dir", 12),
         (args.compilation_cache_dir is not None, "--compilation-cache-dir",
          12),
-        (args.kv_transfer_chunk_bytes is not None,
-         "--kv-transfer-chunk-bytes", "4c"),
         (args.lora_adapters is not None, "--lora-adapters", 11),
         (args.lora_max_adapters > 0, "--lora-max-adapters", 11),
         (args.wire_dtype in ("fp8", "float8_e4m3fn"),

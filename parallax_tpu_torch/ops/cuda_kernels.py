@@ -8,16 +8,19 @@ of the sources and flags so an edit rebuilds. The library is loaded with
 ``ctypes``; each C entry returns ``cudaGetLastError()`` and :func:`check`
 raises on a non-zero code.
 
-``LAUNCHES`` holds one plain integer per kernel; a wrapper adds one exactly
-where it launches its kernel, so a run can show that the main path went
-through the kernels (``reset_launches`` / ``launches``). A CUDA graph
-launches its captured kernels without running the wrappers, so the engine
-records each graph's count delta at capture and adds it at every replay
-(``add_launches``).
+``LAUNCHES`` holds one plain integer per kernel; a wrapper adds one
+(``count``) exactly where it launches its kernel, so a run can show that
+the main path went through the kernels (``reset_launches`` /
+``launches``). A CUDA graph launches its captured kernels without running
+the wrappers, so the engine records each graph's count delta at capture
+and adds it at every replay (``add_launches``). A capture tallies its own
+thread's launches (``tally``), so engines that serve from other threads of
+the same process keep counting meanwhile.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -39,6 +42,8 @@ KERNELS = ("kv_append", "gqa_prefill", "gqa_decode", "gqa_attend",
            "sample_topk", "grouped_gemm", "mla_decode", "mla_attend",
            "indexer_fused", "indexer_scores", "gumbel_rows")
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+# The calling thread's open tally: (counts, also into LAUNCHES).
+_tally = threading.local()
 
 _lib = None
 _lock = threading.Lock()
@@ -211,6 +216,34 @@ def stream_of(t: torch.Tensor) -> int:
 def dtype_code(t: torch.Tensor) -> int:
     """0 = float32, 1 = bfloat16 (the two cache types the kernels take)."""
     return {torch.float32: 0, torch.bfloat16: 1}[t.dtype]
+
+
+def count(name: str) -> None:
+    """One launch of ``name``'s kernel (its wrapper calls this where it
+    launches). It goes into ``LAUNCHES`` and into the calling thread's
+    tally, if one is open."""
+    open_tally = getattr(_tally, "open", None)
+    if open_tally is not None:
+        counts, into_launches = open_tally
+        counts[name] = counts.get(name, 0) + 1
+        if not into_launches:
+            return
+    LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def tally(into_launches: bool = True):
+    """Count the calling thread's launches in a dict of their own while the
+    block runs (another thread's launches go to ``LAUNCHES`` alone).
+    ``into_launches=False`` keeps them out of ``LAUNCHES``: a graph
+    capture's launches run only when it replays."""
+    counts: dict[str, int] = {}
+    outer = getattr(_tally, "open", None)
+    _tally.open = (counts, into_launches)
+    try:
+        yield counts
+    finally:
+        _tally.open = outer
 
 
 def reset_launches() -> None:

@@ -259,7 +259,7 @@ def gqa_fused_decode(
         ck.dtype_code(kv_pages), ck.stream_of(q),
     )
     ck.check(code, "gqa_decode")
-    ck.LAUNCHES["gqa_decode"] += 1
+    ck.count("gqa_decode")
     return out, kv_pages
 
 
@@ -332,7 +332,7 @@ def mla_fused_decode(
         float(sm_scale), ck.dtype_code(cache), ck.stream_of(q_latent),
     )
     ck.check(code, "mla_decode")
-    ck.LAUNCHES["mla_decode"] += 1
+    ck.count("mla_decode")
     return out, cache
 
 
@@ -413,5 +413,5 @@ def indexer_scores_fused(
         float(sm_scale), ck.dtype_code(index_cache), ck.stream_of(q),
     )
     ck.check(code, "indexer_fused")
-    ck.LAUNCHES["indexer_fused"] += 1
+    ck.count("indexer_fused")
     return scores, index_cache

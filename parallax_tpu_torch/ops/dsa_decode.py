@@ -234,6 +234,6 @@ def paged_token_scores_decode(
         ck.dtype_code(index_cache), ck.stream_of(q),
     )
     ck.check(code, "indexer_scores")
-    ck.LAUNCHES["indexer_scores"] += 1
+    ck.count("indexer_scores")
     return scores
 

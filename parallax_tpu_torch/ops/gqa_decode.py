@@ -79,5 +79,5 @@ def gqa_decode_attention(
         ck.stream_of(q),
     )
     ck.check(code, "gqa_attend")
-    ck.LAUNCHES["gqa_attend"] += 1
+    ck.count("gqa_attend")
     return out

@@ -215,5 +215,5 @@ def mla_decode_attention(
         ck.stream_of(q_latent),
     )
     ck.check(code, "mla_attend")
-    ck.LAUNCHES["mla_attend"] += 1
+    ck.count("mla_attend")
     return out

@@ -122,7 +122,7 @@ def gqa_prefill_attend(
         ck.dtype_code(kv_pages), ck.stream_of(q),
     )
     ck.check(code, "gqa_prefill")
-    ck.LAUNCHES["gqa_prefill"] += 1
+    ck.count("gqa_prefill")
     return out
 
 

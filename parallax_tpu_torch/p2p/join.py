@@ -8,7 +8,10 @@ SIGTERM (port of ``parallax_tpu/p2p/join.py``).
 
 With ``--scheduler-addr`` (``run``'s ``--port + 1``) the worker joins the
 global scheduler, which assigns its layers; ``join`` blocks until the
-scheduler bootstraps (``run --min-nodes``). Without it, the worker serves
+scheduler bootstraps (``run --min-nodes``). ``--role prefill`` makes it a
+prefill head that hands each finished prompt's KV pages to a ``--role
+decode`` worker in frames of ``--kv-transfer-chunk-bytes``; the default
+``mixed`` serves both phases. Without it, the worker serves
 layers ``[--start-layer, --end-layer)`` of the checkpoint and gossips its
 block with ``--peers``; the one holding layer 0 routes requests itself.
 Either way it runs on ``--device`` (default ``cuda:0``). Its KV pages come
@@ -97,6 +100,8 @@ def build_worker(args):
         layers=(args.start_layer, args.end_layer) if standalone else None,
         device=device,
         tokenizer_path=args.model_path,
+        role=args.role,
+        kv_transfer_chunk_bytes=args.kv_transfer_chunk_bytes,
     )
 
 

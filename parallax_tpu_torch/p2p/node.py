@@ -5,7 +5,7 @@ Two modes, as in the JAX package:
 
 - **Scheduler mode** (``scheduler_peer`` set): the worker joins the global
   scheduler (``node_join`` with its ``detect_hardware()`` summary, its wire
-  formats and role ``mixed``), builds the layer range the scheduler
+  formats and its phase role), builds the layer range the scheduler
   assigns, heartbeats (``node_update``), reloads when a reply moves its
   range, rejoins when asked, reports each finished request
   (``request_complete``) and each peer its sender found dead
@@ -50,12 +50,33 @@ teacher-forces a client's already-streamed tokens. The heartbeat sends
 None for the planes not ported yet (step timing, metrics, goodput, device,
 health, events, speculation, constrained decoding).
 
+Disaggregated prefill / decode, as in the JAX worker: a scheduled worker
+joins with ``role`` prefill, decode or mixed (the default, which serves
+both phases and hands nothing off). On a prefill-role HEAD each request
+that crosses the prefill / decode boundary (prompt KV computed, first
+token committed) is FLAGGED; once out of every in-flight step and window
+it is PARKED on the step thread like a migration (KV preempted to the host
+tier and harvested into an image, the grammar fields read, the request
+extracted). A ship thread asks the scheduler for a decode-pool target
+(``disagg_target``) and streams the image over a second ``AsyncSender``
+(the KV lane, which keeps page bulk off the data plane's queues) as
+layer-chunked ``rpc_kv_transfer`` frames (``runtime/kv_handoff.py``). The
+decode head assembles them on its transport thread (CPU tensors only),
+admits the checkpoint and adopts the pages on its step thread, and answers
+``kv_handoff_result``. The fallback ladder: a prefix-warm target or a
+missing image ships the checkpoint alone (re-prefill and replay there); a
+nack re-ships checkpoint-only; a timeout or a lane failure re-ships
+checkpoint-only to the SAME target, so a late ack resolves in place; no
+decode pool restores the request locally, and a park deadline restores it
+locally after ``where_is`` says nobody else owns it. ``handoff_stats``
+counts it all.
+
 Not ported yet, each refused by name with its ROADMAP queue 1 item:
-scheduler standbys, the relay, the model switch, roles, the KV handoff and
-the protobuf frames of the reference's nodes (``p2p/interop.py``; item
-4c), refit (item 12), the watchdog, profiling, traces, metrics, goodput and
-QoS (item 9), LoRA (item 11), speculation (item 7) and tensor parallelism
-(item 10).
+scheduler standbys, the relay, the model switch and the protobuf frames of
+the reference's nodes (``p2p/interop.py``; item 4c), refit (item 12), the
+watchdog, profiling, traces, metrics, goodput, QoS and the QoS
+autoscaler's re-role of a node (item 9), LoRA (item 11), speculation (item
+7) and tensor parallelism (item 10).
 """
 
 from __future__ import annotations
@@ -74,7 +95,11 @@ from concurrent.futures import wait as _fwait
 import torch
 
 from parallax_tpu_torch.analysis.sanitizer import make_lock
-from parallax_tpu_torch.config import ModelConfig, resolve_wire_dtype
+from parallax_tpu_torch.config import (
+    ModelConfig,
+    resolve_role,
+    resolve_wire_dtype,
+)
 from parallax_tpu_torch.constrained import grammar_vocab_from_tokenizer
 from parallax_tpu_torch.models import create_stage_model
 from parallax_tpu_torch.models.base import StageModel
@@ -90,6 +115,7 @@ from parallax_tpu_torch.runtime.engine import (
     StageEngine,
     drive_step,
 )
+from parallax_tpu_torch.runtime import kv_handoff
 from parallax_tpu_torch.runtime.checkpoint import (
     CheckpointError,
     build_resumed_request,
@@ -123,16 +149,17 @@ def _refuse_wire_request(d: dict) -> None:
         raise unported("QoS-tagged packets", 9)
 
 
-def _refuse_scheduler_reply(reply: dict) -> None:
+def _refuse_scheduler_reply(reply: dict, own_role: str) -> None:
     """Scheduler reply keys whose planes the port does not run yet. Their
     off values pass (a JAX scheduler always sends ``role`` and
-    ``refit_index``)."""
+    ``refit_index``): ``role`` passes when it echoes the worker's own."""
     if reply.get("not_primary") or reply.get("standbys"):
         raise unported("scheduler HA replies (not_primary, standbys)",
                        "4c")
     role = reply.get("role")
-    if role is not None and role != "mixed":
-        raise unported(f"a scheduler-assigned role {role!r}", "4c")
+    if role is not None and role != own_role:
+        raise unported(f"the QoS autoscaler's re-role {own_role!r} -> "
+                       f"{role!r}", 9)
     if reply.get("refit_index"):
         raise unported("weight refit (refit_index)", 12)
     if "qos_shed" in reply:
@@ -151,6 +178,22 @@ class WorkerNode:
     # Backoff between target-query attempts while no pipeline is
     # serviceable (bootstrap/rebalance in flight).
     MIGRATION_RETRY_S = 1.0
+    # Disaggregation handoff: a prefill head's parked request that has not
+    # landed on a decode replica within this long restores LOCALLY
+    # (mixed-mode decode) — never aborts.
+    HANDOFF_PARK_TIMEOUT_S = 20.0
+    # Backoff between ship attempts after a retryable failure.
+    HANDOFF_RETRY_S = 0.5
+    # A KV transfer whose decode-side result has not arrived within this
+    # long is presumed lost (target death, lane failure): fall back to a
+    # checkpoint-only re-ship. The target acks duplicates without a second
+    # submit, so a merely-lost result cannot double-decode.
+    HANDOFF_RESULT_TIMEOUT_S = 15.0
+    # Ship-thread backpressure on the kv lane: stop enqueueing while the
+    # peer's queue holds this many frames (well under the lane's max_queue
+    # of 64) and give a wedged lane this long before falling back.
+    KV_LANE_HIGH_WATER = 32
+    KV_LANE_DRAIN_TIMEOUT_S = 60.0
 
     def __init__(
         self,
@@ -164,21 +207,37 @@ class WorkerNode:
         layers: tuple[int, int] | None = None,
         device=None,
         tokenizer_path: str | None = None,
+        role: str | None = None,
+        kv_transfer_chunk_bytes: int | None = None,
     ):
         """``scheduler_peer`` is the scheduler's RPC address; None enters
         SCHEDULER-LESS mode, where the worker self-assigns ``layers``.
         ``device`` is the engine's (None = ``cuda:0``, ``"cpu"`` for the
         plain path). ``tokenizer_path`` (the checkpoint directory) gives a
-        last-stage worker the grammar vocabulary for json_schema rows. The
-        JAX worker's other arguments (mesh, refit cache,
-        LoRA, watchdog, role, standbys, the model resolver) wait for their
-        items; ``join`` refuses their flags by name."""
+        last-stage worker the grammar vocabulary for json_schema rows.
+        ``role`` is the phase specialization (prefill, decode or mixed, the
+        default); ``kv_transfer_chunk_bytes`` the payload target of one
+        layer-chunked KV_TRANSFER frame (default 4 MiB). The JAX worker's
+        other arguments (mesh, refit cache, LoRA, watchdog, standbys, the
+        model resolver) wait for their items; ``join`` refuses their flags
+        by name."""
         self.scheduler_peer = scheduler_peer
         self.standalone = scheduler_peer is None
         if self.standalone and layers is None:
             raise ValueError(
                 "scheduler-less mode requires explicit layers=(start, end)"
             )
+        # Phase specialization: "prefill" heads hand finished prompts to
+        # the decode pool over the KV lane; "decode" nodes are handoff
+        # targets; "mixed" serves both phases with no handoffs.
+        self.role = resolve_role(role)
+        if self.standalone and self.role != "mixed":
+            logger.warning(
+                "--role %s ignored in scheduler-less mode: no scheduler to "
+                "assign decode-pool targets; this worker serves both "
+                "phases", self.role,
+            )
+            self.role = "mixed"
         self.transport = transport
         self.model_config = model_config
         # Own copy: callers may share one EngineConfig across workers.
@@ -249,6 +308,28 @@ class WorkerNode:
         # step thread (per-peer bounded in-order queues); overflow or send
         # failure feeds the abort path.
         self.sender = AsyncSender(transport, on_failure=self._on_send_failure)
+        # The KV handoff's transfer lane is a SECOND AsyncSender: page bulk
+        # rides its own per-peer FIFOs, so a multi-megabyte handoff never
+        # head-of-line blocks FORWARD / RELEASE traffic (or the reverse).
+        self.kv_transfer_chunk_bytes = int(
+            kv_transfer_chunk_bytes or kv_handoff.DEFAULT_CHUNK_BYTES)
+        self.kv_sender = AsyncSender(
+            transport, max_queue=64, on_failure=self._on_kv_send_failure,
+            name="kv",
+        )
+        # Handoff counters (the JAX worker's metrics-registry families,
+        # item 9) and the inbound reassembly (this node as a decode
+        # target), swept from the heartbeat thread.
+        self.handoff_stats = kv_handoff.HandoffStats()
+        self._kv_assembler = kv_handoff.HandoffAssembler(
+            stats=self.handoff_stats)
+        # Source-side ledger (this node as a prefill head), step-thread
+        # state mirroring the migration maps: rid -> flag time for rows
+        # draining out of the in-flight window, rid -> park entry for
+        # checkpointed requests moving through the ship ladder.
+        self._handoff_pending: dict[str, float] = {}
+        self._handoff_parked: dict[str, dict] = {}
+        self._handoff_warned = False
         # Fail fast on a bad wire dtype (and on the float8 mode).
         want = resolve_wire_dtype(self.engine_config.wire_dtype,
                                   model_config.dtype)
@@ -276,13 +357,10 @@ class WorkerNode:
         transport.register(proto.CHAT_STOP, self._on_chat_stop)
         transport.register(proto.WIRE_CAPS, self._on_wire_caps)
         transport.register(proto.CHECKPOINT, self._on_checkpoint)
+        transport.register(proto.KV_TRANSFER, self._on_kv_transfer)
+        transport.register(proto.KV_RESULT, self._on_kv_result)
         transport.register("__ping__", make_ping_handler())
-        for method, what, item in (
-            (proto.KV_TRANSFER, "the KV handoff", "4c"),
-            (proto.KV_RESULT, "the KV handoff", "4c"),
-            (proto.PROFILE, "profiling", 9),
-        ):
-            transport.register(method, self._refusal(what, item))
+        transport.register(proto.PROFILE, self._refusal("profiling", 9))
         # Head-node chat requests by id (polled by the chat host).
         self._chat_requests: dict[str, Request] = {}
         # rid -> (route, park-to-restore seconds on the wall clock) of each
@@ -328,6 +406,7 @@ class WorkerNode:
         for t in self._threads:
             t.join(timeout=3.0)
         self.sender.close()
+        self.kv_sender.close()
         if self._gossip_pool is not None:
             self._gossip_pool.shutdown(wait=False, cancel_futures=True)
         if not self.standalone:
@@ -357,8 +436,9 @@ class WorkerNode:
             "hardware": self._hardware,
             # The dtype names this build decodes on activation frames.
             "wire_formats": list(proto.WIRE_DTYPES),
-            # Roles wait for item 4c: every port worker serves both phases.
-            "role": "mixed",
+            # Phase specialization: the scheduler keeps pipelines
+            # role-homogeneous and phase-filters routing pools.
+            "role": self.role,
         }
         deadline = time.monotonic() + timeout_s
         backoff = 0.25
@@ -379,7 +459,7 @@ class WorkerNode:
         if not reply or ("start_layer" not in reply
                          and "standby" not in reply):
             raise RuntimeError(f"join rejected: {reply}")
-        _refuse_scheduler_reply(reply)
+        _refuse_scheduler_reply(reply, self.role)
         self._sched_epoch = max(self._sched_epoch,
                                 int(reply.get("epoch") or 1))
         return reply
@@ -430,6 +510,20 @@ class WorkerNode:
             model, params, self.engine_config, device=self.device,
             host_hidden=True,
         )
+        if (
+            self.role == "prefill"
+            and self.engine.host_tier is None
+            and not self._handoff_warned
+        ):
+            # Page shipping needs the host tier on the source to harvest
+            # images.
+            self._handoff_warned = True
+            logger.warning(
+                "%s: kv-image handoff disabled: no host KV tier on this "
+                "prefill-role worker — handoffs ship checkpoints only and "
+                "the decode pool re-prefills (set --host-cache-bytes to "
+                "enable page shipping)", self.node_id,
+            )
         # Fresh engine = empty radix tree: the scheduler's digest mirror
         # for this node is stale; the next heartbeat ships a snapshot.
         self._digests_full_next = True
@@ -531,6 +625,10 @@ class WorkerNode:
                 if self.standalone:
                     self._gossip_beat()
                 else:
+                    # Inbound KV transfers whose source died mid-flight
+                    # are discarded here (the request recovers through the
+                    # source's result timeout or the client resume ladder).
+                    self._kv_assembler.sweep()
                     self._heartbeat()
                 self._reap_rx_stats()
             except Exception as e:
@@ -589,7 +687,7 @@ class WorkerNode:
         if reply.get("digests_resync"):
             # The scheduler saw a sequence gap: a full snapshot next beat.
             self._digests_full_next = True
-        _refuse_scheduler_reply(reply)
+        _refuse_scheduler_reply(reply, self.role)
         if reply.get("rejoin"):
             # The scheduler lost us (restart or heartbeat eviction).
             logger.warning("%s: scheduler asked for rejoin", self.node_id)
@@ -1084,6 +1182,10 @@ class WorkerNode:
                     # Park drained requests as checkpoints and ship the
                     # parked ones to their target pipelines.
                     self._migration_tick(eng)
+                if self.role == "prefill" and not self.standalone:
+                    # Disaggregation: move finished prompts to the decode
+                    # pool (flag -> park -> ship -> result).
+                    self._handoff_tick(eng)
                 if eng is None:
                     self._wake.wait(0.01)
                     self._wake.clear()
@@ -1212,6 +1314,36 @@ class WorkerNode:
                 self._restore_checkpoint(item[1], item[2])
             elif kind == "migration_shipped":
                 self._on_migration_shipped(item[1])
+            elif kind == "handoff_shipped":
+                self._on_handoff_shipped(item[1])
+            elif kind == "handoff_result":
+                self._on_handoff_result(item[1])
+            elif kind == "handoff_confirmed":
+                # The park deadline's ownership check came back (the entry
+                # is already out of the parked map).
+                rid, e, owner = item[1], item[2], item[3]
+                if isinstance(owner, str) and owner != self.node_id:
+                    # The transfer DID land there: the target's finish
+                    # releases the retained path charge; ours releases the
+                    # old path through _finish_handoff.
+                    e.pop("pinned_charged", None)
+                    self._finish_handoff(rid, e, owner, with_kv=True)
+                else:
+                    self._handoff_restore_local(e, "park deadline")
+            elif kind == "kv_lane_down":
+                # The transfer lane to a decode head died: transfers
+                # awaiting its result cannot complete — fall back to a
+                # checkpoint-only re-ship now instead of waiting out the
+                # result timeout.
+                peer = item[1]
+                now = time.monotonic()
+                for rid, e in self._handoff_parked.items():
+                    if (
+                        e.get("awaiting_since") is not None
+                        and e.get("target") == peer
+                    ):
+                        self._handoff_transfer_failed(
+                            rid, e, "transfer_failed", now)
             elif kind == "liveness":
                 # Abort requests routed through peers whose announcements
                 # expired — one scan per beat.
@@ -1232,6 +1364,10 @@ class WorkerNode:
     def _flag_for_migration(self, req: Request, dead_peer: str) -> None:
         rid = req.request_id
         if rid in self._migration_pending or rid in self._migration_parked:
+            return
+        if rid in self._handoff_pending or rid in self._handoff_parked:
+            # Already leaving through the handoff: its own ladder
+            # (re-ship, local restore) recovers it.
             return
         req.migrating = True
         self._migration_pending[rid] = dead_peer
@@ -1493,10 +1629,583 @@ class WorkerNode:
         while len(self._migrated_to) > 4096:
             self._migrated_to.popitem(last=False)
 
+    # -- disaggregated prefill / decode: the KV handoff -------------------
+    #
+    # Prefill-role head flow, one step-loop pass at a time: a request
+    # crosses the prefill / decode boundary (prompt KV computed, first
+    # token committed) -> FLAGGED (``migrating`` stops the local scheduler
+    # from planning it into further steps and windows) -> once out of the
+    # in-flight window it is PARKED exactly like a migration (KV preempted
+    # to the host tier and harvested into an image, the grammar fields
+    # read, the request extracted, pages released) -> the scheduler picks
+    # a CacheIndex-scored DECODE-POOL target -> the image streams over the
+    # KV lane as layer-chunked KV_TRANSFER frames -> the decode head
+    # assembles, validates through the strict checkpoint decoder, admits
+    # the request like a preempted resume and answers KV_RESULT. Fallback
+    # ladder on any miss: checkpoint-only re-ship (re-prefill from the
+    # target's radix + teacher-forced replay), then local restore
+    # (mixed-mode decode here), then — only if the engine itself is gone —
+    # abort.
+
+    def _handoff_tick(self, eng) -> None:
+        """One step-loop pass of the handoff state machine: flag, park,
+        ship, resolve result timeouts and the park deadline."""
+        now = time.monotonic()
+        if eng is not None and eng.model.is_first:
+            for rid in eng.handoff_ready_rids():
+                if (
+                    rid in self._handoff_pending
+                    or rid in self._handoff_parked
+                    or rid in self._migration_pending
+                ):
+                    continue
+                req = eng.scheduler.running.get(rid)
+                if req is None or req.status.is_finished:
+                    continue
+                if req.handoff_local:
+                    continue
+                req.migrating = True
+                self._handoff_pending[rid] = now
+        if self._handoff_pending and eng is not None:
+            inflight = eng.inflight_rids()
+            for rid in list(self._handoff_pending):
+                sched = eng.scheduler
+                req = sched.running.get(rid) or sched.wait_queue.get(rid)
+                if req is None or req.status.is_finished:
+                    self._handoff_pending.pop(rid, None)
+                    continue
+                if rid in inflight:
+                    continue    # pages still being written; next pass
+                flagged = self._handoff_pending.pop(rid)
+                self._park_for_handoff(eng, req, flagged)
+        ready = [
+            rid for rid, e in self._handoff_parked.items()
+            if not e["shipping"] and e["awaiting_since"] is None
+            and now >= e["next_attempt"]
+        ]
+        if ready:
+            for rid in ready:
+                self._handoff_parked[rid]["shipping"] = True
+            entries = {rid: self._handoff_parked[rid] for rid in ready}
+            threading.Thread(
+                target=self._ship_handoffs, args=(entries,),
+                daemon=True, name="kv-handoff-ship",
+            ).start()
+        for rid, e in list(self._handoff_parked.items()):
+            if (
+                e["awaiting_since"] is not None
+                and now - e["awaiting_since"] > self.HANDOFF_RESULT_TIMEOUT_S
+            ):
+                self._handoff_transfer_failed(rid, e, "result_timeout", now)
+            elif (
+                not e["shipping"]
+                and e["awaiting_since"] is None
+                and now > e["deadline"]
+            ):
+                # Park deadline: nobody (provably) took it — decode it
+                # HERE, the mixed-mode rung, never an abort. An entry that
+                # ever had a pinned target first confirms ownership with
+                # the scheduler's where_is table: under an asymmetric
+                # partition the target may own the request while every
+                # result and re-ship back to us was lost, and a local
+                # restore would then fork it onto two heads.
+                self._handoff_parked.pop(rid)
+                if e.get("pinned_target"):
+                    threading.Thread(
+                        target=self._confirm_then_restore_local,
+                        args=(rid, e), daemon=True,
+                        name="kv-handoff-confirm",
+                    ).start()
+                else:
+                    self._handoff_restore_local(e, "park deadline")
+
+    def _confirm_then_restore_local(self, rid: str, e: dict) -> None:
+        """Background thread (the where_is RPC must not block the step
+        thread): if the scheduler records another head owning ``rid``, the
+        earlier transfer landed — finish the handoff instead of forking a
+        local copy. An unknown or unreachable answer restores locally
+        (availability first)."""
+        owner = None
+        try:
+            reply = self.transport.call(
+                self.scheduler_peer, proto.WHERE_IS, {"rid": rid},
+                timeout=5.0,
+            )
+            owner = (reply or {}).get("head")
+        except Exception:
+            owner = None
+        self._post(("handoff_confirmed", rid, e, owner))
+
+    def _handoff_transfer_failed(
+        self, rid: str, e: dict, reason: str, now: float, pin: bool = True,
+    ) -> None:
+        """A KV transfer died (nack, lane failure, result timeout): release
+        the charged target path and drop to the checkpoint-only rung on the
+        next ship attempt.
+
+        ``pin`` (timeouts and lane failures — wherever the target's verdict
+        is UNKNOWN) routes that re-ship back to the SAME target: if the
+        slow transfer succeeded there, the duplicate ack resolves it in
+        place, whereas a fresh target would leave two heads decoding the
+        same request. An explicit nack from the target (it does NOT own
+        the request) re-ships pin-free."""
+        self.handoff_stats.record_fallback(reason)
+        path = e.get("target_path")
+        if pin and e.get("target"):
+            # Verdict unknown: the target MAY own (and later finish) the
+            # request, and its finish releases the path charge — releasing
+            # here too would double-decrement the decode head's load.
+            # Keep the charge with the pin; it is released only once the
+            # pinned re-ship proves the target does NOT own the request
+            # (reject / unreachable) or the park deadline restores it
+            # locally.
+            e["pinned_target"] = e["target"]
+            e["pinned_path"] = list(path or [e["target"]])
+            e["pinned_charged"] = bool(path)
+        elif path:
+            # Explicit nack (or no known target): the target never took
+            # ownership, so nothing else releases the router charge the
+            # scheduler made when it chose this path.
+            self.sender.send(
+                self.scheduler_peer, proto.REQUEST_COMPLETE,
+                {"path": list(path)}, best_effort=True,
+            )
+        e["awaiting_since"] = None
+        e["target"] = None
+        e["target_path"] = None
+        e["kv_failed"] = True
+        e["next_attempt"] = now
+
+    def _release_pinned_charge(self, e: dict) -> None:
+        """Release the router charge kept across a pinned re-ship — once,
+        when the pinned target is proven NOT to own the request or the
+        request restores locally."""
+        if e.pop("pinned_charged", False) and e.get("pinned_path"):
+            self.sender.send(
+                self.scheduler_peer, proto.REQUEST_COMPLETE,
+                {"path": list(e["pinned_path"])}, best_effort=True,
+            )
+
+    def _park_for_handoff(self, eng, req: Request, flagged: float) -> None:
+        """Checkpoint one finished prompt out of the prefill engine, on the
+        step thread (cache bookkeeping and every CUDA call live there).
+        The mechanics of a migration park: the grammar fields first, then
+        a host-tier preempt and image harvest where possible, extract,
+        release. The ship thread reads only what this parks (CPU tensors
+        and host values)."""
+        rid = req.request_id
+        t_park = time.monotonic()
+        image = None
+        # Read before ``extract``, which drops the engine's DFA state. The
+        # JAX park reads none, and its decode head recomputes the state
+        # from the stream.
+        grammar = eng.grammar_checkpoint_fields(rid)
+        if eng.host_tier is not None and self._harvestable(req):
+            try:
+                if req.status is RequestStatus.PREFILLING:
+                    eng.cache.trim_uncomputed_pages(req)
+                if eng.cache.preempt_to_host(req):
+                    image = eng.harvest_kv_image(req)
+            except Exception:
+                logger.exception(
+                    "%s: KV harvest for the handoff of %s failed (the "
+                    "decode pool will re-prefill)", self.node_id, rid,
+                )
+                image = None
+        extracted = eng.extract(rid)
+        if extracted is None:
+            # Raced back into flight; re-flag and retry next pass.
+            self._handoff_pending[rid] = flagged
+            return
+        old_table = list(req.routing_table)
+        try:
+            eng.cache.release(req)
+        except Exception:
+            logger.exception("%s: cache release for handoff %s failed",
+                             self.node_id, rid)
+        # Multi-stage prefill pipeline: downstream mirrors drop now.
+        for peer in old_table:
+            if peer != self.node_id:
+                self.sender.send(
+                    peer, proto.RELEASE,
+                    {"rids": [rid], "abort": True}, best_effort=True,
+                )
+        now = time.monotonic()
+        self._handoff_parked[rid] = {
+            "req": req,
+            "image": image,
+            "grammar": grammar,
+            "old_table": old_table,
+            "parked_wall": time.time(),
+            "parked": now,
+            "deadline": now + self.HANDOFF_PARK_TIMEOUT_S,
+            "next_attempt": now,
+            "shipping": False,
+            "awaiting_since": None,
+            "target": None,
+            "target_path": None,
+            "t_ship": None,
+            "kv_failed": False,
+            # Set by a result timeout or a lane failure: the next ship
+            # goes back to this target (checkpoint-only), so a slow but
+            # successful transfer resolves through the duplicate ack
+            # instead of double-decoding on a fresh target.
+            "pinned_target": None,
+            "pinned_path": None,
+            # Static ladder rungs already counted for this entry: the
+            # retry loop derives the same reason on every attempt.
+            "fallbacks_counted": set(),
+        }
+        self.handoff_stats.note(
+            rid, flag_to_park_ms=(now - flagged) * 1e3,
+            park_ms=(now - t_park) * 1e3,
+            pages=(int(image.layers[0].shape[0]) if image is not None
+                   else 0),
+            tokens=len(req.full_output_ids),
+        )
+
+    def _ship_handoffs(self, entries: dict[str, dict]) -> None:
+        """Ship thread: decode-pool targets from the scheduler, then per
+        request either stream the KV image over the KV lane or ship the
+        checkpoint inline (re-prefill rungs). Reads only parked (frozen)
+        state; every entry ALWAYS gets a result posted."""
+        results: dict[str, tuple] = {}
+        try:
+            self._ship_handoffs_inner(entries, results)
+        except Exception:
+            logger.exception("%s: handoff ship failed", self.node_id)
+        finally:
+            for rid in entries:
+                results.setdefault(rid, ("retry", "ship error"))
+            self._post(("handoff_shipped", results))
+
+    def _ship_handoffs_inner(
+        self, entries: dict[str, dict], results: dict[str, tuple]
+    ) -> None:
+        page = self.engine_config.page_size
+        descriptors = [
+            self._target_descriptor(e["req"], page)
+            for e in entries.values()
+            if not e.get("pinned_target")   # known target: no query
+        ]
+        targets = {}
+        if descriptors:
+            try:
+                reply = self.transport.call(
+                    self.scheduler_peer, proto.DISAGG_TARGET,
+                    {"requests": descriptors, "exclude": [self.node_id]},
+                    timeout=15.0,
+                )
+                targets = (reply or {}).get("targets") or {}
+            except Exception as exc:
+                logger.warning("%s: disagg_target query failed: %s",
+                               self.node_id, exc)
+        for rid, e in entries.items():
+            pinned = e.get("pinned_target")
+            image = e["image"]
+            if pinned:
+                # Re-ship after a timeout: BACK to the original target,
+                # checkpoint-only. If the slow transfer succeeded there,
+                # the duplicate ack resolves it in place; no fresh router
+                # charge was made for this path.
+                path = [str(x) for x in (e.get("pinned_path") or [pinned])]
+                head, kv_ok, charged = path[0], False, False
+            else:
+                t = targets.get(rid)
+                if not isinstance(t, dict) or not t.get("path"):
+                    # No decode / mixed pipeline serviceable: keep it
+                    # local (mixed-mode decode), visible in the
+                    # scheduler's disagg no_target counter.
+                    results[rid] = ("local", "no serviceable decode "
+                                    "pipeline")
+                    continue
+                path = [str(x) for x in t["path"]]
+                head = path[0]
+                charged = True
+                predicted = int(t.get("predicted_cached_tokens") or 0)
+                reason = None
+                if image is None:
+                    reason = "no_image"   # no host tier / partial park
+                elif e["kv_failed"]:
+                    pass                  # counted at the failure site
+                elif len(path) != 1 or list(
+                    t.get("head_layers") or []
+                ) != [image.start_layer, image.end_layer]:
+                    reason = "layout"     # raw pages cannot adopt there
+                elif predicted >= image.computed_tokens - page:
+                    # Smart skip: the target's radix already covers
+                    # (within a page of) everything the image holds —
+                    # re-prefilling there is about one page of compute,
+                    # cheaper than the wire.
+                    reason = "prefix_warm"
+                kv_ok = (
+                    image is not None and not e["kv_failed"]
+                    and reason is None
+                )
+                if reason is not None \
+                        and reason not in e["fallbacks_counted"]:
+                    e["fallbacks_counted"].add(reason)
+                    self.handoff_stats.record_fallback(reason)
+            ckpt = kv_handoff.handoff_checkpoint(
+                e["req"], path, kv=None, grammar=e["grammar"])
+            ckpt.parked_wall = e["parked_wall"]
+            wire = checkpoint_to_wire(ckpt)
+            if kv_ok:
+                frames = kv_handoff.image_to_frames(
+                    rid, wire, image, self.kv_transfer_chunk_bytes)
+                total_b = sum(b for _f, b in frames)
+                t_first = time.monotonic()
+                if not self._enqueue_kv_frames(head, frames):
+                    # Backpressure deadline hit (lane wedged, or the image
+                    # outruns the link): the assembler's sequence check
+                    # nacks whatever partial landed, and this request
+                    # takes the checkpoint-only rung NOW.
+                    self.handoff_stats.record_fallback("transfer_failed")
+                    e["kv_failed"] = True
+                    results[rid] = ("retry", "kv lane backpressure")
+                    self.sender.send(
+                        self.scheduler_peer, proto.REQUEST_COMPLETE,
+                        {"path": path}, best_effort=True,
+                    )
+                    continue
+                self.handoff_stats.record_transfer(
+                    "out", frames=len(frames), nbytes=total_b)
+                self.handoff_stats.note(
+                    rid, target=head, frames=len(frames), bytes=total_b)
+                results[rid] = ("sent", (head, path, t_first))
+            else:
+                # Checkpoint-only rung: the acknowledged migration wire;
+                # the target re-prefills from its own radix and
+                # teacher-forces the recorded tokens.
+                try:
+                    reply = self.transport.call(
+                        head, proto.CHECKPOINT,
+                        {"checkpoints": [wire]}, timeout=30.0,
+                    )
+                except Exception:
+                    results[rid] = ("retry", f"target {head} unreachable")
+                    if charged:
+                        self.sender.send(
+                            self.scheduler_peer, proto.REQUEST_COMPLETE,
+                            {"path": path}, best_effort=True,
+                        )
+                    # A pinned target stays pinned when UNREACHABLE: a
+                    # call timeout to a live but overloaded head looks
+                    # like death here, and shipping to a fresh target
+                    # while the pinned one may own the request would fork
+                    # it onto two heads. A dead target resolves at the
+                    # park deadline (local restore).
+                    continue
+                accepted = set((reply or {}).get("accepted") or ())
+                if rid in accepted:
+                    results[rid] = ("ok", head)
+                else:
+                    rejected = (reply or {}).get("rejected") or {}
+                    results[rid] = (
+                        "retry",
+                        str(rejected.get(rid) or "target rejected"),
+                    )
+                    if charged:
+                        self.sender.send(
+                            self.scheduler_peer, proto.REQUEST_COMPLETE,
+                            {"path": path}, best_effort=True,
+                        )
+                    if pinned:
+                        # Explicit rejection: the pinned target does NOT
+                        # own the request — release the kept charge and
+                        # let the next round pick any decode replica.
+                        self._release_pinned_charge(e)
+                        e["pinned_target"] = None
+                        e["pinned_path"] = None
+
+    def _enqueue_kv_frames(self, head: str, frames: list) -> bool:
+        """Feed one transfer's frames onto the KV lane WITH backpressure
+        (the ship thread may block): enqueueing a many-frame image at once
+        would overflow the lane's bounded queue — destroying the transfer
+        and reporting a healthy decode head as down — because an enqueue
+        is instantaneous while the drain runs at wire speed. False at the
+        deadline; the caller falls back to checkpoint-only."""
+        deadline = time.monotonic() + self.KV_LANE_DRAIN_TIMEOUT_S
+        for f, b in frames:
+            while self.kv_sender.queue_depth(head) >= self.KV_LANE_HIGH_WATER:
+                if time.monotonic() > deadline or self._stop.is_set():
+                    return False
+                time.sleep(0.005)
+            # The lazy tuple payload feeds the lane's telemetry; the frame
+            # was built here on the ship thread, so the worker only packs.
+            self.kv_sender.send(
+                head, proto.KV_TRANSFER, (lambda f=f, b=b: (f, b, b)),
+            )
+        return True
+
+    def _on_handoff_shipped(self, results: dict[str, tuple]) -> None:
+        """Step thread: fold one ship round's outcomes back into the parked
+        ledger."""
+        now = time.monotonic()
+        for rid, (status, info) in results.items():
+            e = self._handoff_parked.get(rid)
+            if e is None:
+                continue
+            e["shipping"] = False
+            if status == "ok":
+                self._handoff_parked.pop(rid)
+                self._finish_handoff(rid, e, info, with_kv=False)
+            elif status == "sent":
+                head, path, t_first = info
+                e["awaiting_since"] = now
+                e["t_ship"] = t_first
+                e["target"] = head
+                e["target_path"] = list(path)
+                early = e.pop("early_result", None)
+                if early is not None:
+                    # The decode head answered before this ship round's
+                    # results event landed (TCP and loopback can race):
+                    # consume the stashed result now instead of stalling
+                    # to the result timeout and re-shipping a request the
+                    # target already owns.
+                    self._on_handoff_result(early)
+            elif status == "local":
+                self._handoff_parked.pop(rid)
+                self.handoff_stats.record_fallback("no_decode_pool")
+                self._handoff_restore_local(e, str(info))
+            else:   # retry
+                e["next_attempt"] = now + self.HANDOFF_RETRY_S
+
+    def _on_handoff_result(self, payload: dict) -> None:
+        """Step thread: a decode head's KV_RESULT for one transfer."""
+        rid = str(payload.get("rid") or "")
+        e = self._handoff_parked.get(rid)
+        if e is None:
+            return      # late or duplicate result; already resolved
+        if e["awaiting_since"] is None:
+            if e["shipping"]:
+                # Raced ahead of the ship round's own results event: stash
+                # it — the "sent" transition consumes it.
+                e["early_result"] = dict(payload)
+            return
+        if payload.get("ok"):
+            self._handoff_parked.pop(rid)
+            now = time.monotonic()
+            if e["t_ship"] is not None:
+                # Out-leg latency: first frame enqueued -> accept.
+                ms = (now - e["t_ship"]) * 1e3
+                self.handoff_stats.record_transfer(
+                    "out", frames=0, nbytes=0, ms=ms)
+                self.handoff_stats.note(rid, ship_to_result_ms=ms)
+            self.handoff_stats.note(
+                rid, park_to_result_ms=(now - e["parked"]) * 1e3)
+            self._finish_handoff(rid, e, e.get("target") or "?",
+                                 with_kv=True)
+        else:
+            logger.warning(
+                "%s: kv transfer of %s rejected by %s (%s); falling back "
+                "to checkpoint-only", self.node_id, rid, e.get("target"),
+                payload.get("reason") or "?",
+            )
+            # Explicit nack: the target does NOT own the request — the
+            # re-ship may pick any decode replica.
+            self._handoff_transfer_failed(
+                rid, e, "transfer_failed", time.monotonic(), pin=False)
+
+    def _finish_handoff(
+        self, rid: str, e: dict, head: str, with_kv: bool
+    ) -> None:
+        """The decode head owns the request now: redirect pollers, release
+        the old (prefill) path's load charge."""
+        self._record_migrated(rid, head)
+        self._chat_requests.pop(rid, None)
+        self._request_events.pop(rid, None)
+        self.sender.send(
+            self.scheduler_peer, proto.REQUEST_COMPLETE,
+            {"path": e["old_table"] or [self.node_id]}, best_effort=True,
+        )
+        self.handoff_stats.note(rid, target=head,
+                                outcome="image" if with_kv else "checkpoint")
+        logger.info("%s: handed %s off to %s (%s)", self.node_id, rid,
+                    head, "KV image" if with_kv else "checkpoint only")
+
+    def _handoff_restore_local(self, e: dict, reason: str) -> None:
+        """Mixed-mode rung: decode the parked request HERE, through the
+        restore path a decode target runs (KV-image adoption through the
+        host tier included), so the continuation is bit-identical whichever
+        rung serves it.
+
+        The restored request keeps its ORIGINAL routing table: on a
+        multi-stage prefill pipeline the head hosts only its own layer
+        slice, so decode still flows through the downstream stages (whose
+        mirrors the replay's re-prefill rebuilds), and the finish releases
+        exactly the path the dispatcher charged. The image is re-adopted
+        only on a single-stage head: adopting it on a multi-stage head
+        would skip the re-prefill that feeds the downstream stages their
+        KV."""
+        req = e["req"]
+        rid = req.request_id
+        logger.info("%s: restoring the handoff of %s locally (%s)",
+                    self.node_id, rid, reason)
+        self._release_pinned_charge(e)
+        table = list(e["old_table"] or [self.node_id])
+        ckpt = kv_handoff.handoff_checkpoint(
+            req, table, kv=e["image"] if len(table) == 1 else None,
+            grammar=e["grammar"])
+        ckpt.parked_wall = e["parked_wall"]
+        self.handoff_stats.note(rid, outcome="local")
+        self._restore_checkpoint(ckpt, self.node_id)
+
+    def _on_kv_transfer(self, peer: str, payload):
+        """Decode-target side of the KV lane (a transport thread, CPU
+        tensors only): assemble layer-chunked frames; on the end frame,
+        admit like an rpc_checkpoint batch — the step thread adopts the
+        pages — and answer KV_RESULT (the source releases its state only
+        on ok)."""
+        res = self._kv_assembler.feed(peer, payload)
+        if res is None:
+            return "ok"
+        kind, val = res
+        rid = payload.get("rid") if isinstance(payload, dict) else None
+        if kind == "error":
+            logger.warning("%s: kv transfer from %s rejected: %s",
+                           self.node_id, peer, val)
+            if rid:
+                self.sender.send(
+                    peer, proto.KV_RESULT,
+                    {"rid": str(rid), "ok": False, "reason": str(val)},
+                    best_effort=True,
+                )
+            return "ok"
+        ckpt = val
+        ok, reason = self._admit_restore(ckpt, peer)
+        self.sender.send(
+            peer, proto.KV_RESULT,
+            {"rid": ckpt.request_id, "ok": ok, "reason": reason},
+            best_effort=True,
+        )
+        return "ok"
+
+    def _on_kv_result(self, _peer: str, payload: dict):
+        self._post(("handoff_result", dict(payload or {})))
+        return "ok"
+
+    def _on_kv_send_failure(self, peer: str, reason: str) -> None:
+        """KV lane failure. Unlike the data plane's, nothing routed through
+        ``peer`` still runs here — handed-off requests were parked and
+        extracted first — so no abort_path scan. Report the peer down and
+        fail the awaiting transfers over to the checkpoint-only rung."""
+        logger.error("%s: kv lane to %s failed: %s",
+                     self.node_id, peer, reason)
+        if not self.standalone and peer != self.scheduler_peer:
+            self.sender.send(
+                self.scheduler_peer, proto.PEER_DOWN,
+                {"reporter": self.node_id, "peer": peer,
+                 "reason": f"kv lane: {reason}"},
+                best_effort=True,
+            )
+        self._post(("kv_lane_down", peer))
+
     def _admit_restore(self, ckpt, peer: str) -> tuple[bool, str]:
-        """Admission gate for migrated checkpoints: duplicate ships ack
-        WITHOUT a second submit, saturation rejects so the source retries
-        elsewhere, and the poll mirror registers BEFORE the ack so
+        """Admission gate for migrated and handed-off checkpoints (inline
+        rpc_checkpoint batches and assembled KV transfers): duplicate ships
+        ack WITHOUT a second submit, saturation rejects so the source
+        retries elsewhere, and the poll mirror registers BEFORE the ack so
         redirected pollers never see "unknown request"."""
         if self.engine is None:
             return False, "no engine"
@@ -1554,11 +2263,24 @@ class WorkerNode:
             self._chat_requests[rid] = req
             self._finish(req)
             return
-        adopted = ckpt.kv is not None and eng.adopt_checkpoint_kv(req, ckpt.kv)
+        adopted = False
+        if ckpt.kv is not None:
+            try:
+                adopted = eng.adopt_checkpoint_kv(req, ckpt.kv)
+            except Exception:
+                logger.exception("%s: KV adoption for %s failed; "
+                                 "re-prefilling", self.node_id, rid)
+                adopted = False
         if not adopted:
             # No image to swap in: restart from the original prompt and
             # replay the recorded outputs through decode steps.
             req = build_resumed_request(ckpt, replay=True)
+        handoff = ckpt.handoff
+        if handoff and from_peer == self.node_id:
+            # Local-restore rung: this PREFILL head decodes the request
+            # itself (no decode pool). Pin it local, or the next handoff
+            # tick would flag it again the moment it resumes.
+            req.handoff_local = True
         self._chat_requests[rid] = req
         try:
             ok = eng.submit(req)
@@ -1572,17 +2294,26 @@ class WorkerNode:
             self._finish(req)
             return
         logger.info(
-            "%s: restored migrated request %s from %s (%d prior tokens, "
-            "%s)", self.node_id, rid, from_peer, len(ckpt.output_ids),
+            "%s: restored %s request %s from %s (%d prior tokens, %s)",
+            self.node_id, "handed-off" if handoff else "migrated", rid,
+            from_peer, len(ckpt.output_ids),
             "KV image adopted" if adopted else "re-prefill + replay",
         )
-        self.restores[rid] = (
-            "kv_image" if adopted else "replay",
-            max(0.0, time.time() - ckpt.parked_wall),
-        )
-        while len(self.restores) > 4096:
-            self.restores.popitem(last=False)
+        if handoff:
+            # Planned phase handoffs count apart from churn migrations.
+            self.handoff_stats.record_handoff(
+                "local" if from_peer == self.node_id
+                else ("kv_image" if adopted else "reprefill"))
+        else:
+            self.restores[rid] = (
+                "kv_image" if adopted else "replay",
+                max(0.0, time.time() - ckpt.parked_wall),
+            )
+            while len(self.restores) > 4096:
+                self.restores.popitem(last=False)
         if not self.standalone:
+            # Handoffs report through the same where_is table: pollers
+            # that lose the prefill head still find the decode head.
             self.sender.send(
                 self.scheduler_peer, proto.MIGRATION_DONE,
                 {"rid": rid, "head": self.node_id}, best_effort=True,

@@ -706,6 +706,22 @@ class StageEngine:
         req.device_feed_ready = False
         return req
 
+    def handoff_ready_rids(self) -> list[str]:
+        """Head-owned requests past the prefill / decode boundary (prompt
+        KV fully computed, first token committed): the set a prefill-role
+        head hands to the decode pool each step-loop pass. Excludes
+        mirrors, finished rows and rows already flagged for migration or
+        handoff (``migrating`` also stops the local scheduler from
+        planning them into further steps and windows, so the park lands
+        once the window in flight resolves)."""
+        return [
+            rid for rid, req in self.scheduler.running.items()
+            if req.status is RequestStatus.DECODING
+            and req.is_prefill_done
+            and not req.migrating
+            and not getattr(req, "is_mirror", False)
+        ]
+
     def kv_page_signature(self) -> tuple | None:
         """Shape/dtype identity of one KV page across this stage's layers,
         in the JAX engine's form (dtype names included), so a port

@@ -161,6 +161,10 @@ class Request:
     # engine: the local scheduler stops scheduling (and never preempts)
     # a row that is about to be checkpointed away.
     migrating: bool = False
+    # Set on a request a prefill-role head restored locally (no decode
+    # pool took it): it decodes here, and the handoff tick never flags it
+    # again.
+    handoff_local: bool = False
     # Multi-tenant QoS (parallax_tpu/qos, docs/qos.md): the request's
     # class tag (interactive / agent / batch), its absolute deadline on
     # THIS process's monotonic clock (None = derive from the class

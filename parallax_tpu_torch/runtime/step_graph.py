@@ -25,11 +25,14 @@ window). All graphs of an engine share one memory pool, released with the
 engine.
 
 Launch counts: a replay runs no wrapper, so each graph records the counts
-its capture added (``ops/cuda_kernels.py::LAUNCHES``) and every replay adds
-them. The capture launches nothing, so its counts are taken back; the
-warm-up's launches ran and stay counted, and ``warmup_launches`` sums them
-so that a caller can hold the counts to layers x forward steps exactly. A
-capture that fails raises: there is no eager fallback.
+its capture tallied on the capturing thread (``ops/cuda_kernels.py::
+tally``) and every replay adds them to ``LAUNCHES``. The capture launches
+nothing, so its counts stay out of ``LAUNCHES``; the warm-up's launches ran
+and are counted, and ``warmup_launches`` sums them so that a caller can
+hold the counts to layers x forward steps exactly. The capture is
+thread-local, so two engines serving from two threads of one process (two
+workers on one card) capture and launch side by side. A capture that fails
+raises: there is no eager fallback.
 """
 
 from __future__ import annotations
@@ -93,7 +96,6 @@ class WindowGraphs:
 
     def _capture(self, state, step: Callable) -> _Graph:
         t = [time.perf_counter()]
-        before = ck.launches()
         stream = torch.cuda.current_stream(self.device)
         side = self._stream
         static = state.clone()
@@ -102,26 +104,27 @@ class WindowGraphs:
         # Capture on the side stream behind the warm-up, without the
         # synchronize, gc.collect and empty_cache that torch.cuda.graph adds
         # (emptying the allocator's cache would make the next eager steps
-        # go back to cudaMalloc).
+        # go back to cudaMalloc). The capture mode is thread-local: another
+        # engine's step thread in this process (two workers on one card)
+        # keeps making CUDA calls while this one captures. The launches of
+        # this thread alone are tallied: the warm-up's ran, the capture's
+        # run at each replay.
         with torch.cuda.stream(side):
-            step(state)
-            warm = ck.launches()
+            with ck.tally() as warm:
+                step(state)
             t.append(time.perf_counter())
-            graph.capture_begin(pool=self.pool)
+            graph.capture_begin(pool=self.pool,
+                                capture_error_mode="thread_local")
             try:
-                step(static)
+                with ck.tally(into_launches=False) as delta:
+                    step(static)
                 t.append(time.perf_counter())
             finally:
                 graph.capture_end()
         t.append(time.perf_counter())
         stream.wait_stream(side)
-        after = ck.launches()
-        ck.LAUNCHES.update(warm)
-        for k in warm:
-            if warm[k] != before[k]:
-                self.warmup_launches[k] = (self.warmup_launches.get(k, 0)
-                                           + warm[k] - before[k])
-        delta = {k: after[k] - warm[k] for k in after if after[k] != warm[k]}
+        for k, n in warm.items():
+            self.warmup_launches[k] = self.warmup_launches.get(k, 0) + n
         for part, a, b in zip(self.capture_parts_s, t, t[1:]):
             self.capture_parts_s[part] += b - a
         return _Graph(graph, static, delta)

@@ -221,8 +221,12 @@ class Node:
     # Wire-format capability list from node_join (dtype names this
     # node's build can decode on activation frames).
     wire_formats: tuple = ()
-    # Phase specialization from node_join: the port serves "mixed" only
-    # (roles wait for ROADMAP queue 1 item 4c).
+    # Phase specialization from node_join: "prefill" nodes compute prompts
+    # and hand finished requests to the decode pool over the KV-transfer
+    # lane; "decode" nodes run the decode phase the prompt phase never
+    # interrupts; "mixed" (the default) serves both phases. The allocator
+    # keeps pipelines role-homogeneous, and routing restricts the prompt
+    # phase to prefill / mixed pools.
     role: str = "mixed"
     # Prefix-digest mirror for cache-aware routing (fed by heartbeat
     # ``cache_digests`` payloads; only head-stage digests matter).

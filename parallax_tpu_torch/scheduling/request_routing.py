@@ -109,8 +109,10 @@ class RoutingStrategy:
         )
 
 
-# Pipeline roles each request phase may dispatch to. The port's nodes are
-# all "mixed" (roles: item 4c); the table is the JAX router's.
+# Pipeline roles each request phase may dispatch to. The prompt phase
+# avoids decode specialists so a prompt never lands in the middle of deep
+# continuous batches; the decode phase (KV-handoff targets) avoids prefill
+# specialists so a handed-off request never bounces back to a prompt pool.
 _PHASE_ROLES = {
     "prompt": ("prefill", "mixed"),
     "decode": ("decode", "mixed"),
@@ -123,8 +125,11 @@ def eligible_pipelines(
     """Registered pipelines a request can be dispatched to right now:
     every stage ready, weights at the latest refit version, admission
     capacity available (the shared gate of RR and cache-aware routing).
-    ``phase`` restricts the set to the matching phase pool; the prompt
-    phase falls back to every eligible pipeline when its pool is empty."""
+    ``phase`` restricts the set to the matching phase pool. The prompt
+    phase FALLS BACK to every eligible pipeline when its pool is empty
+    (availability over specialization: the swarm keeps serving when the
+    last prefill node dies); the decode phase does not (the prefill head
+    then keeps the request local)."""
     pipelines = manager.pipelines
     if not pipelines:
         return []

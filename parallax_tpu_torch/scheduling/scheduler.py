@@ -13,10 +13,11 @@ Nothing here touches a device.
 Not ported yet, refused by name with their ROADMAP queue 1 items: SLO
 objectives (``slo=``) and the QoS control plane (``qos=``; item 9),
 scheduler HA (``passive=``, :meth:`fence` and the state journal; item
-4c), weight refit (:meth:`begin_refit`; item 12) and the decode-pool
-branch of :meth:`choose_migration_targets` (``pool="decode"``, the KV
-handoff's; item 4c). Live migration's target choice, ``where_is`` table
-and drain counters are the JAX scheduler's. The metrics registry, the cluster
+4c) and weight refit (:meth:`begin_refit`; item 12). Phase roles
+(role-homogeneous pipelines, phase-filtered routing pools), the KV
+handoff's decode-pool targets (``pool="decode"``) and their ``disagg``
+counters, live migration's target choice, ``where_is`` table and drain
+counters are the JAX scheduler's. The metrics registry, the cluster
 timeline and the obs sections of ``cluster_status`` (merged histograms,
 goodput, device, health) wait for item 9. The epoch stays 1 until HA.
 """
@@ -165,6 +166,11 @@ class GlobalScheduler:
         self._migrations: OrderedDict[str, str] = OrderedDict()
         self.migration_stats = {"drains": 0, "targets_chosen": 0,
                                 "recorded": 0}
+        # KV handoff telemetry: decode-pool target queries from prefill
+        # heads, targets chosen, and queries that found no serviceable
+        # decode / mixed pipeline (the head then keeps the request local).
+        self.disagg_stats = {"target_queries": 0, "targets_chosen": 0,
+                             "no_target": 0}
 
     # -- public API (thread-safe enqueues) --------------------------------
 
@@ -288,11 +294,12 @@ class GlobalScheduler:
         where its prefix is already cached and the restore re-prefills only
         the uncovered suffix. Charges router load per chosen path
         (released by the target head's eventual request_complete).
-        ``pool="decode"`` (the KV handoff's decode-pool targets) waits for
-        roles (item 4c)."""
-        if pool == "decode":
-            raise unported("decode-pool handoff targets (pool='decode')",
-                           "4c")
+
+        ``pool="decode"`` restricts the candidates to the decode phase pool
+        (the KV handoff's targets): decode or mixed pipelines, never
+        prefill specialists, with no fallback. It counts
+        ``disagg_stats``' target_queries, targets_chosen and no_target; an
+        empty result tells the prefill head to keep the request local."""
         from parallax_tpu_torch.scheduling.request_routing import (
             eligible_pipelines,
         )
@@ -303,6 +310,11 @@ class GlobalScheduler:
             p for p in eligible_pipelines(self.manager, phase=pool)
             if not (set(p.node_ids) & excl)
         ]
+        if pool == "decode":
+            with self._lock:
+                self.disagg_stats["target_queries"] += len(requests)
+                if not candidates:
+                    self.disagg_stats["no_target"] += len(requests)
         if not candidates:
             return out
         for r in requests:
@@ -341,10 +353,14 @@ class GlobalScheduler:
             if best is None:
                 continue
             self.router.on_dispatch(best.nodes)
-            # The RPC lands on the service thread while the sweep and
-            # heartbeat threads read these stats for cluster_status.
+            # migrate_target / disagg_target land on the service thread
+            # while the sweep and heartbeat threads read these stats for
+            # cluster_status.
             with self._lock:
-                self.migration_stats["targets_chosen"] += 1
+                if pool == "decode":
+                    self.disagg_stats["targets_chosen"] += 1
+                else:
+                    self.migration_stats["targets_chosen"] += 1
             out[rid] = {
                 "path": list(best.node_ids),
                 "head_layers": [
@@ -455,7 +471,7 @@ class GlobalScheduler:
                 node.wire_formats = tuple(rest[0])
             if len(rest) > 1 and rest[1]:
                 # Unknown strings degrade to mixed, as in the JAX
-                # scheduler (the service refuses the specialist roles).
+                # scheduler: a newer worker build must still serve.
                 role = str(rest[1]).lower()
                 node.role = (
                     role if role in ("prefill", "decode", "mixed")
@@ -719,13 +735,16 @@ class GlobalScheduler:
 
     def cluster_status(self) -> dict:
         """The core of the JAX ``cluster_status``: capacity, bootstrap,
-        the routing section and the pipelines with their nodes (the same
-        keys; the obs sections wait for item 9)."""
+        the routing section with its per-phase pools, the ``disagg``
+        rollup and the pipelines with their nodes (the same keys; the obs
+        sections wait for item 9)."""
         report = self.manager.capacity_report()
         report["bootstrapped"] = self.bootstrapped.is_set()
         with self._lock:
             accuracy = dict(self.routing_accuracy)
+            disagg = dict(self.disagg_stats)
         pipelines = self.manager.pipelines
+        pools = pool_report(pipelines)
         report["routing"] = {
             "strategy": self.routing_name,
             "decisions": dict(self.router.decision_counters),
@@ -734,8 +753,15 @@ class GlobalScheduler:
                 for pid, n in self.router.pipeline_dispatches.items()
             },
             "predicted_vs_actual": accuracy,
-            "pools": pool_report(pipelines),
+            "pools": pools,
             "queued_unrouted": self._requests.qsize(),
+        }
+        # Disaggregated serving: active when a prefill pool and a
+        # decode-capable pool are both registered.
+        report["disagg"] = {
+            "active": "prefill" in pools
+            and any(r in pools for r in ("decode", "mixed")),
+            **disagg,
         }
         report["pipelines"] = [
             {

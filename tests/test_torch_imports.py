@@ -66,7 +66,8 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "models.minimax_m2", "models.minimax_m3", "constrained",
                  "constrained.automaton", "constrained.json_schema",
                  "constrained.vocab", "constrained.device_table",
-                 "runtime.host_cache", "runtime.checkpoint"):
+                 "runtime.host_cache", "runtime.checkpoint",
+                 "runtime.kv_handoff", "runtime.request"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"

@@ -82,6 +82,43 @@ def test_launch_counters_reset():
     assert set(ck.launches().values()) == {0}
 
 
+def test_a_tally_counts_its_own_thread_alone():
+    """A graph capture's tally (``into_launches=False``) takes the capturing
+    thread's launches out of ``LAUNCHES`` while another thread's launches
+    meanwhile still count there; an ordinary tally counts both ways."""
+    import threading
+
+    ck.reset_launches()
+    inside = threading.Event()
+    done = threading.Event()
+
+    def other():
+        inside.wait(10)
+        for _ in range(5):
+            ck.count("gqa_decode")
+        done.set()
+
+    t = threading.Thread(target=other)
+    t.start()
+    with ck.tally(into_launches=False) as captured:
+        ck.count("kv_append")
+        ck.count("kv_append")
+        inside.set()
+        assert done.wait(10)
+        with ck.tally() as warm:
+            ck.count("gqa_prefill")
+        ck.count("gqa_prefill")
+    t.join(10)
+    assert captured == {"kv_append": 2, "gqa_prefill": 1}
+    assert warm == {"gqa_prefill": 1}
+    got = ck.launches()
+    assert (got["gqa_decode"], got["kv_append"], got["gqa_prefill"]) == (
+        5, 0, 1)
+    ck.count("kv_append")
+    assert ck.launches()["kv_append"] == 1
+    ck.reset_launches()
+
+
 def test_mla_and_indexer_entries():
     """A5-A8: one C entry and one counter each; the fused entries take the
     cache's slot count in 64 bits (DeepSeek-size caches pass 2**31 rows x

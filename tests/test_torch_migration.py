@@ -523,7 +523,9 @@ def test_where_is_follows_migrations(pkg):
 
 def test_leave_flags_surviving_heads_for_drain():
     """A 2-stage pipeline's tail death flags the HEAD for drain and counts
-    it; a dying head flags nobody; the decode pool waits for roles."""
+    it; a dying head flags nobody. The decode pool (the KV handoff's
+    targets) takes the mixed pipeline the survivor forms, and answers no
+    target when the asking head is all there is."""
     from parallax_tpu_torch.scheduling.node import Node
     from parallax_tpu_torch.scheduling.node_management import (
         NodeManager,
@@ -546,8 +548,14 @@ def test_leave_flags_surviving_heads_for_drain():
     assert sched.drain_requested("h") == ["t"]
     assert sched.drain_requested("h") == []
     assert sched.migration_stats["drains"] == 1
-    with pytest.raises(NotImplementedError, match=r"item 4c\)"):
-        sched.choose_migration_targets([], pool="decode")
+    want = [{"rid": "r", "prompt_tokens": 8}]
+    assert [p.role for p in sched.manager.pipelines] == ["mixed"]
+    assert sched.choose_migration_targets(want, pool="decode")["r"][
+        "path"] == ["h"]
+    assert sched.choose_migration_targets(want, exclude={"h"},
+                                          pool="decode") == {}
+    assert sched.disagg_stats == {"target_queries": 2, "targets_chosen": 1,
+                                  "no_target": 1}
 
 
 # -- grammar checkpoints -------------------------------------------------------

@@ -1,40 +1,12 @@
-"""The port's MiniMax family against parallax_tpu's on the same numpy inputs
-(float32, CPU; the Pallas kernels in interpret mode where the JAX function
-reaches them).
-
-Ops (``parallax_tpu_torch/ops/msa.py``):
-- ``topk_block_positions``: equal positions, forced-score ties, kv_len 0
-  padding rows and fewer blocks than the top-k budget included;
-- ``msa_sparse_positions_plain`` against ``msa_sparse_positions_xla`` on a
-  ragged prefill + decode batch, the page scan in one chunk and chunked;
-- ``paged_sparse_gqa_attention_plain`` against the XLA function on its
-  one-pass (K 64) and chunked (K 600) branches, within 1e-5, also with the
-  query rows split into several passes;
-- ``msa_store_and_positions`` on the fused (A7), split-kernel (A8) and plain
-  routes against the JAX routes: index cache bitwise, positions equal;
-- ``swiglu_oai`` and ``full_proj_rms_norm`` within 1e-6.
-
-Models: tiny MiniMax-M3 (``tests/test_msa.py``'s config: a dense
-full-attention layer, then two MSA + MoE layers; block 4 x top-2 blocks,
-so any context past 8 tokens is sparse) and a tiny MiniMax-M2, one JAX
-``init_params`` tree carried across with ``params_from_numpy`` (norms and
-routing biases randomized so that the norm offset and the bias matter):
-- stage logits of a ragged prefill past the top-k budget and two decode
-  steps, on every decode route, one stage and two, within 1e-4;
-- the cache list's layout, ``init_params`` shapes, ``finalize_params`` on
-  HF names, the registry;
-- engine greedy streams against the JAX engine under the tie-tolerant rule
-  (every token within 5e-3 of the JAX model's argmax), with a prefix hit;
-- the K = 8 overlapped window bit-identical to K = 1 sync, greedy and
-  seeded; fused, split-kernel and plain streams identical, each route
-  reaching its wrappers once per layer and decode step; a 2-stage pipeline
-  equal to the single stage;
-- an HF-named checkpoint written here, loaded by both loaders to the same
-  tree bitwise.
-"""
+"""The port's MiniMax family against parallax_tpu's on the same numpy
+inputs, ops and stages (tests/_torch_msa.py has the suite's configs and
+helpers): the MSA ops (top-k block positions, sparse positions, sparse
+GQA attention, the store-and-positions routes, ``swiglu_oai`` and the
+full-projection norm), M2 and M3 stage logits on every decode route, the
+cache layout, ``finalize_params`` on HF names, the registry and an
+HF-named checkpoint loaded by both loaders."""
 
 import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,33 +16,27 @@ import torch
 from parallax_tpu.config import normalize_config as j_normalize
 from parallax_tpu.models import layers as JL
 from parallax_tpu.models.base import BatchInputs as JBatch
-from parallax_tpu.models.minimax_m2 import MiniMaxM2StageModel as JM2
-from parallax_tpu.models.minimax_m3 import MiniMaxM3StageModel as JM3
 from parallax_tpu.models.minimax_m3 import swiglu_oai as j_swiglu_oai
 from parallax_tpu.ops import ragged as j_ragged
 from parallax_tpu.ops.dsa import store_index_cache as j_store
-from parallax_tpu.ops.msa import msa_sparse_positions_xla
 from parallax_tpu.ops.msa import msa_store_and_positions as j_store_and_pos
-from parallax_tpu.ops.msa import paged_sparse_gqa_attention_xla
 from parallax_tpu.ops.msa import topk_block_positions as j_topk_blocks
+from parallax_tpu.ops.msa import (
+    msa_sparse_positions_xla,
+    paged_sparse_gqa_attention_xla,
+)
 from parallax_tpu.ops.msa_pallas import msa_token_scores_decode_pallas
-from parallax_tpu.runtime.engine import EngineConfig as JEngineConfig
-from parallax_tpu.runtime.engine import StageEngine as JStageEngine
-from parallax_tpu.runtime.pipeline import InProcessPipeline as JPipeline
-from parallax_tpu.runtime.request import Request as JRequest
-from parallax_tpu.runtime.request import SamplingParams as JSampling
 from parallax_tpu_torch.config import normalize_config
+from parallax_tpu_torch.models import layers as L
 from parallax_tpu_torch.models import (
     MiniMaxM2StageModel,
     MiniMaxM3StageModel,
     create_stage_model,
     params_from_numpy,
 )
-from parallax_tpu_torch.models import layers as L
 from parallax_tpu_torch.models.base import BatchInputs
 from parallax_tpu_torch.models.minimax_m3 import swiglu_oai
 from parallax_tpu_torch.models.registry import MODEL_REGISTRY
-from parallax_tpu_torch.ops import decode_fused, dsa_decode, kernel_select
 from parallax_tpu_torch.ops import ragged
 from parallax_tpu_torch.ops.msa import (
     msa_sparse_positions_plain,
@@ -78,71 +44,30 @@ from parallax_tpu_torch.ops.msa import (
     paged_sparse_gqa_attention_plain,
     topk_block_positions,
 )
-from parallax_tpu_torch.runtime.engine import EngineConfig, StageEngine
-from parallax_tpu_torch.runtime.pipeline import InProcessPipeline
-from parallax_tpu_torch.runtime.request import Request, SamplingParams
-from tests.test_torch_deepseek_engine import ENGINE, TOL, _prompts
-from tests.test_torch_deepseek_routes import _spy
-from tests.test_torch_loader import _assert_same_tree, _hf_tensors, _write
-
-TINY_M3 = dict(
-    architectures=["MiniMaxM3SparseForCausalLM"],
-    model_type="minimax_m3",
-    hidden_size=64,
-    intermediate_size=64,          # expert size
-    dense_intermediate_size=128,
-    shared_intermediate_size=64,
-    num_attention_heads=4,
-    num_key_value_heads=2,
-    head_dim=16,
-    num_hidden_layers=3,
-    rms_norm_eps=1e-6,
-    rope_theta=5000000,
-    partial_rotary_factor=0.5,
-    max_position_embeddings=1024,
-    vocab_size=199,
-    use_qk_norm=True,
-    use_gemma_norm=True,
-    num_local_experts=4,
-    num_experts_per_tok=2,
-    n_shared_experts=1,
-    scoring_func="sigmoid",
-    use_routing_bias=True,
-    routed_scaling_factor=2.0,
-    mlp_layer_types=["dense", "sparse", "sparse"],
-    layer_types=["full_attention", "minimax_m3_sparse", "minimax_m3_sparse"],
-    index_n_heads=2,
-    index_head_dim=16,
-    index_block_size=4,
-    index_topk_blocks=2,
-    index_local_blocks=1,
-    swiglu_alpha=1.702,
-    swiglu_limit=7.0,
-    swiglu_beta=1.0,
-    tie_word_embeddings=False,
+from tests.test_torch_loader import (
+    _assert_same_tree,
+    _hf_tensors,
+    _write,
 )
-TINY_M2 = dict(
-    architectures=["MiniMaxM2ForCausalLM"], hidden_size=64,
-    num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2,
-    head_dim=16, intermediate_size=64, num_local_experts=4,
-    num_experts_per_tok=2, scoring_func="sigmoid", use_qk_norm=True,
-    rotary_dim=8, partial_rotary_factor=0.5, vocab_size=199,
-    max_position_embeddings=1024, rms_norm_eps=1e-6, rope_theta=5000000,
-    tie_word_embeddings=False,
+from tests._torch_msa import (
+    ATOL,
+    JCLS,
+    N_LAYERS,
+    PAGE,
+    RAWS,
+    TINY_M2,
+    TINY_M3,
+    _ROUTES,
+    _decode_case,
+    _hf_layout,
+    _index_case,
+    _kv_case,
+    _layout,
+    _run_stages,
+    _shapes,
+    _weights,
+    t,
 )
-RAWS = {"m3": TINY_M3, "m2": TINY_M2}
-JCLS = {"m3": JM3, "m2": JM2}
-N_LAYERS = 3
-PAGE = 8
-ATOL = 1e-5
-_WEIGHTS: dict = {}
-
-
-def t(a):
-    return torch.from_numpy(np.asarray(a))
-
-
-# -- ops -----------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("kv_cap", [48, 6], ids=["sparse", "kb-lt-topk"])
@@ -166,25 +91,6 @@ def test_topk_block_positions_match_jax(kv_cap):
     assert (ref[4] == -1).all()                     # padding row: nothing
 
 
-def _index_case(seed, hi=2, d=16):
-    """Two sequences over 16-token pages: a 30-token prefill continuing to
-    1,100 and a decode token at 600 (31 rows of a 32-row bucket)."""
-    rng = np.random.default_rng(seed)
-    page, pps = 16, 70
-    ctx = [1100, 600]
-    pages = np.zeros((2, pps), np.int32)
-    used = 1
-    for i, n in enumerate(ctx):
-        npg = -(-n // page)
-        pages[i, :npg] = np.arange(used, used + npg)
-        used += npg
-    f = np.float32
-    return dict(q=rng.normal(size=(32, hi, d)).astype(f),
-                cache=rng.normal(size=(used, page, 1, d)).astype(f),
-                lens=np.array(ctx, np.int32), pages=pages,
-                cu=np.array([0, 30, 31], np.int32))
-
-
 @pytest.mark.parametrize("chunk_rows", [2048, 512, 64],
                          ids=["one-chunk", "3-chunks", "18-chunks"])
 def test_sparse_positions_plain_match_xla(chunk_rows, monkeypatch):
@@ -202,26 +108,6 @@ def test_sparse_positions_plain_match_xla(chunk_rows, monkeypatch):
     assert ((got[0] >= 0).sum() == 4 * 64) and (got[30] >= 0).sum() == 256
 
 
-def _kv_case(seed, k):
-    """Three query rows of two 800-token sequences over 8-token pages: a
-    decode row, then two prefill rows at 798 / 799 of the other; sorted
-    picks inside the context, one past row 1's causal position, and -1
-    padding at the end of row 2."""
-    rng = np.random.default_rng(seed)
-    ctx, hq, hkv, d = 800, 4, 2, 16
-    npg = ctx // PAGE
-    pages = np.stack([np.arange(1, npg + 1),
-                      np.arange(npg + 1, 2 * npg + 1)]).astype(np.int32)
-    kv = rng.normal(size=(2 * npg + 1, PAGE, 2 * hkv, d)).astype(np.float32)
-    pos = np.stack([np.sort(rng.choice(ctx, size=k, replace=False))
-                    for _ in range(3)]).astype(np.int32)
-    pos[1, -1] = 799                   # past row 1's position 798: masked
-    pos[2, -min(25, k // 2):] = -1
-    return dict(q=rng.normal(size=(3, hq, d)).astype(np.float32), kv=kv,
-                lens=np.array([ctx, ctx], np.int32), pages=pages,
-                cu=np.array([0, 1, 3], np.int32), pos=pos)
-
-
 @pytest.mark.parametrize("rows", [512, 2], ids=["one-pass", "row-passes"])
 @pytest.mark.parametrize("k", [64, 600], ids=["single", "chunked"])
 def test_sparse_gqa_attention_matches_xla(k, rows, monkeypatch):
@@ -233,30 +119,6 @@ def test_sparse_gqa_attention_matches_xla(k, rows, monkeypatch):
     got = paged_sparse_gqa_attention_plain(*(t(c[x]) for x in keys),
                                            sm_scale=0.3).numpy()
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=ATOL)
-
-
-def _decode_case(seed, hi=4, d=16, page=8, pps=6):
-    """Six decode rows: contexts 5-48 over 8-token pages, a kv_len 0 row
-    and a frozen row (slot -1)."""
-    rng = np.random.default_rng(seed)
-    lens = np.array([5, 17, 48, 0, 9, 16], np.int32)
-    s = len(lens)
-    pages = np.zeros((s, pps), np.int32)
-    used = 1
-    for i, n in enumerate(lens):
-        npg = (int(n) + page - 1) // page
-        pages[i, :npg] = np.arange(used, used + npg)
-        used += npg
-    slot = np.full((s,), -1, np.int32)
-    for i, n in enumerate(lens):
-        if n > 0 and i != 4:
-            slot[i] = pages[i, (n - 1) // page] * page + (n - 1) % page
-    f = np.float32
-    return dict(q=rng.normal(size=(s, hi, d)).astype(f),
-                k=rng.normal(size=(s, d)).astype(f),
-                cache=rng.normal(size=(used + 1, page, 1, d)).astype(f),
-                lens=lens, pages=pages, slot=slot,
-                cu=np.arange(s + 1, dtype=np.int32))
 
 
 @pytest.mark.parametrize("route", ["fused", "split-kernel", "plain"])
@@ -308,101 +170,6 @@ def test_swiglu_oai_and_full_proj_norm_match_jax():
     np.testing.assert_allclose(got, ref, atol=1e-6, rtol=1e-6)
 
 
-# -- stage models ---------------------------------------------------------------
-
-
-def _weights(name):
-    """(JAX config, JAX params, the same params as numpy) for ``name``: the
-    JAX init with its norms (zero or one) and routing biases (zero)
-    randomized."""
-    if name not in _WEIGHTS:
-        cfg = j_normalize(RAWS[name])
-        full = JCLS[name](cfg, 0, N_LAYERS, use_pallas=False).init_params(
-            jax.random.key(0), dtype=jnp.float32)
-        full_np = jax.tree.map(np.asarray, full)
-        rng = np.random.default_rng(7)
-        full_np = jax.tree.map(
-            lambda a: (rng.normal(size=a.shape) * 0.1).astype(np.float32)
-            if a.ndim == 1 else a, full_np)
-        for layer in full_np["layers"]:
-            if "experts" in layer["mlp"]:
-                layer["mlp"]["gate"]["e_score_correction_bias"] = (
-                    rng.normal(size=4) * 0.1).astype(np.float32)
-        _WEIGHTS[name] = (cfg, jax.tree.map(jnp.asarray, full_np), full_np)
-    return _WEIGHTS[name]
-
-
-def _stage(tree, s, e):
-    p = {"layers": tree["layers"][s:e]}
-    if s == 0:
-        p["embed_tokens"] = tree["embed_tokens"]
-    if e == N_LAYERS:
-        p["norm"] = tree["norm"]
-        p["lm_head"] = tree["lm_head"]
-    return p
-
-
-def _batches():
-    """A ragged prefill of two sequences (13 and 21 tokens, past the top-k
-    budget of 8, in a 64-token bucket), then two decode steps."""
-    rng = np.random.default_rng(0)
-    pages = np.array([[1, 2, 3, 0], [4, 5, 6, 0]], np.int32)
-    n = [13, 21]
-    tok = rng.integers(1, 190, size=sum(n)).astype(np.int32)
-    t_pad = 64
-    pre = dict(token_ids=np.zeros(t_pad, np.int32),
-               positions=np.zeros(t_pad, np.int32),
-               slot_mapping=np.full(t_pad, -1, np.int32))
-    pos = np.concatenate([np.arange(n[0]), np.arange(n[1])])
-    seq = np.array([0] * n[0] + [1] * n[1])
-    pre["token_ids"][:sum(n)] = tok
-    pre["positions"][:sum(n)] = pos
-    pre["slot_mapping"][:sum(n)] = pages[seq, pos // PAGE] * PAGE + pos % PAGE
-    pre.update(kv_lens=np.array(n, np.int32), page_indices=pages,
-               cu_q_lens=np.array([0, n[0], sum(n)], np.int32),
-               num_seqs=np.array([2], np.int32),
-               logits_indices=np.array([n[0] - 1, sum(n) - 1], np.int32))
-    out = [pre]
-    for step, toks in enumerate(([5, 9], [17, 3])):
-        p = np.array([n[0] + step, n[1] + step])
-        out.append(dict(
-            token_ids=np.array(toks, np.int32), positions=p.astype(np.int32),
-            kv_lens=(p + 1).astype(np.int32), page_indices=pages,
-            cu_q_lens=np.array([0, 1, 2], np.int32),
-            num_seqs=np.array([2], np.int32),
-            slot_mapping=(pages[[0, 1], p // PAGE] * PAGE
-                          + p % PAGE).astype(np.int32),
-            logits_indices=np.array([0, 1], np.int32)))
-    return out
-
-
-_KEYS = ("positions", "kv_lens", "page_indices", "cu_q_lens", "num_seqs",
-         "slot_mapping", "logits_indices")
-# route -> (decode-step flags, the port model's use_kernels)
-_ROUTES = {
-    "ragged": ({}, None),
-    "split": (dict(decode_only=True), None),
-    "split-kernel": (dict(decode_only=True), True),
-    "fused": (dict(decode_only=True, decode_fused=True), None),
-}
-
-
-def _run_stages(models, params, bounds, batch_cls, to_dev, kvs, flags):
-    outs = []
-    for step, b in enumerate(_batches()):
-        hidden = None
-        for i, (m, (s, e)) in enumerate(zip(models, bounds)):
-            inp = batch_cls(
-                token_ids=to_dev(b["token_ids"]) if m.is_first else None,
-                hidden_states=hidden,
-                **{k: to_dev(np.asarray(b[k])) for k in _KEYS},
-                **(flags if step else {}),
-            )
-            hidden, kvs[i] = m(_stage(params, s, e), kvs[i], inp)
-        outs.append(np.asarray(hidden))
-    return outs
-
-
 @pytest.mark.parametrize("bounds,route", [
     ([(0, 3)], "ragged"), ([(0, 3)], "split"), ([(0, 3)], "split-kernel"),
     ([(0, 3)], "fused"), ([(0, 1), (1, 3)], "ragged"),
@@ -432,19 +199,6 @@ def test_stage_logits_match_jax(name, bounds, route):
         np.testing.assert_allclose(g, r, atol=1e-4, rtol=1e-4)
 
 
-def _layout(caches):
-    return [tuple(tuple(x.shape) for x in c) if isinstance(c, tuple)
-            else tuple(c.shape) for c in caches]
-
-
-def _shapes(tree):
-    if isinstance(tree, dict):
-        return {k: _shapes(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_shapes(v) for v in tree]
-    return tuple(tree.shape)
-
-
 @pytest.mark.parametrize("s,e", [(0, 3), (1, 3)])
 @pytest.mark.parametrize("name", sorted(RAWS))
 def test_cache_layout_and_init_shapes_match_jax(name, s, e):
@@ -471,25 +225,6 @@ def test_cache_layout_and_init_shapes_match_jax(name, s, e):
         if bias is not None:
             gb = lg["mlp"]["gate"]["e_score_correction_bias"]
             assert gb.dtype == torch.float32 and not gb.any()
-
-
-def _hf_layout(tree):
-    """A model tree under the MiniMax checkpoint's MoE names:
-    ``block_sparse_moe`` with ``shared_experts`` and the routing bias beside
-    the gate."""
-    tree = jax.tree.map(lambda a: a, tree)
-    for layer in tree["layers"]:
-        mlp = layer["mlp"]
-        if "experts" not in mlp:
-            continue
-        moe = layer.pop("mlp")
-        if "shared_expert" in moe:
-            moe["shared_experts"] = moe.pop("shared_expert")
-        if "e_score_correction_bias" in moe["gate"]:
-            moe["e_score_correction_bias"] = moe["gate"].pop(
-                "e_score_correction_bias")
-        layer["block_sparse_moe"] = moe
-    return tree
 
 
 @pytest.mark.parametrize("name", sorted(RAWS))
@@ -531,170 +266,6 @@ def test_registry_builds_minimax_and_keeps_text01_out():
     no_gemma = create_stage_model(
         normalize_config(dict(TINY_M3, use_gemma_norm=False)), 0, 3)
     assert no_gemma.norm_offset == 0.0 and MiniMaxM3StageModel.norm_offset == 1
-
-
-# -- engines --------------------------------------------------------------------
-
-N_NEW = 10
-
-
-def _serve(pipe, req_cls, samp_cls, seeded=False):
-    reqs = []
-    for i, p in enumerate(_prompts()):
-        sp = (samp_cls(temperature=0.8, top_k=5, seed=3 + i,
-                       max_new_tokens=N_NEW)
-              if seeded and i % 2 else
-              samp_cls(temperature=0.0, max_new_tokens=N_NEW))
-        reqs.append(req_cls(f"r{i}", prompt_ids=list(p), sampling_params=sp))
-    for r in reqs:
-        pipe.submit(r)
-    pipe.run_until_complete()
-    return reqs
-
-
-def _reference_logits(name, ctxs):
-    """The JAX model's logits at every position of each context, from one
-    ragged forward over all of them."""
-    cfg, full, _ = _weights(name)
-    lens = [len(c) for c in ctxs]
-    cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
-    n = int(cu[-1])
-    t_pad = 1 << (n - 1).bit_length()
-    model = JCLS[name](cfg, 0, N_LAYERS, use_pallas=False)
-    pps = max((m + PAGE - 1) // PAGE for m in lens)
-    pages = 1 + np.arange(len(ctxs) * pps, dtype=np.int32).reshape(-1, pps)
-    kv = model.new_kv_caches(len(ctxs) * pps + 1, PAGE, jnp.float32)
-    tok = np.zeros(t_pad, np.int32)
-    pos = np.zeros(t_pad, np.int32)
-    slots = np.full(t_pad, -1, np.int32)
-    for i, c in enumerate(ctxs):
-        p = np.arange(len(c))
-        tok[cu[i]:cu[i + 1]] = c
-        pos[cu[i]:cu[i + 1]] = p
-        slots[cu[i]:cu[i + 1]] = pages[i, p // PAGE] * PAGE + p % PAGE
-    inp = JBatch(
-        token_ids=jnp.asarray(tok), hidden_states=None,
-        positions=jnp.asarray(pos), kv_lens=jnp.asarray(lens, jnp.int32),
-        page_indices=jnp.asarray(pages), cu_q_lens=jnp.asarray(cu),
-        num_seqs=jnp.asarray([len(ctxs)], jnp.int32),
-        slot_mapping=jnp.asarray(slots),
-        logits_indices=jnp.arange(t_pad, dtype=jnp.int32),
-    )
-    logits = np.asarray(model(full, kv, inp)[0])
-    return [logits[cu[i]:cu[i + 1]] for i in range(len(ctxs))]
-
-
-def _port_engines(name, bounds, use_kernels=None, **cfg):
-    tcfg = normalize_config(RAWS[name])
-    tfull = params_from_numpy(_weights(name)[2], "cpu")
-    return [StageEngine(create_stage_model(tcfg, s, e,
-                                           use_kernels=use_kernels),
-                        _stage(tfull, s, e), EngineConfig(**{**ENGINE, **cfg}),
-                        device="cpu")
-            for s, e in bounds]
-
-
-@pytest.mark.parametrize("name", sorted(RAWS))
-def test_engine_streams_match_jax(name):
-    cfg, full, _ = _weights(name)
-    k1 = dict(decode_lookahead=1, overlap_steps=False)
-    port = _serve(InProcessPipeline(_port_engines(name, [(0, 3)], **k1)),
-                  Request, SamplingParams)
-    jeng = JStageEngine(JCLS[name](cfg, 0, N_LAYERS, use_pallas=False),
-                        _stage(full, 0, N_LAYERS),
-                        JEngineConfig(**ENGINE, **k1))
-    ref = _serve(JPipeline([jeng]), JRequest, JSampling)
-    all_logits = _reference_logits(
-        name, [pr.prompt_ids + pr.output_ids[:-1] for pr in port])
-    for pr, jr, logits in zip(port, ref, all_logits):
-        assert pr.status.value == "finished_length"
-        assert len(pr.output_ids) == N_NEW
-        p0 = len(pr.prompt_ids) - 1
-        for i, tok in enumerate(pr.output_ids):
-            row = logits[p0 + i]
-            gap = float(row.max() - row[tok])
-            assert gap < TOL, (pr.request_id, i, tok, int(row.argmax()), gap)
-        same = 0
-        while same < N_NEW and pr.output_ids[same] == jr.output_ids[same]:
-            same += 1
-        if same < N_NEW:
-            row = logits[p0 + same]
-            gap = abs(float(row[pr.output_ids[same]]
-                            - row[jr.output_ids[same]]))
-            assert gap < TOL, (pr.request_id, same, gap)
-    assert port[-1].num_cached_tokens > 0
-    assert ref[-1].num_cached_tokens == port[-1].num_cached_tokens
-
-
-@pytest.mark.parametrize("name", sorted(RAWS))
-def test_overlap_window_equals_k1_sync(name):
-    """The engine's defaults (adaptive K = 8 windows, overlapped) give the
-    K = 1 synchronous streams bit for bit, greedy and seeded."""
-    streams, windows = {}, {}
-    for mode, kw in (("k8", {}), ("k1_sync", dict(decode_lookahead=1,
-                                                   overlap_steps=False))):
-        engines = _port_engines(name, [(0, 3)], **kw)
-        streams[mode] = [r.output_ids for r in _serve(
-            InProcessPipeline(engines), Request, SamplingParams,
-            seeded=True)]
-        summary = engines[0].kernel_dispatch_summary()
-        windows[mode] = summary["dispatch_total"].get("torch/multistep", 0)
-    assert streams["k8"] == streams["k1_sync"]
-    assert windows["k8"] > 0 and windows["k1_sync"] == 0
-
-
-def test_m3_fused_split_and_plain_streams_identical(monkeypatch):
-    """Within the port: fused decode (A7 on the sparse layers, A2 on the
-    dense one), the split route through the split kernels' wrappers (A8,
-    A1 attend-only) and the plain route give the same streams, greedy and
-    seeded; each decode step reaches the indexer wrapper once per sparse
-    layer. (On the CPU every wrapper runs its plain version; the test lets
-    the engine take the fused route on the CPU.)"""
-    monkeypatch.setattr(kernel_select, "_check_kernel_device",
-                        lambda device, what: None)
-    calls: dict[str, int] = {}
-    _spy(monkeypatch, decode_fused, "indexer_scores_fused", calls)
-    _spy(monkeypatch, decode_fused, "gqa_fused_decode", calls)
-    _spy(monkeypatch, dsa_decode, "paged_token_scores_decode", calls)
-    streams, seen = {}, {}
-    for route, fused, kernels in (("fused", True, None),
-                                  ("split-kernel", False, True),
-                                  ("plain", False, None)):
-        calls.clear()
-        engines = _port_engines("m3", [(0, 3)], use_kernels=kernels,
-                                decode_fused=fused, prefill_fused=fused)
-        reqs = _serve(InProcessPipeline(engines), Request, SamplingParams,
-                      seeded=True)
-        streams[route] = [r.output_ids for r in reqs]
-        seen[route] = (dict(calls), engines[0].kernel_dispatch_summary())
-    assert streams["fused"] == streams["split-kernel"] == streams["plain"]
-    sparse = 2
-    for route, (c, summary) in seen.items():
-        totals = summary["dispatch_total"]
-        decode = sum(totals.get(f"{summary['impl']}/{path}", 0)
-                     for path in ("decode", "multistep"))
-        assert decode > 0
-        # MSA turns fused prefill off: prefill takes the split chain.
-        assert summary["prefill_impl"] != "cuda-fused"
-        want = {"fused": {"indexer_scores_fused": sparse * decode,
-                          "gqa_fused_decode": decode},
-                "split-kernel": {"paged_token_scores_decode":
-                                 sparse * decode},
-                "plain": {}}[route]
-        assert {k: v for k, v in c.items() if v} == want, route
-
-
-@pytest.mark.parametrize("name", sorted(RAWS))
-def test_two_stages_equal_one(name):
-    one = _serve(InProcessPipeline(_port_engines(name, [(0, 3)])), Request,
-                 SamplingParams, seeded=True)
-    two = _serve(InProcessPipeline(_port_engines(name, [(0, 1), (1, 3)])),
-                 Request, SamplingParams, seeded=True)
-    assert [r.output_ids for r in two] == [r.output_ids for r in one]
-    assert all(r.status.value == "finished_length" for r in two)
-
-
-# -- checkpoints -----------------------------------------------------------------
 
 
 @pytest.mark.parametrize("name", sorted(RAWS))

@@ -635,7 +635,6 @@ def test_refused_scheduler_options_name_their_items(kwargs, item):
 @pytest.mark.parametrize("call,item", [
     (lambda s: s.begin_refit({}), "12"),
     (lambda s: s.fence(2), "4c"),
-    (lambda s: s.choose_migration_targets([], pool="decode"), "4c"),
     (lambda s: p_routing.RequestMeta("r", prompt_ids=[1] * 9,
                                      lora_id="a").chain(8), "11"),
 ])

@@ -455,11 +455,9 @@ def test_chat_host_answers_503_without_a_route():
       "10.0.0.2:3002"], "4c"),
     (["--relay"], "4c"),
     (["--relay-token", "s"], "4c"),
-    (["--role", "decode"], "4c"),
     (["--scheduler-standby", "10.0.0.2:3002"], "4c"),
     (["--refit-cache-dir", "/x"], 12),
     (["--compilation-cache-dir", "/x"], 12),
-    (["--kv-transfer-chunk-bytes", "1024"], "4c"),
     (["--lora-adapters", "a=/x"], 11),
     (["--lora-max-adapters", "2"], 11),
     (["--wire-dtype", "fp8"], 11),
@@ -492,12 +490,9 @@ _PACKET = {"rid": "q", "ctx": 3}
     (proto.FORWARD, {"reqs": [dict(_PACKET, lora_id="a")]}, 11),
     (proto.FORWARD, {"reqs": [dict(_PACKET, spec_len=2)]}, 7),
     (proto.FORWARD, b"\x0a\x00", "4c"),
-    (proto.KV_TRANSFER, {}, "4c"),
-    (proto.KV_RESULT, {}, "4c"),
     (proto.PROFILE, {}, 9),
 ], ids=["qos_class", "deadline_ms", "tenant", "qos-packet",
-        "lora-packet", "spec-packet", "protobuf", "kv-transfer", "kv-result",
-        "profile"])
+        "lora-packet", "spec-packet", "protobuf", "profile"])
 def test_refused_rpcs_name_their_items(method, payload, item):
     """A worker refuses, by name and ROADMAP item, every RPC field it does
     not run; it accepts none of them to ignore it. Nothing reaches the
