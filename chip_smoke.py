@@ -227,6 +227,39 @@ Phases, in order; any failure raises and the script exits non-zero:
                first: both node_leaves land). Spawn to route ready, route
                ms, TTFT, decode and output tok/s beside the pipeline's and
                swarm_serve's, and the seconds the phase took.
+9b. ha_serve   scheduler HA on the same checkpoint (``--only ha_serve``
+               runs http_serve first). (a) In this process: a primary
+               GlobalScheduler + SchedulerService journaling to a passive
+               mirror whose StandbyScheduler tails it over TCP loopback
+               (lease 3 s, pulls every 0.5 s), two WorkerNodes joined with
+               ``scheduler_standby`` (one 14 + 14 pipeline, capacity
+               patched as in sched_serve) and a SwarmClient over [primary,
+               standby]: a seeded request alone, then the mix; once r0-r6
+               stream, the primary's service stops. Every request ends by
+               length with zero aborts, launches exact over the pair, no
+               engine rebuilt, greedy rows within GREEDY_TOL of the plain
+               path; the standby promotes to epoch 2 within lease + sync
+               interval; the workers' heartbeats and the client's routes
+               move to it; the seeded request once more through it gives
+               the same tokens; the old primary fences on the epoch a
+               worker echoes and refuses a join. (b) ``run
+               --scheduler-standby S`` (P), ``run --standby-of P
+               --ha-lease-s 3`` (S) and two ``join --scheduler-addr P
+               --scheduler-standby S`` processes (two 28-layer replicas,
+               cache_aware; four fixed ports from below the ephemeral
+               range): S answers 503 while it mirrors; the HTTP mix to P
+               (after one warm-up mix); this process's SwarmClient over [P,
+               S] routes the mix's prompts at 96 new tokens, and once r0-r6
+               stream, P gets SIGKILL. Every client row finishes by length,
+               S promotes (its log line: epoch 2 and the journal seq it
+               replayed), the client's next route lands on S, a second mix
+               (other text) to S's HTTP port answers 200 with 32 tokens
+               each; clean logs; the survivors exit 0 within 30 s of SIGTERM
+               (the workers' node_leaves land on S); each worker built one
+               engine and launched exactly; the client rows' greedy ids
+               within GREEDY_TOL of the plain path. Kill to promoted ms,
+               promoted to first route ms, journal records and bytes, TTFT
+               and decode tok/s before and after, and the phase's seconds.
 10. moe_serve   Qwen3-30B-A3B at full width and all 48 layers (random bf16
                weights, about 61 GB; the dense phases' tensors are freed
                first) serving the same 8-request mix with the defaults and
@@ -4252,7 +4285,8 @@ def _serve_http(torch, dev, ckpt: str, mix):
 
 
 def phase_http_serve(torch, dev, card: str, cfg, tree: list,
-                     swarm: bool = False, sched: bool = False) -> None:
+                     swarm: bool = False, sched: bool = False,
+                     ha: bool = False) -> None:
     """The port's front door on Qwen2.5-7B at full width: the random tree
     written as an HF checkpoint, the CLI's ``generate`` run on it in a
     subprocess, the checkpoint loaded back bitwise, then ``serve`` (CLI
@@ -4261,8 +4295,8 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
     path on the loaded weights, the prefix cache hit. ``tree`` holds the
     only reference to the random tree, dropped once it loaded back. With
     ``swarm``, phase_swarm_serve follows in the same checkpoint directory
-    (the checkpoint is written once), and with ``sched``
-    phase_sched_serve."""
+    (the checkpoint is written once), with ``sched`` phase_sched_serve
+    and with ``ha`` phase_ha_serve."""
     import os
     import re
     import shutil
@@ -4346,6 +4380,9 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
         if sched:
             phase_sched_serve(torch, dev, card, cfg, loaded, ckpt, mix,
                               sampled, reqs)
+        if ha:
+            phase_ha_serve(torch, dev, card, cfg, loaded, ckpt, mix,
+                           sampled, reqs)
 
 
 def http_results(torch, dev, card, cfg, loaded, mix, sampled, outs,
@@ -4449,9 +4486,9 @@ def _stage_tree(params, s: int, e: int, n: int) -> dict:
     return p
 
 
-def _swarm_requests(served, sampled):
+def _swarm_requests(served, sampled, new: int = 32):
     """Fresh requests for the served requests' prompt ids, with the mix's
-    sampling (32 tokens, EOS ignored)."""
+    sampling (``new`` tokens, EOS ignored)."""
     from parallax_tpu_torch.runtime.request import Request, SamplingParams
 
     out = []
@@ -4460,7 +4497,7 @@ def _swarm_requests(served, sampled):
         out.append(Request(f"r{i}", prompt_ids=list(r.prompt_ids),
                            sampling_params=SamplingParams(
                                temperature=temp, top_k=top_k, seed=seed,
-                               max_new_tokens=32, ignore_eos=True)))
+                               max_new_tokens=new, ignore_eos=True)))
     return out
 
 
@@ -4965,10 +5002,11 @@ SCHED_CAPACITY = 14
 SCHED_BEAT_WAIT_S = 2.5
 
 
-def _wait_for(cond, deadline: float, what: str) -> None:
+def _wait_for(cond, deadline: float, what: str,
+              phase: str = "sched_serve") -> None:
     while not cond():
         if time.monotonic() > deadline:
-            raise AssertionError(f"sched_serve: {what}")
+            raise AssertionError(f"{phase}: {what}")
         time.sleep(0.05)
 
 
@@ -5133,7 +5171,7 @@ def sched_in_process(torch, dev, card, cfg, params, served, sampled):
     want, per_stage = {}, []
     for stage, summary, (_, (s, e), _) in zip(("head", "tail"), summaries,
                                                allocation):
-        if summary["impl"] != "cuda-fused":
+        if summary["impl"] != FUSED_IMPL:
             raise AssertionError(f"sched_serve (a) {stage}: impl "
                                  f"{summary['impl']}")
         mine = gqa_expected("fused", summary, e - s)
@@ -5194,8 +5232,56 @@ def _status_json(port: int) -> dict:
         conn.close()
 
 
-def _emit_sched_tails(names, procs, texts) -> None:
-    emit({"phase": "sched_serve", "part": "b_processes", "failed": True,
+def _send_mix(port: int, items, phase: str) -> list[dict]:
+    """``items`` (path, body) from one client thread each, a 503 retried
+    for 60 s; every client must be answered."""
+    import threading
+
+    outs = [{} for _ in items]
+    clients = [threading.Thread(
+        target=_http_client_retry_503, daemon=True,
+        args=(port, path, body, out, time.monotonic() + 60.0))
+        for (path, body), out in zip(items, outs)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(HTTP_TIMEOUT_S)
+    if any(c.is_alive() for c in clients):
+        raise AssertionError(f"{phase} (b): a client is still waiting")
+    return outs
+
+
+def _replica_exits(phase: str, names, texts, n: int) -> list[dict]:
+    """Each 28-layer worker process's exit lines: its engine's dispatch
+    summary and the process's launches, exact on the kernels, and its
+    engine builds (``(re)loading layers``), exactly one."""
+    import re
+
+    out = []
+    for nm, text in zip(names, texts):
+        m = re.search(r"kernel dispatch: (\{.*\})", text)
+        k = re.search(r"kernel launches: (\{.*\})", text)
+        builds = len(re.findall(r"\(re\)loading layers", text))
+        if m is None or k is None or builds != 1:
+            raise AssertionError(f"{phase} (b) {nm}: {builds} engine builds "
+                                 "or no exit summary")
+        summary, launches = json.loads(m.group(1)), json.loads(k.group(1))
+        if summary["impl"] != FUSED_IMPL:
+            raise AssertionError(f"{phase} (b) {nm}: impl {summary['impl']}")
+        check_launches(phase, f"b_{nm}", launches,
+                       gqa_expected("fused", summary, n), summary)
+        decode, prefill = forward_steps(summary)
+        out.append({
+            "worker": nm, "impl": summary["impl"], "engine_builds": builds,
+            "decode_steps": decode, "prefill_steps": prefill,
+            "launches": launches,
+            "graphs_captured": summary.get("graphs", {}).get("captured", 0),
+            "graph_replays": summary.get("graphs", {}).get("replays", 0)})
+    return out
+
+
+def _emit_sched_tails(names, procs, texts, phase="sched_serve") -> None:
+    emit({"phase": phase, "part": "b_processes", "failed": True,
           "exits": {nm: p.poll() for nm, p in zip(names, procs)},
           "log_tails": {nm: t[-3000:] for nm, t in zip(names, texts)}})
 
@@ -5215,8 +5301,6 @@ def sched_processes(torch, dev, card, cfg, params, ckpt, mix, sampled,
     their ids counted against part (a)'s and checked against the plain
     path; clean logs; every process exits 0 within 30 s of SIGTERM."""
     import os
-    import re
-    import threading
 
     from parallax_tpu_torch.backend.run import SwarmClient
     from parallax_tpu_torch.p2p.transport import TcpTransport
@@ -5270,19 +5354,7 @@ def sched_processes(torch, dev, card, cfg, params, ckpt, mix, sampled,
             raise AssertionError(f"sched_serve (b): allocation {decided}")
 
         def send(items):
-            outs = [{} for _ in items]
-            clients = [threading.Thread(
-                target=_http_client_retry_503, daemon=True,
-                args=(port, path, body, out, time.monotonic() + 60.0))
-                for (path, body), out in zip(items, outs)]
-            for c in clients:
-                c.start()
-            for c in clients:
-                c.join(HTTP_TIMEOUT_S)
-            if any(c.is_alive() for c in clients):
-                raise AssertionError("sched_serve (b): a client is still "
-                                     "waiting")
-            return outs
+            return _send_mix(port, items, "sched_serve")
 
         def completes(k: int) -> bool:
             return _status_json(port)["routing"]["predicted_vs_actual"][
@@ -5388,27 +5460,8 @@ def sched_processes(torch, dev, card, cfg, params, ckpt, mix, sampled,
     worst, *_ = greedy_check(torch, model_ref, params, greedy_reqs, {}, dev,
                              tol=GREEDY_TOL)
     del model_ref
-    # Each worker's exit lines: its engine's dispatch summary and the
-    # process's launches, exact for a 28-layer replica on the kernels.
-    worker_dispatch = []
-    for nm, text in zip(names[1:], texts[1:]):
-        m = re.search(r"kernel dispatch: (\{.*\})", text)
-        k = re.search(r"kernel launches: (\{.*\})", text)
-        if m is None or k is None:
-            raise AssertionError(f"sched_serve (b) {nm}: no exit summary")
-        summary, launches = json.loads(m.group(1)), json.loads(k.group(1))
-        if summary["impl"] != "cuda-fused":
-            raise AssertionError(f"sched_serve (b) {nm}: impl "
-                                 f"{summary['impl']}")
-        check_launches("sched_serve", f"b_{nm}", launches,
-                       gqa_expected("fused", summary, cfg.num_hidden_layers),
-                       summary)
-        decode, prefill = forward_steps(summary)
-        worker_dispatch.append({
-            "worker": nm, "impl": summary["impl"], "decode_steps": decode,
-            "prefill_steps": prefill, "launches": launches,
-            "graphs_captured": summary.get("graphs", {}).get("captured", 0),
-            "graph_replays": summary.get("graphs", {}).get("replays", 0)})
+    worker_dispatch = _replica_exits("sched_serve", names[1:], texts[1:],
+                                     cfg.num_hidden_layers)
     # The rates are the concurrent wave's (r0-r6); r7 went out alone.
     FIGURES["sched_http"] = {"spawn_to_route_ready_s": route_s,
                              **_swarm_http_figures(outs[:-1], mix[:-1])}
@@ -5452,6 +5505,557 @@ def phase_sched_serve(torch, dev, card, cfg, params, ckpt, mix, sampled,
                                     "swarm_http", "swarm_http_warm",
                                     "sched_in_process", "sched_http")},
         "phase_s": time.monotonic() - t0, "card": card})
+
+
+# The impl a fused run's dispatch summary names on the card.
+FUSED_IMPL = "cuda-fused"
+# ha_serve: the standby promotes after HA_LEASE_S of silence from the
+# primary; it pulls (the lease probe) every HA_SYNC_S.
+HA_LEASE_S = 3.0
+HA_SYNC_S = 0.5
+# The lease expires at most HA_LEASE_S after the kill (a push in flight
+# at the kill may renew it once more) and the tail loop sees it at its
+# next check, at most HA_SYNC_S later; that check's own pull (a refused
+# dial) and the promotion's replay add milliseconds, which the two step
+# threads' load can stretch.
+HA_PROMOTE_SLACK_S = 0.25
+# Part (b)'s client rows decode this many tokens, so the primary's kill
+# lands while every row is still decoding (the 28-layer replicas run
+# K = 8 windows).
+HA_CLIENT_NEW = 96
+
+
+def _ha_seeded(vocab: int, rid: str):
+    """ha_serve's seeded request: 40 prompt ids (under one 64-token page,
+    so no prefix of it is ever cached and a second serving computes what
+    the first did), top-k 40 at temperature 0.8, seed 7, 32 tokens."""
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    rng = random.Random(4242)
+    return Request(rid, prompt_ids=[rng.randrange(1, vocab)
+                                    for _ in range(40)],
+                   sampling_params=SamplingParams(
+                       temperature=0.8, top_k=40, seed=7, max_new_tokens=32,
+                       ignore_eos=True))
+
+
+def _route(client, r, what: str) -> dict:
+    """Route ``r`` through ``client``: the route's ms and its end."""
+    t0 = time.monotonic()
+    r.routing_table = client.route(r.request_id, prompt_ids=r.prompt_ids)
+    t_route = time.monotonic()
+    if not r.routing_table:
+        raise AssertionError(f"ha_serve {what}: no route")
+    return {"route_ms": (t_route - t0) * 1e3, "t_route": t_route}
+
+
+def _serve_alone(client, r, what: str, routed: dict | None = None) -> dict:
+    """Route ``r`` through ``client`` (unless ``routed`` holds its route),
+    submit it and wait for it: route ms, TTFT (submit to the client's first
+    sight of a token) and decode tok/s."""
+    routed = routed or _route(client, r, what)
+    t0 = time.monotonic()
+    ev = client.submit(r)
+    first = None
+    while not ev.wait(client.poll_interval_s):
+        if first is None and r.output_ids:
+            first = time.monotonic()
+        if time.monotonic() - t0 > SWARM_TIMEOUT_S:
+            raise AssertionError(f"ha_serve {what}: {r.status.value}")
+    t1 = time.monotonic()
+    first = first or t1
+    if r.status.value != "finished_length" or len(r.output_ids) != 32:
+        raise AssertionError(f"ha_serve {what}: {r.status.value}, "
+                             f"{len(r.output_ids)} tokens")
+    return {**routed, "ttft_s": first - t0,
+            "decode_tok_per_s": (len(r.output_ids) - 1) / max(t1 - first,
+                                                              1e-9)}
+
+
+def _journal_bytes(journal) -> int:
+    """The wire bytes of the journal's records (each one HA_JOURNAL
+    payload, as the replicator pushes it)."""
+    from parallax_tpu_torch.p2p import wire
+
+    records, _ = journal.records_since(0)
+    return sum(len(wire.packb(r)) for r in records)
+
+
+def ha_in_process(torch, dev, card, cfg, params, served, sampled):
+    """Part (a): a primary GlobalScheduler + SchedulerService journaling to
+    a passive mirror whose StandbyScheduler tails it over TCP loopback
+    (lease HA_LEASE_S), two WorkerNodes joined with ``scheduler_standby``
+    (one 14 + 14 pipeline, capacity patched as in sched_serve), and a
+    SwarmClient over [primary, standby] on a transport of its own. The
+    seeded request alone, then the mix; once r0-r6 stream, the primary's
+    service stops (its threads and its transport). Every request ends by
+    length with zero aborts, launches exact over the pair, no engine
+    rebuilt; the standby promotes to epoch 2 within lease + sync interval;
+    the workers' heartbeats and the client's routes move to it; the seeded
+    request served once more through it gives the same tokens; the old
+    primary, revived, fences on the epoch a worker echoes and refuses a
+    join. Returns the mix's requests."""
+    import threading
+
+    from parallax_tpu_torch.backend.run import SwarmClient
+    from parallax_tpu_torch.backend.scheduler_service import SchedulerService
+    from parallax_tpu_torch.ha.journal import StateJournal, install_journal
+    from parallax_tpu_torch.ha.standby import StandbyScheduler
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.p2p.node import WorkerNode
+    from parallax_tpu_torch.p2p.transport import TcpTransport
+    from parallax_tpu_torch.scheduling import node as sched_node
+    from parallax_tpu_torch.scheduling.scheduler import GlobalScheduler
+
+    n = cfg.num_hidden_layers
+    roofline = sched_node.RooflinePerformanceModel
+    real_capacity = roofline.max_layers_in_memory
+    roofline.max_layers_in_memory = (
+        lambda self, kv_fraction=0.35: SCHED_CAPACITY)
+    mirror = GlobalScheduler(cfg, min_nodes_bootstrapping=2, passive=True)
+    mirror_service = SchedulerService(
+        mirror, TcpTransport("standby", "127.0.0.1"),
+        join_timeout_s=SWARM_TIMEOUT_S)
+    sched = GlobalScheduler(cfg, min_nodes_bootstrapping=2)
+    service = standby = journal = None
+    workers, builds = [], {}
+    client_t = TcpTransport("", "127.0.0.1")
+    stop_mon = threading.Event()
+
+    def new_worker(primary: str, standby_addr: str):
+        t = TcpTransport("", "127.0.0.1")
+        t.start()
+        t.peer_id = t.address
+
+        def load(m):
+            builds[t.address] = builds.get(t.address, 0) + 1
+            return _stage_tree(params, m.start_layer, m.end_layer, n)
+
+        w = WorkerNode(t, primary, cfg, engine_config(True), load_params=load,
+                       heartbeat_interval_s=0.5, device=dev,
+                       scheduler_standby=[standby_addr])
+        workers.append(w)
+        return w
+
+    try:
+        mirror_service.start()          # passive: no scheduler threads
+        standby_addr = mirror_service.transport.address
+        service = SchedulerService(
+            sched, TcpTransport("scheduler", "127.0.0.1"),
+            join_timeout_s=SWARM_TIMEOUT_S, standby_addrs=[standby_addr])
+        service.start()
+        primary = service.transport.address
+        journal = StateJournal(epoch=sched.epoch)
+        journal.bind(service.transport)
+        install_journal(sched, journal)
+        # Built once the primary listens: the lease arms here.
+        standby = StandbyScheduler(
+            mirror, transport=mirror_service.transport, primary=primary,
+            lease_s=HA_LEASE_S, sync_interval_s=HA_SYNC_S,
+            node_id=standby_addr)
+        standby.start()
+        t_spawn = time.monotonic()
+        pair = [new_worker(primary, standby_addr) for _ in range(2)]
+        threads = [threading.Thread(target=w.start, daemon=True)
+                   for w in pair]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SWARM_TIMEOUT_S)
+        _wait_for(lambda: _sched_nodes(sched.cluster_status()) and all(
+            x[2] for x in _sched_nodes(sched.cluster_status())),
+            t_spawn + SWARM_TIMEOUT_S, "(a) no ready pipeline", "ha_serve")
+        allocation = _sched_nodes(sched.cluster_status())
+        if [x[1] for x in allocation] != [[0, SCHED_CAPACITY],
+                                          [SCHED_CAPACITY, n]]:
+            raise AssertionError(f"ha_serve (a): allocation {allocation}")
+        by_id = {w.node_id: w for w in workers}
+        head, tail = by_id[allocation[0][0]], by_id[allocation[1][0]]
+        engines = {w.node_id: id(w.engine) for w in workers}
+        client_t.start()
+        client_t.peer_id = client_t.address
+        client = SwarmClient(client_t,
+                             scheduler_peers=[primary, standby_addr])
+        ck.reset_launches()
+        # Before: the seeded request alone on the un-failed swarm.
+        pre = _ha_seeded(cfg.vocab_size, "ha-seeded-pre")
+        before = _serve_alone(client, pre, "(a) seeded before")
+
+        reqs = _swarm_requests(served, sampled)
+        mon = threading.Thread(target=_stamp_first_tokens,
+                               args=(reqs, stop_mon, client.poll_interval_s),
+                               daemon=True)
+        t0 = time.monotonic()
+        mon.start()
+        events = []
+        for r in reqs:
+            r.routing_table = client.route(r.request_id,
+                                           prompt_ids=r.prompt_ids)
+            events.append(client.submit(r))
+        _wait_for(lambda: all(r.output_ids for r in reqs[:7]),
+                  t0 + SWARM_TIMEOUT_S, "(a) r0-r6 never streamed",
+                  "ha_serve")
+        # Kill the primary mid-decode: its threads and transport die.
+        service.stop()
+        t_kill = time.monotonic()
+        at_kill = [len(r.output_ids) for r in reqs]
+        if max(at_kill[:7]) >= 32:
+            raise AssertionError(f"ha_serve (a): a row finished before the "
+                                 f"kill {at_kill}")
+        _wait_for(lambda: standby.promoted_at is not None,
+                  t_kill + SWARM_TIMEOUT_S, "(a) the standby never promoted",
+                  "ha_serve")
+        kill_to_promoted = standby.promoted_at - t_kill
+        if not (t_kill < standby.promoted_at
+                and kill_to_promoted <= (HA_LEASE_S + HA_SYNC_S
+                                         + HA_PROMOTE_SLACK_S)
+                and mirror.epoch == 2):
+            raise AssertionError(f"ha_serve (a): promoted "
+                                 f"{kill_to_promoted} s after the kill, "
+                                 f"epoch {mirror.epoch}")
+        # After: the same seeded request, routed at once through the
+        # promoted scheduler and served once the mix is done (alone).
+        post = _ha_seeded(cfg.vocab_size, "ha-seeded-post")
+        routed = _route(client, post, "(a) seeded after")
+        for r, ev in zip(reqs, events):
+            if not ev.wait(SWARM_TIMEOUT_S):
+                raise AssertionError(f"ha_serve (a) {r.request_id}: "
+                                     f"{r.status.value}")
+        t1 = time.monotonic()
+        stop_mon.set()
+        mon.join(10)
+        launches = ck.launches()
+        summaries = [head.engine.kernel_dispatch_summary(),
+                     tail.engine.kernel_dispatch_summary()]
+        after = _serve_alone(client, post, "(a) seeded after", routed)
+        if client.sched_transport.active_peer != standby_addr:
+            raise AssertionError("ha_serve (a): the client's route did not "
+                                 "move to the standby")
+        if post.output_ids != pre.output_ids:
+            raise AssertionError("ha_serve (a): the seeded request after "
+                                 "the promotion differs from before")
+        _wait_for(lambda: all(w.sched_transport.epoch == 2
+                              and w.sched_transport.active_peer
+                              == standby_addr for w in workers),
+                  time.monotonic() + 15, "(a) a worker's heartbeat did not "
+                  "move to the promoted standby", "ha_serve")
+        if builds != {w.node_id: 1 for w in workers} or engines != {
+                w.node_id: id(w.engine) for w in workers}:
+            raise AssertionError(f"ha_serve (a): engines rebuilt {builds}")
+        # The old primary, revived, hears a worker echo epoch 2.
+        nodes_before = sorted(x.node_id for x in sched.manager.nodes())
+        reply = service._on_update(head.node_id, {
+            "node_id": head.node_id, "load": 0,
+            "epoch": head.sched_transport.epoch})
+        refused = service._on_join("zombie", {"node_id": "zombie"})
+        sched.drain_events()
+        if not (reply.get("not_primary") and sched.fenced
+                and refused.get("not_primary")) or nodes_before != sorted(
+                    x.node_id for x in sched.manager.nodes()):
+            raise AssertionError(f"ha_serve (a): the old primary was not "
+                                 f"fenced: {reply}, {refused}")
+        ha = {"kill_to_promoted_ms": kill_to_promoted * 1e3,
+              "promotion_ms": standby.replay_ms,
+              "promoted_to_first_route_ms": (
+                  after["t_route"] - standby.promoted_at) * 1e3,
+              "journal_records": journal.seq,
+              "journal_bytes": _journal_bytes(journal),
+              "journal_records_by_kind": dict(journal.records_by_kind),
+              "records_pushed": journal.pushes,
+              "push_resyncs": journal.resyncs,
+              "standby_applied_seq": standby.applied_seq,
+              "standby_resyncs": standby.resyncs,
+              "tokens_at_kill": at_kill, "in_flight_aborts": sum(
+                  r.status.value != "finished_length" for r in reqs),
+              "engine_builds": builds}
+    finally:
+        stop_mon.set()
+        for w in workers:
+            w.stop()
+            w.engine = None
+        client_t.stop()
+        for part in (standby, journal, mirror.journal):
+            if part is not None:
+                part.stop()
+        mirror_service.stop()
+        if service is not None:
+            service.stop()
+        roofline.max_layers_in_memory = real_capacity
+    del workers
+    for r in reqs:
+        if r.status.value != "finished_length" or len(r.output_ids) != 32:
+            raise AssertionError(f"ha_serve (a) {r.request_id}: "
+                                 f"{r.status.value}, {len(r.output_ids)}")
+    want = {}
+    for summary, (_, (s, e), _) in zip(summaries, allocation):
+        if summary["impl"] != FUSED_IMPL:
+            raise AssertionError(f"ha_serve (a): impl {summary['impl']}")
+        for k, v in gqa_expected("fused", summary, e - s).items():
+            want[k] = want.get(k, 0) + v
+    check_launches("ha_serve", "in_process", launches, want, {})
+    FIGURES["ha_in_process"] = {
+        **ha, "before": {k: v for k, v in before.items() if k != "t_route"},
+        "after": {k: v for k, v in after.items() if k != "t_route"},
+        **stream_metrics(reqs, t0, t1)}
+    emit({"phase": "ha_serve", "part": "a_in_process",
+          "forced": f"RooflinePerformanceModel.max_layers_in_memory -> "
+                    f"{SCHED_CAPACITY}",
+          "lease_s": HA_LEASE_S, "sync_interval_s": HA_SYNC_S,
+          "promote_bound_s": HA_LEASE_S + HA_SYNC_S + HA_PROMOTE_SLACK_S,
+          "allocation": allocation, "requests": len(reqs),
+          "status": "8 x finished_length", "launches": launches,
+          "seeded_after_equals_before": True,
+          "old_primary": "fenced, join refused",
+          **FIGURES["ha_in_process"], "card": card})
+    return reqs
+
+
+def _ha_ports() -> int:
+    """The first of four consecutive ports for part (b)'s two ``run``
+    processes (HTTP and RPC each), each of which must know the other's
+    address before it starts. They come from below the kernel's ephemeral
+    range, where no port-0 bind (the workers', the probe's) can land, so
+    nothing in this run takes them between the pick and the binds."""
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        low = int(f.read().split()[0])
+    return random.Random(time.time_ns()).randrange(max(1024, low - 8000),
+                                                   low - 8, 4)
+
+
+def ha_processes(torch, dev, card, cfg, params, ckpt, mix, sampled, served):
+    """Part (b): ``run --scheduler-standby S`` (the primary P), ``run
+    --standby-of P --ha-lease-s 3`` (S) and two ``join --scheduler-addr P
+    --scheduler-standby S`` processes on the checkpoint (two 28-layer
+    replicas, cache_aware). S's HTTP answers 503 while it mirrors. The
+    HTTP mix goes to P; then this process's SwarmClient over [P, S] routes
+    the mix's prompts (HA_CLIENT_NEW tokens each), and once r0-r6 stream,
+    P gets SIGKILL. Every client row finishes by length; S promotes (its
+    log line: epoch 2, the journal seq it replayed); the client's next
+    route lands on S; a second mix (other text) to S's HTTP port, every
+    reply 200 with 32 tokens. Clean logs; the survivors exit 0 within 30 s
+    of SIGTERM (the workers' node_leaves land on S); each worker built its
+    engine once and its launches are exact. Returns the client rows."""
+    import os
+    import re
+
+    from parallax_tpu_torch.backend.run import SwarmClient
+    from parallax_tpu_torch.p2p.transport import TcpTransport
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo}
+    names = ("run_primary", "run_standby", "join_a", "join_b")
+    paths = [os.path.join(ckpt, f"ha_{nm}.log") for nm in names]
+    logs = [open(path, "w+") for path in paths]
+    probe = TcpTransport("", "127.0.0.1")
+    procs, exits, failed = [], {}, True
+    base = _ha_ports()
+    p_http, s_http = base, base + 2
+    primary, standby = f"127.0.0.1:{base + 1}", f"127.0.0.1:{base + 3}"
+    try:
+        probe.start()
+        probe.peer_id = probe.address
+        t_spawn = time.monotonic()
+        deadline = t_spawn + SWARM_TIMEOUT_S
+
+        def spawn(args: list[str], i: int) -> None:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "parallax_tpu_torch", *args],
+                cwd=repo, env=env, stdout=logs[i], stderr=subprocess.STDOUT))
+
+        run = ["run", "--model-name", ckpt, "--min-nodes", "2", "--routing",
+               "cache_aware", "--host", "127.0.0.1"]
+        spawn(run + ["--port", str(p_http), "--scheduler-standby", standby],
+              0)
+        _logged(paths[0], r"scheduler RPC on :(\d+)", procs[0], deadline)
+        # The standby's lease arms when it starts: the primary listens.
+        spawn(run + ["--port", str(s_http), "--standby-of", primary,
+                     "--ha-lease-s", str(HA_LEASE_S)], 1)
+        _logged(paths[1], r"(warm standby of)", procs[1], deadline)
+        for i in (2, 3):
+            spawn(["join", "--scheduler-addr", primary,
+                   "--scheduler-standby", standby, "--model-path", ckpt,
+                   "--advertise-addr", "127.0.0.1", "--port", "0",
+                   "--device", str(dev)], i)
+
+        def ready(port) -> bool:
+            if any(p.poll() is not None for p in procs):
+                raise AssertionError("ha_serve (b): a process exited")
+            nodes = _sched_nodes(_status_json(port))
+            return len(nodes) == 2 and all(x[2] for x in nodes)
+
+        # The mirror shows what the primary decided (the journal).
+        _wait_for(lambda: ready(p_http) and ready(s_http), deadline,
+                  "(b) the replicas did not come up", "ha_serve")
+        route_s = time.monotonic() - t_spawn
+        decided = [[(x["node_id"], x["layers"]) for x in p["nodes"]]
+                   for p in _status_json(p_http)["pipelines"]]
+        if sorted(len(p) for p in decided) != [1, 1]:
+            raise AssertionError(f"ha_serve (b): allocation {decided}")
+        mirror_503 = {}
+        _http_client(s_http, mix[1][0], mix[1][1], mirror_503)
+        if mirror_503.get("status") != 503:
+            raise AssertionError(f"ha_serve (b): the mirror answered "
+                                 f"{mirror_503.get('status')}, not 503")
+
+        # One unmeasured pass (other text) warms the fresh workers, so the
+        # before and after mixes both meet warm ones.
+        _send_mix(p_http, _text_mix(seed=2026)[0], "ha_serve")
+        outs_before = _send_mix(p_http, mix, "ha_serve")
+        client = SwarmClient(probe, scheduler_peers=[primary, standby])
+        rows = _swarm_requests(served, sampled, new=HA_CLIENT_NEW)
+        events = []
+        for r in rows:
+            r.routing_table = client.route(r.request_id,
+                                           prompt_ids=r.prompt_ids)
+            events.append(client.submit(r))
+        _wait_for(lambda: all(r.output_ids for r in rows[:7]),
+                  time.monotonic() + SWARM_TIMEOUT_S,
+                  "(b) r0-r6 never streamed", "ha_serve")
+        procs[0].kill()
+        t_kill = time.monotonic()
+        at_kill = [len(r.output_ids) for r in rows]
+        promoted = r"standby promoted: epoch (\d+), (\d+) nodes, (\d+) " \
+                   r"pipelines, journal seq (\d+), ([\d.]+) ms"
+        _logged(paths[1], r"(standby promoted)", procs[1],
+                t_kill + SWARM_TIMEOUT_S)
+        t_promoted = time.monotonic()
+        # The client's next route, beside the rows' tail: P refuses the
+        # connection, S answers.
+        late = _ha_seeded(cfg.vocab_size, "ha-late")
+        after_alone = _serve_alone(client, late, "(b) after")
+        for r, ev in zip(rows, events):
+            if not ev.wait(HTTP_TIMEOUT_S):
+                raise AssertionError(f"ha_serve (b) {r.request_id} hung")
+        if client.sched_transport.active_peer != standby:
+            raise AssertionError("ha_serve (b): the client's route did not "
+                                 "move to S")
+        mix_after, _ = _text_mix(seed=2025)
+        outs_after = _send_mix(s_http, mix_after, "ha_serve")
+        status_end = _status_json(s_http)
+        procs[0].wait(30)
+        exits[names[0]] = procs[0].returncode
+        t_term = time.monotonic()
+        for p in procs[2:]:
+            p.send_signal(15)
+        for nm, p in zip(names[2:], procs[2:]):
+            try:
+                exits[nm] = p.wait(SWARM_EXIT_S)
+            except subprocess.TimeoutExpired:
+                exits[nm] = "timeout"
+        _wait_for(lambda: _status_json(s_http)["num_nodes"] == 0,
+                  time.monotonic() + 10, "(b) a worker's node_leave did not "
+                  "reach S", "ha_serve")
+        procs[1].send_signal(15)
+        try:
+            exits[names[1]] = procs[1].wait(SWARM_EXIT_S)
+        except subprocess.TimeoutExpired:
+            exits[names[1]] = "timeout"
+        exit_s = time.monotonic() - t_term
+    except BaseException:
+        failed = True
+        raise
+    else:
+        failed = False
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        probe.stop()
+        texts = []
+        for log in logs:
+            log.seek(0)
+            texts.append(log.read())
+            log.close()
+        if failed:
+            _emit_sched_tails(names, procs, texts, "ha_serve")
+    try:
+        for nm, text in zip(names, texts):
+            if "step loop error" in text or "Traceback" in text:
+                raise AssertionError(f"ha_serve (b) {nm}: an error in its "
+                                     "log")
+        if exits.pop(names[0]) != -9 or any(c != 0 for c in exits.values()):
+            raise AssertionError(f"ha_serve (b): exits {exits}")
+        m = re.search(promoted, texts[1])
+        if m is None or int(m.group(1)) != 2 or int(m.group(2)) != 2 or \
+                int(m.group(3)) != 2:
+            raise AssertionError(f"ha_serve (b): promotion line {m}")
+        for i, (out, (_, body)) in enumerate(
+                list(zip(outs_before, mix)) + list(zip(outs_after,
+                                                       mix_after))):
+            _rid, reason, usage, _text = _http_reply(out, body)
+            if reason != "length" or usage["completion_tokens"] != 32:
+                raise AssertionError(f"ha_serve (b) reply {i}: {reason}, "
+                                     f"{usage}")
+        for r in rows:
+            if r.status.value != "finished_length" or \
+                    len(r.output_ids) != HA_CLIENT_NEW:
+                raise AssertionError(f"ha_serve (b) {r.request_id}: "
+                                     f"{r.status.value}")
+        if max(at_kill[:7]) >= HA_CLIENT_NEW:
+            raise AssertionError(f"ha_serve (b): a row finished before the "
+                                 f"kill {at_kill}")
+        worker_dispatch = _replica_exits("ha_serve", names[2:], texts[2:],
+                                         cfg.num_hidden_layers)
+    except AssertionError:
+        _emit_sched_tails(names, procs, texts, "ha_serve")
+        raise
+    FIGURES["ha_http_before"] = _swarm_http_figures(outs_before, mix)
+    FIGURES["ha_http_after"] = _swarm_http_figures(outs_after, mix_after)
+    emit({"phase": "ha_serve", "part": "b_processes",
+          "processes": list(names), "ports": [p_http, s_http],
+          "lease_s": HA_LEASE_S, "allocation": decided,
+          "spawn_to_route_ready_s": route_s,
+          "mirror_http_before_promotion": 503,
+          "client_rows": len(rows), "client_new_tokens": HA_CLIENT_NEW,
+          "tokens_at_kill": at_kill,
+          "in_flight_aborts": sum(r.status.value != "finished_length"
+                                  for r in rows),
+          "kill_to_promoted_log_ms": (t_promoted - t_kill) * 1e3,
+          "promotion": {"epoch": int(m.group(1)), "nodes": int(m.group(2)),
+                        "pipelines": int(m.group(3)),
+                        "journal_seq_replayed": int(m.group(4)),
+                        "promotion_ms": float(m.group(5))},
+          "promoted_to_first_route_ms": (after_alone["t_route"]
+                                         - t_promoted) * 1e3,
+          "seeded_after_beside_rows": {k: v for k, v in after_alone.items()
+                                       if k != "t_route"},
+          "http_before_p": FIGURES["ha_http_before"],
+          "http_after_s": FIGURES["ha_http_after"],
+          "routing_end_s": status_end["routing"], "exits": exits,
+          "exit_after_sigterm_s": exit_s,
+          "worker_dispatch": worker_dispatch, "card": card})
+    return rows
+
+
+def phase_ha_serve(torch, dev, card, cfg, params, ckpt, mix, sampled,
+                   served) -> None:
+    """Scheduler HA on Qwen2.5-7B at full width: part (a) in this process
+    (a 14 + 14 pipeline whose primary scheduler stops mid-decode), part
+    (b) as two ``run`` and two ``join`` processes (two replicas, the
+    primary SIGKILLed mid-decode); then the greedy rows of both against
+    the plain path."""
+    t0 = time.monotonic()
+    free_device_memory(torch)
+    in_process = ha_in_process(torch, dev, card, cfg, params, served,
+                               sampled)
+    free_device_memory(torch)
+    rows = ha_processes(torch, dev, card, cfg, params, ckpt, mix, sampled,
+                        served)
+    free_device_memory(torch)
+    model_ref = create_plain_model(cfg)
+    worst, *_ = greedy_check(torch, model_ref, params, in_process + rows,
+                             {**sampled, **{len(in_process) + i: s
+                                            for i, s in sampled.items()}},
+                             dev, tol=GREEDY_TOL)
+    del model_ref
+    emit({"phase": "ha_serve", "greedy_vs_plain": "pass",
+          "greedy_rows": 2 * (len(in_process) - len(sampled)),
+          "largest_logit_gap": worst, "tolerance": GREEDY_TOL,
+          "compare": {k: FIGURES.get(k) for k in (
+              "sched_in_process", "sched_http", "ha_in_process",
+              "ha_http_before", "ha_http_after")},
+          "phase_s": time.monotonic() - t0, "card": card})
 
 
 def phase_moe_serve(torch, dev, card: str, want) -> dict:
@@ -6140,7 +6744,8 @@ KERNEL_COUNTER = {"ragged_attend": "gqa_prefill"}
 # The phases on the Qwen2.5-7B tree after serve, pipeline and profile, in
 # order; the first one asked for names the tree's line when serve is not.
 DENSE_PHASES = ("features_serve", "preempt_serve", "migrate_serve",
-                "disagg_serve", "http_serve", "swarm_serve", "sched_serve")
+                "disagg_serve", "http_serve", "swarm_serve", "sched_serve",
+                "ha_serve")
 
 
 def run_dense(torch, dev, card: str, want) -> dict:
@@ -6173,11 +6778,13 @@ def run_dense(torch, dev, card: str, want) -> dict:
     if want("disagg_serve"):
         phase_disagg_serve(torch, dev, card, cfg, model_full, params)
         free_device_memory(torch)
-    if want("http_serve") or want("swarm_serve") or want("sched_serve"):
+    if any(want(p) for p in ("http_serve", "swarm_serve", "sched_serve",
+                             "ha_serve")):
         tree = [params]
         del params
         phase_http_serve(torch, dev, card, cfg, tree,
-                         swarm=want("swarm_serve"), sched=want("sched_serve"))
+                         swarm=want("swarm_serve"), sched=want("sched_serve"),
+                         ha=want("ha_serve"))
     return paths
 
 
@@ -6206,8 +6813,8 @@ def main() -> int:
                     help="comma-separated phases (build,kernels,serve,"
                          "pipeline,profile,features_serve,preempt_serve,"
                          "migrate_serve,disagg_serve,http_serve,"
-                         "swarm_serve and "
-                         "sched_serve (each runs http_serve too),moe_serve,"
+                         "swarm_serve, sched_serve and ha_serve (each runs "
+                         "http_serve too),moe_serve,"
                          "moe_profile,"
                          "mla_serve,mla_profile,dsa_serve,dsa_profile,"
                          "gptoss_serve,gptoss_profile,msa_serve,m2_serve); "

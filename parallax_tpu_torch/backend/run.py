@@ -13,19 +13,26 @@ are polled back for the frontend. A chat host fronts a scheduler-less
 swarm's head worker instead, with an empty routing table (the head routes
 it from its gossip). Neither touches the card.
 
+Scheduler HA, as in the JAX ``run`` (docs/ha.md): ``--scheduler-standby
+S1,S2`` journals the scheduler's state, advertises the standbys to every
+worker and routes the frontend through them once this scheduler is
+fenced; ``--standby-of P`` runs a passive mirror plus a
+``StandbyScheduler`` tailing P, which promotes itself after
+``--ha-lease-s`` of silence. Until then the mirror's frontend answers 503
+(no route), and ``/cluster/status_json`` the mirror's state.
+
 Not ported yet, refused by name: the web UI and ``/scheduler/init`` with
-the model switch, scheduler HA (standbys, failover) and the relay (ROADMAP
-queue 1 item 4c); SLO, QoS, timeline, healthz, device and profile hooks
-(item 9). The poll loop follows a live migration (``{"migrated": head}``
-from the old head, or the scheduler's ``where_is``) and resumes a request
-whose path died after it streamed tokens by resubmitting those tokens as
-``replay_ids``, as the JAX client does.
+the model switch, and the relay (ROADMAP queue 1 item 4c); SLO, QoS,
+timeline, healthz, device and profile hooks (item 9). The poll loop
+follows a live migration (``{"migrated": head}`` from the old head, or the
+scheduler's ``where_is``) and resumes a request whose path died after it
+streamed tokens by resubmitting those tokens as ``replay_ids``, as the JAX
+client does.
 """
 
 from __future__ import annotations
 
 import os
-import random
 import signal
 import threading
 import time
@@ -35,6 +42,10 @@ from parallax_tpu_torch.backend.http_server import (
     load_tokenizer,
 )
 from parallax_tpu_torch.backend.scheduler_service import SchedulerService
+from parallax_tpu_torch.ha.backoff import Backoff, BackoffPolicy
+from parallax_tpu_torch.ha.failover import SchedulerFailover
+from parallax_tpu_torch.ha.journal import StateJournal, install_journal
+from parallax_tpu_torch.ha.standby import StandbyScheduler
 from parallax_tpu_torch.p2p import proto
 from parallax_tpu_torch.p2p.transport import TcpTransport, Transport
 from parallax_tpu_torch.runtime.request import Request, RequestStatus
@@ -43,6 +54,10 @@ from parallax_tpu_torch.utils import get_logger, unported
 
 logger = get_logger(__name__)
 
+# The poll loop's retry between failed polls of a head (full jitter from
+# 0.25 s, capped at 2 s, as the JAX client's).
+POLL_RETRY = BackoffPolicy(base_s=0.25, cap_s=2.0)
+
 
 class SwarmClient:
     """Submits requests to head nodes over the transport and mirrors token
@@ -50,24 +65,30 @@ class SwarmClient:
     it). Capability parity: reference RequestHandler forwarding + SSE relay
     (request_handler.py:100-245).
 
-    Routing goes through ``service`` (an in-process scheduler), or over
-    the ``route_request`` RPC to ``scheduler_peers`` (one address: the
-    failover rotation over several waits for HA, item 4c), or — with
-    neither — to ``default_head`` with an empty routing table (a chat host
-    in front of a scheduler-less swarm)."""
+    Routing goes through ``service`` (an in-process scheduler) while it
+    is primary, or over the ``route_request`` RPC against
+    ``scheduler_peers`` through the failover rotation (the primary and its
+    standbys: a dead scheduler or a ``not_primary`` answer rotates to the
+    next), or — with neither — to ``default_head`` with an empty routing
+    table (a chat host in front of a scheduler-less swarm)."""
 
     def __init__(self, transport: Transport,
                  service: SchedulerService | None = None,
                  poll_interval_s: float = 0.02,
                  default_head: str | None = None,
                  scheduler_peers: list[str] | None = None):
-        if scheduler_peers and len(scheduler_peers) > 1:
-            raise unported("scheduler failover over several peers", "4c")
         self.transport = transport
         self.service = service
         self.poll_interval_s = poll_interval_s
         self.default_head = default_head
-        self.scheduler_peer = scheduler_peers[0] if scheduler_peers else None
+        # Scheduler HA (docs/ha.md): when the in-process scheduler goes
+        # passive / fenced (a standby elsewhere promoted), route / release
+        # / where_is fall back to RPC against this failover rotation, so
+        # the HTTP frontend keeps admitting through the promoted peer.
+        self.sched_transport: SchedulerFailover | None = None
+        if scheduler_peers:
+            self.sched_transport = SchedulerFailover(transport,
+                                                     scheduler_peers)
         # rid -> head node id, for stop-string early finish.
         self._heads: dict[str, str] = {}
         # rid -> monotonic arrival at routing time: a path that dies
@@ -75,12 +96,20 @@ class SwarmClient:
         # the ORIGINAL arrival.
         self._arrivals: dict[str, float] = {}
 
+    def _local_primary(self) -> bool:
+        """True while the in-process scheduler may route / mutate: not a
+        passive standby mirror, not fenced off by a promotion."""
+        svc = self.service
+        return svc is not None and not (
+            svc.scheduler.passive or svc.scheduler.fenced
+        )
+
     def route(self, request_id: str,
               prompt_ids: list[int] | None = None,
               lora_id: str | None = None) -> list[str] | None:
         """The request's node path; None when no pipeline is serviceable
         (the frontend's retryable 503)."""
-        if self.service is None and self.scheduler_peer is None:
+        if self.service is None and self.sched_transport is None:
             # Chat-host mode: probe the head's readiness so a still-loading
             # or route-less swarm maps to the frontend's 503.
             if self.default_head is None:
@@ -104,20 +133,21 @@ class SwarmClient:
     def _route_any(self, request_id: str,
                    prompt_ids: list[int] | None = None,
                    arrival_time: float | None = None) -> list[str] | None:
-        """Route in-process when the scheduler is, over RPC otherwise."""
-        if self.service is not None:
+        """Route in-process while the local scheduler is primary, over RPC
+        against the failover rotation otherwise (docs/ha.md)."""
+        if self._local_primary():
             return self.service.route_request(
                 request_id, timeout_s=10.0, prompt_ids=prompt_ids,
                 arrival_time=arrival_time,
             )
-        if self.scheduler_peer is None:
+        if self.sched_transport is None:
             return None
         age_ms = 0.0
         if arrival_time is not None:
             age_ms = max(0.0, (time.monotonic() - arrival_time) * 1e3)
         try:
-            reply = self.transport.call(
-                self.scheduler_peer, proto.ROUTE_REQUEST,
+            reply = self.sched_transport.call(
+                self.sched_transport.active_peer, proto.ROUTE_REQUEST,
                 {
                     "rid": request_id,
                     "prompt_ids": prompt_ids,
@@ -138,21 +168,23 @@ class SwarmClient:
         return [str(x) for x in path] if path else None
 
     def _release_path(self, path: list[str] | None) -> None:
-        """Release a routed path's load charge: in-process when the
-        scheduler is, over RPC otherwise."""
+        """Release a routed path's load charge: in-process while the local
+        scheduler is primary, over RPC otherwise (the charge lives on
+        whichever scheduler routed or inherited the request; a promoted
+        standby rebuilt it from the journal)."""
         if not path:
             return
-        if self.service is not None:
+        if self._local_primary():
             try:
                 self.service.scheduler.complete_request(list(path))
             except Exception:
                 logger.exception("releasing path %s", path)
             return
-        if self.scheduler_peer is None:
+        if self.sched_transport is None:
             return
         try:
-            self.transport.call(
-                self.scheduler_peer, proto.REQUEST_COMPLETE,
+            self.sched_transport.call(
+                self.sched_transport.active_peer, proto.REQUEST_COMPLETE,
                 {"path": list(path)}, timeout=5.0,
             )
         except Exception as e:
@@ -217,16 +249,19 @@ class SwarmClient:
     def _migrated_head(self, request_id: str) -> str | None:
         """The scheduler's where_is table: targets report restored
         requests there, so a poller whose OLD head died after shipping
-        still finds the new one. In process when the scheduler is, over
-        the ``where_is`` RPC otherwise."""
+        still finds the new one. A local PASSIVE mirror may answer too
+        (migration_done records replicate through the journal); falls back
+        to the ``where_is`` RPC against the failover rotation."""
         if self.service is not None:
-            return self.service.scheduler.migrated_head(request_id)
-        if self.scheduler_peer is None:
+            moved = self.service.scheduler.migrated_head(request_id)
+            if moved:
+                return moved
+        if self.sched_transport is None or self._local_primary():
             return None
         try:
-            reply = self.transport.call(
-                self.scheduler_peer, proto.WHERE_IS, {"rid": request_id},
-                timeout=5.0,
+            reply = self.sched_transport.call(
+                self.sched_transport.active_peer, proto.WHERE_IS,
+                {"rid": request_id}, timeout=5.0,
             )
         except Exception:
             return None
@@ -283,6 +318,7 @@ class SwarmClient:
         rid = request.request_id
         failures = 0
         reroutes = 0
+        retry = None   # a Backoff, reset to None on a good poll
 
         def follow_migration(new_head: str) -> str:
             """Switch polling to the head that owns the request now. The
@@ -305,7 +341,7 @@ class SwarmClient:
             moved = self._migrated_head(rid)
             if moved and moved != head:
                 return follow_migration(moved)
-            if (self.service is None and self.scheduler_peer is None) \
+            if (self.service is None and self.sched_transport is None) \
                     or reroutes >= 2:
                 return None
             if request.output_ids and self.service is not None \
@@ -320,6 +356,7 @@ class SwarmClient:
                     head, proto.CHAT_POLL, {"rid": rid}, timeout=10.0
                 )
                 failures = 0
+                retry = None
             except Exception as e:
                 failures += 1
                 if failures % 4 == 0:
@@ -345,10 +382,12 @@ class SwarmClient:
                     self._release_path(list(request.routing_table))
                     ev.set()
                     return
-                # Jittered exponential backoff between failed polls (full
-                # jitter, base 0.25 s, cap 2 s, as the JAX client's).
-                time.sleep(random.uniform(
-                    0.0, min(2.0, 0.25 * 2 ** (failures - 1))))
+                # Jittered exponential backoff between failed polls: a head
+                # blip with many concurrent pollers must not herd its
+                # recovery (docs/ha.md).
+                if retry is None:
+                    retry = Backoff(POLL_RETRY)
+                retry.wait()
                 continue
             if r.get("migrated"):
                 # Live migration: the request now runs on another head;
@@ -384,13 +423,19 @@ def build_swarm_frontend(
     transport: TcpTransport,
     tokenizer,
     model_name: str,
+    standby_addrs: list[str] | None = None,
 ) -> tuple[OpenAIFrontend, SchedulerService, SwarmClient]:
     """The scheduler host's frontend: the RPC service over ``transport``
     and the OpenAI API routing through it, with ``/cluster/status_json``
     and ``/cluster/status`` serving the scheduler's core
-    ``cluster_status()``."""
-    service = SchedulerService(scheduler, transport)
-    client = SwarmClient(transport, service)
+    ``cluster_status()``. With ``standby_addrs`` the service advertises
+    them and the client gets the failover rotation over them: once this
+    scheduler is fenced (a standby promoted past it), routing goes over
+    RPC to the promoted peer instead of 503ing the frontend."""
+    service = SchedulerService(scheduler, transport,
+                               standby_addrs=standby_addrs)
+    client = SwarmClient(transport, service,
+                         scheduler_peers=list(standby_addrs or []) or None)
     frontend = OpenAIFrontend(
         tokenizer,
         submit_fn=client.submit,
@@ -480,7 +525,10 @@ def resolve_model(name: str):
 def run_main(args, on_start=None) -> int:
     """``run`` entry: the scheduler, its RPC service on ``--port + 1`` and
     the HTTP frontend on ``--port``, until SIGINT / SIGTERM. ``--port 0``
-    binds both to free ports, logged once the HTTP socket is bound.
+    binds both to free ports, logged once the HTTP socket is bound. With
+    ``--scheduler-standby`` the scheduler journals to its standbys; with
+    ``--standby-of`` it is a passive mirror tailing the primary, whose
+    lease arms at start (start the primary first).
     ``on_start(frontend, service)`` runs once the HTTP socket is bound.
     Nothing here touches a device."""
     try:
@@ -498,18 +546,58 @@ def run_main(args, on_start=None) -> int:
             "imbalance_threshold": args.routing_imbalance,
             "gamma": args.routing_gamma or 0.0,
         }
+    # Scheduler HA (docs/ha.md): --scheduler-standby names the warm
+    # standbys this primary replicates to (and advertises to workers);
+    # --standby-of flips this process INTO a standby mirror tailing the
+    # named primary, promoting itself when the lease expires.
+    standby_addrs = [
+        p.strip() for p in (args.scheduler_standby or "").split(",")
+        if p.strip()
+    ]
+    standby_of = args.standby_of or None
     scheduler = GlobalScheduler(
         model, min_nodes_bootstrapping=args.min_nodes,
         routing=args.routing, routing_kwargs=routing_kwargs,
+        passive=bool(standby_of),
     )
     transport = TcpTransport("scheduler", args.host,
                              args.port + 1 if args.port else 0)
     frontend, service, _client = build_swarm_frontend(
         scheduler, transport, tokenizer, args.model_name,
+        standby_addrs=standby_addrs or None,
     )
+    standby_ctl = None
+    if standby_addrs and not standby_of:
+        journal = StateJournal(epoch=scheduler.epoch)
+        journal.bind(transport)
+        install_journal(scheduler, journal)
+    elif not standby_of:
+        # Without standbys the scheduler remains the swarm's single point
+        # of failure: a crash aborts nothing in flight on the workers, but
+        # no new requests route until it restarts and the workers rejoin.
+        logger.info(
+            "scheduler HA standby disabled: no --scheduler-standby "
+            "addresses configured — a scheduler crash stalls routing "
+            "until restart (docs/ha.md)"
+        )
     service.start()
+    if standby_of:
+        # Built once the RPC plane listens, under the address the primary
+        # pushes journal records to (the JAX ``run`` leaves the id at
+        # "standby", so its pushes fail and the pulls alone carry the
+        # journal).
+        standby_ctl = StandbyScheduler(
+            scheduler, transport=transport, primary=standby_of,
+            lease_s=args.ha_lease_s or 6.0, node_id=transport.address,
+        )
+        standby_ctl.start()
 
     def started(fe: OpenAIFrontend) -> None:
+        if standby_ctl is not None:
+            logger.info(
+                "warm standby of %s: mirroring journal, HTTP on :%d "
+                "(promotes on lease expiry)", standby_of, fe.port,
+            )
         logger.info("scheduler RPC on :%d, HTTP on :%d (min_nodes=%d)",
                     transport.port, fe.port, args.min_nodes)
         if on_start is not None:
@@ -518,5 +606,10 @@ def run_main(args, on_start=None) -> int:
     try:
         _serve_until_signalled(frontend, args.host, args.port, started)
     finally:
+        if standby_ctl is not None:
+            standby_ctl.stop()
+        # The primary's journal, or the one a promotion installed.
+        if scheduler.journal is not None:
+            scheduler.journal.stop()
         service.stop()
     return 0

@@ -8,16 +8,22 @@ reallocation piggyback + auto-rejoin, node_leave) and the
 
 The replies keep the JAX service's keys (``start_layer`` / ``end_layer``,
 ``standby``, ``rejoin``, ``want_digests``, ``digests_resync``, ``drain``,
-``model_name``, ``epoch``, ``role``); the epoch stays 1 until scheduler
-HA. ``node_join`` takes the worker's phase role (prefill, decode or mixed).
-Live migration's RPCs are served: ``migrate_target`` (CacheIndex-scored
-destinations for a head's parked requests), ``migration_done`` (a target
-restored one) and ``where_is`` (where a migrated request lives now), and
-so is the KV handoff's ``disagg_target`` (decode-pool destinations for a
-prefill head's finished prompts). The RPC of a plane the port does not run
-yet gets no handler, so a worker asking for it gets the transport's "no
-handler" reply, as from a JAX scheduler built without it: ``ha_sync`` (HA,
-ROADMAP queue 1 item 4c).
+``model_name``, ``epoch``, ``standbys``, ``role``). ``node_join`` takes the
+worker's phase role (prefill, decode or mixed). Live migration's RPCs are
+served: ``migrate_target`` (CacheIndex-scored destinations for a head's
+parked requests), ``migration_done`` (a target restored one) and
+``where_is`` (where a migrated request lives now), and so is the KV
+handoff's ``disagg_target`` (decode-pool destinations for a prefill head's
+finished prompts).
+
+Scheduler HA (docs/ha.md), as in the JAX service: every MUTATING handler
+is guarded by :meth:`SchedulerService._ha_blocked` — a passive
+(warm-standby mirror) or fenced (superseded old primary) scheduler
+answers ``{"not_primary": True, "epoch": N}`` and the workers' failover
+wrapper rotates to the promoted peer. Read-only lookups (``where_is``)
+stay open on a mirror. Heartbeats carry the worker's highest-seen epoch;
+a primary hearing a higher epoch than its own fences itself before
+touching state. ``ha_sync`` serves a standby's journal pull.
 """
 
 from __future__ import annotations
@@ -47,10 +53,15 @@ class SchedulerService:
         scheduler: GlobalScheduler,
         transport: Transport,
         join_timeout_s: float = 300.0,
+        standby_addrs: list[str] | None = None,
     ):
         self.scheduler = scheduler
         self.transport = transport
         self.join_timeout_s = join_timeout_s
+        # Standby address list advertised on allocations / heartbeat
+        # replies so every worker learns the failover targets from the
+        # primary itself (--scheduler-standby).
+        self.standby_addrs = list(standby_addrs or [])
         transport.register(proto.NODE_JOIN, self._on_join)
         transport.register(proto.NODE_UPDATE, self._on_update)
         transport.register(proto.NODE_LEAVE, self._on_leave)
@@ -61,15 +72,30 @@ class SchedulerService:
         transport.register(proto.DISAGG_TARGET, self._on_disagg_target)
         transport.register(proto.MIGRATION_DONE, self._on_migration_done)
         transport.register(proto.WHERE_IS, self._on_where_is)
+        # Scheduler HA: the standby's journal pull.
+        transport.register(proto.HA_SYNC, self._on_ha_sync)
         transport.register("__ping__", lambda *_: "pong")
 
     def start(self) -> None:
         self.transport.start()
-        self.scheduler.start()
+        if not self.scheduler.passive:
+            # A standby's scheduler threads start at promotion, not here
+            # — the mirror must not sweep heartbeats it never receives.
+            self.scheduler.start()
 
     def stop(self) -> None:
         self.scheduler.stop()
         self.transport.stop()
+
+    # -- HA guards ----------------------------------------------------------
+
+    def _ha_blocked(self) -> bool:
+        """True when this scheduler must refuse mutations: a passive
+        standby mirror, or an old primary fenced off by a promotion."""
+        return self.scheduler.passive or self.scheduler.fenced
+
+    def _not_primary(self) -> dict:
+        return {"not_primary": True, "epoch": self.scheduler.epoch}
 
     # -- handlers (run on transport worker threads) -------------------------
 
@@ -78,6 +104,8 @@ class SchedulerService:
         acknowledgement: once the swarm is bootstrapped, an unneeded
         joiner goes to standby and receives layers via heartbeat replies
         when the topology changes."""
+        if self._ha_blocked():
+            return self._not_primary()
         node_id = payload["node_id"]
         hw = HardwareInfo.from_dict(payload["hardware"])
         self.scheduler.enqueue_join(
@@ -117,10 +145,26 @@ class SchedulerService:
         return self._with_epoch(alloc)
 
     def _with_epoch(self, reply: dict) -> dict:
+        """Every scheduler reply carries the epoch (fencing signal for
+        workers' failover wrappers) and the standby address list."""
         reply["epoch"] = self.scheduler.epoch
+        if self.standby_addrs:
+            reply["standbys"] = list(self.standby_addrs)
         return reply
 
     def _on_update(self, _peer: str, payload: dict) -> dict:
+        # Fencing check BEFORE the guard: a worker echoing an epoch higher
+        # than ours is proof a standby promoted past us — we must fence
+        # even (especially) if we still think we are primary.
+        echoed = payload.get("epoch")
+        if (
+            isinstance(echoed, int)
+            and echoed > self.scheduler.epoch
+            and not self.scheduler.passive
+        ):
+            self.scheduler.fence(echoed)
+        if self._ha_blocked():
+            return self._not_primary()
         node_id = payload["node_id"]
         if self.scheduler.manager.get(node_id) is None:
             # Auto-rejoin after scheduler restart/eviction (reference
@@ -178,10 +222,14 @@ class SchedulerService:
         return alloc
 
     def _on_leave(self, _peer: str, payload: dict):
+        if self._ha_blocked():
+            return self._not_primary()
         self.scheduler.enqueue_leave(payload["node_id"])
         return "ok"
 
     def _on_request_complete(self, _peer: str, payload: dict):
+        if self._ha_blocked():
+            return self._not_primary()
         self.scheduler.complete_request(
             payload.get("path") or [],
             request_id=payload.get("rid"),
@@ -192,6 +240,8 @@ class SchedulerService:
     def _on_peer_down(self, _peer: str, payload: dict):
         """A worker's async sender declared a next-hop peer dead: mark
         its CacheIndex stale immediately and accelerate its sweep."""
+        if self._ha_blocked():
+            return self._not_primary()
         self.scheduler.enqueue_peer_down(
             str(payload.get("reporter") or _peer or "?"),
             str(payload["peer"]),
@@ -202,6 +252,8 @@ class SchedulerService:
     def _on_migrate_target(self, _peer: str, payload: dict) -> dict:
         """Destinations for a head's parked requests, scored against each
         surviving head's CacheIndex mirror."""
+        if self._ha_blocked():
+            return self._not_primary()
         reqs = payload.get("requests")
         if not isinstance(reqs, list):
             return {"targets": {}}
@@ -217,6 +269,8 @@ class SchedulerService:
         (the KV handoff): migrate_target's CacheIndex scoring, restricted
         to decode / mixed pipelines. An empty map tells the head to keep
         the request local."""
+        if self._ha_blocked():
+            return self._not_primary()
         reqs = payload.get("requests")
         if not isinstance(reqs, list):
             return {"targets": {}}
@@ -231,18 +285,53 @@ class SchedulerService:
     def _on_migration_done(self, _peer: str, payload: dict):
         """A target head restored a migrated request: record where it lives
         now so pollers that lost the old head can follow."""
+        if self._ha_blocked():
+            return self._not_primary()
         rid, head = payload.get("rid"), payload.get("head")
         if isinstance(rid, str) and isinstance(head, str):
             self.scheduler.record_migration(rid, head)
         return "ok"
 
     def _on_where_is(self, _peer: str, payload: dict) -> dict:
+        # Deliberately NOT guarded: the migration table is read-only here,
+        # and a standby's mirror answering pollers during the promotion
+        # window shortens the stream gap.
         head = self.scheduler.migrated_head(str(payload.get("rid") or ""))
         return {"head": head} if head else {}
 
+    # -- scheduler HA (docs/ha.md) -------------------------------------------
+
+    def _on_ha_sync(self, _peer: str, payload: dict) -> dict:
+        """Standby journal pull (doubles as the lease probe): reply with
+        the journal records past the standby's applied seq, or a full
+        snapshot when the ring already evicted that window; register the
+        caller for push replication either way."""
+        if self._ha_blocked():
+            return self._not_primary()
+        journal = self.scheduler.journal
+        if journal is None:
+            return {"error": "journal not enabled on this scheduler"}
+        try:
+            from_seq = int(payload.get("from_seq") or 0)
+        except (TypeError, ValueError):
+            from_seq = 0
+        standby_id = str(payload.get("node_id") or _peer or "standby")
+        journal.attach(standby_id)
+        records, contiguous = journal.records_since(from_seq)
+        if not contiguous:
+            from parallax_tpu_torch.ha.journal import snapshot_state
+
+            return self._with_epoch(
+                {"snapshot": snapshot_state(self.scheduler)}
+            )
+        return self._with_epoch({"seq": journal.seq, "records": records})
+
     def _on_route_request(self, _peer: str, payload: dict) -> dict:
-        """RPC twin of :meth:`route_request` for clients without an
-        in-process handle on this scheduler."""
+        """RPC twin of :meth:`route_request` for clients whose in-process
+        scheduler handle is passive, fenced or absent (the SwarmClient
+        after a standby promotion)."""
+        if self._ha_blocked():
+            return self._not_primary()
         rid = payload.get("rid")
         if not isinstance(rid, str):
             return {}
@@ -292,6 +381,10 @@ class SchedulerService:
         scheduler_manage.get_routing_table, scheduler_manage.py:287-313).
         ``prompt_ids`` (already tokenized by the HTTP frontend) feed the
         cache-aware router."""
+        if self._ha_blocked():
+            # A mirror's dispatch thread isn't running; blocking here
+            # would burn the caller's whole timeout for nothing.
+            return None
         meta = RequestMeta(
             request_id, prompt_ids=prompt_ids, lora_id=lora_id,
             tenant_id=tenant_id, qos_class=qos_class,

@@ -178,9 +178,28 @@ def _add_run_flags(run: argparse.ArgumentParser) -> None:
     run.add_argument("--slo", default=None)
     run.add_argument("--slo-window-s", type=float, default=300.0)
     run.add_argument("--qos", default=None)
-    run.add_argument("--scheduler-standby", default=None)
-    run.add_argument("--standby-of", default=None)
-    run.add_argument("--ha-lease-s", type=float, default=6.0)
+    run.add_argument(
+        "--scheduler-standby", default=None,
+        help="scheduler HA (docs/ha.md): comma-separated warm-standby "
+             "scheduler RPC addresses. The primary streams its state "
+             "journal to them and advertises the list to every worker "
+             "and client, so scheduler RPCs fail over to a promoted "
+             "standby; omit to run without HA (a scheduler crash "
+             "stalls routing until restart)",
+    )
+    run.add_argument(
+        "--standby-of", default=None,
+        help="scheduler HA (docs/ha.md): run THIS process as a warm "
+             "standby mirroring the given primary scheduler RPC "
+             "address; it serves read-only lookups, tails the "
+             "snapshot+journal stream, and promotes itself (bumping "
+             "the scheduler epoch) when the primary's lease expires",
+    )
+    run.add_argument(
+        "--ha-lease-s", type=float, default=6.0,
+        help="scheduler HA: seconds without journal progress from the "
+             "primary before a standby promotes itself (docs/ha.md)",
+    )
 
 
 def unported_run_flags(args) -> list[tuple[str, int | str]]:
@@ -192,8 +211,6 @@ def unported_run_flags(args) -> list[tuple[str, int | str]]:
          9),
         (args.slo is not None, "--slo", 9),
         (args.qos is not None, "--qos", 9),
-        (args.scheduler_standby is not None, "--scheduler-standby", "4c"),
-        (args.standby_of is not None, "--standby-of", "4c"),
         (args.relay_token is not None, "--relay-token", "4c"),
     ):
         if on:
@@ -210,7 +227,14 @@ def _add_join_flags(join: argparse.ArgumentParser) -> None:
     join.add_argument("--peers", default=None,
                       help="comma-separated worker addresses to gossip "
                            "block announcements with")
-    join.add_argument("--scheduler-standby", default=None)
+    join.add_argument(
+        "--scheduler-standby", default=None,
+        help="scheduler HA (docs/ha.md): comma-separated warm-standby "
+             "scheduler addresses to fail over to when the primary "
+             "dies (the primary also advertises its list through "
+             "allocations/heartbeat replies, so this seed is optional "
+             "when workers join before any failover)",
+    )
     join.add_argument("--start-layer", type=int, default=None,
                       help="this worker's first layer; blocks chain only "
                            "at EXACT boundaries: every worker's end layer "
@@ -285,7 +309,6 @@ def unported_join_flags(args) -> list[tuple[str, int | str]]:
     the ROADMAP queue 1 item that ports it."""
     refused = []
     for on, flag, item in (
-        (args.scheduler_standby is not None, "--scheduler-standby", "4c"),
         (args.relay, "--relay", "4c"),
         (args.relay_token is not None, "--relay-token", "4c"),
         (args.model_path is not None and not os.path.isdir(args.model_path),

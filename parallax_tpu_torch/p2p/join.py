@@ -11,7 +11,9 @@ global scheduler, which assigns its layers; ``join`` blocks until the
 scheduler bootstraps (``run --min-nodes``). ``--role prefill`` makes it a
 prefill head that hands each finished prompt's KV pages to a ``--role
 decode`` worker in frames of ``--kv-transfer-chunk-bytes``; the default
-``mixed`` serves both phases. Without it, the worker serves
+``mixed`` serves both phases. ``--scheduler-standby`` names warm-standby
+schedulers (``run --standby-of``) its scheduler RPCs fail over to when the
+primary dies. Without ``--scheduler-addr``, the worker serves
 layers ``[--start-layer, --end-layer)`` of the checkpoint and gossips its
 block with ``--peers``; the one holding layer 0 routes requests itself.
 Either way it runs on ``--device`` (default ``cuda:0``). Its KV pages come
@@ -102,6 +104,12 @@ def build_worker(args):
         tokenizer_path=args.model_path,
         role=args.role,
         kv_transfer_chunk_bytes=args.kv_transfer_chunk_bytes,
+        # Scheduler HA: seed standby addresses for the failover rotation;
+        # the primary's replies extend the list.
+        scheduler_standby=[
+            p.strip() for p in (args.scheduler_standby or "").split(",")
+            if p.strip()
+        ],
     )
 
 

@@ -10,7 +10,12 @@ Two modes, as in the JAX package:
   range, rejoins when asked, reports each finished request
   (``request_complete``) and each peer its sender found dead
   (``peer_down``), and says ``node_leave`` on :meth:`stop`. The head
-  serves the routing table the scheduler chose.
+  serves the routing table the scheduler chose. Every scheduler RPC goes
+  through ``ha/failover.SchedulerFailover`` over the primary and its
+  warm standbys (``scheduler_standby``, extended by the ``standbys`` the
+  primary advertises): a dead primary or a ``not_primary`` answer rotates
+  to the next, and heartbeats echo the highest epoch seen, which fences a
+  revived old primary (docs/ha.md).
 - **Scheduler-less mode** (``scheduler_peer=None``): the worker
   self-assigns its layer range, gossips block announcements over its
   static peers, and — when it hosts layer 0 — computes its own fewest-hops
@@ -71,12 +76,12 @@ decode pool restores the request locally, and a park deadline restores it
 locally after ``where_is`` says nobody else owns it. ``handoff_stats``
 counts it all.
 
-Not ported yet, each refused by name with its ROADMAP queue 1 item:
-scheduler standbys, the relay, the model switch and the protobuf frames of
-the reference's nodes (``p2p/interop.py``; item 4c), refit (item 12), the
-watchdog, profiling, traces, metrics, goodput, QoS and the QoS
-autoscaler's re-role of a node (item 9), LoRA (item 11), speculation (item
-7) and tensor parallelism (item 10).
+Not ported yet, each refused by name with its ROADMAP queue 1 item: the
+relay, the model switch and the protobuf frames of the reference's nodes
+(``p2p/interop.py``; item 4c), refit (item 12), the watchdog, profiling,
+traces, metrics, goodput, QoS and the QoS autoscaler's re-role of a node
+(item 9), LoRA (item 11), speculation (item 7) and tensor parallelism
+(item 10).
 """
 
 from __future__ import annotations
@@ -84,7 +89,6 @@ from __future__ import annotations
 import dataclasses
 import gc
 import queue
-import random
 import threading
 import time
 import uuid
@@ -101,6 +105,8 @@ from parallax_tpu_torch.config import (
     resolve_wire_dtype,
 )
 from parallax_tpu_torch.constrained import grammar_vocab_from_tokenizer
+from parallax_tpu_torch.ha.backoff import BackoffPolicy
+from parallax_tpu_torch.ha.failover import SchedulerFailover
 from parallax_tpu_torch.models import create_stage_model
 from parallax_tpu_torch.models.base import StageModel
 from parallax_tpu_torch.p2p import proto
@@ -136,6 +142,11 @@ from parallax_tpu_torch.utils.tokenizer import SimpleTokenizer, load_tokenizer
 
 logger = get_logger(__name__)
 
+# The retry shape of the worker's scheduler RPCs (the join's redial, the
+# heartbeat's rotation to a promoted standby): full jitter from 0.25 s,
+# doubling, capped at 2 s.
+SCHEDULER_RETRY = BackoffPolicy(base_s=0.25, cap_s=2.0)
+
 
 def _refuse_wire_request(d: dict) -> None:
     """FORWARD packet fields whose features the port does not run yet."""
@@ -152,10 +163,9 @@ def _refuse_wire_request(d: dict) -> None:
 def _refuse_scheduler_reply(reply: dict, own_role: str) -> None:
     """Scheduler reply keys whose planes the port does not run yet. Their
     off values pass (a JAX scheduler always sends ``role`` and
-    ``refit_index``): ``role`` passes when it echoes the worker's own."""
-    if reply.get("not_primary") or reply.get("standbys"):
-        raise unported("scheduler HA replies (not_primary, standbys)",
-                       "4c")
+    ``refit_index``): ``role`` passes when it echoes the worker's own.
+    The HA keys (``epoch``, ``standbys``, ``not_primary``) are the
+    failover wrapper's."""
     role = reply.get("role")
     if role is not None and role != own_role:
         raise unported(f"the QoS autoscaler's re-role {own_role!r} -> "
@@ -209,20 +219,35 @@ class WorkerNode:
         tokenizer_path: str | None = None,
         role: str | None = None,
         kv_transfer_chunk_bytes: int | None = None,
+        scheduler_standby: list[str] | None = None,
     ):
         """``scheduler_peer`` is the scheduler's RPC address; None enters
         SCHEDULER-LESS mode, where the worker self-assigns ``layers``.
+        ``scheduler_standby`` seeds the failover rotation with warm-standby
+        scheduler addresses (the primary's replies extend it).
         ``device`` is the engine's (None = ``cuda:0``, ``"cpu"`` for the
         plain path). ``tokenizer_path`` (the checkpoint directory) gives a
         last-stage worker the grammar vocabulary for json_schema rows.
         ``role`` is the phase specialization (prefill, decode or mixed, the
         default); ``kv_transfer_chunk_bytes`` the payload target of one
         layer-chunked KV_TRANSFER frame (default 4 MiB). The JAX worker's
-        other arguments (mesh, refit cache, LoRA, watchdog, standbys, the
-        model resolver) wait for their items; ``join`` refuses their flags
-        by name."""
+        other arguments (mesh, refit cache, LoRA, watchdog, the model
+        resolver) wait for their items; ``join`` refuses their flags by
+        name."""
         self.scheduler_peer = scheduler_peer
         self.standalone = scheduler_peer is None
+        # Scheduler HA (docs/ha.md): every scheduler RPC routes through a
+        # failover wrapper that retries with jittered exponential backoff
+        # under the caller's deadline and rotates to a promoted standby on
+        # connection failure or a not_primary redirect. The wrapper also
+        # tracks the highest scheduler epoch seen; heartbeats echo it so a
+        # superseded old primary fences itself.
+        self.sched_transport: SchedulerFailover | None = None
+        if not self.standalone:
+            self.sched_transport = SchedulerFailover(
+                transport, [scheduler_peer, *(scheduler_standby or [])],
+                policy=SCHEDULER_RETRY,
+            )
         if self.standalone and layers is None:
             raise ValueError(
                 "scheduler-less mode requires explicit layers=(start, end)"
@@ -281,8 +306,6 @@ class WorkerNode:
         # The model name of the first allocation (a later one naming
         # another model is a model switch: item 4c).
         self._served_model_name: str | None = None
-        # The highest scheduler epoch seen, echoed on heartbeats.
-        self._sched_epoch = 1
         # detect_hardware()'s summary, read by the first join.
         self._hardware: dict | None = None
         self._inbox: queue.Queue = queue.Queue()
@@ -411,7 +434,7 @@ class WorkerNode:
             self._gossip_pool.shutdown(wait=False, cancel_futures=True)
         if not self.standalone:
             try:
-                self.transport.call(
+                self.sched_transport.call(
                     self.scheduler_peer, proto.NODE_LEAVE,
                     {"node_id": self.node_id}, timeout=5.0,
                 )
@@ -421,14 +444,29 @@ class WorkerNode:
 
     # -- join + allocation ----------------------------------------------------
 
+    def _sched_peer(self) -> str:
+        """Current scheduler address for fire-and-forget sender traffic
+        (PEER_DOWN / REQUEST_COMPLETE / MIGRATION_DONE ride the async
+        sender, which has no retry-rotate loop of its own — so they at
+        least target whichever peer the failover wrapper last proved
+        alive; a frame lost across the promotion window is best_effort by
+        contract)."""
+        return self.sched_transport.active_peer
+
+    def _is_scheduler(self, peer: str) -> bool:
+        """True for the primary OR any standby: scheduler addresses are
+        exempt from peer_down reporting (the failover wrapper handles
+        scheduler death)."""
+        return peer in self.sched_transport.peers
+
     def _join(self, timeout_s: float = 300.0) -> dict:
         """``node_join``: blocks until the scheduler allocates (or parks
-        this node as standby). A scheduler that does not accept
-        connections yet is dialed again, with jittered backoff, until
-        ``timeout_s`` (as the JAX worker's failover wrapper retries). The
-        hardware summary is read once, by the first join (on the thread
-        that calls :meth:`start`): a rejoin runs on the heartbeat thread,
-        which makes no CUDA call."""
+        this node as standby). The failover wrapper dials the primary and
+        the standbys in turn, with jittered backoff, until ``timeout_s``,
+        so a scheduler that does not accept connections yet is dialed
+        again. The hardware summary is read once, by the first join (on
+        the thread that calls :meth:`start`): a rejoin runs on the
+        heartbeat thread, which makes no CUDA call."""
         if self._hardware is None:
             self._hardware = detect_hardware(self.device).to_dict()
         payload = {
@@ -440,28 +478,13 @@ class WorkerNode:
             # role-homogeneous and phase-filters routing pools.
             "role": self.role,
         }
-        deadline = time.monotonic() + timeout_s
-        backoff = 0.25
-        while True:
-            try:
-                reply = self.transport.call(
-                    self.scheduler_peer, proto.NODE_JOIN, payload,
-                    timeout=max(1.0, deadline - time.monotonic()),
-                )
-                break
-            except OSError as e:
-                if time.monotonic() + backoff > deadline:
-                    raise
-                logger.info("%s: scheduler %s not reachable yet (%s)",
-                            self.node_id, self.scheduler_peer, e)
-                time.sleep(random.uniform(backoff / 2, backoff))
-                backoff = min(2.0, backoff * 2)
+        reply = self.sched_transport.call(
+            self.scheduler_peer, proto.NODE_JOIN, payload, timeout=timeout_s,
+        )
         if not reply or ("start_layer" not in reply
                          and "standby" not in reply):
             raise RuntimeError(f"join rejected: {reply}")
         _refuse_scheduler_reply(reply, self.role)
-        self._sched_epoch = max(self._sched_epoch,
-                                int(reply.get("epoch") or 1))
         return reply
 
     def _apply_allocation(self, alloc: dict) -> None:
@@ -643,12 +666,15 @@ class WorkerNode:
         counters, dispatch summary, latency EWMA and digest log are Python
         values, so this thread makes no CUDA call."""
         eng = self.engine
-        reply = self.transport.call(
+        reply = self.sched_transport.call(
             self.scheduler_peer,
             proto.NODE_UPDATE,
             {
                 "node_id": self.node_id,
-                "epoch": self._sched_epoch,
+                # Highest scheduler epoch this worker has seen: the fencing
+                # signal — a primary hearing a higher epoch than its own
+                # knows a standby promoted past it (docs/ha.md).
+                "epoch": self.sched_transport.epoch,
                 "cache_digests": self._digest_heartbeat(eng),
                 "is_ready": eng is not None,
                 "load": eng.scheduler.num_requests() if eng else 0,
@@ -677,8 +703,6 @@ class WorkerNode:
         )
         if not isinstance(reply, dict):
             return
-        self._sched_epoch = max(self._sched_epoch,
-                                int(reply.get("epoch") or 1))
         if reply.get("drain"):
             # Pipelines through these dead peers are dissolving: posted
             # before any reload below, so the step thread aborts them
@@ -1020,11 +1044,11 @@ class WorkerNode:
         logger.error("%s: async send to %s failed: %s",
                      self.node_id, peer, reason)
         self._forget_wire_dtype(peer)
-        if not self.standalone and peer != self.scheduler_peer:
+        if not self.standalone and not self._is_scheduler(peer):
             # Tell the scheduler now: it drops the peer's CacheIndex and
             # accelerates its heartbeat sweep.
             self.sender.send(
-                self.scheduler_peer, proto.PEER_DOWN,
+                self._sched_peer(), proto.PEER_DOWN,
                 {"reporter": self.node_id, "peer": peer, "reason": reason},
                 best_effort=True,
             )
@@ -1512,7 +1536,7 @@ class WorkerNode:
             self._target_descriptor(e["req"], page) for e in entries.values()
         ]
         try:
-            reply = self.transport.call(
+            reply = self.sched_transport.call(
                 self.scheduler_peer, proto.MIGRATE_TARGET,
                 {
                     "requests": descriptors,
@@ -1566,7 +1590,7 @@ class WorkerNode:
                 for rid, path, _w in batch:
                     results[rid] = ("retry", f"target {head} unreachable")
                     self.sender.send(
-                        self.scheduler_peer, proto.REQUEST_COMPLETE,
+                        self._sched_peer(), proto.REQUEST_COMPLETE,
                         {"path": path}, best_effort=True,
                     )
                 logger.warning("%s: checkpoint ship to %s failed: %s",
@@ -1583,7 +1607,7 @@ class WorkerNode:
                         str(rejected.get(rid) or "target rejected"),
                     )
                     self.sender.send(
-                        self.scheduler_peer, proto.REQUEST_COMPLETE,
+                        self._sched_peer(), proto.REQUEST_COMPLETE,
                         {"path": path}, best_effort=True,
                     )
 
@@ -1604,7 +1628,7 @@ class WorkerNode:
                 # Release the OLD path's load charge; the target's own
                 # request_complete covers the new path when it finishes.
                 self.sender.send(
-                    self.scheduler_peer, proto.REQUEST_COMPLETE,
+                    self._sched_peer(), proto.REQUEST_COMPLETE,
                     {"path": e["old_table"] or [self.node_id]},
                     best_effort=True,
                 )
@@ -1727,7 +1751,7 @@ class WorkerNode:
         (availability first)."""
         owner = None
         try:
-            reply = self.transport.call(
+            reply = self.sched_transport.call(
                 self.scheduler_peer, proto.WHERE_IS, {"rid": rid},
                 timeout=5.0,
             )
@@ -1767,7 +1791,7 @@ class WorkerNode:
             # ownership, so nothing else releases the router charge the
             # scheduler made when it chose this path.
             self.sender.send(
-                self.scheduler_peer, proto.REQUEST_COMPLETE,
+                self._sched_peer(), proto.REQUEST_COMPLETE,
                 {"path": list(path)}, best_effort=True,
             )
         e["awaiting_since"] = None
@@ -1782,7 +1806,7 @@ class WorkerNode:
         request restores locally."""
         if e.pop("pinned_charged", False) and e.get("pinned_path"):
             self.sender.send(
-                self.scheduler_peer, proto.REQUEST_COMPLETE,
+                self._sched_peer(), proto.REQUEST_COMPLETE,
                 {"path": list(e["pinned_path"])}, best_effort=True,
             )
 
@@ -1891,7 +1915,7 @@ class WorkerNode:
         targets = {}
         if descriptors:
             try:
-                reply = self.transport.call(
+                reply = self.sched_transport.call(
                     self.scheduler_peer, proto.DISAGG_TARGET,
                     {"requests": descriptors, "exclude": [self.node_id]},
                     timeout=15.0,
@@ -1964,7 +1988,7 @@ class WorkerNode:
                     e["kv_failed"] = True
                     results[rid] = ("retry", "kv lane backpressure")
                     self.sender.send(
-                        self.scheduler_peer, proto.REQUEST_COMPLETE,
+                        self._sched_peer(), proto.REQUEST_COMPLETE,
                         {"path": path}, best_effort=True,
                     )
                     continue
@@ -1986,7 +2010,7 @@ class WorkerNode:
                     results[rid] = ("retry", f"target {head} unreachable")
                     if charged:
                         self.sender.send(
-                            self.scheduler_peer, proto.REQUEST_COMPLETE,
+                            self._sched_peer(), proto.REQUEST_COMPLETE,
                             {"path": path}, best_effort=True,
                         )
                     # A pinned target stays pinned when UNREACHABLE: a
@@ -2007,7 +2031,7 @@ class WorkerNode:
                     )
                     if charged:
                         self.sender.send(
-                            self.scheduler_peer, proto.REQUEST_COMPLETE,
+                            self._sched_peer(), proto.REQUEST_COMPLETE,
                             {"path": path}, best_effort=True,
                         )
                     if pinned:
@@ -2116,7 +2140,7 @@ class WorkerNode:
         self._chat_requests.pop(rid, None)
         self._request_events.pop(rid, None)
         self.sender.send(
-            self.scheduler_peer, proto.REQUEST_COMPLETE,
+            self._sched_peer(), proto.REQUEST_COMPLETE,
             {"path": e["old_table"] or [self.node_id]}, best_effort=True,
         )
         self.handoff_stats.note(rid, target=head,
@@ -2192,9 +2216,9 @@ class WorkerNode:
         fail the awaiting transfers over to the checkpoint-only rung."""
         logger.error("%s: kv lane to %s failed: %s",
                      self.node_id, peer, reason)
-        if not self.standalone and peer != self.scheduler_peer:
+        if not self.standalone and not self._is_scheduler(peer):
             self.sender.send(
-                self.scheduler_peer, proto.PEER_DOWN,
+                self._sched_peer(), proto.PEER_DOWN,
                 {"reporter": self.node_id, "peer": peer,
                  "reason": f"kv lane: {reason}"},
                 best_effort=True,
@@ -2315,7 +2339,7 @@ class WorkerNode:
             # Handoffs report through the same where_is table: pollers
             # that lose the prefill head still find the decode head.
             self.sender.send(
-                self.scheduler_peer, proto.MIGRATION_DONE,
+                self._sched_peer(), proto.MIGRATION_DONE,
                 {"rid": rid, "head": self.node_id}, best_effort=True,
             )
 
@@ -2392,7 +2416,7 @@ class WorkerNode:
             # Fire-and-forget on the scheduler link's sender: the path's
             # load charge and this head's admission-time prefix hit.
             self.sender.send(
-                self.scheduler_peer, proto.REQUEST_COMPLETE,
+                self._sched_peer(), proto.REQUEST_COMPLETE,
                 {
                     "path": req.routing_table or [self.node_id],
                     "rid": req.request_id,

@@ -137,6 +137,11 @@ class TcpTransport(Transport):
         # peer -> the lock its dial runs under (one connection per peer).
         self._dial_locks: dict[str, asyncio.Lock] = {}
         self._pending: dict[int, "asyncio.Future"] = {}
+        # Dialed connection -> ids of the calls awaiting a reply on it: a
+        # connection that closes fails them at once, so a call to a peer
+        # that died mid-call does not wait out its timeout (a scheduler
+        # failover rotates on that failure).
+        self._conn_calls: dict[int, set[int]] = {}
         self._msg_id = 0
         self._started = threading.Event()
         self._stopped = False
@@ -337,6 +342,11 @@ class TcpTransport(Transport):
             if frame is None:
                 if self._conns.get(peer) is conn:
                     self._conns.pop(peer, None)
+                for mid in self._conn_calls.pop(id(conn), ()):
+                    fut = self._pending.get(mid)
+                    if fut is not None and not fut.done():
+                        fut.set_exception(ConnectionResetError(
+                            f"{peer} closed the connection mid-call"))
                 return
             if frame.get("re") is not None:
                 fut = self._pending.pop(frame["re"], None)
@@ -359,11 +369,21 @@ class TcpTransport(Transport):
         mid = self._msg_id
         fut = self._loop.create_future()
         self._pending[mid] = fut
-        await self._send_async(peer, encode_frame(method, payload, msg_id=mid))
+        calls = None
         try:
+            conn = await self._get_conn(peer)
+            calls = self._conn_calls.setdefault(id(conn), set())
+            calls.add(mid)
+            _reader, writer, lock = conn
+            async with lock:
+                self._write_frame(writer, encode_frame(method, payload,
+                                                       msg_id=mid))
+                await writer.drain()
             return await asyncio.wait_for(fut, timeout)
         finally:
             self._pending.pop(mid, None)
+            if calls is not None:
+                calls.discard(mid)
 
     # -- public sync facade --------------------------------------------------
 

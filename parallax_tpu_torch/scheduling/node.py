@@ -4,8 +4,8 @@
 Capability parity: reference ``src/scheduling/node.py:24-427`` (Node,
 NodeHardwareInfo, RooflinePerformanceModel: per-layer latency =
 max(compute, IO) with embed/lm_head terms; KV-derived request capacity;
-measured-latency override; RTT cache). The scheduler HA codec of
-``CacheIndex`` (``export`` / ``adopt``) waits for ROADMAP queue 1 item 4c.
+measured-latency override; RTT cache), with the scheduler HA codec of
+``CacheIndex`` (``export`` / ``adopt``).
 """
 
 from __future__ import annotations
@@ -145,6 +145,37 @@ class CacheIndex:
         # Caller holds the lock.
         while len(self._entries) > self.max_entries:
             self._entries.popitem(last=False)
+
+    def export(self) -> dict:
+        """HA snapshot codec (``ha/journal.py``): the digest set in LRU
+        order plus the delta cursor, with the staleness clock shipped as
+        an AGE (the standby's monotonic clock is not ours)."""
+        with self._lock:
+            return {
+                "entries": list(self._entries),
+                "block": self.block,
+                "seq": self.seq,
+                "age_s": (
+                    max(0.0, time.monotonic() - self.updated_at)
+                    if self._entries else None
+                ),
+            }
+
+    def adopt(self, snap: dict) -> None:
+        """Restore an :meth:`export` payload, re-anchoring the staleness
+        clock on the local monotonic clock. The delta cursor carries
+        over so the worker's NEXT in-sequence delta applies cleanly — a
+        promotion alone must not force a digest resync."""
+        entries = snap.get("entries") or ()
+        age = snap.get("age_s")
+        with self._lock:
+            self._entries = OrderedDict((int(d), 0) for d in entries)
+            self.block = int(snap.get("block") or 0)
+            self.seq = int(snap.get("seq", -1))
+            self.updated_at = (
+                time.monotonic() - float(age) if age is not None else 0.0
+            )
+            self._trim()
 
     def confidence(self) -> float:
         """1.0 while heartbeats flow (anything fresher than half the

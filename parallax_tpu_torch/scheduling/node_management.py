@@ -4,8 +4,8 @@
 Capability parity: reference ``src/scheduling/node_management.py:25-520``
 (NodeManager with ACTIVE/STANDBY states; Pipeline dataclass validating
 contiguous no-gap/no-overlap stage chains; fixed-pipeline registry for RR
-routing; capacity reporting). The HA restore path (``adopt_pipelines``)
-waits for ROADMAP queue 1 item 4c.
+routing; capacity reporting) and the HA restore path
+(``adopt_pipelines``).
 """
 
 from __future__ import annotations
@@ -159,6 +159,25 @@ class NodeManager:
                 for n in p.nodes:
                     self._state[n.node_id] = NodeState.ACTIVE
             self._pipelines.extend(pipelines)
+
+    def adopt_pipelines(self, pipelines: list[Pipeline],
+                        next_pipeline_id: int) -> None:
+        """HA restore path (``ha/``): REPLACE the pipeline table with one
+        replicated from a primary, keeping the primary's pipeline ids
+        (register_pipelines would renumber them, and worker-visible ids
+        must survive a promotion). Members go ACTIVE; every other known
+        node drops to STANDBY."""
+        with self._lock:
+            members = {n.node_id for p in pipelines for n in p.nodes}
+            for nid in self._state:
+                self._state[nid] = (
+                    NodeState.ACTIVE if nid in members else NodeState.STANDBY
+                )
+            self._pipelines = list(pipelines)
+            self._next_pipeline_id = max(
+                next_pipeline_id,
+                max((p.pipeline_id + 1 for p in pipelines), default=0),
+            )
 
     @property
     def next_pipeline_id(self) -> int:

@@ -10,16 +10,22 @@ Threading model as in the JAX package: one event thread owns all topology
 mutations; a dispatch thread assigns routing tables; callers only enqueue.
 Nothing here touches a device.
 
-Not ported yet, refused by name with their ROADMAP queue 1 items: SLO
-objectives (``slo=``) and the QoS control plane (``qos=``; item 9),
-scheduler HA (``passive=``, :meth:`fence` and the state journal; item
-4c) and weight refit (:meth:`begin_refit`; item 12). Phase roles
-(role-homogeneous pipelines, phase-filtered routing pools), the KV
-handoff's decode-pool targets (``pool="decode"``) and their ``disagg``
-counters, live migration's target choice, ``where_is`` table and drain
-counters are the JAX scheduler's. The metrics registry, the cluster
-timeline and the obs sections of ``cluster_status`` (merged histograms,
-goodput, device, health) wait for item 9. The epoch stays 1 until HA.
+Scheduler HA is the JAX scheduler's (``ha/``, docs/ha.md): the
+``epoch`` rides every reply; a ``passive`` scheduler is a warm-standby
+mirror whose threads stay parked until ``StandbyScheduler.promote``; a
+``fenced`` one saw a worker echo a higher epoch and mutates nothing; an
+installed ``journal`` records every replicated mutation (join, leave,
+peer_down, the heartbeat replay window, the pipeline table's diffs and
+migration_done). Not ported yet, refused by name with their ROADMAP queue
+1 items: SLO objectives (``slo=``) and the QoS control plane (``qos=``;
+item 9) and weight refit (:meth:`begin_refit`; item 12), so the journal's
+``refit`` record has no writer here. Phase roles (role-homogeneous
+pipelines, phase-filtered routing pools), the KV handoff's decode-pool
+targets (``pool="decode"``) and their ``disagg`` counters, live
+migration's target choice, ``where_is`` table and drain counters are the
+JAX scheduler's. The metrics registry, the cluster timeline (so the
+``ha_fenced`` event) and the obs sections of ``cluster_status`` (merged
+histograms, goodput, device, health) wait for item 9.
 """
 
 from __future__ import annotations
@@ -123,12 +129,21 @@ class GlobalScheduler:
             raise unported("SLO objectives (slo=)", 9)
         if qos is not None:
             raise unported("the QoS control plane (qos=)", 9)
-        if passive:
-            raise unported("a passive standby scheduler (passive=True)",
-                           "4c")
         self.model = model
-        # The scheduler HA epoch rides every reply; fixed until HA.
+        # Scheduler HA (ha/, docs/ha.md): ``epoch`` rides heartbeat
+        # replies and fences a revived old primary; a ``passive``
+        # scheduler is a warm-standby mirror — its event / dispatch
+        # threads stay parked and the service refuses mutating RPCs until
+        # StandbyScheduler.promote() flips it active; a ``fenced``
+        # scheduler saw proof (a worker echoing a higher epoch) that a
+        # standby promoted past it and refuses to mutate.
         self.epoch = 1
+        self.passive = passive
+        self.fenced = False
+        # Installed by ha.journal.install_journal; None = HA off (every
+        # _journal() hook is a no-op).
+        self.journal = None
+        self._journaled_pipelines = None
         self.min_nodes = min_nodes_bootstrapping
         self.manager = NodeManager(model.num_hidden_layers)
         alloc_cls: type[BaseLayerAllocator] = (
@@ -379,15 +394,72 @@ class GlobalScheduler:
             while len(self._migrations) > 4096:
                 self._migrations.popitem(last=False)
             self.migration_stats["recorded"] += 1
+        self._journal("migration_done", {"rid": request_id, "head": head})
 
     def migrated_head(self, request_id: str) -> str | None:
         with self._lock:
             return self._migrations.get(request_id)
 
-    # -- planes not ported yet ----------------------------------------------
+    # -- scheduler HA (ha/, docs/ha.md) ----------------------------------
 
     def fence(self, epoch: int) -> None:
-        raise unported("scheduler HA fencing (fence)", "4c")
+        """A worker echoed a scheduler epoch higher than ours: a standby
+        promoted while we were partitioned / paused. Stop mutating — the
+        promoted scheduler owns the swarm now (split-brain guard)."""
+        if self.fenced:
+            return
+        self.fenced = True
+        logger.warning(
+            "scheduler fenced: worker echoed epoch %d > our %d — a "
+            "standby promoted past us; refusing further mutations",
+            epoch, self.epoch,
+        )
+
+    def _journal(self, kind: str, data: dict) -> None:
+        """Replicate one state mutation (no-op while HA is off)."""
+        if self.journal is None:
+            return
+        try:
+            self.journal.record(kind, data)
+        except Exception:  # HA must never break serving
+            logger.exception("journal record %r failed", kind)
+
+    def _journal_pipelines(self) -> None:
+        """Journal the pipeline / allocation table when it changed since
+        the last call. Allocation is DERIVED state (the allocator is
+        deterministic only given identical arrival order), so the
+        primary's actual decision is replicated rather than recomputed by
+        the standby — covering bootstrap, extend, dynamic-join replicas,
+        turning-point trims and rebalances through one diff point."""
+        if self.journal is None:
+            return
+        members: set[str] = set()
+        pipelines = []
+        for p in self.manager.pipelines:
+            pipelines.append({
+                "id": p.pipeline_id,
+                "nodes": [
+                    [n.node_id, n.start_layer, n.end_layer, n.role]
+                    for n in p.nodes
+                ],
+            })
+            members.update(p.node_ids)
+        replicas = [
+            [n.node_id, n.start_layer, n.end_layer]
+            for n in self.manager.nodes(NodeState.ACTIVE)
+            if n.node_id not in members and n.has_allocation
+        ]
+        cur = {
+            "bootstrapped": self.bootstrapped.is_set(),
+            "next_id": self.manager.next_pipeline_id,
+            "pipelines": pipelines,
+            "replicas": replicas,
+        }
+        if cur != self._journaled_pipelines:
+            self._journaled_pipelines = cur
+            self._journal("pipelines", cur)
+
+    # -- planes not ported yet ----------------------------------------------
 
     def begin_refit(self, index_map: dict[str, str]) -> int:
         raise unported("weight refit (begin_refit)", 12)
@@ -414,9 +486,10 @@ class GlobalScheduler:
             n += 1
 
     def sweep_once(self) -> None:
-        """One heartbeat-sweep pass (synchronous twin of the
-        _event_loop's 1 Hz housekeeping)."""
+        """One heartbeat-sweep + journal-diff pass (synchronous twin of
+        the _event_loop's 1 Hz housekeeping)."""
         self._sweep_heartbeats()
+        self._journal_pipelines()
 
     def dispatch_once(self) -> bool:
         """Route one queued request now (synchronous twin of one
@@ -460,10 +533,18 @@ class GlobalScheduler:
             now = time.monotonic()
             if now - last_sweep > 1.0:
                 self._sweep_heartbeats()
+                # Sweep-driven churn changes the allocation table off the
+                # join / leave paths; the 1 Hz diff catches it for the HA
+                # journal.
+                self._journal_pipelines()
                 last_sweep = now
 
     def _handle_event(self, ev: tuple) -> None:
         kind = ev[0]
+        if self.fenced:
+            # A promoted standby owns the swarm; a fenced old primary
+            # mutating its registry would fork the control plane.
+            return
         if kind == "join":
             _, node_id, hardware, *rest = ev
             node = Node(node_id=node_id, hardware=hardware, model=self.model)
@@ -481,7 +562,14 @@ class GlobalScheduler:
             logger.info("node %s joined (%s x%d, role=%s)", node_id,
                         hardware.device_kind, hardware.num_chips,
                         node.role)
+            self._journal("join", {
+                "node_id": node_id,
+                "hardware": hardware.to_dict(),
+                "wire_formats": list(node.wire_formats),
+                "role": node.role,
+            })
             self._try_bootstrap_or_extend()
+            self._journal_pipelines()
         elif kind == "leave":
             self._handle_leave(ev[1])
         elif kind == "peer_down":
@@ -498,6 +586,10 @@ class GlobalScheduler:
                     "%d cache-index digests dropped, sweep accelerated",
                     reporter, peer, reason or "?", stale,
                 )
+                self._journal("peer_down", {
+                    "reporter": reporter, "peer": peer,
+                    "reason": reason or "",
+                })
         elif kind == "update":
             self._handle_update(ev[1], ev[2])
 
@@ -531,6 +623,18 @@ class GlobalScheduler:
         if u["cache_digests"] is not None:
             if node.cache_index.apply(u["cache_digests"]):
                 node.digests_need_resync = True
+        # Bounded heartbeat-replay window: a promoted standby re-derives
+        # soft state (load charges, readiness, digest continuity) from
+        # these instead of trusting a snapshot of someone else's clocks.
+        self._journal("hb", {
+            "node_id": node_id,
+            "load": u["load"],
+            "ready": u["ready"],
+            "busy": u["busy"],
+            "latency_ms": u["lat"],
+            "refit_version": u["refit"],
+            "digests": u["cache_digests"],
+        })
 
     def _try_bootstrap_or_extend(self) -> None:
         standby = self.manager.nodes(NodeState.STANDBY)
@@ -612,6 +716,7 @@ class GlobalScheduler:
                     self.migration_stats["drains"] += 1
         displaced = self.manager.remove(node_id)
         logger.info("node %s left; %d displaced", node_id, len(displaced))
+        self._journal("leave", {"node_id": node_id})
         active = list(self.manager.nodes(NodeState.ACTIVE))
         if not self.manager.pipelines or self.allocator.should_global_rebalance(
             active
@@ -619,6 +724,7 @@ class GlobalScheduler:
             self._global_rebalance()
         else:
             self._try_bootstrap_or_extend()
+        self._journal_pipelines()
 
     def _global_rebalance(self) -> None:
         """Tear everything down and re-allocate from scratch (reference

@@ -26,6 +26,8 @@ tests/test_torch_host_cache*.py.
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one intra-op thread)
+
 from parallax_tpu.models.base import StageModel as JStageModel
 from parallax_tpu.runtime.engine import EngineConfig as JEngineConfig
 from parallax_tpu.runtime.engine import StageEngine as JStageEngine

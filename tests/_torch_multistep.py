@@ -15,6 +15,8 @@ tests/test_torch_multistep*.py."""
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one intra-op thread)
+
 from parallax_tpu_torch.config import normalize_config
 from parallax_tpu_torch.models import create_stage_model
 from parallax_tpu_torch.runtime.batch import (

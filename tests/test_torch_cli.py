@@ -330,12 +330,18 @@ def test_load_tokenizer_matches_jax(tmp_path):
      "7000", "--advertise-addr", "127.0.0.1", "--wire-dtype", "bf16"],
     ["chat"],
     ["chat", "--base-url", "http://h:1", "--max-tokens", "9"],
+    ["run", "--model-name", "x", "--scheduler-standby", "h:2,h:3"],
+    ["run", "--model-name", "x", "--standby-of", "h:1", "--ha-lease-s",
+     "3"],
+    ["join", "--scheduler-addr", "h:1", "--scheduler-standby", "h:2",
+     "--model-path", "."],
 ], ids=["run-defaults", "run-cache-aware", "join-defaults", "join-flags",
-        "chat-defaults", "chat-flags"])
+        "chat-defaults", "chat-flags", "run-scheduler-standby",
+        "run-standby-of", "join-scheduler-standby"])
 def test_run_join_chat_parse_as_the_jax_cli(argv):
     """``run``, ``join --scheduler-addr`` and ``chat`` take the JAX CLI's
     flags with its defaults (the port adds ``--host`` and ``--device``),
-    and nothing of these is refused."""
+    and nothing of these is refused — the scheduler HA flags included."""
     from parallax_tpu import cli as jcli
 
     want = vars(jcli.build_parser().parse_args(argv))
@@ -350,11 +356,77 @@ def test_run_join_chat_parse_as_the_jax_cli(argv):
     (["--routing-gamma", "0.5"], 9),
     (["--slo", "ttft_p95_ms=500"], 9),
     (["--qos", "on"], 9),
-    (["--scheduler-standby", "10.0.0.2:3002"], "4c"),
-    (["--standby-of", "10.0.0.1:3002"], "4c"),
     (["--relay-token", "s"], "4c"),
 ])
 def test_refused_run_flags_exit_2(capsys, argv, item):
     assert cli.main(["run", "--model-name", "qwen2.5-7b", *argv]) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"item {item})" in err
+
+
+def _run_on_thread(argv):
+    """``run`` (its parser and run_main) on a thread; returns the thread
+    and its (frontend, service) once the HTTP socket is bound."""
+    from parallax_tpu_torch.backend.run import run_main
+
+    args = cli.build_parser().parse_args(argv)
+    assert cli.unported_flags(args) == []
+    box, started = [], threading.Event()
+    server = threading.Thread(
+        target=run_main,
+        args=(args, lambda fe, svc: (box.extend((fe, svc)), started.set())),
+        daemon=True)
+    server.start()
+    assert started.wait(30.0)
+    return server, *box
+
+
+def test_run_scheduler_standby_and_standby_of_serve_ha():
+    """``run --scheduler-standby`` journals and advertises its standbys;
+    ``run --standby-of P --ha-lease-s 1`` is a passive mirror tailing P:
+    its frontend answers 503 and its RPC ``not_primary`` until P stops,
+    then it promotes itself to epoch 2 and its frontend and RPC are a
+    primary's. (A preset model, so no checkpoint; no worker joins.)"""
+    from tests.test_torch_swarm import _post, _wait
+
+    base = ["run", "--model-name", "qwen2.5-7b", "--port", "0", "--host",
+            "127.0.0.1"]
+    threads, frontends = [], []
+    try:
+        # The advertised standby address is only handed to workers and
+        # clients: the primary never dials it (the standby pulls).
+        server, fe, svc = _run_on_thread(base + ["--scheduler-standby",
+                                                 "127.0.0.1:9"])
+        threads.append(server)
+        frontends.append(fe)
+        journal = svc.scheduler.journal
+        assert journal is not None and journal.records_by_kind == {
+            "snapshot": 1}
+        assert svc._with_epoch({})["standbys"] == ["127.0.0.1:9"]
+        server2, fe2, svc2 = _run_on_thread(
+            base + ["--standby-of", svc.transport.address, "--ha-lease-s",
+                    "1"])
+        threads.append(server2)
+        frontends.append(fe2)
+        mirror = svc2.scheduler
+        assert mirror.passive and mirror.journal is None
+        # The standby pulled the primary's journal and attached for pushes.
+        assert _wait(lambda: journal._peers, 10.0)
+        status, body = _post(fe2.port, "/v1/completions",
+                             {"prompt": "hi", "max_tokens": 2})
+        assert status == 503, body
+        assert svc2._on_join("w", {"node_id": "w"})["not_primary"]
+        assert _post(fe2.port, "/cluster/status_json", None, "GET")[0] == 200
+        fe.shutdown()              # the primary's run returns
+        server.join(30.0)
+        assert not server.is_alive()
+        assert _wait(lambda: not mirror.passive, 10.0)
+        assert mirror.epoch == 2 and mirror.journal is not None
+        assert svc2._on_where_is("w", {"rid": "r"}) == {}
+        assert "not_primary" not in svc2._on_update("w", {"node_id": "w"})
+    finally:
+        for f in frontends:
+            if f.server is not None:
+                f.shutdown()
+        for t in threads:
+            t.join(30.0)

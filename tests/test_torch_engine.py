@@ -16,6 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import tests._torch_cpu  # noqa: F401  (one intra-op thread)
+
 from parallax_tpu.config import normalize_config as j_normalize
 from parallax_tpu.models.base import BatchInputs as JBatch
 from parallax_tpu.models.base import StageModel as JStageModel

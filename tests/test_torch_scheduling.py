@@ -624,7 +624,6 @@ def test_fifty_node_pool_allocation_churn_and_routes_match():
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(slo=object()), "9"), (dict(qos=object()), "9"),
-    (dict(passive=True), "4c"),
     (dict(routing="cache_aware", routing_kwargs=dict(gamma=0.5)), "9"),
 ])
 def test_refused_scheduler_options_name_their_items(kwargs, item):
@@ -634,7 +633,6 @@ def test_refused_scheduler_options_name_their_items(kwargs, item):
 
 @pytest.mark.parametrize("call,item", [
     (lambda s: s.begin_refit({}), "12"),
-    (lambda s: s.fence(2), "4c"),
     (lambda s: p_routing.RequestMeta("r", prompt_ids=[1] * 9,
                                      lora_id="a").chain(8), "11"),
 ])
@@ -642,6 +640,67 @@ def test_refused_scheduler_calls_name_their_items(call, item):
     sched = p_sched.GlobalScheduler(normalize_config(RAW))
     with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
         call(sched)
+
+
+# -- scheduler HA: the passive mirror and the fence ------------------------------
+
+@pytest.mark.parametrize("state", ["passive", "fenced"])
+def test_passive_and_fenced_schedulers_match(state):
+    """``passive=True`` (a warm-standby mirror) and ``fence(epoch)`` (an old
+    primary a worker proved superseded) are ported: behind either package's
+    SchedulerService every mutating RPC answers ``not_primary`` with the
+    epoch and ``where_is`` still answers; the service starts no scheduler
+    thread for a mirror; a fenced scheduler drops the events it is handed,
+    where a mirror's registry stays writable for its standby."""
+    import parallax_tpu.backend.scheduler_service as j_service
+    import parallax_tpu_torch.backend.scheduler_service as p_service
+
+    class _T:
+        def register(self, *_a, **_k):
+            pass
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+    def run(pkg):
+        sched = pkg.sched.GlobalScheduler(pkg.cfg,
+                                          passive=state == "passive")
+        sched.record_migration("rid", "w9")
+        if state == "fenced":
+            sched.fence(3)
+        svc = (j_service if pkg is PKGS["jax"] else p_service
+               ).SchedulerService(sched, _T(), standby_addrs=["sb:1"])
+        svc.start()
+        threads = len(sched._threads)
+        replies = [
+            svc._on_join("w0", {"node_id": "w0",
+                                "hardware": _hw(pkg).to_dict()}),
+            svc._on_update("w0", {"node_id": "w0", "load": 1}),
+            svc._on_leave("w0", {"node_id": "w0"}),
+            svc._on_request_complete("w0", {"path": ["w0"]}),
+            svc._on_peer_down("w0", {"peer": "w1"}),
+            svc._on_migrate_target("w0", {"requests": []}),
+            svc._on_disagg_target("w0", {"requests": []}),
+            svc._on_migration_done("w0", {"rid": "r", "head": "w0"}),
+            svc._on_route_request("w0", {"rid": "r"}),
+            svc._on_where_is("w0", {"rid": "rid"}),
+            svc.route_request("r", timeout_s=0.01),
+        ]
+        sched.enqueue_join("w1", _hw(pkg))
+        sched.drain_events()
+        svc.stop()
+        return (replies, threads, sched.passive, sched.fenced,
+                sched.manager.get("w1") is not None)
+
+    replies, threads, passive, fenced, joined = both(run)
+    assert replies[:-2] == [{"not_primary": True, "epoch": 1}] * 9
+    assert replies[-2:] == [{"head": "w9"}, None]
+    assert threads == (0 if state == "passive" else 2)
+    assert (passive, fenced, joined) == (
+        (True, False, True) if state == "passive" else (False, True, False))
 
 
 # -- live migration's scheduler calls ---------------------------------------------

@@ -44,6 +44,8 @@ import numpy as np
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one intra-op thread)
+
 from parallax_tpu.config import normalize_config as j_normalize
 from parallax_tpu.models.base import BatchInputs as JBatch
 from parallax_tpu.models.base import StageModel as JStageModel
@@ -451,11 +453,8 @@ def test_chat_host_answers_503_without_a_route():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--scheduler-addr", "10.0.0.1:3002", "--scheduler-standby",
-      "10.0.0.2:3002"], "4c"),
     (["--relay"], "4c"),
     (["--relay-token", "s"], "4c"),
-    (["--scheduler-standby", "10.0.0.2:3002"], "4c"),
     (["--refit-cache-dir", "/x"], 12),
     (["--compilation-cache-dir", "/x"], 12),
     (["--lora-adapters", "a=/x"], 11),
@@ -535,6 +534,35 @@ def test_join_host_cache_bytes_builds_the_tier(tmp_path):
     tier = eng.host_tier
     assert tier is not None and tier.capacity_pages == (
         (1 << 20) // tier.pool.page_nbytes)
+
+
+@pytest.mark.parametrize("argv,peers", [
+    (["--scheduler-addr", "10.0.0.1:3002", "--scheduler-standby",
+      "10.0.0.2:3002, 10.0.0.3:3002"],
+     ["10.0.0.1:3002", "10.0.0.2:3002", "10.0.0.3:3002"]),
+    (["--scheduler-standby", "10.0.0.2:3002", "--peers", "a:1"], None),
+], ids=["scheduled", "scheduler-less"])
+def test_join_scheduler_standby_seeds_the_failover(tmp_path, argv, peers):
+    """``join --scheduler-standby`` is ported, as the JAX join takes it: a
+    scheduled worker routes its scheduler RPCs through a failover rotation
+    over the primary and the standbys, and a scheduler-less worker has no
+    scheduler to fail over (the flag is inert, as in the JAX worker). The
+    worker is not started; only config.json is written."""
+    with open(os.path.join(tmp_path, "config.json"), "w") as f:
+        json.dump(RAW, f)
+    args = cli.build_parser().parse_args(
+        ["join", "--model-path", str(tmp_path), "--start-layer", "0",
+         "--end-layer", "4", "--device", "cpu", "--port", "0",
+         "--advertise-addr", "127.0.0.1", *argv])
+    assert cli.unported_flags(args) == []
+    node = build_worker(args)
+    node.transport.stop()
+    if peers is None:
+        assert node.standalone and node.sched_transport is None
+    else:
+        assert node.sched_transport.peers == peers
+        assert node._sched_peer() == peers[0]
+        assert all(node._is_scheduler(p) for p in peers)
 
 
 def _write_checkpoint(path: str) -> None:

@@ -335,3 +335,37 @@ def test_one_way_frames_run_in_arrival_order():
     finally:
         client.stop()
         server.stop()
+
+
+def test_call_in_flight_fails_when_the_peer_closes():
+    """A call awaiting its reply when the peer's connection closes (the
+    peer stopped or died mid-call) fails at once with a connection error
+    instead of waiting out its timeout — the scheduler failover rotates on
+    it — and the next call dials again."""
+    server = TcpTransport("", "127.0.0.1")
+    client = TcpTransport("", "127.0.0.1")
+    entered = threading.Event()
+
+    def slow(_peer, _p):
+        entered.set()
+        time.sleep(3.0)
+        return "late"
+
+    try:
+        for t in (server, client):
+            t.start()
+            t.peer_id = t.address
+        server.register("slow", slow)
+        addr = server.address
+        threading.Thread(target=lambda: entered.wait(5.0) and server.stop(),
+                         daemon=True).start()
+        t0 = time.monotonic()
+        with pytest.raises(ConnectionError):
+            client.call(addr, "slow", None, timeout=20.0)
+        assert time.monotonic() - t0 < 2.5
+        assert not client._pending
+        with pytest.raises(ConnectionError):
+            client.call(addr, "slow", None, timeout=5.0)
+    finally:
+        client.stop()
+        server.stop()
