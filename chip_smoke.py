@@ -4286,7 +4286,7 @@ def _serve_http(torch, dev, ckpt: str, mix):
 
 def phase_http_serve(torch, dev, card: str, cfg, tree: list,
                      swarm: bool = False, sched: bool = False,
-                     ha: bool = False) -> None:
+                     ha: bool = False, relay: bool = False) -> None:
     """The port's front door on Qwen2.5-7B at full width: the random tree
     written as an HF checkpoint, the CLI's ``generate`` run on it in a
     subprocess, the checkpoint loaded back bitwise, then ``serve`` (CLI
@@ -4295,8 +4295,8 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
     path on the loaded weights, the prefix cache hit. ``tree`` holds the
     only reference to the random tree, dropped once it loaded back. With
     ``swarm``, phase_swarm_serve follows in the same checkpoint directory
-    (the checkpoint is written once), with ``sched`` phase_sched_serve
-    and with ``ha`` phase_ha_serve."""
+    (the checkpoint is written once), with ``sched`` phase_sched_serve,
+    with ``ha`` phase_ha_serve and with ``relay`` phase_relay_serve."""
     import os
     import re
     import shutil
@@ -4383,6 +4383,9 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
         if ha:
             phase_ha_serve(torch, dev, card, cfg, loaded, ckpt, mix,
                            sampled, reqs)
+        if relay:
+            phase_relay_serve(torch, dev, card, cfg, loaded, ckpt, mix,
+                              sampled, reqs)
 
 
 def http_results(torch, dev, card, cfg, loaded, mix, sampled, outs,
@@ -6058,6 +6061,511 @@ def phase_ha_serve(torch, dev, card, cfg, params, ckpt, mix, sampled,
           "phase_s": time.monotonic() - t0, "card": card})
 
 
+# relay_serve: the scheduler's transport is the relay, and the NAT'd tail
+# registers there with this token.
+RELAY_TOKEN = "relay-serve-token"
+# The model /scheduler/init switches to (parallax_tpu_torch/models/
+# presets.py: Qwen3-8B, the qwen3 dense stage with q / k norms), its random
+# bf16 tree drawn on the card from this seed.
+SWITCH_MODEL = "qwen3-8b"
+SWITCH_SEED = 8
+
+
+def _half_capacity(self, kv_fraction=0.35):
+    """relay_serve's roofline patch: a node holds half of the model's
+    layers, so two nodes make one pipeline of either model (14 + 14 for
+    Qwen2.5-7B, 18 + 18 for Qwen3-8B)."""
+    return self.model.num_hidden_layers // 2
+
+
+def _relay_counts(transport, tail_id: str) -> tuple[int, int]:
+    routed = transport.transport_stats()["relay"]["routed"]
+    c = routed.get(tail_id, {"envelopes": 0, "bytes": 0})
+    return c["envelopes"], c["bytes"]
+
+
+def _relay_run(client, reqs, stop_mon, part: str) -> tuple:
+    """Route and submit ``reqs`` through the SwarmClient, stamping first
+    tokens as the client sees them; every request must end by length.
+    Returns (t0, t1, route ms)."""
+    import threading
+
+    mon = threading.Thread(target=_stamp_first_tokens,
+                           args=(reqs, stop_mon, client.poll_interval_s),
+                           daemon=True)
+    t0 = time.monotonic()
+    mon.start()
+    events, route_ms = [], []
+    for r in reqs:
+        t_r = time.perf_counter()
+        r.routing_table = client.route(r.request_id, prompt_ids=r.prompt_ids)
+        route_ms.append((time.perf_counter() - t_r) * 1e3)
+        events.append(client.submit(r))
+    for r, ev in zip(reqs, events):
+        if not ev.wait(SWARM_TIMEOUT_S):
+            raise AssertionError(f"relay_serve {part} {r.request_id}: "
+                                 f"{r.status.value}")
+    t1 = time.monotonic()
+    stop_mon.set()
+    mon.join(10)
+    for r in reqs:
+        if r.status.value != "finished_length" or len(r.output_ids) != 32:
+            raise AssertionError(f"relay_serve {part} {r.request_id}: "
+                                 f"{r.status.value}, {len(r.output_ids)}")
+    return t0, t1, route_ms
+
+
+def _stage_launches(part, summaries, allocation, launches) -> list:
+    """Each stage's expected launches (its layers x its forward steps),
+    the process's counts held to their sum."""
+    want, per_stage = {}, []
+    for stage, summary, (_, (s, e), _) in zip(("head", "tail"), summaries,
+                                               allocation):
+        if summary["impl"] != FUSED_IMPL:
+            raise AssertionError(f"relay_serve {part} {stage}: impl "
+                                 f"{summary['impl']}")
+        mine = gqa_expected("fused", summary, e - s)
+        if stage == "head" and (mine["sample_topk"] or mine["gumbel_rows"]):
+            raise AssertionError(f"relay_serve {part}: the head sampled "
+                                 f"{summary['dispatch_total']}")
+        for k, v in mine.items():
+            want[k] = want.get(k, 0) + v
+        decode, prefill = forward_steps(summary)
+        per_stage.append({"stage": stage, "layers": [s, e],
+                          "decode_steps": decode, "prefill_steps": prefill,
+                          "launches": mine})
+    check_launches("relay_serve", part, launches, want, {})
+    return per_stage
+
+
+def _http_get(port: int, path: str) -> tuple[int, bytes]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def phase_relay_serve(torch, dev, card, cfg, params, ckpt, mix, sampled,
+                      served) -> None:
+    """What the control plane leaves, on Qwen2.5-7B and Qwen3-8B at full
+    width, in this process over loopback TCP.
+
+    (a) The relay: a port scheduler whose transport carries a relay token,
+    a direct head and a NAT'd tail (``relay:<id>@<scheduler>``, registered
+    with the token, dialed by no one) as one 14 + 14 pipeline serving the
+    mix; every FORWARD to the tail crosses the relay, launches are exact
+    per stage, the greedy rows within GREEDY_TOL of the plain path, and a
+    wrong token is refused.
+
+    (b) The protobuf wire: the mix again on the same pipeline with
+    one-chunk prompts, once with msgpack frames and once with the head's
+    FORWARDs to the tail as the reference protobuf bytes
+    (``p2p/interop.py``, hidden states as bf16 safetensors). The greedy
+    tokens must be equal, or a row that parts must stay within GREEDY_TOL
+    of the plain path (a near-tie); the schema carries no seed, so the
+    seeded rows are only counted. The bytes the relay routed to the tail
+    for the mix both ways, and a FORWARD's average.
+
+    (c) The model switch: ``POST /scheduler/init`` to ``run``'s frontend
+    names Qwen3-8B; the workers rejoin, drop Qwen2.5-7B and load all 36
+    layers (one build each a model); the mix over ``/v1/completions``,
+    launches exact, greedy rows within GREEDY_TOL of the plain Qwen3-8B
+    path; ``/v1/models`` names it and the UI routes answer."""
+    import threading
+
+    from parallax_tpu_torch.backend.run import (
+        build_swarm_frontend,
+        resolve_model,
+    )
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.models.presets import get_preset
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.p2p import interop, proto
+    from parallax_tpu_torch.p2p.node import WorkerNode
+    from parallax_tpu_torch.p2p.transport import TcpTransport
+    from parallax_tpu_torch.scheduling import node as sched_node
+    from parallax_tpu_torch.scheduling.scheduler import GlobalScheduler
+    from parallax_tpu_torch.utils.tokenizer import SimpleTokenizer
+
+    t_phase = time.monotonic()
+    free_device_memory(torch)
+    n = cfg.num_hidden_layers
+    roofline = sched_node.RooflinePerformanceModel
+    real_capacity = roofline.max_layers_in_memory
+    roofline.max_layers_in_memory = _half_capacity
+    sched = GlobalScheduler(cfg, min_nodes_bootstrapping=2)
+    sched_t = TcpTransport("scheduler", "127.0.0.1", relay_token=RELAY_TOKEN)
+    frontend, service, client = build_swarm_frontend(
+        sched, sched_t, SimpleTokenizer(), DENSE_MODEL,
+        resolve_model=resolve_model,
+        tokenizer_fn=lambda _name: SimpleTokenizer(),
+        device_memory_bytes=torch.cuda.get_device_properties(
+            dev).total_memory)
+    switch = {}          # the switch model's config and tree, once drawn
+    builds = []          # (worker, model) per stage load
+
+    def worker(label: str, relayed: bool) -> WorkerNode:
+        t = TcpTransport("", "127.0.0.1", relay_token=RELAY_TOKEN)
+        t.start()
+        if relayed:
+            t.peer_id = f"relay:{label}@{sched_t.address}"
+            t.register_at_relay(sched_t.address)
+        else:
+            t.peer_id = t.address
+
+        def load_dense(m):
+            builds.append((label, DENSE_MODEL))
+            return _stage_tree(params, m.start_layer, m.end_layer, n)
+
+        def resolve(name):
+            if name != SWITCH_MODEL:
+                raise RuntimeError(f"{name} is not on this worker")
+            qcfg, tree = switch["cfg"], switch["params"]
+
+            def load(m):
+                builds.append((label, name))
+                return _stage_tree(tree, m.start_layer, m.end_layer,
+                                   qcfg.num_hidden_layers)
+
+            return qcfg, load
+
+        return WorkerNode(t, sched_t.address, cfg, engine_config(True),
+                          load_params=load_dense, heartbeat_interval_s=0.5,
+                          device=dev, resolve_model=resolve)
+
+    workers, stop_mons = [], []
+    server = None
+    try:
+        service.start()
+        head, tail = worker("direct", False), worker("natted", True)
+        workers = [head, tail]
+        t_spawn = time.monotonic()
+        deadline = t_spawn + SWARM_TIMEOUT_S
+        # The direct worker joins first: the bootstrap lays the nodes out
+        # in join order, so the NAT'd one is the tail.
+        starters = [threading.Thread(target=w.start, daemon=True)
+                    for w in workers]
+        starters[0].start()
+        _wait_for(lambda: sched.manager.get(head.node_id) is not None,
+                  deadline, "(a) the head never joined", "relay_serve")
+        starters[1].start()
+        for s in starters:
+            s.join(SWARM_TIMEOUT_S)
+        _wait_for(lambda: len(_sched_nodes(sched.cluster_status())) == 2
+                  and all(x[2] for x in _sched_nodes(
+                      sched.cluster_status())),
+                  deadline, "(a) no ready pipeline", "relay_serve")
+        ready_s = time.monotonic() - t_spawn
+        allocation = _sched_nodes(sched.cluster_status())
+        if [(x[0], x[1]) for x in allocation] != [
+                (head.node_id, [0, n // 2]), (tail.node_id, [n // 2, n])]:
+            raise AssertionError(f"relay_serve (a): allocation {allocation}")
+        # A registration with a wrong token is refused.
+        intruder = TcpTransport("", "127.0.0.1", relay_token="wrong-token")
+        intruder.start()
+        intruder.peer_id = f"relay:intruder@{sched_t.address}"
+        try:
+            intruder.register_at_relay(sched_t.address)
+            _wait_for(lambda: sched_t.transport_stats()["relay"][
+                "rejected"] >= 1, time.monotonic() + 10,
+                "(a) a wrong token was not refused", "relay_serve")
+            if intruder.peer_id in sched_t._relay_routes:
+                raise AssertionError("relay_serve (a): a wrong token got "
+                                     "a route")
+        finally:
+            intruder.stop()
+        # The tail's FORWARD frames, by kind (True: protobuf bytes).
+        frames = []
+        on_forward = tail.transport._handlers[proto.FORWARD]
+
+        def counted(peer, payload):
+            frames.append(isinstance(payload, (bytes, bytearray)))
+            return on_forward(peer, payload)
+
+        tail.transport.register(proto.FORWARD, counted)
+
+        # (a) the mix through the relayed pipeline.
+        reqs = _swarm_requests(served, sampled)
+        ck.reset_launches()
+        stop_mons.append(threading.Event())
+        t0, t1, route_ms = _relay_run(client, reqs, stop_mons[-1], "(a)")
+        launches = ck.launches()
+        per_stage = _stage_launches(
+            "a_relay", [head.engine.kernel_dispatch_summary(),
+                        tail.engine.kernel_dispatch_summary()],
+            allocation, launches)
+        env_a, bytes_a = _relay_counts(sched_t, tail.node_id)
+        frames_a = len(frames)
+        accepted = tail.transport.transport_stats()["accepted"]
+        dials_to_tail = sum(
+            t.transport_stats()["dials"].get(tail.transport.address, 0)
+            for t in (head.transport, sched_t))
+        if frames_a <= 0 or env_a < frames_a or any(frames):
+            raise AssertionError(f"relay_serve (a): {env_a} envelopes "
+                                 f"routed to the tail, {frames_a} FORWARD "
+                                 "frames handled there")
+        if accepted or dials_to_tail:
+            raise AssertionError(f"relay_serve (a): the tail was dialed "
+                                 f"({accepted} accepted, {dials_to_tail} "
+                                 "dials)")
+        relay_a = sched_t.transport_stats()["relay"]
+        FIGURES["relay_in_process"] = stream_metrics(reqs, t0, t1)
+        emit({"phase": "relay_serve", "part": "a_relay",
+              "forced": "RooflinePerformanceModel.max_layers_in_memory -> "
+                        "half the model's layers",
+              "allocation": allocation, "spawn_to_ready_s": ready_s,
+              "requests": len(reqs), "status": "8 x finished_length",
+              "route_ms_median": statistics.median(route_ms),
+              "launches": launches, "launches_per_stage": per_stage,
+              "forward_frames_to_tail": frames_a,
+              "envelopes_routed_to_tail": env_a,
+              "bytes_routed_to_tail": bytes_a,
+              "relay_envelopes_total": relay_a["envelopes"],
+              "relay_bytes_total": relay_a["bytes"],
+              "relay_registrations": relay_a["registrations"],
+              "wrong_token_rejected": relay_a["rejected"],
+              "tail_connections_accepted": accepted,
+              "dials_to_tail": dials_to_tail,
+              **FIGURES["relay_in_process"],
+              "direct_pipeline_sched_serve": FIGURES.get("sched_in_process"),
+              "card": card})
+
+        # (b) one-chunk prompts, msgpack frames then the reference protobuf.
+        head.engine.scheduler.prefill_chunk_size = 1024
+        prompts = {}
+        msgpack_payload = head._forward_payload
+
+        def protobuf_payload(peer, ireqs):
+            if peer != tail.node_id:
+                return msgpack_payload(peer, ireqs)
+
+            def build():
+                raw = sum(i.hidden_states.numel()
+                          * i.hidden_states.element_size()
+                          for i in ireqs if i.hidden_states is not None)
+                data = interop.ireqs_to_forward_bytes(
+                    ireqs, full_input_ids={i.request_id:
+                                           prompts[i.request_id]
+                                           for i in ireqs})
+                return data, raw, len(data)
+
+            return build
+
+        runs = {}
+        for kind in ("msgpack", "protobuf"):
+            run_reqs = _swarm_requests(served, sampled)
+            for r in run_reqs:
+                r.request_id = f"{kind}-{r.request_id}"
+                prompts[r.request_id] = list(r.prompt_ids)
+            head._forward_payload = (protobuf_payload if kind == "protobuf"
+                                     else msgpack_payload)
+            env0, bytes0 = _relay_counts(sched_t, tail.node_id)
+            f0 = len(frames)
+            stop_mons.append(threading.Event())
+            t0, t1, _ = _relay_run(client, run_reqs, stop_mons[-1],
+                                   f"(b) {kind}")
+            env1, bytes1 = _relay_counts(sched_t, tail.node_id)
+            kinds = frames[f0:]
+            if not kinds or set(kinds) != {kind == "protobuf"}:
+                raise AssertionError(f"relay_serve (b) {kind}: frame kinds "
+                                     f"{kinds}")
+            runs[kind] = {
+                "reqs": run_reqs, "forward_frames": len(kinds),
+                "envelopes": env1 - env0, "bytes": bytes1 - bytes0,
+                "bytes_per_forward": (bytes1 - bytes0) / len(kinds),
+                **stream_metrics(run_reqs, t0, t1)}
+        head._forward_payload = msgpack_payload
+        greedy_rows = [i for i in range(len(reqs)) if i not in sampled]
+        pb_reqs, mp_reqs = runs["protobuf"]["reqs"], runs["msgpack"]["reqs"]
+        equal_rows = [i for i in greedy_rows
+                      if pb_reqs[i].output_ids == mp_reqs[i].output_ids]
+        seeded_equal = sum(pb_reqs[i].output_ids == mp_reqs[i].output_ids
+                           for i in sampled)
+        b_figures = {k: {f: v for f, v in r.items() if f != "reqs"}
+                     for k, r in runs.items()}
+
+        # (c) the model switch over HTTP.
+        qcfg = get_preset(SWITCH_MODEL)
+        qn = qcfg.num_hidden_layers
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SWITCH_SEED)
+        torch.cuda.synchronize()
+        t_init = time.monotonic()
+        switch["params"] = create_stage_model(
+            qcfg, 0, qn, use_kernels=False).init_params(
+                gen, torch.bfloat16, dev)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t_init
+        switch["cfg"] = qcfg
+        q_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(switch["params"]))
+        started = threading.Event()
+        server = threading.Thread(
+            target=frontend.run, daemon=True,
+            kwargs=dict(host="127.0.0.1", port=0,
+                        on_start=lambda _fe: started.set()))
+        server.start()
+        if not started.wait(30):
+            raise AssertionError("relay_serve (c): the frontend did not "
+                                 "start")
+        port = frontend.port
+        submitted = []
+        real_submit = frontend.submit_fn
+
+        def recording_submit(r):
+            submitted.append(r)
+            return real_submit(r)
+
+        frontend.submit_fn = recording_submit
+        t_post = time.monotonic()
+        out = {}
+        _http_client(port, "/scheduler/init",
+                     {"model_name": SWITCH_MODEL, "init_nodes_num": 2}, out)
+        if out.get("status") != 200 or json.loads(out["raw"])["data"][
+                "num_layers"] != qn:
+            raise AssertionError(f"relay_serve (c): /scheduler/init "
+                                 f"{out.get('status')}: {out.get('raw')}")
+        post_s = time.monotonic() - t_post
+
+        def switched() -> bool:
+            nodes = _sched_nodes(service.scheduler.cluster_status())
+            return (service.scheduler.model.model_name == SWITCH_MODEL
+                    and len(nodes) == 2 and all(x[2] for x in nodes)
+                    and all(w.engine is not None
+                            and w._served_model_name == SWITCH_MODEL
+                            and w.engine.model.num_local_layers == qn // 2
+                            for w in workers))
+
+        _wait_for(switched, t_post + SWARM_TIMEOUT_S,
+                  "(c) the workers never served the new model",
+                  "relay_serve")
+        ready_after_post_s = time.monotonic() - t_post
+        allocation_c = _sched_nodes(service.scheduler.cluster_status())
+        by_id = {w.node_id: w for w in workers}
+        stages_c = [by_id[x[0]] for x in allocation_c]
+        if sorted(builds) != sorted([("direct", DENSE_MODEL),
+                                     ("natted", DENSE_MODEL),
+                                     ("direct", SWITCH_MODEL),
+                                     ("natted", SWITCH_MODEL)]):
+            raise AssertionError(f"relay_serve (c): engine builds {builds}")
+        got = {p: _http_get(port, p)
+               for p in ("/v1/models", "/ui", "/ui/meta", "/ui/models")}
+        if any(status != 200 for status, _ in got.values()) or json.loads(
+                got["/v1/models"][1])["data"][0]["id"] != SWITCH_MODEL:
+            raise AssertionError("relay_serve (c): " + str(
+                {p: s for p, (s, _) in got.items()}))
+        catalog = json.loads(got["/ui/models"][1])
+        q3_entry = next((m for m in catalog["models"]
+                         if m["name"].lower() == "qwen/qwen3-8b"), None)
+        # The mix over /v1/completions (a chat prompt as plain text).
+        items = []
+        for _path, body in mix:
+            body = dict(body)
+            if "messages" in body:
+                body["prompt"] = body.pop("messages")[0]["content"]
+            items.append(("/v1/completions", body))
+        env_c0, bytes_c0 = _relay_counts(sched_t, tail.node_id)
+        ck.reset_launches()
+        stop_mons.append(threading.Event())
+        mon = threading.Thread(target=_stamp_first_tokens,
+                               args=(submitted, stop_mons[-1], 0.02),
+                               daemon=True)
+        mon.start()
+        t_send = time.monotonic()
+        outs = _send_mix(port, items, "relay_serve (c)")
+        t_done = time.monotonic()
+        stop_mons[-1].set()
+        mon.join(10)
+        for o, (_path, body) in zip(outs, items):
+            _, finish, usage, _text = _http_reply(o, body)
+            if finish != "length" or usage["completion_tokens"] != 32:
+                raise AssertionError(f"relay_serve (c): {finish}, {usage}")
+        launches_c = ck.launches()
+        env_c1, bytes_c1 = _relay_counts(sched_t, tail.node_id)
+        per_stage_c = _stage_launches(
+            "c_switch", [w.engine.kernel_dispatch_summary()
+                         for w in stages_c], allocation_c, launches_c)
+        reqs_c = list(submitted)
+        if len(reqs_c) != len(items):
+            raise AssertionError(f"relay_serve (c): {len(reqs_c)} requests "
+                                 f"submitted for {len(items)}")
+        first_token_s = min(r.first_token_time for r in reqs_c) - t_post
+        metrics_c = stream_metrics(reqs_c, t_send, t_done)
+    finally:
+        for ev in stop_mons:
+            ev.set()
+        if server is not None:
+            frontend.shutdown()
+            server.join(30)
+        for w in workers:
+            w.stop()
+            w.engine = None
+        service.stop()
+        roofline.max_layers_in_memory = real_capacity
+    del workers
+    free_device_memory(torch)
+
+    # The greedy rows against the plain paths.
+    model_ref = create_plain_model(cfg)
+    worst_a, *_ = greedy_check(torch, model_ref, params, reqs, sampled, dev,
+                               tol=GREEDY_TOL)
+    parted = [pb_reqs[i] for i in greedy_rows if i not in equal_rows]
+    worst_b = None
+    if parted:
+        worst_b, *_ = greedy_check(torch, model_ref, params, parted, {}, dev,
+                                   tol=GREEDY_TOL)
+    del model_ref
+    free_device_memory(torch)
+    model_q = create_plain_model(switch["cfg"])
+    sampled_c = {i for i, r in enumerate(reqs_c)
+                 if r.sampling_params.temperature > 0}
+    worst_c, *_ = greedy_check(torch, model_q, switch["params"], reqs_c,
+                               sampled_c, dev, tol=GREEDY_TOL)
+    del model_q
+    switch.clear()
+    free_device_memory(torch)
+    emit({"phase": "relay_serve", "part": "b_protobuf",
+          "prefill_chunk_size": 1024, "runs": b_figures,
+          "greedy_rows_equal": f"{len(equal_rows)} of {len(greedy_rows)}",
+          "greedy_tokens_equal": sum(
+              x == y for i in greedy_rows
+              for x, y in zip(pb_reqs[i].output_ids, mp_reqs[i].output_ids)),
+          "seeded_rows_equal": f"{seeded_equal} of {len(sampled)} (the "
+                               "schema carries no seed)",
+          "parted_rows_largest_logit_gap": worst_b,
+          # The same mix both ways: the bytes a FORWARD also move with how
+          # the head happened to batch the rows.
+          "bytes_protobuf_over_msgpack": (b_figures["protobuf"]["bytes"]
+                                          / b_figures["msgpack"]["bytes"]),
+          "card": card})
+    emit({"phase": "relay_serve", "part": "c_switch",
+          "model": SWITCH_MODEL, "layers": qn, "weights": "random bf16",
+          "weight_bytes": q_bytes, "init_s": init_s,
+          "post_reply_s": post_s,
+          "post_to_workers_ready_s": ready_after_post_s,
+          "post_to_first_token_s": first_token_s,
+          "allocation": allocation_c, "engine_builds": builds,
+          "envelopes_routed_to_natted": env_c1 - env_c0,
+          "bytes_routed_to_natted": bytes_c1 - bytes_c0,
+          "requests": len(reqs_c), "status": "8 x length over HTTP",
+          "launches": launches_c, "launches_per_stage": per_stage_c,
+          "greedy_vs_plain": "pass", "largest_logit_gap": worst_c,
+          "tolerance": GREEDY_TOL,
+          "ui": {p: s for p, (s, _) in got.items()},
+          "ui_catalog_qwen3_8b": q3_entry,
+          **metrics_c, "card": card})
+    emit({"phase": "relay_serve", "greedy_vs_plain_a": "pass",
+          "largest_logit_gap_a": worst_a, "tolerance": GREEDY_TOL,
+          "compare": {k: FIGURES.get(k) for k in (
+              "sched_in_process", "relay_in_process")},
+          "phase_s": time.monotonic() - t_phase, "card": card})
+
+
 def phase_moe_serve(torch, dev, card: str, want) -> dict:
     """Qwen3-30B-A3B at full width and depth on one card: serve the
     8-request mix with the kernels, with the engine's defaults and with
@@ -6745,7 +7253,7 @@ KERNEL_COUNTER = {"ragged_attend": "gqa_prefill"}
 # order; the first one asked for names the tree's line when serve is not.
 DENSE_PHASES = ("features_serve", "preempt_serve", "migrate_serve",
                 "disagg_serve", "http_serve", "swarm_serve", "sched_serve",
-                "ha_serve")
+                "ha_serve", "relay_serve")
 
 
 def run_dense(torch, dev, card: str, want) -> dict:
@@ -6779,12 +7287,12 @@ def run_dense(torch, dev, card: str, want) -> dict:
         phase_disagg_serve(torch, dev, card, cfg, model_full, params)
         free_device_memory(torch)
     if any(want(p) for p in ("http_serve", "swarm_serve", "sched_serve",
-                             "ha_serve")):
+                             "ha_serve", "relay_serve")):
         tree = [params]
         del params
         phase_http_serve(torch, dev, card, cfg, tree,
                          swarm=want("swarm_serve"), sched=want("sched_serve"),
-                         ha=want("ha_serve"))
+                         ha=want("ha_serve"), relay=want("relay_serve"))
     return paths
 
 
@@ -6813,8 +7321,8 @@ def main() -> int:
                     help="comma-separated phases (build,kernels,serve,"
                          "pipeline,profile,features_serve,preempt_serve,"
                          "migrate_serve,disagg_serve,http_serve,"
-                         "swarm_serve, sched_serve and ha_serve (each runs "
-                         "http_serve too),moe_serve,"
+                         "swarm_serve, sched_serve, ha_serve and "
+                         "relay_serve (each runs http_serve too),moe_serve,"
                          "moe_profile,"
                          "mla_serve,mla_profile,dsa_serve,dsa_profile,"
                          "gptoss_serve,gptoss_profile,msa_serve,m2_serve); "

@@ -16,11 +16,20 @@ compiled at admission, 400 if unsupported) and ``logprobs`` (chat
 ``content`` entries, completions ``tokens`` / ``token_logprobs``, streamed
 and not). A request asking for a feature the engine's ``submit`` refuses
 (a LoRA adapter) gets HTTP 501 with that refusal's text; the
-endpoints of later slices (metrics, debug, profiling, scheduler init,
-weight refit, the web UI) answer 501 "not ported yet". ``/cluster/status``
-(an ndjson stream) and ``/cluster/status_json`` serve a ``status_fn`` where
-the frontend has one (the ``run`` frontend: the scheduler's core
-``cluster_status()``), and answer 501 elsewhere (item 9).
+endpoints of later slices (metrics, debug, profiling, weight refit) answer
+501 "not ported yet". ``/cluster/status`` (an ndjson stream) and
+``/cluster/status_json`` serve a ``status_fn`` where the frontend has one
+(the ``run`` frontend: the scheduler's core ``cluster_status()``), and
+answer 501 elsewhere (item 9).
+
+``POST /scheduler/init`` (``{"model_name", "init_nodes_num"}``) switches
+the served model through ``scheduler_init_fn`` (the ``run`` frontend's:
+``backend/run.py::make_scheduler_init_fn``) and answers its
+``num_layers``; 400 for a missing field or an unknown model, 500 when the
+hook fails, 501 on a frontend without one, as the JAX frontend answers;
+``/v1/models`` follows the switch. The web UI (``backend/webui.py``)
+serves ``/ui``, ``/ui/meta``, ``/ui/models`` and ``/chat``; ``/``
+redirects to ``/ui``.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import socket
 import time
 import uuid
 
+from parallax_tpu_torch.backend.webui import register_ui, ui_model_names
 from parallax_tpu_torch.constrained import validate_schema
 from parallax_tpu_torch.runtime.request import Request, SamplingParams
 from parallax_tpu_torch.utils import get_logger
@@ -55,12 +65,7 @@ UNPORTED_ENDPOINTS = {
     "/cluster/status": 9,
     "/cluster/status_json": 9,
     "/profile/": 9,
-    "/scheduler/init": "4c",
     "/weight/refit": 12,
-    "/": "4c",       # the web UI: setup / join / cluster / chat pages
-    "/ui": "4c",
-    "/ui/": "4c",
-    "/chat": "4c",
 }
 _POLL_DEADLINE_S = 600.0
 
@@ -269,13 +274,24 @@ class _Handler(http.server.BaseHTTPRequestHandler):
     # -- replies -----------------------------------------------------------
 
     def send_json(self, obj, status: int = 200) -> None:
-        data = json.dumps(obj).encode()
+        self.send_body(json.dumps(obj).encode(),
+                       "application/json; charset=utf-8", status)
+
+    def send_body(self, data: bytes, content_type: str,
+                  status: int = 200) -> None:
         self.replied = True
         self.send_response(status)
-        self.send_header("Content-Type", "application/json; charset=utf-8")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
         self.end_headers()
         self.wfile.write(data)
+
+    def send_redirect(self, location: str) -> None:
+        self.replied = True
+        self.send_response(302)
+        self.send_header("Location", location)
+        self.send_header("Content-Length", "0")
+        self.end_headers()
 
     def start_stream(self, content_type: str = "text/event-stream") -> None:
         self.replied = True
@@ -321,7 +337,10 @@ class OpenAIFrontend:
     501. ``stop_fn(rid)`` asks the
     backend to gracefully finish a request early (stop-string match,
     client disconnect). ``status_fn() -> dict``, where given, serves
-    ``/cluster/status_json`` and the ``/cluster/status`` stream."""
+    ``/cluster/status_json`` and the ``/cluster/status`` stream.
+    ``scheduler_init_fn(model_name, init_nodes_num) -> dict`` serves
+    ``/scheduler/init`` (ValueError: 400). ``device_memory_bytes`` sizes
+    the web UI's model catalog estimate (None leaves it empty)."""
 
     def __init__(
         self,
@@ -332,26 +351,37 @@ class OpenAIFrontend:
         stream_poll_s: float = 0.02,
         stop_fn=None,
         status_fn=None,
+        scheduler_init_fn=None,
+        device_memory_bytes: int | None = None,
     ):
         self.tokenizer = tokenizer
         self.submit_fn = submit_fn
         self.route_fn = route_fn
         self.stop_fn = stop_fn
         self.status_fn = status_fn
+        self.scheduler_init_fn = scheduler_init_fn
         self.model_name = model_name
         self.stream_poll_s = stream_poll_s
         self.server: http.server.ThreadingHTTPServer | None = None
         self._routes = {
+            ("GET", "/"): lambda h: h.send_redirect("/ui"),
             ("GET", "/health"): self.health,
             ("GET", "/v1/models"): self.models,
             ("POST", "/v1/chat/completions"): self.chat_completions,
             ("POST", "/v1/completions"): self.completions,
+            ("POST", "/scheduler/init"): self.scheduler_init,
         }
         if status_fn is not None:
             self._routes[("GET", "/cluster/status_json")] = (
                 self.cluster_status_json)
             self._routes[("GET", "/cluster/status")] = (
                 self.cluster_status_stream)
+        register_ui(self, ui_model_names(model_name),
+                    device_bytes=device_memory_bytes)
+
+    def add_route(self, method: str, path: str, fn) -> None:
+        """Serve ``fn(handler)`` at ``method path``."""
+        self._routes[(method, path)] = fn
 
     # -- serving -------------------------------------------------------------
 
@@ -420,6 +450,41 @@ class OpenAIFrontend:
                 "owned_by": "parallax-tpu",
             }],
         })
+
+    def scheduler_init(self, h: _Handler) -> None:
+        """Live model switch: stop the current global scheduler and
+        bootstrap a fresh one for the new model; the workers rejoin on
+        their next heartbeat and reload their stage."""
+
+        def reply(status: int, error: str) -> None:
+            h.send_json({"type": "scheduler_init", "error": error}, status)
+
+        if self.scheduler_init_fn is None:
+            reply(501, "model switch unavailable in this mode")
+            return
+        body = self._read_json(h)
+        model_name = body.get("model_name")
+        init_nodes_num = body.get("init_nodes_num")
+        if model_name is None:
+            reply(400, "model_name is required")
+            return
+        if init_nodes_num is None:
+            reply(400, "init_nodes_num is required")
+            return
+        try:
+            info = self.scheduler_init_fn(model_name, int(init_nodes_num))
+        except ValueError as e:
+            reply(400, str(e))
+            return
+        except Exception as e:
+            logger.exception("scheduler init failed")
+            reply(500, str(e))
+            return
+        self.model_name = model_name
+        h.send_json({"type": "scheduler_init",
+                     "data": {"model_name": model_name,
+                              "init_nodes_num": init_nodes_num,
+                              **(info or {})}})
 
     def cluster_status_json(self, h: _Handler) -> None:
         h.send_json(self.status_fn())

@@ -21,9 +21,15 @@ fenced; ``--standby-of P`` runs a passive mirror plus a
 ``--ha-lease-s`` of silence. Until then the mirror's frontend answers 503
 (no route), and ``/cluster/status_json`` the mirror's state.
 
-Not ported yet, refused by name: the web UI and ``/scheduler/init`` with
-the model switch, and the relay (ROADMAP queue 1 item 4c); SLO, QoS,
-timeline, healthz, device and profile hooks (item 9). The poll loop
+The scheduler's transport is the swarm's relay: a ``join --relay`` worker
+registers its reverse route there, and ``--relay-token`` is the secret
+every registration must present. ``POST /scheduler/init`` switches the
+served model live (:func:`make_scheduler_init_fn`): a fresh
+``GlobalScheduler`` for the new model replaces the running one, the
+workers rejoin and reload, and the frontend's tokenizer and
+``/v1/models`` follow. The web UI is served at ``/ui``. Not ported yet,
+refused by name: SLO, QoS, timeline, healthz, device and profile hooks
+(item 9). The poll loop
 follows a live migration (``{"migrated": head}`` from the old head, or the
 scheduler's ``where_is``) and resumes a request whose path died after it
 streamed tokens by resubmitting those tokens as ``replay_ids``, as the JAX
@@ -37,6 +43,7 @@ import signal
 import threading
 import time
 
+from parallax_tpu_torch.analysis.sanitizer import make_lock
 from parallax_tpu_torch.backend.http_server import (
     OpenAIFrontend,
     load_tokenizer,
@@ -424,6 +431,9 @@ def build_swarm_frontend(
     tokenizer,
     model_name: str,
     standby_addrs: list[str] | None = None,
+    resolve_model=None,
+    tokenizer_fn=None,
+    device_memory_bytes: int | None = None,
 ) -> tuple[OpenAIFrontend, SchedulerService, SwarmClient]:
     """The scheduler host's frontend: the RPC service over ``transport``
     and the OpenAI API routing through it, with ``/cluster/status_json``
@@ -431,7 +441,10 @@ def build_swarm_frontend(
     ``cluster_status()``. With ``standby_addrs`` the service advertises
     them and the client gets the failover rotation over them: once this
     scheduler is fenced (a standby promoted past it), routing goes over
-    RPC to the promoted peer instead of 503ing the frontend."""
+    RPC to the promoted peer instead of 503ing the frontend. With
+    ``resolve_model(name) -> ModelConfig`` the frontend serves
+    ``/scheduler/init`` (:func:`make_scheduler_init_fn`), its tokenizer
+    following ``tokenizer_fn(name)``."""
     service = SchedulerService(scheduler, transport,
                                standby_addrs=standby_addrs)
     client = SwarmClient(transport, service,
@@ -443,8 +456,53 @@ def build_swarm_frontend(
         status_fn=lambda: service.scheduler.cluster_status(),
         model_name=model_name,
         stop_fn=client.stop,
+        device_memory_bytes=device_memory_bytes,
     )
+    if resolve_model is not None:
+        frontend.scheduler_init_fn = make_scheduler_init_fn(
+            service, resolve_model, frontend=frontend,
+            tokenizer_fn=tokenizer_fn)
     return frontend, service, client
+
+
+def make_scheduler_init_fn(service: SchedulerService, resolve_model,
+                           frontend: OpenAIFrontend | None = None,
+                           tokenizer_fn=None):
+    """The model-switch hook of ``/scheduler/init``: a fresh
+    ``GlobalScheduler`` for the new model replaces the running service's,
+    under a lock (one stop per swap), with the routing strategy and its
+    tuning kept. The workers are unknown to it, so their next heartbeat
+    gets a rejoin; they resolve the new model (the join reply names it)
+    and reload their stage. The frontend's tokenizer follows through
+    ``tokenizer_fn``. An unknown model raises ValueError (400)."""
+    lock = make_lock("backend.run_frontend")
+
+    def init(model_name: str, init_nodes_num: int) -> dict:
+        try:
+            model = resolve_model(model_name)
+        except KeyError as e:
+            raise ValueError(str(e)) from None
+        new_tokenizer = tokenizer_fn(model_name) if tokenizer_fn else None
+        with lock:
+            old = service.scheduler
+            new_sched = GlobalScheduler(
+                model, min_nodes_bootstrapping=init_nodes_num,
+                routing=old.routing_name,
+                routing_kwargs=old.routing_kwargs,
+            )
+            new_sched.start()
+            service.scheduler = new_sched
+            if frontend is not None and new_tokenizer is not None:
+                frontend.tokenizer = new_tokenizer
+            try:
+                old.stop()
+            except Exception:
+                logger.exception("stopping the previous scheduler")
+        logger.info("scheduler switched to %s (min_nodes=%d)", model_name,
+                    init_nodes_num)
+        return {"num_layers": model.num_hidden_layers}
+
+    return init
 
 
 def build_chat_host_frontend(
@@ -560,11 +618,16 @@ def run_main(args, on_start=None) -> int:
         routing=args.routing, routing_kwargs=routing_kwargs,
         passive=bool(standby_of),
     )
+    # The scheduler's transport is the swarm's relay for NAT'd workers.
     transport = TcpTransport("scheduler", args.host,
-                             args.port + 1 if args.port else 0)
+                             args.port + 1 if args.port else 0,
+                             relay_token=args.relay_token)
     frontend, service, _client = build_swarm_frontend(
         scheduler, transport, tokenizer, args.model_name,
         standby_addrs=standby_addrs or None,
+        resolve_model=resolve_model,
+        tokenizer_fn=lambda name: load_tokenizer(
+            name if os.path.isdir(name) else None),
     )
     standby_ctl = None
     if standby_addrs and not standby_of:

@@ -111,8 +111,14 @@ def build_local_frontend(
 ) -> tuple[OpenAIFrontend, LocalRunner]:
     """The frontend and a started runner over ``engines`` (a pipeline in
     stage order), with the tokenizer's grammar vocabulary wired into the
-    last stage. The JAX package's watchdog, SLO and QoS wait for their
-    slices."""
+    last stage. The web UI's catalog is sized against the first engine's
+    device when it is a card (read here, before the runner starts: only
+    the runner thread touches CUDA once it runs). The JAX package's
+    watchdog, SLO and QoS wait for their slices."""
+    device = engines[0].device
+    device_memory_bytes = (
+        torch.cuda.get_device_properties(device).total_memory
+        if device.type == "cuda" else None)
     pipeline = InProcessPipeline(engines)
     # Grammar-constrained decoding lives on the LAST stage (where sampling
     # happens): wire the tokenizer's raw byte vocabulary into it before
@@ -132,6 +138,7 @@ def build_local_frontend(
         submit_fn=runner.submit,
         model_name=model_name,
         stop_fn=runner.stop_request,
+        device_memory_bytes=device_memory_bytes,
     )
     return frontend, runner
 
@@ -155,8 +162,17 @@ def serve_main(args, on_start=None) -> int:
 
     device = resolve_device(args.device)
     config = load_config(args.model_path)
+    n = config.num_hidden_layers
     start = args.start_layer or 0
-    end = args.end_layer or config.num_hidden_layers
+    end = n if args.end_layer is None else args.end_layer
+    if (start, end) != (0, n):
+        # The JAX serve fails here too: its InProcessPipeline asserts that
+        # the engines hold the first and the last layer.
+        raise SystemExit(
+            f"serve --start-layer {args.start_layer} --end-layer "
+            f"{args.end_layer}: a single-host server holds every layer "
+            f"[0, {n}) (its in-process pipeline needs the first and the "
+            "last stage); serve a partial range with join")
     model = create_stage_model(config, start, end)
     params = load_stage_params(model, args.model_path, device=device)
 
@@ -198,6 +214,9 @@ def serve_main(args, on_start=None) -> int:
             decode_fused=args.decode_fused,
             prefill_fused=args.prefill_fused,
             prefill_chunk_skip=args.prefill_chunk_skip,
+            # A single host has no hop; carried so a worker spawned from
+            # this config inherits the operator's wire choice.
+            wire_dtype=args.wire_dtype,
             slow_request_ms=args.slow_request_ms,
         ),
         device=device,

@@ -174,7 +174,9 @@ def _add_run_flags(run: argparse.ArgumentParser) -> None:
                      help="cache_aware: in-flight spread past which "
                           "dispatch falls back to least-loaded")
     run.add_argument("--routing-gamma", type=float, default=0.0)
-    run.add_argument("--relay-token", default=None)
+    run.add_argument("--relay-token", default=None,
+                     help="swarm secret every relay registration of a NAT'd "
+                          "worker (join --relay) must present")
     run.add_argument("--slo", default=None)
     run.add_argument("--slo-window-s", type=float, default=300.0)
     run.add_argument("--qos", default=None)
@@ -211,7 +213,6 @@ def unported_run_flags(args) -> list[tuple[str, int | str]]:
          9),
         (args.slo is not None, "--slo", 9),
         (args.qos is not None, "--qos", 9),
-        (args.relay_token is not None, "--relay-token", "4c"),
     ):
         if on:
             refused.append((flag, item))
@@ -251,8 +252,12 @@ def _add_join_flags(join: argparse.ArgumentParser) -> None:
                       help="reachable host/IP peers dial for pp-forwards "
                            "(default: the host's routed address; pass "
                            "127.0.0.1 for a swarm on one host)")
-    join.add_argument("--relay", action="store_true")
-    join.add_argument("--relay-token", default=None)
+    join.add_argument("--relay", action="store_true",
+                      help="behind a NAT: accept no dials, keep a reverse "
+                           "connection at the scheduler's relay (needs "
+                           "--scheduler-addr)")
+    join.add_argument("--relay-token", default=None,
+                      help="the swarm's relay secret (run --relay-token)")
     join.add_argument(
         "--role", default=None, choices=["prefill", "decode", "mixed"],
         help="phase specialization for disaggregated serving: 'prefill' "
@@ -309,8 +314,6 @@ def unported_join_flags(args) -> list[tuple[str, int | str]]:
     the ROADMAP queue 1 item that ports it."""
     refused = []
     for on, flag, item in (
-        (args.relay, "--relay", "4c"),
-        (args.relay_token is not None, "--relay-token", "4c"),
         (args.model_path is not None and not os.path.isdir(args.model_path),
          f"--model-path {args.model_path} (not a local directory: a hub "
          "download)", 12),
@@ -364,19 +367,12 @@ def unported_flags(args) -> list[tuple[str, int | str]]:
     refuse(args.lora_max_adapters > 0, "--lora-max-adapters", 11)
     refuse(args.draft_model_path is not None, "--draft-model-path", 7)
     refuse(args.speculative_tokens > 0, "--speculative-tokens", 7)
-    refuse(args.wire_dtype is not None, "--wire-dtype", "4c")
+    refuse(args.wire_dtype in ("fp8", "float8_e4m3fn"),
+           f"--wire-dtype {args.wire_dtype}", 11)
     refuse(args.trace_sample_rate > 0, "--trace-sample-rate", 9)
     refuse(args.watchdog, "--watchdog", 9)
     refuse(args.slo is not None, "--slo", 9)
     refuse(args.qos is not None, "--qos", 9)
-    if (args.start_layer or args.end_layer is not None) and not refused:
-        from parallax_tpu_torch.config import load_config
-
-        n = load_config(args.model_path).num_hidden_layers
-        if (args.start_layer or 0, args.end_layer or n) != (0, n):
-            refused.append((f"--start-layer {args.start_layer} "
-                            f"--end-layer {args.end_layer} (a partial "
-                            f"stage of {n} layers)", "4c"))
     return refused
 
 

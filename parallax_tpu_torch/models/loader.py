@@ -66,6 +66,26 @@ class SafetensorsFile:
                 raise ValueError(f"{path}: header length {n} past the file end")
             header = json.loads(f.read(n))
             self._map = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+        self._set_header(header, n, size)
+
+    @classmethod
+    def from_bytes(cls, data: bytes,
+                   name: str = "<bytes>") -> "SafetensorsFile":
+        """The same reader over safetensors bytes in memory (a writable
+        copy, so the tensors it returns own no read-only buffer)."""
+        self = cls.__new__(cls)
+        self.path = name
+        size = len(data)
+        if size < 8:
+            raise ValueError(f"{name}: not safetensors bytes")
+        n = int.from_bytes(data[:8], "little")
+        if n > size - 8:
+            raise ValueError(f"{name}: header length {n} past the end")
+        self._map = bytearray(data)
+        self._set_header(json.loads(bytes(data[8:8 + n])), n, size)
+        return self
+
+    def _set_header(self, header: dict, n: int, size: int) -> None:
         self.metadata: dict[str, str] = header.pop("__metadata__", None) or {}
         self._entries: dict[str, dict] = header
         self._data_start = 8 + n

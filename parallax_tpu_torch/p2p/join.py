@@ -13,7 +13,12 @@ prefill head that hands each finished prompt's KV pages to a ``--role
 decode`` worker in frames of ``--kv-transfer-chunk-bytes``; the default
 ``mixed`` serves both phases. ``--scheduler-standby`` names warm-standby
 schedulers (``run --standby-of``) its scheduler RPCs fail over to when the
-primary dies. Without ``--scheduler-addr``, the worker serves
+primary dies. ``--relay`` puts the worker behind the scheduler's relay:
+it accepts no dial, keeps one outbound connection to the scheduler and goes
+by ``relay:<id>@<scheduler>`` (``--relay-token`` is the swarm's secret,
+set on ``run`` too). A live model switch (``/scheduler/init``) resolves
+the new model as a local checkpoint directory or a preset name (random
+weights). Without ``--scheduler-addr``, the worker serves
 layers ``[--start-layer, --end-layer)`` of the checkpoint and gossips its
 block with ``--peers``; the one holding layer 0 routes requests itself.
 Either way it runs on ``--device`` (default ``cuda:0``). Its KV pages come
@@ -26,9 +31,11 @@ sizes it.
 from __future__ import annotations
 
 import json
+import os
 import signal
 import socket
 import threading
+import uuid
 
 from parallax_tpu_torch.utils import get_logger
 
@@ -61,22 +68,51 @@ def build_worker(args):
         resolve_device,
     )
 
+    from parallax_tpu_torch.models.presets import get_preset
+
     standalone = args.scheduler_addr is None
-    if standalone and (args.start_layer is None or args.end_layer is None):
-        raise SystemExit(
-            "scheduler-less mode needs --start-layer/--end-layer "
-            "(and --peers unless one host serves every layer)"
-        )
+    if standalone:
+        if args.relay:
+            raise SystemExit("--relay requires a scheduler as the relay")
+        if args.start_layer is None or args.end_layer is None:
+            raise SystemExit(
+                "scheduler-less mode needs --start-layer/--end-layer "
+                "(and --peers unless one host serves every layer)"
+            )
     if not args.model_path:
         raise SystemExit("--model-path is required (checkpoint directory)")
     device = resolve_device(args.device)
     model_config = load_config(args.model_path)
-    transport = TcpTransport("", "0.0.0.0", args.port)
+
+    def resolve_model(name: str):
+        """A live model switch: a directory this worker can read loads
+        its weights; a known preset serves seeded random weights;
+        anything else refuses the switch."""
+        if os.path.isdir(name):
+            return load_config(name), (
+                lambda model: load_stage_params(model, name, device=device))
+        try:
+            return get_preset(name), None
+        except KeyError:
+            raise RuntimeError(
+                f"model {name!r} is neither a local checkpoint nor a known "
+                "preset on this worker") from None
+
+    transport = TcpTransport("", "0.0.0.0", args.port,
+                             relay_token=args.relay_token)
     transport.start()
-    # The node id doubles as the dial address peers use for pp-forwards:
-    # it must be reachable, never the 0.0.0.0 bind address.
-    advertise_host = args.advertise_addr or _default_route_ip()
-    transport.peer_id = f"{advertise_host}:{transport.port}"
+    if args.relay:
+        # Behind a NAT: no inbound dials; a reverse connection at the
+        # scheduler's transport and a relay address.
+        transport.peer_id = (
+            f"relay:{uuid.uuid4().hex[:12]}@{args.scheduler_addr}")
+        transport.register_at_relay(args.scheduler_addr)
+    else:
+        # The node id doubles as the dial address peers use for
+        # pp-forwards: it must be reachable, never the 0.0.0.0 bind
+        # address.
+        advertise_host = args.advertise_addr or _default_route_ip()
+        transport.peer_id = f"{advertise_host}:{transport.port}"
     return WorkerNode(
         transport=transport,
         scheduler_peer=args.scheduler_addr,
@@ -110,6 +146,7 @@ def build_worker(args):
             p.strip() for p in (args.scheduler_standby or "").split(",")
             if p.strip()
         ],
+        resolve_model=resolve_model,
     )
 
 

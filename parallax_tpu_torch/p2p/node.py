@@ -76,18 +76,28 @@ decode pool restores the request locally, and a park deadline restores it
 locally after ``where_is`` says nobody else owns it. ``handoff_stats``
 counts it all.
 
-Not ported yet, each refused by name with its ROADMAP queue 1 item: the
-relay, the model switch and the protobuf frames of the reference's nodes
-(``p2p/interop.py``; item 4c), refit (item 12), the watchdog, profiling,
-traces, metrics, goodput, QoS and the QoS autoscaler's re-role of a node
-(item 9), LoRA (item 11), speculation (item 7) and tensor parallelism
-(item 10).
+Relay mode, the model switch and reference-protocol frames, as in the
+JAX worker: a worker whose ``peer_id`` is ``relay:<id>@<relay>`` (behind a
+NAT, dialed by no one) registers its reverse route at the relay on every
+heartbeat. An allocation naming another model than the one served is a
+live model switch (``/scheduler/init``): ``resolve_model`` gives the new
+config and weights, the old engine's KV and weights are dropped, the new
+stage loads, and the grammar vocabulary follows the new tokenizer; a
+failed resolve keeps the old name, so the next allocation retries.
+FORWARD and ABORT take raw protobuf bytes from a reference-protocol peer
+(``p2p/interop.py``), counted in the inbound stats.
+
+Not ported yet, each refused by name with its ROADMAP queue 1 item: refit
+(item 12), the watchdog, profiling, traces, metrics, goodput, QoS and the
+QoS autoscaler's re-role of a node (item 9), LoRA (item 11), speculation
+(item 7) and tensor parallelism (item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import os
 import queue
 import threading
 import time
@@ -109,7 +119,7 @@ from parallax_tpu_torch.ha.backoff import BackoffPolicy
 from parallax_tpu_torch.ha.failover import SchedulerFailover
 from parallax_tpu_torch.models import create_stage_model
 from parallax_tpu_torch.models.base import StageModel
-from parallax_tpu_torch.p2p import proto
+from parallax_tpu_torch.p2p import interop, proto
 from parallax_tpu_torch.p2p.transport import (
     NO_HANDLER_MARK,
     AsyncSender,
@@ -220,6 +230,7 @@ class WorkerNode:
         role: str | None = None,
         kv_transfer_chunk_bytes: int | None = None,
         scheduler_standby: list[str] | None = None,
+        resolve_model=None,
     ):
         """``scheduler_peer`` is the scheduler's RPC address; None enters
         SCHEDULER-LESS mode, where the worker self-assigns ``layers``.
@@ -230,10 +241,12 @@ class WorkerNode:
         last-stage worker the grammar vocabulary for json_schema rows.
         ``role`` is the phase specialization (prefill, decode or mixed, the
         default); ``kv_transfer_chunk_bytes`` the payload target of one
-        layer-chunked KV_TRANSFER frame (default 4 MiB). The JAX worker's
-        other arguments (mesh, refit cache, LoRA, watchdog, the model
-        resolver) wait for their items; ``join`` refuses their flags by
-        name."""
+        layer-chunked KV_TRANSFER frame (default 4 MiB).
+        ``resolve_model(name) -> (ModelConfig, load_params | None)`` serves
+        a live model switch (None refuses one; load_params None draws
+        seeded random weights). The JAX worker's other arguments (mesh,
+        refit cache, LoRA, watchdog) wait for their items; ``join`` refuses
+        their flags by name."""
         self.scheduler_peer = scheduler_peer
         self.standalone = scheduler_peer is None
         # Scheduler HA (docs/ha.md): every scheduler RPC routes through a
@@ -272,6 +285,7 @@ class WorkerNode:
         self.heartbeat_interval_s = heartbeat_interval_s
         self.static_peers = list(static_peers or [])
         self.device = device
+        self.resolve_model = resolve_model
         self._self_layers = layers
         self.tokenizer_path = tokenizer_path
         # (vocab bytes, eos id) for grammar-constrained decoding, built
@@ -303,8 +317,8 @@ class WorkerNode:
         # Engine reload in progress: rides heartbeats so the scheduler's
         # sweep extends this node's grace while it loads.
         self._busy_reloading = False
-        # The model name of the first allocation (a later one naming
-        # another model is a model switch: item 4c).
+        # The model name the allocations name (another one is a live
+        # model switch).
         self._served_model_name: str | None = None
         # detect_hardware()'s summary, read by the first join.
         self._hardware: dict | None = None
@@ -502,22 +516,13 @@ class WorkerNode:
         the old engine's requests abort ("node reallocated") and its KV
         and weights are dropped before the new stage loads, so two
         workers on one card never hold both."""
-        model_name = alloc.get("model_name")
-        if model_name:
-            if self._served_model_name is None:
-                # The first allocation's name is recorded, not compared:
-                # scheduler and worker may spell the same model
-                # differently.
-                self._served_model_name = model_name
-            elif model_name != self._served_model_name:
-                raise unported(f"a live model switch to {model_name!r}",
-                               "4c")
+        model_switched = self._maybe_switch_model(alloc.get("model_name"))
         want_digests = bool(alloc.get("want_digests"))
         digests_switched = want_digests != self.engine_config.cache_digests
         if digests_switched:
             self.engine_config.cache_digests = want_digests
         start, end = alloc["start_layer"], alloc["end_layer"]
-        if not digests_switched and (start, end) == (
+        if not digests_switched and not model_switched and (start, end) == (
             self.start_layer, self.end_layer
         ):
             return
@@ -555,6 +560,39 @@ class WorkerNode:
         logger.info("%s: layers [%d, %d) ready on %s (%.2f s to load and "
                     "build)", self.node_id, start, end, self.engine.device,
                     time.monotonic() - t0)
+
+    def _maybe_switch_model(self, model_name: str | None) -> bool:
+        """A live model switch (``/scheduler/init``): the allocation names
+        another model than the one served, so its config and weights come
+        from ``resolve_model``; True when they did. The first allocation's
+        name is recorded, not compared: scheduler and worker may spell the
+        same model differently (a preset key, a checkpoint path)."""
+        if not model_name:
+            return False
+        if self._served_model_name is None or (
+            model_name == self._served_model_name
+        ):
+            self._served_model_name = model_name
+            return False
+        if self.resolve_model is None:
+            raise RuntimeError(
+                f"scheduler switched to {model_name!r} but this worker has "
+                f"only {self.model_config.model_name!r} locally (no "
+                "resolver); restart the worker with the new --model-path")
+        config, load_params = self.resolve_model(model_name)
+        # The new name is recorded only after the resolve succeeded: a
+        # failed switch retries on a later allocation instead of serving
+        # the old model under the new name.
+        self._served_model_name = model_name
+        logger.warning("%s: switching model %s -> %s", self.node_id,
+                       self.model_config.model_name, model_name)
+        self.model_config = config
+        self.load_params = load_params or self._random_params
+        # The new model's tokenizer differs: the grammar vocabulary is
+        # built again from the new checkpoint (a preset has none).
+        self._grammar_vocab = None
+        self.tokenizer_path = model_name if os.path.isdir(model_name) else None
+        return True
 
     def _wire_grammar(self) -> None:
         """Enable json_schema enforcement on a last-stage worker: build the
@@ -652,6 +690,14 @@ class WorkerNode:
                     # are discarded here (the request recovers through the
                     # source's result timeout or the client resume ladder).
                     self._kv_assembler.sweep()
+                    if self.node_id.startswith("relay:") and hasattr(
+                        self.transport, "register_at_relay"
+                    ):
+                        # Refresh the reverse route every beat: idempotent,
+                        # and it restores the route after a dropped relay
+                        # connection with no liveness logic of its own.
+                        self.transport.register_at_relay(
+                            self.node_id.rsplit("@", 1)[1])
                     self._heartbeat()
                 self._reap_rx_stats()
             except Exception as e:
@@ -720,9 +766,14 @@ class WorkerNode:
                 self._post(("reload", rejoin_alloc))
         elif reply.get("start_layer") is not None:
             want_digests = bool(reply.get("want_digests"))
+            served = self._served_model_name
             if (reply["start_layer"], reply["end_layer"]) != (
                 self.start_layer, self.end_layer
-            ) or want_digests != self.engine_config.cache_digests:
+            ) or want_digests != self.engine_config.cache_digests or (
+                # A model switch whose resolve failed: try it again.
+                served is not None
+                and reply.get("model_name") not in (None, served)
+            ):
                 # The scheduler moved us: reload on the step thread.
                 self._post(("reload", reply))
 
@@ -1055,7 +1106,10 @@ class WorkerNode:
         self._post(("abort_path", peer))
 
     def _count_rx(self, peer: str, wire_req: dict) -> None:
-        nbytes = proto.tensor_nbytes(wire_req.get("hidden_states"))
+        self._count_rx_bytes(
+            peer, proto.tensor_nbytes(wire_req.get("hidden_states")))
+
+    def _count_rx_bytes(self, peer: str, nbytes: int) -> None:
         with self._rx_lock:
             rx = self._rx_stats.setdefault(
                 peer or "?", {"frames_in": 0, "bytes_in": 0}
@@ -1092,7 +1146,15 @@ class WorkerNode:
 
     def _on_forward(self, peer: str, payload):
         if isinstance(payload, (bytes, bytearray)):
-            raise unported("protobuf FORWARD frames (p2p/interop.py)", "4c")
+            # A reference-protocol peer: a raw protobuf ForwardRequest,
+            # counted whole-frame.
+            ireqs = interop.forward_bytes_to_ireqs(payload)
+            if any(i.lora_id is not None for i in ireqs):
+                raise unported("LoRA packets", 11)
+            self._count_rx_bytes(peer, len(payload))
+            for ireq in ireqs:
+                self._post(("forward", ireq))
+            return "ok"
         for wire_req in payload["reqs"]:
             _refuse_wire_request(wire_req)
         for wire_req in payload["reqs"]:
@@ -1101,9 +1163,10 @@ class WorkerNode:
         return "ok"
 
     def _on_abort(self, _peer: str, payload):
-        if isinstance(payload, (bytes, bytearray)):
-            raise unported("protobuf ABORT frames (p2p/interop.py)", "4c")
-        for rid in payload["rids"]:
+        rids = (interop.abort_bytes_to_rids(payload)
+                if isinstance(payload, (bytes, bytearray))
+                else payload["rids"])
+        for rid in rids:
             self._post(("release", rid, True))
         return "ok"
 

@@ -16,17 +16,28 @@ Both expose the same synchronous facade (the engine loop is a thread):
 thread: one bounded FIFO and drain thread per peer.
 
 The frames are the JAX package's, so a port node and a JAX node talk to
-each other. Not ported yet: the relay mode for NAT'd workers (it needs a
-scheduler as the relay: ROADMAP queue 1 item 4c; a relay envelope gets the
-"no handler" error reply) and the conformance sanitizer's frame hooks
-(item 14). The transport's threads touch no CUDA tensor: frames carry CPU
-tensors only.
+each other, through a relay too. NAT traversal is the **relay mode**, as
+in the JAX transport: a worker that accepts no inbound dials keeps one
+outbound connection to a relay (normally the scheduler's transport),
+registers its identity over it (:meth:`TcpTransport.register_at_relay`,
+with the swarm's ``relay_token`` where the relay sets one) and goes by
+the address ``relay:<id>@<relay host:port>``. A peer sending to such an
+address wraps its frame in a ``__relay__`` envelope to the relay, which
+passes it down the worker's reverse connection as ``__relayed__`` (or
+delivers it itself, or dials a plain ``host:port`` addressee out);
+replies ride the same path back. The relay never decodes the inner
+frame. :meth:`TcpTransport.transport_stats` counts the envelopes and
+bytes it routed, its registrations, and the dials and inbound
+connections of the transport. Not ported: the conformance sanitizer's
+frame hooks (item 14). The transport's threads touch no CUDA tensor:
+frames carry CPU tensors only.
 """
 
 from __future__ import annotations
 
 import asyncio
 import queue as _queue
+import socket
 import struct
 import threading
 import time
@@ -116,15 +127,22 @@ class LoopbackTransport(Transport):
 class TcpTransport(Transport):
     """Asyncio TCP transport with a background event-loop thread.
 
-    Peers are addressed as ``"host:port"`` strings. Every frame is
+    Peers are addressed as ``"host:port"`` strings, or
+    ``"relay:<id>@<host:port>"`` for a worker behind a relay. Every frame is
     ``[u32 length][msgpack bytes]``; requests carry a msg id, replies echo
-    it in ``re``.
+    it in ``re``. ``relay_token`` is the swarm's secret for relay
+    registration: as the relay, every registration must present it; as a
+    NAT'd worker, :meth:`register_at_relay` presents it. None disables
+    the token check (the identity binding to the connection's
+    ``__hello__`` still applies).
     """
 
-    def __init__(self, peer_id: str, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, peer_id: str, host: str = "127.0.0.1", port: int = 0,
+                 relay_token: str | None = None):
         super().__init__(peer_id)
         self.host = host
         self.port = port
+        self.relay_token = relay_token
         # Dedicated handler pool: a blocking handler must not starve
         # announcements or data frames.
         self._executor = ThreadPoolExecutor(
@@ -149,6 +167,22 @@ class TcpTransport(Transport):
         # Writers of inbound connections, so stop() can close them and let
         # their read loops exit instead of being destroyed mid-await.
         self._server_writers: set[asyncio.StreamWriter] = set()
+        # Relay role: relay-registered worker id -> reverse-connection
+        # writer.
+        self._relay_routes: dict[str, asyncio.StreamWriter] = {}
+        # Relayed one-way frames this transport delivers to itself run in
+        # arrival order under this lock (a connection's own lock otherwise).
+        self._self_order: asyncio.Lock | None = None
+        self._local_ips: set[str] | None = None
+        # Telemetry (transport_stats): dials per peer, inbound connections,
+        # and as the relay, envelopes and inner bytes routed per addressee
+        # plus the registrations taken and refused.
+        self._stats_lock = make_lock("transport.stats")
+        self._dials: dict[str, int] = {}
+        self._accepted = 0
+        self._relay_routed: dict[str, list[int]] = {}
+        self._relay_registrations = 0
+        self._relay_rejected = 0
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -203,6 +237,7 @@ class TcpTransport(Transport):
             for writer in list(self._server_writers):
                 writer.close()
             self._server_writers.clear()
+            self._relay_routes.clear()
             current = asyncio.current_task()
             tasks = [t for t in asyncio.all_tasks() if t is not current]
             for t in tasks:
@@ -254,6 +289,8 @@ class TcpTransport(Transport):
     ) -> None:
         peer_name = "?"
         self._server_writers.add(writer)
+        with self._stats_lock:
+            self._accepted += 1
         in_order = asyncio.Lock()
         try:
             while True:
@@ -262,6 +299,9 @@ class TcpTransport(Transport):
                     break
                 if frame["t"] == "__hello__":
                     peer_name = frame["p"]
+                    continue
+                if self._handle_relay_frame(frame, peer_name, writer,
+                                            in_order):
                     continue
                 if frame.get("re") is not None:
                     fut = self._pending.pop(frame["re"], None)
@@ -272,8 +312,156 @@ class TcpTransport(Transport):
                     self._handle_request(frame, peer_name, writer, in_order)
                 )
         finally:
+            # Runs even when a malformed frame ends the read loop: a dead
+            # reverse route would black-hole relayed frames until the
+            # worker's next registration, and churning workers would grow
+            # the map.
+            for rid, w in list(self._relay_routes.items()):
+                if w is writer:
+                    self._relay_routes.pop(rid, None)
             self._server_writers.discard(writer)
             writer.close()
+
+    # -- relay protocol ----------------------------------------------------
+
+    def _handle_relay_frame(self, frame, peer_name, writer,
+                            in_order: asyncio.Lock) -> bool:
+        """Transport-level relay frames; True when consumed."""
+        t = frame["t"]
+        if t == "__relay_register__":
+            self._register_route(frame["p"], peer_name, writer)
+            return True
+        if t == "__relay__":
+            # Off the read loop: routing can wait on the addressee's
+            # backpressure or a dial-out, which must not stall the
+            # sender's own frames.
+            asyncio.ensure_future(self._route_envelope(frame["p"]))
+            return True
+        if t == "__relayed__":
+            env = frame["p"]
+            asyncio.ensure_future(self._deliver_relayed(
+                env["from"], env["data"], writer, in_order))
+            return True
+        return False
+
+    def _register_route(self, p, peer_name: str, writer) -> None:
+        if isinstance(p, dict):
+            rid, token = p.get("id"), p.get("token")
+        else:   # a bare-id registration (older builds)
+            rid, token = p, None
+        # Identity binding: a registration may only claim the id its
+        # connection introduced itself with (__hello__).
+        if rid != peer_name:
+            logger.warning("relay: REJECTED registration for %s from a "
+                           "connection hello'd as %s (identity mismatch)",
+                           rid, peer_name)
+            with self._stats_lock:
+                self._relay_rejected += 1
+            return
+        if self.relay_token is not None and token != self.relay_token:
+            logger.warning("relay: REJECTED registration for %s (bad or "
+                           "missing relay token)", rid)
+            with self._stats_lock:
+                self._relay_rejected += 1
+            return
+        prev = self._relay_routes.get(rid)
+        if prev is not None and prev is not writer and not prev.is_closing():
+            # A live route replaced by another connection: a reconnect whose
+            # old socket died half-open (a NAT rebind the relay never saw a
+            # FIN for) or, without a token, an id-faking hijack; the two
+            # look the same here. Availability first: replace the route and
+            # close the stale socket. --relay-token authenticates.
+            logger.warning(
+                "relay: reverse route for %s replaced by another live "
+                "connection (%s)", rid,
+                "authenticated reconnect" if self.relay_token is not None
+                else "reconnect or HIJACK: set --relay-token to "
+                     "authenticate registrations")
+            prev.close()
+        self._relay_routes[rid] = writer
+        with self._stats_lock:
+            self._relay_registrations += 1
+        # Heartbeat refreshes are routine; only a new route is news.
+        logger.log(20 if prev is None else 10,
+                   "relay: registered reverse route for %s", rid)
+
+    def _count_routed(self, to: str, env: dict) -> None:
+        with self._stats_lock:
+            c = self._relay_routed.setdefault(to, [0, 0])
+            c[0] += 1
+            c[1] += len(env["data"])
+
+    async def _route_envelope(self, env: dict) -> bool:
+        """Pass one envelope on: to this transport itself, down a
+        registered reverse route, or out to a plain ``host:port``
+        addressee. False when there is no route (the envelope is
+        dropped)."""
+        to = env["to"]
+        if to == self.peer_id:
+            # Terminal hop: the relay is the addressee.
+            self._count_routed(to, env)
+            if self._self_order is None:
+                self._self_order = asyncio.Lock()
+            await self._deliver_relayed(env["from"], env["data"], None,
+                                        self._self_order)
+            return True
+        route = self._relay_routes.get(to)
+        if route is not None and not route.is_closing():
+            self._count_routed(to, env)
+            self._write_frame(route, encode_frame("__relayed__", env))
+            try:
+                await route.drain()
+            except ConnectionError:
+                self._relay_routes.pop(to, None)
+            return True
+        if ":" in to and not to.startswith("relay:"):
+            # A dialable peer (a direct worker answering a NAT'd one).
+            try:
+                await self._send_async(to, encode_frame("__relayed__", env))
+                self._count_routed(to, env)
+                return True
+            except OSError as e:
+                logger.warning("relay: dial-out to %s failed: %s", to, e)
+        logger.warning("relay: no route to %s", to)
+        return False
+
+    async def _deliver_relayed(self, from_peer: str, data: bytes,
+                               reply_writer, in_order: asyncio.Lock) -> None:
+        """A relayed end-to-end frame reached its addressee. One-way
+        frames run in arrival order, as a direct connection's do."""
+        inner = decode_frame(data)
+        if inner.get("re") is not None:
+            fut = self._pending.pop(inner["re"], None)
+            if fut is not None and not fut.done():
+                fut.set_result(inner["p"])
+            return
+        try:
+            if inner["id"]:
+                result = await self._loop.run_in_executor(
+                    self._executor, self._dispatch, inner["t"], from_peer,
+                    inner["p"])
+            else:
+                async with in_order:
+                    result = await self._loop.run_in_executor(
+                        self._executor, self._dispatch, inner["t"],
+                        from_peer, inner["p"])
+        except Exception as e:
+            logger.exception("relayed handler %s failed", inner["t"])
+            result = {"__error__": str(e)}
+        if not inner["id"]:
+            return
+        reply = encode_frame("__reply__", result, reply_to=inner["id"])
+        env = {"to": from_peer, "from": self.peer_id, "data": reply}
+        if reply_writer is not None and not reply_writer.is_closing():
+            # Back out the way the request came in.
+            self._write_frame(reply_writer,
+                              encode_frame("__relay__", env, msg_id=0))
+            try:
+                await reply_writer.drain()
+            except ConnectionError:
+                pass
+        else:
+            await self._route_envelope(env)
 
     async def _handle_request(self, frame, peer_name, writer,
                               in_order: asyncio.Lock) -> None:
@@ -326,6 +514,8 @@ class TcpTransport(Transport):
                 return conn
             host, port_s = peer.rsplit(":", 1)
             reader, writer = await asyncio.open_connection(host, int(port_s))
+            with self._stats_lock:
+                self._dials[peer] = self._dials.get(peer, 0) + 1
             self._write_frame(writer, encode_frame("__hello__", self.peer_id))
             await writer.drain()
             conn = (reader, writer, asyncio.Lock())
@@ -348,6 +538,8 @@ class TcpTransport(Transport):
                         fut.set_exception(ConnectionResetError(
                             f"{peer} closed the connection mid-call"))
                 return
+            if self._handle_relay_frame(frame, peer, writer, in_order):
+                continue
             if frame.get("re") is not None:
                 fut = self._pending.pop(frame["re"], None)
                 if fut is not None and not fut.done():
@@ -358,10 +550,59 @@ class TcpTransport(Transport):
                     self._handle_request(frame, peer, writer, in_order)
                 )
 
+    @staticmethod
+    def _parse_relay_addr(peer: str) -> tuple[str, str] | None:
+        """``relay:<id>@<host:port>`` -> (the full target id, the relay's
+        address); None for a plain address."""
+        if not peer.startswith("relay:") or "@" not in peer:
+            return None
+        return peer, peer.rsplit("@", 1)[1]
+
+    def _is_self_addr(self, addr: str) -> bool:
+        """Is ``addr`` one of this transport's own addresses? (The bind
+        address is often 0.0.0.0, never what peers dialed.)"""
+        host, _, port_s = addr.rpartition(":")
+        try:
+            if int(port_s) != self.port:
+                return False
+        except ValueError:
+            return False
+        if self.host not in ("0.0.0.0", "::"):
+            return host == self.host
+        if host in ("127.0.0.1", "localhost", "0.0.0.0"):
+            return True
+        if self._local_ips is None:
+            try:
+                self._local_ips = set(
+                    socket.gethostbyname_ex(socket.gethostname())[2])
+            except OSError:
+                self._local_ips = set()
+        return host in self._local_ips
+
+    async def _relay_target(self, peer: str,
+                            data: bytes) -> tuple[str, bytes] | None:
+        """Where ``data`` for ``peer`` goes: (the address to dial, the
+        bytes to write), the frame wrapped in a ``__relay__`` envelope for a
+        relayed peer; None once this transport routed it itself (it is
+        that peer's relay)."""
+        relayed = self._parse_relay_addr(peer)
+        if relayed is None:
+            return peer, data
+        target, relay_addr = relayed
+        env = {"to": target, "from": self.peer_id, "data": data}
+        if target in self._relay_routes or self._is_self_addr(relay_addr):
+            if not await self._route_envelope(env):
+                raise TransportError(f"relay: no route to {target}")
+            return None
+        return relay_addr, encode_frame("__relay__", env, msg_id=0)
+
     async def _send_async(self, peer: str, data: bytes) -> None:
-        reader, writer, lock = await self._get_conn(peer)
+        target = await self._relay_target(peer, data)
+        if target is None:
+            return
+        reader, writer, lock = await self._get_conn(target[0])
         async with lock:
-            self._write_frame(writer, data)
+            self._write_frame(writer, target[1])
             await writer.drain()
 
     async def _call_async(self, peer: str, method: str, payload, timeout):
@@ -371,19 +612,64 @@ class TcpTransport(Transport):
         self._pending[mid] = fut
         calls = None
         try:
-            conn = await self._get_conn(peer)
-            calls = self._conn_calls.setdefault(id(conn), set())
-            calls.add(mid)
-            _reader, writer, lock = conn
-            async with lock:
-                self._write_frame(writer, encode_frame(method, payload,
-                                                       msg_id=mid))
-                await writer.drain()
+            target = await self._relay_target(
+                peer, encode_frame(method, payload, msg_id=mid))
+            if target is not None:
+                # A relayed call's reply comes back over the relay's
+                # connection: its close fails the call too.
+                conn = await self._get_conn(target[0])
+                calls = self._conn_calls.setdefault(id(conn), set())
+                calls.add(mid)
+                _reader, writer, lock = conn
+                async with lock:
+                    self._write_frame(writer, target[1])
+                    await writer.drain()
             return await asyncio.wait_for(fut, timeout)
         finally:
             self._pending.pop(mid, None)
             if calls is not None:
                 calls.discard(mid)
+
+    # -- relay client --------------------------------------------------------
+
+    def register_at_relay(self, relay_addr: str) -> None:
+        """NAT'd worker: open or refresh the reverse route at
+        ``relay_addr``. Idempotent: call it again (every heartbeat) to
+        register anew after a dropped connection; the relay replaces the
+        route and closes the stale socket. Without a relay token any peer
+        can claim any id, so tokenless relay mode is for trusted networks
+        only."""
+
+        async def _register():
+            _, writer, lock = await self._get_conn(relay_addr)
+            async with lock:
+                self._write_frame(writer, encode_frame(
+                    "__relay_register__",
+                    {"id": self.peer_id, "token": self.relay_token},
+                    msg_id=0))
+                await writer.drain()
+
+        asyncio.run_coroutine_threadsafe(_register(), self._loop).result(10.0)
+
+    def transport_stats(self) -> dict:
+        """Dials per peer address, inbound connections accepted, and as a
+        relay: envelopes and inner-frame bytes routed per addressee (and in
+        all), reverse routes live, registrations taken and refused."""
+        with self._stats_lock:
+            routed = {to: {"envelopes": c[0], "bytes": c[1]}
+                      for to, c in self._relay_routed.items()}
+            return {
+                "dials": dict(self._dials),
+                "accepted": self._accepted,
+                "relay": {
+                    "routed": routed,
+                    "envelopes": sum(c["envelopes"] for c in routed.values()),
+                    "bytes": sum(c["bytes"] for c in routed.values()),
+                    "routes": len(self._relay_routes),
+                    "registrations": self._relay_registrations,
+                    "rejected": self._relay_rejected,
+                },
+            }
 
     # -- public sync facade --------------------------------------------------
 

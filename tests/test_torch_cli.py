@@ -133,14 +133,13 @@ def test_refused_flag_exits_2_from_both_entry_points(checkpoint):
     (["serve", "--lora-max-adapters", "2"], 11),
     (["serve", "--draft-model-path", "/x"], 7),
     (["serve", "--speculative-tokens", "4"], 7),
-    (["serve", "--wire-dtype", "fp8"], "4c"),
+    (["serve", "--wire-dtype", "fp8"], 11),
+    (["serve", "--wire-dtype", "float8_e4m3fn"], 11),
     (["serve", "--trace-sample-rate", "0.5"], 9),
     (["serve", "--watchdog"], 9),
     (["serve", "--slo", "ttft_p95_ms=500"], 9),
     (["serve", "--qos", "on"], 9),
     (["serve", "--compilation-cache-dir", "/x"], 12),
-    (["serve", "--start-layer", "1"], "4c"),
-    (["serve", "--end-layer", "1"], "4c"),
     (["generate", "--tp-size", "2"], 10),
     (["generate", "--quantization", "int4"], 11),
     (["generate", "--lora-path", "/x"], 11),
@@ -335,13 +334,19 @@ def test_load_tokenizer_matches_jax(tmp_path):
      "3"],
     ["join", "--scheduler-addr", "h:1", "--scheduler-standby", "h:2",
      "--model-path", "."],
+    ["run", "--model-name", "x", "--relay-token", "s3cret"],
+    ["join", "--scheduler-addr", "h:1", "--model-path", ".", "--relay",
+     "--relay-token", "s3cret"],
+    ["serve", "--model-path", ".", "--wire-dtype", "bf16"],
 ], ids=["run-defaults", "run-cache-aware", "join-defaults", "join-flags",
         "chat-defaults", "chat-flags", "run-scheduler-standby",
-        "run-standby-of", "join-scheduler-standby"])
+        "run-standby-of", "join-scheduler-standby", "run-relay-token",
+        "join-relay", "serve-wire-dtype"])
 def test_run_join_chat_parse_as_the_jax_cli(argv):
-    """``run``, ``join --scheduler-addr`` and ``chat`` take the JAX CLI's
-    flags with its defaults (the port adds ``--host`` and ``--device``),
-    and nothing of these is refused — the scheduler HA flags included."""
+    """``run``, ``join --scheduler-addr``, ``chat`` and ``serve`` take the
+    JAX CLI's flags with its defaults (the port adds ``--host`` and
+    ``--device``), and nothing of these is refused: the scheduler HA
+    flags, the relay flags and ``serve --wire-dtype bf16`` included."""
     from parallax_tpu import cli as jcli
 
     want = vars(jcli.build_parser().parse_args(argv))
@@ -356,7 +361,6 @@ def test_run_join_chat_parse_as_the_jax_cli(argv):
     (["--routing-gamma", "0.5"], 9),
     (["--slo", "ttft_p95_ms=500"], 9),
     (["--qos", "on"], 9),
-    (["--relay-token", "s"], "4c"),
 ])
 def test_refused_run_flags_exit_2(capsys, argv, item):
     assert cli.main(["run", "--model-name", "qwen2.5-7b", *argv]) == 2
@@ -430,3 +434,127 @@ def test_run_scheduler_standby_and_standby_of_serve_ha():
                 f.shutdown()
         for t in threads:
             t.join(30.0)
+
+
+@pytest.mark.parametrize("flags", [["--start-layer", "1"],
+                                   ["--end-layer", "1"]],
+                         ids=["start-layer", "end-layer"])
+def test_partial_serve_fails_with_the_jax_limit(checkpoint, flags):
+    """A partial layer range cannot serve on one host in the JAX package
+    either: its InProcessPipeline asserts that the engines hold the first
+    and the last layer. The port's serve stops with that reason before it
+    loads anything."""
+    from parallax_tpu.runtime.engine import EngineConfig as JEngineConfig
+    from parallax_tpu.runtime.engine import StageEngine as JStageEngine
+    from parallax_tpu.runtime.pipeline import InProcessPipeline as JPipeline
+
+    args = cli.build_parser().parse_args(
+        ["serve", "--model-path", checkpoint, "--device", "cpu", *flags])
+    assert cli.unported_flags(args) == []
+    with pytest.raises(SystemExit, match="first and the last stage"):
+        serve_main(args)
+    s, e = (1, 2) if flags[0] == "--start-layer" else (0, 1)
+    model = JStageModel(j_normalize(TINY), s, e, use_pallas=False)
+    engine = JStageEngine(model, model.init_params(jax.random.key(0),
+                                                   dtype=jnp.float32),
+                          JEngineConfig(page_size=8, num_pages=8,
+                                        max_model_len=32,
+                                        kv_dtype="float32"))
+    with pytest.raises(AssertionError):
+        JPipeline([engine])
+
+
+def test_serve_wire_dtype_reaches_the_engine_config(checkpoint):
+    """``serve --wire-dtype bf16`` is carried into EngineConfig.wire_dtype,
+    as the JAX serve does (one host has no hop: nothing else changes)."""
+    args = cli.build_parser().parse_args([
+        "serve", "--model-path", checkpoint, "--device", "cpu",
+        "--host", "127.0.0.1", "--port", "0", "--page-size", "8",
+        "--max-batch-size", "4", "--max-model-len", "256",
+        "--kv-dtype", "float32", "--wire-dtype", "bf16",
+    ])
+    assert cli.unported_flags(args) == []
+    box, started = [], threading.Event()
+    thread = threading.Thread(
+        target=serve_main,
+        args=(args, lambda fe, runner: (box.append((fe, runner)),
+                                        started.set())),
+        daemon=True)
+    thread.start()
+    assert started.wait(60)
+    frontend, runner = box[0]
+    try:
+        assert runner.pipeline.head.cfg.wire_dtype == "bf16"
+        status, body = _post_json(frontend.port, "/v1/completions",
+                                  {"prompt": "hi", "max_tokens": 3,
+                                   "temperature": 0})
+        assert status == 200 and body["usage"]["completion_tokens"] == 3
+    finally:
+        frontend.shutdown()
+        thread.join(30)
+    assert not thread.is_alive()
+
+
+def _post_json(port, path, body):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def test_run_relay_token_and_join_relay_serve(checkpoint):
+    """``run --relay-token`` puts the secret on the scheduler's transport
+    (the relay); ``join --relay --relay-token --device cpu`` builds a
+    worker behind it that registers its reverse route and joins; a wrong
+    token is refused; ``join --relay`` without a scheduler exits as the
+    JAX join does."""
+    from parallax_tpu_torch.p2p.join import build_worker
+    from tests.test_torch_swarm import _wait
+
+    server, fe, svc = _run_on_thread(
+        ["run", "--model-name", checkpoint, "--port", "0", "--host",
+         "127.0.0.1", "--relay-token", "s3cret"])
+    node = None
+    try:
+        relay = svc.transport
+        assert relay.relay_token == "s3cret"
+        base = ["join", "--scheduler-addr", relay.address, "--model-path",
+                checkpoint, "--device", "cpu", "--port", "0", "--relay"]
+        bad = build_worker(cli.build_parser().parse_args(
+            base + ["--relay-token", "wrong"]))
+        assert _wait(lambda: relay.transport_stats()["relay"]["rejected"]
+                     >= 1, 10.0)
+        assert bad.node_id not in relay._relay_routes
+        bad.transport.stop()
+        args = cli.build_parser().parse_args(base + ["--relay-token",
+                                                     "s3cret"])
+        assert cli.unported_flags(args) == []
+        node = build_worker(args)
+        assert node.node_id.startswith("relay:")
+        assert node.node_id.endswith("@" + relay.address)
+        assert node.resolve_model is not None
+        assert _wait(lambda: node.node_id in relay._relay_routes, 10.0)
+        node.start()
+        assert _wait(lambda: node.engine is not None and any(
+            n["ready"] for p in svc.scheduler.cluster_status()["pipelines"]
+            for n in p["nodes"]), 30.0)
+        status, body = _post_json(fe.port, "/v1/completions",
+                                  {"prompt": "hi", "max_tokens": 3,
+                                   "temperature": 0})
+        assert status == 200 and body["usage"]["completion_tokens"] == 3
+        assert node.transport.transport_stats()["accepted"] == 0
+        assert relay.transport_stats()["relay"]["routed"][
+            node.node_id]["envelopes"] > 0
+    finally:
+        if node is not None:
+            node.stop()
+        fe.shutdown()
+        server.join(30.0)
+    with pytest.raises(SystemExit, match="requires a scheduler"):
+        build_worker(cli.build_parser().parse_args(
+            ["join", "--model-path", checkpoint, "--device", "cpu",
+             "--relay", "--start-layer", "0", "--end-layer", "2"]))

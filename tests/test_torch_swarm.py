@@ -410,8 +410,14 @@ def test_chat_host_fronts_port_swarm():
             assert status == 200, body
             assert body["usage"]["completion_tokens"] == 6
             assert body["choices"][0]["finish_reason"] == "length"
-            status, body = _post(frontend.port, "/chat", None, "GET")
-            assert status == 501 and "item 4c)" in body["error"]["message"]
+            # The chat page (the JAX frontend's bytes).
+            conn = http.client.HTTPConnection("127.0.0.1", frontend.port,
+                                              timeout=DEADLINE_S)
+            conn.request("GET", "/chat")
+            resp = conn.getresponse()
+            page = resp.read().decode()
+            conn.close()
+            assert resp.status == 200 and "parallax-tpu chat" in page
     finally:
         if frontend is not None and frontend.server is not None:
             frontend.shutdown()
@@ -453,8 +459,6 @@ def test_chat_host_answers_503_without_a_route():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--relay"], "4c"),
-    (["--relay-token", "s"], "4c"),
     (["--refit-cache-dir", "/x"], 12),
     (["--compilation-cache-dir", "/x"], 12),
     (["--lora-adapters", "a=/x"], 11),
@@ -488,10 +492,10 @@ _PACKET = {"rid": "q", "ctx": 3}
     (proto.FORWARD, {"reqs": [dict(_PACKET, qos="batch")]}, 9),
     (proto.FORWARD, {"reqs": [dict(_PACKET, lora_id="a")]}, 11),
     (proto.FORWARD, {"reqs": [dict(_PACKET, spec_len=2)]}, 7),
-    (proto.FORWARD, b"\x0a\x00", "4c"),
+    (proto.FORWARD, b"\x12\x0b\x0a\x01q\x42\x06tenant", 11),
     (proto.PROFILE, {}, 9),
 ], ids=["qos_class", "deadline_ms", "tenant", "qos-packet",
-        "lora-packet", "spec-packet", "protobuf", "profile"])
+        "lora-packet", "spec-packet", "protobuf-lora", "profile"])
 def test_refused_rpcs_name_their_items(method, payload, item):
     """A worker refuses, by name and ROADMAP item, every RPC field it does
     not run; it accepts none of them to ignore it. Nothing reaches the
