@@ -85,6 +85,35 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. profile     the serve phase once more under torch.profiler, with the
                engine's defaults and with K1_SYNC: device time by kernel
                group and the device's busy share of the wall.
+6.1 native    the native C++ cache manager on the same tree: the mix
+               with the defaults on the native manager (asked for
+               explicitly: a host that cannot build the library fails)
+               and on the Python one, streams bitwise equal, the same
+               prefix hits, launches exact; host us per admit / grow /
+               release and host ms per step for both; the mix twice more
+               on 48 pages (max batch 3) so the tree evicts, both
+               managers, streams equal; and the host-only benchmark of
+               the JAX package's 3-16x claim (no device).
+6.2 spec_serve speculative decoding on the same tree: the mix plus two
+               prompts of a repeated 64-token span, with speculation off
+               and (a) n-gram P = 4 with the defaults (speculative K = 8
+               windows from CUDA graphs, the verify forward A0 + A1 over
+               S x 5 tokens), (b) the K = 1 sync fallback beside K1_SYNC
+               off, (c) a draft that is the served tree (its tensors
+               shared) and (d) its first 4 layers. Launches exact (the
+               draft engine's own added), greedy rows within GREEDY_TOL of
+               the plain path, each row equal to the spec-off run's or
+               parting from it only at a near-tie, (c) at least 90% of its
+               greedy rows' proposals accepted and every draft proposal
+               off the committed stream at a gap under GREEDY_TOL. Per
+               request acceptance, tokens a verify forward, decode tok/s
+               and TTFT against spec off, the draft's share of the wall.
+6.3 pp_spec    pipeline speculation over a 14 + 14 pipeline: spec_serve's
+               requests with speculation off, n-gram P = 4 and the
+               4-layer draft on the head; launches exact per stage, greedy
+               within GREEDY_TOL, and the packets carrying ``spec_len``
+               down and ``spec_accepted`` back counted (the draft run must
+               send both).
 6b. features_serve  sampling features on the same Qwen2.5-7B tree (its
                own, made the same way, when run alone): serve's 8 prompts,
                48 new tokens each, one feature set a row (r0 / r1 the
@@ -2334,13 +2363,16 @@ def engine_config(fused: bool, max_model_len: int = 1024, **over):
 
 def serve(torch, bounds, params, cfg, dev, fused: bool, long_prompt: int = 0,
           max_model_len: int = 1024, model_kw=None, engine_kw=None,
-          cuda_graphs=None, requests=None):
+          cuda_graphs=None, requests=None, use_native=None, draft=None,
+          on_engines=None):
     """Serve the request mix: a single stage through the one-in-flight
     ``drive_step`` loop, a pipeline through ``step_round``. ``engine_kw``
     overrides the engine config (e.g. ``K1_SYNC``); ``cuda_graphs`` is the
     engine's switch (None = on, on the card). ``requests`` = (requests,
     sampled) serves another mix, with the byte tokenizer's grammar
-    vocabulary wired into the last stage."""
+    vocabulary wired into the last stage. ``use_native`` picks the cache
+    manager, ``draft`` (a DraftProposer) goes to the head, and
+    ``on_engines(engines)`` runs before the first submit."""
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.runtime.engine import StageEngine, drive_step
     from parallax_tpu_torch.runtime.pipeline import InProcessPipeline
@@ -2358,8 +2390,11 @@ def serve(torch, bounds, params, cfg, dev, fused: bool, long_prompt: int = 0,
         engines.append(StageEngine(
             create_stage_model(cfg, s, e, **(model_kw or {})), p,
             engine_config(fused, max_model_len, **(engine_kw or {})),
-            device=dev, cuda_graphs=cuda_graphs))
+            device=dev, cuda_graphs=cuda_graphs, use_native=use_native,
+            draft=draft if s == 0 else None))
     pipe = InProcessPipeline(engines)
+    if on_engines is not None:
+        on_engines(engines)
     if requests is None:
         reqs, sampled = make_requests(cfg.vocab_size, long_prompt)
     else:
@@ -2469,12 +2504,14 @@ def greedy_check(torch, model_full, params, reqs, sampled, dev,
 
 def forward_steps(summary) -> tuple[int, int]:
     """A run's forward steps from the engine's dispatch counts: (decode
-    steps, the single ones and the decode windows' m * k each, prefill
-    steps)."""
+    steps, the single ones and the decode windows' m * k each, multi-token
+    steps: prefill and the speculative verify forwards, those of the
+    speculative windows' m * k and of the K = 1 fallback)."""
     totals = summary["dispatch_total"]
     decode = sum(totals.get(f"{summary['impl']}/{path}", 0)
                  for path in ("decode", "multistep"))
-    return decode, totals.get(f"{summary['prefill_impl']}/prefill", 0)
+    return decode, sum(totals.get(f"{summary['prefill_impl']}/{path}", 0)
+                       for path in ("prefill", "spec", "spec_verify"))
 
 
 def sampler_launches(summary) -> dict:
@@ -7235,6 +7272,628 @@ def run_minimax(torch, dev, card: str, want) -> dict:
 
 
 # The run whose launches each kernel's entry in the kernels line reports.
+# ---------------------------------------------------------------------------
+# The native cache manager and speculative decoding (native, spec_serve,
+# pp_spec) on the Qwen2.5-7B tree.
+
+
+def _host_us(log) -> dict:
+    """Calls and median / mean host microseconds of a ``_timed`` log."""
+    ts = [t * 1e6 for t, _ in log]
+    return {"calls": len(ts),
+            "median_us": statistics.median(ts) if ts else None,
+            "mean_us": statistics.fmean(ts) if ts else None}
+
+
+def _time_manager(engines) -> dict:
+    """Wrap the head's cache manager (admit / grow / release) and the
+    engine's step (dispatch / resolve) with host timers."""
+    eng = engines[0]
+    logs = {k: [] for k in ("admit", "grow", "release", "dispatch",
+                            "resolve")}
+    for name, key in (("allocate_for_prompt", "admit"),
+                      ("ensure_capacity", "grow"), ("release", "release")):
+        _timed(eng.cache, name, logs[key])
+    _timed(eng, "dispatch", logs["dispatch"])
+    _timed(eng, "resolve", logs["resolve"])
+    return logs
+
+
+def _manager_figures(logs) -> dict:
+    """Host us per manager call; host ms per step (dispatch plus resolve
+    seconds over dispatches: an overlapped resolve's wait for the card
+    counts)."""
+    steps = len(logs["dispatch"])
+    host = sum(t for t, _ in logs["dispatch"] + logs["resolve"])
+    dispatch = sum(t for t, _ in logs["dispatch"])
+    return {**{k: _host_us(logs[k]) for k in ("admit", "grow", "release")},
+            "host_ms_per_step": host / steps * 1e3 if steps else None,
+            "dispatch_ms_per_step": dispatch / steps * 1e3 if steps else None,
+            "steps": steps}
+
+
+def manager_host_bench(iters: int = 60) -> dict:
+    """Host seconds of admit + grow + release through each manager with no
+    device, in the regime of the JAX package's claim
+    (``tests/test_native_cache.py::test_native_manager_faster_than_python``:
+    8 prompts of 1,024 ids over a 5-id alphabet, page 16, 260 pages, so the
+    tree is full and every admission evicts)."""
+    from parallax_tpu_torch.native import NativeCacheManager
+    from parallax_tpu_torch.runtime.cache_manager import CacheManager
+    from parallax_tpu_torch.runtime.request import (
+        Request,
+        RequestStatus,
+        SamplingParams,
+    )
+
+    rng = random.Random(2)
+    prompts = [[rng.randrange(5) for _ in range(1024)] for _ in range(8)]
+
+    def run(cm, n):
+        t0 = time.perf_counter()
+        for i in range(n):
+            req = Request(f"b{i}", prompt_ids=list(prompts[i % 8]),
+                          sampling_params=SamplingParams())
+            if not cm.allocate_for_prompt(req):
+                continue
+            req.num_computed_tokens = req.num_prompt_tokens
+            req.output_ids = [1]
+            cm.ensure_capacity(req, req.total_len)
+            req.status = RequestStatus.FINISHED_EOS
+            cm.release(req)
+        return time.perf_counter() - t0
+
+    kw = dict(page_size=16, num_pages=260)
+    run(NativeCacheManager(**kw), 10)
+    out = {}
+    for name, cls in (("python", CacheManager),
+                      ("native", NativeCacheManager)):
+        out[name + "_ms"] = min(run(cls(**kw), iters) for _ in range(3)) * 1e3
+    out["python_over_native"] = out["python_ms"] / out["native_ms"]
+    out["iterations"] = iters
+    return out
+
+
+# The eviction round's pool: 48 pages of 64 positions hold about four of the
+# mix's contexts, so donated prefixes are evicted as the round goes on.
+NATIVE_PRESSURE_PAGES = 48
+
+
+def phase_native(torch, dev, card, cfg, model_full, params):
+    """The native C++ cache manager on Qwen2.5-7B: serve's mix with the
+    engine's defaults on the native manager (asked for explicitly: a card
+    whose host cannot build the library fails here) and on the Python one,
+    in turns (native, Python, Python, native: the first run of the phase
+    pays the process's warm-up). Streams bitwise equal, the same sharer
+    hit, launches exact. Host us per admit / grow / release and host ms
+    per step, each run; then the mix twice on 48 pages (max batch 3), so
+    the tree evicts, both managers; and the host-only benchmark of the JAX
+    package's claim."""
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    n = cfg.num_hidden_layers
+    out = {}
+    for pages, batch, label in ((192, 7, "serve"),
+                                (NATIVE_PRESSURE_PAGES, 3, "evicting")):
+        runs = {}
+        order = ((True, False, False, True) if label == "serve"
+                 else (True, False))
+        for turn, native in enumerate(order):
+            box = {}
+            ck.reset_launches()
+            reqs, sampled, engines, t0, t1 = serve(
+                torch, [(0, n)], params, cfg, dev, fused=True,
+                use_native=native,
+                engine_kw=dict(num_pages=pages, max_batch_size=batch),
+                on_engines=lambda e: box.update(logs=_time_manager(e)))
+            launches = ck.launches()
+            name = type(engines[0].cache).__name__
+            want_name = "NativeCacheManager" if native else "CacheManager"
+            if name != want_name:
+                raise AssertionError(f"native {label}: {name} served, "
+                                     f"{want_name} asked for")
+            for r in reqs:
+                if (r.status.value != "finished_length"
+                        or len(r.output_ids) != 32):
+                    raise AssertionError(f"native {label} {r.request_id}: "
+                                         f"{r.status.value}")
+            summary = engines[0].kernel_dispatch_summary()
+            check_launches("native", f"{label}/{want_name}", launches,
+                           gqa_expected("fused", summary, n), summary)
+            # The pressure round: the mix once more on the warm tree.
+            second = None
+            if label == "evicting":
+                again, _ = make_requests(cfg.vocab_size)
+                for r in again:
+                    r.request_id += "b"
+                tb = time.monotonic()
+                for r in again:
+                    r.arrival_time = tb
+                    engines[0].submit(r)
+                _drain(engines[0])
+                second = {"hit_tokens": sum(r.num_cached_tokens
+                                            for r in again),
+                          "wall_s": time.monotonic() - tb}
+                reqs = reqs + again
+            if want_name in runs and [r.output_ids for r in reqs] != [
+                    r.output_ids for r in runs[want_name]]:
+                raise AssertionError(f"native {label}: {want_name}'s two "
+                                     "runs differ")
+            runs[want_name] = reqs
+            fig = {"manager": want_name, "turn": turn,
+                   **_manager_figures(box["logs"]),
+                   "sharer_cached_tokens": reqs[7].num_cached_tokens,
+                   "cache": engines[0].cache_stats(),
+                   "second_round": second, **stream_metrics(
+                       reqs[:8], t0, t1)}
+            emit({"phase": "native", "run": label, **fig, "card": card})
+            out[f"{label}/{want_name}/{turn}"] = fig
+            del engines
+        a, b = runs["NativeCacheManager"], runs["CacheManager"]
+        differ = [x.request_id for x, y in zip(a, b)
+                  if x.output_ids != y.output_ids]
+        if differ:
+            raise AssertionError(f"native {label}: streams differ from the "
+                                 f"Python manager's at {differ}")
+        hits = ([x.num_cached_tokens for x in a],
+                [y.num_cached_tokens for y in b])
+        # Under eviction the two trees may break LRU ties apart (the JAX
+        # package's differential test compares evicted sets, not orders).
+        if label == "serve" and hits[0] != hits[1]:
+            raise AssertionError(f"native {label}: prefix hits differ "
+                                 f"{hits}")
+        emit({"phase": "native", "run": label, "hits_native_python": hits})
+    bench = manager_host_bench()
+    emit({"phase": "native", "check": "streams_bitwise_equal_python",
+          "rows": 8, "evicting_rows": 16,
+          "host_bench": bench, "card": card})
+    FIGURES["native"] = out
+    free_device_memory(torch)
+
+
+def spec_requests(vocab: int):
+    """serve's mix plus two greedy prompts made of a 64-token span repeated
+    (4 and 6 times), so that n-gram lookup has matches in them."""
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    reqs, sampled = make_requests(vocab)
+    rng = random.Random(64)
+    for i, reps in ((8, 4), (9, 6)):
+        span = [rng.randrange(1, vocab) for _ in range(64)]
+        reqs.append(Request(
+            f"r{i}", prompt_ids=span * reps,
+            sampling_params=SamplingParams(temperature=0.0,
+                                           max_new_tokens=32,
+                                           ignore_eos=True)))
+    return reqs, sampled
+
+
+def _track_spec(engine) -> dict:
+    """Per-request speculation counters (accepted / rejected proposal
+    tokens, as the engine counts them by source), the tokens the
+    speculative resolves committed and the row-steps they committed them
+    in (a row's verify forwards), read off the engine's own resolve
+    paths."""
+    track = {"rows": {}, "spec_tokens": 0, "row_steps": 0}
+    queue: list = []
+    count = engine._count_spec_result
+
+    def count_row(src, acc, rej):
+        rid = queue.pop(0) if queue else None
+        e = track["rows"].setdefault(rid, [0, 0])
+        e[0] += acc
+        e[1] += rej
+        count(src, acc, rej)
+
+    window = engine._resolve_spec_multistep
+    sync = engine._resolve_speculative
+
+    def resolve_window(ticket):
+        queue[:] = [seg.request.request_id for seg, src in zip(
+            ticket.plan.seqs, ticket.spec_meta["sources"]) if src]
+        o = window(ticket)
+        track["spec_tokens"] += o.num_tokens
+        # A row's verify forwards in the chain: the steps it committed in.
+        track["row_steps"] += int((ticket.ms_counts.numpy() > 0).sum())
+        return o
+
+    def resolve_sync(ticket):
+        spec_plan, proposals, _ = ticket.spec_verify
+        queue[:] = [seg.request.request_id
+                    for seg, prop in zip(spec_plan.seqs, proposals) if prop]
+        o = sync(ticket)
+        track["spec_tokens"] += o.num_tokens
+        track["row_steps"] += len(spec_plan.seqs)
+        return o
+
+    engine._count_spec_result = count_row
+    engine._resolve_spec_multistep = resolve_window
+    engine._resolve_speculative = resolve_sync
+    return track
+
+
+def _draft_tree(params, layers: int) -> dict:
+    """The served tree's first ``layers`` layers with its embedding, final
+    norm and head: the same tensors, no copy."""
+    return {"layers": params["layers"][:layers],
+            "embed_tokens": params["embed_tokens"], "norm": params["norm"],
+            "lm_head": params["lm_head"]}
+
+
+def make_draft(torch, dev, cfg, params, layers: int):
+    """A DraftProposer on the served tree (``layers`` = all of them) or its
+    first ``layers`` layers, sharing its tensors, with the target's page
+    size and the engine's defaults (K = 4 windows from CUDA graphs)."""
+    from parallax_tpu_torch.config import normalize_config
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.models.presets import PRESETS
+    from parallax_tpu_torch.runtime.engine import DraftProposer, StageEngine
+
+    dcfg = cfg if layers == cfg.num_hidden_layers else normalize_config(
+        dict(PRESETS[DENSE_MODEL], num_hidden_layers=layers),
+        model_name=DENSE_MODEL)
+    eng = StageEngine(create_stage_model(dcfg, 0, layers),
+                      _draft_tree(params, layers),
+                      engine_config(True, 1024, decode_lookahead=4,
+                                    num_pages=256),
+                      device=dev, use_native=True)
+    return DraftProposer(eng)
+
+
+def _first_parting(torch, model_full, params, a, b, dev) -> dict:
+    """Where two streams of one prompt part: the index and the gap there
+    between the two tokens, in logits, on the plain one-shot reference
+    (None if equal). A seeded row draws argmax(logits / T + noise) over
+    its top k with the noise of its (seed, output step) in both runs, so
+    its gap is taken in that space, scaled back by T: (l_a - l_b) + T (g_a
+    - g_b); where a drawn token lies past the reference's top k, the gap
+    is how far it sits under the k-th logit (the runs kept different
+    sets)."""
+    from parallax_tpu_torch.ops.sampling import gumbel_rows_plain
+
+    same = 0
+    while (same < min(len(a.output_ids), len(b.output_ids))
+           and a.output_ids[same] == b.output_ids[same]):
+        same += 1
+    if same >= len(a.output_ids):
+        return {"index": None, "gap": 0.0}
+    row = one_shot_rows(torch, model_full, params, a, dev)[same].float()
+    ta, tb = a.output_ids[same], b.output_ids[same]
+    gap = float(row[ta]) - float(row[tb])
+    sp = a.sampling_params
+    out = {"index": same}
+    if sp.temperature > 0 and sp.seed is not None:
+        noise = gumbel_rows_plain(
+            torch.tensor([sp.seed & 0x7FFFFFFF]), torch.tensor([same]), 0,
+            model_full.config.vocab_size)[0]
+        order = torch.argsort(row, descending=True).tolist()
+        out.update(logit_gap=gap, noise_gap=float(noise[ta] - noise[tb]),
+                   ranks=[order.index(ta), order.index(tb)])
+        gap = abs(gap + sp.temperature * float(noise[ta] - noise[tb]))
+        k = sp.top_k
+        outside = [t for t in (ta, tb) if 0 < k <= order.index(t)]
+        if outside:
+            # A token past the reference's top k was drawn: the runs kept
+            # different top-k sets, a near-tie if it sits within the
+            # tolerance of the k-th logit.
+            boundary = max(float(row[order[k - 1]] - row[t])
+                           for t in outside)
+            out["top_k_boundary_gap"] = boundary
+            gap = boundary
+    return {**out, "gap": abs(gap)}
+
+
+def _draft_rejection_gaps(torch, model_full, params, reqs, sampled, log,
+                          dev) -> dict:
+    """Every logged draft proposal of a greedy row against the committed
+    stream: at its first token off the stream, the plain one-shot logit
+    gap between the committed token and the proposed one. A same-weights
+    draft (A2 decode) and the target (A1 verify) may only part at a
+    near-tie. ``agreement`` is the share of proposed tokens the committed
+    stream took, each compared on the stream's own prefix (up to and
+    including a proposal's first parting)."""
+    by_prompt = {tuple(r.prompt_ids): r for i, r in enumerate(reqs)
+                 if i not in sampled}
+    worst, partings, positions, rows_of = 0.0, 0, 0, {}
+    for ctx, prop in log:
+        r = None
+        for plen in {len(x.prompt_ids) for x in by_prompt.values()}:
+            r = by_prompt.get(tuple(ctx[:plen]))
+            if r is not None:
+                break
+        if r is None or not prop:
+            continue
+        m = len(ctx) - len(r.prompt_ids)
+        for j, tok in enumerate(prop):
+            if m + j >= len(r.output_ids):
+                break
+            positions += 1
+            if tok != r.output_ids[m + j]:
+                if r.request_id not in rows_of:
+                    rows_of[r.request_id] = one_shot_rows(
+                        torch, model_full, params, r, dev)
+                row = rows_of[r.request_id][m + j]
+                worst = max(worst, float(row[r.output_ids[m + j]])
+                            - float(row[tok]))
+                partings += 1
+                break
+    rows_of.clear()
+    return {"largest_gap": worst, "partings": partings,
+            "positions": positions, "proposals": len(log),
+            "agreement": 1.0 - partings / positions if positions else None}
+
+
+# spec_serve's runs: (name, engine kwargs, draft layers or None).
+SPEC_RUNS = (
+    ("off", None, None),
+    ("ngram", dict(speculative_tokens=4), None),
+    ("off_k1_sync", K1_SYNC, None),
+    ("ngram_k1_sync", dict(K1_SYNC, speculative_tokens=4), None),
+    ("draft_same_tree", dict(speculative_tokens=4), "all"),
+    ("draft_4_layers", dict(speculative_tokens=4), 4),
+)
+
+
+def phase_spec_serve(torch, dev, card, cfg, model_full, params):
+    """Speculative decoding on Qwen2.5-7B at full width and depth: serve's
+    mix plus two prompts of a repeated 64-token span, served with
+    speculation off and (a) n-gram P = 4 with the defaults (K = 8 windows
+    from CUDA graphs), (b) the K = 1 sync fallback (beside K1_SYNC with
+    speculation off), (c) a draft that is the served tree (shared tensors)
+    and (d) its first 4 layers. Launches exact (graph replays and the
+    draft engine's own included); greedy rows within GREEDY_TOL of the
+    plain one-shot argmax; each greedy and seeded row equal to the
+    spec-off run's, or parting from it only at a near-tie (the verify runs
+    on A1, the plain decode on A2); (c) at least 90% of its greedy rows'
+    proposals accepted and every parting of a draft proposal from the
+    committed stream at a gap under GREEDY_TOL. Per request: acceptance;
+    per run: tokens committed per verify forward, decode tok/s and TTFT
+    beside spec off, and the draft's share of the wall."""
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    n = cfg.num_hidden_layers
+    runs, figs = {}, {}
+    for name, engine_kw, draft_layers in SPEC_RUNS:
+        draft = None
+        log: list = []
+        if draft_layers is not None:
+            draft = make_draft(torch, dev, cfg, params,
+                               n if draft_layers == "all" else draft_layers)
+            propose = draft.propose_batch
+
+            def logged(contexts, budgets, _p=propose, _log=log):
+                props = _p(contexts, budgets)
+                _log.extend(zip([list(c) for c in contexts], props))
+                return props
+
+            draft.propose_batch = logged
+        box = {}
+        ck.reset_launches()
+        reqs, sampled, engines, t0, t1 = serve(
+            torch, [(0, n)], params, cfg, dev, fused=True,
+            engine_kw=engine_kw, requests=spec_requests(cfg.vocab_size),
+            draft=draft,
+            on_engines=lambda e: box.update(track=_track_spec(e[0])))
+        launches = ck.launches()
+        for r in reqs:
+            if r.status.value != "finished_length" or len(r.output_ids) != 32:
+                raise AssertionError(f"spec_serve {name} {r.request_id}: "
+                                     f"{r.status.value}")
+        summary = engines[0].kernel_dispatch_summary()
+        want = gqa_expected("fused", summary, n)
+        warm = dict(summary.get("graphs", {}).get("warmup_launches", {}))
+        if draft is not None:
+            dsum = draft.engine.kernel_dispatch_summary()
+            dn = draft.engine.model.num_local_layers
+            for k, v in gqa_expected("fused", dsum, dn).items():
+                want[k] = want.get(k, 0) + v
+            for k, v in dsum.get("graphs", {}).get(
+                    "warmup_launches", {}).items():
+                warm[k] = warm.get(k, 0) + v
+        check_launches("spec_serve", name, launches, want,
+                       {"graphs": {"warmup_launches": warm}})
+        totals = summary["dispatch_total"]
+        verify = sum(totals.get(f"{summary['prefill_impl']}/{path}", 0)
+                     for path in ("spec", "spec_verify"))
+        spec = engines[0].spec_summary()
+        if engine_kw and engine_kw.get("speculative_tokens") and not (
+                name.startswith("ngram") or spec["proposals"] > 0):
+            raise AssertionError(f"spec_serve {name}: nothing proposed")
+        if summary["cuda_graphs"] and "decode_lookahead" not in (
+                engine_kw or {}):
+            replays = summary["graphs"]["replays"]
+            windows = (totals.get(f"{summary['impl']}/multistep", 0)
+                       + totals.get(f"{summary['prefill_impl']}/spec", 0))
+            if replays != windows:
+                raise AssertionError(f"spec_serve {name}: {replays} "
+                                     f"replays, {windows} window steps")
+        worst, *_ = greedy_check(torch, model_full, params, reqs, sampled,
+                                 dev, tol=GREEDY_TOL)
+        track = box["track"]
+        rows = {rid: {"accepted": a, "rejected": b,
+                      "acceptance": round(a / (a + b), 4) if a + b else None}
+                for rid, (a, b) in sorted(track["rows"].items())}
+        fig = {
+            "phase": "spec_serve", "run": name,
+            "engine": engine_kw or "defaults",
+            "draft_layers": draft_layers, "launches": launches,
+            "spec": spec, "per_request": rows,
+            "verify_forwards": verify,
+            # Tokens a row commits a verify forward (1 = no proposal
+            # accepted), and the batch's tokens a verify forward.
+            "tokens_per_row_verify": (
+                track["spec_tokens"] / track["row_steps"]
+                if track["row_steps"] else None),
+            "tokens_per_verify_forward": (
+                track["spec_tokens"] / verify if verify else None),
+            "dispatch": totals,
+            "graph_replays": summary.get("graphs", {}).get("replays"),
+            "largest_logit_gap": worst, "greedy_vs_plain": "pass",
+            **stream_metrics(reqs, t0, t1), "card": card,
+        }
+        if draft is not None:
+            fig["draft"] = {
+                "rounds": draft.rounds, "propose_s": draft.propose_s,
+                "share_of_wall": draft.propose_s / (t1 - t0),
+                "dispatch": draft.engine.kernel_dispatch_summary()[
+                    "dispatch_total"]}
+            greedy_rows = [r.request_id for i, r in enumerate(reqs)
+                           if i not in sampled]
+            acc = sum(track["rows"].get(rid, [0, 0])[0]
+                      for rid in greedy_rows)
+            rej = sum(track["rows"].get(rid, [0, 0])[1]
+                      for rid in greedy_rows)
+            fig["greedy_acceptance"] = acc / (acc + rej) if acc + rej else None
+            if draft_layers == "all":
+                gaps = _draft_rejection_gaps(torch, model_full, params, reqs,
+                                             sampled, log, dev)
+                fig["draft_partings"] = gaps
+                # The engine's acceptance also counts the proposal tail a
+                # window keeps feeding after a parting (the buffer is read
+                # at the produced count), so a near-tie early in a window
+                # rejects the rest of it: the 90% bar holds the draft's
+                # tokens on the committed stream's own prefix.
+                if gaps["agreement"] is None or gaps["agreement"] < 0.9:
+                    raise AssertionError(
+                        f"spec_serve {name}: the draft agreed with the "
+                        f"committed stream on {gaps['agreement']} of its "
+                        f"tokens, under 0.9")
+                if gaps["largest_gap"] >= GREEDY_TOL:
+                    raise AssertionError(
+                        f"spec_serve {name}: a draft proposal parted from "
+                        f"the committed stream at a gap of "
+                        f"{gaps['largest_gap']}")
+        emit(fig)
+        runs[name] = reqs
+        figs[name] = fig
+        del engines, draft
+        free_device_memory(torch)
+    # Speculation on against off, same run: the same tokens, or a parting
+    # at a near-tie of the plain reference.
+    for name, base in (("ngram", "off"), ("ngram_k1_sync", "off_k1_sync"),
+                       ("draft_same_tree", "off"), ("draft_4_layers", "off")):
+        if name not in runs or base not in runs:
+            continue
+        identical, partings = 0, []
+        for a, b in zip(runs[name], runs[base]):
+            if a.output_ids == b.output_ids:
+                identical += 1
+                continue
+            p = _first_parting(torch, model_full, params, a, b, dev)
+            partings.append({"request": a.request_id, **p})
+            if p["gap"] >= GREEDY_TOL:
+                raise AssertionError(
+                    f"spec_serve {name}: {a.request_id} parts from {base} "
+                    f"off a near-tie: {p}")
+        emit({"phase": "spec_serve", "check": f"{name}_vs_{base}",
+              "rows_identical": identical, "rows": len(runs[name]),
+              "partings_at_near_ties": partings,
+              "decode_tok_per_s": [figs[name]["decode_tok_per_s"],
+                                   figs[base]["decode_tok_per_s"]],
+              "ttft_s_median": [figs[name]["ttft_s_median"],
+                                figs[base]["ttft_s_median"]]})
+    FIGURES["spec_serve"] = {k: {x: v[x] for x in (
+        "decode_tok_per_s", "ttft_s_median", "tokens_per_row_verify")}
+        for k, v in figs.items()}
+
+
+def _count_hops(engines) -> dict:
+    """Count the pipeline's packets that carry speculation: head -> tail
+    FORWARDs with ``spec_len`` and tail -> head runs with
+    ``spec_accepted``."""
+    hops = {"spec_len_packets": 0, "spec_len_tokens": 0,
+            "spec_accepted_packets": 0, "spec_accepted_tokens": 0}
+    for eng in engines:
+        step = eng.step
+
+        def counted(_step=step):
+            out = _step()
+            for f in out.forward:
+                if f.spec_len:
+                    hops["spec_len_packets"] += 1
+                    hops["spec_len_tokens"] += f.spec_len
+                if f.spec_accepted is not None:
+                    hops["spec_accepted_packets"] += 1
+                    hops["spec_accepted_tokens"] += len(f.spec_accepted)
+            return out
+
+        eng.step = counted
+    return hops
+
+
+def phase_pp_spec(torch, dev, card, cfg, model_full, params):
+    """Pipeline speculation over serve's 14 + 14 pipeline in process:
+    spec_serve's requests with speculation off, with n-gram P = 4 and with
+    the 4-layer draft on the head. Greedy rows within GREEDY_TOL of the
+    plain one-shot argmax, launches exact per stage (A2 14 x each stage's
+    decode steps, A0 + A1 14 x its multi-token steps, the sampler on the
+    tail), and the packets carrying ``spec_len`` / ``spec_accepted`` across
+    the hop counted (the draft run must send both)."""
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    figs = {}
+    for name, engine_kw, draft_layers in (
+            ("off", None, None), ("ngram", dict(speculative_tokens=4), None),
+            ("draft_4_layers", dict(speculative_tokens=4), 4)):
+        draft = (make_draft(torch, dev, cfg, params, draft_layers)
+                 if draft_layers else None)
+        box = {}
+        ck.reset_launches()
+        reqs, sampled, engines, t0, t1 = serve(
+            torch, [(0, 14), (14, 28)], params, cfg, dev, fused=True,
+            engine_kw=engine_kw, requests=spec_requests(cfg.vocab_size),
+            draft=draft,
+            on_engines=lambda e: box.update(hops=_count_hops(e)))
+        launches = ck.launches()
+        for r in reqs:
+            if r.status.value != "finished_length" or len(r.output_ids) != 32:
+                raise AssertionError(f"pp_spec {name} {r.request_id}: "
+                                     f"{r.status.value}")
+        want, warm = {}, {}
+        for eng in engines + ([draft.engine] if draft else []):
+            s = eng.kernel_dispatch_summary()
+            for k, v in gqa_expected(
+                    "fused", s, eng.model.num_local_layers).items():
+                want[k] = want.get(k, 0) + v
+            for k, v in s.get("graphs", {}).get("warmup_launches",
+                                                {}).items():
+                warm[k] = warm.get(k, 0) + v
+        check_launches("pp_spec", name, launches, want,
+                       {"graphs": {"warmup_launches": warm}})
+        worst, *_ = greedy_check(torch, model_full, params, reqs, sampled,
+                                 dev, tol=GREEDY_TOL)
+        hops = box["hops"]
+        if draft_layers and not (hops["spec_len_packets"]
+                                 and hops["spec_accepted_packets"]):
+            raise AssertionError(f"pp_spec {name}: no speculation crossed "
+                                 f"the hop ({hops})")
+        tail = engines[-1]
+        figs[name] = {
+            "phase": "pp_spec", "run": name, "stages": [[0, 14], [14, 28]],
+            "engine": engine_kw or "defaults", "hops": hops,
+            "verify_rounds": tail.pp_spec_rounds,
+            "verified_tokens": tail.pp_spec_tokens,
+            "tokens_per_verify_round": (
+                tail.pp_spec_tokens / tail.pp_spec_rounds
+                if tail.pp_spec_rounds else None),
+            "launches": launches, "largest_logit_gap": worst,
+            "greedy_vs_plain": "pass",
+            "dispatch": [e.kernel_dispatch_summary()["dispatch_total"]
+                         for e in engines],
+            **stream_metrics(reqs, t0, t1), "card": card}
+        if draft is not None:
+            figs[name]["draft"] = {"rounds": draft.rounds,
+                                   "propose_s": draft.propose_s,
+                                   "share_of_wall":
+                                   draft.propose_s / (t1 - t0)}
+        emit(figs[name])
+        del engines, draft
+        free_device_memory(torch)
+    FIGURES["pp_spec"] = {k: {x: v[x] for x in (
+        "decode_tok_per_s", "ttft_s_median", "tokens_per_verify_round")}
+        for k, v in figs.items()}
+
+
 KERNEL_PATH = {
     "kv_append": "moe_serve", "gqa_prefill": "moe_serve",
     "gqa_decode": "moe_serve", "sample_topk": "moe_serve",
@@ -7251,7 +7910,8 @@ KERNEL_COUNTER = {"ragged_attend": "gqa_prefill"}
 
 # The phases on the Qwen2.5-7B tree after serve, pipeline and profile, in
 # order; the first one asked for names the tree's line when serve is not.
-DENSE_PHASES = ("features_serve", "preempt_serve", "migrate_serve",
+DENSE_PHASES = ("native", "spec_serve", "pp_spec", "features_serve",
+                "preempt_serve", "migrate_serve",
                 "disagg_serve", "http_serve", "swarm_serve", "sched_serve",
                 "ha_serve", "relay_serve")
 
@@ -7275,6 +7935,12 @@ def run_dense(torch, dev, card: str, want) -> dict:
                            sampled)
         if want("profile"):
             phase_profile(torch, dev, cfg, params)
+    if want("native"):
+        phase_native(torch, dev, card, cfg, model_full, params)
+    if want("spec_serve"):
+        phase_spec_serve(torch, dev, card, cfg, model_full, params)
+    if want("pp_spec"):
+        phase_pp_spec(torch, dev, card, cfg, model_full, params)
     if want("features_serve"):
         phase_features_serve(torch, dev, card, cfg, model_full, params)
     if want("preempt_serve"):
@@ -7319,7 +7985,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="",
                     help="comma-separated phases (build,kernels,serve,"
-                         "pipeline,profile,features_serve,preempt_serve,"
+                         "pipeline,profile,native,spec_serve,pp_spec,"
+                         "features_serve,preempt_serve,"
                          "migrate_serve,disagg_serve,http_serve,"
                          "swarm_serve, sched_serve, ha_serve and "
                          "relay_serve (each runs http_serve too),moe_serve,"

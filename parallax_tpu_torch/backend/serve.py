@@ -149,7 +149,10 @@ def serve_main(args, on_start=None) -> int:
     the pages the configured batch can address) and serve until the
     frontend shuts down. ``on_start(frontend, runner)`` runs once the
     socket is bound."""
-    from parallax_tpu_torch.config import load_config
+    from parallax_tpu_torch.config import (
+        load_config,
+        resolve_speculative_tokens,
+    )
     from parallax_tpu_torch.models.loader import load_stage_params
     from parallax_tpu_torch.models.registry import create_stage_model
     from parallax_tpu_torch.runtime.cache_manager import derive_num_pages
@@ -175,6 +178,33 @@ def serve_main(args, on_start=None) -> int:
             "last stage); serve a partial range with join")
     model = create_stage_model(config, start, end)
     params = load_stage_params(model, args.model_path, device=device)
+    draft = None
+    if args.draft_model_path:
+        from parallax_tpu_torch.runtime.engine import DraftProposer
+
+        # A single full stage holds every layer (checked above); the port
+        # has no tensor parallelism to refuse.
+        draft_cfg = load_config(args.draft_model_path)
+        draft_model = create_stage_model(
+            draft_cfg, 0, draft_cfg.num_hidden_layers)
+        draft = DraftProposer(StageEngine(
+            draft_model,
+            load_stage_params(draft_model, args.draft_model_path,
+                              device=device),
+            EngineConfig(
+                page_size=16,   # small pages: a small recomputed tail
+                num_pages=max(
+                    512,
+                    args.max_batch_size
+                    * ((args.max_model_len + 15) // 16 + 1),
+                ),
+                max_batch_size=args.max_batch_size,
+                max_model_len=args.max_model_len,
+                kv_dtype=args.kv_dtype,
+                decode_lookahead=max(1, args.speculative_tokens or 4),
+            ),
+            device=device,
+        ))
 
     page_size = args.page_size
     # Device memory budget, capped by the most pages the configured batch
@@ -218,8 +248,13 @@ def serve_main(args, on_start=None) -> int:
             # this config inherits the operator's wire choice.
             wire_dtype=args.wire_dtype,
             slow_request_ms=args.slow_request_ms,
+            # A draft model implies speculation at width 4.
+            speculative_tokens=resolve_speculative_tokens(
+                args.speculative_tokens, has_draft=draft is not None),
+            speculative_ngram=args.speculative_ngram or 3,
         ),
         device=device,
+        draft=draft,
     )
     del params
     tokenizer = load_tokenizer(args.model_path)

@@ -325,7 +325,6 @@ def unported_join_flags(args) -> list[tuple[str, int | str]]:
         (args.wire_dtype in ("fp8", "float8_e4m3fn"),
          f"--wire-dtype {args.wire_dtype}", 11),
         (args.sp_size > 1, f"--sp-size {args.sp_size}", 10),
-        (args.speculative_tokens > 0, "--speculative-tokens", 7),
         (args.trace_sample_rate > 0, "--trace-sample-rate", 9),
         (args.watchdog, "--watchdog", 9),
         (args.qos is not None, "--qos", 9),
@@ -365,8 +364,6 @@ def unported_flags(args) -> list[tuple[str, int | str]]:
     refuse(args.prefill_seq_parallel, "--prefill-seq-parallel", 10)
     refuse(args.lora_adapters is not None, "--lora-adapters", 11)
     refuse(args.lora_max_adapters > 0, "--lora-max-adapters", 11)
-    refuse(args.draft_model_path is not None, "--draft-model-path", 7)
-    refuse(args.speculative_tokens > 0, "--speculative-tokens", 7)
     refuse(args.wire_dtype in ("fp8", "float8_e4m3fn"),
            f"--wire-dtype {args.wire_dtype}", 11)
     refuse(args.trace_sample_rate > 0, "--trace-sample-rate", 9)

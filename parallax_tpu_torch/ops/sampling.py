@@ -445,3 +445,50 @@ def token_logprobs(logits: torch.Tensor, tokens: torch.Tensor
     lse = torch.logsumexp(logits, dim=-1)
     chosen = torch.gather(logits, 1, tokens.long()[:, None])[:, 0]
     return chosen - lse
+
+
+def speculative_accept(
+    targets: torch.Tensor,      # i32[S, 1+P] verified token per fed position
+    proposals: torch.Tensor,    # i32[S, P] fed proposal tokens (-1 = none)
+    produced: torch.Tensor,     # i32[S] tokens committed so far this window
+    stop_tokens: torch.Tensor,  # i32[S, J] stop/EOS sets, -1 padded
+    min_req: torch.Tensor,      # i32[S] min_new_tokens gate on stop finishes
+    limit: torch.Tensor,        # i32[S] remaining max_new budget
+    stopped: torch.Tensor,      # bool[S] rows frozen before this round
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The vectorized speculative acceptance rule of one verify round
+    (``parallax_tpu/ops/sampling.py::speculative_accept``): a proposal is
+    accepted while it equals the target at its position, the first
+    disagreeing position's target commits as the correction / bonus token,
+    and the run is truncated by the window's stop predicate (a stop token
+    gated by ``min_new_tokens``, or the length budget; the stopping token
+    itself commits). Returns ``(commit_count i32[S], froze bool[S])``, 0
+    commits for frozen rows. Static shapes and no host sync, so it runs
+    inside a captured window step."""
+    w = targets.shape[1]
+    js = torch.arange(w, dtype=torch.int32, device=targets.device)
+    match = (proposals == targets[:, : w - 1]).to(torch.int32)
+    agree = torch.cumprod(match, dim=1).sum(dim=1)
+    cand = js[None, :] <= agree[:, None]
+    prod_j = produced[:, None] + js[None, :] + 1
+    hit = (targets[:, :, None] == stop_tokens[:, None, :]).any(dim=2) & (
+        prod_j >= min_req[:, None])
+    stops = (hit | (prod_j >= limit[:, None])).to(torch.int32)
+    prior = torch.cumsum(stops, dim=1) - stops
+    commit = cand & (prior == 0) & ~stopped[:, None]
+    c = commit.sum(dim=1).to(torch.int32)
+    froze = (commit & (stops > 0)).any(dim=1)
+    return c, froze
+
+
+def token_in_mask(bits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Per-row single-token bit test against packed masks (i32[B, W] of u32
+    words): bool[B]. The speculative window counts proposals the grammar
+    mask rejected with it. Out-of-range tokens (the -1 no-proposal sentinel
+    included) test False."""
+    w = bits.shape[1]
+    tok = torch.clamp(tokens, 0, w * 32 - 1).long()
+    word = torch.gather(bits.to(torch.int64) & 0xFFFFFFFF, 1,
+                        (tok // 32)[:, None])[:, 0]
+    bit = (word >> (tok % 32)) & 1
+    return bit.bool() & (tokens >= 0) & (tokens < w * 32)

@@ -58,7 +58,10 @@ def _default_route_ip() -> str:
 def build_worker(args):
     """The worker node ``args`` describe, on a started transport (not yet
     started itself)."""
-    from parallax_tpu_torch.config import load_config
+    from parallax_tpu_torch.config import (
+        load_config,
+        resolve_speculative_tokens,
+    )
     from parallax_tpu_torch.models.loader import load_stage_params
     from parallax_tpu_torch.p2p.node import WorkerNode
     from parallax_tpu_torch.p2p.transport import TcpTransport
@@ -129,6 +132,12 @@ def build_worker(args):
             slow_request_ms=args.slow_request_ms,
             host_cache_bytes=default_host_cache_bytes(
                 override=args.host_cache_bytes, device=device),
+            # Speculative decoding: on a stage of a pipeline the head
+            # proposes and the last stage verifies (pipeline speculation);
+            # a worker serving every layer speculates in its window.
+            speculative_tokens=resolve_speculative_tokens(
+                args.speculative_tokens),
+            speculative_ngram=args.speculative_ngram or 3,
         ),
         load_params=lambda model: load_stage_params(
             model, args.model_path, device=device),

@@ -52,8 +52,10 @@ request nobody takes within ``MIGRATION_PARK_TIMEOUT_S`` aborts with
 "migration: no serviceable pipeline". Mirrors and scheduler-less swarms
 abort instead (nobody picks a target). ``chat_submit`` with ``replay_ids``
 teacher-forces a client's already-streamed tokens. The heartbeat sends
-None for the planes not ported yet (step timing, metrics, goodput, device,
-health, events, speculation, constrained decoding).
+speculation's ledger and None for the planes not ported yet (step timing,
+metrics, goodput, device, health, events, constrained decoding). Pipeline
+speculation rides FORWARD packets (``spec_len`` on the way down, the last
+stage's ``spec_accepted`` back to the head).
 
 Disaggregated prefill / decode, as in the JAX worker: a scheduled worker
 joins with ``role`` prefill, decode or mixed (the default, which serves
@@ -89,8 +91,8 @@ FORWARD and ABORT take raw protobuf bytes from a reference-protocol peer
 
 Not ported yet, each refused by name with its ROADMAP queue 1 item: refit
 (item 12), the watchdog, profiling, traces, metrics, goodput, QoS and the
-QoS autoscaler's re-role of a node (item 9), LoRA (item 11), speculation
-(item 7) and tensor parallelism (item 10).
+QoS autoscaler's re-role of a node (item 9), LoRA (item 11) and tensor
+parallelism (item 10).
 """
 
 from __future__ import annotations
@@ -160,8 +162,6 @@ SCHEDULER_RETRY = BackoffPolicy(base_s=0.25, cap_s=2.0)
 
 def _refuse_wire_request(d: dict) -> None:
     """FORWARD packet fields whose features the port does not run yet."""
-    if d.get("spec_len") or d.get("spec_accepted") is not None:
-        raise unported("pipeline speculative decoding packets", 7)
     if d.get("lora_id") is not None:
         raise unported("LoRA packets", 11)
     if d.get("trace"):
@@ -733,11 +733,11 @@ class WorkerNode:
                 "refit_version": 0,
                 "lora_adapters": [],
                 "busy": self._busy_reloading,
-                # Planes not ported yet (item 9: step timing, metrics,
-                # goodput, device, health, events; item 7: speculation;
-                # item 8: constrained decoding).
+                # Speculation's ledger (None while it is off). Planes not
+                # ported yet (item 9: step timing, metrics, goodput,
+                # device, health, events; item 8: constrained decoding).
+                "spec": eng.spec_summary() if eng else None,
                 "step_timing": None,
-                "spec": None,
                 "constrained": None,
                 "metrics": None,
                 "goodput": None,
@@ -1320,6 +1320,9 @@ class WorkerNode:
                         ireq.request_id, ireq.next_token_id,
                         ireq.token_logprob,
                     )
+                elif ireq.spec_accepted is not None:
+                    self.engine.commit_spec_result(
+                        ireq.request_id, ireq.spec_accepted)
                 else:
                     self.engine.submit_intermediate(ireq)
             elif kind == "submit":
@@ -2413,7 +2416,8 @@ class WorkerNode:
         by_peer: dict[str, list] = {}
         for ireq in out.forward:
             table = ireq.routing_table
-            if ireq.next_token_id is not None:
+            if (ireq.next_token_id is not None
+                    or ireq.spec_accepted is not None):
                 target = table[0] if table else self.node_id
             else:
                 try:

@@ -385,11 +385,13 @@ class TcpTransport(Transport):
         logger.log(20 if prev is None else 10,
                    "relay: registered reverse route for %s", rid)
 
-    def _count_routed(self, to: str, env: dict) -> None:
+    def _count_routed(self, to: str, env: dict, sign: int = 1) -> None:
+        """Count one envelope routed to ``to`` (``sign=-1`` takes a count
+        back for an envelope whose send failed)."""
         with self._stats_lock:
             c = self._relay_routed.setdefault(to, [0, 0])
-            c[0] += 1
-            c[1] += len(env["data"])
+            c[0] += sign
+            c[1] += sign * len(env["data"])
 
     async def _route_envelope(self, env: dict) -> bool:
         """Pass one envelope on: to this transport itself, down a
@@ -416,11 +418,15 @@ class TcpTransport(Transport):
             return True
         if ":" in to and not to.startswith("relay:"):
             # A dialable peer (a direct worker answering a NAT'd one).
+            # Counted before the write, as the other routes are: the
+            # addressee may act on the frame (and read these stats) before
+            # the send returns here.
+            self._count_routed(to, env)
             try:
                 await self._send_async(to, encode_frame("__relayed__", env))
-                self._count_routed(to, env)
                 return True
             except OSError as e:
+                self._count_routed(to, env, sign=-1)
                 logger.warning("relay: dial-out to %s failed: %s", to, e)
         logger.warning("relay: no route to %s", to)
         return False

@@ -9,10 +9,10 @@ eviction demotes pages to host memory, a prefix hit on a host-resident node
 swaps it back in before admission, a decode short of pages preempts a
 request's KV image to host (``preempt_to_host`` / ``resume_from_host``),
 and a migrated-in image is adopted as if preempted here
-(``adopt_migrated``). The native C++ manager, LoRA namespaces and
-linear-state snapshots are not ported yet; ``make_cache_manager`` therefore
-always returns this class, which the JAX factory also picks whenever a
-tier is attached.
+(``adopt_migrated``). ``make_cache_manager`` returns the native C++
+manager (``parallax_tpu_torch/native``) by default and this class under the
+JAX factory's gates; LoRA namespaces and linear-state snapshots are not
+ported yet.
 
 Ownership model: every device page has one owner — an in-flight request or
 the radix tree. Prefix-cache hits share tree-owned pages read-only, pinned
@@ -22,12 +22,16 @@ via lock refs for the request's lifetime.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
+import os
 
 from parallax_tpu_torch.config import ModelConfig
 from parallax_tpu_torch.runtime.allocator import OutOfPages, PageAllocator
 from parallax_tpu_torch.runtime.radix_cache import RadixPageCache
 from parallax_tpu_torch.runtime.request import Request
+
+logger = logging.getLogger(__name__)
 
 
 def kv_bytes_per_page(
@@ -79,17 +83,100 @@ def make_cache_manager(
     prefill_chunk_skip: bool = True,
     track_digests: bool = False,
     host_tier=None,
-) -> "CacheManager":
-    """CacheManager factory. The JAX package prefers its native C++ manager
-    and keeps the Python one when a ``host_tier`` is attached (tier
-    residency lives on radix nodes and in the preemption bookkeeping) or
-    ``track_digests`` asks for the digest log; the port has only the
-    Python one so far."""
+    use_native: bool | None = None,
+):
+    """CacheManager factory, with the JAX factory's gates line for line:
+    the C++ manager (``native.NativeCacheManager``, one ABI crossing per
+    admit / grow / release) by default; the Python manager with a
+    ``host_tier`` (tier residency lives on radix nodes and in the
+    preemption bookkeeping), with ``track_digests`` (the digest delta log
+    lives on the Python radix nodes), with ``prefill_chunk_skip=False``
+    (only the Python manager keeps inserting while declining reuse) or with
+    ``PARALLAX_TPU_NO_NATIVE`` set. ``use_native=None`` falls back quietly
+    (a warning) when the library does not build; an explicit
+    ``use_native=True`` raises then."""
+    explicit = use_native is True
+    if use_native is None:
+        use_native = (
+            not os.environ.get("PARALLAX_TPU_NO_NATIVE")
+            and host_tier is None
+            and not track_digests
+        )
+    if track_digests and use_native:
+        logger.info(
+            "prefix-digest publishing requested: using the Python cache "
+            "manager (the native tree does not expose per-node evictions)"
+        )
+        use_native = False
+    if not prefill_chunk_skip and use_native:
+        logger.info(
+            "prefill chunk skipping disabled: using the Python cache "
+            "manager (radix inserts still populate, admission reuse off)"
+        )
+        use_native = False
+    if host_tier is not None and not os.environ.get("PARALLAX_TPU_NO_NATIVE"):
+        logger.info(
+            "host KV tier enabled: using the Python cache manager "
+            "(the native manager does not model tier residency)"
+        )
+    if use_native and host_tier is None:
+        from parallax_tpu_torch import native
+
+        if native.native_available():
+            return native.NativeCacheManager(
+                page_size, num_pages,
+                enable_prefix_cache=enable_prefix_cache,
+                max_model_len=max_model_len,
+            )
+        reason = native.build_error or "PARALLAX_TPU_NO_NATIVE is set"
+        if explicit:
+            raise RuntimeError("use_native=True: the native cache library "
+                               f"is unavailable ({reason})")
+        logger.warning("native cache unavailable: %s", reason)
     return CacheManager(
         page_size, num_pages, enable_prefix_cache=enable_prefix_cache,
         max_model_len=max_model_len, prefill_chunk_skip=prefill_chunk_skip,
         track_digests=track_digests, host_tier=host_tier,
     )
+
+
+_NS_SECRET_NOTED = False
+
+
+def derive_ns_salt(lora_id: str) -> int:
+    """Deterministic 31-bit prefix-cache namespace salt for one adapter:
+    ``blake2s(secret + adapter id)``, never 0 (an all-zero salt would alias
+    the base namespace). A copy of the JAX package's: every replica salts
+    the same adapter identically, and ``PARALLAX_NS_SECRET`` (the same
+    value cluster-wide) makes the namespaces unguessable."""
+    import hashlib
+
+    secret = os.environ.get("PARALLAX_NS_SECRET", "")
+    global _NS_SECRET_NOTED
+    if not _NS_SECRET_NOTED:
+        _NS_SECRET_NOTED = True
+        if not secret:
+            logger.info(
+                "adapter prefix-cache namespaces derived without "
+                "PARALLAX_NS_SECRET: deterministic and distinct per "
+                "adapter, but computable by anyone who knows the adapter id"
+            )
+    digest = hashlib.blake2s(
+        f"{secret}:{lora_id}".encode("utf-8", "surrogatepass")
+    ).digest()
+    return (int.from_bytes(digest[:4], "little") & 0x7FFFFFFF) or 1
+
+
+def ns_salt(salts: dict[str, int], lora_id: str | None) -> int | None:
+    """Memoized per-adapter namespace salt (see ``derive_ns_salt``): KV
+    contents depend on the LoRA adapter, so tenants must never prefix-hit
+    each other's pages; XOR-salting the token stream keeps its length."""
+    if lora_id is None:
+        return None
+    salt = salts.get(lora_id)
+    if salt is None:
+        salt = salts[lora_id] = derive_ns_salt(lora_id)
+    return salt
 
 
 class CacheManager:

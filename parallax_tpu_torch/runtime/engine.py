@@ -26,6 +26,13 @@ window:
   the window, where the per-row counts, DFA rows and logprobs are carried
   state (``WindowState``), so a window commits the K = 1 stream bit for
   bit.
+- Speculative decoding (``speculative_tokens``): n-gram or draft-model
+  (:class:`DraftProposer`) proposals verify in one multi-token forward
+  (the fused prefill path, A0 + A1) — inside the K-step window, where the
+  accept rule and the context rewind stay on the device, on the
+  host-synchronous K = 1 fallback, and across a pipeline (the head extends
+  its decode rows, the last stage verifies, the ring returns
+  ``spec_accepted``).
 - The host-DRAM KV tier (``host_cache_bytes``; ``runtime/host_cache.py``):
   radix eviction demotes pages to host memory, a host prefix hit swaps
   them back in, a decode short of pages preempts the latest arrival to
@@ -65,12 +72,15 @@ from parallax_tpu_torch.ops.sampling import (
     output_token_counts,
     penalize_logits,
     sample_tokens,
+    speculative_accept,
+    token_in_mask,
     token_logprobs,
 )
 from parallax_tpu_torch.runtime.batch import (
     BucketSpec,
     HostStaging,
     assemble,
+    next_bucket,
     substitute_device_tokens,
 )
 from parallax_tpu_torch.runtime.cache_manager import make_cache_manager
@@ -80,7 +90,11 @@ from parallax_tpu_torch.runtime.request import (
     RequestStatus,
     SamplingParams,
 )
-from parallax_tpu_torch.runtime.scheduler import BatchPlan, Scheduler
+from parallax_tpu_torch.runtime.scheduler import (
+    BatchPlan,
+    ScheduledSeq,
+    Scheduler,
+)
 from parallax_tpu_torch.utils.hw import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -94,6 +108,10 @@ ADAPTIVE_DECODE_LOOKAHEAD = 8
 # own, (1 << 40) + (engine step << 20) + window step, apart from the K=1
 # path's engine steps.
 _WINDOW_NOISE_STEPS = 1 << 40
+# Unseeded rows of a host-synchronous speculative verify (single stage or
+# a pipeline's last stage) draw at (1 << 41) + engine step, one row of
+# noise per fed position.
+_VERIFY_NOISE_STEPS = 1 << 41
 
 
 @dataclasses.dataclass
@@ -103,13 +121,14 @@ class EngineConfig:
     and chunk skipping, ``kv_dtype``, ``seed``, ``request_timeout_s``, the
     overlapped step (``overlap_steps``), the K-step decode window
     (``decode_lookahead``, ``decode_pipeline``), the ``decode_fused`` /
-    ``prefill_fused`` kernel switches, ``cache_digests`` (the radix
+    ``prefill_fused`` kernel switches, speculation (``speculative_tokens``,
+    ``speculative_ngram``), ``cache_digests`` (the radix
     tree's digest log for cache-aware routing), ``constrained_window``
     (grammar batches ride the decode window; off, they decode on the
     host-synchronous path) and ``host_cache_bytes`` (the host KV tier's
     budget; 0 = off). The fields listed in ``_UNPORTED``
     must keep their defaults (construction raises otherwise);
-    ``linear_*``, ``speculative_ngram`` and ``slow_request_ms`` only tune
+    ``linear_*`` and ``slow_request_ms`` only tune
     features that are refused elsewhere.
     ``wire_dtype`` is read by the swarm worker (``p2p/node.py``), not the
     engine, as in the JAX package; its float8 link mode raises here."""
@@ -136,6 +155,9 @@ class EngineConfig:
     # Windows chained per host visit off the device-resident state, before
     # any of their tokens is read back. 1 = off.
     decode_pipeline: int = 1
+    # Speculative decoding: verify up to this many proposed tokens per
+    # decode step (0 = off), proposed by n-gram lookup over the committed
+    # context (``speculative_ngram``-grams) or by the engine's ``draft``.
     speculative_tokens: int = 0
     speculative_ngram: int = 3
     constrained_window: bool = True
@@ -159,7 +181,6 @@ class EngineConfig:
 
 # Engine features not ported yet: field -> the only value accepted.
 _UNPORTED = {
-    "speculative_tokens": 0,
     "sp_threshold": None,
     "qos": None,
     "prefill_seq_parallel": False,
@@ -221,6 +242,24 @@ class StepTicket:
     # chain's f32[rows, S] pinned host copies (None when no row asked).
     lp_host: torch.Tensor | None = None
     ms_lp: torch.Tensor | None = None
+    # Speculative window chain: the pinned [rows, S] commit counts (its
+    # ms_windows are then [rows, S, 1 + P]), the grammar-mask rejection
+    # flags [rows, S] of a grammar window, and the staging metadata
+    # (width, per-row source, the staged proposals) for the resolve-side
+    # counters.
+    ms_counts: torch.Tensor | None = None
+    ms_rej: torch.Tensor | None = None
+    spec_meta: dict | None = None
+    # Host-synchronous speculative verify: (spec_plan, proposals, source);
+    # tokens_host then holds the target token of every fed position.
+    spec_verify: tuple | None = None
+    # Pipeline last stage: {plan row: fed tokens} of the rows carrying
+    # unverified proposals; tokens_host holds every fed position's target
+    # and rest_host the other rows' sampled tokens (rest_lp their
+    # logprobs).
+    spec_rows: dict | None = None
+    rest_host: torch.Tensor | None = None
+    rest_lp: torch.Tensor | None = None
     # The event behind the ticket's host copies (None on a CPU device).
     ready: object = None
     outputs: StepOutputs | None = None
@@ -305,7 +344,13 @@ class WindowState:
     g_dead: torch.Tensor | None = None      # i32[S]
     dfa: torch.Tensor | None = None         # i32[S]
     # Logprobs: written at the counter's row, like ``tokens``.
-    lps: torch.Tensor | None = None         # f32[R, S]
+    lps: torch.Tensor | None = None         # f32[R, S] (f32[R, S, W] spec)
+    # Speculative window: the staged proposals, read at each row's produced
+    # count, and per step the commit counts and the grammar-mask
+    # rejection flags. ``tokens`` is then i32[R, S, W], W = 1 + P.
+    props: torch.Tensor | None = None       # i32[S, L] (-1 = none)
+    counts: torch.Tensor | None = None      # i32[R, S]
+    rejs: torch.Tensor | None = None        # i32[R, S]
 
     def _tensors(self):
         return [(f.name, getattr(self, f.name))
@@ -385,6 +430,79 @@ def _pad_id_lists(gen: dict[int, list[int]], s: int) -> np.ndarray:
     return out
 
 
+class DraftProposer:
+    """Draft-model proposal source for speculative decoding (the JAX
+    package's ``DraftProposer``).
+
+    Wraps a single-stage engine (prefix cache on) serving the same
+    vocabulary: each proposal round submits every row's committed context
+    and decodes up to its budget of greedy draft tokens, all rows in one
+    draft-engine run, driven synchronously on the caller's thread (the
+    target's step thread, the only thread that touches the card). The
+    draft's prefix cache makes consecutive rounds incremental. The target
+    verifies every proposal, so draft quality moves speed, never outputs.
+
+    Proposal wall time is bounded (``max_propose_ms``): on the deadline the
+    run stops and whatever each draft produced so far becomes its (shorter)
+    proposal; unfinished drafts are aborted and released, never left
+    queued. ``propose_s`` / ``rounds`` total the rounds' host wall time.
+
+    The draft engine may be built on the target's own parameter tensors
+    (``StageEngine`` keeps tensors already on its device), so a draft that
+    is the served tree, or its first layers, costs no second copy of the
+    weights.
+    """
+
+    def __init__(self, engine: "StageEngine", max_propose_ms: float = 250.0):
+        if not (engine.model.is_first and engine.model.is_last):
+            raise ValueError("draft engine must be a full single stage")
+        self.engine = engine
+        # The proposal loop drives step() synchronously: the deferred
+        # sampler would be pure overhead inside the propose budget.
+        engine.cfg.overlap_steps = False
+        self.max_propose_ms = max_propose_ms
+        self._counter = 0
+        self.propose_s = 0.0
+        self.rounds = 0
+
+    def propose_batch(
+        self, contexts: list[list[int]], budgets: list[int]
+    ) -> list[list[int]]:
+        t0 = time.perf_counter()
+        reqs: list[Request | None] = []
+        for ctx, budget in zip(contexts, budgets):
+            k = min(budget, self.engine.cfg.max_model_len - len(ctx) - 1)
+            if k <= 0 or len(ctx) >= self.engine.cfg.max_model_len:
+                reqs.append(None)
+                continue
+            req = Request(
+                f"__draft{self._counter}",
+                prompt_ids=list(ctx),
+                sampling_params=SamplingParams(
+                    temperature=0.0, max_new_tokens=k, ignore_eos=True
+                ),
+            )
+            self._counter += 1
+            if not self.engine.submit(req):
+                reqs.append(None)
+                continue
+            reqs.append(req)
+        if any(r is not None for r in reqs):
+            deadline = time.perf_counter() + self.max_propose_ms / 1000.0
+            guard = 0
+            while self.engine.has_work() and guard < 10_000:
+                self.engine.step()
+                guard += 1
+                if time.perf_counter() >= deadline:
+                    break
+            for req in reqs:
+                if req is not None and not req.status.is_finished:
+                    self.engine.release(req.request_id, abort=True)
+        self.propose_s += time.perf_counter() - t0
+        self.rounds += 1
+        return [list(r.output_ids) if r is not None else [] for r in reqs]
+
+
 class StageEngine:
     """Continuous-batching engine for one pipeline stage.
 
@@ -397,7 +515,12 @@ class StageEngine:
     ``resolve`` hands the forwards CPU tensors of their own, as the JAX
     engine hands back host arrays. The swarm worker sets it, so its sender
     threads never touch a CUDA tensor; off, the forwards are views of the
-    step's output on the device (the in-process pipeline)."""
+    step's output on the device (the in-process pipeline).
+
+    ``draft`` (a :class:`DraftProposer`) proposes the speculative tokens
+    instead of n-gram lookup; ``use_native`` picks the cache manager
+    (``make_cache_manager``: None = the native one unless a gate says
+    otherwise, True = the native one or raise)."""
 
     def __init__(
         self,
@@ -407,6 +530,8 @@ class StageEngine:
         device=None,
         cuda_graphs: bool | None = None,
         host_hidden: bool = False,
+        draft: DraftProposer | None = None,
+        use_native: bool | None = None,
     ):
         self.cfg = config or EngineConfig()
         for name, want in _UNPORTED.items():
@@ -475,6 +600,7 @@ class StageEngine:
             prefill_chunk_skip=self.cfg.prefill_chunk_skip,
             track_digests=self.cfg.cache_digests,
             host_tier=self.host_tier,
+            use_native=use_native,
         )
         self.scheduler = Scheduler(
             self.cache,
@@ -559,6 +685,25 @@ class StageEngine:
         self._warned_constrained_off = False
         # Decode windows enqueued per sampling-feature set (() = none).
         self.window_feature_counts: dict[tuple, int] = {}
+        # Speculative decoding: the draft proposer (None = n-gram lookup),
+        # per-source proposed / accepted / rejected totals, and the
+        # pipeline last stage's verify rounds and tokens accepted.
+        if self.cfg.speculative_tokens < 0:
+            raise ValueError("speculative_tokens must be >= 0")
+        self.draft = draft
+        self._spec_lock = make_lock("engine.spec_counts")
+        self._spec_stats: dict[str, dict[str, int]] = {}
+        self._spec_t0 = time.monotonic()
+        self.pp_spec_rounds = 0
+        self.pp_spec_tokens = 0
+        if self.cfg.speculative_tokens > 0 and not (
+            model.is_first and model.is_last
+        ):
+            logger.warning(
+                "speculative decode windows disabled: multi-stage "
+                "pipeline verifies proposals via pp-spec with a "
+                "synchronous resolve",
+            )
 
     # -- intake -----------------------------------------------------------
 
@@ -615,6 +760,19 @@ class StageEngine:
                 req.mirror_prefix_ids = prefix  # type: ignore[attr-defined]
             self.scheduler.enqueue(req)
         else:
+            # Pipeline speculation: the packet's context_len -
+            # num_new_tokens is the head's context before these tokens. A
+            # longer mirror can only hold the previous round's rejected
+            # proposals: drop them (their KV lies past the live context
+            # and is overwritten position by position).
+            prior = ireq.context_len - ireq.num_new_tokens
+            if 0 <= prior < len(req.prompt_ids):
+                excess = len(req.prompt_ids) - prior
+                del req.prompt_ids[prior:]
+                gen = getattr(req, "mirror_gen_ids", None)
+                if gen:
+                    del gen[max(0, len(gen) - excess):]
+                req.num_computed_tokens = min(req.num_computed_tokens, prior)
             if getattr(req, "last_chunk_flag", False):
                 # The prompt was complete before this packet: these tokens
                 # are generated ones.
@@ -624,6 +782,12 @@ class StageEngine:
             req.prompt_ids.extend(new_tokens)
             req.set_status(RequestStatus.PREFILLING, "mirror-chunk")
             req.ready_for_step = True
+        if ireq.spec_len > 0:
+            # The last spec_len tokens are unverified proposals; the last
+            # stage verifies them against its own logits.
+            req.pp_spec_fed = list(new_tokens)  # type: ignore[attr-defined]
+        elif hasattr(req, "pp_spec_fed"):
+            del req.pp_spec_fed
         req.last_chunk_flag = ireq.is_last_chunk  # type: ignore[attr-defined]
         if ireq.hidden_states is not None:
             h = ireq.hidden_states.to(self.device)
@@ -762,6 +926,8 @@ class StageEngine:
             return None
         if self.kv_page_signature() is None:
             return None
+        shared_fn = getattr(self.cache, "shared_prefix_tokens", None)
+        prefix = shared_fn(request.request_id) if shared_fn else 0
         datas = [tier.pool.load(h) for h in handles]
         layers = [
             torch.stack([d[i] for d in datas])
@@ -772,7 +938,7 @@ class StageEngine:
             start_layer=self.model.start_layer,
             end_layer=self.model.end_layer,
             kv_dtype=self.cfg.kv_dtype,
-            prefix_tokens=self.cache.shared_prefix_tokens(request.request_id),
+            prefix_tokens=prefix,
             computed_tokens=request.num_computed_tokens,
             layers=layers,
         )
@@ -786,7 +952,8 @@ class StageEngine:
         shared prefix; the caller then re-prefills, which is always
         correct."""
         tier = self.host_tier
-        if tier is None:
+        adopt = getattr(self.cache, "adopt_migrated", None)
+        if tier is None or adopt is None:
             return False
         if image.signature != self.kv_page_signature():
             return False
@@ -797,8 +964,7 @@ class StageEngine:
         handles = tier.store_image(image.layers)
         if handles is None:
             return False
-        if not self.cache.adopt_migrated(request, handles,
-                                         image.prefix_tokens):
+        if not adopt(request, handles, image.prefix_tokens):
             tier.free(handles)
             return False
         request.num_computed_tokens = computed
@@ -807,9 +973,11 @@ class StageEngine:
 
     def cache_digest_payload(self, full: bool = False) -> dict | None:
         """Prefix-digest delta / snapshot for cache-aware routing
-        heartbeats (None when ``cfg.cache_digests`` is off). Host state
-        only: a heartbeat thread may call it."""
-        return self.cache.digest_payload(full=full)
+        heartbeats (None when ``cfg.cache_digests`` is off or the manager
+        tracks no digests, as the native one). Host state only: a heartbeat
+        thread may call it."""
+        fn = getattr(self.cache, "digest_payload", None)
+        return fn(full=full) if fn is not None else None
 
     # -- sampling features: grammar state and telemetry -------------------
 
@@ -929,18 +1097,22 @@ class StageEngine:
     def _count_constrained(
         self, *, rows: int = 0, mask_steps: int = 0, builds: int = 0,
         cache_hits: int = 0, fallbacks: int = 0,
+        spec_mask_rejections: int = 0,
     ) -> None:
         """Bump the constrained-decoding ledger: ``rows`` / ``mask_steps``
         at window dispatch (feature rows entering a window; grammar-mask
         applications its steps will run), table builds / hits when a
-        grammar's device table is resolved, ``fallbacks`` when a feature
-        batch dropped to the host-synchronous sampler."""
+        grammar's device table is resolved, ``spec_mask_rejections`` at a
+        speculative window's resolve (proposals the grammar mask
+        excluded), ``fallbacks`` when a feature batch dropped to the
+        host-synchronous sampler."""
         with self._constrained_lock:
             st = self._constrained_stats
             for key, n in (
                 ("window_rows", rows), ("mask_steps", mask_steps),
                 ("table_builds", builds), ("table_cache_hits", cache_hits),
                 ("fallbacks", fallbacks),
+                ("spec_mask_rejections", spec_mask_rejections),
             ):
                 if n:
                     st[key] = st.get(key, 0) + int(n)
@@ -949,8 +1121,7 @@ class StageEngine:
         """How much structured-output / penalised / logprob traffic rode
         the decode window, and the grammar device-table cache's behaviour.
         None until the stage has seen a feature row in a window or a
-        fallback. The JAX engine's payload, without its speculative
-        field."""
+        fallback. The JAX engine's payload."""
         with self._constrained_lock:
             if not self._constrained_stats:
                 return None
@@ -965,6 +1136,7 @@ class StageEngine:
             "mask_steps": stats.get("mask_steps", 0),
             "table_builds": stats.get("table_builds", 0),
             "table_cache_hits": stats.get("table_cache_hits", 0),
+            "spec_mask_rejections": stats.get("spec_mask_rejections", 0),
             "fallbacks": stats.get("fallbacks", 0),
         }
 
@@ -982,6 +1154,53 @@ class StageEngine:
                 0.8 * self.layer_latency_ms_ewma + 0.2 * per_layer
             )
 
+    # -- speculative decoding: counters ------------------------------------
+
+    def _count_spec_proposed(self, source: str, n: int) -> None:
+        """``n`` proposal tokens staged from ``source`` ({ngram, draft})."""
+        if n <= 0:
+            return
+        with self._spec_lock:
+            ent = self._spec_stats.setdefault(
+                source, {"proposals": 0, "accepted": 0, "rejected": 0})
+            ent["proposals"] += int(n)
+
+    def _count_spec_result(self, source: str, accepted: int,
+                           rejected: int) -> None:
+        """Verification outcome for one row's window or round: ``accepted``
+        proposal tokens survived (committed), ``rejected`` fed proposals
+        were computed and discarded."""
+        with self._spec_lock:
+            ent = self._spec_stats.setdefault(
+                source, {"proposals": 0, "accepted": 0, "rejected": 0})
+            ent["accepted"] += int(accepted)
+            ent["rejected"] += int(rejected)
+
+    def spec_summary(self) -> dict | None:
+        """The ``spec`` payload for /status, heartbeats and /cluster/status
+        (the JAX engine's): per-source proposed / accepted / rejected
+        totals, the acceptance rate and accepted tokens per second since
+        the engine started. None while speculation is off."""
+        if self.cfg.speculative_tokens <= 0:
+            return None
+        with self._spec_lock:
+            by_source = {k: dict(v) for k, v in self._spec_stats.items()}
+        acc = sum(v["accepted"] for v in by_source.values())
+        rej = sum(v["rejected"] for v in by_source.values())
+        elapsed = max(1e-9, time.monotonic() - self._spec_t0)
+        return {
+            "enabled": True,
+            "width": self.cfg.speculative_tokens,
+            "proposals": sum(v["proposals"] for v in by_source.values()),
+            "accepted": acc,
+            "rejected": rej,
+            "acceptance_rate": (
+                round(acc / (acc + rej), 4) if acc + rej else 0.0
+            ),
+            "accepted_tokens_per_chip_second": round(acc / elapsed, 3),
+            "by_source": by_source,
+        }
+
     # -- kernel accounting -------------------------------------------------
 
     def _count_kernel_dispatch(self, path: str, impl: str, n: int = 1) -> None:
@@ -993,7 +1212,10 @@ class StageEngine:
         shows which path served it (``cuda-fused``, ``cuda-split`` or
         ``torch``). Paths: ``prefill`` and ``decode`` count forward steps
         of the single-step path, ``multistep`` the forward steps of decode
-        windows (m * k a chain), ``sample`` the sampler's calls. With CUDA
+        windows (m * k a chain), ``spec`` the verify forwards of
+        speculative windows (m * k a chain), ``spec_verify`` those of the
+        host-synchronous speculative fallback, ``sample`` the sampler's
+        calls. With CUDA
         graphs on, ``graphs`` counts the captured graphs, the window steps
         they replayed, the host seconds their warm-up, recording and
         instantiation took and the kernel launches of the warm-up steps
@@ -1053,6 +1275,27 @@ class StageEngine:
         ticket = self._dispatch_multistep(plan, t0)
         if ticket is not None:
             return ticket
+        # Host-synchronous speculative verify (K = 1, or a window the
+        # planner could not page). Rows fed from the device's last-token
+        # array are excluded: no proposal can continue a context whose
+        # last token the host does not know yet.
+        fed_rows = any(seg.device_token for seg in plan.seqs)
+        if (not fed_rows and self.cfg.speculative_tokens > 0
+                and self.model.is_first):
+            if self.model.is_last:
+                ticket = self._dispatch_speculative(plan, t0)
+                if ticket is not None:
+                    return ticket
+            else:
+                self._extend_plan_pp_spec(plan)
+        # Last stage of a pipeline: rows carrying unverified proposals are
+        # verified at every fed position.
+        spec_rows: dict[int, list[int]] = {}
+        if self.model.is_last and not self.model.is_first:
+            for i, seg in enumerate(plan.seqs):
+                fed = getattr(seg.request, "pp_spec_fed", None)
+                if fed is not None and seg.num_new_tokens == len(fed):
+                    spec_rows[i] = fed
         hidden = None
         if not self.model.is_first:
             hidden = torch.cat([
@@ -1064,10 +1307,11 @@ class StageEngine:
         inputs = assemble(
             plan, self.spec, self.cfg.page_size, self.device,
             hidden_states=hidden, decode_only=decode_only,
+            gather_all_logits=bool(spec_rows),
             decode_fused=self._decode_fused,
             prefill_fused=self._prefill_fused, staging=self._staging,
         )
-        if any(seg.device_token for seg in plan.seqs):
+        if fed_rows:
             inputs = self._substitute_feed(plan, inputs)
         out = self._forward(inputs)
         self._count_kernel_dispatch(
@@ -1083,7 +1327,9 @@ class StageEngine:
         if self.host_hidden:
             (ticket.hidden_host,), ticket.ready = self._to_host(
                 out[:plan.total_new_tokens])
-        if self.model.is_last:
+        if spec_rows:
+            self._enqueue_pp_verify(ticket, spec_rows)
+        elif self.model.is_last:
             ticket.tokens_dev, lp_dev = self._enqueue_sample(
                 plan, inputs, out, step_idx)
             host, ticket.ready = self._to_host(
@@ -1111,8 +1357,12 @@ class StageEngine:
             self._inflight.remove(ticket)
         if ticket.outputs is not None:
             return ticket.outputs
+        if ticket.ms_counts is not None:
+            return self._resolve_spec_multistep(ticket)
         if ticket.ms_windows is not None:
             return self._resolve_multistep(ticket)
+        if ticket.spec_verify is not None:
+            return self._resolve_speculative(ticket)
         plan = ticket.plan
         t_r0 = time.perf_counter()
         device_ms = 0.0
@@ -1129,6 +1379,11 @@ class StageEngine:
                 forwards = self._emit_hidden(plan, host)
             elif not self.model.is_last:
                 forwards = self._emit_hidden(plan, ticket.out)
+            elif ticket.spec_rows:
+                tb = time.perf_counter()
+                self._wait(ticket.ready)
+                device_ms = (time.perf_counter() - tb) * 1000.0
+                forwards = self._verify_and_emit(plan, ticket)
             else:
                 tb = time.perf_counter()
                 self._wait(ticket.ready)
@@ -1677,29 +1932,72 @@ class StageEngine:
         point — and resolve() commits at most each row's produced
         count. Rows with sampling features ride the window with their
         feature state (``_window_feature_flags``); a batch that cannot
-        falls back to the host-synchronous sampler."""
+        falls back to the host-synchronous sampler. With speculation on,
+        the window is the speculative one when its pages at the verify
+        width can be reserved and some row got a proposal."""
         k = self._effective_lookahead()
         if k <= 1 or not self._fused_common_ok(plan, allow_features=True):
             return None
         feats = self._window_feature_flags(plan)
         if feats is None:
             return None
-        m = self.scheduler.plan_decode_window(
-            plan, k, max_windows=max(1, self.cfg.decode_pipeline),
-            max_model_len=self.cfg.max_model_len,
-        )
+        windows = max(1, self.cfg.decode_pipeline)
+        m = spec_w = 0
+        if self.cfg.speculative_tokens > 0:
+            s_bucket = next_bucket(max(len(plan.seqs), 1),
+                                   self.spec.seq_buckets)
+            spec_w = self._spec_window_width(s_bucket)
+        if spec_w > 0:
+            # Worst case: every proposal accepted, K * (1 + width) tokens a
+            # row a window. A window the planner cannot page at that width
+            # retries plain before dropping to K=1.
+            m = self.scheduler.plan_decode_window(
+                plan, k, max_windows=windows,
+                max_model_len=self.cfg.max_model_len, spec=spec_w,
+            )
+            if m <= 0:
+                spec_w = 0
+        if m <= 0:
+            m = self.scheduler.plan_decode_window(
+                plan, k, max_windows=windows,
+                max_model_len=self.cfg.max_model_len,
+            )
         if m <= 0:
             # Soft fallback to K=1: the normal path probes +1 token itself
             # and owns the kv_oom decision.
             return None
+        props = sources = None
+        if spec_w > 0:
+            # Proposals are staged only now that the pages are reserved:
+            # page pressure never burns a draft forward. No proposal hit
+            # anywhere: the plain window runs on the reservation held.
+            props, sources = self._stage_spec_proposals(plan, k, spec_w)
+        if props is None:
+            spec_w = 0
+        return self._dispatch_window(plan, t0, k, m, feats, spec_w, props,
+                                     sources)
+
+    def _dispatch_window(self, plan: BatchPlan, t0: float, k: int, m: int,
+                         feats: tuple, spec: int = 0,
+                         props: np.ndarray | None = None,
+                         sources: list | None = None) -> StepTicket:
+        """Enqueue a chain of ``m`` windows of ``k`` steps over ``plan``
+        and return its ticket. ``spec > 0`` makes it the speculative
+        window (``_spec_window_step``): every step feeds each row ``1 +
+        spec`` tokens, its fed token and the next ``spec`` entries of its
+        staged proposals ``props``, verified in one multi-token forward
+        (the fused prefill path), with the widened batch S x (1 + spec)
+        tokens."""
         sampled = any(
             seg.request.sampling_params.temperature > 0.0
             or seg.request.sampling_params.seed is not None
             for seg in plan.seqs
         )
-        fused_sample = sampled and self._fused_sample_ok(plan)
+        fused_sample = (sampled and not spec
+                        and self._fused_sample_ok(plan))
         # The window's batch has the K=1 decode step's shapes and flags,
-        # so its first step is that step, bit for bit.
+        # so its first step is that step, bit for bit. A speculative
+        # window widens it (below).
         decode_only = self._use_decode_flag
         inputs = assemble(
             plan, self.spec, self.cfg.page_size, self.device,
@@ -1709,24 +2007,44 @@ class StageEngine:
         if any(seg.device_token for seg in plan.seqs):
             inputs = self._substitute_feed(plan, inputs)
         s = int(inputs.kv_lens.shape[0])
-        t = int(inputs.token_ids.shape[0])
+        w = spec + 1
+        t = s * w if spec else int(inputs.token_ids.shape[0])
         put = self._staging.put
         stop_tokens, limits, min_req = self._pack_stop_state(plan, s)
         rows = max(1, self.cfg.decode_pipeline) * k
         limit = put("ms_limit", limits)
+        cu_q_lens, logits_indices = inputs.cu_q_lens, inputs.logits_indices
+        if spec:
+            # Every real row owns w contiguous token slots; logits at every
+            # fed position.
+            n_real = len(plan.seqs)
+            cu = np.zeros((s + 1,), np.int32)
+            cu[1 : n_real + 1] = (np.arange(n_real, dtype=np.int32) + 1) * w
+            cu[n_real + 1 :] = cu[n_real]
+            cu_q_lens = put("ms_spec_cu", cu)
+            logits_indices = put("ms_spec_li", np.arange(t, dtype=np.int32))
         st = WindowState(
-            page_indices=inputs.page_indices, cu_q_lens=inputs.cu_q_lens,
-            num_seqs=inputs.num_seqs, logits_indices=inputs.logits_indices,
+            page_indices=inputs.page_indices, cu_q_lens=cu_q_lens,
+            num_seqs=inputs.num_seqs, logits_indices=logits_indices,
             feed=_fit(inputs.token_ids, s, 0).clone(),
             ctx=inputs.kv_lens.clone(),
             stopped=limit <= 0,
             produced=torch.zeros((s,), dtype=torch.int32, device=self.device),
             counter=torch.zeros((1,), dtype=torch.int64, device=self.device),
-            tokens=torch.zeros((rows, s), dtype=torch.int32,
-                               device=self.device),
+            tokens=torch.zeros((rows, s) + ((w,) if spec else ()),
+                               dtype=torch.int32, device=self.device),
             stop_tokens=put("ms_stop_tokens", stop_tokens), limit=limit,
             min_req=put("ms_min_req", min_req),
         )
+        if spec:
+            props_pad = np.full((s, props.shape[1]), -1, np.int32)
+            props_pad[: props.shape[0]] = props
+            st.props = put("ms_props", props_pad)
+            st.counts = torch.zeros((rows, s), dtype=torch.int32,
+                                    device=self.device)
+            if "gram" in feats:
+                st.rejs = torch.zeros((rows, s), dtype=torch.int32,
+                                      device=self.device)
         step_idx = self._step_count
         if sampled:
             temp, top_k, top_p, min_p, seeds, steps0 = (
@@ -1746,44 +2064,68 @@ class StageEngine:
             self._count_constrained(
                 rows=sum(1 for seg in plan.seqs
                          if self._row_has_features(seg.request)),
-                mask_steps=n_gram * n if "gram" in feats else 0,
+                mask_steps=n_gram * n * w if "gram" in feats else 0,
             )
         self.window_feature_counts[feats] = (
             self.window_feature_counts.get(feats, 0) + 1)
-        flags = dict(decode_only=inputs.decode_only,
-                     decode_fused=inputs.decode_fused,
-                     prefill_fused=inputs.prefill_fused)
+        if spec:
+            # The verify forward is multi-token: the fused prefill path.
+            flags = dict(decode_only=False, decode_fused=False,
+                         prefill_fused=self._prefill_fused)
 
-        def step(state: WindowState) -> None:
-            self._window_step(state, t, sampled, fused_sample, flags)
+            def step(state: WindowState) -> None:
+                self._spec_window_step(state, spec, sampled, flags, feats)
+        else:
+            flags = dict(decode_only=inputs.decode_only,
+                         decode_fused=inputs.decode_fused,
+                         prefill_fused=inputs.prefill_fused)
+
+            def step(state: WindowState) -> None:
+                self._window_step(state, t, sampled, fused_sample, flags)
 
         if self._graphs is not None:
             # Every shape the step bakes in (batch, pages, stop-set width,
-            # chain rows, feature buffers) and every branch it takes.
-            key = (t, sampled, fused_sample, feats,
+            # chain rows, feature buffers, verify width) and every branch
+            # it takes.
+            key = (t, spec, sampled, fused_sample, feats,
                    tuple((name, tuple(x.shape)) for name, x in st._tensors()))
             st = self._graphs.run(key, st, step, n)
         else:
             for _ in range(n):
                 step(st)
-        self._count_kernel_dispatch("multistep", self._attn_impl, n)
+        if spec:
+            self._count_kernel_dispatch("spec", self._prefill_impl, n)
+        else:
+            self._count_kernel_dispatch("multistep", self._attn_impl, n)
         if sampled:
+            # A speculative feature window draws at each of its w
+            # positions in turn.
             self._count_kernel_dispatch(
                 "sample", kernel_select.IMPL_FUSED if fused_sample
-                else kernel_select.IMPL_TORCH, n)
+                else kernel_select.IMPL_TORCH, n * w if spec and feats else n)
         self._last_fused_steps = n
         # Advance scheduler bookkeeping exactly like a single decode step
         # (+1 computed per row, rows un-ready until their tokens resolve);
         # resolve() adds the remaining commits.
         self.scheduler.on_batch_computed(plan)
         self._step_count += 1
+        extra = [x for x in (st.lps, st.rejs) if x is not None]
         host, ready = self._to_host(
-            st.tokens, st.produced, *(() if st.lps is None else (st.lps,)))
+            st.tokens, st.counts if spec else st.produced, *extra)
         ticket = StepTicket(
             plan=plan, step_idx=step_idx, t0=t0, ms_windows=host[0],
-            ms_state=host[1], ready=ready, dispatch_seq=self._dispatch_seq,
+            ready=ready, dispatch_seq=self._dispatch_seq,
             ms_lp=host[2] if st.lps is not None else None,
         )
+        if spec:
+            ticket.ms_counts = host[1]
+            ticket.ms_rej = host[-1] if st.rejs is not None else None
+            ticket.spec_meta = {
+                "width": spec, "sources": sources, "props": props,
+                "lengths": (props >= 0).sum(axis=1).tolist(),
+            }
+        else:
+            ticket.ms_state = host[1]
         ticket.host_ms = (time.perf_counter() - t0) * 1000.0
         self._inflight.append(ticket)
         return ticket
@@ -1850,6 +2192,623 @@ class StageEngine:
             overlapped=self._dispatch_seq != ticket.dispatch_seq,
         )
 
+    # -- speculative decoding ---------------------------------------------
+
+    # Host-side proposal scan is bounded to this many trailing tokens per
+    # sequence, so the per-step cost stays O(batch * window).
+    _SPEC_LOOKBACK = 512
+
+    @classmethod
+    def _ngram_proposal(cls, tokens: list[int], n: int, k: int) -> list[int]:
+        """Propose up to ``k`` continuation tokens (prompt-lookup decoding,
+        the JAX engine's rule): find the most recent earlier occurrence of
+        the trailing ``n``-gram within the lookback window and copy what
+        followed it. A match whose continuation runs to the end of the
+        sequence means the stream is periodic with the match distance as
+        its period, so the copied span cycles to fill ``k``. Wrong
+        proposals only cost acceptance, never correctness."""
+        if k <= 0 or len(tokens) <= n:
+            return []
+        window = tokens[-cls._SPEC_LOOKBACK:]
+        tail = window[-n:]
+        for start in range(len(window) - n - 1, -1, -1):
+            if window[start:start + n] == tail:
+                follow = window[start + n : start + n + k]
+                if not follow:
+                    continue
+                if len(follow) < k and start + n + len(follow) == len(window):
+                    d = len(window) - n - start
+                    follow = [
+                        window[start + n + (j % d)] for j in range(k)
+                    ]
+                return list(follow)[:k]
+        return []
+
+    def _propose(self, contexts: list[list[int]], budgets: list[int]
+                 ) -> tuple[list[list[int]], str]:
+        """Proposals for each context within its budget, and their source:
+        the draft engine's (one run for every row) or n-gram lookup."""
+        if self.draft is not None:
+            rows = [i for i, b in enumerate(budgets) if b > 0]
+            drafted = self.draft.propose_batch(
+                [contexts[i] for i in rows], [budgets[i] for i in rows]
+            ) if rows else []
+            out: list[list[int]] = [[] for _ in budgets]
+            for i, prop in zip(rows, drafted):
+                out[i] = list(prop)[: budgets[i]]
+            return out, "draft"
+        return [
+            list(self._ngram_proposal(ctx, self.cfg.speculative_ngram,
+                                      b))[:b] if b > 0 else []
+            for ctx, b in zip(contexts, budgets)
+        ], "ngram"
+
+    def _spec_window_width(self, s_bucket: int) -> int:
+        """Verify width of a speculative window over a batch of
+        ``s_bucket`` rows (0 = plain window): a single full stage, and the
+        S x (1 + width) token rows within the batch token budget. Cheap:
+        no proposal work happens until the window's pages are reserved."""
+        p = self.cfg.speculative_tokens
+        if p <= 0 or not (self.model.is_first and self.model.is_last):
+            return 0
+        while p > 0 and s_bucket * (1 + p) > \
+                self.cfg.max_num_tokens_per_batch:
+            p -= 1
+        return max(0, p)
+
+    def _stage_spec_proposals(self, plan: BatchPlan, k: int, p: int):
+        """Per-row proposal buffers for an already-paged speculative
+        window: ``(props i32[rows, L], sources)``, or ``(None, None)`` when
+        no row got a proposal. Device-fed rows (their last token is not on
+        the host yet) stage an empty buffer and ride the window as plain
+        decode. A buffer holds at most what the window can consume, ``k *
+        (1 + p) - 1`` tokens, within each row's context and generation
+        budget; its length is that cap's power of 2, so staging depth never
+        changes the graph key."""
+        cap = k * (1 + p) - 1
+        budgets: list[int] = []
+        for seg in plan.seqs:
+            req = seg.request
+            sp = req.sampling_params
+            if seg.device_token:
+                budgets.append(0)
+                continue
+            budgets.append(max(0, min(
+                cap,
+                self.cfg.max_model_len - req.total_len - 1,
+                sp.max_new_tokens - req.num_generated - 1,
+            )))
+        proposals, source = self._propose(
+            [seg.request.all_token_ids for seg in plan.seqs], budgets)
+        if not any(proposals):
+            return None, None
+        props = np.full((len(plan.seqs), _pow2(cap)), -1, np.int32)
+        sources: list[str | None] = []
+        for i, prop in enumerate(proposals):
+            props[i, : len(prop)] = prop
+            sources.append(source if prop else None)
+        self._count_spec_proposed(source, sum(map(len, proposals)))
+        return props, sources
+
+    def _spec_window_step(self, st: WindowState, spec: int, sampled: bool,
+                          flags: dict, feats: tuple) -> None:
+        """One step of a speculative window, on tensors only (the scan body
+        of the JAX package's ``_build_spec_multistep``). Each row feeds its
+        token and the next ``spec`` entries of its proposals (read at its
+        produced count; -1 past the buffer), one forward over the widened
+        batch gives logits at every fed position, the target at each is
+        the argmax or the row's draw (seeded rows keyed by their output
+        step, as the K=1 path draws them), and ``speculative_accept``
+        commits the agreeing prefix plus the correction token, truncated
+        by the stop predicate. Rejected positions' KV lies past the new
+        context and is overwritten by the next step (the context pointer
+        advances by the commit count only); stopped rows write slot -1
+        and repeat their feed. With sampling features (``feats``) the
+        positions are walked in order, each one's penalties and grammar
+        row advanced through the FED tokens before it, which is exact
+        wherever the accept rule can commit; the carried state is then
+        recomputed from the committed tokens."""
+        page = self.cfg.page_size
+        w = spec + 1
+        dev = st.feed.device
+        s = st.feed.shape[0]
+        plen = st.props.shape[1]
+        pidx = st.produced[:, None] + torch.arange(
+            spec, dtype=torch.int32, device=dev)[None, :]
+        props = torch.where(
+            pidx < plen,
+            torch.gather(st.props, 1, torch.clamp(pidx, 0, plen - 1).long()),
+            -1)
+        fed = torch.cat([st.feed[:, None], props], dim=1)          # [S, w]
+        jw = torch.arange(w, dtype=torch.int32, device=dev)
+        pos = torch.clamp_min((st.ctx - 1)[:, None] + jw[None, :], 0)
+        pps = st.page_indices.shape[1]
+        phys = torch.gather(st.page_indices, 1,
+                            torch.clamp(pos // page, max=pps - 1).long())
+        live = (st.ctx > 0) & ~st.stopped
+        slots = torch.where(live[:, None], phys * page + pos % page, -1)
+        # A stopped row attends over at least its w fed positions (its
+        # outputs are discarded; it must only stay in bounds).
+        kv_lens = torch.where(
+            st.stopped, torch.where(st.ctx > 0, torch.clamp_min(st.ctx, w),
+                                    st.ctx), st.ctx + spec)
+        inputs = BatchInputs(
+            token_ids=torch.clamp_min(fed, 0).reshape(-1).to(torch.int32),
+            hidden_states=None, positions=pos.reshape(-1).to(torch.int32),
+            kv_lens=kv_lens.to(torch.int32), page_indices=st.page_indices,
+            cu_q_lens=st.cu_q_lens, num_seqs=st.num_seqs,
+            slot_mapping=slots.reshape(-1).to(torch.int32),
+            logits_indices=st.logits_indices, **flags,
+        )
+        logits = self._forward(inputs)                              # [S*w, V]
+        v = logits.shape[-1]
+        jw64 = jw.to(torch.int64)[None, :]
+
+        def noise_steps(j):
+            # Seeded rows: their output step; unseeded rows: a step of the
+            # window's own range per (counter, position).
+            return torch.where(
+                st.seeds[:, None] >= 0,
+                st.steps0[:, None] + st.produced.to(torch.int64)[:, None] + j,
+                st.steps0[:, None] + st.counter * w + j)
+
+        dfa_traj = []
+        lp = None
+        if not feats:
+            if sampled:
+                gumbel = gumbel_rows(
+                    st.seeds.repeat_interleave(w),
+                    noise_steps(jw64).reshape(-1), self.cfg.seed, v)
+                g = sample_tokens(
+                    logits, st.temp.repeat_interleave(w),
+                    st.top_k.repeat_interleave(w),
+                    st.top_p.repeat_interleave(w),
+                    st.min_p.repeat_interleave(w), gumbel).reshape(s, w)
+            else:
+                g = greedy_tokens(logits).reshape(s, w)
+        else:
+            logits3 = logits.reshape(s, w, v)
+            counts_j = st.pen_counts
+            dfa_j = st.dfa
+            g_cols, lp_cols = [], []
+            for j in range(w):
+                lj = logits3[:, j]
+                if counts_j is not None:
+                    lj = apply_penalties(lj, counts_j, st.pen_pres,
+                                         st.pen_freq, st.pen_rep)
+                if st.bias_rows is not None:
+                    lj = bias_logits(lj, st.bias_rows, st.bias_vecs)
+                if dfa_j is not None:
+                    dfa_traj.append(dfa_j)
+                    lj = mask_logits_packed(lj, st.g_allowed[dfa_j.long()],
+                                            st.g_constrained)
+                if sampled:
+                    gumbel = gumbel_rows(st.seeds, noise_steps(j)[:, 0],
+                                         self.cfg.seed, v)
+                    gj = sample_tokens(lj, st.temp, st.top_k, st.top_p,
+                                       st.min_p, gumbel)
+                else:
+                    gj = greedy_tokens(lj)
+                g_cols.append(gj)
+                if st.lps is not None:
+                    lp_cols.append(token_logprobs(lj, gj))
+                if j < w - 1:
+                    nxt = fed[:, j + 1]
+                    valid = nxt >= 0
+                    if counts_j is not None:
+                        counts_j = counts_j.scatter_add(
+                            1, torch.clamp_min(nxt, 0).long()[:, None],
+                            valid.to(torch.int32)[:, None])
+                    if dfa_j is not None:
+                        vg = st.g_trans.shape[1]
+                        adv = st.g_trans[dfa_j.long(),
+                                         torch.clamp(nxt, 0, vg - 1).long()]
+                        adv = torch.where(nxt < vg, adv, st.g_dead)
+                        dfa_j = torch.where(st.g_constrained & valid, adv,
+                                            dfa_j)
+            g = torch.stack(g_cols, dim=1)
+            if lp_cols:
+                lp = torch.stack(lp_cols, dim=1)
+        c, froze = speculative_accept(g, props, st.produced, st.stop_tokens,
+                                      st.min_req, st.limit, st.stopped)
+        if st.pen_counts is not None:
+            for j in range(w):
+                st.pen_counts.scatter_add_(
+                    1, g[:, j].long()[:, None],
+                    (j < c).to(torch.int32)[:, None])
+        if st.dfa is not None:
+            vg = st.g_trans.shape[1]
+            dfa = st.dfa.clone()
+            for j in range(w):
+                adv = st.g_trans[dfa.long(),
+                                 torch.clamp(g[:, j], 0, vg - 1).long()]
+                adv = torch.where(g[:, j] < vg, adv, st.g_dead)
+                dfa = torch.where((j < c) & st.g_constrained, adv, dfa)
+            st.dfa.copy_(dfa)
+            # The correction position held a real proposal the grammar
+            # mask excluded (the masked target could never match it).
+            cm1 = torch.clamp_min(c - 1, 0).long()[:, None]
+            if spec > 0:
+                prop_at = torch.gather(
+                    props, 1, torch.clamp_max(cm1, spec - 1))[:, 0]
+            else:
+                prop_at = torch.full_like(c, -1)
+            g_at = torch.gather(g, 1, cm1)[:, 0]
+            dfa_at = torch.gather(torch.stack(dfa_traj, dim=1), 1, cm1)[:, 0]
+            rej = (st.g_constrained & (c > 0) & (cm1[:, 0] < spec)
+                   & (prop_at >= 0) & (prop_at != g_at)
+                   & ~token_in_mask(st.g_allowed[dfa_at.long()], prop_at))
+            st.rejs.index_copy_(0, st.counter, rej.to(torch.int32)[None])
+        if lp is not None:
+            st.lps.index_copy_(0, st.counter, lp[None])
+        st.tokens.index_copy_(0, st.counter, g[None])
+        st.counts.index_copy_(0, st.counter, c[None])
+        st.produced.add_(c)
+        st.ctx.add_(c)
+        st.stopped.logical_or_(froze)
+        last = torch.gather(g, 1, torch.clamp_min(c - 1, 0).long()[:, None])
+        st.feed.copy_(torch.where(c > 0, last[:, 0], st.feed))
+        st.counter.add_(1)
+
+    def _resolve_spec_multistep(self, ticket: StepTicket) -> StepOutputs:
+        """Complete a speculative window chain: ONE D2H pass for every
+        step's targets ``[rows, S, 1 + P]`` and commit counts ``[rows,
+        S]`` (copies started at dispatch), then per-token commits bounded
+        by the device's counts, each advancing the row's host DFA state —
+        so the radix tree, the grammar and the counters see exactly the
+        accepted stream. A committed token at window output index d was an
+        accepted proposal iff it equals the staged entry d the device fed
+        there."""
+        plan = ticket.plan
+        t_r0 = time.perf_counter()
+        meta = ticket.spec_meta or {}
+        sources = meta.get("sources") or []
+        lengths = meta.get("lengths") or []
+        props = meta.get("props")
+        try:
+            tb = time.perf_counter()
+            self._wait(ticket.ready)
+            device_ms = (time.perf_counter() - tb) * 1000.0
+            toks = ticket.ms_windows.numpy()                 # [R, S, w]
+            cnts = ticket.ms_counts.numpy()                  # [R, S]
+            lp = None if ticket.ms_lp is None else ticket.ms_lp.numpy()
+            if ticket.ms_rej is not None:
+                rej_total = int(ticket.ms_rej.numpy().sum())
+                if rej_total:
+                    self._count_constrained(spec_mask_rejections=rej_total)
+            w = int(toks.shape[2])
+            total = 0
+            for i, seg in enumerate(plan.seqs):
+                req = seg.request
+                want_lp = lp is not None and req.sampling_params.logprobs
+                committed = dev_committed = fed_props = accepted = 0
+                plen = lengths[i] if i < len(lengths) else 0
+                for it in range(toks.shape[0]):
+                    c = int(cnts[it, i])
+                    if c <= 0:
+                        continue
+                    fed_props += min(w - 1, max(0, plen - dev_committed))
+                    for j in range(c):
+                        d = dev_committed + j
+                        if (props is not None and d < plen
+                                and int(toks[it, i, j]) == int(props[i, d])):
+                            accepted += 1
+                    dev_committed += c
+                    for j in range(c):
+                        if req.status.is_finished:
+                            break
+                        tok = int(toks[it, i, j])
+                        req.commit_token(
+                            tok, float(lp[it, i, j]) if want_lp else None)
+                        self._advance_grammar(req, tok)
+                        committed += 1
+                    if req.status.is_finished:
+                        break
+                src = sources[i] if i < len(sources) else None
+                if src is not None:
+                    accepted = min(accepted, fed_props)
+                    self._count_spec_result(src, accepted,
+                                            fed_props - accepted)
+                # Every committed token's predecessor was fed; dispatch
+                # counted one step (as in the plain window).
+                req.num_computed_tokens += committed - 1
+                req.ready_for_step = not req.status.is_finished
+                total += committed
+        except Exception:
+            self._abandon(plan)
+            raise
+        return self._multistep_outputs(ticket, total, t_r0, device_ms)
+
+    def _verify_targets(self, logits: torch.Tensor, entries: list,
+                        step_idx: int) -> torch.Tensor:
+        """Target token at every fed position of a host-synchronous verify,
+        i32[T]: the argmax when every verified row is greedy, else the
+        split sampler at every position with its row's parameters, a
+        seeded row's position j keyed by its output step ``origin + j`` (so
+        a seeded stream is the same with speculation on or off). ``entries``
+        are (request, lo, hi, origin) spans of fed positions; positions
+        outside them draw greedily (their targets are not read)."""
+        if all(req.sampling_params.temperature <= 0.0
+               and req.sampling_params.seed is None
+               for req, _lo, _hi, _o in entries):
+            return greedy_tokens(logits)
+        t, v = logits.shape
+        temp = np.zeros((t,), np.float32)
+        top_k = np.zeros((t,), np.int32)
+        top_p = np.ones((t,), np.float32)
+        min_p = np.zeros((t,), np.float32)
+        seeds = np.full((t,), -1, np.int64)
+        steps = np.full((t,), _VERIFY_NOISE_STEPS + step_idx, np.int64)
+        for req, lo, hi, origin in entries:
+            (temp[lo:hi], top_k[lo:hi], top_p[lo:hi], min_p[lo:hi], seed,
+             _o) = self._row_sampling_fields(req)
+            if seed >= 0:
+                seeds[lo:hi] = seed
+                steps[lo:hi] = origin + np.arange(hi - lo)
+        put = self._staging.put
+        gumbel = gumbel_rows(put("vf_seeds", seeds), put("vf_steps", steps),
+                             self.cfg.seed, v)
+        self._count_kernel_dispatch("sample", kernel_select.IMPL_TORCH)
+        return sample_tokens(logits, put("vf_temp", temp),
+                             put("vf_top_k", top_k), put("vf_top_p", top_p),
+                             put("vf_min_p", min_p), gumbel)
+
+    def _dispatch_speculative(self, plan: BatchPlan,
+                              t0: float) -> StepTicket | None:
+        """The host-synchronous speculative fallback (K = 1, or a window
+        the planner could not page): extend each decode row with its
+        proposal, enqueue one verify forward over the ragged multi-token
+        batch (the fused prefill path) and the targets at every fed
+        position, and return a ``sync_only`` ticket;
+        ``_resolve_speculative`` applies the accept rule and commits.
+        None = use the plain path (feature rows, no proposal, no pages).
+        Rejected positions' KV lies past the committed context and is
+        overwritten by later steps."""
+        k = self.cfg.speculative_tokens
+        if k <= 0 or not self._fused_common_ok(plan):
+            return None
+        spare = self.cfg.max_num_tokens_per_batch - len(plan.seqs)
+        budgets = [
+            min(k, max(0, spare),
+                self.cfg.max_model_len - seg.request.total_len - 1)
+            for seg in plan.seqs
+        ]
+        proposals, source = self._propose(
+            [seg.request.all_token_ids for seg in plan.seqs], budgets)
+        # The shared token budget, in row order.
+        for i, prop in enumerate(proposals):
+            proposals[i] = prop[: max(0, spare)]
+            spare -= len(proposals[i])
+        if not any(proposals):
+            return None
+        for seg, prop in zip(plan.seqs, proposals):
+            if not self.cache.ensure_capacity(
+                seg.request, seg.request.total_len + len(prop)
+            ):
+                return None   # soft fallback; the plain path owns aborts
+        self._count_spec_proposed(source, sum(map(len, proposals)))
+        spec_plan = BatchPlan([
+            ScheduledSeq(
+                request=seg.request,
+                num_new_tokens=1 + len(prop),
+                token_ids=list(seg.token_ids) + prop,
+                context_len=seg.context_len + len(prop),
+            )
+            for seg, prop in zip(plan.seqs, proposals)
+        ])
+        inputs = assemble(
+            spec_plan, self.spec, self.cfg.page_size, self.device,
+            gather_all_logits=True, prefill_fused=self._prefill_fused,
+            staging=self._staging,
+        )
+        out = self._forward(inputs)
+        self._count_kernel_dispatch("spec_verify", self._prefill_impl)
+        step_idx = self._step_count
+        self._step_count += 1
+        entries, row = [], 0
+        for seg in spec_plan.seqs:
+            origin = self._row_sampling_fields(seg.request)[-1]
+            entries.append((seg.request, row, row + seg.num_new_tokens,
+                            origin))
+            row += seg.num_new_tokens
+        targets = self._verify_targets(out, entries, step_idx)
+        (host,), ready = self._to_host(targets)
+        ticket = StepTicket(
+            plan=plan, step_idx=step_idx, t0=t0, inputs=inputs, out=out,
+            tokens_host=host, ready=ready, sync_only=True,
+            dispatch_seq=self._dispatch_seq,
+            spec_verify=(spec_plan, proposals, source),
+        )
+        ticket.host_ms = (time.perf_counter() - t0) * 1000.0
+        self._inflight.append(ticket)
+        return ticket
+
+    def _resolve_speculative(self, ticket: StepTicket) -> StepOutputs:
+        """Complete a host-synchronous verify: commit each row's longest
+        agreeing prefix plus the correction / bonus token."""
+        plan = ticket.plan
+        spec_plan, proposals, source = ticket.spec_verify
+        t_r0 = time.perf_counter()
+        try:
+            tb = time.perf_counter()
+            self._wait(ticket.ready)
+            device_ms = (time.perf_counter() - tb) * 1000.0
+            verified = ticket.tokens_host.numpy()
+            total = row = 0
+            for seg, prop in zip(spec_plan.seqs, proposals):
+                req = seg.request
+                n_fed = seg.num_new_tokens
+                g = verified[row : row + n_fed]
+                row += n_fed
+                committed = 0
+                for j in range(n_fed):
+                    if req.status.is_finished:
+                        break
+                    req.commit_token(int(g[j]))
+                    committed += 1
+                    # Keep accepting while the next fed token agrees with
+                    # what verification produced at this position.
+                    if j < len(prop) and prop[j] != int(g[j]):
+                        break
+                req.num_computed_tokens += committed
+                req.ready_for_step = not req.status.is_finished
+                total += committed
+                if prop:
+                    # A committed token was an accepted proposal iff it
+                    # equals the proposal at its position.
+                    acc = sum(1 for j in range(min(committed, len(prop)))
+                              if int(g[j]) == prop[j])
+                    self._count_spec_result(source, acc, len(prop) - acc)
+        except Exception:
+            self._abandon(plan)
+            raise
+        return self._multistep_outputs(ticket, total, t_r0, device_ms)
+
+    # -- pipeline speculation ---------------------------------------------
+
+    def _extend_plan_pp_spec(self, plan: BatchPlan) -> None:
+        """Multi-stage head: extend eligible decode rows with proposals, so
+        every stage runs 1 + k tokens for them in one dispatch; the last
+        stage verifies (``pp_spec_fed``), the ring returns
+        ``spec_accepted`` and ``commit_spec_result`` rewinds the rejects.
+        Rows keep their plan slot; only their tokens and context grow.
+        Sampled rows are eligible (the last stage verifies them in
+        lockstep); rows with sampling features are not."""
+        k = self.cfg.speculative_tokens
+        spare = self.cfg.max_num_tokens_per_batch - plan.total_new_tokens
+        contexts, budgets, rows = [], [], []
+        for idx, seg in enumerate(plan.seqs):
+            req = seg.request
+            if (seg.num_new_tokens != 1
+                    or req.status is not RequestStatus.DECODING
+                    or getattr(req, "pp_spec_k", 0)
+                    or req.replay_ids
+                    or self._row_has_features(req)):
+                continue
+            budget = min(k, max(0, spare),
+                         self.cfg.max_model_len - req.total_len - 1)
+            if budget <= 0:
+                continue
+            contexts.append(req.all_token_ids)
+            budgets.append(budget)
+            rows.append(idx)
+        if not rows:
+            return
+        proposals, _source = self._propose(contexts, budgets)
+        for idx, prop in zip(rows, proposals):
+            seg = plan.seqs[idx]
+            req = seg.request
+            prop = prop[: max(0, spare)]
+            if not prop or not self.cache.ensure_capacity(
+                    req, req.total_len + len(prop)):
+                continue
+            spare -= len(prop)
+            plan.seqs[idx] = ScheduledSeq(
+                request=req,
+                num_new_tokens=1 + len(prop),
+                token_ids=list(seg.token_ids) + list(prop),
+                context_len=seg.context_len + len(prop),
+            )
+            req.pp_spec_k = len(prop)  # type: ignore[attr-defined]
+
+    def commit_spec_result(self, request_id: str,
+                           accepted: list[int]) -> None:
+        """Head: the ring delivered the verified run of a pipeline
+        speculation round. Commits every accepted token and rewinds
+        ``num_computed_tokens`` for the rejected suffix (whose KV lies past
+        the live context on every stage)."""
+        req = self.scheduler.running.get(request_id)
+        if req is None:
+            return
+        k = getattr(req, "pp_spec_k", 0)
+        if hasattr(req, "pp_spec_k"):
+            del req.pp_spec_k
+        if req.status.is_finished:
+            return
+        # Dispatch advanced computed by the 1 + k fed rows; only those
+        # whose fed token matches the committed stream hold valid KV.
+        req.num_computed_tokens -= 1 + k
+        committed = 0
+        for tok in accepted:
+            if req.status.is_finished:
+                break
+            self._commit(req, int(tok))
+            committed += 1
+        req.num_computed_tokens += committed
+
+    def _enqueue_pp_verify(self, ticket: StepTicket,
+                           spec_rows: dict[int, list[int]]) -> None:
+        """Last stage, proposal rows present: enqueue the targets at every
+        fed position (``_verify_targets``; a row's position j is output
+        step ``len(generated) - (len(fed) - 1) + j``, its generated ids
+        already holding the fed tokens) and the other rows' ordinary
+        samples, with their host copies; the ticket resolves at once."""
+        plan, inputs, out = ticket.plan, ticket.inputs, ticket.out
+        offs = np.concatenate(
+            [[0], np.cumsum([seg.num_new_tokens for seg in plan.seqs])])
+        entries = []
+        for i, fed in spec_rows.items():
+            req = plan.seqs[i].request
+            origin = self._row_sampling_fields(req)[-1] - (len(fed) - 1)
+            entries.append((req, int(offs[i]), int(offs[i + 1]), origin))
+        targets = self._verify_targets(out, entries, ticket.step_idx)
+        rest = [i for i in range(len(plan.seqs)) if i not in spec_rows]
+        copies = [targets]
+        if rest:
+            idx = np.zeros((int(inputs.kv_lens.shape[0]),), np.int64)
+            idx[: len(rest)] = [offs[i + 1] - 1 for i in rest]
+            rest_plan = BatchPlan([plan.seqs[i] for i in rest])
+            tokens, lp = self._enqueue_sample(
+                rest_plan, inputs, out[self._staging.put("vf_rest", idx)],
+                ticket.step_idx)
+            copies += [tokens] + ([] if lp is None else [lp])
+        host, ticket.ready = self._to_host(*copies)
+        ticket.tokens_host = host[0]
+        if rest:
+            ticket.rest_host = host[1]
+            ticket.rest_lp = host[2] if len(host) > 2 else None
+        ticket.spec_rows = spec_rows
+        ticket.sync_only = True
+
+    def _verify_and_emit(self, plan: BatchPlan, ticket: StepTicket):
+        """Last stage: each proposal row's longest agreeing prefix plus the
+        correction token goes back to the head in ONE packet
+        (``spec_accepted``); the other rows emit their sampled token."""
+        spec_rows = ticket.spec_rows
+        g_all = ticket.tokens_host.numpy()
+        offs = np.concatenate(
+            [[0], np.cumsum([seg.num_new_tokens for seg in plan.seqs])])
+        forwards = []
+        rest_segs = []
+        for i, seg in enumerate(plan.seqs):
+            if i not in spec_rows:
+                rest_segs.append(seg)
+                continue
+            fed = spec_rows[i]
+            req = seg.request
+            if hasattr(req, "pp_spec_fed"):
+                del req.pp_spec_fed
+            g = g_all[offs[i] : offs[i + 1]]
+            accepted: list[int] = []
+            for j in range(len(fed)):
+                accepted.append(int(g[j]))
+                if j + 1 < len(fed) and fed[j + 1] != int(g[j]):
+                    break
+            self.pp_spec_rounds += 1
+            self.pp_spec_tokens += len(accepted)
+            forwards.append(IntermediateRequest(
+                request_id=req.request_id,
+                routing_table=req.routing_table,
+                context_len=seg.context_len - len(fed) + len(accepted),
+                num_new_tokens=len(accepted),
+                spec_accepted=accepted,
+            ))
+        if rest_segs:
+            forwards.extend(self._emit_tokens(
+                BatchPlan(rest_segs), ticket.rest_host.numpy(),
+                None if ticket.rest_lp is None else ticket.rest_lp.numpy()))
+        return forwards
+
     # -- internals --------------------------------------------------------
 
     def _form_plan(self) -> BatchPlan:
@@ -1860,6 +2819,12 @@ class StageEngine:
         usable = []
         for s in plan.seqs:
             avail = self._pending_hidden.get(s.request.request_id)
+            fed = getattr(s.request, "pp_spec_fed", None)
+            if fed is not None and s.num_new_tokens != len(fed):
+                # A speculative row is processed whole: verification needs
+                # every fed position (the clamp can only be the step's
+                # token budget; it waits for the next step).
+                continue
             if avail is not None and s.num_new_tokens <= avail.shape[0]:
                 s.mirror_last_chunk = bool(
                     getattr(s.request, "last_chunk_flag", True))
@@ -1968,6 +2933,15 @@ class StageEngine:
         for seg in plan.seqs:
             n = seg.num_new_tokens
             req = seg.request
+            # Pipeline-speculative rows advertise their proposal suffix, so
+            # every later stage forwards the whole run and the last stage
+            # verifies it: the head's rows carry pp_spec_k, a middle
+            # stage's mirrors relay their pp_spec_fed.
+            if self.model.is_first:
+                spec_len = getattr(req, "pp_spec_k", 0) if n > 1 else 0
+            else:
+                fed = getattr(req, "pp_spec_fed", None)
+                spec_len = n - 1 if fed is not None and n == len(fed) else 0
             # First chunk after a prefix-cache skip: ship the skipped ids so
             # downstream stages align their own match.
             prefix_ids = None
@@ -1998,6 +2972,7 @@ class StageEngine:
                     if not self.model.is_first
                     else seg.is_last_prefill_chunk
                 ),
+                spec_len=spec_len,
                 cached_prefix_ids=prefix_ids,
             ))
             row += n

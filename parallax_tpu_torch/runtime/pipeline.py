@@ -2,8 +2,8 @@
 ``parallax_tpu/runtime/pipeline.py``, without the wire mode).
 
 The ring: stage0 (head) -> ... -> stageN-1 -> head. Hidden states travel as
-tensors on the stages' devices; sampled tokens return to the head, which
-commits them.
+tensors on the stages' devices; sampled tokens (and a speculation round's
+verified run, ``spec_accepted``) return to the head, which commits them.
 """
 
 from __future__ import annotations
@@ -41,6 +41,9 @@ class InProcessPipeline:
                         ireq.request_id, ireq.next_token_id,
                         ireq.token_logprob,
                     )
+                elif ireq.spec_accepted is not None:
+                    self.head.commit_spec_result(
+                        ireq.request_id, ireq.spec_accepted)
                 else:
                     self.engines[i + 1].submit_intermediate(ireq)
             for req in out.finished:

@@ -128,7 +128,8 @@ class Scheduler:
             # Preempted to host: swap the KV image back in instead of
             # allocating a prompt. A resume that does not fit blocks
             # admission like any other head-of-queue request.
-            if not self.cache.resume_from_host(req):
+            resume = getattr(self.cache, "resume_from_host", None)
+            if resume is None or not resume(req):
                 return False
             del self.wait_queue[rid]
             # A mid-prefill park resumes into PREFILLING at its computed
@@ -252,6 +253,7 @@ class Scheduler:
 
     def plan_decode_window(
         self, plan: BatchPlan, k: int, max_windows: int, max_model_len: int,
+        spec: int = 0,
     ) -> int:
         """K-step window planning: pre-allocate KV pages for a chain of up
         to ``max_windows`` k-token decode windows over ``plan``'s rows,
@@ -270,11 +272,19 @@ class Scheduler:
         ``max_model_len`` and to the largest remaining generation budget
         (windows past every row's ``max_new_tokens`` are pure waste);
         device-fed rows count their pending uncommitted token.
+
+        ``spec > 0`` plans a speculative window: each step feeds ``1 +
+        spec`` tokens a row, so the worst case (every proposal accepted)
+        commits ``k * (1 + spec)`` tokens a row a window, and the
+        reservation and the context room cover that; the budget clamp
+        stays the plain window's (a speculative window commits at least
+        ``k`` tokens a live row).
         """
+        k_eff = k * (1 + max(0, spec))
         m = max(1, max_windows)
         want = 1
         for seg in plan.seqs:
-            room = (max_model_len - seg.context_len) // k
+            room = (max_model_len - seg.context_len) // k_eff
             if room < 1:
                 return 0
             m = min(m, room)
@@ -291,7 +301,7 @@ class Scheduler:
 
         def _extra_pages(mm: int) -> int:
             return sum(
-                max(0, self.cache.pages_needed(seg.context_len + mm * k)
+                max(0, self.cache.pages_needed(seg.context_len + mm * k_eff)
                     - len(seg.request.page_ids))
                 for seg in plan.seqs
             )
@@ -299,7 +309,8 @@ class Scheduler:
         while m > 1 and _extra_pages(m) > self.cache.num_free_pages:
             m -= 1
         if not all(
-            self.cache.ensure_capacity(seg.request, seg.context_len + m * k)
+            self.cache.ensure_capacity(seg.request,
+                                       seg.context_len + m * k_eff)
             for seg in plan.seqs
         ):
             return 0

@@ -131,8 +131,10 @@ def test_refused_flag_exits_2_from_both_entry_points(checkpoint):
     (["serve", "--lora-path", "/x"], 11),
     (["serve", "--lora-adapters", "a=/x"], 11),
     (["serve", "--lora-max-adapters", "2"], 11),
-    (["serve", "--draft-model-path", "/x"], 7),
-    (["serve", "--speculative-tokens", "4"], 7),
+    # Speculation is ported; the JAX serve's refusal of a draft beside
+    # tensor parallelism stands (the port refuses --tp-size > 1 itself).
+    (["serve", "--draft-model-path", "/x", "--tp-size", "2"], 10),
+    (["serve", "--speculative-tokens", "4", "--sp-size", "2"], 10),
     (["serve", "--wire-dtype", "fp8"], 11),
     (["serve", "--wire-dtype", "float8_e4m3fn"], 11),
     (["serve", "--trace-sample-rate", "0.5"], 9),

@@ -216,9 +216,9 @@ def test_engine_streams_match_jax(raw, bounds):
     ("sp_threshold", 64), ("qos", "on"),
 ])
 def test_engine_config_refuses_unported(weights, field, value):
-    """Unported fields raise. The overlapped step and the K-step window are
-    ported: their values construct and serve (a window ran, and the
-    stream equals the K=1 synchronous engine's)."""
+    """Unported fields raise. The overlapped step, the K-step window and
+    speculation are ported: their values construct and serve (a window
+    ran, and the stream equals the K=1 synchronous engine's)."""
     _, _, full_np = weights
     cfg = normalize_config(TINY_QWEN2)
     kw = dict(ENGINE, **{field: value})
@@ -228,7 +228,8 @@ def test_engine_config_refuses_unported(weights, field, value):
                            params_from_numpy(full_np, "cpu"),
                            EngineConfig(**dict(kw, **over)), device="cpu")
 
-    if field not in ("decode_lookahead", "overlap_steps"):
+    if field not in ("decode_lookahead", "overlap_steps",
+                     "speculative_tokens"):
         with pytest.raises(NotImplementedError, match=field):
             engine()
         return
@@ -244,8 +245,8 @@ def test_engine_config_refuses_unported(weights, field, value):
         assert req.status.value == "finished_length"
         streams.append(req.output_ids)
     assert streams[0] == streams[1]
-    assert engines[0].kernel_dispatch_summary()["dispatch_total"][
-        "torch/multistep"] > 0
+    totals = engines[0].kernel_dispatch_summary()["dispatch_total"]
+    assert totals.get("torch/multistep", 0) + totals.get("torch/spec", 0) > 0
 
 
 def test_engine_config_host_cache_bytes_builds_the_tier(weights):

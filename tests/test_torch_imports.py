@@ -69,7 +69,8 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "runtime.host_cache", "runtime.checkpoint",
                  "runtime.kv_handoff", "runtime.request", "ha",
                  "ha.backoff", "ha.failover", "ha.journal", "ha.standby",
-                 "p2p.protowire", "p2p.interop", "backend.webui"):
+                 "p2p.protowire", "p2p.interop", "backend.webui",
+                 "native"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"

@@ -110,6 +110,41 @@ def test_relayed_call_round_trip():
         assert worker.transport_stats()["accepted"] == 0
 
 
+def test_relay_counts_dial_out_before_the_reply_lands():
+    """The reply's dial-out is counted before its write: a send that is
+    slow to return (the client already holds the reply) leaves the count
+    in place when the client reads the relay's stats."""
+    with trio() as (relay, worker, client):
+        worker.register("echo", lambda frm, payload: payload)
+        worker.register_at_relay(relay.address)
+        wait_route(relay, worker.peer_id)
+        real = relay._send_async
+
+        async def slow_send(peer, data):
+            await real(peer, data)
+            await asyncio.sleep(0.5)
+
+        relay._send_async = slow_send
+        assert client.call(worker.peer_id, "echo", 7, timeout=10.0) == 7
+        routed = relay.transport_stats()["relay"]["routed"]
+        assert routed[client.peer_id]["envelopes"] == 1
+        assert routed[client.peer_id]["bytes"] > 0
+
+
+def test_relay_failed_dial_out_takes_its_count_back():
+    with trio() as (relay, _worker, _client):
+        async def refused(peer, data):
+            raise OSError("connection refused")
+
+        relay._send_async = refused
+        env = {"to": "127.0.0.1:9", "from": "x", "data": b"abc"}
+        fut = asyncio.run_coroutine_threadsafe(
+            relay._route_envelope(env), relay._loop)
+        assert fut.result(timeout=5.0) is False
+        routed = relay.transport_stats()["relay"]["routed"]
+        assert routed.get("127.0.0.1:9", {"envelopes": 0})["envelopes"] == 0
+
+
 def test_relay_delivers_to_its_own_registered_worker():
     """The relay itself calling a NAT'd worker (scheduler -> worker)."""
     with trio() as (relay, worker, _client):

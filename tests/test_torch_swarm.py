@@ -465,7 +465,7 @@ def test_chat_host_answers_503_without_a_route():
     (["--lora-max-adapters", "2"], 11),
     (["--wire-dtype", "fp8"], 11),
     (["--sp-size", "2"], 10),
-    (["--speculative-tokens", "4"], 7),
+    (["--speculative-tokens", "4", "--sp-size", "2"], 10),
     (["--trace-sample-rate", "0.5"], 9),
     (["--watchdog"], 9),
     (["--qos", "on"], 9),
@@ -491,7 +491,8 @@ _PACKET = {"rid": "q", "ctx": 3}
     (proto.CHAT_SUBMIT, dict(_SUBMIT, tenant="t0"), 9),
     (proto.FORWARD, {"reqs": [dict(_PACKET, qos="batch")]}, 9),
     (proto.FORWARD, {"reqs": [dict(_PACKET, lora_id="a")]}, 11),
-    (proto.FORWARD, {"reqs": [dict(_PACKET, spec_len=2)]}, 7),
+    # Pipeline speculation's packets are ported; a traced one is not.
+    (proto.FORWARD, {"reqs": [dict(_PACKET, spec_len=2, trace=True)]}, 9),
     (proto.FORWARD, b"\x12\x0b\x0a\x01q\x42\x06tenant", 11),
     (proto.PROFILE, {}, 9),
 ], ids=["qos_class", "deadline_ms", "tenant", "qos-packet",
