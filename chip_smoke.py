@@ -83,8 +83,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                the same card (step_round; windows stay inert there),
                sharing the weight tensors.
 6. profile     the serve phase once more under torch.profiler, with the
-               engine's defaults and with K1_SYNC: device time by kernel
-               group and the device's busy share of the wall.
+               engine's defaults: device time by kernel group and the
+               device's busy share of the wall (the K1_SYNC profiles were
+               cut to keep the script inside its time limit).
 6.1 native    the native C++ cache manager on the same tree: the mix
                with the defaults on the native manager (asked for
                explicitly: a host that cannot build the library fails)
@@ -278,8 +279,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                cache_aware; four fixed ports from below the ephemeral
                range): S answers 503 while it mirrors; the HTTP mix to P
                (after one warm-up mix); this process's SwarmClient over [P,
-               S] routes the mix's prompts at 96 new tokens, and once r0-r6
-               stream, P gets SIGKILL. Every client row finishes by length,
+               S] routes the mix's prompts at 96 new tokens (once
+               unmeasured, so their window graphs are captured first,
+               then again), and once r0-r6 stream, P gets SIGKILL. Every client row finishes by length,
                S promotes (its log line: epoch 2 and the journal seq it
                replayed), the client's next route lands on S, a second mix
                (other text) to S's HTTP port answers 200 with 32 tokens
@@ -289,6 +291,41 @@ Phases, in order; any failure raises and the script exits non-zero:
                within GREEDY_TOL of the plain path. Kill to promoted ms,
                promoted to first route ms, journal records and bytes, TTFT
                and decode tok/s before and after, and the phase's seconds.
+9c. obs_serve  the observability plane on the same checkpoint (``--only
+               obs_serve`` runs http_serve first). (a) The mix through the
+               library API on the loaded tree three times, each on fresh
+               obs planes: obs at its defaults, fully on (every request
+               traced, a watchdog, an SLO tracker), and on under
+               torch.profiler. Streams bitwise equal and launches exact and
+               equal between the first two; goodput committed equal to the
+               tokens streamed; the HBM ledger's weights_bfloat16 and
+               kv_pages equal to the tree's and the pool's bytes, the
+               tracked bytes within torch.cuda.memory_allocated and the
+               untracked residual under the ledger's threshold; the compile
+               observatory's captures equal to the engine's graphs. The
+               CUDA-event device ms by program beside the profiler's busy
+               ms, capture seconds, the residual and host ms a visit in
+               both runs; then one engine under a batch ramping down from
+               32 rows: its captures and whether the observatory calls
+               them a storm (a reading). (b)
+               ``serve --trace-sample-rate 1 --watchdog --slo ...`` over
+               HTTP with /metrics, /cluster/status_json, /debug/device,
+               /healthz and /debug/flight scraped from another thread
+               through the mix (graph captures included): 200s, no loop
+               failure; /metrics parses with the core families, each in
+               the JAX name table; /healthz ok; /debug/trace/<id> has the
+               spans; /profile/start (409 on a second) and /profile/stop
+               around one more mix write a trace naming A0-A3. (c) ``run
+               --slo`` (on a thread here, the memory bound patched to 14
+               layers) and two ``join --trace-sample-rate 1 --watchdog``
+               processes, one 14 + 14 pipeline: half the mix over HTTP; the
+               merged step-host histogram counts equal the nodes' sum,
+               goodput / device / SLO sections from both nodes; each
+               worker's exit line lists the first request's trace under its
+               stage; the timeline names both workers; then the tail
+               stops under a long request and the head's flight event
+               (abort path or migration flag) reaches the timeline
+               through its heartbeat; exits 0.
 10. moe_serve   Qwen3-30B-A3B at full width and all 48 layers (random bf16
                weights, about 61 GB; the dense phases' tensors are freed
                first) serving the same 8-request mix with the defaults and
@@ -298,7 +335,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                plain attention); the same one-shot forward with A4 in
                place of the plain grouped product reports its logit
                difference (no limit).
-11. moe_profile moe_serve once more under torch.profiler, both configs.
+11. moe_profile moe_serve once more under torch.profiler (defaults).
 12. mla_serve  DeepSeek-V3 at full width and 5 layers (3 dense + 2 MoE; one
                random bf16 tree of 26.7 B params, the MoE model freed first)
                serving the same mix four times: fused decode (A5 once per
@@ -311,16 +348,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                again step by step, A5 against the plain MLA decode on the
                same cache, and the largest logit difference printed (no
                limit).
-13. mla_profile mla_serve's fused run once more under torch.profiler, both
-               configs.
+13. mla_profile mla_serve's fused run once more under torch.profiler
+               (defaults).
 14. dsa_serve DeepSeek-V3.2 at the same width and depth, on the same tree
                plus the indexer, with one more request of 2,400 prompt ids
                so that sparse top-k selection runs: fused (A7), split (A8)
                and plain, the same checks; the long greedy stream is
                decoded again step by step, A7 against the plain indexer
                (the logit difference, argmax and top-k set agreement).
-15. dsa_profile dsa_serve's fused run once more under torch.profiler, both
-               configs.
+15. dsa_profile dsa_serve's fused run once more under torch.profiler
+               (defaults).
 16. gptoss_serve gpt-oss-20b at full width and all 24 layers (20.9 B params,
                42 GB in bf16, each layer's sinks drawn N(0, 1); DeepSeek's
                tree freed first) serving the mix four times with
@@ -332,8 +369,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                The fused run's first greedy stream is decoded again step
                by step, A2 against the plain decode (the logit difference
                and argmax agreement; no limit).
-17. gptoss_profile gptoss_serve's fused run once more under torch.profiler,
-               both configs.
+17. gptoss_profile gptoss_serve's fused run once more under torch.profiler
+               (defaults).
 18. msa_serve  MiniMax-M3 at full width and 5 of 62 layers (a dense
                full-attention layer 0, then four MSA + MoE layers; one
                random bf16 tree of 16.1 B params, gpt-oss's freed first)
@@ -2726,53 +2763,52 @@ def _kernel_group(name: str) -> str:
 
 
 def phase_profile(torch, dev, cfg, params, phase="profile", **serve_kw):
-    """Where a serve phase's device time goes, in the engine's defaults and
-    in the parent's configuration (K1_SYNC): the same 8 requests under
-    torch.profiler (device activity only), device time summed by kernel
-    group, and the share of the run's wall time the device was busy. The
-    device events are read straight from the trace (no per-op tables),
-    which keeps the post-processing short. The profiler's own overhead
-    lengthens the wall, so the busy share is a lower bound."""
+    """Where a serve phase's device time goes, in the engine's defaults:
+    the same 8 requests under torch.profiler (device activity only),
+    device time summed by kernel group, and the share of the run's wall
+    time the device was busy. The device events are read straight from
+    the trace (no per-op tables), which keeps the post-processing short.
+    The profiler's own overhead lengthens the wall, so the busy share is a
+    lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for config, engine_kw in (("defaults", None), ("k1_sync", K1_SYNC)):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            reqs, _, _, t0, t1 = serve(
-                torch, [(0, cfg.num_hidden_layers)], params, cfg, dev,
-                fused=True, engine_kw=engine_kw, **serve_kw)
-        t_post = time.monotonic()
-        by_name: dict[str, list] = {}
-        for evt in prof.profiler.kineto_results.events():
-            # Device events only: kernels, copies and fills.
-            if evt.device_type() != DeviceType.CUDA:
-                continue
-            acc = by_name.setdefault(evt.name(), [0.0, 0])
-            acc[0] += evt.duration_ns() / 1e3
-            acc[1] += 1
-        groups: dict[str, float] = {}
-        top = []
-        for name, (us, count) in by_name.items():
-            if us <= 0.0:
-                continue
-            g = _kernel_group(name)
-            groups[g] = groups.get(g, 0.0) + us
-            top.append((us, name[:80], count))
-        busy_s = sum(groups.values()) / 1e6
-        if busy_s <= 0.0:
-            raise AssertionError("torch.profiler recorded no device time")
-        top.sort(reverse=True)
-        emit({"phase": phase, "config": config, "wall_s": t1 - t0,
-              "device_busy_s": busy_s,
-              "device_busy_share": busy_s / (t1 - t0),
-              "device_ms_by_group": {k: v / 1e3 for k, v in sorted(
-                  groups.items(), key=lambda kv: -kv[1])},
-              "top_kernels": [{"name": n, "ms": us / 1e3, "calls": c}
-                              for us, n, c in top[:8]],
-              "tokens": sum(len(r.output_ids) for r in reqs),
-              "post_processing_s": round(time.monotonic() - t_post, 1),
-              **stream_metrics(reqs, t0, t1)})
-        del prof
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        reqs, _, _, t0, t1 = serve(
+            torch, [(0, cfg.num_hidden_layers)], params, cfg, dev,
+            fused=True, **serve_kw)
+    t_post = time.monotonic()
+    by_name: dict[str, list] = {}
+    for evt in prof.profiler.kineto_results.events():
+        # Device events only: kernels, copies and fills.
+        if evt.device_type() != DeviceType.CUDA:
+            continue
+        acc = by_name.setdefault(evt.name(), [0.0, 0])
+        acc[0] += evt.duration_ns() / 1e3
+        acc[1] += 1
+    groups: dict[str, float] = {}
+    top = []
+    for name, (us, count) in by_name.items():
+        if us <= 0.0:
+            continue
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + us
+        top.append((us, name[:80], count))
+    busy_s = sum(groups.values()) / 1e6
+    if busy_s <= 0.0:
+        raise AssertionError("torch.profiler recorded no device time")
+    top.sort(reverse=True)
+    emit({"phase": phase, "config": "defaults", "wall_s": t1 - t0,
+          "device_busy_s": busy_s,
+          "device_busy_share": busy_s / (t1 - t0),
+          "device_ms_by_group": {k: v / 1e3 for k, v in sorted(
+              groups.items(), key=lambda kv: -kv[1])},
+          "top_kernels": [{"name": n, "ms": us / 1e3, "calls": c}
+                          for us, n, c in top[:8]],
+          "tokens": sum(len(r.output_ids) for r in reqs),
+          "post_processing_s": round(time.monotonic() - t_post, 1),
+          **stream_metrics(reqs, t0, t1)})
+    del prof
 
 
 # ---------------------------------------------------------------------------
@@ -4323,7 +4359,8 @@ def _serve_http(torch, dev, ckpt: str, mix):
 
 def phase_http_serve(torch, dev, card: str, cfg, tree: list,
                      swarm: bool = False, sched: bool = False,
-                     ha: bool = False, relay: bool = False) -> None:
+                     ha: bool = False, relay: bool = False,
+                     obs: bool = False) -> None:
     """The port's front door on Qwen2.5-7B at full width: the random tree
     written as an HF checkpoint, the CLI's ``generate`` run on it in a
     subprocess, the checkpoint loaded back bitwise, then ``serve`` (CLI
@@ -4333,7 +4370,8 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
     only reference to the random tree, dropped once it loaded back. With
     ``swarm``, phase_swarm_serve follows in the same checkpoint directory
     (the checkpoint is written once), with ``sched`` phase_sched_serve,
-    with ``ha`` phase_ha_serve and with ``relay`` phase_relay_serve."""
+    with ``ha`` phase_ha_serve, with ``relay`` phase_relay_serve and with
+    ``obs`` phase_obs_serve."""
     import os
     import re
     import shutil
@@ -4423,6 +4461,8 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
         if relay:
             phase_relay_serve(torch, dev, card, cfg, loaded, ckpt, mix,
                               sampled, reqs)
+        if obs:
+            phase_obs_serve(torch, dev, card, cfg, loaded, ckpt, mix)
 
 
 def http_results(torch, dev, card, cfg, loaded, mix, sampled, outs,
@@ -5942,6 +5982,20 @@ def ha_processes(torch, dev, card, cfg, params, ckpt, mix, sampled, served):
         _send_mix(p_http, _text_mix(seed=2026)[0], "ha_serve")
         outs_before = _send_mix(p_http, mix, "ha_serve")
         client = SwarmClient(probe, scheduler_peers=[primary, standby])
+        # The client's rows once, unmeasured, too: a window graph their
+        # longer streams need is captured here, not between their first
+        # tokens and the kill (a slow capture on one replica let the
+        # other's rows finish before the kill).
+        warm = _swarm_requests(served, sampled, new=HA_CLIENT_NEW)
+        warm_events = []
+        for r in warm:
+            r.request_id = f"warm-{r.request_id}"
+            r.routing_table = client.route(r.request_id,
+                                           prompt_ids=r.prompt_ids)
+            warm_events.append(client.submit(r))
+        for r, ev in zip(warm, warm_events):
+            if not ev.wait(HTTP_TIMEOUT_S):
+                raise AssertionError(f"ha_serve (b) {r.request_id} hung")
         rows = _swarm_requests(served, sampled, new=HA_CLIENT_NEW)
         events = []
         for r in rows:
@@ -6601,6 +6655,688 @@ def phase_relay_serve(torch, dev, card, cfg, params, ckpt, mix, sampled,
           "compare": {k: FIGURES.get(k) for k in (
               "sched_in_process", "relay_in_process")},
           "phase_s": time.monotonic() - t_phase, "card": card})
+
+
+# ---------------------------------------------------------------------------
+# Phase 9c: obs_serve, the observability plane on the served path
+# ---------------------------------------------------------------------------
+
+OBS_SLO = "ttft_p95_ms=60000,tpot_p95_ms=5000,availability=0.9"
+# The flight events a pipeline head records when its next hop goes away.
+WORKER_PATH_EVENTS = ("abort_path", "migrate_flag", "migrate_park")
+# A0-A3 in a torch.profiler trace, by kernel symbol (A3 is two launches).
+OBS_PROFILE_KERNELS = {"A0": ("kv_append",), "A1": ("gqa_prefill",),
+                       "A2": ("gqa_decode",),
+                       "A3": ("sample_candidates_kernel",
+                              "sample_pick_kernel")}
+OBS_CORE_FAMILIES = (
+    "parallax_ttft_ms", "parallax_tpot_ms", "parallax_e2e_ms",
+    "parallax_step_host_ms", "parallax_step_device_ms",
+    "parallax_goodput_tokens_total", "parallax_goodput_time_seconds_total",
+    "parallax_hbm_bytes", "parallax_device_time_seconds_total",
+    "parallax_xla_compiles_total", "parallax_tpu_requests_total",
+    "parallax_http_ttft_ms", "parallax_health_state",
+    "parallax_attn_kernel_dispatch_total")
+
+
+def _fresh_obs_planes() -> None:
+    """A new process-wide registry, goodput ledger and device plane: a
+    run's planes then count that run alone (engines bind at build)."""
+    from parallax_tpu_torch.obs import device, goodput, registry
+
+    registry._REGISTRY = registry.MetricsRegistry()
+    goodput._LEDGER = goodput.GoodputLedger()
+    device._PLANE = device.DevicePlane()
+
+
+def _host_ms_per_visit() -> tuple[float, int]:
+    from parallax_tpu_torch.obs.registry import get_registry
+
+    snaps = get_registry().histogram_snapshots()["parallax_step_host_ms"]
+    total = sum(c["sum"] for c in snaps.values())
+    count = sum(c["count"] for c in snaps.values())
+    return total / max(1, count), count
+
+
+def _profile_busy_ms(prof) -> dict:
+    """Device milliseconds by kernel group from a torch.profiler run (the
+    sum of the device events' durations, as phase_profile reads them)."""
+    from torch.autograd import DeviceType
+
+    groups: dict[str, float] = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != DeviceType.CUDA:
+            continue
+        g = _kernel_group(evt.name())
+        groups[g] = groups.get(g, 0.0) + evt.duration_ns() / 1e6
+    return groups
+
+
+def obs_library(torch, dev, card, cfg, params) -> dict:
+    """Part (a): serve's mix through the library API on the loaded tree,
+    with obs at its defaults, then fully on (every request traced, a stall
+    watchdog over the engine's admission, an SLO tracker), each run on
+    fresh planes; then once more on under torch.profiler. Checks: the
+    streams bitwise equal and the launches exact and equal between the two
+    runs; goodput ``committed`` equal to the tokens streamed; the ledger's
+    ``weights_bfloat16`` and ``kv_pages`` equal to the tree's and the
+    pool's bytes; the ledger's tracked bytes within the allocator's
+    in-use bytes and the untracked residual under the ledger's own
+    threshold (a share of capacity); the observatory's captures equal to
+    the engine's captured graphs. Reports the event device ms by program
+    beside the profiler's busy ms, capture seconds, the residual and host
+    ms a visit in both runs; then obs_ramp."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from parallax_tpu_torch.obs.device import get_device_plane
+    from parallax_tpu_torch.obs.goodput import get_goodput
+    from parallax_tpu_torch.obs.registry import get_registry
+    from parallax_tpu_torch.obs.slo import SLOTracker, parse_slo_spec
+    from parallax_tpu_torch.obs.trace import get_trace_store
+    from parallax_tpu_torch.obs.watchdog import StallWatchdog
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    n = cfg.num_hidden_layers
+    runs = {}
+    for mode in ("defaults", "obs_on", "obs_on_profiled"):
+        on = mode != "defaults"
+        # What earlier phases left for the collector is not this run's.
+        free_device_memory(torch)
+        _fresh_obs_planes()
+        watch = {}
+
+        def on_engines(engines, on=on, watch=watch):
+            if not on:
+                return
+            sched = engines[0].scheduler
+            wd = StallWatchdog(node_id="obs-serve")
+            wd.register("admission", lambda: (
+                float(len(sched.wait_queue)), float(sched.admitted_total),
+                f"{len(sched.running)} running"))
+            wd.start()
+            watch["wd"] = wd
+            watch["slo"] = SLOTracker(parse_slo_spec(OBS_SLO))
+            watch["slo"].observe({"hists": {}, "finished": 0,
+                                  "aborted": 0})
+
+        ck.reset_launches()
+        kw = dict(engine_kw=dict(trace_sample_rate=1.0) if on else None,
+                  on_engines=on_engines)
+        if mode == "obs_on_profiled":
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                reqs, sampled, engines, t0, t1 = serve(
+                    torch, [(0, n)], params, cfg, dev, fused=True, **kw)
+            busy = _profile_busy_ms(prof)
+            del prof
+        else:
+            reqs, sampled, engines, t0, t1 = serve(
+                torch, [(0, n)], params, cfg, dev, fused=True, **kw)
+        eng = engines[0]
+        launches = ck.launches()
+        summary = eng.kernel_dispatch_summary()
+        eng.flush_device_time()
+        eng.obs_tick(force=True)
+        in_use = torch.cuda.memory_allocated(dev)
+        plane = get_device_plane()
+        hbm = plane.hbm.snapshot()
+        comp = plane.compile.snapshot()
+        secs = plane.time.snapshot()["seconds"]
+        tokens = get_goodput().snapshot()["tokens"]
+        host_ms, visits = _host_ms_per_visit()
+        streamed = sum(len(r.output_ids) for r in reqs)
+        weights = sum(t.nbytes for t in _leaves(eng.params))
+        kv = sum(t.nbytes for t in _leaves(eng.kv))
+        captured = summary["graphs"]["captured"]
+        noted = sum(comp["programs"].get(f, {}).get("compiles", 0)
+                    for f in ("decode_window", "spec_window"))
+        checks = {
+            "goodput_committed_eq_streamed": tokens["committed"] == streamed,
+            "weights_bfloat16_exact":
+                hbm["classes"].get("weights_bfloat16") == weights,
+            "kv_pages_exact": hbm["classes"].get("kv_pages") == kv,
+            "tracked_le_in_use": hbm["tracked_bytes"] <= in_use,
+            "untracked_under_threshold": hbm["invariant_ok"],
+            "captures_eq_graphs": noted == captured and captured > 0,
+            "device_time_programs":
+                secs.get("prefill", 0) > 0 and secs.get("decode_window",
+                                                        0) > 0,
+        }
+        out = {"phase": "obs_serve", "part": "a_library", "run": mode,
+               "launches": launches, "streamed_tokens": streamed,
+               "goodput_tokens": tokens, "hbm_classes": hbm["classes"],
+               "tracked_bytes": hbm["tracked_bytes"],
+               "untracked_bytes": hbm["untracked_bytes"],
+               "untracked_limit_bytes": int(hbm["untracked_threshold"]
+                                            * hbm["capacity_bytes"]),
+               "allocated_bytes": in_use,
+               "capacity_bytes": hbm["capacity_bytes"],
+               "graphs_captured": captured, "observatory_captures": noted,
+               "capture_s": summary["graphs"]["capture_s"],
+               "capture_ms_observatory": comp["compile_ms_total"],
+               "host_ms_per_visit": host_ms, "host_visits": visits,
+               "event_device_ms_by_program": {k: v * 1e3
+                                              for k, v in secs.items()},
+               "wall_s": t1 - t0, "checks": checks, "card": card}
+        if on:
+            wd = watch["wd"]
+            wd.stop()
+            snaps = get_registry().histogram_snapshots()
+            slo = watch["slo"].observe_and_evaluate({
+                "hists": snaps,
+                "finished": get_goodput().snapshot()["requests"]["finished"],
+                "aborted": get_goodput().snapshot()["requests"]["aborted"]})
+            spans = [s["name"] for s in get_trace_store().spans(
+                reqs[0].request_id) or ()]
+            out["health"] = wd.summary()["status"]
+            out["slo_met"] = {k: v["met"] for k, v in
+                              slo["objectives"].items()}
+            out["trace_r0_spans"] = sorted(set(spans))
+            checks["traced"] = {"queue_wait", "prefill", "decode",
+                                "finish"} <= set(spans)
+            checks["slo_evaluated"] = bool(slo["objectives"])
+        if mode == "obs_on_profiled":
+            out["profiler_busy_ms_by_group"] = busy
+            out["profiler_busy_ms"] = sum(busy.values())
+            out["event_device_ms"] = sum(secs.values()) * 1e3
+        emit(out)
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            raise AssertionError(f"obs_serve (a) {mode}: {bad}")
+        check_launches("obs_serve", mode, launches,
+                       gqa_expected("fused", summary, n), summary)
+        check_windows("obs_serve", mode, summary, True)
+        runs[mode] = (reqs, launches, host_ms)
+        del engines, eng
+        free_device_memory(torch)
+    (a, la, ha), (b, lb, hb) = runs["defaults"], runs["obs_on"]
+    if [r.output_ids for r in a] != [r.output_ids for r in b]:
+        raise AssertionError("obs_serve (a): the streams differ with obs on")
+    if la != lb:
+        raise AssertionError(f"obs_serve (a): launches {la} != {lb}")
+    FIGURES["obs_host_ms"] = {"defaults": ha, "obs_on": hb}
+    emit({"phase": "obs_serve", "part": "a_library",
+          "streams_bitwise_equal": True, "launches_equal": True,
+          "host_ms_per_visit": {"defaults": ha, "obs_on": hb}, "card": card})
+    obs_ramp(torch, dev, card, cfg, params)
+    return runs
+
+
+def obs_ramp(torch, dev, card, cfg, params) -> dict:
+    """One engine under a batch that ramps down from 32 rows to 1 (32
+    greedy requests of 8, 16, ..., 256 new tokens): the window graphs it
+    captures, over how many seconds, and whether the compile observatory
+    (JAX's storm rule: 5 captures of one family inside 30 s) calls that a
+    storm, which ``--watchdog`` turns into a degraded ``compile``
+    component. A reading, not a check."""
+    import random
+
+    from parallax_tpu_torch.obs.device import get_device_plane
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    free_device_memory(torch)
+    _fresh_obs_planes()
+    rng = random.Random(7)
+    reqs = [Request(f"ramp{i}",
+                    prompt_ids=[rng.randrange(1, cfg.vocab_size)
+                                for _ in range(64)],
+                    sampling_params=SamplingParams(
+                        temperature=0.0, max_new_tokens=8 * (i + 1),
+                        ignore_eos=True))
+            for i in range(32)]
+    n = cfg.num_hidden_layers
+    reqs, _, engines, t0, t1 = serve(
+        torch, [(0, n)], params, cfg, dev, fused=True,
+        engine_kw=dict(max_batch_size=32), requests=(reqs, {}))
+    graphs = engines[0].kernel_dispatch_summary()["graphs"]
+    comp = get_device_plane().compile
+    pending, _, detail = comp.probe()
+    out = {"phase": "obs_serve", "part": "a_ramp", "rows": 32,
+           "new_tokens": sum(len(r.output_ids) for r in reqs),
+           "graphs_captured": graphs["captured"],
+           "capture_s": graphs["capture_s"], "wall_s": t1 - t0,
+           "window_compiles": comp.snapshot()["programs"].get(
+               "decode_window", {}).get("compiles", 0),
+           "storms": dict(comp.storms), "probe_pending": pending,
+           "probe_detail": detail, "card": card}
+    emit(out)
+    del engines
+    free_device_memory(torch)
+    return out
+
+
+def _scrape_loop(port: int, stop, counts: dict) -> None:
+    """Scrape the host-side surfaces until ``stop``: a scrape that made a
+    CUDA call during a graph capture on the runner thread would fail the
+    capture (and the serving loop)."""
+    while not stop.is_set():
+        for path in ("/metrics", "/cluster/status_json", "/debug/device",
+                     "/healthz", "/debug/flight"):
+            try:
+                status, _ = _http_get(port, path)
+            except OSError:
+                continue
+            counts[status] = counts.get(status, 0) + 1
+        time.sleep(0.02)
+
+
+def _parse_exposition(text: str) -> dict:
+    """Family -> type from a Prometheus text body; every sample line must
+    parse as ``name{labels} value``."""
+    import re
+
+    fams, sample = {}, re.compile(r"^[a-zA-Z_:][\w:]*(\{.*\})? (\S+)$")
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            _, _, name, kind = ln.split()
+            fams[name] = kind
+        elif ln and not ln.startswith("#"):
+            m = sample.match(ln)
+            if m is None:
+                raise AssertionError(f"obs_serve (b): bad sample {ln!r}")
+            float(m.group(2))
+    return fams
+
+
+def obs_http(torch, dev, card, ckpt: str, mix, tmp: str) -> dict:
+    """Part (b): ``serve --trace-sample-rate 1 --watchdog --slo ...`` over
+    HTTP on the checkpoint, with /metrics, /cluster/status_json,
+    /debug/device, /healthz and /debug/flight scraped from another thread
+    through the whole mix (the first graph captures included). Checks:
+    the mix answers 200, the serving loop never failed and graphs were
+    captured; /metrics parses and carries the core families, each a name
+    of the JAX package's table; /healthz is ok; /debug/trace/<id> holds
+    the request's spans; /profile/start and /profile/stop around one more
+    mix write a trace naming A0, A1, A2 and A3."""
+    import os
+    import threading
+
+    from parallax_tpu_torch import cli
+    from parallax_tpu_torch.backend.serve import serve_main
+    from parallax_tpu_torch.obs import names as mnames
+
+    declared = {v for k, v in vars(mnames).items()
+                if k.isupper() and isinstance(v, str)}
+    args = cli.build_parser().parse_args([
+        "serve", "--model-path", ckpt, "--device", str(dev),
+        "--host", "127.0.0.1", "--port", "0", "--max-batch-size", "7",
+        "--page-size", "64", "--max-model-len", "1024",
+        "--trace-sample-rate", "1", "--watchdog", "--slo", OBS_SLO])
+    if cli.unported_flags(args):
+        raise AssertionError(f"obs_serve (b): {cli.unported_flags(args)}")
+    _fresh_obs_planes()
+    box, started = [], threading.Event()
+
+    def on_start(frontend, runner):
+        box.append((frontend, runner))
+        started.set()
+
+    server = threading.Thread(target=serve_main, args=(args, on_start),
+                              name="obs-serve", daemon=True)
+    server.start()
+    if not started.wait(HTTP_TIMEOUT_S):
+        raise AssertionError("obs_serve (b): the server did not start")
+    frontend, runner = box[0]
+    port = frontend.port
+    stop, counts = threading.Event(), {}
+    scraper = threading.Thread(target=_scrape_loop, args=(port, stop,
+                                                          counts),
+                               daemon=True)
+    out = {"phase": "obs_serve", "part": "b_http", "card": card}
+    try:
+        scraper.start()
+        outs = [{} for _ in mix]
+        clients = [threading.Thread(target=_http_client, daemon=True,
+                                    args=(port, path, body, o))
+                   for (path, body), o in zip(mix, outs)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(HTTP_TIMEOUT_S)
+        stop.set()
+        scraper.join(30)
+        rids = [_http_reply(o, body)[0] for o, (_, body) in zip(outs, mix)]
+        if runner.error is not None:
+            raise AssertionError(f"obs_serve (b): the serving loop failed: "
+                                 f"{runner.error}")
+        graphs = runner.pipeline.head.kernel_dispatch_summary()["graphs"]
+        status, body = _http_get(port, "/metrics")
+        fams = _parse_exposition(body.decode())
+        missing = [f for f in OBS_CORE_FAMILIES if f not in fams]
+        foreign = sorted(set(fams) - declared)
+        status_h, health = _http_get(port, "/healthz")
+        health = json.loads(health)
+        status_t, trace = _http_get(port, f"/debug/trace/{rids[0]}")
+        trace = json.loads(trace)
+        span_names = sorted({e["name"] for e in trace.get("traceEvents", ())
+                             if e.get("ph") == "X"})
+        st = json.loads(_http_get(port, "/cluster/status_json")[1])
+        # The profiler around one more mix (the same prompts, fresh ids).
+        pdir = os.path.join(tmp, "obs_profile")
+        code, started_p = _post_json(port, "/profile/start",
+                                     {"dir": pdir, "max_seconds": 120})
+        code2, again = _post_json(port, "/profile/start", {})
+        outs2 = [{} for _ in mix]
+        clients = [threading.Thread(target=_http_client, daemon=True,
+                                    args=(port, path, body, o))
+                   for (path, body), o in zip(mix, outs2)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(HTTP_TIMEOUT_S)
+        code3, stopped = _post_json(port, "/profile/stop", {})
+        with open(stopped["trace"]) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+        named = {a: sorted(n for n in names if any(k in n for k in keys))
+                 for a, keys in OBS_PROFILE_KERNELS.items()}
+    finally:
+        stop.set()
+        frontend.shutdown()
+        server.join(HTTP_TIMEOUT_S)
+    checks = {
+        "mix_200": all(o.get("status") == 200 for o in outs + outs2),
+        "graphs_captured_during_scrapes": graphs["captured"] > 0
+        and counts.get(200, 0) > 0,
+        "metrics_families": status == 200 and not missing,
+        "families_declared": not foreign,
+        "healthz_ok": status_h == 200 and health["status"] == "ok",
+        "trace_spans": status_t == 200 and {"queue_wait", "prefill",
+                                            "decode"} <= set(span_names),
+        "status_sections": {"device", "metrics", "goodput", "health",
+                            "slo"} <= set(st),
+        "profile": code == 200 and code2 == 409 and code3 == 200
+        and all(named.values()),
+    }
+    out.update({"scrapes": counts, "graphs": graphs,
+                "metrics_families": len(fams), "missing": missing,
+                "undeclared": foreign, "health": health["status"],
+                "trace_r0_spans": span_names,
+                "slo": {k: v["met"] for k, v in
+                        st["slo"]["objectives"].items()},
+                "goodput": {k: st["goodput"][k] for k in (
+                    "tokens_total", "tokens_useful", "goodput_fraction")},
+                "profile_kernels": named, "checks": checks})
+    emit(out)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"obs_serve (b): {bad}")
+    return out
+
+
+def _post_json(port: int, path: str, body: dict):
+    out = {}
+    _http_client(port, path, body, out)
+    return out["status"], json.loads(out["raw"])
+
+
+def obs_swarm(torch, dev, card, cfg, ckpt: str, mix) -> dict:
+    """Part (c): ``run --slo`` (its parser and run_main, on a thread of
+    this process, the roofline's memory bound patched to 14 layers so the
+    scheduler lays out one 14 + 14 pipeline) and two ``join
+    --trace-sample-rate 1 --watchdog`` processes. Half the mix over HTTP;
+    then, from the run's scheduler: the merged step-host histogram's
+    count equal to the sum of the nodes', goodput and device sections from
+    both nodes, the SLO section; each worker's exit log lists the first
+    request's trace under its own stage (the spans stitch by id across
+    both processes), and the timeline holds both workers' events (their
+    leave, recorded by the scheduler). Then the tail stops while a long
+    request streams: the head's own flight event (the broken path) must
+    reach the timeline under the head through its heartbeat."""
+    import os
+    import re
+    import threading
+
+    from parallax_tpu_torch import cli
+    from parallax_tpu_torch.backend.run import run_main
+    from parallax_tpu_torch.scheduling import node as p_node
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo}
+    real = p_node.RooflinePerformanceModel.max_layers_in_memory
+    p_node.RooflinePerformanceModel.max_layers_in_memory = (
+        lambda self, kv_fraction=0.35: SCHED_CAPACITY)
+    args = cli.build_parser().parse_args([
+        "run", "--model-name", ckpt, "--min-nodes", "2", "--port", "0",
+        "--host", "127.0.0.1", "--slo", OBS_SLO])
+    if cli.unported_flags(args):
+        raise AssertionError(f"obs_serve (c): {cli.unported_flags(args)}")
+    box, started = [], threading.Event()
+    run_t = threading.Thread(
+        target=run_main, args=(args, lambda fe, svc: (box.append((fe, svc)),
+                                                      started.set())),
+        daemon=True, name="obs-run")
+    names = ("join_a", "join_b")
+    paths = [os.path.join(ckpt, f"obs_{nm}.log") for nm in names]
+    logs = [open(p, "w+") for p in paths]
+    procs, texts = [], []
+    try:
+        run_t.start()
+        if not started.wait(HTTP_TIMEOUT_S):
+            raise AssertionError("obs_serve (c): run did not start")
+        fe, service = box[0]
+        rpc = service.transport.address
+        for i in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "parallax_tpu_torch", "join",
+                 "--scheduler-addr", rpc, "--model-path", ckpt,
+                 "--advertise-addr", "127.0.0.1", "--port", "0",
+                 "--device", str(dev), "--trace-sample-rate", "1",
+                 "--watchdog"],
+                cwd=repo, env=env, stdout=logs[i], stderr=subprocess.STDOUT))
+        sched = service.scheduler
+
+        def ready() -> bool:
+            if any(p.poll() is not None for p in procs):
+                raise AssertionError("obs_serve (c): a join exited")
+            st = sched.cluster_status()
+            nodes = [n for p in st["pipelines"] for n in p["nodes"]]
+            return len(nodes) == 2 and all(n["ready"] for n in nodes)
+
+        _wait_for(ready, time.monotonic() + SWARM_TIMEOUT_S,
+                  "the pipeline did not come up", "obs_serve (c)")
+        layout = [[n["layers"] for n in p["nodes"]]
+                  for p in sched.cluster_status()["pipelines"]]
+        outs = _send_mix(fe.port, mix[:4], "obs_serve")
+        rids = [_http_reply(o, body)[0] for o, (_, body) in
+                zip(outs, mix[:4])]
+        node_ids = [n.node_id for p in sched.manager.pipelines
+                    for n in p.nodes]
+
+        def beats() -> bool:
+            # The head commits the tokens (its ledger counts them); the
+            # tail's ledger ships too, with what it classified.
+            nodes = [sched.manager.get(x) for x in node_ids]
+            if any(n is None or n.goodput is None or not n.metrics
+                   for n in nodes):
+                return False
+            return sum(n.goodput["tokens_total"] for n in nodes) > 0
+
+        _wait_for(beats, time.monotonic() + 30,
+                  "the planes did not arrive", "obs_serve (c)")
+        time.sleep(SCHED_BEAT_WAIT_S)
+        status = sched.cluster_status()
+        nodes = [sched.manager.get(x) for x in node_ids]
+        name = "parallax_step_host_ms"
+        merged = {lbl: s["count"] for lbl, s in
+                  status["metrics"][name].items()}
+        summed = {}
+        for nd in nodes:
+            for lbl, c in (nd.metrics or {}).get(name, {}).items():
+                summed[lbl] = summed.get(lbl, 0) + c["count"]
+        # A worker's own flight event through its heartbeat: the tail
+        # stops while a long request streams through the pipeline, and
+        # the head records the broken path (its sender's abort path, or
+        # the scheduler's drain flagging the request for migration) and
+        # ships the event on its next beat.
+        head, tail = node_ids
+        joined = {}
+        for i, pth in enumerate(paths):
+            with open(pth) as f:
+                m = re.search(r"worker (\S+) joined scheduler", f.read())
+            if m is None:
+                raise AssertionError(f"obs_serve (c) {names[i]}: no join "
+                                     "line")
+            joined[m.group(1)] = procs[i]
+        ingested0 = sched.timeline.ingested
+        long_body = dict(mix[0][1], max_tokens=2048)
+        long_out = {}
+        threading.Thread(target=_http_client, daemon=True,
+                         args=(fe.port, mix[0][0], long_body,
+                               long_out)).start()
+        _wait_for(lambda: sched.manager.get(head).load > 0,
+                  time.monotonic() + 20, "the long request was not "
+                  "dispatched", "obs_serve (c)")
+        time.sleep(2.0)
+        joined[tail].send_signal(15)
+        tail_exit = joined[tail].wait(SWARM_EXIT_S)
+
+        def head_events() -> list:
+            return [e for e in sched.timeline.snapshot()["events"]
+                    if e.get("node") == head
+                    and e.get("kind") in WORKER_PATH_EVENTS]
+
+        _wait_for(lambda: bool(head_events()), time.monotonic() + 30,
+                  "the head shipped no event", "obs_serve (c)")
+        ingested = sched.timeline.ingested - ingested0
+        joined[head].send_signal(15)
+        head_exit = joined[head].wait(SWARM_EXIT_S)
+        exits = [tail_exit if joined[tail] is p else head_exit
+                 for p in procs]
+        _wait_for(lambda: sched.cluster_status()["num_nodes"] == 0,
+                  time.monotonic() + 10, "a node_leave is missing",
+                  "obs_serve (c)")
+        timeline = sched.timeline.snapshot()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        for log in logs:
+            log.seek(0)
+            texts.append(log.read())
+            log.close()
+        p_node.RooflinePerformanceModel.max_layers_in_memory = real
+        if box:
+            box[0][0].shutdown()
+        run_t.join(30)
+    traces = []
+    for nm, text in zip(names, texts):
+        m = re.search(r"obs: (\{.*\})", text)
+        if m is None or "Traceback" in text:
+            emit({"phase": "obs_serve", "part": "c_swarm", "failed": True,
+                  "log_tails": {n: t[-3000:] for n, t in zip(names, texts)}})
+            raise AssertionError(f"obs_serve (c) {nm}: no obs exit line")
+        traces.append(json.loads(m.group(1)))
+    stages = [sorted({s for s, _ in t["traces"].get(rids[0], ())})
+              for t in traces]
+    ev_nodes = {e.get("node") for e in timeline["events"]}
+    checks = {
+        "one_14_14_pipeline": layout == [[[0, 14], [14, 28]]],
+        "mix_200": all(o.get("status") == 200 for o in outs),
+        "merged_eq_sum_of_nodes": merged == summed and sum(merged.values()),
+        "goodput_two_nodes": status["goodput"]["nodes"] == 2,
+        "device_two_nodes": status["device"]["nodes"] == 2,
+        "slo_section": bool(status.get("slo", {}).get("objectives")),
+        "trace_stitched": sorted(s for st in stages for s in st)
+        == ["0-14", "14-28"],
+        "timeline_both_workers": set(node_ids) <= ev_nodes,
+        "head_event_ingested": ingested > 0 and bool(head_events()),
+        "exits_0": exits == [0, 0],
+    }
+    out = {"phase": "obs_serve", "part": "c_swarm", "layout": layout,
+           "merged_step_host_counts": merged, "sum_of_nodes": summed,
+           "goodput": {k: status["goodput"][k] for k in (
+               "tokens_total", "tokens_useful", "goodput_fraction")},
+           "device_programs_s": status["device"]["programs"]["seconds"],
+           "slo": {k: v["met"] for k, v in
+                   status["slo"]["objectives"].items()},
+           "trace_r0_stages": stages,
+           "timeline": {"ingested_before_tail_stop":
+                        status["timeline"]["ingested"],
+                        "ingested_after": ingested,
+                        "head_events": sorted({e["kind"]
+                                               for e in head_events()}),
+                        "events": [(e.get("node"), e.get("kind"))
+                                   for e in timeline["events"]][-12:]},
+           "long_request_status": long_out.get("status"),
+           "worker_health": [t["health"] for t in traces],
+           "checks": checks, "card": card}
+    emit(out)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"obs_serve (c): {bad}")
+    return out
+
+
+def host_ms_main(label: str) -> int:
+    """``chip_smoke.py --host-ms LABEL``: the host cost of the serving
+    loop on the tree this script's package comes from (copy the script
+    into another checkout to measure that one): Qwen2.5-7B's random tree,
+    serve's mix through the one-in-flight ``drive_step`` loop four times
+    on one engine (the first a warm-up that captures the graphs),
+    and the mean of ``StepOutputs.host_ms`` over the host visits that
+    committed tokens, per visit and per token. One JSON line."""
+    import torch
+
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.runtime.engine import StageEngine, drive_step
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda:0")
+    ck.build()
+    cfg, _model, params = dense_tree(torch, dev, "host_ms")
+    n = cfg.num_hidden_layers
+    engine = StageEngine(create_stage_model(cfg, 0, n), params,
+                         engine_config(True), device=dev)
+    rounds = []
+    for rep in range(4):
+        reqs, _ = make_requests(cfg.vocab_size)
+        for i, r in enumerate(reqs):
+            r.request_id = f"rep{rep}-{r.request_id}"
+            engine.submit(r)
+        host, tokens, visits = 0.0, 0, 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        pending = None
+        while engine.has_work() or pending is not None:
+            outs, pending = drive_step(engine, pending)
+            for o in outs:
+                if o.num_tokens:
+                    host += o.host_ms
+                    tokens += o.num_tokens
+                    visits += 1
+        torch.cuda.synchronize()
+        rounds.append({"host_ms_per_visit": host / visits,
+                       "host_ms_per_token": host / tokens,
+                       "visits": visits, "tokens": tokens,
+                       "wall_s": time.monotonic() - t0})
+    timed = rounds[1:]
+    emit({"phase": "host_ms", "tree": label, "rounds": rounds,
+          "host_ms_per_visit": statistics.mean(
+              r["host_ms_per_visit"] for r in timed),
+          "host_ms_per_token": statistics.mean(
+              r["host_ms_per_token"] for r in timed),
+          "card": card_line()})
+    return 0
+
+
+def phase_obs_serve(torch, dev, card, cfg, params, ckpt, mix) -> None:
+    """The observability plane on Qwen2.5-7B at full width, on
+    http_serve's checkpoint and its loaded tree: (a) the library run, (b)
+    the HTTP server with every obs flag on, (c) the scheduled 14 + 14
+    swarm with run --slo."""
+    t0 = time.monotonic()
+    obs_library(torch, dev, card, cfg, params)
+    free_device_memory(torch)
+    obs_http(torch, dev, card, ckpt, mix, ckpt)
+    free_device_memory(torch)
+    obs_swarm(torch, dev, card, cfg, ckpt, mix)
+    free_device_memory(torch)
+    emit({"phase": "obs_serve", "seconds": time.monotonic() - t0,
+          "card": card})
 
 
 def phase_moe_serve(torch, dev, card: str, want) -> dict:
@@ -7913,7 +8649,7 @@ KERNEL_COUNTER = {"ragged_attend": "gqa_prefill"}
 DENSE_PHASES = ("native", "spec_serve", "pp_spec", "features_serve",
                 "preempt_serve", "migrate_serve",
                 "disagg_serve", "http_serve", "swarm_serve", "sched_serve",
-                "ha_serve", "relay_serve")
+                "ha_serve", "relay_serve", "obs_serve")
 
 
 def run_dense(torch, dev, card: str, want) -> dict:
@@ -7953,12 +8689,13 @@ def run_dense(torch, dev, card: str, want) -> dict:
         phase_disagg_serve(torch, dev, card, cfg, model_full, params)
         free_device_memory(torch)
     if any(want(p) for p in ("http_serve", "swarm_serve", "sched_serve",
-                             "ha_serve", "relay_serve")):
+                             "ha_serve", "relay_serve", "obs_serve")):
         tree = [params]
         del params
         phase_http_serve(torch, dev, card, cfg, tree,
                          swarm=want("swarm_serve"), sched=want("sched_serve"),
-                         ha=want("ha_serve"), relay=want("relay_serve"))
+                         ha=want("ha_serve"), relay=want("relay_serve"),
+                         obs=want("obs_serve"))
     return paths
 
 
@@ -7988,17 +8725,24 @@ def main() -> int:
                          "pipeline,profile,native,spec_serve,pp_spec,"
                          "features_serve,preempt_serve,"
                          "migrate_serve,disagg_serve,http_serve,"
-                         "swarm_serve, sched_serve, ha_serve and "
-                         "relay_serve (each runs http_serve too),moe_serve,"
+                         "swarm_serve, sched_serve, ha_serve, relay_serve "
+                         "and obs_serve (each runs http_serve too),"
+                         "moe_serve,"
                          "moe_profile,"
                          "mla_serve,mla_profile,dsa_serve,dsa_profile,"
                          "gptoss_serve,gptoss_profile,msa_serve,m2_serve); "
                          "prints no result line")
+    ap.add_argument("--host-ms", metavar="LABEL",
+                    help="measure the serving loop's host ms a visit on "
+                         "this script's tree and print one line (see "
+                         "host_ms_main)")
     ap.add_argument("--disagg-worker", nargs=2,
                     metavar=("ROLE", "SCHEDULER"),
                     help="run one worker of disagg_serve's process pair "
                          "(the phase spawns it)")
     args = ap.parse_args()
+    if args.host_ms:
+        return host_ms_main(args.host_ms)
     if args.disagg_worker:
         return disagg_worker_main(*args.disagg_worker)
     only = set(filter(None, args.only.split(",")))

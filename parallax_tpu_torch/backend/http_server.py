@@ -15,12 +15,22 @@ JAX frontend: penalties, ``logit_bias``, ``response_format`` (its schema
 compiled at admission, 400 if unsupported) and ``logprobs`` (chat
 ``content`` entries, completions ``tokens`` / ``token_logprobs``, streamed
 and not). A request asking for a feature the engine's ``submit`` refuses
-(a LoRA adapter) gets HTTP 501 with that refusal's text; the
-endpoints of later slices (metrics, debug, profiling, weight refit) answer
-501 "not ported yet". ``/cluster/status`` (an ndjson stream) and
-``/cluster/status_json`` serve a ``status_fn`` where the frontend has one
-(the ``run`` frontend: the scheduler's core ``cluster_status()``), and
-answer 501 elsewhere (item 9).
+(a LoRA adapter) gets HTTP 501 with that refusal's text; weight refit
+answers 501 "not ported yet". ``/cluster/status`` (an ndjson stream) and
+``/cluster/status_json`` serve the ``status_fn`` (``{}`` without one): the
+``run`` frontend's scheduler ``cluster_status()``, ``serve``'s
+single-host status.
+
+The observability plane, as the JAX frontend serves it: ``/metrics`` (the
+process registry in the Prometheus text format), ``/healthz`` (the stall
+watchdog's summary, 503 when a component stalled), ``/debug/trace/<id>``
+(a sampled request's Chrome trace), ``/debug/flight``, ``/debug/device``
+(the device plane, or ``device_fn``'s cluster merge), ``/debug/timeline``
+and ``POST /profile/start`` / ``/profile/stop`` (``torch.profiler``, 409
+on a second start, an auto-stop deadline, a ``{"pipeline": ...}`` body
+fanned out through ``profile_cluster_fn``). The profiler starts and stops
+through ``step_call``, on the thread that steps the device; every other
+endpoint reads host state and cached snapshots only.
 
 ``POST /scheduler/init`` (``{"model_name", "init_nodes_num"}``) switches
 the served model through ``scheduler_init_fn`` (the ``run`` frontend's:
@@ -39,11 +49,14 @@ import http.server
 import json
 import select
 import socket
+import threading
 import time
 import uuid
 
+from parallax_tpu_torch.analysis.sanitizer import make_lock
 from parallax_tpu_torch.backend.webui import register_ui, ui_model_names
 from parallax_tpu_torch.constrained import validate_schema
+from parallax_tpu_torch.obs import names as mnames
 from parallax_tpu_torch.runtime.request import Request, SamplingParams
 from parallax_tpu_torch.utils import get_logger
 
@@ -59,12 +72,6 @@ logger = get_logger(__name__)
 # Endpoints of the JAX frontend that wait for later slices: path (or path
 # prefix, ending in "/") -> the ROADMAP queue 1 item that ports them.
 UNPORTED_ENDPOINTS = {
-    "/metrics": 9,
-    "/healthz": 9,
-    "/debug/": 9,
-    "/cluster/status": 9,
-    "/cluster/status_json": 9,
-    "/profile/": 9,
     "/weight/refit": 12,
 }
 _POLL_DEADLINE_S = 600.0
@@ -340,7 +347,15 @@ class OpenAIFrontend:
     ``/cluster/status_json`` and the ``/cluster/status`` stream.
     ``scheduler_init_fn(model_name, init_nodes_num) -> dict`` serves
     ``/scheduler/init`` (ValueError: 400). ``device_memory_bytes`` sizes
-    the web UI's model catalog estimate (None leaves it empty)."""
+    the web UI's model catalog estimate (None leaves it empty).
+    ``healthz_fn() -> dict`` (the watchdog's summary) backs ``/healthz``
+    (a shallow ok without one), ``timeline_fn(fmt, limit)`` backs
+    ``/debug/timeline`` (404 without one), ``device_fn()`` overrides the
+    process's device plane at ``/debug/device``,
+    ``profile_cluster_fn(action, pipeline, dir, max_seconds) -> manifest``
+    fans a profile to a pipeline's stages, and ``step_call(fn)`` runs
+    ``fn`` on the thread that steps the device and returns its result
+    (None runs it on the handler thread: a frontend with no device)."""
 
     def __init__(
         self,
@@ -353,6 +368,11 @@ class OpenAIFrontend:
         status_fn=None,
         scheduler_init_fn=None,
         device_memory_bytes: int | None = None,
+        healthz_fn=None,
+        timeline_fn=None,
+        device_fn=None,
+        profile_cluster_fn=None,
+        step_call=None,
     ):
         self.tokenizer = tokenizer
         self.submit_fn = submit_fn
@@ -360,22 +380,69 @@ class OpenAIFrontend:
         self.stop_fn = stop_fn
         self.status_fn = status_fn
         self.scheduler_init_fn = scheduler_init_fn
+        self.healthz_fn = healthz_fn
+        self.timeline_fn = timeline_fn
+        self.device_fn = device_fn
+        self.profile_cluster_fn = profile_cluster_fn
+        self.step_call = step_call or (lambda fn: fn())
         self.model_name = model_name
         self.stream_poll_s = stream_poll_s
         self.server: http.server.ThreadingHTTPServer | None = None
+        self._counters = {"requests": 0, "completion_tokens": 0,
+                          "prompt_tokens": 0, "started_at": time.time()}
+        # The HTTP counters are registry series: /metrics renders the whole
+        # process (engine histograms, cache counters, transport links).
+        from parallax_tpu_torch.obs.registry import get_registry
+
+        reg = get_registry()
+        self._m_requests = reg.counter(
+            mnames.HTTP_REQUESTS_TOTAL,
+            "Generation requests accepted by the HTTP frontend",
+        )
+        self._m_prompt_tokens = reg.counter(
+            mnames.HTTP_PROMPT_TOKENS_TOTAL,
+            "Prompt tokens across accepted requests",
+        )
+        self._m_completion_tokens = reg.counter(
+            mnames.HTTP_COMPLETION_TOKENS_TOTAL,
+            "Completion tokens generated (counted at request end)",
+        )
+        self._m_uptime = reg.gauge(
+            mnames.HTTP_UPTIME_SECONDS, "Frontend process uptime",
+        )
+        self._m_http_ttft = reg.histogram(
+            mnames.HTTP_TTFT_MS,
+            "Client-observed time to first streamed token, milliseconds",
+        )
+        self._m_http_e2e = reg.histogram(
+            mnames.HTTP_E2E_MS,
+            "Client-observed request latency, milliseconds",
+        )
+        # Strong ref on self: the registry holds only a weakref.
+        self._obs_collector = lambda: self._m_uptime.set(
+            time.time() - self._counters["started_at"]
+        )
+        reg.register_collector(self._obs_collector)
+        self._profile_lock = make_lock("backend.http.profile")
+        self._profiling = False
+        self._profile_timer: threading.Timer | None = None
         self._routes = {
             ("GET", "/"): lambda h: h.send_redirect("/ui"),
             ("GET", "/health"): self.health,
+            ("GET", "/healthz"): self.healthz,
+            ("GET", "/metrics"): self.metrics,
             ("GET", "/v1/models"): self.models,
             ("POST", "/v1/chat/completions"): self.chat_completions,
             ("POST", "/v1/completions"): self.completions,
             ("POST", "/scheduler/init"): self.scheduler_init,
+            ("GET", "/cluster/status_json"): self.cluster_status_json,
+            ("GET", "/cluster/status"): self.cluster_status_stream,
+            ("GET", "/debug/device"): self.debug_device,
+            ("GET", "/debug/flight"): self.debug_flight,
+            ("GET", "/debug/timeline"): self.debug_timeline,
+            ("POST", "/profile/start"): self.profile_start,
+            ("POST", "/profile/stop"): self.profile_stop,
         }
-        if status_fn is not None:
-            self._routes[("GET", "/cluster/status_json")] = (
-                self.cluster_status_json)
-            self._routes[("GET", "/cluster/status")] = (
-                self.cluster_status_stream)
         register_ui(self, ui_model_names(model_name),
                     device_bytes=device_memory_bytes)
 
@@ -413,6 +480,9 @@ class OpenAIFrontend:
         path = h.path.split("?", 1)[0]
         try:
             route = self._routes.get((method, path))
+            if route is None and method == "GET" and path.startswith(
+                    "/debug/trace/"):
+                route = self.debug_trace
             if route is not None:
                 route(h)
                 return
@@ -440,6 +510,192 @@ class OpenAIFrontend:
 
     def health(self, h: _Handler) -> None:
         h.send_json({"status": "ok"})
+
+    def healthz(self, h: _Handler) -> None:
+        """Deep health: the stall watchdog's per-component state machine.
+        503 when a component is stalled; a shallow ok without a watchdog."""
+        if self.healthz_fn is None:
+            h.send_json({"status": "ok", "components": {}, "causes": []})
+            return
+        try:
+            summary = self.healthz_fn()
+        except Exception as e:
+            h.send_json({"status": "unknown", "error": str(e)}, 500)
+            return
+        h.send_json(summary, 503 if summary.get("status") == "stalled"
+                    else 200)
+
+    def metrics(self, h: _Handler) -> None:
+        """Prometheus text exposition of the process registry."""
+        from parallax_tpu_torch.obs.registry import (
+            EXPOSITION_CONTENT_TYPE,
+            get_registry,
+        )
+
+        h.send_body(get_registry().render().encode("utf-8"),
+                    EXPOSITION_CONTENT_TYPE)
+
+    def debug_trace(self, h: _Handler) -> None:
+        """Chrome trace-event JSON of one sampled request; 404 for an
+        unknown or unsampled id."""
+        from urllib.parse import unquote
+
+        from parallax_tpu_torch.obs.trace import get_trace_store
+
+        rid = unquote(h.path.split("?", 1)[0][len("/debug/trace/"):])
+        data = get_trace_store().export_chrome(rid)
+        if data is None:
+            raise _Reply(404, f"no trace recorded for {rid!r} (tracing is "
+                              "sampled: set trace_sample_rate > 0)")
+        h.send_json(data)
+
+    def debug_device(self, h: _Handler) -> None:
+        """The device plane: the HBM ledger, the compile observatory and
+        the per-program device time (``device_fn``'s cluster merge on the
+        scheduler frontend)."""
+        if self.device_fn is not None:
+            try:
+                payload = self.device_fn() or {}
+            except Exception as e:
+                raise _Reply(500, f"device payload failed: {e}") from e
+            h.send_json(payload)
+            return
+        from parallax_tpu_torch.obs.device import get_device_plane
+
+        h.send_json(get_device_plane().payload())
+
+    def debug_flight(self, h: _Handler) -> None:
+        """The flight recorder: recent request timelines, the slow ring
+        and notable events."""
+        from parallax_tpu_torch.obs.flight import get_flight
+
+        h.send_json(get_flight().snapshot())
+
+    def debug_timeline(self, h: _Handler) -> None:
+        """The event timeline; ``?format=chrome`` exports Chrome
+        trace-event JSON, ``?limit=`` bounds the event list (1000)."""
+        from urllib.parse import parse_qs, urlsplit
+
+        if self.timeline_fn is None:
+            raise _Reply(404, "no cluster timeline on this endpoint (serve "
+                              "it from the scheduler frontend, or enable the "
+                              "local timeline)")
+        query = parse_qs(urlsplit(h.path).query)
+        fmt = (query.get("format") or ["json"])[0]
+        try:
+            limit = max(1, int((query.get("limit") or ["1000"])[0]))
+        except ValueError:
+            limit = 1000
+        try:
+            data = self.timeline_fn(fmt, limit)
+        except Exception as e:
+            raise _Reply(500, f"timeline export failed: {e}") from e
+        h.send_json(data)
+
+    def profile_start(self, h: _Handler) -> None:
+        """Start a ``torch.profiler`` device trace while serving.
+        ``max_seconds`` (default 120) is an auto-stop deadline; a
+        ``{"pipeline": <id>}`` body fans the start to every stage of that
+        pipeline (``"all"``: every pipeline) and answers the per-node
+        manifest."""
+        from parallax_tpu_torch.obs import profiler
+
+        body = self._read_optional_json(h)
+        out_dir = body.get("dir") or profiler.DEFAULT_DIR
+        try:
+            max_seconds = float(body.get("max_seconds", 120.0))
+        except (TypeError, ValueError) as e:
+            raise _Reply(400, "max_seconds must be a number") from e
+        if max_seconds <= 0:
+            raise _Reply(400, "max_seconds must be > 0")
+        if body.get("pipeline") is not None:
+            self._profile_cluster(h, "start", body["pipeline"], out_dir,
+                                  max_seconds)
+            return
+        with self._profile_lock:
+            if self._profiling:
+                raise _Reply(409, "profiler already running")
+            try:
+                self.step_call(lambda: profiler.start_trace(out_dir))
+            except Exception as e:
+                raise _Reply(500, f"profiler start failed: {e}") from e
+            self._profiling = True
+            self._profile_timer = threading.Timer(
+                max_seconds, self._profile_deadline)
+            self._profile_timer.daemon = True
+            self._profile_timer.start()
+        h.send_json({"profiling": True, "dir": out_dir,
+                     "max_seconds": max_seconds})
+
+    def _profile_deadline(self) -> None:
+        """The auto-stop timer fired: end the trace."""
+        from parallax_tpu_torch.obs import profiler
+
+        with self._profile_lock:
+            self._profile_timer = None
+            if not self._profiling:
+                return
+            self._profiling = False
+            logger.warning("profiler auto-stop: max_seconds deadline reached")
+            try:
+                self.step_call(profiler.stop_trace)
+            except Exception:
+                logger.exception("profiler auto-stop failed")
+
+    def profile_stop(self, h: _Handler) -> None:
+        from parallax_tpu_torch.obs import profiler
+
+        body = self._read_optional_json(h)
+        if body.get("pipeline") is not None:
+            self._profile_cluster(h, "stop", body["pipeline"], None, 0.0)
+            return
+        with self._profile_lock:
+            if not self._profiling:
+                raise _Reply(409, "profiler not running")
+            if self._profile_timer is not None:
+                self._profile_timer.cancel()
+                self._profile_timer = None
+            try:
+                path = self.step_call(profiler.stop_trace)
+            finally:
+                self._profiling = False
+        h.send_json({"profiling": False, "trace": path})
+
+    def _profile_cluster(self, h: _Handler, action, pipeline, out_dir,
+                         max_seconds) -> None:
+        """Fan a profiler action to a pipeline's stages; the reply is the
+        per-node manifest ({node_id, profiling, dir} or {error} rows)."""
+        if self.profile_cluster_fn is None:
+            h.send_json({"error": "cluster-scope profiling unavailable in "
+                                  "this mode (no swarm scheduler on this "
+                                  "frontend)"}, 501)
+            return
+        try:
+            manifest = self.profile_cluster_fn(action, pipeline, out_dir,
+                                               max_seconds)
+        except ValueError as e:
+            raise _Reply(400, str(e)) from e
+        except Exception as e:
+            logger.exception("cluster profile %s failed", action)
+            raise _Reply(500, f"cluster profile failed: {e}") from e
+        h.send_json({"profiling": action == "start", "pipeline": pipeline,
+                     "nodes": manifest})
+
+    def _count_accept(self, req) -> None:
+        """Count a request at accept time (a client that leaves mid-stream
+        still shows in /metrics)."""
+        self._counters["requests"] += 1
+        self._counters["prompt_tokens"] += req.num_prompt_tokens
+        self._m_requests.inc()
+        self._m_prompt_tokens.inc(req.num_prompt_tokens)
+
+    def _count_completion(self, req, t_start=None) -> None:
+        """Count generated tokens (and, for a request timed to its end, its
+        e2e latency)."""
+        self._counters["completion_tokens"] += req.num_output_tokens
+        self._m_completion_tokens.inc(req.num_output_tokens)
+        if t_start is not None:
+            self._m_http_e2e.observe((time.monotonic() - t_start) * 1e3)
 
     def models(self, h: _Handler) -> None:
         h.send_json({
@@ -487,7 +743,7 @@ class OpenAIFrontend:
                               **(info or {})}})
 
     def cluster_status_json(self, h: _Handler) -> None:
-        h.send_json(self.status_fn())
+        h.send_json(self.status_fn() if self.status_fn else {})
 
     def cluster_status_stream(self, h: _Handler) -> None:
         """NDJSON status stream until the client leaves. ``?interval=<s>``
@@ -506,7 +762,7 @@ class OpenAIFrontend:
         h.start_stream("application/x-ndjson")
         while True:
             try:
-                status = self.status_fn()
+                status = self.status_fn() if self.status_fn else {}
             except Exception as e:
                 logger.exception("status_fn failed")
                 status = {"error": str(e)}
@@ -532,6 +788,15 @@ class OpenAIFrontend:
         if m.startswith(prefix):
             return m[len(prefix):] or None
         return None
+
+    @staticmethod
+    def _read_optional_json(h: _Handler) -> dict:
+        """The body's JSON object, ``{}`` for an empty or unparsable one."""
+        try:
+            body = json.loads(h.body) if h.body else {}
+        except ValueError:
+            body = {}
+        return body if isinstance(body, dict) else {}
 
     @staticmethod
     def _read_json(h: _Handler) -> dict:
@@ -603,27 +868,34 @@ class OpenAIFrontend:
         )
         t_start = time.monotonic()
         done = self._submit(req)
-        if body.get("stream"):
-            h.start_stream()
+        # Counted at accept time: a client that leaves mid-stream still
+        # shows in /metrics.
+        self._count_accept(req)
+        try:
+            if body.get("stream"):
+                h.start_stream()
+                try:
+                    self._stream_body(h, req, chat, t_start)
+                except _ClientGone:
+                    # The client went away mid-stream: stop the engine work
+                    # instead of generating to max_tokens with nobody
+                    # reading.
+                    self._request_stop(req)
+                    raise
+                return
             try:
-                self._stream_body(h, req, chat, t_start)
+                text, stop_matched = self._await_completion(h, req, done)
+            except _GenFailed as e:
+                raise _Reply(502, f"generation failed: {e}") from e
             except _ClientGone:
-                # The client went away mid-stream: stop the engine work
-                # instead of generating to max_tokens with nobody reading.
                 self._request_stop(req)
                 raise
-            return
-        try:
-            text, stop_matched = self._await_completion(h, req, done)
-        except _GenFailed as e:
-            raise _Reply(502, f"generation failed: {e}") from e
-        except _ClientGone:
-            self._request_stop(req)
-            raise
-        h.send_json(self._completion_body(
-            req, text, chat, t_start,
-            finish_override="stop" if stop_matched else None,
-        ))
+            h.send_json(self._completion_body(
+                req, text, chat, t_start,
+                finish_override="stop" if stop_matched else None,
+            ))
+        finally:
+            self._count_completion(req, t_start)
 
     def _submit(self, req: Request):
         try:
@@ -657,6 +929,7 @@ class OpenAIFrontend:
                     lora_id=self._request_lora(body),
                 )
                 dones.append(self._submit(req))
+                self._count_accept(req)
                 reqs.append(req)
             t_start = time.monotonic()
             results = []
@@ -666,10 +939,14 @@ class OpenAIFrontend:
                 except _GenFailed as e:
                     results.append(e)
         except (_Reply, _ClientGone):
-            # Stop every already-running sibling.
+            # Stop every already-running sibling and count its tokens.
             for r in reqs:
                 self._request_stop(r)
+                self._count_completion(r)
             raise
+        # Tokens generated before a failure still reach /metrics.
+        for req in reqs:
+            self._count_completion(req, t_start)
         failures = [r for r in results if isinstance(r, Exception)]
         if failures:
             for req in reqs:
@@ -775,6 +1052,7 @@ class OpenAIFrontend:
             if n > seen_tokens:
                 if ttft_ms is None:
                     ttft_ms = (time.monotonic() - t_start) * 1e3
+                    self._m_http_ttft.observe(ttft_ms)
                 seen_tokens = n
                 full = dec.update(list(req.output_ids[:n]))
                 idx = scanner.find(full) if stops else None

@@ -27,8 +27,12 @@ every registration must present. ``POST /scheduler/init`` switches the
 served model live (:func:`make_scheduler_init_fn`): a fresh
 ``GlobalScheduler`` for the new model replaces the running one, the
 workers rejoin and reload, and the frontend's tokenizer and
-``/v1/models`` follow. The web UI is served at ``/ui``. Not ported yet,
-refused by name: SLO, QoS, timeline, healthz, device and profile hooks
+``/v1/models`` follow. The web UI is served at ``/ui``. The frontend
+serves the JAX ``run``'s observability hooks: ``--slo`` objectives in
+``/cluster/status``, the cluster ``/debug/timeline``, a deep ``/healthz``
+over the workers' watchdogs, ``/debug/device`` as the cluster merge plus
+each node's payload, and ``/profile/start|stop`` with a ``pipeline`` body
+fanned out to every stage over the ``PROFILE`` RPC. QoS is refused by name
 (item 9). The poll loop
 follows a live migration (``{"migrated": head}`` from the old head, or the
 scheduler's ``where_is``) and resumes a request whose path died after it
@@ -449,6 +453,106 @@ def build_swarm_frontend(
                                standby_addrs=standby_addrs)
     client = SwarmClient(transport, service,
                          scheduler_peers=list(standby_addrs or []) or None)
+
+    def timeline(fmt: str, limit: int):
+        tl = service.scheduler.timeline
+        if fmt == "chrome":
+            return tl.export_chrome()
+        return tl.snapshot(limit=limit)
+
+    def healthz():
+        # Deep cluster health: ``stalled`` (503) only when every pipeline
+        # is blocked by a stalled member, so a liveness probe never
+        # restarts a healthy scheduler frontend over one sick worker among
+        # replicas; a sick worker shows as ``degraded`` with the per-node
+        # detail.
+        from parallax_tpu_torch.obs.watchdog import worst_status
+
+        sched = service.scheduler
+        pipelines = sched.manager.pipelines
+        nodes = {
+            n.node_id: n.health
+            for p in pipelines for n in p.nodes
+            if n.health
+        }
+        cluster = worst_status(h.get("status") for h in nodes.values())
+        pipe_status = [
+            worst_status((n.health or {}).get("status") for n in p.nodes)
+            for p in pipelines
+        ]
+        if pipe_status and all(s == "stalled" for s in pipe_status):
+            status = "stalled"
+        elif cluster != "ok":
+            status = "degraded"
+        else:
+            status = "ok"
+        return {
+            "status": status,
+            "cluster_status": cluster,
+            "bootstrapped": sched.bootstrapped.is_set(),
+            "components": {
+                nid: h.get("components") or {} for nid, h in nodes.items()
+            },
+            "causes": [
+                f"{nid}: {c}"
+                for nid, h in nodes.items()
+                for c in (h.get("causes") or ())
+            ],
+        }
+
+    def device():
+        # The cluster merge plus each node's raw heartbeat payload.
+        from parallax_tpu_torch.obs.device import merge_device
+
+        sched = service.scheduler
+        nodes = [n for p in sched.manager.pipelines for n in p.nodes]
+        return {
+            "cluster": merge_device([n.device for n in nodes]),
+            "nodes": {n.node_id: n.device for n in nodes if n.device},
+        }
+
+    def profile_cluster(action: str, pipeline, out_dir, max_seconds):
+        # Every stage of the chosen pipeline(s) starts / stops its trace
+        # over RPC, so the whole serving path profiles one wall-clock
+        # window. A node's failure lands in the manifest instead of
+        # aborting the fan-out: a half-started profile stays stoppable.
+        sched = service.scheduler
+        pipelines = sched.manager.pipelines
+        if pipeline in ("all", "*"):
+            chosen = list(pipelines)
+        else:
+            chosen = [p for p in pipelines
+                      if str(p.pipeline_id) == str(pipeline)]
+            if not chosen:
+                raise ValueError(
+                    f"unknown pipeline {pipeline!r} (have: "
+                    f"{[str(p.pipeline_id) for p in pipelines]} or "
+                    f"\"all\")"
+                )
+        targets, seen = [], set()
+        for p in chosen:
+            for n in p.nodes:
+                if n.node_id not in seen:
+                    seen.add(n.node_id)
+                    targets.append(n)
+        if not targets:
+            raise ValueError("no pipeline stages to profile")
+        manifest = []
+        for n in targets:
+            payload = {"action": action}
+            if action == "start":
+                payload["dir"] = out_dir
+                payload["max_seconds"] = max_seconds
+            try:
+                r = transport.call(n.node_id, proto.PROFILE, payload,
+                                   timeout=60.0)
+            except Exception as e:
+                r = {"node_id": n.node_id, "error": str(e)}
+            if not isinstance(r, dict):
+                r = {"node_id": n.node_id, "error": f"bad reply {r!r}"}
+            manifest.append(r)
+        return manifest
+
     frontend = OpenAIFrontend(
         tokenizer,
         submit_fn=client.submit,
@@ -457,6 +561,10 @@ def build_swarm_frontend(
         model_name=model_name,
         stop_fn=client.stop,
         device_memory_bytes=device_memory_bytes,
+        healthz_fn=healthz,
+        timeline_fn=timeline,
+        device_fn=device,
+        profile_cluster_fn=profile_cluster,
     )
     if resolve_model is not None:
         frontend.scheduler_init_fn = make_scheduler_init_fn(
@@ -490,6 +598,9 @@ def make_scheduler_init_fn(service: SchedulerService, resolve_model,
                 routing=old.routing_name,
                 routing_kwargs=old.routing_kwargs,
             )
+            # The SLO objectives and their burn-rate history belong to the
+            # service, not the model: they survive a switch.
+            new_sched.slo_tracker = old.slo_tracker
             new_sched.start()
             service.scheduler = new_sched
             if frontend is not None and new_tokenizer is not None:
@@ -613,9 +724,17 @@ def run_main(args, on_start=None) -> int:
         if p.strip()
     ]
     standby_of = args.standby_of or None
+    slo_config = None
+    if args.slo:
+        from parallax_tpu_torch.obs.slo import parse_slo_spec
+
+        # Fails fast on a malformed spec: a mistyped objective must not
+        # silently track nothing.
+        slo_config = parse_slo_spec(args.slo, window_s=args.slo_window_s)
     scheduler = GlobalScheduler(
         model, min_nodes_bootstrapping=args.min_nodes,
         routing=args.routing, routing_kwargs=routing_kwargs,
+        slo=slo_config,
         passive=bool(standby_of),
     )
     # The scheduler's transport is the swarm's relay for NAT'd workers.

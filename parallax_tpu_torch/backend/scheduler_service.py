@@ -192,6 +192,10 @@ class SchedulerService:
             spec=_dict_or_none(payload, "spec"),
             constrained=_dict_or_none(payload, "constrained"),
             transport=_dict_or_none(payload, "transport"),
+            # Histogram snapshots (merged into cluster percentiles) and
+            # the flight-event batch (the cluster timeline).
+            metrics=_dict_or_none(payload, "metrics"),
+            events=_dict_or_none(payload, "events"),
             # Prefix-digest delta/snapshot (cache-aware routing): folded
             # into the node's scheduler-side CacheIndex.
             cache_digests=_dict_or_none(payload, "cache_digests"),

@@ -5,11 +5,22 @@ The stage engines and the HTTP frontend share the process; a runner thread
 steps the pipeline continuously with ``step_round`` (so the served path runs
 what the JAX package's serve runs: K-step decode windows inside
 ``engine.step()``, replayed from CUDA graphs on a card, and no overlap).
-That thread is the only one that touches the engine's tensors.
+That thread is the only one that touches the engine's tensors: it also runs
+the engines' obs refresh between rounds, and what other threads need done
+on the device (starting and stopping the profiler) is posted to it
+(``LocalRunner.call``).
+
+The observability plane is the JAX serve's: ``/cluster/status_json``
+serves the single-host status (device plane, merged histograms, goodput,
+per-stage timing / cache / kernel / spec / constrained, the watchdog and
+the SLO tracker), ``watchdog`` runs the stall watchdog over the runner loop
+and each stage's admission queue (deep ``/healthz``), and a local timeline
+serves ``/debug/timeline``.
 """
 
 from __future__ import annotations
 
+import queue
 import threading
 
 import torch
@@ -27,10 +38,13 @@ logger = get_logger(__name__)
 class LocalRunner:
     """Steps an in-process pipeline on a background thread and completes
     per-request events. A step that raises stops the runner: every request
-    it holds is aborted (its event set), and later submits raise."""
+    it holds is aborted (its event set), and later submits raise.
+    ``watchdog`` (obs/watchdog.py) gets one beat per loop pass."""
 
-    def __init__(self, pipeline: InProcessPipeline):
+    def __init__(self, pipeline: InProcessPipeline, watchdog=None):
         self.pipeline = pipeline
+        self.watchdog = watchdog
+        self._calls: queue.Queue = queue.Queue()
         self._events: dict[str, threading.Event] = {}
         self._requests: dict[str, Request] = {}
         self._lock = threading.Lock()
@@ -70,6 +84,35 @@ class LocalRunner:
         with self._lock:
             self.pipeline.head.stop_request(request_id)
 
+    def call(self, fn, timeout: float = 60.0):
+        """Run ``fn()`` on the runner thread between step rounds and return
+        its result (re-raising its exception). For what must happen on the
+        thread that steps the device."""
+        if threading.current_thread() is self._thread:
+            return fn()
+        if not self._thread.is_alive():
+            raise RuntimeError("the serving loop is not running")
+        box: queue.Queue = queue.Queue(maxsize=1)
+        self._calls.put((fn, box))
+        try:
+            ok, value = box.get(timeout=timeout)
+        except queue.Empty as e:
+            raise TimeoutError("the serving loop did not answer") from e
+        if not ok:
+            raise value
+        return value
+
+    def _run_calls(self) -> None:
+        while True:
+            try:
+                fn, box = self._calls.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                box.put((True, fn()))
+            except Exception as e:
+                box.put((False, e))
+
     def _forget(self, request_id: str) -> threading.Event | None:
         self._requests.pop(request_id, None)
         return self._events.pop(request_id, None)
@@ -79,7 +122,13 @@ class LocalRunner:
         if device.type == "cuda":
             # The current device is per thread.
             torch.cuda.set_device(device)
+        engines = self.pipeline.engines
         while not self._stop.is_set():
+            if self.watchdog is not None:
+                self.watchdog.beat("step_loop")
+            self._run_calls()
+            for e in engines:
+                e.obs_tick()
             if not self.pipeline.has_work():
                 self._stop.wait(0.002)
                 continue
@@ -97,6 +146,7 @@ class LocalRunner:
 
     def _fail(self, error: BaseException) -> None:
         self.error = error
+        self._run_calls()
         for rid in list(self._events):
             req = self._requests.get(rid)
             if req is not None and not req.status.is_finished:
@@ -108,18 +158,49 @@ def build_local_frontend(
     engines: list[StageEngine],
     tokenizer,
     model_name: str = "parallax-tpu",
+    watchdog: bool = False,
+    slo_config=None,
 ) -> tuple[OpenAIFrontend, LocalRunner]:
     """The frontend and a started runner over ``engines`` (a pipeline in
     stage order), with the tokenizer's grammar vocabulary wired into the
     last stage. The web UI's catalog is sized against the first engine's
     device when it is a card (read here, before the runner starts: only
-    the runner thread touches CUDA once it runs). The JAX package's
-    watchdog, SLO and QoS wait for their slices."""
+    the runner thread touches CUDA once it runs). ``watchdog=True`` runs
+    the stall watchdog over the runner loop and each stage's admission
+    queue (deep ``/healthz``); ``slo_config`` (obs/slo.py ``SLOConfig``)
+    adds windowed SLO attainment and burn rates to the status. QoS waits
+    for its slice."""
     device = engines[0].device
     device_memory_bytes = (
         torch.cuda.get_device_properties(device).total_memory
         if device.type == "cuda" else None)
     pipeline = InProcessPipeline(engines)
+    wd = None
+    if watchdog:
+        from parallax_tpu_torch.obs.watchdog import StallWatchdog
+
+        wd = StallWatchdog(node_id="local")
+        wd.register_beat(
+            "step_loop",
+            lambda: sum(e.scheduler.num_requests() for e in engines),
+        )
+        for i, e in enumerate(engines):
+            sched = e.scheduler
+
+            def _admission(sched=sched):
+                return (
+                    float(len(sched.wait_queue)),
+                    float(sched.admitted_total),
+                    f"{len(sched.running)} running",
+                )
+
+            wd.register(f"admission[{i}]", _admission)
+        wd.start()
+    slo_tracker = None
+    if slo_config is not None:
+        from parallax_tpu_torch.obs.slo import SLOTracker
+
+        slo_tracker = SLOTracker(slo_config)
     # Grammar-constrained decoding lives on the LAST stage (where sampling
     # happens): wire the tokenizer's raw byte vocabulary into it before
     # the runner thread starts stepping.
@@ -131,15 +212,75 @@ def build_local_frontend(
         except Exception as e:  # no EOS id / no recoverable vocab
             logger.warning("grammar vocab unavailable (%s); "
                            "json_schema requests will be rejected", e)
-    runner = LocalRunner(pipeline)
+    runner = LocalRunner(pipeline, watchdog=wd)
     runner.start()
+
+    def status():
+        """The single-host twin of the swarm's /cluster/status. Host state
+        and the step thread's snapshots only (no CUDA call)."""
+        from parallax_tpu_torch.obs.device import get_device_plane
+        from parallax_tpu_torch.obs.goodput import get_goodput
+        from parallax_tpu_torch.obs.registry import (
+            get_registry,
+            summarize_snapshots,
+        )
+
+        snaps = get_registry().histogram_snapshots()
+        goodput = get_goodput().payload(chips=1)
+        out = {
+            "mode": "single-host",
+            "device": get_device_plane().payload(),
+            "metrics": summarize_snapshots(snaps),
+            "goodput": goodput,
+            "stages": [
+                {
+                    "layers": [e.model.start_layer, e.model.end_layer],
+                    "running": e.obs_snapshot()["running"],
+                    "waiting": e.obs_snapshot()["queue"],
+                    "free_pages": e.obs_snapshot()["free_pages"],
+                    "cached_pages": e.obs_snapshot()["cached_pages"],
+                    "step_timing": e.step_timing.summary(),
+                    "cache_stats": e.cache_stats(),
+                    "kernel": e.kernel_dispatch_summary(),
+                    "spec": e.spec_summary(),
+                    "constrained": e.constrained_summary(),
+                }
+                for e in engines
+            ],
+        }
+        if wd is not None:
+            out["health"] = wd.summary()
+        if slo_tracker is not None:
+            # Each status poll is one tracker sample.
+            req = goodput.get("requests") or {}
+            out["slo"] = slo_tracker.observe_and_evaluate({
+                "hists": snaps,
+                "finished": req.get("finished") or 0,
+                "aborted": req.get("aborted") or 0,
+            })
+        return out
+
+    from parallax_tpu_torch.obs.timeline import LocalTimeline
+
+    local_timeline = LocalTimeline(node_id="local")
+
+    def timeline(fmt: str, limit: int):
+        if fmt == "chrome":
+            return local_timeline.export_chrome()
+        return local_timeline.snapshot(limit=limit)
+
     frontend = OpenAIFrontend(
         tokenizer,
         submit_fn=runner.submit,
+        status_fn=status,
         model_name=model_name,
         stop_fn=runner.stop_request,
         device_memory_bytes=device_memory_bytes,
+        healthz_fn=(wd.summary if wd is not None else None),
+        timeline_fn=timeline,
+        step_call=runner.call,
     )
+    frontend.watchdog = wd
     return frontend, runner
 
 
@@ -248,6 +389,8 @@ def serve_main(args, on_start=None) -> int:
             # this config inherits the operator's wire choice.
             wire_dtype=args.wire_dtype,
             slow_request_ms=args.slow_request_ms,
+            # Lifecycle-trace sampling (obs/trace.py).
+            trace_sample_rate=args.trace_sample_rate or 0.0,
             # A draft model implies speculation at width 4.
             speculative_tokens=resolve_speculative_tokens(
                 args.speculative_tokens, has_draft=draft is not None),
@@ -257,9 +400,16 @@ def serve_main(args, on_start=None) -> int:
         draft=draft,
     )
     del params
+    slo_config = None
+    if args.slo:
+        from parallax_tpu_torch.obs.slo import parse_slo_spec
+
+        # A malformed spec fails here, before the socket binds.
+        slo_config = parse_slo_spec(args.slo, window_s=args.slo_window_s)
     tokenizer = load_tokenizer(args.model_path)
     frontend, runner = build_local_frontend(
         [engine], tokenizer, model_name=args.model_path,
+        watchdog=bool(args.watchdog), slo_config=slo_config,
     )
 
     def started(fe: OpenAIFrontend) -> None:
@@ -273,4 +423,6 @@ def serve_main(args, on_start=None) -> int:
         frontend.run(host=args.host, port=args.port, on_start=started)
     finally:
         runner.stop()
+        if frontend.watchdog is not None:
+            frontend.watchdog.stop()
     return 0

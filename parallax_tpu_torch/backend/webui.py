@@ -12,10 +12,9 @@ JAX package ships them, so they read the JAX frontend's fields:
   own memory instead, so that column is empty (ROADMAP queue 3,
   "Differences by design").
 - Join: worker commands with their flags (they name the JAX CLI's module).
-- Cluster: the pipelines from ``/cluster/status_json``, which a ``run``
-  frontend serves (the scheduler's ``cluster_status()``) and a ``serve``
-  frontend answers 501 until ROADMAP queue 1 item 9, as it does
-  ``/metrics``.
+- Cluster: the pipelines from ``/cluster/status_json``: a ``run``
+  frontend's scheduler ``cluster_status()``, a ``serve`` frontend's
+  single-host status.
 - Chat: a streaming chat on ``/v1/chat/completions`` with cancel.
 """
 

@@ -211,7 +211,6 @@ def unported_run_flags(args) -> list[tuple[str, int | str]]:
     for on, flag, item in (
         (args.routing_gamma > 0, f"--routing-gamma {args.routing_gamma}",
          9),
-        (args.slo is not None, "--slo", 9),
         (args.qos is not None, "--qos", 9),
     ):
         if on:
@@ -325,8 +324,6 @@ def unported_join_flags(args) -> list[tuple[str, int | str]]:
         (args.wire_dtype in ("fp8", "float8_e4m3fn"),
          f"--wire-dtype {args.wire_dtype}", 11),
         (args.sp_size > 1, f"--sp-size {args.sp_size}", 10),
-        (args.trace_sample_rate > 0, "--trace-sample-rate", 9),
-        (args.watchdog, "--watchdog", 9),
         (args.qos is not None, "--qos", 9),
     ):
         if on:
@@ -366,9 +363,6 @@ def unported_flags(args) -> list[tuple[str, int | str]]:
     refuse(args.lora_max_adapters > 0, "--lora-max-adapters", 11)
     refuse(args.wire_dtype in ("fp8", "float8_e4m3fn"),
            f"--wire-dtype {args.wire_dtype}", 11)
-    refuse(args.trace_sample_rate > 0, "--trace-sample-rate", 9)
-    refuse(args.watchdog, "--watchdog", 9)
-    refuse(args.slo is not None, "--slo", 9)
     refuse(args.qos is not None, "--qos", 9)
     return refused
 

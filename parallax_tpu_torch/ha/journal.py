@@ -15,13 +15,12 @@ gains two serializations:
 
 The snapshot has the JAX package's keys and version, so a snapshot or a
 journal crosses between the packages either way. The port runs no QoS
-and no timeline yet (ROADMAP queue 1 item 9): its snapshot writes those
-keys at the values a JAX scheduler without QoS writes (``"qos": None``,
-empty timeline cursors), a snapshot carrying QoS state is refused by
-name, and the timeline cursors of a JAX snapshot are dropped (they are
-observability, not replicated state). The JAX journal's metrics
-(records by kind) are plain attributes here until the metrics registry
-(item 9).
+yet (ROADMAP queue 1 item 9): its snapshot writes ``"qos": None``, as a
+JAX scheduler without QoS does, and a snapshot carrying QoS state is
+refused by name. The cluster timeline's merge cursors ride the snapshot
+as in the JAX package, so a promoted standby dedupes the heartbeat
+batches its dead primary had ingested. Each record also counts into
+``parallax_ha_journal_records_total{kind}``.
 
 Soft state (in-flight load charges, CacheIndex staleness clocks) is NOT
 snapshotted as truth: a promoted standby re-derives it from the bounded
@@ -40,6 +39,7 @@ from collections import Counter, deque
 from typing import Any, Dict, List, Optional, Tuple
 
 from parallax_tpu_torch.analysis.sanitizer import make_lock
+from parallax_tpu_torch.obs import names as mnames
 from parallax_tpu_torch.utils import get_logger, unported
 
 logger = get_logger(__name__)
@@ -103,8 +103,8 @@ def snapshot_state(scheduler) -> dict:
         "migration_stats": migration_stats,
         "disagg_stats": disagg_stats,
         "routing_accuracy": routing_accuracy,
-        # What a JAX scheduler with an empty timeline and no QoS writes.
-        "timeline": {"cursors": {}, "local_seq": {}},
+        "timeline": scheduler.timeline.export_cursors(),
+        # What a JAX scheduler with no QoS writes.
         "qos": None,
     }
 
@@ -191,6 +191,7 @@ def restore_state(scheduler, snap: dict) -> None:
         scheduler.routing_accuracy.update(
             snap.get("routing_accuracy") or {}
         )
+    scheduler.timeline.adopt_cursors(snap.get("timeline") or {})
     scheduler.epoch = max(
         getattr(scheduler, "epoch", 1), int(snap.get("epoch") or 1)
     )
@@ -316,6 +317,17 @@ class StateJournal:
             self._records.append(rec)
             self.records_by_kind[kind] += 1
             self._cond.notify_all()
+        try:
+            from parallax_tpu_torch.obs.registry import get_registry
+
+            get_registry().counter(
+                mnames.HA_JOURNAL_RECORDS_TOTAL,
+                "State-mutating events appended to the scheduler HA "
+                "journal",
+                labelnames=("kind",),
+            ).labels(kind=kind).inc()
+        except Exception:  # pragma: no cover - metrics never break HA
+            pass
         if self.sink_path:
             try:
                 with open(self.sink_path, "a") as f:

@@ -27,11 +27,11 @@ Single-host mode needs no RPC plane: pass ``journal_path`` (the
 primary's JSONL sink) instead of a transport and the tail thread reads
 the shared file.
 
-The JAX promotion's ``ha_promoted`` timeline event and its registry
-families (promotions, replay ms) wait for the metrics plane (ROADMAP
-queue 1 item 9); the standby keeps them as attributes: ``promotions``,
-``replay_ms``, ``promoted_at`` (monotonic) and ``resyncs`` (gap answers
-on the push path plus snapshots adopted on the pull path).
+A promotion records ``ha_promoted`` in the scheduler's timeline and
+counts into ``parallax_ha_promotions_total`` and the ``parallax_ha_replay_ms``
+histogram; the standby also keeps ``promotions``, ``replay_ms``,
+``promoted_at`` (monotonic) and ``resyncs`` (gap answers on the push path
+plus snapshots adopted on the pull path) as attributes.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ from parallax_tpu_torch.ha.journal import (
     read_journal_file,
     restore_state,
 )
+from parallax_tpu_torch.obs import names as mnames
 from parallax_tpu_torch.utils import get_logger
 
 logger = get_logger(__name__)
@@ -390,6 +391,25 @@ class StandbyScheduler:
             new_epoch, len(sched.manager), len(sched.manager.pipelines),
             self.applied_seq, took_ms,
         )
+        sched.timeline.record(
+            "ha_promoted", epoch=new_epoch, replayed_seq=self.applied_seq,
+        )
+        try:
+            from parallax_tpu_torch.obs.registry import get_registry
+
+            reg = get_registry()
+            reg.counter(
+                mnames.HA_PROMOTIONS_TOTAL,
+                "Warm-standby scheduler promotions (lease expiries acted "
+                "on)",
+            ).inc()
+            reg.histogram(
+                mnames.HA_REPLAY_MS,
+                "Promotion latency: journal/lease decision to active "
+                "scheduler (ms)",
+            ).observe(took_ms)
+        except Exception:  # pragma: no cover - metrics never break HA
+            pass
         if self.on_promote is not None:
             try:
                 self.on_promote(new_epoch)

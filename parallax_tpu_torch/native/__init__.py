@@ -28,6 +28,7 @@ import hashlib
 import logging
 import os
 import subprocess
+import time
 
 import numpy as np
 
@@ -63,6 +64,7 @@ def build(src: str | None = None) -> str:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
     try:
         subprocess.run(["g++", *CXX_FLAGS, src, "-o", tmp], check=True,
                        capture_output=True, timeout=120)
@@ -70,6 +72,10 @@ def build(src: str | None = None) -> str:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    from parallax_tpu_torch.obs.device import note_build
+
+    note_build("native_build", {"lib": os.path.basename(path)},
+               time.perf_counter() - t0)
     return path
 
 

@@ -172,6 +172,10 @@ def build(verbose: bool = False) -> str:
     for obj in objs:
         os.remove(obj)
     last_build_seconds = time.perf_counter() - t0
+    from parallax_tpu_torch.obs.device import note_build
+
+    note_build("kernel_build", {"lib": os.path.basename(lib_path)},
+               last_build_seconds)
     return lib_path
 
 

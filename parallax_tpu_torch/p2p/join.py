@@ -129,6 +129,8 @@ def build_worker(args):
             prefill_chunk_skip=args.prefill_chunk_skip,
             decode_pipeline=args.decode_pipeline or 1,
             wire_dtype=args.wire_dtype,
+            # Observability: trace sampling and the slow-request threshold.
+            trace_sample_rate=args.trace_sample_rate or 0.0,
             slow_request_ms=args.slow_request_ms,
             host_cache_bytes=default_host_cache_bytes(
                 override=args.host_cache_bytes, device=device),
@@ -156,14 +158,21 @@ def build_worker(args):
             if p.strip()
         ],
         resolve_model=resolve_model,
+        # The stall watchdog: off by default (no monitor thread, no
+        # per-step work).
+        watchdog=bool(args.watchdog),
+        watchdog_degraded_s=args.watchdog_degraded_s,
+        watchdog_stalled_s=args.watchdog_stalled_s,
     )
 
 
 def join_main(args, on_start=None) -> int:
     """Run the worker until SIGINT / SIGTERM, then stop it (in scheduler
     mode that sends ``node_leave``), log its engine's
-    ``kernel_dispatch_summary()``, the process's kernel launches and its
-    ``transport_stats()`` as JSON lines and return 0.
+    ``kernel_dispatch_summary()``, the process's kernel launches, its
+    ``transport_stats()`` and its observability summary (goodput tokens,
+    watchdog status, and each held trace's (stage, span) names, the last
+    16) as JSON lines and return 0.
     ``on_start(node)`` runs once the node started (its engine builds on
     the step thread)."""
     from parallax_tpu_torch.ops import cuda_kernels as ck
@@ -189,4 +198,15 @@ def join_main(args, on_start=None) -> int:
                     json.dumps(node.engine.kernel_dispatch_summary()))
     logger.info("kernel launches: %s", json.dumps(ck.launches()))
     logger.info("transport: %s", json.dumps(node.transport_stats()))
+    from parallax_tpu_torch.obs.goodput import get_goodput
+    from parallax_tpu_torch.obs.trace import get_trace_store
+
+    store = get_trace_store()
+    logger.info("obs: %s", json.dumps({
+        "goodput_tokens": get_goodput().snapshot()["tokens"],
+        "health": node.health_summary()["status"],
+        "traces": {rid: [[s["stage"], s["name"]]
+                         for s in store.spans(rid) or ()]
+                   for rid in store.trace_ids()[-16:]},
+    }))
     return 0

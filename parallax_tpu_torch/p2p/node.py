@@ -89,10 +89,21 @@ failed resolve keeps the old name, so the next allocation retries.
 FORWARD and ABORT take raw protobuf bytes from a reference-protocol peer
 (``p2p/interop.py``), counted in the inbound stats.
 
+The observability plane is the JAX worker's: heartbeats carry the step
+timing, the histogram snapshots (``metrics``), goodput, the device plane,
+the watchdog's ``health``, a sequence-numbered flight-event batch
+(``events``) and the ``constrained`` ledger; traced FORWARD packets join
+the head's trace; ``PROFILE`` starts and stops ``torch.profiler`` on the
+step thread (the frontend's fan-out target, with an auto-stop deadline);
+and ``watchdog=True`` runs the stall watchdog over the step loop, the
+senders, migration, the KV shipper, admission and the compile
+observatory. The heartbeat thread reads host state and the engine's
+snapshots only; what must touch the device runs on the step thread,
+posted through its inbox (``_call_on_step``).
+
 Not ported yet, each refused by name with its ROADMAP queue 1 item: refit
-(item 12), the watchdog, profiling, traces, metrics, goodput, QoS and the
-QoS autoscaler's re-role of a node (item 9), LoRA (item 11) and tensor
-parallelism (item 10).
+(item 12), QoS and the QoS autoscaler's re-role of a node (item 9), LoRA
+(item 11) and tensor parallelism (item 10).
 """
 
 from __future__ import annotations
@@ -121,6 +132,7 @@ from parallax_tpu_torch.ha.backoff import BackoffPolicy
 from parallax_tpu_torch.ha.failover import SchedulerFailover
 from parallax_tpu_torch.models import create_stage_model
 from parallax_tpu_torch.models.base import StageModel
+from parallax_tpu_torch.obs import names as mnames
 from parallax_tpu_torch.p2p import interop, proto
 from parallax_tpu_torch.p2p.transport import (
     NO_HANDLER_MARK,
@@ -164,8 +176,6 @@ def _refuse_wire_request(d: dict) -> None:
     """FORWARD packet fields whose features the port does not run yet."""
     if d.get("lora_id") is not None:
         raise unported("LoRA packets", 11)
-    if d.get("trace"):
-        raise unported("traced packets", 9)
     if d.get("qos") is not None:
         raise unported("QoS-tagged packets", 9)
 
@@ -231,6 +241,9 @@ class WorkerNode:
         kv_transfer_chunk_bytes: int | None = None,
         scheduler_standby: list[str] | None = None,
         resolve_model=None,
+        watchdog: bool = False,
+        watchdog_degraded_s: float = 5.0,
+        watchdog_stalled_s: float = 15.0,
     ):
         """``scheduler_peer`` is the scheduler's RPC address; None enters
         SCHEDULER-LESS mode, where the worker self-assigns ``layers``.
@@ -244,9 +257,11 @@ class WorkerNode:
         layer-chunked KV_TRANSFER frame (default 4 MiB).
         ``resolve_model(name) -> (ModelConfig, load_params | None)`` serves
         a live model switch (None refuses one; load_params None draws
-        seeded random weights). The JAX worker's other arguments (mesh,
-        refit cache, LoRA, watchdog) wait for their items; ``join`` refuses
-        their flags by name."""
+        seeded random weights). ``watchdog`` runs the stall watchdog
+        (degraded / stalled after ``watchdog_degraded_s`` /
+        ``watchdog_stalled_s`` without progress). The JAX worker's other
+        arguments (mesh, refit cache, LoRA) wait for their items; ``join``
+        refuses their flags by name."""
         self.scheduler_peer = scheduler_peer
         self.standalone = scheduler_peer is None
         # Scheduler HA (docs/ha.md): every scheduler RPC routes through a
@@ -354,10 +369,14 @@ class WorkerNode:
             transport, max_queue=64, on_failure=self._on_kv_send_failure,
             name="kv",
         )
-        # Handoff counters (the JAX worker's metrics-registry families,
-        # item 9) and the inbound reassembly (this node as a decode
-        # target), swept from the heartbeat thread.
+        # Handoff counters (also the registry's parallax_kv_* series) and
+        # the inbound reassembly (this node as a decode target), swept
+        # from the heartbeat thread.
         self.handoff_stats = kv_handoff.HandoffStats()
+        # Watchdog progress counters: migration ship rounds and timeouts,
+        # handoff ship rounds, results and local restores.
+        self._migration_progress = 0
+        self._handoff_progress = 0
         self._kv_assembler = kv_handoff.HandoffAssembler(
             stats=self.handoff_stats)
         # Source-side ledger (this node as a prefill head), step-thread
@@ -397,20 +416,29 @@ class WorkerNode:
         transport.register(proto.KV_TRANSFER, self._on_kv_transfer)
         transport.register(proto.KV_RESULT, self._on_kv_result)
         transport.register("__ping__", make_ping_handler())
-        transport.register(proto.PROFILE, self._refusal("profiling", 9))
+        transport.register(proto.PROFILE, self._on_profile)
+        # Cluster-scope profiling: one trace at a time, with an auto-stop
+        # deadline (a frontend that dies mid-profile must not leave this
+        # worker tracing forever).
+        self._profiling = False
+        self._profile_dir: str | None = None
+        self._profile_timer: threading.Timer | None = None
+        self._profile_lock = make_lock("node.profile")
+        # The stall watchdog (started with the node) and the flight-event
+        # shipping state: the ring cursor acked by the scheduler, this
+        # node's own contiguous sequence and the ring -> shipped
+        # assignments not acked yet.
+        self._watchdog = None
+        self._watchdog_cfg = (
+            (watchdog_degraded_s, watchdog_stalled_s) if watchdog else None)
+        self._events_cursor = 0
+        self._events_seq = 0
+        self._events_assigned: dict[int, int] = {}
         # Head-node chat requests by id (polled by the chat host).
         self._chat_requests: dict[str, Request] = {}
         # rid -> (route, park-to-restore seconds on the wall clock) of each
-        # checkpoint this worker restored (the JAX worker counts them in
-        # its metrics plane, item 9).
+        # checkpoint this worker restored (also counted in the registry).
         self.restores: OrderedDict[str, tuple[str, float]] = OrderedDict()
-
-    @staticmethod
-    def _refusal(what: str, item):
-        def handler(_peer, _payload):
-            raise unported(what, item)
-
-        return handler
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -427,6 +455,8 @@ class WorkerNode:
                         self.node_id, s, e)
         else:
             alloc = self._join()
+        if self._watchdog_cfg is not None:
+            self._start_watchdog(*self._watchdog_cfg)
         for fn in (self._announcer_loop, self._step_loop):
             t = threading.Thread(target=fn, daemon=True, name=fn.__name__)
             t.start()
@@ -442,6 +472,8 @@ class WorkerNode:
         self._stop.set()
         for t in self._threads:
             t.join(timeout=3.0)
+        if self._watchdog is not None:
+            self._watchdog.stop()
         self.sender.close()
         self.kv_sender.close()
         if self._gossip_pool is not None:
@@ -712,6 +744,7 @@ class WorkerNode:
         counters, dispatch summary, latency EWMA and digest log are Python
         values, so this thread makes no CUDA call."""
         eng = self.engine
+        ev_batch, ev_cursor = self._event_batch()
         reply = self.sched_transport.call(
             self.scheduler_peer,
             proto.NODE_UPDATE,
@@ -733,20 +766,35 @@ class WorkerNode:
                 "refit_version": 0,
                 "lora_adapters": [],
                 "busy": self._busy_reloading,
-                # Speculation's ledger (None while it is off). Planes not
-                # ported yet (item 9: step timing, metrics, goodput,
-                # device, health, events; item 8: constrained decoding).
+                # Speculation's ledger (None while it is off) and the
+                # constrained-decoding ledger (None until a feature row
+                # ran).
                 "spec": eng.spec_summary() if eng else None,
-                "step_timing": None,
-                "constrained": None,
-                "metrics": None,
-                "goodput": None,
-                "device": None,
-                "health": None,
-                "events": None,
+                "constrained": eng.constrained_summary() if eng else None,
+                "step_timing": eng.step_timing.summary() if eng else None,
+                # Histogram snapshots the scheduler merges into cluster
+                # percentiles, the goodput ledger, the device plane, the
+                # watchdog's state and a flight-event batch for the
+                # cluster timeline.
+                "metrics": self._metrics_snapshot(),
+                "goodput": self._goodput_heartbeat(),
+                "device": self._device_heartbeat(),
+                "health": (self._watchdog.summary()
+                           if self._watchdog is not None else None),
+                "events": ev_batch,
             },
             timeout=10.0,
         )
+        # The reply landed, so the scheduler ingested the batch: adopt
+        # the cursor and prune the acked assignments. A failed beat
+        # re-ships from the old cursor under the same numbers (the
+        # timeline dedupes them).
+        self._events_cursor = ev_cursor
+        if self._events_assigned:
+            self._events_assigned = {
+                rs: s for rs, s in self._events_assigned.items()
+                if rs > ev_cursor
+            }
         if not isinstance(reply, dict):
             return
         if reply.get("drain"):
@@ -776,6 +824,302 @@ class WorkerNode:
             ):
                 # The scheduler moved us: reload on the step thread.
                 self._post(("reload", reply))
+
+    def _event_batch(self) -> tuple[dict | None, int]:
+        """The next bounded flight-event batch for the cluster timeline
+        and the ring cursor to adopt once the scheduler's reply confirms
+        it landed, tagged with this process's boot epoch (a restart resets
+        the scheduler's gap accounting instead of counting a false gap).
+
+        Shipped events are renumbered into this node's own contiguous
+        sequence (an in-process swarm shares one ring whose global
+        sequence interleaves siblings); the ring -> shipped assignment is
+        stable across retries, so a resend reuses its numbers and the
+        timeline dedupes it. Events the ring evicted before they shipped
+        surface as ``lost``."""
+        try:
+            from parallax_tpu_torch.obs.flight import get_flight
+
+            fl = get_flight()
+            events, cursor = fl.events_since(
+                self._events_cursor, limit=256, node=self.node_id)
+            lost = 0
+            oldest = fl.oldest_seq()
+            if self._events_cursor and oldest > self._events_cursor + 1:
+                lost = oldest - self._events_cursor - 1
+            cursor = max(cursor, oldest - 1 if oldest else 0)
+        except Exception:  # pragma: no cover - obs never breaks beats
+            return None, self._events_cursor
+        if not events and not lost:
+            return None, cursor
+        batch = []
+        for e in events:
+            ring_seq = int(e.get("seq") or 0)
+            seq = self._events_assigned.get(ring_seq)
+            if seq is None:
+                self._events_seq += 1
+                seq = self._events_seq
+                self._events_assigned[ring_seq] = seq
+            batch.append(dict(e, seq=seq))
+        payload = {"epoch": self._epoch, "batch": batch}
+        if lost:
+            payload["lost"] = lost
+        return payload, cursor
+
+    @staticmethod
+    def _count_migration_in(mode: str, park_s: float | None) -> None:
+        """``parallax_migrations_total{mode}``, the park -> resume latency
+        histogram and the goodput ledger's ``migrate`` time (never
+        raises)."""
+        try:
+            from parallax_tpu_torch.obs.goodput import get_goodput
+            from parallax_tpu_torch.obs.registry import get_registry
+
+            reg = get_registry()
+            reg.counter(
+                mnames.MIGRATIONS_TOTAL,
+                "Requests restored on this head after a live migration "
+                "or client resume",
+                labelnames=("mode",),
+            ).labels(mode=mode).inc()
+            if park_s is not None:
+                reg.histogram(
+                    mnames.MIGRATION_MS,
+                    "Park -> resume latency of migrated requests, ms",
+                ).observe(park_s * 1e3)
+                # Park -> resume is churn overhead, not serving time.
+                get_goodput().add_time("migrate", park_s)
+        except Exception:  # pragma: no cover - metrics never break serving
+            pass
+
+    @staticmethod
+    def _metrics_snapshot() -> dict | None:
+        """Histogram snapshots for the heartbeat (the scheduler merges them
+        into cluster percentiles), empty children stripped; None when
+        nothing was observed yet."""
+        try:
+            from parallax_tpu_torch.obs.registry import get_registry
+
+            out = {}
+            for name, children in (
+                    get_registry().histogram_snapshots().items()):
+                kept = {
+                    lbl: c for lbl, c in children.items() if c.get("count")
+                }
+                if kept:
+                    out[name] = kept
+            return out or None
+        except Exception:  # pragma: no cover - metrics never break serving
+            return None
+
+    @staticmethod
+    def _goodput_heartbeat() -> dict | None:
+        """This process's goodput payload (one card a worker; never
+        raises)."""
+        try:
+            from parallax_tpu_torch.obs.goodput import get_goodput
+
+            return get_goodput().payload(chips=1)
+        except Exception:  # pragma: no cover - obs never breaks beats
+            return None
+
+    @staticmethod
+    def _device_heartbeat() -> dict | None:
+        """This process's device-plane payload (never raises)."""
+        try:
+            from parallax_tpu_torch.obs.device import get_device_plane
+
+            return get_device_plane().payload()
+        except Exception:  # pragma: no cover - obs never breaks beats
+            return None
+
+    # -- stall watchdog and profiling ----------------------------------------
+
+    def _start_watchdog(self, degraded_s: float, stalled_s: float) -> None:
+        """Build and start the stall watchdog: each component registers a
+        (pending, progress) probe; pending work whose progress stops
+        moving walks ok -> degraded -> stalled, emits flight events (so
+        the stall lands in the cluster timeline) and flips the deep
+        ``/healthz``. The probes run on the monitor thread and read host
+        counters only."""
+        from parallax_tpu_torch.obs.device import get_device_plane
+        from parallax_tpu_torch.obs.watchdog import StallWatchdog
+
+        wd = StallWatchdog(
+            node_id=self.node_id,
+            degraded_after_s=degraded_s,
+            stalled_after_s=stalled_s,
+        )
+
+        def _step_pending() -> float:
+            eng = self.engine
+            if eng is None:
+                return 0.0
+            return float(eng.scheduler.num_requests())
+
+        wd.register_beat("step_loop", _step_pending)
+
+        def _sender_probe():
+            # Both lanes: a wedged kv lane stalls handoffs as a wedged
+            # FORWARD link stalls decode. Frames leaving the queue either
+            # way are progress.
+            stats = dict(self.sender.stats())
+            for p, s in self.kv_sender.stats().items():
+                stats[f"kv:{p}"] = s
+            pending = sum(
+                s.get("queue_depth", 0) or 0 for s in stats.values())
+            progress = sum(
+                (s.get("frames_out", 0) or 0) + (s.get("drops", 0) or 0)
+                + (s.get("errors", 0) or 0)
+                for s in stats.values()
+            )
+            worst = max(
+                (s.get("queue_depth", 0) or 0 for s in stats.values()),
+                default=0,
+            )
+            return float(pending), float(progress), f"deepest queue {worst}"
+
+        wd.register("sender", _sender_probe)
+
+        def _migration_probe():
+            pending = len(self._migration_pending) + len(
+                self._migration_parked)
+            return (
+                float(pending), float(self._migration_progress),
+                f"{len(self._migration_parked)} parked",
+            )
+
+        wd.register("migration", _migration_probe)
+
+        def _kv_shipper_probe():
+            # Flagged and parked handoffs on this prefill head plus inbound
+            # transfers assembling on this decode head; frames moving
+            # either way count as progress (a large image spends seconds
+            # in flight).
+            pending = (
+                len(self._handoff_pending) + len(self._handoff_parked)
+                + self._kv_assembler.partial_count()
+            )
+            frames_out = sum(
+                (s.get("frames_out", 0) or 0)
+                for s in self.kv_sender.stats().values()
+            )
+            progress = (self._handoff_progress
+                        + self._kv_assembler.frames_total + frames_out)
+            return (
+                float(pending), float(progress),
+                f"{len(self._handoff_parked)} parked, "
+                f"{self._kv_assembler.partial_count()} assembling",
+            )
+
+        wd.register("kv_shipper", _kv_shipper_probe)
+
+        def _admission_probe():
+            eng = self.engine
+            if eng is None:
+                return 0.0, 0.0, ""
+            sched = eng.scheduler
+            return (
+                float(len(sched.wait_queue)),
+                float(sched.admitted_total),
+                f"{len(sched.running)} running",
+            )
+
+        wd.register("admission", _admission_probe)
+        # Capture storms freeze the compile observatory's progress.
+        wd.register("compile", get_device_plane().compile.probe)
+        wd.start()
+        self._watchdog = wd
+
+    def health_summary(self) -> dict:
+        """The watchdog's component state machine (a shallow ok when the
+        watchdog is off)."""
+        wd = self._watchdog
+        if wd is None:
+            return {"status": "ok", "components": {}, "causes": []}
+        return wd.summary()
+
+    def _call_on_step(self, fn, timeout: float = 60.0):
+        """Run ``fn()`` on the step thread (posted through the inbox) and
+        return its result, re-raising its exception."""
+        box: queue.Queue = queue.Queue(maxsize=1)
+        self._post(("call", fn, box))
+        try:
+            ok, value = box.get(timeout=timeout)
+        except queue.Empty as e:
+            raise TimeoutError("the step thread did not answer") from e
+        if not ok:
+            raise value
+        return value
+
+    def _on_profile(self, _peer: str, payload: dict):
+        """The cluster profile fan-out's target: start / stop a
+        ``torch.profiler`` trace on this stage, on the step thread. The
+        reply feeds the frontend's per-node manifest; ``max_seconds`` arms
+        an auto-stop timer here too."""
+        from parallax_tpu_torch.obs import profiler
+
+        payload = payload or {}
+        action = str(payload.get("action") or "")
+        with self._profile_lock:
+            if action == "start":
+                if self._profiling:
+                    return {
+                        "node_id": self.node_id,
+                        "error": "profiler already running",
+                        "dir": self._profile_dir,
+                    }
+                out_dir = str(payload.get("dir") or profiler.DEFAULT_DIR)
+                try:
+                    max_seconds = float(payload.get("max_seconds") or 120.0)
+                except (TypeError, ValueError):
+                    max_seconds = 120.0
+                try:
+                    self._call_on_step(lambda: profiler.start_trace(out_dir))
+                except Exception as e:
+                    return {"node_id": self.node_id, "error": str(e)}
+                self._profiling = True
+                self._profile_dir = out_dir
+                self._profile_timer = threading.Timer(
+                    max(1.0, max_seconds), self._profile_autostop)
+                self._profile_timer.daemon = True
+                self._profile_timer.start()
+                return {"node_id": self.node_id, "profiling": True,
+                        "dir": out_dir}
+            if action == "stop":
+                if not self._profiling:
+                    return {"node_id": self.node_id,
+                            "error": "profiler not running"}
+                if self._profile_timer is not None:
+                    self._profile_timer.cancel()
+                    self._profile_timer = None
+                try:
+                    path = self._call_on_step(profiler.stop_trace)
+                except Exception as e:
+                    return {"node_id": self.node_id, "error": str(e)}
+                finally:
+                    self._profiling = False
+                return {"node_id": self.node_id, "profiling": False,
+                        "dir": self._profile_dir, "trace": path}
+        return {"node_id": self.node_id,
+                "error": f"unknown action {action!r}"}
+
+    def _profile_autostop(self) -> None:
+        """The max_seconds deadline fired without an explicit stop."""
+        from parallax_tpu_torch.obs import profiler
+
+        with self._profile_lock:
+            if not self._profiling:
+                return
+            self._profiling = False
+            self._profile_timer = None
+            logger.warning("%s: profiler auto-stop: max_seconds deadline "
+                           "reached", self.node_id)
+            try:
+                self._call_on_step(profiler.stop_trace)
+            except Exception:
+                logger.exception("%s: profiler auto-stop failed",
+                                 self.node_id)
 
     def _digest_heartbeat(self, eng) -> dict | None:
         """Prefix-digest payload for one heartbeat: a delta normally, a
@@ -1072,6 +1416,12 @@ class WorkerNode:
                 "%s: peer %s cannot decode wire dtype %s; sending native "
                 "frames on this link", self.node_id, peer, want,
             )
+        from parallax_tpu_torch.obs.flight import get_flight
+
+        get_flight().event(
+            "wire_dtype", node=self.node_id, peer=peer, want=want,
+            negotiated=got,
+        )
         self._cache_wire_dtype(peer, got, self.WIRE_DTYPE_REFRESH_S, gen)
 
     def _cache_wire_dtype(self, peer: str, dtype: str | None, ttl: float,
@@ -1094,6 +1444,11 @@ class WorkerNode:
         requests routed through the peer, on the step thread."""
         logger.error("%s: async send to %s failed: %s",
                      self.node_id, peer, reason)
+        from parallax_tpu_torch.obs.flight import get_flight
+
+        get_flight().event(
+            "abort_path", node=self.node_id, peer=peer, reason=reason,
+        )
         self._forget_wire_dtype(peer)
         if not self.standalone and not self._is_scheduler(peer):
             # Tell the scheduler now: it drops the peer's CacheIndex and
@@ -1261,8 +1616,17 @@ class WorkerNode:
         # engine.
         while not self._stop.is_set():
             try:
+                wd = self._watchdog
+                if wd is not None:
+                    # One dict increment a pass: a drive_step that hangs
+                    # stops the beats.
+                    wd.beat("step_loop")
                 worked = self._drain_inbox()
                 eng = self.engine
+                if eng is not None:
+                    # The engine's obs refresh (snapshot, HBM ledger,
+                    # device-time harvest) at its own cadence.
+                    eng.obs_tick()
                 if self._pending is not None and self._pending_engine is not eng:
                     self._pending = None
                 if self._migration_pending or self._migration_parked:
@@ -1402,6 +1766,12 @@ class WorkerNode:
                         self._flag_for_migration(req, sorted(hit)[0])
             elif kind == "restore":
                 self._restore_checkpoint(item[1], item[2])
+            elif kind == "call":
+                fn, box = item[1], item[2]
+                try:
+                    box.put((True, fn()))
+                except Exception as e:
+                    box.put((False, e))
             elif kind == "migration_shipped":
                 self._on_migration_shipped(item[1])
             elif kind == "handoff_shipped":
@@ -1461,6 +1831,12 @@ class WorkerNode:
             return
         req.migrating = True
         self._migration_pending[rid] = dead_peer
+        from parallax_tpu_torch.obs.flight import get_flight
+
+        get_flight().event(
+            "migrate_flag", node=self.node_id, request_id=rid,
+            dead_peer=dead_peer,
+        )
 
     def _migration_tick(self, eng) -> None:
         """One step-loop pass of the migration state machine: park flagged
@@ -1494,6 +1870,7 @@ class WorkerNode:
         for rid, e in list(self._migration_parked.items()):
             if not e["shipping"] and now > e["deadline"]:
                 self._migration_parked.pop(rid)
+                self._migration_progress += 1
                 req = e["req"]
                 req.abort("migration: no serviceable pipeline")
                 self._finish(req)
@@ -1561,6 +1938,13 @@ class WorkerNode:
             "next_attempt": now,
             "shipping": False,
         }
+        from parallax_tpu_torch.obs.flight import get_flight
+
+        get_flight().event(
+            "migrate_park", node=self.node_id, request_id=rid,
+            kv_pages=(len(image.layers[0]) if image is not None else 0),
+            tokens=len(req.full_output_ids),
+        )
 
     def _ship_checkpoints(self, entries: dict[str, dict]) -> None:
         """Ship thread: ask the scheduler for CacheIndex-scored targets,
@@ -1678,6 +2062,7 @@ class WorkerNode:
                     )
 
     def _on_migration_shipped(self, results: dict[str, tuple]) -> None:
+        self._migration_progress += 1
         for rid, (status, info) in results.items():
             e = self._migration_parked.get(rid)
             if e is None:
@@ -1701,6 +2086,12 @@ class WorkerNode:
                 logger.info("%s: migrated %s to %s (%s)", self.node_id,
                             rid, info, "KV image" if e["image"] is not None
                             else "replay")
+                from parallax_tpu_torch.obs.flight import get_flight
+
+                get_flight().event(
+                    "migrate_out", node=self.node_id, request_id=rid,
+                    target=info, with_kv=e["image"] is not None,
+                )
             else:
                 # "retry" (target unreachable / no pipeline) and "failed"
                 # (target rejected) re-enter the park loop: the next query
@@ -1756,6 +2147,11 @@ class WorkerNode:
                     continue
                 req.migrating = True
                 self._handoff_pending[rid] = now
+                from parallax_tpu_torch.obs.flight import get_flight
+
+                get_flight().event(
+                    "handoff_flag", node=self.node_id, request_id=rid,
+                )
         if self._handoff_pending and eng is not None:
             inflight = eng.inflight_rids()
             for rid in list(self._handoff_pending):
@@ -1800,6 +2196,7 @@ class WorkerNode:
                 # result and re-ship back to us was lost, and a local
                 # restore would then fork it onto two heads.
                 self._handoff_parked.pop(rid)
+                self._handoff_progress += 1
                 if e.get("pinned_target"):
                     threading.Thread(
                         target=self._confirm_then_restore_local,
@@ -1953,6 +2350,21 @@ class WorkerNode:
                    else 0),
             tokens=len(req.full_output_ids),
         )
+        from parallax_tpu_torch.obs.flight import get_flight
+
+        get_flight().event(
+            "handoff_park", node=self.node_id, request_id=rid,
+            kv_pages=(int(image.layers[0].shape[0]) if image is not None
+                      else 0),
+            tokens=len(req.full_output_ids),
+        )
+        if req.traced:
+            from parallax_tpu_torch.obs.trace import get_trace_store
+
+            get_trace_store().add(
+                rid, self.node_id, "kv_handoff_park",
+                t0=time.perf_counter(), dur=0.0, args={},
+            )
 
     def _ship_handoffs(self, entries: dict[str, dict]) -> None:
         """Ship thread: decode-pool targets from the scheduler, then per
@@ -2131,6 +2543,7 @@ class WorkerNode:
     def _on_handoff_shipped(self, results: dict[str, tuple]) -> None:
         """Step thread: fold one ship round's outcomes back into the parked
         ledger."""
+        self._handoff_progress += 1
         now = time.monotonic()
         for rid, (status, info) in results.items():
             e = self._handoff_parked.get(rid)
@@ -2173,6 +2586,7 @@ class WorkerNode:
                 # it — the "sent" transition consumes it.
                 e["early_result"] = dict(payload)
             return
+        self._handoff_progress += 1
         if payload.get("ok"):
             self._handoff_parked.pop(rid)
             now = time.monotonic()
@@ -2213,6 +2627,20 @@ class WorkerNode:
                                 outcome="image" if with_kv else "checkpoint")
         logger.info("%s: handed %s off to %s (%s)", self.node_id, rid,
                     head, "KV image" if with_kv else "checkpoint only")
+        from parallax_tpu_torch.obs.flight import get_flight
+
+        get_flight().event(
+            "handoff_out", node=self.node_id, request_id=rid,
+            target=head, with_kv=with_kv,
+        )
+        if e["req"].traced:
+            from parallax_tpu_torch.obs.trace import get_trace_store
+
+            get_trace_store().add(
+                rid, self.node_id, "kv_handoff_out",
+                t0=time.perf_counter(), dur=0.0,
+                args={"target": head, "with_kv": with_kv},
+            )
 
     def _handoff_restore_local(self, e: dict, reason: str) -> None:
         """Mixed-mode rung: decode the parked request HERE, through the
@@ -2282,6 +2710,11 @@ class WorkerNode:
         fail the awaiting transfers over to the checkpoint-only rung."""
         logger.error("%s: kv lane to %s failed: %s",
                      self.node_id, peer, reason)
+        from parallax_tpu_torch.obs.flight import get_flight
+
+        get_flight().event(
+            "kv_lane_down", node=self.node_id, peer=peer, reason=reason,
+        )
         if not self.standalone and not self._is_scheduler(peer):
             self.sender.send(
                 self._sched_peer(), proto.PEER_DOWN,
@@ -2389,18 +2822,48 @@ class WorkerNode:
             from_peer, len(ckpt.output_ids),
             "KV image adopted" if adopted else "re-prefill + replay",
         )
+        from parallax_tpu_torch.obs.flight import get_flight
+
+        get_flight().event(
+            "handoff_in" if handoff else "migrate_in",
+            node=self.node_id, request_id=rid,
+            source=from_peer, kv_adopted=adopted,
+            prior_tokens=len(ckpt.output_ids),
+        )
+        if ckpt.traced:
+            # Stitch the source head's spans into this process's trace,
+            # then mark the boundary: /debug/trace/<rid> here shows one
+            # timeline across heads.
+            try:
+                from parallax_tpu_torch.obs.trace import get_trace_store
+                from parallax_tpu_torch.runtime.checkpoint import (
+                    spans_from_wire,
+                )
+
+                store = get_trace_store()
+                if ckpt.trace_spans:
+                    store.adopt(rid, spans_from_wire(ckpt.trace_spans))
+                store.add(
+                    rid, self.node_id,
+                    "kv_handoff_in" if handoff else "migrate_in",
+                    t0=time.perf_counter(), dur=0.0,
+                    args={"source": from_peer, "kv_adopted": adopted},
+                )
+            except Exception:  # pragma: no cover - tracing is best-effort
+                logger.exception("trace adoption failed for %s", rid)
         if handoff:
             # Planned phase handoffs count apart from churn migrations.
             self.handoff_stats.record_handoff(
                 "local" if from_peer == self.node_id
                 else ("kv_image" if adopted else "reprefill"))
         else:
-            self.restores[rid] = (
-                "kv_image" if adopted else "replay",
-                max(0.0, time.time() - ckpt.parked_wall),
-            )
+            mode = "kv_image" if adopted else "replay"
+            park_s = max(0.0, time.time() - ckpt.parked_wall)
+            self.restores[rid] = (mode, park_s)
             while len(self.restores) > 4096:
                 self.restores.popitem(last=False)
+            self._count_migration_in(mode, park_s if ckpt.parked_wall
+                                     else None)
         if not self.standalone:
             # Handoffs report through the same where_is table: pollers
             # that lose the prefill head still find the decode head.

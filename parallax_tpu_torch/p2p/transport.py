@@ -45,6 +45,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable
 
 from parallax_tpu_torch.analysis.sanitizer import make_lock
+from parallax_tpu_torch.obs.flight import get_flight
 from parallax_tpu_torch.p2p.proto import decode_frame, encode_frame
 from parallax_tpu_torch.utils import get_logger
 
@@ -735,8 +736,8 @@ class AsyncSender:
     raw_bytes, wire_bytes)`` tuple feeding the per-link telemetry.
 
     Links idle for ``idle_reap_s`` retire themselves; the next send to
-    that peer recreates the link. The JAX sender also records its
-    overflows in the flight recorder (ROADMAP queue 1 item 9).
+    that peer recreates the link. Overflows are flight-recorder events
+    (``queue_overflow``).
     """
 
     _CLOSE = object()
@@ -779,15 +780,18 @@ class AsyncSender:
                 if best_effort:
                     # A courtesy frame that does not fit is dropped ALONE:
                     # what is queued is live traffic.
-                    with link.stats_lock:
-                        link.stats["drops"] += 1
+                    dropped = 1
                 else:
                     # One incident: everything queued is stale once the
                     # abort path fires, so drain it all and report once.
                     dropped = 1 + link.drain()
-                    with link.stats_lock:
-                        link.stats["drops"] += dropped
                     overflow = True
+                with link.stats_lock:
+                    link.stats["drops"] += dropped
+                get_flight().event(
+                    "queue_overflow", peer=peer, dropped=dropped,
+                    best_effort=best_effort, method=method,
+                )
             depth = link.queue.qsize()
             with link.stats_lock:
                 if depth > link.stats["queue_peak"]:

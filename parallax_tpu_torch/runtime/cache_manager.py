@@ -9,7 +9,11 @@ eviction demotes pages to host memory, a prefix hit on a host-resident node
 swaps it back in before admission, a decode short of pages preempts a
 request's KV image to host (``preempt_to_host`` / ``resume_from_host``),
 and a migrated-in image is adopted as if preempted here
-(``adopt_migrated``). ``make_cache_manager`` returns the native C++
+(``adopt_migrated``). Host-tier transfers accrue their host seconds to
+the goodput ledger's ``swap`` bucket and the device plane's
+``swap_gather`` / ``swap_scatter`` programs, and an admission swap-in
+leaves a flight event (and a span for a traced request).
+``make_cache_manager`` returns the native C++
 manager (``parallax_tpu_torch/native``) by default and this class under the
 JAX factory's gates; LoRA namespaces and linear-state snapshots are not
 ported yet.
@@ -25,11 +29,13 @@ import dataclasses
 import logging
 import math
 import os
+import time
 
 from parallax_tpu_torch.config import ModelConfig
 from parallax_tpu_torch.runtime.allocator import OutOfPages, PageAllocator
 from parallax_tpu_torch.runtime.radix_cache import RadixPageCache
 from parallax_tpu_torch.runtime.request import Request
+from parallax_tpu_torch.utils.request_metrics import CacheStats
 
 logger = logging.getLogger(__name__)
 
@@ -57,22 +63,6 @@ def derive_num_pages(
     """KV page budget from free device memory."""
     per_page = kv_bytes_per_page(config, num_local_layers, page_size, dtype_bytes)
     return max(8, int(free_bytes * utilization) // per_page)
-
-
-@dataclasses.dataclass
-class CacheStats:
-    """Prefix-cache counters for one engine stage (the fields of
-    ``parallax_tpu/utils/request_metrics.CacheStats`` this slice moves)."""
-
-    tokens_admitted: int = 0       # prompt tokens of admitted requests
-    tokens_hit_device: int = 0     # skipped via device-resident prefixes
-    tokens_hit_host: int = 0       # skipped via host-tier swap-ins
-    tokens_chunk_skipped: int = 0  # of hit_device, skipped by a
-    #                                mid-prefill radix re-consult
-    pages_evicted: int = 0         # device pages reclaimed from the tree
-    preemptions: int = 0           # decode-OOM swap-outs to host
-    resumes: int = 0               # preempted requests swapped back in
-    kv_oom_aborts: int = 0         # last-resort aborts (host tier full)
 
 
 def make_cache_manager(
@@ -300,6 +290,7 @@ class CacheManager:
         if host_nodes:
             # H2D scatter of the host-tier hits; the nodes are then
             # ordinary device-resident tree pages shared with this request.
+            t_swap = time.perf_counter()
             swap_pages = fresh[:len(host_nodes)]
             fresh = fresh[len(host_nodes):]
             handles = [
@@ -308,6 +299,20 @@ class CacheManager:
             ]
             self.host_tier.promote(handles, swap_pages)
             shared_pages = [n.page_id for n in path]
+            dur = time.perf_counter() - t_swap
+            from parallax_tpu_torch.obs.flight import get_flight
+            from parallax_tpu_torch.obs.trace import get_trace_store
+
+            self._goodput_swap(dur)
+            get_flight().event(
+                "swap_in", request_id=request.request_id,
+                pages=len(host_nodes), ms=round(dur * 1e3, 3),
+            )
+            if request.traced:
+                get_trace_store().add(
+                    request.request_id, "cache", "swap_in",
+                    t0=t_swap, dur=dur, args={"pages": len(host_nodes)},
+                )
         request.page_ids = shared_pages + fresh
         request.num_cached_tokens = len(shared_pages) * self.page_size
         request.num_computed_tokens = request.num_cached_tokens
@@ -418,6 +423,7 @@ class CacheManager:
         owned = request.page_ids[num_shared:]
         if not owned:
             return False   # nothing to reclaim; preemption is pointless
+        t_swap = time.perf_counter()
         handles = self.host_tier.demote(owned, pinned=True)
         if handles is None:
             return False
@@ -425,6 +431,7 @@ class CacheManager:
         self.allocator.free(owned)
         del request.page_ids[num_shared:]
         self.stats.preemptions += 1
+        self._goodput_swap(time.perf_counter() - t_swap, "swap_gather")
         return True
 
     def shared_prefix_tokens(self, request_id: str) -> int:
@@ -475,6 +482,7 @@ class CacheManager:
             return True
         if not self._reclaim(len(handles)):
             return False
+        t_swap = time.perf_counter()
         try:
             fresh = self.allocator.alloc(len(handles))
         except OutOfPages:
@@ -483,7 +491,24 @@ class CacheManager:
         request.page_ids.extend(fresh)
         del request.host_page_handles
         self.stats.resumes += 1
+        self._goodput_swap(time.perf_counter() - t_swap)
         return True
+
+    @staticmethod
+    def _goodput_swap(seconds: float, program: str = "swap_scatter") -> None:
+        """Accrue a host <-> device KV transfer's host seconds to the
+        goodput ledger's ``swap`` bucket and the device plane's program
+        split: ``swap_gather`` is device -> host (a preemption park),
+        ``swap_scatter`` host -> device (a resume or admission swap-in).
+        Never raises."""
+        try:
+            from parallax_tpu_torch.obs.device import get_device_plane
+            from parallax_tpu_torch.obs.goodput import get_goodput
+
+            get_goodput().add_time("swap", seconds)
+            get_device_plane().time.add(program, seconds)
+        except Exception:  # pragma: no cover - obs only
+            pass
 
     def release(self, request: Request) -> None:
         """Return a finished/aborted request's pages.

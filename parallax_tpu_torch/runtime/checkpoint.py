@@ -22,9 +22,10 @@ dtype names, so a port signature equals a JAX one for the same layout and
 either package adopts the other's checkpoints. :func:`checkpoint_from_wire`
 validates every field — lengths, dtypes, shape/byte agreement — and raises
 :class:`CheckpointError` on anything malformed, so a truncated or corrupt
-frame is rejected cleanly instead of poisoning the target engine. The
-trace-span helpers carry empty lists until the tracing plane is ported
-(ROADMAP queue 1 item 9).
+frame is rejected cleanly instead of poisoning the target engine. A
+traced request's checkpoint carries the source head's lifecycle spans
+(``spans_to_wire``), which the target adopts into its trace store, so
+``/debug/trace/<rid>`` there shows one timeline across heads.
 """
 
 from __future__ import annotations
@@ -197,9 +198,19 @@ def checkpoint_from_request(
         req.prompt_ids[: len(req.prompt_ids) - req.output_offset]
         if req.output_offset else req.prompt_ids
     )
-    # The port records no lifecycle spans until item 9: a traced
-    # request ships none.
     trace_spans = None
+    if req.traced:
+        # Ship the source head's spans so the target's trace shows one
+        # stitched timeline (never fails the checkpoint: tracing is
+        # best-effort).
+        try:
+            from parallax_tpu_torch.obs.trace import get_trace_store
+
+            spans = get_trace_store().spans(req.request_id)
+            if spans:
+                trace_spans = spans_to_wire(spans)
+        except Exception:
+            trace_spans = None
     return RequestCheckpoint(
         request_id=req.request_id,
         prompt_ids=list(orig_prompt),

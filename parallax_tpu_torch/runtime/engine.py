@@ -47,8 +47,11 @@ is silently ignored.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
+import os
+import random
 import time
 
 import numpy as np
@@ -59,6 +62,7 @@ from parallax_tpu_torch.analysis.sanitizer import make_lock
 from parallax_tpu_torch.config import resolve_wire_dtype
 from parallax_tpu_torch.models.base import BatchInputs, StageModel
 from parallax_tpu_torch.models.registry import params_to, unported_features
+from parallax_tpu_torch.obs import names as mnames
 from parallax_tpu_torch.ops import kernel_select
 from parallax_tpu_torch.ops.sampling import (
     FUSED_SAMPLE_TOPK_MAX,
@@ -125,11 +129,13 @@ class EngineConfig:
     ``speculative_ngram``), ``cache_digests`` (the radix
     tree's digest log for cache-aware routing), ``constrained_window``
     (grammar batches ride the decode window; off, they decode on the
-    host-synchronous path) and ``host_cache_bytes`` (the host KV tier's
-    budget; 0 = off). The fields listed in ``_UNPORTED``
-    must keep their defaults (construction raises otherwise);
-    ``linear_*`` and ``slow_request_ms`` only tune
-    features that are refused elsewhere.
+    host-synchronous path), ``host_cache_bytes`` (the host KV tier's
+    budget; 0 = off), ``trace_sample_rate`` (the share of head requests
+    whose lifecycle spans ``obs/trace.py`` records; 0 = off) and
+    ``slow_request_ms`` (the flight recorder's slow-request threshold).
+    The fields listed in ``_UNPORTED`` must keep their defaults
+    (construction raises otherwise); ``linear_*`` only tune features that
+    are refused elsewhere.
     ``wire_dtype`` is read by the swarm worker (``p2p/node.py``), not the
     engine, as in the JAX package; its float8 link mode raises here."""
 
@@ -184,7 +190,6 @@ _UNPORTED = {
     "sp_threshold": None,
     "qos": None,
     "prefill_seq_parallel": False,
-    "trace_sample_rate": 0.0,
     "lora_max_adapters": 0,
 }
 
@@ -263,6 +268,13 @@ class StepTicket:
     # The event behind the ticket's host copies (None on a CPU device).
     ready: object = None
     outputs: StepOutputs | None = None
+    # Device-time attribution: the program family this ticket dispatched
+    # and, on a CUDA device, timing events recorded on the step's stream
+    # at dispatch entry and behind its last enqueue (the ready event when
+    # there is one).
+    program: str = ""
+    ev0: object = None
+    ev1: object = None
 
 
 def drive_step(
@@ -457,6 +469,9 @@ class DraftProposer:
         if not (engine.model.is_first and engine.model.is_last):
             raise ValueError("draft engine must be a full single stage")
         self.engine = engine
+        # The target prices the draft's bytes (spec_draft); the draft's
+        # own ledger classes would overwrite the target's.
+        engine._obs_draft = True
         # The proposal loop drives step() synchronously: the deferred
         # sampler would be pure overhead inside the propose budget.
         engine.cfg.overlap_steps = False
@@ -567,6 +582,9 @@ class StageEngine:
                 f"cuda_graphs=True needs a CUDA device, got {self.device}"
             )
         self.model = model
+        # The stage label every observability surface carries (metric
+        # labels, trace-span lanes, flight events).
+        self._obs_stage = f"{model.start_layer}-{model.end_layer}"
         self.host_hidden = host_hidden and not model.is_last
         self.params = params_to(params, self.device)
         # One paged cache per local layer, updated in place by every step.
@@ -608,6 +626,7 @@ class StageEngine:
             max_num_tokens_per_batch=self.cfg.max_num_tokens_per_batch,
             prefill_chunk_size=self.cfg.prefill_chunk_size,
             request_timeout_s=self.cfg.request_timeout_s,
+            stage_name=self._obs_stage,
         )
         self.spec = BucketSpec.build(
             self.cfg.max_num_tokens_per_batch,
@@ -642,6 +661,9 @@ class StageEngine:
         self._prefill_impl = kernel_select.prefill_attn_impl(
             self._prefill_fused, model.use_kernels, self.device
         )
+        # Bumped on the step thread, summarized from heartbeat and status
+        # threads.
+        self._kernel_lock = make_lock("engine.kernel_counts")
         self._kernel_counts: dict[tuple[str, str], int] = {}
         self._step_count = 0
         # Non-head stages: hidden rows waiting per request id (tensors on
@@ -704,6 +726,20 @@ class StageEngine:
                 "pipeline verifies proposals via pp-spec with a "
                 "synchronous resolve",
             )
+        # host_ms / device_ms / overlap EWMAs for heartbeats and
+        # /cluster/status, the same samples feeding the registry's
+        # histograms.
+        from parallax_tpu_torch.utils.request_metrics import (
+            StepTimingAggregator,
+        )
+
+        self._init_obs()
+        self.step_timing = StepTimingAggregator(
+            host_hist=self._h_step_host, device_hist=self._h_step_device,
+            per_token_hist=self._h_step_per_token,
+        )
+        if self._graphs is not None:
+            self._graphs.on_capture = self._on_graph_capture
 
     # -- intake -----------------------------------------------------------
 
@@ -728,6 +764,12 @@ class StageEngine:
         sp = request.sampling_params
         if sp.max_new_tokens > cap:
             sp.max_new_tokens = cap
+        # Lifecycle-trace sampling: the head decides, and the flag rides
+        # the FORWARD frames so later stages join the same trace.
+        if request.traced or (
+            self._trace_rate > 0.0 and random.random() < self._trace_rate
+        ):
+            self._trace_begin(request)
         return self.scheduler.enqueue(request)
 
     def submit_intermediate(self, ireq: IntermediateRequest) -> None:
@@ -782,6 +824,11 @@ class StageEngine:
             req.prompt_ids.extend(new_tokens)
             req.set_status(RequestStatus.PREFILLING, "mirror-chunk")
             req.ready_for_step = True
+        if ireq.trace and req.request_id not in self._traced:
+            # An upstream stage sampled this request: record this stage's
+            # spans under the same trace id (begin() is idempotent, so an
+            # in-process pipeline shares one span list).
+            self._trace_begin(req)
         if ireq.spec_len > 0:
             # The last spec_len tokens are unverified proposals; the last
             # stage verifies them against its own logits.
@@ -807,6 +854,7 @@ class StageEngine:
         self._grammar_states.pop(request_id, None)
         self._bias_cache.pop(request_id, None)
         self._free_token_slot(request_id)
+        self._traced.discard(request_id)
         if req is not None:
             req.device_feed_ready = False
             if not req.status.is_finished:
@@ -820,22 +868,28 @@ class StageEngine:
         return self.scheduler.num_requests() > 0
 
     def cache_stats(self) -> dict:
-        """Prefix-cache and memory-tier counters: tokens admitted, reused
-        (from device and host pages) and skipped, pages evicted,
-        preemptions, resumes, KV-exhaustion aborts; with a tier, its
-        occupancy and its demotion / swap-in / eviction counts (the JAX
-        ``cache_stats_summary``'s tier fields)."""
-        d = dataclasses.asdict(self.cache.stats)
-        tier = self.host_tier
-        if tier is not None:
-            d.update(
-                host_pages=tier.num_host_pages,
-                host_capacity_pages=tier.capacity_pages,
-                pages_demoted=tier.pages_demoted,
-                pages_swapped_in=tier.pages_swapped_in,
-                host_evictions=tier.host_evictions,
-            )
-        return d
+        """The JAX ``cache_stats_summary`` payload: tokens admitted,
+        reused (from device and host pages) and skipped, hit rates, pages
+        evicted, preemptions, resumes, KV-exhaustion aborts, page
+        occupancy and cached pages; with a tier, its occupancy and its
+        demotion / swap-in / eviction counts."""
+        from types import SimpleNamespace
+
+        from parallax_tpu_torch.utils.request_metrics import (
+            cache_stats_summary,
+        )
+
+        # Occupancy and the cached-page count come from the step thread's
+        # snapshot: a heartbeat thread calls this, and the native
+        # manager's counts are ctypes calls with no lock.
+        snap = self._obs_snap
+        return cache_stats_summary(SimpleNamespace(
+            stats=self.cache.stats, num_pages=snap["num_pages"],
+            num_free_pages=snap["free_pages"],
+            prefix_cache=SimpleNamespace(
+                num_cached_pages=snap["cached_pages"]),
+            host_tier=self.host_tier,
+        ))
 
     # -- live migration (runtime/checkpoint.py) ----------------------------
 
@@ -867,6 +921,7 @@ class StageEngine:
         self._grammar_states.pop(request_id, None)
         self._bias_cache.pop(request_id, None)
         self._free_token_slot(request_id)
+        self._traced.discard(request_id)
         req.device_feed_ready = False
         return req
 
@@ -1106,6 +1161,14 @@ class StageEngine:
         speculative window's resolve (proposals the grammar mask
         excluded), ``fallbacks`` when a feature batch dropped to the
         host-synchronous sampler."""
+        for counter, n in ((self._c_con_rows, rows),
+                           (self._c_con_masks, mask_steps),
+                           (self._c_con_builds, builds),
+                           (self._c_con_hits, cache_hits),
+                           (self._c_con_fallbacks, fallbacks),
+                           (self._c_con_spec_rej, spec_mask_rejections)):
+            if n:
+                counter.inc(n)
         with self._constrained_lock:
             st = self._constrained_stats
             for key, n in (
@@ -1157,9 +1220,15 @@ class StageEngine:
     # -- speculative decoding: counters ------------------------------------
 
     def _count_spec_proposed(self, source: str, n: int) -> None:
-        """``n`` proposal tokens staged from ``source`` ({ngram, draft})."""
+        """``n`` proposal tokens staged from ``source`` ({ngram, draft}),
+        with the host milliseconds the staging pass took."""
         if n <= 0:
             return
+        self._c_spec_proposed.labels(
+            stage=self._obs_stage, source=source).inc(n)
+        self._h_spec_propose.labels(
+            stage=self._obs_stage, source=source).observe(
+                self._last_propose_ms)
         with self._spec_lock:
             ent = self._spec_stats.setdefault(
                 source, {"proposals": 0, "accepted": 0, "rejected": 0})
@@ -1170,6 +1239,12 @@ class StageEngine:
         """Verification outcome for one row's window or round: ``accepted``
         proposal tokens survived (committed), ``rejected`` fed proposals
         were computed and discarded."""
+        if accepted:
+            self._c_spec_accepted.labels(
+                stage=self._obs_stage, source=source).inc(accepted)
+        if rejected:
+            self._c_spec_rejected.labels(
+                stage=self._obs_stage, source=source).inc(rejected)
         with self._spec_lock:
             ent = self._spec_stats.setdefault(
                 source, {"proposals": 0, "accepted": 0, "rejected": 0})
@@ -1204,8 +1279,11 @@ class StageEngine:
     # -- kernel accounting -------------------------------------------------
 
     def _count_kernel_dispatch(self, path: str, impl: str, n: int = 1) -> None:
+        self._c_kernel.labels(stage=self._obs_stage, impl=impl,
+                              path=path).inc(n)
         key = (impl, path)
-        self._kernel_counts[key] = self._kernel_counts.get(key, 0) + n
+        with self._kernel_lock:
+            self._kernel_counts[key] = self._kernel_counts.get(key, 0) + n
 
     def kernel_dispatch_summary(self) -> dict:
         """The active impls and per-(impl, path) dispatch counts, so a run
@@ -1220,6 +1298,8 @@ class StageEngine:
         they replayed, the host seconds their warm-up, recording and
         instantiation took and the kernel launches of the warm-up steps
         (one eager step a graph)."""
+        with self._kernel_lock:
+            counts = list(self._kernel_counts.items())
         out = {
             "impl": self._attn_impl,
             "decode_fused": self._decode_fused,
@@ -1227,8 +1307,7 @@ class StageEngine:
             "prefill_fused": self._prefill_fused,
             "cuda_graphs": self._graphs is not None,
             "dispatch_total": {
-                f"{impl}/{path}": n
-                for (impl, path), n in sorted(self._kernel_counts.items())
+                f"{impl}/{path}": n for (impl, path), n in sorted(counts)
             },
         }
         if self._graphs is not None:
@@ -1240,6 +1319,482 @@ class StageEngine:
                 "warmup_launches": dict(self._graphs.warmup_launches),
             }
         return out
+
+    # -- observability (obs/: registry series, tracing, flight recorder,
+    #    goodput, the device plane) ---------------------------------------
+
+    # Seconds between the step thread's obs refreshes: the host snapshot
+    # the scrape / heartbeat threads read, the HBM ledger and the harvest
+    # of finished device-time spans.
+    OBS_REFRESH_S = 0.5
+
+    def _init_obs(self) -> None:
+        """Register this stage's metric series and trace state.
+
+        Cost contract (the JAX engine's): with ``trace_sample_rate=0`` the
+        ``_traced`` set stays empty and every per-step tracing hook sits
+        behind an emptiness check; goodput and device time cost a few dict
+        and integer adds a host visit; gauges are pulled by a registry
+        collector at scrape time from a snapshot the step thread keeps.
+        Scrape and heartbeat threads make no CUDA call and no call into the
+        native cache manager: the snapshot, the HBM refresh and the CUDA
+        timing events all live on the step thread (``obs_tick``)."""
+        from parallax_tpu_torch.obs.device import get_device_plane
+        from parallax_tpu_torch.obs.goodput import get_goodput
+        from parallax_tpu_torch.obs.registry import (
+            DEFAULT_COUNT_BUCKETS,
+            get_registry,
+        )
+
+        self._trace_rate = min(
+            1.0, max(0.0, float(self.cfg.trace_sample_rate or 0.0)))
+        self._traced: set[str] = set()
+        # Goodput ledger: every device-step token this engine resolves
+        # lands in exactly one usefulness bucket; binding eagerly puts the
+        # zero-valued families in /metrics from the first scrape.
+        self._goodput = get_goodput()
+        self._goodput.bind_registry()
+        # Device plane: HBM ledger, compile observatory (graph captures)
+        # and the per-program device-time split.
+        self._device_plane = get_device_plane()
+        self._device_plane.bind_registry()
+        self._dev_time = self._device_plane.time
+        self._compile_obs = self._device_plane.compile
+        self._noted_program_keys: set[tuple] = set()
+        # (program, start event, end event) of resolved CUDA tickets whose
+        # end event may not have completed yet, oldest first.
+        self._dev_pending: collections.deque = collections.deque()
+        self._last_propose_ms = 0.0
+        self._obs_next = 0.0
+        # A draft engine's bytes are priced by its target (spec_draft).
+        self._obs_draft = False
+        reg = get_registry()
+        st = ("stage",)
+        lbl = {"stage": self._obs_stage}
+        self._h_step_host = reg.histogram(
+            mnames.STEP_HOST_MS,
+            "Host-blocking milliseconds per engine step",
+            labelnames=st,
+        ).labels(**lbl)
+        self._h_step_device = reg.histogram(
+            mnames.STEP_DEVICE_MS,
+            "Device-readback milliseconds per engine step",
+            labelnames=st,
+        ).labels(**lbl)
+        # Per-token twin of the per-visit host histogram: a window commits
+        # K tokens a host visit.
+        self._h_step_per_token = reg.histogram(
+            mnames.STEP_PER_TOKEN_HOST_MS,
+            "Host-blocking milliseconds per committed token (host-visit "
+            "cost amortized over the tokens that visit committed)",
+            labelnames=st,
+        ).labels(**lbl)
+        self._h_batch_tokens = reg.histogram(
+            mnames.STEP_BATCH_TOKENS,
+            "New tokens per dispatched engine step",
+            buckets=DEFAULT_COUNT_BUCKETS, labelnames=st,
+        ).labels(**lbl)
+        self._g_queue = reg.gauge(
+            mnames.QUEUE_DEPTH,
+            "Requests parked in the stage wait queue", labelnames=st,
+        ).labels(**lbl)
+        self._g_running = reg.gauge(
+            mnames.RUNNING_REQUESTS,
+            "Requests admitted into the running set", labelnames=st,
+        ).labels(**lbl)
+        self._g_occupancy = reg.gauge(
+            mnames.KV_PAGE_OCCUPANCY,
+            "Fraction of KV pages in use (0..1)", labelnames=st,
+        ).labels(**lbl)
+        self._c_preempt = reg.counter(
+            mnames.KV_PREEMPTIONS_TOTAL,
+            "Decode-OOM preemptions to the host KV tier", labelnames=st,
+        ).labels(**lbl)
+        self._c_resumes = reg.counter(
+            mnames.KV_RESUMES_TOTAL,
+            "Preempted requests swapped back in", labelnames=st,
+        ).labels(**lbl)
+        self._c_kv_oom = reg.counter(
+            mnames.KV_OOM_TOTAL,
+            "Last-resort kv_oom aborts", labelnames=st,
+        ).labels(**lbl)
+        self._c_evicted = reg.counter(
+            mnames.KV_PAGES_EVICTED_TOTAL,
+            "Device pages reclaimed from the prefix tree", labelnames=st,
+        ).labels(**lbl)
+        self._c_chunk_skip = reg.counter(
+            mnames.PREFILL_TOKENS_SKIPPED_TOTAL,
+            mnames.help_text(mnames.PREFILL_TOKENS_SKIPPED_TOTAL),
+            labelnames=st,
+        ).labels(**lbl)
+        # Which attention implementation served each dispatch (impl:
+        # cuda-fused / cuda-split / torch; path: prefill / decode /
+        # multistep / spec / spec_verify / sample).
+        self._c_kernel = reg.counter(
+            mnames.ATTN_KERNEL_DISPATCH_TOTAL,
+            "Engine dispatches by attention kernel implementation",
+            labelnames=("stage", "impl", "path"),
+        )
+        spec_lbl = ("stage", "source")
+        self._c_spec_proposed = reg.counter(
+            mnames.SPEC_PROPOSALS_TOTAL,
+            mnames.help_text(mnames.SPEC_PROPOSALS_TOTAL),
+            labelnames=spec_lbl,
+        )
+        self._c_spec_accepted = reg.counter(
+            mnames.SPEC_ACCEPTED_TOTAL,
+            mnames.help_text(mnames.SPEC_ACCEPTED_TOTAL),
+            labelnames=spec_lbl,
+        )
+        self._c_spec_rejected = reg.counter(
+            mnames.SPEC_REJECTED_TOTAL,
+            mnames.help_text(mnames.SPEC_REJECTED_TOTAL),
+            labelnames=spec_lbl,
+        )
+        self._h_spec_propose = reg.histogram(
+            mnames.SPEC_PROPOSE_MS,
+            mnames.help_text(mnames.SPEC_PROPOSE_MS),
+            labelnames=spec_lbl,
+        )
+        self._g_spec_accept = reg.gauge(
+            mnames.SPEC_ACCEPTANCE_RATE,
+            mnames.help_text(mnames.SPEC_ACCEPTANCE_RATE),
+            labelnames=st,
+        ).labels(**lbl)
+        con = {}
+        for attr, name in (
+            ("rows", mnames.CONSTRAINED_WINDOW_ROWS_TOTAL),
+            ("masks", mnames.CONSTRAINED_MASK_STEPS_TOTAL),
+            ("builds", mnames.CONSTRAINED_TABLE_BUILDS_TOTAL),
+            ("hits", mnames.CONSTRAINED_TABLE_CACHE_HITS_TOTAL),
+            ("spec_rej", mnames.CONSTRAINED_SPEC_MASK_REJECTIONS_TOTAL),
+            ("fallbacks", mnames.CONSTRAINED_FALLBACKS_TOTAL),
+        ):
+            con[attr] = reg.counter(
+                name, mnames.help_text(name), labelnames=st).labels(**lbl)
+        self._c_con_rows = con["rows"]
+        self._c_con_masks = con["masks"]
+        self._c_con_builds = con["builds"]
+        self._c_con_hits = con["hits"]
+        self._c_con_spec_rej = con["spec_rej"]
+        self._c_con_fallbacks = con["fallbacks"]
+        self._g_con_active = reg.gauge(
+            mnames.CONSTRAINED_ACTIVE_ROWS,
+            mnames.help_text(mnames.CONSTRAINED_ACTIVE_ROWS),
+            labelnames=st,
+        ).labels(**lbl)
+        if self.model.is_first:
+            self._h_ttft = reg.histogram(
+                mnames.TTFT_MS,
+                "Time to first token, milliseconds", labelnames=st,
+            ).labels(**lbl)
+            self._h_tpot = reg.histogram(
+                mnames.TPOT_MS,
+                "Time per output token after the first, milliseconds",
+                labelnames=st,
+            ).labels(**lbl)
+            self._h_e2e = reg.histogram(
+                mnames.E2E_MS,
+                "End-to-end request latency, milliseconds", labelnames=st,
+            ).labels(**lbl)
+        self._snapshot_host()
+        # The registry holds a weakref to this bound method; the engine's
+        # own reference keeps collection alive exactly as long as it.
+        reg.register_collector(self._collect_obs)
+
+    def _snapshot_host(self) -> None:
+        """The host state the collectors and ``cache_stats`` read (step
+        thread: the native cache manager's counts are ctypes calls)."""
+        sched = self.scheduler
+        pc = getattr(self.cache, "prefix_cache", None)
+        self._obs_snap = {
+            "queue": len(sched.wait_queue),
+            "running": len(sched.running),
+            "num_pages": int(getattr(self.cache, "num_pages", 0) or 0),
+            "free_pages": int(self.cache.num_free_pages),
+            "cached_pages": int(getattr(pc, "num_cached_pages", 0) or 0),
+            "constrained_active": sum(
+                1 for rid in self._grammar_states if rid in sched.running),
+        }
+
+    def obs_snapshot(self) -> dict:
+        """The host state the step thread recorded last (queue and running
+        counts, page counts, constrained rows); safe from any thread."""
+        return self._obs_snap
+
+    def obs_tick(self, force: bool = False) -> None:
+        """The step thread's obs refresh, at most every ``OBS_REFRESH_S``
+        (every call with ``force``): the host snapshot, the harvest of
+        finished device-time spans and the HBM ledger. The step loops call
+        it between steps; ``dispatch`` calls it too. Never raises."""
+        now = time.monotonic()
+        if not force and now < self._obs_next:
+            return
+        self._obs_next = now + self.OBS_REFRESH_S
+        try:
+            self._snapshot_host()
+            self._harvest_device_time()
+            if not self._obs_draft:
+                self._refresh_hbm()
+        except Exception:  # pragma: no cover - obs must never take
+            logger.debug("obs refresh failed", exc_info=True)  # down the path
+
+    def _collect_obs(self) -> None:
+        """Pull-style series, refreshed at render / snapshot time from the
+        step thread's snapshot and the cache's Python counters."""
+        snap = self._obs_snap
+        self._g_queue.set(snap["queue"])
+        self._g_running.set(snap["running"])
+        num_pages, free = snap["num_pages"], snap["free_pages"]
+        self._g_occupancy.set(
+            round(1.0 - free / num_pages, 4) if num_pages else 0.0)
+        stats = self.cache.stats
+        self._c_preempt.set_total(stats.preemptions)
+        self._c_resumes.set_total(stats.resumes)
+        self._c_kv_oom.set_total(stats.kv_oom_aborts)
+        self._c_evicted.set_total(stats.pages_evicted)
+        self._c_chunk_skip.set_total(stats.tokens_chunk_skipped)
+        with self._spec_lock:
+            acc = sum(s.get("accepted", 0)
+                      for s in self._spec_stats.values())
+            rej = sum(s.get("rejected", 0)
+                      for s in self._spec_stats.values())
+        if acc + rej:
+            self._g_spec_accept.set(round(acc / (acc + rej), 6))
+        self._g_con_active.set(snap["constrained_active"])
+
+    def _refresh_hbm(self) -> None:
+        """Re-measure this stage's device allocation classes into the HBM
+        ledger, then read the allocator's in-use bytes (step thread: a
+        CUDA call). The classes: ``weights_<dtype>`` (the parameter
+        tensors), ``kv_pages`` (the paged cache), ``spec_draft`` (a draft
+        engine's tensors the target does not share), ``grammar_tables``,
+        ``host_staging`` (the host tier's parked pages, as the JAX engine
+        declares them), ``graph_pool`` (the bytes the window graphs hold
+        live) and the declared ``sampling_workspace`` and
+        ``compile_headroom``."""
+        hbm = self._device_plane.hbm
+        owner = self._obs_stage
+        by_dtype: dict[str, int] = {}
+        own = set()
+        for t in _tensor_leaves(self.params):
+            dt = str(t.dtype).replace("torch.", "")
+            by_dtype[dt] = by_dtype.get(dt, 0) + t.nbytes
+            own.add(t.data_ptr())
+        for dt, nb in by_dtype.items():
+            hbm.set_class(f"weights_{dt}", nb, owner=owner)
+        hbm.set_class("kv_pages",
+                      sum(t.nbytes for t in _tensor_leaves(self.kv)),
+                      owner=owner)
+        if self.draft is not None:
+            de = self.draft.engine
+            hbm.set_class("spec_draft", sum(
+                t.nbytes for t in _tensor_leaves((de.params, de.kv))
+                if t.data_ptr() not in own), owner=owner)
+        if self.grammar is not None:
+            hbm.set_class("grammar_tables", self.grammar.device_table_bytes(),
+                          owner=owner)
+        tier = self.host_tier
+        if tier is not None:
+            hbm.set_class("host_staging",
+                          tier.num_host_pages * tier.pool.page_nbytes,
+                          owner=owner)
+        if self._graphs is not None:
+            hbm.set_class("graph_pool", self._graphs.pool_bytes, owner=owner)
+        vocab = int(getattr(self.model.config, "vocab_size", 0) or 0)
+        hbm.set_class("sampling_workspace",
+                      self.cfg.max_batch_size * vocab * 4, owner=owner)
+        hbm.set_class("compile_headroom", int(os.environ.get(
+            "PARALLAX_TPU_COMPILE_HEADROOM_BYTES", 0) or 0), owner=owner)
+        hbm.refresh_from_device(self.device)
+
+    def _note_program(self, family: str, **key) -> None:
+        """Declare a program key to the compile observatory the first time
+        this engine runs it; steady state pays one set lookup."""
+        kt = (family, tuple(sorted(key.items())))
+        if kt in self._noted_program_keys:
+            return
+        self._noted_program_keys.add(kt)
+        self._compile_obs.note_program(family, key)
+        self._compile_obs.set_live_executables(
+            family,
+            sum(1 for f, _ in self._noted_program_keys if f == family),
+        )
+
+    def _on_graph_capture(self, key: tuple, seconds: float) -> None:
+        """A window step's CUDA graph was captured: one compile of the
+        ``decode_window`` / ``spec_window`` family, its host seconds in
+        the goodput ledger's compile bucket."""
+        t, spec, sampled, fused_sample, feats, shapes = key
+        self._note_program(
+            "spec_window" if spec else "decode_window", tokens=t,
+            spec=spec, sampled=sampled, fused_sample=fused_sample,
+            feats=feats, rows=shapes)
+        self._compile_obs.on_compile(seconds)
+        self._goodput.add_time("compile", seconds)
+
+    def _device_mark(self):
+        """A timing event recorded on the current stream (CUDA devices;
+        None elsewhere). Never called inside a graph capture."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _seal(self, ticket: StepTicket, ev0) -> StepTicket:
+        """Close a dispatched ticket's device-time span: from ``ev0`` to
+        its ready event (behind its host copies), or to a new mark."""
+        if ev0 is not None and ticket.outputs is None:
+            ticket.ev0 = ev0
+            ticket.ev1 = (ticket.ready if ticket.ready is not None
+                          else self._device_mark())
+        return ticket
+
+    def _account_time(self, ticket: StepTicket, host_ms: float,
+                      device_ms: float) -> None:
+        """Serve time into the goodput ledger and the ticket's device time
+        into its program: the CUDA events' span on a CUDA device (read
+        once the end event completes, with no sync of its own; the span
+        includes any time the stream waited on the host, so it bounds busy
+        time from above), the host + readback wall time elsewhere."""
+        secs = (host_ms + device_ms) / 1e3
+        self._goodput.add_time("serve", secs)
+        program = ticket.program or "decode"
+        if ticket.ev0 is None:
+            self._dev_time.add(program, secs)
+            return
+        self._dev_pending.append((program, ticket.ev0, ticket.ev1))
+        self._harvest_device_time()
+
+    def _harvest_device_time(self) -> None:
+        pend = self._dev_pending
+        while pend and pend[0][2].query():
+            program, e0, e1 = pend.popleft()
+            self._dev_time.add(program, e0.elapsed_time(e1) / 1e3)
+
+    def flush_device_time(self) -> None:
+        """Wait for every resolved ticket's end event and attribute its
+        span (step thread; for a reading at the end of a run)."""
+        for _program, _e0, e1 in self._dev_pending:
+            e1.synchronize()
+        self._harvest_device_time()
+
+    def _trace_begin(self, req: Request) -> None:
+        from parallax_tpu_torch.obs.trace import get_trace_store
+
+        req.traced = True
+        self._traced.add(req.request_id)
+        get_trace_store().begin(req.request_id)
+
+    def _trace_queue_wait(self, plan: BatchPlan) -> None:
+        """First time a traced request is scheduled: close its
+        enqueue -> admit span (wait-queue time)."""
+        from parallax_tpu_torch.obs.trace import get_trace_store
+
+        store = get_trace_store()
+        now_pc = time.perf_counter()
+        now_mono = time.monotonic()
+        for seg in plan.seqs:
+            req = seg.request
+            if req.traced and not getattr(req, "_trace_scheduled", False):
+                req._trace_scheduled = True  # type: ignore[attr-defined]
+                wait = max(0.0, now_mono - req.arrival_time)
+                store.add(
+                    req.request_id, self._obs_stage, "queue_wait",
+                    t0=now_pc - wait, dur=wait,
+                    args={"prompt_tokens": req.num_prompt_tokens},
+                )
+
+    def _trace_plan(self, plan: BatchPlan, t0: float, t1: float) -> None:
+        """Per-step spans for traced rows; decode steps coalesce into
+        epochs (obs/trace.py merge) so long generations stay bounded."""
+        from parallax_tpu_torch.obs.trace import get_trace_store
+
+        store = get_trace_store()
+        # Counter tracks (ph "C" in the Chrome export): HBM headroom and
+        # the per-program device-time share, once per traced host visit.
+        hbm = self._device_plane.hbm.snapshot()
+        share = self._dev_time.snapshot()["share"]
+        counter_values = {
+            "hbm_headroom_mb": round(hbm["headroom_bytes"] / 2**20, 3),
+            "hbm_tracked_mb": round(hbm["tracked_bytes"] / 2**20, 3),
+            **{f"device_share_{prog}": frac for prog, frac in share.items()},
+        }
+        for seg in plan.seqs:
+            req = seg.request
+            if not req.traced:
+                continue
+            store.counter(
+                req.request_id, self._obs_stage, "device", t0=t1,
+                values=counter_values,
+            )
+            if getattr(req, "is_mirror", False):
+                decode = seg.num_new_tokens == 1 and getattr(
+                    req, "last_chunk_flag", False)
+            else:
+                decode = (seg.num_new_tokens == 1
+                          and seg.context_len > req.num_prompt_tokens)
+            store.add(
+                req.request_id, self._obs_stage,
+                "decode" if decode else "prefill",
+                t0=t0, dur=t1 - t0,
+                args={"tokens": seg.num_new_tokens}, merge=decode,
+            )
+
+    def _obs_finish(self, req: Request) -> None:
+        """Finish bookkeeping: the finish span and traced-set cleanup (every
+        stage); TTFT / TPOT / e2e histograms, the SLO availability count
+        and the flight recorder's request ring (head stage). Internal
+        requests (the draft's) skip the head part."""
+        rid = req.request_id
+        traced = rid in self._traced
+        store = None
+        if traced:
+            from parallax_tpu_torch.obs.trace import get_trace_store
+
+            self._traced.discard(rid)
+            store = get_trace_store()
+            store.add(
+                rid, self._obs_stage, "finish",
+                t0=time.perf_counter(), dur=0.0,
+                args={"status": req.status.value},
+            )
+        if not self.model.is_first or rid.startswith("__"):
+            return
+        self._goodput.count_request(req.status.value)
+        from parallax_tpu_torch.obs.flight import get_flight
+
+        now = time.monotonic()
+        e2e_ms = (now - req.arrival_time) * 1e3
+        ttft_ms = None
+        if req.first_token_time is not None:
+            ttft_ms = (req.first_token_time - req.arrival_time) * 1e3
+            self._h_ttft.observe(ttft_ms)
+            n = req.num_output_tokens
+            if n > 1:
+                self._h_tpot.observe(
+                    (now - req.first_token_time) * 1e3 / (n - 1))
+        self._h_e2e.observe(e2e_ms)
+        breakdown = store.breakdown(rid) if store is not None else None
+        if breakdown is None and ttft_ms is not None:
+            breakdown = {
+                "ttft_ms": round(ttft_ms, 3),
+                "decode_ms": round(e2e_ms - ttft_ms, 3),
+            }
+        get_flight().record_request(
+            rid,
+            status=req.status.value,
+            e2e_ms=e2e_ms,
+            ttft_ms=ttft_ms,
+            prompt_tokens=req.num_prompt_tokens,
+            output_tokens=req.num_output_tokens,
+            abort_reason=req.abort_reason,
+            stage=self._obs_stage,
+            breakdown=breakdown,
+            slow_threshold_ms=self.cfg.slow_request_ms,
+            trace_id=rid if traced else None,
+        )
 
     # -- stepping ---------------------------------------------------------
 
@@ -1262,6 +1817,7 @@ class StageEngine:
                 "dispatch() with two steps already in flight — resolve() "
                 "the oldest ticket first (one-in-flight invariant)"
             )
+        self.obs_tick()
         t0 = time.perf_counter()
         self._dispatch_seq += 1
         self._staging.begin()
@@ -1272,9 +1828,13 @@ class StageEngine:
                 outputs=StepOutputs(forward=[],
                                     finished=self._collect_finished()),
             )
+        if self._traced:
+            # Tracing off keeps the set empty: one falsy check here.
+            self._trace_queue_wait(plan)
+        ev0 = self._device_mark()
         ticket = self._dispatch_multistep(plan, t0)
         if ticket is not None:
-            return ticket
+            return self._seal(ticket, ev0)
         # Host-synchronous speculative verify (K = 1, or a window the
         # planner could not page). Rows fed from the device's last-token
         # array are excluded: no proposal can continue a context whose
@@ -1285,7 +1845,7 @@ class StageEngine:
             if self.model.is_last:
                 ticket = self._dispatch_speculative(plan, t0)
                 if ticket is not None:
-                    return ticket
+                    return self._seal(ticket, ev0)
             else:
                 self._extend_plan_pp_spec(plan)
         # Last stage of a pipeline: rows carrying unverified proposals are
@@ -1323,7 +1883,8 @@ class StageEngine:
         self._step_count += 1
         ticket = StepTicket(plan=plan, step_idx=step_idx, t0=t0,
                             inputs=inputs, out=out,
-                            dispatch_seq=self._dispatch_seq)
+                            dispatch_seq=self._dispatch_seq,
+                            program="decode" if one_token else "prefill")
         if self.host_hidden:
             (ticket.hidden_host,), ticket.ready = self._to_host(
                 out[:plan.total_new_tokens])
@@ -1346,7 +1907,7 @@ class StageEngine:
                 self._mark_device_feed(plan, ticket.tokens_dev)
         ticket.host_ms = (time.perf_counter() - t0) * 1000.0
         self._inflight.append(ticket)
-        return ticket
+        return self._seal(ticket, ev0)
 
     @torch.no_grad()
     def resolve(self, ticket: StepTicket) -> StepOutputs:
@@ -1397,10 +1958,31 @@ class StageEngine:
             raise
         now = time.perf_counter()
         host_ms = ticket.host_ms + (now - t_r0) * 1000.0
+        overlapped = self._dispatch_seq != ticket.dispatch_seq
         # An overlapped ticket's t0-to-resolve span covers the next
         # dispatch too: the EWMA reads the host-blocking time, as the JAX
         # engine's does.
         self._record_latency(plan, host_ms)
+        # The per-token series count tokens emitted toward output streams
+        # (one per sampling row), not prefill chunk tokens.
+        emitted = sum(1 for seg in plan.seqs if self._needs_token(seg))
+        self.step_timing.update(host_ms, device_ms, overlapped,
+                                tokens=emitted)
+        self._account_time(ticket, host_ms, device_ms)
+        # Goodput: a replay-restored request's prompt re-prefill
+        # recomputes positions the dead pipeline already computed — the
+        # price of a churn event, counted as rework (head stage only).
+        if self.model.is_first:
+            for seg in plan.seqs:
+                if (seg.request.replay_ids
+                        and seg.context_len
+                        <= seg.request.num_prompt_tokens):
+                    self._goodput.count("preempted_rework",
+                                        seg.num_new_tokens)
+        if plan.total_new_tokens:
+            self._h_batch_tokens.observe(plan.total_new_tokens)
+        if self._traced:
+            self._trace_plan(plan, ticket.t0, now)
         return StepOutputs(
             forward=forwards,
             finished=self._collect_finished(),
@@ -1408,7 +1990,7 @@ class StageEngine:
             step_time_ms=(now - ticket.t0) * 1000.0,
             host_ms=host_ms,
             device_ms=device_ms,
-            overlapped=self._dispatch_seq != ticket.dispatch_seq,
+            overlapped=overlapped,
         )
 
     def is_inflight(self, ticket: StepTicket) -> bool:
@@ -1453,7 +2035,8 @@ class StageEngine:
                 t, non_blocking=True)
             for t in tensors
         )
-        event = torch.cuda.Event()
+        # A timing event: it also ends the ticket's device-time span.
+        event = torch.cuda.Event(enable_timing=True)
         event.record()
         return host, event
 
@@ -2116,6 +2699,7 @@ class StageEngine:
             plan=plan, step_idx=step_idx, t0=t0, ms_windows=host[0],
             ready=ready, dispatch_seq=self._dispatch_seq,
             ms_lp=host[2] if st.lps is not None else None,
+            program="spec_window" if spec else "decode_window",
         )
         if spec:
             ticket.ms_counts = host[1]
@@ -2150,6 +2734,7 @@ class StageEngine:
             produced = ticket.ms_state.numpy()
             lp = None if ticket.ms_lp is None else ticket.ms_lp.numpy()
             total = 0
+            gp_committed = gp_window = 0
             for i, seg in enumerate(plan.seqs):
                 req = seg.request
                 want_lp = lp is not None and req.sampling_params.logprobs
@@ -2161,6 +2746,9 @@ class StageEngine:
                         tok, float(lp[committed, i]) if want_lp else None)
                     self._advance_grammar(req, tok)
                     committed += 1
+                if not req.request_id.startswith("__"):
+                    gp_committed += committed
+                    gp_window += int(toks.shape[0])
                 # Every committed token's predecessor was fed, so computed
                 # KV advances by the commit count; dispatch already counted
                 # one step (computed == len(all_token_ids) - 1 while
@@ -2171,17 +2759,34 @@ class StageEngine:
         except Exception:
             self._abandon(plan)
             raise
+        # Goodput: the window computed toks.shape[0] positions for every
+        # row; those past a row's stop point (and a raced row's whole
+        # window) were rolled back above: the frozen tail. Internal
+        # __draft rows stay out, as in the commit hook.
+        self._goodput.count("committed", gp_committed)
+        self._goodput.count("frozen_tail", gp_window - gp_committed)
         return self._multistep_outputs(ticket, total, t_r0, device_ms)
 
     def _multistep_outputs(self, ticket: StepTicket, total: int,
                            t_r0: float, device_ms: float) -> StepOutputs:
+        """The shared telemetry tail of the window and verify resolvers:
+        latency EWMA over the steps delivered, per-visit / per-token
+        timing, serve time, device time, traces, finish collection."""
         now = time.perf_counter()
         host_ms = ticket.host_ms + (now - t_r0) * 1000.0
+        overlapped = self._dispatch_seq != ticket.dispatch_seq
         # The EWMA amortizes over the steps delivered (the average
         # committed depth per row), as the JAX engine's does.
         plan = ticket.plan
         steps_done = max(1, -(-total // max(1, len(plan.seqs))))
         self._record_latency(plan, host_ms / steps_done)
+        self.step_timing.update(host_ms, device_ms, overlapped,
+                                tokens=total)
+        self._account_time(ticket, host_ms, device_ms)
+        if total:
+            self._h_batch_tokens.observe(total)
+        if self._traced:
+            self._trace_plan(plan, ticket.t0, now)
         return StepOutputs(
             forward=[],
             finished=self._collect_finished(),
@@ -2189,7 +2794,7 @@ class StageEngine:
             step_time_ms=(now - ticket.t0) * 1000.0,
             host_ms=host_ms,
             device_ms=device_ms,
-            overlapped=self._dispatch_seq != ticket.dispatch_seq,
+            overlapped=overlapped,
         )
 
     # -- speculative decoding ---------------------------------------------
@@ -2227,7 +2832,16 @@ class StageEngine:
     def _propose(self, contexts: list[list[int]], budgets: list[int]
                  ) -> tuple[list[list[int]], str]:
         """Proposals for each context within its budget, and their source:
-        the draft engine's (one run for every row) or n-gram lookup."""
+        the draft engine's (one run for every row) or n-gram lookup. The
+        host milliseconds it took feed the propose histogram."""
+        t0 = time.perf_counter()
+        try:
+            return self._propose_rows(contexts, budgets)
+        finally:
+            self._last_propose_ms = (time.perf_counter() - t0) * 1000.0
+
+    def _propose_rows(self, contexts: list[list[int]], budgets: list[int]
+                      ) -> tuple[list[list[int]], str]:
         if self.draft is not None:
             rows = [i for i, b in enumerate(budgets) if b > 0]
             drafted = self.draft.propose_batch(
@@ -2477,16 +3091,22 @@ class StageEngine:
                 if rej_total:
                     self._count_constrained(spec_mask_rejections=rej_total)
             w = int(toks.shape[2])
+            iters = int(toks.shape[0])
             total = 0
+            gp_committed = gp_dev_committed = gp_live_pos = gp_window = 0
             for i, seg in enumerate(plan.seqs):
                 req = seg.request
                 want_lp = lp is not None and req.sampling_params.logprobs
                 committed = dev_committed = fed_props = accepted = 0
+                live_iters = 0
                 plen = lengths[i] if i < len(lengths) else 0
-                for it in range(toks.shape[0]):
+                for it in range(iters):
                     c = int(cnts[it, i])
                     if c <= 0:
+                        # A stopped row stays stopped: the remaining
+                        # iterations are its frozen tail.
                         continue
+                    live_iters += 1
                     fed_props += min(w - 1, max(0, plen - dev_committed))
                     for j in range(c):
                         d = dev_committed + j
@@ -2504,8 +3124,14 @@ class StageEngine:
                         committed += 1
                     if req.status.is_finished:
                         break
+                internal = req.request_id.startswith("__")
+                if not internal:
+                    gp_committed += committed
+                    gp_dev_committed += dev_committed
+                    gp_live_pos += live_iters * w
+                    gp_window += iters * w
                 src = sources[i] if i < len(sources) else None
-                if src is not None:
+                if src is not None and not internal:
                     accepted = min(accepted, fed_props)
                     self._count_spec_result(src, accepted,
                                             fed_props - accepted)
@@ -2517,6 +3143,15 @@ class StageEngine:
         except Exception:
             self._abandon(plan)
             raise
+        # Goodput: verified positions the device did not commit were
+        # rejected proposals; the stopped iterations and what the device
+        # committed past a host-side stop are the frozen tail.
+        self._goodput.count("committed", gp_committed)
+        self._goodput.count("speculative_rejected",
+                            gp_live_pos - gp_dev_committed)
+        self._goodput.count("frozen_tail",
+                            (gp_window - gp_live_pos)
+                            + (gp_dev_committed - gp_committed))
         return self._multistep_outputs(ticket, total, t_r0, device_ms)
 
     def _verify_targets(self, logits: torch.Tensor, entries: list,
@@ -2618,6 +3253,7 @@ class StageEngine:
             tokens_host=host, ready=ready, sync_only=True,
             dispatch_seq=self._dispatch_seq,
             spec_verify=(spec_plan, proposals, source),
+            program="spec_verify",
         )
         ticket.host_ms = (time.perf_counter() - t0) * 1000.0
         self._inflight.append(ticket)
@@ -2653,6 +3289,10 @@ class StageEngine:
                 req.num_computed_tokens += committed
                 req.ready_for_step = not req.status.is_finished
                 total += committed
+                if req.request_id.startswith("__"):
+                    continue
+                self._goodput.count("committed", committed)
+                self._goodput.count("speculative_rejected", n_fed - committed)
                 if prop:
                     # A committed token was an accepted proposal iff it
                     # equals the proposal at its position.
@@ -2796,12 +3436,18 @@ class StageEngine:
                     break
             self.pp_spec_rounds += 1
             self.pp_spec_tokens += len(accepted)
+            # Goodput: every fed position was a forward; those whose
+            # proposal lost are speculative waste (the accepted run counts
+            # as committed at the head's commit).
+            self._goodput.count("speculative_rejected",
+                                len(fed) - len(accepted))
             forwards.append(IntermediateRequest(
                 request_id=req.request_id,
                 routing_table=req.routing_table,
                 context_len=seg.context_len - len(fed) + len(accepted),
                 num_new_tokens=len(accepted),
                 spec_accepted=accepted,
+                trace=req.traced,
             ))
         if rest_segs:
             forwards.extend(self._emit_tokens(
@@ -2924,6 +3570,7 @@ class StageEngine:
                     num_new_tokens=1,
                     next_token_id=token,
                     token_logprob=lp,
+                    trace=req.traced,
                 ))
         return forwards
 
@@ -2974,6 +3621,7 @@ class StageEngine:
                 ),
                 spec_len=spec_len,
                 cached_prefix_ids=prefix_ids,
+                trace=req.traced,
             ))
             row += n
         return forwards
@@ -3000,7 +3648,15 @@ class StageEngine:
 
     def _commit(self, req: Request, token: int,
                 logprob: float | None = None) -> None:
+        # Goodput: a commit that substitutes a teacher-forced replay id
+        # (migration restore) re-delivers a token the client already
+        # streamed: device work, not goodput. Internal requests (the
+        # draft's __draft rows) stay out of the ledger: the main engine's
+        # accept / reject accounting prices them.
+        replaying = bool(req.replay_ids)
         req.commit_token(token, logprob)
+        if not req.request_id.startswith("__"):
+            self._goodput.count("replayed" if replaying else "committed", 1)
         self.scheduler.on_token_committed(req)
 
     def _collect_finished(self) -> list[Request]:
@@ -3012,7 +3668,21 @@ class StageEngine:
             self._bias_cache.pop(req.request_id, None)
             self._free_token_slot(req.request_id)
             req.device_feed_ready = False
+            if self.model.is_first or req.request_id in self._traced:
+                self._obs_finish(req)
         return finished
+
+
+def _tensor_leaves(tree):
+    """The tensors of a nested dict / list / tuple tree."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensor_leaves(v)
 
 
 def _refuse_unported(request: Request) -> None:

@@ -24,9 +24,10 @@ handoff, the JAX package's frame for frame:
   rejected exactly like a corrupt ``rpc_checkpoint`` frame.
 - :class:`HandoffStats`, the worker's counters: transfer bytes and frames
   by direction, transfer seconds, fallbacks by rung and handoffs by
-  restore mode, plus one record per handoff a prefill head made. The JAX
-  package writes the same counts to its metrics registry, which the port
-  does not run yet (ROADMAP queue 1 item 9).
+  restore mode, plus one record per handoff a prefill head made. The same
+  counts go to the metrics registry under the JAX package's series
+  (``parallax_kv_transfer_*``, ``parallax_kv_handoffs_total``), and a
+  transfer's seconds to the goodput ledger's ``kv_transfer`` bucket.
 
 Tensors ship at native precision (bf16 through its 16-bit view, under the
 JAX dtype names): handoff streams must stay bit-identical to mixed-mode
@@ -47,6 +48,7 @@ import time
 from collections import OrderedDict
 
 from parallax_tpu_torch.analysis.sanitizer import make_lock
+from parallax_tpu_torch.obs import names as mnames
 from parallax_tpu_torch.p2p import proto
 from parallax_tpu_torch.runtime.checkpoint import (
     CheckpointError,
@@ -117,14 +119,60 @@ class HandoffStats:
             if ms is not None:
                 self.transfer_s.append(ms / 1e3)
                 del self.transfer_s[:-self.LOG_CAP]
+        try:
+            from parallax_tpu_torch.obs.goodput import get_goodput
+            from parallax_tpu_torch.obs.registry import get_registry
+
+            reg = get_registry()
+            reg.counter(
+                mnames.KV_TRANSFER_BYTES_TOTAL,
+                "KV-page handoff payload bytes over the transfer lane",
+                labelnames=("direction",),
+            ).labels(direction=direction).inc(nbytes)
+            reg.counter(
+                mnames.KV_TRANSFER_FRAMES_TOTAL,
+                "KV_TRANSFER frames over the transfer lane",
+                labelnames=("direction",),
+            ).labels(direction=direction).inc(frames)
+            if ms is not None:
+                reg.histogram(
+                    mnames.KV_TRANSFER_MS,
+                    "KV handoff transfer latency, ms (out: first frame "
+                    "enqueued -> decode-head result; in: begin frame -> "
+                    "image assembled)",
+                ).observe(ms)
+                get_goodput().add_time("kv_transfer", ms / 1e3)
+        except Exception:  # pragma: no cover - metrics never break handoffs
+            pass
 
     def record_fallback(self, reason: str) -> None:
         with self._lock:
             self.fallbacks[reason] = self.fallbacks.get(reason, 0) + 1
+        try:
+            from parallax_tpu_torch.obs.registry import get_registry
+
+            get_registry().counter(
+                mnames.KV_TRANSFER_FALLBACKS_TOTAL,
+                "KV handoffs that fell back down the re-prefill ladder, "
+                "by rung",
+                labelnames=("reason",),
+            ).labels(reason=reason).inc()
+        except Exception:  # pragma: no cover - metrics never break handoffs
+            pass
 
     def record_handoff(self, mode: str) -> None:
         with self._lock:
             self.handoffs[mode] = self.handoffs.get(mode, 0) + 1
+        try:
+            from parallax_tpu_torch.obs.registry import get_registry
+
+            get_registry().counter(
+                mnames.KV_HANDOFFS_TOTAL,
+                "Prefill->decode handoffs completed, by restore mode",
+                labelnames=("mode",),
+            ).labels(mode=mode).inc()
+        except Exception:  # pragma: no cover - metrics never break handoffs
+            pass
 
     def note(self, rid: str, **fields) -> None:
         """Merge ``fields`` into one handoff's record."""

@@ -9,7 +9,9 @@ cannot grow its pages swaps the latest-arriving running decode out to host
 DRAM (``_ensure_capacity_or_preempt``), the parked request resumes at the
 wait queue's front by swap-in, and ``kv_oom`` is the last resort once the
 tier is full too (or absent: ``host_cache_bytes=0``). Rows flagged
-``migrating`` are neither scheduled, admitted nor preempted. Not ported
+``migrating`` are neither scheduled, admitted nor preempted. Swap-in,
+chunk skip, preemption and ``kv_oom`` each leave a flight-recorder event
+and, for a traced request, a span under the stage's label. Not ported
 yet: the JAX package's ``qos``, LoRA adapter grouping and
 sequence-parallel prefill planning.
 """
@@ -78,8 +80,10 @@ class Scheduler:
         prefill_chunk_size: int = 1024,
         max_queue_size: int = 1024,
         request_timeout_s: float = 600.0,
+        stage_name: str = "stage",
     ):
         self.cache = cache_manager
+        self.stage_name = stage_name
         self.max_batch_size = max_batch_size
         self.max_num_tokens_per_batch = max_num_tokens_per_batch
         self.prefill_chunk_size = prefill_chunk_size
@@ -87,6 +91,9 @@ class Scheduler:
         self.request_timeout_s = request_timeout_s
         self.wait_queue: OrderedDict[str, Request] = OrderedDict()
         self.running: OrderedDict[str, Request] = OrderedDict()
+        # Requests moved out of the wait queue (admissions, swap-ins and
+        # finished-while-queued): the admission watchdog probe's progress.
+        self.admitted_total = 0
 
     # -- intake -----------------------------------------------------------
 
@@ -122,6 +129,7 @@ class Scheduler:
             # Aborted while queued or parked: route it through the running
             # set so the normal finish collection releases its state.
             del self.wait_queue[rid]
+            self.admitted_total += 1
             self.running[rid] = req
             return True
         if req.status is RequestStatus.PREEMPTED:
@@ -129,9 +137,11 @@ class Scheduler:
             # allocating a prompt. A resume that does not fit blocks
             # admission like any other head-of-queue request.
             resume = getattr(self.cache, "resume_from_host", None)
+            t0 = time.perf_counter()
             if resume is None or not resume(req):
                 return False
             del self.wait_queue[rid]
+            self.admitted_total += 1
             # A mid-prefill park resumes into PREFILLING at its computed
             # mark (the restored image covers exactly that span).
             req.set_status(
@@ -140,10 +150,12 @@ class Scheduler:
                 "swap-in",
             )
             self.running[rid] = req
+            self._obs_event("swap_in", req, dur=time.perf_counter() - t0)
             return True
         if not self.cache.allocate_for_prompt(req):
             return False
         del self.wait_queue[rid]
+        self.admitted_total += 1
         head_cached = getattr(req, "mirror_head_cached", None)
         if head_cached is not None:
             # Mirror of a head-side prefix hit: the head only forwards
@@ -183,8 +195,11 @@ class Scheduler:
             # Prefix-aware chunk skipping: before the FIRST chunk ships,
             # re-consult the radix tree — a donor that released after
             # admission may now cover more of the prompt.
-            if req.num_computed_tokens == req.num_cached_tokens:
-                self.cache.extend_prefix_match(req)
+            if (req.num_computed_tokens == req.num_cached_tokens
+                    and self.cache.extend_prefix_match(req)):
+                # parallax_prefill_tokens_skipped_total is collected from
+                # CacheStats; only the flight / trace event goes here.
+                self._obs_event("chunk_skip", req)
             remaining = req.remaining_prompt_tokens()
             if remaining <= 0:
                 continue
@@ -363,6 +378,26 @@ class Scheduler:
         logger.warning("decode OOM: aborting %s", req.request_id)
         req.abort("kv_oom")
         self.cache.stats.kv_oom_aborts += 1
+        self._obs_event("kv_oom", req)
+
+    def _obs_event(self, kind: str, req: Request, dur: float = 0.0) -> None:
+        """Flight-recorder event and, for a traced request, a trace span
+        for the memory-pressure transitions (swap-in, chunk skip,
+        preemption, kv_oom)."""
+        from parallax_tpu_torch.obs.flight import get_flight
+
+        get_flight().event(
+            kind, request_id=req.request_id, stage=self.stage_name,
+            context_tokens=req.total_len,
+        )
+        if req.traced:
+            from parallax_tpu_torch.obs.trace import get_trace_store
+
+            get_trace_store().add(
+                req.request_id, self.stage_name, kind,
+                t0=time.perf_counter() - dur, dur=dur,
+                args={"context_tokens": req.total_len},
+            )
 
     # -- preemption to host -----------------------------------------------
 
@@ -454,6 +489,7 @@ class Scheduler:
         req.device_feed_ready = False
         self.wait_queue[req.request_id] = req
         self.wait_queue.move_to_end(req.request_id, last=False)
+        self._obs_event("preempt", req)
 
     def check_timeouts(self) -> list[Request]:
         """Abort requests exceeding the wall-clock budget."""

@@ -70,6 +70,13 @@ class WindowGraphs:
         self.capture_parts_s = {"warmup": 0.0, "record": 0.0,
                                 "instantiate": 0.0}
         self.warmup_launches: dict[str, int] = {}
+        # Called as on_capture(key, seconds) after each new graph (the
+        # engine reports captures to the compile observatory).
+        self.on_capture: Callable | None = None
+        # Allocated bytes the graphs hold live (each capture's growth of
+        # the caching allocator's allocated bytes: the static state and
+        # what the graph pool keeps), for the HBM ledger.
+        self.pool_bytes = 0
 
     @property
     def captured(self) -> int:
@@ -85,7 +92,13 @@ class WindowGraphs:
         advanced. ``state`` must offer ``clone()`` and ``copy_(other)``."""
         entry = self._graphs.get(key)
         if entry is None:
+            t0 = time.perf_counter()
+            m0 = torch.cuda.memory_allocated(self.device)
             entry = self._graphs[key] = self._capture(state, step)
+            self.pool_bytes += max(
+                0, torch.cuda.memory_allocated(self.device) - m0)
+            if self.on_capture is not None:
+                self.on_capture(key, time.perf_counter() - t0)
         else:
             entry.state.copy_(state)
         for _ in range(n):

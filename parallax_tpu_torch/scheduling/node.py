@@ -214,10 +214,10 @@ class CacheIndex:
 
 @dataclasses.dataclass
 class Node:
-    """A swarm member as the global scheduler sees it. The payload fields
-    of planes the port does not run yet (step timing, speculation,
-    constrained decoding, goodput, device attribution, health) keep their
-    JAX names and stay None unless a JAX worker's heartbeat fills them."""
+    """A swarm member as the global scheduler sees it. The heartbeat
+    planes (step timing, speculation, constrained decoding, histogram
+    snapshots, goodput, device attribution, health) keep their JAX names;
+    each stays None until the node's heartbeat carries it."""
 
     node_id: str
     hardware: HardwareInfo
@@ -279,6 +279,10 @@ class Node:
     # Past the base heartbeat timeout but inside the busy-probation
     # extended grace (surfaced in /cluster/status).
     suspect: bool = False
+    # Histogram snapshots from heartbeats (the scheduler merges them into
+    # cluster percentiles), the goodput ledger's payload, the device
+    # plane's payload and the watchdog's summary.
+    metrics: dict | None = None
     goodput: dict | None = None
     device: dict | None = None
     health: dict | None = None

@@ -7,11 +7,12 @@ refit-version skipping), shortest-latency dynamic-programming routing over
 whatever layer ranges the active nodes currently announce, the randomized
 router and the prefix-cache-aware router.
 
-Dropped with their planes: the conformance sanitizer's route charges
-(ROADMAP queue 1 item 14) and the routing metrics series (item 9; the
-decision counters stay, in ``cluster_status``). Refused by name: the
-cache-aware router's per-tenant fairness term (``gamma`` > 0, item 9) and
-the LoRA digest namespaces (item 11).
+The decision and per-pipeline dispatch counters go to ``cluster_status``
+and to the metrics registry (``parallax_routing_decisions_total``,
+``parallax_routing_dispatch_total``). Dropped with its plane: the
+conformance sanitizer's route charges (ROADMAP queue 1 item 14). Refused
+by name: the cache-aware router's per-tenant fairness term (``gamma`` > 0,
+QoS, item 9) and the LoRA digest namespaces (item 11).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import random
 
+from parallax_tpu_torch.obs import names as mnames
 from parallax_tpu_torch.runtime.radix_cache import block_hash_chain
 from parallax_tpu_torch.scheduling.node import Node
 from parallax_tpu_torch.scheduling.node_management import NodeManager, Pipeline
@@ -102,11 +104,31 @@ class RoutingStrategy:
         self.decision_counters[reason] = (
             self.decision_counters.get(reason, 0) + 1
         )
+        try:
+            from parallax_tpu_torch.obs.registry import get_registry
+
+            get_registry().counter(
+                mnames.ROUTING_DECISIONS_TOTAL,
+                "Routing decisions per strategy reason",
+                labelnames=("reason",),
+            ).labels(reason=reason).inc()
+        except Exception:  # pragma: no cover - metrics never break routing
+            pass
 
     def _count_pipeline(self, pipeline_id: int) -> None:
         self.pipeline_dispatches[pipeline_id] = (
             self.pipeline_dispatches.get(pipeline_id, 0) + 1
         )
+        try:
+            from parallax_tpu_torch.obs.registry import get_registry
+
+            get_registry().counter(
+                mnames.ROUTING_DISPATCH_TOTAL,
+                "Requests dispatched per registered pipeline",
+                labelnames=("pipeline",),
+            ).labels(pipeline=str(pipeline_id)).inc()
+        except Exception:  # pragma: no cover - metrics never break routing
+            pass
 
 
 # Pipeline roles each request phase may dispatch to. The prompt phase

@@ -17,15 +17,22 @@ mirror whose threads stay parked until ``StandbyScheduler.promote``; a
 installed ``journal`` records every replicated mutation (join, leave,
 peer_down, the heartbeat replay window, the pipeline table's diffs and
 migration_done). Not ported yet, refused by name with their ROADMAP queue
-1 items: SLO objectives (``slo=``) and the QoS control plane (``qos=``;
-item 9) and weight refit (:meth:`begin_refit`; item 12), so the journal's
-``refit`` record has no writer here. Phase roles (role-homogeneous
-pipelines, phase-filtered routing pools), the KV handoff's decode-pool
-targets (``pool="decode"``) and their ``disagg`` counters, live
-migration's target choice, ``where_is`` table and drain counters are the
-JAX scheduler's. The metrics registry, the cluster timeline (so the
-``ha_fenced`` event) and the obs sections of ``cluster_status`` (merged
-histograms, goodput, device, health) wait for item 9.
+1 items: the QoS control plane (``qos=``; item 9) and weight refit
+(:meth:`begin_refit`; item 12), so the journal's ``refit`` record has no
+writer here. Phase roles (role-homogeneous pipelines, phase-filtered
+routing pools), the KV handoff's decode-pool targets (``pool="decode"``)
+and their ``disagg`` counters, live migration's target choice,
+``where_is`` table and drain counters are the JAX scheduler's.
+
+The observability plane is the JAX scheduler's too: heartbeats carry each
+node's histogram snapshots, goodput, device plane, watchdog health and a
+sequence-numbered flight-event batch; the cluster timeline
+(``obs/timeline.py``) ingests the batches beside the scheduler's own
+decisions (peer_down, node_leave, node_health, migration_done,
+ha_fenced); ``slo=`` (an ``obs/slo.py`` ``SLOConfig``) evaluates SLO
+attainment and burn rates over the merged histograms; and
+``cluster_status`` carries the merged ``metrics``, ``goodput``,
+``device``, ``health``, ``slo`` and ``timeline`` sections.
 """
 
 from __future__ import annotations
@@ -83,22 +90,29 @@ class PendingRequest:
 def pool_report(pipelines) -> dict:
     """Per-pool queue depth, capacity and utilization from the pipeline
     registry and heartbeat-fed node state (the JAX package's
-    ``qos/autoscaler.pool_report``; ``goodput_per_chip`` stays None until
-    the goodput plane, item 9)."""
+    ``qos/autoscaler.pool_report``), with each pool's goodput per chip
+    from its nodes' heartbeat goodput payloads."""
+    from parallax_tpu_torch.obs.goodput import merge_goodput
+
     pools: dict[str, dict] = {}
     for p in pipelines:
         d = pools.setdefault(p.role, {
             "pipelines": 0, "in_flight": 0, "capacity": 0,
+            "_goodput": [],
         })
         d["pipelines"] += 1
         d["in_flight"] += p.nodes[0].load
         d["capacity"] += min(n.max_concurrent_requests() for n in p.nodes)
+        d["_goodput"].extend(n.goodput for n in p.nodes if n.goodput)
     for d in pools.values():
         d["utilization"] = (
             round(d["in_flight"] / d["capacity"], 4)
             if d["capacity"] else 0.0
         )
-        d["goodput_per_chip"] = None
+        merged = merge_goodput(d.pop("_goodput"))
+        d["goodput_per_chip"] = (
+            merged["tokens_useful_per_chip_second"] if merged else None
+        )
     return pools
 
 
@@ -125,8 +139,6 @@ class GlobalScheduler:
         qos=None,
         passive: bool = False,
     ):
-        if slo is not None:
-            raise unported("SLO objectives (slo=)", 9)
         if qos is not None:
             raise unported("the QoS control plane (qos=)", 9)
         self.model = model
@@ -186,6 +198,20 @@ class GlobalScheduler:
         # decode / mixed pipeline (the head then keeps the request local).
         self.disagg_stats = {"target_queries": 0, "targets_chosen": 0,
                              "no_target": 0}
+        # Cluster event timeline: workers ship sequence-numbered
+        # flight-event batches in heartbeats; the ring merges them with
+        # the scheduler's own decisions into one causally ordered story
+        # (/debug/timeline).
+        from parallax_tpu_torch.obs.timeline import ClusterTimeline
+
+        self.timeline = ClusterTimeline()
+        # SLO objectives over the cluster-merged histograms, one sample
+        # each time cluster_status() runs. None = none declared.
+        self.slo_tracker = None
+        if slo is not None:
+            from parallax_tpu_torch.obs.slo import SLOTracker
+
+            self.slo_tracker = SLOTracker(slo)
 
     # -- public API (thread-safe enqueues) --------------------------------
 
@@ -210,27 +236,30 @@ class GlobalScheduler:
         step_timing: dict | None = None,
         cache_stats: dict | None = None,
         transport: dict | None = None,
+        metrics: dict | None = None,
         cache_digests: dict | None = None,
         busy: bool | None = None,
         goodput: dict | None = None,
         health: dict | None = None,
+        events: dict | None = None,
         kernel: dict | None = None,
         spec: dict | None = None,
         constrained: dict | None = None,
         device: dict | None = None,
     ) -> None:
-        """A heartbeat. The payloads of planes the port does not run yet
-        (step timing, goodput, health, speculation, constrained decoding,
-        device attribution) are kept as the node's opaque status fields
-        when a JAX worker sends them; a port worker sends None."""
+        """A heartbeat: the node's soft state and its status planes, kept
+        as the node's fields for ``cluster_status``; ``events`` (a
+        flight-event batch) goes into the cluster timeline."""
         self._events.put((
             "update", node_id, dict(
                 lat=layer_latency_ms, load=load, rtt=rtt_s, ready=is_ready,
                 refit=refit_version, adapters=lora_adapters,
                 step_timing=step_timing, cache_stats=cache_stats,
-                transport=transport, cache_digests=cache_digests, busy=busy,
-                goodput=goodput, health=health, kernel=kernel, spec=spec,
-                constrained=constrained, device=device,
+                transport=transport, metrics=metrics,
+                cache_digests=cache_digests, busy=busy,
+                goodput=goodput, health=health, events=events,
+                kernel=kernel, spec=spec, constrained=constrained,
+                device=device,
             ),
         ))
 
@@ -394,6 +423,9 @@ class GlobalScheduler:
             while len(self._migrations) > 4096:
                 self._migrations.popitem(last=False)
             self.migration_stats["recorded"] += 1
+        self.timeline.record(
+            "migration_done", node=head, request_id=request_id,
+        )
         self._journal("migration_done", {"rid": request_id, "head": head})
 
     def migrated_head(self, request_id: str) -> str | None:
@@ -414,6 +446,7 @@ class GlobalScheduler:
             "standby promoted past us; refusing further mutations",
             epoch, self.epoch,
         )
+        self.timeline.record("ha_fenced", epoch=epoch, our_epoch=self.epoch)
 
     def _journal(self, kind: str, data: dict) -> None:
         """Replicate one state mutation (no-op while HA is off)."""
@@ -586,6 +619,10 @@ class GlobalScheduler:
                     "%d cache-index digests dropped, sweep accelerated",
                     reporter, peer, reason or "?", stale,
                 )
+                self.timeline.record(
+                    "peer_down", node=peer, reporter=reporter,
+                    reason=reason or "?",
+                )
                 self._journal("peer_down", {
                     "reporter": reporter, "peer": peer,
                     "reason": reason or "",
@@ -594,6 +631,10 @@ class GlobalScheduler:
             self._handle_update(ev[1], ev[2])
 
     def _handle_update(self, node_id: str, u: dict) -> None:
+        if u["events"] is not None:
+            # Merge the node's flight-event batch even for an unknown node:
+            # a churn victim's last beats are exactly the interesting ones.
+            self.timeline.ingest(node_id, u["events"])
         node = self.manager.get(node_id)
         if node is None:
             return
@@ -616,10 +657,27 @@ class GlobalScheduler:
         if u["adapters"] is not None:
             node.lora_adapters = tuple(u["adapters"])
         for field in ("step_timing", "cache_stats", "kernel", "spec",
-                      "constrained", "transport", "goodput", "device",
-                      "health"):
+                      "constrained", "transport", "metrics", "goodput",
+                      "device"):
             if u[field] is not None:
                 setattr(node, field, u[field])
+        health = u["health"]
+        if health is not None:
+            prev = (node.health or {}).get("status")
+            node.health = health
+            status = health.get("status")
+            if status != prev and status in ("degraded", "stalled"):
+                # Sick but alive: the node still beats (the sweep leaves
+                # it alone) while its watchdog says a component stopped
+                # making progress.
+                logger.warning(
+                    "node %s reports health %s: %s", node_id, status,
+                    "; ".join(health.get("causes") or ()) or "?",
+                )
+                self.timeline.record(
+                    "node_health", node=node_id, status=status,
+                    causes=list(health.get("causes") or ()),
+                )
         if u["cache_digests"] is not None:
             if node.cache_index.apply(u["cache_digests"]):
                 node.digests_need_resync = True
@@ -716,6 +774,9 @@ class GlobalScheduler:
                     self.migration_stats["drains"] += 1
         displaced = self.manager.remove(node_id)
         logger.info("node %s left; %d displaced", node_id, len(displaced))
+        self.timeline.record(
+            "node_leave", node=node_id, displaced=len(displaced),
+        )
         self._journal("leave", {"node_id": node_id})
         active = list(self.manager.nodes(NodeState.ACTIVE))
         if not self.manager.pipelines or self.allocator.should_global_rebalance(
@@ -840,12 +901,68 @@ class GlobalScheduler:
     # -- introspection ----------------------------------------------------
 
     def cluster_status(self) -> dict:
-        """The core of the JAX ``cluster_status``: capacity, bootstrap,
-        the routing section with its per-phase pools, the ``disagg``
-        rollup and the pipelines with their nodes (the same keys; the obs
-        sections wait for item 9)."""
+        """The JAX ``cluster_status``: capacity, bootstrap, the merged
+        histograms (``metrics``), ``goodput``, ``device``, the ``health``
+        rollup, ``slo``, the ``timeline`` counters, the routing section
+        with its per-phase pools, the ``disagg`` rollup and the pipelines
+        with their nodes."""
+        from parallax_tpu_torch.obs.device import merge_device
+        from parallax_tpu_torch.obs.goodput import merge_goodput
+        from parallax_tpu_torch.obs.registry import (
+            merge_histogram_snapshots,
+            summarize_snapshots,
+        )
+        from parallax_tpu_torch.obs.watchdog import worst_status
+
         report = self.manager.capacity_report()
         report["bootstrapped"] = self.bootstrapped.is_set()
+        # Cluster-wide latency percentiles from every node's heartbeat
+        # histogram snapshots.
+        node_snaps = [
+            n.metrics for p in self.manager.pipelines for n in p.nodes
+            if n.metrics
+        ]
+        merged_snaps = None
+        if node_snaps:
+            merged_snaps = merge_histogram_snapshots(node_snaps)
+            report["metrics"] = summarize_snapshots(merged_snaps)
+        all_nodes = [n for p in self.manager.pipelines for n in p.nodes]
+        cluster_goodput = merge_goodput(
+            [n.goodput for n in all_nodes if n.goodput]
+        )
+        if cluster_goodput is not None:
+            report["goodput"] = cluster_goodput
+        # Device plane: classes and families unioned, bytes summed, the
+        # invariant ANDed; a node without a payload is a counted skip.
+        cluster_device = merge_device([n.device for n in all_nodes])
+        if cluster_device is not None:
+            report["device"] = cluster_device
+        health_reports = {
+            n.node_id: n.health for n in all_nodes if n.health
+        }
+        if health_reports:
+            report["health"] = {
+                "status": worst_status(
+                    h.get("status") for h in health_reports.values()
+                ),
+                "sick_nodes": sorted(
+                    nid for nid, h in health_reports.items()
+                    if h.get("status") in ("degraded", "stalled")
+                ),
+            }
+        if self.slo_tracker is not None:
+            req_counts = (cluster_goodput or {}).get("requests") or {}
+            report["slo"] = self.slo_tracker.observe_and_evaluate({
+                "hists": merged_snaps or {},
+                "finished": req_counts.get("finished") or 0,
+                "aborted": req_counts.get("aborted") or 0,
+            })
+        # Timeline counters (the events live at /debug/timeline).
+        report["timeline"] = {
+            "ingested": self.timeline.ingested,
+            "gaps": self.timeline.gaps,
+            "resets": self.timeline.resets,
+        }
         with self._lock:
             accuracy = dict(self.routing_accuracy)
             disagg = dict(self.disagg_stats)

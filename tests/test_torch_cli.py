@@ -123,6 +123,11 @@ def test_refused_flag_exits_2_from_both_entry_points(checkpoint):
         assert "item 10" in res.stderr
 
 
+# Flags once refused under ROADMAP item 9 that its observability half
+# ported; QoS (``--qos``, ``--routing-gamma``) stays refused.
+_PORTED_OBS_FLAGS = {"--trace-sample-rate", "--watchdog", "--slo"}
+
+
 @pytest.mark.parametrize("argv,item", [
     (["serve", "--tp-size", "4"], 10),
     (["serve", "--sp-size", "2"], 10),
@@ -147,6 +152,12 @@ def test_refused_flag_exits_2_from_both_entry_points(checkpoint):
     (["generate", "--lora-path", "/x"], 11),
 ])
 def test_refused_flags_exit_2(checkpoint, capsys, argv, item):
+    if argv[1] in _PORTED_OBS_FLAGS:
+        # The observability plane is ported: these flags pass now.
+        args = cli.build_parser().parse_args(
+            [argv[0], "--model-path", checkpoint, *argv[1:]])
+        assert cli.unported_flags(args) == []
+        return
     assert cli.main([argv[0], "--model-path", checkpoint, *argv[1:]]) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"item {item})" in err
@@ -365,6 +376,11 @@ def test_run_join_chat_parse_as_the_jax_cli(argv):
     (["--qos", "on"], 9),
 ])
 def test_refused_run_flags_exit_2(capsys, argv, item):
+    if argv[0] in _PORTED_OBS_FLAGS:
+        args = cli.build_parser().parse_args(
+            ["run", "--model-name", "qwen2.5-7b", *argv])
+        assert cli.unported_flags(args) == []
+        return
     assert cli.main(["run", "--model-name", "qwen2.5-7b", *argv]) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"item {item})" in err

@@ -24,6 +24,7 @@ tokenizer's text is meaningful), carried across with ``params_from_numpy``.
 
 import http.client
 import json
+import os
 import socket
 import threading
 import time
@@ -428,12 +429,54 @@ def test_refused_features_answer_501(port_server, field, feature):
     ("GET", "/cluster/status", 9), ("GET", "/cluster/status_json", 9),
     ("POST", "/profile/start", 9), ("POST", "/weight/refit", 12),
 ])
-def test_later_endpoints_answer_501(port_server, method, path, item):
-    status, reply = port_server.request(method, path,
-                                        {} if method == "POST" else None)
-    assert status == 501
-    assert f"item {item})" in reply["error"]["message"]
-    assert "not ported yet" in reply["error"]["message"]
+def test_later_endpoints_answer_501(port_server, tmp_path, method, path,
+                                    item):
+    """Weight refit (item 12) still answers 501. The item-9 endpoints, the
+    observability plane, are served now: each answers as the JAX
+    frontend's does."""
+    if item != 9:
+        status, reply = port_server.request(method, path, {})
+        assert status == 501
+        assert f"item {item})" in reply["error"]["message"]
+        assert "not ported yet" in reply["error"]["message"]
+        return
+    if path == "/cluster/status":
+        # An ndjson stream: its first record is the serve status.
+        conn = http.client.HTTPConnection("127.0.0.1", port_server.port,
+                                          timeout=60)
+        try:
+            conn.request("GET", path + "?interval=0.25")
+            resp = conn.getresponse()
+            assert resp.status == 200
+            assert resp.getheader("Content-Type") == "application/x-ndjson"
+            assert json.loads(resp.readline())["mode"] == "single-host"
+        finally:
+            conn.close()
+        return
+    if path == "/profile/start":
+        status, reply = port_server.request(
+            method, path, {"dir": str(tmp_path), "max_seconds": 60})
+        assert status == 200 and reply["profiling"] is True
+        status, again = port_server.request(method, path, {})
+        assert status == 409
+        status, stop = port_server.request("POST", "/profile/stop", {})
+        assert status == 200 and stop["profiling"] is False
+        assert os.path.dirname(stop["trace"]) == str(tmp_path)
+        return
+    status, reply = port_server.request(method, path)
+    if path == "/debug/trace/r1":
+        assert status == 404 and "no trace recorded" in (
+            reply["error"]["message"])
+    elif path == "/metrics":
+        assert status == 200
+        assert "# TYPE parallax_goodput_tokens_total counter" in reply
+    elif path == "/healthz":
+        assert status == 200 and reply == {
+            "status": "ok", "components": {}, "causes": []}
+    elif path == "/debug/flight":
+        assert status == 200 and {"requests", "slow", "events"} <= set(reply)
+    else:
+        assert status == 200 and reply["mode"] == "single-host"
 
 
 def test_unknown_route_and_method(port_server):

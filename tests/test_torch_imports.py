@@ -70,7 +70,10 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "runtime.kv_handoff", "runtime.request", "ha",
                  "ha.backoff", "ha.failover", "ha.journal", "ha.standby",
                  "p2p.protowire", "p2p.interop", "backend.webui",
-                 "native"):
+                 "native", "obs", "obs.names", "obs.registry",
+                 "obs.flight", "obs.trace", "obs.goodput", "obs.device",
+                 "obs.watchdog", "obs.slo", "obs.timeline", "obs.profiler",
+                 "utils.request_metrics"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"

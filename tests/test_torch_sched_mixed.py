@@ -10,8 +10,11 @@ carried across by ``params_from_numpy``).
   one-shot logits, parting from a JAX scheduler swarm's only at
   near-ties. The mixed swarms hold the control-plane frames equal both
   ways.
-- Heartbeat fields: the JAX scheduler takes the port worker's heartbeat,
-  whose unported planes are None, and keeps what the port sends.
+- Heartbeat fields: the JAX scheduler takes the port worker's heartbeat
+  and keeps every plane it sends: step timing, histogram snapshots,
+  goodput and the device plane are filled once the workers served; the
+  planes of features that did not run (speculation, constrained
+  decoding, the watchdog) stay None.
 - Digests: the two packages' engines publish equal ``cache_digests``
   payloads for the same request sequence, and ``cache_aware`` routing
   sends a shared-prefix follow-up to the warm replica in both packages'
@@ -199,17 +202,24 @@ def test_scheduled_swarms_match_jax(sched_kind, worker_kinds,
         assert layers == [(0, 2), (2, 4)]
         reqs = _serve(service, workers, _reqs_of)
         if sched_kind == "jax":
-            # The JAX scheduler took the port's heartbeats: what the port
-            # sends is kept, the unported planes stay None.
+            # The JAX scheduler took the port's heartbeats and kept every
+            # plane; those of features that did not run stay None.
             for nid in workers:
                 node = service.scheduler.manager.get(nid)
                 assert node.is_ready and node.kernel["impl"] == "torch"
                 assert node.cache_stats["tokens_admitted"] >= 0
                 assert _wait(
                     lambda: node.measured_layer_latency_ms is not None)
-                for plane in ("step_timing", "spec", "constrained",
-                              "metrics", "goodput", "device", "health"):
+                assert _wait(lambda: (node.goodput or {}).get(
+                    "tokens_total", 0) > 0)
+                assert node.step_timing["host_visits"] > 0
+                assert node.metrics and node.device["hbm"]["classes"]
+                for plane in ("spec", "constrained", "health"):
                     assert getattr(node, plane) is None, plane
+            status = service.scheduler.cluster_status()
+            assert status["goodput"]["tokens_total"] > 0
+            assert status["device"]["nodes"] == 2
+            assert status["metrics"]["parallax_step_host_ms"]
     _assert_tie_tolerant(reqs, jax_sched_streams,
                          f"{sched_kind}-{worker_kinds[0]}")
 

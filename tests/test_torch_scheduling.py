@@ -627,6 +627,15 @@ def test_fifty_node_pool_allocation_churn_and_routes_match():
     (dict(routing="cache_aware", routing_kwargs=dict(gamma=0.5)), "9"),
 ])
 def test_refused_scheduler_options_name_their_items(kwargs, item):
+    if "slo" in kwargs:
+        # SLO objectives are ported: a parsed spec builds the tracker.
+        from parallax_tpu_torch.obs.slo import parse_slo_spec
+
+        sched = p_sched.GlobalScheduler(
+            normalize_config(RAW), slo=parse_slo_spec("ttft_p95_ms=500"))
+        assert sched.slo_tracker is not None
+        assert "slo" in sched.cluster_status()
+        return
     with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
         p_sched.GlobalScheduler(normalize_config(RAW), **kwargs)
 

@@ -471,6 +471,13 @@ def test_chat_host_answers_503_without_a_route():
     (["--qos", "on"], 9),
 ])
 def test_refused_join_flags_exit_2(tmp_path, capsys, argv, item):
+    if argv[0] in ("--trace-sample-rate", "--watchdog"):
+        # Ported with the observability plane: the flags pass now.
+        args = cli.build_parser().parse_args(
+            ["join", "--model-path", str(tmp_path), "--start-layer", "0",
+             "--end-layer", "2", *argv])
+        assert cli.unported_flags(args) == []
+        return
     assert cli.main(["join", "--model-path", str(tmp_path), "--start-layer",
                      "0", "--end-layer", "2", *argv]) == 2
     err = capsys.readouterr().err
@@ -491,7 +498,7 @@ _PACKET = {"rid": "q", "ctx": 3}
     (proto.CHAT_SUBMIT, dict(_SUBMIT, tenant="t0"), 9),
     (proto.FORWARD, {"reqs": [dict(_PACKET, qos="batch")]}, 9),
     (proto.FORWARD, {"reqs": [dict(_PACKET, lora_id="a")]}, 11),
-    # Pipeline speculation's packets are ported; a traced one is not.
+    # Pipeline speculation's packets are ported, and traced ones too now.
     (proto.FORWARD, {"reqs": [dict(_PACKET, spec_len=2, trace=True)]}, 9),
     (proto.FORWARD, b"\x12\x0b\x0a\x01q\x42\x06tenant", 11),
     (proto.PROFILE, {}, 9),
@@ -506,6 +513,26 @@ def test_refused_rpcs_name_their_items(method, payload, item):
     reg = {}
     node = WorkerNode(LoopbackTransport("w", reg), None, CFG,
                       EngineConfig(**ENGINE), layers=(0, 2), device="cpu")
+    if method == proto.PROFILE:
+        # Profiling is ported: an action-less frame is an error reply,
+        # and nothing reaches the step loop.
+        reply = LoopbackTransport("c", reg).call("w", method, payload)
+        assert reply == {"node_id": "w", "error": "unknown action ''"}
+        assert node._inbox.empty()
+        return
+    if isinstance(payload, dict) and any(
+            p.get("trace") for p in payload.get("reqs", ())):
+        # A traced packet is accepted now: a whole one (this row's stub
+        # carries only the fields a refusal read) lands in the step inbox.
+        from parallax_tpu_torch.runtime.request import IntermediateRequest
+
+        whole = proto.ireq_to_wire(IntermediateRequest(
+            request_id="q", routing_table=["w"], context_len=3,
+            num_new_tokens=3, token_ids=[1, 2, 3], spec_len=2, trace=True))
+        LoopbackTransport("c", reg).call("w", method, {"reqs": [whole]})
+        kind, ireq = node._inbox.get_nowait()
+        assert kind == "forward" and ireq.trace and ireq.spec_len == 2
+        return
     with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
         LoopbackTransport("c", reg).call("w", method, payload)
     assert node._inbox.empty() and not node._chat_requests
