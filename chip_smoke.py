@@ -326,6 +326,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                stops under a long request and the head's flight event
                (abort path or migration flag) reaches the timeline
                through its heartbeat; exits 0.
+9d. qos_serve  the QoS plane, the router and the chaos harness (``--only
+               qos_serve`` runs http_serve first, for (b)'s checkpoint).
+               (a) The library run on serve's tree with the defaults (K = 8
+               windows from CUDA graphs, overlap) on a 96-page pool with a
+               4 GiB host tier: 7 batch rows decode, then 2 interactive
+               rows arrive and wait for a slot; QoS off, QoS on and QoS on
+               over the native manager. Streams bitwise equal across the
+               three, no abort, launches exact; QoS on sheds, parks batch
+               rows and resumes every one; the native manager parks
+               nothing and warns once. Interactive TTFT, parks, sheds, park
+               and resume host ms and the release's seconds. (b) Two
+               ``serve --qos on`` processes (each its own KV fraction)
+               behind ``python -m parallax_tpu_torch.router.lb --strategy
+               session_affinity``: a bad deadline header answers 400, a
+               session key stays on its replica, /router/status shows both
+               EMAs, the router's added ms a request; the pinned replica is
+               killed and, once the probe saw it, every request answers
+               200. (c) ``run --qos autoscale=1``'s scheduler in this
+               process with three 28-layer ``--qos on`` workers (prefill,
+               decode, decode; shared weights) under the port's
+               ChaosController (KV frames delayed, a few dropped): two
+               chatty sessions decode, a burst of prompts starves the
+               prefill pool, the autoscaler re-roles a decode pipeline, its
+               worker adopts the role in place and drains; every request
+               finishes, none aborts; the ``qos`` status section shows the
+               re-role.
 10. moe_serve   Qwen3-30B-A3B at full width and all 48 layers (random bf16
                weights, about 61 GB; the dense phases' tensors are freed
                first) serving the same 8-request mix with the defaults and
@@ -360,12 +386,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                (defaults).
 16. gptoss_serve gpt-oss-20b at full width and all 24 layers (20.9 B params,
                42 GB in bf16, each layer's sinks drawn N(0, 1); DeepSeek's
-               tree freed first) serving the mix four times with
-               mla_serve's runs and checks: fused (A2 per layer and decode
+               tree freed first) serving the mix three times with
+               mla_serve's checks: fused (A2 per layer and decode
                step, A0 + A1 per layer and prefill step), split (A9 per
                layer and decode step, A1 attend-only per layer and prefill
                step, nothing else but the sampler's noise), fused with
-               K1_SYNC and plain.
+               K1_SYNC on two rows of the mix for 8 tokens (launches and
+               completion checked) and plain.
                The fused run's first greedy stream is decoded again step
                by step, A2 against the plain decode (the logit difference
                and argmax agreement; no limit).
@@ -375,11 +402,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                full-attention layer 0, then four MSA + MoE layers; one
                random bf16 tree of 16.1 B params, gpt-oss's freed first)
                serving the mix plus one greedy request of 4,600 ids (past
-               32 blocks of 64 tokens, so the indexer drops blocks) four
+               32 blocks of 64 tokens, so the indexer drops blocks) three
                times: fused (A2 on layer 0 and A7 on each sparse layer per
                decode step, both in MSA mode for A7), split (A1 attend-only
-               on layer 0 and A8 on each sparse layer), fused with K1_SYNC
-               and plain; prefill on the split chain (MSA turns fused
+               on layer 0 and A8 on each sparse layer), fused with
+               K1_SYNC on two rows for 8 tokens, and plain;
+               prefill on the split chain (MSA turns fused
                prefill off), A4 three times per MoE layer and forward
                step; launches exact. The long stream is decoded again step
                by step, A7 against the plain indexer: the logit
@@ -513,6 +541,9 @@ MLA_LONG_KEYS = 8192
 # the one-in-flight loop, replayed from CUDA graphs) and, for the rates,
 # this one once more.
 K1_SYNC = dict(decode_lookahead=1, overlap_steps=False)
+# A proposal deadline no spec_serve round reaches (a round takes well
+# under a second).
+DRAFT_NO_DEADLINE_MS = 600_000.0
 # Indexer scores: f32 sums of the same exact products, in another order.
 SCORE_TOL = (1e-4, 1e-4)
 
@@ -2386,6 +2417,22 @@ def make_requests(vocab: int, long_prompt: int = 0):
     return reqs, sampled
 
 
+# serve_three's short K1_SYNC run: r0 (greedy) and r2 (seeded) of the mix.
+K1_SHORT_ROWS = (0, 2)
+K1_SHORT_NEW = 8
+
+
+def k1_short_mix(vocab: int):
+    """K1_SHORT_ROWS of the mix, each for K1_SHORT_NEW tokens, as
+    ``serve``'s ``requests`` (requests, sampled)."""
+    reqs, sampled = make_requests(vocab)
+    short = [reqs[i] for i in K1_SHORT_ROWS]
+    for r in short:
+        r.sampling_params.max_new_tokens = K1_SHORT_NEW
+    return short, {j: sampled[i] for j, i in enumerate(K1_SHORT_ROWS)
+                   if i in sampled}
+
+
 def engine_config(fused: bool, max_model_len: int = 1024, **over):
     from parallax_tpu_torch.runtime.engine import EngineConfig
 
@@ -2461,7 +2508,8 @@ def stream_metrics(reqs, t0: float, t1: float) -> dict:
     decode_tokens = sum(len(r.output_ids) - 1 for r in reqs)
     return {"ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
             # r7 waits for a batch slot: a window in flight delays it.
-            "ttft_s_r7": ttft[7], "wall_s": t1 - t0,
+            "ttft_s_r7": ttft[7] if len(ttft) > 7 else None,
+            "wall_s": t1 - t0,
             "output_tok_per_s": sum(len(r.output_ids) for r in reqs)
             / (t1 - t0),
             "decode_tok_per_s": decode_tokens / (t1 - first)}
@@ -3663,7 +3711,11 @@ def _watch_handoff(torch, dev, prefill, decode, first: str,
     deng.cache.resume_from_host = resume
 
 
-def _disagg_worker(cfg, params, dev, service, role):
+def _disagg_worker(cfg, params, dev, service, role, chaos=None,
+                   heartbeat_s: float = 0.5, **engine_kw):
+    """A WorkerNode in this process on ``params`` (shared, not copied),
+    its transport wrapped by ``chaos`` when given; ``engine_kw`` over the
+    engine's defaults and a PREEMPT_HOST_BYTES tier."""
     from parallax_tpu_torch.p2p.node import WorkerNode
     from parallax_tpu_torch.p2p.transport import TcpTransport
 
@@ -3672,11 +3724,12 @@ def _disagg_worker(cfg, params, dev, service, role):
     t.start()
     t.peer_id = t.address
     return WorkerNode(
-        t, service, cfg,
-        engine_config(True, host_cache_bytes=PREEMPT_HOST_BYTES),
+        chaos.wrap(t) if chaos is not None else t, service, cfg,
+        engine_config(True, **{"host_cache_bytes": PREEMPT_HOST_BYTES,
+                               **engine_kw}),
         load_params=lambda m: _stage_tree(params, m.start_layer,
                                           m.end_layer, n),
-        heartbeat_interval_s=0.5, device=dev, role=role)
+        heartbeat_interval_s=heartbeat_s, device=dev, role=role)
 
 
 def disagg_worker_main(role: str, scheduler: str) -> int:
@@ -4360,7 +4413,7 @@ def _serve_http(torch, dev, ckpt: str, mix):
 def phase_http_serve(torch, dev, card: str, cfg, tree: list,
                      swarm: bool = False, sched: bool = False,
                      ha: bool = False, relay: bool = False,
-                     obs: bool = False) -> None:
+                     obs: bool = False, qos: bool = False) -> None:
     """The port's front door on Qwen2.5-7B at full width: the random tree
     written as an HF checkpoint, the CLI's ``generate`` run on it in a
     subprocess, the checkpoint loaded back bitwise, then ``serve`` (CLI
@@ -4370,8 +4423,8 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
     only reference to the random tree, dropped once it loaded back. With
     ``swarm``, phase_swarm_serve follows in the same checkpoint directory
     (the checkpoint is written once), with ``sched`` phase_sched_serve,
-    with ``ha`` phase_ha_serve, with ``relay`` phase_relay_serve and with
-    ``obs`` phase_obs_serve."""
+    with ``ha`` phase_ha_serve, with ``relay`` phase_relay_serve, with
+    ``obs`` phase_obs_serve and with ``qos`` qos_serve's part (b)."""
     import os
     import re
     import shutil
@@ -4463,6 +4516,13 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
                               sampled, reqs)
         if obs:
             phase_obs_serve(torch, dev, card, cfg, loaded, ckpt, mix)
+        if qos:
+            del loaded
+            free_device_memory(torch)
+            t0 = time.monotonic()
+            qos_http(torch, dev, card, ckpt)
+            emit({"phase": "qos_serve", "part": "b",
+                  "seconds": time.monotonic() - t0, "card": card})
 
 
 def http_results(torch, dev, card, cfg, loaded, mix, sampled, outs,
@@ -7555,7 +7615,8 @@ def teacher_forced_decode(torch, model, params, req, dev, kernel,
 
 def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
                 margin, plain_kw, plain_note, long_prompt=0,
-                max_model_len=1024, teacher_forced=None, after=None) -> dict:
+                max_model_len=1024, teacher_forced=None, after=None,
+                k1_sync_short: bool = False) -> dict:
     """Serve the mix on ``cfg``: fused decode and split decode (its kernels)
     with the engine's defaults (the window replayed from CUDA graphs), the
     fused kernels once more in the parent's configuration (K1_SYNC, for the
@@ -7570,7 +7631,10 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
     or with ``long_prompt`` of the long one (the last request). ``after``,
     if given, is called as ``after(model_plain, runs)`` (each run's
     requests by mode) once the greedy line is out, for a phase's own
-    checks.
+    checks. ``k1_sync_short`` serves the fused K1_SYNC run on
+    K1_SHORT_ROWS of the mix for K1_SHORT_NEW tokens each: its launches
+    and its completion are checked as the full run's are, in a fraction
+    of its time, and its rates are not comparable with the other runs'.
     Returns each run's launches."""
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.ops import cuda_kernels as ck
@@ -7581,14 +7645,18 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
             ("fused", True, None, None), ("split", False, None, None),
             ("fused_k1_sync", True, None, K1_SYNC),
             ("plain", False, plain_kw, K1_SYNC)):
+        short = mode == "fused_k1_sync" and k1_sync_short
         ck.reset_launches()
         reqs, sampled, engines, t0, t1 = serve(
             torch, [(0, n)], params, cfg, dev, fused=fused,
             long_prompt=long_prompt, max_model_len=max_model_len,
-            model_kw=model_kw, engine_kw=engine_kw)
+            model_kw=model_kw, engine_kw=engine_kw,
+            requests=k1_short_mix(cfg.vocab_size) if short else None)
         launches = ck.launches()
+        new_tokens = K1_SHORT_NEW if short else 32
         for r in reqs:
-            if r.status.value != "finished_length" or len(r.output_ids) != 32:
+            if r.status.value != "finished_length" or \
+                    len(r.output_ids) != new_tokens:
                 raise AssertionError(f"{phase} {mode} {r.request_id}: "
                                      f"{r.status.value}, "
                                      f"{len(r.output_ids)} tokens")
@@ -7605,7 +7673,8 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
               "engine": engine_kw or "defaults",
               "launches": launches, "steps": decode_steps + prefill_steps,
               "decode_steps": decode_steps, "dispatch": summary,
-              "sharer_cached_tokens": reqs[7].num_cached_tokens,
+              "sharer_cached_tokens": None if short
+              else reqs[7].num_cached_tokens,
               "mem_free_gb_after_serve": torch.cuda.mem_get_info()[0] / 1e9,
               "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
               **stream_metrics(reqs, t0, t1), "card": card})
@@ -7742,8 +7811,8 @@ def run_gptoss(torch, dev, card: str, want) -> dict:
     weights; each layer's sinks drawn N(0, 1) so that they matter) served
     three times: fused (A2 once per layer and decode step, A0 + A1 per layer
     and prefill step), split (A9 per layer and decode step, A1 attend-only
-    per layer and prefill step, nothing else) and plain. Returns the
-    launches of each run."""
+    per layer and prefill step, nothing else), fused with K1_SYNC on two
+    rows for 8 tokens, and plain. Returns the launches of each run."""
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.models.presets import get_preset
 
@@ -7810,7 +7879,7 @@ def run_gptoss(torch, dev, card: str, want) -> dict:
         tol=GPTOSS_GREEDY_TOL, margin=GPTOSS_OFF_MARGIN,
         plain_kw=dict(use_kernels=False),
         plain_note="plain split attention + the plain MoE loop",
-        teacher_forced="gqa_decode")
+        teacher_forced="gqa_decode", k1_sync_short=True)
     if want("gptoss_profile"):
         phase_profile(torch, dev, cfg, params, phase="gptoss_profile")
     return {f"gptoss_serve/{mode}": launches
@@ -7929,7 +7998,8 @@ def phase_msa_serve(torch, dev, card: str) -> dict:
     """MiniMax-M3 at full width and MSA_LAYERS layers serving the mix plus
     the long request: fused (A2 on the dense layer, A7 on each sparse layer
     and decode step), split (A1 attend-only on the dense layer, A8 on the
-    sparse ones), fused with K1_SYNC and plain; A4 three times per MoE
+    sparse ones), fused with K1_SYNC on two rows for 8 tokens, and plain;
+    A4 three times per MoE
     layer and forward step; prefill on the split chain (MSA turns fused
     prefill off: A1 attend-only on the dense layer, no A0). Then A7
     teacher-forced on the long stream and the greedy limit against two
@@ -7964,7 +8034,7 @@ def phase_msa_serve(torch, dev, card: str) -> dict:
         long_prompt=MSA_LONG_PROMPT, max_model_len=MSA_MAX_MODEL_LEN,
         teacher_forced="indexer_fused",
         after=lambda model_plain, served: msa_mutations(
-            torch, dev, cfg, params, model_plain, served))
+            torch, dev, cfg, params, model_plain, served), k1_sync_short=True)
     emit({"phase": "msa_serve", "msa_launches": {
         "indexer_fused (A7, fused run)": runs["fused"]["indexer_fused"],
         "indexer_scores (A8, split run)": runs["split"]["indexer_scores"],
@@ -8256,10 +8326,12 @@ def _draft_tree(params, layers: int) -> dict:
             "lm_head": params["lm_head"]}
 
 
-def make_draft(torch, dev, cfg, params, layers: int):
+def make_draft(torch, dev, cfg, params, layers: int,
+               max_propose_ms: float = 250.0):
     """A DraftProposer on the served tree (``layers`` = all of them) or its
     first ``layers`` layers, sharing its tensors, with the target's page
-    size and the engine's defaults (K = 4 windows from CUDA graphs)."""
+    size and the engine's defaults (K = 4 windows from CUDA graphs);
+    ``max_propose_ms`` is its proposal deadline."""
     from parallax_tpu_torch.config import normalize_config
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.models.presets import PRESETS
@@ -8273,7 +8345,7 @@ def make_draft(torch, dev, cfg, params, layers: int):
                       engine_config(True, 1024, decode_lookahead=4,
                                     num_pages=256),
                       device=dev, use_native=True)
-    return DraftProposer(eng)
+    return DraftProposer(eng, max_propose_ms=max_propose_ms)
 
 
 def _first_parting(torch, model_full, params, a, b, dev) -> dict:
@@ -8393,8 +8465,13 @@ def phase_spec_serve(torch, dev, card, cfg, model_full, params):
         draft = None
         log: list = []
         if draft_layers is not None:
+            # The same-tree draft's agreement check needs fixed proposal
+            # positions: its deadline is one no round reaches, so where it
+            # proposes does not depend on the host's speed.
             draft = make_draft(torch, dev, cfg, params,
-                               n if draft_layers == "all" else draft_layers)
+                               n if draft_layers == "all" else draft_layers,
+                               max_propose_ms=DRAFT_NO_DEADLINE_MS
+                               if draft_layers == "all" else 250.0)
             propose = draft.propose_batch
 
             def logged(contexts, budgets, _p=propose, _log=log):
@@ -8648,8 +8725,640 @@ KERNEL_COUNTER = {"ragged_attend": "gqa_prefill"}
 # order; the first one asked for names the tree's line when serve is not.
 DENSE_PHASES = ("native", "spec_serve", "pp_spec", "features_serve",
                 "preempt_serve", "migrate_serve",
-                "disagg_serve", "http_serve", "swarm_serve", "sched_serve",
-                "ha_serve", "relay_serve", "obs_serve")
+                "disagg_serve", "qos_serve", "http_serve", "swarm_serve",
+                "sched_serve", "ha_serve", "relay_serve", "obs_serve")
+
+
+# -- qos_serve: the QoS plane, the router and the chaos harness ----------------
+
+# (a) the library run: a batch flood fills the batch (max_batch_size 7) on
+# a QOS_PAGES pool with a QOS_HOST_BYTES tier, then the interactive rows
+# arrive; QoS off, QoS on ("on": the interactive budget 1000 ms, so the
+# queue-pressure trigger fires once an interactive row has waited 500 ms
+# for a slot), and QoS on over the native manager (no tier).
+QOS_FLOOD = 7
+QOS_FLOOD_NEW = 192
+QOS_INTERACTIVE = 2
+QOS_INTERACTIVE_NEW = 32
+QOS_PAGES = 96
+QOS_HOST_BYTES = 4 << 30
+# (c) the autoscaler's swarm: one prefill and two decode workers, each
+# with a 1 GiB tier; two chatty sessions, then a burst of interactive
+# prompts (QOS_BURST_IDS ids, one new token: each finishes at the prefill
+# head) submitted back to back until the re-role, at most QOS_BURST_MAX.
+QOS_CHATTY_NEW = 256
+QOS_BURST_IDS = 900
+QOS_BURST_MAX = 96
+QOS_SWARM_HOST_BYTES = 1 << 30
+QOS_KV_DROPS = 2
+# (c)'s ``run --qos`` spec. A 28-layer pipeline on the H100 counts 233
+# requests of capacity (the node model's KV budget at 2,048-token
+# contexts), so util_high 0.01 calls the prefill pool starved once three
+# prompts wait there, and a decode pool under half its capacity is idle;
+# the loop looks every 0.5 s, and the cooldown allows one re-role a run.
+QOS_AUTOSCALE_SPEC = ("autoscale=1,autoscale_interval_s=0.5,"
+                      "autoscale_cooldown_s=600,autoscale_util_high=0.01,"
+                      "autoscale_util_low=0.5")
+# (b) serve --qos on behind the router: each replica's KV fraction.
+QOS_KV_FRACTION = 0.1
+
+
+def qos_mix(vocab: int):
+    """QOS_FLOOD batch rows (greedy and seeded in turn) and QOS_INTERACTIVE
+    interactive rows (one greedy, one seeded)."""
+    import random
+
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    rng = random.Random(4242)
+    flood, inter = [], []
+    for i in range(QOS_FLOOD):
+        seeded = i % 2 == 1
+        flood.append(Request(
+            f"b{i}", prompt_ids=[rng.randrange(1, vocab)
+                                 for _ in range(128 + 40 * i)],
+            qos_class="batch",
+            sampling_params=SamplingParams(
+                temperature=0.8 if seeded else 0.0,
+                top_k=20 if seeded else 0, seed=31 + i if seeded else None,
+                max_new_tokens=QOS_FLOOD_NEW, ignore_eos=True)))
+    for i in range(QOS_INTERACTIVE):
+        seeded = i == 1
+        inter.append(Request(
+            f"i{i}", prompt_ids=[rng.randrange(1, vocab)
+                                 for _ in range(96)],
+            qos_class="interactive",
+            sampling_params=SamplingParams(
+                temperature=0.7 if seeded else 0.0,
+                top_k=8 if seeded else 0, seed=97 if seeded else None,
+                max_new_tokens=QOS_INTERACTIVE_NEW, ignore_eos=True)))
+    return flood, inter
+
+
+def qos_library_run(torch, dev, cfg, params, qos, native: bool) -> dict:
+    """One run of (a): the flood decodes, then the interactive rows arrive;
+    everything to completion on the one-in-flight loop with the engine's
+    defaults (K = 8 windows replayed from CUDA graphs). Returns the
+    streams, the requests, the launches, the dispatch summary, the QoS
+    payload, the cache counters, the host ms of each park and resume and
+    the controller's transition times."""
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.runtime.engine import StageEngine, drive_step
+
+    n = cfg.num_hidden_layers
+    engine = StageEngine(
+        create_stage_model(cfg, 0, n), params,
+        engine_config(True, num_pages=QOS_PAGES, qos=qos,
+                      host_cache_bytes=0 if native else QOS_HOST_BYTES),
+        device=dev, use_native=native)
+    if native != (type(engine.cache).__name__ == "NativeCacheManager"):
+        raise AssertionError(f"qos_serve: cache manager "
+                             f"{type(engine.cache).__name__}")
+    swaps = {"preempt": [], "resume": []}
+    if not native:
+        _timed(engine.cache, "preempt_to_host", swaps["preempt"])
+        _timed(engine.cache, "resume_from_host", swaps["resume"])
+    transitions = []
+    pol = engine.scheduler.qos
+    if pol is not None:
+        tick = pol.controller.tick
+
+        def timed_tick(now=None):
+            changed = tick(now)
+            if changed:
+                transitions.append((time.monotonic(),
+                                    pol.controller.shedding))
+            return changed
+
+        pol.controller.tick = timed_tick
+    flood, inter = qos_mix(cfg.vocab_size)
+    _sync(torch, dev)
+    ck.reset_launches()
+    t0 = time.monotonic()
+    for r in flood:
+        r.arrival_time = t0
+        engine.submit(r)
+    pending = None
+    while not all(len(r.output_ids) >= 8 for r in flood):
+        _, pending = drive_step(engine, pending)
+    t_inter = time.monotonic()
+    for r in inter:
+        r.arrival_time = t_inter
+        engine.submit(r)
+    while engine.has_work() or pending is not None:
+        _, pending = drive_step(engine, pending)
+    _sync(torch, dev)
+    t1 = time.monotonic()
+    reqs = flood + inter
+    bad = [(r.request_id, r.status.value, len(r.output_ids)) for r in reqs
+           if r.status.value != "finished_length"
+           or len(r.output_ids) != r.sampling_params.max_new_tokens]
+    if bad:
+        raise AssertionError(f"qos_serve (a): unfinished or aborted {bad}")
+    out = {
+        "streams": {r.request_id: list(r.output_ids) for r in reqs},
+        "reqs": reqs, "launches": ck.launches(),
+        "summary": engine.kernel_dispatch_summary(),
+        "qos": pol.payload() if pol is not None else None,
+        "cache": engine.cache_stats(),
+        "park_ms": [s * 1e3 for s, ok in swaps["preempt"] if ok],
+        "resume_ms": [s * 1e3 for s, ok in swaps["resume"] if ok],
+        "transitions": [(t - t_inter, shed) for t, shed in transitions],
+        "interactive_ttft_ms": {
+            r.request_id: (r.first_token_time - t_inter) * 1e3
+            for r in inter},
+        "wall_s": t1 - t0,
+        "warned_no_tier": pol._warned_no_tier if pol is not None else None,
+    }
+    del engine
+    free_device_memory(torch)
+    return out
+
+
+def qos_library(torch, dev, card, cfg, params) -> None:
+    """(a): QoS off, QoS on and QoS on over the native manager; streams
+    bitwise equal across the three, no abort, parks above 0 with every
+    parked row resumed (on), none on the native manager, which only holds
+    admissions and warns once; launches exact in each."""
+    n = cfg.num_hidden_layers
+    runs = {}
+    for name, qos, native in (("off", None, False), ("on", "on", False),
+                              ("native_on", "on", True)):
+        run = qos_library_run(torch, dev, cfg, params, qos, native)
+        check_launches("qos_serve", name, run["launches"],
+                       gqa_expected("fused", run["summary"], n),
+                       run["summary"])
+        check_windows("qos_serve", name, run["summary"], graphs=True)
+        runs[name] = run
+    off = runs["off"]["streams"]
+    for name in ("on", "native_on"):
+        if runs[name]["streams"] != off:
+            diff = sorted(rid for rid in off
+                          if runs[name]["streams"][rid] != off[rid])
+            raise AssertionError(f"qos_serve (a) {name}: streams differ "
+                                 f"from QoS off in {diff}")
+    on, native = runs["on"], runs["native_on"]
+    parked = sum(on["qos"]["counters"]["parked"].values())
+    held = sum(on["qos"]["counters"]["shed_held"].values())
+    adm = on["qos"]["admission"]
+    if parked <= 0 or on["cache"]["resumes"] < parked \
+            or adm["sheds"] < 1 or adm["releases"] < 1 or held < parked:
+        raise AssertionError(f"qos_serve (a) on: parks {parked}, "
+                             f"{on['cache']}, {adm}")
+    nat = native["qos"]
+    if sum(nat["counters"]["parked"].values()) or \
+            nat["admission"]["sheds"] < 1 or not native["warned_no_tier"]:
+        raise AssertionError(f"qos_serve (a) native: {nat}")
+    shed_at = [t for t, s in on["transitions"] if s]
+    release_at = [t for t, s in on["transitions"] if not s]
+    for name, run in runs.items():
+        emit({"phase": "qos_serve", "part": "a", "run": name,
+              "engine": "defaults", "num_pages": QOS_PAGES,
+              "host_cache_bytes": 0 if name == "native_on"
+              else QOS_HOST_BYTES,
+              "flood": f"{QOS_FLOOD} batch rows x {QOS_FLOOD_NEW} new",
+              "interactive": f"{QOS_INTERACTIVE} rows x "
+                             f"{QOS_INTERACTIVE_NEW} new",
+              "interactive_ttft_ms": run["interactive_ttft_ms"],
+              "streams_equal_to_qos_off": True, "aborts": 0,
+              "qos_counters": (run["qos"] or {}).get("counters"),
+              "admission": (run["qos"] or {}).get("admission"),
+              "preemptions": run["cache"].get("preemptions"),
+              "resumes": run["cache"].get("resumes"),
+              "park_ms": run["park_ms"], "resume_ms": run["resume_ms"],
+              "launches": run["launches"], "wall_s": run["wall_s"],
+              "card": card})
+    figures = {
+        "interactive_ttft_ms_off": _max_ttft(runs["off"]),
+        "interactive_ttft_ms_on": _max_ttft(on),
+        "parks": parked, "sheds": adm["sheds"],
+        "shed_s_after_arrival": shed_at[0] if shed_at else None,
+        "release_s_after_shed": (release_at[0] - shed_at[0])
+        if shed_at and release_at else None,
+        "park_ms_median": statistics.median(on["park_ms"]),
+        "resume_ms_median": statistics.median(on["resume_ms"]),
+    }
+    emit({"phase": "qos_serve", "part": "a", "figures": figures,
+          "card": card})
+
+
+def _max_ttft(run) -> float:
+    return max(run["interactive_ttft_ms"].values())
+
+
+def qos_swarm(torch, dev, card, cfg, params) -> None:
+    """(c): ``run --qos autoscale=1``'s scheduler in this process (its
+    GlobalScheduler and SchedulerService on TCP loopback) with three
+    28-layer workers joined with ``--qos on``: one prefill and two decode
+    (the autoscaler never empties a pool, so a pair could not re-role).
+    The workers share ``params``. The port's ChaosController wraps every
+    transport, delays each KV frame and drops a few. Two chatty
+    interactive sessions are handed off, one to each decode pipeline;
+    then a burst of interactive prompts starves the prefill pool, the autoscaler re-roles a decode pipeline to prefill, its worker
+    adopts the role from a heartbeat reply (same engine, no reload) and
+    drains its session through the handoff; every request finishes, none
+    aborts, and ``cluster_status``'s ``qos`` section records the
+    re-role."""
+    import random
+    import threading
+
+    from parallax_tpu_torch.backend.run import SwarmClient
+    from parallax_tpu_torch.backend.scheduler_service import SchedulerService
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.p2p import proto
+    from parallax_tpu_torch.p2p.transport import TcpTransport
+    from parallax_tpu_torch.qos import parse_qos_spec
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+    from parallax_tpu_torch.scheduling.scheduler import GlobalScheduler
+    from parallax_tpu_torch.testing.chaos import ChaosController
+
+    chaos = ChaosController(seed=7)
+    qos = parse_qos_spec(QOS_AUTOSCALE_SPEC)
+    sched = GlobalScheduler(cfg, min_nodes_bootstrapping=3,
+                            routing="cache_aware", qos=qos)
+    sched.allocator.should_global_rebalance = (
+        lambda active, cv_threshold=0.5: False)
+    service = SchedulerService(
+        sched, chaos.wrap(TcpTransport("scheduler", "127.0.0.1")),
+        join_timeout_s=SWARM_TIMEOUT_S)
+    roles = ["prefill", "decode", "decode"]
+    workers = []
+    rng = random.Random(99)
+    try:
+        service.start()
+        workers = [_disagg_worker(cfg, params, dev,
+                                  service.transport.address, role, chaos,
+                                  heartbeat_s=0.25, qos="on",
+                                  host_cache_bytes=QOS_SWARM_HOST_BYTES)
+                   for role in roles]
+        threads = [threading.Thread(target=w.start, daemon=True)
+                   for w in workers]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SWARM_TIMEOUT_S)
+        deadline = time.monotonic() + SWARM_TIMEOUT_S
+        _wait_for(lambda: len(sched.manager.pipelines) == 3 and all(
+            x[2] for x in _sched_nodes(sched.cluster_status())),
+            deadline, "no three ready pipelines", "qos_serve (c)")
+        engines = [w.engine for w in workers]
+        # The first QOS_KV_DROPS KV frames are lost, so their transfers
+        # fail over to the checkpoint-only rung; every other one pays 5 ms
+        # (a frame takes the first rule that matches it).
+        drops = chaos.drop_frames(method=proto.KV_TRANSFER,
+                                  limit=QOS_KV_DROPS)
+        chaos.delay_frames(0.005, method=proto.KV_TRANSFER)
+        client = SwarmClient(service.transport, service)
+        ck.reset_launches()
+
+        def request(rid, n_prompt, new, seed=None):
+            return Request(
+                rid, prompt_ids=[rng.randrange(1, cfg.vocab_size)
+                                 for _ in range(n_prompt)],
+                qos_class="interactive",
+                sampling_params=SamplingParams(
+                    temperature=0.0 if seed is None else 0.8,
+                    top_k=0 if seed is None else 20, seed=seed,
+                    max_new_tokens=new, ignore_eos=True))
+
+        def submit(r):
+            r.routing_table = client.route(r.request_id,
+                                           prompt_ids=r.prompt_ids,
+                                           qos_class=r.qos_class)
+            if not r.routing_table:
+                raise AssertionError(f"qos_serve (c): no route for "
+                                     f"{r.request_id}")
+            return client.submit(r)
+
+        chatty, events = [], []
+        for i in range(2):
+            r = request(f"chat{i}", 200, QOS_CHATTY_NEW,
+                        seed=(None, 71)[i])
+            chatty.append(r)
+            events.append(submit(r))
+            _wait_for(lambda i=i: sum(
+                w.handoff_stats.handoffs.get("kv_image", 0)
+                + w.handoff_stats.handoffs.get("reprefill", 0)
+                for w in workers[1:]) >= i + 1,
+                time.monotonic() + SWARM_TIMEOUT_S,
+                f"chat{i} never handed off", "qos_serve (c)")
+        loads = sorted(w.engine.scheduler.num_requests()
+                       for w in workers[1:])
+        if loads != [1, 1]:
+            raise AssertionError(f"qos_serve (c): decode loads {loads}")
+        burst, burst_events, flood_error = [], [], []
+        stop_burst = threading.Event()
+
+        def flood():
+            try:
+                while not stop_burst.is_set() and len(burst) < QOS_BURST_MAX:
+                    r = request(f"burst{len(burst)}", QOS_BURST_IDS, 1)
+                    burst_events.append(submit(r))
+                    burst.append(r)
+            except Exception as e:   # re-raised on the phase's thread
+                flood_error.append(e)
+
+        t_burst = time.monotonic()
+        flooder = threading.Thread(target=flood, daemon=True)
+        flooder.start()
+        peak = {}
+
+        def rerole() -> bool:
+            from parallax_tpu_torch.qos.autoscaler import pool_report
+
+            for role, pool in pool_report(sched.manager.pipelines).items():
+                peak[role] = max(peak.get(role, 0.0), pool["utilization"])
+            return sched.autoscaler.stats["reroles"] >= 1 or bool(
+                flood_error)
+
+        try:
+            deadline = time.monotonic() + 60.0
+            while not rerole():
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"qos_serve (c): no re-role: peak utilization "
+                        f"{peak}, {len(burst)} prompts, autoscaler "
+                        f"{sched.autoscaler.stats}, config "
+                        f"{sched.autoscaler.config}")
+                time.sleep(0.05)
+        finally:
+            stop_burst.set()
+            flooder.join(SWARM_TIMEOUT_S)
+        if flood_error:
+            raise flood_error[0]
+        t_rerole = time.monotonic()
+        events += burst_events
+        _wait_for(lambda: sum(w.role == "prefill" for w in workers) == 2,
+                  time.monotonic() + 60.0, "the role never reached the "
+                  "worker", "qos_serve (c)")
+        t_adopt = time.monotonic()
+        moved = next(w for w in workers[1:] if w.role == "prefill")
+        _wait_for(lambda: moved.engine.scheduler.num_requests() == 0,
+                  time.monotonic() + SWARM_TIMEOUT_S,
+                  "the re-roled worker never drained", "qos_serve (c)")
+        t_drained = time.monotonic()
+        for r, ev in zip(chatty + burst, events):
+            if not ev.wait(SWARM_TIMEOUT_S):
+                raise AssertionError(f"qos_serve (c) {r.request_id}: "
+                                     f"{r.status.value}")
+        reqs = chatty + burst
+        bad = [(r.request_id, r.status.value, len(r.output_ids))
+               for r in reqs if r.status.value != "finished_length"
+               or len(r.output_ids) != r.sampling_params.max_new_tokens]
+        if bad:
+            raise AssertionError(f"qos_serve (c): {bad}")
+        if [w.engine for w in workers] != engines:
+            raise AssertionError("qos_serve (c): a worker reloaded")
+        fallbacks = sum(w.handoff_stats.fallbacks.get("transfer_failed", 0)
+                        for w in workers)
+        if drops.hits != QOS_KV_DROPS or fallbacks < 1:
+            raise AssertionError(f"qos_serve (c): {drops.hits} KV frames "
+                                 f"dropped, {fallbacks} transfers failed "
+                                 f"over")
+        status = sched.cluster_status()
+        auto = status["qos"]["autoscaler"]
+        if auto["reroles"] != 1 or auto["last_action"]["direction"] != \
+                "decode->prefill" or sorted(
+                    p["role"] for p in status["pipelines"]) != [
+                        "decode", "prefill", "prefill"]:
+            raise AssertionError(f"qos_serve (c): {status['qos']}")
+        launches = ck.launches()
+        for k in ("kv_append", "gqa_prefill", "gqa_decode"):
+            if launches[k] <= 0:
+                raise AssertionError(f"qos_serve (c): no {k} launch")
+        out = {
+            "phase": "qos_serve", "part": "c",
+            "workers": "prefill + 2 decode, 28 layers each, shared weights",
+            "qos_spec": QOS_AUTOSCALE_SPEC,
+            "requests": len(reqs), "aborts": 0,
+            "chatty": f"2 x {QOS_CHATTY_NEW} new",
+            "burst": f"{len(burst)} prompts x {QOS_BURST_IDS} ids, 1 new",
+            "rerole_s_after_burst": t_rerole - t_burst,
+            "adopted_s_after_rerole": t_adopt - t_rerole,
+            "drained_s_after_adopt": t_drained - t_adopt,
+            "autoscaler": auto, "admission": status["qos"]["admission"],
+            "chaos": dict(chaos.stats), "kv_frames_dropped": drops.hits,
+            "handoffs": [w.handoff_stats.snapshot() for w in workers],
+            "launches": launches, "card": card,
+        }
+    finally:
+        for w in workers:
+            w.stop()
+            w.engine = None
+        service.stop()
+    emit(out)
+
+
+def phase_qos_serve(torch, dev, card, cfg, params) -> None:
+    """qos_serve's library run (a) and swarm (c) on serve's tree; (b) runs
+    with http_serve's checkpoint (``qos_http``)."""
+    t0 = time.monotonic()
+    qos_library(torch, dev, card, cfg, params)
+    qos_swarm(torch, dev, card, cfg, params)
+    free_device_memory(torch)
+    emit({"phase": "qos_serve", "parts": "a, c",
+          "seconds": time.monotonic() - t0, "card": card})
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _qos_call(port: int, path: str, body: dict | None = None,
+              headers: dict | None = None, method: str = "POST"):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        t = time.perf_counter()
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, data, (time.perf_counter() - t) * 1e3
+    finally:
+        conn.close()
+
+
+def qos_http(torch, dev, card, ckpt: str) -> None:
+    """(b): two ``serve --qos on`` processes on the card (each its own KV
+    fraction) and ``python -m parallax_tpu_torch.router.lb --strategy
+    session_affinity`` in front. A bad ``x-parallax-deadline-ms`` answers
+    400 through the router; a session key stays on its replica; both
+    replicas' EMAs show in ``/router/status``; the router's added ms a
+    request (the same request direct and through it, alternating); then
+    one replica is killed and, once the probe has seen it, every request
+    (a stream too) answers 200 from the other."""
+    import os
+    import signal
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo}
+    ports = [_free_port() for _ in range(3)]
+    logs = [tempfile.NamedTemporaryFile("w+", suffix=".log", delete=False)
+            for _ in range(3)]
+    procs = []
+    body = {"prompt": "Tell me about the sea", "max_tokens": 16,
+            "temperature": 0, "ignore_eos": True}
+    t0 = time.monotonic()
+    try:
+        for port, log in zip(ports[:2], logs):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "parallax_tpu_torch", "serve",
+                 "--model-path", ckpt, "--device", str(dev), "--host",
+                 "127.0.0.1", "--port", str(port), "--qos", "on",
+                 "--kv-utilization", str(QOS_KV_FRACTION),
+                 "--max-batch-size", "7", "--page-size", "64",
+                 "--max-model-len", "1024"],
+                cwd=repo, env=env, stdout=log, stderr=subprocess.STDOUT))
+        urls = [f"http://127.0.0.1:{p}" for p in ports[:2]]
+        deadline = time.monotonic() + HTTP_TIMEOUT_S
+
+        def replicas_up():
+            if any(p.poll() is not None for p in procs):
+                raise AssertionError("qos_serve (b): a replica exited")
+            try:
+                return all(_qos_call(p, "/cluster/status_json",
+                                     method="GET")[0] == 200
+                           for p in ports[:2])
+            except OSError:
+                return False
+
+        # The router probes at its start and then every 10 s (its
+        # default): started once both replicas answer, its first probe
+        # sees them.
+        _wait_for(replicas_up, deadline, "the replicas never came up",
+                  "qos_serve (b)")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "parallax_tpu_torch.router.lb",
+             "--endpoints", *urls, "--strategy", "session_affinity",
+             "--host", "127.0.0.1", "--port", str(ports[2])],
+            cwd=repo, env=env, stdout=logs[2], stderr=subprocess.STDOUT))
+        router = ports[2]
+
+        def router_status():
+            try:
+                status, data, _ms = _qos_call(router, "/router/status",
+                                              method="GET")
+            except OSError:
+                return None
+            return json.loads(data) if status == 200 else None
+
+        def healthy():
+            if any(p.poll() is not None for p in procs):
+                raise AssertionError("qos_serve (b): a process exited")
+            st = router_status()
+            return st is not None and sum(
+                e["healthy"] for e in st["endpoints"]) == 2
+
+        _wait_for(healthy, deadline, "the replicas never turned healthy",
+                  "qos_serve (b)")
+        startup_s = time.monotonic() - t0
+        status, data, _ = _qos_call(router, "/v1/completions", body,
+                                    {"x-parallax-deadline-ms": "soon"})
+        if status != 400 or b"invalid QoS parameter" not in data:
+            raise AssertionError(f"qos_serve (b): bad deadline {status} "
+                                 f"{data[:200]!r}")
+
+        def served_by():
+            st = router_status()
+            return {e["url"]: e["total_requests"] for e in st["endpoints"]}
+
+        before = served_by()
+        for _ in range(4):
+            status, _, _ = _qos_call(router, "/v1/completions", body,
+                                     {"x-session-id": "alice",
+                                      "x-parallax-qos-class":
+                                      "interactive"})
+            if status != 200:
+                raise AssertionError(f"qos_serve (b): {status}")
+        after = served_by()
+        moved = sorted(after[u] - before[u] for u in urls)
+        if moved != [0, 4]:
+            raise AssertionError(f"qos_serve (b): alice spread {moved}")
+        pinned = next(u for u in urls if after[u] - before[u] == 4)
+        keys = [f"user-{i}" for i in range(12)]
+        for key in keys:
+            status, _, _ = _qos_call(router, "/v1/completions", body,
+                                     {"x-session-id": key,
+                                      "x-parallax-qos-class": "batch"})
+            if status != 200:
+                raise AssertionError(f"qos_serve (b): {key} {status}")
+        st = router_status()
+        if not all(e["ema_tpot_s"] is not None and e["total_requests"] > 0
+                   for e in st["endpoints"]):
+            raise AssertionError(f"qos_serve (b): {st}")
+        # The router's added ms: alice's request direct to her replica and
+        # through the router, alternating.
+        pin_port = ports[urls.index(pinned)]
+        direct, via = [], []
+        for _ in range(6):
+            direct.append(_qos_call(pin_port, "/v1/completions", body)[2])
+            via.append(_qos_call(router, "/v1/completions", body,
+                                 {"x-session-id": "alice"})[2])
+        # Kill the replica alice is pinned to, hard.
+        victim = urls.index(pinned)
+        procs[victim].send_signal(signal.SIGKILL)
+        procs[victim].wait(30)
+        t_kill = time.monotonic()
+        _wait_for(lambda: not next(
+            e for e in router_status()["endpoints"]
+            if e["url"] == pinned)["healthy"],
+            time.monotonic() + 30.0, "the probe never saw the kill",
+            "qos_serve (b)")
+        seen_s = time.monotonic() - t_kill
+        codes = [_qos_call(router, "/v1/completions", body,
+                           {"x-session-id": key})[0]
+                 for key in ["alice"] + keys]
+        stream = _qos_call(router, "/v1/completions",
+                           dict(body, stream=True),
+                           {"x-session-id": "alice"})
+        if codes != [200] * len(codes) or stream[0] != 200 \
+                or b"[DONE]" not in stream[1]:
+            raise AssertionError(f"qos_serve (b): after the kill {codes}, "
+                                 f"stream {stream[0]}")
+        out = {"phase": "qos_serve", "part": "b",
+               "replicas": 2, "kv_fraction": QOS_KV_FRACTION,
+               "startup_s": startup_s, "bad_deadline": 400,
+               "session_alice_on_one_replica": True,
+               "requests_per_replica": served_by(),
+               "router_status": st["endpoints"],
+               "direct_ms_median": statistics.median(direct),
+               "via_router_ms_median": statistics.median(via),
+               "router_added_ms_median": statistics.median(
+                   [v - d for v, d in zip(via, direct)]),
+               "probe_saw_kill_s": seen_s,
+               "after_kill": {"requests": len(codes), "non_200": 0,
+                              "stream": 200},
+               "card": card}
+    except Exception:
+        for log in logs:
+            log.seek(0)
+            tail = log.read()[-3000:]
+            print(f"qos_serve (b) log {log.name}:\n{tail}", file=sys.stderr)
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs:
+            try:
+                p.wait(SWARM_EXIT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(30)
+        for log in logs:
+            log.close()
+            os.unlink(log.name)
+    emit(out)
 
 
 def run_dense(torch, dev, card: str, want) -> dict:
@@ -8688,14 +9397,17 @@ def run_dense(torch, dev, card: str, want) -> dict:
     if want("disagg_serve"):
         phase_disagg_serve(torch, dev, card, cfg, model_full, params)
         free_device_memory(torch)
+    if want("qos_serve"):
+        phase_qos_serve(torch, dev, card, cfg, params)
     if any(want(p) for p in ("http_serve", "swarm_serve", "sched_serve",
-                             "ha_serve", "relay_serve", "obs_serve")):
+                             "ha_serve", "relay_serve", "obs_serve",
+                             "qos_serve")):
         tree = [params]
         del params
         phase_http_serve(torch, dev, card, cfg, tree,
                          swarm=want("swarm_serve"), sched=want("sched_serve"),
                          ha=want("ha_serve"), relay=want("relay_serve"),
-                         obs=want("obs_serve"))
+                         obs=want("obs_serve"), qos=want("qos_serve"))
     return paths
 
 
@@ -8725,8 +9437,9 @@ def main() -> int:
                          "pipeline,profile,native,spec_serve,pp_spec,"
                          "features_serve,preempt_serve,"
                          "migrate_serve,disagg_serve,http_serve,"
-                         "swarm_serve, sched_serve, ha_serve, relay_serve "
-                         "and obs_serve (each runs http_serve too),"
+                         "swarm_serve, sched_serve, ha_serve, relay_serve, "
+                         "obs_serve and qos_serve (each runs http_serve "
+                         "too),"
                          "moe_serve,"
                          "moe_profile,"
                          "mla_serve,mla_profile,dsa_serve,dsa_profile,"

@@ -19,7 +19,10 @@ and not). A request asking for a feature the engine's ``submit`` refuses
 answers 501 "not ported yet". ``/cluster/status`` (an ndjson stream) and
 ``/cluster/status_json`` serve the ``status_fn`` (``{}`` without one): the
 ``run`` frontend's scheduler ``cluster_status()``, ``serve``'s
-single-host status.
+single-host status. With a ``qos_config`` (``serve`` / ``run --qos``) each
+request carries a QoS class, deadline and tenant from the
+``x-parallax-qos-class`` / ``x-parallax-deadline-ms`` /
+``x-parallax-tenant`` headers or their body fields (400 on a bad value).
 
 The observability plane, as the JAX frontend serves it: ``/metrics`` (the
 process registry in the Prometheus text format), ``/healthz`` (the stall
@@ -336,10 +339,10 @@ class OpenAIFrontend:
     ``submit_fn(request) -> threading.Event`` hands a request to the
     backend (the event is set when it finishes) and raises ValueError (400),
     NotImplementedError (501: a feature the engine refuses) or RuntimeError
-    (429: queue full). ``route_fn(rid, prompt_ids=, lora_id=) -> list[str]
-    | None``, where given, picks the request's routing table first from
-    the request's prompt ids and ``lora_id`` (its ``RequestMeta``, for
-    cache-aware routing; None: 503, no serviceable pipeline; a swarm's chat
+    (429: queue full). ``route_fn(rid, prompt_ids=, lora_id=, tenant_id=,
+    qos_class=) -> list[str] | None``, where given, picks the request's
+    routing table first from the request's prompt ids, ``lora_id``, tenant
+    and class (its ``RequestMeta``, for cache-aware and fair routing; None: 503, no serviceable pipeline; a swarm's chat
     host probes its head there), and a NotImplementedError from it answers
     501. ``stop_fn(rid)`` asks the
     backend to gracefully finish a request early (stop-string match,
@@ -355,7 +358,14 @@ class OpenAIFrontend:
     ``profile_cluster_fn(action, pipeline, dir, max_seconds) -> manifest``
     fans a profile to a pipeline's stages, and ``step_call(fn)`` runs
     ``fn`` on the thread that steps the device and returns its result
-    (None runs it on the handler thread: a frontend with no device)."""
+    (None runs it on the handler thread: a frontend with no device).
+    ``qos_config`` (a ``qos/classes.QoSConfig``) makes requests carry a
+    class (header ``x-parallax-qos-class`` / body ``qos_class``), a
+    deadline (``x-parallax-deadline-ms`` / ``deadline_ms``) and a tenant
+    (``x-parallax-tenant`` / ``tenant``; the LoRA adapter by default); a
+    bad value answers 400, and ``route_fn`` gets the tenant and class.
+    None = QoS off: nothing is parsed, and ``route_fn`` gets None for
+    both."""
 
     def __init__(
         self,
@@ -373,10 +383,12 @@ class OpenAIFrontend:
         device_fn=None,
         profile_cluster_fn=None,
         step_call=None,
+        qos_config=None,
     ):
         self.tokenizer = tokenizer
         self.submit_fn = submit_fn
         self.route_fn = route_fn
+        self.qos_config = qos_config
         self.stop_fn = stop_fn
         self.status_fn = status_fn
         self.scheduler_init_fn = scheduler_init_fn
@@ -844,10 +856,24 @@ class OpenAIFrontend:
             raise _Reply(400, "streaming with n > 1 is not supported")
         routing_table: list[str] = []
         lora_id = self._request_lora(body)
+        # Multi-tenant QoS: class / deadline / tenant from headers and
+        # body. All None while QoS is off.
+        qos = (None, None, None)
+        if self.qos_config is not None:
+            from parallax_tpu_torch.qos import qos_from_http
+
+            try:
+                qos_class, deadline_ms, tenant_id = qos_from_http(
+                    h.headers, body, self.qos_config)
+            except (TypeError, ValueError) as e:
+                raise _Reply(400, f"invalid QoS parameter: {e}") from e
+            qos = (qos_class, time.monotonic() + deadline_ms / 1e3,
+                   tenant_id if tenant_id is not None else lora_id)
         if self.route_fn is not None:
             try:
                 path = self.route_fn(rid, prompt_ids=list(prompt_ids),
-                                     lora_id=lora_id)
+                                     lora_id=lora_id, tenant_id=qos[2],
+                                     qos_class=qos[0])
             except NotImplementedError as e:
                 raise _Reply(501, str(e)) from e
             if path is None:
@@ -855,7 +881,7 @@ class OpenAIFrontend:
             routing_table = list(path)
         if n_choices > 1:
             self._generate_n(h, rid, body, prompt_ids, sampling_params,
-                             routing_table, chat, n_choices)
+                             routing_table, chat, n_choices, qos)
             return
 
         req = Request(
@@ -865,6 +891,9 @@ class OpenAIFrontend:
             routing_table=routing_table,
             eos_token_ids=tuple(self.tokenizer.eos_token_ids),
             lora_id=lora_id,
+            qos_class=qos[0],
+            deadline=qos[1],
+            tenant_id=qos[2],
         )
         t_start = time.monotonic()
         done = self._submit(req)
@@ -910,7 +939,8 @@ class OpenAIFrontend:
             raise _Reply(429, str(e)) from e
 
     def _generate_n(self, h, rid, body, prompt_ids, sampling_params,
-                    routing_table, chat, n_choices) -> None:
+                    routing_table, chat, n_choices,
+                    qos=(None, None, None)) -> None:
         """OpenAI ``n`` > 1: n independent generations merged into one
         choices array. Seeded requests get seed+i per choice so the choices
         differ; greedy requests will legitimately all match."""
@@ -927,6 +957,9 @@ class OpenAIFrontend:
                     routing_table=list(routing_table),
                     eos_token_ids=tuple(self.tokenizer.eos_token_ids),
                     lora_id=self._request_lora(body),
+                    qos_class=qos[0],
+                    deadline=qos[1],
+                    tenant_id=qos[2],
                 )
                 dones.append(self._submit(req))
                 self._count_accept(req)

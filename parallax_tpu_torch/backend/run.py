@@ -32,8 +32,12 @@ serves the JAX ``run``'s observability hooks: ``--slo`` objectives in
 ``/cluster/status``, the cluster ``/debug/timeline``, a deep ``/healthz``
 over the workers' watchdogs, ``/debug/device`` as the cluster merge plus
 each node's payload, and ``/profile/start|stop`` with a ``pipeline`` body
-fanned out to every stage over the ``PROFILE`` RPC. QoS is refused by name
-(item 9). The poll loop
+fanned out to every stage over the ``PROFILE`` RPC. ``--qos`` runs the
+cluster QoS plane (the admission controller's ``qos_shed`` verdict, the
+pool autoscaler with ``autoscale=1``, the class headers at the frontend,
+class, tenant and remaining deadline through the route RPC and the head
+submit), and ``--routing-gamma`` the cache-aware router's per-tenant
+fairness term. The poll loop
 follows a live migration (``{"migrated": head}`` from the old head, or the
 scheduler's ``where_is``) and resumes a request whose path died after it
 streamed tokens by resubmitting those tokens as ``replay_ids``, as the JAX
@@ -117,7 +121,9 @@ class SwarmClient:
 
     def route(self, request_id: str,
               prompt_ids: list[int] | None = None,
-              lora_id: str | None = None) -> list[str] | None:
+              lora_id: str | None = None,
+              tenant_id: str | None = None,
+              qos_class: str | None = None) -> list[str] | None:
         """The request's node path; None when no pipeline is serviceable
         (the frontend's retryable 503)."""
         if self.service is None and self.sched_transport is None:
@@ -135,7 +141,8 @@ class SwarmClient:
         if lora_id is not None:
             raise unported("LoRA requests (lora_id)", 11)
         self._arrivals[request_id] = time.monotonic()
-        path = self._route_any(request_id, prompt_ids=prompt_ids)
+        path = self._route_any(request_id, prompt_ids=prompt_ids,
+                               tenant_id=tenant_id, qos_class=qos_class)
         if not path:
             # No submit will follow to retire the entry via _poll_loop.
             self._arrivals.pop(request_id, None)
@@ -143,13 +150,16 @@ class SwarmClient:
 
     def _route_any(self, request_id: str,
                    prompt_ids: list[int] | None = None,
-                   arrival_time: float | None = None) -> list[str] | None:
+                   arrival_time: float | None = None,
+                   tenant_id: str | None = None,
+                   qos_class: str | None = None) -> list[str] | None:
         """Route in-process while the local scheduler is primary, over RPC
         against the failover rotation otherwise (docs/ha.md)."""
         if self._local_primary():
             return self.service.route_request(
                 request_id, timeout_s=10.0, prompt_ids=prompt_ids,
-                arrival_time=arrival_time,
+                arrival_time=arrival_time, tenant_id=tenant_id,
+                qos_class=qos_class,
             )
         if self.sched_transport is None:
             return None
@@ -163,8 +173,8 @@ class SwarmClient:
                     "rid": request_id,
                     "prompt_ids": prompt_ids,
                     "lora_id": None,
-                    "tenant_id": None,
-                    "qos_class": None,
+                    "tenant_id": tenant_id,
+                    "qos_class": qos_class,
                     # Monotonic clocks do not survive the process hop:
                     # ship the AGE so the scheduler re-anchors arrival.
                     "arrival_age_ms": age_ms,
@@ -210,7 +220,23 @@ class SwarmClient:
             "routing_table": list(path),
             "eos_token_ids": list(request.eos_token_ids),
             "lora_id": request.lora_id,
+            **SwarmClient._qos_payload(request),
         }
+
+    @staticmethod
+    def _qos_payload(request: Request) -> dict:
+        """QoS context for a head submit: class and tenant verbatim, the
+        deadline as a REMAINING budget (absolute monotonic values do not
+        survive the process hop). Empty for untagged requests."""
+        out: dict = {}
+        if request.qos_class is not None:
+            out["qos_class"] = request.qos_class
+        if request.deadline is not None:
+            out["deadline_ms"] = max(
+                0.0, (request.deadline - time.monotonic()) * 1e3)
+        if request.tenant_id is not None:
+            out["tenant"] = request.tenant_id
+        return out
 
     def submit(self, request: Request) -> threading.Event:
         if request.routing_table:
@@ -291,7 +317,9 @@ class SwarmClient:
         self._release_path(list(request.routing_table))
         try:
             path = self._route_any(rid, prompt_ids=list(request.prompt_ids),
-                                   arrival_time=self._arrivals.get(rid))
+                                   arrival_time=self._arrivals.get(rid),
+                                   tenant_id=request.tenant_id,
+                                   qos_class=request.qos_class)
         except Exception:
             logger.exception("re-route for %s failed", rid)
             path = None
@@ -438,6 +466,7 @@ def build_swarm_frontend(
     resolve_model=None,
     tokenizer_fn=None,
     device_memory_bytes: int | None = None,
+    qos_config=None,
 ) -> tuple[OpenAIFrontend, SchedulerService, SwarmClient]:
     """The scheduler host's frontend: the RPC service over ``transport``
     and the OpenAI API routing through it, with ``/cluster/status_json``
@@ -448,7 +477,8 @@ def build_swarm_frontend(
     RPC to the promoted peer instead of 503ing the frontend. With
     ``resolve_model(name) -> ModelConfig`` the frontend serves
     ``/scheduler/init`` (:func:`make_scheduler_init_fn`), its tokenizer
-    following ``tokenizer_fn(name)``."""
+    following ``tokenizer_fn(name)``. ``qos_config`` makes the frontend
+    parse the QoS headers and body fields."""
     service = SchedulerService(scheduler, transport,
                                standby_addrs=standby_addrs)
     client = SwarmClient(transport, service,
@@ -565,6 +595,7 @@ def build_swarm_frontend(
         timeline_fn=timeline,
         device_fn=device,
         profile_cluster_fn=profile_cluster,
+        qos_config=qos_config,
     )
     if resolve_model is not None:
         frontend.scheduler_init_fn = make_scheduler_init_fn(
@@ -597,6 +628,8 @@ def make_scheduler_init_fn(service: SchedulerService, resolve_model,
                 model, min_nodes_bootstrapping=init_nodes_num,
                 routing=old.routing_name,
                 routing_kwargs=old.routing_kwargs,
+                # The QoS classes and autoscaler are service policy too.
+                qos=old.qos_config,
             )
             # The SLO objectives and their burn-rate history belong to the
             # service, not the model: they survive a switch.
@@ -731,10 +764,17 @@ def run_main(args, on_start=None) -> int:
         # Fails fast on a malformed spec: a mistyped objective must not
         # silently track nothing.
         slo_config = parse_slo_spec(args.slo, window_s=args.slo_window_s)
+    qos_config = None
+    if args.qos:
+        from parallax_tpu_torch.qos import parse_qos_spec
+
+        # Fails fast on a malformed spec, like --slo.
+        qos_config = parse_qos_spec(args.qos)
     scheduler = GlobalScheduler(
         model, min_nodes_bootstrapping=args.min_nodes,
         routing=args.routing, routing_kwargs=routing_kwargs,
         slo=slo_config,
+        qos=qos_config,
         passive=bool(standby_of),
     )
     # The scheduler's transport is the swarm's relay for NAT'd workers.
@@ -747,6 +787,7 @@ def run_main(args, on_start=None) -> int:
         resolve_model=resolve_model,
         tokenizer_fn=lambda name: load_tokenizer(
             name if os.path.isdir(name) else None),
+        qos_config=qos_config,
     )
     standby_ctl = None
     if standby_addrs and not standby_of:

@@ -15,7 +15,10 @@ serves the single-host status (device plane, merged histograms, goodput,
 per-stage timing / cache / kernel / spec / constrained, the watchdog and
 the SLO tracker), ``watchdog`` runs the stall watchdog over the runner loop
 and each stage's admission queue (deep ``/healthz``), and a local timeline
-serves ``/debug/timeline``.
+serves ``/debug/timeline``. ``--qos`` is the JAX serve's too: the engine's
+local scheduler runs the QoS policy, the frontend reads the class,
+deadline and tenant headers, and the status carries the head's ``qos``
+payload.
 """
 
 from __future__ import annotations
@@ -160,6 +163,7 @@ def build_local_frontend(
     model_name: str = "parallax-tpu",
     watchdog: bool = False,
     slo_config=None,
+    qos_config=None,
 ) -> tuple[OpenAIFrontend, LocalRunner]:
     """The frontend and a started runner over ``engines`` (a pipeline in
     stage order), with the tokenizer's grammar vocabulary wired into the
@@ -168,8 +172,9 @@ def build_local_frontend(
     the runner thread touches CUDA once it runs). ``watchdog=True`` runs
     the stall watchdog over the runner loop and each stage's admission
     queue (deep ``/healthz``); ``slo_config`` (obs/slo.py ``SLOConfig``)
-    adds windowed SLO attainment and burn rates to the status. QoS waits
-    for its slice."""
+    adds windowed SLO attainment and burn rates to the status;
+    ``qos_config`` (``qos/classes.QoSConfig``) makes the frontend parse
+    the QoS headers and body fields."""
     device = engines[0].device
     device_memory_bytes = (
         torch.cuda.get_device_properties(device).total_memory
@@ -258,6 +263,10 @@ def build_local_frontend(
                 "finished": req.get("finished") or 0,
                 "aborted": req.get("aborted") or 0,
             })
+        # The head stage's class table, shed / burn state and counters.
+        head_qos = engines[0].scheduler.qos
+        if head_qos is not None:
+            out["qos"] = head_qos.payload()
         return out
 
     from parallax_tpu_torch.obs.timeline import LocalTimeline
@@ -279,6 +288,7 @@ def build_local_frontend(
         healthz_fn=(wd.summary if wd is not None else None),
         timeline_fn=timeline,
         step_call=runner.call,
+        qos_config=qos_config,
     )
     frontend.watchdog = wd
     return frontend, runner
@@ -304,6 +314,17 @@ def serve_main(args, on_start=None) -> int:
     )
     from parallax_tpu_torch.utils.tokenizer import load_tokenizer
 
+    qos_config = None
+    if args.qos:
+        from parallax_tpu_torch.qos import parse_qos_spec
+
+        # A malformed spec fails here, before the weights load.
+        qos_config = parse_qos_spec(args.qos)
+        if qos_config is not None and qos_config.autoscale:
+            logger.warning(
+                "qos autoscaler disabled: single-host serving has no "
+                "phase pools to re-role (run a swarm scheduler with "
+                "--qos ...,autoscale=1 for pool autoscaling)")
     device = resolve_device(args.device)
     config = load_config(args.model_path)
     n = config.num_hidden_layers
@@ -395,6 +416,9 @@ def serve_main(args, on_start=None) -> int:
             speculative_tokens=resolve_speculative_tokens(
                 args.speculative_tokens, has_draft=draft is not None),
             speculative_ngram=args.speculative_ngram or 3,
+            # Classes, deadline EDF and shed / park on the local
+            # scheduler; None / "off" wires no policy.
+            qos=args.qos,
         ),
         device=device,
         draft=draft,
@@ -410,6 +434,7 @@ def serve_main(args, on_start=None) -> int:
     frontend, runner = build_local_frontend(
         [engine], tokenizer, model_name=args.model_path,
         watchdog=bool(args.watchdog), slo_config=slo_config,
+        qos_config=qos_config,
     )
 
     def started(fe: OpenAIFrontend) -> None:

@@ -204,20 +204,6 @@ def _add_run_flags(run: argparse.ArgumentParser) -> None:
     )
 
 
-def unported_run_flags(args) -> list[tuple[str, int | str]]:
-    """``run``'s flags whose feature the port does not run yet, each with
-    the ROADMAP queue 1 item that ports it."""
-    refused = []
-    for on, flag, item in (
-        (args.routing_gamma > 0, f"--routing-gamma {args.routing_gamma}",
-         9),
-        (args.qos is not None, "--qos", 9),
-    ):
-        if on:
-            refused.append((flag, item))
-    return refused
-
-
 def _add_join_flags(join: argparse.ArgumentParser) -> None:
     """The JAX ``join``'s flags, plus ``--device``."""
     join.add_argument("--scheduler-addr", default=None,
@@ -324,7 +310,6 @@ def unported_join_flags(args) -> list[tuple[str, int | str]]:
         (args.wire_dtype in ("fp8", "float8_e4m3fn"),
          f"--wire-dtype {args.wire_dtype}", 11),
         (args.sp_size > 1, f"--sp-size {args.sp_size}", 10),
-        (args.qos is not None, "--qos", 9),
     ):
         if on:
             refused.append((flag, item))
@@ -336,9 +321,7 @@ def unported_flags(args) -> list[tuple[str, int | str]]:
     with the ROADMAP queue 1 item that ports it."""
     if args.command == "join":
         return unported_join_flags(args)
-    if args.command == "run":
-        return unported_run_flags(args)
-    if args.command in ("chat", "chat-host"):
+    if args.command in ("run", "chat", "chat-host"):
         return []
     refused = []
 
@@ -363,7 +346,6 @@ def unported_flags(args) -> list[tuple[str, int | str]]:
     refuse(args.lora_max_adapters > 0, "--lora-max-adapters", 11)
     refuse(args.wire_dtype in ("fp8", "float8_e4m3fn"),
            f"--wire-dtype {args.wire_dtype}", 11)
-    refuse(args.qos is not None, "--qos", 9)
     return refused
 
 

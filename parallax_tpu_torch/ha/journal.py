@@ -14,10 +14,10 @@ gains two serializations:
   flows through the single :meth:`StateJournal.record` choke-point.
 
 The snapshot has the JAX package's keys and version, so a snapshot or a
-journal crosses between the packages either way. The port runs no QoS
-yet (ROADMAP queue 1 item 9): its snapshot writes ``"qos": None``, as a
-JAX scheduler without QoS does, and a snapshot carrying QoS state is
-refused by name. The cluster timeline's merge cursors ride the snapshot
+journal crosses between the packages either way. The ``qos`` section
+carries the cluster admission controller's shed state and last burn rate
+(None with QoS off), and a promoted standby running QoS adopts it. The
+cluster timeline's merge cursors ride the snapshot
 as in the JAX package, so a promoted standby dedupes the heartbeat
 batches its dead primary had ingested. Each record also counts into
 ``parallax_ha_journal_records_total{kind}``.
@@ -40,7 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from parallax_tpu_torch.analysis.sanitizer import make_lock
 from parallax_tpu_torch.obs import names as mnames
-from parallax_tpu_torch.utils import get_logger, unported
+from parallax_tpu_torch.utils import get_logger
 
 logger = get_logger(__name__)
 
@@ -77,6 +77,12 @@ def snapshot_state(scheduler) -> dict:
             "hb_age_s": max(0.0, now - n.last_heartbeat),
             "cache_index": n.cache_index.export(),
         })
+    qos = None
+    if scheduler.qos_controller is not None:
+        qos = {
+            "shedding": scheduler.qos_controller.shedding,
+            "last_burn": scheduler.qos_controller.last_burn,
+        }
     with scheduler._lock:
         migrations = list(scheduler._migrations.items())
         migration_stats = dict(scheduler.migration_stats)
@@ -104,8 +110,7 @@ def snapshot_state(scheduler) -> dict:
         "disagg_stats": disagg_stats,
         "routing_accuracy": routing_accuracy,
         "timeline": scheduler.timeline.export_cursors(),
-        # What a JAX scheduler with no QoS writes.
-        "qos": None,
+        "qos": qos,
     }
 
 
@@ -129,8 +134,6 @@ def restore_state(scheduler, snap: dict) -> None:
             "snapshot is for model %r, scheduler serves %r"
             % (model, scheduler.model.model_name)
         )
-    if snap.get("qos") is not None:
-        raise unported("QoS shed state in an HA snapshot (qos)", 9)
     now = time.monotonic()
     mgr = scheduler.manager
     mgr.standby_all()
@@ -195,6 +198,12 @@ def restore_state(scheduler, snap: dict) -> None:
     scheduler.epoch = max(
         getattr(scheduler, "epoch", 1), int(snap.get("epoch") or 1)
     )
+    qos = snap.get("qos")
+    if qos and scheduler.qos_controller is not None:
+        scheduler.qos_controller.shedding = bool(qos.get("shedding"))
+        scheduler.qos_controller.last_burn = float(
+            qos.get("last_burn") or 0.0
+        )
 
 
 # -- state fingerprints (equivalence proofs) ---------------------------------

@@ -47,6 +47,7 @@ from __future__ import annotations
 import collections
 import threading
 import time
+import weakref
 
 from parallax_tpu_torch.utils import get_logger
 from parallax_tpu_torch.analysis.sanitizer import make_lock
@@ -337,6 +338,30 @@ class HbmLedger:
         return self.snapshot()
 
 
+class _StormWindow:
+    """One owner's storm window for one program family: the times of its
+    counted captures and the keys it has captured."""
+
+    __slots__ = ("times", "seen", "active")
+
+    def __init__(self):
+        self.times: collections.deque = collections.deque(maxlen=256)
+        self.seen: set = set()
+        self.active = False
+
+    def expire(self, now: float, window_s: float) -> int:
+        while self.times and now - self.times[0] > window_s:
+            self.times.popleft()
+        return len(self.times)
+
+
+class _NoOwner:
+    """The owner of compiles reported without one (library builds)."""
+
+
+_NO_OWNER = _NoOwner()
+
+
 class CompileObservatory:
     """Per-program-family compile accounting with cause labels. In
     parallax_tpu_torch a "compile" is a CUDA-graph capture of a decode
@@ -368,11 +393,15 @@ class CompileObservatory:
         self.compiles: dict[tuple, int] = {}
         self.compile_ms: dict[str, float] = {}
         self._live_execs: dict[str, int] = {}
-        self._window: dict[str, collections.deque] = {}
+        # Storm windows per owner and family: one process may hold several
+        # engines (two workers, a target and its draft), each capturing
+        # the same keys; a leak is new keys within ONE engine. Owners are
+        # held weakly, so a freed engine's windows go with it.
+        self._windows: weakref.WeakKeyDictionary = (
+            weakref.WeakKeyDictionary())
         self._window_s = float(storm_window_s)
         self._threshold = int(storm_threshold)
         self.storms: dict[str, int] = {}
-        self._storm_active: dict[str, bool] = {}
         self._probe_progress = 0
         self._registry = registry
         self._c_compiles = None
@@ -451,10 +480,18 @@ class CompileObservatory:
 
     # -- compile events ---------------------------------------------------
 
-    def on_compile(self, duration_s: float) -> None:
+    def on_compile(self, duration_s: float, owner=None,
+                   key=None) -> None:
         """Attribute one compile (a graph capture or a library build,
         reported by the code that ran it). LIFO match: the compile
-        follows the most recently noted program; stale notes expire."""
+        follows the most recently noted program; stale notes expire.
+
+        ``owner`` (the engine that captured: any object that takes a weak
+        reference, held weakly) and ``key`` (what it captured) scope the
+        storm rule: a capture counts against its own engine's window, and
+        a key that engine has captured before does not count again. Two
+        engines capturing the same keys raise no storm; one engine
+        capturing ``storm_threshold`` new keys inside the window does."""
         now = self._clock()
         family, cause = "other", "unknown"
         with self._lock:
@@ -475,15 +512,17 @@ class CompileObservatory:
                 # tables, rng seeding) that are normal, not a leaking
                 # shape lattice. Their drift is still visible as
                 # unexplained_compiles climbing.
-                win = self._window.setdefault(
-                    family, collections.deque(maxlen=256)
-                )
-                win.append(now)
-                while win and now - win[0] > self._window_s:
-                    win.popleft()
-                storm = len(win) >= self._threshold
-                new_storm = storm and not self._storm_active.get(family)
-                self._storm_active[family] = storm
+                win = self._windows.setdefault(
+                    _NO_OWNER if owner is None else owner, {}
+                ).setdefault(family, _StormWindow())
+                if key is None or key not in win.seen:
+                    if key is not None:
+                        win.seen.add(key)
+                    win.times.append(now)
+                in_window = win.expire(now, self._window_s)
+                storm = in_window >= self._threshold
+                new_storm = storm and not win.active
+                win.active = storm
                 if new_storm:
                     self.storms[family] = self.storms.get(family, 0) + 1
         c = self._c_compiles
@@ -498,13 +537,13 @@ class CompileObservatory:
             _flight_event(
                 "recompile_storm",
                 program=family,
-                compiles_in_window=len(win),
+                compiles_in_window=in_window,
                 window_s=self._window_s,
             )
             logger.warning(
                 "recompile storm: %d %r compiles inside %.0fs — the "
                 "shape lattice is leaking",
-                len(win), family, self._window_s,
+                in_window, family, self._window_s,
             )
 
     # -- watchdog probe ---------------------------------------------------
@@ -518,14 +557,13 @@ class CompileObservatory:
         with self._lock:
             pending = 0
             storming = []
-            for fam, win in self._window.items():
-                while win and now - win[0] > self._window_s:
-                    win.popleft()
-                pending += len(win)
-                active = len(win) >= self._threshold
-                self._storm_active[fam] = active
-                if active:
-                    storming.append(fam)
+            for families in list(self._windows.values()):
+                for family, win in families.items():
+                    n = win.expire(now, self._window_s)
+                    pending += n
+                    win.active = n >= self._threshold
+                    if win.active and family not in storming:
+                        storming.append(family)
             if not storming:
                 self._probe_progress += 1
             progress = self._probe_progress

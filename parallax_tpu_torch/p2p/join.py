@@ -25,7 +25,8 @@ Either way it runs on ``--device`` (default ``cuda:0``). Its KV pages come
 from ``EngineConfig.num_pages``, as in the JAX join, so two workers share
 one card. Its host KV tier gets ``--host-cache-bytes``, by default half of
 the host's available RAM on a card and none on the CPU, as the JAX join
-sizes it.
+sizes it. ``--qos on`` (or a ``qos/classes.parse_qos_spec`` spec) runs
+the QoS plane on the worker's local scheduler.
 """
 
 from __future__ import annotations
@@ -132,6 +133,10 @@ def build_worker(args):
             # Observability: trace sampling and the slow-request threshold.
             trace_sample_rate=args.trace_sample_rate or 0.0,
             slow_request_ms=args.slow_request_ms,
+            # Multi-tenant QoS on this worker's local scheduler: deadline
+            # EDF and shed / park enforcement; the cluster controller's
+            # shed verdict arrives in heartbeat replies and ORs with it.
+            qos=getattr(args, "qos", None),
             host_cache_bytes=default_host_cache_bytes(
                 override=args.host_cache_bytes, device=device),
             # Speculative decoding: on a stage of a pipeline the head

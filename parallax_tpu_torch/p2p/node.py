@@ -101,9 +101,16 @@ observatory. The heartbeat thread reads host state and the engine's
 snapshots only; what must touch the device runs on the step thread,
 posted through its inbox (``_call_on_step``).
 
+QoS rides the worker as in the JAX package: QoS-tagged FORWARD packets
+carry the head's class onto mirrors, ``chat_submit`` takes a class, a
+remaining deadline and a tenant, and a heartbeat reply's ``role`` (the
+pool autoscaler's re-role: adopted in place, no reload; a decode ->
+prefill move drains through the handoff on later step-loop passes) and
+``qos_shed`` (the cluster verdict, OR'd into the local controller) set
+host state only.
+
 Not ported yet, each refused by name with its ROADMAP queue 1 item: refit
-(item 12), QoS and the QoS autoscaler's re-role of a node (item 9), LoRA
-(item 11) and tensor parallelism (item 10).
+(item 12), LoRA (item 11) and tensor parallelism (item 10).
 """
 
 from __future__ import annotations
@@ -176,24 +183,16 @@ def _refuse_wire_request(d: dict) -> None:
     """FORWARD packet fields whose features the port does not run yet."""
     if d.get("lora_id") is not None:
         raise unported("LoRA packets", 11)
-    if d.get("qos") is not None:
-        raise unported("QoS-tagged packets", 9)
 
 
-def _refuse_scheduler_reply(reply: dict, own_role: str) -> None:
+def _refuse_scheduler_reply(reply: dict) -> None:
     """Scheduler reply keys whose planes the port does not run yet. Their
-    off values pass (a JAX scheduler always sends ``role`` and
-    ``refit_index``): ``role`` passes when it echoes the worker's own.
-    The HA keys (``epoch``, ``standbys``, ``not_primary``) are the
-    failover wrapper's."""
-    role = reply.get("role")
-    if role is not None and role != own_role:
-        raise unported(f"the QoS autoscaler's re-role {own_role!r} -> "
-                       f"{role!r}", 9)
+    off values pass (a JAX scheduler always sends ``refit_index``). The HA
+    keys (``epoch``, ``standbys``, ``not_primary``) are the failover
+    wrapper's; ``role`` and ``qos_shed`` are the QoS plane's
+    (``WorkerNode._adopt_qos_reply``)."""
     if reply.get("refit_index"):
         raise unported("weight refit (refit_index)", 12)
-    if "qos_shed" in reply:
-        raise unported("the cluster QoS shed verdict (qos_shed)", 9)
 
 
 class WorkerNode:
@@ -530,7 +529,7 @@ class WorkerNode:
         if not reply or ("start_layer" not in reply
                          and "standby" not in reply):
             raise RuntimeError(f"join rejected: {reply}")
-        _refuse_scheduler_reply(reply, self.role)
+        _refuse_scheduler_reply(reply)
         return reply
 
     def _apply_allocation(self, alloc: dict) -> None:
@@ -805,7 +804,8 @@ class WorkerNode:
         if reply.get("digests_resync"):
             # The scheduler saw a sequence gap: a full snapshot next beat.
             self._digests_full_next = True
-        _refuse_scheduler_reply(reply, self.role)
+        _refuse_scheduler_reply(reply)
+        self._adopt_qos_reply(reply)
         if reply.get("rejoin"):
             # The scheduler lost us (restart or heartbeat eviction).
             logger.warning("%s: scheduler asked for rejoin", self.node_id)
@@ -824,6 +824,33 @@ class WorkerNode:
             ):
                 # The scheduler moved us: reload on the step thread.
                 self._post(("reload", reply))
+
+    def _adopt_qos_reply(self, reply: dict) -> None:
+        """The QoS plane of a heartbeat reply, on host state only (this
+        runs on the heartbeat thread, which makes no CUDA call).
+
+        ``role``: the pool autoscaler's re-role. The new phase is adopted
+        in place (same layers, no reload); a decode -> prefill move drains
+        its in-flight decodes through the handoff machinery on the step
+        loop's later passes, which read ``self.role``. ``qos_shed``: the
+        cluster's shed verdict, OR'd with the engine's local controller."""
+        role = reply.get("role")
+        if (
+            isinstance(role, str) and role in ("prefill", "decode", "mixed")
+            and role != self.role and not self.standalone
+        ):
+            old_role = self.role
+            self.role = role
+            logger.warning("%s: re-roled %s -> %s by the scheduler",
+                           self.node_id, old_role, role)
+            from parallax_tpu_torch.obs.flight import get_flight
+
+            get_flight().event("qos_rerole", node=self.node_id, role=role,
+                               prev=old_role)
+        if "qos_shed" in reply:
+            eng = self.engine
+            if eng is not None and eng.scheduler.qos is not None:
+                eng.scheduler.qos.set_remote_shed(bool(reply["qos_shed"]))
 
     def _event_batch(self) -> tuple[dict | None, int]:
         """The next bounded flight-event batch for the cluster timeline
@@ -1531,10 +1558,6 @@ class WorkerNode:
         return "ok"
 
     def _on_chat_submit(self, _peer: str, payload: dict):
-        if any(payload.get(k) is not None
-               for k in ("qos_class", "deadline_ms", "tenant")):
-            raise unported("chat_submit with QoS fields (qos_class, "
-                           "deadline_ms, tenant)", 9)
         req = Request(
             request_id=payload["rid"],
             prompt_ids=list(payload["prompt_ids"]),
@@ -1544,6 +1567,14 @@ class WorkerNode:
             routing_table=list(payload.get("routing_table") or []),
             eos_token_ids=tuple(payload.get("eos_token_ids") or ()),
             lora_id=payload.get("lora_id"),
+            # QoS context: the deadline ships as a REMAINING budget and
+            # re-anchors on this process's monotonic clock.
+            qos_class=payload.get("qos_class"),
+            deadline=(
+                time.monotonic() + float(payload["deadline_ms"]) / 1e3
+                if payload.get("deadline_ms") is not None else None
+            ),
+            tenant_id=payload.get("tenant"),
         )
         replay = payload.get("replay_ids")
         if replay:

@@ -131,8 +131,10 @@ class EngineConfig:
     (grammar batches ride the decode window; off, they decode on the
     host-synchronous path), ``host_cache_bytes`` (the host KV tier's
     budget; 0 = off), ``trace_sample_rate`` (the share of head requests
-    whose lifecycle spans ``obs/trace.py`` records; 0 = off) and
-    ``slow_request_ms`` (the flight recorder's slow-request threshold).
+    whose lifecycle spans ``obs/trace.py`` records; 0 = off),
+    ``slow_request_ms`` (the flight recorder's slow-request threshold) and
+    ``qos`` (the multi-tenant QoS spec of ``qos/classes.parse_qos_spec``;
+    None or ``off`` wires no policy).
     The fields listed in ``_UNPORTED`` must keep their defaults
     (construction raises otherwise); ``linear_*`` only tune features that
     are refused elsewhere.
@@ -188,7 +190,6 @@ class EngineConfig:
 # Engine features not ported yet: field -> the only value accepted.
 _UNPORTED = {
     "sp_threshold": None,
-    "qos": None,
     "prefill_seq_parallel": False,
     "lora_max_adapters": 0,
 }
@@ -620,6 +621,13 @@ class StageEngine:
             host_tier=self.host_tier,
             use_native=use_native,
         )
+        qos_policy = None
+        if self.cfg.qos:
+            from parallax_tpu_torch.qos import QoSPolicy, parse_qos_spec
+
+            qos_config = parse_qos_spec(self.cfg.qos)
+            if qos_config is not None:
+                qos_policy = QoSPolicy(qos_config, stage_name=self._obs_stage)
         self.scheduler = Scheduler(
             self.cache,
             max_batch_size=self.cfg.max_batch_size,
@@ -627,6 +635,7 @@ class StageEngine:
             prefill_chunk_size=self.cfg.prefill_chunk_size,
             request_timeout_s=self.cfg.request_timeout_s,
             stage_name=self._obs_stage,
+            qos=qos_policy,
         )
         self.spec = BucketSpec.build(
             self.cfg.max_num_tokens_per_batch,
@@ -793,6 +802,9 @@ class StageEngine:
                     ireq.sampling_params or {}
                 ),
                 routing_table=list(ireq.routing_table),
+                # The class rides the wire so this stage's EDF order (when
+                # QoS is on here) matches the head's.
+                qos_class=ireq.qos_class,
             )
             req.is_mirror = True  # type: ignore[attr-defined]
             # This stage MUST start computing at exactly this offset: rows
@@ -1630,7 +1642,9 @@ class StageEngine:
             "spec_window" if spec else "decode_window", tokens=t,
             spec=spec, sampled=sampled, fused_sample=fused_sample,
             feats=feats, rows=shapes)
-        self._compile_obs.on_compile(seconds)
+        # Counted against this engine's own keys: another engine in the
+        # process capturing the same keys is no shape-lattice leak.
+        self._compile_obs.on_compile(seconds, owner=self, key=key)
         self._goodput.add_time("compile", seconds)
 
     def _device_mark(self):
@@ -1776,6 +1790,9 @@ class StageEngine:
                 self._h_tpot.observe(
                     (now - req.first_token_time) * 1e3 / (n - 1))
         self._h_e2e.observe(e2e_ms)
+        if self.scheduler.qos is not None:
+            # Per-class TTFT and the admission controller's burn input.
+            self.scheduler.qos.observe_finish(req, ttft_ms)
         breakdown = store.breakdown(rid) if store is not None else None
         if breakdown is None and ttft_ms is not None:
             breakdown = {
@@ -3622,6 +3639,7 @@ class StageEngine:
                 spec_len=spec_len,
                 cached_prefix_ids=prefix_ids,
                 trace=req.traced,
+                qos_class=req.qos_class,
             ))
             row += n
         return forwards

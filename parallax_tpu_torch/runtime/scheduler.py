@@ -11,8 +11,11 @@ wait queue's front by swap-in, and ``kv_oom`` is the last resort once the
 tier is full too (or absent: ``host_cache_bytes=0``). Rows flagged
 ``migrating`` are neither scheduled, admitted nor preempted. Swap-in,
 chunk skip, preemption and ``kv_oom`` each leave a flight-recorder event
-and, for a traced request, a span under the stage's label. Not ported
-yet: the JAX package's ``qos``, LoRA adapter grouping and
+and, for a traced request, a span under the stage's label. With a QoS
+policy (``qos=``) admission runs earliest-deadline-first with the
+starvation guard, the shed gate holds sheddable classes, running
+sheddable decodes park to the host tier, and batch formation orders the
+running set by deadline slack. Not ported yet: LoRA adapter grouping and
 sequence-parallel prefill planning.
 """
 
@@ -81,6 +84,7 @@ class Scheduler:
         max_queue_size: int = 1024,
         request_timeout_s: float = 600.0,
         stage_name: str = "stage",
+        qos=None,
     ):
         self.cache = cache_manager
         self.stage_name = stage_name
@@ -94,6 +98,10 @@ class Scheduler:
         # Requests moved out of the wait queue (admissions, swap-ins and
         # finished-while-queued): the admission watchdog probe's progress.
         self.admitted_total = 0
+        # Multi-tenant QoS policy (``qos/admission.QoSPolicy``). None (the
+        # default, ``--qos off``) keeps every path below on arrival order:
+        # each hook is one attribute check.
+        self.qos = qos
 
     # -- intake -----------------------------------------------------------
 
@@ -110,7 +118,13 @@ class Scheduler:
 
     def admit_requests(self) -> None:
         """Move wait-queue requests into the running set with KV allocated:
-        FCFS, stopping at the first request that does not fit."""
+        FCFS, stopping at the first request that does not fit. With a QoS
+        policy the order is earliest-deadline-first and the shed gate can
+        hold sheddable classes back; the per-request mechanics
+        (``_admit_one``) are shared by both modes."""
+        if self.qos is not None:
+            self._admit_requests_qos()
+            return
         while self.wait_queue and len(self.running) < self.max_batch_size:
             rid, req = next(iter(self.wait_queue.items()))
             if not self._admit_one(rid, req):
@@ -177,6 +191,69 @@ class Scheduler:
         self.running[rid] = req
         return True
 
+    def _admit_requests_qos(self) -> None:
+        """QoS admission: EDF order with the starvation guard, the shed
+        gate holding sheddable classes while the admission controller
+        sheds, and park enforcement over the running set."""
+        pol = self.qos
+        now = time.monotonic()
+        pol.maybe_tick(now, self)
+        self._qos_enforce(pol)
+        if pol.controller.active:
+            # Shed-held accounting covers every gated request, not only
+            # those the capacity-bounded loop below visits (count_shed is
+            # once per request).
+            for req in self.wait_queue.values():
+                if not req.status.is_finished and pol.blocks_admission(req):
+                    pol.count_shed(req)
+        for rid, req in pol.admit_order(self.wait_queue, now):
+            if len(self.running) >= self.max_batch_size:
+                break
+            if self.wait_queue.get(rid) is not req:
+                continue   # admitted or parked by an earlier iteration
+            if not req.status.is_finished and pol.blocks_admission(req):
+                # Held, not dropped: it resumes through this gate when the
+                # shed lifts.
+                continue
+            was_finished = req.status.is_finished
+            if not self._admit_one(rid, req):
+                break
+            if (
+                not was_finished
+                and not req.status.is_finished
+                and rid in self.running
+            ):
+                pol.on_admit(req, now)
+
+    def _qos_enforce(self, pol) -> None:
+        """Shed enforcement over the RUNNING set: park sheddable-class
+        decodes to the host tier (the PREEMPTED path: they resume with the
+        same bits when the shed releases; enforcement never aborts). The
+        safety tests are memory-pressure preemption's: only committed or
+        device-fed decode rows park (a row whose step or window is in
+        flight is neither), never mirrors or migrating requests."""
+        if not pol.controller.active:
+            return
+        preempt = getattr(self.cache, "preempt_to_host", None)
+        if preempt is None or getattr(self.cache, "host_tier", None) is None:
+            # No tier, or the native manager (no preempt path): shedding
+            # can only hold admissions.
+            pol.warn_no_tier_once()
+            return
+        for req in list(self.running.values()):
+            if (
+                not pol.parkable(req)
+                or req.migrating
+                or req.status is not RequestStatus.DECODING
+                or not (req.ready_for_step or req.device_feed_ready)
+                or getattr(req, "is_mirror", False)
+            ):
+                continue
+            if not preempt(req):
+                continue   # host tier full: the request keeps running
+            self._park(req)
+            pol.count_park(req)
+
     # -- batch formation (phase 2) ---------------------------------------
 
     def form_batch(self) -> BatchPlan:
@@ -187,7 +264,15 @@ class Scheduler:
         self.admit_requests()
         seqs: list[ScheduledSeq] = []
         token_budget = self.max_num_tokens_per_batch
-        for req in list(self.running.values()):
+        running = list(self.running.values())
+        if self.qos is not None:
+            # Earliest deadline first (guard=False: the starvation guard is
+            # a wait-queue notion): under a token-budget squeeze the urgent
+            # prompt's chunk ships this step, not the flood's.
+            now = time.monotonic()
+            running.sort(
+                key=lambda r: self.qos.order_key(r, now, guard=False))
+        for req in running:
             if len(seqs) >= self.max_batch_size or token_budget <= 0:
                 break
             if req.status is not RequestStatus.PREFILLING or req.migrating:
@@ -234,12 +319,22 @@ class Scheduler:
         earlier row of the same pass is skipped."""
         seqs: list[ScheduledSeq] = []
         scheduled: set[str] = set()
-        for req in list(self.running.values()):
+        candidates = [
+            req for req in self.running.values()
+            if req.status is RequestStatus.DECODING and not req.migrating
+            and (req.ready_for_step or req.device_feed_ready)
+        ]
+        if self.qos is not None and candidates:
+            # EDF decode-batch formation: when the batch or token budget
+            # caps the step, the rows with the least slack decode first.
+            now = time.monotonic()
+            candidates.sort(
+                key=lambda r: self.qos.order_key(r, now, guard=False))
+        for req in candidates:
             if len(seqs) >= max_seqs or token_budget <= 0:
                 break
-            if req.status is not RequestStatus.DECODING or req.migrating \
-                    or not (req.ready_for_step or req.device_feed_ready):
-                continue
+            if req.status is not RequestStatus.DECODING:
+                continue   # preempted by an earlier row of this pass
             # A device-fed row's next token was sampled by the in-flight
             # step: it occupies one more context slot than the
             # host-committed total.

@@ -233,7 +233,10 @@ class Node:
     lora_adapters: tuple = ()
     # RTT cache to peers, node_id -> seconds.
     rtt_s: dict[str, float] = dataclasses.field(default_factory=dict)
-    last_heartbeat: float = dataclasses.field(default_factory=time.monotonic)
+    # Read at call time, not bound at import: a test harness that swaps
+    # ``time.monotonic`` for a virtual clock must stamp new nodes on it.
+    last_heartbeat: float = dataclasses.field(
+        default_factory=lambda: time.monotonic())
     # Weight-refit version currently loaded.
     refit_version: int = 0
     # True once the node reports its executor is serving.

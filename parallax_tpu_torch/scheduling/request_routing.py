@@ -10,15 +10,17 @@ router and the prefix-cache-aware router.
 The decision and per-pipeline dispatch counters go to ``cluster_status``
 and to the metrics registry (``parallax_routing_decisions_total``,
 ``parallax_routing_dispatch_total``). Dropped with its plane: the
-conformance sanitizer's route charges (ROADMAP queue 1 item 14). Refused
-by name: the cache-aware router's per-tenant fairness term (``gamma`` > 0,
-QoS, item 9) and the LoRA digest namespaces (item 11).
+conformance sanitizer's route charges (ROADMAP queue 1 item 14). The
+cache-aware router's per-tenant fairness term (``gamma`` > 0) is the JAX
+router's. Refused by name: the LoRA digest namespaces (item 11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import random
+import time
 
 from parallax_tpu_torch.obs import names as mnames
 from parallax_tpu_torch.runtime.radix_cache import block_hash_chain
@@ -217,17 +219,20 @@ class CacheAwareRouting(RoutingStrategy):
                  beta: float = 256.0, imbalance_threshold: int = 8,
                  gamma: float = 0.0, fairness_halflife_s: float = 30.0):
         super().__init__(manager)
-        if gamma > 0.0:
-            raise unported(f"the per-tenant fairness term (gamma={gamma})",
-                           9)
-        del fairness_halflife_s
         # alpha is per uncached prompt token, beta per in-flight request:
         # the defaults price one queued request like 256 uncached tokens
         # (roughly one prefill chunk).
         self.alpha = alpha
         self.beta = beta
         self.imbalance_threshold = imbalance_threshold
+        # Per-tenant fairness: gamma prices one unit of a tenant's own
+        # recent-dispatch share on a pipeline like gamma uncached tokens,
+        # so a chatty tenant's requests spread across replicas. 0.0 (the
+        # default) disables the term.
         self.gamma = gamma
+        self.fairness_halflife_s = fairness_halflife_s
+        # (pipeline_id, tenant) -> [decayed dispatch share, last stamp].
+        self._tenant_share: dict[tuple[int, str], list] = {}
         self._cursor = 0   # tie-break rotation so equal scores spread
 
     def find_path(self, meta: RequestMeta | None = None) -> list[Node] | None:
@@ -254,6 +259,9 @@ class CacheAwareRouting(RoutingStrategy):
                     )
             uncached = (meta.num_prompt_tokens if meta else 0) - hit
             cost = self.alpha * uncached + self.beta * head.load
+            if self.gamma > 0.0 and meta is not None and meta.tenant_id:
+                cost += self.gamma * self._tenant_recent(
+                    p.pipeline_id, meta.tenant_id)
             score = (
                 cost,
                 # Rotating tie-break: equal scores (cold cluster, no
@@ -267,10 +275,37 @@ class CacheAwareRouting(RoutingStrategy):
         )
         return self._dispatch(best, best_hit, meta)
 
+    def _tenant_recent(self, pipeline_id: int, tenant: str,
+                       charge: float = 0.0) -> float:
+        """Exponentially decayed recent-dispatch share of ``tenant`` on
+        ``pipeline_id`` (half-life ``fairness_halflife_s``); ``charge``
+        adds to it at dispatch. Decay is applied lazily on access."""
+        now = time.monotonic()
+        ent = self._tenant_share.get((pipeline_id, tenant))
+        if ent is None:
+            ent = self._tenant_share[(pipeline_id, tenant)] = [0.0, now]
+        value, stamp = ent
+        value *= math.exp(
+            -(now - stamp) * math.log(2.0)
+            / max(1e-6, self.fairness_halflife_s)
+        )
+        value += charge
+        ent[0], ent[1] = value, now
+        if len(self._tenant_share) > 65536:
+            # Bounded: drop the stalest entries (decayed to noise).
+            for key, _e in sorted(
+                self._tenant_share.items(), key=lambda kv: kv[1][1]
+            )[: len(self._tenant_share) // 2]:
+                del self._tenant_share[key]
+        return value
+
     def _dispatch(self, pipeline: Pipeline, predicted_hit: int,
                   meta: RequestMeta | None) -> list[Node]:
         if meta is not None:
             meta.predicted_cached_tokens = predicted_hit
+            if self.gamma > 0.0 and meta.tenant_id:
+                self._tenant_recent(pipeline.pipeline_id, meta.tenant_id,
+                                    charge=1.0)
         self._count_pipeline(pipeline.pipeline_id)
         return pipeline.nodes
 

@@ -16,13 +16,13 @@ mirror whose threads stay parked until ``StandbyScheduler.promote``; a
 ``fenced`` one saw a worker echo a higher epoch and mutates nothing; an
 installed ``journal`` records every replicated mutation (join, leave,
 peer_down, the heartbeat replay window, the pipeline table's diffs and
-migration_done). Not ported yet, refused by name with their ROADMAP queue
-1 items: the QoS control plane (``qos=``; item 9) and weight refit
-(:meth:`begin_refit`; item 12), so the journal's ``refit`` record has no
-writer here. Phase roles (role-homogeneous pipelines, phase-filtered
-routing pools), the KV handoff's decode-pool targets (``pool="decode"``)
-and their ``disagg`` counters, live migration's target choice,
-``where_is`` table and drain counters are the JAX scheduler's.
+migration_done). Not ported yet, refused by name with its ROADMAP queue
+1 item: weight refit (:meth:`begin_refit`; item 12), so the journal's
+``refit`` record has no writer here. Phase roles (role-homogeneous
+pipelines, phase-filtered routing pools), the KV handoff's decode-pool
+targets (``pool="decode"``) and their ``disagg`` counters, live
+migration's target choice, ``where_is`` table and drain counters are the
+JAX scheduler's.
 
 The observability plane is the JAX scheduler's too: heartbeats carry each
 node's histogram snapshots, goodput, device plane, watchdog health and a
@@ -33,6 +33,13 @@ ha_fenced); ``slo=`` (an ``obs/slo.py`` ``SLOConfig``) evaluates SLO
 attainment and burn rates over the merged histograms; and
 ``cluster_status`` carries the merged ``metrics``, ``goodput``,
 ``device``, ``health``, ``slo`` and ``timeline`` sections.
+
+So is the QoS control plane (``qos=``, a ``qos/classes.QoSConfig``): a
+cluster-scope admission controller reads the merged per-class TTFT
+histograms off the heartbeats and relays its shed verdict in heartbeat
+replies (``qos_shed``); with ``autoscale`` the pool autoscaler re-roles
+whole pipelines between the prefill and decode pools; ``cluster_status``
+then carries a ``qos`` section.
 """
 
 from __future__ import annotations
@@ -73,7 +80,9 @@ class PendingRequest:
     request_id: str
     # Routing context (tokenized prompt for prefix-digest matching).
     meta: "RequestMeta | None" = None
-    enqueue_time: float = dataclasses.field(default_factory=time.monotonic)
+    # Read at call time (a virtual clock patched over ``time`` reaches it).
+    enqueue_time: float = dataclasses.field(
+        default_factory=lambda: time.monotonic())
     # The dispatcher retries routing until this deadline before giving up
     # (reference RequestHandler retry ladder, request_handler.py:100-245).
     deadline: float = dataclasses.field(
@@ -85,35 +94,6 @@ class PendingRequest:
     # Set by a caller that gave up waiting; the dispatcher then drops the
     # request instead of charging load for a path nobody will use.
     cancelled: bool = False
-
-
-def pool_report(pipelines) -> dict:
-    """Per-pool queue depth, capacity and utilization from the pipeline
-    registry and heartbeat-fed node state (the JAX package's
-    ``qos/autoscaler.pool_report``), with each pool's goodput per chip
-    from its nodes' heartbeat goodput payloads."""
-    from parallax_tpu_torch.obs.goodput import merge_goodput
-
-    pools: dict[str, dict] = {}
-    for p in pipelines:
-        d = pools.setdefault(p.role, {
-            "pipelines": 0, "in_flight": 0, "capacity": 0,
-            "_goodput": [],
-        })
-        d["pipelines"] += 1
-        d["in_flight"] += p.nodes[0].load
-        d["capacity"] += min(n.max_concurrent_requests() for n in p.nodes)
-        d["_goodput"].extend(n.goodput for n in p.nodes if n.goodput)
-    for d in pools.values():
-        d["utilization"] = (
-            round(d["in_flight"] / d["capacity"], 4)
-            if d["capacity"] else 0.0
-        )
-        merged = merge_goodput(d.pop("_goodput"))
-        d["goodput_per_chip"] = (
-            merged["tokens_useful_per_chip_second"] if merged else None
-        )
-    return pools
 
 
 class GlobalScheduler:
@@ -139,8 +119,6 @@ class GlobalScheduler:
         qos=None,
         passive: bool = False,
     ):
-        if qos is not None:
-            raise unported("the QoS control plane (qos=)", 9)
         self.model = model
         # Scheduler HA (ha/, docs/ha.md): ``epoch`` rides heartbeat
         # replies and fences a revived old primary; a ``passive``
@@ -212,6 +190,22 @@ class GlobalScheduler:
             from parallax_tpu_torch.obs.slo import SLOTracker
 
             self.slo_tracker = SLOTracker(slo)
+        # Multi-tenant QoS: the cluster-scope admission controller and the
+        # pool autoscaler, both ticked on the event thread. None = QoS off
+        # (no work, no reply fields).
+        self.qos_config = qos
+        self.qos_controller = None
+        self.autoscaler = None
+        if qos is not None:
+            from parallax_tpu_torch.qos import (
+                AdmissionController,
+                PoolAutoscaler,
+            )
+
+            self.qos_controller = AdmissionController(qos, scope="cluster")
+            if qos.autoscale:
+                self.autoscaler = PoolAutoscaler(
+                    self.manager, qos, timeline=self.timeline)
 
     # -- public API (thread-safe enqueues) --------------------------------
 
@@ -298,7 +292,12 @@ class GlobalScheduler:
             # Cache-aware routing: workers build their engine with digest
             # tracking on and publish delta payloads on heartbeats.
             alloc["want_digests"] = True
+        # Normally the worker's own join-time role echoed back; the QoS
+        # autoscaler may have re-roled its pipeline (adopted in place).
         alloc["role"] = node.role
+        if self.qos_controller is not None:
+            # Cluster shed verdict, OR'd by workers with their local one.
+            alloc["qos_shed"] = self.qos_controller.shedding
         return alloc
 
     def drain_requested(self, node_id: str) -> list[str]:
@@ -519,9 +518,10 @@ class GlobalScheduler:
             n += 1
 
     def sweep_once(self) -> None:
-        """One heartbeat-sweep + journal-diff pass (synchronous twin of
-        the _event_loop's 1 Hz housekeeping)."""
+        """One heartbeat-sweep + QoS-tick + journal-diff pass (synchronous
+        twin of the _event_loop's 1 Hz housekeeping)."""
         self._sweep_heartbeats()
+        self._qos_tick(time.monotonic())
         self._journal_pipelines()
 
     def dispatch_once(self) -> bool:
@@ -566,11 +566,54 @@ class GlobalScheduler:
             now = time.monotonic()
             if now - last_sweep > 1.0:
                 self._sweep_heartbeats()
-                # Sweep-driven churn changes the allocation table off the
-                # join / leave paths; the 1 Hz diff catches it for the HA
-                # journal.
+                self._qos_tick(now)
+                # Autoscaler re-roles and sweep-driven churn change the
+                # allocation table off the join / leave paths; the 1 Hz
+                # diff catches them for the HA journal.
                 self._journal_pipelines()
                 last_sweep = now
+
+    def _qos_tick(self, now: float) -> None:
+        """QoS control-plane pass (event thread, ~1 Hz): feed the cluster
+        admission controller the merged protected-class TTFT counts, run
+        its hysteresis and tick the pool autoscaler. The verdict reaches
+        workers in their next heartbeat reply (``qos_shed``)."""
+        ctl = self.qos_controller
+        if ctl is None:
+            return
+        under, total = self._qos_cluster_counts()
+        if total:
+            ctl.observe_cumulative(under, total, now)
+        if ctl.tick(now):
+            self.timeline.record(
+                "qos_shed" if ctl.shedding else "qos_release",
+                burn=round(ctl.last_burn, 3),
+            )
+        if self.autoscaler is not None:
+            self.autoscaler.tick(now)
+
+    def _qos_cluster_counts(self) -> tuple[float, int]:
+        """Cluster-cumulative (under-budget, total) counts of the
+        protected class's TTFT, summed over every pipeline member's
+        heartbeat-shipped ``parallax_qos_ttft_ms`` children."""
+        from parallax_tpu_torch.obs import names as mnames
+        from parallax_tpu_torch.obs.slo import fraction_below
+
+        ctl = self.qos_controller
+        budget = ctl.protected.deadline_ms
+        under, total = 0.0, 0
+        for p in self.manager.pipelines:
+            for n in p.nodes:
+                children = (n.metrics or {}).get(mnames.QOS_TTFT_MS)
+                if not isinstance(children, dict):
+                    continue
+                for label, snap in children.items():
+                    if ctl.protected.name not in str(label):
+                        continue
+                    u, t = fraction_below(snap, budget)
+                    under += u
+                    total += t
+        return under, total
 
     def _handle_event(self, ev: tuple) -> None:
         kind = ev[0]
@@ -966,7 +1009,11 @@ class GlobalScheduler:
         with self._lock:
             accuracy = dict(self.routing_accuracy)
             disagg = dict(self.disagg_stats)
+        from parallax_tpu_torch.qos.autoscaler import pool_report
+
         pipelines = self.manager.pipelines
+        # Shared with the QoS autoscaler: the numbers read here are those
+        # the re-roling loop acts on.
         pools = pool_report(pipelines)
         report["routing"] = {
             "strategy": self.routing_name,
@@ -986,6 +1033,24 @@ class GlobalScheduler:
             and any(r in pools for r in ("decode", "mixed")),
             **disagg,
         }
+        # The QoS control plane: cluster shed state and burn, the class
+        # table and the autoscaler's re-role ledger. Absent when QoS is off.
+        if self.qos_controller is not None:
+            report["qos"] = {
+                "enabled": True,
+                "classes": [
+                    {"name": c.name, "priority": c.priority,
+                     "deadline_ms": c.deadline_ms,
+                     "sheddable": c.sheddable}
+                    for c in self.qos_config.classes
+                ],
+                "admission": self.qos_controller.payload(),
+                "autoscaler": (
+                    self.autoscaler.payload()
+                    if self.autoscaler is not None
+                    else {"enabled": False}
+                ),
+            }
         report["pipelines"] = [
             {
                 "id": p.pipeline_id,

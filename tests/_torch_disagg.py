@@ -74,14 +74,17 @@ def _wire_test_grammar(node) -> None:
 @contextlib.contextmanager
 def swarm(workers, sched="port", lookahead=1, overlap=True,
           host_cache=1 << 24, chunk_bytes=1 << 20, min_pipelines=None,
-          chaos=None, grammar=False, monkeypatch=None):
+          chaos=None, grammar=False, monkeypatch=None, qos=None,
+          sched_qos=None):
     """``workers`` is a list of (package, role) pairs behind a
     ``sched``-package cache-aware scheduler. Single-stage full-model
     pipelines unless the caller capped a node's layers (then
     ``min_pipelines`` says how many pipelines bootstrap forms). ``chaos``
     (a ChaosController) wraps every transport; ``grammar`` wires the byte
     tokenizer's grammar vocabulary into every worker (``monkeypatch``
-    required). Yields (scheduler, service, client, workers)."""
+    required); ``qos`` is every worker engine's QoS spec, ``sched_qos`` a
+    dict of ``QoSConfig`` fields over ``on`` that turns the scheduler's
+    QoS plane on. Yields (scheduler, service, client, workers)."""
     kinds = {k for k, _r in workers} | {sched}
     tcp = len(kinds) > 1
     wrap = chaos.wrap if chaos is not None else (lambda t: t)
@@ -103,8 +106,16 @@ def swarm(workers, sched="port", lookahead=1, overlap=True,
     sched_cls, svc_cls, cfg = (
         (GlobalScheduler, SchedulerService, CFG) if sched == "port"
         else (JScheduler, JSchedulerService, JCFG))
+    qos_config = None
+    if sched_qos is not None:
+        if sched == "port":
+            from parallax_tpu_torch.qos import parse_qos_spec
+        else:
+            from parallax_tpu.qos import parse_qos_spec
+        qos_config = dataclasses.replace(parse_qos_spec("on"), **sched_qos)
     scheduler = sched_cls(cfg, min_nodes_bootstrapping=len(workers),
-                          heartbeat_timeout_s=2.0, routing="cache_aware")
+                          heartbeat_timeout_s=2.0, routing="cache_aware",
+                          qos=qos_config)
     st = transport(sched, "sched")
     service = svc_cls(scheduler, st, join_timeout_s=30.0)
     nodes = []
@@ -115,7 +126,7 @@ def swarm(workers, sched="port", lookahead=1, overlap=True,
             t = transport(kind, f"dg{i}")
             ecfg = dict(ENGINE, overlap_steps=overlap,
                         decode_lookahead=lookahead,
-                        host_cache_bytes=host_cache)
+                        host_cache_bytes=host_cache, qos=qos)
             if kind == "port":
                 nodes.append(WorkerNode(
                     t, sched_addr, CFG, EngineConfig(**ecfg),
@@ -150,7 +161,7 @@ def swarm(workers, sched="port", lookahead=1, overlap=True,
         service.stop()
 
 
-def serve(client, tag, prompts_and_sp, on_tokens=None):
+def serve(client, tag, prompts_and_sp, on_tokens=None, qos_class=None):
     """Route and submit each request through the client; ``on_tokens(i,
     req)`` runs once per request when its first token lands. Returns the
     requests once all finished."""
@@ -161,7 +172,7 @@ def serve(client, tag, prompts_and_sp, on_tokens=None):
         assert path, f"no path for {rid}"
         req = Request(request_id=rid, prompt_ids=list(prompt),
                       sampling_params=dataclasses.replace(sp),
-                      routing_table=list(path))
+                      routing_table=list(path), qos_class=qos_class)
         evs.append(client.submit(req))
         reqs.append(req)
     if on_tokens is not None:

@@ -123,9 +123,10 @@ def test_refused_flag_exits_2_from_both_entry_points(checkpoint):
         assert "item 10" in res.stderr
 
 
-# Flags once refused under ROADMAP item 9 that its observability half
-# ported; QoS (``--qos``, ``--routing-gamma``) stays refused.
-_PORTED_OBS_FLAGS = {"--trace-sample-rate", "--watchdog", "--slo"}
+# Flags once refused under ROADMAP item 9, which is ported now: the
+# observability plane and QoS (``--qos``, ``--routing-gamma``).
+_PORTED_OBS_FLAGS = {"--trace-sample-rate", "--watchdog", "--slo", "--qos",
+                     "--routing-gamma"}
 
 
 @pytest.mark.parametrize("argv,item", [
@@ -153,7 +154,7 @@ _PORTED_OBS_FLAGS = {"--trace-sample-rate", "--watchdog", "--slo"}
 ])
 def test_refused_flags_exit_2(checkpoint, capsys, argv, item):
     if argv[1] in _PORTED_OBS_FLAGS:
-        # The observability plane is ported: these flags pass now.
+        # The observability and QoS planes are ported: these flags pass.
         args = cli.build_parser().parse_args(
             [argv[0], "--model-path", checkpoint, *argv[1:]])
         assert cli.unported_flags(args) == []

@@ -9,17 +9,17 @@ packages runs over TCP on localhost).
 - A JAX prefill head hands off to a port decode head: the JAX frames are
   assembled and the JAX image adopted by the port, and the greedy
   streams equal an all-JAX prefill + decode pair's.
-- The prefill node dies while KV transfers are in flight (the JAX
-  package's ChaosController over the port's transports): nothing aborts,
-  and every stream stays bit-identical to the healthy mixed pair's.
+- The prefill node dies while KV transfers are in flight (the port's
+  ChaosController over its transports): nothing aborts, and every stream
+  stays bit-identical to the healthy mixed pair's.
 """
 
 import threading
 import time
 
 from parallax_tpu.p2p import proto as jproto
-from parallax_tpu.testing.chaos import ChaosController
 from parallax_tpu_torch.runtime.request import SamplingParams
+from parallax_tpu_torch.testing.chaos import ChaosController
 from tests._torch_disagg import (
     GEN,
     request_set,
@@ -91,8 +91,7 @@ def test_kill_prefill_node_mid_transfer_zero_aborts():
     baseline."""
     requests = request_set()
     base = _port_mixed(requests)
-    chaos = ChaosController(seed=5, lock_sanitizer=False,
-                            conformance=False)
+    chaos = ChaosController(seed=5)
     # One layer a frame and a delay on each: transfers take about a
     # second, so the kill below lands mid-flight.
     with swarm([("port", "prefill"), ("port", "decode")], chunk_bytes=1,

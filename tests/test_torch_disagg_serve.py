@@ -146,9 +146,9 @@ def test_fallback_rungs_keep_streams_bit_identical(rung, monkeypatch):
     checkpoint-only to any decode head; a transfer whose result is lost
     re-ships checkpoint-only to the SAME head, whose duplicate ack
     resolves it in place — one restore, never a second decode."""
-    from parallax_tpu.testing.chaos import ChaosController
     from parallax_tpu_torch.p2p import proto
     from parallax_tpu_torch.p2p.node import WorkerNode
+    from parallax_tpu_torch.testing.chaos import ChaosController
 
     requests = request_set(2, gen=48)
     chaos = None
@@ -156,8 +156,7 @@ def test_fallback_rungs_keep_streams_bit_identical(rung, monkeypatch):
         requests = [([1, 2, 3 + i], sp) for i, (_p, sp) in
                     enumerate(requests)]
     elif rung == "result-timeout":
-        chaos = ChaosController(seed=1, lock_sanitizer=False,
-                                conformance=False)
+        chaos = ChaosController(seed=1)
         monkeypatch.setattr(WorkerNode, "HANDOFF_RESULT_TIMEOUT_S", 0.3)
     base = _mixed_streams(requests)
     with swarm([("port", "prefill"), ("port", "decode")], chaos=chaos) as (

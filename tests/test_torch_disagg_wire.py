@@ -16,8 +16,8 @@ the JAX package itself.
 - The RPC surface: ``join --role`` and ``--kv-transfer-chunk-bytes``
   reach the worker; ``node_join`` takes a role; ``disagg_target``,
   ``rpc_kv_transfer`` and ``kv_handoff_result`` are served; a scheduler
-  reply that re-roles the worker (the QoS autoscaler's) is refused by name
-  as item 9; a scheduler-less worker ignores a role.
+  reply that re-roles the worker (the QoS autoscaler's) is adopted in
+  place; a scheduler-less worker ignores a role.
 - The handoff checkpoint: the JAX helper ships no DFA state for a
   constrained row; the port's ships the state its park read.
 """
@@ -500,16 +500,34 @@ def test_node_join_carries_the_role(role):
             "wire_formats": list(proto.WIRE_DTYPES), "role": role})
         assert reply["role"] == role and reply["start_layer"] == 0
         assert sched.manager.get("w0").role == role
-        _refuse_scheduler_reply(reply, role)
+        _refuse_scheduler_reply(reply)
     finally:
         svc.stop()
 
 
 def test_a_re_role_is_refused_as_item_9():
+    """Item 9 is ported: a scheduled worker adopts a re-role in place (host
+    state only, no reload) and records a ``qos_rerole`` flight event; a
+    scheduler-less worker keeps its mixed role; refit stays refused."""
+    from parallax_tpu_torch.obs.flight import get_flight
+
+    cfg = normalize_config(TINY_RAW)
     for own, other in (("mixed", "prefill"), ("prefill", "decode")):
-        with pytest.raises(NotImplementedError, match=r"item 9\)"):
-            _refuse_scheduler_reply({"role": other}, own)
-    _refuse_scheduler_reply({"role": None, "refit_index": None}, "decode")
+        node = WorkerNode(LoopbackTransport("w", {}), "sched", cfg,
+                          EngineConfig(**ENGINE), device="cpu", role=own)
+        _refuse_scheduler_reply({"role": other})
+        node._adopt_qos_reply({"role": other, "qos_shed": True})
+        assert node.role == other and node.engine is None
+        ev = [e for e in get_flight().events_since(0, limit=4096)[0]
+              if e.get("kind") == "qos_rerole" and e.get("prev") == own]
+        assert ev and ev[-1]["role"] == other
+    alone = WorkerNode(LoopbackTransport("w", {}), None, cfg,
+                       EngineConfig(**ENGINE), layers=(0, 4), device="cpu")
+    alone._adopt_qos_reply({"role": "prefill"})
+    assert alone.role == "mixed"
+    _refuse_scheduler_reply({"role": None, "refit_index": None})
+    with pytest.raises(NotImplementedError, match=r"item 12\)"):
+        _refuse_scheduler_reply({"refit_index": {"a": "b"}})
 
 
 def test_disagg_target_rpc_is_served():

@@ -228,6 +228,12 @@ def test_engine_config_refuses_unported(weights, field, value):
                            params_from_numpy(full_np, "cpu"),
                            EngineConfig(**dict(kw, **over)), device="cpu")
 
+    if field == "qos":
+        # QoS is ported: the spec builds the local scheduler's policy.
+        eng = engine()
+        assert eng.scheduler.qos is not None
+        assert engine(qos=None).scheduler.qos is None
+        return
     if field not in ("decode_lookahead", "overlap_steps",
                      "speculative_tokens"):
         with pytest.raises(NotImplementedError, match=field):

@@ -507,9 +507,17 @@ def test_qos_snapshot_refused_and_timeline_cursors_dropped():
     jsched = _serving_scheduler(PKGS["jax"], n=1)
     snap = j_journal.snapshot_state(jsched)
     mirror = _scheduler(PKGS["port"], passive=True)
-    with pytest.raises(NotImplementedError, match=r"\(qos\).*item 9\)"):
-        p_journal.restore_state(
-            mirror, dict(snap, qos={"shedding": True, "last_burn": 2.0}))
+    # QoS is ported: a mirror without QoS ignores the section, one with
+    # QoS adopts the shed state.
+    shed = {"shedding": True, "last_burn": 2.0}
+    p_journal.restore_state(mirror, dict(snap, qos=shed))
+    from parallax_tpu_torch.qos import parse_qos_spec
+
+    qmirror = p_sched.GlobalScheduler(
+        p_normalize(RAW), passive=True, qos=parse_qos_spec("on"))
+    p_journal.restore_state(qmirror, dict(snap, qos=shed))
+    assert qmirror.qos_controller.shedding
+    assert qmirror.qos_controller.last_burn == 2.0
     cursors = {"cursors": {"w0": {"epoch": "e", "seq": 4}},
                "local_seq": {"w0": 4}}
     p_journal.restore_state(mirror, dict(snap, timeline=cursors))

@@ -745,7 +745,7 @@ def test_route_fn_gets_the_prompt_ids():
     NotImplementedError from it answers 501; None answers 503."""
     seen = []
 
-    def route(rid, prompt_ids=None, lora_id=None):
+    def route(rid, prompt_ids=None, lora_id=None, **kw):
         seen.append((rid, prompt_ids, lora_id))
         if lora_id is not None:
             raise NotImplementedError("LoRA requests: not ported yet")

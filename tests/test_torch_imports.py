@@ -73,7 +73,9 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "native", "obs", "obs.names", "obs.registry",
                  "obs.flight", "obs.trace", "obs.goodput", "obs.device",
                  "obs.watchdog", "obs.slo", "obs.timeline", "obs.profiler",
-                 "utils.request_metrics"):
+                 "utils.request_metrics", "qos", "qos.classes",
+                 "qos.admission", "qos.autoscaler", "router", "router.lb",
+                 "testing", "testing.chaos", "testing.churn"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"

@@ -670,6 +670,84 @@ def test_compile_observatory_equal():
     assert snap["programs"]["spec_window"]["live_executables"] == 4
 
 
+class _Owner:
+    """A storm-rule owner (the observatory holds owners weakly)."""
+
+
+def test_storm_rule_counts_a_capture_against_its_own_engine():
+    """Two engines capturing the same window keys raise no storm (each
+    counts its own captures, and a key its engine saw counts once); one
+    engine capturing five new keys inside 30 s still storms."""
+    clk = FakeClock()
+    obs = PORT.device.CompileObservatory(clock=clk)
+    owners = {name: _Owner() for name in "abc"}
+    keys = [(8, 0, True, False, (), (r,)) for r in (1, 2, 4, 8)]
+    for owner in ("a", "b"):
+        for key in keys:
+            obs.note_program("decode_window", {"rows": key[-1]})
+            obs.on_compile(0.01, owner=owners[owner], key=key)
+            clk.t += 1.0
+    # A key an engine already captured (its graph rebuilt) adds nothing.
+    obs.note_program("decode_window", {"rows": 1})
+    obs.on_compile(0.01, owner=owners["a"], key=keys[0])
+    assert obs.snapshot()["storms_total"] == 0
+    assert obs.probe()[2] == ""
+    for r in (16, 32, 64, 128, 256):
+        obs.note_program("decode_window", {"rows": r})
+        obs.on_compile(0.01, owner=owners["c"],
+                       key=(8, 0, True, False, (), (r,)))
+        clk.t += 1.0
+    assert obs.snapshot()["storms_total"] == 1
+    assert obs.probe()[2] == "storming: decode_window"
+    clk.t += 60.0
+    assert obs.probe()[2] == ""
+
+
+def test_storm_rule_across_two_engines_in_one_process():
+    """Two tiny engines in one process capture the same K = 8 window keys
+    (through ``_on_graph_capture``) on the process's one device plane:
+    no storm."""
+    from parallax_tpu_torch.obs.device import get_device_plane
+    from tests._torch_qos import PKGS, engine
+
+    plane = get_device_plane()
+    before = plane.compile.snapshot()["storms_total"]
+    p = PKGS["port"]
+    for _ in range(2):
+        eng = engine(p, None, True, 8, 64, 0)
+        for shape in ((1,), (2,), (4,), (8,)):
+            eng._on_graph_capture((8, 0, True, False, (), shape), 0.01)
+    assert plane.compile.snapshot()["storms_total"] == before
+
+
+def test_storm_rule_forgets_a_freed_engine():
+    """An engine's storm windows go when it is freed, so an engine built
+    after it starts with none: its captures of the same keys count, and
+    five of them inside 30 s storm."""
+    import gc
+
+    from tests._torch_qos import PKGS, engine
+
+    obs = PORT.device.CompileObservatory(clock=FakeClock())
+    keys = [(8, 0, True, False, (), (r,)) for r in (1, 2, 4, 8, 16)]
+    eng = engine(PKGS["port"], None, True, 8, 64, 0)
+    eng._compile_obs = obs
+    for key in keys[:4]:
+        eng._on_graph_capture(key, 0.01)
+    assert len(obs._windows) == 1
+    del eng
+    gc.collect()
+    assert len(obs._windows) == 0
+    eng = engine(PKGS["port"], None, True, 8, 64, 0)
+    eng._compile_obs = obs
+    for key in keys[:4]:
+        eng._on_graph_capture(key, 0.01)
+    assert obs.snapshot()["storms_total"] == 0
+    eng._on_graph_capture(keys[4], 0.01)
+    assert obs.snapshot()["storms_total"] == 1
+    assert obs.probe()[2] == "storming: decode_window"
+
+
 def _device_time(m):
     t = m.device.DeviceTimeAttributor()
     reg = m.registry.MetricsRegistry()

@@ -636,6 +636,18 @@ def test_refused_scheduler_options_name_their_items(kwargs, item):
         assert sched.slo_tracker is not None
         assert "slo" in sched.cluster_status()
         return
+    if "qos" in kwargs or "routing_kwargs" in kwargs:
+        # The QoS plane and the fairness term are ported.
+        from parallax_tpu_torch.qos import parse_qos_spec
+
+        if "qos" in kwargs:
+            kwargs = dict(qos=parse_qos_spec("on"))
+        sched = p_sched.GlobalScheduler(normalize_config(RAW), **kwargs)
+        if "qos" in kwargs:
+            assert sched.cluster_status()["qos"]["enabled"]
+        else:
+            assert sched.router.gamma == 0.5
+        return
     with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
         p_sched.GlobalScheduler(normalize_config(RAW), **kwargs)
 

@@ -471,8 +471,8 @@ def test_chat_host_answers_503_without_a_route():
     (["--qos", "on"], 9),
 ])
 def test_refused_join_flags_exit_2(tmp_path, capsys, argv, item):
-    if argv[0] in ("--trace-sample-rate", "--watchdog"):
-        # Ported with the observability plane: the flags pass now.
+    if argv[0] in ("--trace-sample-rate", "--watchdog", "--qos"):
+        # Ported with the observability and QoS planes: they pass now.
         args = cli.build_parser().parse_args(
             ["join", "--model-path", str(tmp_path), "--start-layer", "0",
              "--end-layer", "2", *argv])
@@ -513,6 +513,26 @@ def test_refused_rpcs_name_their_items(method, payload, item):
     reg = {}
     node = WorkerNode(LoopbackTransport("w", reg), None, CFG,
                       EngineConfig(**ENGINE), layers=(0, 2), device="cpu")
+    if item == 9 and method == proto.CHAT_SUBMIT:
+        # QoS is ported: the fields reach the request (the deadline as a
+        # remaining budget on this process's clock).
+        LoopbackTransport("c", reg).call("w", method, payload)
+        req = node._chat_requests["q"]
+        assert req.qos_class == payload.get("qos_class")
+        assert req.tenant_id == payload.get("tenant")
+        assert (req.deadline is not None) == ("deadline_ms" in payload)
+        return
+    if method == proto.FORWARD and "qos" in str(payload):
+        # A QoS-tagged packet is accepted: its class lands in the inbox.
+        from parallax_tpu_torch.runtime.request import IntermediateRequest
+
+        whole = proto.ireq_to_wire(IntermediateRequest(
+            request_id="q", routing_table=["w"], context_len=3,
+            num_new_tokens=3, token_ids=[1, 2, 3], qos_class="batch"))
+        LoopbackTransport("c", reg).call("w", method, {"reqs": [whole]})
+        kind, ireq = node._inbox.get_nowait()
+        assert kind == "forward" and ireq.qos_class == "batch"
+        return
     if method == proto.PROFILE:
         # Profiling is ported: an action-less frame is an error reply,
         # and nothing reaches the step loop.
