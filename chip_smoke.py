@@ -60,7 +60,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                vocabulary that is not a multiple of 4; A3 on grammar-masked
                rows of Qwen2.5's vocabulary (sampler_masked: 1, 3 or 258
                allowed tokens, the rest at -1e10, top-k 1 / 40 / 64,
-               temperature 0 / 0.8), exactly the plain version's tokens.
+               temperature 0 / 0.8), exactly the plain version's tokens;
+               A0, A1 (fused and attend-only), A2 and A9 at head dim 256
+               (Qwen3-Next's Hq 16, Hkv 2; bf16 and float32, prefix hits,
+               windows, padding and frozen rows; two calls the same bits)
+               and A4 at Qwen3-Next's MoE shapes (E 512, N 512, K 2048).
 4. serve       a single-stage StageEngine on cuda:0 serving full-width,
                all-28-layer Qwen2.5-7B (random bf16 weights from a seeded
                torch.Generator on the card) to 8 concurrent requests
@@ -422,6 +426,29 @@ Phases, in order; any failure raises and the script exits non-zero:
                attend-only), fused with K1_SYNC and plain, A4 per MoE
                layer and step, launches exact; the greedy check and a
                teacher-forced A2 check as gpt-oss has.
+20. next_serve Qwen3-Next-80B-A3B at full width and 8 of 48 layers (linear
+               0-2, full 3, linear 4-6, full 7; 13.8 B params, 27.5 GB):
+               fused (A0 + A1 and A2 at head dim 256 on the two gated
+               full-attention layers, A4 three times a layer and forward
+               step, A3), split (A1 attend-only), fused with K1_SYNC on
+               two rows and plain, launches exact, graph replays included;
+               a 4 + 4 pipeline; a prefix-sharing pair on both cache
+               managers (the second request restores the first's
+               linear-state snapshot and gives its prefix-off stream); the
+               greedy limit against two mutants (the slot reset skipped,
+               the attention output gate dropped); each layer kind's
+               device ms from torch.profiler (ROADMAP P6).
+21. zoo_serve  one tree at a time: GLM-4-9B-0414 (all 40 layers), GLM-4.5-Air
+               (2 of 46: dense layer 0, MoE layer 1) and Step-3.5-Flash (2
+               of 45: one full, one sliding layer; 36.6 B params, refused
+               below the tree's bytes plus 2 GB free): fused and plain,
+               launches exact, the greedy check; Step-3.5's limit against
+               its head-gate mutant.
+
+Depth cuts for time (the script's limit): the checkpoint phases
+(http_serve through obs_serve, qos_serve's part b) serve Qwen2.5-7B at 8
+of 28 layers (CKPT_LAYERS; 4 + 4 pipelines) and gptoss_serve at 8 of 24
+(GPTOSS_LAYERS); serve keeps all 28.
 
 One JSON object per line; the ``kernels`` line and the card line come just
 before the last line, which is ``{"ok": true, "device": {...}}``. Each
@@ -430,7 +457,10 @@ A0-A4 from moe_serve, A5 and A6 from mla_serve's fused and split runs, A7
 and A8 from dsa_serve's, A9 from gptoss_serve's split run, K9's route (A1
 attend-only, entry ``ragged_attend``) from serve's split run and the noise
 kernel from serve's fused run; msa_serve prints A7's and A8's MSA-mode
-launches on a line of its own. ``--only
+launches on a line of its own. The head-dim-256 entries (``<kernel>@d256``)
+take A0 / A1 / A2's from next_serve's fused run and K9's route from its
+split run; A9 at D 256 is held in the kernels phase only (no served model
+gives it that shape) and reports A9's launches on its own path. ``--only
 kernels`` (comma-separated phase names) runs a subset and prints no result
 line.
 """
@@ -496,6 +526,8 @@ MOE_MODEL = "Qwen/Qwen3-30B-A3B"
 DSV3_MODEL = "deepseek-ai/DeepSeek-V3"           # presets.py MODEL_DB
 DSV32_MODEL = "deepseek-ai/DeepSeek-V3.2-Exp"
 GPTOSS_MODEL = "openai/gpt-oss-20b"
+# gptoss_serve's cut: 8 of its 24 layers (4 sliding, 4 full), for time.
+GPTOSS_LAYERS = 8
 # DeepSeek's three dense layers plus two MoE layers: 26.7 B params (53 GB in
 # bf16). A third MoE layer (11.3 B params) would leave no room for the
 # caches, the activations and the plain reference on an 80 GB card.
@@ -1186,13 +1218,17 @@ def phase_kernels(torch, dev) -> list[dict]:
     out.extend(kernels_deepseek(torch, gen, dev, flush, device_only))
     split_out, split_device_only = kernels_split(torch, gen, dev, flush)
     out.extend(split_out)
+    d256_out, d256_device_only = kernels_d256(torch, gen, dev, flush)
+    out.extend(d256_out)
+    kernels_grouped_gemm(torch, gen, dev, flush, device_only,
+                         model=NEXT_MODEL, label="grouped_gemm_next")
     emit({"phase": "kernels", "check": "device_only_ms",
           "note": "time_ms(hide_host=True): the call's device time, a spin "
                   "kernel covering the host's enqueue",
-          **device_only, **split_device_only})
+          **device_only, **split_device_only, **d256_device_only})
     emit(attention_breakdown(torch, gen, dev, flush))
     del flush
-    assert set(k["name"] for k in out) == set(ck.KERNELS) | {"ragged_attend"}
+    assert set(k["name"] for k in out) == set(KERNEL_PATH) >= set(ck.KERNELS)
     emit({"phase": "kernels", "timed": [
         {k: e[k] for k in ("name", "ms", "plain_ms", "bound_ms",
                            "library_ms")} for e in out]})
@@ -1381,7 +1417,8 @@ def kernels_grouped_gemm(torch, gen, dev, flush, device_only,
         "decode": _decode_offsets(7, k_top, e, seed=8),
     }
     errs, timed = {}, {}
-    tag = "qwen3" if model == MOE_MODEL else "deepseek"
+    tag = {MOE_MODEL: "qwen3", DSV3_MODEL: "deepseek",
+           NEXT_MODEL: "next"}[model]
     if model == MOE_MODEL:
         # Tails: N and K below and between tiles (K not a multiple of the
         # 64-wide stage), empty and 1-row groups, M < E, E = 1 with every
@@ -2174,6 +2211,162 @@ def kernels_split(torch, gen, dev, flush) -> list[dict]:
     return out, device_only
 
 
+def kernels_d256(torch, gen, dev, flush) -> tuple[list[dict], dict]:
+    """A0, A1 (fused and attend-only), A2 and A9 at head dim 256, the
+    shape Qwen3-Next's gated full-attention layers give them (Hq 16, Hkv 2,
+    page 64), in bf16 and float32: prefix hits, sliding windows, kv_len 0
+    and frozen rows, bucket padding, several tiles a chunk (the float32
+    tile holds 64 rows). Each against its plain version (cache bitwise,
+    attention BF16_TOL / F32_TOL), A1 and A2 called twice for the same
+    bits, A9 and A1's one-token rows equal to A2's; then each timed beside
+    its plain version, SDPA and its bound. Returns the kernels line's
+    entries (``<kernel>@d256``) and their device-only times."""
+    from parallax_tpu_torch.ops.decode_fused import gqa_fused_decode
+    from parallax_tpu_torch.ops.gqa_decode import (
+        gqa_decode_attention,
+        gqa_decode_attention_plain,
+    )
+    from parallax_tpu_torch.ops.kv_cache_ops import (
+        interleave_kv,
+        kv_append,
+        reshape_and_cache,
+    )
+    from parallax_tpu_torch.ops.prefill_fused import (
+        gqa_fused_prefill,
+        gqa_prefill_attend,
+        gqa_prefill_attend_plain,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    hq, hkv, d, page = 16, 2, 256, 64
+    errs = {}
+    dec_lens = [700, 320, 0, 450, 129, 33, 511, 256]
+    errs["gqa_decode_bf16"], dc, dkw = check_decode(
+        torch, gen, dev, bf16, hq, hkv, d, page, dec_lens, frozen={3})
+    errs["gqa_decode_f32_window"], *_ = check_decode(
+        torch, gen, dev, f32, hq, hkv, d, 16, [5, 17, 48, 0, 9, 16],
+        frozen={4}, window=16)
+    pre_q, pre_cached = [256, 256, 200, 37], [0, 256, 192, 100]
+    errs["gqa_prefill_bf16"], app_b, pc, pkw = check_prefill(
+        torch, gen, dev, bf16, hq, hkv, d, page, pre_q, pre_cached, pps=16)
+    errs["gqa_prefill_f32"], app_f, *_ = check_prefill(
+        torch, gen, dev, f32, hq, hkv, d, page, [300, 1, 150, 1, 37],
+        [0, 500, 64, 31, 0], pps=16)
+    errs["gqa_prefill_f32_window"], app_w, *_ = check_prefill(
+        torch, gen, dev, f32, hq, hkv, d, 16, [17, 8, 33], [3, 16, 5],
+        pps=12, window=11)
+    lens = [292, 332, 482, 732, 544, 412, 672]
+    cases = {}
+    for label, dt, window in (("bf16", bf16, None), ("bf16_window", bf16, 128),
+                              ("f32", f32, None)):
+        e9, e2, c, kw = check_split_decode(torch, gen, dev, dt, hq, hkv, d,
+                                           page, lens, window, None,
+                                           pps=1024 // page)
+        errs[f"gqa_attend_{label}"] = e9
+        errs[f"gqa_decode_split_shape_{label}"] = e2
+        cases[label] = (c, kw)
+    # Two calls, the same bits (fused prefill on a fresh cache each time).
+    c0 = pc["cache"].clone()
+    pargs = (pc["kv_lens"], pc["pages"], pc["cu"], pc["nseq"], pc["slots"],
+             None)
+    o1, _ = gqa_fused_prefill(pc["q"], pc["k"], pc["v"], c0.clone(), *pargs,
+                              **pkw)
+    o2, _ = gqa_fused_prefill(pc["q"], pc["k"], pc["v"], c0.clone(), *pargs,
+                              **pkw)
+    d1, _ = gqa_fused_decode(dc["q"], dc["k"], dc["v"], dc["cache"].clone(),
+                             dc["lens"], dc["pages"], dc["slots"], None, **dkw)
+    d2, _ = gqa_fused_decode(dc["q"], dc["k"], dc["v"], dc["cache"].clone(),
+                             dc["lens"], dc["pages"], dc["slots"], None, **dkw)
+    torch.cuda.synchronize()
+    if not (torch.equal(o1, o2) and torch.equal(d1, d2)):
+        raise AssertionError("d256: two calls of A1 / A2 differ")
+    emit({"phase": "kernels", "check": "attention_d256", "hq": hq,
+          "hkv": hkv, "d": d, "page": page, "max_abs_err": errs,
+          "append_max_abs_err": max(app_b, app_f, app_w),
+          "bf16_tol_atol_rtol": BF16_TOL, "f32_tol_atol_rtol": F32_TOL,
+          "cache_bitwise_equal": True, "two_calls_bitwise_equal": True,
+          "a9_equals_a2": True, "a1_one_token_rows_equal_a2": True})
+
+    out, device_only, esz = [], {}, 2
+
+    def entry(name, source, replaces, err, fn, plain_fn, lib_fn, b):
+        ms = time_ms(torch, fn, 30, flush)
+        plain = time_ms(torch, plain_fn, 5, flush)
+        lib = time_ms(torch, lib_fn, 30, flush)
+        device_only[name] = time_ms(torch, fn, 30, flush, hide_host=True)
+        device_only[name + "_library"] = time_ms(torch, lib_fn, 30, flush,
+                                                 hide_host=True)
+        out.append(dict(name=name, route="cuda", source=source,
+                        replaces=replaces, max_abs_err=err, ms=ms,
+                        plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                        library_ms=lib))
+
+    # A0: the prefill batch's append (749 tokens).
+    t_real = pc["t_real"]
+    cache = pc["cache"].clone()
+    flat = cache.view(-1, 2 * hkv, d)
+    rows = interleave_kv(pc["k"], pc["v"])[:t_real].contiguous()
+    idx = pc["slots"][:t_real].long()
+    entry("kv_append@d256", "parallax_tpu_torch/csrc/kv_append.cu",
+          "parallax_tpu/ops/prefill_fused_pallas.py:142", app_b,
+          lambda: kv_append(cache, pc["k"], pc["v"], pc["slots"]),
+          lambda: reshape_and_cache(cache, pc["k"], pc["v"], pc["slots"]),
+          lambda: flat.index_copy_(0, idx, rows),
+          bound(2 * t_real * 2 * hkv * d * esz, 0, "bfloat16"))
+    # A1 attend-only over the same batch (its append done above).
+    args = (pc["q"], cache, pc["kv_lens"], pc["pages"], pc["cu"],
+            pc["nseq"], None)
+    ctx_tokens = sum(c + q for c, q in zip(pre_q, pre_cached))
+    pairs = sum(sum(c + j + 1 for j in range(q))
+                for c, q in zip(pre_cached, pre_q))
+    entry("gqa_prefill@d256", "parallax_tpu_torch/csrc/gqa_prefill.cu",
+          "parallax_tpu/ops/prefill_fused_pallas.py:70",
+          errs["gqa_prefill_bf16"],
+          lambda: gqa_prefill_attend(*args, **pkw),
+          lambda: gqa_prefill_attend_plain(*args, **pkw),
+          _sdpa_prefill(torch, dict(pc, cache=cache), hq, hkv, d, page),
+          bound(2 * t_real * hq * d * esz + ctx_tokens * 2 * hkv * d * esz,
+                4 * hq * d * pairs, "bfloat16"))
+    # A2 over the 8 decode rows.
+    from parallax_tpu_torch.ops.decode_fused import gqa_fused_decode_plain
+
+    cache_k = dc["cache"].clone()
+    dargs = (dc["q"], dc["k"], dc["v"], cache_k, dc["lens"], dc["pages"],
+             dc["slots"], None)
+    ctx = sum(dec_lens)
+    s = len(dec_lens)
+    entry("gqa_decode@d256", "parallax_tpu_torch/csrc/gqa_decode.cu",
+          "parallax_tpu/ops/decode_fused_pallas.py:314",
+          errs["gqa_decode_bf16"],
+          lambda: gqa_fused_decode(*dargs, **dkw),
+          lambda: gqa_fused_decode_plain(*dargs, **dkw),
+          _sdpa_decode(torch, dict(dc, cache=cache_k), hq, hkv, d, page),
+          bound(2 * s * hq * d * esz + 2 * s * 2 * hkv * d * esz
+                + ctx * 2 * hkv * d * esz, 4 * hq * d * ctx, "bfloat16"))
+    # A9 (no sinks: Qwen3-Next has none) and A1 attend-only (K9's route)
+    # on the 7 split-path decode rows.
+    c, kw = cases["bf16"]
+    a9 = (c["q"], c["cache"], c["lens"], c["pages"], None)
+    ctx9 = sum(lens)
+    b9 = bound(2 * len(lens) * hq * d * esz + ctx9 * 2 * hkv * d * esz,
+               4 * hq * d * ctx9, "bfloat16")
+    sdpa9 = _sdpa_decode(torch, c, hq, hkv, d, page)
+    entry("gqa_attend@d256", "parallax_tpu_torch/csrc/gqa_decode.cu",
+          "parallax_tpu/ops/attention_pallas.py:130",
+          errs["gqa_attend_bf16"],
+          lambda: gqa_decode_attention(*a9, **kw),
+          lambda: gqa_decode_attention_plain(*a9, **kw), sdpa9, b9)
+    n7 = len(lens)
+    r_args = (c["q"], c["cache"], c["lens"], c["pages"],
+              torch.arange(n7 + 1, dtype=torch.int32, device=dev),
+              torch.tensor([n7], dtype=torch.int32, device=dev), None)
+    entry("ragged_attend@d256", "parallax_tpu_torch/csrc/gqa_prefill.cu",
+          "parallax_tpu/ops/attention.py:211", errs["gqa_attend_bf16"],
+          lambda: gqa_prefill_attend(*r_args, **kw),
+          lambda: gqa_prefill_attend_plain(*r_args, **kw), sdpa9, b9)
+    return out, device_only
+
+
 def attention_breakdown(torch, gen, dev, flush) -> dict:
     """Device microseconds per call of each launch of A1, A2, A9, A5, A3,
     A7 and A8 (split, combine, tile, candidate, pick and indexer kernels)
@@ -2448,7 +2641,7 @@ def engine_config(fused: bool, max_model_len: int = 1024, **over):
 def serve(torch, bounds, params, cfg, dev, fused: bool, long_prompt: int = 0,
           max_model_len: int = 1024, model_kw=None, engine_kw=None,
           cuda_graphs=None, requests=None, use_native=None, draft=None,
-          on_engines=None):
+          on_engines=None, grammar=True):
     """Serve the request mix: a single stage through the one-in-flight
     ``drive_step`` loop, a pipeline through ``step_round``. ``engine_kw``
     overrides the engine config (e.g. ``K1_SYNC``); ``cuda_graphs`` is the
@@ -2483,7 +2676,8 @@ def serve(torch, bounds, params, cfg, dev, fused: bool, long_prompt: int = 0,
         reqs, sampled = make_requests(cfg.vocab_size, long_prompt)
     else:
         reqs, sampled = requests
-        engines[-1].set_grammar_vocab(*GRAMMAR_VOCAB)
+        if grammar:
+            engines[-1].set_grammar_vocab(*GRAMMAR_VOCAB)
     torch.cuda.synchronize()
     t0 = time.monotonic()
     for r in reqs:
@@ -2529,12 +2723,17 @@ def one_shot_rows(torch, model, params, r, dev, max_len=1024):
     npg = (n + page - 1) // page
     ref_req = Request("ref", prompt_ids=list(ctx))
     ref_req.page_ids = list(range(1, npg + 1))
+    # A hybrid model's linear layers: state slot 1, reset (a first chunk).
+    hybrid = getattr(model, "has_linear_layers", False)
+    ref_req.state_slot = 1
     plan = BatchPlan([ScheduledSeq(request=ref_req, num_new_tokens=n,
                                    token_ids=list(ctx), context_len=n)])
     spec = BucketSpec.build(max_len, 1, max_len, page)
-    inputs = assemble(plan, spec, page, dev, gather_all_logits=True)
+    inputs = assemble(plan, spec, page, dev, gather_all_logits=True,
+                      with_dense_map=hybrid)
     kv = model.new_kv_caches(npg + 1, page, params["norm"]["weight"].dtype,
-                             dev)
+                             dev, **({"num_state_slots": 1} if hybrid
+                                     else {}))
     with torch.no_grad():
         logits, _ = model(params, kv, inputs)
     p0 = len(r.prompt_ids) - 1
@@ -3555,8 +3754,9 @@ def migrate_swarm(torch, dev, card, cfg, model_full, params) -> dict:
     n = cfg.num_hidden_layers
     roofline = sched_node.RooflinePerformanceModel
     real_capacity = roofline.max_layers_in_memory
+    # Half the served tree's layers a node (14 of the full 28).
     roofline.max_layers_in_memory = (
-        lambda self, kv_fraction=0.35: SCHED_CAPACITY)
+        lambda self, kv_fraction=0.35: n // 2)
     sched = GlobalScheduler(cfg, min_nodes_bootstrapping=4)
     sched.allocator.should_global_rebalance = (
         lambda active, cv_threshold=0.5: False)
@@ -4434,7 +4634,7 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
     from parallax_tpu_torch.models.loader import load_stage_params
     from parallax_tpu_torch.models.presets import PRESETS
 
-    raw = dict(PRESETS[DENSE_MODEL])
+    raw = dict(PRESETS[DENSE_MODEL], num_hidden_layers=cfg.num_hidden_layers)
     tensors = hf_tensors(tree[0])
     nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
     n = cfg.num_hidden_layers
@@ -4608,7 +4808,11 @@ def http_results(torch, dev, card, cfg, loaded, mix, sampled, outs,
     return reqs
 
 
-SWARM_BOUNDS = ((0, 14), (14, 28))
+# The checkpoint phases (http_serve through obs_serve, qos_serve's part b)
+# serve Qwen2.5-7B at full width and CKPT_LAYERS of its 28 layers: their
+# subject is the control plane, not the model (``serve`` keeps all 28).
+CKPT_LAYERS = 8
+SWARM_BOUNDS = ((0, CKPT_LAYERS // 2), (CKPT_LAYERS // 2, CKPT_LAYERS))
 SWARM_TIMEOUT_S = 300
 SWARM_EXIT_S = 30
 
@@ -4762,7 +4966,7 @@ def swarm_in_process(torch, dev, card, cfg, params, served, sampled):
                 summary["dispatch_total"].get("cuda-fused/multistep", 0):
             raise AssertionError(f"swarm_serve (a) {stage}: windows ran "
                                  f"{summary}")
-        mine = gqa_expected("fused", summary, 14)
+        mine = gqa_expected("fused", summary, SWARM_BOUNDS[0][1])
         if stage == "head" and (mine["sample_topk"] or mine["gumbel_rows"]):
             raise AssertionError(f"swarm_serve (a): the head sampled "
                                  f"{summary['dispatch_total']}")
@@ -4921,7 +5125,7 @@ def swarm_processes(torch, dev, card, cfg, params, ckpt, mix, sampled,
                 "--advertise-addr", "127.0.0.1", "--port", "0",
                 "--device", str(dev)]
 
-    names = ("join_0_14", "join_14_28", "chat_host")
+    names = tuple(f"join_{s}_{e}" for s, e in SWARM_BOUNDS) + ("chat_host",)
     paths = [os.path.join(ckpt, f"{nm}.log") for nm in names]
     logs = [open(path, "w+") for path in paths]
     probe = TcpTransport("", "127.0.0.1")
@@ -5136,7 +5340,7 @@ def phase_swarm_serve(torch, dev, card, cfg, params, ckpt, mix, sampled,
 # Part (a) tells the scheduler that each node holds this many layers (the
 # roofline's memory bound, patched as tests/test_swarm_e2e.py:62-72 does),
 # so it lays out one 14 + 14 pipeline over the two workers.
-SCHED_CAPACITY = 14
+SCHED_CAPACITY = CKPT_LAYERS // 2
 # Part (b)'s workers heartbeat every 2 s (the join's default): r7 goes out
 # once the other requests are done and a beat has carried their digests.
 SCHED_BEAT_WAIT_S = 2.5
@@ -7291,14 +7495,15 @@ def obs_swarm(torch, dev, card, cfg, ckpt: str, mix) -> dict:
               for t in traces]
     ev_nodes = {e.get("node") for e in timeline["events"]}
     checks = {
-        "one_14_14_pipeline": layout == [[[0, 14], [14, 28]]],
+        "one_two_stage_pipeline": layout == [[[0, SCHED_CAPACITY],
+                                               [SCHED_CAPACITY, CKPT_LAYERS]]],
         "mix_200": all(o.get("status") == 200 for o in outs),
         "merged_eq_sum_of_nodes": merged == summed and sum(merged.values()),
         "goodput_two_nodes": status["goodput"]["nodes"] == 2,
         "device_two_nodes": status["device"]["nodes"] == 2,
         "slo_section": bool(status.get("slo", {}).get("objectives")),
         "trace_stitched": sorted(s for st in stages for s in st)
-        == ["0-14", "14-28"],
+        == [f"0-{SCHED_CAPACITY}", f"{SCHED_CAPACITY}-{CKPT_LAYERS}"],
         "timeline_both_workers": set(node_ids) <= ev_nodes,
         "head_event_ingested": ingested > 0 and bool(head_events()),
         "exits_0": exits == [0, 0],
@@ -7525,6 +7730,10 @@ def teacher_forced_decode(torch, model, params, req, dev, kernel,
     npg = (len(prompt) + len(outs) + page - 1) // page
     ref = Request("teacher_forced", prompt_ids=prompt)
     ref.page_ids = list(range(1, npg + 1))
+    # A hybrid's linear layers carry the row's state in slot 1; only its
+    # full-attention layers launch the decode kernel.
+    hybrid = getattr(model, "has_linear_layers", False)
+    ref.state_slot = 1
     spec = BucketSpec.build(max_len, 1, max_len, page)
 
     def plan(tokens, ctx):
@@ -7532,11 +7741,18 @@ def teacher_forced_decode(torch, model, params, req, dev, kernel,
                                        token_ids=tokens, context_len=ctx)])
 
     kv = model.new_kv_caches(npg + 1, page, params["norm"]["weight"].dtype,
-                             dev)
+                             dev, **({"num_state_slots": 1} if hybrid
+                                     else {}))
     # An indexer model's top-k rows of each layer (the row of this stream).
     topk = []
     indexer = hasattr(model, "_indexer_topk")
     layers_per_step = None if indexer else model.num_local_layers
+    if hybrid:
+        from parallax_tpu_torch.config import LAYER_LINEAR
+
+        layers_per_step = sum(
+            model.config.layer_type(i) != LAYER_LINEAR
+            for i in range(model.start_layer, model.end_layer))
     if indexer:
         indexer_topk = model._indexer_topk
 
@@ -7564,13 +7780,15 @@ def teacher_forced_decode(torch, model, params, req, dev, kernel,
     try:
         with torch.no_grad():
             _, kv = model(params, kv, assemble(plan(prompt, len(prompt)),
-                                               spec, page, dev))
+                                               spec, page, dev,
+                                               with_dense_map=hybrid))
             for j, tok in enumerate(outs[:-1]):
                 p = plan([tok], len(prompt) + j + 1)
                 kv_f = [tuple(x if x is None else x.clone() for x in c)
                         if isinstance(c, tuple) else c.clone() for c in kv]
                 topk.clear()
                 lf, _ = model(params, kv_f, assemble(p, spec, page, dev,
+                                                     with_dense_map=hybrid,
                                                      decode_only=True,
                                                      decode_fused=True))
                 topk_f = list(topk)
@@ -7578,6 +7796,7 @@ def teacher_forced_decode(torch, model, params, req, dev, kernel,
                     layers_per_step = len(topk_f)
                 topk.clear()
                 lp, kv = model(params, kv, assemble(p, spec, page, dev,
+                                                    with_dense_map=hybrid,
                                                     decode_only=True))
                 diff = max(diff,
                            float((lf[0].float() - lp[0].float()).abs().max()))
@@ -7616,7 +7835,9 @@ def teacher_forced_decode(torch, model, params, req, dev, kernel,
 def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
                 margin, plain_kw, plain_note, long_prompt=0,
                 max_model_len=1024, teacher_forced=None, after=None,
-                k1_sync_short: bool = False) -> dict:
+                k1_sync_short: bool = False,
+                modes=("fused", "split", "fused_k1_sync", "plain"),
+                rows=None) -> dict:
     """Serve the mix on ``cfg``: fused decode and split decode (its kernels)
     with the engine's defaults (the window replayed from CUDA graphs), the
     fused kernels once more in the parent's configuration (K1_SYNC, for the
@@ -7635,6 +7856,8 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
     K1_SHORT_ROWS of the mix for K1_SHORT_NEW tokens each: its launches
     and its completion are checked as the full run's are, in a fraction
     of its time, and its rates are not comparable with the other runs'.
+    ``modes`` picks the runs (a subset of the four, "plain" always among
+    them) and ``rows`` serves only those requests of the mix.
     Returns each run's launches."""
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.ops import cuda_kernels as ck
@@ -7645,13 +7868,21 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
             ("fused", True, None, None), ("split", False, None, None),
             ("fused_k1_sync", True, None, K1_SYNC),
             ("plain", False, plain_kw, K1_SYNC)):
+        if mode not in modes:
+            continue
         short = mode == "fused_k1_sync" and k1_sync_short
         ck.reset_launches()
+        requests = k1_short_mix(cfg.vocab_size) if short else None
+        if rows is not None and not short:
+            mix, mix_sampled = make_requests(cfg.vocab_size, long_prompt)
+            requests = ([mix[i] for i in rows],
+                        {j: mix_sampled[i] for j, i in enumerate(rows)
+                         if i in mix_sampled})
         reqs, sampled, engines, t0, t1 = serve(
             torch, [(0, n)], params, cfg, dev, fused=fused,
             long_prompt=long_prompt, max_model_len=max_model_len,
-            model_kw=model_kw, engine_kw=engine_kw,
-            requests=k1_short_mix(cfg.vocab_size) if short else None)
+            model_kw=model_kw, engine_kw=engine_kw, requests=requests,
+            grammar=short)
         launches = ck.launches()
         new_tokens = K1_SHORT_NEW if short else 32
         for r in reqs:
@@ -7673,7 +7904,7 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
               "engine": engine_kw or "defaults",
               "launches": launches, "steps": decode_steps + prefill_steps,
               "decode_steps": decode_steps, "dispatch": summary,
-              "sharer_cached_tokens": None if short
+              "sharer_cached_tokens": None if short or len(reqs) < 8
               else reqs[7].num_cached_tokens,
               "mem_free_gb_after_serve": torch.cuda.mem_get_info()[0] / 1e9,
               "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -7682,13 +7913,14 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
         out[mode] = launches
         del engines
     greedy = [i for i in range(len(runs["fused"])) if i not in sampled]
+    other = runs.get("split", runs["fused"])
     differ = [runs["fused"][i].request_id for i in greedy
-              if runs["fused"][i].output_ids != runs["split"][i].output_ids]
+              if runs["fused"][i].output_ids != other[i].output_ids]
     if differ:
         raise AssertionError(f"{phase}: fused and split greedy rows differ: "
                              f"{differ}")
     sampled_same = sum(runs["fused"][i].output_ids
-                       == runs["split"][i].output_ids for i in sampled)
+                       == other[i].output_ids for i in sampled)
     model_plain = create_stage_model(cfg, 0, n, **plain_kw)
     # The split run's greedy rows are the fused run's, so one check holds
     # both; the plain run is checked the same way, without a limit, to
@@ -7707,7 +7939,8 @@ def serve_three(torch, dev, card, phase, cfg, params, expected, *, tol,
                   runs["fused"][greedy[-1] if long_prompt else greedy[0]],
                   dev, teacher_forced, max_model_len)})
     ok = worst < tol and over <= over_p + margin
-    emit({"phase": phase, "greedy_fused_equals_split": True,
+    emit({"phase": phase,
+          "greedy_fused_equals_split": True if "split" in runs else None,
           "sampled_rows_identical": sampled_same,
           "greedy_vs_plain": "pass" if ok else "FAIL",
           "largest_logit_gap": worst, "tolerance": tol,
@@ -7807,16 +8040,16 @@ def run_deepseek(torch, dev, card: str, want) -> dict:
 
 
 def run_gptoss(torch, dev, card: str, want) -> dict:
-    """Phase 13: gpt-oss-20b at full width and all 24 layers (random bf16
+    """Phase 13: gpt-oss-20b at full width and GPTOSS_LAYERS of its 24
+    layers (random bf16
     weights; each layer's sinks drawn N(0, 1) so that they matter) served
     three times: fused (A2 once per layer and decode step, A0 + A1 per layer
     and prefill step), split (A9 per layer and decode step, A1 attend-only
     per layer and prefill step, nothing else), fused with K1_SYNC on two
     rows for 8 tokens, and plain. Returns the launches of each run."""
     from parallax_tpu_torch.models import create_stage_model
-    from parallax_tpu_torch.models.presets import get_preset
 
-    cfg = get_preset(GPTOSS_MODEL)
+    cfg = cut_config(GPTOSS_MODEL, GPTOSS_LAYERS)
     n = cfg.num_hidden_layers
     free0, total = torch.cuda.mem_get_info()
     emit({"phase": "gptoss_serve", "model": GPTOSS_MODEL, "layers": n,
@@ -8074,6 +8307,496 @@ def run_minimax(torch, dev, card: str, want) -> dict:
         free_device_memory(torch)
     if want("m2_serve"):
         paths.update(phase_m2_serve(torch, dev, card))
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# next_serve / zoo_serve: the rest of the model zoo (Qwen3-Next, GLM-4,
+# Step-3.5)
+# ---------------------------------------------------------------------------
+
+NEXT_MODEL = "Qwen/Qwen3-Next-80B-A3B-Instruct"
+NEXT_LAYERS = 8
+# HF's Qwen3-Next (full_attention_interval 4): three linear layers, then a
+# full-attention one. The preset carries no layer_types (nor does the JAX
+# package's copy), so the cut names them.
+NEXT_LAYER_TYPES = (["linear_attention"] * 3 + ["full_attention"]) * 2
+# Random routing over 512 experts (top 10) flips experts at bf16's near
+# ties, as DeepSeek's and gpt-oss's do (ROADMAP queue 3): the served runs'
+# largest gap was 1.35 (plain 1.21) on the smoke's tree.
+NEXT_GREEDY_TOL = 2.5
+NEXT_OFF_MARGIN = 48
+NEXT_PREFIX = 300           # the prefix pair's first prompt
+GLM4_MODEL = "zai-org/GLM-4-9B-0414"
+GLM4_MOE_MODEL = "zai-org/GLM-4.5-Air"
+STEP_MODEL = "stepfun-ai/Step-3.5-Flash"
+# (model, layers kept, greedy limit, rows of the mix served); each tree is
+# dropped before the next is made.
+ZOO = ((GLM4_MODEL, 40, 0.5, None), (GLM4_MOE_MODEL, 2, 0.5, None),
+       (STEP_MODEL, 2, 1.5, (0, 1)))
+ZOO_OFF_MARGIN = 16
+
+
+def family_tree(torch, dev, phase: str, cfg, name: str, reserve_gb=0.0):
+    """A random bf16 tree of ``cfg`` from a seeded generator on the card;
+    with ``reserve_gb`` it first refuses to start unless the card has the
+    tree's bytes plus that much free."""
+    from parallax_tpu_torch.models import create_stage_model
+
+    n = cfg.num_hidden_layers
+    model = create_stage_model(cfg, 0, n)
+    free0, total = torch.cuda.mem_get_info()
+    need = cfg_param_count(cfg) * 2
+    emit({"phase": phase, "model": name, "layers": n,
+          "mem_free_gb_before_init": free0 / 1e9,
+          "tree_gb_estimate": need / 1e9, "mem_total_gb": total / 1e9})
+    if reserve_gb and free0 < need + reserve_gb * 1e9:
+        raise AssertionError(
+            f"{phase}: {free0 / 1e9:.1f} GB free, the tree needs "
+            f"{need / 1e9:.1f} GB + {reserve_gb} GB")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.monotonic()
+    params = model.init_params(gen, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    emit({"phase": phase, "weights": "random bf16",
+          "params": sum(t.numel() for t in _leaves(params)),
+          "init_s": round(time.monotonic() - t0, 3),
+          "mem_free_gb_after_load": torch.cuda.mem_get_info()[0] / 1e9})
+    return params
+
+
+def cfg_param_count(cfg) -> int:
+    """Parameters of ``cfg``'s tree, from an init on the meta device (no
+    memory, no draws)."""
+    import torch
+
+    from parallax_tpu_torch.models import create_stage_model
+
+    model = create_stage_model(cfg, 0, cfg.num_hidden_layers)
+    tree = model.init_params(None, torch.bfloat16, "meta")
+    return sum(t.numel() for t in _leaves(tree))
+
+
+def next_config():
+    from parallax_tpu_torch.config import normalize_config
+    from parallax_tpu_torch.models.presets import MODEL_DB
+
+    return normalize_config(dict(MODEL_DB[NEXT_MODEL],
+                                 num_hidden_layers=NEXT_LAYERS,
+                                 layer_types=NEXT_LAYER_TYPES),
+                            model_name=NEXT_MODEL)
+
+
+def _layer_counts(cfg, s, e) -> tuple[int, int]:
+    """(full-attention layers, MoE layers) of ``cfg``'s layers [s, e)."""
+    from parallax_tpu_torch.config import LAYER_LINEAR
+
+    full = sum(cfg.layer_type(i) != LAYER_LINEAR for i in range(s, e))
+    return full, sum(cfg.is_moe_layer(i) for i in range(s, e))
+
+
+def _greedy_gap(torch, model_plain, params, reqs, dev, max_len=1024) -> dict:
+    worst, over, *_ = greedy_check(torch, model_plain, params, reqs, {}, dev,
+                                   max_len=max_len)
+    return {"largest_logit_gap": worst,
+            f"tokens_off_by_{GREEDY_TOL}_or_more": over}
+
+
+def _serve_on(torch, dev, cfg, params, reqs, **engine_kw):
+    """``reqs`` one after another on one plain engine (K1_SYNC, prefix cache
+    off unless asked): a later request reuses an earlier one's state
+    slot."""
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.runtime.engine import StageEngine, drive_step
+
+    over = dict(K1_SYNC, enable_prefix_cache=False)
+    over.update(engine_kw)
+    engine = StageEngine(
+        create_stage_model(cfg, 0, cfg.num_hidden_layers, use_kernels=False,
+                           moe_kernel=False),
+        params, engine_config(False, **over), device=dev)
+    for r in reqs:
+        engine.submit(r)
+        pending = None
+        while engine.has_work() or pending is not None:
+            _, pending = drive_step(engine, pending)
+    torch.cuda.synchronize()
+    return reqs
+
+
+def _fresh(reqs, new: int = 16):
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    return [Request(f"{r.request_id}m", prompt_ids=list(r.prompt_ids),
+                    sampling_params=SamplingParams(temperature=0.0,
+                                                   max_new_tokens=new,
+                                                   ignore_eos=True))
+            for r in reqs]
+
+
+def next_mutations(torch, dev, cfg, params, model_plain, runs) -> dict:
+    """Whether NEXT_GREEDY_TOL separates a wrong model: two greedy rows
+    served one after another on one engine (the second, a 2-token prompt,
+    reuses the first's state slot) by the correct plain path and by two
+    mutants, each checked against the plain model's one-shot logits: the
+    slot reset skipped (the second row starts from the first's final
+    state; the random tree's recurrence forgets within a few tokens, so
+    only a short prompt shows it) and the attention output gate dropped.
+    At least one mutant must reach the limit."""
+    import dataclasses
+
+    from parallax_tpu_torch.models import qwen3_next as qn
+
+    short = runs["fused"][1]
+    base = [runs["fused"][0], type(short)(
+        "r1short", prompt_ids=list(short.prompt_ids[:2]),
+        sampling_params=short.sampling_params)]
+    out = {"correct": _greedy_gap(torch, model_plain, params, _serve_on(
+        torch, dev, cfg, params, _fresh(base)), dev)}
+    real_dn, real_ga = (qn.Qwen3NextStageModel._gated_delta_net,
+                        qn.Qwen3NextStageModel._gated_attention)
+
+    def no_reset(self, p, x, state, inputs):
+        return real_dn(self, p, x, state, dataclasses.replace(
+            inputs, reset_state=torch.zeros_like(inputs.reset_state)))
+
+    def no_gate(self, p, x, kv, inputs):
+        # The gate rows of q_proj given a huge bias: sigmoid(gate) = 1.
+        d = self.config.head_dim
+        w = p["q_proj"]["weight"].view(-1, 2 * d, p["q_proj"]["weight"]
+                                       .shape[1])
+        gate_off = dict(p, q_proj={
+            "weight": p["q_proj"]["weight"],
+            "bias": torch.cat([torch.zeros((w.shape[0], d), dtype=w.dtype,
+                                           device=w.device),
+                               torch.full((w.shape[0], d), 1e4,
+                                          dtype=w.dtype, device=w.device)],
+                              dim=1).reshape(-1)})
+        return real_ga(self, gate_off, x, kv, inputs)
+
+    for name, attr, fn in (("slot_reset_skipped", "_gated_delta_net",
+                            no_reset),
+                           ("output_gate_dropped", "_gated_attention",
+                            no_gate)):
+        setattr(qn.Qwen3NextStageModel, attr, fn)
+        try:
+            reqs = _serve_on(torch, dev, cfg, params, _fresh(base))
+        finally:
+            qn.Qwen3NextStageModel._gated_delta_net = real_dn
+            qn.Qwen3NextStageModel._gated_attention = real_ga
+        # The reset mutant shows on the second row (the reused slot).
+        out[name] = _greedy_gap(torch, model_plain, params,
+                                reqs[1:] if name == "slot_reset_skipped"
+                                else reqs, dev)
+    caught = [k for k in ("slot_reset_skipped", "output_gate_dropped")
+              if out[k]["largest_logit_gap"] >= NEXT_GREEDY_TOL]
+    emit({"phase": "next_serve", "check": "greedy_limit_vs_mutations",
+          "tolerance": NEXT_GREEDY_TOL, **out, "caught": caught})
+    if not caught:
+        raise AssertionError(f"next_serve: no mutant reaches the greedy "
+                             f"limit {NEXT_GREEDY_TOL}: {out}")
+    return out
+
+
+def next_graphs_off(torch, dev, card, cfg, params, runs) -> None:
+    """The fused run once more with the window's CUDA graphs off: every
+    row, greedy and seeded, the graphs run's bits (a capture's warm-up step
+    must not advance a row's recurrence twice)."""
+    reqs, _, _, t0, t1 = serve(torch, [(0, cfg.num_hidden_layers)], params,
+                               cfg, dev, fused=True, cuda_graphs=False)
+    differ = [r.request_id for r, g in zip(reqs, runs["fused"])
+              if r.output_ids != g.output_ids]
+    emit({"phase": "next_serve", "run": "fused_eager",
+          "rows_equal_to_graphs_run": len(reqs) - len(differ),
+          **stream_metrics(reqs, t0, t1), "card": card})
+    if differ:
+        raise AssertionError(f"next_serve: graphs off differs on {differ}")
+
+
+def next_pipeline(torch, dev, card, cfg, params, model_plain) -> None:
+    """The fused run through a 4 + 4 InProcessPipeline (each stage one
+    full-attention layer and three linear ones): launches exact per
+    stage's layers and forward steps, greedy rows within the limit."""
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+
+    n = cfg.num_hidden_layers
+    bounds = [(0, n // 2), (n // 2, n)]
+    ck.reset_launches()
+    reqs, sampled, engines, t0, t1 = serve(torch, bounds, params, cfg, dev,
+                                           fused=True)
+    launches = ck.launches()
+    want = {k: 0 for k in ck.KERNELS}
+    for (s, e), eng in zip(bounds, engines):
+        summary = eng.kernel_dispatch_summary()
+        decode, prefill = forward_steps(summary)
+        full, moe = _layer_counts(cfg, s, e)
+        want["gqa_decode"] += full * decode
+        want["kv_append"] += full * prefill
+        want["gqa_prefill"] += full * prefill
+        want["grouped_gemm"] += 3 * moe * (decode + prefill)
+        if e == n:
+            for k, v in sampler_launches(summary).items():
+                want[k] += v
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if bad:
+        raise AssertionError(f"next_serve pipeline: launches (got, want) "
+                             f"{bad}")
+    worst, over, *_ = greedy_check(torch, model_plain, params, reqs, sampled,
+                                   dev, tol=NEXT_GREEDY_TOL)
+    emit({"phase": "next_serve", "run": "pipeline_4_4",
+          "stages": [list(b) for b in bounds], "launches": launches,
+          "largest_logit_gap": worst,
+          f"tokens_off_by_{GREEDY_TOL}_or_more": over,
+          **stream_metrics(reqs, t0, t1), "card": card})
+
+
+def next_prefix_pair(torch, dev, card, cfg, params) -> None:
+    """A prefix-sharing pair on both cache managers: A (NEXT_PREFIX ids)
+    alone, then B (A's prompt and 40 ids more) alone on the same engine
+    (fused, the defaults); B must restore A's linear-state snapshot
+    (num_cached_tokens > 0) and give the stream it gives on an engine with
+    the prefix cache off."""
+    import random
+
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.runtime.engine import StageEngine, drive_step
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    rng = random.Random(77)
+    a_ids = [rng.randrange(1, cfg.vocab_size) for _ in range(NEXT_PREFIX)]
+    b_ids = a_ids + [rng.randrange(1, cfg.vocab_size) for _ in range(40)]
+
+    def run(prefix: bool, native, ids_list):
+        # 64-token chunks: the pair and the prefix-off run cut the prompt
+        # at the same boundaries, so each computes B's tail the same way.
+        engine = StageEngine(
+            create_stage_model(cfg, 0, cfg.num_hidden_layers), params,
+            engine_config(True, enable_prefix_cache=prefix,
+                          prefill_chunk_size=64),
+            device=dev, use_native=native)
+        out = []
+        for i, ids in enumerate(ids_list):
+            r = Request(f"p{i}", prompt_ids=list(ids),
+                        sampling_params=SamplingParams(
+                            temperature=0.0, max_new_tokens=16,
+                            ignore_eos=True))
+            engine.submit(r)
+            pending = None
+            while engine.has_work() or pending is not None:
+                _, pending = drive_step(engine, pending)
+            out.append(r)
+        torch.cuda.synchronize()
+        return out, type(engine.cache).__name__
+
+    oracle, _ = run(False, None, [b_ids])
+    line = {"phase": "next_serve", "check": "prefix_pair",
+            "prompt_tokens": [len(a_ids), len(b_ids)], "card": card}
+    for label, native in (("native", True), ("python", False)):
+        (a, b), manager = run(True, native, [a_ids, b_ids])
+        if b.num_cached_tokens <= 0:
+            raise AssertionError(f"next_serve prefix pair ({label}): no "
+                                 "snapshot restored")
+        if b.output_ids != oracle[0].output_ids:
+            raise AssertionError(f"next_serve prefix pair ({label}): the "
+                                 "stream differs from the prefix-off run")
+        line[label] = {"manager": manager,
+                       "num_cached_tokens": b.num_cached_tokens,
+                       "stream_equals_prefix_off": True}
+    emit(line)
+
+
+def next_linear_profile(torch, dev, card, cfg, params) -> dict:
+    """Device ms of one linear (GatedDeltaNet) layer and one gated
+    full-attention layer, the MoE FFN of each included, at a decode step
+    of 7 rows and at one 256-token prefill chunk, read from torch.profiler
+    (the device events' durations, 5 calls each, eager), for ROADMAP P6."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from parallax_tpu_torch.config import LAYER_LINEAR
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.models.base import BatchInputs
+
+    model = create_stage_model(cfg, 0, cfg.num_hidden_layers)
+    h = cfg.hidden_size
+    page = 64
+    kv = model.new_kv_caches(128, page, torch.bfloat16, dev,
+                             num_state_slots=8)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    out = {}
+
+    def inputs(rows, q):
+        t = rows * q
+        i32 = dict(dtype=torch.int32, device=dev)
+        pages = torch.arange(1, rows * 16 + 1, **i32).reshape(rows, 16)
+        ctx = 300 + q
+        pos = torch.arange(300, ctx, **i32).repeat(rows)
+        seq = torch.arange(rows, **i32).repeat_interleave(q)
+        return BatchInputs(
+            token_ids=None, hidden_states=None, positions=pos,
+            kv_lens=torch.full((rows,), ctx, **i32), page_indices=pages,
+            cu_q_lens=torch.arange(0, t + 1, q, **i32),
+            num_seqs=torch.tensor([rows], **i32),
+            slot_mapping=pages[seq.long(), (pos // page).long()] * page
+            + pos % page,
+            logits_indices=torch.arange(q - 1, t, q, **i32),
+            state_slots=torch.arange(1, rows + 1, **i32),
+            dense_map=torch.arange(t, **i32).reshape(rows, q),
+            q_lens=torch.full((rows,), q, **i32),
+            reset_state=torch.zeros((rows,), **i32),
+            decode_only=q == 1, decode_fused=q == 1, prefill_fused=q > 1)
+
+    for label, rows, q in (("decode_7_rows", 7, 1),
+                           ("prefill_256_tokens", 1, 256)):
+        inp = inputs(rows, q)
+        x = torch.randn((rows * q, h), generator=gen, device=dev).to(
+            torch.bfloat16)
+        for kind in ("linear", "full"):
+            li = next(i for i in range(cfg.num_hidden_layers)
+                      if (cfg.layer_type(i) == LAYER_LINEAR)
+                      == (kind == "linear"))
+            with torch.no_grad():
+                model._decoder_layer(params["layers"][li], x, kv[li], inp,
+                                     None)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        model._decoder_layer(params["layers"][li], x, kv[li],
+                                             inp, None)
+                    torch.cuda.synchronize()
+            us = sum(e.duration_ns() / 1e3
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA)
+            out[f"{kind}_layer_{label}_device_ms"] = us / 5 / 1e3
+            del prof
+    n_lin = sum(cfg.layer_type(i) == LAYER_LINEAR
+                for i in range(cfg.num_hidden_layers))
+    out["linear_layers_decode_step_device_ms"] = (
+        out["linear_layer_decode_7_rows_device_ms"] * n_lin)
+    emit({"phase": "next_serve", "check": "layer_device_ms", "layers": {
+        "linear": n_lin, "full": cfg.num_hidden_layers - n_lin}, **out,
+        "card": card})
+    return out
+
+
+def phase_next_serve(torch, dev, card: str) -> dict:
+    """Qwen3-Next-80B-A3B at full width and NEXT_LAYERS layers (linear
+    0-2, full 3, linear 4-6, full 7; MoE everywhere: E 512, top 10): the
+    mix fused (A0 + A1 and A2 at head dim 256 on the full layers, A4 three
+    times a layer and forward step, A3), split (A1 attend-only), fused with
+    K1_SYNC on two rows and plain; a 4 + 4 pipeline; the prefix pair on
+    both managers; the greedy limit against two mutants; the layers'
+    device ms. Returns the fused and split runs' launches."""
+    cfg = next_config()
+    params = family_tree(torch, dev, "next_serve", cfg, NEXT_MODEL)
+    # HF's Qwen3-Next initializes its (1 + w) norms at w = 0, a unit scale;
+    # the JAX package's init (which the port's copies) leaves them at ones,
+    # a scale of 2 at every norm, which sharpens every attention and the
+    # logits and lets bf16 rounding move the greedy stream. The smoke
+    # serves HF's convention.
+    for lp in params["layers"]:
+        for norm in (lp["input_layernorm"], lp["post_attention_layernorm"],
+                     *(lp["self_attn"][k] for k in ("q_norm", "k_norm")
+                       if "self_attn" in lp)):
+            norm["weight"].zero_()
+    params["norm"]["weight"].zero_()
+    n = cfg.num_hidden_layers
+    full, moe = _layer_counts(cfg, 0, n)
+
+    def expected(mode, summary):
+        if mode == "plain":
+            return {}
+        return {**gqa_expected(mode, summary, full),
+                "grouped_gemm": 3 * moe * sum(forward_steps(summary))}
+
+    def after(model_plain, runs):
+        next_mutations(torch, dev, cfg, params, model_plain, runs)
+        next_graphs_off(torch, dev, card, cfg, params, runs)
+        next_pipeline(torch, dev, card, cfg, params, model_plain)
+        next_prefix_pair(torch, dev, card, cfg, params)
+        next_linear_profile(torch, dev, card, cfg, params)
+
+    runs = serve_three(
+        torch, dev, card, "next_serve", cfg, params, expected,
+        tol=NEXT_GREEDY_TOL, margin=NEXT_OFF_MARGIN,
+        plain_kw=dict(moe_kernel=False, use_kernels=False),
+        plain_note="moe_ffn(kernel=False) + plain attention; the linear "
+                   "layers are plain PyTorch on every route",
+        after=after, k1_sync_short=True, teacher_forced="gqa_decode")
+    return {f"next_serve/{mode}": launches for mode, launches in runs.items()}
+
+
+def step_mutation(torch, dev, cfg, params, model_plain, runs, tol) -> None:
+    """Whether the greedy limit separates Step-3.5 without its head-wise
+    attention gate: the fused run's rows served again by the plain path
+    with ``g_proj`` dropped, against the correct plain model's logits."""
+    from parallax_tpu_torch.models import step3p5
+
+    real = step3p5.Step3p5StageModel._attention
+
+    def no_gate(self, lp, h, kv, inputs, window):
+        attn = {k: v for k, v in lp["self_attn"].items() if k != "g_proj"}
+        return real(self, dict(lp, self_attn=attn), h, kv, inputs, window)
+
+    step3p5.Step3p5StageModel._attention = no_gate
+    try:
+        reqs = _serve_on(torch, dev, cfg, params, _fresh(runs["fused"][:1]))
+    finally:
+        step3p5.Step3p5StageModel._attention = real
+    gap = _greedy_gap(torch, model_plain, params, reqs, dev)
+    emit({"phase": "zoo_serve", "model": STEP_MODEL,
+          "check": "greedy_limit_vs_mutation", "tolerance": tol,
+          "head_gate_dropped": gap,
+          "caught": gap["largest_logit_gap"] >= tol})
+    if gap["largest_logit_gap"] < tol:
+        raise AssertionError(f"zoo_serve: the head-gate mutant stays under "
+                             f"the greedy limit {tol}: {gap}")
+
+
+def phase_zoo_serve(torch, dev, card: str) -> dict:
+    """GLM-4-9B-0414 (all 40 layers), GLM-4.5-Air (2 of 46: dense layer 0,
+    MoE layer 1) and Step-3.5-Flash (2 of 45: one full, one sliding layer;
+    the tree's bytes plus 2 GB must be free), one tree at a time: fused
+    (A0 + A1, A2, A3; A4 on MoE layers) and plain, launches exact, greedy
+    rows within each model's limit; Step-3.5's limit against its head-gate
+    mutant. Returns the fused runs' launches."""
+    paths = {}
+    for name, layers, tol, rows in ZOO:
+        from parallax_tpu_torch.config import LAYER_SLIDING
+
+        cfg = cut_config(name, layers)
+        params = family_tree(torch, dev, "zoo_serve", cfg, name,
+                             reserve_gb=2.0 if name == STEP_MODEL else 0.0)
+        n = cfg.num_hidden_layers
+        moe = sum(cfg.is_moe_layer(i) for i in range(n))
+
+        def expected(mode, summary, n=n, moe=moe):
+            if mode == "plain":
+                return {}
+            return {**gqa_expected(mode, summary, n),
+                    "grouped_gemm": 3 * moe * sum(forward_steps(summary))}
+
+        after = None
+        if name == STEP_MODEL:
+            def after(model_plain, runs, cfg=cfg, params=params, tol=tol):
+                step_mutation(torch, dev, cfg, params, model_plain, runs, tol)
+        emit({"phase": "zoo_serve", "model": name, "layers": n,
+              "moe_layers": moe, "sliding_layers": sum(
+                  cfg.layer_type(i) == LAYER_SLIDING for i in range(n)),
+              "partial_rotary_factor": cfg.partial_rotary_factor})
+        runs = serve_three(
+            torch, dev, card, "zoo_serve", cfg, params, expected, tol=tol,
+            margin=ZOO_OFF_MARGIN,
+            plain_kw=dict(moe_kernel=False, use_kernels=False)
+            if cfg.moe is not None else dict(use_kernels=False),
+            plain_note=f"{name}: plain attention"
+            + (" + moe_ffn(kernel=False)" if moe else ""),
+            modes=("fused", "plain"), rows=rows, after=after)
+        paths[f"zoo_serve/{name}"] = runs["fused"]
+        del params
+        free_device_memory(torch)
     return paths
 
 
@@ -8715,10 +9438,19 @@ KERNEL_PATH = {
     "indexer_scores": "dsa_serve/split",
     "gqa_attend": "gptoss_serve/split", "ragged_attend": "serve/split",
     "gumbel_rows": "serve/fused",
+    # Head dim 256: Qwen3-Next's full-attention layers. A9 takes no D 256
+    # row on a served path (Qwen3-Next has no sinks): its entry reports
+    # the kernel's launches on its own path.
+    "kv_append@d256": "next_serve/fused", "gqa_prefill@d256":
+    "next_serve/fused", "gqa_decode@d256": "next_serve/fused",
+    "ragged_attend@d256": "next_serve/split",
+    "gqa_attend@d256": "gptoss_serve/split",
 }
 # The launch counter of an entry that is not a kernel of its own: K9's
-# route is A1 (gqa_prefill) in attend-only mode.
-KERNEL_COUNTER = {"ragged_attend": "gqa_prefill"}
+# route is A1 (gqa_prefill) in attend-only mode; a shape's entry
+# (``<kernel>@<shape>``) counts its kernel's launches.
+KERNEL_COUNTER = {"ragged_attend": "gqa_prefill",
+                  "ragged_attend@d256": "gqa_prefill"}
 
 
 # The phases on the Qwen2.5-7B tree after serve, pipeline and profile, in
@@ -9402,7 +10134,14 @@ def run_dense(torch, dev, card: str, want) -> dict:
     if any(want(p) for p in ("http_serve", "swarm_serve", "sched_serve",
                              "ha_serve", "relay_serve", "obs_serve",
                              "qos_serve")):
-        tree = [params]
+        from parallax_tpu_torch.config import normalize_config
+        from parallax_tpu_torch.models.presets import PRESETS
+
+        # The checkpoint phases' cut: the first CKPT_LAYERS layers (views).
+        cfg = normalize_config(dict(PRESETS[DENSE_MODEL],
+                                    num_hidden_layers=CKPT_LAYERS),
+                               model_name=DENSE_MODEL)
+        tree = [_draft_tree(params, CKPT_LAYERS)]
         del params
         phase_http_serve(torch, dev, card, cfg, tree,
                          swarm=want("swarm_serve"), sched=want("sched_serve"),
@@ -9443,8 +10182,8 @@ def main() -> int:
                          "moe_serve,"
                          "moe_profile,"
                          "mla_serve,mla_profile,dsa_serve,dsa_profile,"
-                         "gptoss_serve,gptoss_profile,msa_serve,m2_serve); "
-                         "prints no result line")
+                         "gptoss_serve,gptoss_profile,msa_serve,m2_serve,"
+                         "next_serve,zoo_serve); prints no result line")
     ap.add_argument("--host-ms", metavar="LABEL",
                     help="measure the serving loop's host ms a visit on "
                          "this script's tree and print one line (see "
@@ -9514,10 +10253,16 @@ def main() -> int:
     free_device_memory(torch)
     if want("msa_serve") or want("m2_serve"):
         paths.update(run_minimax(torch, dev, card, want))
+    free_device_memory(torch)
+    if want("next_serve"):
+        paths.update(phase_next_serve(torch, dev, card))
+    free_device_memory(torch)
+    if want("zoo_serve"):
+        paths.update(phase_zoo_serve(torch, dev, card))
     if only:
         return 0
     for k in kernels:
-        counter = KERNEL_COUNTER.get(k["name"], k["name"])
+        counter = KERNEL_COUNTER.get(k["name"], k["name"].split("@")[0])
         k["launches"] = paths[KERNEL_PATH[k["name"]]][counter]
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: not launched on its path")

@@ -345,7 +345,12 @@ def serve_main(args, on_start=None) -> int:
         from parallax_tpu_torch.runtime.engine import DraftProposer
 
         # A single full stage holds every layer (checked above); the port
-        # has no tensor parallelism to refuse.
+        # has no tensor parallelism to refuse. A hybrid main model never
+        # speculates (its recurrent state cannot rewind), so its draft
+        # would only hold memory.
+        if config.linear_attn is not None:
+            raise ValueError("--draft-model-path does not support hybrid "
+                             "linear-attention main models")
         draft_cfg = load_config(args.draft_model_path)
         draft_model = create_stage_model(
             draft_cfg, 0, draft_cfg.num_hidden_layers)

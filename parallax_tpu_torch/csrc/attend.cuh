@@ -6,7 +6,8 @@
 //
 // A block owns one KV head h and a set of query "rows", each a (token,
 // query head of h's group) pair: row r is token tok0 + r / G and head
-// h * G + r % G (G = Hq / Hkv, any value up to 32). Rows are cut into m16
+// h * G + r % G (G = Hq / Hkv, any value up to 32; head dim D 64, 128 or
+// 256). Rows are cut into m16
 // tiles, one per warp along rows (WM warps); the key tiles are cut among
 // WK warps along keys. Per key tile of kKT context positions the block
 //   1. streams the tile's K and V rows of head h into a ring of kStages
@@ -35,7 +36,7 @@
 //   row's splits in split order with the sink folded in once (m = sink,
 //   l = 1) and writes o / max(l, 1e-30): rows with kv_len 0 get exact
 //   zeros. No floating-point atomics: every run gives the same bits.
-// - prefill_tile: up to kTileRows rows of one sequence's tokens over the
+// - prefill_tile: up to Shape::kRows rows of one sequence's tokens over the
 //   causal range of its context, sinks seeded into m and l, written as
 //   o * (1 / max(l, 1e-30)).
 #pragma once
@@ -52,6 +53,21 @@ constexpr int kMaxSplits = 32;       // the most splits of one row
 constexpr int kDecodeThreads = 128;  // decode blocks: 4 warps
 constexpr int kTileWarps = 8;        // multi-token tiles: 8 warps x 16 rows
 constexpr int kTileRows = 16 * kTileWarps;
+
+// The ring depth and the multi-token tile of one (cache type, head dim).
+// An f32 block at D = 256 would need 399 KB at the default shape (rows +
+// 2 kStages kKT rows of D + 4 floats), past the 227 KB a block can have:
+// it keeps the 64-key tile (so its sums run in the same order as every
+// other instantiation's) but one ring stage and four warps of rows
+// (64 rows: 195 KB; a decode block of 32 rows: 163 KB). Every other
+// instantiation takes the defaults (bf16 at D = 256: 198 KB a tile).
+template <typename T, int D>
+struct Shape {
+  static constexpr bool kWide = sizeof(T) == 4 && D > 128;
+  static constexpr int kRing = kWide ? 1 : kStages;
+  static constexpr int kWarps = kWide ? 4 : kTileWarps;
+  static constexpr int kRows = 16 * kWarps;
+};
 
 struct AttnParams {
   int hq, hkv, g, page, pps;
@@ -70,10 +86,11 @@ struct Tile {
 };
 
 // Bytes of dynamic shared memory of a block with ``rows`` query rows: the
-// query tile, then kStages stages of (K tile, V tile).
+// query tile, then Shape::kRing stages of (K tile, V tile).
 template <typename T, int D>
 inline size_t attn_smem_bytes(int rows) {
-  return (size_t)(rows + 2 * kStages * kKT) * Tile<T, D>::kLd * sizeof(T);
+  return (size_t)(rows + 2 * Shape<T, D>::kRing * kKT) * Tile<T, D>::kLd *
+         sizeof(T);
 }
 
 // A row's decode splits: ``count`` runs of ``per`` pages from ``lo_page``
@@ -358,6 +375,7 @@ __device__ inline void attend_keys(char* smem, const T* cache,
     klo[i] = ap.window > 0 ? qpos[i] - ap.window + 1 : 0;
     khi[i] = min(qpos[i] + 1, kend);
   }
+  constexpr int kRing = Shape<T, D>::kRing;
   constexpr int NT = 32 * WM * WK;
   constexpr int KW = kKT / WK;
   constexpr int LD = Tile<T, D>::kLd;
@@ -370,7 +388,7 @@ __device__ inline void attend_keys(char* smem, const T* cache,
   const int wq = __reduce_max_sync(0xffffffffu, max(qpos[0], qpos[1]));
   const int ntiles = kend > kstart ? (kend - kstart + kKT - 1) / kKT : 0;
 #pragma unroll
-  for (int st = 0; st < kStages; ++st) {
+  for (int st = 0; st < kRing; ++st) {
     if (st < ntiles) {
       load_kv<T, D, NT>(ring + 2 * st * kKT * LD, ring + (2 * st + 1) * kKT * LD,
                         cache, pages_row, kstart + st * kKT, kend, h, ap);
@@ -378,9 +396,9 @@ __device__ inline void attend_keys(char* smem, const T* cache,
     cp_async_commit();
   }
   for (int i = 0; i < ntiles; ++i) {
-    cp_async_wait<kStages - 1>();
+    cp_async_wait<kRing - 1>();
     __syncthreads();
-    const int st = i % kStages;
+    const int st = i % kRing;
     const T* ks = ring + 2 * st * kKT * LD;
     const T* vs = ks + kKT * LD;
     const int pos0 = kstart + i * kKT + kb;
@@ -391,9 +409,9 @@ __device__ inline void attend_keys(char* smem, const T* cache,
       tile_pv<D, KW>(acc, s, vs, kb);
     }
     __syncthreads();
-    if (i + kStages < ntiles) {
+    if (i + kRing < ntiles) {
       load_kv<T, D, NT>(ring + 2 * st * kKT * LD, ring + (2 * st + 1) * kKT * LD,
-                        cache, pages_row, kstart + (i + kStages) * kKT, kend,
+                        cache, pages_row, kstart + (i + kRing) * kKT, kend,
                         h, ap);
     }
     cp_async_commit();
@@ -627,7 +645,7 @@ __device__ inline void prefill_tile(char* smem, const T* q, const T* cache,
                                     int nseq, int t, int q_tile,
                                     const float* sinks, int tile, int h,
                                     const AttnParams& ap) {
-  constexpr int NT = 32 * kTileWarps;
+  constexpr int NT = 32 * Shape<T, D>::kWarps;
   int seq, tok0, tok_end, seq_end;
   if (!find_tile(cu, nseq, t, q_tile, tile, &seq, &tok0, &tok_end, &seq_end)) {
     return;
@@ -642,8 +660,8 @@ __device__ inline void prefill_tile(char* smem, const T* q, const T* cache,
     }
     return;
   }
-  load_q<T, D, NT>(reinterpret_cast<T*>(smem), q, tok0, rows, kTileRows, h,
-                   ap);
+  load_q<T, D, NT>(reinterpret_cast<T*>(smem), q, tok0, rows,
+                   Shape<T, D>::kRows, h, ap);
   cp_async_commit();
   const int n = kv_lens[seq];
   const int qoff = n - seq_end;
@@ -667,9 +685,9 @@ __device__ inline void prefill_tile(char* smem, const T* q, const T* cache,
   const int kstart =
       ap.window > 0 ? max(qmin - ap.window + 1, 0) / ap.page * ap.page : 0;
   const int kend = min(qoff + tok_end, n);
-  attend_keys<T, D, kTileWarps, 1>(smem, cache,
-                                   page_indices + (long long)seq * ap.pps,
-                                   kstart, kend, h, ap, qpos, acc);
+  attend_keys<T, D, Shape<T, D>::kWarps, 1>(smem, cache,
+                                            page_indices + (long long)seq * ap.pps,
+                                            kstart, kend, h, ap, qpos, acc);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float inv = 1.f / fmaxf(quad_sum(acc.l[i]), 1e-30f);
@@ -697,17 +715,21 @@ inline int dispatch_group(int g, A... args) {
                  : F::template run<T, D, 2>(args...);
 }
 
+template <typename F, typename T, typename... A>
+inline int dispatch_dim(int d, int g, A... args) {
+  switch (d) {
+    case 64: return dispatch_group<F, T, 64>(g, args...);
+    case 128: return dispatch_group<F, T, 128>(g, args...);
+    case 256: return dispatch_group<F, T, 256>(g, args...);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename F, typename... A>
 inline int dispatch_attn(int dtype, int d, int g, A... args) {
-  if (g < 1 || g > 32 || (d != 64 && d != 128)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (dtype == kBF16) {
-    return d == 64 ? dispatch_group<F, __nv_bfloat16, 64>(g, args...)
-                   : dispatch_group<F, __nv_bfloat16, 128>(g, args...);
-  }
-  return d == 64 ? dispatch_group<F, float, 64>(g, args...)
-                 : dispatch_group<F, float, 128>(g, args...);
+  if (g < 1 || g > 32) return (int)cudaErrorInvalidValue;
+  return dtype == kBF16 ? dispatch_dim<F, __nv_bfloat16>(d, g, args...)
+                        : dispatch_dim<F, float>(d, g, args...);
 }
 
 }  // namespace pk

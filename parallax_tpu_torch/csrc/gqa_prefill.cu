@@ -13,9 +13,9 @@
 // a decode step, bound by latency as gqa_decode.cu says.
 // Design: per-sequence tiles, no tile straddles two sequences. Three
 // launches on one stream, no host sync:
-// 1. Multi-token tiles, grid (tile bound, Hkv). A tile is up to kTileRows
-//    (token, head) rows of one sequence (q_tile = kTileRows / G tokens),
-//    eight warps of 16 rows, with bf16 m16n8k16 tensor-core products for
+// 1. Multi-token tiles, grid (tile bound, Hkv). A tile is up to
+//    Shape::kRows (token, head) rows of one sequence (q_tile = kRows / G
+//    tokens), eight warps of 16 rows (four for f32 at D = 256), with bf16 m16n8k16 tensor-core products for
 //    Q K^T and P V and the online softmax in registers, over pages streamed
 //    through a two-stage cp.async ring (attend.cuh). Each block finds its
 //    (sequence, tile) from cu_q_lens / num_seqs on the device: warp 0
@@ -52,9 +52,12 @@ struct PrefillArgs {
 };
 
 // Two bf16 blocks fit an SM (104 KB of shared memory each at D = 128) when
-// each thread keeps to 128 registers; an f32 block takes 198 KB.
+// each thread keeps to 128 registers; an f32 block takes 198 KB, a bf16
+// block at D = 256 198 KB (one a SM, up to 255 registers a thread: the
+// 16-row output accumulator alone is 128 f32 registers at D = 256).
 template <typename T, int D>
-__global__ void __launch_bounds__(32 * pk::kTileWarps, sizeof(T) == 2 ? 2 : 1)
+__global__ void __launch_bounds__(32 * pk::Shape<T, D>::kWarps,
+                                  sizeof(T) == 2 && D <= 128 ? 2 : 1)
     gqa_prefill_tile_kernel(const PrefillArgs a) {
   extern __shared__ __align__(16) char smem[];
   pk::prefill_tile<T, D>(smem, static_cast<const T*>(a.q),
@@ -97,15 +100,21 @@ struct Launch {
   static int run(const PrefillArgs& a, cudaStream_t st) {
     // Every multi-token sequence, and the padding, wastes less than one
     // tile; at most min(S, t / 2) sequences hold two tokens or more.
+    using S = pk::Shape<T, D>;
+    // A tile's rows must fit the block's query rows (the wrapper's
+    // q_tile_for(G, tile_rows(D, elem))).
+    if (a.q_tile < 1 || a.q_tile * a.ap.g > S::kRows) {
+      return (int)cudaErrorInvalidValue;
+    }
     const long long multi = a.s < a.t / 2 ? a.s : a.t / 2;
     const long long tiles =
         ((long long)a.t + (multi + 1) * (a.q_tile - 1)) / a.q_tile;
-    const size_t tile_smem = pk::attn_smem_bytes<T, D>(pk::kTileRows);
+    const size_t tile_smem = pk::attn_smem_bytes<T, D>(S::kRows);
     auto tile = gqa_prefill_tile_kernel<T, D>;
     cudaError_t err = pk::allow_smem(tile, tile_smem);
     if (err != cudaSuccess) return (int)err;
-    tile<<<dim3((unsigned)tiles, a.ap.hkv), 32 * pk::kTileWarps,
-           tile_smem, st>>>(a);
+    tile<<<dim3((unsigned)tiles, a.ap.hkv), 32 * S::kWarps, tile_smem,
+           st>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess || a.s == 0) return (int)err;
     const size_t split_smem = pk::attn_smem_bytes<T, D>(16 * MT);

@@ -20,7 +20,12 @@ import torch
 from parallax_tpu_torch.config import LAYER_SLIDING, ModelConfig
 from parallax_tpu_torch.models import layers as L
 from parallax_tpu_torch.ops.kv_cache_ops import new_kv_pages
-from parallax_tpu_torch.ops.rope import rope_frequencies, rope_table, yarn_mscale
+from parallax_tpu_torch.ops.rope import (
+    apply_rope,
+    rope_frequencies,
+    rope_table,
+    yarn_mscale,
+)
 
 # init_params draws a tensor of up to this many elements in one call.
 _WHOLE_DRAW = 1 << 30
@@ -43,6 +48,13 @@ class BatchInputs:
     num_seqs: torch.Tensor              # i32[1]
     slot_mapping: torch.Tensor          # i32[T]
     logits_indices: torch.Tensor        # i32[S] last-token row per sequence
+    # Hybrid (linear-attention) models only; None otherwise.
+    state_slots: torch.Tensor | None = None  # i32[S] per-seq state slot
+    dense_map: torch.Tensor | None = None    # i32[S, maxq] row per step
+    q_lens: torch.Tensor | None = None       # i32[S] valid steps per row
+    # 1 on a request's first chunk: its (possibly reused) slot is zeroed
+    # before use.
+    reset_state: torch.Tensor | None = None  # i32[S]
     # Every segment is a single decode token (row i == sequence i).
     decode_only: bool = False
     # Attention layers run the fused decode kernel (append inside it).
@@ -61,6 +73,10 @@ class StageModel:
     runs_mla = False
     runs_dsa = False
     runs_msa = False
+    # Whether this block runs a hybrid config's linear-attention layers.
+    runs_linear = False
+    # NeoX-halves rope; GLM-4 overrides it with the interleaved convention.
+    rope_fn = staticmethod(apply_rope)
     # 0.0 = llama convention (ones-init weights); 1.0 = the Gemma zero-init
     # ``x_hat * (1 + w)`` for the layer, final and qk norms.
     norm_offset = 0.0
@@ -158,15 +174,10 @@ class StageModel:
             return {"weight": torch.ones((n,), dtype=dtype, device=device)}
 
         h = cfg.hidden_size
-        params: dict = {"layers": []}
-        for li in range(self.num_local_layers):
-            gi = self.start_layer + li
-            params["layers"].append({
-                "input_layernorm": ones(h),
-                "post_attention_layernorm": ones(h),
-                "self_attn": self._init_attention(gi, normal, dense, ones),
-                "mlp": self._init_mlp(gi, normal, dense),
-            })
+        params: dict = {"layers": [
+            self._init_layer(self.start_layer + li, normal, dense, ones)
+            for li in range(self.num_local_layers)
+        ]}
         # The last stage of a tied-embedding model also needs the embedding
         # matrix (it IS the lm_head).
         if self.is_first or (self.is_last and cfg.tie_word_embeddings):
@@ -178,6 +189,17 @@ class StageModel:
             if not cfg.tie_word_embeddings:
                 params["lm_head"] = {"weight": normal((cfg.vocab_size, h), 0.02)}
         return params
+
+    def _init_layer(self, layer_idx: int, normal, dense, ones) -> dict:
+        """The params of global layer ``layer_idx``: norms, attention,
+        FFN, in ``init_params``'s draw order."""
+        h = self.config.hidden_size
+        return {
+            "input_layernorm": ones(h),
+            "post_attention_layernorm": ones(h),
+            "self_attn": self._init_attention(layer_idx, normal, dense, ones),
+            "mlp": self._init_mlp(layer_idx, normal, dense),
+        }
 
     def _init_attention(self, layer_idx: int, normal, dense, ones) -> dict:
         """The attention params of global layer ``layer_idx``, drawn with
@@ -270,6 +292,7 @@ class StageModel:
             decode_only=inputs.decode_only,
             decode_fused=inputs.decode_fused,
             prefill_fused=inputs.prefill_fused,
+            rope_fn=self.rope_fn,
         )
 
     def _mlp(self, lp: dict, h: torch.Tensor) -> torch.Tensor:

@@ -122,13 +122,15 @@ def paged_attention_block(
     decode_only: bool = False,
     decode_fused: bool = False,
     prefill_fused: bool = False,
+    rope_fn=apply_rope,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """GQA attention over the paged cache: project, qk-norm, rope, append,
     attend, project out. New K/V always enter the cache first (in place)
     and attention always reads the cache, so prefix hits and chunked
     prefill need no separate path. ``p["sinks"]`` (gpt-oss), when present,
     joins every head's softmax; ``use_kernels`` picks the split path's
-    kernels or plain PyTorch."""
+    kernels or plain PyTorch; ``rope_fn`` is the model's rotary convention
+    (GLM-4: ``apply_rope_interleaved``)."""
     t = x.shape[0]
     d = config.head_dim
     q = linear(x, p["q_proj"]).reshape(t, -1, d)
@@ -138,8 +140,8 @@ def paged_attention_block(
     if config.use_qk_norm and "q_norm" in p:
         q = rms_norm(q, p["q_norm"]["weight"], config.rms_norm_eps)
         k = rms_norm(k, p["k_norm"]["weight"], config.rms_norm_eps)
-    q = apply_rope(q, positions, cos_table, sin_table).contiguous()
-    k = apply_rope(k, positions, cos_table, sin_table)
+    q = rope_fn(q, positions, cos_table, sin_table).contiguous()
+    k = rope_fn(k, positions, cos_table, sin_table)
     out, kv_pages = append_and_attend(
         q, k, v, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
         slot_mapping,

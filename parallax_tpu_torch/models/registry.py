@@ -6,9 +6,11 @@ architectures share the base block (config flags drive qk-norm / bias /
 sliding-window differences; a ``sinks`` leaf in a layer's attention params
 joins its softmax); model families register their class with
 :func:`register_model` (``models/qwen3_moe.py``, ``models/deepseek_v3.py``,
-``models/deepseek_v32.py``, ``models/gpt_oss.py``). Anything else, and any
-feature a registered class does not run (its ``runs_moe`` / ``runs_mla`` /
-``runs_dsa`` flags), raises "not ported yet".
+``models/deepseek_v32.py``, ``models/gpt_oss.py``, ``models/glm4.py``,
+``models/step3p5.py``, ``models/qwen3_next.py``, ...). Anything else, and
+any feature a registered class does not run (its ``runs_moe`` /
+``runs_mla`` / ``runs_dsa`` / ``runs_msa`` / ``runs_linear`` flags), raises
+"not ported yet".
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ def unported_features(config: ModelConfig,
         ("MLA", config.mla is not None and not (cls and cls.runs_mla)),
         ("DSA", config.dsa is not None and not (cls and cls.runs_dsa)),
         ("MSA", config.msa is not None and not (cls and cls.runs_msa)),
-        ("hybrid linear attention", config.linear_attn is not None),
+        ("hybrid linear attention",
+         config.linear_attn is not None and not (cls and cls.runs_linear)),
     ):
         if on:
             feats.append(name)

@@ -16,9 +16,10 @@ The shared library builds with g++ at first use into the git-ignored
 flags (as ``ops/cuda_kernels.py`` names the kernels' library): each
 process compiles to a temp file of its own and renames it into place, so
 processes building at once never load a half-written library, and nothing is
-written beside the source. The linear-state slot functions are compiled
-but not bound: hybrid models and LoRA namespaces are refused by name
-(ROADMAP queue 1 item 11).
+written beside the source. Hybrid models' linear-state snapshots ride the
+tree's slot calls (``radix_attach_slot``, ``radix_detach_lru_slot``,
+``radix_take_freed_slots``) and the admit / release calls' slot arguments;
+LoRA namespaces are refused by name (ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -102,6 +103,9 @@ SIGNATURES = {
     "cache_grow": ([_VP, _VP, _I64, _I32P], _I64),
     "cache_release": ([_VP, _VP, _I32P, _I64, _I64, _I32P, _I64, _I64,
                        _I32, _I64P, _I32P, _I64, _I32P], _I64),
+    "radix_attach_slot": ([_VP, _I32P, _I64, _I32], _I32),
+    "radix_detach_lru_slot": ([_VP], _I32),
+    "radix_take_freed_slots": ([_VP, _I32P, _I64], _I64),
 }
 
 
@@ -150,13 +154,37 @@ class NativeRadixPageCache:
     objects; ``match_prefix`` returns that handle as its second element.
     """
 
-    def __init__(self, page_size: int, on_evict=None):
+    def __init__(self, page_size: int, on_evict=None, on_evict_slot=None):
         self._lib = load_library()
         if self._lib is None:
             raise RuntimeError("native library unavailable")
         self.page_size = page_size
         self.on_evict = on_evict
+        self.on_evict_slot = on_evict_slot
         self._h = self._lib.radix_new(page_size)
+
+    def _drain_slots(self) -> None:
+        """Hand the snapshot slots that eviction or a reset dropped to
+        ``on_evict_slot`` (the Python radix calls it at the drop). Without
+        a consumer (no hybrid model) it costs no ABI crossing."""
+        if self.on_evict_slot is None:
+            return
+        out = np.empty(64, np.int32)
+        while True:
+            n = self._lib.radix_take_freed_slots(self._h, _ptr(out), 64)
+            for slot in out[:n].tolist():
+                self.on_evict_slot(int(slot))
+            if n < 64:
+                return
+
+    def attach_linear_slot(self, token_ids, slot: int) -> bool:
+        tokens = _as_i32(token_ids)
+        return bool(self._lib.radix_attach_slot(
+            self._h, _ptr(tokens), len(tokens), slot))
+
+    def detach_lru_linear_slot(self):
+        slot = int(self._lib.radix_detach_lru_slot(self._h))
+        return None if slot < 0 else slot
 
     def __del__(self):
         try:
@@ -215,12 +243,14 @@ class NativeRadixPageCache:
         if self.on_evict:
             for p in freed:
                 self.on_evict(p)
+        self._drain_slots()
         return freed
 
     def reset(self) -> list[int]:
         cap = self.num_cached_pages or 1
         out = np.empty(cap, np.int32)
         n = self._lib.radix_reset(self._h, _ptr(out), cap)
+        self._drain_slots()
         return out[:n].tolist()
 
 
@@ -278,13 +308,8 @@ class NativeCacheManager:
     def __init__(self, page_size: int, num_pages: int,
                  enable_prefix_cache: bool = True,
                  max_model_len: int = 32768,
-                 linear_state: bool = False):
-        if linear_state:
-            raise NotImplementedError(
-                "NativeCacheManager(linear_state=True): linear-state "
-                "snapshots are not ported yet to parallax_tpu_torch (ROADMAP "
-                "queue 1 item 11)"
-            )
+                 linear_state: bool = False,
+                 on_slot_free=None):
         self._lib = load_library()
         if self._lib is None:
             raise RuntimeError("native library unavailable")
@@ -292,7 +317,13 @@ class NativeCacheManager:
         self.num_pages = num_pages
         self.max_model_len = max_model_len
         self.enable_prefix_cache = enable_prefix_cache
-        self.prefix_cache = NativeRadixPageCache(page_size)
+        # Hybrid models: matches truncate to snapshot-carrying nodes and
+        # release attaches the request's snapshots (the Python
+        # CacheManager's semantics).
+        self.linear_state = linear_state
+        self.on_slot_free = on_slot_free
+        self.prefix_cache = NativeRadixPageCache(page_size,
+                                                 on_evict_slot=on_slot_free)
         self.allocator = NativePageAllocator(num_pages)
         # rid -> number of tree-shared pages (for release's unlock walk).
         self._shared: dict[str, int] = {}
@@ -332,24 +363,33 @@ class NativeCacheManager:
     # -- request lifecycle ------------------------------------------------
 
     def allocate_for_prompt(self, request) -> bool:
+        if self.linear_state and hasattr(request, "restore_state_from"):
+            del request.restore_state_from  # stale from a failed admit
         tokens = self._ns_i32(
             request.prompt_ids, getattr(request, "lora_id", None)
         )
         cap = self.pages_needed(len(tokens)) + 1
         out = np.empty(cap, np.int32)
         shared = ctypes.c_int64(0)
-        # The linear-state arguments off: no restore slot, no page cap.
         restore = np.full(1, -1, np.int32)
+        head_cached = getattr(request, "mirror_head_cached", None)
+        pages_cap = (head_cached // self.page_size
+                     if self.linear_state and head_cached is not None
+                     else -1)
         total = self._lib.cache_admit(
             self.prefix_cache._h, self.allocator._h,
             _ptr(tokens), len(tokens), int(self.enable_prefix_cache),
-            0, -1, _ptr(out), cap, ctypes.byref(shared), _ptr(restore),
+            int(self.linear_state), pages_cap, _ptr(out), cap,
+            ctypes.byref(shared), _ptr(restore),
         )
+        self.prefix_cache._drain_slots()   # the admit may have evicted
         if total < 0:
             return False
         request.page_ids = out[:total].tolist()
         request.num_cached_tokens = int(shared.value) * self.page_size
         request.num_computed_tokens = request.num_cached_tokens
+        if int(restore[0]) >= 0:
+            request.restore_state_from = int(restore[0])
         self._shared[request.request_id] = int(shared.value)
         self.stats.tokens_admitted += len(tokens)
         self.stats.tokens_hit_device += request.num_cached_tokens
@@ -363,6 +403,7 @@ class NativeCacheManager:
         got = self._lib.cache_grow(
             self.prefix_cache._h, self.allocator._h, need, _ptr(out)
         )
+        self.prefix_cache._drain_slots()   # the grow may have evicted
         if got < 0:
             return False
         request.page_ids.extend(out[:need].tolist())
@@ -376,6 +417,10 @@ class NativeCacheManager:
         per-call ABI crossings are fine here. The native tree has no
         host tier, so there is no host-node truncation case."""
         if not self.enable_prefix_cache:
+            return 0
+        if self.linear_state:
+            # A linear-state skip needs the snapshot wired at the skip
+            # boundary, which only the admission match sets up.
             return 0
         if getattr(request, "mirror_head_cached", None) is not None:
             # Mirrors may only skip what the head skipped.
@@ -419,8 +464,12 @@ class NativeCacheManager:
 
     def release(self, request) -> None:
         n_shared = self._shared.pop(request.request_id, 0)
+        snapshots = list(getattr(request, "state_snapshots", {}).values())
+        if hasattr(request, "state_snapshots"):
+            del request.state_snapshots
         pages = _as_i32(request.page_ids)
         if not len(pages):
+            self._free_slots(slot for _, slot in snapshots)
             request.page_ids = []
             return
         tokens = self._ns_i32(
@@ -431,14 +480,35 @@ class NativeCacheManager:
             self.enable_prefix_cache
             and request.status.value != "finished_abort"
         )
-        # No linear-state snapshots to attach: zero extra allocations.
-        self._lib.cache_release(
-            self.prefix_cache._h, self.allocator._h,
-            _ptr(tokens), len(tokens), computed,
-            _ptr(pages), len(pages), n_shared, insert,
-            None, None, 0, None,
-        )
+        if snapshots:
+            # Each (length, slot) attaches at its boundary inside the same
+            # call; the ones that cannot come back as ``unattached``.
+            lens = np.ascontiguousarray([n for n, _ in snapshots],
+                                        dtype=np.int64)
+            slots = _as_i32([slot for _, slot in snapshots])
+            unattached = np.empty(len(snapshots), np.int32)
+            n_un = self._lib.cache_release(
+                self.prefix_cache._h, self.allocator._h,
+                _ptr(tokens), len(tokens), computed,
+                _ptr(pages), len(pages), n_shared, insert,
+                lens.ctypes.data_as(_I64P), _ptr(slots), len(snapshots),
+                _ptr(unattached),
+            )
+            self._free_slots(int(s) for s in unattached[:n_un].tolist())
+        else:
+            # No snapshots to attach: zero extra allocations.
+            self._lib.cache_release(
+                self.prefix_cache._h, self.allocator._h,
+                _ptr(tokens), len(tokens), computed,
+                _ptr(pages), len(pages), n_shared, insert,
+                None, None, 0, None,
+            )
         request.page_ids = []
+
+    def _free_slots(self, slots) -> None:
+        for slot in slots:
+            if self.on_slot_free:
+                self.on_slot_free(slot)
 
     def reset_prefix_cache(self) -> None:
         self.allocator.free(self.prefix_cache.reset())

@@ -22,7 +22,7 @@ from parallax_tpu_torch.ops.attention import KERNEL_NEG, paged_attention_plain
 from parallax_tpu_torch.ops.kv_cache_ops import reshape_and_cache
 
 # Shapes the GQA attention kernels (csrc/attend.cuh) take.
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 32
 SMEM_LIMIT = 227 * 1024
 # The decode split partition of csrc/attend.cuh (kSplitKeys, kMaxSplits).
@@ -201,12 +201,26 @@ def check_decode_args(name, q, kv_pages, kv_lens, page_indices,
     return hq, hkv, d
 
 
+def ring_stages(d: int, elem: int) -> int:
+    """Stages of the cp.async ring (csrc/attend.cuh ``Shape::kRing``): two,
+    one for f32 at D > 128 (two would not fit the block's shared
+    memory)."""
+    return 1 if elem == 4 and d > 128 else 2
+
+
+def tile_rows(d: int, elem: int) -> int:
+    """Query rows of a multi-token tile (``Shape::kRows``): eight warps of
+    16, four for f32 at D > 128."""
+    return 64 if elem == 4 and d > 128 else 128
+
+
 def smem_bytes(rows: int, d: int, elem: int) -> int:
     """Dynamic shared memory of a block of the attention core
-    (csrc/attend.cuh ``attn_smem_bytes``): ``rows`` query rows, then two
-    ring stages of a 64-key K tile and V tile, every row padded by 16
-    bytes. Decode blocks hold 16 or 32 rows, multi-token tiles 128."""
-    return (rows + 2 * 2 * 64) * (d * elem + 16)
+    (csrc/attend.cuh ``attn_smem_bytes``): ``rows`` query rows, then
+    :func:`ring_stages` stages of a 64-key K tile and V tile, every row
+    padded by 16 bytes. Decode blocks hold 16 or 32 rows, multi-token tiles
+    :func:`tile_rows`."""
+    return (rows + 2 * ring_stages(d, elem) * 64) * (d * elem + 16)
 
 
 def gqa_fused_decode(

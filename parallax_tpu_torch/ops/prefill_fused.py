@@ -22,17 +22,18 @@ from parallax_tpu_torch.ops.attention import KERNEL_NEG, paged_attention_plain
 from parallax_tpu_torch.ops.decode_fused import (
     check_attention_shapes,
     split_scratch,
+    tile_rows,
 )
 from parallax_tpu_torch.ops.kv_cache_ops import kv_append, reshape_and_cache
 
 # (token, head) rows of a multi-token tile: eight warps of 16 (csrc/attend.cuh
-# kTileRows).
+# kTileRows; ``decode_fused.tile_rows`` gives each shape's).
 MAX_TILE_ROWS = 128
 
 
-def q_tile_for(group: int) -> int:
-    """Query tokens per multi-token tile: as many as fill its 128 rows."""
-    return max(1, MAX_TILE_ROWS // group)
+def q_tile_for(group: int, rows: int = MAX_TILE_ROWS) -> int:
+    """Query tokens per multi-token tile: as many as fill its ``rows``."""
+    return max(1, rows // group)
 
 
 def gqa_prefill_attend_plain(
@@ -117,7 +118,8 @@ def gqa_prefill_attend(
         kv_lens.data_ptr(), page_indices.data_ptr(), cu_q_lens.data_ptr(),
         num_seqs.data_ptr(),
         sinks.data_ptr() if sinks is not None else None, scratch.data_ptr(),
-        t, s, hq, hkv, d, page, page_indices.shape[1], q_tile_for(g), splits,
+        t, s, hq, hkv, d, page, page_indices.shape[1],
+        q_tile_for(g, tile_rows(d, kv_pages.element_size())), splits,
         sliding_window or 0, float(sm_scale), float(soft_cap or 0.0),
         ck.dtype_code(kv_pages), ck.stream_of(q),
     )

@@ -123,6 +123,7 @@ def assemble(
     page_size: int,
     device,
     hidden_states: torch.Tensor | None = None,
+    with_dense_map: bool = False,
     decode_only: bool = False,
     gather_all_logits: bool = False,
     decode_fused: bool = False,
@@ -133,8 +134,13 @@ def assemble(
 
     ``hidden_states`` replaces token ids on non-first stages; rows are
     ordered as the plan's segments and padded here to the token bucket.
-    ``staging`` (the engine's) copies through pinned buffers without
-    blocking; without it the copies are plain ``.to(device)``.
+    ``with_dense_map`` (hybrid models) adds the densified view of the
+    ragged rows: ``dense_map [S, maxq]`` (``maxq`` bucketed on ``[1] +
+    token_buckets``, so decode batches have 1; ``t`` marks a padding step,
+    the out-of-bounds row), each row's state slot, its step count and its
+    reset flag (1 on a request's first chunk). ``staging`` (the engine's)
+    copies through pinned buffers without blocking; without it the copies
+    are plain ``.to(device)``.
     """
     seqs = plan.seqs
     t_real = plan.total_new_tokens
@@ -182,6 +188,27 @@ def assemble(
             return staging.put(name, a)
         return torch.from_numpy(a).to(device)
 
+    dense = {}
+    if with_dense_map:
+        maxq = next_bucket(
+            max((seg.num_new_tokens for seg in seqs), default=1),
+            [1] + spec.token_buckets)
+        dense_map = np.full((s, maxq), t, np.int32)
+        q_lens = np.zeros((s,), np.int32)
+        slots = np.zeros((s,), np.int32)
+        reset = np.zeros((s,), np.int32)
+        for i, seg in enumerate(seqs):
+            n = seg.num_new_tokens
+            dense_map[i, :n] = np.arange(cu_q_lens[i], cu_q_lens[i] + n)
+            q_lens[i] = n
+            slots[i] = getattr(seg.request, "state_slot", 0)
+            # A request's first chunk: its reused slot holds a finished
+            # request's state and must be zeroed.
+            reset[i] = int(seg.context_len - n == 0)
+        dense = dict(state_slots=dev(slots, "state_slots"),
+                     dense_map=dev(dense_map, "dense_map"),
+                     q_lens=dev(q_lens, "q_lens"),
+                     reset_state=dev(reset, "reset_state"))
     hidden = None
     if hidden_states is not None:
         hidden = hidden_states
@@ -198,6 +225,7 @@ def assemble(
         num_seqs=dev(np.asarray([s_real], np.int32), "num_seqs"),
         slot_mapping=dev(slot_mapping, "slot_mapping"),
         logits_indices=dev(logits_indices, "logits_indices"),
+        **dense,
         decode_only=decode_only,
         decode_fused=decode_fused and decode_only,
         prefill_fused=prefill_fused and not decode_only,

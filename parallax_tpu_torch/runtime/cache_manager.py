@@ -15,8 +15,11 @@ the goodput ledger's ``swap`` bucket and the device plane's
 leaves a flight event (and a span for a traced request).
 ``make_cache_manager`` returns the native C++
 manager (``parallax_tpu_torch/native``) by default and this class under the
-JAX factory's gates; LoRA namespaces and linear-state snapshots are not
-ported yet.
+JAX factory's gates. Hybrid (linear-attention) models prefix-cache through
+linear-state snapshots (``linear_state``): a match is cut to the deepest
+node carrying a snapshot slot, which the request restores from
+(``restore_state_from``), and a released request's snapshots attach to the
+tree. LoRA namespaces are not ported yet.
 
 Ownership model: every device page has one owner — an in-flight request or
 the radix tree. Prefix-cache hits share tree-owned pages read-only, pinned
@@ -74,6 +77,8 @@ def make_cache_manager(
     track_digests: bool = False,
     host_tier=None,
     use_native: bool | None = None,
+    linear_state: bool = False,
+    on_slot_free=None,
 ):
     """CacheManager factory, with the JAX factory's gates line for line:
     the C++ manager (``native.NativeCacheManager``, one ABI crossing per
@@ -117,6 +122,8 @@ def make_cache_manager(
                 page_size, num_pages,
                 enable_prefix_cache=enable_prefix_cache,
                 max_model_len=max_model_len,
+                linear_state=linear_state,
+                on_slot_free=on_slot_free,
             )
         reason = native.build_error or "PARALLAX_TPU_NO_NATIVE is set"
         if explicit:
@@ -127,6 +134,7 @@ def make_cache_manager(
         page_size, num_pages, enable_prefix_cache=enable_prefix_cache,
         max_model_len=max_model_len, prefill_chunk_skip=prefill_chunk_skip,
         track_digests=track_digests, host_tier=host_tier,
+        linear_state=linear_state, on_slot_free=on_slot_free,
     )
 
 
@@ -181,6 +189,8 @@ class CacheManager:
         prefill_chunk_skip: bool = True,
         track_digests: bool = False,
         host_tier=None,
+        linear_state: bool = False,
+        on_slot_free=None,
     ):
         self.page_size = page_size
         self.num_pages = num_pages
@@ -194,9 +204,16 @@ class CacheManager:
         # (swap-in before admission), and decode OOM preempts whole
         # requests into it instead of aborting.
         self.host_tier = host_tier
+        # Hybrid models: a prefix hit also needs a linear-state snapshot at
+        # the skip boundary; matches truncate to the deepest slot-carrying
+        # node and the snapshot's slot is surfaced on the request as
+        # ``restore_state_from``. ``on_slot_free`` returns a snapshot slot
+        # the tree dropped (or never took) to the engine's pool.
+        self.linear_state = linear_state
+        self.on_slot_free = on_slot_free
         self.allocator = PageAllocator(num_pages)
         self.prefix_cache = RadixPageCache(
-            page_size,
+            page_size, on_evict_slot=on_slot_free,
             host_free=(
                 (lambda h: host_tier.pool.free(h))
                 if host_tier is not None else None
@@ -258,6 +275,8 @@ class CacheManager:
         prompt_len = request.num_prompt_tokens
         shared_pages: list[int] = []
         path: list = []
+        if self.linear_state and hasattr(request, "restore_state_from"):
+            del request.restore_state_from  # stale from a failed admit
         if (
             self.enable_prefix_cache
             and self.prefill_chunk_skip
@@ -267,6 +286,18 @@ class CacheManager:
             # Always leave >=1 prompt token to recompute so the stage emits a
             # hidden state for sampling.
             usable = min(len(pages), (prompt_len - 1) // self.page_size)
+            if self.linear_state:
+                # Mirror stages skip exactly what the head skipped, so a
+                # longer local match cannot put the recurrence ahead of
+                # the rows about to arrive.
+                head_cached = getattr(request, "mirror_head_cached", None)
+                if head_cached is not None:
+                    usable = min(usable, head_cached // self.page_size)
+                usable = self.prefix_cache.deepest_linear_slot(
+                    full_path, usable)
+                if usable:
+                    request.restore_state_from = (
+                        full_path[usable - 1].linear_slot)
             shared_pages = pages[:usable]
             path = self.prefix_cache.slice_path(full_path, usable)
 
@@ -331,6 +362,11 @@ class CacheManager:
         only invoke this while ``num_computed_tokens == num_cached_tokens``.
         Returns the number of newly skipped tokens. Never allocates."""
         if not (self.enable_prefix_cache and self.prefill_chunk_skip):
+            return 0
+        if self.linear_state:
+            # A linear-state skip needs the snapshot wired at the skip
+            # boundary (restore_state_from), which only the admission match
+            # sets up.
             return 0
         if getattr(request, "mirror_head_cached", None) is not None:
             # Mirror stages may only skip what the head skipped: rows
@@ -524,8 +560,18 @@ class CacheManager:
             del request.host_page_handles
         path, num_shared = self._locked.pop(request.request_id, ([], 0))
         self.prefix_cache.unlock(path)
+        # Hybrid models: the engine copied the request's linear state into
+        # snapshot slots at page boundaries ((length, slot) per kind); each
+        # attaches to the radix node at exactly its boundary, so a later
+        # prefix hit resumes the recurrence there. An unattachable one (an
+        # aborted request, a missing node, a boundary already covered)
+        # goes back to the engine's pool.
+        snapshots = list(getattr(request, "state_snapshots", {}).values())
+        if hasattr(request, "state_snapshots"):
+            del request.state_snapshots
         owned = request.page_ids[num_shared:]
         if not owned:
+            self._free_slots(s for _, s in snapshots)
             request.page_ids = []
             return
         if self.enable_prefix_cache and request.status.value != "finished_abort":
@@ -539,9 +585,20 @@ class CacheManager:
                 request.page_ids[:n_full],
             )
             self.allocator.free(duplicates + tail)
+            self._free_slots(
+                slot for length, slot in snapshots
+                if not (length <= n_full * self.page_size
+                        and self.prefix_cache.attach_linear_slot(
+                            request.all_token_ids[:length], slot)))
         else:
+            self._free_slots(s for _, s in snapshots)
             self.allocator.free(owned)
         request.page_ids = []
+
+    def _free_slots(self, slots) -> None:
+        for slot in slots:
+            if self.on_slot_free:
+                self.on_slot_free(slot)
 
     def reset_prefix_cache(self) -> None:
         self.allocator.free(self.prefix_cache.reset())

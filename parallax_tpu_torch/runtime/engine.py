@@ -39,6 +39,14 @@ window:
   host instead of aborting it, and live migration extracts a request
   (``extract``), harvests its parked image (``harvest_kv_image``) and
   adopts a peer's (``adopt_checkpoint_kv``).
+- Hybrid (linear-attention) models (``model.has_linear_layers``): every
+  request holds a conv / recurrent state slot beside its pages (null slot
+  0 | active ``[1, 2B]`` | prefix snapshots ``(2B, 2B + P]``); prefix hits
+  restore from snapshots copied at page boundaries
+  (``_maybe_snapshot_state``). Every state copy is in place, so captured
+  window graphs keep their pointers. Hybrids take no host tier, no
+  speculation and no KV image (recurrent state has no page image and
+  cannot be rewound).
 
 Construction raises on every configuration the port does not run yet, and
 ``submit`` raises on every per-request feature it does not run yet — nothing
@@ -87,6 +95,7 @@ from parallax_tpu_torch.runtime.batch import (
     next_bucket,
     substitute_device_tokens,
 )
+from parallax_tpu_torch.runtime.allocator import OutOfPages, SlotAllocator
 from parallax_tpu_torch.runtime.cache_manager import make_cache_manager
 from parallax_tpu_torch.runtime.request import (
     IntermediateRequest,
@@ -135,9 +144,9 @@ class EngineConfig:
     ``slow_request_ms`` (the flight recorder's slow-request threshold) and
     ``qos`` (the multi-tenant QoS spec of ``qos/classes.parse_qos_spec``;
     None or ``off`` wires no policy).
-    The fields listed in ``_UNPORTED`` must keep their defaults
-    (construction raises otherwise); ``linear_*`` only tune features that
-    are refused elsewhere.
+    ``linear_prefix_slots`` / ``linear_decode_snapshot_stride`` size a
+    hybrid model's prefix snapshots. The fields listed in ``_UNPORTED``
+    must keep their defaults (construction raises otherwise).
     ``wire_dtype`` is read by the swarm worker (``p2p/node.py``), not the
     engine, as in the JAX package; its float8 link mode raises here."""
 
@@ -364,6 +373,12 @@ class WindowState:
     props: torch.Tensor | None = None       # i32[S, L] (-1 = none)
     counts: torch.Tensor | None = None      # i32[R, S]
     rejs: torch.Tensor | None = None        # i32[R, S]
+    # Hybrid models: the batch's dense view, constant over the window (one
+    # step a row, no reset: every row is decoding).
+    state_slots: torch.Tensor | None = None  # i32[S]
+    dense_map: torch.Tensor | None = None    # i32[S, 1]
+    q_lens: torch.Tensor | None = None       # i32[S]
+    reset_state: torch.Tensor | None = None  # i32[S]
 
     def _tensors(self):
         return [(f.name, getattr(self, f.name))
@@ -588,16 +603,49 @@ class StageEngine:
         self._obs_stage = f"{model.start_layer}-{model.end_layer}"
         self.host_hidden = host_hidden and not model.is_last
         self.params = params_to(params, self.device)
-        # One paged cache per local layer, updated in place by every step.
+        # Hybrid (linear-attention) stages carry per-request state slots:
+        # null (0) | active [1, 2B] | prefix snapshots (2B, 2B + P].
+        self._needs_state = bool(getattr(model, "has_linear_layers", False))
+        n_prefix_slots = (self.cfg.linear_prefix_slots
+                          if self._needs_state and self.cfg.enable_prefix_cache
+                          else 0)
+        state_kw = {}
+        if self._needs_state:
+            active = 2 * self.cfg.max_batch_size
+            self._slot_alloc = SlotAllocator(active)
+            self._prefix_slot_base = active + 1
+            self._prefix_slot_alloc = SlotAllocator(n_prefix_slots)
+            state_kw["num_state_slots"] = active + n_prefix_slots
+            if self.cfg.speculative_tokens > 0:
+                # Rejected proposals would leave the recurrent state past
+                # the committed context, with no way to rewind it.
+                logger.warning(
+                    "speculative decoding disabled: a hybrid linear-state "
+                    "model cannot rewind rejected proposals")
+                self.cfg = dataclasses.replace(self.cfg,
+                                               speculative_tokens=0)
+        # One cache per local layer (a paged KV, or a linear layer's state
+        # pair), updated in place by every step.
         self.kv = model.new_kv_caches(
             self.cfg.num_pages, self.cfg.page_size,
-            _KV_DTYPES[self.cfg.kv_dtype], self.device,
+            _KV_DTYPES[self.cfg.kv_dtype], self.device, **state_kw,
         )
+        # An attention-only head of a hybrid pipeline must not skip a
+        # prefix: it would pick page boundaries the linear stages after it
+        # hold no snapshot for. Attention-only later stages match on pages
+        # alone (the mirror clamp keeps their skip equal to the head's).
+        hybrid_attention_only_head = (
+            model.config.linear_attn is not None and model.is_first
+            and not model.is_last and not self._needs_state)
         # Host-DRAM KV tier: demotion target for radix eviction and
         # preemption; its transfers read and write self.kv in place (the
         # captured window graphs hold the cache tensors' pointers).
         self.host_tier = None
-        if self.cfg.host_cache_bytes > 0:
+        if self.cfg.host_cache_bytes > 0 and self._needs_state:
+            logger.warning(
+                "host KV tier disabled: hybrid linear-state KV cannot be "
+                "paged to host (recurrent state has no page image)")
+        elif self.cfg.host_cache_bytes > 0:
             from parallax_tpu_torch.runtime.host_cache import (
                 tier_from_paged_kv,
             )
@@ -614,12 +662,18 @@ class StageEngine:
         self.cache = make_cache_manager(
             self.cfg.page_size,
             self.cfg.num_pages,
-            enable_prefix_cache=self.cfg.enable_prefix_cache,
+            enable_prefix_cache=(
+                self.cfg.enable_prefix_cache
+                and (not self._needs_state or n_prefix_slots > 0)
+                and not hybrid_attention_only_head),
             max_model_len=self.cfg.max_model_len,
             prefill_chunk_skip=self.cfg.prefill_chunk_skip,
             track_digests=self.cfg.cache_digests,
             host_tier=self.host_tier,
             use_native=use_native,
+            linear_state=self._needs_state,
+            on_slot_free=(self._on_prefix_slot_free if self._needs_state
+                          else None),
         )
         qos_policy = None
         if self.cfg.qos:
@@ -636,6 +690,10 @@ class StageEngine:
             request_timeout_s=self.cfg.request_timeout_s,
             stage_name=self._obs_stage,
             qos=qos_policy,
+            snapshot_page_align=(
+                self.cfg.page_size
+                if self._needs_state and self.cache.enable_prefix_cache
+                else None),
         )
         self.spec = BucketSpec.build(
             self.cfg.max_num_tokens_per_batch,
@@ -875,6 +933,7 @@ class StageEngine:
                 else:
                     req.set_status(RequestStatus.FINISHED_EOS, "release")
             self.scheduler.release_request(req)
+            self._free_state_slot(req)
 
     def has_work(self) -> bool:
         return self.scheduler.num_requests() > 0
@@ -934,6 +993,7 @@ class StageEngine:
         self._bias_cache.pop(request_id, None)
         self._free_token_slot(request_id)
         self._traced.discard(request_id)
+        self._free_state_slot(req)
         req.device_feed_ready = False
         return req
 
@@ -958,11 +1018,12 @@ class StageEngine:
         in the JAX engine's form (dtype names included), so a port
         signature equals a JAX one for the same layout. Two engines may
         exchange raw KV images only when these match exactly; None when
-        the layout has no page-granular image (tuple caches)."""
+        the layout has no page-granular image (tuple caches, a hybrid's
+        linear state)."""
         from parallax_tpu_torch.p2p.proto import dtype_name
 
         kv = self.kv
-        if not isinstance(kv, (list, tuple)) or not kv:
+        if self._needs_state or not isinstance(kv, (list, tuple)) or not kv:
             return None
         sig = []
         for a in kv:
@@ -1881,10 +1942,11 @@ class StageEngine:
             ], dim=0)
         one_token = all(s.num_new_tokens == 1 for s in plan.seqs)
         decode_only = self._use_decode_flag and one_token
+        self._assign_state_slots(plan)
         inputs = assemble(
             plan, self.spec, self.cfg.page_size, self.device,
-            hidden_states=hidden, decode_only=decode_only,
-            gather_all_logits=bool(spec_rows),
+            hidden_states=hidden, with_dense_map=self._needs_state,
+            decode_only=decode_only, gather_all_logits=bool(spec_rows),
             decode_fused=self._decode_fused,
             prefill_fused=self._prefill_fused, staging=self._staging,
         )
@@ -1896,6 +1958,8 @@ class StageEngine:
             self._attn_impl if decode_only else self._prefill_impl,
         )
         self.scheduler.on_batch_computed(plan)
+        if self._needs_state and self.cache.enable_prefix_cache:
+            self._maybe_snapshot_state(plan)
         step_idx = self._step_count
         self._step_count += 1
         ticket = StepTicket(plan=plan, step_idx=step_idx, t0=t0,
@@ -2488,7 +2552,9 @@ class StageEngine:
             positions=_fit(pos, t, 0), kv_lens=st.ctx,
             page_indices=st.page_indices, cu_q_lens=st.cu_q_lens,
             num_seqs=st.num_seqs, slot_mapping=_fit(slots, t, -1),
-            logits_indices=st.logits_indices, **flags,
+            logits_indices=st.logits_indices, state_slots=st.state_slots,
+            dense_map=st.dense_map, q_lens=st.q_lens,
+            reset_state=st.reset_state, **flags,
         )
         logits = window_feature_logits(st, self._forward(inputs))
         if sampled:
@@ -2599,8 +2665,10 @@ class StageEngine:
         # so its first step is that step, bit for bit. A speculative
         # window widens it (below).
         decode_only = self._use_decode_flag
+        self._assign_state_slots(plan)
         inputs = assemble(
             plan, self.spec, self.cfg.page_size, self.device,
+            with_dense_map=self._needs_state,
             decode_only=decode_only, decode_fused=self._decode_fused,
             prefill_fused=self._prefill_fused, staging=self._staging,
         )
@@ -2635,6 +2703,8 @@ class StageEngine:
                                dtype=torch.int32, device=self.device),
             stop_tokens=put("ms_stop_tokens", stop_tokens), limit=limit,
             min_req=put("ms_min_req", min_req),
+            state_slots=inputs.state_slots, dense_map=inputs.dense_map,
+            q_lens=inputs.q_lens, reset_state=inputs.reset_state,
         )
         if spec:
             props_pad = np.full((s, props.shape[1]), -1, np.int32)
@@ -2689,7 +2759,10 @@ class StageEngine:
             # it takes.
             key = (t, spec, sampled, fused_sample, feats,
                    tuple((name, tuple(x.shape)) for name, x in st._tensors()))
-            st = self._graphs.run(key, st, step, n)
+            st = self._graphs.run(
+                key, st, step, n,
+                preserve=(self._preserve_state(st.state_slots)
+                          if self._needs_state else None))
         else:
             for _ in range(n):
                 step(st)
@@ -2773,6 +2846,14 @@ class StageEngine:
                 req.num_computed_tokens += committed - 1
                 req.ready_for_step = not req.status.is_finished
                 total += committed
+            if self._needs_state and self.cache.enable_prefix_cache:
+                # Decode snapshots at the window's end. A row that finished
+                # mid-window ran surplus recurrence steps (the window's dense
+                # view is constant), so only live rows may snapshot.
+                live = [seg for seg in plan.seqs
+                        if not seg.request.status.is_finished]
+                if live:
+                    self._maybe_snapshot_state(BatchPlan(live))
         except Exception:
             self._abandon(plan)
             raise
@@ -3684,11 +3765,120 @@ class StageEngine:
             self._pending_hidden.pop(req.request_id, None)
             self._grammar_states.pop(req.request_id, None)
             self._bias_cache.pop(req.request_id, None)
+            self._free_state_slot(req)
             self._free_token_slot(req.request_id)
             req.device_feed_ready = False
             if self.model.is_first or req.request_id in self._traced:
                 self._obs_finish(req)
         return finished
+
+    # -- hybrid linear state ----------------------------------------------
+
+    def _free_state_slot(self, req: Request) -> None:
+        if self._needs_state and hasattr(req, "state_slot"):
+            self._slot_alloc.free(req.state_slot - 1)
+            del req.state_slot
+
+    def _on_prefix_slot_free(self, slot: int) -> None:
+        """The radix cache evicted (or could not attach) a snapshot slot."""
+        self._prefix_slot_alloc.free(slot - self._prefix_slot_base)
+
+    def _copy_state(self, src: int, dst: int) -> None:
+        """Copy one slot's conv / recurrent state into another on every
+        local linear layer (a snapshot, or a restore on a prefix hit), in
+        place (captured window graphs hold the state tensors) and by view,
+        so no index crosses to the device."""
+        self._note_program("copy_state")
+        for cache in self.kv:
+            if isinstance(cache, tuple):
+                for t in cache:
+                    t[dst].copy_(t[src])
+
+    def _assign_state_slots(self, plan: BatchPlan) -> None:
+        """Give each new row of a hybrid stage its state slot (slot 0 is
+        the null slot) before the step that reads it; a prefix hit first
+        restores the tree's snapshot into it (the row's first chunk then
+        starts at ``num_cached_tokens``, so its reset flag is 0 and the
+        copied state stands)."""
+        if not self._needs_state:
+            return
+        for seg in plan.seqs:
+            req = seg.request
+            if hasattr(req, "state_slot"):
+                continue
+            req.state_slot = self._slot_alloc.alloc() + 1
+            src = getattr(req, "restore_state_from", None)
+            if src is not None:
+                self._copy_state(src, req.state_slot)
+                del req.restore_state_from
+
+    def _preserve_state(self, state_slots: torch.Tensor):
+        """For a window graph's first capture: a function that saves the
+        window rows' states and returns one that puts them back, so the
+        eager warm-up step (which the first replay runs again) does not
+        advance the recurrence twice."""
+        def save():
+            idx = state_slots.long()
+            saved = [(t, t.index_select(0, idx)) for cache in self.kv
+                     if isinstance(cache, tuple) for t in cache]
+
+            def restore():
+                for t, v in saved:
+                    t.index_copy_(0, idx, v)
+            return restore
+        return save
+
+    def _maybe_snapshot_state(self, plan: BatchPlan) -> None:
+        """Copy rows' linear state into snapshot slots at page boundaries,
+        right after a forward. Each request keeps up to two pending
+        snapshots, each overwriting its own slot, both attached to the
+        radix tree on release:
+        - "prefill": the deepest boundary inside the prompt, capped at
+          ``prompt - 1`` so an exact repeat can still match (the scheduler
+          ends the penultimate chunk there);
+        - "decode": the deepest boundary of the whole conversation, re-copied
+          once per ``linear_decode_snapshot_stride`` pages (0 = none).
+        Prefill snapshots steal the least recently used tree snapshot when
+        the pool is empty; decode ones never do."""
+        page = self.cfg.page_size
+        for seg in plan.seqs:
+            req = seg.request
+            c = req.num_computed_tokens
+            if c % page or not hasattr(req, "state_slot"):
+                continue
+            decoding = (req.status is RequestStatus.DECODING
+                        or c > req.num_prompt_tokens)
+            kind = "decode" if decoding else "prefill"
+            snaps = getattr(req, "state_snapshots", None)
+            if snaps is None:
+                snaps = req.state_snapshots = {}
+            if decoding:
+                stride = self.cfg.linear_decode_snapshot_stride
+                if not stride:
+                    continue
+                prev = snaps.get("decode")
+                if prev is not None and c - prev[0] < stride * page:
+                    continue
+            elif c > ((req.num_prompt_tokens - 1) // page) * page:
+                continue
+            if c <= req.num_cached_tokens or c <= max(
+                    (n for n, _ in snaps.values()), default=0):
+                continue   # the tree or a snapshot already covers it
+            snap = snaps.get(kind)
+            if snap is None:
+                try:
+                    slot = (self._prefix_slot_base
+                            + self._prefix_slot_alloc.alloc())
+                except OutOfPages:
+                    if decoding:
+                        continue
+                    slot = self.cache.prefix_cache.detach_lru_linear_slot()
+                    if slot is None:
+                        continue
+            else:
+                slot = snap[1]
+            self._copy_state(req.state_slot, slot)
+            snaps[kind] = (c, slot)
 
 
 def _tensor_leaves(tree):

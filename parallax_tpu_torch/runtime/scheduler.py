@@ -85,6 +85,7 @@ class Scheduler:
         request_timeout_s: float = 600.0,
         stage_name: str = "stage",
         qos=None,
+        snapshot_page_align: int | None = None,
     ):
         self.cache = cache_manager
         self.stage_name = stage_name
@@ -102,6 +103,11 @@ class Scheduler:
         # default, ``--qos off``) keeps every path below on arrival order:
         # each hook is one attribute check.
         self.qos = qos
+        # Hybrid models with prefix caching: the last prefill chunk is split
+        # at the last page boundary before the prompt's final token, so the
+        # linear-state snapshot taken there covers (almost) the whole
+        # prompt.
+        self.snapshot_page_align = snapshot_page_align
 
     # -- intake -----------------------------------------------------------
 
@@ -247,6 +253,7 @@ class Scheduler:
                 or req.status is not RequestStatus.DECODING
                 or not (req.ready_for_step or req.device_feed_ready)
                 or getattr(req, "is_mirror", False)
+                or getattr(req, "state_slot", None) is not None
             ):
                 continue
             if not preempt(req):
@@ -292,6 +299,15 @@ class Scheduler:
             if n < remaining and n < self.cache.page_size:
                 break  # not worth a degenerate chunk; wait for budget
             start = req.num_computed_tokens
+            if self.snapshot_page_align and start + n >= req.num_prompt_tokens:
+                # End the penultimate chunk at the last usable aligned
+                # prompt boundary (the snapshot point); the ragged rest is
+                # one more small chunk. A prefix hit always leaves >= 1
+                # token to recompute, hence (prompt_len - 1).
+                a = ((req.num_prompt_tokens - 1) // self.snapshot_page_align
+                     ) * self.snapshot_page_align
+                if start < a < start + n:
+                    n = a - start
             # Mirror requests grow their prompt incrementally (chunks arrive
             # over the ring), so page capacity may lag the prompt length.
             if not self._ensure_capacity_or_preempt(req, start + n):
@@ -567,6 +583,9 @@ class Scheduler:
                 or not (r.ready_for_step or r.device_feed_ready)
                 or (exclude_ids and r.request_id in exclude_ids)
                 or getattr(r, "is_mirror", False)
+                # A row holding a linear-state slot cannot be parked: its
+                # recurrent state has no page image.
+                or getattr(r, "state_slot", None) is not None
             ):
                 continue
             if best is None or r.arrival_time > best.arrival_time:

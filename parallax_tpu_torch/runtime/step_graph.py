@@ -86,15 +86,21 @@ class WindowGraphs:
     def capture_s(self) -> float:
         return sum(self.capture_parts_s.values())
 
-    def run(self, key: tuple, state, step: Callable, n: int):
+    def run(self, key: tuple, state, step: Callable, n: int,
+            preserve: Callable | None = None):
         """Run ``step`` ``n`` times from ``state`` through the key's graph
         (captured at first use); returns the static state the replays
-        advanced. ``state`` must offer ``clone()`` and ``copy_(other)``."""
+        advanced. ``state`` must offer ``clone()`` and ``copy_(other)``.
+        ``preserve`` (a hybrid model's): called before a capture's warm-up
+        step, it saves what that step writes outside the window state and
+        returns a function that puts it back, run after the warm-up: a
+        recurrence must not advance twice (the first replay repeats the
+        warm-up's step)."""
         entry = self._graphs.get(key)
         if entry is None:
             t0 = time.perf_counter()
             m0 = torch.cuda.memory_allocated(self.device)
-            entry = self._graphs[key] = self._capture(state, step)
+            entry = self._graphs[key] = self._capture(state, step, preserve)
             self.pool_bytes += max(
                 0, torch.cuda.memory_allocated(self.device) - m0)
             if self.on_capture is not None:
@@ -107,7 +113,8 @@ class WindowGraphs:
         self.replays += n
         return entry.state
 
-    def _capture(self, state, step: Callable) -> _Graph:
+    def _capture(self, state, step: Callable,
+                 preserve: Callable | None = None) -> _Graph:
         t = [time.perf_counter()]
         stream = torch.cuda.current_stream(self.device)
         side = self._stream
@@ -123,8 +130,11 @@ class WindowGraphs:
         # this thread alone are tallied: the warm-up's ran, the capture's
         # run at each replay.
         with torch.cuda.stream(side):
+            restore = preserve() if preserve is not None else None
             with ck.tally() as warm:
                 step(state)
+            if restore is not None:
+                restore()
             t.append(time.perf_counter())
             graph.capture_begin(pool=self.pool,
                                 capture_error_mode="thread_local")

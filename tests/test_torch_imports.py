@@ -75,7 +75,9 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "obs.watchdog", "obs.slo", "obs.timeline", "obs.profiler",
                  "utils.request_metrics", "qos", "qos.classes",
                  "qos.admission", "qos.autoscaler", "router", "router.lb",
-                 "testing", "testing.chaos", "testing.churn"):
+                 "testing", "testing.chaos", "testing.churn",
+                 "models.glm4", "models.step3p5", "models.qwen3_next",
+                 "ops.linear_attn"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"
