@@ -2,6 +2,11 @@
 
     python3 chip_smoke.py                       # every phase, one card
     python3 chip_smoke.py --only kernels,moe_serve   # a short check
+    python3 chip_smoke.py --only moe_serve,moe_profile   # with its profile
+
+The per-model profiles (moe_profile, mla_profile, dsa_profile,
+gptoss_profile) run only when ``--only`` names them: the whole script
+keeps to its time limit on a slow host without them.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -65,6 +70,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                (Qwen3-Next's Hq 16, Hkv 2; bf16 and float32, prefix hits,
                windows, padding and frozen rows; two calls the same bits)
                and A4 at Qwen3-Next's MoE shapes (E 512, N 512, K 2048).
+               The weight-only quantized products: A10 (quant_linear) at
+               Qwen2.5-7B's shapes (q, k / v, o, gate / up, down, lm_head
+               with f32 out; M 7 and 749; bits 8 and 4; groups 32, 64,
+               128; the other variant forced once a shape) within
+               QUANT_REL_TOL (f32 out) / BF16_TOL (bf16 out) of its plain
+               version, two calls the same bits, the on-card quantization
+               numpy's bit for bit; A11 (grouped_gemm_q) at Qwen3-30B-A3B's
+               expert shapes (M 56 and 16,384; both variants forced and
+               picked) within F32_TOL; both timed device-only beside the
+               bound and (A10) ``F.linear`` on the bf16 weight; both
+               swept across their variants' crossover in M (both forced,
+               device time: kDecodeMaxRows / kQDecodeMaxRows are set from
+               it); a quantized GLM-4.5-Air MoE block whose shared expert
+               runs on A10 (3 launches a block) beside A11, within
+               BF16_TOL of the plain block.
 4. serve       a single-stage StageEngine on cuda:0 serving full-width,
                all-28-layer Qwen2.5-7B (random bf16 weights from a seeded
                torch.Generator on the card) to 8 concurrent requests
@@ -217,6 +237,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                window and no graph capture, the greedy rows within
                GREEDY_TOL of the plain path; the streams counted against
                the in-process 14 + 14 pipeline's on the same requests.
+               Then (a) once more over a float8 link (``wire_dtype="fp8"``
+               on both workers): float8 negotiated, every request
+               complete, the hidden-state bytes a hop against the native
+               bf16 run's, the greedy tokens equal to its reported.
                (b) Two ``python -m parallax_tpu_torch join`` processes
                (each binds port 0 and logs its address; the tail takes
                the head as its --peers; --advertise-addr 127.0.0.1) and
@@ -330,6 +354,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                stops under a long request and the head's flight event
                (abort path or migration flag) reaches the timeline
                through its heartbeat; exits 0.
+9e. quant_serve  weight-only quantization on serve's Qwen2.5-7B tree (all
+               28 layers), quantized on the card (group 64) from a copy of
+               its dicts: int8 fused with the defaults, K1_SYNC (two rows,
+               8 tokens) and plain (``use_kernels=False``: dequantize then
+               multiply, no A10); int4 fused with the defaults. Launches
+               exact (A10 7 x 28 + 1 a forward step); the fused runs'
+               greedy rows within GREEDY_TOL of the plain one-shot logits
+               of the same quantized tree; the tree's bytes against
+               bf16's. It also makes http_serve run ``serve --quantization
+               int8`` over HTTP on its checkpoint (launches exact, greedy
+               rows within GREEDY_TOL, the library API on the same tree and
+               prompts beside it) and read back an MLX-format checkpoint
+               (packed uint32 words, config ``quantization``) of that tree
+               bitwise.
 9d. qos_serve  the QoS plane, the router and the chaos harness (``--only
                qos_serve`` runs http_serve first, for (b)'s checkpoint).
                (a) The library run on serve's tree with the defaults (K = 8
@@ -359,13 +397,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. moe_serve   Qwen3-30B-A3B at full width and all 48 layers (random bf16
                weights, about 61 GB; the dense phases' tensors are freed
                first) serving the same 8-request mix with the defaults and
-               with K1_SYNC; every kernel's launches exact (the grouped
-               GEMM 3 x 48 times per forward step), and the greedy streams
-               must agree with the plain path (plain grouped product and
-               plain attention); the same one-shot forward with A4 in
-               place of the plain grouped product reports its logit
-               difference (no limit).
-11. moe_profile moe_serve once more under torch.profiler (defaults).
+               with K1_SYNC (two rows, 8 tokens); every kernel's launches
+               exact (the grouped GEMM 3 x 48 times per forward step), and
+               the greedy streams must agree with the plain path (plain
+               grouped product and plain attention); the same one-shot
+               forward with A4 in place of the plain grouped product
+               reports its logit difference (no limit). Then (after
+               moe_profile) the tree quantized in place on the card (int8,
+               group 64; about 33 of 61 GB) and served with the defaults:
+               A11 3 x 48 times a forward step and no A4, A10 on attention
+               and the lm_head, greedy rows within MOE_GREEDY_TOL of the
+               plain path on the same quantized tree.
+11. moe_profile moe_serve once more under torch.profiler (defaults; only
+               when ``--only`` names it, as the other per-model profiles).
 12. mla_serve  DeepSeek-V3 at full width and 5 layers (3 dense + 2 MoE; one
                random bf16 tree of 26.7 B params, the MoE model freed first)
                serving the same mix four times: fused decode (A5 once per
@@ -1222,6 +1266,8 @@ def phase_kernels(torch, dev) -> list[dict]:
     out.extend(d256_out)
     kernels_grouped_gemm(torch, gen, dev, flush, device_only,
                          model=NEXT_MODEL, label="grouped_gemm_next")
+    out.append(kernels_quant_linear(torch, gen, dev, flush, device_only))
+    out.append(kernels_grouped_gemm_q(torch, gen, dev, flush, device_only))
     emit({"phase": "kernels", "check": "device_only_ms",
           "note": "time_ms(hide_host=True): the call's device time, a spin "
                   "kernel covering the host's enqueue",
@@ -1502,6 +1548,377 @@ def kernels_grouped_gemm(torch, gen, dev, flush, device_only,
         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
     )
+
+
+# A10 / A11, the weight-only quantized products (port-only kernels: the
+# JAX package leaves the dequantize-and-multiply to XLA's fusion).
+QUANT_GROUP = 64                   # the loader's on-load group size
+QUANT_M = {"decode": 7, "prefill": 749}
+# A10 against its plain version: f32 outputs within this share of the
+# plain output's largest magnitude (both sum the same bf16 products in
+# f32, in another order); bf16 outputs within BF16_TOL.
+QUANT_REL_TOL = 1e-4
+
+
+def numpy_quantize(w, bits: int, g: int):
+    """numpy's affine group quantization, written out here as the JAX
+    package's ``ops/quant.py::quantize_array`` computes it (min, max, an
+    f32 divide, round half to even): the reference that the port's
+    on-device quantization must equal bit for bit."""
+    import numpy as np
+
+    w = np.asarray(w, np.float32)
+    *lead, last = w.shape
+    grp = w.reshape(*lead, last // g, g)
+    lo = grp.min(axis=-1)
+    hi = grp.max(axis=-1)
+    qmax = (1 << bits) - 1
+    scales = np.maximum((hi - lo) / qmax, np.float32(1e-8))
+    q = np.clip(np.round((grp - lo[..., None]) / scales[..., None]), 0, qmax)
+    return (q.astype(np.uint8).reshape(*lead, last),
+            scales.astype(np.float32), lo.astype(np.float32))
+
+
+def _rel_close(torch, got, ref, rel) -> tuple[float, float]:
+    """Largest |got - ref|, and it over the largest |ref|; raises past
+    ``rel``."""
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    if err > rel * scale:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"max abs err {err} beyond {rel} x {scale}")
+    return err, err / scale
+
+
+def quant_bound(m, n, k, g, out_bytes, touched=None):
+    """The least time for a quantized product: its u8 weights, 2 + 2 bytes
+    of scale and bias a group, the activations and the output moved once
+    (``touched`` groups of a stack), or its bf16 products."""
+    w = (touched or 1) * n * k
+    return bound(w + 4 * w / g + 2 * m * k + out_bytes * m * n,
+                 2 * m * n * k, "bfloat16")
+
+
+# Where A10's and A11's variants cross: both forced, device-only, at the
+# M of decode steps and small prefill chunks (A10: rows; A11: tokens, each
+# routed to top-k experts). kDecodeMaxRows / kQDecodeMaxRows of
+# csrc/quant_linear.cu are set from these readings.
+QUANT_SWEEP_SHAPES = ("o_proj", "gate_up", "down")
+QUANT_SWEEP_M = (8, 16, 24, 32, 48, 64, 128)
+QUANT_SWEEP_TOKENS = (7, 16, 32, 64, 128, 256)
+
+
+def _sweep_quant_linear(torch, gen, dev, flush, args, k) -> dict:
+    """A10 with each variant forced at QUANT_SWEEP_M rows (bf16 out, the
+    loader's group): device ms, each within QUANT_REL_TOL of the plain
+    version."""
+    from parallax_tpu_torch.ops import quant_linear as ql
+
+    out = {}
+    for m in QUANT_SWEEP_M:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        ref = ql.quant_linear_plain(x, *args, torch.float32)
+        row = {}
+        for v in ("decode", "prefill"):
+            _rel_close(torch, ql.quant_linear(x, *args, torch.float32,
+                                              _variant=v), ref,
+                       QUANT_REL_TOL)
+            row[v] = time_ms(torch, lambda v=v, x=x: ql.quant_linear(
+                x, *args, _variant=v), 20, flush, hide_host=True)
+        out[f"m{m}"] = row
+        del x, ref
+    return out
+
+
+def kernels_quant_linear(torch, gen, dev, flush, device_only) -> dict:
+    """A10 against its plain version at Qwen2.5-7B's shapes (q, k / v, o,
+    gate / up, down, lm_head), M 7 (a decode step) and 749 (the prefill
+    batch), bits 8 and 4, groups 32, 64 and 128: f32 outputs within
+    QUANT_REL_TOL of the plain version's, bf16 ones within BF16_TOL, two
+    calls the same bits, the other variant forced once a shape; the
+    port's on-device quantization bitwise numpy's on two leaves. Then
+    timed (int8 and int4 at the loader's group, device-only, L2 flushed)
+    beside the bound and ``F.linear`` on the bf16 weight of the same
+    shape (what the unquantized model pays)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from parallax_tpu_torch.models.presets import get_preset
+    from parallax_tpu_torch.ops import quant as tq
+    from parallax_tpu_torch.ops import quant_linear as ql
+
+    bf16 = torch.bfloat16
+    cfg = get_preset(DENSE_MODEL)
+    h, hd = cfg.hidden_size, cfg.head_dim
+    shapes = {"q_proj": (cfg.num_attention_heads * hd, h),
+              "kv_proj": (cfg.num_key_value_heads * hd, h),
+              "o_proj": (h, cfg.num_attention_heads * hd),
+              "gate_up": (cfg.intermediate_size, h),
+              "down": (h, cfg.intermediate_size),
+              "lm_head": (cfg.vocab_size, h)}
+    errs, rel_errs, timed, bitwise_numpy, crossover = {}, {}, {}, {}, {}
+    xs = {name: {mode: torch.randn((m, k), generator=gen, device=dev).to(
+        bf16) for mode, m in QUANT_M.items()}
+        for name, (_, k) in shapes.items()}
+    for name, (n, k) in shapes.items():
+        w = torch.randn((n, k), generator=gen, device=dev) * k ** -0.5
+        if name in ("o_proj", "down"):
+            for bits in (8, 4):
+                q, s, b = tq.quantize_array(w, bits, QUANT_GROUP)
+                rq, rs, rb = numpy_quantize(w.cpu().numpy(), bits,
+                                            QUANT_GROUP)
+                if not (np.array_equal(q.cpu().numpy(), rq)
+                        and np.array_equal(s.cpu().numpy(), rs)
+                        and np.array_equal(b.cpu().numpy(), rb)):
+                    raise AssertionError(f"quantize_array on the card is "
+                                         f"not numpy's ({name}, {bits})")
+                bitwise_numpy[f"{name}_int{bits}"] = True
+                del q, s, b
+        out_dtype = torch.float32 if name == "lm_head" else bf16
+        for bits in (8, 4):
+            for g in ql.GROUP_SIZES:
+                p = tq.quantize_param_dict(w, bits, g, bf16)
+                args = (p["qweight"], p["scales"], p["biases"])
+                for mode, x in xs[name].items():
+                    key = f"{name}_{mode}_int{bits}_g{g}"
+                    ref = ql.quant_linear_plain(x, *args, torch.float32)
+                    got = ql.quant_linear(x, *args, torch.float32)
+                    again = ql.quant_linear(x, *args, torch.float32)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"quant_linear {key}: two "
+                                             "calls differ")
+                    errs[key], rel_errs[key] = _rel_close(
+                        torch, got, ref, QUANT_REL_TOL)
+                    _close(torch, ql.quant_linear(x, *args, bf16),
+                           ql.quant_linear_plain(x, *args, bf16), BF16_TOL)
+                    if bits == 8 and g == QUANT_GROUP:
+                        other = ("prefill" if ql.variant_for(x.shape[0])
+                                 == "decode" else "decode")
+                        errs[key + "_" + other], rel_errs[
+                            key + "_" + other] = _rel_close(
+                            torch, ql.quant_linear(x, *args, torch.float32,
+                                                   _variant=other),
+                            ref, QUANT_REL_TOL)
+                    del ref, got, again
+                if g != QUANT_GROUP:
+                    del p, args
+                    continue
+                w_bf = w.to(bf16)
+                for mode, x in xs[name].items():
+                    m = x.shape[0]
+                    key = f"{name}_{mode}_int{bits}"
+
+                    def call(x=x):
+                        return ql.quant_linear(x, *args, out_dtype)
+
+                    b_ms, b_by = quant_bound(m, n, k, g,
+                                             2 if out_dtype == bf16 else 4)
+                    timed[key] = dict(
+                        m=m, n=n, k=k, variant=ql.variant_for(m),
+                        ms=time_ms(torch, call, 20, flush),
+                        device_ms=time_ms(torch, call, 20, flush,
+                                          hide_host=True),
+                        plain_ms=time_ms(torch, lambda x=x: (
+                            ql.quant_linear_plain(x, *args, out_dtype)), 5,
+                            flush),
+                        f_linear_bf16_device_ms=time_ms(
+                            torch, lambda x=x: F.linear(x, w_bf), 20, flush,
+                            hide_host=True),
+                        bound_ms=b_ms, bound_by=b_by)
+                    device_only[f"quant_linear_{key}"] = timed[key][
+                        "device_ms"]
+                if bits == 8 and name in QUANT_SWEEP_SHAPES:
+                    crossover[name] = _sweep_quant_linear(
+                        torch, gen, dev, flush, args, k)
+                del p, args, w_bf
+        del w
+    emit({"phase": "kernels", "check": "quant_linear", "model": DENSE_MODEL,
+          "abs_err_f32_out": errs, "rel_err_f32_out": rel_errs,
+          "max_rel_err": max(rel_errs.values()), "rel_tol": QUANT_REL_TOL,
+          "bf16_out_tol_atol_rtol": BF16_TOL, "deterministic": True,
+          "quantize_array_bitwise_numpy": bitwise_numpy,
+          "group_sizes": list(ql.GROUP_SIZES), "timed": timed,
+          "decode_max_rows": ql.DECODE_MAX_ROWS,
+          "crossover_device_ms": crossover})
+    main = timed["gate_up_decode_int8"]
+    return dict(
+        name="quant_linear", route="cuda",
+        source="parallax_tpu_torch/csrc/quant_linear.cu",
+        replaces="parallax_tpu/models/layers.py:127",
+        max_abs_err=max(errs.values()), ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+    )
+
+
+def kernels_grouped_gemm_q(torch, gen, dev, flush, device_only) -> dict:
+    """A11 against its plain version at Qwen3-30B-A3B's expert shapes (E
+    128, top 8, gate / up N 768 K 2048, down N 2048 K 768), a decode step
+    (M 56) and a 2048-token prefill step (M 16,384 with empty and 1-row
+    groups), int8 and int4 at the loader's group (and at 32 and 128 on
+    the decode step): both variants forced and the one M picks, each
+    within F32_TOL, two calls the same bits; then timed device-only."""
+    from parallax_tpu_torch.models.presets import get_preset
+    from parallax_tpu_torch.ops import quant as tq
+    from parallax_tpu_torch.ops import quant_linear as ql
+
+    bf16 = torch.bfloat16
+    cfg = get_preset(MOE_MODEL)
+    e, hid = cfg.moe.num_experts, cfg.hidden_size
+    inter, k_top = cfg.moe.moe_intermediate_size, cfg.moe.num_experts_per_tok
+    shapes = {"decode": _decode_offsets(7, k_top, e, seed=8),
+              "prefill": _skewed_offsets(2048 * k_top, e, seed=7)}
+    errs, bitwise, timed, crossover = {}, {}, {}, {}
+    for proj, n, k in (("gate_up", inter, hid), ("down", hid, inter)):
+        w = torch.randn((e, n, k), generator=gen, device=dev) * k ** -0.5
+        for bits in (8, 4):
+            for g in ql.GROUP_SIZES:
+                if g != QUANT_GROUP and bits != 8:
+                    continue
+                qp = tq.quantize_param_dict(w, bits, g, bf16)
+                for shape, offs in shapes.items():
+                    if g != QUANT_GROUP and shape != "decode":
+                        continue
+                    m = offs[-1]
+                    lhs = torch.randn((m, k), generator=gen,
+                                      device=dev).to(bf16)
+                    offsets = torch.tensor(offs, dtype=torch.int32,
+                                           device=dev)
+                    ref = ql.grouped_matmul_q_plain(lhs, qp, offsets)
+                    key = f"{shape}_{proj}_int{bits}_g{g}"
+                    got = {}
+                    for v in ("prefill", "decode"):
+                        got[v] = ql.grouped_matmul_q(lhs, qp, offsets,
+                                                     _variant=v)
+                        again = ql.grouped_matmul_q(lhs, qp, offsets,
+                                                    _variant=v)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got[v], again):
+                            raise AssertionError(f"grouped_gemm_q {key} {v}"
+                                                 ": two calls differ")
+                        errs[f"{key}_{v}"] = _close(torch, got[v], ref,
+                                                    F32_TOL)
+                        bitwise[f"{key}_{v}"] = bool(torch.equal(got[v],
+                                                                 ref))
+                    picked = ql.grouped_matmul_q(lhs, qp, offsets)
+                    torch.cuda.synchronize()
+                    if not torch.equal(picked,
+                                       got[ql.grouped_variant_for(m)]):
+                        raise AssertionError(f"grouped_gemm_q {key}: the "
+                                             "picked variant's bits differ")
+                    if g == QUANT_GROUP:
+                        touched = sum(1 for i in range(e)
+                                      if offs[i + 1] > offs[i])
+
+                        def call(lhs=lhs, offsets=offsets, qp=qp):
+                            return ql.grouped_matmul_q(lhs, qp, offsets)
+
+                        b_ms, b_by = quant_bound(m, n, k, g, 4, touched)
+                        timed[f"{shape}_{proj}_int{bits}"] = dict(
+                            m=m, n=n, k=k, groups_touched=touched,
+                            variant=ql.grouped_variant_for(m),
+                            ms=time_ms(torch, call, 20, flush),
+                            device_ms=time_ms(torch, call, 20, flush,
+                                              hide_host=True),
+                            plain_ms=time_ms(torch, lambda lhs=lhs,
+                                             offsets=offsets, qp=qp:
+                                             ql.grouped_matmul_q_plain(
+                                                 lhs, qp, offsets), 5, flush),
+                            bound_ms=b_ms, bound_by=b_by)
+                        device_only[f"grouped_gemm_q_{shape}_{proj}_int"
+                                    f"{bits}"] = timed[
+                            f"{shape}_{proj}_int{bits}"]["device_ms"]
+                    del lhs, offsets, ref, got, picked
+                if bits == 8 and g == QUANT_GROUP:
+                    for tokens in QUANT_SWEEP_TOKENS:
+                        offs = _decode_offsets(tokens, k_top, e,
+                                               seed=9 + tokens)
+                        lhs = torch.randn((offs[-1], k), generator=gen,
+                                          device=dev).to(bf16)
+                        offsets = torch.tensor(offs, dtype=torch.int32,
+                                               device=dev)
+                        ref = ql.grouped_matmul_q_plain(lhs, qp, offsets)
+                        row = {}
+                        for v in ("decode", "prefill"):
+                            _close(torch, ql.grouped_matmul_q(
+                                lhs, qp, offsets, _variant=v), ref, F32_TOL)
+                            row[v] = time_ms(
+                                torch, lambda v=v, lhs=lhs, offsets=offsets,
+                                qp=qp: ql.grouped_matmul_q(
+                                    lhs, qp, offsets, _variant=v), 20,
+                                flush, hide_host=True)
+                        crossover[f"m{offs[-1]}_{proj}"] = row
+                        del lhs, offsets, ref
+                del qp
+        del w
+    emit({"phase": "kernels", "check": "grouped_gemm_q", "model": MOE_MODEL,
+          "experts": e, "max_abs_err": errs, "f32_tol_atol_rtol": F32_TOL,
+          "deterministic": True, "bitwise_equal_to_plain": bitwise,
+          "variant_by_shape": {sh: ql.grouped_variant_for(o[-1])
+                               for sh, o in shapes.items()},
+          "timed": timed, "decode_max_rows": ql.GROUPED_DECODE_MAX_ROWS,
+          "crossover_device_ms": crossover})
+    emit(check_quant_shared_expert(torch, gen, dev))
+    main = timed["decode_gate_up_int8"]
+    return dict(
+        name="grouped_gemm_q", route="cuda",
+        source="parallax_tpu_torch/csrc/quant_linear.cu",
+        replaces="parallax_tpu/models/moe.py:92",
+        max_abs_err=max(errs.values()), ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+    )
+
+
+def check_quant_shared_expert(torch, gen, dev) -> dict:
+    """A quantized MoE block with a shared expert (GLM-4.5-Air's widths:
+    H 4096, E 128, top 8, I 1408, one shared expert of 1408; int8 at the
+    loader's group) at a decode step of 7 tokens: the shared expert's
+    three products launch A10 and the routed experts' three launch A11,
+    and the block agrees with the plain block (``kernel_choice(False)``
+    and ``kernel=False``: dequantize, then multiply) within BF16_TOL."""
+    from parallax_tpu_torch.models import layers as L
+    from parallax_tpu_torch.models.moe import moe_ffn
+    from parallax_tpu_torch.models.presets import get_preset
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.ops import quant as tq
+
+    bf16 = torch.bfloat16
+    cfg = get_preset(GLM4_MOE_MODEL)
+    moe, h = cfg.moe, cfg.hidden_size
+    e, inter = moe.num_experts, moe.moe_intermediate_size
+    shared = (moe.shared_expert_intermediate_size
+              or inter) * moe.num_shared_experts
+
+    def quantized(*shape):
+        w = torch.randn(shape, generator=gen, device=dev) * shape[-1] ** -0.5
+        return tq.quantize_param_dict(w, 8, QUANT_GROUP, bf16)
+
+    p = {"gate": {"weight": (torch.randn((e, h), generator=gen, device=dev)
+                             * h ** -0.5).to(bf16)},
+         "experts": {"gate_proj": quantized(e, inter, h),
+                     "up_proj": quantized(e, inter, h),
+                     "down_proj": quantized(e, h, inter)},
+         "shared_expert": {"gate_proj": quantized(shared, h),
+                           "up_proj": quantized(shared, h),
+                           "down_proj": quantized(h, shared)}}
+    x = torch.randn((7, h), generator=gen, device=dev).to(bf16)
+    with ck.tally(into_launches=False) as launched:
+        got = moe_ffn(x, p, moe)
+        torch.cuda.synchronize()
+    with L.kernel_choice(False), ck.tally(into_launches=False) as plain_run:
+        ref = moe_ffn(x, p, moe, kernel=False)
+    want = {"quant_linear": 3, "grouped_gemm_q": 3}
+    if launched != want or plain_run:
+        raise AssertionError(f"quantized shared expert: launches "
+                             f"{launched} (plain {plain_run}), want {want}")
+    err = _close(torch, got, ref, BF16_TOL)
+    del p, x, got, ref
+    return {"phase": "kernels", "check": "quant_shared_expert",
+            "model": GLM4_MOE_MODEL, "tokens": 7, "shared_intermediate":
+            shared, "launches": launched, "plain_launches": plain_run,
+            "max_abs_err": err, "bf16_tol_atol_rtol": BF16_TOL}
 
 
 def _mla_case(torch, gen, dev, dtype, hq, r, dr, page, lens, frozen,
@@ -2880,6 +3297,118 @@ def dense_tree(torch, dev, phase: str):
     emit({"phase": phase, "weights": "random bf16", "params": n_params,
           "init_s": round(time.monotonic() - t0, 3), "layers": n})
     return cfg, model_full, params
+
+
+def copy_tree(tree):
+    """A tree's dicts and lists copied, its tensors shared: quantizing the
+    copy in place leaves the original tree as it was."""
+    if isinstance(tree, dict):
+        return {k: copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [copy_tree(v) for v in tree]
+    return tree
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+# quant_serve's runs on the quantized tree: (bits, mode, fused kernels,
+# model kwargs, engine kwargs). The K1_SYNC run serves K1_SHORT_ROWS of
+# the mix for K1_SHORT_NEW tokens.
+QUANT_RUNS = (
+    (8, "fused", True, None, None),
+    (8, "fused_k1_sync", True, None, K1_SYNC),
+    (8, "plain", False, dict(use_kernels=False), K1_SYNC),
+    (4, "fused", True, None, None),
+)
+
+
+def quant_expected(mode, summary, n_linear: int) -> dict:
+    """A10's launches: ``n_linear`` quantized products a forward step (the
+    layers' and the lm_head's) on the kernel runs, none on the plain one."""
+    if not mode.startswith("fused"):
+        return {}
+    return {"quant_linear": n_linear * sum(forward_steps(summary))}
+
+
+def phase_quant_serve(torch, dev, card: str, cfg, model_full, params):
+    """Qwen2.5-7B at full width and all 28 layers, weight-only quantized on
+    the card from serve's bf16 tree (``quantize_tree`` on a copy of its
+    dicts, group QUANT_GROUP): int8 served fused with the defaults, with
+    K1_SYNC (two rows, 8 tokens) and plain (``use_kernels=False``: the
+    dequantize-then-multiply path, no A10), int4 fused with the defaults.
+    Launches exact (A0-A3 as serve's, A10 seven times a layer plus the
+    lm_head each forward step, graph replays included); the fused runs'
+    greedy rows within GREEDY_TOL of the plain one-shot logits of the same
+    quantized tree; the tree's bytes against the bf16 tree's. Returns the
+    int8 fused run's launches."""
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.ops.quant import quantize_tree
+
+    n = cfg.num_hidden_layers
+    bf16_bytes = tree_bytes(params)
+    trees, out = {}, None
+    for bits, mode, fused, model_kw, engine_kw in QUANT_RUNS:
+        if bits not in trees:
+            trees.clear()
+            free_device_memory(torch)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            trees[bits] = quantize_tree(copy_tree(params), bits=bits,
+                                        group_size=QUANT_GROUP,
+                                        dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            q_bytes = tree_bytes(trees[bits])
+            emit({"phase": "quant_serve", "bits": bits,
+                  "group_size": QUANT_GROUP,
+                  "quantize_on_card_s": time.monotonic() - t0,
+                  "tree_bytes": q_bytes, "bf16_tree_bytes": bf16_bytes,
+                  "ratio": q_bytes / bf16_bytes,
+                  "mem_free_gb": torch.cuda.mem_get_info()[0] / 1e9,
+                  "card": card})
+        qparams = trees[bits]
+        short = engine_kw is K1_SYNC and fused
+        ck.reset_launches()
+        reqs, sampled, engines, t0, t1 = serve(
+            torch, [(0, n)], qparams, cfg, dev, fused=fused,
+            model_kw=model_kw, engine_kw=engine_kw,
+            requests=k1_short_mix(cfg.vocab_size) if short else None,
+            grammar=False)
+        launches = ck.launches()
+        new = K1_SHORT_NEW if short else 32
+        for r in reqs:
+            if r.status.value != "finished_length" or \
+                    len(r.output_ids) != new:
+                raise AssertionError(f"quant_serve int{bits} {mode} "
+                                     f"{r.request_id}: {r.status.value}, "
+                                     f"{len(r.output_ids)} tokens")
+        summary = engines[0].kernel_dispatch_summary()
+        check_launches("quant_serve", f"{mode}_int{bits}", launches, {
+            **gqa_expected(mode, summary, n),
+            **quant_expected(mode, summary, 7 * n + 1)}, summary)
+        if engine_kw is None:
+            check_windows("quant_serve", mode, summary, True)
+        del engines
+        line = {"phase": "quant_serve", "run": f"{mode}_int{bits}",
+                "requests": len(reqs), "engine": engine_kw or "defaults",
+                "launches": launches, "steps": sum(forward_steps(summary)),
+                "dispatch": summary,
+                "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                **stream_metrics(reqs, t0, t1), "card": card}
+        if mode == "fused":
+            worst, over, *_ = greedy_check(torch, model_full, qparams, reqs,
+                                           sampled, dev, tol=GREEDY_TOL)
+            line.update(greedy_vs_plain="pass", largest_logit_gap=worst,
+                        tolerance=GREEDY_TOL,
+                        plain="the same quantized tree, use_kernels=False",
+                        **{f"tokens_off_by_{GREEDY_TOL}_or_more": over})
+            if bits == 8:
+                out = launches
+        emit(line)
+    trees.clear()
+    free_device_memory(torch)
+    return out
 
 
 def phase_serve(torch, dev, card: str, cfg, model_full, params):
@@ -4290,7 +4819,8 @@ def phase_disagg_serve(torch, dev, card, cfg, model_full, params) -> None:
 # HF's default shard size (``max_shard_size="5GB"``).
 SHARD_BYTES = 5 * 10**9
 HTTP_TIMEOUT_S = 300
-_ST_DTYPES = {"bfloat16": "BF16", "float16": "F16", "float32": "F32"}
+_ST_DTYPES = {"bfloat16": "BF16", "float16": "F16", "float32": "F32",
+              "uint32": "U32", "uint8": "U8"}
 GENERATE_SUMMARY = (r"(\d+) prompt \+ (\d+) generated tokens \| ttft "
                     r"([\d.]+)s \| decode ([\d.]+) tok/s \| (\w+)")
 
@@ -4538,12 +5068,13 @@ def http_feature_checks(features) -> dict:
     return got
 
 
-def _serve_http(torch, dev, ckpt: str, mix):
+def _serve_http(torch, dev, ckpt: str, mix, extra_args=()):
     """``serve`` through the CLI's parser and ``serve_main`` on a free port
-    in a thread; the mix from 8 client threads (r7 once r0 is answered, so
-    that it finds r0's prefix in the cache); then the server is stopped.
-    Returns the replies, the finished requests by id, the launches and
-    the engine's summary."""
+    in a thread (``extra_args`` appended to its command line); the mix
+    from 8 client threads (r7 once r0 is answered, so that it finds r0's
+    prefix in the cache); then the server is stopped. Returns the replies,
+    the finished requests by id, the launches and the engine's
+    summary."""
     import threading
 
     from parallax_tpu_torch import cli
@@ -4553,7 +5084,7 @@ def _serve_http(torch, dev, ckpt: str, mix):
     args = cli.build_parser().parse_args([
         "serve", "--model-path", ckpt, "--device", str(dev),
         "--host", "127.0.0.1", "--port", "0", "--max-batch-size", "7",
-        "--page-size", "64", "--max-model-len", "1024"])
+        "--page-size", "64", "--max-model-len", "1024", *extra_args])
     if cli.unported_flags(args):
         raise AssertionError(f"http_serve: {cli.unported_flags(args)}")
     box, started = [], threading.Event()
@@ -4613,7 +5144,8 @@ def _serve_http(torch, dev, ckpt: str, mix):
 def phase_http_serve(torch, dev, card: str, cfg, tree: list,
                      swarm: bool = False, sched: bool = False,
                      ha: bool = False, relay: bool = False,
-                     obs: bool = False, qos: bool = False) -> None:
+                     obs: bool = False, qos: bool = False,
+                     quant: bool = False) -> None:
     """The port's front door on Qwen2.5-7B at full width: the random tree
     written as an HF checkpoint, the CLI's ``generate`` run on it in a
     subprocess, the checkpoint loaded back bitwise, then ``serve`` (CLI
@@ -4621,8 +5153,10 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
     8-request mix over HTTP; launches exact, greedy rows against the plain
     path on the loaded weights, the prefix cache hit. ``tree`` holds the
     only reference to the random tree, dropped once it loaded back. With
-    ``swarm``, phase_swarm_serve follows in the same checkpoint directory
-    (the checkpoint is written once), with ``sched`` phase_sched_serve,
+    ``quant``, ``http_quant`` serves the same checkpoint quantized on
+    load. With ``swarm``, phase_swarm_serve follows in the same checkpoint
+    directory (the checkpoint is written once), with ``sched``
+    phase_sched_serve,
     with ``ha`` phase_ha_serve, with ``relay`` phase_relay_serve, with
     ``obs`` phase_obs_serve and with ``qos`` qos_serve's part (b)."""
     import os
@@ -4702,6 +5236,8 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
         free_device_memory(torch)
         reqs = http_results(torch, dev, card, cfg, loaded, mix, sampled,
                             outs, finished, launches, summary, info)
+        if quant:
+            http_quant(torch, dev, card, cfg, ckpt, mix, sampled)
         if swarm:
             phase_swarm_serve(torch, dev, card, cfg, loaded, ckpt, mix,
                               sampled, reqs)
@@ -4723,6 +5259,113 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
             qos_http(torch, dev, card, ckpt)
             emit({"phase": "qos_serve", "part": "b",
                   "seconds": time.monotonic() - t0, "card": card})
+
+
+def mlx_tensors(tree, bits: int) -> dict:
+    """A quantized stage tree under MLX checkpoint names: each quantized
+    module's values packed into uint32 words as its ``weight``
+    (``pack_uint32``, little-endian in the word) beside its ``scales`` and
+    ``biases``; float leaves as ``hf_tensors`` names them."""
+    import torch
+
+    from parallax_tpu_torch.ops.quant import pack_uint32
+
+    out = {}
+    for name, t in hf_tensors(tree).items():
+        base, _, leaf = name.rpartition(".")
+        if leaf == "qweight":
+            # The words' uint32 view is taken on the host.
+            out[base + ".weight"] = pack_uint32(t, bits).cpu().view(
+                torch.uint32)
+        else:
+            out[name] = t
+    return out
+
+
+def http_quant(torch, dev, card, cfg, ckpt: str, mix, sampled) -> None:
+    """The CLI path of quantization: ``serve --quantization int8`` over
+    HTTP on http_serve's checkpoint (the mix from 8 clients): replies,
+    launches exact (A10 seven times a layer plus the lm_head each forward
+    step), greedy rows within GREEDY_TOL of the plain one-shot logits of
+    the same tree quantized on load by the library, and that tree served
+    by the library API on the same prompts (its greedy rows too, and how
+    many equal the HTTP ones: the server's batches form as its clients
+    arrive, so a row may part at a near-tie). Then an MLX-format
+    checkpoint of that tree (``mlx_tensors``, config ``quantization``
+    bits 8, group QUANT_GROUP) must load back into it bitwise."""
+    import tempfile
+
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.models.loader import load_stage_params
+    from parallax_tpu_torch.models.presets import PRESETS
+    from parallax_tpu_torch.utils.tokenizer import SimpleTokenizer
+
+    n = cfg.num_hidden_layers
+    outs, finished, launches, summary, info = _serve_http(
+        torch, dev, ckpt, mix, ("--quantization", "int8"))
+    free_device_memory(torch)
+    tok = SimpleTokenizer()
+    reqs = []
+    for out, (_, body) in zip(outs, mix):
+        rid, reason, usage, text = _http_reply(out, body)
+        r = finished[rid]
+        if (reason != "length" or r.status.value != "finished_length"
+                or len(r.output_ids) != 32
+                or text != tok.decode(r.output_ids)):
+            raise AssertionError(f"http_serve int8 {rid}: {reason}, "
+                                 f"{usage}, {r.status.value}")
+        reqs.append(r)
+    check_launches("http_serve", "int8", launches, {
+        **gqa_expected("fused", summary, n),
+        **quant_expected("fused", summary, 7 * n + 1)}, summary)
+    check_windows("http_serve", "int8", summary, True)
+    model = create_stage_model(cfg, 0, n)
+    qtree = load_stage_params(model, ckpt, device=dev, quantize="int8")
+    model_ref = create_stage_model(cfg, 0, n, use_kernels=False)
+    worst, over, *_ = greedy_check(torch, model_ref, qtree, reqs, sampled,
+                                   dev, tol=GREEDY_TOL)
+    lib, _, engines, t0, t1 = serve(
+        torch, [(0, n)], qtree, cfg, dev, fused=True,
+        engine_kw=dict(num_pages=info["num_pages"],
+                       prefill_chunk_size=info["prefill_chunk_size"]),
+        requests=(_swarm_requests(reqs, sampled), sampled), grammar=False)
+    del engines
+    worst_lib, *_ = greedy_check(torch, model_ref, qtree, lib, sampled, dev,
+                                 tol=GREEDY_TOL)
+    greedy = [i for i in range(len(reqs)) if i not in sampled]
+    with tempfile.TemporaryDirectory(prefix="mlx_ckpt_") as mlx:
+        raw = dict(PRESETS[DENSE_MODEL], num_hidden_layers=n,
+                   quantization={"bits": 8, "group_size": QUANT_GROUP})
+        written = mlx_tensors(qtree, 8)
+        nbytes = write_checkpoint(written, raw, mlx)
+        del written
+        t_load = time.monotonic()
+        loaded = load_stage_params(model, mlx, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t_load
+    want, got = hf_tensors(qtree), hf_tensors(loaded)
+    if set(want) != set(got) or not all(
+            want[k].dtype == got[k].dtype and torch.equal(want[k], got[k])
+            for k in want):
+        raise AssertionError("http_serve: the MLX checkpoint did not load "
+                             "into the on-load int8 tree bitwise")
+    emit({"phase": "http_serve", "run": "serve_quantization_int8",
+          "requests": len(reqs), "status": "8 x 200", "launches": launches,
+          "steps": sum(forward_steps(summary)), "dispatch": summary,
+          "greedy_vs_plain": "pass", "largest_logit_gap": worst,
+          "tolerance": GREEDY_TOL,
+          f"tokens_off_by_{GREEDY_TOL}_or_more": over,
+          "library_api_largest_logit_gap": worst_lib,
+          "greedy_rows_identical_to_library_api": sum(
+              reqs[i].output_ids == lib[i].output_ids for i in greedy),
+          "greedy_rows": len(greedy),
+          "library_api": stream_metrics(lib, t0, t1),
+          "mlx_checkpoint": {"bytes": nbytes, "load_s": load_s,
+                             "leaves": len(got),
+                             "bitwise_equal_to_on_load_int8": True},
+          "tree_bytes": tree_bytes(qtree), "card": card})
+    del qtree, loaded, want, got
+    free_device_memory(torch)
 
 
 def http_results(torch, dev, card, cfg, loaded, mix, sampled, outs,
@@ -4889,15 +5532,13 @@ def _in_process_pipeline(cfg, params, reqs, dev):
     return reqs
 
 
-def swarm_in_process(torch, dev, card, cfg, params, served, sampled):
-    """Part (a): two port WorkerNodes on TcpTransports in this process,
-    layers 0-14 and 14-28 of ``params`` (sliced, not copied), serving the
-    mix's prompts submitted at the head. Every request ends by length;
-    each worker's launches are exact (A2 14 x its decode steps, A0 / A1 14
-    x its prefill steps, A3 and the noise kernel on the tail only) and no
-    graph is captured; the greedy rows agree with the plain path. The
-    streams are counted against the in-process pipeline's on the same
-    requests. Returns the requests."""
+def serve_swarm_pair(torch, dev, cfg, params, reqs, **engine_over):
+    """Two port WorkerNodes on TcpTransports in this process, SWARM_BOUNDS
+    of ``params`` (sliced, not copied), ``engine_config(True,
+    **engine_over)`` each, serving ``reqs`` submitted at the head. Returns
+    the launches, both engines' summaries, both links' transport stats,
+    the head's negotiated wire dtype towards the tail, the seconds to the
+    route and the serving span's (t0, t1)."""
     from parallax_tpu_torch.ops import cuda_kernels as ck
     from parallax_tpu_torch.p2p.node import WorkerNode
     from parallax_tpu_torch.p2p.transport import TcpTransport
@@ -4913,7 +5554,7 @@ def swarm_in_process(torch, dev, card, cfg, params, served, sampled):
         t0 = time.monotonic()
         for t, (s, e) in zip(transports, SWARM_BOUNDS):
             workers.append(WorkerNode(
-                t, None, cfg, engine_config(True),
+                t, None, cfg, engine_config(True, **engine_over),
                 load_params=lambda m: _stage_tree(params, m.start_layer,
                                                   m.end_layer, n),
                 heartbeat_interval_s=0.5,
@@ -4929,7 +5570,6 @@ def swarm_in_process(torch, dev, card, cfg, params, served, sampled):
                                      f"{head.local_route()}")
             time.sleep(0.05)
         route_s = time.monotonic() - t0
-        reqs = _swarm_requests(served, sampled)
         ck.reset_launches()
         t0 = time.monotonic()
         events = []
@@ -4945,6 +5585,7 @@ def swarm_in_process(torch, dev, card, cfg, params, served, sampled):
         summaries = [w.engine.kernel_dispatch_summary() for w in workers]
         links = {"head_to_tail": head.transport_stats()[tail.node_id],
                  "tail_to_head": tail.transport_stats()[head.node_id]}
+        wire = (head._wire_dtypes.get(tail.node_id) or (None,))[0]
     finally:
         for w in workers:
             w.stop()
@@ -4952,6 +5593,22 @@ def swarm_in_process(torch, dev, card, cfg, params, served, sampled):
         for t in transports:
             t.stop()
     del workers
+    return launches, summaries, links, wire, route_s, t0, t1
+
+
+def swarm_in_process(torch, dev, card, cfg, params, served, sampled):
+    """Part (a): two port WorkerNodes on TcpTransports in this process,
+    layers 0-14 and 14-28 of ``params`` (sliced, not copied), serving the
+    mix's prompts submitted at the head. Every request ends by length;
+    each worker's launches are exact (A2 14 x its decode steps, A0 / A1 14
+    x its prefill steps, A3 and the noise kernel on the tail only) and no
+    graph is captured; the greedy rows agree with the plain path. The
+    streams are counted against the in-process pipeline's on the same
+    requests. Then the float8 link (``swarm_fp8_link``). Returns the
+    requests."""
+    reqs = _swarm_requests(served, sampled)
+    launches, summaries, links, _, route_s, t0, t1 = serve_swarm_pair(
+        torch, dev, cfg, params, reqs)
     for r in reqs:
         if r.status.value != "finished_length" or len(r.output_ids) != 32:
             raise AssertionError(f"swarm_serve (a) {r.request_id}: "
@@ -5004,7 +5661,46 @@ def swarm_in_process(torch, dev, card, cfg, params, served, sampled):
           "tokens": sum(len(r.output_ids) for r in reqs),
           "links": links, **FIGURES["swarm_in_process"],
           "dispatch": summaries, "card": card})
+    swarm_fp8_link(torch, dev, card, cfg, params, served, sampled, reqs,
+                   links)
     return reqs
+
+
+def swarm_fp8_link(torch, dev, card, cfg, params, served, sampled, native,
+                   native_links) -> None:
+    """Part (a) once more with ``wire_dtype="fp8"`` on both workers: the
+    head must negotiate float8_e4m3fn with the tail over ``wire_caps`` and
+    every request complete; the FORWARD hidden-state bytes a hop against
+    the native bf16 run's (one byte a value plus a 4-byte scale a token:
+    about 0.5x), and the share of greedy tokens equal to the native run's
+    (reported: the mode is lossy by design)."""
+    reqs = _swarm_requests(served, sampled)
+    launches, summaries, links, wire, route_s, t0, t1 = serve_swarm_pair(
+        torch, dev, cfg, params, reqs, wire_dtype="fp8")
+    for r in reqs:
+        if r.status.value != "finished_length" or len(r.output_ids) != 32:
+            raise AssertionError(f"swarm_serve fp8 {r.request_id}: "
+                                 f"{r.status.value}, {len(r.output_ids)}")
+    if wire != "float8_e4m3fn":
+        raise AssertionError(f"swarm_serve fp8: the link negotiated {wire}")
+    fp8_bytes = links["head_to_tail"]["bytes_out"]
+    bf16_bytes = native_links["head_to_tail"]["bytes_out"]
+    greedy = [i for i in range(len(reqs)) if i not in sampled]
+    same = sum(a == b for i in greedy for a, b in zip(
+        reqs[i].output_ids, native[i].output_ids))
+    emit({"phase": "swarm_serve", "part": "a_fp8_link",
+          "negotiated": wire, "requests": len(reqs),
+          "status": "8 x finished_length", "route_ready_s": route_s,
+          "hidden_bytes_per_hop": fp8_bytes,
+          "native_bf16_hidden_bytes_per_hop": bf16_bytes,
+          "bytes_ratio": fp8_bytes / bf16_bytes,
+          "compression_ratio": links["head_to_tail"].get(
+              "compression_ratio"),
+          "greedy_tokens_equal_to_native": same,
+          "greedy_tokens": 32 * len(greedy),
+          "greedy_equal_share": same / (32 * len(greedy)),
+          "launches": launches, **stream_metrics(reqs, t0, t1),
+          "card": card})
 
 
 def create_plain_model(cfg):
@@ -7604,13 +8300,14 @@ def phase_obs_serve(torch, dev, card, cfg, params, ckpt, mix) -> None:
           "card": card})
 
 
-def phase_moe_serve(torch, dev, card: str, want) -> dict:
+def phase_moe_serve(torch, dev, card: str, want) -> tuple[dict, dict]:
     """Qwen3-30B-A3B at full width and depth on one card: serve the
     8-request mix with the kernels, with the engine's defaults and with
-    K1_SYNC, check every kernel's launches (the grouped GEMM 3 x 48 times
-    per forward step) and the default run's greedy streams against the
-    plain path; then, if asked, profile the same serve. Returns the
-    launches of the default run."""
+    K1_SYNC (two rows, 8 tokens), check every kernel's launches (the
+    grouped GEMM 3 x 48 times per forward step) and the default run's
+    greedy streams against the plain path; then, if asked, profile the
+    same serve; then the tree quantized in place (``moe_quantized``).
+    Returns the launches of the default run and of the quantized one."""
     from parallax_tpu_torch.models import create_stage_model
     from parallax_tpu_torch.models.presets import get_preset
     from parallax_tpu_torch.ops import cuda_kernels as ck
@@ -7636,13 +8333,20 @@ def phase_moe_serve(torch, dev, card: str, want) -> dict:
           "mem_free_gb_after_load": free1 / 1e9})
 
     for mode, engine_kw in (("fused", None), ("fused_k1_sync", K1_SYNC)):
+        # The K1_SYNC run serves K1_SHORT_ROWS for K1_SHORT_NEW tokens (a
+        # cut for time; launches and completion still exact).
+        short = engine_kw is not None
         ck.reset_launches()
-        reqs_m, sampled, engines, t0, t1 = serve(
+        reqs_m, sampled_m, engines, t0, t1 = serve(
             torch, [(0, n_layers)], params, cfg, dev, fused=True,
-            engine_kw=engine_kw)
+            engine_kw=engine_kw,
+            requests=k1_short_mix(cfg.vocab_size) if short else None,
+            grammar=False)
         launches_m = ck.launches()
+        new = K1_SHORT_NEW if short else 32
         for r in reqs_m:
-            if r.status.value != "finished_length" or len(r.output_ids) != 32:
+            if r.status.value != "finished_length" or \
+                    len(r.output_ids) != new:
                 raise AssertionError(f"moe {mode} {r.request_id}: "
                                      f"{r.status.value}, "
                                      f"{len(r.output_ids)} tokens")
@@ -7653,11 +8357,12 @@ def phase_moe_serve(torch, dev, card: str, want) -> dict:
             "grouped_gemm": 3 * moe_layers * steps}, summary)
         if engine_kw is None:
             check_windows("moe_serve", mode, summary, True)
-            reqs, launches = reqs_m, launches_m
+            reqs, sampled, launches = reqs_m, sampled_m, launches_m
         emit({"phase": "moe_serve", "run": mode, "requests": len(reqs_m),
               "engine": engine_kw or "defaults", "launches": launches_m,
               "steps": steps, "dispatch": summary,
-              "sharer_cached_tokens": reqs_m[-1].num_cached_tokens,
+              "sharer_cached_tokens": None if short
+              else reqs_m[-1].num_cached_tokens,
               "mem_free_gb_after_serve": torch.cuda.mem_get_info()[0] / 1e9,
               "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
               **stream_metrics(reqs_m, t0, t1), "card": card})
@@ -7681,6 +8386,68 @@ def phase_moe_serve(torch, dev, card: str, want) -> dict:
           "teacher_forced_a4_vs_plain": tf})
     if want("moe_profile"):
         phase_profile(torch, dev, cfg, params, phase="moe_profile")
+    return launches, moe_quantized(torch, dev, card, cfg, params,
+                                   model_plain, moe_layers)
+
+
+def moe_quantized(torch, dev, card, cfg, params, model_plain,
+                  moe_layers: int) -> dict:
+    """moe_serve's bf16 tree quantized in place on the card (int8, group
+    QUANT_GROUP: the expert stacks, attention and the lm_head; the router
+    stays float), so no second tree is drawn; then served fused with the
+    defaults: A11 three times a MoE layer and forward step and never A4,
+    A10 on the attention projections and the lm_head, greedy rows within
+    MOE_GREEDY_TOL of the plain path on the same quantized tree. Returns
+    the run's launches."""
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.ops.quant import quantize_tree
+
+    n_layers = cfg.num_hidden_layers
+    bf16_bytes = tree_bytes(params)
+    # The bf16 runs' engines hold dicts of their own over the same tensors
+    # (``params_to``): collected first, each float leaf is freed as soon as
+    # its quantized form replaces it.
+    free_device_memory(torch)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    quantize_tree(params, bits=8, group_size=QUANT_GROUP,
+                  dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    quant_s = time.monotonic() - t0
+    free_device_memory(torch)
+    q_bytes = tree_bytes(params)
+    emit({"phase": "moe_serve", "quantized": "int8", "in_place": True,
+          "group_size": QUANT_GROUP, "quantize_on_card_s": quant_s,
+          "tree_bytes": q_bytes, "bf16_tree_bytes": bf16_bytes,
+          "ratio": q_bytes / bf16_bytes,
+          "mem_free_gb": torch.cuda.mem_get_info()[0] / 1e9, "card": card})
+    ck.reset_launches()
+    reqs, sampled, engines, t0, t1 = serve(torch, [(0, n_layers)], params,
+                                           cfg, dev, fused=True)
+    launches = ck.launches()
+    for r in reqs:
+        if r.status.value != "finished_length" or len(r.output_ids) != 32:
+            raise AssertionError(f"moe quantized {r.request_id}: "
+                                 f"{r.status.value}, {len(r.output_ids)}")
+    summary = engines[0].kernel_dispatch_summary()
+    steps = sum(forward_steps(summary))
+    check_launches("moe_serve", "fused_int8", launches, {
+        **gqa_expected("fused", summary, n_layers),
+        **quant_expected("fused", summary, 4 * n_layers + 1),
+        "grouped_gemm_q": 3 * moe_layers * steps}, summary)
+    check_windows("moe_serve", "fused_int8", summary, True)
+    del engines
+    worst, over, *_ = greedy_check(torch, model_plain, params, reqs, sampled,
+                                   dev, tol=MOE_GREEDY_TOL)
+    emit({"phase": "moe_serve", "run": "fused_int8", "requests": len(reqs),
+          "engine": "defaults", "launches": launches, "steps": steps,
+          "dispatch": summary, "greedy_vs_plain": "pass",
+          "largest_logit_gap": worst, "tolerance": MOE_GREEDY_TOL,
+          f"tokens_off_by_{GREEDY_TOL}_or_more": over,
+          "plain": "the same quantized tree, moe_ffn(kernel=False) + split "
+                   "attention, use_kernels=False",
+          "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          **stream_metrics(reqs, t0, t1), "card": card})
     return launches
 
 
@@ -9430,6 +10197,11 @@ def phase_pp_spec(torch, dev, card, cfg, model_full, params):
         for k, v in figs.items()}
 
 
+# Phases that run only when ``--only`` names them (the whole script's time
+# limit).
+OPT_IN_PHASES = ("moe_profile", "mla_profile", "dsa_profile",
+                 "gptoss_profile")
+
 KERNEL_PATH = {
     "kv_append": "moe_serve", "gqa_prefill": "moe_serve",
     "gqa_decode": "moe_serve", "sample_topk": "moe_serve",
@@ -9437,7 +10209,8 @@ KERNEL_PATH = {
     "mla_attend": "mla_serve/split", "indexer_fused": "dsa_serve/fused",
     "indexer_scores": "dsa_serve/split",
     "gqa_attend": "gptoss_serve/split", "ragged_attend": "serve/split",
-    "gumbel_rows": "serve/fused",
+    "gumbel_rows": "serve/fused", "quant_linear": "quant_serve",
+    "grouped_gemm_q": "moe_serve/int8",
     # Head dim 256: Qwen3-Next's full-attention layers. A9 takes no D 256
     # row on a served path (Qwen3-Next has no sinks): its entry reports
     # the kernel's launches on its own path.
@@ -9457,7 +10230,8 @@ KERNEL_COUNTER = {"ragged_attend": "gqa_prefill",
 # order; the first one asked for names the tree's line when serve is not.
 DENSE_PHASES = ("native", "spec_serve", "pp_spec", "features_serve",
                 "preempt_serve", "migrate_serve",
-                "disagg_serve", "qos_serve", "http_serve", "swarm_serve",
+                "disagg_serve", "qos_serve", "quant_serve", "http_serve",
+                "swarm_serve",
                 "sched_serve", "ha_serve", "relay_serve", "obs_serve")
 
 
@@ -10131,9 +10905,12 @@ def run_dense(torch, dev, card: str, want) -> dict:
         free_device_memory(torch)
     if want("qos_serve"):
         phase_qos_serve(torch, dev, card, cfg, params)
+    if want("quant_serve"):
+        paths["quant_serve"] = phase_quant_serve(torch, dev, card, cfg,
+                                                 model_full, params)
     if any(want(p) for p in ("http_serve", "swarm_serve", "sched_serve",
                              "ha_serve", "relay_serve", "obs_serve",
-                             "qos_serve")):
+                             "qos_serve", "quant_serve")):
         from parallax_tpu_torch.config import normalize_config
         from parallax_tpu_torch.models.presets import PRESETS
 
@@ -10146,7 +10923,8 @@ def run_dense(torch, dev, card: str, want) -> dict:
         phase_http_serve(torch, dev, card, cfg, tree,
                          swarm=want("swarm_serve"), sched=want("sched_serve"),
                          ha=want("ha_serve"), relay=want("relay_serve"),
-                         obs=want("obs_serve"), qos=want("qos_serve"))
+                         obs=want("obs_serve"), qos=want("qos_serve"),
+                         quant=want("quant_serve"))
     return paths
 
 
@@ -10175,7 +10953,9 @@ def main() -> int:
                     help="comma-separated phases (build,kernels,serve,"
                          "pipeline,profile,native,spec_serve,pp_spec,"
                          "features_serve,preempt_serve,"
-                         "migrate_serve,disagg_serve,http_serve,"
+                         "migrate_serve,disagg_serve,quant_serve (runs "
+                         "http_serve too),"
+                         "http_serve,"
                          "swarm_serve, sched_serve, ha_serve, relay_serve, "
                          "obs_serve and qos_serve (each runs http_serve "
                          "too),"
@@ -10209,6 +10989,8 @@ def main() -> int:
     from parallax_tpu_torch.ops import cuda_kernels as ck
 
     def want(p):
+        if p in OPT_IN_PHASES:
+            return p in only
         return not only or p in only
 
     dev = torch.device("cuda:0")
@@ -10239,7 +11021,8 @@ def main() -> int:
     # 61 GB are made.
     free_device_memory(torch)
     if want("moe_serve") or want("moe_profile"):
-        paths["moe_serve"] = phase_moe_serve(torch, dev, card, want)
+        paths["moe_serve"], paths["moe_serve/int8"] = phase_moe_serve(
+            torch, dev, card, want)
     # Qwen3-30B-A3B's 61 GB are gone before DeepSeek's 53 GB are made.
     free_device_memory(torch)
     if any(want(p) for p in ("mla_serve", "mla_profile", "dsa_serve",

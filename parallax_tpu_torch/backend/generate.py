@@ -33,7 +33,8 @@ def generate_main(args) -> int:
     config = load_config(args.model_path)
     tokenizer = load_tokenizer(args.model_path)
     model = create_stage_model(config, 0, config.num_hidden_layers)
-    params = load_stage_params(model, args.model_path, device=device)
+    params = load_stage_params(model, args.model_path, device=device,
+                               quantize=args.quantization)
 
     messages = [{"role": "user", "content": args.prompt}]
     try:

@@ -339,7 +339,8 @@ def serve_main(args, on_start=None) -> int:
             f"[0, {n}) (its in-process pipeline needs the first and the "
             "last stage); serve a partial range with join")
     model = create_stage_model(config, start, end)
-    params = load_stage_params(model, args.model_path, device=device)
+    params = load_stage_params(model, args.model_path, device=device,
+                               quantize=args.quantization)
     draft = None
     if args.draft_model_path:
         from parallax_tpu_torch.runtime.engine import DraftProposer

@@ -307,8 +307,6 @@ def unported_join_flags(args) -> list[tuple[str, int | str]]:
          12),
         (args.lora_adapters is not None, "--lora-adapters", 11),
         (args.lora_max_adapters > 0, "--lora-max-adapters", 11),
-        (args.wire_dtype in ("fp8", "float8_e4m3fn"),
-         f"--wire-dtype {args.wire_dtype}", 11),
         (args.sp_size > 1, f"--sp-size {args.sp_size}", 10),
     ):
         if on:
@@ -333,8 +331,6 @@ def unported_flags(args) -> list[tuple[str, int | str]]:
            f"--model-path {args.model_path} (not a local directory: a hub "
            "download)", 12)
     refuse(args.tp_size > 1, f"--tp-size {args.tp_size}", 10)
-    refuse(args.quantization is not None,
-           f"--quantization {args.quantization}", 11)
     refuse(args.lora_path is not None, "--lora-path", 11)
     refuse(args.compilation_cache_dir is not None,
            "--compilation-cache-dir", 12)
@@ -344,8 +340,6 @@ def unported_flags(args) -> list[tuple[str, int | str]]:
     refuse(args.prefill_seq_parallel, "--prefill-seq-parallel", 10)
     refuse(args.lora_adapters is not None, "--lora-adapters", 11)
     refuse(args.lora_max_adapters > 0, "--lora-max-adapters", 11)
-    refuse(args.wire_dtype in ("fp8", "float8_e4m3fn"),
-           f"--wire-dtype {args.wire_dtype}", 11)
     return refused
 
 

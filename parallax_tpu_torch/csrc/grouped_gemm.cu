@@ -46,6 +46,7 @@
 //   16-byte row stride) and the operands 16-byte aligned.
 
 #include "common.cuh"
+#include "group_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -87,54 +88,6 @@ constexpr size_t smem_bytes(uint32_t stage_bytes, int stages) {
   return (size_t)stages * stage_bytes + 16 * stages + 1024;
 }
 
-// The (group, first row, group end) of row tile ``tile``; false when the
-// tile is past the last one. Warp 0 gives each lane a run of consecutive
-// groups, sums their tile counts, and scans the sums across the warp; the
-// one lane whose range holds ``tile`` walks its groups to find it.
-template <int BM>
-__device__ bool find_tile(const int* __restrict__ offsets, int e, int tile,
-                          int* group, int* row0, int* row_end) {
-  __shared__ int found[3];
-  if (threadIdx.x == 0) found[0] = -1;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const int per = (e + 31) / 32;
-    const int g0 = min(lane * per, e);
-    const int g1 = min(g0 + per, e);
-    int local = 0;
-    for (int g = g0; g < g1; ++g) {
-      local += (offsets[g + 1] - offsets[g] + BM - 1) / BM;
-    }
-    int incl = local;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += v;
-    }
-    int run = incl - local;
-    if (tile >= run && tile < incl) {
-      for (int g = g0; g < g1; ++g) {
-        const int a = offsets[g];
-        const int b = offsets[g + 1];
-        const int tiles = (b - a + BM - 1) / BM;
-        if (tile < run + tiles) {
-          found[0] = g;
-          found[1] = a + (tile - run) * BM;
-          found[2] = b;
-          break;
-        }
-        run += tiles;
-      }
-    }
-  }
-  __syncthreads();
-  if (found[0] < 0) return false;
-  *group = found[0];
-  *row0 = found[1];
-  *row_end = found[2];
-  return true;
-}
-
 // The ring's base in shared memory, aligned to 1024 bytes.
 __device__ __forceinline__ uint32_t ring_base() {
   extern __shared__ unsigned char smem_raw[];
@@ -163,7 +116,7 @@ __global__ void __launch_bounds__(kPThreads, 1)
                                 float* __restrict__ out, int n, int k, int e,
                                 int n_tiles) {
   int g, row0, row_end;
-  if (!find_tile<kPBM>(offsets, e, blockIdx.x / n_tiles, &g, &row0,
+  if (!pk::find_group_tile<kPBM>(offsets, e, blockIdx.x / n_tiles, &g, &row0,
                        &row_end)) {
     return;
   }
@@ -249,7 +202,7 @@ __global__ void __launch_bounds__(kDThreads)
                                float* __restrict__ out, int n, int k, int e,
                                int n_tiles) {
   int g, row0, row_end;
-  if (!find_tile<kDBM>(offsets, e, blockIdx.x / n_tiles, &g, &row0,
+  if (!pk::find_group_tile<kDBM>(offsets, e, blockIdx.x / n_tiles, &g, &row0,
                        &row_end)) {
     return;
   }

@@ -241,6 +241,10 @@ class StageModel:
         """Run the stage. Returns ``(hidden [T, hidden], kv)`` for
         intermediate stages, or ``(logits f32[S, vocab], kv)`` on the last
         stage (gathered at ``logits_indices``)."""
+        with L.kernel_choice(self.use_kernels):
+            return self._forward(params, kv_caches, inputs)
+
+    def _forward(self, params, kv_caches, inputs: BatchInputs):
         cfg = self.config
         if self.is_first:
             x = L.embed_lookup(params["embed_tokens"], inputs.token_ids)

@@ -125,7 +125,7 @@ class DeepseekStageModel(MoEStageModel):
         k_pe = apply_rope(k_pe, inputs.positions, cos, sin)
 
         # Absorb W_UK into the query: kv_b_proj is [Hq * (dn + dv), R].
-        w_kv_b = p["kv_b_proj"]["weight"].reshape(hq, dn + dv, r)
+        w_kv_b = L.get_weight(p["kv_b_proj"]).reshape(hq, dn + dv, r)
         q_latent = torch.einsum("thd,hdr->thr", q_nope, w_kv_b[:, :dn, :])
         return (q_latent.contiguous(), q_pe, latent, k_pe, w_kv_b[:, dn:, :],
                 qr, hq)

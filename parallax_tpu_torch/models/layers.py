@@ -7,16 +7,66 @@ Params are plain dicts of tensors keyed with HF weight names and the HF
 products outside the kernels go to PyTorch, as the JAX package left them to
 XLA). Rounding follows the JAX package: products accumulate in f32 and
 round once to the activation dtype; norms compute in f32; logits are f32.
+
+A weight-only quantized param (``ops/quant.py``: ``{qweight, scales,
+biases?}`` in place of ``{weight}``) multiplies through the A10 kernel
+(``ops/quant_linear.py``) on CUDA tensors, dequantizing inside the
+product; on the CPU, and under the model's plain switch
+(:func:`kernel_choice`, entered by ``StageModel.__call__`` with its
+``use_kernels``), it is dequantized first and multiplied in plain PyTorch.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
 
 from parallax_tpu_torch.config import ModelConfig
 from parallax_tpu_torch.ops.attention import append_and_attend
+from parallax_tpu_torch.ops.kernel_select import resolve_use_kernels
+from parallax_tpu_torch.ops.quant import dequantize_weight, is_quantized
+from parallax_tpu_torch.ops.quant_linear import (
+    quant_linear,
+    quant_linear_plain,
+)
 from parallax_tpu_torch.ops.rope import apply_rope
+
+# The calling thread's choice for the quantized products (the tri-state of
+# ``kernel_select.resolve_use_kernels``): None = A10 on CUDA tensors.
+_choice = threading.local()
+
+
+@contextlib.contextmanager
+def kernel_choice(use_kernels: bool | None):
+    """Run the block with ``use_kernels`` as the quantized products' choice
+    (False: the plain dequantize-then-multiply even on the card, the
+    reference runs' path)."""
+    outer = getattr(_choice, "flag", None)
+    _choice.flag = use_kernels
+    try:
+        yield
+    finally:
+        _choice.flag = outer
+
+
+def get_weight(p: dict) -> torch.Tensor:
+    """The float weight of a param dict, dequantizing a quantized one (a
+    plain dequantize: the port's hot products use A10 instead)."""
+    if is_quantized(p):
+        return dequantize_weight(p)
+    return p["weight"]
+
+
+def _quant_product(x: torch.Tensor, p: dict, out_dtype) -> torch.Tensor:
+    """``x @ deq(p)^T`` as ``out_dtype``: A10, or its plain version."""
+    fn = (quant_linear
+          if resolve_use_kernels(getattr(_choice, "flag", None), x.device)
+          else quant_linear_plain)
+    return fn(x.contiguous(), p["qweight"], p["scales"], p.get("biases"),
+              out_dtype)
 
 
 def rms_norm(
@@ -59,28 +109,37 @@ def layer_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     """``x @ W^T + b`` with the HF ``[out, in]`` weight; the bias is added
     after the product is rounded to ``x``'s dtype, as in the JAX package."""
-    out = F.linear(x, p["weight"])
+    if is_quantized(p):
+        out = _quant_product(x, p, x.dtype)
+    else:
+        out = F.linear(x, p["weight"])
     if "bias" in p:
         out = out + p["bias"].to(out.dtype)
     return out
 
 
 def embed_lookup(embed, token_ids: torch.Tensor) -> torch.Tensor:
-    """Token embedding rows."""
+    """Token embedding rows; a quantized table dequantizes only the
+    gathered rows."""
+    if is_quantized(embed):
+        ids = token_ids.long()
+        return dequantize_weight({k: v[ids] for k, v in embed.items()})
     w = embed["weight"] if isinstance(embed, dict) else embed
     return w[token_ids.long()]
 
 
 def lm_head_logits(x: torch.Tensor, p: dict) -> torch.Tensor:
     """Final projection with f32 logits."""
-    return linear_f32(x, p["weight"])
+    return linear_f32(x, p if is_quantized(p) else p["weight"])
 
 
-def linear_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def linear_f32(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w^T`` with an f32 output (``preferred_element_type=f32`` in the
     JAX package). On the card a bf16 product keeps its f32 accumulator as
     the output (``torch.mm(..., out_dtype=f32)``) instead of rounding to
-    bf16."""
+    bf16. ``w`` may be a quantized param dict."""
+    if is_quantized(w):
+        return _quant_product(x, w, torch.float32)
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return F.linear(x, w)
     if x.is_cuda:

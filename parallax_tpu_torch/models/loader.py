@@ -9,9 +9,14 @@ layout the models read. Safetensors files are read by this module itself
 every tensor goes straight to the device, one at a time, so the host never
 holds the whole stage.
 
-Full-precision checkpoints only (BF16 / F16 / F32 tensors). The quantized
-formats (fp8, GPTQ, MXFP4, MLX packed ``uint32`` + ``.scales``), on-load
-quantization and LoRA merging are refused with "not ported yet".
+Quantized checkpoints load as the JAX loader loads them (``ops/quant.py``):
+MLX packed ``uint32`` weights with ``.scales`` / ``.biases`` (bits from the
+config's ``quantization`` dict, per-module overrides honoured) and GPTQ
+quartets stay quantized at rest; HF FP8 block weights (``weight_scale_inv``)
+and MXFP4 ``_blocks`` / ``_scales`` dequantize on load, on the target
+device. ``quantize="int8" | "int4"`` quantizes a float checkpoint after
+``finalize_params`` (group 64). LoRA merging is refused with "not ported
+yet".
 """
 
 from __future__ import annotations
@@ -24,6 +29,13 @@ import re
 import torch
 
 from parallax_tpu_torch.models.base import StageModel
+from parallax_tpu_torch.ops.quant import (
+    convert_gptq_weight,
+    dequant_fp8_block,
+    dequant_mxfp4,
+    quantize_tree,
+    unpack_uint32,
+)
 from parallax_tpu_torch.utils import get_logger
 from parallax_tpu_torch.utils.hw import resolve_device
 
@@ -36,14 +48,22 @@ SAFETENSORS_DTYPES = {
     "BF16": torch.bfloat16,
     "F16": torch.float16,
     "F32": torch.float32,
+    "F8_E4M3": torch.float8_e4m3fn,
+    "F8_E5M2": torch.float8_e5m2,
+    "U8": torch.uint8,
+    "I32": torch.int32,
+    "U32": torch.uint32,
 }
 _QUANT_METHODS = ("fp8", "gptq", "mxfp4")
+_FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+_GPTQ_SUFFIXES = (".qweight", ".qzeros", ".scales", ".g_idx")
+_ON_LOAD_BITS = {"int8": 8, "int4": 4}
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: not ported yet to parallax_tpu_torch (quantization and "
-        "LoRA wait for ROADMAP queue 1 item 11)"
+        f"{what}: not ported yet to parallax_tpu_torch (LoRA waits for "
+        "ROADMAP queue 1 item 11(c))"
     )
 
 
@@ -99,13 +119,9 @@ class SafetensorsFile:
         name = entry["dtype"]
         dtype = SAFETENSORS_DTYPES.get(name)
         if dtype is None:
-            if name.startswith("F8"):
-                raise _not_ported(f"{self.path}: {key} is {name} (an fp8 "
-                                  "checkpoint)")
-            if name in ("I32", "U32"):
-                raise _not_ported(f"{self.path}: {key} is {name} (packed "
-                                  "quantized weights)")
-            raise _not_ported(f"{self.path}: {key} has dtype {name}")
+            raise ValueError(f"{self.path}: {key} has dtype {name}, which "
+                             f"the loader does not take (have "
+                             f"{', '.join(SAFETENSORS_DTYPES)})")
         shape = [int(d) for d in entry["shape"]]
         begin, end = (int(x) for x in entry["data_offsets"])
         itemsize = torch.empty((), dtype=dtype).element_size()
@@ -210,26 +226,35 @@ def _leaf(t: torch.Tensor, local: str, dtype, device) -> torch.Tensor:
     return out
 
 
-def _refuse_quantized_config(raw_cfg: dict) -> None:
-    qc = raw_cfg.get("quantization_config") or {}
-    quant_method = qc.get("quant_method")
-    if quant_method in _QUANT_METHODS:
-        raise _not_ported(f"quantization_config.quant_method "
-                          f"{quant_method!r}")
-    if quant_method is not None:
-        # An unknown packed format (awq, compressed-tensors, ...) would
-        # stream raw int tensors into float param slots and serve
-        # garbage; refuse loudly instead.
-        raise ValueError(
-            f"quantization_config.quant_method {quant_method!r} is not "
-            "supported (have: fp8, gptq, mxfp4, MLX-format, or on-load "
-            "--quantization int8/int4); dequantize the checkpoint "
-            "offline to serve it"
-        )
-    mlx = raw_cfg.get("quantization")
-    if isinstance(mlx, dict) and "bits" in mlx:
-        raise _not_ported("an MLX quantized checkpoint (config "
-                          "'quantization')")
+def _quant_settings_for(
+    raw_cfg: dict, local_path: str, start_layer: int
+) -> tuple[int, int] | None:
+    """(bits, group_size) for an MLX weight, honouring per-module
+    overrides: the checkpoint's ``quantization`` dict holds the defaults
+    plus override dicts keyed by the global (``model.``-prefixed or bare)
+    module path; an override of ``False`` keeps that module in float."""
+    qcfg = raw_cfg.get("quantization") or raw_cfg.get("quantization_config")
+    if not isinstance(qcfg, dict) or "bits" not in qcfg:
+        return None
+    module = local_path.rsplit(".", 1)[0]
+    candidates = [module, f"model.{module}"]
+    if module.startswith("layers."):
+        parts = module.split(".")
+        if len(parts) > 2 and parts[1].isdigit():
+            gi = int(parts[1]) + start_layer
+            candidates.append(
+                "model.layers." + str(gi) + "." + ".".join(parts[2:])
+            )
+    for key in candidates:
+        override = qcfg.get(key)
+        if override is False:
+            return None
+        if isinstance(override, dict):
+            return (
+                int(override.get("bits", qcfg["bits"])),
+                int(override.get("group_size", qcfg.get("group_size", 64))),
+            )
+    return int(qcfg["bits"]), int(qcfg.get("group_size", 64))
 
 
 def load_stage_params(
@@ -239,11 +264,13 @@ def load_stage_params(
     device=None,
 ) -> dict:
     """Load this stage's weights from a local HF checkpoint directory onto
-    ``device`` (None = ``cuda:0``)."""
-    if quantize:
-        raise _not_ported(f"quantize={quantize!r}")
+    ``device`` (None = ``cuda:0``). Quantized checkpoints and ``quantize=``
+    as the module docstring says."""
     if lora_path:
         raise _not_ported(f"lora_path={lora_path!r}")
+    if quantize and quantize not in _ON_LOAD_BITS:
+        raise ValueError(f"quantize={quantize!r}: want one of "
+                         f"{', '.join(_ON_LOAD_BITS)}")
     device = resolve_device(device)
     cfg = model.config
     raw_cfg = {}
@@ -251,11 +278,29 @@ def load_stage_params(
     if os.path.exists(cfg_path):
         with open(cfg_path, encoding="utf-8") as f:
             raw_cfg = json.load(f)
-    _refuse_quantized_config(raw_cfg)
+    qc = raw_cfg.get("quantization_config") or {}
+    quant_method = qc.get("quant_method")
+    if quant_method is not None and quant_method not in _QUANT_METHODS:
+        # An unknown packed format (awq, compressed-tensors, ...) would
+        # stream raw int tensors into float param slots and serve
+        # garbage; refuse loudly instead.
+        raise ValueError(
+            f"quantization_config.quant_method {quant_method!r} is not "
+            "supported (have: fp8, gptq, mxfp4, MLX-format, or on-load "
+            "--quantization int8/int4); dequantize the checkpoint "
+            "offline to serve it"
+        )
+    fp8_block = tuple(qc.get("weight_block_size") or (128, 128))
+    gptq_mode = quant_method == "gptq"
+    gptq_bits = int(qc.get("bits") or 4)
+    mxfp4_mode = quant_method == "mxfp4"
+    # v1 storage biases zeros by +1; gptq_v2 (GPTQModel) does not.
+    gptq_zero_offset = 0 if qc.get("checkpoint_format") == "gptq_v2" else 1
 
     tree: dict = {}
     want_embed = model.is_first or (model.is_last and cfg.tie_word_embeddings)
     n_loaded = 0
+    n_quant = 0
 
     def _resolve(key: str) -> str | None:
         """THE stage-ownership filter (shared by file selection and the
@@ -270,6 +315,32 @@ def load_stage_params(
             return None
         return local
 
+    def _put(local: str, t: torch.Tensor) -> None:
+        _assign(tree, local, _leaf(t, local, dtype, device))
+
+    # The parts of a quantized tensor wait (as views of their file) until
+    # every part has been seen; everything else goes straight to the
+    # device, one tensor at a time.
+    pending: dict[str, torch.Tensor] = {}       # MLX words / scales / biases
+    fp8_weights: dict[str, torch.Tensor] = {}
+    fp8_scales: dict[str, torch.Tensor] = {}
+    gptq_parts: dict[str, dict[str, torch.Tensor]] = {}
+    mx_blocks: dict[str, torch.Tensor] = {}
+    mx_scales: dict[str, torch.Tensor] = {}
+
+    def _fp8_emit(local: str, w: torch.Tensor, scale: torch.Tensor) -> None:
+        _put(local, dequant_fp8_block(w.to(device), scale.to(device),
+                                      fp8_block))
+
+    def _mx_emit(base: str, blocks: torch.Tensor,
+                 scales: torch.Tensor) -> None:
+        w = dequant_mxfp4(blocks.to(device), scales.to(device))
+        if w.dim() == 3:
+            # Expert tensors dequantize to [E, out, in]; the serving layout
+            # (and the bf16 checkpoints) use [E, in, out].
+            w = w.transpose(1, 2)
+        _assign(tree, base, w.to(dtype).contiguous())
+
     weight_files = _weight_files(
         model_path, key_needed=lambda key: _resolve(key) is not None
     )
@@ -279,13 +350,117 @@ def load_stage_params(
             local = _resolve(key)
             if local is None:
                 continue
-            if local.endswith((".scales", ".biases", ".weight_scale_inv",
-                               "_blocks", "_scales")):
-                raise _not_ported(f"{path}: quantized tensor {key}")
-            _assign(tree, local, _leaf(st.get_tensor(key), local, dtype,
-                                       device))
+            t = st.get_tensor(key)
+            if gptq_mode and local.endswith(_GPTQ_SUFFIXES):
+                base, _, part = local.rpartition(".")
+                gptq_parts.setdefault(base, {})[part] = t
+                continue
+            if mxfp4_mode and local.endswith(("_blocks", "_scales")):
+                is_blocks = local.endswith("_blocks")
+                base = local[: -len("_blocks")]
+                other = (mx_scales if is_blocks else mx_blocks).pop(base,
+                                                                    None)
+                if other is not None:
+                    _mx_emit(base, *((t, other) if is_blocks
+                                     else (other, t)))
+                    n_loaded += 1
+                else:
+                    (mx_blocks if is_blocks else mx_scales)[base] = t
+                continue
+            if local.endswith(".weight_scale_inv"):
+                base = local[: -len("_scale_inv")]
+                w = fp8_weights.pop(base, None)
+                if w is not None:
+                    _fp8_emit(base, w, t)
+                    n_loaded += 1
+                else:
+                    fp8_scales[base] = t
+                continue
+            if t.dtype in _FP8_DTYPES:
+                if quant_method != "fp8":
+                    raise ValueError(
+                        f"{path}: {key} is {t.dtype} but the config's "
+                        "quantization_config.quant_method is not 'fp8' "
+                        "(no block scales to apply)")
+                scale = fp8_scales.pop(local, None)
+                if scale is not None:
+                    _fp8_emit(local, t, scale)
+                    n_loaded += 1
+                else:
+                    fp8_weights[local] = t
+                continue
+            if local.endswith((".scales", ".biases")) or (
+                local.endswith(".weight") and t.dtype == torch.uint32
+            ):
+                pending[local] = t
+                continue
+            _put(local, t)
             n_loaded += 1
         del st
+
+    if fp8_weights:
+        raise ValueError(
+            f"fp8 weights with no .weight_scale_inv sibling: "
+            f"{sorted(fp8_weights)[:5]}"
+        )
+    if fp8_scales:
+        raise ValueError(
+            f"orphan fp8 scales without weights: {sorted(fp8_scales)[:5]}"
+        )
+    if mx_blocks or mx_scales:
+        raise ValueError(
+            f"unpaired mxfp4 tensors: "
+            f"{sorted([*mx_blocks, *mx_scales])[:5]}"
+        )
+
+    for base, parts in gptq_parts.items():
+        missing = {"qweight", "qzeros", "scales"} - set(parts)
+        if missing:
+            raise ValueError(
+                f"incomplete GPTQ tensors for {base!r}: missing "
+                f"{sorted(missing)}"
+            )
+        out = convert_gptq_weight(
+            parts["qweight"], parts["qzeros"], parts["scales"],
+            parts.get("g_idx"), gptq_bits, zero_offset=gptq_zero_offset,
+        )
+        if "weight" in out:
+            # Activation-ordered (desc_act) groups: stored float.
+            _put(base + ".weight", out["weight"])
+        else:
+            _assign(tree, base + ".qweight", out["qweight"].to(device))
+            _put(base + ".scales", out["scales"])
+            _put(base + ".biases", out["biases"])
+            n_quant += 1
+        n_loaded += 1
+
+    for local in [k for k in pending if k.endswith(".weight")]:
+        base = local[: -len(".weight")]
+        words = pending.pop(local)
+        scales = pending.pop(base + ".scales", None)
+        if scales is None:
+            raise ValueError(
+                f"packed uint32 weight {base!r} has no .scales sibling"
+            )
+        qs = _quant_settings_for(raw_cfg, local, model.start_layer)
+        if qs is None:
+            raise ValueError(
+                f"quantized weight {base!r} but the checkpoint config has "
+                "no usable 'quantization' dict (bits/group_size unknown)"
+            )
+        _assign(tree, base + ".qweight",
+                unpack_uint32(words.view(torch.int32).to(device), qs[0]))
+        _put(base + ".scales", scales)
+        biases = pending.pop(base + ".biases", None)
+        if biases is not None:
+            _put(base + ".biases", biases)
+        n_quant += 1
+        n_loaded += 1
+    if pending:
+        raise ValueError(
+            f"orphan quantization tensors without a weight: "
+            f"{sorted(pending)[:5]}"
+        )
 
     # layers dict {local_idx_str: {...}} -> ordered list
     layer_map = tree.get("layers", {})
@@ -293,10 +468,15 @@ def load_stage_params(
         layer_map[str(i)] for i in range(model.num_local_layers)
     ]
     logger.info(
-        "loaded %d tensors for layers [%d, %d) from %s",
-        n_loaded, model.start_layer, model.end_layer, model_path,
+        "loaded %d tensors (%d quantized) for layers [%d, %d) from %s",
+        n_loaded, n_quant, model.start_layer, model.end_layer, model_path,
     )
-    return model.finalize_params(tree)
+    tree = model.finalize_params(tree)
+    if quantize:
+        quantize_tree(tree, bits=_ON_LOAD_BITS[quantize], group_size=64,
+                      dtype=dtype)
+        logger.info("quantized stage params on load (%s)", quantize)
+    return tree
 
 
 def params_from_torch_state_dict(

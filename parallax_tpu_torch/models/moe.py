@@ -13,6 +13,13 @@ Two compute paths with the same semantics:
 - ``_moe_fallback``: a masked loop over experts, O(E) products over every
   token. Kept for verification; serving never takes it.
 
+Quantized expert stacks (``ops/quant.py`` dicts with a leading expert
+axis) take A11 (``ops/quant_linear.py::grouped_matmul_q``) on the grouped
+path, and its plain version (the stack dequantized, then the plain grouped
+product) with ``kernel=False``; ``_moe_fallback`` dequantizes the stack.
+A quantized shared expert multiplies through A10 (``layers.linear_f32``),
+which follows the model's plain switch as every dense product does.
+
 The router product, sort, gather and combine are plain torch ops (XLA ops
 in the JAX package). Expert parallelism (``axis_name``) is not ported.
 """
@@ -27,6 +34,11 @@ from parallax_tpu_torch.models.layers import linear, linear_f32
 from parallax_tpu_torch.ops.grouped_matmul import (
     grouped_matmul,
     grouped_matmul_plain,
+)
+from parallax_tpu_torch.ops.quant import dequantize_weight, is_quantized
+from parallax_tpu_torch.ops.quant_linear import (
+    grouped_matmul_q,
+    grouped_matmul_q_plain,
 )
 
 
@@ -88,8 +100,9 @@ def _silu_glu(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 
 def _expert_ffn(x, gate_w, up_w, down_w, act_fn=_silu_glu):
-    """GLU for one expert's weight slices ([I,H],[I,H],[H,I]): f32 gate and
-    up, the activation in f32 rounded to ``x``'s dtype, f32 output."""
+    """GLU for one expert's weight slices ([I,H],[I,H],[H,I]), each a tensor
+    or a quantized param dict: f32 gate and up, the activation in f32
+    rounded to ``x``'s dtype, f32 output."""
     g = linear_f32(x, gate_w)
     u = linear_f32(x, up_w)
     h = act_fn(g, u).to(x.dtype)
@@ -98,13 +111,15 @@ def _expert_ffn(x, gate_w, up_w, down_w, act_fn=_silu_glu):
 
 def _moe_fallback(x, p, weights, ids, act_fn=_silu_glu):
     """Masked per-expert loop; correct for any routing, O(E) products."""
-    ex = p["experts"]
+    gate_w, up_w, down_w = (
+        dequantize_weight(w) if is_quantized(w) else w
+        for w in (p["experts"][k] for k in ("gate_proj", "up_proj",
+                                            "down_proj")))
     out = torch.zeros((x.shape[0], x.shape[1]), dtype=torch.float32,
                       device=x.device)
-    for e in range(ex["gate_proj"].shape[0]):
+    for e in range(gate_w.shape[0]):
         w = torch.where(ids == e, weights, 0.0).sum(dim=-1)   # [T]
-        y = _expert_ffn(x, ex["gate_proj"][e], ex["up_proj"][e],
-                        ex["down_proj"][e], act_fn)
+        y = _expert_ffn(x, gate_w[e], up_w[e], down_w[e], act_fn)
         out = out + y * w[:, None]
     return out
 
@@ -114,10 +129,18 @@ def _moe_grouped(x, p, weights, ids, act_fn=_silu_glu, kernel=True):
     ``jnp.argsort``), one grouped product per projection, then gather each
     token's K contributions back through the inverse permutation and sum
     them in f32. The group offsets stay on the device; no atomics."""
-    gmm = grouped_matmul if kernel else grouped_matmul_plain
     ex = p["experts"]
+
+    def gmm(lhs, rhs, offs):
+        if is_quantized(rhs):
+            fn = grouped_matmul_q if kernel else grouped_matmul_q_plain
+        else:
+            fn = grouped_matmul if kernel else grouped_matmul_plain
+        return fn(lhs, rhs, offs)
+
     t, k = ids.shape
-    e = ex["gate_proj"].shape[0]
+    gp = ex["gate_proj"]
+    e = (gp["qweight"] if is_quantized(gp) else gp).shape[0]
     flat_ids = ids.reshape(-1).long()
     order = torch.argsort(flat_ids, stable=True)
     xs = x[order // k]                                   # [T*K, H]
@@ -154,9 +177,10 @@ def moe_ffn(
 
     if "shared_expert" in p:
         se = p["shared_expert"]
-        shared = _expert_ffn(x, se["gate_proj"]["weight"],
-                             se["up_proj"]["weight"],
-                             se["down_proj"]["weight"], act_fn)
+        shared = _expert_ffn(x, *(
+            w if is_quantized(w) else w["weight"]
+            for w in (se[k] for k in ("gate_proj", "up_proj", "down_proj"))
+        ), act_fn)
         if "shared_expert_gate" in p:
             shared = shared * torch.sigmoid(
                 linear(x, p["shared_expert_gate"]).float()

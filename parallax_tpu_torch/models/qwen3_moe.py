@@ -61,7 +61,8 @@ class MoEStageModel(StageModel):
     def finalize_params(self, tree: dict) -> dict:
         """Stack per-expert HF weights: ``experts.{i}.gate_proj.weight`` ->
         ``experts.gate_proj [E, I, H]`` (the loader's hook). Quantized
-        experts are not ported."""
+        experts (``qweight`` / ``scales`` / ``biases``) stack into a
+        quantized dict with a leading expert axis."""
         for layer in tree.get("layers", []):
             mlp = layer.get("mlp")
             if not isinstance(mlp, dict):
@@ -70,14 +71,17 @@ class MoEStageModel(StageModel):
             if not isinstance(experts, dict) or "gate_proj" in experts:
                 continue
             n = len(experts)
-            if "weight" not in experts["0"]["gate_proj"]:
-                raise NotImplementedError(
-                    "quantized experts: not ported yet to parallax_tpu_torch"
-                )
-            mlp["experts"] = {
-                proj: torch.stack(
-                    [experts[str(i)][proj]["weight"] for i in range(n)]
-                )
-                for proj in ("gate_proj", "up_proj", "down_proj")
-            }
+            stacked = {}
+            for proj in ("gate_proj", "up_proj", "down_proj"):
+                first = experts["0"][proj]
+                if "qweight" in first:
+                    stacked[proj] = {
+                        k: torch.stack(
+                            [experts[str(i)][proj][k] for i in range(n)])
+                        for k in first
+                    }
+                else:
+                    stacked[proj] = torch.stack(
+                        [experts[str(i)][proj]["weight"] for i in range(n)])
+            mlp["experts"] = stacked
         return tree

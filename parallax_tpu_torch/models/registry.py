@@ -85,7 +85,9 @@ def _leaf_to_torch(arr, device, dtype) -> torch.Tensor:
         )
     else:
         t = torch.from_numpy(np.array(a))
-    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+    # Integer leaves (a quantized tree's u8 ``qweight``) keep their type.
+    cast = dtype is not None and t.is_floating_point()
+    return t.to(device=device, dtype=dtype if cast else t.dtype)
 
 
 def params_from_numpy(tree, device="cpu", dtype: torch.dtype | None = None):
@@ -93,8 +95,9 @@ def params_from_numpy(tree, device="cpu", dtype: torch.dtype | None = None):
     arrays (e.g. ``jax.tree.map(np.asarray, params)``), as the port's tree
     of tensors on ``device``. Keys and layouts are unchanged, stacked MoE
     experts included (``[E, I, H]`` gate/up, ``[E, H, I]`` down), so one
-    weight tree serves both packages; ``dtype`` casts every leaf (None keeps
-    each leaf's own type) except attention sinks, which stay float32
+    weight tree serves both packages; ``dtype`` casts every float leaf (None
+    keeps each leaf's own type; integer leaves, such as a quantized tree's
+    ``qweight``, always keep theirs) except attention sinks, which stay float32
     whatever the tree holds: the kernels take them as f32[Hq]."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(

@@ -33,14 +33,18 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
+# ``-split-compile=0``: each source's device functions are optimized in
+# parallel on every core (the attention sources instantiate A1 / A2 / A9
+# for three head dims, two types and two group tilings each).
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo", "-split-compile=0",
 ]
 
 KERNELS = ("kv_append", "gqa_prefill", "gqa_decode", "gqa_attend",
            "sample_topk", "grouped_gemm", "mla_decode", "mla_attend",
-           "indexer_fused", "indexer_scores", "gumbel_rows")
+           "indexer_fused", "indexer_scores", "gumbel_rows", "quant_linear",
+           "grouped_gemm_q")
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 # The calling thread's open tally: (counts, also into LAUNCHES).
 _tally = threading.local()
@@ -98,6 +102,12 @@ _SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _L, _I, _F, _I, _P],
     # seeds, steps, out, bits, base_seed, s, v, stream
     "pk_gumbel_rows": [_P, _P, _P, _P, _L, _I, _I, _P],
+    # x, qweight, scales, biases, out, m, n, k, g, out_dtype, variant, stream
+    "pk_quant_linear": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # lhs, qweight, scales, biases, group_offsets, out, m, n, k, e, g,
+    # variant, stream
+    "pk_grouped_gemm_q": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P],
 }
 
 

@@ -65,10 +65,10 @@ def smem_bytes(variant: str) -> int:
     return STAGES[variant] * (rows * BK * 2 + 16) + 1024
 
 
-def _check_variant(variant) -> None:
+def _check_variant(variant, name: str = "grouped_gemm") -> None:
     if variant not in VARIANTS:
         raise ValueError(
-            f"grouped_gemm: variant must be None, 'prefill' or 'decode', "
+            f"{name}: variant must be None, 'prefill' or 'decode', "
             f"got {variant!r}"
         )
 

@@ -385,11 +385,8 @@ class WorkerNode:
         self._handoff_pending: dict[str, float] = {}
         self._handoff_parked: dict[str, dict] = {}
         self._handoff_warned = False
-        # Fail fast on a bad wire dtype (and on the float8 mode).
-        want = resolve_wire_dtype(self.engine_config.wire_dtype,
-                                  model_config.dtype)
-        if want == "float8_e4m3fn":
-            raise unported("the float8 wire mode", proto.FP8_ITEM)
+        # Fail fast on a bad wire dtype.
+        resolve_wire_dtype(self.engine_config.wire_dtype, model_config.dtype)
         # Negotiated wire dtype per link: peer -> (dtype | None,
         # expires_at); None ships native frames. Writes that follow a slow
         # probe go through _wire_lock plus the per-peer forget generation,

@@ -9,10 +9,11 @@ So a JAX stage and a port stage decode each other's FORWARD frames. The
 tensors here are CPU torch tensors: bf16 leaves through a 16-bit view and
 comes back through ``torch.frombuffer`` over a writable copy of the bytes.
 
-Ported: native frames and the ``bfloat16`` downcast (``odtype`` restores
-the sender's dtype on receipt). The ``float8_e4m3fn`` link mode quantizes
-with per-token scales (``ops/quant.py``) and raises until ROADMAP queue 1
-item 11 ports it; legacy numpy type codes (``'<f4'``) decode.
+Native frames, the ``bfloat16`` downcast (``odtype`` restores the sender's
+dtype on receipt) and the ``float8_e4m3fn`` link mode, which quantizes each
+token's row with its own f32 scale (``ops/quant.py``; the frame carries
+``scales`` and ``odtype``, byte for byte the JAX package's); legacy numpy
+type codes (``'<f4'``) decode.
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ from typing import Any
 
 import torch
 
+from parallax_tpu_torch.ops.quant import (
+    dequantize_fp8_per_token,
+    quantize_fp8_per_token,
+)
 from parallax_tpu_torch.p2p import wire
 from parallax_tpu_torch.runtime.request import IntermediateRequest
 
@@ -53,15 +58,15 @@ HA_SYNC = "ha_sync"
 ROUTE_REQUEST = "route_request"
 PROFILE = "rpc_profile"
 
-# Wire dtype name -> torch dtype. The JAX package also decodes the float8
-# names; the port carries no float8 frames until item 11 ports the link
-# mode, so it does not advertise them.
+# Wire dtype name -> torch dtype (the JAX package's names, float8 ones
+# included).
 _NAME_TO_DTYPE = {
     "float16": torch.float16, "float32": torch.float32,
     "float64": torch.float64, "bfloat16": torch.bfloat16,
     "int8": torch.int8, "int16": torch.int16, "int32": torch.int32,
     "int64": torch.int64, "uint8": torch.uint8, "uint16": torch.uint16,
     "uint32": torch.uint32, "uint64": torch.uint64, "bool": torch.bool,
+    "float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2,
 }
 _DTYPE_TO_NAME = {v: k for k, v in _NAME_TO_DTYPE.items()}
 # numpy type codes of legacy frames -> wire names (standard dtypes only:
@@ -74,7 +79,9 @@ _LEGACY_CODES = {
 }
 # Same-width integer views that carry a dtype's bytes through numpy.
 _BITS_VIEW = {torch.bfloat16: torch.int16, torch.uint16: torch.int16,
-              torch.uint32: torch.int32, torch.uint64: torch.int64}
+              torch.uint32: torch.int32, torch.uint64: torch.int64,
+              torch.float8_e4m3fn: torch.uint8,
+              torch.float8_e5m2: torch.uint8}
 
 # Dtype names this build can decode (advertised in wire_caps replies).
 WIRE_DTYPES = tuple(sorted(_NAME_TO_DTYPE))
@@ -82,8 +89,6 @@ WIRE_DTYPES = tuple(sorted(_NAME_TO_DTYPE))
 # Dtypes eligible for lossy wire conversion (activations); integer and
 # bool tensors always ship verbatim.
 _FLOAT_NAMES = frozenset(("float16", "float32", "float64", "bfloat16"))
-
-FP8_ITEM = 11
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -99,10 +104,6 @@ def resolve_dtype(name: str) -> torch.dtype:
     dt = _NAME_TO_DTYPE.get(_LEGACY_CODES.get(name, name))
     if dt is not None:
         return dt
-    if name.startswith("float8"):
-        raise NotImplementedError(
-            f"{name} tensor frames: not ported yet to parallax_tpu_torch "
-            f"(ROADMAP queue 1 item {FP8_ITEM})")
     raise TypeError(f"unknown wire dtype {name!r}")
 
 
@@ -118,18 +119,24 @@ def tensor_to_wire(t: torch.Tensor | None,
                    wire_dtype: str | None = None) -> dict | None:
     """Serialize one CPU tensor, optionally converting float payloads to a
     cheaper wire dtype. ``wire_dtype=None`` ships the bytes verbatim
-    (bit-identical streams); ``"bfloat16"`` downcasts on the wire and
-    records the original dtype in ``odtype``."""
+    (bit-identical streams); ``"bfloat16"`` downcasts on the wire;
+    ``"float8_e4m3fn"`` compresses with per-token scales. Both record the
+    original dtype in ``odtype``."""
     if t is None:
         return None
     if t.device.type != "cpu":
         raise ValueError(f"tensor_to_wire takes CPU tensors, got {t.device}")
     name = dtype_name(t.dtype)
     if wire_dtype and wire_dtype != name and name in _FLOAT_NAMES:
-        if wire_dtype.startswith("float8"):
-            raise NotImplementedError(
-                f"the {wire_dtype} wire mode: not ported yet to "
-                f"parallax_tpu_torch (ROADMAP queue 1 item {FP8_ITEM})")
+        if wire_dtype == "float8_e4m3fn":
+            q, scales = quantize_fp8_per_token(t)
+            return {
+                "dtype": "float8_e4m3fn",
+                "shape": list(t.shape),
+                "data": _to_bytes(q),
+                "scales": _to_bytes(scales),
+                "odtype": name,
+            }
         return {
             "dtype": wire_dtype,
             "shape": list(t.shape),
@@ -139,22 +146,24 @@ def tensor_to_wire(t: torch.Tensor | None,
     return {"dtype": name, "shape": list(t.shape), "data": _to_bytes(t)}
 
 
+def _from_bytes(data, dtype: torch.dtype, shape: list) -> torch.Tensor:
+    if len(data):
+        return torch.frombuffer(bytearray(data), dtype=dtype).reshape(shape)
+    return torch.empty(shape, dtype=dtype)
+
+
 def tensor_from_wire(obj: dict | None) -> torch.Tensor | None:
     """A CPU tensor that owns a writable copy of the frame's bytes."""
     if obj is None:
         return None
-    if obj.get("scales") is not None:
-        raise NotImplementedError(
-            "float8 tensor frames with per-token scales: not ported yet to "
-            f"parallax_tpu_torch (ROADMAP queue 1 item {FP8_ITEM})")
     dtype = resolve_dtype(obj["dtype"])
     shape = list(obj["shape"])
-    data = obj["data"]
-    if len(data):
-        t = torch.frombuffer(bytearray(data), dtype=dtype).reshape(shape)
-    else:
-        t = torch.empty(shape, dtype=dtype)
+    t = _from_bytes(obj["data"], dtype, shape)
     odtype = obj.get("odtype")
+    if obj.get("scales") is not None:
+        scales = _from_bytes(obj["scales"], torch.float32, shape[:-1])
+        return dequantize_fp8_per_token(
+            t, scales, resolve_dtype(odtype or "float32"))
     if odtype and odtype != obj["dtype"]:
         # Plain downcast frame: restore the sender's working precision.
         t = t.to(resolve_dtype(odtype))

@@ -67,7 +67,6 @@ import torch
 
 from parallax_tpu_torch.analysis.sanitizer import make_lock
 
-from parallax_tpu_torch.config import resolve_wire_dtype
 from parallax_tpu_torch.models.base import BatchInputs, StageModel
 from parallax_tpu_torch.models.registry import params_to, unported_features
 from parallax_tpu_torch.obs import names as mnames
@@ -572,12 +571,6 @@ class StageEngine:
                     f"EngineConfig.{name}={got!r}: not ported yet to "
                     f"parallax_tpu_torch (only {want!r})"
                 )
-        if resolve_wire_dtype(self.cfg.wire_dtype) == "float8_e4m3fn":
-            raise NotImplementedError(
-                f"EngineConfig.wire_dtype={self.cfg.wire_dtype!r}: the float8 "
-                "link mode is not ported yet to parallax_tpu_torch (ROADMAP "
-                "queue 1 item 11)"
-            )
         # The model's own class decides: a base block built around an MSA
         # config would serve dense attention in silence.
         feats = unported_features(model.config, type(model))

@@ -103,6 +103,24 @@ def test_generate_matches_jax_cli(checkpoint):
     assert got.group(2) == "16" and got.group(3) == "finished_length"
 
 
+@pytest.mark.parametrize("quantization", ["int8", "int4"])
+def test_generate_quantized_matches_jax_cli(checkpoint, quantization):
+    """``generate --quantization`` quantizes the checkpoint on load in both
+    CLIs (the loader's ``quantize=``) and prints the same text."""
+    common = ["generate", "--model-path", checkpoint, "--kv-dtype",
+              "float32", "--max-tokens", "8", "--prompt", "Hello there",
+              "--tp-size", "1", "--quantization", quantization]
+    port = _run(["parallax_tpu_torch", *common, "--device", "cpu"])
+    ref = _run(["parallax_tpu.cli", *common,
+                "--compilation-cache-dir", "off"])
+    assert port.returncode == 0, port.stderr
+    assert ref.returncode == 0, ref.stderr
+    assert "quantized stage params on load" in port.stderr
+    assert port.stdout == ref.stdout
+    got, want = SUMMARY.search(port.stderr), SUMMARY.search(ref.stderr)
+    assert got and want and got.groups() == want.groups()
+
+
 def test_generate_needs_the_card_without_device_cpu(checkpoint):
     import torch
 
@@ -127,6 +145,9 @@ def test_refused_flag_exits_2_from_both_entry_points(checkpoint):
 # observability plane and QoS (``--qos``, ``--routing-gamma``).
 _PORTED_OBS_FLAGS = {"--trace-sample-rate", "--watchdog", "--slo", "--qos",
                      "--routing-gamma"}
+# Flags once refused under ROADMAP item 11(b), weight-only quantization and
+# the float8 wire, which is ported now.
+_PORTED_QUANT_FLAGS = {"--quantization", "--wire-dtype"}
 
 
 @pytest.mark.parametrize("argv,item", [
@@ -153,8 +174,9 @@ _PORTED_OBS_FLAGS = {"--trace-sample-rate", "--watchdog", "--slo", "--qos",
     (["generate", "--lora-path", "/x"], 11),
 ])
 def test_refused_flags_exit_2(checkpoint, capsys, argv, item):
-    if argv[1] in _PORTED_OBS_FLAGS:
-        # The observability and QoS planes are ported: these flags pass.
+    if argv[1] in _PORTED_OBS_FLAGS | _PORTED_QUANT_FLAGS:
+        # The observability and QoS planes, quantization and the float8
+        # wire are ported: these flags pass.
         args = cli.build_parser().parse_args(
             [argv[0], "--model-path", checkpoint, *argv[1:]])
         assert cli.unported_flags(args) == []

@@ -77,7 +77,7 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "qos.admission", "qos.autoscaler", "router", "router.lb",
                  "testing", "testing.chaos", "testing.churn",
                  "models.glm4", "models.step3p5", "models.qwen3_next",
-                 "ops.linear_attn"):
+                 "ops.linear_attn", "ops.quant", "ops.quant_linear"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"
@@ -145,7 +145,8 @@ def test_kernel_wrappers_build_nothing_at_import():
     assert set(cuda_kernels.LAUNCHES) == {
         "kv_append", "gqa_prefill", "gqa_decode", "gqa_attend",
         "sample_topk", "grouped_gemm", "mla_decode", "mla_attend",
-        "indexer_fused", "indexer_scores", "gumbel_rows",
+        "indexer_fused", "indexer_scores", "gumbel_rows", "quant_linear",
+        "grouped_gemm_q",
     }
 
 

@@ -11,8 +11,10 @@ the ``safetensors`` package (an independent writer).
   with an index), a 2-stage split, selective-download shard dirs, and one
   tiny tree of each family the port registers (Qwen3-MoE with per-expert
   HF keys, DeepSeek-V3 and V3.2 with ``shared_experts``, gpt-oss).
-- The quantized formats, ``quantize=`` and ``lora_path=`` are refused with
-  "not ported yet"; an unknown ``quant_method`` raises ValueError.
+- The quantized formats and ``quantize=`` load into the JAX loader's tree
+  (``test_torch_quant_loader.py`` has each format in full); ``lora_path=``
+  is refused with "not ported yet"; an unknown ``quant_method`` raises
+  ValueError.
 - ``params_from_torch_state_dict`` equals the JAX one on a transformers
   Qwen2, and an engine stream served from a loaded checkpoint equals the
   JAX engine's on its own load (greedy, tie-tolerant against transformers).
@@ -35,6 +37,7 @@ from parallax_tpu.models import loader as jloader
 from parallax_tpu.models.registry import (
     create_stage_model as j_create_stage_model,
 )
+from parallax_tpu.ops import quant as jq
 from parallax_tpu.runtime.engine import EngineConfig as JEngineConfig
 from parallax_tpu.runtime.engine import StageEngine as JStageEngine
 from parallax_tpu.runtime.request import Request as JRequest
@@ -327,7 +330,11 @@ def test_family_load_matches_jax(tmp_path, family):
 def _dense_ckpt(path, raw=DENSE, extra=None):
     tensors = {k: torch.from_numpy(np.array(v)) for k, v in
                _hf_tensors(_random_tree(DENSE)).items()}
-    tensors.update(extra or {})
+    for k, v in (extra or {}).items():
+        if v is None:
+            del tensors[k]
+        else:
+            tensors[k] = v
     os.makedirs(path, exist_ok=True)
     save_file(tensors, os.path.join(path, "model.safetensors"))
     with open(os.path.join(path, "config.json"), "w") as f:
@@ -346,28 +353,63 @@ def _port_load(path, **kw):
     ("quantize", "quantize='int8'"), ("lora", "lora_path="),
 ])
 def test_unported_formats_are_refused(tmp_path, case, reason):
-    kw, raw, extra = {}, DENSE, None
-    if case in ("fp8", "gptq", "mxfp4"):
-        raw = dict(DENSE, quantization_config={"quant_method": case,
+    """Only LoRA is refused now: each quantized format that once was (fp8
+    block weights, GPTQ, MXFP4, MLX packed words, their F8_E4M3 / U32
+    tensors, on-load ``quantize=``) loads into the JAX loader's tree, u8
+    values and scales bitwise."""
+    kw, raw, extra = {}, DENSE, {}
+    up = "model.layers.0.mlp.up_proj"
+    w = _random_tree(DENSE)["layers"][0]["mlp"]["up_proj"]["weight"]
+    if case in ("fp8", "f8-tensor"):
+        raw = dict(DENSE, quantization_config={"quant_method": "fp8"})
+        extra = {f"{up}.weight": torch.from_numpy(w * 8).to(
+                     torch.float8_e4m3fn),
+                 f"{up}.weight_scale_inv": torch.tensor([[0.125]])}
+    elif case == "gptq":
+        raw = dict(DENSE, quantization_config={"quant_method": "gptq",
                                                "bits": 4})
-    elif case == "mlx":
+        q, s, b = jq.quantize_array(w, 4, 32)
+        zeros = np.full((2, w.shape[0]), 7, np.uint8)
+        extra = {f"{up}.qweight": torch.from_numpy(
+                     jq.pack_uint32(q.T, 4).T.copy().view(np.int32)),
+                 f"{up}.qzeros": torch.from_numpy(
+                     jq.pack_uint32(zeros, 4).view(np.int32)),
+                 f"{up}.scales": torch.from_numpy(s.T.copy())}
+    elif case == "mxfp4":
+        raw = dict(DENSE, quantization_config={"quant_method": "mxfp4"})
+        rng = np.random.default_rng(1)
+        extra = {f"{up}.weight_blocks": torch.from_numpy(rng.integers(
+                     0, 256, (w.shape[0], 2, 16)).astype(np.uint8)),
+                 f"{up}.weight_scales": torch.full((w.shape[0], 2), 124,
+                                                   dtype=torch.uint8)}
+    elif case in ("mlx", "u32-tensor"):
         raw = dict(DENSE, quantization={"bits": 4, "group_size": 64})
-        extra = {"model.layers.0.mlp.up_proj.scales":
-                 torch.ones(128, 1)}
-    elif case == "f8-tensor":
-        extra = {"model.layers.0.mlp.up_proj.weight":
-                 torch.zeros(128, 64).to(torch.float8_e4m3fn)}
-    elif case == "u32-tensor":
-        extra = {"model.layers.0.mlp.up_proj.weight":
-                 torch.zeros(128, 8, dtype=torch.uint32)}
+        q, s, b = jq.quantize_array(w, 4, 64)
+        extra = {f"{up}.weight": torch.from_numpy(
+                     jq.pack_uint32(q, 4).view(np.int32)).view(torch.uint32),
+                 f"{up}.scales": torch.from_numpy(s),
+                 f"{up}.biases": torch.from_numpy(b)}
     elif case == "quantize":
         kw = {"quantize": "int8"}
     else:
         kw = {"lora_path": str(tmp_path / "adapter")}
+    if case in ("gptq", "mxfp4"):
+        extra[f"{up}.weight"] = None
     _dense_ckpt(tmp_path, raw, extra)
-    with pytest.raises(NotImplementedError, match="not ported yet") as e:
-        _port_load(tmp_path, **kw)
-    assert reason in str(e.value)
+    if case == "lora":
+        with pytest.raises(NotImplementedError, match="not ported yet") as e:
+            _port_load(tmp_path, **kw)
+        assert reason in str(e.value)
+        return
+    got = _port_load(tmp_path, dtype=torch.float32, **kw)
+    jtree = jloader.load_stage_params(
+        j_create_stage_model(j_normalize(raw), 0, 2, use_pallas=False),
+        str(tmp_path), dtype=jnp.float32, **kw)
+    _assert_same_tree(got, params_from_numpy(
+        jax.tree.map(np.asarray, jtree), "cpu"))
+    mlp = got["layers"][0]["mlp"]
+    assert ("qweight" in mlp["up_proj"]) == (
+        case in ("gptq", "mlx", "u32-tensor", "quantize"))
 
 
 def test_unknown_quant_method_is_a_value_error(tmp_path):

@@ -179,15 +179,29 @@ def test_bf16_downcast_restores_the_senders_dtype():
 
 
 def test_float8_link_mode_is_refused_by_name():
-    t = _to_torch(_arrays()["float32"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        proto.tensor_to_wire(t, "float8_e4m3fn")
-    fp8 = jproto.tensor_to_wire(
-        _arrays()["bfloat16"].astype(np.float32), "float8_e4m3fn")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        proto.tensor_from_wire(fp8)
-    assert "float8_e4m3fn" not in proto.WIRE_DTYPES
-    assert set(proto.WIRE_DTYPES) <= set(jproto.WIRE_DTYPES)
+    """The float8 link mode, once refused by name, is ported: for bf16 and
+    f32 inputs the port's frame equals the JAX package's byte for byte
+    (data, per-token f32 scales, odtype), each side decodes the other's to
+    the same values, and both builds advertise the same dtype names."""
+    for name in ("bfloat16", "float32"):
+        # Finite rows (row 0 of the f32 case holds an inf).
+        a = _arrays()[name][1:]
+        ours = proto.tensor_to_wire(_to_torch(a), "float8_e4m3fn")
+        theirs = jproto.tensor_to_wire(a, "float8_e4m3fn")
+        assert set(ours) == set(theirs)
+        for key in ("dtype", "shape", "odtype", "data", "scales"):
+            assert ours[key] == theirs[key], (name, key)
+        assert proto.tensor_nbytes(ours) == jproto.tensor_nbytes(theirs)
+        back = proto.tensor_from_wire(theirs)
+        ref = jproto.tensor_from_wire(ours)
+        assert back.dtype == getattr(torch, name)
+        assert np.array_equal(back.float().numpy(),
+                              np.asarray(ref).astype(np.float32))
+    assert "float8_e4m3fn" in proto.WIRE_DTYPES
+    assert set(proto.WIRE_DTYPES) == set(jproto.WIRE_DTYPES)
+    # Integer tensors ship verbatim in the float8 mode too.
+    i32 = _to_torch(_arrays()["int32"])
+    assert proto.tensor_to_wire(i32, "float8_e4m3fn")["dtype"] == "int32"
 
 
 def _ireq_pair():

@@ -471,8 +471,10 @@ def test_chat_host_answers_503_without_a_route():
     (["--qos", "on"], 9),
 ])
 def test_refused_join_flags_exit_2(tmp_path, capsys, argv, item):
-    if argv[0] in ("--trace-sample-rate", "--watchdog", "--qos"):
-        # Ported with the observability and QoS planes: they pass now.
+    if argv[0] in ("--trace-sample-rate", "--watchdog", "--qos",
+                   "--wire-dtype"):
+        # Ported with the observability and QoS planes and the float8
+        # wire: they pass now.
         args = cli.build_parser().parse_args(
             ["join", "--model-path", str(tmp_path), "--start-layer", "0",
              "--end-layer", "2", *argv])
