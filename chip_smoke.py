@@ -356,9 +356,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                through its heartbeat; exits 0.
 9e. quant_serve  weight-only quantization on serve's Qwen2.5-7B tree (all
                28 layers), quantized on the card (group 64) from a copy of
-               its dicts: int8 fused with the defaults, K1_SYNC (two rows,
-               8 tokens) and plain (``use_kernels=False``: dequantize then
-               multiply, no A10); int4 fused with the defaults. Launches
+               its dicts: int8 fused with the defaults, K1_SYNC and plain
+               (``use_kernels=False``: dequantize then multiply, no A10;
+               both two rows, 8 tokens); int4 fused with the defaults. Launches
                exact (A10 7 x 28 + 1 a forward step); the fused runs'
                greedy rows within GREEDY_TOL of the plain one-shot logits
                of the same quantized tree; the tree's bytes against
@@ -368,6 +368,29 @@ Phases, in order; any failure raises and the script exits non-zero:
                prompts beside it) and read back an MLX-format checkpoint
                (packed uint32 words, config ``quantization``) of that tree
                bitwise.
+9f. lora_serve  per-request LoRA (``--only lora_serve`` runs http_serve
+               for (b)). (a) On serve's Qwen2.5-7B tree (28 layers) with
+               three adapters drawn from the seed (rank 16 on all seven
+               projections, rank 8 on the same, rank 16 on attention of
+               every other layer): the mix all base, with no adapter and
+               with the three registered (bitwise); the mix two base rows
+               and two per adapter with the defaults (K = 8, graphs,
+               overlap, native manager, an LRU cap of 3), graphs off and
+               K1_SYNC (both bitwise the defaults), r16's rows alone
+               (grouped decode) and a 14 + 14 pipeline. Launches exact;
+               adapter rows within GREEDY_TOL of the plain path with
+               their adapter, the no-delta and wrong-adapter mutants
+               above it; no prefix hit across adapters, a repeat under
+               one adapter hits; a fourth adapter after capture evicts an
+               idle one and serves its own stream; the step's delta
+               device ms. (b) http_serve's bf16 ``serve`` launch gets
+               ``--lora-adapters`` (PEFT directories written by the
+               package's writer): after the mix, ``/v1/models`` lists the
+               variants, base / ``"lora": "a"`` / ``<model>:b`` answer
+               with the library's tokens, an unknown adapter 502s; the
+               load-time merge and ``lora-merge``'s output load within
+               bf16 rounding of each other and serve within GREEDY_TOL of
+               the per-request adapter.
 9d. qos_serve  the QoS plane, the router and the chaos harness (``--only
                qos_serve`` runs http_serve first, for (b)'s checkpoint).
                (a) The library run on serve's tree with the defaults (K = 8
@@ -492,7 +515,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 Depth cuts for time (the script's limit): the checkpoint phases
 (http_serve through obs_serve, qos_serve's part b) serve Qwen2.5-7B at 8
 of 28 layers (CKPT_LAYERS; 4 + 4 pipelines) and gptoss_serve at 8 of 24
-(GPTOSS_LAYERS); serve keeps all 28.
+(GPTOSS_LAYERS); serve keeps all 28. The teacher-forced decode checks
+run the first TEACHER_FORCED_STEPS (16) of a stream's 32 tokens, and
+quant_serve's plain int8 run serves two rows for 8 tokens.
 
 One JSON object per line; the ``kernels`` line and the card line come just
 before the last line, which is ``{"ok": true, "device": {...}}``. Each
@@ -3126,10 +3151,11 @@ def stream_metrics(reqs, t0: float, t1: float) -> dict:
             "decode_tok_per_s": decode_tokens / (t1 - first)}
 
 
-def one_shot_rows(torch, model, params, r, dev, max_len=1024):
+def one_shot_rows(torch, model, params, r, dev, max_len=1024, lora=None):
     """``model``'s logits at each of ``r``'s output positions (a copy, so
     the whole forward's logits are freed), from one forward over prompt +
-    outputs."""
+    outputs; ``lora`` is the forward's ``BatchInputs.lora`` (an adapter's
+    delta on the plain path)."""
     from parallax_tpu_torch.runtime.batch import BucketSpec, assemble
     from parallax_tpu_torch.runtime.request import Request
     from parallax_tpu_torch.runtime.scheduler import BatchPlan, ScheduledSeq
@@ -3148,6 +3174,7 @@ def one_shot_rows(torch, model, params, r, dev, max_len=1024):
     spec = BucketSpec.build(max_len, 1, max_len, page)
     inputs = assemble(plan, spec, page, dev, gather_all_logits=True,
                       with_dense_map=hybrid)
+    inputs.lora = lora
     kv = model.new_kv_caches(npg + 1, page, params["norm"]["weight"].dtype,
                              dev, **({"num_state_slots": 1} if hybrid
                                      else {}))
@@ -3158,7 +3185,7 @@ def one_shot_rows(torch, model, params, r, dev, max_len=1024):
 
 
 def greedy_check(torch, model_full, params, reqs, sampled, dev,
-                 tol=None, max_len=1024, model_alt=None):
+                 tol=None, max_len=1024, model_alt=None, lora_of=None):
     """Tie-tolerant check of every greedy stream against the plain path
     (``model_full`` with the plain attention, and for an MoE model the
     plain grouped product): one forward per row over prompt + outputs with
@@ -3170,14 +3197,16 @@ def greedy_check(torch, model_full, params, reqs, sampled, dev,
     is given, the same one-shot forward teacher-forced through it: the
     largest logit difference from ``model_full``'s at any output position
     and how many positions share their argmax (no limit; None without
-    ``model_alt``)."""
+    ``model_alt``). ``lora_of(r)`` gives each row's adapter field for the
+    plain forward (None: no delta)."""
     worst, over, spreads = 0.0, 0, []
     alt = None if model_alt is None else {
         "largest_logit_diff": 0.0, "positions": 0, "argmax_equal": 0}
     for i, r in enumerate(reqs):
         if i in sampled:
             continue
-        rows = one_shot_rows(torch, model_full, params, r, dev, max_len)
+        rows = one_shot_rows(torch, model_full, params, r, dev, max_len,
+                             None if lora_of is None else lora_of(r))
         toks = torch.tensor(r.output_ids, device=dev)
         best = rows.max(dim=-1).values
         gaps = best - rows.gather(1, toks[:, None])[:, 0]
@@ -3314,8 +3343,8 @@ def tree_bytes(tree) -> int:
 
 
 # quant_serve's runs on the quantized tree: (bits, mode, fused kernels,
-# model kwargs, engine kwargs). The K1_SYNC run serves K1_SHORT_ROWS of
-# the mix for K1_SHORT_NEW tokens.
+# model kwargs, engine kwargs). The K1_SYNC runs (fused and plain) serve
+# K1_SHORT_ROWS of the mix for K1_SHORT_NEW tokens.
 QUANT_RUNS = (
     (8, "fused", True, None, None),
     (8, "fused_k1_sync", True, None, K1_SYNC),
@@ -3336,8 +3365,9 @@ def phase_quant_serve(torch, dev, card: str, cfg, model_full, params):
     """Qwen2.5-7B at full width and all 28 layers, weight-only quantized on
     the card from serve's bf16 tree (``quantize_tree`` on a copy of its
     dicts, group QUANT_GROUP): int8 served fused with the defaults, with
-    K1_SYNC (two rows, 8 tokens) and plain (``use_kernels=False``: the
-    dequantize-then-multiply path, no A10), int4 fused with the defaults.
+    K1_SYNC and plain (``use_kernels=False``: the dequantize-then-multiply
+    path, no A10), each two rows for 8 tokens, int4 fused with the
+    defaults.
     Launches exact (A0-A3 as serve's, A10 seven times a layer plus the
     lm_head each forward step, graph replays included); the fused runs'
     greedy rows within GREEDY_TOL of the plain one-shot logits of the same
@@ -3368,7 +3398,7 @@ def phase_quant_serve(torch, dev, card: str, cfg, model_full, params):
                   "mem_free_gb": torch.cuda.mem_get_info()[0] / 1e9,
                   "card": card})
         qparams = trees[bits]
-        short = engine_kw is K1_SYNC and fused
+        short = engine_kw is K1_SYNC
         ck.reset_launches()
         reqs, sampled, engines, t0, t1 = serve(
             torch, [(0, n)], qparams, cfg, dev, fused=fused,
@@ -3409,6 +3439,370 @@ def phase_quant_serve(torch, dev, card: str, cfg, model_full, params):
     trees.clear()
     free_device_memory(torch)
     return out
+
+
+# -- lora_serve: per-request LoRA on serve's tree ----------------------------
+
+# The adapters drawn from the seed: (name, rank, sites, seed). "all": the
+# seven projections of every layer; "attn_half": the four attention
+# projections of every other layer (the union of sites, and rank 8 padded
+# to the set's 16).
+LORA_ADAPTERS = (("r16", 16, "all", 101), ("r8", 8, "all", 102),
+                 ("attn16", 16, "attn_half", 103))
+# Registered after the graphs were captured, past the LRU cap.
+LORA_FOURTH = ("late16", 16, "all", 104)
+LORA_MAX_ADAPTERS = 3
+# The mix's adapter row by row (make_requests seeds r2, r4 and r6): two
+# base rows and two per adapter, each adapter with a greedy row; r7 shares
+# r0's 256-token prefix under another adapter than r0's.
+LORA_LIDS = (None, "r16", "r16", "r8", None, "r8", "attn16", "attn16")
+# The wrong adapter a mutant serves each row with.
+LORA_WRONG = {"r16": "r8", "r8": "attn16", "attn16": "r16"}
+# PEFT alpha / r of every module, and B's draw (A is N(0, 1) * in**-0.5):
+# a delta of about a quarter of the base projection, which moves tokens.
+LORA_SCALE = 2.0
+LORA_B_STD = 0.03
+LORA_PROJ_DIMS = ("self_attn.q_proj", "self_attn.k_proj",
+                  "self_attn.v_proj", "self_attn.o_proj", "mlp.gate_proj",
+                  "mlp.up_proj", "mlp.down_proj")
+
+
+def lora_tree(torch, dev, cfg, rank: int, sites: str, seed: int) -> dict:
+    """An adapter tree ``{layer: {path: (A, B, scale)}}`` drawn on the card
+    from ``seed`` at the config's full widths."""
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    q = cfg.num_attention_heads * cfg.head_dim
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    dims = dict(zip(LORA_PROJ_DIMS, ((h, q), (h, kv), (h, kv), (q, h),
+                                     (h, inter), (h, inter), (inter, h))))
+    paths = [p for p in LORA_PROJ_DIMS
+             if sites == "all" or p.startswith("self_attn.")]
+    step = 1 if sites == "all" else 2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tree = {}
+    for li in range(0, cfg.num_hidden_layers, step):
+        tree[li] = {}
+        for path in paths:
+            i, o = dims[path]
+            a = torch.randn((rank, i), generator=gen, device=dev) * i ** -0.5
+            b = torch.randn((o, rank), generator=gen, device=dev) * LORA_B_STD
+            tree[li][path] = (a, b, LORA_SCALE)
+    return tree
+
+
+def lora_mix(vocab: int, lids=LORA_LIDS):
+    """make_requests' mix with an adapter on each row (``lids``)."""
+    reqs, sampled = make_requests(vocab)
+    for r, lid in zip(reqs, lids):
+        r.lora_id = lid
+    return reqs, sampled
+
+
+def lora_register(trees, bounds):
+    """``on_engines`` for serve: each stage gets its slice of every
+    adapter."""
+    def register(engines):
+        for eng, (s, e) in zip(engines, bounds):
+            for name, tree in trees.items():
+                eng.load_adapter(name, {li - s: t for li, t in tree.items()
+                                        if s <= li < e})
+    return register
+
+
+def lora_drive(engine, reqs) -> None:
+    """Submit ``reqs`` to a served engine and drive it until they finish."""
+    from parallax_tpu_torch.runtime.engine import drive_step
+
+    for r in reqs:
+        engine.submit(r)
+    pending = None
+    while engine.has_work() or pending is not None:
+        _, pending = drive_step(engine, pending)
+
+
+def lora_delta_ms(torch, dev, cfg, params, field) -> dict:
+    """Device ms of one decode step's LoRA deltas at the mix's decode shape
+    (7 rows in the tree's dtype, the mixed field: 7 sites x layers),
+    beside the same step's base projections: each captured in a CUDA
+    graph, as the window replays it, and the replay timed with CUDA
+    events (the eager loop's enqueue of ~1,400 small launches would
+    otherwise sit inside the interval); the eager interval beside it."""
+    from parallax_tpu_torch.models import layers as L
+    from parallax_tpu_torch.ops.lora import select_slot
+
+    rows = 7
+    sel = select_slot(field)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    xs = {}
+    for path in LORA_PROJ_DIMS:
+        grp, proj = path.split(".")
+        w = params["layers"][0][grp][proj]["weight"]
+        xs[path] = torch.randn((rows, w.shape[1]), generator=gen,
+                               device=dev).to(w.dtype)
+    sites = [(li, path) for li in range(cfg.num_hidden_layers)
+             for path in LORA_PROJ_DIMS if path in sel.get(str(li), {})]
+
+    def deltas():
+        for li, path in sites:
+            L._lora_delta(xs[path], sel[str(li)][path])
+
+    def shrinks():
+        # The first product alone: every site's rows against every stacked
+        # adapter's A (f32), the part a gathered kernel would shrink most.
+        for li, path in sites:
+            a = sel[str(li)][path]["A"]
+            torch.nn.functional.linear(xs[path].float(),
+                                       a.reshape(-1, a.shape[-1]))
+
+    def base():
+        for li, path in sites:
+            grp, proj = path.split(".")
+            torch.nn.functional.linear(
+                xs[path], params["layers"][li][grp][proj]["weight"])
+
+    def graphed(fn):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn()
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin()
+            fn()
+            graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        return graph
+
+    g_delta, g_shrink, g_base = graphed(deltas), graphed(shrinks), \
+        graphed(base)
+    return {"sites": len(sites), "rows": rows,
+            "delta_ms_per_step": time_ms(torch, g_delta.replay, 20),
+            "shrink_ms_per_step": time_ms(torch, g_shrink.replay, 20),
+            "base_projection_ms_per_step": time_ms(torch, g_base.replay, 20),
+            "delta_ms_eager_interval": time_ms(torch, deltas, 20,
+                                               hide_host=True)}
+
+
+def phase_lora_serve(torch, dev, card: str, cfg, model_full, params):
+    """Per-request LoRA on serve's Qwen2.5-7B tree (28 layers, bf16) with
+    three adapters drawn from the seed (LORA_ADAPTERS: rank 16 on every
+    projection, rank 8 on the same, rank 16 on attention of every other
+    layer), the mix's rows two base and two per adapter (LORA_LIDS).
+    Runs: the mix with every row base, with no adapter registered and
+    with the three registered (bitwise: registration leaves base traffic
+    as it was); the adapter mix with the defaults (K = 8 windows from CUDA graphs, overlap,
+    the native manager; LORA_MAX_ADAPTERS), with graphs off and with
+    K1_SYNC (both bitwise the defaults' streams); r16's rows alone
+    (grouped decode); a 14 + 14 pipeline. Checks: launches exact
+    (gqa_expected); every adapter row's greedy stream within GREEDY_TOL of
+    the plain path with its adapter, and above it with no delta and with
+    the wrong adapter's slot (the mix's base rows are held to the plain
+    path without a delta: they share batches with adapter rows, so their
+    GEMMs see other row counts than in the all-base run); r7
+    (r0's prefix, another adapter) no prefix hit, a repeat under its
+    adapter a hit, under another none; a fourth adapter registered after
+    the graphs were captured evicts an idle one and serves its own
+    stream. Figures: decode tok/s against base, the step's delta device
+    ms, graph captures and seconds."""
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.ops.lora import AdapterSet
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    t_phase = time.monotonic()
+    n = cfg.num_hidden_layers
+    trees = {name: lora_tree(torch, dev, cfg, rank, sites, seed)
+             for name, rank, sites, seed in LORA_ADAPTERS}
+    ref = AdapterSet(device=dev)
+    for name, tree in trees.items():
+        ref.register(name, tree)
+
+    def lora_of(r):
+        return None if r.lora_id is None else ref.batch_field(r.lora_id)
+
+    def check_rows(mode, reqs):
+        for r in reqs:
+            if r.status.value != "finished_length" or len(
+                    r.output_ids) != r.sampling_params.max_new_tokens:
+                raise AssertionError(f"lora_serve {mode} {r.request_id} "
+                                     f"({r.lora_id}): {r.status.value}, "
+                                     f"{len(r.output_ids)} tokens")
+
+    runs, lines = {}, {}
+    full = [(0, n)]
+    for mode, lids, engine_kw, graphs in (
+            ("base", (None,) * 8, None, None),
+            ("base_registered", (None,) * 8, None, None),
+            ("lora", LORA_LIDS, dict(lora_max_adapters=LORA_MAX_ADAPTERS),
+             None),
+            ("lora_eager", LORA_LIDS, None, False),
+            ("lora_k1_sync", LORA_LIDS, K1_SYNC, None),
+            ("lora_grouped", ("r16", "r16"), None, None)):
+        reqs, sampled = lora_mix(cfg.vocab_size, lids)
+        if mode == "lora_grouped":
+            reqs, sampled = reqs[1:3], {1: sampled[2]}
+        ck.reset_launches()
+        t_cap = time.monotonic()
+        reqs, sampled, engines, t0, t1 = serve(
+            torch, full, params, cfg, dev, fused=True, engine_kw=engine_kw,
+            cuda_graphs=graphs, requests=(reqs, sampled), grammar=False,
+            on_engines=(None if mode == "base"
+                        else lora_register(trees, full)))
+        if mode == "base_registered":
+            # Registration leaves base traffic as it was, to the bit.
+            differ = [r.request_id for r, b in zip(reqs, runs["base"])
+                      if r.output_ids != b.output_ids]
+            if differ:
+                raise AssertionError(f"lora_serve: registered adapters "
+                                     f"moved base rows {differ}")
+        launches = ck.launches()
+        check_rows(mode, reqs)
+        summary = engines[0].kernel_dispatch_summary()
+        check_launches("lora_serve", mode, launches,
+                       gqa_expected("fused", summary, n), summary)
+        if engine_kw is None or mode == "lora":
+            check_windows("lora_serve", mode, summary, graphs is not False)
+        runs[mode] = reqs
+        lines[mode] = line = {
+            "phase": "lora_serve", "run": mode, "requests": len(reqs),
+            "adapters": list(lids), "engine": engine_kw or "defaults",
+            "launches": launches, "steps": sum(forward_steps(summary)),
+            "graphs": summary.get("graphs"), "cache": engines[0].cache_stats(),
+            "serve_s_with_captures": t1 - t_cap,
+            **stream_metrics(reqs, t0, t1), "card": card}
+        if mode == "lora":
+            eng = engines[0]
+            emit(line)
+            # r7 shares r0's prefix under another adapter: no hit. Its
+            # prompt again under its adapter hits, under another does not.
+            if reqs[7].num_cached_tokens != 0:
+                raise AssertionError("lora_serve: r7 hit r0's pages across "
+                                     "adapters")
+            again = [Request(f"again_{lid}", prompt_ids=list(
+                reqs[7].prompt_ids), lora_id=lid,
+                sampling_params=SamplingParams(temperature=0.0,
+                                               max_new_tokens=4,
+                                               ignore_eos=True))
+                for lid in ("attn16", "r8")]
+            lora_drive(eng, again)
+            hits = {r.lora_id: r.num_cached_tokens for r in again}
+            if hits["attn16"] <= 0 or hits["r8"] != 0:
+                raise AssertionError(f"lora_serve: repeat hits {hits}")
+            # The fourth adapter after capture, past the cap (the later
+            # runs keep the three: the stack's n * r is the contraction's
+            # length, so a fourth adapter would move their bits).
+            captured = eng.kernel_dispatch_summary().get(
+                "graphs", {}).get("captured")
+            name, rank, sites, seed = LORA_FOURTH
+            fourth = lora_tree(torch, dev, cfg, rank, sites, seed)
+            late_ref = AdapterSet(device=dev)
+            late_ref.register(name, fourth)
+            before = eng.adapter_names()
+            eng.load_adapter(name, fourth)
+            names = eng.adapter_names()
+            if len(names) != LORA_MAX_ADAPTERS or name not in names:
+                raise AssertionError(f"lora_serve: after {name}: {names}")
+            late = lora_mix(cfg.vocab_size, (name,))[0][:1]
+            late[0].request_id = "late"
+            t_late = time.monotonic()
+            lora_drive(eng, late)
+            check_rows("lora", late)
+            late_worst, *_ = greedy_check(
+                torch, model_full, params, late, {}, dev, tol=GREEDY_TOL,
+                lora_of=lambda r: late_ref.batch_field(r.lora_id))
+            del late_ref, fourth
+            emit({"phase": "lora_serve", "check": "after_capture",
+                  "prefix_hits_repeat": hits,
+                  "r7_cached_tokens_across_adapters":
+                      reqs[7].num_cached_tokens,
+                  "registered": name, "evicted": sorted(set(before)
+                                                        - set(names)),
+                  "graphs_before": captured,
+                  "graphs_after": eng.kernel_dispatch_summary().get(
+                      "graphs", {}).get("captured"),
+                  "late_row_s": time.monotonic() - t_late,
+                  "greedy_vs_plain": "pass",
+                  "largest_logit_gap": late_worst,
+                  "tolerance": GREEDY_TOL, "card": card})
+            del eng
+        else:
+            emit(line)
+        del engines
+    # Every adapter row within the limit of the plain path with its own
+    # adapter; the base rows bitwise the all-base run's.
+    lora = runs["lora"]
+    sampled = {i for i, _ in enumerate(lora) if i in (2, 4, 6)}
+    worst, over, *_ = greedy_check(torch, model_full, params, lora,
+                                   sampled, dev, tol=GREEDY_TOL,
+                                   lora_of=lora_of)
+    greedy_adapter = [r for i, r in enumerate(lora)
+                      if i not in sampled and r.lora_id is not None]
+    mutants = {}
+    for label, pick in (("no_delta", lambda r: None),
+                        ("wrong_adapter", lambda r: ref.batch_field(
+                            LORA_WRONG[r.lora_id]))):
+        g, *_ = greedy_check(torch, model_full, params, greedy_adapter, {},
+                             dev, lora_of=pick)
+        if g < GREEDY_TOL:
+            raise AssertionError(f"lora_serve: the {label} mutant stays "
+                                 f"within the limit ({g})")
+        mutants[label] = g
+    base_rows = [i for i, lid in enumerate(LORA_LIDS) if lid is None]
+    partings = {}
+    for mode in ("lora_eager", "lora_k1_sync"):
+        partings[mode] = {
+            r.request_id: _first_parting(torch, model_full, params, r, e, dev,
+                                         lora=lora_of(r))
+            for r, e in zip(lora, runs[mode]) if r.output_ids != e.output_ids}
+    if any(partings.values()):
+        emit({"phase": "lora_serve", "check": "bitwise", "partings":
+              partings, "card": card})
+        raise AssertionError(f"lora_serve: graphs off or K1_SYNC differ "
+                             f"from the defaults: {partings}")
+    grouped = runs["lora_grouped"]
+    g_worst, *_ = greedy_check(torch, model_full, params, grouped, {1: 0},
+                               dev, tol=GREEDY_TOL, lora_of=lora_of)
+    emit({"phase": "lora_serve", "check": "greedy",
+          "greedy_vs_plain_with_adapter": "pass", "largest_logit_gap": worst,
+          f"tokens_off_by_{GREEDY_TOL}_or_more": over,
+          "mutant_largest_logit_gap": mutants, "tolerance": GREEDY_TOL,
+          "all_base_mix_bitwise_with_adapters_registered": len(
+              runs["base_registered"]),
+          "mix_base_rows_identical_to_all_base_run": sum(
+              lora[i].output_ids == runs["base"][i].output_ids
+              for i in base_rows),
+          "eager_and_k1_sync_bitwise_defaults": len(lora),
+          "grouped_decode_largest_logit_gap": g_worst,
+          "grouped_rows_identical_to_mixed": sum(
+              a.output_ids == b.output_ids for a, b in zip(grouped,
+                                                           lora[1:3])),
+          "decode_tok_per_s": {m: lines[m]["decode_tok_per_s"]
+                               for m in ("base", "lora")},
+          "card": card})
+    # The two-stage pipeline (14 + 14): the single stage's adapter streams.
+    bounds = [(0, n // 2), (n // 2, n)]
+    ck.reset_launches()
+    pipe, _, engines, t0, t1 = serve(
+        torch, bounds, params, cfg, dev, fused=True,
+        requests=lora_mix(cfg.vocab_size), grammar=False,
+        on_engines=lora_register(trees, bounds))
+    check_rows("pipeline", pipe)
+    del engines
+    p_worst, *_ = greedy_check(torch, model_full, params, pipe, sampled,
+                               dev, tol=GREEDY_TOL, lora_of=lora_of)
+    emit({"phase": "lora_serve", "run": f"pipeline_{n // 2}_{n - n // 2}",
+          "greedy_vs_plain_with_adapter": "pass",
+          "largest_logit_gap": p_worst, "tolerance": GREEDY_TOL,
+          "rows_identical_to_single_stage": sum(
+              a.output_ids == b.output_ids for a, b in zip(pipe, lora)),
+          "rows": len(pipe), **stream_metrics(pipe, t0, t1), "card": card})
+    emit({"phase": "lora_serve", "check": "delta_device_ms",
+          **lora_delta_ms(torch, dev, cfg, params, ref.mixed_batch_field(
+              [0, 1, 2, 3, 0, 1, 2])), "adapters": len(trees),
+          "card": card})
+    emit({"phase": "lora_serve", "seconds": time.monotonic() - t_phase,
+          "card": card})
+    free_device_memory(torch)
 
 
 def phase_serve(torch, dev, card: str, cfg, model_full, params):
@@ -4816,11 +5210,7 @@ def phase_disagg_serve(torch, dev, card, cfg, model_full, params) -> None:
 # Phase 7: http_serve, the front door
 # ---------------------------------------------------------------------------
 
-# HF's default shard size (``max_shard_size="5GB"``).
-SHARD_BYTES = 5 * 10**9
 HTTP_TIMEOUT_S = 300
-_ST_DTYPES = {"bfloat16": "BF16", "float16": "F16", "float32": "F32",
-              "uint32": "U32", "uint8": "U8"}
 GENERATE_SUMMARY = (r"(\d+) prompt \+ (\d+) generated tokens \| ttft "
                     r"([\d.]+)s \| decode ([\d.]+) tok/s \| (\w+)")
 
@@ -4846,57 +5236,16 @@ def hf_tensors(tree) -> dict:
 
 
 def write_checkpoint(tensors: dict, raw_cfg: dict, path: str,
-                     shard_bytes: int = SHARD_BYTES) -> int:
+                     shard_bytes: int | None = None) -> int:
     """Write ``tensors`` (name -> torch tensor, on any device) as an HF
-    safetensors checkpoint under ``path``: shards of at most about
-    ``shard_bytes`` with ``model.safetensors.index.json``, and
-    ``config.json``. Each shard is an 8-byte little-endian header length, a
-    JSON header (dtype, shape, data_offsets from the end of the header;
-    padded with spaces to 8 bytes) and the raw bytes; one tensor at a time
-    is copied to the host. A writer of its own: the card may lack the
-    ``safetensors`` package. Returns the bytes of tensor data written."""
-    import os
+    safetensors checkpoint under ``path`` with the package's own writer
+    (``utils/st_writer.py``: shards of about ``shard_bytes``, HF's 5 GB by
+    default, the index, ``config.json``; the card may lack the
+    ``safetensors`` package). Returns the bytes of tensor data written."""
+    from parallax_tpu_torch.utils.st_writer import SHARD_BYTES
+    from parallax_tpu_torch.utils.st_writer import write_checkpoint as write
 
-    import torch
-
-    groups, size = [[]], 0
-    for name, t in tensors.items():
-        n = t.numel() * t.element_size()
-        if groups[-1] and size + n > shard_bytes:
-            groups.append([])
-            size = 0
-        groups[-1].append(name)
-        size += n
-    weight_map, total = {}, 0
-    for i, names in enumerate(groups):
-        fname = (f"model-{i + 1:05d}-of-{len(groups):05d}.safetensors"
-                 if len(groups) > 1 else "model.safetensors")
-        header, offset = {"__metadata__": {"format": "pt"}}, 0
-        for name in names:
-            t = tensors[name]
-            n = t.numel() * t.element_size()
-            header[name] = {"dtype": _ST_DTYPES[str(t.dtype).split(".")[-1]],
-                            "shape": list(t.shape),
-                            "data_offsets": [offset, offset + n]}
-            offset += n
-        blob = json.dumps(header).encode()
-        blob += b" " * (-(8 + len(blob)) % 8)
-        with open(os.path.join(path, fname), "wb") as f:
-            f.write(len(blob).to_bytes(8, "little"))
-            f.write(blob)
-            for name in names:
-                t = tensors[name].detach().contiguous().reshape(-1).cpu()
-                f.write(t.view(torch.uint8).numpy())
-                weight_map[name] = fname
-        total += offset
-    if len(groups) > 1:
-        with open(os.path.join(path, "model.safetensors.index.json"),
-                  "w") as f:
-            json.dump({"metadata": {"total_size": total},
-                       "weight_map": weight_map}, f)
-    with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(raw_cfg, f)
-    return total
+    return write(tensors, raw_cfg, path, shard_bytes or SHARD_BYTES)
 
 
 def _text_mix(seed: int = 2024):
@@ -5068,13 +5417,16 @@ def http_feature_checks(features) -> dict:
     return got
 
 
-def _serve_http(torch, dev, ckpt: str, mix, extra_args=()):
+def _serve_http(torch, dev, ckpt: str, mix, extra_args=(), after=None):
     """``serve`` through the CLI's parser and ``serve_main`` on a free port
     in a thread (``extra_args`` appended to its command line); the mix
     from 8 client threads (r7 once r0 is answered, so that it finds r0's
-    prefix in the cache); then the server is stopped. Returns the replies,
-    the finished requests by id, the launches and the engine's
-    summary."""
+    prefix in the cache), then the feature requests and ``after(port)``
+    (its result in ``info["after"]``, with every finished request by id in
+    ``info["finished_after"]``); then the server is stopped. Returns the
+    replies, the finished requests by id, the launches and the engine's
+    summary (the launches and summary read before the feature
+    requests)."""
     import threading
 
     from parallax_tpu_torch import cli
@@ -5132,6 +5484,11 @@ def _serve_http(torch, dev, ckpt: str, mix, extra_args=()):
             _http_client(frontend.port, path, body, out)
             info["features"].append((name, path, body, out))
         info["constrained"] = engine.constrained_summary()
+        if after is not None:
+            info["after"] = after(frontend.port)
+            info["finished_after"] = {r.request_id: r
+                                      for r in runner.pipeline.finished}
+            info["engine_cfg"] = dataclasses.asdict(engine.cfg)
     finally:
         frontend.shutdown()
         server.join(HTTP_TIMEOUT_S)
@@ -5145,7 +5502,7 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
                      swarm: bool = False, sched: bool = False,
                      ha: bool = False, relay: bool = False,
                      obs: bool = False, qos: bool = False,
-                     quant: bool = False) -> None:
+                     quant: bool = False, lora: bool = False) -> None:
     """The port's front door on Qwen2.5-7B at full width: the random tree
     written as an HF checkpoint, the CLI's ``generate`` run on it in a
     subprocess, the checkpoint loaded back bitwise, then ``serve`` (CLI
@@ -5158,7 +5515,11 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
     directory (the checkpoint is written once), with ``sched``
     phase_sched_serve,
     with ``ha`` phase_ha_serve, with ``relay`` phase_relay_serve, with
-    ``obs`` phase_obs_serve and with ``qos`` qos_serve's part (b)."""
+    ``obs`` phase_obs_serve and with ``qos`` qos_serve's part (b). With
+    ``lora``, lora_serve's part (b): the same ``serve`` launch gets
+    ``--lora-adapters`` (PEFT directories written beside the checkpoint)
+    and answers adapter requests after the mix and the features
+    (``lora_http``)."""
     import os
     import re
     import shutil
@@ -5231,9 +5592,18 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
 
         # serve over HTTP.
         mix, sampled = _text_mix()
+        peft = lora_peft_dirs(torch, dev, cfg, ckpt) if lora else None
         outs, finished, launches, summary, info = _serve_http(
-            torch, dev, ckpt, mix)
+            torch, dev, ckpt, mix,
+            extra_args=(("--lora-adapters", ",".join(
+                f"{k}={v}" for k, v in peft.items())) if lora else ()),
+            after=(lambda port: lora_http_requests(port, ckpt))
+            if lora else None)
         free_device_memory(torch)
+        if lora:
+            lora_http(torch, dev, card, cfg, ckpt, loaded, peft,
+                      info.pop("after"), info.pop("finished_after"),
+                      info.pop("engine_cfg"))
         reqs = http_results(torch, dev, card, cfg, loaded, mix, sampled,
                             outs, finished, launches, summary, info)
         if quant:
@@ -5259,6 +5629,186 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
             qos_http(torch, dev, card, ckpt)
             emit({"phase": "qos_serve", "part": "b",
                   "seconds": time.monotonic() - t0, "card": card})
+
+
+# lora_serve (b): the adapters written as PEFT directories beside
+# http_serve's checkpoint, (name, rank, sites, seed) as LORA_ADAPTERS.
+LORA_PEFT = (("a", 16, "all", 201), ("b", 8, "attn_half", 202))
+LORA_HTTP_PROMPT = ("Adapters ride the same weights: one base model, many "
+                    "tenants, each with its own low-rank delta.")
+
+
+def lora_peft_dirs(torch, dev, cfg, ckpt: str) -> dict:
+    """LORA_PEFT drawn on the card and written with the package's writer
+    under ``ckpt`` (``peft_<name>``); returns {name: directory}."""
+    import os
+
+    from parallax_tpu_torch.utils.st_writer import write_peft_adapter
+
+    out = {}
+    for name, rank, sites, seed in LORA_PEFT:
+        path = os.path.join(ckpt, f"peft_{name}")
+        write_peft_adapter(path, lora_tree(torch, dev, cfg, rank, sites,
+                                           seed),
+                           rank=rank, alpha=LORA_SCALE * rank)
+        out[name] = path
+    return out
+
+
+def lora_http_requests(port: int, model: str) -> dict:
+    """After the mix: ``/v1/models``, then one greedy completion at a time
+    as base, with ``"lora": "a"``, as ``model: "<name>:b"`` and as an
+    unknown adapter's variant. Returns the replies."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT_S)
+    try:
+        conn.request("GET", "/v1/models")
+        resp = conn.getresponse()
+        models = (resp.status, json.loads(resp.read()))
+    finally:
+        conn.close()
+    body = {"prompt": LORA_HTTP_PROMPT, "max_tokens": 32,
+            "temperature": 0.0, "ignore_eos": True}
+    outs = {}
+    for key, extra in (("base", {}), ("a", {"lora": "a"}),
+                       ("b", {"model": f"{model}:b"}),
+                       ("nope", {"model": f"{model}:nope"})):
+        out = {}
+        _http_client(port, "/v1/completions", {**body, **extra}, out)
+        outs[key] = out
+    return {"models": models, "outs": outs}
+
+
+def lora_http(torch, dev, card, cfg, ckpt: str, loaded, peft: dict,
+              got: dict, finished: dict, engine_cfg: dict) -> None:
+    """lora_serve (b)'s checks on the ``serve --lora-adapters`` replies:
+    ``/v1/models`` lists the variants; base, ``"lora": "a"`` and
+    ``<model>:b`` answer 200 with the library's tokens for the same
+    adapters on the loaded tree (each alone, the server's engine config);
+    the unknown adapter gets the JAX front door's 502. Then the load-time
+    merge (``load_stage_params(lora_path=)``) and the ``lora-merge``
+    command's output load to trees within bf16 rounding of each other, and
+    a request on each serves within GREEDY_TOL of the plain path with the
+    adapter applied per request."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from parallax_tpu_torch import cli
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.models.loader import load_stage_params
+    from parallax_tpu_torch.ops.lora import AdapterSet, adapter_tree_from_peft
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    t_b = time.monotonic()
+    n = cfg.num_hidden_layers
+    status, models = got["models"]
+    ids = [m["id"] for m in models["data"]]
+    if status != 200 or ids != [ckpt, f"{ckpt}:a", f"{ckpt}:b"]:
+        raise AssertionError(f"lora_serve (b): /v1/models {status} {ids}")
+    served = {}
+    for key in ("base", "a", "b"):
+        out = got["outs"][key]
+        if out.get("status") != 200:
+            raise AssertionError(f"lora_serve (b) {key}: {out.get('status')}"
+                                 f" {out.get('raw', '')[:300]}")
+        served[key] = finished[json.loads(out["raw"])["id"]]
+    nope = got["outs"]["nope"]
+    message = json.loads(nope["raw"])["error"]["message"]
+    if nope["status"] != 502 or message != (
+            "generation failed: unknown lora adapter 'nope'"):
+        raise AssertionError(f"lora_serve (b) nope: {nope['status']} "
+                             f"{message}")
+    # The library, one request at a time as the server took them, on the
+    # server's engine config (no host tier: it moves no bit).
+    kw = {k: v for k, v in engine_cfg.items() if k != "host_cache_bytes"}
+    max_len = kw.pop("max_model_len")
+    lib = {}
+    for key in ("base", "a", "b"):
+        r = served[key]
+        req = Request(f"lib_{key}", prompt_ids=list(r.prompt_ids),
+                      lora_id=None if key == "base" else key,
+                      sampling_params=SamplingParams(
+                          temperature=0.0, max_new_tokens=32,
+                          ignore_eos=True))
+        lib[key] = serve(torch, [(0, n)], loaded, cfg, dev, fused=True,
+                         max_model_len=max_len, engine_kw=kw,
+                         requests=([req], {}), grammar=False,
+                         on_engines=lambda es: [es[0].load_adapter(k, v)
+                                                for k, v in peft.items()]
+                         )[0][0]
+    differ = [k for k in lib if lib[k].output_ids != served[k].output_ids]
+    if differ or served["a"].output_ids == served["base"].output_ids:
+        raise AssertionError(f"lora_serve (b): the server's tokens differ "
+                             f"from the library's for {differ}")
+    # Load-time merge against the lora-merge command's output.
+    merged_dir = os.path.join(ckpt, "merged_a")
+    need = sum(os.path.getsize(os.path.join(ckpt, f))
+               for f in os.listdir(ckpt) if f.endswith(".safetensors"))
+    if shutil.disk_usage(ckpt).free < need + (1 << 30):
+        raise AssertionError("lora_serve (b): no room for the merged copy")
+    t0 = time.monotonic()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["lora-merge", "--model-path", ckpt, "--adapter-path",
+                       peft["a"], "--out-dir", merged_dir])
+    if rc != 0:
+        raise AssertionError("lora_serve (b): lora-merge failed")
+    merge_s = time.monotonic() - t0
+    model = create_stage_model(cfg, 0, n)
+    t0 = time.monotonic()
+    at_load = load_stage_params(model, ckpt, device=dev, lora_path=peft["a"])
+    torch.cuda.synchronize()
+    load_merge_s = time.monotonic() - t0
+    tool = load_stage_params(model, merged_dir, device=dev)
+    a_leaves, t_leaves = list(_leaves(at_load)), list(_leaves(tool))
+    if len(a_leaves) != len(t_leaves):
+        raise AssertionError("lora_serve (b): the merged trees differ")
+    differing, worst_rel = 0, 0.0
+    for x, y in zip(a_leaves, t_leaves):
+        d = (x.float() - y.float()).abs()
+        # One bf16 rounding apart at most: |x| * 2**-7.
+        if bool((d > x.float().abs() * 2.0 ** -7).any()):
+            raise AssertionError("lora_serve (b): the merges differ past "
+                                 "bf16 rounding")
+        differing += int((d > 0).sum())
+        worst_rel = max(worst_rel, float((d / x.float().abs().clamp_min(
+            1e-30)).max()))
+    shutil.rmtree(merged_dir)
+    ref = AdapterSet(device=dev)
+    ref.register("a", adapter_tree_from_peft(peft["a"], 0, n))
+    model_ref = create_stage_model(cfg, 0, n, use_kernels=False)
+    merged_runs = []
+    for label, tree in (("load_time_merge", at_load), ("lora_merge", tool)):
+        req = Request(f"merged_{label}", prompt_ids=list(
+            served["a"].prompt_ids), sampling_params=SamplingParams(
+                temperature=0.0, max_new_tokens=32, ignore_eos=True))
+        merged_runs.append(serve(torch, [(0, n)], tree, cfg, dev,
+                                 fused=True, max_model_len=max_len,
+                                 engine_kw=kw,
+                                 requests=([req], {}), grammar=False)[0][0])
+    worst, *_ = greedy_check(torch, model_ref, loaded,
+                             merged_runs + [served["a"]], {}, dev,
+                             tol=GREEDY_TOL,
+                             lora_of=lambda r: ref.batch_field("a"))
+    del at_load, tool
+    free_device_memory(torch)
+    emit({"phase": "lora_serve", "part": "b", "models": ids,
+          "status": {"base": 200, "a": 200, "b": 200, "nope": 502},
+          "server_tokens_equal_library": ["base", "a", "b"],
+          "merge": {"lora_merge_says": printed.getvalue().strip(),
+                    "lora_merge_s": merge_s, "load_time_merge_s":
+                    load_merge_s, "elements_differing": differing,
+                    "largest_relative_difference": worst_rel,
+                    "limit": "one bf16 rounding (|x| * 2**-7)"},
+          "merged_vs_per_request_greedy": "pass",
+          "largest_logit_gap": worst, "tolerance": GREEDY_TOL,
+          "merged_rows_identical_to_per_request": sum(
+              r.output_ids == served["a"].output_ids for r in merged_runs),
+          "seconds": time.monotonic() - t_b, "card": card})
 
 
 def mlx_tensors(tree, bits: int) -> dict:
@@ -8465,9 +9015,15 @@ def cut_config(name: str, layers: int):
     return normalize_config(raw, model_name=name)
 
 
+# teacher_forced_decode's steps: the first this many output tokens of a
+# stream's 32 (a cut for the script's time limit).
+TEACHER_FORCED_STEPS = 16
+
+
 def teacher_forced_decode(torch, model, params, req, dev, kernel,
                           max_len=1024) -> dict:
-    """One served greedy stream decoded again, step by step, through the
+    """One served greedy stream decoded again, step by step (its first
+    TEACHER_FORCED_STEPS output tokens), through the
     stage ``model``: its prompt prefilled once, then each output token fed
     as a one-token decode step twice on the same cache, through the fused
     decode kernel (``decode_fused``; it must launch ``kernel`` once per
@@ -8549,7 +9105,7 @@ def teacher_forced_decode(torch, model, params, req, dev, kernel,
             _, kv = model(params, kv, assemble(plan(prompt, len(prompt)),
                                                spec, page, dev,
                                                with_dense_map=hybrid))
-            for j, tok in enumerate(outs[:-1]):
+            for j, tok in enumerate(outs[:-1][:TEACHER_FORCED_STEPS]):
                 p = plan([tok], len(prompt) + j + 1)
                 kv_f = [tuple(x if x is None else x.clone() for x in c)
                         if isinstance(c, tuple) else c.clone() for c in kv]
@@ -8592,7 +9148,7 @@ def teacher_forced_decode(torch, model, params, req, dev, kernel,
     if getattr(model, "runs_msa", False):
         bs = model.config.msa.block_size
         out["selected_blocks_last_step"] = int((topk[0] >= 0).sum()) // bs
-        out["causal_blocks_last_step"] = (len(prompt) + len(outs) - 2) // bs + 1
+        out["causal_blocks_last_step"] = (len(prompt) + steps - 1) // bs + 1
         if out["selected_blocks_last_step"] >= out["causal_blocks_last_step"]:
             raise AssertionError(f"teacher-forced {kernel}: the selection "
                                  f"is not sparse: {out}")
@@ -9838,7 +10394,7 @@ def make_draft(torch, dev, cfg, params, layers: int,
     return DraftProposer(eng, max_propose_ms=max_propose_ms)
 
 
-def _first_parting(torch, model_full, params, a, b, dev) -> dict:
+def _first_parting(torch, model_full, params, a, b, dev, lora=None) -> dict:
     """Where two streams of one prompt part: the index and the gap there
     between the two tokens, in logits, on the plain one-shot reference
     (None if equal). A seeded row draws argmax(logits / T + noise) over
@@ -9846,7 +10402,7 @@ def _first_parting(torch, model_full, params, a, b, dev) -> dict:
     its gap is taken in that space, scaled back by T: (l_a - l_b) + T (g_a
     - g_b); where a drawn token lies past the reference's top k, the gap
     is how far it sits under the k-th logit (the runs kept different
-    sets)."""
+    sets). ``lora`` is the reference forward's adapter field."""
     from parallax_tpu_torch.ops.sampling import gumbel_rows_plain
 
     same = 0
@@ -9855,7 +10411,8 @@ def _first_parting(torch, model_full, params, a, b, dev) -> dict:
         same += 1
     if same >= len(a.output_ids):
         return {"index": None, "gap": 0.0}
-    row = one_shot_rows(torch, model_full, params, a, dev)[same].float()
+    row = one_shot_rows(torch, model_full, params, a, dev,
+                        lora=lora)[same].float()
     ta, tb = a.output_ids[same], b.output_ids[same]
     gap = float(row[ta]) - float(row[tb])
     sp = a.sampling_params
@@ -10230,7 +10787,8 @@ KERNEL_COUNTER = {"ragged_attend": "gqa_prefill",
 # order; the first one asked for names the tree's line when serve is not.
 DENSE_PHASES = ("native", "spec_serve", "pp_spec", "features_serve",
                 "preempt_serve", "migrate_serve",
-                "disagg_serve", "qos_serve", "quant_serve", "http_serve",
+                "disagg_serve", "qos_serve", "quant_serve", "lora_serve",
+                "http_serve",
                 "swarm_serve",
                 "sched_serve", "ha_serve", "relay_serve", "obs_serve")
 
@@ -10908,9 +11466,11 @@ def run_dense(torch, dev, card: str, want) -> dict:
     if want("quant_serve"):
         paths["quant_serve"] = phase_quant_serve(torch, dev, card, cfg,
                                                  model_full, params)
+    if want("lora_serve"):
+        phase_lora_serve(torch, dev, card, cfg, model_full, params)
     if any(want(p) for p in ("http_serve", "swarm_serve", "sched_serve",
                              "ha_serve", "relay_serve", "obs_serve",
-                             "qos_serve", "quant_serve")):
+                             "qos_serve", "quant_serve", "lora_serve")):
         from parallax_tpu_torch.config import normalize_config
         from parallax_tpu_torch.models.presets import PRESETS
 
@@ -10924,7 +11484,8 @@ def run_dense(torch, dev, card: str, want) -> dict:
                          swarm=want("swarm_serve"), sched=want("sched_serve"),
                          ha=want("ha_serve"), relay=want("relay_serve"),
                          obs=want("obs_serve"), qos=want("qos_serve"),
-                         quant=want("quant_serve"))
+                         quant=want("quant_serve"),
+                         lora=want("lora_serve"))
     return paths
 
 
@@ -10953,8 +11514,8 @@ def main() -> int:
                     help="comma-separated phases (build,kernels,serve,"
                          "pipeline,profile,native,spec_serve,pp_spec,"
                          "features_serve,preempt_serve,"
-                         "migrate_serve,disagg_serve,quant_serve (runs "
-                         "http_serve too),"
+                         "migrate_serve,disagg_serve,quant_serve and "
+                         "lora_serve (each runs http_serve too),"
                          "http_serve,"
                          "swarm_serve, sched_serve, ha_serve, relay_serve, "
                          "obs_serve and qos_serve (each runs http_serve "

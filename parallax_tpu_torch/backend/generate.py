@@ -34,7 +34,8 @@ def generate_main(args) -> int:
     tokenizer = load_tokenizer(args.model_path)
     model = create_stage_model(config, 0, config.num_hidden_layers)
     params = load_stage_params(model, args.model_path, device=device,
-                               quantize=args.quantization)
+                               quantize=args.quantization,
+                               lora_path=args.lora_path)
 
     messages = [{"role": "user", "content": args.prompt}]
     try:

@@ -15,8 +15,11 @@ JAX frontend: penalties, ``logit_bias``, ``response_format`` (its schema
 compiled at admission, 400 if unsupported) and ``logprobs`` (chat
 ``content`` entries, completions ``tokens`` / ``token_logprobs``, streamed
 and not). A request asking for a feature the engine's ``submit`` refuses
-(a LoRA adapter) gets HTTP 501 with that refusal's text; weight refit
-answers 501 "not ported yet". ``/cluster/status`` (an ndjson stream) and
+gets HTTP 501 with that refusal's text; weight refit answers 501 "not
+ported yet". A request selects a LoRA adapter with the ``"lora"`` field or
+the ``<model>:<adapter>`` model name; ``/v1/models`` lists one such
+variant per adapter that ``adapters_fn`` names, and an adapter the engine
+does not hold aborts the request (502, the engine's reason). ``/cluster/status`` (an ndjson stream) and
 ``/cluster/status_json`` serve the ``status_fn`` (``{}`` without one): the
 ``run`` frontend's scheduler ``cluster_status()``, ``serve``'s
 single-host status. With a ``qos_config`` (``serve`` / ``run --qos``) each
@@ -365,7 +368,8 @@ class OpenAIFrontend:
     (``x-parallax-tenant`` / ``tenant``; the LoRA adapter by default); a
     bad value answers 400, and ``route_fn`` gets the tenant and class.
     None = QoS off: nothing is parsed, and ``route_fn`` gets None for
-    both."""
+    both. ``adapters_fn() -> list[str]`` names the LoRA adapters that
+    ``/v1/models`` lists as ``<model>:<adapter>`` variants."""
 
     def __init__(
         self,
@@ -384,10 +388,12 @@ class OpenAIFrontend:
         profile_cluster_fn=None,
         step_call=None,
         qos_config=None,
+        adapters_fn=None,
     ):
         self.tokenizer = tokenizer
         self.submit_fn = submit_fn
         self.route_fn = route_fn
+        self.adapters_fn = adapters_fn
         self.qos_config = qos_config
         self.stop_fn = stop_fn
         self.status_fn = status_fn
@@ -710,13 +716,19 @@ class OpenAIFrontend:
             self._m_http_e2e.observe((time.monotonic() - t_start) * 1e3)
 
     def models(self, h: _Handler) -> None:
+        """The base model plus one ``<model>:<adapter>`` variant per
+        adapter ``adapters_fn`` names (the multi-LoRA serving convention:
+        a stock OpenAI client selects a tenant through the model field)."""
+        names = [self.model_name]
+        if self.adapters_fn is not None:
+            names += [f"{self.model_name}:{a}" for a in self.adapters_fn()]
         h.send_json({
             "object": "list",
             "data": [{
-                "id": self.model_name,
+                "id": name,
                 "object": "model",
                 "owned_by": "parallax-tpu",
-            }],
+            } for name in names],
         })
 
     def scheduler_init(self, h: _Handler) -> None:

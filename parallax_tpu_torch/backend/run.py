@@ -65,7 +65,7 @@ from parallax_tpu_torch.p2p import proto
 from parallax_tpu_torch.p2p.transport import TcpTransport, Transport
 from parallax_tpu_torch.runtime.request import Request, RequestStatus
 from parallax_tpu_torch.scheduling.scheduler import GlobalScheduler
-from parallax_tpu_torch.utils import get_logger, unported
+from parallax_tpu_torch.utils import get_logger
 
 logger = get_logger(__name__)
 
@@ -138,11 +138,10 @@ class SwarmClient:
             except Exception:
                 return None
             return [] if isinstance(r, dict) and r.get("ready") else None
-        if lora_id is not None:
-            raise unported("LoRA requests (lora_id)", 11)
         self._arrivals[request_id] = time.monotonic()
         path = self._route_any(request_id, prompt_ids=prompt_ids,
-                               tenant_id=tenant_id, qos_class=qos_class)
+                               lora_id=lora_id, tenant_id=tenant_id,
+                               qos_class=qos_class)
         if not path:
             # No submit will follow to retire the entry via _poll_loop.
             self._arrivals.pop(request_id, None)
@@ -152,14 +151,15 @@ class SwarmClient:
                    prompt_ids: list[int] | None = None,
                    arrival_time: float | None = None,
                    tenant_id: str | None = None,
-                   qos_class: str | None = None) -> list[str] | None:
+                   qos_class: str | None = None,
+                   lora_id: str | None = None) -> list[str] | None:
         """Route in-process while the local scheduler is primary, over RPC
         against the failover rotation otherwise (docs/ha.md)."""
         if self._local_primary():
             return self.service.route_request(
                 request_id, timeout_s=10.0, prompt_ids=prompt_ids,
-                arrival_time=arrival_time, tenant_id=tenant_id,
-                qos_class=qos_class,
+                lora_id=lora_id, arrival_time=arrival_time,
+                tenant_id=tenant_id, qos_class=qos_class,
             )
         if self.sched_transport is None:
             return None
@@ -172,7 +172,7 @@ class SwarmClient:
                 {
                     "rid": request_id,
                     "prompt_ids": prompt_ids,
-                    "lora_id": None,
+                    "lora_id": lora_id,
                     "tenant_id": tenant_id,
                     "qos_class": qos_class,
                     # Monotonic clocks do not survive the process hop:
@@ -317,6 +317,7 @@ class SwarmClient:
         self._release_path(list(request.routing_table))
         try:
             path = self._route_any(rid, prompt_ids=list(request.prompt_ids),
+                                   lora_id=request.lora_id,
                                    arrival_time=self._arrivals.get(rid),
                                    tenant_id=request.tenant_id,
                                    qos_class=request.qos_class)
@@ -583,6 +584,17 @@ def build_swarm_frontend(
             manifest.append(r)
         return manifest
 
+    def adapters():
+        # Adapters every ready, allocated node serves (bound through the
+        # service, so a live model switch redirects it).
+        from parallax_tpu_torch.ops.lora import intersect_adapter_names
+
+        return intersect_adapter_names(
+            n.lora_adapters
+            for n in service.scheduler.manager.nodes()
+            if n.has_allocation and n.is_ready
+        )
+
     frontend = OpenAIFrontend(
         tokenizer,
         submit_fn=client.submit,
@@ -590,6 +602,7 @@ def build_swarm_frontend(
         status_fn=lambda: service.scheduler.cluster_status(),
         model_name=model_name,
         stop_fn=client.stop,
+        adapters_fn=adapters,
         device_memory_bytes=device_memory_bytes,
         healthz_fn=healthz,
         timeline_fn=timeline,

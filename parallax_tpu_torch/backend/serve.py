@@ -30,6 +30,10 @@ import torch
 
 from parallax_tpu_torch.backend.http_server import OpenAIFrontend
 from parallax_tpu_torch.constrained import grammar_vocab_from_tokenizer
+from parallax_tpu_torch.ops.lora import (
+    intersect_adapter_names,
+    parse_adapter_spec,
+)
 from parallax_tpu_torch.runtime.engine import EngineConfig, StageEngine
 from parallax_tpu_torch.runtime.pipeline import InProcessPipeline
 from parallax_tpu_torch.runtime.request import Request
@@ -269,6 +273,11 @@ def build_local_frontend(
             out["qos"] = head_qos.payload()
         return out
 
+    def adapters():
+        # A name every stage holds (one missing mid-pipeline would fail
+        # after being listed).
+        return intersect_adapter_names(e.adapter_names() for e in engines)
+
     from parallax_tpu_torch.obs.timeline import LocalTimeline
 
     local_timeline = LocalTimeline(node_id="local")
@@ -284,6 +293,7 @@ def build_local_frontend(
         status_fn=status,
         model_name=model_name,
         stop_fn=runner.stop_request,
+        adapters_fn=adapters,
         device_memory_bytes=device_memory_bytes,
         healthz_fn=(wd.summary if wd is not None else None),
         timeline_fn=timeline,
@@ -339,8 +349,11 @@ def serve_main(args, on_start=None) -> int:
             f"[0, {n}) (its in-process pipeline needs the first and the "
             "last stage); serve a partial range with join")
     model = create_stage_model(config, start, end)
+    # LoRA merges into the float weights before finalize; on-load
+    # quantization runs after the merge inside the loader.
     params = load_stage_params(model, args.model_path, device=device,
-                               quantize=args.quantization)
+                               quantize=args.quantization,
+                               lora_path=args.lora_path)
     draft = None
     if args.draft_model_path:
         from parallax_tpu_torch.runtime.engine import DraftProposer
@@ -425,11 +438,15 @@ def serve_main(args, on_start=None) -> int:
             # Classes, deadline EDF and shed / park on the local
             # scheduler; None / "off" wires no policy.
             qos=args.qos,
+            lora_max_adapters=args.lora_max_adapters or 0,
         ),
         device=device,
         draft=draft,
     )
     del params
+    # Per-request adapters: a directory that fails to load fails the start.
+    for name, path in parse_adapter_spec(args.lora_adapters).items():
+        engine.load_adapter(name, path)
     slo_config = None
     if args.slo:
         from parallax_tpu_torch.obs.slo import parse_slo_spec

@@ -1,6 +1,6 @@
 """parallax-tpu-torch command line interface (port of
 ``parallax_tpu/cli.py``'s ``serve``, ``generate``, ``run``, ``join``,
-``chat`` and ``chat-host``).
+``chat``, ``chat-host`` and ``lora-merge``).
 
     python -m parallax_tpu_torch serve --model-path DIR [--port 8000]
     python -m parallax_tpu_torch generate --model-path DIR --prompt "Hi"
@@ -12,6 +12,8 @@
         --end-layer 14 --peers HOST:PORT [--port 7000]
     python -m parallax_tpu_torch chat [--base-url http://127.0.0.1:8000]
     python -m parallax_tpu_torch chat-host --head HOST:PORT [--port 8000]
+    python -m parallax_tpu_torch lora-merge --model-path DIR \
+        --adapter-path PEFT_DIR --out-dir OUT
 
 The flags keep the JAX package's names and defaults, plus ``--device``
 (default ``cuda:0``; ``--device cpu`` runs the plain PyTorch path) and the
@@ -30,7 +32,7 @@ import sys
 import time
 
 # The JAX CLI's subcommands that wait for later slices -> ROADMAP item.
-UNPORTED_COMMANDS = {"bench": 5, "lora-merge": 11}
+UNPORTED_COMMANDS = {"bench": 5}
 
 
 def _add_engine_flags(p: argparse.ArgumentParser) -> None:
@@ -141,6 +143,13 @@ def build_parser() -> argparse.ArgumentParser:
     chost.add_argument("--model-path", default=None,
                        help="checkpoint dir for the tokenizer")
     chost.add_argument("--model-name", default=None)
+
+    merge = sub.add_parser(
+        "lora-merge",
+        help="fuse a PEFT LoRA adapter into a checkpoint (a new directory)")
+    merge.add_argument("--model-path", required=True)
+    merge.add_argument("--adapter-path", required=True)
+    merge.add_argument("--out-dir", required=True)
 
     for name in UNPORTED_COMMANDS:
         sub.add_parser(name, help="not ported yet", add_help=False)
@@ -305,8 +314,6 @@ def unported_join_flags(args) -> list[tuple[str, int | str]]:
         (args.refit_cache_dir is not None, "--refit-cache-dir", 12),
         (args.compilation_cache_dir is not None, "--compilation-cache-dir",
          12),
-        (args.lora_adapters is not None, "--lora-adapters", 11),
-        (args.lora_max_adapters > 0, "--lora-max-adapters", 11),
         (args.sp_size > 1, f"--sp-size {args.sp_size}", 10),
     ):
         if on:
@@ -319,7 +326,7 @@ def unported_flags(args) -> list[tuple[str, int | str]]:
     with the ROADMAP queue 1 item that ports it."""
     if args.command == "join":
         return unported_join_flags(args)
-    if args.command in ("run", "chat", "chat-host"):
+    if args.command in ("run", "chat", "chat-host", "lora-merge"):
         return []
     refused = []
 
@@ -331,15 +338,12 @@ def unported_flags(args) -> list[tuple[str, int | str]]:
            f"--model-path {args.model_path} (not a local directory: a hub "
            "download)", 12)
     refuse(args.tp_size > 1, f"--tp-size {args.tp_size}", 10)
-    refuse(args.lora_path is not None, "--lora-path", 11)
     refuse(args.compilation_cache_dir is not None,
            "--compilation-cache-dir", 12)
     if args.command != "serve":
         return refused
     refuse(args.sp_size > 1, f"--sp-size {args.sp_size}", 10)
     refuse(args.prefill_seq_parallel, "--prefill-seq-parallel", 10)
-    refuse(args.lora_adapters is not None, "--lora-adapters", 11)
-    refuse(args.lora_max_adapters > 0, "--lora-max-adapters", 11)
     return refused
 
 
@@ -454,6 +458,12 @@ def main(argv: list[str] | None = None) -> int:
         return run_main(args)
     if args.command == "chat":
         return chat_main(args)
+    if args.command == "lora-merge":
+        from parallax_tpu_torch.utils.adapter import merge_adapter
+
+        n = merge_adapter(args.model_path, args.adapter_path, args.out_dir)
+        print(f"merged {n} adapter modules -> {args.out_dir}")
+        return 0
     if args.command == "chat-host":
         from parallax_tpu_torch.backend.run import chat_host_main
 

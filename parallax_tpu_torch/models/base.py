@@ -20,6 +20,7 @@ import torch
 from parallax_tpu_torch.config import LAYER_SLIDING, ModelConfig
 from parallax_tpu_torch.models import layers as L
 from parallax_tpu_torch.ops.kv_cache_ops import new_kv_pages
+from parallax_tpu_torch.ops.lora import merge_layer_lora, select_slot
 from parallax_tpu_torch.ops.rope import (
     apply_rope,
     rope_frequencies,
@@ -55,6 +56,10 @@ class BatchInputs:
     # 1 on a request's first chunk: its (possibly reused) slot is zeroed
     # before use.
     reset_state: torch.Tensor | None = None  # i32[S]
+    # Per-request LoRA (``ops/lora.py``): ``{"slot": i64[1], "layers":
+    # stacked}`` for a batch of one adapter, ``{"slots": i32[T],
+    # "layers": stacked}`` for a mixed one; None for base traffic.
+    lora: dict | None = None
     # Every segment is a single decode token (row i == sequence i).
     decode_only: bool = False
     # Attention layers run the fused decode kernel (append inside it).
@@ -250,14 +255,20 @@ class StageModel:
             x = L.embed_lookup(params["embed_tokens"], inputs.token_ids)
         else:
             x = inputs.hidden_states
+        lora_sel = None
+        if inputs.lora is not None:
+            lora_sel = select_slot(inputs.lora)
         for li in range(self.num_local_layers):
             window = (
                 cfg.sliding_window
                 if cfg.layer_type(self.start_layer + li) == LAYER_SLIDING
                 else None
             )
+            lp = params["layers"][li]
+            if lora_sel is not None and str(li) in lora_sel:
+                lp = merge_layer_lora(lp, lora_sel[str(li)])
             x, kv_caches[li] = self._decoder_layer(
-                params["layers"][li], x, kv_caches[li], inputs, window
+                lp, x, kv_caches[li], inputs, window
             )
         if not self.is_last:
             return x, kv_caches

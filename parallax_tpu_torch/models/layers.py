@@ -106,13 +106,46 @@ def layer_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
     return out.to(orig_dtype)
 
 
+def _lora_delta(x: torch.Tensor, ab: dict) -> torch.Tensor:
+    """Per-request LoRA correction ``(x @ A^T) @ B^T * scale`` in f32
+    (``ops/lora.py``), over the stacked adapters ``A [n, r, in]``, ``B [n,
+    out, r]``, ``s [n]`` and the batch's ``slot`` (i64[1], the batch's one
+    adapter) or ``slots`` (i32[T], each token row's).
+
+    The thin first product runs against EVERY adapter (``[T, n * r]``; r
+    is small), a scale-folded mask keeps each row's adapter, and the
+    second product contracts jointly over ``(n, r)`` as one ``[T, n * r] @
+    [n * r, out]`` product: no ``[T, n, out]`` intermediate. The mask is a
+    comparison, so a slot that matches no adapter (the null slot of base
+    rows and padding) gives a zero delta, where ``F.one_hot`` would
+    refuse it. The batch-uniform form (the JAX package's two products of
+    the selected adapter) runs the same contraction with one slot for
+    every row, so a row's delta has the same bits in a grouped batch and
+    in a mixed one."""
+    xf = x.float()
+    a_mat = ab["A"]
+    n, r, _ = a_mat.shape
+    t = xf.shape[0]
+    a_all = F.linear(xf, a_mat.reshape(n * r, -1))              # [T, n*r]
+    key = ab["slots"][:, None] if "slots" in ab else ab["slot"].view(1, 1)
+    mask = key.long() == torch.arange(n, device=key.device)[None, :]
+    sel = mask.to(torch.float32) * ab["s"][None, :]               # [T|1, n]
+    a_all = (a_all.view(t, n, r) * sel[:, :, None]).view(t, n * r)
+    # B is the transposed view of a contiguous [n, r, out].
+    return a_all @ ab["B"].transpose(1, 2).reshape(n * r, -1)
+
+
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """``x @ W^T + b`` with the HF ``[out, in]`` weight; the bias is added
-    after the product is rounded to ``x``'s dtype, as in the JAX package."""
+    """``x @ W^T + b`` with the HF ``[out, in]`` weight. A per-request LoRA
+    delta (``p["lora"]``) is added after the base product is rounded to
+    ``x``'s dtype, itself rounded to that dtype, and the bias last, as in
+    the JAX package."""
     if is_quantized(p):
         out = _quant_product(x, p, x.dtype)
     else:
         out = F.linear(x, p["weight"])
+    if "lora" in p:
+        out = out + _lora_delta(x, p["lora"]).to(out.dtype)
     if "bias" in p:
         out = out + p["bias"].to(out.dtype)
     return out

@@ -15,8 +15,9 @@ config's ``quantization`` dict, per-module overrides honoured) and GPTQ
 quartets stay quantized at rest; HF FP8 block weights (``weight_scale_inv``)
 and MXFP4 ``_blocks`` / ``_scales`` dequantize on load, on the target
 device. ``quantize="int8" | "int4"`` quantizes a float checkpoint after
-``finalize_params`` (group 64). LoRA merging is refused with "not ported
-yet".
+``finalize_params`` (group 64). ``lora_path=`` merges a PEFT adapter
+(DoRA too) into the float tree before ``finalize_params`` and before
+``quantize=``; a target that is already quantized is refused.
 """
 
 from __future__ import annotations
@@ -58,13 +59,6 @@ _QUANT_METHODS = ("fp8", "gptq", "mxfp4")
 _FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
 _GPTQ_SUFFIXES = (".qweight", ".qzeros", ".scales", ".g_idx")
 _ON_LOAD_BITS = {"int8": 8, "int4": 4}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: not ported yet to parallax_tpu_torch (LoRA waits for "
-        "ROADMAP queue 1 item 11(c))"
-    )
 
 
 class SafetensorsFile:
@@ -266,8 +260,6 @@ def load_stage_params(
     """Load this stage's weights from a local HF checkpoint directory onto
     ``device`` (None = ``cuda:0``). Quantized checkpoints and ``quantize=``
     as the module docstring says."""
-    if lora_path:
-        raise _not_ported(f"lora_path={lora_path!r}")
     if quantize and quantize not in _ON_LOAD_BITS:
         raise ValueError(f"quantize={quantize!r}: want one of "
                          f"{', '.join(_ON_LOAD_BITS)}")
@@ -471,6 +463,9 @@ def load_stage_params(
         "loaded %d tensors (%d quantized) for layers [%d, %d) from %s",
         n_loaded, n_quant, model.start_layer, model.end_layer, model_path,
     )
+    if lora_path:
+        # Pre-finalize: fused / per-expert HF module names still exist here.
+        apply_lora_adapter(model, tree, lora_path, dtype)
     tree = model.finalize_params(tree)
     if quantize:
         quantize_tree(tree, bits=_ON_LOAD_BITS[quantize], group_size=64,
@@ -502,3 +497,69 @@ def params_from_torch_state_dict(
     layer_map = tree.get("layers", {})
     tree["layers"] = [layer_map[str(i)] for i in range(model.num_local_layers)]
     return model.finalize_params(tree)
+
+
+def apply_lora_adapter(
+    model: StageModel, params: dict, adapter_path: str,
+    dtype=torch.bfloat16,
+) -> int:
+    """Merge a PEFT-format LoRA adapter into this stage's weights, in
+    place: ``W' = W + (alpha / r) * B @ A`` in float32 on the weight's
+    device, rounded once to ``dtype``; a DoRA adapter then renormalizes
+    rows to its ``lora_magnitude_vector`` (``utils/adapter.py``). Returns
+    the number of merged modules.
+
+    Call on the PRE-finalize tree (``load_stage_params(lora_path=...)``
+    does) so adapters targeting fused (``gate_up_proj``) or per-expert
+    modules still find their weights. A target already quantized raises.
+    Incomplete pairs and targets outside the stage's params are skipped
+    with a warning, as in the JAX loader."""
+    from parallax_tpu_torch.utils.adapter import (
+        adapter_entries,
+        adapter_scale,
+        apply_dora_magnitude,
+    )
+
+    acfg, st, entries = adapter_entries(adapter_path)
+    cfg = model.config
+    pairs: dict[str, dict[str, torch.Tensor]] = {}
+    for key, mod, part in entries:
+        local = shard_key_filter(mod + ".weight", model.start_layer,
+                                 model.end_layer, cfg.num_hidden_layers)
+        if local is None:
+            continue
+        pairs.setdefault(local[: -len(".weight")], {})[part] = (
+            st.get_tensor(key).float())
+
+    merged = 0
+    for module, ab in pairs.items():
+        if "A" not in ab or "B" not in ab:
+            logger.warning("lora adapter incomplete for %s; skipped", module)
+            continue
+        node = params
+        try:
+            for part in module.split("."):
+                node = node[int(part)] if part.isdigit() else node[part]
+        except (KeyError, IndexError, TypeError):
+            logger.warning("lora target %s not in stage params; skipped",
+                           module)
+            continue
+        if "weight" not in node:
+            raise ValueError(
+                f"cannot merge LoRA into quantized module {module}; load "
+                "the checkpoint in full precision (or quantize AFTER "
+                "merging with --quantization)"
+            )
+        w = node["weight"]
+        a, b = ab["A"].to(w.device), ab["B"].to(w.device)
+        delta = adapter_scale(acfg, module, a.shape[0]) * (b @ a)
+        if tuple(w.shape) != tuple(delta.shape):
+            raise ValueError(
+                f"LoRA shape mismatch for {module}: {tuple(w.shape)} vs "
+                f"{tuple(delta.shape)}"
+            )
+        new_w = apply_dora_magnitude(module, w.float() + delta, ab)
+        node["weight"] = new_w.to(dtype)
+        merged += 1
+    logger.info("merged %d LoRA modules from %s", merged, adapter_path)
+    return merged

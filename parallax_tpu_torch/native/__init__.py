@@ -18,8 +18,9 @@ process compiles to a temp file of its own and renames it into place, so
 processes building at once never load a half-written library, and nothing is
 written beside the source. Hybrid models' linear-state snapshots ride the
 tree's slot calls (``radix_attach_slot``, ``radix_detach_lru_slot``,
-``radix_take_freed_slots``) and the admit / release calls' slot arguments;
-LoRA namespaces are refused by name (ROADMAP queue 1 item 11).
+``radix_take_freed_slots``) and the admit / release calls' slot arguments.
+A LoRA request's tokens are XOR-salted per adapter, as the Python
+manager's are (``cache_manager.ns_salt``).
 """
 
 from __future__ import annotations
@@ -327,8 +328,7 @@ class NativeCacheManager:
         self.allocator = NativePageAllocator(num_pages)
         # rid -> number of tree-shared pages (for release's unlock walk).
         self._shared: dict[str, int] = {}
-        # Per-adapter prefix-cache namespaces (``ns_salt``); adapter
-        # requests are refused until LoRA is ported.
+        # Per-adapter prefix-cache namespaces (``ns_salt``).
         self._ns_salts: dict[str, int] = {}
         from parallax_tpu_torch.runtime.cache_manager import CacheStats
 
@@ -336,15 +336,9 @@ class NativeCacheManager:
 
     def _ns_i32(self, token_ids, lora_id) -> np.ndarray:
         """int32 tokens, XOR-salted at numpy speed for adapter requests
-        (the scheduler hot path must stay free of per-token Python). The
-        port refuses adapter requests until LoRA is ported."""
+        (the scheduler hot path must stay free of per-token Python)."""
         from parallax_tpu_torch.runtime.cache_manager import ns_salt
 
-        if lora_id is not None:
-            raise NotImplementedError(
-                f"lora_id={lora_id!r}: LoRA prefix namespaces are not ported "
-                "yet to parallax_tpu_torch (ROADMAP queue 1 item 11)"
-            )
         tokens = _as_i32(token_ids)
         salt = ns_salt(self._ns_salts, lora_id)
         if salt is not None:

@@ -26,7 +26,10 @@ from ``EngineConfig.num_pages``, as in the JAX join, so two workers share
 one card. Its host KV tier gets ``--host-cache-bytes``, by default half of
 the host's available RAM on a card and none on the CPU, as the JAX join
 sizes it. ``--qos on`` (or a ``qos/classes.parse_qos_spec`` spec) runs
-the QoS plane on the worker's local scheduler.
+the QoS plane on the worker's local scheduler. ``--lora-adapters
+name=peft_dir[,...]`` registers per-request adapters on every allocation
+(``--lora-max-adapters`` caps the hot-load LRU) and advertises them in
+heartbeats.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ def build_worker(args):
         resolve_speculative_tokens,
     )
     from parallax_tpu_torch.models.loader import load_stage_params
+    from parallax_tpu_torch.ops.lora import parse_adapter_spec
     from parallax_tpu_torch.p2p.node import WorkerNode
     from parallax_tpu_torch.p2p.transport import TcpTransport
     from parallax_tpu_torch.runtime.engine import EngineConfig
@@ -145,9 +149,12 @@ def build_worker(args):
             speculative_tokens=resolve_speculative_tokens(
                 args.speculative_tokens),
             speculative_ngram=args.speculative_ngram or 3,
+            lora_max_adapters=args.lora_max_adapters or 0,
         ),
         load_params=lambda model: load_stage_params(
             model, args.model_path, device=device),
+        # Per-request adapters, registered on every (re)allocation.
+        lora_adapters=parse_adapter_spec(args.lora_adapters),
         static_peers=[
             p.strip() for p in (args.peers or "").split(",") if p.strip()
         ],

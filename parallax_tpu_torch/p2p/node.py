@@ -109,8 +109,14 @@ prefill move drains through the handoff on later step-loop passes) and
 ``qos_shed`` (the cluster verdict, OR'd into the local controller) set
 host state only.
 
+Per-request LoRA: the worker registers its ``lora_adapters`` on every
+(re)allocation against the stage's new layer range, before the engine is
+published; its heartbeats advertise the names; ``lora_id`` rides FORWARD
+packets (and the reference protocol's ``lora_path``); a parked request's
+chain descriptor hashes in its adapter's namespace.
+
 Not ported yet, each refused by name with its ROADMAP queue 1 item: refit
-(item 12), LoRA (item 11) and tensor parallelism (item 10).
+(item 12) and tensor parallelism (item 10).
 """
 
 from __future__ import annotations
@@ -160,6 +166,7 @@ from parallax_tpu_torch.runtime.checkpoint import (
     checkpoint_from_wire,
     checkpoint_to_wire,
 )
+from parallax_tpu_torch.runtime.cache_manager import derive_ns_salt
 from parallax_tpu_torch.runtime.radix_cache import block_hash_chain
 from parallax_tpu_torch.runtime.request import (
     IntermediateRequest,
@@ -177,12 +184,6 @@ logger = get_logger(__name__)
 # heartbeat's rotation to a promoted standby): full jitter from 0.25 s,
 # doubling, capped at 2 s.
 SCHEDULER_RETRY = BackoffPolicy(base_s=0.25, cap_s=2.0)
-
-
-def _refuse_wire_request(d: dict) -> None:
-    """FORWARD packet fields whose features the port does not run yet."""
-    if d.get("lora_id") is not None:
-        raise unported("LoRA packets", 11)
 
 
 def _refuse_scheduler_reply(reply: dict) -> None:
@@ -243,6 +244,7 @@ class WorkerNode:
         watchdog: bool = False,
         watchdog_degraded_s: float = 5.0,
         watchdog_stalled_s: float = 15.0,
+        lora_adapters: dict | None = None,  # name -> PEFT dir or tree
     ):
         """``scheduler_peer`` is the scheduler's RPC address; None enters
         SCHEDULER-LESS mode, where the worker self-assigns ``layers``.
@@ -258,8 +260,11 @@ class WorkerNode:
         a live model switch (None refuses one; load_params None draws
         seeded random weights). ``watchdog`` runs the stall watchdog
         (degraded / stalled after ``watchdog_degraded_s`` /
-        ``watchdog_stalled_s`` without progress). The JAX worker's other
-        arguments (mesh, refit cache, LoRA) wait for their items; ``join``
+        ``watchdog_stalled_s`` without progress). ``lora_adapters`` (name
+        -> PEFT directory or adapter tree) are registered on every engine
+        the worker builds; one that fails to load is logged and left out,
+        so its requests abort with the reason. The JAX worker's other
+        arguments (mesh, refit cache) wait for their items; ``join``
         refuses their flags by name."""
         self.scheduler_peer = scheduler_peer
         self.standalone = scheduler_peer is None
@@ -302,6 +307,7 @@ class WorkerNode:
         self.resolve_model = resolve_model
         self._self_layers = layers
         self.tokenizer_path = tokenizer_path
+        self.lora_adapters = dict(lora_adapters or {})
         # (vocab bytes, eos id) for grammar-constrained decoding, built
         # once from the tokenizer files on the first last-stage engine.
         self._grammar_vocab: tuple | None = None
@@ -562,10 +568,20 @@ class WorkerNode:
         t0 = time.monotonic()
         model = create_stage_model(self.model_config, start, end)
         params = self.load_params(model)
-        self.engine = StageEngine(
+        engine = StageEngine(
             model, params, self.engine_config, device=self.device,
             host_hidden=True,
         )
+        for name, source in self.lora_adapters.items():
+            # Each (re)allocation re-registers every adapter against the
+            # stage's new layer range, BEFORE the engine is published: a
+            # heartbeat firing mid-registration would otherwise report an
+            # empty adapter list and drop every advertised variant.
+            try:
+                engine.load_adapter(name, source)
+            except (ValueError, OSError) as e:
+                logger.warning("adapter %r failed to load: %s", name, e)
+        self.engine = engine
         if (
             self.role == "prefill"
             and self.engine.host_tier is None
@@ -760,7 +776,7 @@ class WorkerNode:
                 "kernel": eng.kernel_dispatch_summary() if eng else None,
                 "transport": self.transport_stats(),
                 "refit_version": 0,
-                "lora_adapters": [],
+                "lora_adapters": eng.adapter_names() if eng else [],
                 "busy": self._busy_reloading,
                 # Speculation's ledger (None while it is off) and the
                 # constrained-decoding ledger (None until a feature row
@@ -1528,14 +1544,10 @@ class WorkerNode:
             # A reference-protocol peer: a raw protobuf ForwardRequest,
             # counted whole-frame.
             ireqs = interop.forward_bytes_to_ireqs(payload)
-            if any(i.lora_id is not None for i in ireqs):
-                raise unported("LoRA packets", 11)
             self._count_rx_bytes(peer, len(payload))
             for ireq in ireqs:
                 self._post(("forward", ireq))
             return "ok"
-        for wire_req in payload["reqs"]:
-            _refuse_wire_request(wire_req)
         for wire_req in payload["reqs"]:
             self._count_rx(peer, wire_req)
             self._post(("forward", proto.ireq_from_wire(wire_req)))
@@ -1999,12 +2011,20 @@ class WorkerNode:
         so the scheduler's chain prediction sees the tokens the restore
         will re-prefill."""
         history = list(req.all_token_ids) + list(req.replay_ids)
-        return {
+        d = {
             "rid": req.request_id,
             "prompt_tokens": len(history),
             "lora_id": req.lora_id,
-            "chains": {str(page): block_hash_chain(history, page)},
         }
+        if req.lora_id is not None:
+            # Adapter requests hash in the adapter's own digest namespace:
+            # deterministic per adapter id, so the scheduler's CacheIndex
+            # mirrors (fed from equally salted radix trees on every
+            # replica) score them too.
+            salt = derive_ns_salt(req.lora_id)
+            history = [t ^ salt for t in history]
+        d["chains"] = {str(page): block_hash_chain(history, page)}
+        return d
 
     def _ship_checkpoints_inner(
         self, entries: dict[str, dict], results: dict[str, tuple]

@@ -19,7 +19,9 @@ JAX factory's gates. Hybrid (linear-attention) models prefix-cache through
 linear-state snapshots (``linear_state``): a match is cut to the deepest
 node carrying a snapshot slot, which the request restores from
 (``restore_state_from``), and a released request's snapshots attach to the
-tree. LoRA namespaces are not ported yet.
+tree. A LoRA request's token stream is XOR-salted per adapter
+(``ns_tokens``) at every radix lookup and insert, so tenants never share
+pages.
 
 Ownership model: every device page has one owner — an in-flight request or
 the radix tree. Prefix-cache hits share tree-owned pages read-only, pinned
@@ -177,6 +179,15 @@ def ns_salt(salts: dict[str, int], lora_id: str | None) -> int | None:
     return salt
 
 
+def ns_tokens(salts: dict[str, int], token_ids: list[int],
+              lora_id: str | None) -> list[int]:
+    """Namespace a token stream per LoRA adapter (see ``ns_salt``)."""
+    salt = ns_salt(salts, lora_id)
+    if salt is None:
+        return token_ids
+    return [t ^ salt for t in token_ids]
+
+
 class CacheManager:
     """Host-side paged-KV bookkeeping for one pipeline stage."""
 
@@ -224,6 +235,11 @@ class CacheManager:
         self.stats = CacheStats()
         # rid -> (locked node path, number of shared tree-owned pages)
         self._locked: dict[str, tuple] = {}
+        # Per-adapter prefix-cache namespaces (``ns_tokens``).
+        self._ns_salts: dict[str, int] = {}
+
+    def _ns_tokens(self, token_ids: list[int], lora_id: str | None):
+        return ns_tokens(self._ns_salts, token_ids, lora_id)
 
     # -- capacity ---------------------------------------------------------
 
@@ -282,7 +298,8 @@ class CacheManager:
             and self.prefill_chunk_skip
             and prompt_len > 1
         ):
-            pages, full_path = self.prefix_cache.match_prefix(request.prompt_ids)
+            pages, full_path = self.prefix_cache.match_prefix(
+                self._ns_tokens(request.prompt_ids, request.lora_id))
             # Always leave >=1 prompt token to recompute so the stage emits a
             # hidden state for sampling.
             usable = min(len(pages), (prompt_len - 1) // self.page_size)
@@ -379,7 +396,8 @@ class CacheManager:
         prompt_len = request.num_prompt_tokens
         if prompt_len <= 1:
             return 0
-        pages, full_path = self.prefix_cache.match_prefix(request.prompt_ids)
+        pages, full_path = self.prefix_cache.match_prefix(
+            self._ns_tokens(request.prompt_ids, request.lora_id))
         usable = min(len(pages), (prompt_len - 1) // self.page_size)
         # Host-resident nodes in the extension would need a swap-in
         # allocation; truncate the growth at the first one (the admission
@@ -493,7 +511,7 @@ class CacheManager:
             if not self.enable_prefix_cache:
                 return False
             pages, full_path = self.prefix_cache.match_prefix(
-                request.prompt_ids)
+                self._ns_tokens(request.prompt_ids, request.lora_id))
             if len(pages) < pages_prefix:
                 return False
             path = self.prefix_cache.slice_path(full_path, pages_prefix)
@@ -581,7 +599,8 @@ class CacheManager:
             n_full = computed // self.page_size
             tail = owned[max(0, n_full - num_shared):]
             duplicates = self.prefix_cache.insert(
-                request.all_token_ids[: n_full * self.page_size],
+                self._ns_tokens(request.all_token_ids[: n_full * self.page_size],
+                                request.lora_id),
                 request.page_ids[:n_full],
             )
             self.allocator.free(duplicates + tail)
@@ -589,7 +608,8 @@ class CacheManager:
                 slot for length, slot in snapshots
                 if not (length <= n_full * self.page_size
                         and self.prefix_cache.attach_linear_slot(
-                            request.all_token_ids[:length], slot)))
+                            self._ns_tokens(request.all_token_ids[:length],
+                                            request.lora_id), slot)))
         else:
             self._free_slots(s for _, s in snapshots)
             self.allocator.free(owned)

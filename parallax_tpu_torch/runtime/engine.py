@@ -71,6 +71,7 @@ from parallax_tpu_torch.models.base import BatchInputs, StageModel
 from parallax_tpu_torch.models.registry import params_to, unported_features
 from parallax_tpu_torch.obs import names as mnames
 from parallax_tpu_torch.ops import kernel_select
+from parallax_tpu_torch.ops.lora import AdapterSet, adapter_tree_from_peft
 from parallax_tpu_torch.ops.sampling import (
     FUSED_SAMPLE_TOPK_MAX,
     apply_grammar_mask,
@@ -199,7 +200,6 @@ class EngineConfig:
 _UNPORTED = {
     "sp_threshold": None,
     "prefill_seq_parallel": False,
-    "lora_max_adapters": 0,
 }
 
 
@@ -378,6 +378,11 @@ class WindowState:
     dense_map: torch.Tensor | None = None    # i32[S, 1]
     q_lens: torch.Tensor | None = None       # i32[S]
     reset_state: torch.Tensor | None = None  # i32[S]
+    # Per-request LoRA: the batch's adapter slot (one adapter) or every
+    # token row's slot (a mixed batch), read by each step from the state,
+    # so a graph of the key serves whichever adapter the window carries.
+    lora_slot: torch.Tensor | None = None    # i64[1]
+    lora_slots: torch.Tensor | None = None   # i32[T]
 
     def _tensors(self):
         return [(f.name, getattr(self, f.name))
@@ -753,6 +758,12 @@ class StageEngine:
 
             self._graphs = WindowGraphs(self.device)
         self._last_fused_steps = 0
+        # Per-request LoRA adapters (ops/lora.py); None until the first
+        # load_adapter, so base-only serving never touches the machinery.
+        self._adapters = None
+        # The adapter stack generation the window graphs were captured
+        # over (graphs of an older stack are dropped, never replayed).
+        self._graph_lora_gen = None
         # Grammar-constrained decoding (json_schema): set by the serving
         # layer on the LAST stage via set_grammar_vocab(); per-request
         # (TokenTable, DFA state) entries keyed by request id.
@@ -814,7 +825,6 @@ class StageEngine:
                 f"prompt length {request.num_prompt_tokens} exceeds "
                 f"max_model_len {self.cfg.max_model_len}"
             )
-        _refuse_unported(request)
         # Clamp generation to the context budget so oversized max_tokens
         # finish at the length limit instead of dying on KV exhaustion.
         cap = (
@@ -853,6 +863,9 @@ class StageEngine:
                     ireq.sampling_params or {}
                 ),
                 routing_table=list(ireq.routing_table),
+                # The adapter rides the wire: this stage groups, applies
+                # and namespaces by it as the head does.
+                lora_id=ireq.lora_id,
                 # The class rides the wire so this stage's EDF order (when
                 # QoS is on here) matches the head's.
                 qos_class=ireq.qos_class,
@@ -905,6 +918,108 @@ class StageEngine:
             self._pending_hidden[rid] = (
                 h if prev is None else torch.cat([prev, h], dim=0)
             )
+
+    # -- per-request LoRA -------------------------------------------------
+
+    def load_adapter(self, name: str, source) -> None:
+        """Register a LoRA adapter for per-request serving.
+
+        ``source``: a PEFT adapter directory (this stage slices out its
+        own layers) or a prebuilt tree ``{local_layer: {"group.proj": (A,
+        B, scale)}}`` of numpy arrays or tensors. Requests carrying
+        ``lora_id=name`` are then batch-grouped by the scheduler and served
+        with the adapter's delta applied in the step."""
+        if self._adapters is None:
+            self._adapters = AdapterSet(
+                max_adapters=self.cfg.lora_max_adapters, device=self.device)
+        tree = source
+        if isinstance(source, str):
+            tree = adapter_tree_from_peft(
+                source, self.model.start_layer, self.model.end_layer)
+        # The LRU must never evict an adapter with in-flight requests:
+        # their next batch would have no weights to select. Hot-loads
+        # arrive on a control thread while the step thread mutates the
+        # scheduler dicts, so the snapshot retries on a concurrent resize
+        # and degrades to "everything is active" (no eviction this round)
+        # if it keeps racing. A request submitted after the snapshot can
+        # still lose its adapter: it is aborted with the reason at batch
+        # formation, never served on other weights.
+        active = None
+        for _ in range(8):
+            try:
+                active = {
+                    r.lora_id
+                    for r in (list(self.scheduler.running.values())
+                              + list(self.scheduler.wait_queue.values()))
+                    if r.lora_id is not None
+                }
+                break
+            except RuntimeError:   # dict resized mid-snapshot
+                continue
+        if active is None:
+            active = set(self._adapters.names)
+        self._adapters.register(name, tree, active=active)
+
+    def has_adapter(self, name: str) -> bool:
+        return self._adapters is not None and name in self._adapters
+
+    def adapter_names(self) -> list[str]:
+        """Registered per-request adapters (frontend advertising)."""
+        return self._adapters.names if self._adapters is not None else []
+
+    def _drop_unknown_adapters(self, plan: BatchPlan) -> BatchPlan:
+        """Abort the rows whose adapter this stage does not hold, with the
+        reason, instead of serving them on the base weights: the whole
+        batch of a single-adapter plan, only the bad rows of a mixed
+        one."""
+        if plan.mixed_lora:
+            bad = [seg for seg in plan.seqs
+                   if seg.request.lora_id is not None
+                   and not self.has_adapter(seg.request.lora_id)]
+            if not bad:
+                return plan
+            for seg in bad:
+                seg.request.abort(
+                    f"unknown lora adapter {seg.request.lora_id!r}")
+            return BatchPlan([s for s in plan.seqs if s not in bad],
+                             mixed_lora=True)
+        if plan.lora_id is not None and not self.has_adapter(plan.lora_id):
+            for seg in plan.seqs:
+                seg.request.abort(f"unknown lora adapter {plan.lora_id!r}")
+            return BatchPlan([])
+        return plan
+
+    def _mixed_slots(self, plan: BatchPlan, t: int) -> np.ndarray:
+        """A mixed batch's per-token slots for a bucket of ``t`` token
+        rows: each row's adapter slot over its tokens, the null slot on
+        padding."""
+        null = self._adapters.token_slot(None)
+        slots = np.full((t,), null, np.int32)
+        row = 0
+        for seg in plan.seqs:
+            n = seg.num_new_tokens
+            slots[row : row + n] = self._adapters.token_slot(
+                seg.request.lora_id)
+            row += n
+        return slots
+
+    def _lora_field(self, plan: BatchPlan, inputs: BatchInputs):
+        """The step's ``BatchInputs.lora`` (None for base traffic). The
+        slot(s) go to the device through the staging buffers. A mixed
+        batch's slot vector is sized by the bucket's token rows
+        (``positions``: a non-head stage has no ``token_ids``)."""
+        if self._adapters is None:
+            return None
+        if plan.mixed_lora:
+            t = int(inputs.positions.shape[0])
+            return self._adapters.mixed_batch_field(self._staging.put(
+                "lora_slots", self._mixed_slots(plan, t)))
+        if plan.lora_id is None:
+            return None
+        return self._adapters.batch_field(
+            plan.lora_id, self._staging.put(
+                "lora_slot",
+                np.array([self._adapters.slot_of(plan.lora_id)], np.int64)))
 
     def release(self, request_id: str, abort: bool = False) -> None:
         """Finish/abort broadcast: free this stage's state for a request.
@@ -1892,7 +2007,7 @@ class StageEngine:
         t0 = time.perf_counter()
         self._dispatch_seq += 1
         self._staging.begin()
-        plan = self._form_plan()
+        plan = self._drop_unknown_adapters(self._form_plan())
         if plan.is_empty:
             return StepTicket(
                 plan=plan, step_idx=self._step_count, t0=t0,
@@ -1943,6 +2058,7 @@ class StageEngine:
             decode_fused=self._decode_fused,
             prefill_fused=self._prefill_fused, staging=self._staging,
         )
+        inputs.lora = self._lora_field(plan, inputs)
         if fed_rows:
             inputs = self._substitute_feed(plan, inputs)
         out = self._forward(inputs)
@@ -2524,6 +2640,17 @@ class StageEngine:
             stop_tokens[i, : len(stop)] = stop
         return stop_tokens, limits, min_req
 
+    def _window_lora(self, st: WindowState) -> dict | None:
+        """A window step's ``BatchInputs.lora``: the state's slot tensor(s)
+        over the current adapter stack (a graph bakes the stack's
+        addresses; the engine drops it when the stack changes)."""
+        if st.lora_slot is not None:
+            return {"slot": st.lora_slot, "layers": self._adapters.stacked()}
+        if st.lora_slots is not None:
+            return {"slots": st.lora_slots,
+                    "layers": self._adapters.stacked()}
+        return None
+
     def _window_step(self, st: WindowState, t: int, sampled: bool,
                      fused_sample: bool, flags: dict) -> None:
         """One step of a decode window, on tensors only (the scan body of
@@ -2547,7 +2674,7 @@ class StageEngine:
             num_seqs=st.num_seqs, slot_mapping=_fit(slots, t, -1),
             logits_indices=st.logits_indices, state_slots=st.state_slots,
             dense_map=st.dense_map, q_lens=st.q_lens,
-            reset_state=st.reset_state, **flags,
+            reset_state=st.reset_state, lora=self._window_lora(st), **flags,
         )
         logits = window_feature_logits(st, self._forward(inputs))
         if sampled:
@@ -2605,7 +2732,7 @@ class StageEngine:
         if self.cfg.speculative_tokens > 0:
             s_bucket = next_bucket(max(len(plan.seqs), 1),
                                    self.spec.seq_buckets)
-            spec_w = self._spec_window_width(s_bucket)
+            spec_w = self._spec_window_width(plan, s_bucket)
         if spec_w > 0:
             # Worst case: every proposal accepted, K * (1 + width) tokens a
             # row a window. A window the planner cannot page at that width
@@ -2699,6 +2826,9 @@ class StageEngine:
             state_slots=inputs.state_slots, dense_map=inputs.dense_map,
             q_lens=inputs.q_lens, reset_state=inputs.reset_state,
         )
+        lora = self._lora_field(plan, inputs)
+        if lora is not None:
+            st.lora_slot, st.lora_slots = lora.get("slot"), lora.get("slots")
         if spec:
             props_pad = np.full((s, props.shape[1]), -1, np.int32)
             props_pad[: props.shape[0]] = props
@@ -2748,10 +2878,19 @@ class StageEngine:
 
         if self._graphs is not None:
             # Every shape the step bakes in (batch, pages, stop-set width,
-            # chain rows, feature buffers, verify width) and every branch
-            # it takes.
-            key = (t, spec, sampled, fused_sample, feats,
-                   tuple((name, tuple(x.shape)) for name, x in st._tensors()))
+            # chain rows, feature buffers, verify width, the lora form's
+            # slot tensors) and every branch it takes, and for an adapter
+            # window the stack generation whose tensors its graph reads.
+            shapes = tuple((name, tuple(x.shape)) for name, x in st._tensors())
+            if lora is not None:
+                gen = self._adapters.generation
+                if self._graph_lora_gen != gen:
+                    # A re-stack freed the tensors older graphs read.
+                    self._graphs.drop(lambda key: any(
+                        name == "lora_stack" for name, _ in key[5]))
+                    self._graph_lora_gen = gen
+                shapes += (("lora_stack", gen),)
+            key = (t, spec, sampled, fused_sample, feats, shapes)
             st = self._graphs.run(
                 key, st, step, n,
                 preserve=(self._preserve_state(st.state_slots)
@@ -2948,13 +3087,16 @@ class StageEngine:
             for ctx, b in zip(contexts, budgets)
         ], "ngram"
 
-    def _spec_window_width(self, s_bucket: int) -> int:
-        """Verify width of a speculative window over a batch of
-        ``s_bucket`` rows (0 = plain window): a single full stage, and the
-        S x (1 + width) token rows within the batch token budget. Cheap:
-        no proposal work happens until the window's pages are reserved."""
+    def _spec_window_width(self, plan: BatchPlan, s_bucket: int) -> int:
+        """Verify width of a speculative window over ``plan``, a batch of
+        ``s_bucket`` rows (0 = plain window): a single full stage, no
+        mixed-adapter batch (its per-token slot vector is one a row), and
+        the S x (1 + width) token rows within the batch token budget.
+        Cheap: no proposal work happens until the window's pages are
+        reserved."""
         p = self.cfg.speculative_tokens
-        if p <= 0 or not (self.model.is_first and self.model.is_last):
+        if (p <= 0 or plan.mixed_lora
+                or not (self.model.is_first and self.model.is_last)):
             return 0
         while p > 0 and s_bucket * (1 + p) > \
                 self.cfg.max_num_tokens_per_batch:
@@ -3043,7 +3185,8 @@ class StageEngine:
             kv_lens=kv_lens.to(torch.int32), page_indices=st.page_indices,
             cu_q_lens=st.cu_q_lens, num_seqs=st.num_seqs,
             slot_mapping=slots.reshape(-1).to(torch.int32),
-            logits_indices=st.logits_indices, **flags,
+            logits_indices=st.logits_indices, lora=self._window_lora(st),
+            **flags,
         )
         logits = self._forward(inputs)                              # [S*w, V]
         v = logits.shape[-1]
@@ -3321,12 +3464,13 @@ class StageEngine:
                 context_len=seg.context_len + len(prop),
             )
             for seg, prop in zip(plan.seqs, proposals)
-        ])
+        ], lora_id=plan.lora_id, mixed_lora=plan.mixed_lora)
         inputs = assemble(
             spec_plan, self.spec, self.cfg.page_size, self.device,
             gather_all_logits=True, prefill_fused=self._prefill_fused,
             staging=self._staging,
         )
+        inputs.lora = self._lora_field(spec_plan, inputs)
         out = self._forward(inputs)
         self._count_kernel_dispatch("spec_verify", self._prefill_impl)
         step_idx = self._step_count
@@ -3566,7 +3710,10 @@ class StageEngine:
                 s.mirror_last_chunk = bool(
                     getattr(s.request, "last_chunk_flag", True))
                 usable.append(s)
-        return BatchPlan(usable)
+        # The batch's adapter group rides on: downstream stages apply the
+        # deltas too.
+        return BatchPlan(usable, lora_id=plan.lora_id,
+                         mixed_lora=plan.mixed_lora)
 
     def _take_hidden(self, rid: str, n: int) -> torch.Tensor:
         buf = self._pending_hidden[rid]
@@ -3712,6 +3859,7 @@ class StageEngine:
                 ),
                 spec_len=spec_len,
                 cached_prefix_ids=prefix_ids,
+                lora_id=req.lora_id,
                 trace=req.traced,
                 qos_class=req.qos_class,
             ))
@@ -3884,13 +4032,3 @@ def _tensor_leaves(tree):
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _tensor_leaves(v)
-
-
-def _refuse_unported(request: Request) -> None:
-    """``submit`` refuses per-request features the port does not run yet:
-    a LoRA adapter (ROADMAP queue 1 item 11)."""
-    if request.lora_id is not None:
-        raise NotImplementedError(
-            f"request {request.request_id}: LoRA not ported yet to "
-            "parallax_tpu_torch (ROADMAP queue 1 item 11)"
-        )

@@ -15,7 +15,10 @@ and, for a traced request, a span under the stage's label. With a QoS
 policy (``qos=``) admission runs earliest-deadline-first with the
 starvation guard, the shed gate holds sheddable classes, running
 sheddable decodes park to the host tier, and batch formation orders the
-running set by deadline slack. Not ported yet: LoRA adapter grouping and
+running set by deadline slack. Per-request LoRA: a batch holds one
+adapter group, rotated round-robin over the groups with work, except a
+decode-only step with several tenants active, which forms one mixed batch
+of every tenant's rows (``BatchPlan.mixed_lora``). Not ported yet:
 sequence-parallel prefill planning.
 """
 
@@ -57,6 +60,12 @@ class BatchPlan:
     """Everything the executor needs to build device inputs for one step."""
 
     seqs: list[ScheduledSeq]
+    # The single LoRA adapter every seq in this batch uses (None = base).
+    lora_id: str | None = None
+    # Mixed-adapter DECODE batch: every row selects its own adapter (the
+    # per-token slot vector of ``ops/lora.py``), so under N active tenants
+    # each still decodes every step.
+    mixed_lora: bool = False
 
     @property
     def total_new_tokens(self) -> int:
@@ -108,6 +117,10 @@ class Scheduler:
         # linear-state snapshot taken there covers (almost) the whole
         # prompt.
         self.snapshot_page_align = snapshot_page_align
+        # Round-robin cursors over adapter groups (form_batch) and over a
+        # mixed decode batch's candidate rows (_fill_decode).
+        self._lora_cursor = 0
+        self._decode_cursor = 0
 
     # -- intake -----------------------------------------------------------
 
@@ -266,9 +279,59 @@ class Scheduler:
     def form_batch(self) -> BatchPlan:
         """Prefill-first batch under token and batch-size budgets. A long
         prompt contributes at most ``prefill_chunk_size`` tokens per step
-        and keeps its place in the running set between chunks."""
+        and keeps its place in the running set between chunks.
+
+        One LoRA adapter per batch: the batch's adapter rotates
+        round-robin over the DISTINCT adapters with schedulable work
+        (without rotation the first running request's tenant would
+        head-of-line block every other). A chosen group can still
+        schedule nothing (its only request aborts at the capacity check),
+        so the next group is tried rather than idling the step. A pure
+        decode step with several tenants forms one mixed batch instead."""
         self.check_timeouts()
         self.admit_requests()
+        groups: list = []
+        for req in self.running.values():
+            schedulable = (
+                req.status is RequestStatus.PREFILLING
+                and req.remaining_prompt_tokens() > 0
+            ) or (
+                req.status is RequestStatus.DECODING
+                and (req.ready_for_step or req.device_feed_ready)
+            )
+            if schedulable and req.lora_id not in groups:
+                groups.append(req.lora_id)
+        if not groups:
+            return BatchPlan([])
+        if len(groups) > 1 and not any(
+            req.status is RequestStatus.PREFILLING
+            and req.remaining_prompt_tokens() > 0
+            for req in self.running.values()
+        ):
+            # Pure decode with several tenants: serve EVERY tenant this
+            # step (per-tenant ITL stops scaling with the number of active
+            # adapters). Prefill keeps adapter grouping.
+            seqs = self._fill_decode(self.max_batch_size,
+                                     self.max_num_tokens_per_batch,
+                                     any_adapter=True)
+            if seqs:
+                lids = {s.request.lora_id for s in seqs}
+                if len(lids) > 1:
+                    return BatchPlan(seqs, mixed_lora=True)
+                # Capacity aborts collapsed it to one tenant after all.
+                return BatchPlan(seqs, lora_id=next(iter(lids)))
+        start = self._lora_cursor % len(groups)
+        if len(groups) > 1:
+            self._lora_cursor += 1
+        for off in range(len(groups)):
+            batch_lora = groups[(start + off) % len(groups)]
+            seqs = self._fill_batch(batch_lora)
+            if seqs:
+                return BatchPlan(seqs, lora_id=batch_lora)
+        return BatchPlan([])
+
+    def _fill_batch(self, batch_lora: str | None) -> list[ScheduledSeq]:
+        """The prefill-first loops for one adapter group."""
         seqs: list[ScheduledSeq] = []
         token_budget = self.max_num_tokens_per_batch
         running = list(self.running.values())
@@ -283,6 +346,8 @@ class Scheduler:
             if len(seqs) >= self.max_batch_size or token_budget <= 0:
                 break
             if req.status is not RequestStatus.PREFILLING or req.migrating:
+                continue
+            if req.lora_id != batch_lora:
                 continue
             # Prefix-aware chunk skipping: before the FIRST chunk ships,
             # re-consult the radix tree — a donor that released after
@@ -324,21 +389,25 @@ class Scheduler:
             token_budget -= n
 
         seqs.extend(self._fill_decode(self.max_batch_size - len(seqs),
-                                      token_budget))
-        return BatchPlan(seqs)
+                                      token_budget, batch_lora=batch_lora))
+        return seqs
 
-    def _fill_decode(self, max_seqs: int,
-                     token_budget: int) -> list[ScheduledSeq]:
-        """Ready decode rows: host-fed (``ready_for_step``) or device-fed
-        (``device_feed_ready``: the in-flight step sampled the row's next
-        token, which lives only on the device). A row preempted by an
-        earlier row of the same pass is skipped."""
+    def _fill_decode(self, max_seqs: int, token_budget: int,
+                     batch_lora: str | None = None,
+                     any_adapter: bool = False) -> list[ScheduledSeq]:
+        """Ready decode rows of one adapter group, or of every tenant at
+        once (``any_adapter``, a mixed-adapter batch): host-fed
+        (``ready_for_step``) or device-fed (``device_feed_ready``: the
+        in-flight step sampled the row's next token, which lives only on
+        the device). A row preempted by an earlier row of the same pass is
+        skipped."""
         seqs: list[ScheduledSeq] = []
         scheduled: set[str] = set()
         candidates = [
             req for req in self.running.values()
             if req.status is RequestStatus.DECODING and not req.migrating
             and (req.ready_for_step or req.device_feed_ready)
+            and (any_adapter or req.lora_id == batch_lora)
         ]
         if self.qos is not None and candidates:
             # EDF decode-batch formation: when the batch or token budget
@@ -346,6 +415,13 @@ class Scheduler:
             now = time.monotonic()
             candidates.sort(
                 key=lambda r: self.qos.order_key(r, now, guard=False))
+        elif any_adapter and candidates:
+            # The mixed path returns before form_batch's group rotation,
+            # so fairness lives here: when the budget caps the batch, a
+            # fixed order would serve the same head-of-line rows every
+            # step. Rotate the start.
+            start = self._decode_cursor % len(candidates)
+            candidates = candidates[start:] + candidates[:start]
         for req in candidates:
             if len(seqs) >= max_seqs or token_budget <= 0:
                 break
@@ -373,6 +449,8 @@ class Scheduler:
             if fed:
                 req.device_feed_ready = False
             token_budget -= 1
+        if any_adapter:
+            self._decode_cursor += len(seqs)
         return seqs
 
     # -- multi-step decode planning ---------------------------------------

@@ -78,6 +78,14 @@ class WindowGraphs:
         # what the graph pool keeps), for the HBM ledger.
         self.pool_bytes = 0
 
+    def drop(self, pred: Callable) -> int:
+        """Forget the graphs whose key satisfies ``pred`` (their static
+        buffers and pool memory go with them); returns how many."""
+        keys = [k for k in self._graphs if pred(k)]
+        for k in keys:
+            del self._graphs[k]
+        return len(keys)
+
     @property
     def captured(self) -> int:
         return len(self._graphs)

@@ -12,7 +12,8 @@ and to the metrics registry (``parallax_routing_decisions_total``,
 ``parallax_routing_dispatch_total``). Dropped with its plane: the
 conformance sanitizer's route charges (ROADMAP queue 1 item 14). The
 cache-aware router's per-tenant fairness term (``gamma`` > 0) is the JAX
-router's. Refused by name: the LoRA digest namespaces (item 11).
+router's. A LoRA request's chain hashes in its adapter's digest namespace,
+as the workers' radix trees publish it.
 """
 
 from __future__ import annotations
@@ -23,10 +24,10 @@ import random
 import time
 
 from parallax_tpu_torch.obs import names as mnames
+from parallax_tpu_torch.runtime.cache_manager import derive_ns_salt
 from parallax_tpu_torch.runtime.radix_cache import block_hash_chain
 from parallax_tpu_torch.scheduling.node import Node
 from parallax_tpu_torch.scheduling.node_management import NodeManager, Pipeline
-from parallax_tpu_torch.utils import unported
 
 
 @dataclasses.dataclass
@@ -37,8 +38,11 @@ class RequestMeta:
     block chain exactly once (memoized per block size — workers may run
     different page sizes) and compare it against the digests each head
     node's radix tree published through heartbeats. ``lora_id``,
-    ``tenant_id`` and ``qos_class`` ride the JAX RPC payloads; a LoRA
-    chain waits for the adapter namespaces (item 11).
+    ``tenant_id`` and ``qos_class`` ride the JAX RPC payloads. A LoRA
+    request hashes into its adapter's digest namespace: workers XOR-salt
+    their radix tokens with the DETERMINISTIC per-adapter salt
+    (``cache_manager.derive_ns_salt``: same adapter id, same salt, on every
+    replica), so the head-side chain reproduces here.
     """
 
     request_id: str
@@ -56,16 +60,18 @@ class RequestMeta:
         return len(self.prompt_ids or ())
 
     def chain(self, block_size: int) -> list[int]:
-        """Rolling block-hash chain of the prompt at ``block_size``."""
+        """Rolling block-hash chain of the prompt at ``block_size``, in the
+        adapter's digest namespace for a LoRA request."""
         if self.prompt_ids is None:
             return []
-        if self.lora_id is not None:
-            raise unported("LoRA digest namespaces (RequestMeta.lora_id)",
-                           11)
         got = self._chains.get(block_size)
         if got is None:
+            tokens = self.prompt_ids
+            if self.lora_id is not None:
+                salt = derive_ns_salt(self.lora_id)
+                tokens = [t ^ salt for t in tokens]
             got = self._chains[block_size] = block_hash_chain(
-                self.prompt_ids, block_size
+                tokens, block_size
             )
         return got
 

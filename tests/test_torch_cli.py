@@ -148,6 +148,9 @@ _PORTED_OBS_FLAGS = {"--trace-sample-rate", "--watchdog", "--slo", "--qos",
 # Flags once refused under ROADMAP item 11(b), weight-only quantization and
 # the float8 wire, which is ported now.
 _PORTED_QUANT_FLAGS = {"--quantization", "--wire-dtype"}
+# Flags once refused under ROADMAP item 11(c), per-request LoRA, which is
+# ported now.
+_PORTED_LORA_FLAGS = {"--lora-path", "--lora-adapters", "--lora-max-adapters"}
 
 
 @pytest.mark.parametrize("argv,item", [
@@ -174,9 +177,9 @@ _PORTED_QUANT_FLAGS = {"--quantization", "--wire-dtype"}
     (["generate", "--lora-path", "/x"], 11),
 ])
 def test_refused_flags_exit_2(checkpoint, capsys, argv, item):
-    if argv[1] in _PORTED_OBS_FLAGS | _PORTED_QUANT_FLAGS:
-        # The observability and QoS planes, quantization and the float8
-        # wire are ported: these flags pass.
+    if argv[1] in _PORTED_OBS_FLAGS | _PORTED_QUANT_FLAGS | _PORTED_LORA_FLAGS:
+        # The observability and QoS planes, quantization, the float8 wire
+        # and LoRA are ported: these flags pass.
         args = cli.build_parser().parse_args(
             [argv[0], "--model-path", checkpoint, *argv[1:]])
         assert cli.unported_flags(args) == []

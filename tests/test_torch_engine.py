@@ -286,15 +286,21 @@ def test_engine_config_host_cache_bytes_builds_the_tier(weights):
 
 
 def test_submit_refuses_lora(weights):
-    """A LoRA adapter is still refused at ``submit``, with its item."""
+    """LoRA is ported: ``submit`` takes an adapter request, and one whose
+    adapter the engine does not hold is refused at its first batch,
+    aborted with the JAX engine's reason, never served on the base
+    weights."""
     _, _, full_np = weights
     cfg = normalize_config(TINY_QWEN2)
     eng = StageEngine(create_stage_model(cfg, 0, 4),
                       params_from_numpy(full_np, "cpu"),
                       EngineConfig(**ENGINE), device="cpu")
     req = Request("x", prompt_ids=[1, 2, 3], lora_id="adapter")
-    with pytest.raises(NotImplementedError, match="LoRA.*item 11"):
-        eng.submit(req)
+    assert eng.submit(req)
+    out = eng.step()
+    assert req.status.value == "finished_abort"
+    assert req.abort_reason == "unknown lora adapter 'adapter'"
+    assert req.output_ids == [] and out.finished == [req]
     assert not eng.has_work()
 
 

@@ -15,9 +15,10 @@ tokenizer's text is meaningful), carried across with ``params_from_numpy``.
 - Sampling features (penalties, ``logit_bias``, ``logprobs``,
   ``response_format``) answer 200 with the JAX frontend's replies, streamed
   and not; an unsupported schema answers 400 as in JAX.
-- LoRA, which the engine still refuses at ``submit``, answers 501 with the
-  refusal's text, and so do the endpoints of later slices; a client that
-  disconnects stops its request.
+- An adapter the engine does not hold (the ``"lora"`` field or the
+  ``<model>:<adapter>`` name) aborts its request with the engine's reason,
+  as in the JAX frontend (502); the endpoints of later slices answer 501;
+  a client that disconnects stops its request.
 - ``StageEngine.stop_request`` inside a K = 4 decode window already in
   flight does what the JAX engine does.
 """
@@ -410,15 +411,26 @@ def test_response_format_parsing_and_400():
     ({"lora": "adapter-a"}, "LoRA"),
 ])
 def test_refused_features_answer_501(port_server, field, feature):
+    """LoRA is ported: an adapter the engine does not hold is refused by
+    the engine at its first batch, so the reply is the JAX frontend's
+    generation failure (502) with the engine's reason, never a stream of
+    the base weights."""
+    assert feature == "LoRA"
     for stream, n in ((False, 1), (True, 1), (False, 2)):
         body = {**COMPLETION, **field, "n": n}
         if stream:
             body["stream"] = True
         status, reply = port_server.request("POST", "/v1/completions", body)
-        assert status == 501, reply
-        message = reply["error"]["message"]
-        assert feature in message and "not ported yet" in message
-        assert reply["error"]["type"] == "invalid_request_error"
+        if stream:
+            # The stream had started: it ends on an abort with no token,
+            # as the JAX frontend's does.
+            assert status == 200, reply
+            assert '"finish_reason": "abort"' in reply, reply
+            assert '"completion_tokens": 0' in reply
+            continue
+        assert status == 502, reply
+        assert reply["error"]["message"] == (
+            "generation failed: unknown lora adapter 'adapter-a'")
     # Nothing is left running.
     assert not port_server.runner.pipeline.has_work()
 

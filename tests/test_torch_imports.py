@@ -77,7 +77,8 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "qos.admission", "qos.autoscaler", "router", "router.lb",
                  "testing", "testing.chaos", "testing.churn",
                  "models.glm4", "models.step3p5", "models.qwen3_next",
-                 "ops.linear_attn", "ops.quant", "ops.quant_linear"):
+                 "ops.linear_attn", "ops.quant", "ops.quant_linear",
+                 "ops.lora", "utils.adapter", "utils.st_writer"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"

@@ -353,10 +353,12 @@ def _port_load(path, **kw):
     ("quantize", "quantize='int8'"), ("lora", "lora_path="),
 ])
 def test_unported_formats_are_refused(tmp_path, case, reason):
-    """Only LoRA is refused now: each quantized format that once was (fp8
+    """Nothing is refused now: each quantized format that once was (fp8
     block weights, GPTQ, MXFP4, MLX packed words, their F8_E4M3 / U32
     tensors, on-load ``quantize=``) loads into the JAX loader's tree, u8
-    values and scales bitwise."""
+    values and scales bitwise, and so does a ``lora_path=`` merge (a rank-1
+    adapter at a power-of-two scale: every delta entry is one exact
+    product, so the merged f32 weights are bitwise)."""
     kw, raw, extra = {}, DENSE, {}
     up = "model.layers.0.mlp.up_proj"
     w = _random_tree(DENSE)["layers"][0]["mlp"]["up_proj"]["weight"]
@@ -392,15 +394,23 @@ def test_unported_formats_are_refused(tmp_path, case, reason):
     elif case == "quantize":
         kw = {"quantize": "int8"}
     else:
+        from parallax_tpu_torch.utils.st_writer import write_peft_adapter
+
+        rng = np.random.default_rng(3)
+        write_peft_adapter(str(tmp_path / "adapter"), {
+            li: {"self_attn.q_proj": (
+                     rng.standard_normal((1, w.shape[1])).astype(np.float32),
+                     rng.standard_normal((w.shape[1], 1)).astype(np.float32),
+                     0.5),
+                 "mlp.up_proj": (
+                     rng.standard_normal((1, w.shape[1])).astype(np.float32),
+                     rng.standard_normal((w.shape[0], 1)).astype(np.float32),
+                     0.5)}
+            for li in (0, 1)})
         kw = {"lora_path": str(tmp_path / "adapter")}
     if case in ("gptq", "mxfp4"):
         extra[f"{up}.weight"] = None
     _dense_ckpt(tmp_path, raw, extra)
-    if case == "lora":
-        with pytest.raises(NotImplementedError, match="not ported yet") as e:
-            _port_load(tmp_path, **kw)
-        assert reason in str(e.value)
-        return
     got = _port_load(tmp_path, dtype=torch.float32, **kw)
     jtree = jloader.load_stage_params(
         j_create_stage_model(j_normalize(raw), 0, 2, use_pallas=False),
@@ -410,6 +420,14 @@ def test_unported_formats_are_refused(tmp_path, case, reason):
     mlp = got["layers"][0]["mlp"]
     assert ("qweight" in mlp["up_proj"]) == (
         case in ("gptq", "mlx", "u32-tensor", "quantize"))
+    if case == "lora":
+        # The merge moved both targets, in both layers.
+        base = _port_load(tmp_path, dtype=torch.float32)
+        for li in (0, 1):
+            for grp, proj in (("self_attn", "q_proj"), ("mlp", "up_proj")):
+                assert not torch.equal(
+                    got["layers"][li][grp][proj]["weight"],
+                    base["layers"][li][grp][proj]["weight"])
 
 
 def test_unknown_quant_method_is_a_value_error(tmp_path):

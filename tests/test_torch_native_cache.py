@@ -387,11 +387,29 @@ def test_explicit_native_raises_on_a_failed_build(monkeypatch, tmp_path):
 
 
 def test_native_refuses_linear_state_and_lora():
-    # Linear-state snapshots are ported now (tests/test_torch_linear_prefix_
-    # cache.py holds them to the Python manager); LoRA stays refused.
+    """Linear-state snapshots are ported (tests/test_torch_linear_prefix_
+    cache.py holds them to the Python manager), and so are the LoRA
+    namespaces: the same adapter lifecycle through both managers gives the
+    same hits — a donor's pages hit under its adapter, never under another
+    adapter or the base namespace."""
     assert native.NativeCacheManager(8, 64, linear_state=True).linear_state
-    m = native.NativeCacheManager(8, 64)
-    r = Request("a", prompt_ids=[1, 2, 3], sampling_params=SamplingParams())
-    r.lora_id = "adapter"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        m.allocate_for_prompt(r)
+    prompt = list(range(1, 30))
+    hits = []
+    for m in (CacheManager(page_size=8, num_pages=64),
+              native.NativeCacheManager(page_size=8, num_pages=64)):
+        donor = _req("d", prompt)
+        donor.lora_id = "adapter"
+        assert m.allocate_for_prompt(donor)
+        donor.num_computed_tokens = len(prompt)
+        donor.status = RequestStatus.FINISHED_EOS
+        m.release(donor)
+        got = []
+        for i, lid in enumerate(("other", None, "adapter")):
+            r = _req(f"r{i}", prompt)
+            r.lora_id = lid
+            assert m.allocate_for_prompt(r)
+            got.append(r.num_cached_tokens)
+            r.status = RequestStatus.FINISHED_ABORT
+            m.release(r)
+        hits.append(got)
+    assert hits[0] == hits[1] == [0, 0, 24]

@@ -659,6 +659,17 @@ def test_refused_scheduler_options_name_their_items(kwargs, item):
 ])
 def test_refused_scheduler_calls_name_their_items(call, item):
     sched = p_sched.GlobalScheduler(normalize_config(RAW))
+    if item == "11":
+        # LoRA is ported: an adapter request's chain is the JAX
+        # RequestMeta's, in the adapter's digest namespace.
+        from parallax_tpu.scheduling.request_routing import (
+            RequestMeta as JMeta,
+        )
+
+        want = JMeta("r", prompt_ids=[1] * 9, lora_id="a").chain(8)
+        assert call(sched) == want
+        assert want != p_routing.RequestMeta("r", prompt_ids=[1] * 9).chain(8)
+        return
     with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
         call(sched)
 

@@ -472,9 +472,9 @@ def test_chat_host_answers_503_without_a_route():
 ])
 def test_refused_join_flags_exit_2(tmp_path, capsys, argv, item):
     if argv[0] in ("--trace-sample-rate", "--watchdog", "--qos",
-                   "--wire-dtype"):
-        # Ported with the observability and QoS planes and the float8
-        # wire: they pass now.
+                   "--wire-dtype", "--lora-adapters", "--lora-max-adapters"):
+        # Ported with the observability and QoS planes, the float8 wire
+        # and per-request LoRA: they pass now.
         args = cli.build_parser().parse_args(
             ["join", "--model-path", str(tmp_path), "--start-layer", "0",
              "--end-layer", "2", *argv])
@@ -534,6 +534,22 @@ def test_refused_rpcs_name_their_items(method, payload, item):
         LoopbackTransport("c", reg).call("w", method, {"reqs": [whole]})
         kind, ireq = node._inbox.get_nowait()
         assert kind == "forward" and ireq.qos_class == "batch"
+        return
+    if item == 11:
+        # LoRA is ported: an adapter packet, ours or the reference
+        # protocol's (``lora_path``), lands in the step inbox with its
+        # adapter.
+        from parallax_tpu_torch.runtime.request import IntermediateRequest
+
+        if isinstance(payload, dict):
+            payload = {"reqs": [proto.ireq_to_wire(IntermediateRequest(
+                request_id="q", routing_table=["w"], context_len=3,
+                num_new_tokens=3, token_ids=[1, 2, 3], lora_id="a"))]}
+        LoopbackTransport("c", reg).call("w", method, payload)
+        kind, ireq = node._inbox.get_nowait()
+        assert kind == "forward" and ireq.request_id == "q"
+        assert ireq.lora_id == ("a" if isinstance(payload, dict)
+                                else "tenant")
         return
     if method == proto.PROFILE:
         # Profiling is ported: an action-less frame is an error reply,
