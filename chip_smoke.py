@@ -285,6 +285,35 @@ Phases, in order; any failure raises and the script exits non-zero:
                first: both node_leaves land). Spawn to route ready, route
                ms, TTFT, decode and output tok/s beside the pipeline's and
                swarm_serve's, and the seconds the phase took.
+9a. refit_serve a weight refit on the same checkpoint (``--only
+               refit_serve`` runs http_serve and sched_serve too). The
+               donor is the same config drawn from REFIT_SEED on the card,
+               written as one safetensors file beside the checkpoint and
+               indexed with its sha256 (``p2p/refit.build_index_map``).
+               (a) In this process, with the defaults and with K1_SYNC: an
+               engine on a copy of the loaded tree serves the mix, takes
+               the donor (fetched once on the host, swapped in place by
+               ``apply_prefetched``) and serves the same mix again; a fresh
+               engine on the donor serves it too. The post-refit streams
+               are bitwise the fresh engine's, no row reuses a pre-refit
+               page (its cached tokens are the fresh engine's, the
+               invalidated pages counted), no graph is captured after the
+               refit, every weight keeps its address, allocated HBM moves
+               by less than the largest tensor, launches exact over both
+               mixes. Fetch s and GB/s, sha256 s, apply ms. (b) After
+               sched_serve (b)'s checks, on its ``run`` and two ``join``
+               processes (which got ``--compilation-cache-dir`` at the
+               build phase's directory): POST /weight/refit with the
+               donor's index, both workers at refit_version 1 on
+               /cluster/status_json, the HTTP mix again (every reply 200
+               with 32 tokens) and the greedy rows through the route RPC
+               (the byte tokenizer's text carries no ids), within
+               GREEDY_TOL of the donor's plain argmax while the old tree's
+               argmax is off by more; the joins built no library. POST to
+               both at v1 s, POST to first token s, each worker's fetch /
+               sha256 / apply figures from its ``refit:`` log line. The
+               donor file goes at the phase's end (its bytes and the free
+               disk printed).
 9b. ha_serve   scheduler HA on the same checkpoint (``--only ha_serve``
                runs http_serve first). (a) In this process: a primary
                GlobalScheduler + SchedulerService journaling to a passive
@@ -5502,7 +5531,8 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
                      swarm: bool = False, sched: bool = False,
                      ha: bool = False, relay: bool = False,
                      obs: bool = False, qos: bool = False,
-                     quant: bool = False, lora: bool = False) -> None:
+                     quant: bool = False, lora: bool = False,
+                     refit: bool = False) -> None:
     """The port's front door on Qwen2.5-7B at full width: the random tree
     written as an HF checkpoint, the CLI's ``generate`` run on it in a
     subprocess, the checkpoint loaded back bitwise, then ``serve`` (CLI
@@ -5519,7 +5549,9 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
     ``lora``, lora_serve's part (b): the same ``serve`` launch gets
     ``--lora-adapters`` (PEFT directories written beside the checkpoint)
     and answers adapter requests after the mix and the features
-    (``lora_http``)."""
+    (``lora_http``). With ``refit``, refit_serve: its donor beside the
+    checkpoint, part (a) here and part (b) inside phase_sched_serve (which
+    ``refit`` runs)."""
     import os
     import re
     import shutil
@@ -5611,9 +5643,25 @@ def phase_http_serve(torch, dev, card: str, cfg, tree: list,
         if swarm:
             phase_swarm_serve(torch, dev, card, cfg, loaded, ckpt, mix,
                               sampled, reqs)
-        if sched:
+        donor = None
+        if refit:
+            t0 = time.monotonic()
+            donor = refit_donor(torch, dev, card, cfg, ckpt)
+            refit_in_process(torch, dev, card, cfg, loaded, donor)
+            free_device_memory(torch)
+            emit({"phase": "refit_serve", "part": "a",
+                  "seconds": time.monotonic() - t0, "card": card})
+        if sched or refit:
             phase_sched_serve(torch, dev, card, cfg, loaded, ckpt, mix,
-                              sampled, reqs)
+                              sampled, reqs, refit=donor)
+        if refit:
+            os.remove(donor["path"])
+            emit({"phase": "refit_serve", "donor_removed": donor["path"],
+                  "donor_bytes": donor["bytes"],
+                  "disk_free_bytes": shutil.disk_usage(ckpt).free,
+                  "card": card})
+            del donor
+            free_device_memory(torch)
         if ha:
             phase_ha_serve(torch, dev, card, cfg, loaded, ckpt, mix,
                            sampled, reqs)
@@ -6877,7 +6925,7 @@ def _emit_sched_tails(names, procs, texts, phase="sched_serve") -> None:
 
 
 def sched_processes(torch, dev, card, cfg, params, ckpt, mix, sampled,
-                    in_process):
+                    in_process, refit=None):
     """Part (b): ``python -m parallax_tpu_torch run --min-nodes 2
     --routing cache_aware`` and two ``join --scheduler-addr`` processes
     on the checkpoint, both joins spawned before either is waited on.
@@ -6889,10 +6937,15 @@ def sched_processes(torch, dev, card, cfg, params, ckpt, mix, sampled,
     status's routing section (the rates are r0-r6's, r7's TTFT its own). Every reply 200 with 32 tokens; the greedy
     rows once more through a SwarmClient over the route_request RPC,
     their ids counted against part (a)'s and checked against the plain
-    path; clean logs; every process exits 0 within 30 s of SIGTERM."""
+    path; clean logs; every process exits 0 within 30 s of SIGTERM. The
+    joins build into and load from the build phase's directory
+    (``--compilation-cache-dir``). With ``refit`` (``refit_donor``'s),
+    refit_serve's part (b) runs on the same processes before the
+    SIGTERM."""
     import os
 
     from parallax_tpu_torch.backend.run import SwarmClient
+    from parallax_tpu_torch.ops import cuda_kernels as ck
     from parallax_tpu_torch.p2p.transport import TcpTransport
     from parallax_tpu_torch.runtime.request import Request, SamplingParams
 
@@ -6926,7 +6979,8 @@ def sched_processes(torch, dev, card, cfg, params, ckpt, mix, sampled,
         for i in (1, 2):
             spawn(["join", "--scheduler-addr", rpc, "--model-path", ckpt,
                    "--advertise-addr", "127.0.0.1", "--port", "0",
-                   "--device", str(dev)], i)
+                   "--device", str(dev), "--compilation-cache-dir",
+                   ck.BUILD_DIR], i)
 
         def ready() -> bool:
             if any(p.poll() is not None for p in procs):
@@ -6989,6 +7043,12 @@ def sched_processes(torch, dev, card, cfg, params, ckpt, mix, sampled,
             if not ev.wait(HTTP_TIMEOUT_S):
                 raise AssertionError("sched_serve (b): an RPC request hung")
         status_end = _status_json(port)
+        if refit is not None:
+            t_refit = time.monotonic()
+            refit_run = _refit_swarm(
+                port, client, refit, mix,
+                {i: in_process[i].prompt_ids for i in greedy})
+            refit_run["seconds"] = time.monotonic() - t_refit
         # SIGTERM: the workers first (each says node_leave), then run.
         t_term = time.monotonic()
         for p in procs[1:]:
@@ -7075,10 +7135,13 @@ def sched_processes(torch, dev, card, cfg, params, ckpt, mix, sampled,
           "exit_after_sigterm_s": exit_s,
           "worker_dispatch": worker_dispatch,
           **FIGURES["sched_http"], "card": card})
+    if refit is not None:
+        refit_swarm_checks(torch, dev, card, cfg, params, refit, refit_run,
+                           mix, names[1:], texts[1:])
 
 
 def phase_sched_serve(torch, dev, card, cfg, params, ckpt, mix, sampled,
-                      served) -> None:
+                      served, refit=None) -> None:
     """The scheduler-assigned swarm on Qwen2.5-7B at full width: part (a)
     in this process (one 14 + 14 pipeline, leave and rejoin), part (b) as
     ``run`` and two ``join --scheduler-addr`` processes (two replicas);
@@ -7089,12 +7152,289 @@ def phase_sched_serve(torch, dev, card, cfg, params, ckpt, mix, sampled,
                                   sampled)
     free_device_memory(torch)
     sched_processes(torch, dev, card, cfg, params, ckpt, mix, sampled,
-                    in_process)
+                    in_process, refit=refit)
     emit({"phase": "sched_serve", "compare": {
         k: FIGURES.get(k) for k in ("pipeline", "http", "swarm_in_process",
                                     "swarm_http", "swarm_http_warm",
                                     "sched_in_process", "sched_http")},
         "phase_s": time.monotonic() - t0, "card": card})
+
+
+# -- refit_serve: a weight refit, in place under the window graphs ------------
+
+REFIT_SEED = 1       # the donor's generator seed (the served tree's is 0)
+REFIT_RUNS = (("fused", None), ("fused_k1_sync", K1_SYNC))
+REFIT_V1_S = 180     # POST to both workers at version 1, at most
+
+
+def clone_tree(tree):
+    """A tree with every tensor copied (an engine refitted in place must
+    not write into the tree the later phases read)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(v) for v in tree]
+    return tree.clone()
+
+
+def refit_donor(torch, dev, card, cfg, ckpt: str) -> dict:
+    """The donor: ``cfg`` drawn from REFIT_SEED on the card, written as one
+    safetensors file in a directory beside the checkpoint's files, and its
+    index (every tensor with the file's sha256)."""
+    import os
+    import shutil
+
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.p2p.refit import build_index_map
+    from parallax_tpu_torch.utils.st_writer import write_safetensors
+
+    model = create_stage_model(cfg, 0, cfg.num_hidden_layers)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(REFIT_SEED)
+    tree = model.init_params(gen, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    tensors = hf_tensors(tree)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+    d = os.path.join(ckpt, "refit")
+    os.makedirs(d)
+    path = os.path.join(d, "v1.safetensors")
+    free = shutil.disk_usage(d).free
+    if free < nbytes + (1 << 30):
+        raise AssertionError(f"refit_serve: {free} bytes free under {d}, "
+                             f"the donor needs {nbytes}")
+    t0 = time.monotonic()
+    write_safetensors(path, tensors)
+    write_s = time.monotonic() - t0
+    del tensors
+    t0 = time.monotonic()
+    index = build_index_map(path)
+    index_s = time.monotonic() - t0
+    emit({"phase": "refit_serve", "donor": path, "seed": REFIT_SEED,
+          "bytes": nbytes, "tensors": len(index), "disk_free_bytes": free,
+          "write_s": write_s, "index_sha256_s": index_s,
+          "index_gb_per_s": nbytes / index_s / 1e9,
+          "page_cache": "warm (written just before)", "card": card})
+    return {"tree": tree, "path": path, "index": index, "bytes": nbytes}
+
+
+def _refit_drive(torch, engine, vocab: int, tag: str):
+    """The mix through one engine's drive_step loop, its request ids
+    tagged (an engine serves the mix twice)."""
+    from parallax_tpu_torch.runtime.engine import drive_step
+
+    reqs, sampled = make_requests(vocab)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for r in reqs:
+        r.request_id = f"{r.request_id}-{tag}"
+        r.arrival_time = t0
+        engine.submit(r)
+    pending = None
+    while engine.has_work() or pending is not None:
+        _, pending = drive_step(engine, pending)
+    torch.cuda.synchronize()
+    return reqs, sampled, t0, time.monotonic()
+
+
+def refit_in_process(torch, dev, card, cfg, loaded, donor) -> None:
+    """Part (a): each of REFIT_RUNS refits an engine in place between two
+    passes of the mix and is held against a fresh engine on the donor."""
+    from parallax_tpu_torch.models import create_stage_model
+    from parallax_tpu_torch.ops import cuda_kernels as ck
+    from parallax_tpu_torch.p2p.refit import (
+        apply_prefetched,
+        fetch_refit_tensors,
+    )
+    from parallax_tpu_torch.runtime.engine import StageEngine
+
+    n = cfg.num_hidden_layers
+    largest = max(t.numel() * t.element_size() for t in _leaves(loaded))
+
+    def engine(params, kw):
+        return StageEngine(create_stage_model(cfg, 0, n), params,
+                           engine_config(True, **(kw or {})), device=dev)
+
+    fetched = fetch = None
+    for mode, kw in REFIT_RUNS:
+        eng = engine(clone_tree(loaded), kw)
+        ck.reset_launches()
+        _refit_drive(torch, eng, cfg.vocab_size, "before")
+        captured = eng.kernel_dispatch_summary().get("graphs", {}).get(
+            "captured", 0)
+        ptrs = [t.data_ptr() for t in _leaves(eng.params)]
+        cached_pages = eng.cache.prefix_cache.num_cached_pages
+        if fetched is None:
+            # The worker's refit-fetch thread's work, here on this thread:
+            # host memory only.
+            stats = {}
+            t0 = time.monotonic()
+            fetched = fetch_refit_tensors(eng, donor["index"], stats=stats)
+            fetch = {**stats, "wall_s": time.monotonic() - t0,
+                     "fetch_gb_per_s": stats["bytes"] / stats["fetch_s"]
+                     / 1e9,
+                     "sha256_gb_per_s": stats["bytes"] / stats["sha256_s"]
+                     / 1e9}
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        applied = apply_prefetched(eng, fetched, 1)
+        torch.cuda.synchronize()
+        apply_ms = (time.perf_counter() - t0) * 1e3
+        mem1 = torch.cuda.memory_allocated(dev)
+        invalidated = eng.cache.stats.pages_invalidated
+        if applied != len(fetched) or applied != len(donor["index"]):
+            raise AssertionError(f"refit_serve (a) {mode}: {applied} of "
+                                 f"{len(donor['index'])} tensors applied")
+        if [t.data_ptr() for t in _leaves(eng.params)] != ptrs:
+            raise AssertionError(f"refit_serve (a) {mode}: a weight moved")
+        if mem1 - mem0 > largest:
+            raise AssertionError(f"refit_serve (a) {mode}: HBM grew by "
+                                 f"{mem1 - mem0} bytes (largest tensor "
+                                 f"{largest})")
+        if cached_pages <= 0 or invalidated != cached_pages:
+            raise AssertionError(f"refit_serve (a) {mode}: {invalidated} "
+                                 f"pages invalidated of {cached_pages}")
+        after, _, t1, t2 = _refit_drive(torch, eng, cfg.vocab_size, "after")
+        launches = ck.launches()
+        summary = eng.kernel_dispatch_summary()
+        graphs = summary.get("graphs", {})
+        check_launches("refit_serve", f"a_{mode}", launches,
+                       gqa_expected("fused", summary, n), summary)
+        if kw is None:
+            check_windows("refit_serve", f"a_{mode}", summary, True)
+        if graphs.get("captured", 0) != captured:
+            raise AssertionError(f"refit_serve (a) {mode}: "
+                                 f"{graphs.get('captured')} graphs after the "
+                                 f"refit, {captured} before")
+        del eng
+        free_device_memory(torch)
+        fresh = engine(donor["tree"], kw)
+        want, _, t3, t4 = _refit_drive(torch, fresh, cfg.vocab_size,
+                                       "fresh")
+        del fresh
+        free_device_memory(torch)
+        same = sum(a.output_ids == b.output_ids for a, b in zip(after, want))
+        if same != len(want) or any(len(r.output_ids) != 32 for r in after):
+            raise AssertionError(f"refit_serve (a) {mode}: {same} of "
+                                 f"{len(want)} streams the fresh engine's")
+        got_cached = [r.num_cached_tokens for r in after]
+        if got_cached != [r.num_cached_tokens for r in want] or any(
+                got_cached[:-1]):
+            raise AssertionError(f"refit_serve (a) {mode}: cached tokens "
+                                 f"{got_cached}, the fresh engine's "
+                                 f"{[r.num_cached_tokens for r in want]}")
+        emit({"phase": "refit_serve", "part": "a_in_process", "mode": mode,
+              "tensors": applied, "apply_ms": apply_ms,
+              "hbm_allocated_delta_bytes": mem1 - mem0,
+              "largest_tensor_bytes": largest,
+              "pages_invalidated": invalidated,
+              "streams_bitwise_fresh_engine": f"{same} of {len(want)}",
+              "cached_tokens_after": got_cached,
+              "graphs_captured": graphs.get("captured", 0),
+              "graphs_captured_after_refit": 0, "graph_replays":
+              graphs.get("replays", 0), "weight_pointers": "unchanged",
+              "launches": launches,
+              "after": stream_metrics(after, t1, t2),
+              "fresh_engine": stream_metrics(want, t3, t4),
+              **({"fetch": fetch} if mode == "fused" else {}),
+              "card": card})
+    del fetched
+
+
+def _refit_swarm(port: int, client, refit: dict, mix, prompts) -> dict:
+    """Part (b) on sched_serve's processes: POST the donor's index, wait
+    for both workers at version 1, then the HTTP mix and the greedy rows
+    over the route RPC. Checks that need the logs or the card come after
+    the processes ended (``refit_swarm_checks``)."""
+    from parallax_tpu_torch.runtime.request import Request, SamplingParams
+
+    t_post = time.monotonic()
+    status, reply = _post_json(port, "/weight/refit",
+                               {"index_map": refit["index"]})
+    if status != 200 or reply != {"version": 1}:
+        raise AssertionError(f"refit_serve (b): POST answered {status} "
+                             f"{reply}")
+
+    def at_v1() -> bool:
+        r = _status_json(port).get("refit") or {}
+        nodes = r.get("nodes") or {}
+        return (r.get("version") == 1 and len(nodes) == 2
+                and set(nodes.values()) == {1})
+
+    _wait_for(at_v1, t_post + REFIT_V1_S, "(b) the workers did not reach "
+              "refit_version 1", phase="refit_serve")
+    v1_s = time.monotonic() - t_post
+    outs = _send_mix(port, mix, "refit_serve")
+    again = {i: Request(f"refit-{i}", prompt_ids=list(p),
+                        sampling_params=SamplingParams(
+                            temperature=0.0, max_new_tokens=32,
+                            ignore_eos=True))
+             for i, p in prompts.items()}
+    events = []
+    for r in again.values():
+        r.routing_table = client.route(r.request_id, prompt_ids=r.prompt_ids)
+        events.append(client.submit(r))
+    for ev in events:
+        if not ev.wait(HTTP_TIMEOUT_S):
+            raise AssertionError("refit_serve (b): an RPC request hung")
+    return {"t_post": t_post, "v1_s": v1_s, "outs": outs,
+            "again": list(again.values())}
+
+
+def refit_swarm_checks(torch, dev, card, cfg, params, refit, run, mix,
+                       names, texts) -> None:
+    """Part (b)'s checks once the processes ended: replies, the greedy
+    rows on the donor (and off the old tree: the mutant "refit not
+    applied" must fail), the joins' builds and refit lines."""
+    import re
+
+    for i, (out, (_, body)) in enumerate(zip(run["outs"], mix)):
+        _rid, reason, usage, _text = _http_reply(out, body)
+        if reason != "length" or usage["completion_tokens"] != 32:
+            raise AssertionError(f"refit_serve (b) r{i}: {reason}, {usage}")
+    for r in run["again"]:
+        if r.status.value != "finished_length" or len(r.output_ids) != 32:
+            raise AssertionError(f"refit_serve (b) {r.request_id}: "
+                                 f"{r.status.value}")
+    model_ref = create_plain_model(cfg)
+    worst, *_ = greedy_check(torch, model_ref, refit["tree"], run["again"],
+                             {}, dev, tol=GREEDY_TOL)
+    old, *_ = greedy_check(torch, model_ref, params, run["again"], {}, dev)
+    del model_ref
+    if old < GREEDY_TOL:
+        raise AssertionError(f"refit_serve (b): the old tree's argmax "
+                             f"passes the check ({old}): the refit is not "
+                             "what was served")
+    workers = {}
+    for nm, text in zip(names, texts):
+        c = re.search(r"compile cache: (\{.*\})", text)
+        lines = [json.loads(x) for x in re.findall(r"refit: (\{.*\})", text)]
+        if c is None or len(lines) != 1:
+            raise AssertionError(f"refit_serve (b) {nm}: no compile-cache "
+                                 f"line or {len(lines)} refit lines")
+        builds = json.loads(c.group(1))["builds"]
+        if any(builds.values()):
+            raise AssertionError(f"refit_serve (b) {nm}: built {builds}")
+        ln = lines[0]
+        workers[nm] = {**ln, "builds": builds,
+                       "cache_dir": json.loads(c.group(1))["dir"],
+                       "fetch_gb_per_s": ln["bytes"] / ln["fetch_s"] / 1e9,
+                       "sha256_gb_per_s": ln["bytes"] / ln["sha256_s"]
+                       / 1e9}
+    figures = _swarm_http_figures(run["outs"], mix)
+    usages = [_http_reply(o, body)[2] for o, (_, body) in
+              zip(run["outs"], mix)]
+    first = min(o["t_send"] + u["ttft_ms"] / 1e3
+                for o, u in zip(run["outs"], usages) if "ttft_ms" in u)
+    emit({"phase": "refit_serve", "part": "b_processes",
+          "seconds": run["seconds"], "post_to_both_v1_s": run["v1_s"],
+          "post_to_first_token_s": first - run["t_post"],
+          "requests": len(run["outs"]), "status":
+          f"{len(run['outs'])} x 200", "greedy_rows_via_route_rpc":
+          len(run["again"]), "greedy_vs_plain_donor": "pass",
+          "largest_logit_gap": worst, "tolerance": GREEDY_TOL,
+          "old_tree_largest_gap": old, "workers": workers, **figures,
+          "card": card})
 
 
 # The impl a fused run's dispatch summary names on the card.
@@ -10790,7 +11130,8 @@ DENSE_PHASES = ("native", "spec_serve", "pp_spec", "features_serve",
                 "disagg_serve", "qos_serve", "quant_serve", "lora_serve",
                 "http_serve",
                 "swarm_serve",
-                "sched_serve", "ha_serve", "relay_serve", "obs_serve")
+                "sched_serve", "refit_serve", "ha_serve", "relay_serve",
+                "obs_serve")
 
 
 # -- qos_serve: the QoS plane, the router and the chaos harness ----------------
@@ -11107,6 +11448,23 @@ def qos_swarm(torch, dev, card, cfg, params) -> None:
                 for w in workers[1:]) >= i + 1,
                 time.monotonic() + SWARM_TIMEOUT_S,
                 f"chat{i} never handed off", "qos_serve (c)")
+            if i == 0:
+                # The handoff's target is scored on heartbeat-fed loads,
+                # and a heartbeat sent before the target admitted chat0
+                # resets the dispatch's charge: chat1 goes out once the
+                # heartbeats after the admission (three of the workers'
+                # 0.25 s) carried chat0's load.
+                _wait_for(lambda: sum(w.engine.scheduler.num_requests()
+                                      for w in workers[1:]) == 1,
+                          time.monotonic() + SWARM_TIMEOUT_S,
+                          "chat0 never admitted", "qos_serve (c)")
+                time.sleep(0.75)
+                _wait_for(lambda: sorted(
+                    sched.manager.get(w.node_id).load
+                    for w in workers[1:]) == [0, 1],
+                    time.monotonic() + SWARM_TIMEOUT_S,
+                    "chat0's load never reached the scheduler",
+                    "qos_serve (c)")
         loads = sorted(w.engine.scheduler.num_requests()
                        for w in workers[1:])
         if loads != [1, 1]:
@@ -11469,8 +11827,9 @@ def run_dense(torch, dev, card: str, want) -> dict:
     if want("lora_serve"):
         phase_lora_serve(torch, dev, card, cfg, model_full, params)
     if any(want(p) for p in ("http_serve", "swarm_serve", "sched_serve",
-                             "ha_serve", "relay_serve", "obs_serve",
-                             "qos_serve", "quant_serve", "lora_serve")):
+                             "refit_serve", "ha_serve", "relay_serve",
+                             "obs_serve", "qos_serve", "quant_serve",
+                             "lora_serve")):
         from parallax_tpu_torch.config import normalize_config
         from parallax_tpu_torch.models.presets import PRESETS
 
@@ -11485,7 +11844,8 @@ def run_dense(torch, dev, card: str, want) -> dict:
                          ha=want("ha_serve"), relay=want("relay_serve"),
                          obs=want("obs_serve"), qos=want("qos_serve"),
                          quant=want("quant_serve"),
-                         lora=want("lora_serve"))
+                         lora=want("lora_serve"),
+                         refit=want("refit_serve"))
     return paths
 
 
@@ -11519,7 +11879,8 @@ def main() -> int:
                          "http_serve,"
                          "swarm_serve, sched_serve, ha_serve, relay_serve, "
                          "obs_serve and qos_serve (each runs http_serve "
-                         "too),"
+                         "too), refit_serve (runs http_serve and "
+                         "sched_serve too),"
                          "moe_serve,"
                          "moe_profile,"
                          "mla_serve,mla_profile,dsa_serve,dsa_profile,"

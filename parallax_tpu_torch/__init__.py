@@ -10,4 +10,4 @@ plain PyTorch version beside it, which is what runs on CPU tensors.
 Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``.
 """
 
-__version__ = "0.1.0"
+from parallax_tpu_torch.version import __version__  # noqa: F401

@@ -27,8 +27,12 @@ def generate_main(args) -> int:
     )
     from parallax_tpu_torch.runtime.request import Request, SamplingParams
     from parallax_tpu_torch.utils.hw import resolve_device
+    from parallax_tpu_torch.utils.compile_cache import (
+        enable_compilation_cache,
+    )
     from parallax_tpu_torch.utils.tokenizer import load_tokenizer
 
+    enable_compilation_cache(getattr(args, "compilation_cache_dir", None))
     device = resolve_device(args.device)
     config = load_config(args.model_path)
     tokenizer = load_tokenizer(args.model_path)

@@ -15,8 +15,11 @@ JAX frontend: penalties, ``logit_bias``, ``response_format`` (its schema
 compiled at admission, 400 if unsupported) and ``logprobs`` (chat
 ``content`` entries, completions ``tokens`` / ``token_logprobs``, streamed
 and not). A request asking for a feature the engine's ``submit`` refuses
-gets HTTP 501 with that refusal's text; weight refit answers 501 "not
-ported yet". A request selects a LoRA adapter with the ``"lora"`` field or
+gets HTTP 501 with that refusal's text. ``POST /weight/refit``
+(``{"index_map": {...}}``) registers a new weight version through
+``refit_fn`` and answers ``{"version": n}``; a frontend without one
+answers 501 ``{"error": "refit unavailable"}``, as the JAX frontend does.
+A request selects a LoRA adapter with the ``"lora"`` field or
 the ``<model>:<adapter>`` model name; ``/v1/models`` lists one such
 variant per adapter that ``adapters_fn`` names, and an adapter the engine
 does not hold aborts the request (502, the engine's reason). ``/cluster/status`` (an ndjson stream) and
@@ -75,22 +78,7 @@ from parallax_tpu_torch.utils.tokenizer import (  # noqa: F401
 
 logger = get_logger(__name__)
 
-# Endpoints of the JAX frontend that wait for later slices: path (or path
-# prefix, ending in "/") -> the ROADMAP queue 1 item that ports them.
-UNPORTED_ENDPOINTS = {
-    "/weight/refit": 12,
-}
 _POLL_DEADLINE_S = 600.0
-
-
-def _unported_item(path: str) -> int | str | None:
-    item = UNPORTED_ENDPOINTS.get(path)
-    if item is not None:
-        return item
-    for prefix, item in UNPORTED_ENDPOINTS.items():
-        if prefix.endswith("/") and prefix != "/" and path.startswith(prefix):
-            return item
-    return None
 
 
 def _schema_from_body(body: dict) -> str | None:
@@ -369,7 +357,9 @@ class OpenAIFrontend:
     bad value answers 400, and ``route_fn`` gets the tenant and class.
     None = QoS off: nothing is parsed, and ``route_fn`` gets None for
     both. ``adapters_fn() -> list[str]`` names the LoRA adapters that
-    ``/v1/models`` lists as ``<model>:<adapter>`` variants."""
+    ``/v1/models`` lists as ``<model>:<adapter>`` variants.
+    ``refit_fn(index_map) -> version`` serves ``POST /weight/refit``
+    (the ``run`` frontend's: the scheduler's ``begin_refit``)."""
 
     def __init__(
         self,
@@ -389,8 +379,10 @@ class OpenAIFrontend:
         step_call=None,
         qos_config=None,
         adapters_fn=None,
+        refit_fn=None,
     ):
         self.tokenizer = tokenizer
+        self.refit_fn = refit_fn
         self.submit_fn = submit_fn
         self.route_fn = route_fn
         self.adapters_fn = adapters_fn
@@ -453,6 +445,7 @@ class OpenAIFrontend:
             ("POST", "/v1/chat/completions"): self.chat_completions,
             ("POST", "/v1/completions"): self.completions,
             ("POST", "/scheduler/init"): self.scheduler_init,
+            ("POST", "/weight/refit"): self.weight_refit,
             ("GET", "/cluster/status_json"): self.cluster_status_json,
             ("GET", "/cluster/status"): self.cluster_status_stream,
             ("GET", "/debug/device"): self.debug_device,
@@ -504,11 +497,6 @@ class OpenAIFrontend:
             if route is not None:
                 route(h)
                 return
-            item = _unported_item(path)
-            if item is not None:
-                raise _Reply(501, f"{method} {path}: not ported yet to "
-                                  f"parallax_tpu_torch (ROADMAP queue 1 "
-                                  f"item {item})")
             if any(p == path for _, p in self._routes):
                 raise _Reply(405, f"method {method} not allowed on {path}")
             raise _Reply(404, f"no route {path}")
@@ -765,6 +753,16 @@ class OpenAIFrontend:
                      "data": {"model_name": model_name,
                               "init_nodes_num": init_nodes_num,
                               **(info or {})}})
+
+    def weight_refit(self, h: _Handler) -> None:
+        """Register a weight refit (``{"index_map": {name: uri or {"uri",
+        "sha256"}}}``) and answer its version."""
+        if self.refit_fn is None:
+            h.send_json({"error": "refit unavailable"}, 501)
+            return
+        body = self._read_json(h)
+        version = self.refit_fn(body.get("index_map") or {})
+        h.send_json({"version": version})
 
     def cluster_status_json(self, h: _Handler) -> None:
         h.send_json(self.status_fn() if self.status_fn else {})

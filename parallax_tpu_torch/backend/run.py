@@ -609,6 +609,8 @@ def build_swarm_frontend(
         device_fn=device,
         profile_cluster_fn=profile_cluster,
         qos_config=qos_config,
+        # Bound through the service, so a live model switch redirects it.
+        refit_fn=lambda index: service.scheduler.begin_refit(index),
     )
     if resolve_model is not None:
         frontend.scheduler_init_fn = make_scheduler_init_fn(

@@ -322,8 +322,14 @@ def serve_main(args, on_start=None) -> int:
         device_free_memory_bytes,
         resolve_device,
     )
+    from parallax_tpu_torch.utils.compile_cache import (
+        enable_compilation_cache,
+    )
     from parallax_tpu_torch.utils.tokenizer import load_tokenizer
 
+    # Before anything builds: a restart loads the kernel and native
+    # libraries from the cache directory instead of building them again.
+    enable_compilation_cache(getattr(args, "compilation_cache_dir", None))
     qos_config = None
     if args.qos:
         from parallax_tpu_torch.qos import parse_qos_spec

@@ -61,7 +61,9 @@ def _add_engine_flags(p: argparse.ArgumentParser) -> None:
                    help="fused prefill kernels (default: on on a CUDA "
                         "device)")
     p.add_argument("--compilation-cache-dir", default=None,
-                   help="persistent compilation cache directory")
+                   help="where the kernel and native libraries build and "
+                        "load (default: $PARALLAX_TPU_COMPILE_CACHE, else "
+                        "the package's _build/; 'off' builds privately)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -241,7 +243,10 @@ def _add_join_flags(join: argparse.ArgumentParser) -> None:
                       help="torch device to run on (default cuda:0; 'cpu' "
                            "runs the plain PyTorch path)")
     join.add_argument("--port", type=int, default=0)
-    join.add_argument("--refit-cache-dir", default=None)
+    join.add_argument("--refit-cache-dir", default=None,
+                      help="keep the newest three fetched weight-refit "
+                           "versions here; a restart restores the newest "
+                           "for its layer range")
     join.add_argument("--advertise-addr", default=None,
                       help="reachable host/IP peers dial for pp-forwards "
                            "(default: the host's routed address; pass "
@@ -295,7 +300,8 @@ def _add_join_flags(join: argparse.ArgumentParser) -> None:
                            "device)")
     join.add_argument("--prefill-chunk-skip",
                       action=argparse.BooleanOptionalAction, default=True)
-    join.add_argument("--compilation-cache-dir", default=None)
+    join.add_argument("--compilation-cache-dir", default=None,
+                      help="as serve's")
     join.add_argument("--watchdog", action="store_true")
     join.add_argument("--watchdog-degraded-s", type=float, default=5.0)
     join.add_argument("--watchdog-stalled-s", type=float, default=15.0)
@@ -303,17 +309,18 @@ def _add_join_flags(join: argparse.ArgumentParser) -> None:
     join.add_argument("--lora-max-adapters", type=int, default=0)
 
 
-def unported_join_flags(args) -> list[tuple[str, int | str]]:
-    """``join``'s flags whose feature the port does not run yet, each with
-    the ROADMAP queue 1 item that ports it."""
+def _hub_path(model_path: str) -> str:
+    return (f"--model-path {model_path} (not a local directory: a hub "
+            "download)")
+
+
+def unported_join_flags(args) -> list[tuple[str, int | str | None]]:
+    """``join``'s flags whose feature the port does not run, each with the
+    ROADMAP queue 1 item that ports it (None: no item does)."""
     refused = []
     for on, flag, item in (
         (args.model_path is not None and not os.path.isdir(args.model_path),
-         f"--model-path {args.model_path} (not a local directory: a hub "
-         "download)", 12),
-        (args.refit_cache_dir is not None, "--refit-cache-dir", 12),
-        (args.compilation_cache_dir is not None, "--compilation-cache-dir",
-         12),
+         _hub_path(args.model_path), None),
         (args.sp_size > 1, f"--sp-size {args.sp_size}", 10),
     ):
         if on:
@@ -321,9 +328,10 @@ def unported_join_flags(args) -> list[tuple[str, int | str]]:
     return refused
 
 
-def unported_flags(args) -> list[tuple[str, int | str]]:
-    """The flags of ``args`` whose feature the port does not run yet, each
-    with the ROADMAP queue 1 item that ports it."""
+def unported_flags(args) -> list[tuple[str, int | str | None]]:
+    """The flags of ``args`` whose feature the port does not run, each
+    with the ROADMAP queue 1 item that ports it (None: no item does; the
+    port downloads no checkpoint)."""
     if args.command == "join":
         return unported_join_flags(args)
     if args.command in ("run", "chat", "chat-host", "lora-merge"):
@@ -334,12 +342,9 @@ def unported_flags(args) -> list[tuple[str, int | str]]:
         if on:
             refused.append((flag, item))
 
-    refuse(not os.path.isdir(args.model_path),
-           f"--model-path {args.model_path} (not a local directory: a hub "
-           "download)", 12)
+    refuse(not os.path.isdir(args.model_path), _hub_path(args.model_path),
+           None)
     refuse(args.tp_size > 1, f"--tp-size {args.tp_size}", 10)
-    refuse(args.compilation_cache_dir is not None,
-           "--compilation-cache-dir", 12)
     if args.command != "serve":
         return refused
     refuse(args.sp_size > 1, f"--sp-size {args.sp_size}", 10)
@@ -441,12 +446,18 @@ def main(argv: list[str] | None = None) -> int:
     refused = unported_flags(args)
     if refused:
         for flag, item in refused:
-            print(f"parallax-tpu-torch {args.command}: {flag}: not ported "
-                  f"yet (ROADMAP queue 1 item {item})", file=sys.stderr)
+            why = ("the port reads local checkpoint directories only"
+                   if item is None else
+                   f"not ported yet (ROADMAP queue 1 item {item})")
+            print(f"parallax-tpu-torch {args.command}: {flag}: {why}",
+                  file=sys.stderr)
         return 2
     if args.command == "serve":
         from parallax_tpu_torch.backend.serve import serve_main
+        from parallax_tpu_torch.utils.banner import boot
+        from parallax_tpu_torch.utils.hw import resolve_device
 
+        boot(resolve_device(args.device))
         return serve_main(args)
     if args.command == "join":
         from parallax_tpu_torch.p2p.join import join_main
@@ -454,7 +465,10 @@ def main(argv: list[str] | None = None) -> int:
         return join_main(args)
     if args.command == "run":
         from parallax_tpu_torch.backend.run import run_main
+        from parallax_tpu_torch.utils.banner import boot
 
+        # The scheduler host touches no device: no device line.
+        boot(None, probe=False)
         return run_main(args)
     if args.command == "chat":
         return chat_main(args)

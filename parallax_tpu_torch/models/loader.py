@@ -85,8 +85,10 @@ class SafetensorsFile:
     @classmethod
     def from_bytes(cls, data: bytes,
                    name: str = "<bytes>") -> "SafetensorsFile":
-        """The same reader over safetensors bytes in memory (a writable
-        copy, so the tensors it returns own no read-only buffer)."""
+        """The same reader over safetensors bytes in memory. ``bytes``
+        are copied into a writable buffer, so the tensors it returns own
+        no read-only one; a ``bytearray`` is read in place (the tensors
+        view it)."""
         self = cls.__new__(cls)
         self.path = name
         size = len(data)
@@ -95,7 +97,7 @@ class SafetensorsFile:
         n = int.from_bytes(data[:8], "little")
         if n > size - 8:
             raise ValueError(f"{name}: header length {n} past the end")
-        self._map = bytearray(data)
+        self._map = data if isinstance(data, bytearray) else bytearray(data)
         self._set_header(json.loads(bytes(data[8:8 + n])), n, size)
         return self
 

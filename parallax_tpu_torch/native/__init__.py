@@ -328,6 +328,10 @@ class NativeCacheManager:
         self.allocator = NativePageAllocator(num_pages)
         # rid -> number of tree-shared pages (for release's unlock walk).
         self._shared: dict[str, int] = {}
+        # rid -> the retired tree its lock belongs to (requests that held
+        # pages when a refit invalidated the prefix cache; see
+        # ``invalidate_prefix_cache``).
+        self._stale: dict[str, NativeRadixPageCache] = {}
         # Per-adapter prefix-cache namespaces (``ns_salt``).
         self._ns_salts: dict[str, int] = {}
         from parallax_tpu_torch.runtime.cache_manager import CacheStats
@@ -420,7 +424,7 @@ class NativeCacheManager:
             # Mirrors may only skip what the head skipped.
             return 0
         num_shared = self._shared.get(request.request_id)
-        if num_shared is None:
+        if num_shared is None or request.request_id in self._stale:
             return 0
         prompt_len = request.num_prompt_tokens
         if prompt_len <= 1:
@@ -461,6 +465,10 @@ class NativeCacheManager:
         snapshots = list(getattr(request, "state_snapshots", {}).values())
         if hasattr(request, "state_snapshots"):
             del request.state_snapshots
+        stale = self._stale.pop(request.request_id, None)
+        if stale is not None:
+            self._release_stale(stale, request, n_shared, snapshots)
+            return
         pages = _as_i32(request.page_ids)
         if not len(pages):
             self._free_slots(slot for _, slot in snapshots)
@@ -499,6 +507,26 @@ class NativeCacheManager:
             )
         request.page_ids = []
 
+    def _release_stale(self, tree, request, n_shared: int,
+                       snapshots) -> None:
+        """Release a request admitted before a refit: unlock its path in
+        the retired ``tree`` and free its own pages (nothing is donated:
+        its KV is the old weights'), then drop the retired tree's nodes no
+        other request holds."""
+        self._free_slots(slot for _, slot in snapshots)
+        pages = _as_i32(request.page_ids)
+        if len(pages):
+            tokens = self._ns_i32(
+                request.all_token_ids, getattr(request, "lora_id", None)
+            )
+            self._lib.cache_release(
+                tree._h, self.allocator._h, _ptr(tokens), len(tokens),
+                min(request.num_computed_tokens, len(tokens)),
+                _ptr(pages), len(pages), n_shared, 0, None, None, 0, None,
+            )
+        self.allocator.free(tree.evict(tree.num_cached_pages))
+        request.page_ids = []
+
     def _free_slots(self, slots) -> None:
         for slot in slots:
             if self.on_slot_free:
@@ -506,6 +534,22 @@ class NativeCacheManager:
 
     def reset_prefix_cache(self) -> None:
         self.allocator.free(self.prefix_cache.reset())
+
+    def invalidate_prefix_cache(self) -> int:
+        """The Python manager's ``invalidate_prefix_cache``: a fresh tree
+        replaces the old one (every adapter namespace with it), whose
+        unlocked nodes (and their snapshot slots) go now and whose locked
+        paths go as the requests holding them release. Returns the pages
+        the old tree held."""
+        old = self.prefix_cache
+        n = old.num_cached_pages
+        self.prefix_cache = NativeRadixPageCache(
+            self.page_size, on_evict_slot=self.on_slot_free)
+        for rid in self._shared:
+            self._stale.setdefault(rid, old)
+        self.allocator.free(old.evict(n))
+        self.stats.pages_invalidated += n
+        return n
 
 
 def native_available() -> bool:

@@ -29,7 +29,11 @@ sizes it. ``--qos on`` (or a ``qos/classes.parse_qos_spec`` spec) runs
 the QoS plane on the worker's local scheduler. ``--lora-adapters
 name=peft_dir[,...]`` registers per-request adapters on every allocation
 (``--lora-max-adapters`` caps the hot-load LRU) and advertises them in
-heartbeats.
+heartbeats. ``--refit-cache-dir`` keeps the newest three fetched weight
+refits, restored after a restart; ``--compilation-cache-dir`` is where
+the kernel and native libraries build and load (``utils/compile_cache``).
+At SIGTERM the worker logs, beside its dispatch and launch lines, the
+library builds it made (``compile cache:``; 0 on a cache hit).
 """
 
 from __future__ import annotations
@@ -77,7 +81,13 @@ def build_worker(args):
     )
 
     from parallax_tpu_torch.models.presets import get_preset
+    from parallax_tpu_torch.utils.compile_cache import (
+        enable_compilation_cache,
+    )
 
+    # Before anything builds: a rejoining (or autoscaled) worker loads the
+    # kernel and native libraries from the cache directory.
+    enable_compilation_cache(getattr(args, "compilation_cache_dir", None))
     standalone = args.scheduler_addr is None
     if standalone:
         if args.relay:
@@ -175,6 +185,7 @@ def build_worker(args):
         watchdog=bool(args.watchdog),
         watchdog_degraded_s=args.watchdog_degraded_s,
         watchdog_stalled_s=args.watchdog_stalled_s,
+        refit_cache_dir=args.refit_cache_dir,
     )
 
 
@@ -209,6 +220,13 @@ def join_main(args, on_start=None) -> int:
         logger.info("kernel dispatch: %s",
                     json.dumps(node.engine.kernel_dispatch_summary()))
     logger.info("kernel launches: %s", json.dumps(ck.launches()))
+    from parallax_tpu_torch.utils.compile_cache import (
+        active_cache_dir,
+        build_counts,
+    )
+
+    logger.info("compile cache: %s", json.dumps(
+        {"dir": active_cache_dir(), "builds": build_counts()}))
     logger.info("transport: %s", json.dumps(node.transport_stats()))
     from parallax_tpu_torch.obs.goodput import get_goodput
     from parallax_tpu_torch.obs.trace import get_trace_store

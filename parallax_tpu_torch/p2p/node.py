@@ -115,14 +115,25 @@ published; its heartbeats advertise the names; ``lora_id`` rides FORWARD
 packets (and the reference protocol's ``lora_path``); a parked request's
 chain descriptor hashes in its adapter's namespace.
 
-Not ported yet, each refused by name with its ROADMAP queue 1 item: refit
-(item 12) and tensor parallelism (item 10).
+Weight refit (``p2p/refit.py``): heartbeats carry the worker's
+``refit_version``; a reply naming a newer one posts ``("refit", version,
+index)``; the step thread starts one ``refit-fetch`` thread, which fetches
+and checks this stage's tensors on the host (no CUDA call), saves them to
+the ``refit_cache_dir`` store when one is set and posts them back; the
+step thread copies them into the weights in place and the engine drops
+its prefix cache. A freshly built engine serves the checkpoint's weights
+(version 0) until the newest cached version for its model and layer range
+is restored, or the scheduler's index is fetched again.
+
+Not ported yet, refused by name with its ROADMAP queue 1 item: tensor
+parallelism (item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import json
 import os
 import queue
 import threading
@@ -174,7 +185,7 @@ from parallax_tpu_torch.runtime.request import (
     RequestStatus,
     SamplingParams,
 )
-from parallax_tpu_torch.utils import get_logger, unported
+from parallax_tpu_torch.utils import get_logger
 from parallax_tpu_torch.utils.hw import detect_hardware
 from parallax_tpu_torch.utils.tokenizer import SimpleTokenizer, load_tokenizer
 
@@ -184,16 +195,6 @@ logger = get_logger(__name__)
 # heartbeat's rotation to a promoted standby): full jitter from 0.25 s,
 # doubling, capped at 2 s.
 SCHEDULER_RETRY = BackoffPolicy(base_s=0.25, cap_s=2.0)
-
-
-def _refuse_scheduler_reply(reply: dict) -> None:
-    """Scheduler reply keys whose planes the port does not run yet. Their
-    off values pass (a JAX scheduler always sends ``refit_index``). The HA
-    keys (``epoch``, ``standbys``, ``not_primary``) are the failover
-    wrapper's; ``role`` and ``qos_shed`` are the QoS plane's
-    (``WorkerNode._adopt_qos_reply``)."""
-    if reply.get("refit_index"):
-        raise unported("weight refit (refit_index)", 12)
 
 
 class WorkerNode:
@@ -245,6 +246,7 @@ class WorkerNode:
         watchdog_degraded_s: float = 5.0,
         watchdog_stalled_s: float = 15.0,
         lora_adapters: dict | None = None,  # name -> PEFT dir or tree
+        refit_cache_dir: str | None = None,
     ):
         """``scheduler_peer`` is the scheduler's RPC address; None enters
         SCHEDULER-LESS mode, where the worker self-assigns ``layers``.
@@ -263,9 +265,10 @@ class WorkerNode:
         ``watchdog_stalled_s`` without progress). ``lora_adapters`` (name
         -> PEFT directory or adapter tree) are registered on every engine
         the worker builds; one that fails to load is logged and left out,
-        so its requests abort with the reason. The JAX worker's other
-        arguments (mesh, refit cache) wait for their items; ``join``
-        refuses their flags by name."""
+        so its requests abort with the reason. ``refit_cache_dir`` keeps
+        the newest three fetched refit versions on disk
+        (``RefitVersionStore``), restored after every (re)load. The JAX
+        worker's mesh argument waits for its item."""
         self.scheduler_peer = scheduler_peer
         self.standalone = scheduler_peer is None
         # Scheduler HA (docs/ha.md): every scheduler RPC routes through a
@@ -308,6 +311,17 @@ class WorkerNode:
         self._self_layers = layers
         self.tokenizer_path = tokenizer_path
         self.lora_adapters = dict(lora_adapters or {})
+        # Weight refit: the version of the weights served (0: the
+        # checkpoint's), one fetch thread at a time, the on-disk store of
+        # fetched versions, and each applied refit's figures.
+        self.refit_version = 0
+        self._refit_fetching = False
+        self.refit_store = None
+        if refit_cache_dir:
+            from parallax_tpu_torch.p2p.refit import RefitVersionStore
+
+            self.refit_store = RefitVersionStore(refit_cache_dir)
+        self.refit_log: list[dict] = []
         # (vocab bytes, eos id) for grammar-constrained decoding, built
         # once from the tokenizer files on the first last-stage engine.
         self._grammar_vocab: tuple | None = None
@@ -532,7 +546,6 @@ class WorkerNode:
         if not reply or ("start_layer" not in reply
                          and "standby" not in reply):
             raise RuntimeError(f"join rejected: {reply}")
-        _refuse_scheduler_reply(reply)
         return reply
 
     def _apply_allocation(self, alloc: dict) -> None:
@@ -599,6 +612,12 @@ class WorkerNode:
         # Fresh engine = empty radix tree: the scheduler's digest mirror
         # for this node is stale; the next heartbeat ships a snapshot.
         self._digests_full_next = True
+        # The new engine holds the checkpoint's weights: version 0 until a
+        # cached version is restored or the scheduler's index is fetched
+        # again (its heartbeat reply carries the index while this node
+        # lags).
+        self.refit_version = 0
+        self._restore_refit_cache()
         if model.is_last:
             self._wire_grammar()
         logger.info("%s: layers [%d, %d) ready on %s (%.2f s to load and "
@@ -775,7 +794,7 @@ class WorkerNode:
                 "cache_stats": eng.cache_stats() if eng else None,
                 "kernel": eng.kernel_dispatch_summary() if eng else None,
                 "transport": self.transport_stats(),
-                "refit_version": 0,
+                "refit_version": self.refit_version,
                 "lora_adapters": eng.adapter_names() if eng else [],
                 "busy": self._busy_reloading,
                 # Speculation's ledger (None while it is off) and the
@@ -817,7 +836,6 @@ class WorkerNode:
         if reply.get("digests_resync"):
             # The scheduler saw a sequence gap: a full snapshot next beat.
             self._digests_full_next = True
-        _refuse_scheduler_reply(reply)
         self._adopt_qos_reply(reply)
         if reply.get("rejoin"):
             # The scheduler lost us (restart or heartbeat eviction).
@@ -837,6 +855,15 @@ class WorkerNode:
             ):
                 # The scheduler moved us: reload on the step thread.
                 self._post(("reload", reply))
+            else:
+                self._adopt_refit_reply(reply)
+
+    def _adopt_refit_reply(self, reply: dict) -> None:
+        """A heartbeat reply naming a newer weight version than the one
+        served posts it to the step thread (host state only)."""
+        version = reply.get("refit_version") or 0
+        if reply.get("refit_index") and version > self.refit_version:
+            self._post(("refit", version, reply["refit_index"]))
 
     def _adopt_qos_reply(self, reply: dict) -> None:
         """The QoS plane of a heartbeat reply, on host state only (this
@@ -1858,6 +1885,125 @@ class WorkerNode:
                         req.abort(f"peer {dead[0]} unreachable")
             elif kind == "reload":
                 self._apply_allocation(item[1])
+            elif kind == "refit":
+                version, index = item[1], item[2]
+                eng = self.engine
+                if (
+                    version <= self.refit_version
+                    or eng is None
+                    or self._refit_fetching
+                ):
+                    continue
+                # Fetch and checksum off the step thread: decoding must
+                # not stall on network IO. The fetch thread makes no CUDA
+                # call: its tensors stay on the host until the apply.
+                self._refit_fetching = True
+                threading.Thread(
+                    target=self._fetch_refit, args=(version, index, eng),
+                    daemon=True, name="refit-fetch",
+                ).start()
+            elif kind == "refit_apply":
+                self._apply_refit(*item[1:])
+
+    # -- weight refit ---------------------------------------------------------
+
+    def _fetch_refit(self, version: int, index: dict, eng) -> None:
+        """The refit-fetch thread: this stage's tensors as CPU tensors,
+        saved to the store when one is set, then posted back to the step
+        thread with the engine they were fetched for."""
+        from parallax_tpu_torch.p2p.refit import fetch_refit_tensors
+
+        try:
+            stats: dict = {}
+            tensors = fetch_refit_tensors(eng, index, stats=stats)
+            if self.refit_store is not None:
+                model = eng.model
+                try:
+                    t0 = time.perf_counter()
+                    self.refit_store.save(version, tensors, meta={
+                        "model_name": self.model_config.model_name,
+                        "start_layer": model.start_layer,
+                        "end_layer": model.end_layer,
+                    })
+                    stats["store_s"] = time.perf_counter() - t0
+                except Exception:
+                    logger.exception("refit v%d disk cache failed", version)
+            self._post(("refit_apply", version, tensors, eng, stats))
+        except Exception:
+            logger.exception("refit v%d fetch failed", version)
+        finally:
+            self._refit_fetching = False
+
+    def _apply_refit(self, version: int, tensors: dict, eng,
+                     stats: dict) -> None:
+        """On the step thread: swap fetched tensors into the weights in
+        place (``apply_prefetched``). A fetch made for an engine that has
+        since been rebuilt is dropped: the new engine reports its own
+        version and the scheduler's index comes again."""
+        from parallax_tpu_torch.p2p.refit import apply_prefetched
+
+        if eng is not self.engine or version <= self.refit_version:
+            return
+        try:
+            t0 = time.perf_counter()
+            n = apply_prefetched(eng, tensors, version)
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize(eng.device)
+            apply_ms = (time.perf_counter() - t0) * 1e3
+        except Exception:
+            logger.exception("refit v%d apply failed", version)
+            return
+        self.refit_version = version
+        # The prefix cache was dropped: the scheduler's digest mirror
+        # needs a full snapshot.
+        self._digests_full_next = True
+        entry = {"version": version, "tensors": n,
+                 "bytes": int(stats.get("bytes", 0)),
+                 "fetch_s": stats.get("fetch_s", 0.0),
+                 "sha256_s": stats.get("sha256_s", 0.0),
+                 "decode_s": stats.get("decode_s", 0.0),
+                 "store_s": stats.get("store_s"),
+                 "apply_ms": apply_ms,
+                 "pages_invalidated": eng.cache.stats.pages_invalidated}
+        self.refit_log.append(entry)
+        logger.info("refit: %s", json.dumps(entry))
+
+    def _restore_refit_cache(self) -> None:
+        """Reload the newest cached refit version for this model and layer
+        range after a (re)load, so a restarted worker serves the pushed
+        weights without fetching them again. Newest first, falling back
+        through older intact versions (a crash mid-save could leave the
+        newest unreadable); a version cached for another model or layer
+        range is skipped: its stage-local keys would shape-check but hold
+        other layers' weights."""
+        if self.refit_store is None or self.engine is None:
+            return
+        from parallax_tpu_torch.p2p.refit import apply_prefetched
+
+        for version in reversed(self.refit_store.versions()):
+            if version <= self.refit_version:
+                return
+            meta = self.refit_store.load_meta(version)
+            if meta is None or (
+                meta.get("model_name") != self.model_config.model_name
+                or meta.get("start_layer") != self.start_layer
+                or meta.get("end_layer") != self.end_layer
+            ):
+                logger.info(
+                    "refit cache v%d skipped (cached for %s [%s, %s))",
+                    version, (meta or {}).get("model_name"),
+                    (meta or {}).get("start_layer"),
+                    (meta or {}).get("end_layer"),
+                )
+                continue
+            try:
+                apply_prefetched(self.engine, self.refit_store.load(version),
+                                 version)
+                self.refit_version = version
+                logger.info("refit cache v%d restored", version)
+                return
+            except Exception:
+                logger.exception("refit cache restore v%d failed", version)
 
     # -- live migration -------------------------------------------------------
 

@@ -223,20 +223,29 @@ class CacheManager:
         self.linear_state = linear_state
         self.on_slot_free = on_slot_free
         self.allocator = PageAllocator(num_pages)
-        self.prefix_cache = RadixPageCache(
-            page_size, on_evict_slot=on_slot_free,
-            host_free=(
-                (lambda h: host_tier.pool.free(h))
-                if host_tier is not None else None
-            ),
-            track_digests=track_digests and enable_prefix_cache)
-        if host_tier is not None:
-            host_tier.set_evict_cb(self.prefix_cache.drop_host_page)
+        self._track_digests = track_digests and enable_prefix_cache
+        self.prefix_cache = self._new_tree()
         self.stats = CacheStats()
         # rid -> (locked node path, number of shared tree-owned pages)
         self._locked: dict[str, tuple] = {}
+        # rid -> the retired tree its pages and lock belong to: requests
+        # that held pages when a refit invalidated the prefix cache
+        # (``invalidate_prefix_cache``). Their KV is the old weights', so
+        # they release into nothing.
+        self._stale: dict[str, RadixPageCache] = {}
         # Per-adapter prefix-cache namespaces (``ns_tokens``).
         self._ns_salts: dict[str, int] = {}
+
+    def _new_tree(self) -> RadixPageCache:
+        tier = self.host_tier
+        tree = RadixPageCache(
+            self.page_size, on_evict_slot=self.on_slot_free,
+            host_free=(lambda h: tier.pool.free(h)) if tier is not None
+            else None,
+            track_digests=self._track_digests)
+        if tier is not None:
+            tier.set_evict_cb(tree.drop_host_page)
+        return tree
 
     def _ns_tokens(self, token_ids: list[int], lora_id: str | None):
         return ns_tokens(self._ns_salts, token_ids, lora_id)
@@ -380,10 +389,11 @@ class CacheManager:
         Returns the number of newly skipped tokens. Never allocates."""
         if not (self.enable_prefix_cache and self.prefill_chunk_skip):
             return 0
-        if self.linear_state:
+        if self.linear_state or request.request_id in self._stale:
             # A linear-state skip needs the snapshot wired at the skip
             # boundary (restore_state_from), which only the admission match
-            # sets up.
+            # sets up; a request admitted before a refit holds a retired
+            # tree's path.
             return 0
         if getattr(request, "mirror_head_cached", None) is not None:
             # Mirror stages may only skip what the head skipped: rows
@@ -577,7 +587,8 @@ class CacheManager:
             self.host_tier.free(handles)
             del request.host_page_handles
         path, num_shared = self._locked.pop(request.request_id, ([], 0))
-        self.prefix_cache.unlock(path)
+        stale = self._stale.pop(request.request_id, None)
+        (self.prefix_cache if stale is None else stale).unlock(path)
         # Hybrid models: the engine copied the request's linear state into
         # snapshot slots at page boundaries ((length, slot) per kind); each
         # attaches to the radix node at exactly its boundary, so a later
@@ -588,6 +599,15 @@ class CacheManager:
         if hasattr(request, "state_snapshots"):
             del request.state_snapshots
         owned = request.page_ids[num_shared:]
+        if stale is not None:
+            # Admitted before a refit: its KV is the old weights', so
+            # nothing is donated, and the retired tree drops whatever no
+            # other request still holds.
+            self._free_slots(s for _, s in snapshots)
+            self.allocator.free(owned)
+            self.allocator.free(stale.drop_unlocked())
+            request.page_ids = []
+            return
         if not owned:
             self._free_slots(s for _, s in snapshots)
             request.page_ids = []
@@ -622,6 +642,24 @@ class CacheManager:
 
     def reset_prefix_cache(self) -> None:
         self.allocator.free(self.prefix_cache.reset())
+
+    def invalidate_prefix_cache(self) -> int:
+        """The stage's weights were replaced (a refit): no later admission
+        may reuse KV computed before. A fresh tree takes the old one's
+        place, so no match reaches an old page in any adapter namespace;
+        the old tree's unreferenced nodes go now (device pages to the
+        allocator, host pages to the tier's pool, snapshot slots to the
+        engine), and the paths requests in flight hold go as those
+        requests release (``_stale``). Returns the pages (device and host)
+        the old tree held, also counted in ``stats.pages_invalidated``."""
+        old = self.prefix_cache
+        n = old.num_cached_pages + old.num_host_pages
+        self.prefix_cache = self._new_tree()
+        for rid in self._locked:
+            self._stale.setdefault(rid, old)
+        self.allocator.free(old.drop_unlocked())
+        self.stats.pages_invalidated += n
+        return n
 
     def digest_payload(self, full: bool = False) -> dict | None:
         """Prefix-digest heartbeat payload for cache-aware routing (see

@@ -495,6 +495,13 @@ class DraftProposer:
         # The proposal loop drives step() synchronously: the deferred
         # sampler would be pure overhead inside the propose budget.
         engine.cfg.overlap_steps = False
+        # The draft's kernels load from whatever compilation cache the
+        # process already chose (the serving entry points choose it before
+        # building the proposer): the proposer records that directory and
+        # never re-points it.
+        from parallax_tpu_torch.utils.compile_cache import active_cache_dir
+
+        self.compile_cache_dir = active_cache_dir()
         self.max_propose_ms = max_propose_ms
         self._counter = 0
         self.propose_s = 0.0
@@ -1043,6 +1050,23 @@ class StageEngine:
             self.scheduler.release_request(req)
             self._free_state_slot(req)
 
+    def on_weights_replaced(self) -> int:
+        """The stage's weights were overwritten in place (a refit,
+        ``p2p/refit.py::apply_prefetched``), on the thread that steps
+        this engine: from now on no admission reuses KV computed under
+        the old weights. The prefix cache is invalidated in every adapter
+        namespace, with the host tier's pages and the hybrid models'
+        linear-state snapshots it holds (``invalidate_prefix_cache``;
+        the draft's too). Requests in flight keep their own pages and
+        finish, as in the JAX package, but their pre-refit pages never
+        enter the prefix cache. The window graphs stay valid: the weights
+        kept their addresses. Returns the pages invalidated, also counted
+        in ``cache_stats()["pages_invalidated"]``."""
+        n = self.cache.invalidate_prefix_cache()
+        if self.draft is not None:
+            self.draft.engine.on_weights_replaced()
+        return n
+
     def has_work(self) -> bool:
         return self.scheduler.num_requests() > 0
 
@@ -1062,13 +1086,18 @@ class StageEngine:
         # snapshot: a heartbeat thread calls this, and the native
         # manager's counts are ctypes calls with no lock.
         snap = self._obs_snap
-        return cache_stats_summary(SimpleNamespace(
+        out = cache_stats_summary(SimpleNamespace(
             stats=self.cache.stats, num_pages=snap["num_pages"],
             num_free_pages=snap["free_pages"],
             prefix_cache=SimpleNamespace(
                 num_cached_pages=snap["cached_pages"]),
             host_tier=self.host_tier,
         ))
+        if out is not None:
+            # Tree pages weight refits made unmatchable (port only: the
+            # JAX refit keeps its prefix cache).
+            out["pages_invalidated"] = self.cache.stats.pages_invalidated
+        return out
 
     # -- live migration (runtime/checkpoint.py) ----------------------------
 

@@ -420,6 +420,37 @@ class RadixPageCache:
                     best = n
         return best
 
+    def drop_unlocked(self) -> list[int]:
+        """Drop every node no request holds, returning their device page
+        ids (host pages go back through ``host_free``, snapshot slots
+        through ``on_evict_slot``). A lock pins a whole path from the root,
+        so below an unlocked node nothing is locked: each unlocked child
+        of the root or of a locked node goes with its subtree. What stays
+        is exactly the locked paths."""
+        pages: list[int] = []
+        stack = [self._root]
+        while stack:
+            node = stack.pop()
+            for key, child in list(node.children.items()):
+                if child.lock_ref > 0:
+                    stack.append(child)
+                    continue
+                del node.children[key]
+                sub = [child]
+                while sub:
+                    n = sub.pop()
+                    sub.extend(n.children.values())
+                    self._digest_drop(n)
+                    if n.on_device:
+                        pages.append(n.page_id)
+                        self._num_pages -= 1
+                    else:
+                        self._release_host(n)
+                    if n.linear_slot is not None and self.on_evict_slot:
+                        self.on_evict_slot(n.linear_slot)
+                        n.linear_slot = None
+        return pages
+
     def reset(self) -> list[int]:
         """Drop the whole tree, returning every owned device page id
         (host-resident pages are released through ``host_free``)."""

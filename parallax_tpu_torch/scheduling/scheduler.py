@@ -16,9 +16,8 @@ mirror whose threads stay parked until ``StandbyScheduler.promote``; a
 ``fenced`` one saw a worker echo a higher epoch and mutates nothing; an
 installed ``journal`` records every replicated mutation (join, leave,
 peer_down, the heartbeat replay window, the pipeline table's diffs and
-migration_done). Not ported yet, refused by name with its ROADMAP queue
-1 item: weight refit (:meth:`begin_refit`; item 12), so the journal's
-``refit`` record has no writer here. Phase roles (role-homogeneous
+migration_done) and weight refits (:meth:`begin_refit` writes the
+``refit`` record a promoted standby replays). Phase roles (role-homogeneous
 pipelines, phase-filtered routing pools), the KV handoff's decode-pool
 targets (``pool="decode"``) and their ``disagg`` counters, live
 migration's target choice, ``where_is`` table and drain counters are the
@@ -69,7 +68,7 @@ from parallax_tpu_torch.scheduling.request_routing import (
     find_turning_points,
     make_router,
 )
-from parallax_tpu_torch.utils import get_logger, unported
+from parallax_tpu_torch.utils import get_logger
 from parallax_tpu_torch.utils.hw import HardwareInfo
 
 logger = get_logger(__name__)
@@ -491,10 +490,19 @@ class GlobalScheduler:
             self._journaled_pipelines = cur
             self._journal("pipelines", cur)
 
-    # -- planes not ported yet ----------------------------------------------
+    # -- weight refit ------------------------------------------------------
 
     def begin_refit(self, index_map: dict[str, str]) -> int:
-        raise unported("weight refit (begin_refit)", 12)
+        """Register a new weight version (weight name -> uri or {"uri",
+        "sha256"}); workers pick it up from heartbeat replies and routers
+        skip pipelines whose version lags (``p2p/refit.py``)."""
+        with self._lock:
+            self.refit_version += 1
+            self.refit_index = dict(index_map)
+            version = self.refit_version
+        self._journal("refit", {"version": version,
+                                "index": dict(index_map)})
+        return version
 
     # -- synchronous twins of the loops -------------------------------------
 
@@ -1087,6 +1095,13 @@ class GlobalScheduler:
         # targets chosen, restores reported back by target heads.
         with self._lock:
             report["migrations"] = dict(self.migration_stats)
+            # Weight refit (port only): the version registered and the one
+            # each node's heartbeats report; routing skips the laggards.
+            report["refit"] = {
+                "version": self.refit_version,
+                "nodes": {n.node_id: n.refit_version
+                          for n in self.manager.nodes()},
+            }
         return report
 
     def _log_allocation(self, event: str) -> None:

@@ -119,6 +119,8 @@ class CacheStats:
     preemptions: int = 0           # decode-OOM swap-outs to host
     resumes: int = 0               # preempted requests swapped back in
     kv_oom_aborts: int = 0         # last-resort aborts (host tier full)
+    pages_invalidated: int = 0     # tree pages a weight refit made
+    #                                unmatchable (device and host)
 
 
 def cache_stats_summary(cache) -> dict | None:

@@ -48,7 +48,7 @@ from parallax_tpu_torch.backend.scheduler_service import SchedulerService
 from parallax_tpu_torch.config import normalize_config, resolve_role
 from parallax_tpu_torch.p2p import proto
 from parallax_tpu_torch.p2p.join import build_worker
-from parallax_tpu_torch.p2p.node import WorkerNode, _refuse_scheduler_reply
+from parallax_tpu_torch.p2p.node import WorkerNode
 from parallax_tpu_torch.p2p.transport import LoopbackTransport
 from parallax_tpu_torch.runtime.checkpoint import (
     KVImage,
@@ -500,7 +500,12 @@ def test_node_join_carries_the_role(role):
             "wire_formats": list(proto.WIRE_DTYPES), "role": role})
         assert reply["role"] == role and reply["start_layer"] == 0
         assert sched.manager.get("w0").role == role
-        _refuse_scheduler_reply(reply)
+        # The worker accepts the reply whole: its refit fields (version 0,
+        # no index) ask for nothing.
+        node = WorkerNode(LoopbackTransport("w1", {}), "sched", cfg,
+                          EngineConfig(**ENGINE), device="cpu", role=role)
+        node._adopt_refit_reply(reply)
+        assert reply.get("refit_version", 0) == 0 and node._inbox.empty()
     finally:
         svc.stop()
 
@@ -508,14 +513,16 @@ def test_node_join_carries_the_role(role):
 def test_a_re_role_is_refused_as_item_9():
     """Item 9 is ported: a scheduled worker adopts a re-role in place (host
     state only, no reload) and records a ``qos_rerole`` flight event; a
-    scheduler-less worker keeps its mixed role; refit stays refused."""
+    scheduler-less worker keeps its mixed role. Item 12 is ported too: a
+    reply's newer refit version goes to the step thread, an empty index or
+    a version already served posts nothing."""
     from parallax_tpu_torch.obs.flight import get_flight
 
     cfg = normalize_config(TINY_RAW)
     for own, other in (("mixed", "prefill"), ("prefill", "decode")):
         node = WorkerNode(LoopbackTransport("w", {}), "sched", cfg,
                           EngineConfig(**ENGINE), device="cpu", role=own)
-        _refuse_scheduler_reply({"role": other})
+        node._adopt_refit_reply({"role": other})
         node._adopt_qos_reply({"role": other, "qos_shed": True})
         assert node.role == other and node.engine is None
         ev = [e for e in get_flight().events_since(0, limit=4096)[0]
@@ -525,9 +532,13 @@ def test_a_re_role_is_refused_as_item_9():
                        EngineConfig(**ENGINE), layers=(0, 4), device="cpu")
     alone._adopt_qos_reply({"role": "prefill"})
     assert alone.role == "mixed"
-    _refuse_scheduler_reply({"role": None, "refit_index": None})
-    with pytest.raises(NotImplementedError, match=r"item 12\)"):
-        _refuse_scheduler_reply({"refit_index": {"a": "b"}})
+    alone._adopt_refit_reply({"role": None, "refit_index": None})
+    assert alone._inbox.empty()
+    alone._adopt_refit_reply({"refit_index": {"a": "b"}, "refit_version": 1})
+    assert alone._inbox.get_nowait() == ("refit", 1, {"a": "b"})
+    alone.refit_version = 1
+    alone._adopt_refit_reply({"refit_index": {"a": "b"}, "refit_version": 1})
+    assert alone._inbox.empty()
 
 
 def test_disagg_target_rpc_is_served():

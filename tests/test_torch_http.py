@@ -443,14 +443,14 @@ def test_refused_features_answer_501(port_server, field, feature):
 ])
 def test_later_endpoints_answer_501(port_server, tmp_path, method, path,
                                     item):
-    """Weight refit (item 12) still answers 501. The item-9 endpoints, the
-    observability plane, are served now: each answers as the JAX
-    frontend's does."""
+    """Weight refit (item 12) is ported: a frontend without a scheduler
+    (``serve``) answers 501 ``refit unavailable``, as the JAX frontend
+    does. The item-9 endpoints, the observability plane, are served now:
+    each answers as the JAX frontend's does."""
     if item != 9:
         status, reply = port_server.request(method, path, {})
         assert status == 501
-        assert f"item {item})" in reply["error"]["message"]
-        assert "not ported yet" in reply["error"]["message"]
+        assert reply == {"error": "refit unavailable"}
         return
     if path == "/cluster/status":
         # An ndjson stream: its first record is the serve status.

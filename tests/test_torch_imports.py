@@ -78,7 +78,9 @@ def test_port_imports_without_jax_or_parallax_tpu():
                  "testing", "testing.chaos", "testing.churn",
                  "models.glm4", "models.step3p5", "models.qwen3_next",
                  "ops.linear_attn", "ops.quant", "ops.quant_linear",
-                 "ops.lora", "utils.adapter", "utils.st_writer"):
+                 "ops.lora", "utils.adapter", "utils.st_writer",
+                 "p2p.refit", "utils.compile_cache", "utils.banner",
+                 "utils.version_check", "version"):
         assert f"parallax_tpu_torch.{must}" in modules
     code = _BLOCKER + (
         "import importlib\n"

@@ -659,6 +659,15 @@ def test_refused_scheduler_options_name_their_items(kwargs, item):
 ])
 def test_refused_scheduler_calls_name_their_items(call, item):
     sched = p_sched.GlobalScheduler(normalize_config(RAW))
+    if item == "12":
+        # Weight refit is ported: the version and index the JAX
+        # scheduler registers.
+        jsched = j_sched.GlobalScheduler(j_normalize(RAW))
+        assert call(sched) == jsched.begin_refit({}) == 1
+        index = {"model.norm.weight": {"uri": "file:///x", "sha256": None}}
+        assert sched.begin_refit(index) == jsched.begin_refit(index) == 2
+        assert sched.refit_index == jsched.refit_index == index
+        return
     if item == "11":
         # LoRA is ported: an adapter request's chain is the JAX
         # RequestMeta's, in the adapter's digest namespace.

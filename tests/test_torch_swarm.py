@@ -472,9 +472,11 @@ def test_chat_host_answers_503_without_a_route():
 ])
 def test_refused_join_flags_exit_2(tmp_path, capsys, argv, item):
     if argv[0] in ("--trace-sample-rate", "--watchdog", "--qos",
-                   "--wire-dtype", "--lora-adapters", "--lora-max-adapters"):
-        # Ported with the observability and QoS planes, the float8 wire
-        # and per-request LoRA: they pass now.
+                   "--wire-dtype", "--lora-adapters", "--lora-max-adapters",
+                   "--refit-cache-dir", "--compilation-cache-dir"):
+        # Ported with the observability and QoS planes, the float8 wire,
+        # per-request LoRA and the periphery (refit cache, compilation
+        # cache): they pass now.
         args = cli.build_parser().parse_args(
             ["join", "--model-path", str(tmp_path), "--start-layer", "0",
              "--end-layer", "2", *argv])
